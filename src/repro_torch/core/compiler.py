@@ -10,12 +10,12 @@ The host-side compile (rewrite, PF search, schedule, calibration, lowering)
 is device-free and identical to the JAX package's; ``device`` only says
 where the emitted callables run — the card unless the caller asks for the
 CPU.  ``exec_mode="megakernel_grid"`` serves each bucket through one launch
-of the CUDA megakernel.
+of the CUDA megakernel; ``use_pallas=True`` on the ``interpret`` lane runs
+each fused §IV-G chain through one launch of the CUDA chain kernel.
 
-Not ported yet (they raise ``NotImplementedError``): the fused chain
-kernels (``use_pallas=True``), the persistent artifact store, and
-profile-guided compilation (``cost_source="measured"``, ``calibration``,
-``autotune``).
+Not ported yet (they raise ``NotImplementedError``): the persistent
+artifact store, and profile-guided compilation (``cost_source="measured"``,
+``calibration``, ``autotune``).
 """
 
 from __future__ import annotations
@@ -79,7 +79,10 @@ class CompiledProgram:
     pf_source: str = "cold"
     chain_split_bytes: float | None = DEFAULT_CHAIN_SPLIT_BYTES
     cost_source: str = "analytic"
-    device: torch.device = torch.device("cpu")
+    device: torch.device | None = None   # None: the card, which must exist
+
+    def __post_init__(self) -> None:
+        self.device = resolve_device(self.device)
 
     @property
     def latency_cycles(self) -> float:
@@ -236,9 +239,6 @@ class MafiaCompiler:
             raise ValueError(f"unknown exec_mode {exec_mode!r}")
         if cost_source not in ("analytic", "measured"):
             raise ValueError(f"unknown cost_source {cost_source!r}")
-        if use_pallas:
-            raise NotImplementedError(
-                "use_pallas=True needs the fused chain kernels, not ported yet")
         if artifact_store is not None:
             raise NotImplementedError("the artifact store is not ported yet")
         if (cost_source != "analytic" or autotune or calibration is not None
@@ -346,7 +346,13 @@ class MafiaCompiler:
             groups = PFGroups.build(rdfg)
             for nid, pf in assignment.items():
                 rdfg.nodes[nid].pf = pf
+        # with the fused chain kernels active, price pipelined clusters
+        # through the same chain decomposition (and cost-guided splits) the
+        # plan will execute
         sim_kw: dict[str, Any] = dict(order=self.order, groups=groups)
+        if self.use_pallas:
+            sim_kw.update(decompose_chains=True,
+                          chain_split_bytes=self.chain_split_bytes)
         if self.pipelining == "auto":
             sched_p = simulate(rdfg, assignment, pipelining=True, **sim_kw)
             sched_n = simulate(rdfg, assignment, pipelining=False, **sim_kw)

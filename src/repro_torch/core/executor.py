@@ -5,7 +5,11 @@ emits the plan; :func:`build_callable` is a thin interpreter over it, in one
 of three lanes:
 
 * ``"interpret"`` — walk the step list, one template call per step (the
-  oracle the other lanes are held against);
+  oracle the other lanes are held against); a plan lowered with
+  ``use_pallas=True`` carries fused §IV-G stage chains
+  (:class:`~repro_torch.core.lowering.ChainStep`), each one launch of the
+  CUDA chain kernel (:mod:`repro_torch.kernels.linear_pipeline`, float or
+  fixed-point variant) — for the whole bucket on the batched lane;
 * ``"megakernel"`` — run the linearize pass's
   :class:`~repro_torch.kernels.megakernel.MegakernelProgram`: each segment
   is one launch of the CUDA megakernel per sample; steps without an ISA
@@ -33,6 +37,7 @@ from repro_torch.core.lowering import (
     _resolve,
     lower,
 )
+from repro_torch.kernels.linear_pipeline import Chain, run_chain
 
 __all__ = ["build_callable", "execute"]
 
@@ -58,9 +63,6 @@ def build_callable(
     the lane (see the module docstring).  ``device`` is where the values
     live; None means the card.
     """
-    if use_pallas:
-        raise NotImplementedError(
-            "the fused chain kernels (use_pallas=True) are not ported yet")
     if plan is None:
         plan = lower(dfg, fused_clusters=fused_clusters, use_pallas=use_pallas,
                      precision=precision, qplan=qplan)
@@ -80,10 +82,6 @@ def _interpret(
     quantized = plan.precision != "float32"
     if quantized:
         from repro_torch.core import quantize as quantize_mod
-    if any(isinstance(s, ChainStep) for s in plan.steps):
-        raise NotImplementedError(
-            "plan holds fused chain steps (use_pallas=True); their kernels "
-            "are not ported yet")
     if mk:
         if plan.megakernel is None:
             raise ValueError(
@@ -93,10 +91,24 @@ def _interpret(
     allowed = set(plan.dfg.graph_inputs)
     bits = plan.bits or 8
     out_refs = {out: _resolve(plan.alias, out) for out in plan.outputs}
+    # one Chain per ChainStep: its static operands reach the device once
+    # per program, not once per call
+    chains = {id(s): Chain(s.stages, s.vecs, s.quantized, bits)
+              for s in plan.steps if isinstance(s, ChainStep)}
 
-    def exec_step(step: NodeStep, env: dict[str, Any], bdim: int | None) -> None:
-        """Execute one node step into ``env`` (the interpret walk and the
+    def exec_step(step: NodeStep | ChainStep, env: dict[str, Any],
+                  bdim: int | None) -> None:
+        """Execute one plan step into ``env`` (the interpret walk and the
         megakernel lanes' interpreted islands)."""
+        if isinstance(step, ChainStep):
+            # one chain launch: the whole bucket on the batched lane, one
+            # row per sample; only the terminal is materialized
+            val = run_chain(chains[id(step)], env[step.stream].contiguous(),
+                            [env[r].contiguous() for r in step.extras])
+            for nid in step.dead:
+                env[nid] = None
+            env[step.terminal] = val
+            return
         args = [env[r] for r in step.inputs]
         if batch and not step.inputs:
             # zero-input node (const): one value, broadcast over the bucket

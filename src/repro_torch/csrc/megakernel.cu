@@ -39,8 +39,7 @@
 // multiply-add is contracted: each term is rounded twice, as in the plain
 // PyTorch version.  Build without --use_fast_math (expf/tanhf, not __expf).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "fixed_point.cuh"
 
 #define MK_NI 12        // int32 fields per instruction
 #define MK_NF 4         // float fields per instruction
@@ -52,17 +51,6 @@ enum {
   OP_ELEM = 9, OP_STORE = 10
 };
 
-enum {
-  ST_SCALAR_MUL = 0, ST_ADD_VEC = 1, ST_SUB_VEC = 2, ST_HAD_VEC = 3,
-  ST_TANH = 4, ST_SIGMOID = 5, ST_RELU = 6, ST_EXP = 7, ST_ADD_ARR = 8,
-  ST_SUB_ARR = 9, ST_HAD_ARR = 10,
-  ST_Q_SCALAR_MUL = 16, ST_Q_ADD_VEC = 17, ST_Q_SUB_VEC = 18,
-  ST_Q_HAD_VEC = 19, ST_Q_ADD_ARR = 20, ST_Q_SUB_ARR = 21, ST_Q_HAD_ARR = 22,
-  ST_Q_UNARY = 23
-};
-
-enum { DT_F32 = 0, DT_I32 = 1, DT_I8 = 2, DT_I16 = 3 };
-
 struct MkIO {
   const void* in[MK_MAX_IO];
   void* out[MK_MAX_IO];
@@ -71,72 +59,6 @@ struct MkIO {
   int out_dtype[MK_MAX_IO];
   int out_width[MK_MAX_IO];
 };
-
-__device__ __forceinline__ int wrap_add(int a, int b) {
-  return (int)((uint32_t)a + (uint32_t)b);
-}
-__device__ __forceinline__ int wrap_sub(int a, int b) {
-  return (int)((uint32_t)a - (uint32_t)b);
-}
-__device__ __forceinline__ int wrap_mul(int a, int b) {
-  return (int)((uint32_t)a * (uint32_t)b);
-}
-__device__ __forceinline__ int shl(int a, int s) {
-  return (int)((uint32_t)a << s);
-}
-// plain arithmetic align shift: left if s >= 0, else arithmetic right
-__device__ __forceinline__ int align_shift(int x, int s) {
-  return s >= 0 ? shl(x, s) : (x >> (-s));
-}
-
-// quantize/requantize.requantize_core (and requantize_rows, element-wise)
-__device__ __forceinline__ int requant(int acc, int shift, int bits) {
-  if (shift > 0) {
-    int s = min(shift, 24);
-    acc = wrap_add(acc, 1 << (s - 1)) >> s;
-  } else if (shift < 0) {
-    int lsh = min(-shift, bits);
-    int b = 1 << (30 - lsh);
-    acc = shl(max(-b, min(acc, b)), lsh);
-  }
-  int qm = (1 << (bits - 1)) - 1;
-  return max(-qm, min(acc, qm));
-}
-
-// quantize.quantize_core: round half to even, saturate; NaN stays NaN
-// through the clamp (as torch.clamp) and converts to 0.
-__device__ __forceinline__ int quant(float y, float scale, int bits) {
-  float q = rintf(__fmul_rn(y, scale));
-  float qm = (float)((1 << (bits - 1)) - 1);
-  if (!isnan(q)) q = fminf(fmaxf(q, -qm), qm);
-  return (int)q;
-}
-
-__device__ __forceinline__ float unary(int code, float x) {
-  switch (code) {
-    case 0: return tanhf(x);
-    case 1: return 1.0f / (1.0f + expf(-x));
-    case 2: return isnan(x) ? x : (x < 0.0f ? 0.0f : x);
-    default: return expf(x);
-  }
-}
-
-__device__ __forceinline__ float load_f(const void* p, int dt, long i) {
-  switch (dt) {
-    case DT_F32: return ((const float*)p)[i];
-    case DT_I32: return (float)((const int*)p)[i];
-    case DT_I8: return (float)((const int8_t*)p)[i];
-    default: return (float)((const int16_t*)p)[i];
-  }
-}
-__device__ __forceinline__ int load_i(const void* p, int dt, long i) {
-  switch (dt) {
-    case DT_F32: return (int)((const float*)p)[i];
-    case DT_I32: return ((const int*)p)[i];
-    case DT_I8: return (int)((const int8_t*)p)[i];
-    default: return (int)((const int16_t*)p)[i];
-  }
-}
 
 __global__ void mk_segment_kernel(const int* __restrict__ instrs,
                                   const float* __restrict__ fparams,
@@ -280,38 +202,16 @@ __global__ void mk_segment_kernel(const int* __restrict__ instrs,
       case OP_ELEM: {
         const int stage = f[8], vec = f[7], olen = f[5];
         const int p0 = f[9], p1 = f[10], p2 = f[11];
+        const bool v = stage_reads_vec(stage), a = stage_reads_arr(stage);
         for (int i = tid; i < n; i += nt) {
           const int oi = olen == 1 ? 0 : i;
-          switch (stage) {
-            case ST_SCALAR_MUL: reg_f[dst + i] = __fmul_rn(reg_f[s0 + i], g[0]); break;
-            case ST_ADD_VEC: reg_f[dst + i] = __fadd_rn(reg_f[s0 + i], consts_f[vec + oi]); break;
-            case ST_SUB_VEC: reg_f[dst + i] = __fsub_rn(reg_f[s0 + i], consts_f[vec + oi]); break;
-            case ST_HAD_VEC: reg_f[dst + i] = __fmul_rn(reg_f[s0 + i], consts_f[vec + oi]); break;
-            case ST_TANH: reg_f[dst + i] = tanhf(reg_f[s0 + i]); break;
-            case ST_SIGMOID: reg_f[dst + i] = 1.0f / (1.0f + expf(-reg_f[s0 + i])); break;
-            case ST_RELU: reg_f[dst + i] = unary(2, reg_f[s0 + i]); break;
-            case ST_EXP: reg_f[dst + i] = expf(reg_f[s0 + i]); break;
-            case ST_ADD_ARR: reg_f[dst + i] = __fadd_rn(reg_f[s0 + i], reg_f[s1 + oi]); break;
-            case ST_SUB_ARR: reg_f[dst + i] = __fsub_rn(reg_f[s0 + i], reg_f[s1 + oi]); break;
-            case ST_HAD_ARR: reg_f[dst + i] = __fmul_rn(reg_f[s0 + i], reg_f[s1 + oi]); break;
-            case ST_Q_SCALAR_MUL:
-              reg_i[dst + i] = requant(wrap_mul(reg_i[s0 + i], p0), p1, bits); break;
-            case ST_Q_ADD_VEC: case ST_Q_SUB_VEC: case ST_Q_ADD_ARR: case ST_Q_SUB_ARR: {
-              const int o = stage <= ST_Q_SUB_VEC ? consts_i[vec + oi] : reg_i[s1 + oi];
-              const int a = align_shift(reg_i[s0 + i], p0), c = align_shift(o, p1);
-              const bool add = stage == ST_Q_ADD_VEC || stage == ST_Q_ADD_ARR;
-              reg_i[dst + i] = requant(add ? wrap_add(a, c) : wrap_sub(a, c), p2, bits);
-              break;
-            }
-            case ST_Q_HAD_VEC: case ST_Q_HAD_ARR: {
-              const int o = stage == ST_Q_HAD_VEC ? consts_i[vec + oi] : reg_i[s1 + oi];
-              reg_i[dst + i] = requant(wrap_mul(reg_i[s0 + i], o), p2, bits);
-              break;
-            }
-            default: {  // ST_Q_UNARY
-              float x = __fmul_rn((float)reg_i[s0 + i], g[1]);
-              reg_i[dst + i] = quant(unary(p0, x), g[3], bits);
-            }
+          if (stage < ST_Q_SCALAR_MUL) {
+            const float o = v ? consts_f[vec + oi] : a ? reg_f[s1 + oi] : g[0];
+            reg_f[dst + i] = float_stage(stage, reg_f[s0 + i], o);
+          } else {
+            const int o = v ? consts_i[vec + oi] : a ? reg_i[s1 + oi] : 0;
+            reg_i[dst + i] = q_stage(stage, reg_i[s0 + i], o, p0, p1, p2, g[1],
+                                     g[3], bits);
           }
         }
         break;

@@ -42,30 +42,23 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
-import weakref
-from pathlib import Path
 from typing import Any, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core.device import resolve_device
+from repro_torch.kernels.build import DTYPE_CODES as _DTYPE
+from repro_torch.kernels.build import STAGE_CODES as _STAGE
+from repro_torch.kernels.build import UNARY_CODES as _UNARY
+from repro_torch.kernels.build import (LAUNCHES, check_launch, load,
+                                       segment_cache)
 
 __all__ = ["Instr", "MegakernelSegment", "MegakernelProgram", "run_segment",
-           "run_segment_grid", "build_library", "LAUNCHES"]
+           "run_segment_grid", "LAUNCHES"]
 
 ISA_OPS = ("LOAD_VEC", "LOAD_MAT", "MATVEC", "SPMV", "ELEMENTWISE",
            "REQUANTIZE", "ARGMAX", "REDUCE", "SQL2", "DOT", "STORE")
-
-# launches of the CUDA kernel, counted where the wrapper launches it
-LAUNCHES: dict[str, int] = {"megakernel": 0}
-
 
 @dataclasses.dataclass(frozen=True)
 class Instr:
@@ -184,53 +177,18 @@ def _seg_out_dtypes(seg: MegakernelSegment) -> list[torch.dtype]:
 
 
 # ------------------------------------------------------------------- build
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "megakernel.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-_LIB: ctypes.CDLL | None = None
-_LIB_LOCK = threading.Lock()
-BUILD_LOG: list[str] = []             # nvcc's -Xptxas -v report of the build
-
-
-def build_library() -> Path:
-    """Compile ``csrc/megakernel.cu`` for ``sm_90a`` into a shared library
-    under ``build/kernels/`` (named by the source's digest, so an edited
-    source never reuses a stale build).  Returns its path."""
-    src = _SRC.read_bytes()
-    out = BUILD_DIR / f"libmafia_megakernel_{hashlib.sha256(src).hexdigest()[:16]}.so"
-    if out.exists():
-        return out
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the CUDA megakernel cannot be built")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", tmp, str(_SRC)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    BUILD_LOG.append(res.stderr.strip())
-    os.replace(tmp, out)
-    return out
+def _declare(lib: ctypes.CDLL) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    pvp, pci = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
+    lib.mk_launch.argtypes = [vp, vp, ci, vp, vp, ci, ci, ci, ci,
+                              pvp, pci, pci, ci, pvp, pci, pci, ci,
+                              ci, ci, vp]
+    lib.mk_launch.restype = ci
+    lib.mk_max_io.restype = ci
 
 
 def _lib() -> ctypes.CDLL:
-    global _LIB
-    with _LIB_LOCK:
-        if _LIB is None:
-            lib = ctypes.CDLL(str(build_library()))
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            pvp, pci = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
-            lib.mk_launch.argtypes = [vp, vp, ci, vp, vp, ci, ci, ci, ci,
-                                      pvp, pci, pci, ci, pvp, pci, pci, ci,
-                                      ci, ci, vp]
-            lib.mk_launch.restype = ci
-            lib.mk_max_io.restype = ci
-            _LIB = lib
-    return _LIB
+    return load("megakernel", _declare)
 
 
 # -------------------------------------------------------------------- pack
@@ -238,15 +196,7 @@ _NI, _NF = 12, 4
 _OPC = {"LOAD_IN": 0, "LOAD_CONST": 1, "MATVEC": 2, "SPMV": 2, "REQ_T": 3,
         "REQ_ROWS": 4, "ARGMAX": 5, "REDUCE": 6, "SQL2": 7, "DOT": 8,
         "ELEMENTWISE": 9, "STORE": 10}
-_STAGE = {"scalar_mul": 0, "add_vec": 1, "sub_vec": 2, "hadamard_vec": 3,
-          "tanh": 4, "sigmoid": 5, "relu": 6, "exp": 7, "add_arr": 8,
-          "sub_arr": 9, "hadamard_arr": 10, "q_scalar_mul": 16,
-          "q_add_vec": 17, "q_sub_vec": 18, "q_hadamard_vec": 19,
-          "q_add_arr": 20, "q_sub_arr": 21, "q_hadamard_arr": 22,
-          "q_unary": 23}
-_UNARY = {"tanh": 0, "sigmoid": 1, "relu": 2, "exp": 3}
 _REDUCE = {"sum": 0, "max": 1, "min": 2}
-_DTYPE = {torch.float32: 0, torch.int32: 1, torch.int8: 2, torch.int16: 3}
 _THREADS = 256
 
 
@@ -409,24 +359,6 @@ def pack_segment(seg: MegakernelSegment) -> dict[str, Any]:
         in_widths=tuple(in_w[i] for i in range(len(seg.in_refs))))
 
 
-_SEG_CACHE: dict[tuple[str, int, str], Any] = {}
-
-
-def segment_cache(kind: str, seg: MegakernelSegment, device: torch.device,
-                  build) -> Any:
-    """``build()`` once per (``kind``, segment, device), kept until the
-    segment is collected: the one lifetime rule for per-segment device data
-    (the kernel's pack here, the plain version's pools in ``ref``)."""
-    key = (kind, id(seg), str(device))
-    hit = _SEG_CACHE.get(key)
-    if hit is None:
-        hit = _SEG_CACHE[key] = build()
-        sid = id(seg)
-        weakref.finalize(seg, lambda: [_SEG_CACHE.pop(k, None)
-                                       for k in list(_SEG_CACHE) if k[1] == sid])
-    return hit
-
-
 def _packed(seg: MegakernelSegment, device: torch.device) -> _Pack:
     h = pack_segment(seg)
     return _Pack(
@@ -471,9 +403,7 @@ def _launch(seg: MegakernelSegment, xs: list[torch.Tensor], nb: int,
         out_p(*[o.data_ptr() for o in outs]), out_i(*[_DTYPE[o.dtype] for o in outs]),
         out_i(*[int(o.shape[1]) for o in outs]), n_out,
         nb, _THREADS, stream)
-    if err != 0:
-        raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
-    LAUNCHES["megakernel"] += 1
+    check_launch("megakernel", err)
     return outs
 
 

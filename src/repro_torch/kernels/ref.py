@@ -1,9 +1,14 @@
-"""Plain PyTorch versions of the megakernel and its stage vocabulary.
+"""Plain PyTorch versions of the port's kernels and their stage vocabulary.
 
 Each function here is the numerical ground truth a hand-written kernel is
-held against: :func:`run_segment_ref` is the plain version of the CUDA
-megakernel (:mod:`repro_torch.kernels.megakernel`), run on the CPU by the
-tests and on the card by ``chip_smoke.py``.
+held against, run on the CPU by the tests and on the card by
+``chip_smoke.py``: :func:`run_segment_ref` for the CUDA megakernel
+(:mod:`repro_torch.kernels.megakernel`), :func:`linear_chain_ref` and
+:func:`linear_chain_q_ref` for the chain kernels
+(:mod:`repro_torch.kernels.linear_pipeline`), :func:`spmv_ref` for the
+block-sparse product (:mod:`repro_torch.kernels.spmv`) and
+:func:`gemv_ref`/:func:`matmul_ref` for the tiled matmul
+(:mod:`repro_torch.kernels.gemv`).
 
 Float reductions (matvec rows, squared distances, sums, dots) accumulate in
 index order, one rounded multiply and one rounded add per term — the order
@@ -19,9 +24,23 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
-__all__ = ["apply_stage", "apply_stage_q", "linear_chain_ref",
-           "linear_chain_q_ref", "run_segment_ref", "run_segment_grid_ref",
-           "float_pe_outputs"]
+__all__ = ["spmv_ref", "gemv_ref", "matmul_ref", "apply_stage",
+           "apply_stage_q", "linear_chain_ref", "linear_chain_q_ref",
+           "run_segment_ref", "run_segment_grid_ref", "float_pe_outputs"]
+
+
+def spmv_ref(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Batched SpMV: ``w`` dense-with-zeros (m, n), ``x`` (B, n) → (B, m)."""
+    return x @ w.T
+
+
+def gemv_ref(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Batched GEMV: ``w`` (m, n), ``x`` (B, n) → (B, m)."""
+    return x @ w.T
+
+
+def matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a @ b
 
 
 # ------------------------------------------------------------- linear pipeline
@@ -165,7 +184,7 @@ def float_pe_outputs(seg: Any) -> tuple[bool, ...]:
 def _pools(seg: Any, device: torch.device) -> tuple[list, list]:
     """The segment's const rows (carrier dtype, ``(1, n)``) and matrices as
     tensors on ``device``, converted once per segment and device."""
-    from repro_torch.kernels.megakernel import segment_cache
+    from repro_torch.kernels.build import segment_cache
 
     def build():
         carrier = np.int32 if seg.quantized else np.float32

@@ -7,6 +7,10 @@ for bit on their outputs (at most 1 LSB where a float PE sits between a
 dequantize and a requantize) and exactly on the predictions.  Inside the
 port the three megakernel lanes — per sample, bucket on the grid, and the
 ``map`` batch mode — are bitwise equal.
+
+The second path, ``use_pallas=True`` on the ``interpret`` lane, runs each
+fused §IV-G chain as one chain-kernel step per bucket; it is held against
+the reference engine with the same knobs under the same tolerances.
 """
 
 import numpy as np
@@ -107,3 +111,66 @@ def test_default_device_is_the_card():
         get_program("protonn/usps-b")
     with pytest.raises(RuntimeError, match="CUDA"):
         ClassicalServeEngine("protonn/usps-b", exec_mode="megakernel_grid")
+
+
+@pytest.mark.parametrize("precision", ["float32", "int8"])
+@pytest.mark.parametrize("bench", BENCHES)
+def test_use_pallas_engine_serves_like_reference(bench, precision):
+    X = _requests(bench, 64, seed=1)
+    eng = ClassicalServeEngine(bench, use_pallas=True, exec_mode="interpret",
+                               max_batch=32, precision=precision, device="cpu")
+    for x in X:
+        eng.submit(x)
+    done = eng.run_to_completion()
+    assert len(done) == 64 and eng.batched.stats == {32: 2}
+    ref = jget(bench, precision=precision, use_pallas=True,
+               exec_mode="interpret").batch(32, mode="vmap")(x=X)
+    for name, want in ref.items():
+        want = np.asarray(want)
+        got = np.stack([np.asarray(r.outputs[name]) for r in done])
+        assert got.dtype == want.dtype and got.shape == want.shape
+        if np.issubdtype(want.dtype, np.integer):
+            np.testing.assert_array_equal(got, want)
+        elif precision == "float32":
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+        else:
+            lsb = 2.0 ** -eng.program.plan.output_exps[name]
+            assert np.abs(got - want).max() <= lsb
+    np.testing.assert_array_equal(np.array([r.pred for r in done]),
+                                  np.asarray(ref["Pred"]).reshape(-1))
+
+
+@pytest.mark.parametrize("precision", ["float32", "int8"])
+@pytest.mark.parametrize("bench", BENCHES)
+def test_use_pallas_lanes(bench, precision, monkeypatch):
+    """One chain step per chain per bucket on the batched lane.  ``map``
+    is bitwise with per-sample calls; the batched lane is bitwise with the
+    per-node walk of the same program (a fused chain computes what its
+    members compute) and, on the integer lane, with per-sample calls.  At
+    float32 the batched lane's non-chain templates sum in another order
+    than per-sample calls, as in the ``use_pallas=False`` interpret lane."""
+    from repro_torch.core import executor
+
+    X = _requests(bench, 11, seed=4)
+    prog = get_program(bench, precision=precision, use_pallas=True,
+                       device="cpu")
+    per_node = get_program(bench, precision=precision, device="cpu")
+    n_chains = sum(type(s).__name__ == "ChainStep" for s in prog.plan.steps)
+    assert n_chains == (2 if bench.startswith("bonsai") else 1)
+    rows, orig = [], executor.run_chain
+    monkeypatch.setattr(executor, "run_chain",
+                        lambda c, x, e: rows.append(x.shape[0]) or orig(c, x, e))
+    batched = prog.batch(8)(x=X)
+    assert rows == [8] * n_chains + [4] * n_chains      # buckets of 8 and 4
+    monkeypatch.setattr(executor, "run_chain", orig)
+    mapped = prog.batch(8, mode="map")(x=X)
+    single = [prog(x=x) for x in X]
+    unfused = per_node.batch(8)(x=X)
+    for k, v in batched.items():
+        s = torch.stack([o[k] for o in single])
+        assert torch.equal(mapped[k], s)
+        assert torch.equal(v, unfused[k])
+        if precision == "float32":
+            torch.testing.assert_close(v, s, rtol=1e-5, atol=1e-5)
+        else:
+            assert torch.equal(v, s)
