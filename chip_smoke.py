@@ -7,7 +7,7 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
 
 1. device   — require CUDA, print the card's name and power limit, turn
               TF32 off;
-2. build    — build the four kernels (``src/repro_torch/csrc/*.cu``) into
+2. build    — build the six kernels (``src/repro_torch/csrc/*.cu``) into
               ``build/kernels/``, one nvcc per source, all started together;
 3. kernel   — each kernel against its plain PyTorch version on the card:
               the megakernel on all 20 Table-I programs × {float32, int8,
@@ -31,14 +31,40 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               ``spmv``, ``gemv`` and ``matmul`` once each at the report's
               shapes, their launches counted over this phase, the results
               checked against the plain versions;
-6. report   — the device time of every kernel, its plain version and,
+6. lm-kernel — the two attention kernels against their plain versions on
+              the card: flash attention at qwen2.5-3b's heads (H 16, KV 2,
+              dh 128), B = 1, Sq = Sk in {8, 100, 1024, 2048}, float32 and
+              bfloat16, p in fp32 and p rounded, plus G in {1, 4, 8} at small
+              shapes and one non-causal case; decode attention at B = 8,
+              S = 2048 with ragged cache lengths including 1 and S, float32
+              and bfloat16.  Limits: float32 ``rtol = atol = 1e-5``;
+              bfloat16 one bf16 ulp of the output's largest magnitude;
+7. lm-serve — the port's ``ServeEngine`` on qwen2.5-3b at full width (36
+              layers, every published width), random weights from seed 0
+              made on the card, 8 requests of 16–1024 prompt tokens (drawn
+              from seed 0) and 32 new tokens each, ``max_batch = 8``,
+              ``max_len = 2048``: run 1 in float32 (activations and
+              parameters), every served token equal to the argmax of the
+              port's teacher-forced ``forward_full`` except printed near-ties
+              (``LM_F32_GAP``), and those logits within ``LM_F32_ATOL`` of a
+              ``forward_full`` whose attention runs the plain versions; run 2
+              in the inference dtypes of ``cell_config(decode_32k)``
+              (bfloat16), teacher-forced agreement >= 95 %.  Over the two
+              engine runs, flash launches = 36 x prefills and decode
+              launches = 36 x decode steps, exactly;
+8. report   — the device time of every kernel, its plain version and,
               where one PyTorch call computes the same function, that call
               (kernel durations from a ``torch.profiler`` trace, per call);
               each kernel's time per call between CUDA events, which
               includes the wrapper's host work; the bounds; the engines'
               serving rate on the host clock and the megakernel's share of
-              it; the ``kernels`` JSON line, the card line, and last
-              ``{"ok": true, "device": {...}}``.
+              it; the LM engine's prefill ms per request, decode ms per
+              step at batch 8, generated tokens/s and the attention
+              kernels' share of a decode step's device time; the ``kernels``
+              JSON line, the card line, and last ``{"ok": true, "device":
+              {...}}``.
+
+Every path runs at its full depth.
 
 Needs only the repository (``src/`` on the path) and one card.  Writes the
 full per-case report to ``chiprun_out/chip_smoke.json``.
@@ -46,6 +72,7 @@ full per-case report to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -62,6 +89,18 @@ PEAK_OPS = {"float32": 67e12,      # fp32 outside the tensor cores
 BUCKET = 64
 SERVE_REQUESTS = 256
 F32_RTOL = F32_ATOL = 1e-5
+LM_ARCH = "qwen2.5-3b"
+LM_REQUESTS, LM_NEW_TOKENS, LM_MAX_BATCH, LM_MAX_LEN = 8, 32, 8, 2048
+LM_PROMPT_LEN = (16, 1024)
+# float32 served path vs teacher forcing: a served token may differ from the
+# teacher-forced argmax only where that argmax leads the served token by less
+# than LM_F32_GAP (a near-tie the two paths' rounding can flip: prefill on a
+# padded bucket and one token at a time through the decode kernel, against
+# one unpadded flash pass).  LM_F32_ATOL bounds the teacher-forced logits
+# against the same forward with the attention kernels' plain versions.
+LM_F32_GAP = 1e-3
+LM_F32_ATOL = 1e-3
+LM_BF16_AGREE = 0.95
 
 
 def phase(name: str, t0: float, msg: str) -> None:
@@ -100,6 +139,22 @@ def median_ms(fn, reps: int, warm: int = 3) -> float:
         b.record()
         b.synchronize()
         ts.append(a.elapsed_time(b))
+    return statistics.median(ts)
+
+
+def host_median_ms(fn, reps: int) -> float:
+    """Median host-clock ms of ``fn`` to a synchronised end, after one warm
+    call: what a caller waits for, host work included."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(ts)
 
 
@@ -444,6 +499,103 @@ def matmul_work(M: int, N: int, K: int, item: int) -> tuple[float, float]:
     return float(item * (M * K + K * N + M * N)), float(2 * M * N * K)
 
 
+def attn_compare(got, want) -> tuple[bool, float, float]:
+    """(within the limit, max abs err, the limit) of an attention kernel's
+    output against its plain version: float32 ``rtol = atol = 1e-5``
+    (the limit reported is the atol); bfloat16 one bf16 ulp at the
+    output's largest magnitude."""
+    import torch
+
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return False, float("inf"), 0.0
+    g, w = got.float(), want.float()
+    err = float((g - w).abs().max())
+    if got.dtype == torch.float32:
+        return bool(torch.allclose(g, w, rtol=F32_RTOL, atol=F32_ATOL)), err, F32_ATOL
+    ulp = 2.0 ** (math.floor(math.log2(float(w.abs().max()))) - 7)
+    return err <= ulp, err, ulp
+
+
+def flash_work(B: int, Sq: int, Sk: int, H: int, KV: int, dh: int, item: int,
+               causal: bool) -> tuple[float, float]:
+    """(bytes, operations) of one flash-attention call: q, k, v read once
+    and the output written once; four operations per (query, key, dh)
+    element of the pairs the mask keeps (q·k and p·v)."""
+    pairs = (sum(min(t + 1, Sk) for t in range(Sq)) if causal else Sq * Sk)
+    nbytes = item * (2 * B * Sq * H * dh + 2 * B * Sk * KV * dh)
+    return float(nbytes), float(4 * B * H * dh * pairs)
+
+
+def decode_work(lens, H: int, KV: int, dh: int, item: int) -> tuple[float, float]:
+    """(bytes, operations) of one decode-attention call: q read and the
+    output written once, the valid prefix of k and v read once, the
+    lengths; four operations per (head, valid key, dh) element."""
+    n, B = int(sum(lens)), len(lens)
+    nbytes = item * (2 * B * H * dh + 2 * n * KV * dh) + 4 * B
+    return float(nbytes), float(4 * n * H * dh)
+
+
+def device_split(fn, names: tuple[str, ...],
+                 reps: int = 3) -> tuple[float, dict, float]:
+    """Device ms per call of ``fn`` from a profiler trace, of that the ms
+    of the kernels whose names contain each of ``names``, and the number of
+    device activities (kernels, copies, sets) per call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, part, count = 0.0, dict.fromkeys(names, 0.0), 0
+    for e in p.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        total += us
+        count += 1
+        for n in names:
+            if n in e.name:
+                part[n] += us
+    return (total / 1e3 / reps, {n: v / 1e3 / reps for n, v in part.items()},
+            count / reps)
+
+
+def teacher_forced(model, done, vocab: int, plain: bool):
+    """Hold every served token against the argmax of the model's
+    teacher-forced ``forward_full`` over the prompt and the tokens served
+    before it.  Returns (positions, disagreements, max |logits - logits
+    with the attention kernels' plain versions| or None)."""
+    import numpy as np
+    import torch
+
+    n, worse, diff = 0, [], (0.0 if plain else None)
+    for r in done:
+        full = np.asarray(r.prompt + r.tokens, np.int32)[None, :]
+        logits, _, _ = model.forward_full(full)
+        if plain:
+            ref, _, _ = model.forward_full(full, plain_attention=True)
+            diff = max(diff, float((logits - ref).abs().max()))
+            del ref
+        p0 = len(r.prompt) - 1
+        lf = logits[0, p0:p0 + len(r.tokens)].clone()
+        del logits
+        lf[:, vocab:] = -torch.inf
+        top = lf.topk(2, dim=-1)
+        arg = top.indices[:, 0].tolist()
+        gap = (top.values[:, 0] - top.values[:, 1]).tolist()
+        for i, tok in enumerate(r.tokens):
+            n += 1
+            if tok != arg[i]:
+                worse.append(dict(rid=r.rid, step=i, served=tok, argmax=arg[i],
+                                  top2_gap=gap[i],
+                                  served_gap=float(lf[i, arg[i]] - lf[i, tok])))
+    return n, worse, diff
+
+
 def main() -> int:
     t0 = time.perf_counter()
     # ------------------------------------------------------------ 1. device
@@ -475,6 +627,15 @@ def main() -> int:
                                              run_segment_grid_ref, spmv_ref)
         from repro_torch.serve.classical_engine import (ClassicalServeEngine,
                                                         get_program)
+        from repro_torch.configs.registry import SHAPES, get_arch
+        from repro_torch.kernels.decode_attention import decode_attention
+        from repro_torch.kernels.flash_attention import flash_attention_fused
+        from repro_torch.kernels.ref import (decode_attention_ref,
+                                             flash_attention_ref)
+        from repro_torch.models.layers import MM_F32_ROUTE
+        from repro_torch.models.transformer import init_params
+        from repro_torch.serve.engine import ServeEngine
+        from repro_torch.serve.scheduling import bucket_for
     except ImportError as e:
         return fail("device", f"the port is not importable: {e}")
     dev = torch.device("cuda")
@@ -728,7 +889,201 @@ def main() -> int:
     phase("ops", t, f"spmv x2, gemv x2, matmul x1 through repro_torch.kernels."
           f"ops; launches spmv {launches['spmv']}, matmul {launches['matmul']}")
 
-    # ------------------------------------------------------------ 6. report
+    # ------------------------------------------------------ 6. lm-kernel
+    t = time.perf_counter()
+    attn_cases: list[dict] = []
+    ga = torch.Generator(device=dev).manual_seed(17)
+
+    def rnd(shape, dt):
+        return torch.randn(shape, generator=ga, device=dev).to(dt)
+
+    def attn_case(kernel, label, got, want):
+        torch.cuda.synchronize()
+        ok, err, lim = attn_compare(got, want)
+        attn_cases.append(dict(kernel=kernel, case=label, max_abs_err=err,
+                               limit=lim, ok=ok))
+        print(f"  {kernel} {label}: max abs err {err:.3g} (limit {lim:.3g})",
+              flush=True)
+        if not ok:
+            raise AssertionError(f"{kernel} {label}: max abs err {err} over "
+                                 f"its limit {lim}")
+
+    try:
+        for dt in (torch.float32, torch.bfloat16):
+            dname = str(dt).split(".")[-1]
+            flash_shapes = [(1, S, S, 16, 2, 128, True) for S in (8, 100, 1024, 2048)]
+            flash_shapes += [(2, 77, 77, H, KV, 64, True)
+                             for H, KV in ((8, 8), (8, 2), (16, 2))]
+            flash_shapes += [(2, 100, 100, 16, 2, 128, False)]
+            for B, Sq, Sk, H, KV, dh, causal in flash_shapes:
+                q = rnd((B, Sq, H, dh), dt)
+                k, v = rnd((B, Sk, KV, dh), dt), rnd((B, Sk, KV, dh), dt)
+                for rp in (False, True):
+                    attn_case("flash_attention",
+                              f"{dname} B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} "
+                              f"dh={dh} {'causal' if causal else 'full'} "
+                              f"p {'rounded' if rp else 'fp32'}",
+                              flash_attention_fused(q, k, v, causal=causal,
+                                                    round_p=rp),
+                              flash_attention_ref(q, k, v, causal=causal,
+                                                  round_p=rp))
+            B, S = 8, 2048
+            lens = np.random.default_rng(5).integers(1, S + 1, size=B)
+            lens[0], lens[-1] = 1, S
+            q = rnd((B, 16, 128), dt)
+            kc, vc = rnd((B, S, 2, 128), dt), rnd((B, S, 2, 128), dt)
+            for rp in (False, True):
+                attn_case("decode_attention",
+                          f"{dname} B={B} S={S} H=16 KV=2 dh=128 lens "
+                          f"{lens.tolist()} p {'rounded' if rp else 'fp32'}",
+                          decode_attention(q, kc, vc, lens, round_p=rp),
+                          decode_attention_ref(q, kc, vc,
+                                               torch.from_numpy(lens).to(dev),
+                                               round_p=rp))
+    except AssertionError as e:
+        return fail("lm-kernel", str(e))
+    for name in ("flash_attention", "decode_attention"):
+        errs = [c["max_abs_err"] for c in attn_cases if c["kernel"] == name]
+        checks[name] = {"cases": len(errs), "max_abs_err": max(errs)}
+    phase("lm-kernel", t, f"{len(attn_cases)} attention cases within their "
+          "limits of the plain versions")
+
+    # ------------------------------------------------------- 7. lm-serve (main)
+    t = time.perf_counter()
+    spec = get_arch(LM_ARCH)
+    rng = np.random.default_rng(0)
+    plens = rng.integers(LM_PROMPT_LEN[0], LM_PROMPT_LEN[1] + 1, size=LM_REQUESTS)
+    prompts = [rng.integers(1, spec.model.vocab_size, size=n).tolist()
+               for n in plens]
+    lm_runs: list[dict] = []
+    launches.update(flash_attention=0, decode_attention=0)
+    prefills = steps_total = 0
+
+    def lm_serve(label, cfg, plain_check):
+        nonlocal prefills, steps_total
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        model = init_params(cfg, 0, dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t1
+        model.forward_full(np.arange(1, 9, dtype=np.int32)[None, :])  # warm up
+        eng = ServeEngine(cfg, model, max_batch=LM_MAX_BATCH,
+                          max_len=LM_MAX_LEN, device=dev)
+        for p in prompts:
+            eng.submit(p, max_new_tokens=LM_NEW_TOKENS)
+        torch.cuda.synchronize()
+        LAUNCHES["flash_attention"] = LAUNCHES["decode_attention"] = 0
+        t1 = time.perf_counter()
+        done = eng.run_to_completion()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        got = {k: LAUNCHES[k] for k in ("flash_attention", "decode_attention")}
+        snap = eng.metrics.snapshot()
+        steps, decode_s = snap["batches"], snap["device_s"]
+        L = cfg.n_layers
+        print(f"  {label}: {len(done)} requests, {steps} decode steps, "
+              f"launches {got} (expected flash {L} x {len(done)}, decode "
+              f"{L} x {steps})", flush=True)
+        if (got["flash_attention"] != L * len(done)
+                or got["decode_attention"] != L * steps
+                or len(done) != LM_REQUESTS
+                or any(len(r.tokens) != LM_NEW_TOKENS for r in done)):
+            raise AssertionError(f"{label}: launches {got}, {len(done)} "
+                                 f"requests, {steps} steps")
+        launches["flash_attention"] += got["flash_attention"]
+        launches["decode_attention"] += got["decode_attention"]
+        prefills += len(done)
+        steps_total += steps
+        n_tok = sum(len(r.tokens) for r in done)
+        # steady state: one decode step at batch 8, and one prefill of the
+        # largest bucket, each warm, median on the host clock
+        step_ms = host_median_ms(lambda: model.forward_decode(
+            eng.last_token, eng.caches, eng.pos), reps=5)
+        bucket = bucket_for(int(plens.max()), LM_MAX_LEN, floor=8)
+        pre_ms = host_median_ms(lambda: model.forward_full(
+            np.ones((1, bucket), np.int32), return_cache=True), reps=3)
+        # the attention kernels' share of one decode step's and of one
+        # prefill's device time, and the device activities of each
+        step_dev, part, step_n = device_split(
+            lambda: model.forward_decode(eng.last_token, eng.caches, eng.pos),
+            ("da_kernel",))
+        pre_dev, pre_part, pre_n = device_split(
+            lambda: model.forward_full(np.ones((1, bucket), np.int32),
+                                       return_cache=True), ("fa_kernel",))
+        n_pos, worse, diff = teacher_forced(model, done, cfg.vocab_size,
+                                            plain_check)
+        rec = dict(run=label, dtype=cfg.act_dtype, params=cfg.param_dtype,
+                   layers=L, requests=len(done), prompt_lens=plens.tolist(),
+                   new_tokens=n_tok, decode_steps=steps, launches=got,
+                   init_s=init_s, wall_s=wall, tokens_per_s=n_tok / wall,
+                   decode_ms_per_step=decode_s / steps * 1e3,
+                   decode_ms_steady=step_ms, prefill_bucket=bucket,
+                   prefill_ms_bucket=pre_ms,
+                   prefill_ms_per_request=(wall - decode_s) / len(done) * 1e3,
+                   decode_step_device_ms=step_dev,
+                   decode_attention_device_ms=part["da_kernel"],
+                   attention_share=part["da_kernel"] / step_dev,
+                   decode_step_device_activities=step_n,
+                   prefill_device_ms=pre_dev,
+                   prefill_flash_device_ms=pre_part["fa_kernel"],
+                   prefill_device_activities=pre_n,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   positions=n_pos, disagreements=worse,
+                   agreement=1 - len(worse) / n_pos, plain_logit_diff=diff,
+                   final_lens=eng.pos.tolist())
+        for w in worse:
+            print(f"    request {w['rid']} token {w['step']}: served {w['served']}"
+                  f", teacher-forced argmax {w['argmax']}, top-2 gap "
+                  f"{w['top2_gap']:.3g}, argmax leads the served token by "
+                  f"{w['served_gap']:.3g}")
+        print(f"  {label}: {n_pos - len(worse)}/{n_pos} served tokens equal the "
+              f"teacher-forced argmax; " + ("" if diff is None else
+              f"logits vs plain-attention forward max abs diff {diff:.3g}; ")
+              + f"{n_tok / wall:.1f} tokens/s, prefill "
+              f"{rec['prefill_ms_per_request']:.1f} ms/request, decode "
+              f"{rec['decode_ms_per_step']:.2f} ms/step at batch "
+              f"{LM_MAX_BATCH} (host clock; warm: {step_ms:.2f} ms/step, "
+              f"prefill of {bucket} tokens {pre_ms:.1f} ms); decode step device "
+              f"{step_dev:.3f} ms, attention {part['da_kernel']:.3f} ms "
+              f"({part['da_kernel'] / step_dev:.1%}), {step_n:.0f} device "
+              f"activities; prefill of {bucket} tokens device {pre_dev:.3f} ms, "
+              f"flash {pre_part['fa_kernel']:.3f} ms, {pre_n:.0f} activities; peak "
+              f"{rec['peak_gib']:.1f} GiB", flush=True)
+        lm_runs.append(rec)
+        return model, eng, rec
+
+    try:
+        cfg32 = dataclasses.replace(spec.model, act_dtype="float32",
+                                    param_dtype="float32")
+        model, eng, rec = lm_serve("float32", cfg32, plain_check=True)
+        bad = [w for w in rec["disagreements"] if w["served_gap"] >= LM_F32_GAP]
+        if bad:
+            raise AssertionError(f"float32: {len(bad)} served tokens differ "
+                                 f"from the teacher-forced argmax by more than "
+                                 f"a near-tie ({LM_F32_GAP}): {bad[:4]}")
+        if not rec["plain_logit_diff"] <= LM_F32_ATOL:
+            raise AssertionError(f"float32: logits off the plain-attention "
+                                 f"forward by {rec['plain_logit_diff']}")
+        lens32 = rec["final_lens"]
+        del model, eng
+        torch.cuda.empty_cache()
+        cfg16 = spec.cell_config(SHAPES["decode_32k"])
+        model, eng, rec = lm_serve("bfloat16", cfg16, plain_check=False)
+        if rec["agreement"] < LM_BF16_AGREE:
+            raise AssertionError(f"bfloat16: teacher-forced agreement "
+                                 f"{rec['agreement']:.3f} < {LM_BF16_AGREE}")
+        lens16 = rec["final_lens"]
+        del model, eng
+        torch.cuda.empty_cache()
+    except AssertionError as e:
+        return fail("lm-serve", str(e))
+    phase("lm-serve", t, f"qwen2.5-3b, {spec.model.n_layers} layers, float32 "
+          f"and bfloat16; {prefills} prefills, {steps_total} decode steps; "
+          f"launches flash {launches['flash_attention']}, decode "
+          f"{launches['decode_attention']}; bf16 products with an fp32 result "
+          f"via {MM_F32_ROUTE.get('bfloat16', 'none')}")
+
+    # ------------------------------------------------------------ 8. report
     t = time.perf_counter()
     saved = dict(LAUNCHES)
     timed = []
@@ -820,10 +1175,51 @@ def main() -> int:
             lambda: matmul_ref(a.float(), b.float()).to(dt),
             lambda: torch.matmul(a, b), 10,
             matmul_work(4096, 4096, 4096, a.element_size()), name))
+    for dt, lens in ((torch.bfloat16, lens16), (torch.float32, lens32)):
+        dname = str(dt).split(".")[-1]
+        S = 1024                             # the largest prefill bucket served
+        q = rnd((1, S, 16, 128), dt)
+        k, v = rnd((1, S, 2, 128), dt), rnd((1, S, 2, 128), dt)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        rows["flash_attention"].append(row(
+            "flash_attention", f"{dname} B=1 Sq=Sk={S} H=16 KV=2 dh=128 causal "
+            "p fp32", lambda: flash_attention_fused(q, k, v, round_p=False),
+            lambda: flash_attention_ref(q, k, v),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                   enable_gqa=True), 20,
+            flash_work(1, S, S, 16, 2, 128, q.element_size(), True), dname))
+        B, Sc = LM_MAX_BATCH, LM_MAX_LEN
+        qd = rnd((B, 16, 128), dt)
+        kc, vc = rnd((B, Sc, 2, 128), dt), rnd((B, Sc, 2, 128), dt)
+        lh = torch.tensor(lens, dtype=torch.int32)
+        ld = lh.to(dev)
+        mask = (torch.arange(Sc, device=dev)[None, :] < ld[:, None])[:, None, None]
+        q4, k4, v4 = qd[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+        rows["decode_attention"].append(row(
+            "decode_attention", f"{dname} B={B} S={Sc} H=16 KV=2 dh=128 served "
+            f"lens {lens} p fp32",
+            lambda: decode_attention(qd, kc, vc, lh, round_p=False),
+            lambda: decode_attention_ref(qd, kc, vc, ld),
+            lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                                   enable_gqa=True), 50,
+            decode_work(lens, 16, 2, 128, qd.element_size()), dname))
+    for r in lm_runs:
+        print(f"  lm-serve {r['run']}: prefill {r['prefill_ms_per_request']:.2f} "
+              f"ms per request, decode {r['decode_ms_per_step']:.3f} ms per step "
+              f"at batch {LM_MAX_BATCH} (warm {r['decode_ms_steady']:.3f}; "
+              f"prefill of {r['prefill_bucket']} tokens warm "
+              f"{r['prefill_ms_bucket']:.2f} ms), {r['tokens_per_s']:.1f} generated "
+              f"tokens/s (host clock); decode step {r['decode_step_device_ms']:.3f}"
+              f" ms on the device, attention {r['attention_share']:.1%} of it; "
+              f"prefill of {r['prefill_bucket']} tokens "
+              f"{r['prefill_device_ms']:.3f} ms on the device, flash "
+              f"{r['prefill_flash_device_ms'] / r['prefill_device_ms']:.1%} of it")
     LAUNCHES.update(saved)
     phase("report", t, "device times from the profiler trace; per-call times "
           "between CUDA events; serving wall time on the host clock")
-    report.update(served=served, timed=timed, launches=launches, rows=rows)
+    report.update(served=served, timed=timed, launches=launches, rows=rows,
+                  attention_cases=attn_cases, lm_runs=lm_runs,
+                  mm_f32_route=MM_F32_ROUTE.get("bfloat16"))
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
@@ -835,7 +1231,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/megakernel.py:230",
         "launches": launches["megakernel"],
         "max_abs_err": max(c["max_abs_err"] for c in report["cases"]),
-        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "ms": head["ms"], "call_ms": head["call_ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": None,
         "shape": f"{head['bench']} {head['precision']} bucket {BUCKET}",
@@ -848,7 +1244,11 @@ def main() -> int:
              lambda r: "(64, 976)" in r["shape"] and "bonsai" in r["shape"]),
             ("spmv", "spmv.cu", "spmv.py:95", lambda r: "4096" in r["shape"]),
             ("matmul", "gemv.cu", "gemv.py:25",
-             lambda r: r["shape"] == "matmul 4096^3 float32")):
+             lambda r: r["shape"] == "matmul 4096^3 float32"),
+            ("flash_attention", "flash_attention.cu", "flash_attention.py:39",
+             lambda r: r["shape"].startswith("bfloat16")),
+            ("decode_attention", "decode_attention.cu", "decode_attention.py:32",
+             lambda r: r["shape"].startswith("bfloat16"))):
         h = next(r for r in rows[name] if pick(r))
         kernels.append({
             "name": name, "route": "cuda",
@@ -856,9 +1256,10 @@ def main() -> int:
             "replaces": f"src/repro/kernels/{replaces}",
             "launches": launches[name],
             "max_abs_err": checks[name]["max_abs_err"],
-            "ms": h["ms"], "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
-            "bound_by": h["bound_by"], "library_ms": h["library_ms"],
-            "shape": h["shape"], "cases": rows[name]})
+            "ms": h["ms"], "call_ms": h["call_ms"], "plain_ms": h["plain_ms"],
+            "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
+            "library_ms": h["library_ms"], "shape": h["shape"],
+            "cases": rows[name]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

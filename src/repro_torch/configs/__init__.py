@@ -1,1 +1,2 @@
-"""The paper's classical benchmark configs."""
+"""Configs: the paper's classical benchmarks (``classical``) and the LM
+architecture registry (``registry``; qwen2.5-3b is ported)."""

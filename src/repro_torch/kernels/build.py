@@ -35,10 +35,12 @@ __all__ = ["SOURCES", "LAUNCHES", "BUILD_LOG", "BUILD_SECONDS", "BUILD_DIR",
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("megakernel", "linear_chain", "spmv", "gemv")
+SOURCES = ("megakernel", "linear_chain", "spmv", "gemv", "flash_attention",
+           "decode_attention")
 
 LAUNCHES: dict[str, int] = {"megakernel": 0, "linear_chain": 0,
-                            "linear_chain_q": 0, "spmv": 0, "matmul": 0}
+                            "linear_chain_q": 0, "spmv": 0, "matmul": 0,
+                            "flash_attention": 0, "decode_attention": 0}
 BUILD_LOG: list[str] = []             # nvcc's -Xptxas -v report of each build
 BUILD_SECONDS: dict[str, float] = {}  # wall seconds of each build this process
 

@@ -1,0 +1,90 @@
+"""Fused flash attention (forward), GQA, causal or full.
+
+:func:`flash_attention_fused` computes softmax(q kᵀ / sqrt(dh)) v with q
+(B, Sq, H, dh), k and v (B, Sk, KV, dh), query head h reading KV head
+h // (H / KV), the output (B, Sq, H, dh) in q's dtype.  On CPU tensors it
+runs the plain version :func:`repro_torch.kernels.ref.flash_attention_ref`;
+on CUDA tensors the hand-written kernel ``csrc/flash_attention.cu`` or it
+raises.  The kernel reads q, k and v in this layout through their strides,
+so a strided view needs no copy.  ``LAUNCHES["flash_attention"]`` counts
+launches.
+
+``round_p`` (default True, what the TPU kernel does) rounds the
+probabilities to v's dtype before P·V; False keeps them in fp32, as the
+model's own attention does.  q is scaled in fp32 before the product, the
+model's order.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.build import check_launch, load
+from repro_torch.kernels.ref import flash_attention_ref
+
+__all__ = ["flash_attention_fused"]
+
+MAX_DH = 256
+_DTYPE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.fa_launch.argtypes = ([vp] * 4 + [ci] * 6 + [cl] * 9 + [ctypes.c_float]
+                              + [ci] * 4 + [vp])
+    lib.fa_launch.restype = ci
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention: q (B, Sq, H, dh) and k, v (B, Sk, "
+                         f"KV, dh) expected, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, Sq, H, dh = q.shape
+    if k.shape[0] != B or k.shape[3] != dh:
+        raise ValueError(f"flash_attention: k {tuple(k.shape)} does not match "
+                         f"q {tuple(q.shape)}")
+    KV = k.shape[2]
+    if KV < 1 or H % KV:
+        raise ValueError(f"flash_attention: {H} query heads over {KV} KV heads")
+    if k.shape[1] < 1:
+        raise ValueError("flash_attention: no keys")
+
+
+def flash_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True,
+                          round_p: bool = True) -> torch.Tensor:
+    """Fused attention → (B, Sq, H, dh) in q's dtype."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, round_p=round_p)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("flash_attention: q, k and v must share a device")
+    if q.dtype not in _DTYPE or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention: dtypes {q.dtype}, {k.dtype}, "
+                        f"{v.dtype} (float32 or bfloat16, all the same)")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("flash_attention: the last axis of q, k and v must "
+                         "be contiguous")
+    B, Sq, H, dh = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    if dh > MAX_DH:
+        raise ValueError(f"flash_attention: dh {dh} > {MAX_DH}")
+    out = torch.empty((B, Sq, H, dh), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    words = 16 // q.element_size()
+    vec = all(t.data_ptr() % 16 == 0 and all(s % words == 0 for s in t.stride()[:3])
+              for t in (k, v)) and dh % words == 0
+    lib = load("flash_attention", _declare)
+    err = lib.fa_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                        B, Sq, Sk, H, KV, dh, *q.stride()[:3], *k.stride()[:3],
+                        *v.stride()[:3], dh ** -0.5, int(causal), int(round_p),
+                        int(vec), _DTYPE[q.dtype],
+                        torch.cuda.current_stream(q.device).cuda_stream)
+    check_launch("flash_attention", err)
+    return out

@@ -6,9 +6,12 @@ held against, run on the CPU by the tests and on the card by
 (:mod:`repro_torch.kernels.megakernel`), :func:`linear_chain_ref` and
 :func:`linear_chain_q_ref` for the chain kernels
 (:mod:`repro_torch.kernels.linear_pipeline`), :func:`spmv_ref` for the
-block-sparse product (:mod:`repro_torch.kernels.spmv`) and
+block-sparse product (:mod:`repro_torch.kernels.spmv`),
 :func:`gemv_ref`/:func:`matmul_ref` for the tiled matmul
-(:mod:`repro_torch.kernels.gemv`).
+(:mod:`repro_torch.kernels.gemv`), and :func:`flash_attention_ref` and
+:func:`decode_attention_ref` for the attention kernels
+(:mod:`repro_torch.kernels.flash_attention`,
+:mod:`repro_torch.kernels.decode_attention`).
 
 Float reductions (matvec rows, squared distances, sums, dots) accumulate in
 index order, one rounded multiply and one rounded add per term — the order
@@ -24,7 +27,8 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
-__all__ = ["spmv_ref", "gemv_ref", "matmul_ref", "apply_stage",
+__all__ = ["spmv_ref", "gemv_ref", "matmul_ref", "flash_attention_ref",
+           "decode_attention_ref", "apply_stage",
            "apply_stage_q", "linear_chain_ref", "linear_chain_q_ref",
            "run_segment_ref", "run_segment_grid_ref", "float_pe_outputs"]
 
@@ -41,6 +45,61 @@ def gemv_ref(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a @ b
+
+
+# ------------------------------------------------------------------ attention
+# The attention kernels' plain versions materialise the scores.  Both scale
+# q in fp32 before the product (as the model's attention does), keep the
+# scores and the softmax statistics in fp32, and divide by the row sum after
+# P·V.  ``round_p`` rounds the unnormalised probabilities to v's dtype before
+# P·V, as the TPU kernels do; without it p stays fp32, as the model does.
+_NEG = -1e30
+
+
+def _softmax_pv(s: torch.Tensor, v: torch.Tensor, eq: str,
+                round_p: bool) -> torch.Tensor:
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    if round_p:
+        p = p.to(v.dtype).float()
+    return torch.einsum(eq, p, v.float()) / l
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True,
+                        round_p: bool = False) -> torch.Tensor:
+    """GQA attention, q (B, Sq, H, dh), k and v (B, Sk, KV, dh) → (B, Sq,
+    H, dh) in q's dtype; query head h reads KV head h // (H / KV); causal
+    masks ``kpos > qpos`` from the top-left corner."""
+    B, Sq, H, dh = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qg = (q.float() * dh ** -0.5).reshape(B, Sq, KV, G, dh)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float())
+    if causal:
+        qpos = torch.arange(Sq, device=q.device)
+        kpos = torch.arange(Sk, device=q.device)
+        s = s.masked_fill(kpos[None, :] > qpos[:, None], _NEG)
+    out = _softmax_pv(s, v, "bkgqs,bskd->bkgqd", round_p)   # (B, KV, G, Sq, dh)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, dh).to(q.dtype)
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         cache_len: torch.Tensor, *,
+                         round_p: bool = False) -> torch.Tensor:
+    """One new token per sequence, q (B, H, dh), against the caches k and
+    v (B, S, KV, dh), of which the first ``cache_len[b]`` positions are
+    valid → (B, H, dh) in q's dtype."""
+    B, H, dh = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qg = q.float().reshape(B, KV, G, dh) * dh ** -0.5
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k.float())
+    lens = torch.as_tensor(cache_len, device=q.device).reshape(B, 1)
+    valid = torch.arange(S, device=q.device)[None, :] < lens       # (B, S)
+    s = s.masked_fill(~valid[:, None, None, :], _NEG)
+    out = _softmax_pv(s, v, "bkgs,bskd->bkgd", round_p)
+    return out.reshape(B, H, dh).to(q.dtype)
 
 
 # ------------------------------------------------------------- linear pipeline

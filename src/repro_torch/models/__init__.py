@@ -1,1 +1,2 @@
-"""Classical models the paper compiles: Bonsai and ProtoNN."""
+"""Models: the classical ones the paper compiles (Bonsai, ProtoNN) and the
+dense LM stack (``layers``, ``attention``, ``transformer``)."""

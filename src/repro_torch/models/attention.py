@@ -1,0 +1,197 @@
+"""Grouped-query attention (GQA) of the dense LM stack, in PyTorch.
+
+The port of the GQA half of the JAX package's ``models/attention.py``:
+``plain_attention`` (the materialised oracle), ``flash_attention`` (the
+streaming-softmax formulation, a loop over KV chunks with fp32 running
+statistics), ``init_gqa``, ``gqa_prefill`` and ``gqa_decode``.
+
+On the served path the attention itself runs on the port's hand-written
+kernels: ``gqa_prefill`` calls
+:func:`repro_torch.kernels.flash_attention.flash_attention_fused` and
+``gqa_decode`` calls :func:`repro_torch.kernels.decode_attention.
+decode_attention`; on CPU tensors those run their plain versions.  Both keep
+p in fp32 unless ``probs_bf16`` asks for the rounding, so they compute the
+reference model's function.  ``gqa_prefill(..., plain=True)`` runs the flash
+kernel's plain version on any device instead (a comparison, never the
+served path).
+
+Sliding windows and ring-buffer caches (``window``, ``write_pos``,
+``valid_len``) belong to the hybrid family and raise; so does MLA.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import torch
+
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import flash_attention_fused
+from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.models.layers import apply_rope, dot_f32, he_init
+
+__all__ = ["init_gqa", "gqa_prefill", "gqa_decode", "flash_attention",
+           "plain_attention"]
+
+_NEG = -1e30
+_HYBRID_ONLY = ("is not ported: sliding windows and ring-buffer caches belong "
+                "to the hybrid family (ROADMAP.md, Queue A item 8)")
+
+
+# ----------------------------------------------------------- core attention
+def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0, q_offset: int = 0,
+                    scale: float | None = None) -> torch.Tensor:
+    """Naive materialized attention — the oracle for ``flash_attention``."""
+    B, Sq, H, dh = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = dh ** -0.5 if scale is None else scale
+    qg = q.reshape(B, Sq, KV, G, dh).float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * scale
+    qpos = torch.arange(Sq, device=q.device) + q_offset
+    kpos = torch.arange(Sk, device=q.device)
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    s = torch.where(mask, s, torch.full_like(s, _NEG))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return out.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0, q_offset: int = 0,
+                    kv_chunk: int = 1024, scale: float | None = None,
+                    probs_bf16: bool = False) -> torch.Tensor:
+    """Streaming-softmax attention: a loop over KV chunks, fp32 running
+    stats.  ``probs_bf16`` casts p (and v) to bf16 for the P·V product."""
+    B, Sq, H, dh = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    dhv = v.shape[-1]
+    G = H // KV
+    scale = dh ** -0.5 if scale is None else scale
+    kv_chunk = min(kv_chunk, Sk)
+    qg = (q.float() * scale).reshape(B, Sq, KV, G, dh)
+    qpos = torch.arange(Sq, device=q.device) + q_offset
+    m = torch.full((B, KV, G, Sq), _NEG, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, KV, G, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, KV, G, Sq, dhv), dtype=torch.float32, device=q.device)
+    for c0 in range(0, Sk, kv_chunk):
+        kc, vc = k[:, c0:c0 + kv_chunk], v[:, c0:c0 + kv_chunk]
+        kpos = torch.arange(c0, c0 + kc.shape[1], device=q.device)
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg, kc.float())
+        mask = torch.ones((Sq, kc.shape[1]), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kpos[None, :] <= qpos[:, None]
+        if window:
+            mask &= kpos[None, :] > qpos[:, None] - window
+        s = torch.where(mask, s, torch.full_like(s, _NEG))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        if probs_bf16:
+            pv = torch.einsum("bkgqs,bskd->bkgqd", p.to(torch.bfloat16).float(),
+                              vc.to(torch.bfloat16).float())
+        else:
+            pv = torch.einsum("bkgqs,bskd->bkgqd", p, vc.float())
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, dhv).to(q.dtype)
+
+
+# ------------------------------------------------------------------------ GQA
+def init_gqa(gen: torch.Generator, d_model: int, n_heads: int, n_kv_heads: int,
+             d_head: int, *, bias: bool = False,
+             dtype: torch.dtype = torch.float32) -> dict[str, torch.Tensor]:
+    p = {
+        "wq": he_init(gen, (d_model, n_heads, d_head), d_model, dtype),
+        "wk": he_init(gen, (d_model, n_kv_heads, d_head), d_model, dtype),
+        "wv": he_init(gen, (d_model, n_kv_heads, d_head), d_model, dtype),
+        "wo": he_init(gen, (n_heads, d_head, d_model), n_heads * d_head, dtype),
+    }
+    if bias:
+        dev = gen.device
+        p["bq"] = torch.zeros((n_heads, d_head), dtype=dtype, device=dev)
+        p["bk"] = torch.zeros((n_kv_heads, d_head), dtype=dtype, device=dev)
+        p["bv"] = torch.zeros((n_kv_heads, d_head), dtype=dtype, device=dev)
+    return p
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(B, S, D) × (D, h, dh) → (B, S, h, dh), fp32 products rounded once."""
+    D, h, dh = w.shape
+    return dot_f32(x, w.to(x.dtype).reshape(D, h * dh)).to(x.dtype).reshape(
+        *x.shape[:-1], h, dh)
+
+
+def _qkv(p: Mapping[str, torch.Tensor], x: torch.Tensor
+         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    dt = x.dtype
+    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    if "bq" in p:
+        q = q + p["bq"].to(dt)
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    return q, k, v
+
+
+def _out(p: Mapping[str, torch.Tensor], ctx: torch.Tensor,
+         dt: torch.dtype) -> torch.Tensor:
+    """(B, S, H, dh) × wo (H, dh, D) → (B, S, D) in ``dt``."""
+    H, dh, D = p["wo"].shape
+    return dot_f32(ctx.to(dt).reshape(*ctx.shape[:2], H * dh),
+                   p["wo"].to(dt).reshape(H * dh, D)).to(dt)
+
+
+def gqa_prefill(p: Mapping[str, torch.Tensor], x: torch.Tensor,
+                cos: torch.Tensor, sin: torch.Tensor, *, window: int = 0,
+                probs_bf16: bool = False, plain: bool = False
+                ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """Full-sequence causal attention; returns (out, (k, v)) for the cache.
+    The reference's ``kv_chunk`` (the chunk of its jnp loop) has no
+    counterpart: the kernel has its own tiles."""
+    if window:
+        raise NotImplementedError(f"gqa_prefill: window={window} {_HYBRID_ONLY}")
+    if probs_bf16 and x.dtype != torch.bfloat16:
+        raise NotImplementedError(
+            "gqa_prefill: probs_bf16 with float32 activations (the reference "
+            "also rounds v to bfloat16) is not ported")
+    q, k, v = _qkv(p, x)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    attend = flash_attention_ref if plain else flash_attention_fused
+    out = attend(q, k, v, causal=True, round_p=probs_bf16)
+    return _out(p, out, x.dtype), (k, v)
+
+
+def gqa_decode(p: Mapping[str, torch.Tensor], x: torch.Tensor,
+               k_cache: torch.Tensor, v_cache: torch.Tensor, pos: torch.Tensor,
+               cos: torch.Tensor, sin: torch.Tensor, *, window: int = 0,
+               write_pos: torch.Tensor | None = None,
+               valid_len: torch.Tensor | None = None, cache_len=None
+               ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """Single-token decode against a full-length cache; returns (out,
+    caches).  The new K/V row of each sequence is written in place at
+    ``pos`` (B,) (what the reference's one-hot rewrite computes), then the
+    first ``cache_len = pos + 1`` positions are attended.  ``cache_len`` may
+    be passed on the host, where the kernel's wrapper checks it without a
+    synchronisation."""
+    if window or write_pos is not None or valid_len is not None:
+        raise NotImplementedError(f"gqa_decode: window/ring cache {_HYBRID_ONLY}")
+    B = x.shape[0]
+    q, k, v = _qkv(p, x)                       # (B, 1, H/KV, dh)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    rows = torch.arange(B, device=x.device)
+    idx = pos.to(device=x.device, dtype=torch.long)
+    k_cache[rows, idx] = k[:, 0]
+    v_cache[rows, idx] = v[:, 0]
+    if cache_len is None:
+        cache_len = idx + 1
+    ctx = decode_attention(q[:, 0], k_cache, v_cache, cache_len, round_p=False)
+    return _out(p, ctx[:, None], x.dtype), (k_cache, v_cache)

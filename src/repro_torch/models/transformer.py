@@ -1,0 +1,394 @@
+"""The dense LM of the JAX package's ``models/transformer.py``, in PyTorch.
+
+:class:`ModelConfig` keeps the reference's fields (``adt``/``pdt`` are torch
+dtypes here).  :class:`Transformer` is the dense family: a pre-norm GQA
+transformer (qwen2.5, granite, codeqwen, ...) with an ``nn.ModuleList`` of
+blocks and two entry points,
+
+* :meth:`Transformer.forward_full` — teacher-forced full-sequence forward;
+  with ``return_cache`` it also returns the serving caches (prefill),
+* :meth:`Transformer.forward_decode` — one new token per sequence against
+  the caches of :func:`init_cache`, updated in place.
+
+Prefill attention runs on the flash-attention kernel and decode attention
+on the decode-attention kernel (:mod:`repro_torch.models.attention`).
+Matmul weights, the embedding, the biases and the head are held in the
+activation dtype (the reference casts them on every einsum, which gives the
+same values); the norm weights keep the parameter dtype.  Products the
+reference computes with an fp32 result keep it (``layers.dot_f32``).  On
+the card the model turns TF32 off: float32 products run in full float32.
+
+:func:`init_params` makes random weights with the reference's he-scaled
+normal distribution directly on the device (not the JAX values: the two
+generators differ); :func:`params_from_reference` carries a JAX parameter
+tree across.  The MoE, SSM and hybrid families, MLA and prefix embeddings
+are not ported (ROADMAP.md, Queue A item 8).  There is no ``shard_act``
+(the identity outside a mesh) and no remat (a training option).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.core.device import resolve_device
+from repro_torch.models.attention import gqa_decode, gqa_prefill, init_gqa
+from repro_torch.models.layers import (dot_f32, he_init, init_mlp, mlp_swiglu,
+                                       normal_init, pad_vocab, rms_norm,
+                                       rope_freqs, rope_table)
+
+__all__ = ["ModelConfig", "Transformer", "init_params", "init_cache",
+           "params_from_reference"]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+_NOT_PORTED = "is not ported yet (ROADMAP.md, Queue A item 8)"
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                     # dense | moe | ssm | hybrid
+    n_layers: int
+    d_model: int
+    vocab_size: int
+    n_heads: int = 0
+    n_kv_heads: int = 0
+    d_head: int = 0
+    d_ff: int = 0
+    # --- MoE
+    n_experts: int = 0
+    experts_per_token: int = 0
+    n_shared_experts: int = 0
+    d_ff_expert: int = 0
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    # --- MLA (deepseek-v2)
+    use_mla: bool = False
+    kv_lora_rank: int = 0
+    q_lora_rank: int = 0
+    d_rope: int = 0
+    # --- SSM (mamba2 / zamba2)
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_conv: int = 4
+    ssm_chunk: int = 128
+    # --- hybrid (zamba2)
+    hybrid_attn_every: int = 0
+    attn_window: int = 0            # sliding window; 0 = full causal
+    # --- misc
+    qkv_bias: bool = False
+    # pad MHA head counts up to a multiple (TP feasibility); the padded
+    # output-projection rows are zero-initialized, so the function is
+    # unchanged at init.  Only valid for MHA (n_kv_heads == n_heads).
+    head_pad_multiple: int = 0
+    # bf16 attention probabilities for the P·V product (fp32 softmax stats)
+    attn_probs_bf16: bool = False
+    norm_eps: float = 1e-5
+    rope_theta: float = 1e4
+    modality: str = "text"          # text | audio_tokens | vision_prefix
+    vision_prefix_len: int = 0
+    act_dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+    vocab_pad_multiple: int = 256
+    kv_chunk: int = 1024
+    remat: bool = True
+    remat_policy: str = "nothing"     # nothing | dots (save matmul outputs)
+
+    # ------------------------------------------------------------ derived
+    @property
+    def padded_vocab(self) -> int:
+        return pad_vocab(self.vocab_size, self.vocab_pad_multiple)
+
+    @property
+    def adt(self) -> torch.dtype:
+        return _DTYPES[self.act_dtype]
+
+    @property
+    def pdt(self) -> torch.dtype:
+        return _DTYPES[self.param_dtype]
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    @property
+    def d_conv_ch(self) -> int:
+        return self.d_inner + 2 * self.ssm_state
+
+    @property
+    def hybrid_groups(self) -> int:
+        return self.n_layers // self.hybrid_attn_every if self.hybrid_attn_every else 0
+
+    @property
+    def hybrid_tail(self) -> int:
+        return self.n_layers - self.hybrid_groups * self.hybrid_attn_every
+
+    @property
+    def n_mamba_layers(self) -> int:
+        if self.family == "ssm":
+            return self.n_layers
+        if self.family == "hybrid":
+            return self.hybrid_groups * (self.hybrid_attn_every - 1) + self.hybrid_tail
+        return 0
+
+    @property
+    def uses_attention(self) -> bool:
+        return self.family in ("dense", "moe", "hybrid")
+
+    @property
+    def n_heads_eff(self) -> int:
+        if self.head_pad_multiple and not self.use_mla:
+            if self.n_kv_heads != self.n_heads:
+                raise ValueError("head padding is only function-preserving for MHA")
+            m = self.head_pad_multiple
+            return -(-self.n_heads // m) * m
+        return self.n_heads
+
+    @property
+    def n_kv_heads_eff(self) -> int:
+        if self.head_pad_multiple and not self.use_mla:
+            return self.n_heads_eff if self.n_kv_heads == self.n_heads else self.n_kv_heads
+        return self.n_kv_heads
+
+
+def _check_ported(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(f"the {cfg.family!r} family {_NOT_PORTED}")
+    if cfg.use_mla:
+        raise NotImplementedError(f"MLA attention {_NOT_PORTED}")
+
+
+def _param(shape: tuple[int, ...], dtype: torch.dtype,
+           device: torch.device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+# ==================================================================== modules
+class Block(nn.Module):
+    """One pre-norm block: RMSNorm → GQA → residual → RMSNorm → SwiGLU →
+    residual.  ``attn`` and ``mlp`` hold the reference's leaf names."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device) -> None:
+        super().__init__()
+        D, F, dh = cfg.d_model, cfg.d_ff, cfg.d_head
+        H, KV = cfg.n_heads_eff, cfg.n_kv_heads_eff
+        mdt, ndt = cfg.adt, cfg.pdt
+        self.norm1 = _param((D,), ndt, device)
+        self.norm2 = _param((D,), ndt, device)
+        attn = {"wq": _param((D, H, dh), mdt, device),
+                "wk": _param((D, KV, dh), mdt, device),
+                "wv": _param((D, KV, dh), mdt, device),
+                "wo": _param((H, dh, D), mdt, device)}
+        if cfg.qkv_bias:
+            attn.update(bq=_param((H, dh), mdt, device),
+                        bk=_param((KV, dh), mdt, device),
+                        bv=_param((KV, dh), mdt, device))
+        self.attn = nn.ParameterDict(attn)
+        self.mlp = nn.ParameterDict({"w_gate": _param((D, F), mdt, device),
+                                     "w_up": _param((D, F), mdt, device),
+                                     "w_down": _param((F, D), mdt, device)})
+
+    def full(self, cfg: ModelConfig, x: torch.Tensor, cos: torch.Tensor,
+             sin: torch.Tensor, window: int, plain: bool):
+        h = rms_norm(x, self.norm1, cfg.norm_eps)
+        a, cache = gqa_prefill(self.attn, h, cos, sin, window=window,
+                               probs_bf16=cfg.attn_probs_bf16, plain=plain)
+        x = x + a
+        h = rms_norm(x, self.norm2, cfg.norm_eps)
+        return x + mlp_swiglu(self.mlp, h), cache
+
+    def decode(self, cfg: ModelConfig, x: torch.Tensor, kc: torch.Tensor,
+               vc: torch.Tensor, pos: torch.Tensor, cache_len,
+               cos: torch.Tensor, sin: torch.Tensor):
+        h = rms_norm(x, self.norm1, cfg.norm_eps)
+        a, _ = gqa_decode(self.attn, h, kc, vc, pos, cos, sin,
+                          window=cfg.attn_window, cache_len=cache_len)
+        x = x + a
+        h = rms_norm(x, self.norm2, cfg.norm_eps)
+        return x + mlp_swiglu(self.mlp, h)
+
+
+class Transformer(nn.Module):
+    """The dense LM; its parameters are allocated, not initialised (see
+    :func:`init_params` and :func:`params_from_reference`)."""
+
+    def __init__(self, cfg: ModelConfig,
+                 device: torch.device | str | None = None) -> None:
+        super().__init__()
+        _check_ported(cfg)
+        dev = resolve_device(device)
+        if dev.type == "cuda":
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        self.cfg = cfg
+        self.device = dev
+        Vp, D = cfg.padded_vocab, cfg.d_model
+        self.embed = _param((Vp, D), cfg.adt, dev)
+        self.final_norm = _param((D,), cfg.pdt, dev)
+        self.lm_head = _param((D, Vp), cfg.adt, dev)
+        self.blocks = nn.ModuleList(Block(cfg, dev) for _ in range(cfg.n_layers))
+
+    def _tokens(self, tokens: Any) -> torch.Tensor:
+        t = tokens if torch.is_tensor(tokens) else torch.as_tensor(np.asarray(tokens))
+        return t.to(device=self.device, dtype=torch.long)
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        return dot_f32(x, self.lm_head)
+
+    @torch.no_grad()
+    def forward_full(self, tokens: Any, *, prefix_embeds: Any = None,
+                     window: int | None = None, return_cache: bool = False,
+                     plain_attention: bool = False
+                     ) -> tuple[torch.Tensor, dict | None, torch.Tensor]:
+        """Teacher-forced forward of ``tokens`` (B, S).  Returns (logits
+        (B, S, Vp) fp32, caches {"k", "v"} of (L, B, S, KV, dh) or None,
+        aux = 0).  ``plain_attention`` runs the attention kernels' plain
+        versions instead of the kernels (a comparison)."""
+        if prefix_embeds is not None:
+            raise NotImplementedError(f"prefix embeddings {_NOT_PORTED}")
+        cfg = self.cfg
+        window = cfg.attn_window if window is None else window
+        x = self.embed[self._tokens(tokens)]
+        S = x.shape[1]
+        cos, sin = rope_table(S, cfg.d_head, cfg.rope_theta, device=self.device)
+        ks, vs = [], []
+        for blk in self.blocks:
+            x, (k, v) = blk.full(cfg, x, cos, sin, window, plain_attention)
+            if return_cache:
+                ks.append(k)
+                vs.append(v)
+        caches = ({"k": torch.stack(ks), "v": torch.stack(vs)}
+                  if return_cache else None)
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        return self._logits(x), caches, aux
+
+    @torch.no_grad()
+    def forward_decode(self, token: Any, caches: dict[str, torch.Tensor],
+                       pos: Any) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+        """One decode step: ``token`` (B,) at positions ``pos`` (B,).
+        Returns (logits (B, Vp) fp32, caches), the caches updated in place.
+        ``pos`` on the host (a numpy array, as the engine keeps it) is
+        checked there and costs no synchronisation."""
+        cfg = self.cfg
+        S = caches["k"].shape[2]
+        p = pos if torch.is_tensor(pos) else torch.as_tensor(np.asarray(pos))
+        p = p.to(torch.int32)
+        if p.device.type == "cpu":
+            if bool(((p < 0) | (p >= S)).any()):
+                raise ValueError(f"decode positions {p.tolist()} outside [0, {S})")
+            cache_len = p + 1
+            p = p.to(self.device, non_blocking=True)
+        else:
+            cache_len = p + 1
+        x = self.embed[self._tokens(token)[:, None]]          # (B, 1, D)
+        ang = p.float()[:, None] * rope_freqs(cfg.d_head, cfg.rope_theta,
+                                              self.device)[None, :]
+        cos, sin = torch.cos(ang)[:, None, :], torch.sin(ang)[:, None, :]
+        for blk, kc, vc in zip(self.blocks, caches["k"], caches["v"]):
+            x = blk.decode(cfg, x, kc, vc, p, cache_len, cos, sin)
+        return self._logits(x)[:, 0], caches
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               device: torch.device | str | None = None) -> dict[str, torch.Tensor]:
+    """Zeroed serving caches {"k", "v"} of (L, B, S, KV, dh) in the
+    activation dtype."""
+    _check_ported(cfg)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads_eff, cfg.d_head)
+    dev = resolve_device(device)
+    return {"k": torch.zeros(shape, dtype=cfg.adt, device=dev),
+            "v": torch.zeros(shape, dtype=cfg.adt, device=dev)}
+
+
+# ================================================================ parameters
+def _leaves(model: Transformer) -> dict[str, list[torch.Tensor]]:
+    """The reference tree's leaf paths → the port's tensors (one per layer
+    under ``blocks/``, in layer order)."""
+    out: dict[str, list[torch.Tensor]] = {
+        "embed": [model.embed], "final_norm": [model.final_norm],
+        "lm_head": [model.lm_head]}
+    for blk in model.blocks:
+        for name in ("norm1", "norm2"):
+            out.setdefault(f"blocks/{name}", []).append(getattr(blk, name))
+        for group in ("attn", "mlp"):
+            for name, t in getattr(blk, group).items():
+                out.setdefault(f"blocks/{group}/{name}", []).append(t)
+    return out
+
+
+def _flatten(tree: Any, prefix: str = "") -> dict[str, Any]:
+    if isinstance(tree, dict):
+        flat: dict[str, Any] = {}
+        for k, v in tree.items():
+            flat.update(_flatten(v, f"{prefix}{k}/"))
+        return flat
+    return {prefix[:-1]: tree}
+
+
+def init_params(cfg: ModelConfig, seed: int = 0,
+                device: torch.device | str | None = None) -> Transformer:
+    """A :class:`Transformer` with random weights from ``seed``, made on
+    ``device`` (None: the card): the reference's distribution (embedding
+    N(0, 0.02²), he-scaled normal matrices, unit norms, zero biases, the
+    padded heads' output rows zeroed), drawn in float32 by a
+    ``torch.Generator`` and cast to each tensor's dtype."""
+    model = Transformer(cfg, device)
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    D, Vp, F = cfg.d_model, cfg.padded_vocab, cfg.d_ff
+    with torch.no_grad():
+        model.embed.copy_(normal_init(gen, (Vp, D), 0.02, model.embed.dtype))
+        model.final_norm.fill_(1.0)
+        model.lm_head.copy_(he_init(gen, (D, Vp), D, model.lm_head.dtype))
+        for blk in model.blocks:
+            blk.norm1.fill_(1.0)
+            blk.norm2.fill_(1.0)
+            attn = init_gqa(gen, D, cfg.n_heads_eff, cfg.n_kv_heads_eff,
+                            cfg.d_head, bias=cfg.qkv_bias,
+                            dtype=blk.attn["wq"].dtype)
+            if cfg.n_heads_eff != cfg.n_heads:
+                attn["wo"][cfg.n_heads:] = 0.0
+            for src in (attn, init_mlp(gen, D, F, blk.mlp["w_up"].dtype)):
+                for name, t in src.items():
+                    (blk.attn if name in blk.attn else blk.mlp)[name].copy_(t)
+    return model
+
+
+def params_from_reference(np_params: dict[str, Any], cfg: ModelConfig,
+                          device: torch.device | str | None = None
+                          ) -> Transformer:
+    """The JAX package's parameter tree (``jax.tree.map(np.asarray,
+    init_params(cfg, key))``, blocks stacked on a leading L axis) as a
+    :class:`Transformer` on ``device``.  Every leaf is used; an unknown or
+    missing leaf, or a shape that does not match, raises ``ValueError``."""
+    model = Transformer(cfg, device)
+    want = _leaves(model)
+    flat = _flatten(np_params)
+    unknown, missing = sorted(set(flat) - set(want)), sorted(set(want) - set(flat))
+    if unknown or missing:
+        raise ValueError(f"params_from_reference: unknown leaves {unknown}, "
+                         f"missing leaves {missing}")
+    with torch.no_grad():
+        for path, targets in want.items():
+            a = np.asarray(flat[path])
+            stacked = path.startswith("blocks/")
+            shape = ((len(targets),) if stacked else ()) + tuple(targets[0].shape)
+            if a.shape != shape:
+                raise ValueError(f"params_from_reference: {path} has shape "
+                                 f"{a.shape}, expected {shape}")
+            src = torch.from_numpy(np.array(a, dtype=np.float32))
+            for i, t in enumerate(targets):
+                t.copy_((src[i] if stacked else src).to(device=t.device,
+                                                       dtype=t.dtype))
+    return model

@@ -1,1 +1,2 @@
-"""Serving engines over compiled classical programs."""
+"""Serving engines: over compiled classical programs, and the token engine
+of the LM stack (``engine``)."""

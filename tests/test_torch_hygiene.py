@@ -1,4 +1,8 @@
-"""The port stands alone: it imports neither JAX nor the JAX package."""
+"""The port stands alone: it imports neither JAX nor the JAX package.
+
+Every module of ``repro_torch`` is scanned for such imports, and a fresh
+interpreter with ``jax``, ``jaxlib`` and ``repro`` blocked serves on the CPU
+through the classical engine, the LM engine and the LM launcher."""
 
 import os
 import re
@@ -40,6 +44,20 @@ _BLOCKED = textwrap.dedent("""
     eng.submit(x)
     (req,) = eng.run_to_completion()
     assert 0 <= int(req.pred) < 10
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = get_arch("qwen2.5-3b").smoke
+    lm = ServeEngine(cfg, init_params(cfg, 0, "cpu"), max_batch=2, max_len=32,
+                     device="cpu")
+    lm.submit([3, 1, 4, 1, 5], max_new_tokens=3)
+    (gen,) = lm.run_to_completion()
+    assert len(gen.tokens) == 3
+    assert launch_serve.main(["--arch", "qwen2.5-3b", "--smoke", "--device",
+                              "cpu", "--requests", "2", "--max-new", "2"]) == 0
     assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro")
                    for m in sys.modules)
     print("served", int(req.pred))
@@ -51,4 +69,6 @@ def test_serves_with_jax_and_reference_blocked():
     res = subprocess.run([sys.executable, "-c", _BLOCKED], env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert res.stdout.startswith("served")
+    lines = res.stdout.splitlines()
+    assert lines[-1].startswith("served")
+    assert any("2 requests, 4 tokens" in line for line in lines)

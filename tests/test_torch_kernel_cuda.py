@@ -248,3 +248,174 @@ def test_new_wrappers_check_and_count(card):
         ops.matmul(x.t(), x)
     for name in ("linear_chain", "spmv", "matmul"):
         assert LAUNCHES[name] == before[name] + 1
+
+
+# ------------------------------------------------------- attention kernels
+# Held against their plain versions (repro_torch.kernels.ref): float32
+# rtol = atol = 1e-5; bfloat16 within one bf16 ulp of the largest output
+# magnitude (the sums run in another order, so an output near a rounding
+# boundary may round the other way).
+def _attn_close(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        mag = float(want.float().abs().max())
+        ulp = 2.0 ** (np.floor(np.log2(mag)) - 7)
+        assert float((got.float() - want.float()).abs().max()) <= ulp
+
+
+def _randn(card, *shape, dtype=torch.float32, seed=0):
+    g = torch.Generator(device=card).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=card).to(dtype)
+
+
+@pytest.mark.parametrize("round_p", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,dh,causal", [
+    (1, 8, 8, 16, 2, 128, True), (1, 100, 100, 16, 2, 128, True),
+    (2, 64, 64, 4, 4, 32, True), (2, 33, 33, 4, 1, 128, True),
+    (1, 16, 16, 2, 2, 256, True), (1, 70, 70, 8, 2, 100, True),
+    (1, 257, 257, 8, 1, 64, True), (2, 40, 40, 4, 4, 32, False),
+    (1, 24, 90, 8, 2, 64, False), (1, 50, 20, 4, 2, 16, True)])
+def test_flash_attention_kernel_matches_plain(card, B, Sq, Sk, H, KV, dh,
+                                              causal, dtype, round_p):
+    from repro_torch.kernels.flash_attention import flash_attention_fused
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    dt = getattr(torch, dtype)
+    q = _randn(card, B, Sq, H, dh, dtype=dt, seed=1)
+    k = _randn(card, B, Sk, KV, dh, dtype=dt, seed=2)
+    v = _randn(card, B, Sk, KV, dh, dtype=dt, seed=3)
+    got = flash_attention_fused(q, k, v, causal=causal, round_p=round_p)
+    want = flash_attention_ref(q, k, v, causal=causal, round_p=round_p)
+    torch.cuda.synchronize()
+    _attn_close(got, want)
+
+
+def test_flash_attention_reads_strided_views(card):
+    """q, k, v as slices of one fused (B, S, H + 2 KV, dh) projection, the
+    layout a fused QKV product gives: no copy, same result."""
+    from repro_torch.kernels.flash_attention import flash_attention_fused
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    qkv = _randn(card, 2, 75, 16 + 2 + 2, 128, seed=4)
+    q, k, v = qkv[:, :, :16], qkv[:, :, 16:18], qkv[:, :, 18:]
+    assert not q.is_contiguous()
+    got = flash_attention_fused(q, k, v, round_p=False)
+    want = flash_attention_ref(q.contiguous(), k.contiguous(), v.contiguous())
+    torch.cuda.synchronize()
+    _attn_close(got, want)
+
+
+@pytest.mark.parametrize("round_p", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,KV,dh", [
+    (8, 2048, 16, 2, 128), (2, 64, 8, 4, 32), (3, 100, 4, 1, 64),
+    (1, 32, 16, 2, 128), (2, 50, 8, 8, 256), (4, 77, 8, 2, 100)])
+def test_decode_attention_kernel_matches_plain(card, B, S, H, KV, dh, dtype,
+                                               round_p):
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.ref import decode_attention_ref
+
+    dt = getattr(torch, dtype)
+    q = _randn(card, B, H, dh, dtype=dt, seed=5)
+    k = _randn(card, B, S, KV, dh, dtype=dt, seed=6)
+    v = _randn(card, B, S, KV, dh, dtype=dt, seed=7)
+    lens = np.random.default_rng(S).integers(1, S + 1, size=B).astype(np.int32)
+    lens[0], lens[-1] = 1, S
+    got = decode_attention(q, k, v, lens, round_p=round_p)
+    want = decode_attention_ref(q, k, v, torch.from_numpy(lens).to(card),
+                                round_p=round_p)
+    torch.cuda.synchronize()
+    _attn_close(got, want)
+
+
+def test_decode_attention_reads_a_layer_of_the_stacked_cache(card):
+    """A layer's slice of the engine's (L, B, S, KV, dh) cache, and lengths
+    given on the card."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.ref import decode_attention_ref
+
+    kc = _randn(card, 3, 4, 300, 2, 128, seed=8)
+    vc = _randn(card, 3, 4, 300, 2, 128, seed=9)
+    q = _randn(card, 4, 16, 128, seed=10)
+    lens = torch.tensor([1, 64, 65, 300], dtype=torch.int32, device=card)
+    got = decode_attention(q, kc[1], vc[1], lens, round_p=False)
+    want = decode_attention_ref(q, kc[1], vc[1], lens)
+    torch.cuda.synchronize()
+    _attn_close(got, want)
+
+
+def test_attention_wrappers_check_and_count(card):
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention_fused
+
+    before = dict(LAUNCHES)
+    q, k = _randn(card, 1, 9, 4, 32), _randn(card, 1, 9, 2, 32)
+    flash_attention_fused(q, k, k)
+    decode_attention(q[:, 0], k, k, [9])
+    torch.cuda.synchronize()
+    for name in ("flash_attention", "decode_attention"):
+        assert LAUNCHES[name] == before[name] + 1
+    with pytest.raises(TypeError):
+        flash_attention_fused(q.double(), k.double(), k.double())
+    with pytest.raises(ValueError):
+        flash_attention_fused(q, k.cpu(), k)
+    with pytest.raises(ValueError):
+        flash_attention_fused(_randn(card, 1, 9, 4, 300),
+                              _randn(card, 1, 9, 2, 300), _randn(card, 1, 9, 2, 300))
+    with pytest.raises(ValueError):
+        flash_attention_fused(q.transpose(1, 3).contiguous().transpose(1, 3), k, k)
+    for bad in ([0], [10]):
+        with pytest.raises(ValueError, match="cache_len"):
+            decode_attention(q[:, 0], k, k, bad)
+    with pytest.raises(ValueError, match="cache_len"):
+        decode_attention(q[:, 0], k, k, torch.zeros(1, dtype=torch.int32,
+                                                    device=card))
+    with pytest.raises(TypeError):
+        decode_attention(q[:, 0].bfloat16(), k, k, [9])
+    for name in ("flash_attention", "decode_attention"):
+        assert LAUNCHES[name] == before[name] + 1
+
+
+def test_lm_engine_on_the_card_matches_the_cpu(card):
+    """qwen2.5's SMOKE config in float32: the same greedy tokens on the card
+    (both attention kernels) as on the CPU (their plain versions), and one
+    flash launch per layer per prefill, one decode launch per layer per
+    step."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = get_arch("qwen2.5-3b").smoke
+    rng = np.random.default_rng(0)
+    prompts = [list(rng.integers(1, cfg.vocab_size, size=n)) for n in (5, 17, 40)]
+    cpu_model = init_params(cfg, 0, "cpu")
+    done = {}
+    for dev in ("cpu", card):
+        model = cpu_model if dev == "cpu" else init_params(cfg, 0, "cpu")
+        if dev != "cpu":
+            model = _to_card(model, cfg, card)
+        eng = ServeEngine(cfg, model, max_batch=2, max_len=64, device=dev)
+        for p in prompts:
+            eng.submit(p, max_new_tokens=5)
+        before = dict(LAUNCHES)
+        done[str(dev)] = [r.tokens for r in eng.run_to_completion()]
+        if dev != "cpu":
+            steps = eng.metrics.snapshot()["batches"]
+            assert LAUNCHES["flash_attention"] - before["flash_attention"] \
+                == cfg.n_layers * len(prompts)
+            assert LAUNCHES["decode_attention"] - before["decode_attention"] \
+                == cfg.n_layers * steps
+    assert done["cpu"] == done[str(card)]
+
+
+def _to_card(model, cfg, card):
+    from repro_torch.models.transformer import Transformer
+
+    out = Transformer(cfg, card)
+    with torch.no_grad():
+        for a, b in zip(out.parameters(), model.parameters()):
+            a.copy_(b)
+    return out
