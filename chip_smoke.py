@@ -18,7 +18,9 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               60 programs compiled with ``use_pallas=True`` and on random
               programs over every stage (rank 3, ragged n); spmv at tile
               densities 0, 0.1 and 1 and on ragged shapes; matmul/gemv in
-              float32 and bfloat16 up to 4096³;
+              float32 and bfloat16 up to 4096³ (``MATMUL_SHAPES``), both
+              layouts of b, on every route of ``plan_matmul``: wgmma with
+              TMA or thread staging, split-K, the float32 CUDA-core kernel;
 4. serve    — the two served paths: ``ClassicalServeEngine`` on
               bonsai/curet-m and protonn/curet-m, float32 and int8, 256
               requests each, with ``exec_mode="megakernel_grid"`` (the
@@ -28,14 +30,18 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               requests; each path's launches are counted over its own run
               and the chain launches must equal chains × buckets;
 5. ops      — the kernel library's entry point ``repro_torch.kernels.ops``:
-              ``spmv``, ``gemv`` and ``matmul`` once each at the report's
-              shapes, their launches counted over this phase, the results
-              checked against the plain versions;
+              ``spmv`` x2 and ``gemv`` x2 and ``matmul`` x1 in float32 and
+              again in bfloat16 at the report's shapes, their launches
+              counted over this phase (bfloat16 on ``matmul_wgmma``), the
+              results checked against the plain versions;
 6. lm-kernel — the two attention kernels against their plain versions on
               the card: flash attention at qwen2.5-3b's heads (H 16, KV 2,
               dh 128), B = 1, Sq = Sk in {8, 100, 1024, 2048}, float32 and
               bfloat16, p in fp32 and p rounded, plus G in {1, 4, 8} at small
-              shapes and one non-causal case; decode attention at B = 8,
+              shapes, one non-causal case, dh 256 and dh 100 (bf16 on the
+              CUDA-core kernel) and q, k, v as strided views of a fused QKV
+              projection, each case on the kernel ``flash_route`` picks;
+              decode attention at B = 8,
               S = 2048 with ragged cache lengths including 1 and S, float32
               and bfloat16.  Limits: float32 ``rtol = atol = 1e-5``;
               bfloat16 one bf16 ulp of the output's largest magnitude;
@@ -49,8 +55,10 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               (``LM_F32_GAP``), and those logits within ``LM_F32_ATOL`` of a
               ``forward_full`` whose attention runs the plain versions; run 2
               in the inference dtypes of ``cell_config(decode_32k)``
-              (bfloat16), teacher-forced agreement >= 95 %.  Over the two
-              engine runs, flash launches = 36 x prefills and decode
+              (bfloat16), teacher-forced agreement >= 95 %.  In each engine
+              run, flash launches = 36 x prefills on the path of its dtype
+              (float32: ``flash_attention``, bfloat16:
+              ``flash_attention_wgmma``) and none on the other, and decode
               launches = 36 x decode steps, exactly;
 8. report   — the device time of every kernel, its plain version and,
               where one PyTorch call computes the same function, that call
@@ -101,6 +109,11 @@ LM_PROMPT_LEN = (16, 1024)
 LM_F32_GAP = 1e-3
 LM_F32_ATOL = 1e-3
 LM_BF16_AGREE = 0.95
+# matmul/gemv cases (M, K, N) of phase 3, each in float32 and bfloat16 with
+# both layouts of b: aligned and unaligned pitches, split and unsplit K
+MATMUL_SHAPES = ((129, 65, 70), (128, 128, 128), (64, 610, 24),
+                 (64, 4096, 4096), (1024, 1024, 1024), (2048, 1020, 2100),
+                 (4096, 4096, 4096))
 
 
 def phase(name: str, t0: float, msg: str) -> None:
@@ -623,13 +636,15 @@ def main() -> int:
         from repro_torch.kernels import linear_pipeline as lp
         from repro_torch.kernels import megakernel as mk
         from repro_torch.kernels import ops
+        from repro_torch.kernels.gemv import plan_matmul
         from repro_torch.kernels.ref import (gemv_ref, matmul_ref,
                                              run_segment_grid_ref, spmv_ref)
         from repro_torch.serve.classical_engine import (ClassicalServeEngine,
                                                         get_program)
         from repro_torch.configs.registry import SHAPES, get_arch
         from repro_torch.kernels.decode_attention import decode_attention
-        from repro_torch.kernels.flash_attention import flash_attention_fused
+        from repro_torch.kernels.flash_attention import (flash_attention_fused,
+                                                         flash_route)
         from repro_torch.kernels.ref import (decode_attention_ref,
                                              flash_attention_ref)
         from repro_torch.models.layers import MM_F32_ROUTE
@@ -701,8 +716,10 @@ def main() -> int:
                             "is not numpy's round-half-to-even result")
     print("  ties: kernel and plain version round half to even, exactly")
     checks = {k: {"cases": 0, "max_abs_err": 0.0, "lsb_1": 0}
-              for k in ("linear_chain", "linear_chain_q", "spmv", "matmul")}
+              for k in ("linear_chain", "linear_chain_q", "spmv", "matmul",
+                        "matmul_wgmma")}
     report["checks"] = checks
+    routes: dict[str, int] = {}
 
     def note(kernel: str, label: str, ok: bool, err: float, lsb: int = 0):
         c = checks[kernel]
@@ -760,23 +777,43 @@ def main() -> int:
             torch.cuda.synchronize()
             note("spmv", f"{tuple(w.shape)} B={B} tiles {bm} density "
                  f"{packed.density:.3f}", *compare_product(got, want, w.shape[1]))
+        # every route of plan_matmul: wgmma with TMA staging (aligned bf16),
+        # with thread staging (K = 610, 65 or 33: unaligned pitches), split-K
+        # (fewer output tiles than SMs: the GEMVs at B = 64), and the
+        # float32 CUDA-core kernel, at the same shapes
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
         for dt in (torch.float32, torch.bfloat16):
-            for M, K, N in ((129, 65, 70), (4096, 4096, 4096)):
+            for M, K, N in MATMUL_SHAPES:
                 a, b, bt = (torch.randn(s, generator=gx, device=dev).to(dt)
                             for s in ((M, K), (K, N), (N, K)))
-                for tb, got, want in (
+                for tb, got, want, bb in (
                         (False, ops.matmul(a, b),
-                         matmul_ref(a.float(), b.float())),
+                         matmul_ref(a.float(), b.float()), b),
                         (True, ops.matmul(a, bt, transpose_b=True),
-                         matmul_ref(a.float(), bt.float().T))):
+                         matmul_ref(a.float(), bt.float().T), bt)):
                     torch.cuda.synchronize()
-                    note("matmul", f"{dt} {(M, K, N)} transpose_b={tb}",
+                    plan = plan_matmul(M, N, K, dt, tb, a.data_ptr(),
+                                       bb.data_ptr(), sms)
+                    route = (f"{plan.kernel}/{plan.staging}"
+                             + ("/split-k" if plan.splits > 1 else ""))
+                    routes[route] = routes.get(route, 0) + 1
+                    note("matmul" if plan.kernel == "simt" else "matmul_wgmma",
+                         f"{dt} {(M, K, N)} transpose_b={tb} "
+                         f"{route} splits {plan.splits}",
                          *compare_product(got, want.to(dt), K))
+        for want in ("wgmma/tma", "wgmma/threads", "wgmma/tma/split-k",
+                     "wgmma/threads/split-k", "simt/cp.async",
+                     "simt/cp.async/split-k"):
+            if not routes.get(want):
+                raise AssertionError(f"matmul route {want} not exercised: "
+                                     f"{routes}")
     except AssertionError as e:
         return fail("kernel", str(e))
     for k, c in checks.items():
         print(f"  {k}: {c['cases']} cases, worst max abs err "
               f"{c['max_abs_err']:.3g}, 1-LSB elements {c['lsb_1']}")
+    print(f"  matmul routes (cases): {routes}")
+    report["matmul_routes"] = routes
     phase("kernel", t, f"{len(report['cases'])} megakernel program x precision "
           "cases (grid == per-sample bitwise) and every chain, spmv and matmul "
           "case within tolerance of its plain version")
@@ -871,23 +908,38 @@ def main() -> int:
     a_4k = torch.randn((4096, 4096), generator=g, device=dev)
     p_zx = ops.pack_bcsr(zx, device=dev)
     p_sp = ops.pack_bcsr(w_sp.cpu().numpy(), device=dev)
-    LAUNCHES["spmv"] = LAUNCHES["matmul"] = 0
+    bf = torch.bfloat16
+    w_zx16, x_zx16 = w_zx.to(bf), x_zx.to(bf)
+    w_dn16, x_4k16, a_4k16 = w_dn.to(bf), x_4k.to(bf), a_4k.to(bf)
+    LAUNCHES["spmv"] = LAUNCHES["matmul"] = LAUNCHES["matmul_wgmma"] = 0
     outs = [(ops.spmv(p_zx, x_zx), spmv_ref(w_zx, x_zx)),
             (ops.spmv(p_sp, x_4k), spmv_ref(w_sp, x_4k)),
             (ops.gemv(w_zx, x_zx), gemv_ref(w_zx, x_zx)),
             (ops.gemv(w_dn, x_4k), gemv_ref(w_dn, x_4k)),
-            (ops.matmul(a_4k, w_dn), matmul_ref(a_4k, w_dn))]
+            (ops.matmul(a_4k, w_dn), matmul_ref(a_4k, w_dn)),
+            (ops.gemv(w_zx16, x_zx16),
+             gemv_ref(w_zx16.float(), x_zx16.float()).to(bf)),
+            (ops.gemv(w_dn16, x_4k16),
+             gemv_ref(w_dn16.float(), x_4k16.float()).to(bf)),
+            (ops.matmul(a_4k16, w_dn16),
+             matmul_ref(a_4k16.float(), w_dn16.float()).to(bf))]
     torch.cuda.synchronize()
-    launches.update(spmv=LAUNCHES["spmv"], matmul=LAUNCHES["matmul"])
-    for (got, want), k in zip(outs, (610, 4096, 610, 4096, 4096)):
+    launches.update(spmv=LAUNCHES["spmv"], matmul=LAUNCHES["matmul"],
+                    matmul_wgmma=LAUNCHES["matmul_wgmma"])
+    for (got, want), k in zip(outs, (610, 4096, 610, 4096, 4096, 610, 4096,
+                                     4096)):
         ok, err = compare_product(got, want, k)
         if not ok or not bool(torch.isfinite(got).all()):
             return fail("ops", f"result of shape {tuple(got.shape)} off its "
                         f"plain version by {err}")
-    if launches["spmv"] != 2 or launches["matmul"] != 3:
-        return fail("ops", f"launches {launches}: expected spmv 2, matmul 3")
-    phase("ops", t, f"spmv x2, gemv x2, matmul x1 through repro_torch.kernels."
-          f"ops; launches spmv {launches['spmv']}, matmul {launches['matmul']}")
+    if (launches["spmv"] != 2 or launches["matmul"] != 3
+            or launches["matmul_wgmma"] != 3):
+        return fail("ops", f"launches {launches}: expected spmv 2, matmul 3 "
+                    "(float32, CUDA cores), matmul_wgmma 3 (bfloat16)")
+    phase("ops", t, f"spmv x2, gemv x2 and matmul x1 in float32, gemv x2 and "
+          f"matmul x1 in bfloat16 through repro_torch.kernels.ops; launches "
+          f"spmv {launches['spmv']}, matmul {launches['matmul']}, "
+          f"matmul_wgmma {launches['matmul_wgmma']}")
 
     # ------------------------------------------------------ 6. lm-kernel
     t = time.perf_counter()
@@ -914,18 +966,33 @@ def main() -> int:
             flash_shapes = [(1, S, S, 16, 2, 128, True) for S in (8, 100, 1024, 2048)]
             flash_shapes += [(2, 77, 77, H, KV, 64, True)
                              for H, KV in ((8, 8), (8, 2), (16, 2))]
-            flash_shapes += [(2, 100, 100, 16, 2, 128, False)]
+            flash_shapes += [(2, 100, 100, 16, 2, 128, False),
+                             (1, 300, 300, 8, 2, 256, True),
+                             (1, 70, 70, 8, 2, 100, True)]
+            cases = []
             for B, Sq, Sk, H, KV, dh, causal in flash_shapes:
                 q = rnd((B, Sq, H, dh), dt)
                 k, v = rnd((B, Sk, KV, dh), dt), rnd((B, Sk, KV, dh), dt)
+                cases.append((f"B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} dh={dh} "
+                              f"{'causal' if causal else 'full'}", q, k, v,
+                              causal))
+            # q, k and v as slices of one fused QKV projection (B, S, H + 2 KV,
+            # dh): strided views, read in place
+            qkv = rnd((2, 1024, 16 + 2 + 2, 128), dt)
+            cases.append(("fused QKV view B=2 Sq=Sk=1024 H=16 KV=2 dh=128 "
+                          "causal", qkv[:, :, :16], qkv[:, :, 16:18],
+                          qkv[:, :, 18:], True))
+            for label, q, k, v, causal in cases:
+                route = flash_route(q, k, v)
+                kname = ("flash_attention_wgmma" if route == "wgmma"
+                         else "flash_attention")
                 for rp in (False, True):
-                    attn_case("flash_attention",
-                              f"{dname} B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} "
-                              f"dh={dh} {'causal' if causal else 'full'} "
-                              f"p {'rounded' if rp else 'fp32'}",
+                    attn_case(kname,
+                              f"{dname} {label} p {'rounded' if rp else 'fp32'}",
                               flash_attention_fused(q, k, v, causal=causal,
                                                     round_p=rp),
-                              flash_attention_ref(q, k, v, causal=causal,
+                              flash_attention_ref(q.contiguous(), k.contiguous(),
+                                                  v.contiguous(), causal=causal,
                                                   round_p=rp))
             B, S = 8, 2048
             lens = np.random.default_rng(5).integers(1, S + 1, size=B)
@@ -942,7 +1009,8 @@ def main() -> int:
                                                round_p=rp))
     except AssertionError as e:
         return fail("lm-kernel", str(e))
-    for name in ("flash_attention", "decode_attention"):
+    for name in ("flash_attention", "flash_attention_wgmma",
+                 "decode_attention"):
         errs = [c["max_abs_err"] for c in attn_cases if c["kernel"] == name]
         checks[name] = {"cases": len(errs), "max_abs_err": max(errs)}
     phase("lm-kernel", t, f"{len(attn_cases)} attention cases within their "
@@ -956,8 +1024,10 @@ def main() -> int:
     prompts = [rng.integers(1, spec.model.vocab_size, size=n).tolist()
                for n in plens]
     lm_runs: list[dict] = []
-    launches.update(flash_attention=0, decode_attention=0)
+    launches.update(flash_attention=0, flash_attention_wgmma=0,
+                    decode_attention=0)
     prefills = steps_total = 0
+    lm_counts = ("flash_attention", "flash_attention_wgmma", "decode_attention")
 
     def lm_serve(label, cfg, plain_check):
         nonlocal prefills, steps_total
@@ -972,26 +1042,31 @@ def main() -> int:
         for p in prompts:
             eng.submit(p, max_new_tokens=LM_NEW_TOKENS)
         torch.cuda.synchronize()
-        LAUNCHES["flash_attention"] = LAUNCHES["decode_attention"] = 0
+        for k in lm_counts:
+            LAUNCHES[k] = 0
         t1 = time.perf_counter()
         done = eng.run_to_completion()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
-        got = {k: LAUNCHES[k] for k in ("flash_attention", "decode_attention")}
+        got = {k: LAUNCHES[k] for k in lm_counts}
         snap = eng.metrics.snapshot()
         steps, decode_s = snap["batches"], snap["device_s"]
         L = cfg.n_layers
+        # bf16 prefills run on the tensor cores, float32 on the CUDA cores
+        flash, other = (("flash_attention_wgmma", "flash_attention")
+                        if cfg.act_dtype == "bfloat16"
+                        else ("flash_attention", "flash_attention_wgmma"))
         print(f"  {label}: {len(done)} requests, {steps} decode steps, "
-              f"launches {got} (expected flash {L} x {len(done)}, decode "
-              f"{L} x {steps})", flush=True)
-        if (got["flash_attention"] != L * len(done)
+              f"launches {got} (expected {flash} {L} x {len(done)}, {other} "
+              f"0, decode {L} x {steps})", flush=True)
+        if (got[flash] != L * len(done) or got[other] != 0
                 or got["decode_attention"] != L * steps
                 or len(done) != LM_REQUESTS
                 or any(len(r.tokens) != LM_NEW_TOKENS for r in done)):
             raise AssertionError(f"{label}: launches {got}, {len(done)} "
                                  f"requests, {steps} steps")
-        launches["flash_attention"] += got["flash_attention"]
-        launches["decode_attention"] += got["decode_attention"]
+        for k in lm_counts:
+            launches[k] += got[k]
         prefills += len(done)
         steps_total += steps
         n_tok = sum(len(r.tokens) for r in done)
@@ -1009,7 +1084,9 @@ def main() -> int:
             ("da_kernel",))
         pre_dev, pre_part, pre_n = device_split(
             lambda: model.forward_full(np.ones((1, bucket), np.int32),
-                                       return_cache=True), ("fa_kernel",))
+                                       return_cache=True),
+            ("fa_kernel", "fa_tc_kernel"))
+        flash_ms = pre_part["fa_kernel"] + pre_part["fa_tc_kernel"]
         n_pos, worse, diff = teacher_forced(model, done, cfg.vocab_size,
                                             plain_check)
         rec = dict(run=label, dtype=cfg.act_dtype, params=cfg.param_dtype,
@@ -1025,7 +1102,7 @@ def main() -> int:
                    attention_share=part["da_kernel"] / step_dev,
                    decode_step_device_activities=step_n,
                    prefill_device_ms=pre_dev,
-                   prefill_flash_device_ms=pre_part["fa_kernel"],
+                   prefill_flash_device_ms=flash_ms,
                    prefill_device_activities=pre_n,
                    peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                    positions=n_pos, disagreements=worse,
@@ -1047,7 +1124,7 @@ def main() -> int:
               f"{step_dev:.3f} ms, attention {part['da_kernel']:.3f} ms "
               f"({part['da_kernel'] / step_dev:.1%}), {step_n:.0f} device "
               f"activities; prefill of {bucket} tokens device {pre_dev:.3f} ms, "
-              f"flash {pre_part['fa_kernel']:.3f} ms, {pre_n:.0f} activities; peak "
+              f"flash {flash_ms:.3f} ms, {pre_n:.0f} activities; peak "
               f"{rec['peak_gib']:.1f} GiB", flush=True)
         lm_runs.append(rec)
         return model, eng, rec
@@ -1079,7 +1156,9 @@ def main() -> int:
         return fail("lm-serve", str(e))
     phase("lm-serve", t, f"qwen2.5-3b, {spec.model.n_layers} layers, float32 "
           f"and bfloat16; {prefills} prefills, {steps_total} decode steps; "
-          f"launches flash {launches['flash_attention']}, decode "
+          f"launches flash {launches['flash_attention']} (float32, CUDA "
+          f"cores), {launches['flash_attention_wgmma']} (bfloat16, tensor "
+          f"cores), decode "
           f"{launches['decode_attention']}; bf16 products with an fp32 result "
           f"via {MM_F32_ROUTE.get('bfloat16', 'none')}")
 
@@ -1162,16 +1241,22 @@ def main() -> int:
             lambda: spmv_ref(w, x), lambda: F.linear(x, w), 50,
             spmv_work(packed, int(x.shape[0])), "float32"))
     for label, w, x in (("gemv (24, 610) B=64", w_zx, x_zx),
-                        ("gemv (4096, 4096) B=64", w_dn, x_4k)):
+                        ("gemv (4096, 4096) B=64", w_dn, x_4k),
+                        ("gemv (24, 610) B=64 bfloat16", w_zx16, x_zx16),
+                        ("gemv (4096, 4096) B=64 bfloat16", w_dn16, x_4k16)):
         m, n = w.shape
-        rows["matmul"].append(row(
-            "matmul", label, lambda: ops.gemv(w, x),
-            lambda: gemv_ref(w, x), lambda: F.linear(x, w), 50,
-            matmul_work(int(x.shape[0]), m, n, 4), "float32"))
+        name = str(w.dtype).split(".")[-1]
+        kname = "matmul_wgmma" if w.dtype == torch.bfloat16 else "matmul"
+        rows[kname].append(row(
+            kname, label, lambda: ops.gemv(w, x),
+            lambda: gemv_ref(w.float(), x.float()).to(w.dtype),
+            lambda: F.linear(x, w), 50,
+            matmul_work(int(x.shape[0]), m, n, w.element_size()), name))
     for dt, name in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16")):
         a, b = a_4k.to(dt), w_dn.to(dt)
-        rows["matmul"].append(row(
-            "matmul", f"matmul 4096^3 {name}", lambda: ops.matmul(a, b),
+        kname = "matmul_wgmma" if dt == torch.bfloat16 else "matmul"
+        rows[kname].append(row(
+            kname, f"matmul 4096^3 {name}", lambda: ops.matmul(a, b),
             lambda: matmul_ref(a.float(), b.float()).to(dt),
             lambda: torch.matmul(a, b), 10,
             matmul_work(4096, 4096, 4096, a.element_size()), name))
@@ -1181,13 +1266,18 @@ def main() -> int:
         q = rnd((1, S, 16, 128), dt)
         k, v = rnd((1, S, 2, 128), dt), rnd((1, S, 2, 128), dt)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        rows["flash_attention"].append(row(
-            "flash_attention", f"{dname} B=1 Sq=Sk={S} H=16 KV=2 dh=128 causal "
-            "p fp32", lambda: flash_attention_fused(q, k, v, round_p=False),
-            lambda: flash_attention_ref(q, k, v),
-            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                   enable_gqa=True), 20,
-            flash_work(1, S, S, 16, 2, 128, q.element_size(), True), dname))
+        kname = ("flash_attention_wgmma" if flash_route(q, k, v) == "wgmma"
+                 else "flash_attention")
+        for rp in ((False, True) if dt == torch.bfloat16 else (False,)):
+            rows[kname].append(row(
+                kname, f"{dname} B=1 Sq=Sk={S} H=16 KV=2 dh=128 causal "
+                f"p {'rounded' if rp else 'fp32'}",
+                lambda: flash_attention_fused(q, k, v, round_p=rp),
+                lambda: flash_attention_ref(q, k, v, round_p=rp),
+                lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                       is_causal=True,
+                                                       enable_gqa=True), 20,
+                flash_work(1, S, S, 16, 2, 128, q.element_size(), True), dname))
         B, Sc = LM_MAX_BATCH, LM_MAX_LEN
         qd = rnd((B, 16, 128), dt)
         kc, vc = rnd((B, Sc, 2, 128), dt), rnd((B, Sc, 2, 128), dt)
@@ -1245,8 +1335,13 @@ def main() -> int:
             ("spmv", "spmv.cu", "spmv.py:95", lambda r: "4096" in r["shape"]),
             ("matmul", "gemv.cu", "gemv.py:25",
              lambda r: r["shape"] == "matmul 4096^3 float32"),
+            ("matmul_wgmma", "gemv.cu", "gemv.py:25",
+             lambda r: r["shape"] == "matmul 4096^3 bfloat16"),
             ("flash_attention", "flash_attention.cu", "flash_attention.py:39",
-             lambda r: r["shape"].startswith("bfloat16")),
+             lambda r: r["shape"].startswith("float32")),
+            ("flash_attention_wgmma", "flash_attention.cu",
+             "flash_attention.py:39",
+             lambda r: r["shape"].startswith("bfloat16") and "fp32" in r["shape"]),
             ("decode_attention", "decode_attention.cu", "decode_attention.py:32",
              lambda r: r["shape"].startswith("bfloat16"))):
         h = next(r for r in rows[name] if pick(r))

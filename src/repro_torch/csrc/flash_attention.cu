@@ -7,21 +7,57 @@
 // the q rows of one KV head are the (token, g) pairs, interleaved as in the
 // TPU kernel.  Scores, the softmax statistics and the output accumulator are
 // fp32; `round_p` rounds p to v's dtype before P.V, as the TPU kernel does,
-// else p stays fp32, as the model's own attention does.  q is scaled in fp32
-// before the product (the model's order; the TPU kernel scales the product).
-// No fast math: expf, and fmaf sums in index order.
+// else p stays fp32, as the model's own attention does.  No fast math: expf,
+// or exp2f of pre-scaled scores in the tensor-core kernel.
+// Two kernels; repro_torch.kernels.flash_attention.flash_route picks one
+// from the dtype and the shapes:
 //
-// Design (a simple kernel that is right; wgmma, TMA and staged rings come
-// later):
+// fa_tc_kernel, bfloat16 on the tensor cores (dh a multiple of 8 up to 256,
+// G dividing 128, 16-byte-aligned bases and strides):
+//   * One block per (b * KV + kv head, tile of 128 q rows), the heaviest
+//     causal tiles first: two consumer warpgroups of 64 rows and one
+//     producer warpgroup (registers moved to the consumers by setmaxnreg).
+//   * The producer's TMA loads read q, k and v in the model's own strided
+//     layout through 4-D tensor maps (dh, head, token, batch): the q tile
+//     once (its box of G heads x 128 / G tokens gives the (token, g) rows in
+//     order), then keys and values in a ring of 2 stages of 64 keys, each
+//     completed on an mbarrier and handed back on another.  dh is padded
+//     to 64, 128 or 256 in shared memory by TMA's zero fill.
+//   * S = Q.K^T by wgmma from shared memory into fp32 registers.  The
+//     unscaled bf16 q goes into the product and the fp32 scores are scaled
+//     after it (rounding a scaled q to bf16 would change the inputs); against
+//     the plain version, which scales q in fp32 first, this moves the result
+//     by fp32 rounding only.
+//   * Masking on token positions (row / G), only in the tiles that cross
+//     the diagonal or the end of the keys, then the online softmax in
+//     registers, in base 2 (exp2f of the scores times scale * log2(e), one
+//     FMA before each exp2f; the same function as expf of the scaled
+//     scores up to fp32 rounding): the four lanes that share a row of the
+//     accumulator fragment reduce its max and sum by shuffles.  Causal tiles
+//     above the diagonal are not loaded.
+//   * P.V by wgmma with P as the register operand, converted from the score
+//     fragment, and V read MN-major through the transpose bit.  round_p: one
+//     bf16 P.  Else the fp32 p is split into three bf16 terms, p_hi =
+//     bf16(p), p_mid = bf16(p - p_hi), p_lo = bf16(p - p_hi - p_mid), and
+//     the three products accumulate: p keeps its 24 significant bits, so the
+//     output matches a CUDA-core fp32 P.V (the decode kernel's) up to the
+//     order of the sums.  Two terms (16 bits) held every kernel case within
+//     one bf16 ulp but flipped more bf16 served tokens against the
+//     teacher-forced forward (PERF.md).
+//   * The output is divided by max(l, 1e-30) and written in place, masked.
+//
+// fa_kernel, on the CUDA cores: float32 (the tensor cores would mean TF32,
+// which the port's parity contract forbids) and the bf16 shapes the tensor
+// cores cannot take.
 //   * One block of 256 threads per (b * KV + kv head, tile of 64 q rows),
-//     the heaviest causal tiles first.  The tile's scaled q rows stay in
-//     shared memory (dh-major) for the whole key loop.
+//     the heaviest causal tiles first.  The tile's q rows, scaled in fp32,
+//     stay in shared memory (dh-major) for the whole key loop.
 //   * A loop over key tiles of BK takes the place of the TPU's sequential kv
 //     grid axis: k (dh-major) and v (key-major) are staged in shared memory,
 //     each thread computes a 4 x BK/16 block of scores with fp32 FMAs, four
 //     threads per row update the running max and sum (online softmax), and
 //     each thread rescales and accumulates a 4 x DHP/16 block of the output
-//     in registers.
+//     in registers, fmaf sums in index order.
 //   * Causal tiles above the diagonal are skipped: the loop stops at the
 //     tile's last token.  That is exact: such a tile gives m_new = m_prev,
 //     alpha = 1 and p = 0 in the TPU kernel, since key 0 is valid for every
@@ -31,9 +67,10 @@
 // Bound: operations.  4 * Sq * Sk * H * dh flops (half of it under the
 // causal mask) against reading q, k, v and writing the output once; at the
 // served shapes (Sq = Sk >= 100, dh = 128) that is well above the fp32 and
-// bf16 ridges.  This kernel runs on the CUDA cores, not the tensor cores.
+// bf16 ridges.
 
 #include "attention.cuh"
+#include "hopper.cuh"
 
 #define FA_THREADS 256
 #define FA_ROWS 64
@@ -204,13 +241,9 @@ fa_kernel(FaArgs a) {
 template <typename T, int DHP, int BK>
 static int fa_run(const FaArgs& a, cudaStream_t s) {
   const int smem = fa_smem_floats<DHP, BK>() * (int)sizeof(float);
-  static bool ready = false;
-  if (!ready) {
-    cudaError_t e = cudaFuncSetAttribute(
-        fa_kernel<T, DHP, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    ready = true;
-  }
+  static int granted[HP_MAX_DEVICES] = {0};
+  const int e = hp_grant_smem((const void*)fa_kernel<T, DHP, BK>, smem, granted);
+  if (e) return e;
   const int G = a.H / a.KV;
   dim3 grid((a.Sq * G + FA_ROWS - 1) / FA_ROWS, a.B * a.KV);
   if (grid.y > 65535) return (int)cudaErrorInvalidValue;
@@ -243,4 +276,263 @@ extern "C" int fa_launch(const void* q, const void* k, const void* v, void* o,
            vsb, vss, vsh, scale, causal, round_p, vec};
   cudaStream_t s = (cudaStream_t)stream;
   return dtype == 0 ? fa_dispatch<float>(a, s) : fa_dispatch<__nv_bfloat16>(a, s);
+}
+
+// ------------------------------------------- bf16 on the tensor cores
+#define FT_BM 128         // q rows per block: two consumer warpgroups
+#define FT_BK 64          // keys per stage
+#define FT_STAGES 2
+#define FT_THREADS 384
+
+template <int DHP>
+struct FtShape {
+  static constexpr int Q_BYTES = FT_BM * DHP * 2;    // DHP / 64 chunks of rows
+  static constexpr int KV_BYTES = FT_BK * DHP * 2;   // of 128 bytes each
+  static constexpr int BARS = Q_BYTES + FT_STAGES * 2 * KV_BYTES;
+  static constexpr int SMEM = BARS + (1 + 2 * FT_STAGES) * 8 + 1024;
+};
+
+struct FtArgs {
+  __nv_bfloat16* o;
+  int B, Sq, Sk, H, KV, dh;
+  float scale;
+  int causal;
+};
+
+template <int DHP, int RP>
+__global__ void __launch_bounds__(FT_THREADS, 1)
+fa_tc_kernel(const __grid_constant__ CUtensorMap mq,
+             const __grid_constant__ CUtensorMap mk,
+             const __grid_constant__ CUtensorMap mv, FtArgs a) {
+  using S = FtShape<DHP>;
+  constexpr int NSC = FT_BK / 2, NO = DHP / 2;      // fragment registers
+  constexpr int NP = RP ? 1 : 3;                    // bf16 terms of p
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (hp_smem(smem_raw) & 1023)) & 1023);
+  uint8_t* Qs = smem;
+  uint8_t* KVs = smem + S::Q_BYTES;       // stage s: K, then V
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + S::BARS);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + FT_STAGES;
+
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int G = a.H / a.KV;
+  const int b = blockIdx.y / a.KV, kvh = blockIdx.y % a.KV;
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * FT_BM;
+  const int nrows = a.Sq * G;
+  const int last_row = min(r0 + FT_BM, nrows) - 1;
+  const int kend = a.causal ? min(a.Sk, last_row / G + 1) : a.Sk;
+  const int nt = (kend + FT_BK - 1) / FT_BK;
+  if (tid == 0) {
+    hp_bar_init(q_full, 1);
+    for (int s = 0; s < FT_STAGES; ++s) {
+      hp_bar_init(&full[s], 1);
+      hp_bar_init(&empty[s], 8);          // one arrival per consumer warp
+    }
+    hp_bar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ----------------------------------------------------- producer
+    hp_regs_dec<40>();
+    if (tid != 256) return;
+    hp_bar_expect_tx(q_full, S::Q_BYTES);
+#pragma unroll
+    for (int c = 0; c < DHP / 64; ++c)
+      hp_tma_4d(Qs + c * FT_BM * 128, &mq, q_full, c * 64, kvh * G, r0 / G, b);
+    for (int j = 0; j < nt; ++j) {
+      const int s = j % FT_STAGES;
+      if (j >= FT_STAGES) hp_bar_wait(&empty[s], ((j / FT_STAGES) - 1) & 1);
+      uint8_t* Kt = KVs + s * 2 * S::KV_BYTES;
+      uint8_t* Vt = Kt + S::KV_BYTES;
+      hp_bar_expect_tx(&full[s], 2 * S::KV_BYTES);
+#pragma unroll
+      for (int c = 0; c < DHP / 64; ++c) {
+        hp_tma_4d(Kt + c * FT_BK * 128, &mk, &full[s], c * 64, kvh, j * FT_BK, b);
+        hp_tma_4d(Vt + c * FT_BK * 128, &mv, &full[s], c * 64, kvh, j * FT_BK, b);
+      }
+    }
+  } else {
+    // ---------------------------------------------------- consumers
+    hp_regs_inc<232>();
+    const int warp = (tid % 128) / 32, lane = tid % 32;
+    const int rl = wg * 64 + warp * 16 + lane / 4;    // rows rl and rl + 8
+    const int tok[2] = {(r0 + rl) / G, (r0 + rl + 8) / G};
+    const int tok_lo = (r0 + wg * 64) / G;            // this warpgroup's first
+    const float sl2 = a.scale * 1.4426950408889634f;  // scale * log2(e)
+    float o[NO];
+#pragma unroll
+    for (int i = 0; i < NO; ++i) o[i] = 0.0f;
+    float mrow[2] = {ATT_NEG, ATT_NEG}, lrow[2] = {0.0f, 0.0f};
+    hp_bar_wait(q_full, 0);
+    for (int j = 0; j < nt; ++j) {
+      const int s = j % FT_STAGES;
+      hp_bar_wait(&full[s], (j / FT_STAGES) & 1);
+      const uint8_t* Kt = KVs + s * 2 * S::KV_BYTES;
+      const uint8_t* Vt = Kt + S::KV_BYTES;
+
+      // S = Q . K^T over the padded depth, unscaled
+      float sc[NSC];
+#pragma unroll
+      for (int i = 0; i < NSC; ++i) sc[i] = 0.0f;
+      hp_fence_regs(sc);
+      hp_wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DHP / 16; ++kk) {
+        const int c = kk / 4, kin = (kk % 4) * 32;
+        hp_wgmma_ss<FT_BK, 0>(
+            sc, hp_desc(Qs + c * FT_BM * 128 + wg * 64 * 128 + kin, 16, 1024),
+            hp_desc(Kt + c * FT_BK * 128 + kin, 16, 1024), 1);
+      }
+      hp_wgmma_commit();
+      hp_wgmma_wait<0>();
+      hp_fence_regs(sc);
+
+      // mask (only where the tile crosses the diagonal or the end of the
+      // keys), then the online softmax in base 2 of the scores scaled by
+      // scale * log2(e)
+      const bool edge = (j + 1) * FT_BK > a.Sk ||
+                        (a.causal && (j + 1) * FT_BK - 1 > tok_lo);
+      if (edge) {
+#pragma unroll
+        for (int i = 0; i < NSC; ++i) {
+          const int h = (i / 2) % 2;
+          const int key = j * FT_BK + 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
+          if (key >= a.Sk || (a.causal && key > tok[h])) sc[i] = ATT_NEG;
+        }
+      }
+      float mx[2] = {ATT_NEG, ATT_NEG};
+#pragma unroll
+      for (int i = 0; i < NSC; ++i) mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], sc[i]);
+      float alpha[2], rs[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(mrow[h], mx[h] * sl2);
+        alpha[h] = exp2f(mrow[h] - m_new);
+        mrow[h] = m_new;
+      }
+#pragma unroll
+      for (int i = 0; i < NSC; ++i) {
+        const int h = (i / 2) % 2;
+        sc[i] = exp2f(fmaf(sc[i], sl2, -mrow[h]));
+        rs[h] += sc[i];
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 1);
+        rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 2);
+        lrow[h] = lrow[h] * alpha[h] + rs[h];
+      }
+#pragma unroll
+      for (int i = 0; i < NO; ++i) o[i] *= alpha[(i / 2) % 2];
+
+      // P in the A-operand layout: k-step kk holds keys 16 kk .. 16 kk + 15;
+      // term t is the bf16 rounding of what terms 0 .. t-1 left of p
+      uint32_t pp[NP][FT_BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < FT_BK / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          float x0 = sc[8 * kk + 2 * r], x1 = sc[8 * kk + 2 * r + 1];
+#pragma unroll
+          for (int t = 0; t < NP; ++t) {
+            const __nv_bfloat162 b = __floats2bfloat162_rn(x0, x1);
+            pp[t][kk][r] = *reinterpret_cast<const uint32_t*>(&b);
+            x0 -= __low2float(b);
+            x1 -= __high2float(b);
+          }
+        }
+
+      // O += P . V, one product per term of p
+      hp_fence_regs(o);
+      hp_wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < FT_BK / 16; ++kk) {
+        const uint64_t dv = hp_desc(Vt + kk * 2048, FT_BK * 128, 1024);
+#pragma unroll
+        for (int t = 0; t < NP; ++t) hp_wgmma_rs<DHP, 1>(o, pp[t][kk], dv, 1);
+      }
+      hp_wgmma_commit();
+      hp_wgmma_wait<0>();
+      hp_fence_regs(o);
+      if (lane == 0) hp_bar_arrive(&empty[s]);
+    }
+
+    // ------------------------------------------------------ epilogue
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + rl + 8 * h;
+      if (row >= nrows) continue;
+      const int t = row / G, g = row % G;
+      const float l = fmaxf(lrow[h], 1e-30f);
+      __nv_bfloat16* dst =
+          a.o + (((long long)b * a.Sq + t) * a.H + kvh * G + g) * a.dh;
+#pragma unroll
+      for (int n8 = 0; n8 < DHP / 8; ++n8) {
+        const int col = 8 * n8 + 2 * (lane % 4);
+        if (col < a.dh)
+          *reinterpret_cast<__nv_bfloat162*>(dst + col) = __floats2bfloat162_rn(
+              o[4 * n8 + 2 * h] / l, o[4 * n8 + 2 * h + 1] / l);
+      }
+    }
+  }
+}
+
+template <int DHP, int RP>
+static int fa_tc_run(const FtArgs& a, const CUtensorMap& mq,
+                     const CUtensorMap& mk, const CUtensorMap& mv,
+                     cudaStream_t s) {
+  static int granted[HP_MAX_DEVICES] = {0};
+  const int smem = FtShape<DHP>::SMEM;
+  const int e = hp_grant_smem((const void*)fa_tc_kernel<DHP, RP>, smem, granted);
+  if (e) return e;
+  dim3 grid((a.Sq * (a.H / a.KV) + FT_BM - 1) / FT_BM, a.B * a.KV);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  fa_tc_kernel<DHP, RP><<<grid, FT_THREADS, smem, s>>>(mq, mk, mv, a);
+  return (int)cudaGetLastError();
+}
+
+// The 4-D map (dh, head, token, batch) of a (B, S, heads, dh) bf16 view with
+// element strides sb, ss, sh, boxes of 64 x bh heads x bs tokens.
+static int fa_tc_map(CUtensorMap* m, const void* base, int B, int S, int heads,
+                     int dh, long long sb, long long ss, long long sh, int bh,
+                     int bs) {
+  const uint64_t dims[4] = {(uint64_t)dh, (uint64_t)heads, (uint64_t)S,
+                            (uint64_t)B};
+  const uint64_t strides[3] = {(uint64_t)sh * 2, (uint64_t)ss * 2,
+                               (uint64_t)sb * 2};
+  const uint32_t box[4] = {64, (uint32_t)bh, (uint32_t)bs, 1};
+  return hp_encode_bf16(m, base, 4, dims, strides, box);
+}
+
+// bfloat16 q, k, v and out; strides in elements, every one a multiple of 8
+// and every base 16-byte aligned; dh a multiple of 8 up to 256; 128 % G == 0.
+// Returns cudaGetLastError() after the launch (0 = launched), or the error
+// of a refused grant or tensor-map encoding.
+extern "C" int fa_tc_launch(const void* q, const void* k, const void* v, void* o,
+                            int B, int Sq, int Sk, int H, int KV, int dh,
+                            long long qsb, long long qss, long long qsh,
+                            long long ksb, long long kss, long long ksh,
+                            long long vsb, long long vss, long long vsh,
+                            float scale, int causal, int round_p, void* stream) {
+  if (B == 0 || Sq == 0) return 0;
+  if (Sk < 1 || KV < 1 || H % KV != 0 || dh < 8 || dh % 8 != 0 || dh > 256)
+    return (int)cudaErrorInvalidValue;
+  const int G = H / KV;
+  if (FT_BM % G != 0) return (int)cudaErrorInvalidValue;
+  CUtensorMap mq{}, mk{}, mv{};
+  int e;
+  if ((e = fa_tc_map(&mq, q, B, Sq, H, dh, qsb, qss, qsh, G, FT_BM / G))) return e;
+  if ((e = fa_tc_map(&mk, k, B, Sk, KV, dh, ksb, kss, ksh, 1, FT_BK))) return e;
+  if ((e = fa_tc_map(&mv, v, B, Sk, KV, dh, vsb, vss, vsh, 1, FT_BK))) return e;
+  FtArgs a{(__nv_bfloat16*)o, B, Sq, Sk, H, KV, dh, scale, causal};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dh <= 64)
+    return round_p ? fa_tc_run<64, 1>(a, mq, mk, mv, s) : fa_tc_run<64, 0>(a, mq, mk, mv, s);
+  if (dh <= 128)
+    return round_p ? fa_tc_run<128, 1>(a, mq, mk, mv, s) : fa_tc_run<128, 0>(a, mq, mk, mv, s);
+  return round_p ? fa_tc_run<256, 1>(a, mq, mk, mv, s) : fa_tc_run<256, 0>(a, mq, mk, mv, s);
 }

@@ -4,15 +4,21 @@
 (B, Sq, H, dh), k and v (B, Sk, KV, dh), query head h reading KV head
 h // (H / KV), the output (B, Sq, H, dh) in q's dtype.  On CPU tensors it
 runs the plain version :func:`repro_torch.kernels.ref.flash_attention_ref`;
-on CUDA tensors the hand-written kernel ``csrc/flash_attention.cu`` or it
-raises.  The kernel reads q, k and v in this layout through their strides,
-so a strided view needs no copy.  ``LAUNCHES["flash_attention"]`` counts
-launches.
+on CUDA tensors a hand-written kernel of ``csrc/flash_attention.cu`` or it
+raises.  :func:`flash_route` picks the kernel: bfloat16 runs on the tensor
+cores (``fa_tc_kernel``: wgmma, TMA) wherever the shapes allow it, float32
+and the other bfloat16 shapes on the CUDA cores (``fa_kernel``; TF32 would
+break the parity contract).  Both read q, k and v in this layout through
+their strides, so a strided view needs no copy.
+``LAUNCHES["flash_attention_wgmma"]`` and ``LAUNCHES["flash_attention"]``
+count the two kernels' launches.
 
 ``round_p`` (default True, what the TPU kernel does) rounds the
 probabilities to v's dtype before P·V; False keeps them in fp32, as the
-model's own attention does.  q is scaled in fp32 before the product, the
-model's order.
+model's own attention does.  The CUDA-core kernel scales q in fp32 before
+the product, the model's order; the tensor-core kernel multiplies the
+unscaled bf16 q and scales the fp32 scores, which differs by fp32 rounding
+only, and keeps an fp32 p as three bf16 terms (hi + mid + lo: all 24 bits).
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ import torch
 from repro_torch.kernels.build import check_launch, load
 from repro_torch.kernels.ref import flash_attention_ref
 
-__all__ = ["flash_attention_fused"]
+__all__ = ["flash_attention_fused", "flash_route"]
 
 MAX_DH = 256
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
@@ -35,6 +41,28 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fa_launch.argtypes = ([vp] * 4 + [ci] * 6 + [cl] * 9 + [ctypes.c_float]
                               + [ci] * 4 + [vp])
     lib.fa_launch.restype = ci
+    lib.fa_tc_launch.argtypes = ([vp] * 4 + [ci] * 6 + [cl] * 9
+                                 + [ctypes.c_float] + [ci] * 2 + [vp])
+    lib.fa_tc_launch.restype = ci
+
+
+# fa_tc_kernel's q tile: 128 (token, g) rows, so G must divide it.
+TC_ROWS = 128
+
+
+def flash_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """``"wgmma"`` where ``fa_tc_kernel`` takes the call — bfloat16, dh a
+    multiple of 8 up to 256, G = H / KV dividing 128, and every base and
+    every stride of q, k and v on 16 bytes (what TMA needs) — else
+    ``"simt"`` (``fa_kernel``).  Reads shapes, strides and pointers only."""
+    H, dh, KV = q.shape[2], q.shape[3], k.shape[2]
+    if (q.dtype != torch.bfloat16 or dh % 8 or dh > MAX_DH
+            or TC_ROWS % (H // KV)):
+        return "simt"
+    for t in (q, k, v):
+        if t.data_ptr() % 16 or any((2 * s) % 16 for s in t.stride()[:3]):
+            return "simt"
+    return "wgmma"
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -77,14 +105,22 @@ def flash_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((B, Sq, H, dh), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    lib = load("flash_attention", _declare)
+    if flash_route(q, k, v) == "wgmma":
+        err = lib.fa_tc_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                               out.data_ptr(), B, Sq, Sk, H, KV, dh,
+                               *q.stride()[:3], *k.stride()[:3],
+                               *v.stride()[:3], dh ** -0.5, int(causal),
+                               int(round_p), stream)
+        check_launch("flash_attention_wgmma", err)
+        return out
     words = 16 // q.element_size()
     vec = all(t.data_ptr() % 16 == 0 and all(s % words == 0 for s in t.stride()[:3])
               for t in (k, v)) and dh % words == 0
-    lib = load("flash_attention", _declare)
     err = lib.fa_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                         B, Sq, Sk, H, KV, dh, *q.stride()[:3], *k.stride()[:3],
                         *v.stride()[:3], dh ** -0.5, int(causal), int(round_p),
-                        int(vec), _DTYPE[q.dtype],
-                        torch.cuda.current_stream(q.device).cuda_stream)
+                        int(vec), _DTYPE[q.dtype], stream)
     check_launch("flash_attention", err)
     return out

@@ -218,6 +218,64 @@ def test_matmul_kernel_matches_plain(card, dtype, shape):
         torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
 
 
+# The routes of plan_matmul at larger shapes: TMA-staged and thread-staged
+# wgmma, split-K, and the float32 CUDA-core kernel.  Limits are
+# chip_smoke.product_tol's: bfloat16 3e-2; float32 rtol 5e-4 and an atol of
+# 1e-4 grown as sqrt(k / 16) for the random walk of long fp32 sums.
+@pytest.mark.parametrize("shape,route", [
+    ((128, 128, 128), "tma/split"), ((1024, 1024, 1024), "tma/split"),
+    ((64, 4096, 4096), "tma/split"), ((4096, 4096, 4096), "tma"),
+    ((2048, 1020, 2100), "threads"), ((64, 610, 24), "threads/split"),
+    ((1, 4096, 4096), "tma/split"), ((65, 1001, 129), "threads/split")])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matmul_kernel_routes_match_plain(card, dtype, shape, route):
+    from repro_torch.kernels.gemv import plan_matmul
+
+    m, k, n = shape
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=card).manual_seed(k)
+    a, b, bt = (torch.randn(s, generator=g, device=card).to(dt)
+                for s in ((m, k), (k, n), (n, k)))
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    rtol, atol = (3e-2, 3e-2) if dtype == "bfloat16" else \
+        (5e-4, 1e-4 * max(1.0, (k / 16) ** 0.5))
+    for tb, bb in ((False, b), (True, bt)):
+        plan = plan_matmul(m, n, k, dt, tb, a.data_ptr(), bb.data_ptr(), sms)
+        if dtype == "bfloat16":
+            assert plan.kernel == "wgmma"
+            assert plan.staging == route.split("/")[0]
+        else:
+            assert plan.kernel == "simt"
+        assert (plan.splits > 1) == route.endswith("split")
+        got = ops.matmul(a, bb, transpose_b=tb)
+        want = matmul_ref(a.float(), bb.float().T if tb else bb.float())
+        torch.cuda.synchronize()
+        assert got.dtype == dt and got.shape == (m, n)
+        torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol)
+
+
+def test_bf16_served_shapes_run_on_the_tensor_cores(card):
+    """The bf16 GEMV at B = 64 and qwen2.5-3b's bf16 prefill shapes launch
+    the wgmma kernels and never the CUDA-core ones."""
+    from repro_torch.kernels.flash_attention import flash_attention_fused
+
+    before = dict(LAUNCHES)
+    for m, n in ((4096, 4096), (24, 610)):
+        ops.gemv(_randn(card, m, n, dtype=torch.bfloat16),
+                 _randn(card, 64, n, dtype=torch.bfloat16))
+    buckets = (8, 16, 64, 128, 512, 1024)
+    for S in buckets:
+        q = _randn(card, 1, S, 16, 128, dtype=torch.bfloat16)
+        kv = _randn(card, 1, S, 2, 128, dtype=torch.bfloat16)
+        flash_attention_fused(q, kv, kv, round_p=False)
+    torch.cuda.synchronize()
+    assert LAUNCHES["matmul_wgmma"] == before["matmul_wgmma"] + 2
+    assert LAUNCHES["flash_attention_wgmma"] == \
+        before["flash_attention_wgmma"] + len(buckets)
+    for name in ("matmul", "flash_attention"):
+        assert LAUNCHES[name] == before[name]
+
+
 def test_new_wrappers_check_and_count(card):
     before = dict(LAUNCHES)
     x = torch.randn(4, 40, device=card)
@@ -277,7 +335,10 @@ def _randn(card, *shape, dtype=torch.float32, seed=0):
     (2, 64, 64, 4, 4, 32, True), (2, 33, 33, 4, 1, 128, True),
     (1, 16, 16, 2, 2, 256, True), (1, 70, 70, 8, 2, 100, True),
     (1, 257, 257, 8, 1, 64, True), (2, 40, 40, 4, 4, 32, False),
-    (1, 24, 90, 8, 2, 64, False), (1, 50, 20, 4, 2, 16, True)])
+    (1, 24, 90, 8, 2, 64, False), (1, 50, 20, 4, 2, 16, True),
+    (1, 1024, 1024, 16, 2, 128, True), (1, 300, 300, 8, 2, 256, True),
+    (1, 1, 1, 16, 1, 72, True), (2, 37, 37, 16, 1, 200, False),
+    (1, 130, 130, 32, 2, 64, True)])
 def test_flash_attention_kernel_matches_plain(card, B, Sq, Sk, H, KV, dh,
                                               causal, dtype, round_p):
     from repro_torch.kernels.flash_attention import flash_attention_fused
@@ -306,6 +367,26 @@ def test_flash_attention_reads_strided_views(card):
     want = flash_attention_ref(q.contiguous(), k.contiguous(), v.contiguous())
     torch.cuda.synchronize()
     _attn_close(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_reads_a_strided_cache(card, dtype):
+    """k and v as the first 200 positions of one layer of a stacked (L, B,
+    S, KV, dh) cache: strided in batch and layer, read in place."""
+    from repro_torch.kernels.flash_attention import flash_attention_fused
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    dt = getattr(torch, dtype)
+    kc = _randn(card, 3, 2, 300, 2, 128, dtype=dt, seed=11)
+    vc = _randn(card, 3, 2, 300, 2, 128, dtype=dt, seed=12)
+    q = _randn(card, 2, 200, 16, 128, dtype=dt, seed=13)
+    k, v = kc[1, :, :200], vc[1, :, :200]
+    assert not k.is_contiguous()
+    for rp in (False, True):
+        got = flash_attention_fused(q, k, v, round_p=rp)
+        want = flash_attention_ref(q, k.contiguous(), v.contiguous(), round_p=rp)
+        torch.cuda.synchronize()
+        _attn_close(got, want)
 
 
 @pytest.mark.parametrize("round_p", [False, True])
