@@ -17,7 +17,9 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               exactly); the chain kernels on every chain step of the same
               60 programs compiled with ``use_pallas=True`` and on random
               programs over every stage (rank 3, ragged n); spmv at tile
-              densities 0, 0.1 and 1 and on ragged shapes; matmul/gemv in
+              densities 0, 0.1 and 1, on ragged shapes, with a row block
+              that keeps no tile and at B = 1 with unaligned rows of x, two
+              calls bitwise equal; matmul/gemv in
               float32 and bfloat16 up to 4096³ (``MATMUL_SHAPES``), both
               layouts of b, on every route of ``plan_matmul``: wgmma with
               TMA or thread staging, split-K, the float32 CUDA-core kernel;
@@ -42,9 +44,12 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               CUDA-core kernel) and q, k, v as strided views of a fused QKV
               projection, each case on the kernel ``flash_route`` picks;
               decode attention at B = 8,
-              S = 2048 with ragged cache lengths including 1 and S, float32
-              and bfloat16.  Limits: float32 ``rtol = atol = 1e-5``;
-              bfloat16 one bf16 ulp of the output's largest magnitude;
+              S = 2048 with ragged cache lengths including 1 and S, with the
+              lengths of phase 7's last decode step (given on the host and
+              on the card) and with every length 1, float32 and bfloat16,
+              two calls bitwise equal.  Limits: float32 ``rtol = atol =
+              1e-5``; bfloat16 one bf16 ulp of the output's largest
+              magnitude;
 7. lm-serve — the port's ``ServeEngine`` on qwen2.5-3b at full width (36
               layers, every published width), random weights from seed 0
               made on the card, 8 requests of 16–1024 prompt tokens (drawn
@@ -68,7 +73,8 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               serving rate on the host clock and the megakernel's share of
               it; the LM engine's prefill ms per request, decode ms per
               step at batch 8, generated tokens/s and the attention
-              kernels' share of a decode step's device time; the ``kernels``
+              kernels' share of a decode step's device time (decode
+              attention's two passes, ``DECODE_PASSES``); the ``kernels``
               JSON line, the card line, and last ``{"ok": true, "device":
               {...}}``.
 
@@ -109,6 +115,8 @@ LM_PROMPT_LEN = (16, 1024)
 LM_F32_GAP = 1e-3
 LM_F32_ATOL = 1e-3
 LM_BF16_AGREE = 0.95
+# the two passes of csrc/decode_attention.cu, by kernel name in a trace
+DECODE_PASSES = ("da_kernel", "da_combine")
 # matmul/gemv cases (M, K, N) of phase 3, each in float32 and bfloat16 with
 # both layouts of b: aligned and unaligned pitches, split and unsplit K
 MATMUL_SHAPES = ((129, 65, 70), (128, 128, 128), (64, 610, 24),
@@ -770,13 +778,23 @@ def main() -> int:
                       (tile_sparse(300, 200, 0.5, 16, 16, 4, dev), 5, 16)]
         spmv_cases += [(tile_sparse(4096, 4096, d, 128, 128, 5, dev), 64, 128)
                        for d in (0.0, 0.1, 1.0)]
+        # a row block with no kept tile; Zx and a 611-wide weight at B = 1
+        # (x's rows unaligned)
+        w_hole = tile_sparse(512, 512, 1.0, 128, 128, 7, dev)
+        w_hole[128:256] = 0.0
+        spmv_cases += [(w_hole, 64, 128), (spmv_cases[0][0], 1, 128),
+                       (torch.randn((24, 611), generator=gx, device=dev), 1, 128)]
         for w, B, bm in spmv_cases:
             x = torch.randn((B, w.shape[1]), generator=gx, device=dev)
             packed = ops.pack_bcsr(w.cpu().numpy(), bm=bm, bk=bm, device=dev)
-            got, want = ops.spmv(packed, x), spmv_ref(w, x)
+            got, again = ops.spmv(packed, x), ops.spmv(packed, x)
+            want = spmv_ref(w, x)
             torch.cuda.synchronize()
-            note("spmv", f"{tuple(w.shape)} B={B} tiles {bm} density "
-                 f"{packed.density:.3f}", *compare_product(got, want, w.shape[1]))
+            label = (f"{tuple(w.shape)} B={B} tiles {bm} density "
+                     f"{packed.density:.3f}")
+            if not torch.equal(got, again):
+                raise AssertionError(f"spmv {label}: two calls differ")
+            note("spmv", label, *compare_product(got, want, w.shape[1]))
         # every route of plan_matmul: wgmma with TMA staging (aligned bf16),
         # with thread staging (K = 610, 65 or 33: unaligned pitches), split-K
         # (fewer output tiles than SMs: the GEMVs at B = 64), and the
@@ -945,6 +963,11 @@ def main() -> int:
     t = time.perf_counter()
     attn_cases: list[dict] = []
     ga = torch.Generator(device=dev).manual_seed(17)
+    # the cache lengths of phase 7's last decode step: its prompts (the same
+    # draw) plus the tokens decoded before it
+    served_lens = (np.random.default_rng(0).integers(
+        LM_PROMPT_LEN[0], LM_PROMPT_LEN[1] + 1, size=LM_REQUESTS)
+        + LM_NEW_TOKENS - 1)
 
     def rnd(shape, dt):
         return torch.randn(shape, generator=ga, device=dev).to(dt)
@@ -994,19 +1017,32 @@ def main() -> int:
                               flash_attention_ref(q.contiguous(), k.contiguous(),
                                                   v.contiguous(), causal=causal,
                                                   round_p=rp))
-            B, S = 8, 2048
-            lens = np.random.default_rng(5).integers(1, S + 1, size=B)
-            lens[0], lens[-1] = 1, S
+            # decode at qwen2.5-3b's heads: ragged lengths with 1 and S, the
+            # lengths of phase 7's last decode step (given on the host and on
+            # the card), and every length 1; each case twice, bitwise equal
+            B, S = LM_MAX_BATCH, LM_MAX_LEN
+            ragged = np.random.default_rng(5).integers(1, S + 1, size=B)
+            ragged[0], ragged[-1] = 1, S
             q = rnd((B, 16, 128), dt)
             kc, vc = rnd((B, S, 2, 128), dt), rnd((B, S, 2, 128), dt)
-            for rp in (False, True):
-                attn_case("decode_attention",
-                          f"{dname} B={B} S={S} H=16 KV=2 dh=128 lens "
-                          f"{lens.tolist()} p {'rounded' if rp else 'fp32'}",
-                          decode_attention(q, kc, vc, lens, round_p=rp),
-                          decode_attention_ref(q, kc, vc,
-                                               torch.from_numpy(lens).to(dev),
-                                               round_p=rp))
+            for name, lens, on_card in (("ragged", ragged, False),
+                                        ("served", served_lens, False),
+                                        ("served, on the card", served_lens, True),
+                                        ("all 1", np.ones(B, np.int64), False)):
+                ld = torch.from_numpy(np.asarray(lens, np.int32)).to(dev)
+                given = ld if on_card else np.asarray(lens, np.int32)
+                for rp in (False, True):
+                    got = decode_attention(q, kc, vc, given, round_p=rp)
+                    again = decode_attention(q, kc, vc, given, round_p=rp)
+                    label = (f"{dname} B={B} S={S} H=16 KV=2 dh=128 {name} lens "
+                             f"{np.asarray(lens).tolist()} p "
+                             f"{'rounded' if rp else 'fp32'}")
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, again):
+                        raise AssertionError(f"decode_attention {label}: two "
+                                             "calls differ")
+                    attn_case("decode_attention", label, got,
+                              decode_attention_ref(q, kc, vc, ld, round_p=rp))
     except AssertionError as e:
         return fail("lm-kernel", str(e))
     for name in ("flash_attention", "flash_attention_wgmma",
@@ -1081,7 +1117,8 @@ def main() -> int:
         # prefill's device time, and the device activities of each
         step_dev, part, step_n = device_split(
             lambda: model.forward_decode(eng.last_token, eng.caches, eng.pos),
-            ("da_kernel",))
+            DECODE_PASSES)
+        attn_ms = sum(part[k] for k in DECODE_PASSES)
         pre_dev, pre_part, pre_n = device_split(
             lambda: model.forward_full(np.ones((1, bucket), np.int32),
                                        return_cache=True),
@@ -1098,8 +1135,9 @@ def main() -> int:
                    prefill_ms_bucket=pre_ms,
                    prefill_ms_per_request=(wall - decode_s) / len(done) * 1e3,
                    decode_step_device_ms=step_dev,
-                   decode_attention_device_ms=part["da_kernel"],
-                   attention_share=part["da_kernel"] / step_dev,
+                   decode_attention_device_ms=attn_ms,
+                   decode_attention_pass_ms={k: part[k] for k in DECODE_PASSES},
+                   attention_share=attn_ms / step_dev,
                    decode_step_device_activities=step_n,
                    prefill_device_ms=pre_dev,
                    prefill_flash_device_ms=flash_ms,
@@ -1121,8 +1159,10 @@ def main() -> int:
               f"{rec['decode_ms_per_step']:.2f} ms/step at batch "
               f"{LM_MAX_BATCH} (host clock; warm: {step_ms:.2f} ms/step, "
               f"prefill of {bucket} tokens {pre_ms:.1f} ms); decode step device "
-              f"{step_dev:.3f} ms, attention {part['da_kernel']:.3f} ms "
-              f"({part['da_kernel'] / step_dev:.1%}), {step_n:.0f} device "
+              f"{step_dev:.3f} ms, attention {attn_ms:.3f} ms "
+              f"({attn_ms / step_dev:.1%}: " + ", ".join(
+                  f"{k} {part[k]:.3f}" for k in DECODE_PASSES)
+              + f"), {step_n:.0f} device "
               f"activities; prefill of {bucket} tokens device {pre_dev:.3f} ms, "
               f"flash {flash_ms:.3f} ms, {pre_n:.0f} activities; peak "
               f"{rec['peak_gib']:.1f} GiB", flush=True)
@@ -1285,14 +1325,21 @@ def main() -> int:
         ld = lh.to(dev)
         mask = (torch.arange(Sc, device=dev)[None, :] < ld[:, None])[:, None, None]
         q4, k4, v4 = qd[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
-        rows["decode_attention"].append(row(
-            "decode_attention", f"{dname} B={B} S={Sc} H=16 KV=2 dh=128 served "
-            f"lens {lens} p fp32",
+        r = row("decode_attention", f"{dname} B={B} S={Sc} H=16 KV=2 dh=128 "
+                f"served lens {lens} p fp32",
+                lambda: decode_attention(qd, kc, vc, lh, round_p=False),
+                lambda: decode_attention_ref(qd, kc, vc, ld),
+                lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                       attn_mask=mask,
+                                                       enable_gqa=True), 50,
+                decode_work(lens, 16, 2, 128, qd.element_size()), dname)
+        _, passes, _ = device_split(
             lambda: decode_attention(qd, kc, vc, lh, round_p=False),
-            lambda: decode_attention_ref(qd, kc, vc, ld),
-            lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
-                                                   enable_gqa=True), 50,
-            decode_work(lens, 16, 2, 128, qd.element_size()), dname))
+            DECODE_PASSES, reps=50)
+        r["pass_ms"] = passes
+        print(f"    decode_attention {dname} passes: " + ", ".join(
+            f"{k} {v:.5f} ms" for k, v in passes.items()), flush=True)
+        rows["decode_attention"].append(r)
     for r in lm_runs:
         print(f"  lm-serve {r['run']}: prefill {r['prefill_ms_per_request']:.2f} "
               f"ms per request, decode {r['decode_ms_per_step']:.3f} ms per step "

@@ -8,179 +8,451 @@
 // positions >= cache_len[b] are masked.  q is scaled in fp32 first, scores,
 // statistics and the accumulator are fp32; `round_p` rounds p to v's dtype
 // before P.V, as the TPU kernel does, else p stays fp32, as the model's
-// `gqa_decode` does.  No fast math: expf, and fmaf sums in index order.
-//
-// Design (simple and right; a split over the sequence comes later):
-//   * One block of 256 threads per (b, kv head) holds the G scaled query
-//     rows, the running max and sum and the (G, dh) accumulator in shared
-//     memory, and loops over the cache in tiles of BK keys, up to
-//     cache_len[b] only: the tiles at or beyond it are skipped, which is
-//     exact (at least key 0 is valid, so such a tile would give alpha = 1
-//     and p = 0).  cache_len is read by the block itself (no scalar
-//     prefetch); cache_len[b] must be >= 1 (the wrapper checks).
-//   * Each k and v tile is staged in shared memory with up to eight 16-byte
-//     loads in flight per thread; the caches are read in the model's own
-//     layout through their strides, never transposed or copied.
-//   * One warp per query row runs the online softmax of the tile.
+// `gqa_decode` does.  No fast math: expf, and fmaf.
 //
 // Bound: bytes.  The valid prefix of k and v is read once (2 * sum(len) *
 // KV * dh elements) for 4 * sum(len) * H * dh flops: one flop per byte in
-// float32, two in bfloat16, far below either ridge.  With one block per
-// (b, kv head) only B * KV SMs pull from memory (16 of 132 at B = 8, KV = 2),
-// so the kernel cannot reach the card's memory rate; splitting the
-// sequence across blocks (flash-decoding) is the redesign.
+// float32, two in bfloat16, far below either ridge.  Only many blocks with
+// loads in flight reach the card's memory rate, and one block per (b, KV
+// head) gives 16 at B = 8, KV = 2.
+//
+// Design (flash-decoding, two passes):
+//   * da_kernel: one block per (b, KV head, split of the sequence).  Split
+//     s takes keys [s * chunk, (s + 1) * chunk) up to cache_len[b]; a block
+//     whose chunk starts at or beyond cache_len[b] writes an empty partial
+//     (m = -inf, l = 0) and exits.  The plan (chunk, splits, warps) depends
+//     on the shapes only, never on the lengths' values, so lengths on the
+//     card need no synchronisation and the launch can be captured in a CUDA
+//     graph; repro_torch.kernels.decode_attention.plan_decode makes it.
+//   * The block keeps the G query rows of its KV head, so each k and v row
+//     is read once for all G heads: warp w owns rows g = w, w + warps, ...
+//     (RW of them: 1, 2 or 4), each held scaled in registers, spread over
+//     the lanes by 16-byte segments of dh.  A group of R lanes (a power of
+//     two, 8 to 32, at least the row's segments where it can) takes R keys
+//     of a tile: each lane sums its segments' products for every key and
+//     row, and a reduce-scatter over the group (NB - 1 shuffles for NB
+//     keys) leaves each key's dot product on one lane.
+//     R and RW are template parameters, so every loop and butterfly is
+//     unrolled and the rows' shuffles interleave.  Each warp runs the
+//     online softmax of its own rows (one lane per key of a tile) and P.V
+//     into per-lane fp32 accumulators over its segments, the keys of a
+//     tile spread over the warp's 32 / R lane groups, which a butterfly
+//     sums at the end of the chunk.
+//   * k and v are staged in tiles of DA_TILE keys by cp.async, two tiles in
+//     flight: 16-byte copies where the caches' bases, strides and dh allow
+//     (`vec`), else element loads; rows past the chunk's last key are
+//     zero-filled.  The caches are read in the model's own layout through
+//     their strides, never transposed or copied.  The grid runs split-major,
+//     so the blocks of the first splits, which every sequence has, are
+//     dispatched first.
+//   * With one split the block writes the output; with more it writes its
+//     fp32 partial (m, l, acc[G][dh]) to a workspace, and da_combine merges
+//     the splits that hold keys (s < ceil(cache_len[b] / chunk)) in split
+//     order: m = max m_s, l = sum e^(m_s - m) l_s, acc = sum e^(m_s - m)
+//     acc_s, out = acc / l in q's dtype.  No atomics: two calls give
+//     bitwise equal outputs.
+//   * With `round_p`, each split rounds p against its own running max, as
+//     the TPU kernel rounds against its running max of each tile.
 
 #include "attention.cuh"
+#include "hopper.cuh"
 
-#define DA_THREADS 256
+#define DA_TILE 32        // keys per staged tile (one per lane in the softmax)
+#define DA_MAX_WARPS 16   // G <= 64
+#define DA_MAX_DH 256
+#define DA_BATCH 16       // the combine's loads in flight per thread
 
 struct DaArgs {
   const void* q; const void* k; const void* v; void* o; const int* lens;
-  int B, S, H, KV, dh, bk;
+  float* ws;        // splits > 1: (B * KV, splits, G) x (m, l), then
+                    // (B * KV, splits, G, dh) accumulators
+  int B, S, H, KV, dh, chunk, splits, warps;
   long long qsb, qsh, ksb, kss, ksh, vsb, vss, vsh;
   float scale;
   int round_p, vec;
 };
 
-static int da_smem_floats(int G, int dh, int bk) {
-  return G * dh + bk * (dh + 1) + bk * dh + G * bk + G * dh + 3 * G;
+// Elements of a dh row padded to whole 16-byte segments.
+template <typename T>
+__host__ __device__ __forceinline__ int da_pitch(int dh) {
+  constexpr int V = 16 / sizeof(T);
+  return (dh + V - 1) / V * V;
 }
 
 template <typename T>
-__global__ void __launch_bounds__(DA_THREADS)
+static int da_smem_bytes(int dh, int warps, int rows) {
+  return 2 * 2 * DA_TILE * da_pitch<T>(dh) * (int)sizeof(T)
+         + warps * rows * DA_TILE * (int)sizeof(float);
+}
+
+template <typename T>
+__device__ __forceinline__ void da_seg(const T* src, float (&f)[16 / sizeof(T)]) {
+  constexpr int V = 16 / sizeof(T);
+  const uint4 u = *reinterpret_cast<const uint4*>(src);
+  const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+  for (int i = 0; i < V; ++i) f[i] = att_in<T>(e[i]);
+}
+
+// Reduce-scatter over groups of R lanes: v[r][i] holds a lane's partial
+// sums of NB keys for each of RW rows; afterwards v[r][0] holds the whole
+// sum of key i = (lane % R) / (R / NB).  log2(NB) halving steps (each lane
+// keeps the half of the keys its slot bit selects and adds its partner's
+// partial of that half), then log2(R / NB) butterfly steps.
+template <int R, int NB, int RW>
+__device__ __forceinline__ void da_scatter(float (&v)[RW][NB], int lane) {
+#pragma unroll
+  for (int st = 0; (NB >> st) > 1; ++st) {
+    const int half = (NB >> st) / 2, o = (R / 2) >> st;
+    const bool up = (lane & o) != 0;
+#pragma unroll
+    for (int r = 0; r < RW; ++r)
+#pragma unroll
+      for (int i = 0; i < NB / 2; ++i) {
+        if (i >= half) continue;
+        const float send = up ? v[r][i] : v[r][i + half];
+        const float keep = up ? v[r][i + half] : v[r][i];
+        v[r][i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+      }
+  }
+#pragma unroll
+  for (int o = R / NB / 2; o > 0; o >>= 1)
+#pragma unroll
+    for (int r = 0; r < RW; ++r)
+      v[r][0] += __shfl_xor_sync(0xffffffffu, v[r][0], o);
+}
+
+// R lanes per key (a power of two, 8 to 32), RW query rows per warp.
+template <typename T, int R, int RW>
+__global__ void __launch_bounds__(DA_MAX_WARPS * 32)
 da_kernel(DaArgs a) {
-  extern __shared__ float smem[];
-  const int G = a.H / a.KV, dh = a.dh, BK = a.bk, LK = dh + 1;
-  float* Qs = smem;              // [G][dh]   scaled q
-  float* Ks = Qs + G * dh;       // [BK][LK]  k tile
-  float* Vs = Ks + BK * LK;      // [BK][dh]  v tile
-  float* Ps = Vs + BK * dh;      // [G][BK]   scores, then p
-  float* Acc = Ps + G * BK;      // [G][dh]   accumulator
-  float* Ms = Acc + G * dh;      // running max per row
-  float* Ls = Ms + G;            // running sum per row
-  float* As = Ls + G;            // this tile's alpha per row
+  constexpr int V = 16 / sizeof(T);                 // elements per segment
+  constexpr int SPL = (DA_MAX_DH / V + 31) / 32;    // segments per lane, at most
+  constexpr int KPW = 32 / R;                       // keys per warp at once
+  constexpr int NB = R * RW > 32 ? 32 / RW : R;     // keys per reduce-scatter
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int G = a.H / a.KV, dh = a.dh, nw = a.warps;
+  const int dhp = da_pitch<T>(dh), nseg = dhp / V;
+  T* Ks = reinterpret_cast<T*>(smem);               // [2][DA_TILE][dhp]
+  T* Vs = Ks + 2 * DA_TILE * dhp;                   // [2][DA_TILE][dhp]
+  float* Pw = reinterpret_cast<float*>(Vs + 2 * DA_TILE * dhp);
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int b = blockIdx.x / a.KV, kvh = blockIdx.x % a.KV;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // split-major: the first splits, which every sequence has, go out first
+  const int nbkv = a.B * a.KV;
+  const int split = blockIdx.x / nbkv, bkv = blockIdx.x - split * nbkv;
+  const int b = bkv / a.KV, kvh = bkv - b * a.KV;
   const int len = a.lens[b];
+  const int c0 = split * a.chunk, c1 = min(c0 + a.chunk, len);
+  float* ws_ml = a.ws + ((long long)bkv * a.splits + split) * G * 2;
+  if (c0 >= len) {                 // no keys: an empty partial, never combined
+    for (int g = tid; g < G; g += blockDim.x) {
+      ws_ml[2 * g] = -INFINITY;
+      ws_ml[2 * g + 1] = 0.0f;
+    }
+    return;
+  }
+
+  // Stage keys [j0, j0 + DA_TILE) of k and v; rows at or past c1 are zeros.
+  const T* kb = static_cast<const T*>(a.k) + b * a.ksb + kvh * a.ksh;
+  const T* vb = static_cast<const T*>(a.v) + b * a.vsb + kvh * a.vsh;
+  auto stage = [&](int buf, int j0) {
+    T* kd = Ks + buf * DA_TILE * dhp;
+    T* vd = Vs + buf * DA_TILE * dhp;
+    if (a.vec) {                                    // dhp == dh
+      for (int c = tid; c < 2 * DA_TILE * nseg; c += blockDim.x) {
+        const int isv = c >= DA_TILE * nseg, cc = c - isv * DA_TILE * nseg;
+        const int r = cc / nseg, off = (cc - r * nseg) * V;
+        const bool ok = j0 + r < c1;
+        const T* src = isv ? vb + (j0 + r) * a.vss : kb + (j0 + r) * a.kss;
+        hp_cp16((isv ? vd : kd) + r * dhp + off, ok ? src + off : kb, ok);
+      }
+    } else {                                        // zeros in [dh, dhp)
+      for (int c = tid; c < 2 * DA_TILE * dhp; c += blockDim.x) {
+        const int isv = c >= DA_TILE * dhp, cc = c - isv * DA_TILE * dhp;
+        const int r = cc / dhp, d = cc - r * dhp;
+        const T* src = isv ? vb + (j0 + r) * a.vss : kb + (j0 + r) * a.kss;
+        (isv ? vd : kd)[r * dhp + d] =
+            (d < dh && j0 + r < c1) ? src[d] : att_out<T>(0.0f);
+      }
+    }
+    hp_cp_commit();
+  };
+  stage(0, c0);
+
+  // This warp's rows g = warp + nw * r, their scaled q in registers: lane
+  // (slot sg of its group) holds segments sg, sg + R, ... of each row.
+  const int rows = max(0, min(RW, (G - warp + nw - 1) / nw));
+  const int sg = lane % R, key = lane / R;
   const T* q = static_cast<const T*>(a.q) + b * a.qsb + kvh * G * a.qsh;
-  const T* k = static_cast<const T*>(a.k) + b * a.ksb + kvh * a.ksh;
-  const T* v = static_cast<const T*>(a.v) + b * a.vsb + kvh * a.vsh;
-
-  for (int e = tid; e < G * dh; e += DA_THREADS) {
-    const int g = e / dh, d = e - g * dh;
-    Qs[e] = att_in<T>(q[g * a.qsh + d]) * a.scale;
-    Acc[e] = 0.0f;
+  float qr[RW][SPL][V], acc[RW][SPL][V];
+  float m[RW], l[RW];
+#pragma unroll
+  for (int r = 0; r < RW; ++r) {
+    m[r] = ATT_NEG;
+    l[r] = 0.0f;
+    const int g = warp + nw * r;
+#pragma unroll
+    for (int s = 0; s < SPL; ++s)
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const int d = (sg + R * s) * V + e;
+        qr[r][s][e] = (r < rows && sg + R * s < nseg && d < dh)
+                          ? att_in<T>(q[g * a.qsh + d]) * a.scale : 0.0f;
+        acc[r][s][e] = 0.0f;
+      }
   }
-  for (int g = tid; g < G; g += DA_THREADS) { Ms[g] = ATT_NEG; Ls[g] = 0.0f; }
+  float* P = Pw + warp * RW * DA_TILE;              // [RW][DA_TILE]
 
-  for (int j0 = 0; j0 < len; j0 += BK) {
-    const int nk = min(BK, len - j0);
+  int it = 0;
+  for (int j0 = c0; j0 < c1; j0 += DA_TILE, ++it) {
+    const int buf = it & 1, nk = min(DA_TILE, c1 - j0);
+    if (j0 + DA_TILE < c1) {
+      stage(buf ^ 1, j0 + DA_TILE);
+      hp_cp_wait<1>();
+    } else {
+      hp_cp_wait<0>();
+    }
     __syncthreads();
-    att_load_rows<T>(k + j0 * a.kss, a.kss, nk, dh, a.vec,
-                     [&](int c, int d, float x) { Ks[c * LK + d] = x; });
-    att_load_rows<T>(v + j0 * a.vss, a.vss, nk, dh, a.vec,
-                     [&](int c, int d, float x) { Vs[c * dh + d] = x; });
-    __syncthreads();
-
-    for (int e = tid; e < G * BK; e += DA_THREADS) {
-      const int g = e / BK, c = e - g * BK;
-      float s = ATT_NEG;
-      if (c < nk) {
-        const float* qr = Qs + g * dh;
-        const float* kr = Ks + c * LK;
-        float acc = 0.0f;
+    const T* kt = Ks + buf * DA_TILE * dhp;
+    const T* vt = Vs + buf * DA_TILE * dhp;
+    if (rows > 0) {
+      // scores: lane group `key` takes keys j = jj * KPW + key, NB at a
+      // time; each lane sums its segments (in index order) for every key,
+      // then a reduce-scatter over the group's R lanes leaves each key's
+      // score on one lane (on R / NB lanes alike when NB < R)
+#pragma unroll
+      for (int jb = 0; jb < R; jb += NB) {
+        float v[RW][NB];
+#pragma unroll
+        for (int r = 0; r < RW; ++r)
+#pragma unroll
+          for (int i = 0; i < NB; ++i) v[r][i] = 0.0f;
+#pragma unroll
+        for (int i = 0; i < NB; ++i) {
+          const int j = (jb + i) * KPW + key;
+#pragma unroll
+          for (int s = 0; s < SPL; ++s) {
+            if (sg + R * s >= nseg) continue;
+            float kf[V];
+            da_seg<T>(kt + j * dhp + (sg + R * s) * V, kf);
+#pragma unroll
+            for (int r = 0; r < RW; ++r)
+#pragma unroll
+              for (int e = 0; e < V; ++e) v[r][i] = fmaf(qr[r][s][e], kf[e], v[r][i]);
+          }
+        }
+        da_scatter<R, NB, RW>(v, lane);
+        const int i = sg / (R / NB), j = (jb + i) * KPW + key;
+        if (sg % (R / NB) == 0)
+#pragma unroll
+          for (int r = 0; r < RW; ++r)
+            if (r < rows) P[r * DA_TILE + j] = j < nk ? v[r][0] : ATT_NEG;
+      }
+      __syncwarp();
+      // online softmax of each row, lane = key
+      float alpha[RW], sc[RW], mx[RW], sum[RW];
+#pragma unroll
+      for (int r = 0; r < RW; ++r) mx[r] = sc[r] = P[r * DA_TILE + lane];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+        for (int r = 0; r < RW; ++r)
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], off));
+#pragma unroll
+      for (int r = 0; r < RW; ++r) {
+        const float m_new = fmaxf(m[r], mx[r]);
+        alpha[r] = expf(m[r] - m_new);
+        sum[r] = expf(sc[r] - m_new);
+        m[r] = m_new;
+        if (r < rows) P[r * DA_TILE + lane] = a.round_p ? att_round<T>(sum[r]) : sum[r];
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+        for (int r = 0; r < RW; ++r)
+          sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], off);
+#pragma unroll
+      for (int r = 0; r < RW; ++r) l[r] = l[r] * alpha[r] + sum[r];
+      __syncwarp();
+      // P.V: lane group `key` takes keys key, key + KPW, ... (the rows past
+      // nk are zeros, and their p is 0)
+#pragma unroll
+      for (int r = 0; r < RW; ++r)
+#pragma unroll
+        for (int s = 0; s < SPL; ++s)
+#pragma unroll
+          for (int e = 0; e < V; ++e) acc[r][s][e] *= alpha[r];
 #pragma unroll 4
-        for (int d = 0; d < dh; ++d) acc = fmaf(qr[d], kr[d], acc);
-        s = acc;
-      }
-      Ps[e] = s;
-    }
-    __syncthreads();
-
-    for (int g = warp; g < G; g += DA_THREADS / 32) {
-      float* pr = Ps + g * BK;
-      float mx = ATT_NEG;
-      for (int c = lane; c < BK; c += 32) mx = fmaxf(mx, pr[c]);
+      for (int jj = 0; jj < DA_TILE / KPW; ++jj) {
+        const int j = jj * KPW + key;
+        float pj[RW];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_prev = Ms[g];
-      const float m_new = fmaxf(m_prev, mx);
-      const float alpha = expf(m_prev - m_new);
-      float sum = 0.0f;
-      for (int c = lane; c < BK; c += 32) {
-        const float p = expf(pr[c] - m_new);
-        sum += p;
-        pr[c] = a.round_p ? att_round<T>(p) : p;
-      }
+        for (int r = 0; r < RW; ++r) pj[r] = P[r * DA_TILE + j];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (lane == 0) {
-        Ms[g] = m_new;
-        Ls[g] = Ls[g] * alpha + sum;
-        As[g] = alpha;
+        for (int s = 0; s < SPL; ++s) {
+          if (sg + R * s >= nseg) continue;
+          float vf[V];
+          da_seg<T>(vt + j * dhp + (sg + R * s) * V, vf);
+#pragma unroll
+          for (int r = 0; r < RW; ++r)
+#pragma unroll
+            for (int e = 0; e < V; ++e) acc[r][s][e] = fmaf(pj[r], vf[e], acc[r][s][e]);
+        }
       }
+      __syncwarp();
     }
-    __syncthreads();
-
-    for (int e = tid; e < G * dh; e += DA_THREADS) {
-      const int g = e / dh, col = e - g * dh;
-      const float* pr = Ps + g * BK;
-      float acc = Acc[e] * As[g];
-      for (int j = 0; j < nk; ++j) acc = fmaf(pr[j], Vs[j * dh + col], acc);
-      Acc[e] = acc;
-    }
+    __syncthreads();               // the next stage overwrites this buffer
   }
-  __syncthreads();
+  if (rows == 0) return;
 
+  // sum the lane groups' accumulators; group 0 (lanes < R) writes
+#pragma unroll
+  for (int off = 16; off >= R; off >>= 1)
+#pragma unroll
+    for (int r = 0; r < RW; ++r)
+#pragma unroll
+      for (int s = 0; s < SPL; ++s)
+#pragma unroll
+        for (int e = 0; e < V; ++e)
+          acc[r][s][e] += __shfl_xor_sync(0xffffffffu, acc[r][s][e], off);
+  if (key != 0) return;
+  const bool split_out = a.splits > 1;
+  float* ws_acc = a.ws + (long long)a.B * a.KV * a.splits * G * 2
+                  + ((long long)bkv * a.splits + split) * G * dh;
   T* o = static_cast<T*>(a.o) + ((long long)b * a.H + kvh * G) * dh;
-  for (int e = tid; e < G * dh; e += DA_THREADS) {
-    const int g = e / dh;
-    o[e] = att_out<T>(Acc[e] / fmaxf(Ls[g], 1e-30f));
+#pragma unroll
+  for (int r = 0; r < RW; ++r) {
+    if (r >= rows) continue;
+    const int g = warp + nw * r;
+    const float den = fmaxf(l[r], 1e-30f);
+    if (split_out && sg == 0) {
+      ws_ml[2 * g] = m[r];
+      ws_ml[2 * g + 1] = l[r];
+    }
+#pragma unroll
+    for (int s = 0; s < SPL; ++s)
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const int d = (sg + R * s) * V + e;
+        if (sg + R * s >= nseg || d >= dh) continue;
+        if (split_out) ws_acc[g * dh + d] = acc[r][s][e];
+        else o[g * dh + d] = att_out<T>(acc[r][s][e] / den);
+      }
   }
 }
 
-// The largest key tile (64, 32 or 16) whose shared memory fits in 227 KB,
-// or 0 when none does.
-extern "C" int da_tile(int G, int dh) {
-  for (int bk = 64; bk >= 16; bk /= 2)
-    if (da_smem_floats(G, dh, bk) * (long long)sizeof(float) <= 232448) return bk;
-  return 0;
+// One block per (b, query head): merge the splits that hold keys, in
+// order.  The splits' m and l are read once, in parallel, into shared
+// memory with their weights e^(m_s - m); each thread then sums its
+// elements of the accumulators over the splits in order.
+template <typename T>
+__global__ void da_combine(DaArgs a) {
+  extern __shared__ float cw[];                     // [ns] weights, [ns] l
+  __shared__ float red[32];
+  const int G = a.H / a.KV, tid = threadIdx.x;
+  const int b = blockIdx.x / a.H, h = blockIdx.x - b * a.H;
+  const int bkv = b * a.KV + h / G, g = h % G;
+  const int ns = (a.lens[b] + a.chunk - 1) / a.chunk;
+  const float* ml = a.ws + (long long)bkv * a.splits * G * 2 + 2 * g;
+  const float* accs = a.ws + (long long)a.B * a.KV * a.splits * G * 2
+                      + ((long long)bkv * a.splits * G + g) * a.dh;
+  float mx = -INFINITY;
+  for (int s = tid; s < ns; s += blockDim.x) {
+    cw[s] = ml[s * G * 2];
+    cw[ns + s] = ml[s * G * 2 + 1];
+    mx = fmaxf(mx, cw[s]);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  if ((tid & 31) == 0) red[tid >> 5] = mx;
+  __syncthreads();
+  mx = red[0];
+  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) mx = fmaxf(mx, red[w]);
+  for (int s = tid; s < ns; s += blockDim.x) cw[s] = expf(cw[s] - mx);
+  __syncthreads();
+  float l = 0.0f;
+  for (int s = 0; s < ns; ++s) l = fmaf(cw[s], cw[ns + s], l);
+  const float den = fmaxf(l, 1e-30f);
+  T* o = static_cast<T*>(a.o) + (long long)blockIdx.x * a.dh;
+  for (int d = tid; d < a.dh; d += blockDim.x) {
+    float acc = 0.0f;
+    for (int s0 = 0; s0 < ns; s0 += DA_BATCH) {   // DA_BATCH loads in flight
+      float x[DA_BATCH];
+#pragma unroll
+      for (int i = 0; i < DA_BATCH; ++i)
+        x[i] = s0 + i < ns ? accs[(long long)(s0 + i) * G * a.dh + d] : 0.0f;
+#pragma unroll
+      for (int i = 0; i < DA_BATCH; ++i)
+        if (s0 + i < ns) acc = fmaf(cw[s0 + i], x[i], acc);
+    }
+    o[d] = att_out<T>(acc / den);
+  }
+}
+
+template <typename T, int R, int RW>
+static int da_run(const DaArgs& a, int smem, cudaStream_t s) {
+  static int granted[HP_MAX_DEVICES] = {0};
+  int e = hp_grant_smem((const void*)da_kernel<T, R, RW>, smem, granted);
+  if (e) return e;
+  da_kernel<T, R, RW><<<a.B * a.KV * a.splits, a.warps * 32, smem, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int R>
+static int da_rows(const DaArgs& a, int rows, int smem, cudaStream_t s) {
+  if (rows == 1) return da_run<T, R, 1>(a, smem, s);
+  if (rows == 2) return da_run<T, R, 2>(a, smem, s);
+  return da_run<T, R, 4>(a, smem, s);
+}
+
+template <typename T>
+static int da_dispatch(const DaArgs& a, int rows, cudaStream_t s) {
+  constexpr int V = 16 / sizeof(T);
+  const int nseg = da_pitch<T>(a.dh) / V;
+  const int smem = da_smem_bytes<T>(a.dh, a.warps, rows);
+  int e;
+  if (nseg <= 8) e = da_rows<T, 8>(a, rows, smem, s);
+  else if (nseg <= 16) e = da_rows<T, 16>(a, rows, smem, s);
+  else e = da_rows<T, 32>(a, rows, smem, s);
+  if (e || a.splits == 1) return e;
+  static int granted[HP_MAX_DEVICES] = {0};
+  const int cbytes = 2 * a.splits * (int)sizeof(float);
+  e = hp_grant_smem((const void*)da_combine<T>, cbytes, granted);
+  if (e) return e;
+  const int threads = a.dh >= 256 ? 256 : (a.dh + 31) / 32 * 32;
+  da_combine<T><<<a.B * a.H, threads, cbytes, s>>>(a);
+  return (int)cudaGetLastError();
 }
 
 // q (B, H, dh) with strides qsb, qsh; k and v (B, S, KV, dh) with strides
 // in elements, the last axis contiguous; lens (B,) int32 on the card, each
-// in [1, S].  dtype 0 = float32, 1 = bfloat16.  Returns cudaGetLastError()
-// after the launch (0 = launched).
+// in [1, S]; out (B, H, dh) contiguous.  The plan: `chunk` keys per block
+// (a multiple of DA_TILE), `splits` = ceil(S / chunk) blocks per (b, KV
+// head), `warps` warps of `rows` query rows (1, 2 or 4; G <= warps *
+// rows); ws holds B * KV * splits * G * (dh + 2) floats when splits > 1.
+// `vec`: 16-byte copies of the caches.  dtype 0 = float32, 1 = bfloat16.
+// Returns cudaGetLastError() after the launches (0 = launched).
 extern "C" int da_launch(const void* q, const void* k, const void* v, void* o,
-                         const void* lens, int B, int S, int H, int KV, int dh,
-                         long long qsb, long long qsh, long long ksb,
-                         long long kss, long long ksh, long long vsb,
-                         long long vss, long long vsh, float scale,
-                         int round_p, int vec, int dtype, void* stream) {
+                         const void* lens, void* ws, int B, int S, int H,
+                         int KV, int dh, long long qsb, long long qsh,
+                         long long ksb, long long kss, long long ksh,
+                         long long vsb, long long vss, long long vsh,
+                         float scale, int round_p, int vec, int dtype,
+                         int chunk, int splits, int warps, int rows,
+                         void* stream) {
   if (B == 0) return 0;
-  if (S < 1 || KV < 1 || H % KV != 0 || dh < 1) return (int)cudaErrorInvalidValue;
-  const int G = H / KV, bk = da_tile(G, dh);
-  if (bk == 0) return (int)cudaErrorInvalidValue;
-  const int smem = da_smem_floats(G, dh, bk) * (int)sizeof(float);
-  DaArgs a{q, k, v, o, (const int*)lens, B, S, H, KV, dh, bk, qsb, qsh, ksb,
-           kss, ksh, vsb, vss, vsh, scale, round_p, vec};
+  if (S < 1 || KV < 1 || H % KV != 0 || dh < 1 || dh > DA_MAX_DH)
+    return (int)cudaErrorInvalidValue;
+  if (warps < 1 || warps > DA_MAX_WARPS || (rows != 1 && rows != 2 && rows != 4) ||
+      H / KV > warps * rows || chunk < DA_TILE || chunk % DA_TILE != 0 ||
+      splits != (S + chunk - 1) / chunk || (splits > 1 && ws == nullptr))
+    return (int)cudaErrorInvalidValue;
+  DaArgs a{q, k, v, o, (const int*)lens, (float*)ws, B, S, H, KV, dh, chunk,
+           splits, warps, qsb, qsh, ksb, kss, ksh, vsb, vss, vsh, scale,
+           round_p, vec};
   cudaStream_t s = (cudaStream_t)stream;
-  const int grid = B * KV;
-  static int granted[2] = {0, 0};   // dynamic shared memory allowed so far
-  if (smem > granted[dtype != 0]) {
-    cudaError_t e = cudaFuncSetAttribute(
-        dtype == 0 ? (const void*)da_kernel<float>
-                   : (const void*)da_kernel<__nv_bfloat16>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    granted[dtype != 0] = smem;
-  }
-  if (dtype == 0)
-    da_kernel<float><<<grid, DA_THREADS, smem, s>>>(a);
-  else
-    da_kernel<__nv_bfloat16><<<grid, DA_THREADS, smem, s>>>(a);
-  return (int)cudaGetLastError();
+  return dtype == 0 ? da_dispatch<float>(a, rows, s)
+                    : da_dispatch<__nv_bfloat16>(a, rows, s);
 }

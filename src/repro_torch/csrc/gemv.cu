@@ -262,16 +262,6 @@ static int tc_dispatch(const TcArgs& p, int transpose_b, int tma, cudaStream_t s
 #define SG_THREADS 256
 #define SG_PAD 4              // padded rows, still 16-byte aligned
 
-// cp.async of 4 or 16 bytes; `ok` false reads nothing and writes zeros.
-__device__ __forceinline__ void sg_cp4(float* dst, const float* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(hp_smem(dst)), "l"(src), "r"(ok ? 4 : 0) : "memory");
-}
-__device__ __forceinline__ void sg_cp16(float* dst, const float* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(hp_smem(dst)), "l"(src), "r"(ok ? 16 : 0) : "memory");
-}
-
 // Stage rows [r0, r0 + rows) x k [k0, k0 + 16) of a row-major (R, K)
 // matrix into dst[rows][SG_BK + SG_PAD], zeros outside; 16-byte copies
 // where `vec` (base 16-byte aligned, K % 4 == 0), else 4-byte ones.
@@ -285,12 +275,12 @@ __device__ __forceinline__ void sg_stage_rk(float (*dst)[SG_BK + SG_PAD],
     const float* p = src + (long long)row * K + k;
     if (vec) {
       const bool ok = row < R && k < K;
-      sg_cp16(&dst[r][kq], ok ? p : src, ok);
+      hp_cp16(&dst[r][kq], ok ? p : src, ok);
     } else {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const bool ok = row < R && k + e < K;
-        sg_cp4(&dst[r][kq + e], ok ? p + e : src, ok);
+        hp_cp4(&dst[r][kq + e], ok ? p + e : src, ok);
       }
     }
   }
@@ -329,17 +319,17 @@ sg_kernel(const float* __restrict__ a, const float* __restrict__ b,
         float* d = &Bs[buf][kr][nq];
         if (vb) {
           const bool ok = k < K && n < N;
-          sg_cp16(d, ok ? p : b, ok);
+          hp_cp16(d, ok ? p : b, ok);
         } else {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const bool ok = k < K && n + e < N;
-            sg_cp4(d + e, ok ? p + e : b, ok);
+            hp_cp4(d + e, ok ? p + e : b, ok);
           }
         }
       }
     }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    hp_cp_commit();
   };
 
   float acc[TM][8];
@@ -352,9 +342,9 @@ sg_kernel(const float* __restrict__ a, const float* __restrict__ b,
     const int buf = (kt - kt0) & 1;
     if (kt + 1 < kt1) {
       stage(buf ^ 1, kt + 1);
-      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+      hp_cp_wait<1>();
     } else {
-      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      hp_cp_wait<0>();
     }
     __syncthreads();
 #pragma unroll

@@ -1,9 +1,9 @@
-// Hopper (sm_90a) building blocks shared by the tensor-core kernels
-// (gemv.cu, flash_attention.cu): mbarriers, TMA tile loads, the wgmma
-// shared-memory descriptor for the 128-byte swizzle, the wgmma fences, the
-// m64nNk16 bf16 -> fp32 instructions (A from shared memory or from
-// registers), the encoding of a CUtensorMap on the host, and the per-device
-// grant of dynamic shared memory.
+// Hopper (sm_90a) building blocks shared by the kernels of csrc/: cp.async
+// copies (gemv.cu, spmv.cu, decode_attention.cu), mbarriers, TMA tile loads,
+// the wgmma shared-memory descriptor for the 128-byte swizzle, the wgmma
+// fences, the m64nNk16 bf16 -> fp32 instructions (A from shared memory or
+// from registers), the encoding of a CUtensorMap on the host, and the
+// per-device grant of dynamic shared memory.
 //
 // Layouts.  Every tile these kernels hand to wgmma is a stack of 128-byte
 // rows (64 bf16) with the 128-byte swizzle: in each 1024-byte atom of 8 rows
@@ -33,6 +33,28 @@ __device__ __forceinline__ uint32_t hp_smem(const void* p) {
 // rows (col < 64).
 __device__ __forceinline__ uint32_t hp_swz(int row, int col) {
   return row * 128 + ((((col >> 3) ^ row) & 7) << 4) + (col & 7) * 2;
+}
+
+// -------------------------------------------------------------- cp.async
+// Asynchronous copies of 4 or 16 bytes from device to shared memory (both
+// addresses aligned to the size); with `ok` false nothing is read and the
+// bytes are zeroed, so `src` need only be a valid address.  A thread's
+// copies since its last commit form a group; hp_cp_wait<N> waits until at
+// most N of its groups are still in flight.
+__device__ __forceinline__ void hp_cp4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(hp_smem(dst)), "l"(src), "r"(ok ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void hp_cp16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(hp_smem(dst)), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void hp_cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void hp_cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // ------------------------------------------------------------- mbarriers

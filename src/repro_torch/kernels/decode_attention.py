@@ -7,8 +7,11 @@ q's dtype.  On CPU tensors it runs the plain version
 :func:`repro_torch.kernels.ref.decode_attention_ref`; on CUDA tensors the
 hand-written kernel ``csrc/decode_attention.cu`` or it raises.  The kernel
 reads the caches in this layout through their strides (a layer's slice of
-a stacked cache needs no copy) and only their valid prefix.
-``LAUNCHES["decode_attention"]`` counts launches.
+a stacked cache needs no copy) and only their valid prefix.  It splits the
+sequence over blocks and merges the splits in a second pass;
+:func:`plan_decode` chooses the split from the shapes alone.
+``LAUNCHES["decode_attention"]`` counts calls that launched the kernel
+(with its combine pass, where there is one).
 
 ``cache_len`` must lie in [1, S].  Given on the host (a CPU tensor, numpy
 array or sequence), it is checked there and copied to the card without a
@@ -20,6 +23,7 @@ dtype before P·V; False keeps them fp32, as the model's ``gqa_decode`` does.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -27,18 +31,66 @@ import torch
 from repro_torch.kernels.build import check_launch, load
 from repro_torch.kernels.ref import decode_attention_ref
 
-__all__ = ["decode_attention"]
+__all__ = ["decode_attention", "plan_decode", "DecodePlan"]
 
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
+# csrc/decode_attention.cu: keys per staged tile, its largest block and
+# head width (at most 139 KB of shared memory a block, in float32).
+DA_TILE, DA_MAX_WARPS, DA_MAX_DH = 32, 16, 256
+H100_SMS = 132
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclass(frozen=True)
+class DecodePlan:
+    """How ``csrc/decode_attention.cu`` runs one call: ``splits`` blocks
+    per (b, KV head), block s taking keys ``[s * chunk, (s + 1) * chunk)``
+    below the sequence's length, ``warps`` warps of ``rows`` query rows
+    each; a second pass merges the splits when there are more than one."""
+
+    chunk: int
+    splits: int
+    warps: int
+    rows: int
+
+    def live_splits(self, length: int) -> int:
+        """The splits that hold keys of a sequence of ``length`` keys: the
+        ones the combine pass reads."""
+        return _cdiv(length, self.chunk)
+
+
+def plan_decode(B: int, KV: int, G: int, S: int, dh: int, dtype: torch.dtype,
+                sms: int = H100_SMS) -> DecodePlan:
+    """The plan for q (B, KV * G, dh) against caches of S positions: the
+    shapes alone decide it, never the lengths' values.
+
+    The chunk starts at one tile (32 keys) and doubles while a cache filled
+    to a quarter of S would still give every SM about one block with keys
+    (B * KV * S / (4 * chunk) >= sms after doubling); so qwen2.5-3b's decode
+    (B 8, KV 2, S 2048) takes 32-key chunks, 64 splits.  Four warps share
+    the G query rows, one, two or four each; beyond 16 rows, more warps of
+    four.  Raises for shapes the kernel does not take (G > 64, dh > 256)."""
+    if dtype not in _DTYPE:
+        raise TypeError(f"decode_attention: dtype {dtype} (float32 or bfloat16)")
+    rows = next(r for r in (1, 2, 4) if r == 4 or 4 * r >= G)
+    warps = max(4, _cdiv(G, rows))
+    if warps > DA_MAX_WARPS or not 1 <= dh <= DA_MAX_DH:
+        raise ValueError(f"decode_attention: G = {G}, dh = {dh} not taken "
+                         f"(G <= {4 * DA_MAX_WARPS}, dh <= {DA_MAX_DH})")
+    chunk = DA_TILE
+    while chunk < S and B * KV * S >= 4 * sms * 2 * chunk:
+        chunk *= 2
+    return DecodePlan(chunk, _cdiv(S, chunk), warps, rows)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.da_launch.argtypes = ([vp] * 5 + [ci] * 5 + [cl] * 8 + [ctypes.c_float]
-                              + [ci] * 3 + [vp])
+    lib.da_launch.argtypes = ([vp] * 6 + [ci] * 5 + [cl] * 8 + [ctypes.c_float]
+                              + [ci] * 7 + [vp])
     lib.da_launch.restype = ci
-    lib.da_tile.argtypes = [ci, ci]
-    lib.da_tile.restype = ci
 
 
 def _lengths(cache_len, B: int, S: int) -> torch.Tensor:
@@ -82,22 +134,25 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if any(t.stride(-1) != 1 for t in (q, k_cache, v_cache)):
         raise ValueError("decode_attention: the last axis of q and of the "
                          "caches must be contiguous")
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    plan = plan_decode(B, KV, H // KV, S, dh, q.dtype, sms)
     lib = load("decode_attention", _declare)
-    if lib.da_tile(H // KV, dh) == 0:
-        raise ValueError(f"decode_attention: G = {H // KV} rows of dh = {dh} do "
-                         "not fit in a block's shared memory")
     lens = lens.to(q.device, non_blocking=True)
     out = torch.empty((B, H, dh), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    ws = (torch.empty(plan.splits * B * H * (dh + 2), dtype=torch.float32,
+                      device=q.device) if plan.splits > 1 else None)
     words = 16 // q.element_size()
     vec = all(t.data_ptr() % 16 == 0 and all(s % words == 0 for s in t.stride()[:3])
               for t in (k_cache, v_cache)) and dh % words == 0
     err = lib.da_launch(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                        out.data_ptr(), lens.data_ptr(), B, S, H, KV, dh,
+                        out.data_ptr(), lens.data_ptr(),
+                        None if ws is None else ws.data_ptr(), B, S, H, KV, dh,
                         q.stride(0), q.stride(1), *k_cache.stride()[:3],
                         *v_cache.stride()[:3], dh ** -0.5, int(round_p),
-                        int(vec), _DTYPE[q.dtype],
+                        int(vec), _DTYPE[q.dtype], plan.chunk, plan.splits,
+                        plan.warps, plan.rows,
                         torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("decode_attention", err)
     return out

@@ -6,7 +6,9 @@ package's packer does (same tile order, ``j_max``, ``col_idx``, ``valid``).
 :func:`spmv` multiplies a batch by the packed weight: on a CPU tensor with
 its plain version (the same sum over kept tiles in torch), on a CUDA tensor
 by the hand-written kernel ``csrc/spmv.cu``, which reads only the kept
-tiles, or it raises.  ``LAUNCHES["spmv"]`` counts launches.
+tiles, or it raises.  :func:`plan_spmv` decides the kernel's grid and how
+far it splits each row block's kept tiles.  ``LAUNCHES["spmv"]`` counts
+calls that launched the kernel (with its reduction, where there is one).
 """
 
 from __future__ import annotations
@@ -20,12 +22,19 @@ import torch
 from repro_torch.core.device import as_tensor, resolve_device
 from repro_torch.kernels.build import check_launch, load
 
-__all__ = ["pack_bcsr", "PackedSpmv", "spmv", "DEFAULT_BM", "DEFAULT_BK",
-           "DEFAULT_BB"]
+__all__ = ["pack_bcsr", "PackedSpmv", "spmv", "plan_spmv", "SpmvPlan",
+           "DEFAULT_BM", "DEFAULT_BK", "DEFAULT_BB"]
 
 DEFAULT_BM = 128  # row tile
 DEFAULT_BK = 128  # contraction tile
 DEFAULT_BB = 128  # batch tile of the TPU kernel
+# csrc/spmv.cu's block: 32 batch rows x one 64-row slice of a row block.
+SP_BB, SP_BR = 32, 64
+H100_SMS = 132
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
 
 def _pad_to(x: np.ndarray, axis: int, mult: int) -> np.ndarray:
@@ -103,9 +112,45 @@ def _spmv_plain(packed: PackedSpmv, x: torch.Tensor) -> torch.Tensor:
     return out.reshape(B, -1)[:, :packed.m]
 
 
+@dataclasses.dataclass(frozen=True)
+class SpmvPlan:
+    """How ``csrc/spmv.cu`` runs one product: ``batch_tiles`` × ``slices``
+    blocks of 32 batch rows × 64 W rows, ``slices`` counting only the 64-row
+    slices of each row block that hold rows below m; each row block's kept
+    tiles split into ``splits`` slices of whole tiles (:meth:`tile_bounds`),
+    summed in order by a second pass when ``splits`` > 1."""
+
+    batch_tiles: int
+    slices: int
+    splits: int
+
+    def tile_bounds(self, kept: int) -> list[tuple[int, int]]:
+        """The kept tiles ``[t0, t1)`` of each slice of a row block that
+        keeps ``kept`` tiles, in order (the kernel's t0, t1)."""
+        s = self.splits
+        return [(z * kept // s, (z + 1) * kept // s) for z in range(s)]
+
+
+def plan_spmv(B: int, m: int, bm: int, j_max: int,
+              sms: int = H100_SMS) -> SpmvPlan:
+    """The plan of a batch of B rows against a packed (m, ·) weight of row
+    tile ``bm`` and ``j_max`` tile slots per row block, on ``sms`` SMs: the
+    shapes alone decide it.  Splits only where the blocks without a split
+    are fewer than the SMs: enough slices for one wave, at most one per
+    tile slot."""
+    rb = _cdiv(m, bm)
+    sub = _cdiv(bm, SP_BR)
+    slices = (rb - 1) * sub + _cdiv(m - (rb - 1) * bm, SP_BR) if m else 0
+    tiles = _cdiv(B, SP_BB) * slices
+    splits = 1
+    if 0 < tiles < sms:
+        splits = max(1, min(j_max, _cdiv(sms, tiles)))
+    return SpmvPlan(_cdiv(B, SP_BB), slices, splits)
+
+
 def _declare(lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.sp_launch.argtypes = [vp, vp, vp, vp, vp] + [ci] * 7 + [vp]
+    lib.sp_launch.argtypes = [vp] * 6 + [ci] * 8 + [vp]
     lib.sp_launch.restype = ci
 
 
@@ -122,11 +167,17 @@ def _launch(packed: PackedSpmv, x: torch.Tensor) -> torch.Tensor:
     data = packed.data.to(torch.float32)
     B = int(x.shape[0])
     out = torch.empty((B, packed.m), dtype=torch.float32, device=x.device)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = plan_spmv(B, packed.m, packed.bm, packed.j_max, sms)
+    ws = (torch.empty((plan.splits, B, packed.m), dtype=torch.float32,
+                      device=x.device) if plan.splits > 1 else None)
     lib = load("spmv", _declare)
     err = lib.sp_launch(x.data_ptr(), data.data_ptr(), packed.col_idx.data_ptr(),
-                        packed.valid.data_ptr(), out.data_ptr(), B, packed.n,
+                        packed.valid.data_ptr(), out.data_ptr(),
+                        None if ws is None else ws.data_ptr(), B, packed.n,
                         packed.m, packed.row_blocks, packed.j_max, packed.bm,
-                        packed.bk, torch.cuda.current_stream(x.device).cuda_stream)
+                        packed.bk, plan.splits,
+                        torch.cuda.current_stream(x.device).cuda_stream)
     check_launch("spmv", err)
     return out
 

@@ -183,14 +183,21 @@ def test_use_pallas_lane_launches_one_chain_per_bucket(card):
 
 
 # --------------------------------------------------------- spmv and matmul
-@pytest.mark.parametrize("m,n,density,bm", [
-    (100, 300, 0.1, 16), (64, 64, 1.0, 16), (33, 130, 0.4, 16),
-    (8, 8, 0.0, 16), (24, 610, 1.0, 128), (300, 200, 0.3, 128)])
+# (m, n, density, bm, zero): `zero` rows set to 0 make a row block with no
+# kept tile; m = 24 at bm = 128 is Zx's single 64-row slice; n = 610 and 611
+# leave x's rows unaligned (4-byte copies)
+@pytest.mark.parametrize("m,n,density,bm,zero", [
+    (100, 300, 0.1, 16, None), (64, 64, 1.0, 16, None),
+    (33, 130, 0.4, 16, None), (8, 8, 0.0, 16, None), (24, 610, 1.0, 128, None),
+    (300, 200, 0.3, 128, None), (256, 256, 1.0, 128, slice(0, 128)),
+    (100, 300, 1.0, 16, slice(32, 48)), (24, 611, 1.0, 128, None)])
 @pytest.mark.parametrize("batch", [1, 5, 64])
-def test_spmv_kernel_matches_plain(card, m, n, density, bm, batch):
+def test_spmv_kernel_matches_plain(card, m, n, density, bm, zero, batch):
     rng = np.random.default_rng(m + batch)
     w = rng.normal(size=(m, n)).astype(np.float32)
     w[rng.random((m, n)) >= density] = 0.0
+    if zero is not None:
+        w[zero] = 0.0
     x = torch.from_numpy(rng.normal(size=(batch, n)).astype(np.float32)).to(card)
     got = ops.spmv(ops.pack_bcsr(w, bm=bm, bk=bm, device=card), x)
     want = spmv_ref(torch.from_numpy(w).to(card), x)
@@ -389,13 +396,22 @@ def test_flash_attention_reads_a_strided_cache(card, dtype):
         _attn_close(got, want)
 
 
+SERVED_LENS = [905, 689, 562, 319, 357, 88, 122, 63]   # qwen2.5-3b, last step
+
+
+@pytest.mark.parametrize("lens_on", ["host", "card"])
 @pytest.mark.parametrize("round_p", [False, True])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,S,H,KV,dh", [
-    (8, 2048, 16, 2, 128), (2, 64, 8, 4, 32), (3, 100, 4, 1, 64),
-    (1, 32, 16, 2, 128), (2, 50, 8, 8, 256), (4, 77, 8, 2, 100)])
-def test_decode_attention_kernel_matches_plain(card, B, S, H, KV, dh, dtype,
-                                               round_p):
+@pytest.mark.parametrize("B,S,H,KV,dh,lens", [
+    (8, 2048, 16, 2, 128, None), (2, 64, 8, 4, 32, None),
+    (3, 100, 4, 1, 64, None), (1, 32, 16, 2, 128, None),
+    (2, 50, 8, 8, 256, None), (4, 77, 8, 2, 100, None),
+    (8, 2048, 16, 2, 128, SERVED_LENS), (8, 2048, 16, 2, 128, [1] * 8),
+    (2, 300, 32, 2, 64, None), (2, 5000, 16, 1, 128, [4999, 17])])
+def test_decode_attention_kernel_matches_plain(card, B, S, H, KV, dh, lens,
+                                               dtype, round_p, lens_on):
+    """None: random lengths with a 1 and an S; then the served lengths,
+    every length 1, G = 16 rows of 64, and a long cache."""
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.ref import decode_attention_ref
 
@@ -403,9 +419,12 @@ def test_decode_attention_kernel_matches_plain(card, B, S, H, KV, dh, dtype,
     q = _randn(card, B, H, dh, dtype=dt, seed=5)
     k = _randn(card, B, S, KV, dh, dtype=dt, seed=6)
     v = _randn(card, B, S, KV, dh, dtype=dt, seed=7)
-    lens = np.random.default_rng(S).integers(1, S + 1, size=B).astype(np.int32)
-    lens[0], lens[-1] = 1, S
-    got = decode_attention(q, k, v, lens, round_p=round_p)
+    if lens is None:
+        lens = np.random.default_rng(S).integers(1, S + 1, size=B)
+        lens[0], lens[-1] = 1, S
+    lens = np.asarray(lens, np.int32)
+    given = lens if lens_on == "host" else torch.from_numpy(lens).to(card)
+    got = decode_attention(q, k, v, given, round_p=round_p)
     want = decode_attention_ref(q, k, v, torch.from_numpy(lens).to(card),
                                 round_p=round_p)
     torch.cuda.synchronize()
@@ -426,6 +445,31 @@ def test_decode_attention_reads_a_layer_of_the_stacked_cache(card):
     want = decode_attention_ref(q, kc[1], vc[1], lens)
     torch.cuda.synchronize()
     _attn_close(got, want)
+
+
+def test_kernels_give_bitwise_equal_results_on_two_calls(card):
+    """The split passes merge in a fixed order, without atomics."""
+    from repro_torch.kernels.decode_attention import decode_attention
+
+    for dt in (torch.float32, torch.bfloat16):
+        q = _randn(card, 8, 16, 128, dtype=dt, seed=1)
+        k = _randn(card, 8, 2048, 2, 128, dtype=dt, seed=2)
+        v = _randn(card, 8, 2048, 2, 128, dtype=dt, seed=3)
+        for rp in (False, True):
+            a = decode_attention(q, k, v, SERVED_LENS, round_p=rp)
+            b = decode_attention(q, k, v, SERVED_LENS, round_p=rp)
+            torch.cuda.synchronize()
+            assert torch.equal(a, b)
+    rng = np.random.default_rng(0)
+    for m, n, bm, B in ((24, 610, 128, 64), (4096, 4096, 128, 64)):
+        w = rng.normal(size=(m, n)).astype(np.float32)
+        keep = rng.random((-(-m // bm), -(-n // bm))) < (1.0 if m == 24 else 0.1)
+        w *= np.kron(keep, np.ones((bm, bm), np.float32))[:m, :n]
+        packed = ops.pack_bcsr(w, bm=bm, bk=bm, device=card)
+        x = torch.from_numpy(rng.normal(size=(B, n)).astype(np.float32)).to(card)
+        a, b = ops.spmv(packed, x), ops.spmv(packed, x)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
 
 
 def test_attention_wrappers_check_and_count(card):
