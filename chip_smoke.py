@@ -40,16 +40,20 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               the card: flash attention at qwen2.5-3b's heads (H 16, KV 2,
               dh 128), B = 1, Sq = Sk in {8, 100, 1024, 2048}, float32 and
               bfloat16, p in fp32 and p rounded, plus G in {1, 4, 8} at small
-              shapes, one non-causal case, dh 256 and dh 100 (bf16 on the
-              CUDA-core kernel) and q, k, v as strided views of a fused QKV
-              projection, each case on the kernel ``flash_route`` picks;
-              decode attention at B = 8,
-              S = 2048 with ragged cache lengths including 1 and S, with the
-              lengths of phase 7's last decode step (given on the host and
-              on the card) and with every length 1, float32 and bfloat16,
-              two calls bitwise equal.  Limits: float32 ``rtol = atol =
-              1e-5``; bfloat16 one bf16 ulp of the output's largest
-              magnitude;
+              shapes, one non-causal case, dh 256, dh 100 and G = 6 (bf16
+              on the CUDA-core kernel), dh 320 causal and full (output
+              columns split over blocks), 600 tokens (more row tiles than
+              SMs) and q, k, v as strided views of a fused QKV projection, each
+              case on the kernel ``flash_route`` picks; decode attention at
+              B = 8, S = 2048 with ragged cache lengths including 1 and S,
+              with the lengths of phase 7's last decode step (given on the
+              host and on the card) and with every length 1, two calls
+              bitwise equal; at G = 128, dh = 320; and with the lengths on
+              the card under CUDA's sync debug mode (no synchronisation)
+              and captured in a CUDA graph, whose replay must equal the
+              eager call bitwise; float32 and bfloat16.  Limits: float32
+              ``rtol = atol = 1e-5``; bfloat16 one bf16 ulp of the
+              output's largest magnitude;
 7. lm-serve — the port's ``ServeEngine`` on qwen2.5-3b at full width (36
               layers, every published width), random weights from seed 0
               made on the card, 8 requests of 16–1024 prompt tokens (drawn
@@ -64,7 +68,9 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               run, flash launches = 36 x prefills on the path of its dtype
               (float32: ``flash_attention``, bfloat16:
               ``flash_attention_wgmma``) and none on the other, and decode
-              launches = 36 x decode steps, exactly;
+              launches = 36 x decode steps, exactly; a decode step makes
+              one host-to-device copy (tokens and positions; the 36 layers'
+              lengths are made on the card from it);
 8. report   — the device time of every kernel, its plain version and,
               where one PyTorch call computes the same function, that call
               (kernel durations from a ``torch.profiler`` trace, per call);
@@ -117,6 +123,7 @@ LM_F32_ATOL = 1e-3
 LM_BF16_AGREE = 0.95
 # the two passes of csrc/decode_attention.cu, by kernel name in a trace
 DECODE_PASSES = ("da_kernel", "da_combine")
+HTOD = "Memcpy HtoD"               # a host-to-device copy, by name in a trace
 # matmul/gemv cases (M, K, N) of phase 3, each in float32 and bfloat16 with
 # both layouts of b: aligned and unaligned pitches, split and unsplit K
 MATMUL_SHAPES = ((129, 65, 70), (128, 128, 128), (64, 610, 24),
@@ -556,11 +563,12 @@ def decode_work(lens, H: int, KV: int, dh: int, item: int) -> tuple[float, float
     return float(nbytes), float(4 * n * H * dh)
 
 
-def device_split(fn, names: tuple[str, ...],
-                 reps: int = 3) -> tuple[float, dict, float]:
+def device_split(fn, names: tuple[str, ...], reps: int = 3,
+                 count: bool = False) -> tuple[float, dict, float]:
     """Device ms per call of ``fn`` from a profiler trace, of that the ms
-    of the kernels whose names contain each of ``names``, and the number of
-    device activities (kernels, copies, sets) per call."""
+    of the kernels whose names contain each of ``names`` (with ``count``:
+    how many of them run per call), and the number of device activities
+    (kernels, copies, sets) per call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -571,18 +579,19 @@ def device_split(fn, names: tuple[str, ...],
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total, part, count = 0.0, dict.fromkeys(names, 0.0), 0
+    total, part, n_act = 0.0, dict.fromkeys(names, 0.0), 0
     for e in p.events():
         if e.device_type != DeviceType.CUDA:
             continue
         us = e.time_range.elapsed_us()
         total += us
-        count += 1
+        n_act += 1
         for n in names:
             if n in e.name:
-                part[n] += us
-    return (total / 1e3 / reps, {n: v / 1e3 / reps for n, v in part.items()},
-            count / reps)
+                part[n] += 1 if count else us
+    scale = reps if count else 1e3 * reps
+    return (total / 1e3 / reps, {n: v / scale for n, v in part.items()},
+            n_act / reps)
 
 
 def teacher_forced(model, done, vocab: int, plain: bool):
@@ -991,7 +1000,11 @@ def main() -> int:
                              for H, KV in ((8, 8), (8, 2), (16, 2))]
             flash_shapes += [(2, 100, 100, 16, 2, 128, False),
                              (1, 300, 300, 8, 2, 256, True),
-                             (1, 70, 70, 8, 2, 100, True)]
+                             (1, 70, 70, 8, 2, 100, True),
+                             (1, 600, 600, 16, 2, 128, True),
+                             (1, 64, 64, 12, 2, 64, True),
+                             (1, 70, 70, 8, 2, 320, True),
+                             (2, 33, 45, 4, 1, 320, False)]
             cases = []
             for B, Sq, Sk, H, KV, dh, causal in flash_shapes:
                 q = rnd((B, Sq, H, dh), dt)
@@ -1043,6 +1056,49 @@ def main() -> int:
                                              "calls differ")
                     attn_case("decode_attention", label, got,
                               decode_attention_ref(q, kc, vc, ld, round_p=rp))
+            # wider than any config: G = 128 query rows per KV head (two
+            # groups of 64) and dh = 320, lengths on the host and the card
+            qw = rnd((2, 128, 320), dt)
+            kw, vw = rnd((2, 64, 1, 320), dt), rnd((2, 64, 1, 320), dt)
+            lw = np.array([64, 33], np.int32)
+            for on_card in (False, True):
+                given = torch.from_numpy(lw).to(dev) if on_card else lw
+                for rp in (False, True):
+                    attn_case("decode_attention",
+                              f"{dname} B=2 S=64 H=128 KV=1 dh=320 lens "
+                              f"{lw.tolist()}{' on the card' if on_card else ''}"
+                              f" p {'rounded' if rp else 'fp32'}",
+                              decode_attention(qw, kw, vw, given, round_p=rp),
+                              decode_attention_ref(qw, kw, vw,
+                                                   torch.from_numpy(lw).to(dev),
+                                                   round_p=rp))
+            # lengths on the card: no synchronisation (CUDA's sync debug
+            # mode raises on one), and one call captured in a CUDA graph
+            # whose replay equals the eager call bitwise
+            ld = torch.from_numpy(np.asarray(served_lens, np.int32)).to(dev)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                eager = decode_attention(q, kc, vc, ld, round_p=False)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                decode_attention(q, kc, vc, ld, round_p=False)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                captured = decode_attention(q, kc, vc, ld, round_p=False)
+            graph.replay()
+            torch.cuda.synchronize()
+            if not torch.equal(captured, eager):
+                raise AssertionError(f"decode_attention {dname}: the graph's "
+                                     "replay differs from the eager call")
+            attn_case("decode_attention", f"{dname} B={B} S={S} served lens on "
+                      "the card, no synchronisation, graph replay", captured,
+                      decode_attention_ref(q, kc, vc, ld, round_p=False))
+            del graph, captured
     except AssertionError as e:
         return fail("lm-kernel", str(e))
     for name in ("flash_attention", "flash_attention_wgmma",
@@ -1119,6 +1175,15 @@ def main() -> int:
             lambda: model.forward_decode(eng.last_token, eng.caches, eng.pos),
             DECODE_PASSES)
         attn_ms = sum(part[k] for k in DECODE_PASSES)
+        # host-to-device copies of a decode step: tokens and positions in
+        # one; the layers' lengths are made on the card from it
+        _, cp, _ = device_split(
+            lambda: model.forward_decode(eng.last_token, eng.caches, eng.pos),
+            (HTOD,), count=True)
+        htod = cp[HTOD]
+        if htod != 1:
+            raise AssertionError(f"{label}: {htod} host-to-device copies per "
+                                 "decode step, expected 1")
         pre_dev, pre_part, pre_n = device_split(
             lambda: model.forward_full(np.ones((1, bucket), np.int32),
                                        return_cache=True),
@@ -1139,6 +1204,7 @@ def main() -> int:
                    decode_attention_pass_ms={k: part[k] for k in DECODE_PASSES},
                    attention_share=attn_ms / step_dev,
                    decode_step_device_activities=step_n,
+                   decode_step_htod_copies=htod,
                    prefill_device_ms=pre_dev,
                    prefill_flash_device_ms=flash_ms,
                    prefill_device_activities=pre_n,
@@ -1163,7 +1229,7 @@ def main() -> int:
               f"({attn_ms / step_dev:.1%}: " + ", ".join(
                   f"{k} {part[k]:.3f}" for k in DECODE_PASSES)
               + f"), {step_n:.0f} device "
-              f"activities; prefill of {bucket} tokens device {pre_dev:.3f} ms, "
+              f"activities ({htod:.0f} host-to-device copy); prefill of {bucket} tokens device {pre_dev:.3f} ms, "
               f"flash {flash_ms:.3f} ms, {pre_n:.0f} activities; peak "
               f"{rec['peak_gib']:.1f} GiB", flush=True)
         lm_runs.append(rec)
@@ -1326,15 +1392,15 @@ def main() -> int:
         mask = (torch.arange(Sc, device=dev)[None, :] < ld[:, None])[:, None, None]
         q4, k4, v4 = qd[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
         r = row("decode_attention", f"{dname} B={B} S={Sc} H=16 KV=2 dh=128 "
-                f"served lens {lens} p fp32",
-                lambda: decode_attention(qd, kc, vc, lh, round_p=False),
+                f"served lens {lens} (on the card) p fp32",
+                lambda: decode_attention(qd, kc, vc, ld, round_p=False),
                 lambda: decode_attention_ref(qd, kc, vc, ld),
                 lambda: F.scaled_dot_product_attention(q4, k4, v4,
                                                        attn_mask=mask,
                                                        enable_gqa=True), 50,
                 decode_work(lens, 16, 2, 128, qd.element_size()), dname)
         _, passes, _ = device_split(
-            lambda: decode_attention(qd, kc, vc, lh, round_p=False),
+            lambda: decode_attention(qd, kc, vc, ld, round_p=False),
             DECODE_PASSES, reps=50)
         r["pass_ms"] = passes
         print(f"    decode_attention {dname} passes: " + ", ".join(

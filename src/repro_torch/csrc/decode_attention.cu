@@ -53,13 +53,23 @@
 //     bitwise equal outputs.
 //   * With `round_p`, each split rounds p against its own running max, as
 //     the TPU kernel rounds against its running max of each tile.
+//   * Lengths are read on the card and clamped into [0, S], so a bad length
+//     never reads outside the cache; a length of 0 gives a zero row (the
+//     output is divided by max(l, 1e-30)).  Checking them is the caller's
+//     job, as for the TPU kernel.
+//   * Wider shapes than the served ones: G > 64 takes a second grid axis
+//     over groups of at most 64 query rows of a KV head (each group reads
+//     the chunk's k and v again); dh > 256 takes twice the 16-byte segments
+//     per lane (SPL), up to dh = 512 and the shared memory a block can have.
+//     At G <= 64 and dh <= 256 the code is the one the served shapes run.
 
 #include "attention.cuh"
 #include "hopper.cuh"
 
 #define DA_TILE 32        // keys per staged tile (one per lane in the softmax)
-#define DA_MAX_WARPS 16   // G <= 64
-#define DA_MAX_DH 256
+#define DA_MAX_WARPS 16   // <= 64 query rows a block
+#define DA_MAX_DH 256     // the served segments per lane (SPL) take dh <= 256
+#define DA_WIDE_DH 512    // twice the segments per lane
 #define DA_BATCH 16       // the combine's loads in flight per thread
 
 struct DaArgs {
@@ -67,6 +77,7 @@ struct DaArgs {
   float* ws;        // splits > 1: (B * KV, splits, G) x (m, l), then
                     // (B * KV, splits, G, dh) accumulators
   int B, S, H, KV, dh, chunk, splits, warps;
+  int gsz;          // query rows of a KV head per block (blockIdx.y a group)
   long long qsb, qsh, ksb, kss, ksh, vsb, vss, vsh;
   float scale;
   int round_p, vec;
@@ -122,12 +133,16 @@ __device__ __forceinline__ void da_scatter(float (&v)[RW][NB], int lane) {
       v[r][0] += __shfl_xor_sync(0xffffffffu, v[r][0], o);
 }
 
-// R lanes per key (a power of two, 8 to 32), RW query rows per warp.
-template <typename T, int R, int RW>
+// Segments per lane, at most, for the dh <= 256 kernels.
+template <typename T>
+constexpr int da_spl() { return (DA_MAX_DH / (16 / (int)sizeof(T)) + 31) / 32; }
+
+// R lanes per key (a power of two, 8 to 32), RW query rows per warp, SPL
+// 16-byte segments of dh per lane at most.
+template <typename T, int R, int RW, int SPL>
 __global__ void __launch_bounds__(DA_MAX_WARPS * 32)
 da_kernel(DaArgs a) {
   constexpr int V = 16 / sizeof(T);                 // elements per segment
-  constexpr int SPL = (DA_MAX_DH / V + 31) / 32;    // segments per lane, at most
   constexpr int KPW = 32 / R;                       // keys per warp at once
   constexpr int NB = R * RW > 32 ? 32 / RW : R;     // keys per reduce-scatter
   extern __shared__ __align__(16) uint8_t smem[];
@@ -142,13 +157,19 @@ da_kernel(DaArgs a) {
   const int nbkv = a.B * a.KV;
   const int split = blockIdx.x / nbkv, bkv = blockIdx.x - split * nbkv;
   const int b = bkv / a.KV, kvh = bkv - b * a.KV;
-  const int len = a.lens[b];
+  const int g0 = blockIdx.y * a.gsz, gn = min(a.gsz, G - g0);  // this group's rows
+  const int len = min(max(a.lens[b], 0), a.S);
   const int c0 = split * a.chunk, c1 = min(c0 + a.chunk, len);
   float* ws_ml = a.ws + ((long long)bkv * a.splits + split) * G * 2;
   if (c0 >= len) {                 // no keys: an empty partial, never combined
-    for (int g = tid; g < G; g += blockDim.x) {
-      ws_ml[2 * g] = -INFINITY;
-      ws_ml[2 * g + 1] = 0.0f;
+    if (a.splits > 1) {
+      for (int g = g0 + tid; g < g0 + gn; g += blockDim.x) {
+        ws_ml[2 * g] = -INFINITY;
+        ws_ml[2 * g + 1] = 0.0f;
+      }
+    } else {                       // a length of 0: zero rows
+      T* o = static_cast<T*>(a.o) + ((long long)b * a.H + kvh * G + g0) * dh;
+      for (int e = tid; e < gn * dh; e += blockDim.x) o[e] = att_out<T>(0.0f);
     }
     return;
   }
@@ -180,11 +201,11 @@ da_kernel(DaArgs a) {
   };
   stage(0, c0);
 
-  // This warp's rows g = warp + nw * r, their scaled q in registers: lane
-  // (slot sg of its group) holds segments sg, sg + R, ... of each row.
-  const int rows = max(0, min(RW, (G - warp + nw - 1) / nw));
+  // This warp's rows g = g0 + warp + nw * r, their scaled q in registers:
+  // lane (slot sg of its group) holds segments sg, sg + R, ... of each row.
+  const int rows = max(0, min(RW, (gn - warp + nw - 1) / nw));
   const int sg = lane % R, key = lane / R;
-  const T* q = static_cast<const T*>(a.q) + b * a.qsb + kvh * G * a.qsh;
+  const T* q = static_cast<const T*>(a.q) + b * a.qsb + (kvh * G + g0) * a.qsh;
   float qr[RW][SPL][V], acc[RW][SPL][V];
   float m[RW], l[RW];
 #pragma unroll
@@ -324,7 +345,7 @@ da_kernel(DaArgs a) {
 #pragma unroll
   for (int r = 0; r < RW; ++r) {
     if (r >= rows) continue;
-    const int g = warp + nw * r;
+    const int g = g0 + warp + nw * r;
     const float den = fmaxf(l[r], 1e-30f);
     if (split_out && sg == 0) {
       ws_ml[2 * g] = m[r];
@@ -353,7 +374,7 @@ __global__ void da_combine(DaArgs a) {
   const int G = a.H / a.KV, tid = threadIdx.x;
   const int b = blockIdx.x / a.H, h = blockIdx.x - b * a.H;
   const int bkv = b * a.KV + h / G, g = h % G;
-  const int ns = (a.lens[b] + a.chunk - 1) / a.chunk;
+  const int ns = (min(max(a.lens[b], 0), a.S) + a.chunk - 1) / a.chunk;
   const float* ml = a.ws + (long long)bkv * a.splits * G * 2 + 2 * g;
   const float* accs = a.ws + (long long)a.B * a.KV * a.splits * G * 2
                       + ((long long)bkv * a.splits * G + g) * a.dh;
@@ -391,20 +412,22 @@ __global__ void da_combine(DaArgs a) {
   }
 }
 
-template <typename T, int R, int RW>
+template <typename T, int R, int RW, int SPL>
 static int da_run(const DaArgs& a, int smem, cudaStream_t s) {
   static int granted[HP_MAX_DEVICES] = {0};
-  int e = hp_grant_smem((const void*)da_kernel<T, R, RW>, smem, granted);
+  int e = hp_grant_smem((const void*)da_kernel<T, R, RW, SPL>, smem, granted);
   if (e) return e;
-  da_kernel<T, R, RW><<<a.B * a.KV * a.splits, a.warps * 32, smem, s>>>(a);
+  const dim3 grid(a.B * a.KV * a.splits, (a.H / a.KV + a.gsz - 1) / a.gsz);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  da_kernel<T, R, RW, SPL><<<grid, a.warps * 32, smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int R>
+template <typename T, int R, int SPL = da_spl<T>()>
 static int da_rows(const DaArgs& a, int rows, int smem, cudaStream_t s) {
-  if (rows == 1) return da_run<T, R, 1>(a, smem, s);
-  if (rows == 2) return da_run<T, R, 2>(a, smem, s);
-  return da_run<T, R, 4>(a, smem, s);
+  if (rows == 1) return da_run<T, R, 1, SPL>(a, smem, s);
+  if (rows == 2) return da_run<T, R, 2, SPL>(a, smem, s);
+  return da_run<T, R, 4, SPL>(a, smem, s);
 }
 
 template <typename T>
@@ -415,7 +438,8 @@ static int da_dispatch(const DaArgs& a, int rows, cudaStream_t s) {
   int e;
   if (nseg <= 8) e = da_rows<T, 8>(a, rows, smem, s);
   else if (nseg <= 16) e = da_rows<T, 16>(a, rows, smem, s);
-  else e = da_rows<T, 32>(a, rows, smem, s);
+  else if (nseg <= 32 * da_spl<T>()) e = da_rows<T, 32>(a, rows, smem, s);
+  else e = da_rows<T, 32, 2 * da_spl<T>()>(a, rows, smem, s);
   if (e || a.splits == 1) return e;
   static int granted[HP_MAX_DEVICES] = {0};
   const int cbytes = 2 * a.splits * (int)sizeof(float);
@@ -427,11 +451,11 @@ static int da_dispatch(const DaArgs& a, int rows, cudaStream_t s) {
 }
 
 // q (B, H, dh) with strides qsb, qsh; k and v (B, S, KV, dh) with strides
-// in elements, the last axis contiguous; lens (B,) int32 on the card, each
-// in [1, S]; out (B, H, dh) contiguous.  The plan: `chunk` keys per block
-// (a multiple of DA_TILE), `splits` = ceil(S / chunk) blocks per (b, KV
-// head), `warps` warps of `rows` query rows (1, 2 or 4; G <= warps *
-// rows); ws holds B * KV * splits * G * (dh + 2) floats when splits > 1.
+// in elements, the last axis contiguous; lens (B,) int32 on the card (each
+// clamped into [0, S]); out (B, H, dh) contiguous.  The plan: `chunk` keys
+// per block (a multiple of DA_TILE), `splits` = ceil(S / chunk) blocks per
+// (b, KV head) and group of `gsz` query rows, `warps` warps of `rows` query
+// rows (1, 2 or 4; gsz <= warps * rows); ws holds B * KV * splits * G * (dh + 2) floats when splits > 1.
 // `vec`: 16-byte copies of the caches.  dtype 0 = float32, 1 = bfloat16.
 // Returns cudaGetLastError() after the launches (0 = launched).
 extern "C" int da_launch(const void* q, const void* k, const void* v, void* o,
@@ -440,17 +464,17 @@ extern "C" int da_launch(const void* q, const void* k, const void* v, void* o,
                          long long ksb, long long kss, long long ksh,
                          long long vsb, long long vss, long long vsh,
                          float scale, int round_p, int vec, int dtype,
-                         int chunk, int splits, int warps, int rows,
+                         int chunk, int splits, int warps, int rows, int gsz,
                          void* stream) {
   if (B == 0) return 0;
-  if (S < 1 || KV < 1 || H % KV != 0 || dh < 1 || dh > DA_MAX_DH)
+  if (S < 1 || KV < 1 || H % KV != 0 || dh < 1 || dh > DA_WIDE_DH)
     return (int)cudaErrorInvalidValue;
   if (warps < 1 || warps > DA_MAX_WARPS || (rows != 1 && rows != 2 && rows != 4) ||
-      H / KV > warps * rows || chunk < DA_TILE || chunk % DA_TILE != 0 ||
+      gsz < 1 || gsz > warps * rows || chunk < DA_TILE || chunk % DA_TILE != 0 ||
       splits != (S + chunk - 1) / chunk || (splits > 1 && ws == nullptr))
     return (int)cudaErrorInvalidValue;
   DaArgs a{q, k, v, o, (const int*)lens, (float*)ws, B, S, H, KV, dh, chunk,
-           splits, warps, qsb, qsh, ksb, kss, ksh, vsb, vss, vsh, scale,
+           splits, warps, gsz, qsb, qsh, ksb, kss, ksh, vsb, vss, vsh, scale,
            round_p, vec};
   cudaStream_t s = (cudaStream_t)stream;
   return dtype == 0 ? da_dispatch<float>(a, rows, s)

@@ -48,21 +48,41 @@
 //
 // fa_kernel, on the CUDA cores: float32 (the tensor cores would mean TF32,
 // which the port's parity contract forbids) and the bf16 shapes the tensor
-// cores cannot take.
-//   * One block of 256 threads per (b * KV + kv head, tile of 64 q rows),
-//     the heaviest causal tiles first.  The tile's q rows, scaled in fp32,
-//     stay in shared memory (dh-major) for the whole key loop.
-//   * A loop over key tiles of BK takes the place of the TPU's sequential kv
-//     grid axis: k (dh-major) and v (key-major) are staged in shared memory,
-//     each thread computes a 4 x BK/16 block of scores with fp32 FMAs, four
-//     threads per row update the running max and sum (online softmax), and
-//     each thread rescales and accumulates a 4 x DHP/16 block of the output
-//     in registers, fmaf sums in index order.
+// cores cannot take (G not dividing 128, unaligned views, dh > 256).
+// Redesigned for this card; what bounded the first version was shared
+// memory, not the FMAs (scalar 4-byte loads, 8 for 16 FMAs), one 8-warp
+// block per SM over two waves, and three barriers per key tile.
+//   * One block of 256 threads per (b * KV + kv head, tile of 64 (token, g)
+//     rows), the heaviest causal tiles of all heads first, so the blocks
+//     that start last are the light ones (the served prefill, B 1, S 1024,
+//     H 16, KV 2: 256 blocks, one an SM).  Pairing tiles t and n - 1 - t in
+//     one block, to run a single wave of equal blocks, timed no faster.
+//     repro_torch.kernels.flash_attention.plan_flash_simt states the tiling
+//     from the shapes, for the tests.
+//   * The tile's q rows, scaled in fp32, stay in shared memory row-major
+//     (pitch dh + 4) for the whole key loop; k and v tiles of BN keys go
+//     through a 2-stage ring: for float32 with dh = 64, 128 or 256 and
+//     16-byte bases and strides by 16-byte cp.async (rows past the keys
+//     zero-filled), so tile j + 1 loads while tile j computes; else by
+//     element loads converted to fp32.
+//   * Thread (tr, tc) of a 16 x 16 grid owns rows tr + 16 i (i < 4), keys
+//     tc + 16 j (j < BN / 16) and columns 64 h + 4 tc + e: S = Q.K^T from
+//     float4 shared loads of 4 d's (q: 4 loads, k: BN / 16, for 4 x 4 x 4
+//     FMAs), each score an fmaf chain over d in index order.
+//   * The online softmax stays in registers: each row's 16 owners sit in
+//     one half-warp and reduce its max and sum by shuffles (xor 1, 2, 4, 8).
+//     p goes to shared memory row-major, read back by the same half-warp as
+//     float4s of 4 keys for O += P.V (v tile key-major, float4 loads of 4
+//     columns), fmaf in key order.  Two barriers per key tile.
 //   * Causal tiles above the diagonal are skipped: the loop stops at the
 //     tile's last token.  That is exact: such a tile gives m_new = m_prev,
 //     alpha = 1 and p = 0 in the TPU kernel, since key 0 is valid for every
 //     row.  Ragged Sq and Sk are masked, not padded; q, k and v are read in
 //     the model's own layout through their strides (no transpose).
+//   * dh > 256 (WIDE): the output columns are split over blocks in chunks
+//     of 256.  Such a block streams q and k through shared memory in
+//     256-wide chunks of d for the full-dh scores (the same fmaf chain) and
+//     accumulates only its chunk of P.V.
 //
 // Bound: operations.  4 * Sq * Sk * H * dh flops (half of it under the
 // causal mask) against reading q, k, v and writing the output once; at the
@@ -73,7 +93,8 @@
 #include "hopper.cuh"
 
 #define FA_THREADS 256
-#define FA_ROWS 64
+#define FA_ROWS 64          // (token, g) rows of a tile, 4 per thread
+#define FA_WIDE 256         // output columns of a block when dh > 256
 
 struct FaArgs {
   const void* q; const void* k; const void* v; void* o;
@@ -83,185 +104,316 @@ struct FaArgs {
   int causal, round_p, vec;
 };
 
-template <int DHP, int BK>
-constexpr int fa_smem_floats() {
-  return DHP * (FA_ROWS + 1) + DHP * (BK + 1) + BK * DHP + FA_ROWS * (BK + 1)
-         + 3 * FA_ROWS;
+// fa_kernel<T, DHP, BN>'s shared memory, in floats: q [FA_ROWS][QP], the k
+// ring [2][BN][KP], the v ring [2][BN][VP], p [FA_ROWS][PP].  The pitches
+// of q, k and p are padded by 16 bytes so that the float4 loads of a warp
+// meet no bank conflict beyond the two wavefronts of 256 bytes.
+template <int DHP, int BN>
+struct FaShape {
+  static constexpr int QP = DHP + 4, KP = DHP + 4, VP = DHP, PP = BN + 4;
+  static constexpr int Q = FA_ROWS * QP, K = BN * KP, V = BN * VP;
+  static constexpr int FLOATS = Q + 2 * K + 2 * V + FA_ROWS * PP;
+};
+
+// Stage `rows` rows of w columns of a (rows, dh) slice of k or v as fp32,
+// row r from src + r * rs into dst + r * pitch, by element loads: zeros for
+// rows at or past `nvalid` and for the columns [w, w rounded up to 4).
+template <typename T>
+__device__ __forceinline__ void fa_fill(float* dst, int pitch, const T* src,
+                                        long long rs, int nvalid, int rows,
+                                        int w) {
+  const int w4 = (w + 3) & ~3;
+  for (int e = threadIdx.x; e < rows * w4; e += FA_THREADS) {
+    const int r = e / w4, d = e - r * w4;
+    dst[r * pitch + d] = (r < nvalid && d < w) ? att_in<T>(src[r * rs + d]) : 0.0f;
+  }
 }
 
-template <typename T, int DHP, int BK>
-__global__ void __launch_bounds__(FA_THREADS)
-fa_kernel(FaArgs a) {
-  extern __shared__ float smem[];
-  constexpr int LQ = FA_ROWS + 1, LK = BK + 1, LP = BK + 1;
-  float* Qs = smem;                  // [DHP][LQ]  scaled q, dh-major
-  float* Ks = Qs + DHP * LQ;         // [DHP][LK]  k tile, dh-major
-  float* Vs = Ks + DHP * LK;         // [BK][DHP]  v tile, key-major
-  float* Ps = Vs + BK * DHP;         // [FA_ROWS][LP] scores, then p
-  float* Ms = Ps + FA_ROWS * LP;     // running max per row
-  float* Ls = Ms + FA_ROWS;          // running sum per row
-  float* As = Ls + FA_ROWS;          // this tile's alpha per row
-
-  const int tid = threadIdx.x;
-  const int G = a.H / a.KV;
-  const int b = blockIdx.y / a.KV, kvh = blockIdx.y % a.KV;
-  const int r0 = (gridDim.x - 1 - blockIdx.x) * FA_ROWS;
-  const int nrows = a.Sq * G;
-  const int dh = a.dh;
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k) + b * a.ksb + kvh * a.ksh;
-  const T* v = static_cast<const T*>(a.v) + b * a.vsb + kvh * a.vsh;
-  T* o = static_cast<T*>(a.o);
-
-  // q rows (token t, group g) of this tile, scaled; zeros past the end
-  for (int e = tid; e < FA_ROWS * DHP; e += FA_THREADS) {
-    const int r = e / DHP, d = e % DHP, row = r0 + r;
-    float val = 0.0f;
-    if (row < nrows && d < dh) {
-      const int t = row / G, g = row % G;
-      val = att_in<T>(q[b * a.qsb + t * a.qss + (kvh * G + g) * a.qsh + d])
-            * a.scale;
-    }
-    Qs[d * LQ + r] = val;
+// The same for float32 rows of dh = 4 * SEGS on 16-byte boundaries, by
+// 16-byte cp.async (rows at or past `nvalid` zero-filled): each thread
+// keeps one 16-byte column of the rows (SEGS divides FA_THREADS).
+template <int SEGS>
+__device__ __forceinline__ void fa_copy(float* dst, int pitch,
+                                              const float* src, long long rs,
+                                              int nvalid, int rows) {
+  const int d = (threadIdx.x % SEGS) * 4;
+  for (int r = threadIdx.x / SEGS; r < rows; r += FA_THREADS / SEGS) {
+    const bool ok = r < nvalid;
+    hp_cp16(dst + r * pitch + d, ok ? src + r * rs + d : src, ok);
   }
-  if (tid < FA_ROWS) { Ms[tid] = ATT_NEG; Ls[tid] = 0.0f; }
+}
 
-  const int rg = tid / 16, cg = tid % 16;   // rows rg + 16 i, columns cg + 16 j
-  constexpr int NJ = BK / 16, NC = DHP / 16;
-  float acc[4][NC];
+// Rows r0 .. r0 + FA_ROWS of the tile's (token, g) rows of q, columns
+// [dc, dc + w), scaled in fp32; zeros past the rows and in [w, w4).  A
+// warp takes a row at a time, its lanes along d.
+template <typename T>
+__device__ __forceinline__ void fa_fill_q(float* Qs, int pitch, const T* q,
+                                          const FaArgs& a, int G, int r0,
+                                          int dc, int w) {
+  const int w4 = (w + 3) & ~3, nrows = a.Sq * G, lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < FA_ROWS; r += FA_THREADS / 32) {
+    const int row = r0 + r, t = row / G, g = row - t * G;
+    const T* src = q + t * a.qss + g * a.qsh + dc;
+    for (int d = lane; d < w4; d += 32)
+      Qs[r * pitch + d] = (row < nrows && d < w) ? att_in<T>(src[d]) * a.scale : 0.0f;
+  }
+}
+
+// s[i][j] += q(row tr + 16 i) . k(key tc + 16 j) over d in [0, d4), one
+// fmaf chain per score in index order, from float4 loads of 4 d's.
+template <int TN>
+__device__ __forceinline__ void fa_scores(float (&s)[4][TN], const float* Qs,
+                                          int qp, const float* Ks, int kp,
+                                          int d4, int tr, int tc) {
+#pragma unroll 2
+  for (int d = 0; d < d4; d += 4) {
+    float4 qa[4], kb[TN];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 4; ++i)
+      qa[i] = *reinterpret_cast<const float4*>(Qs + (tr + 16 * i) * qp + d);
 #pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.0f;
-
-  const int last_row = min(r0 + FA_ROWS, nrows) - 1;
-  const int kend = a.causal ? min(a.Sk, last_row / G + 1) : a.Sk;
-  __syncthreads();
-
-  for (int j0 = 0; j0 < kend; j0 += BK) {
-    const int nk = min(BK, a.Sk - j0);
-    att_load_rows<T>(k + j0 * a.kss, a.kss, nk, dh, a.vec,
-                     [&](int c, int d, float x) { Ks[d * LK + c] = x; });
-    att_load_rows<T>(v + j0 * a.vss, a.vss, nk, dh, a.vec,
-                     [&](int c, int d, float x) { Vs[c * DHP + d] = x; });
-    __syncthreads();
-
-    // scores of rows rg + 16 i against keys cg + 16 j, masked
-    float s[4][NJ];
+    for (int j = 0; j < TN; ++j)
+      kb[j] = *reinterpret_cast<const float4*>(Ks + (tc + 16 * j) * kp + d);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) s[i][j] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < dh; ++d) {
-      float qv[4], kv[NJ];
+      for (int j = 0; j < TN; ++j) {
+        s[i][j] = fmaf(qa[i].x, kb[j].x, s[i][j]);
+        s[i][j] = fmaf(qa[i].y, kb[j].y, s[i][j]);
+        s[i][j] = fmaf(qa[i].z, kb[j].z, s[i][j]);
+        s[i][j] = fmaf(qa[i].w, kb[j].w, s[i][j]);
+      }
+  }
+}
+
+__device__ __forceinline__ float fa_at(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+template <typename T, int DHP, int BN, bool WIDE>
+__global__ void __launch_bounds__(FA_THREADS, 1)
+fa_kernel(FaArgs a) {
+  using S = FaShape<DHP, BN>;
+  constexpr int TN = BN / 16, NH = DHP / 64;      // keys, float4 columns a thread
+  constexpr bool CP = !WIDE && sizeof(T) == 4;    // cp.async where a.vec
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;                               // [FA_ROWS][QP] scaled q
+  float* Ks = Qs + S::Q;                          // [2][BN][KP]
+  float* Vs = Ks + 2 * S::K;                      // [2][BN][VP]
+  float* Ps = Vs + 2 * S::V;                      // [FA_ROWS][PP] p
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int tr = (tid >> 5) * 2 + (lane >> 4), tc = lane & 15;
+  const int G = a.H / a.KV, nrows = a.Sq * G, dh = a.dh;
+  const int nt = (nrows + FA_ROWS - 1) / FA_ROWS;
+  const int ncz = WIDE ? (dh + FA_WIDE - 1) / FA_WIDE : 1;
+  const int nbkv = a.B * a.KV;
+  const int cz = blockIdx.x % ncz, rest = blockIdx.x / ncz;
+  const int bkv = rest % nbkv, rank = rest / nbkv;   // heaviest first
+  const int r0 = (nt - 1 - rank) * FA_ROWS;
+  const int b = bkv / a.KV, kvh = bkv - b * a.KV;
+  const int c0 = cz * FA_WIDE, wc = WIDE ? min(FA_WIDE, dh - c0) : dh;
+  const int dh4 = (dh + 3) & ~3;
+  const bool cp = CP && a.vec && dh == DHP;
+  const T* q = static_cast<const T*>(a.q) + b * a.qsb + (long long)kvh * G * a.qsh;
+  const T* k = static_cast<const T*>(a.k) + b * a.ksb + kvh * a.ksh;
+  const T* v = static_cast<const T*>(a.v) + b * a.vsb + kvh * a.vsh + c0;
+  T* o = static_cast<T*>(a.o);
+
+  // Stage key tile j0 into ring slot buf (the whole tile for !WIDE; v only
+  // for WIDE, whose k goes by chunks of d).
+  auto stage = [&](int buf, int j0) {
+    const int nk = min(BN, a.Sk - j0);
+    float* kd = Ks + buf * S::K;
+    float* vd = Vs + buf * S::V;
+    if (WIDE) {
+      fa_fill<T>(vd, S::VP, v + j0 * a.vss, a.vss, nk, BN, wc);
+    } else if (cp) {
+      fa_copy<DHP / 4>(kd, S::KP, reinterpret_cast<const float*>(k) + j0 * a.kss,
+                       a.kss, nk, BN);
+      fa_copy<DHP / 4>(vd, S::VP, reinterpret_cast<const float*>(v) + j0 * a.vss,
+                       a.vss, nk, BN);
+      hp_cp_commit();
+    } else {
+      fa_fill<T>(kd, S::KP, k + j0 * a.kss, a.kss, nk, BN, dh);
+      fa_fill<T>(vd, S::VP, v + j0 * a.vss, a.vss, nk, BN, dh);
+    }
+  };
+
+  const int last_row = min(r0 + FA_ROWS, nrows) - 1;
+  const int kend = a.causal ? min(a.Sk, last_row / G + 1) : a.Sk;
+  const int nkt = (kend + BN - 1) / BN;
+  int tok[4];
+  float m[4], l[4], acc[4][NH][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[d * LQ + rg + 16 * i];
+  for (int i = 0; i < 4; ++i) {
+    tok[i] = (r0 + tr + 16 * i) / G;
+    m[i] = ATT_NEG;
+    l[i] = 0.0f;
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) kv[j] = Ks[d * LK + cg + 16 * j];
+    for (int h = 0; h < NH; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][h][e] = 0.0f;
+  }
+  if (!WIDE) {
+    fa_fill_q<T>(Qs, S::QP, q, a, G, r0, 0, dh);
+    stage(0, 0);
+  }
+
+  for (int jt = 0; jt < nkt; ++jt) {
+    const int j0 = jt * BN, nk = min(BN, a.Sk - j0);
+    const int buf = WIDE ? 0 : jt & 1;
+    float s[4][TN];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) s[i][j] = 0.0f;
+    if (WIDE) {
+      // full-dh scores from chunks of q and k, then this block's v columns
+      for (int dc = 0; dc < dh; dc += FA_WIDE) {
+        const int w = min(FA_WIDE, dh - dc);
+        __syncthreads();
+        fa_fill_q<T>(Qs, S::QP, q, a, G, r0, dc, w);
+        fa_fill<T>(Ks, S::KP, k + j0 * a.kss + dc, a.kss, nk, BN, w);
+        __syncthreads();
+        fa_scores<TN>(s, Qs, S::QP, Ks, S::KP, (w + 3) & ~3, tr, tc);
+      }
+      stage(0, j0);
+      __syncthreads();
+    } else {
+      if (jt + 1 < nkt) {
+        stage(buf ^ 1, j0 + BN);
+        if (cp) hp_cp_wait<1>();
+      } else if (cp) {
+        hp_cp_wait<0>();
+      }
+      __syncthreads();
+      fa_scores<TN>(s, Qs, S::QP, Ks + buf * S::K, S::KP, dh4, tr, tc);
+    }
+
+    // mask, then the online softmax of each row in registers: its 16
+    // owners (one half-warp) reduce the max and the sum by shuffles
+    float mx[4], sum[4], alpha[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      mx[i] = ATT_NEG;
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int c = tc + 16 * j, key = j0 + c;
+        const bool ok = c < nk && (!a.causal || key <= tok[i]);
+        s[i][j] = ok ? s[i][j] : ATT_NEG;
+        mx[i] = fmaxf(mx[i], s[i][j]);
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 16; off <<= 1)
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = rg + 16 * i, tok = (r0 + r) / G;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int c = cg + 16 * j, key = j0 + c;
-        const bool ok = c < nk && (!a.causal || key <= tok);
-        Ps[r * LP + c] = ok ? s[i][j] : ATT_NEG;
-      }
-    }
-    __syncthreads();
-
-    // online softmax, four threads per row
-    {
-      const int r = tid / 4, part = tid % 4;
-      float mx = ATT_NEG;
-      for (int c = part; c < BK; c += 4) mx = fmaxf(mx, Ps[r * LP + c]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_prev = Ms[r];
-      const float m_new = fmaxf(m_prev, mx);
-      const float alpha = expf(m_prev - m_new);
-      float sum = 0.0f;
-      for (int c = part; c < BK; c += 4) {
-        const float p = expf(Ps[r * LP + c] - m_new);
-        sum += p;
-        Ps[r * LP + c] = a.round_p ? att_round<T>(p) : p;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      if (part == 0) {
-        Ms[r] = m_new;
-        Ls[r] = Ls[r] * alpha + sum;
-        As[r] = alpha;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + p . v over this tile's keys
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], off));
+    float* P = Ps + tr * S::PP;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const float al = As[rg + 16 * i];
+      const float m_new = fmaxf(m[i], mx[i]);
+      alpha[i] = expf(m[i] - m_new);
+      m[i] = m_new;
+      sum[i] = 0.0f;
 #pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= al;
-    }
-    for (int j = 0; j < nk; ++j) {
-      float pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(rg + 16 * i) * LP + j];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const float vv = Vs[j * DHP + cg + 16 * c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
+      for (int j = 0; j < TN; ++j) {
+        const float p = expf(s[i][j] - m_new);
+        sum[i] += p;
+        P[16 * i * S::PP + tc + 16 * j] = a.round_p ? att_round<T>(p) : p;
       }
     }
-    __syncthreads();
+#pragma unroll
+    for (int off = 1; off < 16; off <<= 1)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], off);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      l[i] = l[i] * alpha[i] + sum[i];
+#pragma unroll
+      for (int h = 0; h < NH; ++h)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][h][e] *= alpha[i];
+    }
+    __syncwarp();
+
+    // acc += p . v over this tile's keys, in key order (p and v are 0
+    // past the keys)
+    const float* Vt = Vs + buf * S::V + 4 * tc;
+    const int nk4 = (nk + 3) & ~3;
+#pragma unroll 2
+    for (int j = 0; j < nk4; j += 4) {
+      float4 pa[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pa[i] = *reinterpret_cast<const float4*>(P + 16 * i * S::PP + j);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float4 vb[NH];
+#pragma unroll
+        for (int h = 0; h < NH; ++h)
+          vb[h] = *reinterpret_cast<const float4*>(Vt + (j + e) * S::VP + 64 * h);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float pe = fa_at(pa[i], e);
+#pragma unroll
+          for (int h = 0; h < NH; ++h) {
+            acc[i][h][0] = fmaf(pe, vb[h].x, acc[i][h][0]);
+            acc[i][h][1] = fmaf(pe, vb[h].y, acc[i][h][1]);
+            acc[i][h][2] = fmaf(pe, vb[h].z, acc[i][h][2]);
+            acc[i][h][3] = fmaf(pe, vb[h].w, acc[i][h][3]);
+          }
+        }
+      }
+    }
+    __syncthreads();     // the ring slot, q (WIDE) and p are free again
   }
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int r = rg + 16 * i, row = r0 + r;
+    const int row = r0 + tr + 16 * i;
     if (row >= nrows) continue;
-    const int t = row / G, g = row % G;
-    const float l = fmaxf(Ls[r], 1e-30f);
-    T* dst = o + (((long long)b * a.Sq + t) * a.H + kvh * G + g) * dh;
+    const int t = row / G, g = row - t * G;
+    const float den = fmaxf(l[i], 1e-30f);
+    T* dst = o + (((long long)b * a.Sq + t) * a.H + kvh * G + g) * dh + c0;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = cg + 16 * c;
-      if (col < dh) dst[col] = att_out<T>(acc[i][c] / l);
-    }
+    for (int h = 0; h < NH; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 64 * h + 4 * tc + e;
+        if (col < wc) dst[col] = att_out<T>(acc[i][h][e] / den);
+      }
   }
 }
 
-template <typename T, int DHP, int BK>
+template <typename T, int DHP, int BN, bool WIDE>
 static int fa_run(const FaArgs& a, cudaStream_t s) {
-  const int smem = fa_smem_floats<DHP, BK>() * (int)sizeof(float);
+  const int smem = FaShape<DHP, BN>::FLOATS * (int)sizeof(float);
   static int granted[HP_MAX_DEVICES] = {0};
-  const int e = hp_grant_smem((const void*)fa_kernel<T, DHP, BK>, smem, granted);
+  const int e = hp_grant_smem((const void*)fa_kernel<T, DHP, BN, WIDE>, smem, granted);
   if (e) return e;
-  const int G = a.H / a.KV;
-  dim3 grid((a.Sq * G + FA_ROWS - 1) / FA_ROWS, a.B * a.KV);
-  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-  fa_kernel<T, DHP, BK><<<grid, FA_THREADS, smem, s>>>(a);
+  const long long nt = ((long long)a.Sq * (a.H / a.KV) + FA_ROWS - 1) / FA_ROWS;
+  const long long ncz = WIDE ? (a.dh + FA_WIDE - 1) / FA_WIDE : 1;
+  const long long blocks = nt * a.B * a.KV * ncz;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  fa_kernel<T, DHP, BN, WIDE><<<(unsigned)blocks, FA_THREADS, smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 static int fa_dispatch(const FaArgs& a, cudaStream_t s) {
-  if (a.dh <= 64) return fa_run<T, 64, 64>(a, s);
-  if (a.dh <= 128) return fa_run<T, 128, 64>(a, s);
-  if (a.dh <= 256) return fa_run<T, 256, 32>(a, s);
-  return (int)cudaErrorInvalidValue;
+  if (a.dh <= 64) return fa_run<T, 64, 64, false>(a, s);
+  if (a.dh <= 128) return fa_run<T, 128, 64, false>(a, s);
+  if (a.dh <= 256) return fa_run<T, 256, 32, false>(a, s);
+  return fa_run<T, 256, 32, true>(a, s);
 }
 
 // Strides in elements; the last axis of q, k and v is contiguous.  dtype 0 =
 // float32, 1 = bfloat16 (q, k, v and out alike); vec = 1 when every row of
-// k and v starts on a 16-byte boundary and dh fills whole 16-byte words.
+// k and v starts on a 16-byte boundary and dh fills whole 16-byte words
+// (float32 then stages k and v by cp.async).
 // Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int fa_launch(const void* q, const void* k, const void* v, void* o,
                          int B, int Sq, int Sk, int H, int KV, int dh,

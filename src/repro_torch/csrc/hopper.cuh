@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the kernels of csrc/: cp.async
-// copies (gemv.cu, spmv.cu, decode_attention.cu), mbarriers, TMA tile loads,
+// copies (gemv.cu, spmv.cu, decode_attention.cu, flash_attention.cu),
+// mbarriers, TMA tile loads and 1-D bulk copies (megakernel.cu),
 // the wgmma shared-memory descriptor for the 128-byte swizzle, the wgmma
 // fences, the m64nNk16 bf16 -> fp32 instructions (A from shared memory or
 // from registers), the encoding of a CUtensorMap on the host, and the
@@ -104,6 +105,16 @@ __device__ __forceinline__ void hp_fence_async_smem() {
 }
 
 // ------------------------------------------------------------ TMA loads
+// One contiguous copy of `bytes` (a multiple of 16; both addresses on 16
+// bytes) from global to shared memory, completed on `bar` like a TMA load.
+__device__ __forceinline__ void hp_bulk_load(void* dst, const void* src,
+                                             uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(hp_smem(dst)), "l"(src), "r"(bytes), "r"(hp_smem(bar)) : "memory");
+}
+
 __device__ __forceinline__ void hp_tma_2d(void* dst, const CUtensorMap* map,
                                           uint64_t* bar, int c0, int c1) {
   asm volatile(

@@ -14,8 +14,12 @@ sequence over blocks and merges the splits in a second pass;
 (with its combine pass, where there is one).
 
 ``cache_len`` must lie in [1, S].  Given on the host (a CPU tensor, numpy
-array or sequence), it is checked there and copied to the card without a
-synchronisation; given on the card, checking it costs one.  ``round_p``
+array or sequence), it is checked there and copied to the card once.  Given
+on the card, it is not read back: the call makes no synchronisation and can
+be captured in a CUDA graph, and checking the lengths is the caller's job,
+as for the reference's ``decode_attention``.  The kernel clamps each length
+into [0, S], so a bad one never reads outside the cache; a length of 0
+gives a zero row.  ``round_p``
 (default True, what the TPU kernel does) rounds the probabilities to v's
 dtype before P·V; False keeps them fp32, as the model's ``gqa_decode`` does.
 """
@@ -34,9 +38,12 @@ from repro_torch.kernels.ref import decode_attention_ref
 __all__ = ["decode_attention", "plan_decode", "DecodePlan"]
 
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
-# csrc/decode_attention.cu: keys per staged tile, its largest block and
-# head width (at most 139 KB of shared memory a block, in float32).
-DA_TILE, DA_MAX_WARPS, DA_MAX_DH = 32, 16, 256
+# csrc/decode_attention.cu: keys per staged tile, its largest block (64
+# query rows), the widest head of the served segments per lane and, with
+# twice as many, the widest head it takes; the shared memory a block can have.
+DA_TILE, DA_MAX_WARPS, DA_MAX_DH, DA_WIDE_DH = 32, 16, 256, 512
+DA_GROUP = 4 * DA_MAX_WARPS
+SMEM_PER_BLOCK = 232448
 H100_SMS = 132
 
 
@@ -49,12 +56,19 @@ class DecodePlan:
     """How ``csrc/decode_attention.cu`` runs one call: ``splits`` blocks
     per (b, KV head), block s taking keys ``[s * chunk, (s + 1) * chunk)``
     below the sequence's length, ``warps`` warps of ``rows`` query rows
-    each; a second pass merges the splits when there are more than one."""
+    each, over ``groups`` blocks of at most 64 query rows of a KV head (more
+    than one only for G > 64); a second pass merges the splits when there
+    are more than one."""
 
     chunk: int
     splits: int
     warps: int
     rows: int
+    groups: int = 1
+
+    def group_rows(self, G: int) -> int:
+        """Query rows of a KV head per block."""
+        return _cdiv(G, self.groups)
 
     def live_splits(self, length: int) -> int:
         """The splits that hold keys of a sequence of ``length`` keys: the
@@ -71,38 +85,48 @@ def plan_decode(B: int, KV: int, G: int, S: int, dh: int, dtype: torch.dtype,
     to a quarter of S would still give every SM about one block with keys
     (B * KV * S / (4 * chunk) >= sms after doubling); so qwen2.5-3b's decode
     (B 8, KV 2, S 2048) takes 32-key chunks, 64 splits.  Four warps share
-    the G query rows, one, two or four each; beyond 16 rows, more warps of
-    four.  Raises for shapes the kernel does not take (G > 64, dh > 256)."""
+    the query rows of a block, one, two or four each; beyond 16 rows, more
+    warps of four.  G > 64 takes ``groups`` blocks of at most 64 rows each,
+    balanced.  dh up to 512 is taken while two staged tiles of k and v fit
+    in a block's shared memory (float32: dh <= 438 to 452, by G); beyond
+    that it raises."""
     if dtype not in _DTYPE:
         raise TypeError(f"decode_attention: dtype {dtype} (float32 or bfloat16)")
-    rows = next(r for r in (1, 2, 4) if r == 4 or 4 * r >= G)
-    warps = max(4, _cdiv(G, rows))
-    if warps > DA_MAX_WARPS or not 1 <= dh <= DA_MAX_DH:
-        raise ValueError(f"decode_attention: G = {G}, dh = {dh} not taken "
-                         f"(G <= {4 * DA_MAX_WARPS}, dh <= {DA_MAX_DH})")
+    groups = _cdiv(G, DA_GROUP)
+    gsz = _cdiv(G, groups)
+    rows = next(r for r in (1, 2, 4) if r == 4 or 4 * r >= gsz)
+    warps = max(4, _cdiv(gsz, rows))
+    item = 4 if dtype == torch.float32 else 2
+    pitch = _cdiv(dh, 16 // item) * (16 // item)
+    smem = 4 * DA_TILE * pitch * item + warps * rows * DA_TILE * 4
+    if not 1 <= dh <= DA_WIDE_DH or smem > SMEM_PER_BLOCK:
+        raise ValueError(f"decode_attention: dh = {dh} not taken in {dtype} "
+                         f"(dh <= {DA_WIDE_DH} and {smem} bytes of shared "
+                         f"memory <= {SMEM_PER_BLOCK})")
     chunk = DA_TILE
     while chunk < S and B * KV * S >= 4 * sms * 2 * chunk:
         chunk *= 2
-    return DecodePlan(chunk, _cdiv(S, chunk), warps, rows)
+    return DecodePlan(chunk, _cdiv(S, chunk), warps, rows, groups)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.da_launch.argtypes = ([vp] * 6 + [ci] * 5 + [cl] * 8 + [ctypes.c_float]
-                              + [ci] * 7 + [vp])
+                              + [ci] * 8 + [vp])
     lib.da_launch.restype = ci
 
 
 def _lengths(cache_len, B: int, S: int) -> torch.Tensor:
-    """``cache_len`` as an int32 tensor of B lengths, each checked to lie
-    in [1, S]; on the device it was given on (the host for a sequence)."""
+    """``cache_len`` as an int32 tensor of B lengths, on the device it was
+    given on (the host for a sequence).  Lengths on the host are checked to
+    lie in [1, S]; lengths on the card are not read back."""
     lens = (cache_len if torch.is_tensor(cache_len)
             else torch.as_tensor(np.asarray(cache_len)))
     if lens.shape != (B,):
         raise ValueError(f"decode_attention: cache_len of shape "
                          f"{tuple(lens.shape)}, expected ({B},)")
     lens = lens.to(torch.int32).contiguous()
-    if B and bool(((lens < 1) | (lens > S)).any()):
+    if lens.device.type == "cpu" and B and bool(((lens < 1) | (lens > S)).any()):
         raise ValueError(f"decode_attention: cache_len must lie in [1, {S}], "
                          f"got {lens.tolist()}")
     return lens
@@ -152,7 +176,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                         q.stride(0), q.stride(1), *k_cache.stride()[:3],
                         *v_cache.stride()[:3], dh ** -0.5, int(round_p),
                         int(vec), _DTYPE[q.dtype], plan.chunk, plan.splits,
-                        plan.warps, plan.rows,
+                        plan.warps, plan.rows, plan.group_rows(H // KV),
                         torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("decode_attention", err)
     return out

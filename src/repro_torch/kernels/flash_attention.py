@@ -8,8 +8,11 @@ on CUDA tensors a hand-written kernel of ``csrc/flash_attention.cu`` or it
 raises.  :func:`flash_route` picks the kernel: bfloat16 runs on the tensor
 cores (``fa_tc_kernel``: wgmma, TMA) wherever the shapes allow it, float32
 and the other bfloat16 shapes on the CUDA cores (``fa_kernel``; TF32 would
-break the parity contract).  Both read q, k and v in this layout through
-their strides, so a strided view needs no copy.
+break the parity contract), with the tiling :func:`plan_flash_simt` states
+(the kernel computes the same from the shapes).
+Both read q, k and v in this layout through their strides, so a strided
+view needs no copy.  Any dh is taken: above 256 the CUDA-core kernel splits
+the output columns over blocks.
 ``LAUNCHES["flash_attention_wgmma"]`` and ``LAUNCHES["flash_attention"]``
 count the two kernels' launches.
 
@@ -24,16 +27,60 @@ only, and keeps an fp32 p as three bf16 terms (hi + mid + lo: all 24 bits).
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
 from repro_torch.kernels.build import check_launch, load
 from repro_torch.kernels.ref import flash_attention_ref
 
-__all__ = ["flash_attention_fused", "flash_route"]
+__all__ = ["flash_attention_fused", "flash_route", "plan_flash_simt",
+           "FlashSimtPlan"]
 
-MAX_DH = 256
+MAX_DH = 256          # the widest head the tensor-core kernel takes
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
+# csrc/flash_attention.cu, fa_kernel: (token, g) rows of a tile (4 a thread
+# over 256 threads), output columns of a block when dh > 256.
+SIMT_ROWS, SIMT_WIDE = 64, 256
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclass(frozen=True)
+class FlashSimtPlan:
+    """How ``fa_kernel`` runs one call: ``dhp`` columns of q, k and v in
+    shared memory (dh padded to 64, 128 or 256), key tiles of ``keys``,
+    ``tiles`` tiles of ``SIMT_ROWS`` (token, g) rows per (b, KV head), each
+    split over ``col_chunks`` blocks of output columns (dh > 256, ``wide``),
+    ``blocks`` in all, the heaviest causal tiles first, ``smem`` bytes of
+    shared memory each (one block per SM)."""
+
+    dhp: int
+    keys: int
+    wide: bool
+    col_chunks: int
+    tiles: int
+    blocks: int
+    smem: int
+
+
+def plan_flash_simt(B: int, Sq: int, H: int, KV: int, dh: int) -> FlashSimtPlan:
+    """``fa_kernel``'s tiling for q (B, Sq, H, dh) over KV heads, from the
+    shapes alone: qwen2.5-3b's 1,024-token prefill (H 16, KV 2) runs 256
+    blocks of 64 (token, g) rows, one an SM at a time."""
+    if dh < 1 or KV < 1 or H % KV:
+        raise ValueError(f"flash_attention: H {H}, KV {KV}, dh {dh}")
+    dhp = 64 if dh <= 64 else 128 if dh <= 128 else 256
+    keys = 64 if dhp <= 128 else 32
+    wide = dh > SIMT_WIDE
+    col_chunks = _cdiv(dh, SIMT_WIDE) if wide else 1
+    tiles = _cdiv(Sq * (H // KV), SIMT_ROWS)
+    floats = (SIMT_ROWS * (dhp + 4) + 2 * keys * (dhp + 4) + 2 * keys * dhp
+              + SIMT_ROWS * (keys + 4))
+    return FlashSimtPlan(dhp, keys, wide, col_chunks, tiles,
+                         B * KV * col_chunks * tiles, 4 * floats)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -100,8 +147,6 @@ def flash_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "be contiguous")
     B, Sq, H, dh = q.shape
     Sk, KV = k.shape[1], k.shape[2]
-    if dh > MAX_DH:
-        raise ValueError(f"flash_attention: dh {dh} > {MAX_DH}")
     out = torch.empty((B, Sq, H, dh), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out

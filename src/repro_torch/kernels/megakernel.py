@@ -13,8 +13,8 @@ compile time by ``_pass_linearize``):
 
     ==============  ==========================================================
     ``LOAD_VEC``    ``reg[dst] ← consts[ci]`` or ``reg[dst] ← inputs[ii]``
-    ``LOAD_MAT``    no-op on the card: matrices are read from global memory
-                    (L2-resident); kept in the stream for its schedule
+    ``LOAD_MAT``    start the copy of a matrix into one of two shared-memory
+                    buffers (a bulk copy on the card); its MATVEC waits
     ``MATVEC``      ``reg[dst] ← W @ reg[src0]`` (+ static bias)
     ``SPMV``        same compute on a sparse (dense-with-zeros) operand
     ``ELEMENTWISE`` one pipeline stage (float or ``q_*`` vocabulary of
@@ -180,7 +180,7 @@ def _seg_out_dtypes(seg: MegakernelSegment) -> list[torch.dtype]:
 def _declare(lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     pvp, pci = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
-    lib.mk_launch.argtypes = [vp, vp, ci, vp, vp, ci, ci, ci, ci,
+    lib.mk_launch.argtypes = [vp, vp, ci, vp, vp, ci, ci, ci, ci, ci, ci, ci,
                               pvp, pci, pci, ci, pvp, pci, pci, ci,
                               ci, ci, vp]
     lib.mk_launch.restype = ci
@@ -192,12 +192,20 @@ def _lib() -> ctypes.CDLL:
 
 
 # -------------------------------------------------------------------- pack
-_NI, _NF = 12, 4
+_NI, _NF = 16, 4
 _OPC = {"LOAD_IN": 0, "LOAD_CONST": 1, "MATVEC": 2, "SPMV": 2, "REQ_T": 3,
         "REQ_ROWS": 4, "ARGMAX": 5, "REDUCE": 6, "SQL2": 7, "DOT": 8,
-        "ELEMENTWISE": 9, "STORE": 10}
+        "ELEMENTWISE": 9, "STORE": 10, "LOAD_MAT": 11}
 _REDUCE = {"sum": 0, "max": 1, "min": 2}
 _THREADS = 256
+# f[12] flags of csrc/megakernel.cu: a barrier before the instruction; a
+# MATVEC/SQL2 that writes its destination directly; a matrix streamed in
+# chunks of columns through its buffer's two halves.
+MK_SYNC, MK_DIRECT, MK_STREAM = 1, 2, 4
+_MAXR = 4                         # rows a thread keeps over a streamed matrix
+# the dynamic shared memory a block can have, beside the kernel's 32 bytes
+# of mbarriers
+SMEM_WORDS = (232448 - 64) // 4
 
 
 @dataclasses.dataclass
@@ -210,6 +218,9 @@ class _Pack:
     mats: torch.Tensor                   # 32-bit words
     n_instr: int
     scratch_off: int
+    buf_off: int
+    bufw: int
+    table_words: int
     smem_words: int
     in_widths: tuple[int, ...]
     out_dtypes: tuple[torch.dtype, ...]
@@ -225,32 +236,158 @@ def _words(arrs: list[np.ndarray]) -> tuple[np.ndarray, list[int]]:
     return (flat if flat.size else np.zeros(1, np.int32)), offs
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _pitch(k: int) -> int:
+    """Words of a packed matrix row of k values: k rounded up to 16 bytes,
+    and for k >= 64 an odd number of 16-byte words, so that the 16-byte
+    loads of 8 consecutive rows at one column fall in distinct banks (a
+    short row keeps its size: two-way conflicts cost less than a matrix
+    that no longer fits its buffer)."""
+    p = _cdiv(k, 4) * 4
+    return p + 4 if p >= 64 and (p // 4) % 2 == 0 else p
+
+
+def _mat_layout(seg: MegakernelSegment) -> dict[int, tuple[int, int, bool]]:
+    """Matrix index → (n, k, transposed) as the kernel reads it: one row of
+    k values per output; MATVEC/SPMV weights (m, k) as they are, SQL2
+    points (d, m) transposed."""
+    out: dict[int, tuple[int, int, bool]] = {}
+    for ins in seg.instrs:
+        if ins.op in ("MATVEC", "SPMV"):
+            m, k = np.shape(seg.matrices[ins.operand[0]])
+            out.setdefault(ins.operand[0], (m, k, False))
+        elif ins.op == "SQL2":
+            d, m = np.shape(seg.matrices[ins.operand[0]])
+            out.setdefault(ins.operand[0], (m, d, True))
+    return out
+
+
+class _Hazards:
+    """Which instructions need a barrier before them.  Every word of the
+    register file (and one pseudo-word per matrix buffer) remembers the
+    thread that wrote it and the threads that read it since the last
+    barrier (-1 none, -2 several); an access by another thread needs one.
+    Element i of an aligned access belongs to thread i % threads, of a
+    "lane32" one to thread i % 32."""
+
+    def __init__(self, words: int, threads: int) -> None:
+        self.writer = np.full(words, -1, np.int64)
+        self.readers = np.full(words, -1, np.int64)
+        self.nt = threads
+
+    def clear(self) -> None:
+        self.writer[:] = -1
+        self.readers[:] = -1
+
+    def _threads(self, n: int, mode: str) -> np.ndarray:
+        if mode in ("aligned", "lane32"):
+            return np.arange(n) % (self.nt if mode == "aligned" else 32)
+        return np.full(n, 0 if mode == "single" else -2)
+
+    def conflict(self, reads, writes) -> bool:
+        for off, n, mode in reads:
+            th, w = self._threads(n, mode), self.writer[off:off + n]
+            if ((w != -1) & ~((w == th) & (th >= 0))).any():
+                return True
+        for off, n, mode in writes:
+            th = self._threads(n, mode)
+            w, r = self.writer[off:off + n], self.readers[off:off + n]
+            if ((w != -1) & ~((w == th) & (th >= 0))).any():
+                return True
+            if ((r != -1) & ~((r == th) & (th >= 0))).any():
+                return True
+        return False
+
+    def apply(self, reads, writes) -> None:
+        for off, n, mode in reads:
+            th, r = self._threads(n, mode), self.readers[off:off + n]
+            self.readers[off:off + n] = np.where((r == -1) | (r == th), th, -2)
+        for off, n, mode in writes:
+            self.writer[off:off + n] = self._threads(n, mode)
+
+
 def pack_segment(seg: MegakernelSegment) -> dict[str, Any]:
     """Host-side packing of ``seg`` into the kernel's int32 instruction
-    table, float side-table and 32-bit const/matrix pools (numpy)."""
+    table, float side-table and 32-bit const/matrix pools (numpy), with
+    the matrix buffers' sizes, each ``LOAD_MAT``'s buffer and each
+    instruction's flags."""
     carrier = np.int32 if seg.quantized else np.float32
-    slot_off = np.concatenate([[0], np.cumsum(seg.slot_widths, dtype=np.int64)])
+    # every slot on 16 bytes, so that a row's chain loads 4 of its inputs at once
+    padded_widths = [_cdiv(w, 4) * 4 for w in seg.slot_widths]
+    slot_off = np.concatenate([[0], np.cumsum(padded_widths, dtype=np.int64)])
     widths = seg.slot_widths
     consts = [np.asarray(c, carrier).reshape(-1) for c in seg.consts]
     cwords, coff = _words(consts)
-    mats: list[np.ndarray] = []
-    moff: dict[tuple[int, bool], int] = {}
-    mat_words = 0
 
-    def mat(mi: int, transposed: bool, dtype) -> int:
-        nonlocal mat_words
-        key = (mi, transposed)
-        if key not in moff:
-            a = np.asarray(seg.matrices[mi], dtype)
-            a = np.ascontiguousarray(a.T if transposed else a)
-            moff[key] = mat_words
-            mats.append(a)
-            mat_words += a.size
-        return moff[key]
+    # matrices row-major (one row of k values per output, SQL2 points
+    # transposed to one row per point), rows padded by _pitch with zeros
+    layout = _mat_layout(seg)
+
+    def pitch_of(mi: int) -> int:
+        return _pitch(layout[mi][1])
+
+    def words_of(mi: int) -> int:
+        return layout[mi][0] * pitch_of(mi)
+
+    total = int(slot_off[-1])
+    scratch = max([1] + [layout[ins.operand[0]][0] for ins in seg.instrs
+                         if ins.op in ("MATVEC", "SPMV", "SQL2")])
+    buf_off = _cdiv(total + scratch, 4) * 4
+    loaded = {ins.operand for ins in seg.instrs
+              if ins.op == "LOAD_MAT" and ins.operand in layout}
+    table_words = _cdiv(len(seg.instrs) * (_NI + _NF), 4) * 4   # at most
+    cap = (SMEM_WORDS - table_words - buf_off) // 2 // 8 * 8
+    need = max([0] + [words_of(mi) for mi in loaded])
+    bufw = max(0, min(cap, _cdiv(need, 8) * 8)) if loaded else 0
+
+    def chunk(mi: int) -> int:
+        """Columns of a streamed matrix's chunk: a multiple of 4 whose rows
+        fit half a buffer (0: none)."""
+        n, k = layout[mi][:2]
+        ch = min(_cdiv(k, 4) * 4, (bufw // 2 // max(n, 1)) // 4 * 4)
+        while ch > 0 and n * _pitch(ch) > bufw // 2:
+            ch -= 4
+        return ch
+
+    def placement(mi: int) -> str:
+        if words_of(mi) <= bufw:
+            return "whole"
+        if chunk(mi) > 0 and layout[mi][0] <= _MAXR * _THREADS:
+            return "stream"
+        return "global"
+
+    # each matrix on 16 bytes; a streamed one as its chunks, one after the
+    # other, each laid out as it sits in its half buffer (one copy a chunk)
+    mats: list[np.ndarray] = []
+    moff: dict[int, int] = {}
+    mat_words = 0
+    for mi, (n, k, transposed) in sorted(layout.items()):
+        a = np.asarray(seg.matrices[mi], np.int32 if seg.quantized and not transposed
+                       else np.float32)
+        a = a.T if transposed else a
+        if mi in loaded and placement(mi) == "stream":
+            ch = chunk(mi)
+            packed = np.zeros((_cdiv(k, ch), n, _pitch(ch)), a.dtype)
+            for c in range(packed.shape[0]):
+                cols = a[:, c * ch:(c + 1) * ch]
+                packed[c, :, :cols.shape[1]] = cols
+        else:
+            packed = np.zeros((n, _pitch(k)), a.dtype)
+            packed[:, :k] = a
+        moff[mi] = mat_words
+        mats.append(packed)
+        mat_words += packed.size
 
     rows, frows = [], []
-    scratch = 1
     in_w: dict[int, int] = {}
+    phases = {(b, h): 0 for b in (0, 1) for h in (0, 1)}   # copies per mbarrier
+    pending: dict[int, tuple[int, int]] = {}   # mi → (buffer, its parity)
+    n_loads = 0
+    haz = _Hazards(buf_off + 2, _THREADS)
+    bufword = lambda b: buf_off + b              # noqa: E731 — pseudo-words
     for ins in seg.instrs:
         f = [0] * _NI
         g = [0.0] * _NF
@@ -260,9 +397,23 @@ def pack_segment(seg: MegakernelSegment) -> dict[str, Any]:
         f[1] = dst
         f[2] = src[0] if src else 0
         f[3] = src[1] if len(src) > 1 else 0
+        reads, writes, issue = [], [], []
+        post: list = []              # accesses after an internal barrier
         if op == "LOAD_MAT":
-            continue
-        if op == "LOAD_VEC":
+            mi = opd
+            if mi not in layout or placement(mi) == "global":
+                continue
+            b = n_loads % 2
+            if any(pb == b for pb, _ in pending.values()):
+                continue                       # its buffer is still awaited
+            n_loads += 1
+            pending[mi] = (b, phases[b, 0] & 1)
+            phases[b, 0] += 1
+            f[0], f[6], f[14] = _OPC["LOAD_MAT"], moff[mi], b
+            f[4] = (words_of(mi) if placement(mi) == "whole"       # or chunk 0
+                    else layout[mi][0] * _pitch(chunk(mi)))
+            issue.append((bufword(b), 1, "single"))
+        elif op == "LOAD_VEC":
             kind, idx = opd
             f[4] = widths[ins.dst]
             if kind == "in":
@@ -272,13 +423,41 @@ def pack_segment(seg: MegakernelSegment) -> dict[str, Any]:
                 f[0], f[7] = _OPC["LOAD_CONST"], coff[idx]
                 if consts[idx].size != widths[ins.dst]:
                     raise ValueError("const width does not match its slot")
-        elif op in ("MATVEC", "SPMV"):
-            mi, bias_ci = opd
-            m, k = np.shape(seg.matrices[mi])
-            f[0], f[4], f[5] = _OPC[op], m, k
-            f[6] = mat(mi, True, np.int32 if seg.quantized else np.float32)
-            f[7] = -1 if bias_ci is None else coff[bias_ci]
-            scratch = max(scratch, m)
+            writes.append((dst, f[4], "aligned"))
+        elif op in ("MATVEC", "SPMV", "SQL2"):
+            mi = opd[0]
+            n, k, _ = layout[mi]
+            f[0], f[4], f[5] = _OPC[op], n, k
+            f[6], f[13], f[14] = moff[mi], pitch_of(mi), -1
+            if op == "SQL2":
+                _, e_in, e_out = opd
+                flags = 0
+                if e_in is not None:
+                    flags |= 1
+                    g[1] = 2.0 ** (-e_in)
+                if e_out is not None:
+                    flags |= 4
+                    g[3] = 2.0 ** e_out
+                f[9] = flags
+            else:
+                bias_ci = opd[1]
+                f[7] = -1 if bias_ci is None else coff[bias_ci]
+            if mi in pending:
+                b, par = pending.pop(mi)
+                f[14], f[15] = b, par | ((phases[b, 1] & 1) << 1)
+                reads.append((bufword(b), 1, "any"))
+                if placement(mi) == "stream":
+                    f[12] |= MK_STREAM
+                    f[10], f[11] = chunk(mi), _pitch(chunk(mi))
+                    nch = _cdiv(k, chunk(mi))
+                    phases[b, 0] += (nch - 1) // 2
+                    phases[b, 1] += nch // 2
+            reads.append((src[0], k, "any"))
+            if dst + n <= src[0] or src[0] + k <= dst:
+                f[12] |= MK_DIRECT
+                writes.append((dst, n, "aligned"))
+            else:
+                post.append((dst, n, "aligned"))
         elif op == "REQUANTIZE":
             kind, sh = opd
             f[4] = widths[ins.dst]
@@ -286,24 +465,22 @@ def pack_segment(seg: MegakernelSegment) -> dict[str, Any]:
                 f[0], f[7] = _OPC["REQ_ROWS"], coff[sh]
             else:
                 f[0], f[9] = _OPC["REQ_T"], int(sh)
+            reads.append((src[0], f[4], "aligned"))
+            writes.append((dst, f[4], "aligned"))
         elif op == "ARGMAX":
             f[0], f[5] = _OPC["ARGMAX"], widths[ins.src[0]]
-        elif op in ("REDUCE", "SQL2", "DOT"):
+            reads.append((src[0], f[5], "lane32"))
+            writes.append((dst, 1, "single"))
+        elif op in ("REDUCE", "DOT"):
             if op == "REDUCE":
                 kind, e_in, e_out = opd
                 f[0], f[5], f[8] = _OPC["REDUCE"], widths[ins.src[0]], _REDUCE[kind]
-                exps = (e_in, None)
-            elif op == "SQL2":
-                mi, e_in, e_out = opd
-                d, m = np.shape(seg.matrices[mi])
-                f[0], f[4], f[5] = _OPC["SQL2"], m, d
-                f[6] = mat(mi, False, np.float32)
-                scratch = max(scratch, m)
                 exps = (e_in, None)
             else:
                 e_a, e_b, e_out = opd
                 f[0], f[5] = _OPC["DOT"], widths[ins.src[0]]
                 exps = (e_a, e_b)
+                reads.append((src[1], f[5], "single"))
             flags = 0
             for bit, e, gi in ((1, exps[0], 1), (2, exps[1], 2)):
                 if e is not None:
@@ -313,6 +490,8 @@ def pack_segment(seg: MegakernelSegment) -> dict[str, Any]:
                 flags |= 4
                 g[3] = 2.0 ** e_out
             f[9] = flags
+            reads.append((src[0], f[5], "single"))
+            writes.append((dst, 1, "single"))
         elif op == "ELEMENTWISE":
             stage, vec_cis = opd
             name, sop = stage
@@ -343,19 +522,37 @@ def pack_segment(seg: MegakernelSegment) -> dict[str, Any]:
                 uname, e_in, e_out = sop
                 f[9] = _UNARY[uname]
                 g[1], g[3] = 2.0 ** (-e_in), 2.0 ** e_out
+            reads.append((src[0], f[4], "aligned"))
+            if name.endswith("_arr"):
+                reads.append((f[3], f[5], "aligned" if f[5] != 1 else "any"))
+            writes.append((dst, f[4], "aligned"))
         elif op == "STORE":
             f[0], f[4], f[8] = _OPC["STORE"], seg.out_widths[opd], opd
+            reads.append((src[0], f[4], "aligned"))
         else:
             raise ValueError(f"unknown megakernel op {op!r}")
+        # a LOAD_MAT's copy must not start before its buffer's last reader
+        # is done; its reader waits on the copy's mbarrier, not a barrier
+        if haz.conflict(reads, writes + issue):
+            f[12] |= MK_SYNC
+            haz.clear()
+        haz.apply(reads, [])
+        if f[12] & MK_STREAM:
+            haz.clear()                          # its trailing barrier
+        haz.apply([], writes)
+        if post:                                 # scratch, barrier, copy
+            haz.clear()
+            haz.apply([], post)
         rows.append(f)
         frows.append(g)
     mwords, _ = _words(mats)
-    total = int(slot_off[-1])
+    table_words = _cdiv(len(rows) * (_NI + _NF), 4) * 4
     return dict(
         instrs=np.asarray(rows, np.int32).reshape(-1, _NI),
         fparams=np.asarray(frows, np.float32).reshape(-1, _NF),
         consts=cwords, mats=mwords, n_instr=len(rows), scratch_off=total,
-        smem_words=total + scratch,
+        buf_off=buf_off, bufw=bufw, table_words=table_words,
+        smem_words=table_words + buf_off + 2 * bufw,
         in_widths=tuple(in_w[i] for i in range(len(seg.in_refs))))
 
 
@@ -367,6 +564,7 @@ def _packed(seg: MegakernelSegment, device: torch.device) -> _Pack:
         consts=torch.from_numpy(h["consts"]).to(device),
         mats=torch.from_numpy(h["mats"]).to(device),
         n_instr=h["n_instr"], scratch_off=h["scratch_off"],
+        buf_off=h["buf_off"], bufw=h["bufw"], table_words=h["table_words"],
         smem_words=h["smem_words"], in_widths=h["in_widths"],
         out_dtypes=tuple(_seg_out_dtypes(seg)))
 
@@ -397,7 +595,8 @@ def _launch(seg: MegakernelSegment, xs: list[torch.Tensor], nb: int,
     err = lib.mk_launch(
         pk.instrs.data_ptr(), pk.fparams.data_ptr(), pk.n_instr,
         pk.consts.data_ptr(), pk.mats.data_ptr(), int(seg.quantized),
-        int(seg.bits), pk.scratch_off, pk.smem_words,
+        int(seg.bits), pk.scratch_off, pk.buf_off, pk.bufw, pk.table_words,
+        pk.smem_words,
         arr_p(*[x.data_ptr() for x in xs]), arr_i(*[_DTYPE[x.dtype] for x in xs]),
         arr_i(*[int(x.shape[1]) for x in xs]), n_in,
         out_p(*[o.data_ptr() for o in outs]), out_i(*[_DTYPE[o.dtype] for o in outs]),

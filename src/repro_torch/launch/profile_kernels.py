@@ -1,4 +1,4 @@
-"""Time the two split kernels on the card under other plans than their own.
+"""Time kernels on the card under other plans and variants than their own.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_kernels
 
@@ -8,13 +8,23 @@ served decode step, at full caches and with every length 1, for chunks of
 32 to 2048 keys (``plan_decode`` picks 32); spmv on bonsai/curet-m's Zx
 (24 × 610) and on a 4096² weight keeping 10 % of its 128² tiles, batch 64,
 for every split count up to the tile slots (``plan_spmv`` picks by its
-wave rule).  Each line gives the device time of each kernel of a call,
-from a ``torch.profiler`` trace of 50 calls, per call.  Needs a card; it
-exits with 1 without one.
+wave rule).  The megakernel on the four served cells (bonsai/curet-m and
+protonn/curet-m, float32 and int8, a bucket of 64 and one sample) as
+packed, with every matrix read from global memory (no ``LOAD_MAT``
+buffers), and with a barrier before every instruction; and the float32
+flash kernel at qwen2.5-3b's 1,024-token prefill (B 1, H 16, KV 2, dh 128,
+causal) as it runs and with k and v staged by element loads instead of
+cp.async.  Then the megakernel's
+walk instruction by instruction: SM cycles from clock stamps in a build of
+``csrc/megakernel.cu`` that adds them (thread 0 of block 0, a bucket of
+64).  These variants say what dominates each kernel.  Each line gives the device time
+of each kernel of a call, from a ``torch.profiler`` trace of 50 calls, per
+call.  Needs a card; it exits with 1 without one.
 """
 
 from __future__ import annotations
 
+import shutil
 import subprocess
 import sys
 from unittest import mock
@@ -99,6 +109,165 @@ def profile_spmv(dev: torch.device) -> None:
                   flush=True)
 
 
+def profile_megakernel(dev: torch.device) -> None:
+    from repro_torch.kernels import build
+    from repro_torch.kernels import megakernel as mk
+    from repro_torch.serve.classical_engine import get_program
+
+    packer = mk.pack_segment
+
+    def every_barrier(seg):
+        h = packer(seg)
+        h["instrs"] = h["instrs"].copy()
+        h["instrs"][:, 12] |= mk.MK_SYNC
+        return h
+
+    def from_global(seg):
+        with mock.patch.object(mk, "SMEM_WORDS", 0):
+            return packer(seg)
+
+    for bench in ("bonsai/curet-m", "protonn/curet-m"):
+        for prec in ("float32", "int8"):
+            prog = get_program(bench, precision=prec,
+                               exec_mode="megakernel_grid", device=dev)
+            (seg,) = prog.plan.megakernel.segments
+            (name, spec), = prog.dfg.graph_inputs.items()
+            g = torch.Generator(device=dev).manual_seed(3)
+            x = torch.randn((64,) + tuple(spec.shape), generator=g, device=dev)
+            if prec != "float32":
+                from repro_torch.core.quantize import quantize_t
+                x = quantize_t(x, prog.plan.input_exps[name], prog.plan.bits)
+            x = x.reshape(64, -1).contiguous()
+            def repack():                  # drop the segment's cached pack
+                for key in [k for k in build._CACHE
+                            if k[0] == "pack" and k[1] == id(seg)]:
+                    del build._CACHE[key]
+
+            for variant, pack in (("as packed", packer),
+                                  ("matrices from global memory", from_global),
+                                  ("a barrier before every instruction",
+                                   every_barrier)):
+                for nb in (64, 1):
+                    repack()
+                    with mock.patch.object(mk, "pack_segment", pack):
+                        parts = device_parts(
+                            lambda: mk.run_segment_grid(seg, [x[:nb]]))
+                    print(f"megakernel {bench} {prec} nb={nb}, {variant}: "
+                          f"{_fmt(parts)}", flush=True)
+            repack()
+
+
+# The clock64 trace of csrc/megakernel.cu: thread 0 of block 0 stamps the
+# SM clock at the start of every instruction and after the last one.
+_TRACE_PATCHES = (
+    ("__global__ void mk_segment_kernel(",
+     "__device__ long long mk_trace[1024];\n"
+     "extern \"C\" int mk_read_trace(long long* host, int n) {\n"
+     "  return (int)cudaMemcpyFromSymbol(host, mk_trace, n * sizeof(long long));\n"
+     "}\n__global__ void mk_segment_kernel("),
+    ("    if (flags & MK_SYNC) __syncthreads();\n",
+     "    if (flags & MK_SYNC) __syncthreads();\n"
+     "    if (tid == 0 && b == 0) mk_trace[p] = clock64();\n"),
+    ("      default:\n        break;\n    }\n  }\n}",
+     "      default:\n        break;\n    }\n  }\n  __syncthreads();\n"
+     "  if (tid == 0 && b == 0) mk_trace[n_instr] = clock64();\n}"),
+)
+
+
+def profile_megakernel_trace(dev: torch.device) -> None:
+    """SM cycles of each instruction of one sample's walk (block 0 of a
+    bucket of 64), from a build of csrc/megakernel.cu with clock stamps
+    added; the kernel is otherwise the one the port runs."""
+    import ctypes
+    import tempfile
+    from pathlib import Path
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import megakernel as mk
+    from repro_torch.serve.classical_engine import get_program
+
+    src = (build.CSRC / "megakernel.cu").read_text()
+    for old, new in _TRACE_PATCHES:
+        if src.count(old) != 1:
+            raise RuntimeError(f"megakernel trace: {old!r} not found once")
+        src = src.replace(old, new)
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = Path(tempfile.mkdtemp(dir=build.BUILD_DIR)) / "mk_trace.so"
+    cu = out.with_suffix(".cu")
+    cu.write_text(src)
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                    "-O3", "-shared", "-Xcompiler", "-fPIC", "-I", str(build.CSRC),
+                    "-o", str(out), str(cu)], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(out))
+    mk._declare(lib)
+    lib.mk_read_trace.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    names = {v: k for k, v in mk._OPC.items() if k != "SPMV"}
+    saved = build._LIBS.get("megakernel")
+    build._LIBS["megakernel"] = lib
+    try:
+        for bench, prec in (("bonsai/curet-m", "float32"), ("bonsai/curet-m", "int8"),
+                            ("protonn/curet-m", "float32")):
+            prog = get_program(bench, precision=prec, exec_mode="megakernel_grid",
+                               device=dev)
+            (seg,) = prog.plan.megakernel.segments
+            (name, spec), = prog.dfg.graph_inputs.items()
+            g = torch.Generator(device=dev).manual_seed(3)
+            x = torch.randn((64,) + tuple(spec.shape), generator=g, device=dev)
+            if prec != "float32":
+                from repro_torch.core.quantize import quantize_t
+                x = quantize_t(x, prog.plan.input_exps[name], prog.plan.bits)
+            x = x.reshape(64, -1).contiguous()
+            for key in [k for k in build._CACHE if k[0] == "pack" and k[1] == id(seg)]:
+                del build._CACHE[key]
+            for _ in range(3):
+                mk.run_segment_grid(seg, [x])
+            torch.cuda.synchronize()
+            pk = mk.pack_segment(seg)
+            n = pk["n_instr"]
+            stamps = (ctypes.c_longlong * (n + 1))()
+            if lib.mk_read_trace(ctypes.addressof(stamps), n + 1):
+                raise RuntimeError("megakernel trace: reading the stamps failed")
+            cyc = np.diff(np.array(list(stamps)))
+            print(f"megakernel trace {bench} {prec}, block 0 of 64: "
+                  f"{int(stamps[n] - stamps[0])} SM cycles", flush=True)
+            for i, f in enumerate(pk["instrs"]):
+                print(f"  {i:3d} {names[int(f[0])]:11s} n={int(f[4]):5d} "
+                      f"k={int(f[5]):4d} sync={int(f[12]) & mk.MK_SYNC} "
+                      f"{int(cyc[i]):6d} cycles", flush=True)
+    finally:
+        if saved is None:
+            build._LIBS.pop("megakernel", None)
+        else:
+            build._LIBS["megakernel"] = saved
+
+
+def profile_flash(dev: torch.device) -> None:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.build import load
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    B, S, H, KV, dh = 1, 1024, 16, 2, 128
+    q = torch.randn((B, S, H, dh), generator=g, device=dev)
+    k, v = (torch.randn((B, S, KV, dh), generator=g, device=dev)
+            for _ in range(2))
+    out = torch.empty_like(q)
+    lib = load("flash_attention", fa._declare)
+
+    def launch(vec: bool):
+        err = lib.fa_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            out.data_ptr(), B, S, S, H, KV, dh, *q.stride()[:3],
+                            *k.stride()[:3], *v.stride()[:3], dh ** -0.5, 1, 0,
+                            int(vec), 0, torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise RuntimeError(f"fa_launch: CUDA error {err}")
+
+    for variant, vec in (("as it runs", True), ("k, v by element loads", False)):
+        parts = device_parts(lambda: launch(vec))
+        print(f"flash_attention float32 B=1 S=1024 H=16 KV=2 dh=128 causal, "
+              f"{variant}: {_fmt(parts)}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_kernels: no CUDA card", file=sys.stderr)
@@ -110,6 +279,9 @@ def main() -> int:
     dev = torch.device("cuda")
     profile_decode(dev)
     profile_spmv(dev)
+    profile_megakernel(dev)
+    profile_megakernel_trace(dev)
+    profile_flash(dev)
     print(card)
     return 0
 

@@ -280,19 +280,23 @@ class Transformer(nn.Module):
         """One decode step: ``token`` (B,) at positions ``pos`` (B,).
         Returns (logits (B, Vp) fp32, caches), the caches updated in place.
         ``pos`` on the host (a numpy array, as the engine keeps it) is
-        checked there and costs no synchronisation."""
+        checked there and costs no synchronisation; with ``token`` on the
+        host too, both reach the card in one copy, and every layer attends
+        with the one ``cache_len = pos + 1`` made there.  ``pos`` on the card
+        is not read back."""
         cfg = self.cfg
         S = caches["k"].shape[2]
         p = pos if torch.is_tensor(pos) else torch.as_tensor(np.asarray(pos))
-        p = p.to(torch.int32)
+        tok = token if torch.is_tensor(token) else torch.as_tensor(np.asarray(token))
         if p.device.type == "cpu":
             if bool(((p < 0) | (p >= S)).any()):
                 raise ValueError(f"decode positions {p.tolist()} outside [0, {S})")
-            cache_len = p + 1
-            p = p.to(self.device, non_blocking=True)
-        else:
-            cache_len = p + 1
-        x = self.embed[self._tokens(token)[:, None]]          # (B, 1, D)
+            if tok.device.type == "cpu":
+                both = torch.stack([tok.reshape(-1).long(), p.reshape(-1).long()])
+                tok, p = both.to(self.device, non_blocking=True)
+        p = p.to(device=self.device, dtype=torch.int32)
+        cache_len = p + 1
+        x = self.embed[self._tokens(tok)[:, None]]            # (B, 1, D)
         ang = p.float()[:, None] * rope_freqs(cfg.d_head, cfg.rope_theta,
                                               self.device)[None, :]
         cos, sin = torch.cos(ang)[:, None, :], torch.sin(ang)[:, None, :]

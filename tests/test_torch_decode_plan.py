@@ -10,7 +10,8 @@ is an empty partial (m = -inf, l = 0) that the combine never reads; the
 combine merges the splits below ceil(len / chunk) in split order.  Inputs
 are numpy seeds, at qwen2.5's SMOKE widths (H 8, KV 2, dh 8) and at
 qwen2.5-3b's heads (H 16, KV 2, dh 128) with S = 2048 at the lengths the
-served decode reaches (905 … 63 keys), with lengths of 1 and S.
+served decode reaches (905 … 63 keys), with lengths of 1 and S, and at
+G = 128, dh = 320, wider than any config (two groups of 64 query rows).
 
 Limits: float32 ``rtol = atol = 1e-5`` against the port's plain version and
 the Pallas kernel in interpret mode, whose sums run in another order (the
@@ -41,7 +42,8 @@ TILE, NEG = 32, -1e30
 CASES = [(3, 64, 8, 2, 8, [1, 64, 33]),
          (4, 100, 8, 2, 8, [100, 31, 32, 65]),
          (8, 2048, 16, 2, 128, SERVED),
-         (8, 2048, 16, 2, 128, [1, 2048, 2047, 32, 33, 64, 65, 1])]
+         (8, 2048, 16, 2, 128, [1, 2048, 2047, 32, 33, 64, 65, 1]),
+         (2, 64, 128, 1, 320, [64, 33])]           # G > 64, dh > 256
 DTYPES = [torch.float32, torch.bfloat16]
 
 
@@ -167,7 +169,8 @@ def test_plan_depends_on_shapes_only():
         plan = plan_decode(8, 2, G, 2048, 128, torch.bfloat16, SMS)
         assert plan.warps * plan.rows >= G and plan.rows in (1, 2, 4)
         assert plan.warps == 4 or plan.rows == 4
-    for bad in (dict(G=65, dh=128), dict(G=8, dh=257)):
+    assert plan_decode(8, 2, 65, 2048, 128, torch.float32, SMS).groups == 2
+    for bad in (dict(G=8, dh=513), dict(G=8, dh=460)):
         with pytest.raises(ValueError):
             plan_decode(8, 2, bad["G"], 2048, bad["dh"], torch.float32, SMS)
     with pytest.raises(TypeError):

@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.classical import BENCHMARKS
 from repro_torch.core.compiler import MafiaCompiler
 from repro_torch.core.quantize import quantize_t
 from repro_torch.kernels import linear_pipeline as lp
@@ -345,7 +346,9 @@ def _randn(card, *shape, dtype=torch.float32, seed=0):
     (1, 24, 90, 8, 2, 64, False), (1, 50, 20, 4, 2, 16, True),
     (1, 1024, 1024, 16, 2, 128, True), (1, 300, 300, 8, 2, 256, True),
     (1, 1, 1, 16, 1, 72, True), (2, 37, 37, 16, 1, 200, False),
-    (1, 130, 130, 32, 2, 64, True)])
+    (1, 130, 130, 32, 2, 64, True), (1, 600, 600, 16, 2, 128, True),
+    (1, 70, 70, 8, 2, 320, True), (2, 33, 45, 4, 1, 320, False),
+    (1, 64, 64, 12, 2, 64, True), (1, 90, 90, 12, 2, 128, False)])
 def test_flash_attention_kernel_matches_plain(card, B, Sq, Sk, H, KV, dh,
                                               causal, dtype, round_p):
     from repro_torch.kernels.flash_attention import flash_attention_fused
@@ -407,11 +410,13 @@ SERVED_LENS = [905, 689, 562, 319, 357, 88, 122, 63]   # qwen2.5-3b, last step
     (3, 100, 4, 1, 64, None), (1, 32, 16, 2, 128, None),
     (2, 50, 8, 8, 256, None), (4, 77, 8, 2, 100, None),
     (8, 2048, 16, 2, 128, SERVED_LENS), (8, 2048, 16, 2, 128, [1] * 8),
-    (2, 300, 32, 2, 64, None), (2, 5000, 16, 1, 128, [4999, 17])])
+    (2, 300, 32, 2, 64, None), (2, 5000, 16, 1, 128, [4999, 17]),
+    (2, 64, 128, 1, 320, None), (3, 40, 100, 1, 64, None)])
 def test_decode_attention_kernel_matches_plain(card, B, S, H, KV, dh, lens,
                                                dtype, round_p, lens_on):
     """None: random lengths with a 1 and an S; then the served lengths,
-    every length 1, G = 16 rows of 64, and a long cache."""
+    every length 1, G = 16 rows of 64, a long cache, and G = 128 with
+    dh = 320 and G = 100 (two groups of query rows)."""
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.ref import decode_attention_ref
 
@@ -488,20 +493,23 @@ def test_attention_wrappers_check_and_count(card):
     with pytest.raises(ValueError):
         flash_attention_fused(q, k.cpu(), k)
     with pytest.raises(ValueError):
-        flash_attention_fused(_randn(card, 1, 9, 4, 300),
-                              _randn(card, 1, 9, 2, 300), _randn(card, 1, 9, 2, 300))
-    with pytest.raises(ValueError):
         flash_attention_fused(q.transpose(1, 3).contiguous().transpose(1, 3), k, k)
     for bad in ([0], [10]):
         with pytest.raises(ValueError, match="cache_len"):
             decode_attention(q[:, 0], k, k, bad)
-    with pytest.raises(ValueError, match="cache_len"):
-        decode_attention(q[:, 0], k, k, torch.zeros(1, dtype=torch.int32,
-                                                    device=card))
     with pytest.raises(TypeError):
         decode_attention(q[:, 0].bfloat16(), k, k, [9])
     for name in ("flash_attention", "decode_attention"):
         assert LAUNCHES[name] == before[name] + 1
+    # lengths on the card are not read back: the kernel clamps them into
+    # [0, S], and a length of 0 gives a zero row
+    got = decode_attention(q[:, 0], k, k, torch.tensor([0], dtype=torch.int32,
+                                                       device=card))
+    big = decode_attention(q[:, 0], k, k, torch.tensor([99], dtype=torch.int32,
+                                                       device=card))
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.zeros_like(got))
+    assert torch.equal(big, decode_attention(q[:, 0], k, k, [9]))
 
 
 def test_lm_engine_on_the_card_matches_the_cpu(card):
@@ -544,3 +552,53 @@ def _to_card(model, cfg, card):
         for a, b in zip(out.parameters(), model.parameters()):
             a.copy_(b)
     return out
+
+
+def test_decode_attention_with_card_lengths_syncs_never_and_captures(card):
+    """Lengths on the card: the call makes no synchronisation (CUDA's sync
+    debug mode raises on one), and the call captured in a CUDA graph gives,
+    on replay with new lengths copied in, what the eager call gives."""
+    from repro_torch.kernels.decode_attention import decode_attention
+
+    for dt in (torch.float32, torch.bfloat16):
+        q = _randn(card, 8, 16, 128, dtype=dt, seed=21)
+        k = _randn(card, 8, 2048, 2, 128, dtype=dt, seed=22)
+        v = _randn(card, 8, 2048, 2, 128, dtype=dt, seed=23)
+        lens = torch.tensor(SERVED_LENS, dtype=torch.int32, device=card)
+        decode_attention(q, k, v, lens, round_p=False)     # build, plan, grant
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eager = decode_attention(q, k, v, lens, round_p=False)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        side = torch.cuda.Stream(card)
+        side.wait_stream(torch.cuda.current_stream(card))
+        with torch.cuda.stream(side):
+            decode_attention(q, k, v, lens, round_p=False)
+        torch.cuda.current_stream(card).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = LAUNCHES["decode_attention"]
+        with torch.cuda.graph(graph):
+            captured = decode_attention(q, k, v, lens, round_p=False)
+        assert LAUNCHES["decode_attention"] == before + 1
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
+        lens.copy_(torch.tensor([1, 2048, 33, 64, 65, 7, 500, 1000],
+                                dtype=torch.int32))
+        graph.replay()
+        want = decode_attention(q, k, v, lens, round_p=False)
+        torch.cuda.synchronize()
+        assert torch.equal(captured, want)
+
+
+@pytest.mark.parametrize("precision", PRECISIONS)
+@pytest.mark.parametrize("bench", [b.name for b in BENCHMARKS])
+def test_every_table1_program_matches_plain(card, bench, precision):
+    """All 20 Table-I programs: the kernel against its plain version on a
+    bucket of 64, grid equal to per-sample bit for bit."""
+    prog = get_program(bench, precision=precision, exec_mode="megakernel_grid",
+                       device=card)
+    (seg,) = prog.plan.megakernel.segments
+    _check(seg, _bucket(prog, 64, seed=3))

@@ -55,6 +55,20 @@ def _quant(y, scale, bits):
     return np.clip(q, -qm, qm).astype(np.int32)
 
 
+def _matrix(pool, f):
+    """The (n, k) matrix a MATVEC/SQL2 row reads from the pool: rows of
+    pitch f[13], or for a streamed one (MK_STREAM) chunks of f[10] columns,
+    each n rows of pitch f[11], one after the other."""
+    n, k, off = int(f[4]), int(f[5]), int(f[6])
+    if not int(f[12]) & mk.MK_STREAM:
+        p = int(f[13])
+        return pool[off:off + n * p].reshape(n, p)[:, :k]
+    ch, pc = int(f[10]), int(f[11])
+    nch = -(-k // ch)
+    blocks = pool[off:off + nch * n * pc].reshape(nch, n, pc)[:, :, :ch]
+    return np.concatenate(list(blocks), axis=1)[:, :k]
+
+
 def _emulate(seg, pk, xs):
     """Run the packed table for each sample, as one block of the kernel."""
     I, F = pk["instrs"], pk["fparams"]
@@ -78,7 +92,7 @@ def _emulate(seg, pk, xs):
             elif op == 1:                                 # LOAD_CONST
                 ri[dst:dst + n] = ci[f[7]:f[7] + n]
             elif op == 2:                                 # MATVEC / SPMV
-                W = (mi if q else mf)[f[6]:f[6] + n * k].reshape(k, n)
+                W = _matrix(mi if q else mf, f).T
                 if q:
                     acc = (W.astype(np.uint32) * ri[s0:s0 + k, None]
                            .astype(np.uint32)).sum(0, dtype=np.uint32)
@@ -110,7 +124,7 @@ def _emulate(seg, pk, xs):
                              * np.float32(scale)) if f[9] & flag
                             else rf[off:off + width].copy())
                 if op == 7:
-                    P = mf[f[6]:f[6] + n * k].reshape(k, n)
+                    P = _matrix(mf, f).T                  # a row per point
                     x = load(s0, k, 1, g[1])
                     acc = (P[0] - x[0]) * (P[0] - x[0])
                     for i in range(1, k):
@@ -218,8 +232,9 @@ CASES = [(k, p, False) for k in ("bonsai/usps-b", "protonn/letter-m", "isa")
 def test_packed_table_runs_like_the_plain_version(kind, precision, per_channel):
     seg, x = _segment(kind, precision, per_channel)
     pk = mk.pack_segment(seg)
-    assert pk["instrs"].shape == (pk["n_instr"], 12)
-    assert pk["n_instr"] == sum(i.op != "LOAD_MAT" for i in seg.instrs)
+    assert pk["instrs"].shape == (pk["n_instr"], 16)
+    assert ((pk["instrs"][:, 0] != 11).sum()
+            == sum(i.op != "LOAD_MAT" for i in seg.instrs))
     got = _emulate(seg, pk, [x.numpy()])
     want = run_segment_grid_ref(seg, [x])
     for a, b, pe in zip(got, want, float_pe_outputs(seg)):
