@@ -15,8 +15,12 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               integer outputs exact, 1 LSB only after a float PE) and on a
               segment built to land on rounding ties (numpy's half to even,
               exactly); the chain kernels on every chain step of the same
-              60 programs compiled with ``use_pallas=True`` and on random
-              programs over every stage (rank 3, ragged n); spmv at tile
+              60 programs compiled with ``use_pallas=True``, on random
+              programs over every stage (rank 3, ragged n), on views at
+              storage offsets of 0-15 bytes (``at_offset``) and on a
+              1-element stream with length-1 vecs, and a chain call
+              captured in a CUDA graph, whose replay must equal the eager
+              call bitwise (also on new operands copied in); spmv at tile
               densities 0, 0.1 and 1, on ragged shapes, with a row block
               that keeps no tile and at B = 1 with unaligned rows of x, two
               calls bitwise equal; matmul/gemv in
@@ -71,7 +75,11 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               launches = 36 x decode steps, exactly; a decode step makes
               one host-to-device copy (tokens and positions; the 36 layers'
               lengths are made on the card from it);
-8. report   — the device time of every kernel, its plain version and,
+8. report   — the chain kernels' launch floor (an empty kernel with their
+              parameter block) beside each served chain call's device time
+              and time per call, against ``CHAIN_DEVICE_MS`` /
+              ``CHAIN_FLOOR_X`` / ``CHAIN_CALL_MS`` (printed, not checked);
+              the device time of every kernel, its plain version and,
               where one PyTorch call computes the same function, that call
               (kernel durations from a ``torch.profiler`` trace, per call);
               each kernel's time per call between CUDA events, which
@@ -109,6 +117,9 @@ PEAK_OPS = {"float32": 67e12,      # fp32 outside the tensor cores
 BUCKET = 64
 SERVE_REQUESTS = 256
 F32_RTOL = F32_ATOL = 1e-5
+# aims of a served chain call, printed beside its times (not checked): device
+# ms, that over an empty kernel's, ms per call between CUDA events
+CHAIN_DEVICE_MS, CHAIN_FLOOR_X, CHAIN_CALL_MS = 0.0013, 1.5, 0.020
 LM_ARCH = "qwen2.5-3b"
 LM_REQUESTS, LM_NEW_TOKENS, LM_MAX_BATCH, LM_MAX_LEN = 8, 32, 8, 2048
 LM_PROMPT_LEN = (16, 1024)
@@ -412,6 +423,19 @@ def random_stream(rng, shape, bits: int | None = None):
         return rng.standard_normal(shape).astype(np.float32)
     qm = (1 << (bits - 1)) - 1
     return rng.integers(-qm, qm + 1, size=shape).astype(f"int{bits}")
+
+
+def at_offset(t, nbytes: int):
+    """A copy of ``t`` in a contiguous view whose data starts ``nbytes``
+    bytes (a multiple of its item size) past a 16-byte boundary: a view at a
+    storage offset, as a slice of a larger tensor is."""
+    import torch
+
+    item = t.element_size()
+    buf = torch.zeros(t.numel() + 32 // item, dtype=t.dtype, device=t.device)
+    view = buf[nbytes // item:nbytes // item + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
 
 
 def chain_case(prog, step, seed: int, nb: int = BUCKET):
@@ -778,6 +802,61 @@ def main() -> int:
                 check_chain(f"random bits={bits} {shape}",
                             lp.Chain(tuple(stages), tuple(vecs),
                                      bits is not None, bits or 8), x, extras)
+        # views at storage offsets of 1-15 bytes (the elements before an
+        # operand's first 16-byte boundary and after its last are the
+        # threads' own loads), a 1-element stream with length-1 vecs
+        n_views = 0
+        for bits in (None, 8, 16):
+            rng = np.random.default_rng(40 + (bits or 0))
+            pool = FLOAT_STAGES if bits is None else Q_STAGES
+            for shape in ((4, 16, 976), (3, 5, 40), (1,)):
+                stages, vecs, n_arr = random_chain(rng, list(rng.permutation(pool)),
+                                                   shape[-1], bits)
+                chain = lp.Chain(tuple(stages), tuple(vecs), bits is not None,
+                                 bits or 8)
+                operands = [torch.from_numpy(random_stream(rng, shape, bits))
+                            .to(dev) for _ in range(1 + n_arr)]
+                item = operands[0].element_size()
+                for off in range(0, 16, item):
+                    x, *extras = [at_offset(t, (off + 5 * k * item) % 16)
+                                  for k, t in enumerate(operands)]
+                    check_chain(f"view bits={bits} {shape} at +{off} bytes",
+                                chain, x, extras)
+                    n_views += 1
+        print(f"  linear_chain views: {n_views} cases at storage offsets of "
+              "0-15 bytes, incl. a 1-element stream")
+        # a chain call captured in a CUDA graph replays as the eager call does,
+        # also on new operands copied in
+        for prec in ("float32", "int8"):
+            prog = get_program("bonsai/curet-m", precision=prec, use_pallas=True,
+                               device=dev)
+            step = [s for s in prog.plan.steps if isinstance(s, ChainStep)][-1]
+            chain, x, extras = chain_case(prog, step, seed=5)
+            eager = lp.run_chain(chain, x, extras)
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                lp.run_chain(chain, x, extras)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                captured = lp.run_chain(chain, x, extras)
+            graph.replay()
+            torch.cuda.synchronize()
+            if not torch.equal(captured, eager):
+                raise AssertionError(f"chain {prec}: the graph's replay differs "
+                                     "from the eager call")
+            _, x2, extras2 = chain_case(prog, step, seed=6)
+            for dst, src in zip((x, *extras), (x2, *extras2)):
+                dst.copy_(src)
+            graph.replay()
+            want = lp.run_chain(chain, x, extras)
+            torch.cuda.synchronize()
+            if not torch.equal(captured, want):
+                raise AssertionError(f"chain {prec}: the replay on new operands "
+                                     "differs from the eager call")
+        print("  linear_chain captured in a CUDA graph: replays equal the eager "
+              "calls bitwise (float32, int8)")
         gx = torch.Generator(device=dev).manual_seed(11)
         zx = next(np.asarray(n.params["matrix"], np.float32)
                   for n in build("bonsai/curet-m")[0].nodes.values()
@@ -1337,6 +1416,19 @@ def main() -> int:
             rows[kname].append(r)
         print(f"  use_pallas {bench} {prec}: served "
               f"{SERVE_REQUESTS / wall:.0f} requests/s on the host clock")
+    lc_lib = kb.load("linear_chain", lp._declare)
+    lc_stream = torch.cuda.current_stream(dev).cuda_stream
+    floor_fn = lambda: lc_lib.lc_launch_empty(lc_stream)    # noqa: E731
+    chain_floor = dict(ms=device_ms(floor_fn, 50)[0],
+                       call_ms=median_ms(floor_fn, 50))
+    print(f"  chain launch floor (an empty kernel with the chain kernels' "
+          f"parameter block): {chain_floor['ms']:.5f} ms on the device, "
+          f"{chain_floor['call_ms']:.5f} ms per call", flush=True)
+    for r in rows["linear_chain"] + rows["linear_chain_q"]:
+        print(f"    {r['shape']}: {r['ms']:.5f} ms on the device = "
+              f"{r['ms'] / chain_floor['ms']:.2f} x the floor (target "
+              f"{CHAIN_DEVICE_MS} ms, {CHAIN_FLOOR_X} x), {r['call_ms']:.5f} ms "
+              f"per call (target {CHAIN_CALL_MS} ms)")
     F = torch.nn.functional
     for label, packed, w, x in (("bonsai/curet-m Zx (24, 610) B=64", p_zx,
                                  w_zx, x_zx),
@@ -1421,6 +1513,7 @@ def main() -> int:
     phase("report", t, "device times from the profiler trace; per-call times "
           "between CUDA events; serving wall time on the host clock")
     report.update(served=served, timed=timed, launches=launches, rows=rows,
+                  chain_floor=chain_floor,
                   attention_cases=attn_cases, lm_runs=lm_runs,
                   mm_f32_route=MM_F32_ROUTE.get("bfloat16"))
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

@@ -42,6 +42,11 @@ from repro_torch.kernels.linear_pipeline import Chain, run_chain
 __all__ = ["build_callable", "execute"]
 
 
+def _dense(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when it is contiguous, else a contiguous copy."""
+    return t if t.is_contiguous() else t.contiguous()
+
+
 def build_callable(
     dfg: DFG,
     *,
@@ -103,8 +108,8 @@ def _interpret(
         if isinstance(step, ChainStep):
             # one chain launch: the whole bucket on the batched lane, one
             # row per sample; only the terminal is materialized
-            val = run_chain(chains[id(step)], env[step.stream].contiguous(),
-                            [env[r].contiguous() for r in step.extras])
+            val = run_chain(chains[id(step)], _dense(env[step.stream]),
+                            [_dense(env[r]) for r in step.extras])
             for nid in step.dead:
                 env[nid] = None
             env[step.terminal] = val

@@ -120,7 +120,7 @@ def check_launch(name: str, err: int) -> None:
     LAUNCHES[name] += 1
 
 
-_CACHE: dict[tuple[str, int, str], Any] = {}
+_CACHE: dict[tuple[str, int, Any], Any] = {}
 
 
 def segment_cache(kind: str, owner: Any, device: torch.device,
@@ -129,7 +129,7 @@ def segment_cache(kind: str, owner: Any, device: torch.device,
     ``owner`` is collected: the one lifetime rule for device data derived
     from a compiled object (a segment's or a chain's pack, the plain
     version's pools)."""
-    key = (kind, id(owner), str(device))
+    key = (kind, id(owner), device)
     hit = _CACHE.get(key)
     if hit is None:
         hit = _CACHE[key] = make()

@@ -12,8 +12,11 @@ with ``use_pallas=True``.  Two variants:
 
 On a CPU tensor each runs its plain version (``ref.linear_chain_ref`` /
 ``ref.linear_chain_q_ref``); on a CUDA tensor it launches the hand-written
-kernel ``csrc/linear_chain.cu`` (one generic elementwise kernel per variant
-over a packed stage table) or raises.  ``LAUNCHES["linear_chain"]`` and
+kernel ``csrc/linear_chain.cu`` (one generic kernel per variant; the stage
+table and every operand arrive in one bulk-copy round trip, laid out by
+:func:`plan_chain`) or raises.  What no operand
+changes is resolved once per chain and device; a call checks its operands
+and makes one ctypes call.  ``LAUNCHES["linear_chain"]`` and
 ``LAUNCHES["linear_chain_q"]`` count launches.
 
 The budget half, :func:`chain_vmem_bytes`, prices a chain's resident
@@ -36,9 +39,10 @@ from repro_torch.kernels.build import STAGE_CODES as _STAGE
 from repro_torch.kernels.build import UNARY_CODES as _UNARY
 from repro_torch.kernels.build import check_launch, load, segment_cache
 
-__all__ = ["DEFAULT_BB", "DEFAULT_BN", "Chain", "chain_ref", "chain_vmem_bytes",
-           "fused_linear_chain", "fused_linear_chain_q", "pack_chain",
-           "run_chain", "set_tuned_tiles", "tuned_tiles"]
+__all__ = ["DEFAULT_BB", "DEFAULT_BN", "Chain", "ChainPlan", "chain_ref",
+           "chain_vmem_bytes", "fused_linear_chain", "fused_linear_chain_q",
+           "pack_chain", "plan_chain", "run_chain", "set_tuned_tiles",
+           "tuned_tiles"]
 
 DEFAULT_BB = 256   # batch tile
 DEFAULT_BN = 512   # feature tile
@@ -78,8 +82,22 @@ def chain_vmem_bytes(n: int, n_vec: int, n_arr: int, *,
 
 
 # ------------------------------------------------------------------ kernel
-_NI, _NF = 6, 4
 _FLOAT_VEC = ("add_vec", "sub_vec", "hadamard_vec")
+
+# csrc/linear_chain.cu's limits and block shape
+LC_MAX_STAGES, LC_MAX_ARR = 64, 16
+LC_THREADS = 256     # threads of a block at most
+LC_RUN = 4           # consecutive elements a thread takes at a time
+# A block's shared memory at most (operands and staged vecs): two blocks
+# fit an SM.  The vec pool is staged in shared memory up to LC_VEC_SMEM
+# bytes; a larger pool is read from global memory.
+LC_SMEM = 96 * 1024
+LC_VEC_SMEM = 48 * 1024
+H100_SMS = 132
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -99,9 +117,51 @@ def _host(v: Any) -> np.ndarray:
     return v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
 
 
+# csrc/linear_chain.cu's LcStage: a row of the stage table (code, operand,
+# vec length, p0..p2; scalar, s_in, s_out, -)
+STAGE_ROW = np.dtype([("i", "<i4", 6), ("f", "<f4", 4)])
+
+
+class LcChain(ctypes.Structure):
+    """``csrc/linear_chain.cu``'s ``LcChain``: the addresses of the stage
+    table and of the vec pool on the device, the stage count, bits, the
+    table's and the pool's bytes and the variant."""
+
+    _fields_ = [("table", ctypes.c_void_p), ("vecs", ctypes.c_void_p),
+                ("n_stages", ctypes.c_int32), ("bits", ctypes.c_int32),
+                ("table_bytes", ctypes.c_int32), ("vec_bytes", ctypes.c_int32),
+                ("quantized", ctypes.c_int32), ("pad", ctypes.c_int32)]
+
+
+class _Op(ctypes.Structure):
+    _fields_ = [("dt", ctypes.c_int32), ("sh", ctypes.c_int32),
+                ("head", ctypes.c_int32), ("off", ctypes.c_int32)]
+
+
+class LcPlan(ctypes.Structure):
+    """``csrc/linear_chain.cu``'s ``LcPlan``: a :class:`ChainPlan` with, per
+    operand, its dtype code and base address mod 16."""
+
+    _fields_ = [("chunk", ctypes.c_int32), ("blocks", ctypes.c_int32),
+                ("threads", ctypes.c_int32), ("smem", ctypes.c_int32),
+                ("n_ops", ctypes.c_int32), ("vec_at", ctypes.c_int32),
+                ("op", _Op * (LC_MAX_ARR + 1))]
+
+
+def _padded(a: np.ndarray) -> np.ndarray:
+    """``a``'s bytes, zero-padded to a multiple of 16 (a bulk copy's unit)."""
+    raw = np.frombuffer(a.tobytes(), np.uint8)
+    return np.concatenate([raw, np.zeros(-raw.size % 16, np.uint8)])
+
+
 def pack_chain(chain: Chain) -> dict[str, Any]:
-    """Host-side packing of ``chain`` into the kernel's int32 stage table,
-    float side table and one pool of 32-bit vec words (numpy)."""
+    """Host-side packing of ``chain`` for the kernel (numpy): ``table``, the
+    stage table (``STAGE_ROW`` rows), and ``vecs``, one pool of 32-bit words
+    (float32 or int32), each as bytes padded to 16; ``params``, the
+    ``LcChain`` with the device addresses left 0; ``vec_lens`` (each vec's
+    length) and ``n_arr`` (the extras the chain reads).  Raises ValueError
+    on a stage of the other vocabulary or beyond the kernel's limits
+    (``LC_MAX_STAGES`` stages, ``LC_MAX_ARR`` extras)."""
     carrier = np.int32 if chain.quantized else np.float32
     pool: list[np.ndarray] = []
     words = 0
@@ -113,15 +173,19 @@ def pack_chain(chain: Chain) -> dict[str, Any]:
         words += a.size
         return words - a.size, a.size
 
-    rows, frows = [], []
+    if len(chain.stages) > LC_MAX_STAGES:
+        raise ValueError(f"a chain of {len(chain.stages)} stages: the kernel "
+                         f"takes at most {LC_MAX_STAGES}")
+    rows = np.zeros(len(chain.stages), STAGE_ROW)
+    n_arr = 0
     vec_at = [vec(v) for v in chain.vecs] if chain.quantized else []
-    for name, sop in chain.stages:
+    for r, (name, sop) in enumerate(chain.stages):
         if name not in _STAGE or name.startswith("q_") != chain.quantized:
             raise ValueError(f"stage {name!r} is not in the "
                              f"{'fixed-point' if chain.quantized else 'float'} "
                              "chain vocabulary")
         t = [_STAGE[name], 0, 0, 0, 0, 0]
-        g = [0.0] * _NF
+        g = [0.0] * 4
         if name == "scalar_mul":
             g[0] = float(np.float32(sop))
         elif name in _FLOAT_VEC:
@@ -142,70 +206,199 @@ def pack_chain(chain: Chain) -> dict[str, Any]:
             uname, e_in, e_out = sop
             t[3] = _UNARY[uname]
             g[1], g[2] = 2.0 ** (-e_in), 2.0 ** e_out
-        rows.append(t)
-        frows.append(g)
-    vecs = np.concatenate(pool) if pool else np.zeros(1, carrier)
-    return dict(table=np.asarray(rows, np.int32).reshape(-1, _NI),
-                ftable=np.asarray(frows, np.float32).reshape(-1, _NF),
-                vecs=vecs, n_stages=len(rows),
+        if name.endswith("_arr"):
+            n_arr = max(n_arr, t[1] + 1)
+        rows[r] = (t, g)
+    if n_arr > LC_MAX_ARR:
+        raise ValueError(f"a chain reading {n_arr} extras: the kernel takes "
+                         f"at most {LC_MAX_ARR}")
+    table = _padded(rows)
+    vecs = _padded(np.concatenate(pool) if pool else np.zeros(0, carrier))
+    params = LcChain(n_stages=len(rows), bits=int(chain.bits),
+                     table_bytes=table.size, vec_bytes=vecs.size,
+                     quantized=int(chain.quantized))
+    return dict(params=params, table=table, vecs=vecs, n_arr=n_arr,
                 vec_lens=tuple(a.size for a in pool))
 
 
+@dataclasses.dataclass(frozen=True)
+class ChainPlan:
+    """How ``csrc/linear_chain.cu`` runs one call.  Block b takes elements
+    ``[b * chunk, min((b + 1) * chunk, numel))`` of the flattened stream and
+    the same elements of every extra, with ``threads`` threads of
+    ``LC_RUN`` elements at a time.  Operand k (the stream, then the extras)
+    lands in shared memory from byte ``regions[k]`` + its base address mod
+    16: its elements from ``heads[k]`` of a chunk on start on a 16-byte
+    boundary and arrive by one bulk copy of whole 16-byte units, the rest
+    by the threads' own loads.  The vec pool sits at ``vec_at`` (-1: read
+    from global memory).  ``smem`` bytes in all."""
+
+    chunk: int
+    blocks: int
+    threads: int
+    heads: tuple[int, ...]
+    regions: tuple[int, ...]
+    vec_at: int
+    smem: int
+
+
+def plan_chain(numel: int, itemsizes: Sequence[int], offsets: Sequence[int],
+               vec_bytes: int = 0, sms: int = H100_SMS) -> ChainPlan:
+    """The plan of a chain call over ``numel`` elements whose operands (the
+    stream, then the extras) have ``itemsizes`` bytes an element and base
+    addresses ``offsets`` mod 16, with a vec pool of ``vec_bytes``.
+
+    Chunks are a multiple of 16 bytes of every operand, so every block sees
+    the same alignment.  A stream of up to ``LC_THREADS * LC_RUN`` elements
+    is one block (one turn of its threads); a longer one is cut into at most
+    ``sms`` chunks, one wave, unless the operands' shared memory
+    (``LC_SMEM`` in all) makes chunks smaller."""
+    if len(itemsizes) != len(offsets) or not 1 <= len(itemsizes) <= LC_MAX_ARR + 1:
+        raise ValueError(f"linear_chain: {len(itemsizes)} operands "
+                         f"(1 to {LC_MAX_ARR + 1}), {len(offsets)} offsets")
+    if any(s not in (1, 2, 4) or o % s for s, o in zip(itemsizes, offsets)):
+        raise ValueError(f"linear_chain: item sizes {tuple(itemsizes)} with "
+                         f"offsets {tuple(offsets)}")
+    g = 16 // min(itemsizes)
+    staged = 0 < vec_bytes <= LC_VEC_SMEM
+    room = LC_SMEM - 16 * len(itemsizes) - (vec_bytes if staged else 0)
+    cap = max(g, room // sum(itemsizes) // g * g)
+    if numel <= LC_THREADS * LC_RUN:
+        chunk = max(g, _cdiv(numel, g) * g)
+    else:
+        chunk = _cdiv(_cdiv(numel, sms), g) * g
+    chunk = min(chunk, cap)
+    regions, at = [], 0
+    for s in itemsizes:
+        regions.append(at)
+        at += chunk * s + 16
+    return ChainPlan(
+        chunk=chunk, blocks=max(1, _cdiv(numel, chunk)),
+        threads=min(LC_THREADS, _cdiv(_cdiv(chunk, LC_RUN), 32) * 32),
+        heads=tuple((16 - o) % 16 // s for o, s in zip(offsets, itemsizes)),
+        regions=tuple(regions), vec_at=at if staged else -1,
+        smem=at + (vec_bytes if staged else 0))
+
+
+_ITEM = {0: 4, 1: 4, 2: 1, 3: 2}     # dtype code -> bytes an element
+
+
+def _plan_struct(numel: int, sig: Sequence[int], vec_bytes: int,
+                 sms: int = H100_SMS) -> LcPlan:
+    """The kernel's ``LcPlan`` for operands whose ``sig`` is dtype code * 16
+    + base address mod 16, the stream first."""
+    codes, offsets = [c >> 4 for c in sig], [c & 15 for c in sig]
+    plan = plan_chain(numel, [_ITEM[c] for c in codes], offsets, vec_bytes, sms)
+    s = LcPlan(chunk=plan.chunk, blocks=plan.blocks, threads=plan.threads,
+               smem=plan.smem, n_ops=len(sig), vec_at=plan.vec_at)
+    for k, op in enumerate(zip(codes, offsets, plan.heads, plan.regions)):
+        s.op[k] = op
+    return s
+
+
 def _declare(lib: ctypes.CDLL) -> None:
-    vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-    pvp, pci = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
-    lib.lc_launch_float.argtypes = [vp, vp, ci, vp, vp, vp, pvp, pci, ci,
-                                    cl, ci, vp]
-    lib.lc_launch_q.argtypes = [vp, vp, ci, vp, vp, vp, ci, pvp, pci, ci,
-                                cl, ci, ci, vp]
-    lib.lc_launch_float.restype = lib.lc_launch_q.restype = ci
-    lib.lc_max_stages.restype = lib.lc_max_arr.restype = ci
+    vp = ctypes.c_void_p
+    lib.lc_launch.argtypes = [vp, vp, vp, vp, vp, ctypes.c_longlong,
+                              ctypes.c_int, vp]
+    lib.lc_launch.restype = lib.lc_launch_empty.restype = ctypes.c_int
+    lib.lc_launch_empty.argtypes = [vp]
+    lib.lc_layout.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.lc_layout.restype = None
+    got = (ctypes.c_int * 7)()
+    lib.lc_layout(got)
+    want = [ctypes.sizeof(LcChain), LcChain.n_stages.offset,
+            ctypes.sizeof(LcPlan), LcPlan.op.offset, STAGE_ROW.itemsize,
+            LC_MAX_STAGES, LC_MAX_ARR]
+    if list(got) != want:
+        raise RuntimeError(f"csrc/linear_chain.cu's layout {list(got)} is not "
+                           f"the wrapper's {want}")
 
 
 def _device_pack(chain: Chain, device: torch.device) -> dict[str, Any]:
+    """Everything a call of ``chain`` on ``device`` needs that no operand
+    changes: the library, the stage table and the vec pool on the device
+    and the ``LcChain`` that points at them, the dtypes it takes, and caches
+    of the checked widths and of the plans by (numel, dtypes, offsets)."""
     h = pack_chain(chain)
-    for k in ("table", "ftable", "vecs"):
-        h[k] = torch.from_numpy(h[k]).to(device)
-    return h
+    lib = load("linear_chain", _declare)
+    table, vecs = (torch.from_numpy(a if a.size else np.zeros(16, np.uint8))
+                   .to(device) for a in (h["table"], h["vecs"]))
+    params = h["params"]
+    params.table, params.vecs = table.data_ptr(), vecs.data_ptr()
+    return dict(
+        lib=lib, table=table, vecs=vecs, params=params,
+        addr=ctypes.addressof(params), vec_bytes=params.vec_bytes,
+        vec_lens=h["vec_lens"], n_arr=h["n_arr"],
+        name="linear_chain_q" if chain.quantized else "linear_chain",
+        codes={d: _DTYPE[d] for d in ((torch.int8, torch.int16, torch.int32)
+                                      if chain.quantized else (torch.float32,))},
+        widths=set(), plans={})
+
+
+_raw_stream = None
+
+
+def _stream(device: torch.device) -> int:
+    """The raw handle of ``device``'s current CUDA stream."""
+    global _raw_stream
+    if _raw_stream is None:
+        get = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+        _raw_stream = get or (lambda i: torch.cuda.current_stream(i).cuda_stream)
+    return _raw_stream(device.index)
+
+
+def _reject(name: str, x: torch.Tensor, t: torch.Tensor,
+            codes: dict[torch.dtype, int]) -> None:
+    """Raise the error an operand ``t`` the kernel does not take earns."""
+    if t.device != x.device:
+        raise ValueError(f"{name}: operand on {t.device}, stream on {x.device}")
+    if t.dtype not in codes:
+        raise TypeError(f"{name}: dtype {t.dtype} not supported")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: operands must be contiguous")
+    raise ValueError(f"{name}: extra of shape {tuple(t.shape)}, stream "
+                     f"{tuple(x.shape)}")
 
 
 def _launch(chain: Chain, x: torch.Tensor,
             extras: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Check the operands, allocate the output and launch the kernel."""
-    name = "linear_chain_q" if chain.quantized else "linear_chain"
-    dts = ((torch.int8, torch.int16, torch.int32) if chain.quantized
-           else (torch.float32,))
+    """Check the operands, allocate the output and launch the kernel with
+    one ctypes call; what no operand changes comes from the chain's pack,
+    the plan from a cache keyed by (numel, dtypes, base addresses mod 16)."""
+    dev, shape = x.device, x.shape
+    pk = segment_cache("chain", chain, dev, lambda: _device_pack(chain, dev))
+    codes = pk["codes"]
+    ptrs, sig = [], [x.numel()]
     for t in (x, *extras):
-        if t.device != x.device:
-            raise ValueError(f"{name}: operand on {t.device}, stream on {x.device}")
-        if t.dtype not in dts:
-            raise TypeError(f"{name}: dtype {t.dtype} not supported")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: operands must be contiguous")
-        if t.shape != x.shape:
-            raise ValueError(f"{name}: extra of shape {tuple(t.shape)}, "
-                             f"stream {tuple(x.shape)}")
-    pk = segment_cache("chain", chain, x.device,
-                       lambda: _device_pack(chain, x.device))
-    n = int(x.shape[-1]) if x.dim() else 1
-    if any(w not in (1, n) for w in pk["vec_lens"]):
-        raise ValueError(f"{name}: vec operands must have length 1 or {n}")
-    lib = load("linear_chain", _declare)
-    if pk["n_stages"] > lib.lc_max_stages() or len(extras) > lib.lc_max_arr():
-        raise ValueError(f"{name}: more stages or extras than the kernel takes")
+        c = codes.get(t.dtype)
+        if c is None or t.device != dev or t.shape != shape or not t.is_contiguous():
+            _reject(pk["name"], x, t, codes)
+        p = t.data_ptr()
+        ptrs.append(p)
+        sig.append(c << 4 | p & 15)
+    if not pk["n_arr"] <= len(extras) <= LC_MAX_ARR:
+        raise ValueError(f"{pk['name']}: {len(extras)} extras for a chain "
+                         f"reading {pk['n_arr']} (at most {LC_MAX_ARR})")
+    n = int(shape[-1]) if shape else 1
+    if n not in pk["widths"]:
+        if any(w not in (1, n) for w in pk["vec_lens"]):
+            raise ValueError(f"{pk['name']}: vec operands must have length 1 "
+                             f"or {n}")
+        pk["widths"].add(n)
+    key = tuple(sig)
+    plan = pk["plans"].get(key)
+    if plan is None:
+        if len(pk["plans"]) >= 64:         # shapes and offsets seldom vary
+            pk["plans"].clear()
+        plan = pk["plans"][key] = _plan_struct(
+            sig[0], sig[1:], pk["vec_bytes"],
+            torch.cuda.get_device_properties(dev).multi_processor_count)
     out = torch.empty_like(x)
-    arr_p = (ctypes.c_void_p * max(1, len(extras)))(*[e.data_ptr() for e in extras])
-    arr_d = (ctypes.c_int * max(1, len(extras)))(*[_DTYPE[e.dtype] for e in extras])
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    common = (pk["table"].data_ptr(), pk["ftable"].data_ptr(), pk["n_stages"],
-              pk["vecs"].data_ptr(), x.data_ptr(), out.data_ptr())
-    if chain.quantized:
-        err = lib.lc_launch_q(*common, _DTYPE[x.dtype], arr_p, arr_d,
-                              len(extras), x.numel(), n, chain.bits, stream)
-    else:
-        err = lib.lc_launch_float(*common, arr_p, arr_d, len(extras),
-                                  x.numel(), n, stream)
-    check_launch(name, err)
+    err = pk["lib"].lc_launch(
+        pk["addr"], ctypes.addressof(plan), ptrs[0], out.data_ptr(),
+        (ctypes.c_void_p * max(1, len(extras)))(*ptrs[1:]), sig[0], n,
+        _stream(dev))
+    check_launch(pk["name"], err)
     return out
 
 
@@ -252,8 +445,8 @@ def fused_linear_chain(x: torch.Tensor, stages: Sequence[Any],
     ``stages`` operands: scalars stay static; ``*_vec`` operands are (n,)
     arrays (or length 1); ``*_arr`` operands index ``extras`` (each shaped
     like ``x``).  ``bb``/``bn`` are the TPU kernel's tiles, accepted for
-    the reference's signature and ignored: the CUDA kernel runs one thread
-    per element, and tiling never changes per-element arithmetic."""
+    the reference's signature and ignored: :func:`plan_chain` cuts the
+    stream for the card, and tiling never changes per-element arithmetic."""
     return run_chain(Chain(tuple(stages)), x, extras)
 
 

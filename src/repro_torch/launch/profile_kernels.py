@@ -1,8 +1,19 @@
 """Time kernels on the card under other plans and variants than their own.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_kernels
+    PYTHONPATH=src python -m repro_torch.launch.profile_kernels [--chains | --chain-trace]
 
-Decode attention at qwen2.5-3b's decode shape (B 8, S 2048, H 16, KV 2,
+First the chain kernels (``csrc/linear_chain.cu``): the launch floor (an
+empty kernel with the chain kernels' parameter block) and the six served
+chain calls (bonsai/curet-m's two chains and protonn/curet-m's, float32 and
+int8, a bucket of 64), with protonn's stages one at a time: device time,
+time per call between CUDA events, host time to enqueue a call, byte bound
+(``--chains`` stops here, and runs on an older tree too); the six calls on
+variants of the kernel (``_CHAIN_VARIANTS``: the stage dispatched by a
+switch per element, cp.async by every thread in place of the bulk copies);
+and SM cycles of each phase of block 0 from a clock-stamped build, beside
+the floors of a call with no launch and with an empty kernel
+(``--chain-trace`` stops here).  Then decode attention at qwen2.5-3b's
+decode shape (B 8, S 2048, H 16, KV 2,
 dh 128), float32 and bfloat16, at the lengths of ``chip_smoke.py``'s last
 served decode step, at full caches and with every length 1, for chunks of
 32 to 2048 keys (``plan_decode`` picks 32); spmv on bonsai/curet-m's Zx
@@ -179,27 +190,12 @@ def profile_megakernel_trace(dev: torch.device) -> None:
     bucket of 64), from a build of csrc/megakernel.cu with clock stamps
     added; the kernel is otherwise the one the port runs."""
     import ctypes
-    import tempfile
-    from pathlib import Path
 
     from repro_torch.kernels import build
     from repro_torch.kernels import megakernel as mk
     from repro_torch.serve.classical_engine import get_program
 
-    src = (build.CSRC / "megakernel.cu").read_text()
-    for old, new in _TRACE_PATCHES:
-        if src.count(old) != 1:
-            raise RuntimeError(f"megakernel trace: {old!r} not found once")
-        src = src.replace(old, new)
-    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = Path(tempfile.mkdtemp(dir=build.BUILD_DIR)) / "mk_trace.so"
-    cu = out.with_suffix(".cu")
-    cu.write_text(src)
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-                    "-O3", "-shared", "-Xcompiler", "-fPIC", "-I", str(build.CSRC),
-                    "-o", str(out), str(cu)], check=True, capture_output=True)
-    lib = ctypes.CDLL(str(out))
+    lib = _patched_build("megakernel", _TRACE_PATCHES, "mk_trace")
     mk._declare(lib)
     lib.mk_read_trace.argtypes = [ctypes.c_void_p, ctypes.c_int]
     names = {v: k for k, v in mk._OPC.items() if k != "SPMV"}
@@ -268,7 +264,301 @@ def profile_flash(dev: torch.device) -> None:
               f"{variant}: {_fmt(parts)}", flush=True)
 
 
-def main() -> int:
+def call_ms(fn, reps: int = 200) -> float:
+    """Median ms of one call between CUDA events (the wrapper's host work
+    included), after a warm-up."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b))
+    return float(np.median(ts))
+
+
+def host_ms(fn, reps: int = 500) -> float:
+    """Host-clock ms to enqueue one call: ``reps`` calls back to back, no
+    synchronisation between them (the card keeps up with these kernels)."""
+    import time
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return t
+
+
+def served_chains(dev: torch.device):
+    """The six served chain calls: bonsai/curet-m's chains 0 and 1 and
+    protonn/curet-m's chain, float32 and int8, each on a bucket of 64 seeded
+    as ``chip_smoke.chain_case`` seeds it: ``(label, step, bits, x,
+    extras)``.  Uses only what every version of the port has."""
+    from repro_torch.core.lowering import ChainStep
+    from repro_torch.serve.classical_engine import get_program
+
+    for bench in ("bonsai/curet-m", "protonn/curet-m"):
+        for prec in ("float32", "int8"):
+            prog = get_program(bench, precision=prec, use_pallas=True, device=dev)
+            bits = prog.plan.bits or 8
+            steps = [s for s in prog.plan.steps if isinstance(s, ChainStep)]
+            for i, step in enumerate(steps):
+                shape = (64,) + tuple(prog.dfg.out_shape(step.terminal))
+                rng = np.random.default_rng(i)
+                qm = (1 << (bits - 1)) - 1
+                ops = [torch.from_numpy(
+                    rng.integers(-qm, qm + 1, size=shape).astype(f"int{bits}")
+                    if step.quantized else
+                    rng.standard_normal(shape).astype(np.float32)).to(dev)
+                    for _ in range(1 + len(step.extras))]
+                yield (f"{bench} {prec} {i} {[s[0] for s in step.stages]} "
+                       f"{shape}", step, bits, ops[0], ops[1:])
+
+
+def profile_chains(dev: torch.device) -> None:
+    """The six served chain calls and protonn's chains one stage at a time:
+    device time, time per call between CUDA events, host time to enqueue a
+    call, and the byte bound (each operand read once, the output written
+    once, over 3.35 TB/s).  First the launch floor: an empty kernel with the
+    chain kernels' parameter block, where the library has one.  Runs on an
+    older tree too (``PYTHONPATH=<tree>/src python
+    src/repro_torch/launch/profile_kernels.py --chains``)."""
+    from repro_torch.kernels import linear_pipeline as lp
+    from repro_torch.kernels.build import load
+
+    lib = load("linear_chain", lp._declare)
+    empty = getattr(lib, "lc_launch_empty", None)
+    if empty is not None:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        floor = lambda: empty(stream)                       # noqa: E731
+        print(f"chain launch floor (empty kernel): device "
+              f"{sum(device_parts(floor).values()):.5f} ms, per call "
+              f"{call_ms(floor):.5f} ms, host {host_ms(floor):.5f} ms",
+              flush=True)
+    for label, step, bits, x, extras in served_chains(dev):
+        cases = [("", lp.Chain(step.stages, step.vecs, step.quantized, bits))]
+        if label.startswith("protonn"):
+            cases += [(f", stage {st[0]} alone",
+                       lp.Chain((st,), step.vecs, step.quantized, bits))
+                      for st in step.stages]
+        nbytes = (2 + len(extras)) * x.numel() * x.element_size()
+        for alone, chain in cases:
+            fn = lambda: lp.run_chain(chain, x, extras)     # noqa: E731
+            print(f"chain {label}{alone}: device "
+                  f"{sum(device_parts(fn).values()):.5f} ms, per call "
+                  f"{call_ms(fn):.5f} ms, host {host_ms(fn):.5f} ms, bound "
+                  f"{nbytes / 3.35e12 * 1e3:.7f} ms (bytes)", flush=True)
+
+
+def _patched_build(name: str, patches, tag: str):
+    """A build of ``csrc/<name>.cu`` with ``patches`` applied (each old
+    text must occur once), loaded with ctypes."""
+    import ctypes
+    import tempfile
+    from pathlib import Path
+
+    from repro_torch.kernels import build
+
+    src = (build.CSRC / f"{name}.cu").read_text()
+    for old, new in patches:
+        if src.count(old) != 1:
+            raise RuntimeError(f"{tag}: {old!r} not found once")
+        src = src.replace(old, new)
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = Path(tempfile.mkdtemp(dir=build.BUILD_DIR)) / f"{tag}.so"
+    cu = out.with_suffix(".cu")
+    cu.write_text(src)
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                    "-O3", "-shared", "-Xcompiler", "-fPIC", "-I", str(build.CSRC),
+                    "-o", str(out), str(cu)], check=True, capture_output=True)
+    return ctypes.CDLL(str(out))
+
+
+# Variants of csrc/linear_chain.cu: the stage's code dispatched by a switch
+# once per element (float_stage's and q_stage's own switches, a jump table
+# read from the constant bank); the operands and the table copied by every
+# thread with cp.async (16 bytes, or 4) in place of the bulk copies and the
+# mbarrier; every call on the kernel instance for LC_MAX_OPS operands.
+_CHAIN_VARIANTS = {
+    "the instance for 17 operands": (
+        ("  const bool few = a.n_ops <= LC_FEW_OPS;",
+         "  const bool few = false;"),),
+    "a switch per element": (
+        ("      if constexpr (Q) lc_q_step(code, v, o, st, bits);\n"
+         "      else lc_float_step(code, v, o, st, bits);\n",
+         "#pragma unroll\n      for (int j = 0; j < LC_RUN; ++j) {\n"
+         "        if constexpr (Q)\n"
+         "          v[j] = q_stage(code, v[j], o[j], st.p0, st.p1, st.p2, st.f[1],"
+         " st.f[2], bits);\n"
+         "        else\n          v[j] = float_stage(code, v[j], o[j]);\n      }\n"),),
+    "cp.async by every thread": (
+        ('#include "hopper.cuh"\n',
+         '#include "hopper.cuh"\n#define hp_bulk_load(...) ((void)0)\n'
+         '#define hp_bar_expect_tx(...) ((void)0)\n'),
+        ("  // the elements outside each operand's bulk range",
+         "  for (int i = tid; i * 16 < a.table_bytes; i += blockDim.x)\n"
+         "    hp_cp16((unsigned char*)s_st + i * 16,"
+         " (const unsigned char*)a.table + i * 16, true);\n"
+         "  if (a.vec_at >= 0)\n"
+         "    for (int i = tid; i * 16 < a.vec_bytes; i += blockDim.x)\n"
+         "      hp_cp16(lc_smem + a.vec_at + i * 16,"
+         " (const unsigned char*)a.vecs + i * 16, true);\n"
+         "  for (int j0 = tid * LC_RUN; j0 < len; j0 += step) {\n"
+         "    const int j1 = min(j0 + LC_RUN, len);\n#pragma unroll\n"
+         "    for (int k = 0; k < NOPS; ++k) {\n      if (k >= n_ops) break;\n"
+         "      const int lg = (a.op[k].meta >> 4) & 3, rb = LC_RUN << lg;\n"
+         "      const unsigned char* g = (const unsigned char*)a.op[k].src"
+         " + ((c0 + j0) << lg);\n"
+         "      unsigned char* s = lc_smem + a.op[k].off + (j0 << lg);\n"
+         "      if (j1 - j0 == LC_RUN && (uintptr_t)g % rb == 0) {\n"
+         "        if (rb == 16) hp_cp16(s, g, true);\n"
+         "        else { hp_cp4(s, g, true); if (rb == 8) hp_cp4(s + 4, g + 4, true); }\n"
+         "      } else {\n        for (int j = 0; j < j1 - j0; ++j) {\n"
+         "          if (lg == 0) s[j] = g[j];\n"
+         "          else if (lg == 1) ((uint16_t*)s)[j] = ((const uint16_t*)g)[j];\n"
+         "          else ((uint32_t*)s)[j] = ((const uint32_t*)g)[j];\n"
+         "        }\n      }\n    }\n  }\n  hp_cp_commit();\n  hp_cp_wait<0>();\n"
+         "  // the elements outside each operand's bulk range"),
+        ("  hp_bar_wait(&bar, 0);\n", "")),
+}
+
+
+def profile_chain_variants(dev: torch.device) -> None:
+    """The six served chain calls' device time on the kernel as built and on
+    each of ``_CHAIN_VARIANTS`` (the wrapper unchanged), in turns."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import linear_pipeline as lp
+
+    libs = {"as built": build.load("linear_chain", lp._declare)}
+    for name, patches in _CHAIN_VARIANTS.items():
+        libs[name] = _patched_build("linear_chain", patches,
+                                    "lc_" + "".join(c for c in name if c.isalnum()))
+        lp._declare(libs[name])
+    saved = build._LIBS["linear_chain"]
+    try:
+        for label, step, bits, x, extras in served_chains(dev):
+            times = {}
+            for name, lib in libs.items():
+                build._LIBS["linear_chain"] = lib
+                chain = lp.Chain(step.stages, step.vecs, step.quantized, bits)
+                got = lp.run_chain(chain, x, extras)
+                if not torch.equal(got, lp.run_chain(lp.Chain(
+                        step.stages, step.vecs, step.quantized, bits), x, extras)):
+                    raise RuntimeError(f"chain variant {name}: two calls differ")
+                times[name] = sum(device_parts(
+                    lambda: lp.run_chain(chain, x, extras)).values())
+            print(f"chain variants {label}: device " + ", ".join(
+                f"{k} {v:.5f} ms" for k, v in times.items()), flush=True)
+    finally:
+        build._LIBS["linear_chain"] = saved
+
+
+# The clock64 trace of csrc/linear_chain.cu: thread 0 of block 0 stamps SM
+# cycles since its start after expecting the bytes (7), after its copies
+# (0), after its edge loads and its reads of the parameter block for the
+# walk (1), after the barrier (2), after the mbarrier wait (3), before its
+# first run's walk (6), at the start and the end of each of that walk's
+# first 8 stages (8 + 2 s, 9 + 2 s; the end once the stage's result
+# exists), after the walk (5) and at its end (4); plus an empty kernel with
+# no parameters.
+_CHAIN_TRACE_PATCHES = (
+    ("template <typename T, bool Q, int NOPS>\n"
+     "__global__ void __launch_bounds__(LC_THREADS) lc_kernel(",
+     "__device__ long long lc_trace[32];\n"
+     "extern \"C\" int lc_read_trace(long long* host) {\n"
+     "  return (int)cudaMemcpyFromSymbol(host, lc_trace, 32 * sizeof(long long));\n"
+     "}\n__global__ void lc_empty_small() {}\n"
+     "extern \"C\" int lc_launch_empty_small(void* s) {\n"
+     "  lc_empty_small<<<1, 32, 0, (cudaStream_t)s>>>();\n"
+     "  return (int)cudaGetLastError();\n}\n"
+     "template <typename T, bool Q, int NOPS>\n"
+     "__global__ void __launch_bounds__(LC_THREADS) lc_kernel("),
+    ("  const int step = blockDim.x * LC_RUN;\n",
+     "  const int step = blockDim.x * LC_RUN;\n"
+     "  const long long lc_t0 = clock64();\n"
+     "  const bool lc_me = blockIdx.x == 0 && threadIdx.x == 0;\n"),
+    ("    hp_bar_expect_tx(&bar, bytes);\n",
+     "    hp_bar_expect_tx(&bar, bytes);\n"
+     "    if (lc_me) lc_trace[7] = clock64() - lc_t0;\n"),
+    ("  // the elements outside each operand's bulk range",
+     "  if (lc_me) lc_trace[0] = clock64() - lc_t0;\n"
+     "  // the elements outside each operand's bulk range"),
+    ("  __syncthreads();              // s_base and s_dt\n",
+     "  if (lc_me) lc_trace[1] = clock64() - lc_t0;\n"
+     "  __syncthreads();\n  if (lc_me) lc_trace[2] = clock64() - lc_t0;\n"),
+    ("  hp_bar_wait(&bar, 0);\n",
+     "  hp_bar_wait(&bar, 0);\n  if (lc_me) lc_trace[3] = clock64() - lc_t0;\n"),
+    ("    for (int s = 0; s < n_stages; ++s) {\n",
+     "    if (lc_me && j0 == 0) lc_trace[6] = clock64() - lc_t0;\n"
+     "    for (int s = 0; s < n_stages; ++s) {\n"
+     "      if (lc_me && j0 == 0 && s < 8) lc_trace[8 + 2 * s] = clock64() - lc_t0;\n"),
+    ("      else lc_float_step(code, v, o, st, bits);\n",
+     "      else lc_float_step(code, v, o, st, bits);\n"
+     "      if (lc_me && j0 == 0 && s < 8 && v[0] != (C)123456)\n"
+     "        lc_trace[9 + 2 * s] = clock64() - lc_t0;\n"),
+    ("    if (vec_out && j0 + LC_RUN <= len) {\n",
+     "    if (lc_me && j0 == 0) lc_trace[5] = clock64() - lc_t0;\n"
+     "    if (vec_out && j0 + LC_RUN <= len) {\n"),
+    ("  }\n}\n\n// The launch floor",
+     "  }\n  if (lc_me) lc_trace[4] = clock64() - lc_t0;\n}\n\n// The launch floor"),
+)
+
+
+def profile_chain_trace(dev: torch.device) -> None:
+    """Where a served chain call's device time goes: SM cycles of each
+    phase of block 0, from a clock-stamped build of ``csrc/linear_chain.cu``
+    (``_CHAIN_TRACE_PATCHES``), for the six served chain calls; and the
+    floors of a call: no launch, an empty kernel with no parameters and one
+    with the chain kernels' parameter block (time per call between CUDA
+    events, device time)."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import linear_pipeline as lp
+
+    lib = _patched_build("linear_chain", _CHAIN_TRACE_PATCHES, "lc_trace")
+    lp._declare(lib)
+    lib.lc_read_trace.argtypes = [ctypes.c_void_p]
+    lib.lc_launch_empty_small.argtypes = [ctypes.c_void_p]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for label, fn in (("no launch", lambda: None),
+                      ("empty kernel, no parameters",
+                       lambda: lib.lc_launch_empty_small(stream)),
+                      ("empty kernel, the chain parameter block",
+                       lambda: lib.lc_launch_empty(stream))):
+        print(f"chain floor, {label}: per call {call_ms(fn):.5f} ms, device "
+              f"{sum(device_parts(fn).values()):.5f} ms", flush=True)
+    saved = build._LIBS["linear_chain"]
+    build._LIBS["linear_chain"] = lib
+    try:
+        for label, step, bits, x, extras in served_chains(dev):
+            chain = lp.Chain(step.stages, step.vecs, step.quantized, bits)
+            dev_ms = sum(device_parts(lambda: lp.run_chain(chain, x, extras)).values())
+            st = (ctypes.c_longlong * 32)()
+            if lib.lc_read_trace(ctypes.addressof(st)):
+                raise RuntimeError("chain trace: reading the stamps failed")
+            phases = (("expected", 7), ("copies issued", 0), ("edges", 1),
+                      ("barrier", 2), ("waited", 3), ("walk start", 6))
+            stages = "; ".join(f"{s[0]} {st[8 + 2 * j]}-{st[9 + 2 * j]}"
+                               for j, s in enumerate(step.stages[:8]))
+            print(f"chain trace {label}: device {dev_ms:.5f} ms (this build); "
+                  "block 0 SM cycles " + ", ".join(f"{k} {st[j]}" for k, j in phases)
+                  + f", stages {stages}, walked {st[5]}, end {st[4]}", flush=True)
+    finally:
+        build._LIBS["linear_chain"] = saved
+
+
+def main(argv: list[str] | None = None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("profile_kernels: no CUDA card", file=sys.stderr)
         return 1
@@ -277,6 +567,13 @@ def main() -> int:
                           text=True).stdout.strip()
     print(card, flush=True)
     dev = torch.device("cuda")
+    profile_chains(dev)
+    if argv == ["--chains"]:
+        return 0
+    profile_chain_variants(dev)
+    profile_chain_trace(dev)
+    if argv == ["--chain-trace"]:
+        return 0
     profile_decode(dev)
     profile_spmv(dev)
     profile_megakernel(dev)

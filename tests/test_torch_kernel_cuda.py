@@ -171,6 +171,84 @@ def test_served_chains_match_plain(card, bench, precision):
         _check_chain(*_chip_smoke().chain_case(prog, step, seed=i))
 
 
+@pytest.mark.parametrize("bits", [None, 8, 16], ids=["float", "int8", "int16"])
+def test_chain_kernel_reads_views_at_any_storage_offset(card, bits):
+    """The stream and each extra at storage offsets of 0-15 bytes: the
+    elements outside an operand's 16-byte-aligned middle are the threads'
+    own loads."""
+    cs = _chip_smoke()
+    rng = np.random.default_rng(30 + (bits or 0))
+    pool = cs.FLOAT_STAGES if bits is None else cs.Q_STAGES
+    for shape in ((4, 16, 976), (3, 5, 40)):
+        stages, vecs, n_arr = cs.random_chain(rng, list(rng.permutation(pool)),
+                                              shape[-1], bits)
+        chain = lp.Chain(tuple(stages), tuple(vecs), bits is not None, bits or 8)
+        ops = [torch.from_numpy(cs.random_stream(rng, shape, bits)).to(card)
+               for _ in range(1 + n_arr)]
+        item = ops[0].element_size()
+        for off in range(0, 16, item):
+            x, *extras = [cs.at_offset(t, (off + 3 * k * item) % 16)
+                          for k, t in enumerate(ops)]
+            assert x.data_ptr() % 16 == off
+            _check_chain(chain, x, extras)
+
+
+@pytest.mark.parametrize("bits", [None, 8], ids=["float", "int8"])
+def test_chain_kernel_at_its_limits(card, bits):
+    """16 extras and 64 stages; a 1-element stream with length-1 vecs; an
+    int8 stream with int16 and int32 extras."""
+    cs = _chip_smoke()
+    rng = np.random.default_rng(9)
+    pool = cs.FLOAT_STAGES if bits is None else cs.Q_STAGES
+    arr = [op for op in pool if op.endswith("_arr")]
+    names = [arr[i % len(arr)] for i in range(lp.LC_MAX_ARR)] + list(
+        rng.choice([op for op in pool if not op.endswith("_arr")],
+                   lp.LC_MAX_STAGES - lp.LC_MAX_ARR))
+    rng.shuffle(names)
+    for shape, names_ in (((7, 333), names), ((1,), list(rng.permutation(pool)))):
+        stages, vecs, n_arr = cs.random_chain(rng, names_, shape[-1], bits)
+        x, *extras = [torch.from_numpy(cs.random_stream(rng, shape, bits)).to(card)
+                      for _ in range(1 + n_arr)]
+        if bits is not None and n_arr > 2:
+            extras[1], extras[2] = extras[1].to(torch.int16), extras[2].int()
+        _check_chain(lp.Chain(tuple(stages), tuple(vecs), bits is not None,
+                              bits or 8), x, extras)
+
+
+def test_chain_call_captured_in_a_graph_replays_bitwise(card):
+    """A served chain call captured in a CUDA graph: its replay equals the
+    eager call bitwise, also after new operands are copied in; the capture
+    counts one launch."""
+    cs = _chip_smoke()
+    for precision in ("float32", "int8"):
+        prog = get_program("bonsai/usps-b", precision=precision,
+                           use_pallas=True, device=card)
+        step = [s for s in prog.plan.steps if type(s).__name__ == "ChainStep"][-1]
+        chain, x, extras = cs.chain_case(prog, step, seed=1)
+        eager = lp.run_chain(chain, x, extras)
+        side = torch.cuda.Stream(card)
+        side.wait_stream(torch.cuda.current_stream(card))
+        with torch.cuda.stream(side):
+            lp.run_chain(chain, x, extras)
+        torch.cuda.current_stream(card).wait_stream(side)
+        name = "linear_chain_q" if chain.quantized else "linear_chain"
+        before = LAUNCHES[name]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = lp.run_chain(chain, x, extras)
+        assert LAUNCHES[name] == before + 1
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
+        _, x2, extras2 = cs.chain_case(prog, step, seed=2)
+        for t, t2 in zip((x, *extras), (x2, *extras2)):
+            t.copy_(t2)
+        graph.replay()
+        want = lp.run_chain(chain, x, extras)
+        torch.cuda.synchronize()
+        assert torch.equal(captured, want)
+
+
 def test_use_pallas_lane_launches_one_chain_per_bucket(card):
     prog = get_program("bonsai/usps-b", use_pallas=True, device=card)
     X = np.random.default_rng(0).standard_normal((40, 256)).astype(np.float32)

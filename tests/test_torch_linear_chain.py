@@ -8,9 +8,10 @@ that a chain with a ``q_unary`` stage may differ by 1 LSB (XLA's and
 torch's transcendentals may differ by an ulp); the count is printed.
 
 The CUDA kernel cannot run here, but what it reads can: ``pack_chain``
-turns a chain into a stage table, a float side table and a vec pool, and
-``_emulate`` below walks them with the kernel's semantics
-(``csrc/linear_chain.cu``).  It must equal the plain version exactly (the
+turns a chain into a stage table (rows of ``LcStage``, decoded here by
+an independent numpy mirror) and a vec pool, and ``_emulate`` below walks
+them with the kernel's semantics (``csrc/linear_chain.cu``; its order of
+work per block is emulated in ``tests/test_torch_chain_plan.py``).  It must equal the plain version exactly (the
 float ``sigmoid`` stage to ``1e-6``: the kernel computes
 ``1 / (1 + exp(-x))``, the plain version ``torch.sigmoid``).
 """
@@ -105,19 +106,32 @@ def test_chain_with_three_extras(bits):
 
 
 # ------------------------------------------------------ packed stage table
-def _emulate(pk, x, extras, quantized, bits):
-    """Walk the packed stage table over the flattened stream, as the
-    kernel's threads do (one element each, same stage order)."""
-    T, F, V = pk["table"], pk["ftable"], pk["vecs"]
-    n = x.shape[-1]
-    col = np.arange(x.size) % n
-    flat = [e.reshape(-1) for e in extras]
-    v = x.reshape(-1).astype(np.int32 if quantized else np.float32)
-    for t, g in zip(T, F):
+# csrc/linear_chain.cu's LcStage, mirrored here independently of the wrapper
+STAGE = np.dtype([("i", "<i4", 6), ("f", "<f4", 4)])
+
+
+def _rows(pk):
+    """The packed stage table's rows and the vec pool, decoded from their
+    bytes (each a multiple of 16 bytes, as the kernel's bulk copies take)."""
+    p = pk["params"]
+    assert pk["table"].dtype == np.uint8 and pk["vecs"].dtype == np.uint8
+    assert len(pk["table"]) == p.table_bytes == -(-STAGE.itemsize * p.n_stages // 16) * 16
+    assert len(pk["vecs"]) == p.vec_bytes and p.vec_bytes % 16 == 0
+    T = np.frombuffer(pk["table"].tobytes(), STAGE, count=p.n_stages)
+    V = np.frombuffer(pk["vecs"].tobytes(), np.int32 if p.quantized else np.float32)
+    return T, V
+
+
+def _walk(T, V, v, cols, flat, bits):
+    """Apply the stage rows ``T`` to the carrier values ``v`` (int32 or
+    float32) of elements at columns ``cols``, as the kernel's threads do;
+    ``flat`` holds each extra's values at the same elements, ``V`` the vec
+    pool."""
+    for t, g in zip(T["i"], T["f"]):
         st, opnd, vlen, p0, p1, p2 = (int(a) for a in t)
         o = None
         if st in (1, 2, 3, 17, 18, 19):                      # *_vec
-            o = V[opnd + (0 if vlen == 1 else col)]
+            o = V[opnd + (0 if vlen == 1 else cols)]
         elif st in (8, 9, 10, 20, 21, 22):                   # *_arr
             o = flat[opnd].astype(V.dtype)
         if st < 16:
@@ -141,6 +155,16 @@ def _emulate(pk, x, extras, quantized, bits):
             sign = 1 if st in (17, 20) else -1
             acc = _align(v, p0) + sign * _align(o, p1)
             v = _requant(acc.astype(np.int32), p2, bits)
+    return v
+
+
+def _emulate(pk, x, extras, quantized, bits):
+    """Walk the packed stage table over the flattened stream, as the
+    kernel's threads do (same stage order, same columns)."""
+    T, V = _rows(pk)
+    cols = np.arange(x.size) % x.shape[-1]
+    v = x.reshape(-1).astype(np.int32 if quantized else np.float32)
+    v = _walk(T, V, v, cols, [e.reshape(-1) for e in extras], bits)
     return v.astype(x.dtype).reshape(x.shape)
 
 
@@ -155,7 +179,8 @@ def test_packed_table_runs_like_the_plain_version(seed, bits):
         stages.append(("q_add_vec", (len(vecs) - 1, 0, 1, 1)))
     chain = tlp.Chain(tuple(stages), tuple(vecs), bits is not None, bits or 8)
     pk = tlp.pack_chain(chain)
-    assert pk["table"].shape == (len(stages), 6)
+    assert pk["params"].n_stages == len(stages)
+    assert pk["n_arr"] == len(extras)
     got = _emulate(pk, x, extras, bits is not None, bits)
     xs = [torch.from_numpy(e) for e in extras]
     want = tlp.run_chain(chain, torch.from_numpy(x), xs).numpy()
@@ -194,3 +219,14 @@ def test_pack_rejects_a_stage_of_the_other_vocabulary():
         tlp.pack_chain(tlp.Chain((("tanh", None),), (), True))
     with pytest.raises(ValueError, match="float"):
         tlp.pack_chain(tlp.Chain((("q_scalar_mul", (3, 1)),)))
+
+
+def test_pack_rejects_chains_beyond_the_kernels_limits():
+    """At most ``LC_MAX_STAGES`` stages and ``LC_MAX_ARR`` extras, checked
+    when the chain is packed; at the limits it packs."""
+    tlp.pack_chain(tlp.Chain((("tanh", None),) * tlp.LC_MAX_STAGES))
+    tlp.pack_chain(tlp.Chain((("add_arr", tlp.LC_MAX_ARR - 1),)))
+    with pytest.raises(ValueError, match="stages"):
+        tlp.pack_chain(tlp.Chain((("tanh", None),) * (tlp.LC_MAX_STAGES + 1)))
+    with pytest.raises(ValueError, match="extras"):
+        tlp.pack_chain(tlp.Chain((("add_arr", tlp.LC_MAX_ARR),)))
