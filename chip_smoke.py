@@ -75,7 +75,32 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               launches = 36 x decode steps, exactly; a decode step makes
               one host-to-device copy (tokens and positions; the 36 layers'
               lengths are made on the card from it);
-8. report   — the chain kernels' launch floor (an empty kernel with their
+8. front    — the front of the paper's pipeline on the card.  Trained
+              programs: bonsai/curet-m and protonn/curet-m trained with the
+              port's ``train`` (``build(trained=True)``: 1,024 rows, 120
+              steps, on the card), seconds and train/test accuracy; float32
+              and int8 (calibrated on the training split) compiled on
+              ``megakernel_grid`` and with ``use_pallas=True``; every segment
+              and chain against its plain version (grid == per-sample
+              bitwise), the int8 test-accuracy drop against float32.
+              MLPerf-Tiny: ``kws_mlp`` and ``tiny_cnn`` imported through the
+              port's ONNX importer, compiled at float32, int8 and int8
+              per-channel (calibration ``sample_inputs(name, 128, seed=7)``)
+              on ``megakernel_grid``: 1 segment and 2 / 8 interpreted islands,
+              each matrix's placement, the segment against its plain version
+              and grid == per-sample bitwise on the values the islands hand
+              it, the whole program against the ``interpret`` lane (float32
+              ``rtol = atol = 1e-5``, int8 within 1 LSB of the output scale:
+              the float ``softmax`` island), the int8 argmax agreement with
+              the float32 teacher over 256 inputs within ``INT8_MAX_DROP``,
+              and a bucket under CUDA's sync debug mode (no island copies to
+              the host) with one host-to-device copy (the input).  Serving:
+              256 requests per engine through ``ClassicalServeEngine``;
+              over these runs megakernel launches = segments x buckets and
+              chain launches = chains x buckets, exactly; requests/s on the
+              host clock, the segment's device time and bound, its share of
+              a bucket and the islands' share of a bucket's device time;
+9. report   — the chain kernels' launch floor (an empty kernel with their
               parameter block) beside each served chain call's device time
               and time per call, against ``CHAIN_DEVICE_MS`` /
               ``CHAIN_FLOOR_X`` / ``CHAIN_CALL_MS`` (printed, not checked);
@@ -116,6 +141,14 @@ PEAK_OPS = {"float32": 67e12,      # fp32 outside the tensor cores
             "int8": 1979e12, "int16": 1979e12}   # int8 tensor-core peak
 BUCKET = 64
 SERVE_REQUESTS = 256
+# phase 8: the trained Table-I programs; the training-split rows int8
+# calibrates on (as the program cache does); the MLPerf-Tiny int8 gate
+# (tests/test_onnx_frontend.py's INT8_MAX_DROP) and islands per plan
+TRAINED = ("bonsai/curet-m", "protonn/curet-m")
+TRAINED_CALIB = 256
+INT8_MAX_DROP = 0.015
+TINY_ISLANDS = {"kws_mlp": 2, "tiny_cnn": 8}
+MK_KERNEL = "mk_segment_kernel"     # the megakernel, by name in a trace
 F32_RTOL = F32_ATOL = 1e-5
 # aims of a served chain call, printed beside its times (not checked): device
 # ms, that over an empty kernel's, ms per call between CUDA events
@@ -306,6 +339,43 @@ def bucket_inputs(prog, seed: int, n: int = BUCKET):
     if prog.precision != "float32":
         x = quantize_t(x, prog.plan.input_exps[name], prog.plan.bits)
     return X, x.reshape(n, -1).contiguous()
+
+
+def walk_plan(prog, X):
+    """The batch ``X`` through a one-segment hybrid plan as the executor's
+    batched grid lane runs it: the graph input, quantized on the integer
+    lanes, through each interpreted island (``vmap``'d) and the segment
+    (one grid launch).  Returns the segment's inputs, one ``(len(X),
+    width)`` tensor each, and every island as ``(step, its inputs)``."""
+    import torch
+
+    from repro_torch.core.quantize import quantize_t
+    from repro_torch.kernels.megakernel import run_segment_grid
+
+    plan = prog.plan
+    (name, _), = prog.dfg.graph_inputs.items()
+    x = torch.from_numpy(X).to(prog.device)
+    if prog.precision != "float32":
+        x = quantize_t(x, plan.input_exps[name], plan.bits)
+    env, seg_in, islands = {name: x}, None, []
+    for kind, payload in plan.megakernel.items:
+        if kind == "seg":
+            if seg_in is not None:
+                raise ValueError("the plan has more than one segment")
+            seg_in = [env[r].reshape(len(X), -1).contiguous()
+                      for r in payload.in_refs]
+            for r, v, shape in zip(payload.out_refs,
+                                   run_segment_grid(payload, seg_in),
+                                   payload.out_shapes):
+                env[r] = v.reshape((len(X),) + tuple(shape))
+            continue
+        step = plan.steps[payload]
+        args = [env[r] for r in step.inputs]
+        islands.append((step, args))
+        env[step.nid] = torch.func.vmap(step.fn)(*args)
+    if seg_in is None:
+        raise ValueError("the plan has no megakernel segment")
+    return seg_in, islands
 
 
 def compare(seg, kern, plain) -> tuple[bool, float, int]:
@@ -618,6 +688,30 @@ def device_split(fn, names: tuple[str, ...], reps: int = 3,
             n_act / reps)
 
 
+def htod_copies(fn, reps: int = 5) -> tuple[float, float]:
+    """Host-to-device copies per call of ``fn``: the copies a profiler trace
+    shows on the card (``HTOD``; a trace may drop a small one), and the
+    host's calls of the CUDA runtime's copy functions (``cudaMemcpy*``),
+    which ``fn`` makes only for host-to-device copies when its results stay
+    on the card."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = sum(1 for e in p.events()
+              if e.device_type == DeviceType.CUDA and HTOD in e.name)
+    calls = sum(1 for e in p.events()
+                if e.device_type == DeviceType.CPU
+                and e.name.startswith("cudaMemcpy"))
+    return dev / reps, calls / reps
+
+
 def teacher_forced(model, done, vocab: int, plain: bool):
     """Hold every served token against the argmax of the model's
     teacher-forced ``forward_full`` over the prompt and the tokens served
@@ -671,7 +765,12 @@ def main() -> int:
 
     sys.path.insert(0, os.path.join(ROOT, "src"))
     try:
-        from repro_torch.configs.classical import BENCHMARKS, build
+        from repro_torch.configs import mlperf_tiny as mt
+        from repro_torch.configs.classical import (BENCHMARKS, TRAIN_SPLIT,
+                                                   build)
+        from repro_torch.core.compiler import MafiaCompiler
+        from repro_torch.data.datasets import get_spec, make_dataset
+        from repro_torch.models import bonsai, protonn
         from repro_torch.core.lowering import ChainStep
         from repro_torch.kernels import build as kb
         from repro_torch.kernels import linear_pipeline as lp
@@ -1347,7 +1446,282 @@ def main() -> int:
           f"{launches['decode_attention']}; bf16 products with an fp32 result "
           f"via {MM_F32_ROUTE.get('bfloat16', 'none')}")
 
-    # ------------------------------------------------------------ 8. report
+    # ------------------------------------------------------- 8. front (main)
+    t = time.perf_counter()
+    front: dict = {"trained": [], "tiny": [], "served": []}
+    front_timed: list[dict] = []
+
+    def check_segment(label, seg, xs):
+        """The segment against its plain version on ``xs``; grid ==
+        per-sample bitwise.  Returns (max abs err, 1-LSB count)."""
+        grid = mk.run_segment_grid(seg, xs)
+        per = [mk.run_segment(seg, [x[i] for x in xs])
+               for i in range(int(xs[0].shape[0]))]
+        plain = run_segment_grid_ref(seg, xs)
+        torch.cuda.synchronize()
+        for j, g in enumerate(grid):
+            if not torch.equal(g, torch.stack([p[j] for p in per])):
+                raise AssertionError(f"{label}: grid vs per-sample differ on "
+                                     f"output {seg.out_refs[j]}")
+        ok, err, lsb = compare(seg, grid, plain)
+        if not ok:
+            raise AssertionError(f"{label}: kernel vs plain out of tolerance "
+                                 f"(max abs err {err}, 1-LSB count {lsb})")
+        return err, lsb
+
+    def time_engine(label, eng, X, prec):
+        """Serving rate on the host clock; the segment's device time, plain
+        version and bound; its share of a bucket; a bucket's device time
+        (its input already on the card) and the islands' share of it (the
+        islands replayed alone on the inputs the bucket gives them)."""
+        (seg,) = eng.program.plan.megakernel.segments
+        xs, islands = walk_plan(eng.program, np.ascontiguousarray(X[:BUCKET]))
+        wall = statistics.median(serve_wall_s(eng, X) for _ in range(3))
+        buckets = len(X) // BUCKET
+        d_ms, timer = device_ms(lambda: mk.run_segment_grid(seg, xs), reps=50)
+        call_ms = median_ms(lambda: mk.run_segment_grid(seg, xs), reps=50)
+        p_ms, _ = device_ms(lambda: run_segment_grid_ref(seg, xs), reps=3,
+                            warm=1)
+        b_ms, b_by = bound_ms(seg, BUCKET, prec)
+        xb = torch.from_numpy(np.ascontiguousarray(X[:BUCKET])).to(dev)
+        name = next(iter(eng.program.dfg.graph_inputs))
+        tot, part, n_act = device_split(
+            lambda: eng.batched(**{name: xb}), (MK_KERNEL,), reps=5)
+        isl_ms = (device_ms(lambda: [torch.func.vmap(st.fn)(*a)
+                                     for st, a in islands], reps=20)[0]
+                  if islands else 0.0)
+        bucket_ms = wall / buckets * 1e3
+        rec = dict(bench=label, precision=prec, ms=d_ms, timer=timer,
+                   call_ms=call_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                   serve_rps=len(X) / wall, serve_bucket_ms=bucket_ms,
+                   device_busy=buckets * d_ms / (wall * 1e3),
+                   bucket_device_ms=tot, bucket_kernel_ms=part[MK_KERNEL],
+                   bucket_activities=n_act, islands=len(islands),
+                   islands_ms=isl_ms, islands_share=isl_ms / tot)
+        print(f"  megakernel {label} {prec}: bucket of {BUCKET}: segment "
+              f"{d_ms:.5f} ms on the device ({timer}), {call_ms:.4f} ms per "
+              f"call, plain {p_ms:.3f} ms, bound {b_ms:.6f} ms ({b_by}); "
+              f"served {len(X) / wall:.0f} requests/s, {bucket_ms:.3f} ms per "
+              f"bucket on the host clock, segment {d_ms / bucket_ms:.1%} of "
+              f"it; a bucket's device time {tot:.5f} ms over {n_act:.0f} "
+              f"activities, of which the megakernel {part[MK_KERNEL]:.5f} ms "
+              f"and {len(islands)} islands {isl_ms:.5f} ms "
+              f"({rec['islands_share']:.1%})", flush=True)
+        return rec
+
+    # (label, precision, lane, engine, requests, the interpret-lane program
+    # to agree with or None, launches per bucket)
+    serve_front = []
+    try:
+        # -- trained Table-I programs: train on the card, compile, check
+        for bench in TRAINED:
+            algo, ds = bench.split("/")
+            mod = bonsai if algo == "bonsai" else protonn
+            t1 = time.perf_counter()
+            _, params, cfg = build(bench, trained=True)   # train: the card
+            train_s = time.perf_counter() - t1
+            Xtr, ytr, Xte, yte = make_dataset(get_spec(ds), n_train=TRAIN_SPLIT,
+                                              seed=0)
+            rec = dict(bench=bench, train_s=train_s, steps=120, rows=len(Xtr),
+                       train_acc=mod.accuracy(params, cfg, Xtr, ytr),
+                       test_acc=mod.accuracy(params, cfg, Xte, yte))
+            progs = {}
+            for prec in ("float32", "int8"):
+                calib = None if prec == "float32" else Xtr[:TRAINED_CALIB]
+                for lane, kw in (("megakernel_grid",
+                                  dict(exec_mode="megakernel_grid")),
+                                 ("use_pallas", dict(use_pallas=True)),
+                                 ("interpret", {})):
+                    dfg = mod.build_dfg(params, cfg,
+                                        name=bench.replace("/", "_"))
+                    progs[prec, lane] = MafiaCompiler(
+                        precision=prec, device=dev, **kw).compile(dfg,
+                                                                  calib=calib)
+                prog = progs[prec, "megakernel_grid"]
+                mkp = prog.plan.megakernel
+                if mkp.n_islands or len(mkp.segments) != 1:
+                    raise AssertionError(f"trained {bench}/{prec}: "
+                                         f"{mkp.summary()}")
+                rec[f"{prec}_segment_err"], _ = check_segment(
+                    f"trained {bench}/{prec}", mkp.segments[0],
+                    [bucket_inputs(prog, seed=1)[1]])
+                steps = [s for s in progs[prec, "use_pallas"].plan.steps
+                         if isinstance(s, ChainStep)]
+                for i, step in enumerate(steps):
+                    check_chain(f"trained {bench}/{prec} chain {i}",
+                                *chain_case(progs[prec, "use_pallas"], step,
+                                            seed=i))
+                rec[f"{prec}_chains"] = len(steps)
+                pred = prog.batch(BUCKET)(x=Xte)["Pred"].reshape(-1).cpu().numpy()
+                rec[f"{prec}_test_acc_served"] = float((pred == yte).mean())
+                eng = ClassicalServeEngine(prog, max_batch=BUCKET)
+                X = requests(eng)
+                serve_front.append((bench, prec, "megakernel_grid", eng, X,
+                                    progs[prec, "interpret"], 1))
+                eng = ClassicalServeEngine(progs[prec, "use_pallas"],
+                                           max_batch=BUCKET)
+                serve_front.append((bench, prec, "use_pallas", eng, X,
+                                    progs[prec, "interpret"], len(steps)))
+            rec["int8_drop"] = (rec["float32_test_acc_served"]
+                                - rec["int8_test_acc_served"])
+            print(f"  trained {bench}: {train_s:.2f} s for 120 steps on "
+                  f"{len(Xtr)} rows (the card), train accuracy "
+                  f"{rec['train_acc']:.4f}, test accuracy {rec['test_acc']:.4f}"
+                  f"; served test accuracy float32 "
+                  f"{rec['float32_test_acc_served']:.4f}, int8 "
+                  f"{rec['int8_test_acc_served']:.4f} (drop "
+                  f"{rec['int8_drop']:+.4f}); chains float32 "
+                  f"{rec['float32_chains']}, int8 {rec['int8_chains']}; "
+                  "segments and chains within tolerance of their plain "
+                  "versions", flush=True)
+            front["trained"].append(rec)
+
+        # -- MLPerf-Tiny through the ONNX importer: hybrids with islands
+        for name in mt.WORKLOADS:
+            calib = {"input": mt.sample_inputs(name, 128, seed=7)}
+            x_eval = mt.sample_inputs(name, SERVE_REQUESTS)
+            f32 = MafiaCompiler(exec_mode="megakernel_grid",
+                                device=dev).compile(mt.build(name))
+            labels = mt.teacher_labels(f32, x_eval)   # per-sample lane
+            for prec, pc in (("float32", False), ("int8", False),
+                             ("int8", True)):
+                label = f"{name} {prec}" + (" per-channel" if pc else "")
+                prog = f32 if prec == "float32" else MafiaCompiler(
+                    precision=prec, per_channel=pc, exec_mode="megakernel_grid",
+                    device=dev).compile(mt.build(name), calib=calib)
+                interp = MafiaCompiler(precision=prec, per_channel=pc,
+                                       device=dev).compile(
+                    mt.build(name), calib=None if prec == "float32" else calib)
+                mkp = prog.plan.megakernel
+                if len(mkp.segments) != 1 or mkp.n_islands != TINY_ISLANDS[name]:
+                    raise AssertionError(f"{label}: {mkp.summary()}")
+                (seg,) = mkp.segments
+                places = mk.pack_segment(seg)["placements"]
+                print(f"  {label}: {mkp.summary()}; matrices " + ", ".join(
+                    f"{'x'.join(map(str, np.shape(seg.matrices[mi])))} {pl}"
+                    for mi, pl in places.items()), flush=True)
+                xs, _ = walk_plan(prog, x_eval[:BUCKET])
+                err, lsb = check_segment(label, seg, xs)
+                out = next(iter(prog.batch(BUCKET)(input=x_eval).values()))
+                ref = next(iter(interp.batch(BUCKET)(input=x_eval).values()))
+                torch.cuda.synchronize()
+                d = (out.double() - ref.double()).abs()
+                if prec == "float32":
+                    lane_ok = bool(torch.allclose(out, ref, rtol=F32_RTOL,
+                                                  atol=F32_ATOL))
+                    n_lsb = 0
+                else:
+                    (e_out,) = prog.plan.output_exps.values()
+                    lane_ok = bool((d <= 2.0 ** -e_out).all())
+                    n_lsb = int((d > 0).sum())
+                pred = out.argmax(-1).cpu().numpy()
+                drop = 1.0 - float((pred == labels).mean())
+                finite = bool(torch.isfinite(out).all())
+                rec = dict(program=name, precision=prec, per_channel=pc,
+                           summary=mkp.summary(), placements={
+                               "x".join(map(str, np.shape(seg.matrices[mi]))): pl
+                               for mi, pl in places.items()},
+                           segment_err=err, segment_lsb_1=lsb,
+                           lane_max_abs_err=float(d.max()), lane_lsb_1=n_lsb,
+                           teacher_agree=1.0 - drop, drop=drop, finite=finite)
+                front["tiny"].append(rec)
+                print(f"  {label}: segment within tolerance of its plain "
+                      f"version (max abs err {err:.3g}), grid == per-sample; "
+                      f"program vs interpret lane max abs err "
+                      f"{float(d.max()):.3g} ({n_lsb} elements off by 1 LSB)"
+                      f"; argmax agreement with the float32 teacher "
+                      f"{1.0 - drop:.4f} (drop {drop:.4f}, limit "
+                      f"{INT8_MAX_DROP})", flush=True)
+                if not (lane_ok and finite and out.shape == ref.shape):
+                    raise AssertionError(f"{label}: program vs interpret lane "
+                                         f"max abs err {float(d.max())}")
+                if drop > INT8_MAX_DROP:
+                    raise AssertionError(f"{label}: accuracy drop {drop:.4f} "
+                                         f"> {INT8_MAX_DROP}")
+                # islands on the card copy nothing to the host: one bucket
+                # with its input on the card under CUDA's sync debug mode
+                xb = torch.from_numpy(x_eval[:BUCKET]).to(dev)
+                batched = prog.batch(BUCKET)
+                batched(input=xb)
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    batched(input=xb)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                print(f"  {label}: a bucket on the card under CUDA's sync "
+                      "debug mode: no synchronisation", flush=True)
+                eng = ClassicalServeEngine(prog, max_batch=BUCKET)
+                on_dev, calls = htod_copies(lambda: eng.batched(
+                    input=x_eval[:BUCKET]))
+                print(f"  {label}: a bucket from the host makes {calls:g} "
+                      f"host-to-device copy call(s) ({on_dev:g} in the trace)",
+                      flush=True)
+                if calls != 1 or on_dev > 1:
+                    raise AssertionError(f"{label}: {calls} host-to-device "
+                                         f"copy calls in a bucket ({on_dev} in "
+                                         "the trace), expected 1 (the input)")
+                rec["bucket_htod_copies"] = calls
+                serve_front.append((name + (" per-channel" if pc else ""),
+                                    prec, "megakernel_grid", eng, x_eval,
+                                    None, 1))
+
+        # -- serving: launches over these runs only
+        LAUNCHES["megakernel"] = 0
+        LAUNCHES["linear_chain"] = LAUNCHES["linear_chain_q"] = 0
+        want = {"megakernel": 0, "linear_chain": 0, "linear_chain_q": 0}
+        finished = []
+        for label, prec, lane, eng, X, interp, n in serve_front:
+            kname = ("megakernel" if lane == "megakernel_grid" else
+                     "linear_chain" if prec == "float32" else "linear_chain_q")
+            want[kname] += n * (len(X) // BUCKET)
+            for row in X:
+                eng.submit(row)
+            finished.append(eng.run_to_completion())
+        torch.cuda.synchronize()
+        got = {k: LAUNCHES[k] for k in want}
+        print(f"  served {len(serve_front)} engines x {SERVE_REQUESTS} "
+              f"requests: launches {got} (expected {want}: segments or chains "
+              f"x {SERVE_REQUESTS // BUCKET} buckets)", flush=True)
+        if got != want:
+            raise AssertionError(f"launches {got}, expected {want}")
+        for k in want:
+            launches[k] += got[k]
+        for (label, prec, lane, eng, X, interp, n), done in zip(serve_front,
+                                                               finished):
+            if len(done) != len(X):
+                raise AssertionError(f"{label} {prec} {lane}: {len(done)} of "
+                                     f"{len(X)} requests served")
+            if interp is not None:     # trained: predictions vs interpret
+                want_p = interp.batch(BUCKET)(x=X)["Pred"].reshape(-1).cpu()
+                n_ok = sum(int(r.pred == int(w)) for r, w in zip(done, want_p))
+                front["served"].append(dict(lane=lane, bench=label,
+                                            precision=prec, agree=n_ok,
+                                            requests=len(done)))
+                print(f"  {lane} trained {label} {prec}: {n_ok}/{len(done)} "
+                      "predictions agree with the interpret lane", flush=True)
+                if n_ok < 0.99 * len(done):
+                    raise AssertionError(f"{label} {lane}: {n_ok}/{len(done)} "
+                                         "agree with the interpret lane")
+            else:
+                out = np.stack([next(iter(r.outputs.values())) for r in done])
+                direct = next(iter(eng.program.batch(BUCKET)(
+                    input=X).values())).cpu().numpy()
+                if not (np.isfinite(out).all() and np.array_equal(out, direct)):
+                    raise AssertionError(f"{label} {prec}: served outputs "
+                                         "differ from the program's")
+        for label, prec, lane, eng, X, interp, n in serve_front:
+            if lane == "megakernel_grid":
+                front_timed.append(time_engine(label, eng, X, prec))
+    except AssertionError as e:
+        return fail("front", str(e))
+    phase("front", t, f"{len(TRAINED)} programs trained on the card; "
+          f"{len(front['tiny'])} MLPerf-Tiny program x precision cases with "
+          f"islands; {len(serve_front)} engines served; launches "
+          f"megakernel {got['megakernel']}, chains "
+          f"{got['linear_chain'] + got['linear_chain_q']}")
+
+    # ------------------------------------------------------------ 9. report
     t = time.perf_counter()
     saved = dict(LAUNCHES)
     timed = []
@@ -1514,7 +1888,8 @@ def main() -> int:
           "between CUDA events; serving wall time on the host clock")
     report.update(served=served, timed=timed, launches=launches, rows=rows,
                   chain_floor=chain_floor,
-                  attention_cases=attn_cases, lm_runs=lm_runs,
+                  attention_cases=attn_cases, lm_runs=lm_runs, front=front,
+                  front_timed=front_timed,
                   mm_f32_route=MM_F32_ROUTE.get("bfloat16"))
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
@@ -1531,7 +1906,7 @@ def main() -> int:
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": None,
         "shape": f"{head['bench']} {head['precision']} bucket {BUCKET}",
-        "cases": timed,
+        "cases": timed + front_timed,
     }]
     for name, source, replaces, pick in (
             ("linear_chain", "linear_chain.cu", "linear_pipeline.py:142",

@@ -1,2 +1,3 @@
-"""Configs: the paper's classical benchmarks (``classical``) and the LM
-architecture registry (``registry``; qwen2.5-3b is ported)."""
+"""Configs: the paper's classical benchmarks (``classical``), the two
+MLPerf-Tiny ONNX programs (``mlperf_tiny``) and the LM architecture registry
+(``registry``; qwen2.5-3b is ported)."""

@@ -2,21 +2,41 @@
 
 Entry points run on the card unless the caller asks for the CPU: with no
 ``device`` they take ``cuda`` and raise when no card is present — there is
-no path that quietly carries on on the CPU.
+no path that quietly carries on on the CPU.  A caller that cannot pass
+``device`` down (``configs.classical.build(trained=True)`` calls ``train``
+with none) asks inside :func:`default_device`.
 """
 
 from __future__ import annotations
 
-from typing import Any
+import contextlib
+import contextvars
+from typing import Any, Iterator
 
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "as_tensor"]
+__all__ = ["resolve_device", "default_device", "as_tensor"]
+
+_DEFAULT: contextvars.ContextVar[torch.device | None] = contextvars.ContextVar(
+    "repro_torch_default_device", default=None)
+
+
+@contextlib.contextmanager
+def default_device(device: torch.device | str) -> Iterator[torch.device]:
+    """Within the block, ``device=None`` means ``device`` instead of the card."""
+    token = _DEFAULT.set(resolve_device(device))
+    try:
+        yield _DEFAULT.get()
+    finally:
+        _DEFAULT.reset(token)
 
 
 def resolve_device(device: torch.device | str | None = None) -> torch.device:
-    """``device`` as a :class:`torch.device`; None means the card."""
+    """``device`` as a :class:`torch.device`; None means the card (or the
+    device of an enclosing :func:`default_device`)."""
+    if device is None:
+        device = _DEFAULT.get()
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(

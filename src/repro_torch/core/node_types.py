@@ -88,9 +88,8 @@ class OpSpec:
     has_reduction: bool = False  # parallel exec followed by partial-sum reduction
     # int8 fixed-point variant: (int8 inputs, float params, dims, NodeQuant)
     # -> int8 output at NodeQuant.out_exp.  None = no integer template; the
-    # executor runs dequantize -> fn -> requantize instead.  Ops whose
-    # integer template is not ported yet carry a stub that raises, never
-    # None: lowering and calibration pick the q/dq mode by ``is not None``.
+    # executor runs dequantize -> fn -> requantize instead (lowering and
+    # calibration pick the q/dq mode by ``is not None``).
     fn_q: Callable[[list[Any], dict[str, Any], dict[str, int], Any], Any] | None = None
     # Algebraic-rewrite legality (front-end `algebraic` pass): a static param
     # slot the output is homogeneous-linear in (None = scalar_mul cannot
@@ -167,15 +166,35 @@ def _i32(x: Any, like: torch.Tensor | None = None) -> torch.Tensor:
     return _t(x, like, torch.int32)
 
 
-def _not_ported(name: str) -> Callable:
-    """Integer template of an op outside the classical path: present (so the
-    op keeps its ``q`` mode) but not ported yet."""
+def _i32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` on int32 operands (1-D or 2-D, as ``jnp.matmul`` takes
+    them), wrapping like the reference's int32 product.  There is no int32
+    matmul on CUDA: broadcast-multiply and sum in int32 (an int32 sum
+    promotes to int64 unless ``dtype`` is given — the carrier must wrap)."""
+    a2 = a if a.dim() == 2 else a[None, :]
+    b2 = b if b.dim() == 2 else b[:, None]
+    acc = (a2[:, :, None] * b2[None, :, :]).sum(1, dtype=torch.int32)
+    if b.dim() == 1:
+        acc = acc[:, 0]
+    return acc if a.dim() == 2 else acc[0]
 
-    def fn_q(inputs, params, dims, nq):
-        raise NotImplementedError(
-            f"the integer template of {name!r} is not ported to torch yet")
 
-    return fn_q
+# Per-row requantizing shifts (per-channel scales), one int32 tensor per
+# (node, device), made on the first call: a call on the card copies nothing.
+_SHIFT_CACHE: dict[tuple[int, str], tuple[Any, torch.Tensor]] = {}
+
+
+def _row_shifts(nq: Any, param: str, like: torch.Tensor) -> torch.Tensor:
+    """``param``'s per-row exponents plus the node's input exponent minus
+    its output exponent, as int32 on ``like``'s device."""
+    key = (id(nq), str(like.device))
+    hit = _SHIFT_CACHE.get(key)           # holds nq: its id stays unique
+    if hit is None:
+        shifts = (np.asarray(nq.param_exps[param], np.int64)
+                  + nq.in_exps[0] - nq.out_exp)
+        hit = (nq, torch.as_tensor(shifts.astype(np.int32)).to(like.device))
+        _SHIFT_CACHE[key] = hit
+    return hit[1]
 
 
 # -------------------------------------------------- integer template variants
@@ -232,10 +251,7 @@ def _q_matvec(inputs, params, dims, nq):
     accumulator then takes its own static requantizing shift — still plain
     arithmetic shifts, just one constant per row instead of one per tensor."""
     x = inputs[0].to(torch.int32).reshape(-1)
-    Wq = _i32(nq.params_q["matrix"], x)
-    # no int32 matmul on CUDA: broadcast-multiply and sum in int32 (an int32
-    # sum promotes to int64 unless ``dtype`` is given — the carrier must wrap)
-    acc = (Wq * x[None, :]).sum(-1, dtype=torch.int32)
+    acc = _i32_matmul(_i32(nq.params_q["matrix"], x), x)
     if "bias" in nq.params_q:
         # folded add-of-const (algebraic rewrite): the bias rides the int32
         # carrier at the accumulator scale, added before the requantizing
@@ -245,12 +261,13 @@ def _q_matvec(inputs, params, dims, nq):
     if np.ndim(e_w):                       # per-channel (per-output-row)
         from repro_torch.core.quantize import requantize_rows
 
-        shifts = np.asarray(e_w, np.int64) + nq.in_exps[0] - nq.out_exp
-        return requantize_rows(acc, shifts, nq.bits)
+        return requantize_rows(acc, _row_shifts(nq, "matrix", acc), nq.bits)
     return _requantize(acc, e_w + nq.in_exps[0] - nq.out_exp, nq.bits)
 
 
-_q_matmul = _not_ported("matmul")
+def _q_matmul(inputs, params, dims, nq):
+    acc = _i32_matmul(inputs[0].to(torch.int32), inputs[1].to(torch.int32))
+    return _requantize(acc, nq.in_exps[0] + nq.in_exps[1] - nq.out_exp, nq.bits)
 
 
 def _q_const(inputs, params, dims, nq):
@@ -844,7 +861,28 @@ def _im2col(x, kh: int, kw: int, sh: int, sw: int, ph: int, pw: int,
     return pat.permute(1, 0, 2, 3).reshape(cin * kh * kw, -1)
 
 
-_q_conv2d = _not_ported("conv2d")
+def _q_conv2d(inputs, params, dims, nq):
+    """Integer conv2d: int8×int8 MACs accumulated in int32 over the im2col
+    matmul, optional bias on the accumulator, one requantizing shift per
+    output channel (per-channel scales) or per tensor on write-back."""
+    kq = _i32(nq.params_q["kernel"], inputs[0])
+    cout, cin, kh, kw = kq.shape
+    (sh, sw), (ph, pw) = _conv_attrs(params)
+    cols = _im2col(inputs[0].to(torch.int32), kh, kw, sh, sw, ph, pw)
+    acc = _i32_matmul(kq.reshape(cout, -1), cols)   # (Cout, Hout*Wout) int32
+    if "bias" in nq.params_q:
+        acc = acc + _i32(nq.params_q["bias"], acc)[:, None]
+    hout = shp.window_out(inputs[0].shape[1], kh, sh, ph)
+    wout = shp.window_out(inputs[0].shape[2], kw, sw, pw)
+    e_k = nq.param_exps["kernel"]
+    if np.ndim(e_k):                             # per-channel row scales
+        from repro_torch.core.quantize import requantize_rows
+
+        out = requantize_rows(acc, _row_shifts(nq, "kernel", acc)[:, None],
+                              nq.bits)
+    else:
+        out = _requantize(acc, int(e_k) + nq.in_exps[0] - nq.out_exp, nq.bits)
+    return out.reshape(cout, hout, wout)
 
 
 def _conv2d_spec() -> OpSpec:
@@ -933,8 +971,30 @@ def _pool_attrs(params: dict[str, Any]):
     return k, s, p
 
 
-_q_maxpool2d = _not_ported("maxpool2d")
-_q_avgpool2d = _not_ported("avgpool2d")
+def _q_maxpool2d(inputs, params, dims, nq):
+    """Integer maxpool: max over the window directly on the narrow carrier
+    (dequantize is a monotone pow2 scale, so the winner matches the float
+    window max bitwise), one requantizing shift on write-back.  Strided
+    int32 views, not ``F.max_pool2d``, which takes no int32 on CUDA."""
+    (kh, kw), (sh, sw), (ph, pw) = _pool_attrs(params)
+    pat = _window_slices(inputs[0].to(torch.int32), kh, kw, sh, sw,
+                         ph, pw, pad_value=-(2**31 - 1))
+    return _requantize(pat.amax(dim=0), nq.in_exps[0] - nq.out_exp, nq.bits)
+
+
+def _q_avgpool2d(inputs, params, dims, nq):
+    """Integer avgpool: int32 window sum, then a fixed-point reciprocal
+    multiply (``round(2^s / k)`` — exact for power-of-two windows, the
+    common case) folded into the requantizing shift: SeeDot's
+    constant-division idiom, no integer divide in the datapath."""
+    (kh, kw), (sh, sw), (ph, pw) = _pool_attrs(params)
+    pat = _window_slices(inputs[0].to(torch.int32), kh, kw, sh, sw,
+                         ph, pw, pad_value=0)
+    acc = pat.sum(dim=0, dtype=torch.int32)
+    k = kh * kw
+    s = 30 - nq.bits                 # keeps |acc·recip| ≤ q_max·2^s < 2^31
+    recip = int(round((1 << s) / k))
+    return _requantize(acc * recip, nq.in_exps[0] + s - nq.out_exp, nq.bits)
 
 
 def _make_pool(name: str, q_fn) -> OpSpec:
@@ -988,7 +1048,13 @@ _make_pool("maxpool2d", _q_maxpool2d)
 _make_pool("avgpool2d", _q_avgpool2d)
 
 
-_q_relu6 = _not_ported("relu6")
+def _q_relu6(inputs, params, dims, nq):
+    """Integer relu6: clamp the carrier to [0, round(6·2^e_in)] (both bounds
+    static), one requantizing shift on write-back."""
+    q = inputs[0].to(torch.int32)
+    six = int(round(6.0 * 2.0 ** nq.in_exps[0]))
+    return _requantize(torch.clamp(q, 0, six), nq.in_exps[0] - nq.out_exp,
+                       nq.bits)
 
 
 _make_elementwise(
@@ -1080,8 +1146,13 @@ def _layernorm_spec() -> OpSpec:
 _layernorm_spec()
 
 
-_q_flatten = _not_ported("flatten")
-_q_reshape = _not_ported("reshape")
+def _q_reshape(inputs, params, dims, nq):
+    """Integer flatten/reshape: pure data movement on the carrier plus the
+    (normally zero — max-abs is reshape-invariant) requantizing shift."""
+    q = inputs[0].to(torch.int32)
+    shape = (tuple(int(x) for x in params["shape"]) if "shape" in params
+             else (-1,))
+    return _requantize(q.reshape(shape), nq.in_exps[0] - nq.out_exp, nq.bits)
 
 
 def _make_view(name: str) -> OpSpec:
@@ -1114,7 +1185,7 @@ def _make_view(name: str) -> OpSpec:
             cycles=lambda d, pf: math.ceil(d["n"] / pf) + _FILL,
             lut=lambda d, pf: 60 + 2 * pf,
             max_pf=lambda d: max(1, d["n"]),
-            fn_q=_q_flatten if is_flatten else _q_reshape,
+            fn_q=_q_reshape,
         )
     )
 

@@ -312,8 +312,9 @@ class _Hazards:
 def pack_segment(seg: MegakernelSegment) -> dict[str, Any]:
     """Host-side packing of ``seg`` into the kernel's int32 instruction
     table, float side-table and 32-bit const/matrix pools (numpy), with
-    the matrix buffers' sizes, each ``LOAD_MAT``'s buffer and each
-    instruction's flags."""
+    the matrix buffers' sizes, each ``LOAD_MAT``'s buffer, each
+    instruction's flags and each matrix's placement (``placements``:
+    matrix index → ``"whole"``, ``"stream"`` or ``"global"``)."""
     carrier = np.int32 if seg.quantized else np.float32
     # every slot on 16 bytes, so that a row's chain loads 4 of its inputs at once
     padded_widths = [_cdiv(w, 4) * 4 for w in seg.slot_widths]
@@ -547,13 +548,19 @@ def pack_segment(seg: MegakernelSegment) -> dict[str, Any]:
         frows.append(g)
     mwords, _ = _words(mats)
     table_words = _cdiv(len(rows) * (_NI + _NF), 4) * 4
+    # where each matrix is read from: whole in a buffer, streamed through one
+    # in chunks of columns, or from global memory (too many rows to stream,
+    # or no LOAD_MAT)
+    placements = {mi: placement(mi) if mi in loaded else "global"
+                  for mi in sorted(layout)}
     return dict(
         instrs=np.asarray(rows, np.int32).reshape(-1, _NI),
         fparams=np.asarray(frows, np.float32).reshape(-1, _NF),
         consts=cwords, mats=mwords, n_instr=len(rows), scratch_off=total,
         buf_off=buf_off, bufw=bufw, table_words=table_words,
         smem_words=table_words + buf_off + 2 * bufw,
-        in_widths=tuple(in_w[i] for i in range(len(seg.in_refs))))
+        in_widths=tuple(in_w[i] for i in range(len(seg.in_refs))),
+        placements=placements)
 
 
 def _packed(seg: MegakernelSegment, device: torch.device) -> _Pack:

@@ -17,9 +17,11 @@ is a static matrix DFG (the representation MAFIA compiles):
 
 where Dℓ maps each leaf to the ±orientation of its level-ℓ ancestor and
 E/R are 0/1 expansion/reduction matrices (sparse — they lower to SpMV nodes).
-`predict` computes the same math in torch.  Training is not ported yet
-(`train` raises); `params_from_reference` carries the JAX package's trained
-or random parameters across as numpy arrays.
+`predict` computes the same math in torch, and `train` fits the model on a
+dataset by plain full-batch gradient descent through ``torch.autograd`` —
+on the card unless given ``device="cpu"``.  `params_from_reference`
+carries the JAX package's trained or random parameters across as numpy
+arrays.
 """
 
 from __future__ import annotations
@@ -30,11 +32,12 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.core.device import resolve_device
 from repro_torch.core.dfg import DFG
 from repro_torch.data.datasets import DatasetSpec
 
-__all__ = ["BonsaiConfig", "init_params", "predict", "build_dfg", "train",
-           "from_spec", "params_from_reference", "accuracy"]
+__all__ = ["BonsaiConfig", "init_params", "predict", "build_dfg", "loss_fn",
+           "train", "from_spec", "params_from_reference", "accuracy"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,6 +87,13 @@ def _level_matrices(cfg: BonsaiConfig) -> list[np.ndarray]:
             D[leaf, node] = sign
         mats.append(D)
     return mats
+
+
+def _tensors(params: dict[str, Any], device: torch.device) -> dict[str, torch.Tensor]:
+    """Parameters as tensors on ``device``: tensors as they are, arrays copied."""
+    return {k: v.to(device) if torch.is_tensor(v)
+            else torch.as_tensor(np.asarray(v), device=device)
+            for k, v in params.items()}
 
 
 def _expand_reduce(cfg: BonsaiConfig) -> tuple[np.ndarray, np.ndarray]:
@@ -143,8 +153,9 @@ def params_from_reference(np_params: dict[str, Any],
 
 def predict(params: dict[str, Any], cfg: BonsaiConfig,
             x: torch.Tensor) -> torch.Tensor:
-    """x: (..., n_features) → logits (..., n_classes); the DFG's math."""
-    P = {k: torch.as_tensor(np.asarray(v), device=x.device) for k, v in params.items()}
+    """x: (..., n_features) → logits (..., n_classes); the DFG's math.
+    Tensor parameters are used as they are (so gradients reach them)."""
+    P = _tensors(params, x.device)
     Dls = [torch.as_tensor(D, device=x.device) for D in _level_matrices(cfg)]
     E, R = (torch.as_tensor(a, device=x.device) for a in _expand_reduce(cfg))
     zhat = x @ P["Z"].T
@@ -196,10 +207,55 @@ def build_dfg(params: dict[str, Any], cfg: BonsaiConfig, name: str = "bonsai") -
     return g
 
 
+def loss_fn(params: dict[str, Any], cfg: BonsaiConfig, X: torch.Tensor,
+            y: torch.Tensor) -> torch.Tensor:
+    """Mean NLL of ``log_softmax(predict)`` at the labels ``y``."""
+    logp = torch.log_softmax(predict(params, cfg, X), dim=-1)
+    return -torch.gather(logp, -1, y.long()[:, None]).mean()
+
+
 def train(cfg: BonsaiConfig, X: np.ndarray, y: np.ndarray, steps: int = 300,
-          lr: float = 0.3, seed: int = 0) -> dict[str, np.ndarray]:
-    """Not ported yet: training comes with the training slice."""
-    raise NotImplementedError("bonsai.train is not ported to torch yet")
+          lr: float = 0.3, seed: int = 0,
+          device: torch.device | str | None = None,
+          history: list[float] | None = None) -> dict[str, np.ndarray]:
+    """Plain full-batch gradient descent; keeps Z's sparsity mask (IHT-style,
+    like Bonsai's projected gradient on a sparse support).  The only
+    randomness is :func:`init_params`'s numpy draw from ``seed``.  Runs on
+    ``device`` (None: the card) and returns numpy arrays.  ``history``, if
+    given, receives each step's loss (before the step), read back to the
+    host."""
+    return descend(init_params(cfg, seed),
+                   lambda p, Xt, yt: loss_fn(p, cfg, Xt, yt), X, y,
+                   mask_key="Z", steps=steps,
+                   lr=dict.fromkeys(param_shapes(cfg), lr), device=device,
+                   history=history)
+
+
+def descend(init: dict[str, np.ndarray], loss, X: np.ndarray, y: np.ndarray,
+            *, mask_key: str, steps: int, lr: dict[str, float],
+            device: torch.device | str | None,
+            history: list[float] | None) -> dict[str, np.ndarray]:
+    """Full-batch gradient descent from ``init`` on ``loss(params, X, y)``
+    through ``torch.autograd``, a step size per parameter, projecting
+    ``mask_key`` back onto its initial support after every step (the
+    reference's update, ``p - lr * g``).  Returns numpy arrays."""
+    dev = resolve_device(device)
+    params = {k: torch.as_tensor(v, device=dev) for k, v in init.items()}
+    mask = (params[mask_key] != 0).to(torch.float32)
+    Xt = torch.as_tensor(np.asarray(X, np.float32), device=dev)
+    yt = torch.as_tensor(np.asarray(y), device=dev).long()
+    for _ in range(steps):
+        for p in params.values():
+            p.requires_grad_(True)
+        value = loss(params, Xt, yt)
+        if history is not None:
+            history.append(float(value.detach()))
+        grads = torch.autograd.grad(value, list(params.values()))
+        with torch.no_grad():
+            params = {k: p - lr[k] * g
+                      for (k, p), g in zip(params.items(), grads)}
+            params[mask_key] = params[mask_key] * mask
+    return {k: v.detach().cpu().numpy() for k, v in params.items()}
 
 
 def accuracy(params: dict[str, Any], cfg: BonsaiConfig, X: np.ndarray,

@@ -22,9 +22,10 @@ import torch
 
 from repro_torch.core.dfg import DFG
 from repro_torch.data.datasets import DatasetSpec
+from repro_torch.models.bonsai import _tensors, descend
 
-__all__ = ["ProtoNNConfig", "init_params", "predict", "build_dfg", "train",
-           "from_spec", "params_from_reference", "accuracy"]
+__all__ = ["ProtoNNConfig", "init_params", "predict", "build_dfg", "loss_fn",
+           "train", "from_spec", "params_from_reference", "accuracy"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,9 +105,11 @@ def params_from_reference(np_params: dict[str, Any],
 
 def predict(params: dict[str, Any], cfg: ProtoNNConfig,
             x: torch.Tensor) -> torch.Tensor:
-    """x: (..., n_features) → logits (..., n_classes).  Same math as the DFG."""
-    P = {k: torch.as_tensor(np.asarray(v), device=x.device) for k, v in params.items()}
-    gamma = P.get("gamma", torch.tensor(cfg.gamma, dtype=torch.float32))
+    """x: (..., n_features) → logits (..., n_classes).  Same math as the DFG.
+    Tensor parameters are used as they are (so gradients reach them)."""
+    P = _tensors(params, x.device)
+    gamma = P.get("gamma", torch.tensor(cfg.gamma, dtype=torch.float32,
+                                        device=x.device))
     proj = x @ P["W"].T                                        # (..., d)
     diff = proj[..., :, None] - P["B"]                         # (..., d, m)
     d2 = torch.sum(diff * diff, dim=-2)                        # (..., m)
@@ -130,10 +133,34 @@ def build_dfg(params: dict[str, Any], cfg: ProtoNNConfig, name: str = "protonn")
     return g
 
 
+def loss_fn(params: dict[str, Any], cfg: ProtoNNConfig, X: torch.Tensor,
+            y: torch.Tensor) -> torch.Tensor:
+    """Mean NLL of ``log_softmax(predict)`` at the labels ``y``."""
+    logp = torch.log_softmax(predict(params, cfg, X), dim=-1)
+    return -torch.gather(logp, -1, y.long()[:, None]).mean()
+
+
+# γ's gradient is orders of magnitude larger than the matrices' at init (it
+# multiplies d² inside the exponent); a full-size step flips its sign and
+# kills every RBF.  ProtoNN's reference implementation uses per-block step
+# sizes for the same reason.
+_LR_SCALE = {"W": 1.0, "B": 1.0, "Zs": 1.0, "gamma": 0.01}
+
+
 def train(cfg: ProtoNNConfig, X: np.ndarray, y: np.ndarray, steps: int = 300,
-          lr: float = 0.5, seed: int = 0) -> dict[str, np.ndarray]:
-    """Not ported yet: training comes with the training slice."""
-    raise NotImplementedError("protonn.train is not ported to torch yet")
+          lr: float = 0.5, seed: int = 0,
+          device: torch.device | str | None = None,
+          history: list[float] | None = None) -> dict[str, np.ndarray]:
+    """Full-batch gradient descent with per-block step sizes, keeping W's
+    sparsity mask.  The only randomness is :func:`init_params`'s numpy draw
+    from ``seed``.  Runs on ``device`` (None: the card) and returns numpy
+    arrays.  ``history``, if given, receives each step's loss (before the
+    step), read back to the host."""
+    return descend(init_params(cfg, seed, X, y),
+                   lambda p, Xt, yt: loss_fn(p, cfg, Xt, yt), X, y,
+                   mask_key="W", steps=steps,
+                   lr={k: lr * s for k, s in _LR_SCALE.items()},
+                   device=device, history=history)
 
 
 def accuracy(params: dict[str, Any], cfg: ProtoNNConfig, X: np.ndarray,

@@ -39,7 +39,7 @@ import torch
 
 from repro_torch.configs.classical import ClassicalBenchmark, build, training_split
 from repro_torch.core.compiler import BatchedProgram, CompiledProgram, MafiaCompiler
-from repro_torch.core.device import resolve_device
+from repro_torch.core.device import default_device, resolve_device
 from repro_torch.core.lowering import DEFAULT_CHAIN_SPLIT_BYTES
 from repro_torch.serve.scheduling import InferRequest
 
@@ -102,7 +102,8 @@ def get_program(
             event.wait()
             continue
         try:
-            dfg, _, _ = build(bench, trained=trained, seed=seed)
+            with default_device(dev):     # trained=True trains on dev
+                dfg, _, _ = build(bench, trained=trained, seed=seed)
             calib = None
             if precision != "float32":   # fixed-point lanes (int8 / int16)
                 Xtr, _ = training_split(bench, seed=seed)

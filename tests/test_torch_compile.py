@@ -149,5 +149,13 @@ def test_unported_compile_options_raise():
                dict(calibration=object())):
         with pytest.raises(NotImplementedError):
             MafiaCompiler(device="cpu", **kw)
-    with pytest.raises(NotImplementedError):
-        build("protonn/usps-b", trained=True)
+    # training is ported: build(trained=True) trains where training runs,
+    # the card unless the caller scopes another device
+    from repro_torch.core.device import default_device
+
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build("protonn/usps-b", trained=True)
+    with default_device("cpu"):
+        dfg, params, _ = build("protonn/usps-b", trained=True)
+    assert dfg.nodes and set(params) == {"W", "B", "Zs", "gamma"}

@@ -680,3 +680,133 @@ def test_every_table1_program_matches_plain(card, bench, precision):
                        device=card)
     (seg,) = prog.plan.megakernel.segments
     _check(seg, _bucket(prog, 64, seed=3))
+
+
+# ------------------- the front of the pipeline: training, MLPerf-Tiny islands
+TINY = [("float32", False), ("int8", False), ("int8", True)]
+
+
+def _tiny(card, name, precision, per_channel, lane="megakernel_grid"):
+    from repro_torch.configs import mlperf_tiny as mt
+
+    calib = ({"input": mt.sample_inputs(name, 128, seed=7)}
+             if precision != "float32" else None)
+    return MafiaCompiler(precision=precision, per_channel=per_channel,
+                         exec_mode=lane, device=card).compile(
+        mt.build(name), calib=calib)
+
+
+@pytest.mark.parametrize("precision,per_channel", TINY,
+                         ids=["float32", "int8", "int8-per-channel"])
+@pytest.mark.parametrize("name", ["kws_mlp", "tiny_cnn"])
+def test_mlperf_tiny_segment_matches_plain(card, name, precision, per_channel):
+    """The MLPerf-Tiny segment on the values its islands hand it (kws_mlp's
+    128 x 490 matrix streamed through a buffer): grid == per-sample bitwise,
+    kernel vs plain version as every segment."""
+    from repro_torch.configs import mlperf_tiny as mt
+
+    prog = _tiny(card, name, precision, per_channel)
+    (seg,) = prog.plan.megakernel.segments
+    (x,), islands = _chip_smoke().walk_plan(prog, mt.sample_inputs(name, 64))
+    assert len(islands) == {"kws_mlp": 2, "tiny_cnn": 8}[name]
+    _check(seg, x)
+
+
+@pytest.mark.parametrize("precision,per_channel", TINY,
+                         ids=["float32", "int8", "int8-per-channel"])
+@pytest.mark.parametrize("name", ["kws_mlp", "tiny_cnn"])
+def test_mlperf_tiny_islands_run_on_the_card(card, name, precision,
+                                             per_channel):
+    """Islands on the card between grid launches: one megakernel launch per
+    bucket, no synchronisation inside a bucket whose input is on the card,
+    and the program within 1e-5 (float32) or 1 LSB of the output scale
+    (int8) of the interpret lane on the card."""
+    from repro_torch.configs import mlperf_tiny as mt
+
+    prog = _tiny(card, name, precision, per_channel)
+    ref = _tiny(card, name, precision, per_channel, lane="interpret")
+    x = torch.from_numpy(mt.sample_inputs(name, 128)).to(card)
+    batched = prog.batch(64)
+    batched(input=x[:64])
+    torch.cuda.synchronize()
+    before = LAUNCHES["megakernel"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = next(iter(batched(input=x).values()))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert LAUNCHES["megakernel"] == before + 2
+    want = next(iter(ref.batch(64)(input=x).values()))
+    if precision == "float32":
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        (e_out,) = prog.plan.output_exps.values()
+        assert (got.double() - want.double()).abs().max().item() <= 2.0 ** -e_out
+
+
+@pytest.mark.parametrize("precision", ["float32", "int8"])
+@pytest.mark.parametrize("bench", ["bonsai/curet-m", "protonn/curet-m"])
+def test_trained_programs_match_plain(card, bench, precision):
+    """Programs trained on the card (``get_program(trained=True)``): the
+    segment and every chain step against their plain versions."""
+    prog = get_program(bench, trained=True, precision=precision,
+                       exec_mode="megakernel_grid", device=card)
+    (seg,) = prog.plan.megakernel.segments
+    _check(seg, _bucket(prog, 64, seed=4))
+    chained = get_program(bench, trained=True, precision=precision,
+                          use_pallas=True, device=card)
+    steps = [s for s in chained.plan.steps if type(s).__name__ == "ChainStep"]
+    assert steps
+    for i, step in enumerate(steps):
+        _check_chain(*_chip_smoke().chain_case(chained, step, seed=i))
+
+
+@pytest.mark.parametrize("algo", ["bonsai", "protonn"])
+def test_training_on_the_card_matches_the_cpu(card, algo):
+    """20 steps of ``train`` on the card and on the CPU from the same
+    initialisation: losses within ``rtol = 1e-4`` and parameters within
+    ``atol = 1e-4`` (float32 sums in other orders, TF32 off)."""
+    from repro_torch.data.datasets import get_spec, make_dataset
+    from repro_torch.models import bonsai, protonn
+
+    mod = bonsai if algo == "bonsai" else protonn
+    spec = get_spec("usps-b")
+    X, y, _, _ = make_dataset(spec, n_train=512, seed=0)
+    cfg = mod.from_spec(spec)
+    runs = {}
+    for dev in ("cpu", card):
+        hist: list[float] = []
+        runs[str(dev)] = (mod.train(cfg, X, y, steps=20, device=dev,
+                                    history=hist), hist)
+    (p_cpu, h_cpu), (p_card, h_card) = runs.values()
+    np.testing.assert_allclose(h_card, h_cpu, rtol=1e-4)
+    for k in p_cpu:
+        np.testing.assert_allclose(p_card[k], p_cpu[k], rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("precision,per_channel", TINY,
+                         ids=["float32", "int8", "int8-per-channel"])
+@pytest.mark.parametrize("name", ["kws_mlp", "tiny_cnn"])
+def test_mlperf_tiny_lanes_agree_on_the_card(card, name, precision,
+                                             per_channel):
+    """Islands on the card on every lane: per-sample calls, ``map``,
+    ``vmap`` on the ``megakernel`` lane (islands ``vmap``'d, the segment per
+    sample) and the grid.  ``map`` is bitwise with per-sample calls; the
+    others are bitwise on the int8 lanes and within ``1e-5`` at float32."""
+    from repro_torch.configs import mlperf_tiny as mt
+
+    per_lane = _tiny(card, name, precision, per_channel, lane="megakernel")
+    grid = _tiny(card, name, precision, per_channel)
+    x = mt.sample_inputs(name, 8, seed=3)
+    per = torch.stack([next(iter(per_lane(input=xi).values())) for xi in x])
+    got = {"map": per_lane.batch(8, mode="map")(input=x),
+           "vmap": per_lane.batch(8, mode="vmap")(input=x),
+           "grid": grid.batch(8)(input=x)}
+    got = {k: next(iter(v.values())) for k, v in got.items()}
+    assert per.device.type == "cuda"
+    assert torch.equal(got["map"], per)
+    for lane in ("vmap", "grid"):
+        if precision == "float32":
+            torch.testing.assert_close(got[lane], per, rtol=1e-5, atol=1e-5)
+        else:
+            assert torch.equal(got[lane], per), lane

@@ -150,6 +150,20 @@ def _segments(bench, precision):
 @pytest.mark.parametrize("bench", PROGRAMS)
 def test_pack_follows_the_reference_stream_without_races(bench, precision):
     jp, jseg, tseg = _segments(bench, precision)
+    (name, spec), = jp.dfg.graph_inputs.items()
+    X = np.random.default_rng(4).standard_normal((2,) + tuple(spec.shape))
+    X = X.astype(np.float32)
+    if precision != "float32":
+        X = np.asarray(quantize_jnp(jnp.asarray(X), jp.plan.input_exps[name],
+                                    jp.plan.bits))
+    _check_pack(jseg, tseg, X.reshape(2, -1))
+
+
+def _check_pack(jseg, tseg, X):
+    """The pack of the port's segment ``tseg`` follows the reference's
+    ``jseg``, leaves no race, and its table, walked with the kernel's
+    semantics, gives the plain version's and the reference's outputs on the
+    rows of ``X`` (the segment's input)."""
     pk = mk.pack_segment(tseg)
     rows = pk["instrs"]
     assert [OPS[int(f[0])] for f in rows] == [_stream_name(i) for i in jseg.instrs]
@@ -191,16 +205,10 @@ def test_pack_follows_the_reference_stream_without_races(bench, precision):
     assert int((rows[:, 12] & mk.MK_SYNC).astype(bool).sum()) < len(rows)
 
     # the packed table and the plain version, against the reference
-    (name, spec), = jp.dfg.graph_inputs.items()
-    X = np.random.default_rng(4).standard_normal((2,) + tuple(spec.shape))
-    X = X.astype(np.float32)
-    if precision != "float32":
-        X = np.asarray(quantize_jnp(jnp.asarray(X), jp.plan.input_exps[name],
-                                    jp.plan.bits))
-    x = torch.from_numpy(np.array(X)).reshape(2, -1)
+    x = torch.from_numpy(np.array(X))
     plain = run_segment_grid_ref(tseg, [x])
     emulated = _pack_module()._emulate(tseg, pk, [x.numpy()])
-    for i in range(2):
+    for i in range(len(X)):
         want = jref.run_segment_ref(jseg, [jnp.asarray(X[i])])
         for a, b, c, pe in zip(emulated, plain, want, float_pe_outputs(tseg)):
             for got in (a[i], b[i].numpy()):
@@ -211,6 +219,41 @@ def test_pack_follows_the_reference_stream_without_races(bench, precision):
                     assert np.abs(got.astype(np.int64) - ref).max() <= 1
                 else:
                     np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("precision,per_channel", [
+    ("float32", False), ("int8", False), ("int8", True)],
+    ids=["float32", "int8", "int8-per-channel"])
+@pytest.mark.parametrize("name", ["kws_mlp", "tiny_cnn"])
+def test_mlperf_tiny_pack_follows_the_reference(name, precision, per_channel):
+    """The MLPerf-Tiny segments (between interpreted islands), packed as
+    the card runs them: ``kws_mlp``'s 128 x 490 first matrix does not fit a
+    buffer whole and streams in chunks of columns; the others fit whole."""
+    from repro.configs import mlperf_tiny as jmt
+    from repro.core.compiler import MafiaCompiler as JCompiler
+    from repro_torch.configs import mlperf_tiny as mt
+    from repro_torch.core.compiler import MafiaCompiler as TCompiler
+
+    calib = ({"input": mt.sample_inputs(name, 128, seed=7)}
+             if precision != "float32" else None)
+    kw = dict(precision=precision, per_channel=per_channel,
+              exec_mode="megakernel_grid")
+    jp = JCompiler(**kw).compile(jmt.build(name), calib=calib)
+    tp = TCompiler(device="cpu", **kw).compile(mt.build(name), calib=calib)
+    (jseg,), (tseg,) = jp.plan.megakernel.segments, tp.plan.megakernel.segments
+    pk = mk.pack_segment(tseg)
+    shapes = {tuple(np.shape(tseg.matrices[mi])): pl
+              for mi, pl in pk["placements"].items()}
+    assert shapes == ({(128, 490): "stream", (128, 128): "whole",
+                       (12, 128): "whole"} if name == "kws_mlp"
+                      else {(10, 256): "whole"})
+    (width,) = pk["in_widths"]
+    rng = np.random.default_rng(6)
+    if precision == "float32":
+        X = rng.standard_normal((3, width)).astype(np.float32)
+    else:
+        X = rng.integers(-127, 128, size=(3, width)).astype(np.int8)
+    _check_pack(jseg, tseg, X)
 
 
 def test_race_replay_finds_a_missing_barrier():

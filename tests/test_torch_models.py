@@ -95,8 +95,17 @@ def test_params_from_reference_checks(algo):
 
 @pytest.mark.parametrize("algo", sorted(MODELS))
 def test_train_waits_for_training_slice(algo):
+    """Training is ported (``tests/test_torch_train.py`` holds it against
+    the reference): it runs where asked and, asked nowhere, on the card —
+    with no card it raises rather than fall back to the CPU."""
     _, tm = MODELS[algo]
     cfg = tm.from_spec(get_spec("usps-b"))
-    with pytest.raises(NotImplementedError):
-        tm.train(cfg, np.zeros((4, cfg.n_features), np.float32),
-                 np.zeros(4, np.int64))
+    X = np.random.default_rng(0).standard_normal((64, cfg.n_features))
+    y = np.arange(64) % cfg.n_classes     # ProtoNN seeds 40 prototypes
+    out = tm.train(cfg, X.astype(np.float32), y, steps=2, device="cpu")
+    assert set(out) == set(tm.param_shapes(cfg))
+    assert all(isinstance(v, np.ndarray) and v.dtype == np.float32
+               for v in out.values())
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tm.train(cfg, X.astype(np.float32), y, steps=1)

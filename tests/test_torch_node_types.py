@@ -4,9 +4,10 @@ For every one of the 27 ops: the metadata every compiler stage reads
 (taxonomy, cost models, rewrite legality, whether an integer template
 exists) is equal, and the torch float template agrees with the JAX one on
 seeded inputs.  The integer templates the classical path uses are held
-bitwise through a compiled int8 program; the ones not ported yet raise
-``NotImplementedError`` naming their op (never ``None``: lowering picks the
-q/dq mode by whether a template exists).
+bitwise through a compiled int8 program; the seven tensor templates of the
+MLPerf-Tiny programs (matmul, conv2d, maxpool2d, avgpool2d, relu6, flatten,
+reshape) are held bitwise with the reference's template, called directly on
+seeded int8/int16 carriers with the same formats.
 """
 
 import numpy as np
@@ -17,10 +18,12 @@ from repro.core import node_types as jnt
 from repro.core.compiler import MafiaCompiler as JCompiler
 from repro.core.dfg import DFG as JDFG
 from repro.core.executor import execute as jexecute
+from repro.core.quantize import NodeQuant as JNodeQuant
 from repro_torch.core import node_types as tnt
 from repro_torch.core.compiler import MafiaCompiler as TCompiler
 from repro_torch.core.dfg import DFG as TDFG
 from repro_torch.core.executor import execute as texecute
+from repro_torch.core.quantize import NodeQuant as TNodeQuant
 
 torch.set_num_threads(1)
 
@@ -62,8 +65,9 @@ CASES = {
     "flatten": ([(3, 4, 5)], {}),
     "reshape": ([(3, 4, 5)], {"shape": (12, 5)}),
 }
-NOT_PORTED_Q = ["avgpool2d", "conv2d", "flatten", "matmul", "maxpool2d",
-                "relu6", "reshape"]
+# the integer templates of the MLPerf-Tiny programs' tensor ops
+TENSOR_Q = ["avgpool2d", "conv2d", "flatten", "matmul", "maxpool2d",
+            "relu6", "reshape"]
 
 
 def _graph(cls, op):
@@ -121,12 +125,103 @@ def test_float_template_matches(op):
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("op", NOT_PORTED_Q)
+def _carrier(rng, shape, bits):
+    qm = (1 << (bits - 1)) - 1
+    return rng.integers(-qm, qm + 1, size=shape).astype(f"int{bits}")
+
+
+def _q_case(op, bits, seed, variant=0):
+    """(inputs, params, NodeQuant fields) of one call of ``op``'s integer
+    template on seeded carriers at ``bits``; ``variant`` picks the shape,
+    stride, padding and (conv2d) per-tensor or per-channel scales."""
+    rng = np.random.default_rng(seed)
+    q = dict(in_exps=(5,), out_exp=4, params_q={}, param_exps={}, bits=bits)
+    if op == "matmul":
+        m, k, n = ((5, 7, 3), (1, 9, 4), (6, 1, 2), (4, 33, 5))[variant % 4]
+        ins = [_carrier(rng, (m, k), bits), _carrier(rng, (k, n), bits)]
+        q.update(in_exps=(5, 6), out_exp=(3, 7, 11, 2)[variant % 4])
+        return ins, {}, q
+    if op == "conv2d":
+        (cin, h, w), (cout, kh, kw), st, pd = (
+            ((3, 9, 7), (4, 3, 3), 1, 1), ((2, 11, 5), (3, 3, 2), 2, 2),
+            ((1, 5, 5), (5, 1, 1), 1, 0), ((4, 7, 9), (2, 3, 3), (2, 1), (1, 2)),
+        )[variant % 4]
+        kq = _carrier(rng, (cout, cin, kh, kw), bits)
+        params = {"kernel": kq.astype(np.float32), "stride": st, "padding": pd}
+        q["params_q"] = {"kernel": kq}
+        if variant % 2 == 0:
+            bias = rng.integers(-(1 << 12), 1 << 12, size=cout).astype(np.int32)
+            params["bias"] = bias.astype(np.float32)
+            q["params_q"]["bias"] = bias
+        # per-channel scales on odd variants: one exponent per output row
+        q["param_exps"] = {"kernel": (rng.integers(3, 9, size=cout)
+                                      if variant % 2 else 6)}
+        q["out_exp"] = 3
+        return [_carrier(rng, (cin, h, w), bits)], params, q
+    if op in ("maxpool2d", "avgpool2d"):
+        shape, ks, st, pd = (((3, 9, 7), 2, 2, 0), ((2, 7, 11), 3, 1, 1),
+                             ((4, 8, 9), (3, 2), (2, 1), (1, 1)),
+                             ((1, 5, 5), 3, 2, 1))[variant % 4]
+        params = {"ksize": ks, "stride": st, "padding": pd}
+        q["out_exp"] = (5, 3, 6, 7)[variant % 4]
+        return [_carrier(rng, shape, bits)], params, q
+    if op == "relu6":
+        q["in_exps"] = ((4,), (bits - 4,), (2,), (0,))[variant % 4]
+        q["out_exp"] = q["in_exps"][0] - variant % 3 + 1
+        return [_carrier(rng, (5, 9), bits)], {}, q
+    x = _carrier(rng, (3, 5, 7), bits)
+    q["out_exp"] = (5, 3, 7, 6)[variant % 4]
+    if op == "reshape":
+        return [x], {"shape": ((15, 7), (105,), (7, 15), (3, 35))[variant % 4]}, q
+    return [x], {}, q
+
+
+def _run_q(op, ins, params, q):
+    import jax.numpy as jnp
+
+    want = jnt.get(op).jax_fn_q([jnp.asarray(a) for a in ins], params, {},
+                                JNodeQuant(**q))
+    got = tnt.get(op).fn_q([torch.from_numpy(a) for a in ins], params, {},
+                           TNodeQuant(**q))
+    return got.numpy(), np.asarray(want)
+
+
+@pytest.mark.parametrize("op", TENSOR_Q)
 def test_unported_integer_templates_raise(op):
-    fn_q = tnt.get(op).fn_q
-    assert fn_q is not None
-    with pytest.raises(NotImplementedError, match=op):
-        fn_q([], {}, {}, None)
+    """These templates were stubs that raised; each now exists and is
+    bitwise with the reference's (int8, the first case of ``_q_case``)."""
+    assert tnt.get(op).fn_q is not None
+    got, want = _run_q(op, *_q_case(op, 8, seed=1))
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("variant", [0, 1, 2, 3])
+@pytest.mark.parametrize("bits", [8, 16])
+@pytest.mark.parametrize("op", TENSOR_Q)
+def test_tensor_integer_template_bitwise(op, bits, variant):
+    """Each of the seven against the reference template, bit for bit, on
+    seeded carriers over the whole int8/int16 range: odd spatial sizes,
+    strides and paddings of 1-2, conv2d with per-tensor and per-channel
+    scales, with and without bias, pools over non-power-of-two windows."""
+    ins, params, q = _q_case(op, bits, seed=100 + variant, variant=variant)
+    got, want = _run_q(op, ins, params, q)
+    assert got.dtype == want.dtype == np.dtype(f"int{bits}")
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+def test_int32_matmul_wraps_like_the_reference():
+    """The broadcast-sum int32 product wraps on overflow as the reference's
+    int32 matmul does (no widening to int64)."""
+    import jax.numpy as jnp
+
+    a = np.full((2, 3), 2**20, np.int32)
+    b = np.full((3, 2), 2**12, np.int32)
+    want = np.asarray(jnp.asarray(a) @ jnp.asarray(b))
+    got = tnt._i32_matmul(torch.from_numpy(a), torch.from_numpy(b))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("op", ["add", "sub", "hadamard", "scalar_mul",
