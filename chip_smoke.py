@@ -100,7 +100,32 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               chain launches = chains x buckets, exactly; requests/s on the
               host clock, the segment's device time and bound, its share of
               a bucket and the islands' share of a bucket's device time;
-9. report   — the chain kernels' launch floor (an empty kernel with their
+9. store    — the compile-artifact store and profile-guided compilation.
+              bonsai/curet-m and protonn/curet-m at float32 and int8 on both
+              served paths (8 engines) compiled through ``get_program`` into
+              a fresh ``ArtifactStore``, cold compile seconds printed, a
+              seeded bucket of 64 run on each (launches: megakernel 1,
+              chains = chains); an artifact with the JAX package's magic is
+              a miss and never unpickled; ``AsyncServeEngine(max_resident=1,
+              artifact_store=...)`` serves the two float32 megakernel
+              tenants in 6 turns, every turn after the first restored from
+              the store (5 cache hits), predictions equal to the resident
+              program's; ``profile_device(quick=True)`` on the card (its
+              seconds, the gemv/add/relu, chain and segment fits, chain and
+              per-sample megakernel launches > 0) and ``autotune_knobs``
+              (each ``chain_split_bytes`` candidate's µs, the winner), the
+              table published; bonsai/curet-m float32 and int8 compiled with
+              ``cost_source="measured", autotune=True,
+              chain_split_bytes="auto", use_pallas=True``: cost_source stays
+              "measured", outputs bitwise equal to the analytic compile's,
+              assignments and schedule totals printed, no profiling.  Then
+              a fresh process (``chip_smoke.py --store-child``) loads every
+              engine with a fresh compiler: ``pf_source == "artifact"``, the
+              parent's fingerprint, the parent's outputs bitwise (through an
+              ``.npz``), the expected launches, load seconds beside the cold
+              compile seconds; and its measured-mode compiles find the table
+              in the store (0 calls into ``profile_device``);
+10. report  — the chain kernels' launch floor (an empty kernel with their
               parameter block) beside each served chain call's device time
               and time per call, against ``CHAIN_DEVICE_MS`` /
               ``CHAIN_FLOOR_X`` / ``CHAIN_CALL_MS`` (printed, not checked);
@@ -168,6 +193,7 @@ LM_BF16_AGREE = 0.95
 # the two passes of csrc/decode_attention.cu, by kernel name in a trace
 DECODE_PASSES = ("da_kernel", "da_combine")
 HTOD = "Memcpy HtoD"               # a host-to-device copy, by name in a trace
+TRACE_TRIES = 3                    # traces taken before an empty one fails
 # matmul/gemv cases (M, K, N) of phase 3, each in float32 and bfloat16 with
 # both layouts of b: aligned and unaligned pitches, split and unsplit K
 MATMUL_SHAPES = ((129, 65, 70), (128, 128, 128), (64, 610, 24),
@@ -662,27 +688,36 @@ def device_split(fn, names: tuple[str, ...], reps: int = 3,
     """Device ms per call of ``fn`` from a profiler trace, of that the ms
     of the kernels whose names contain each of ``names`` (with ``count``:
     how many of them run per call), and the number of device activities
-    (kernels, copies, sets) per call."""
+    (kernels, copies, sets) per call.  A trace that recorded no device
+    activity at all (the profiler drops events now and then) is taken
+    again, up to ``TRACE_TRIES`` times; then it raises."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total, part, n_act = 0.0, dict.fromkeys(names, 0.0), 0
-    for e in p.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = e.time_range.elapsed_us()
-        total += us
-        n_act += 1
-        for n in names:
-            if n in e.name:
-                part[n] += 1 if count else us
+    for _ in range(TRACE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as p:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total, part, n_act = 0.0, dict.fromkeys(names, 0.0), 0
+        for e in p.events():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            us = e.time_range.elapsed_us()
+            total += us
+            n_act += 1
+            for n in names:
+                if n in e.name:
+                    part[n] += 1 if count else us
+        if n_act:
+            break
+    else:
+        raise AssertionError(f"{TRACE_TRIES} profiler traces of {reps} calls "
+                             "recorded no device activity")
     scale = reps if count else 1e3 * reps
     return (total / 1e3 / reps, {n: v / scale for n, v in part.items()},
             n_act / reps)
@@ -742,6 +777,371 @@ def teacher_forced(model, done, vocab: int, plain: bool):
                                   top2_gap=gap[i],
                                   served_gap=float(lf[i, arg[i]] - lf[i, tok])))
     return n, worse, diff
+
+
+# ------------------------------------------------------- phase 9: the store
+# engines restored from the store: (bench, precision, lane, compile knobs)
+STORE_ENGINES = tuple(
+    (bench, prec, lane, kw) for bench in TRAINED for prec in ("float32", "int8")
+    for lane, kw in (("megakernel_grid", {"exec_mode": "megakernel_grid"}),
+                     ("use_pallas", {"use_pallas": True})))
+STORE_MEASURED = "bonsai/curet-m"     # compiled with cost_source="measured"
+STORE_TURNS = 6                       # async flushes, two tenants in turns
+# the header and payload of an artifact of the JAX package: its magic, and
+# a pickle that would import that package's compiler if it were unpickled
+REF_MAGIC = b"MAFIA-ARTIFACT\n"
+REF_PAYLOAD = b"\x80\x04crepro.core.compiler\nCompiledProgram\n."
+MEASURED_KW = dict(cost_source="measured", autotune=True,
+                   chain_split_bytes="auto", use_pallas=True)
+
+
+def _store_label(bench: str, prec: str, lane: str) -> str:
+    return f"{bench.replace('/', '-')}-{prec}-{lane}"
+
+
+def _store_calib(bench: str, prec: str):
+    """The calibration rows ``get_program`` gives a fixed-point compile."""
+    from repro_torch.configs.classical import training_split
+    from repro_torch.serve.classical_engine import _CALIB_SAMPLES
+
+    return (None if prec == "float32"
+            else training_split(bench, seed=0)[0][:_CALIB_SAMPLES])
+
+
+def _store_expected(prog) -> dict[str, int]:
+    """Launches one bucket of ``prog`` makes: one megakernel launch per
+    segment on the grid lane, one chain launch per chain step else."""
+    from repro_torch.core.lowering import ChainStep
+
+    if prog.exec_mode == "megakernel_grid":
+        return {"megakernel": len(prog.plan.megakernel.segments)}
+    name = "linear_chain" if prog.precision == "float32" else "linear_chain_q"
+    return {name: sum(isinstance(s, ChainStep) for s in prog.plan.steps)}
+
+
+def _run_bucket(prog, X, launches: dict) -> dict:
+    """One bucket through ``prog`` as numpy outputs; checks and adds the
+    launches it made."""
+    import torch
+
+    from repro_torch.kernels.build import LAUNCHES
+
+    before = dict(LAUNCHES)
+    out = {k: v.cpu().numpy() for k, v in prog.batch(BUCKET)(x=X).items()}
+    torch.cuda.synchronize()
+    made = {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]}
+    want = _store_expected(prog)
+    if made != want:
+        raise AssertionError(f"a bucket of {prog.exec_mode} "
+                             f"use_pallas={prog.use_pallas} {prog.precision} "
+                             f"launched {made}, expected {want}")
+    for k, v in made.items():
+        launches[k] = launches.get(k, 0) + v
+    return out
+
+
+def _same_outputs(label: str, got: dict, want: dict) -> None:
+    import numpy as np
+
+    if set(got) != set(want):
+        raise AssertionError(f"{label}: outputs {sorted(got)} != {sorted(want)}")
+    for k in want:
+        if got[k].dtype != want[k].dtype or not np.array_equal(got[k], want[k]):
+            raise AssertionError(f"{label}: output {k} differs bitwise")
+
+
+def store_phase(dev, tmp: str) -> tuple[dict, dict]:
+    """Phase 9 in the parent: cold compiles into a fresh store, a refused
+    artifact of the JAX package, the async engine's evictions, profiling and
+    autotuning on the card, measured-mode compiles; then a fresh process
+    restores everything.  Returns (record, launches of the phase)."""
+    import hashlib
+    import pickle
+
+    import numpy as np
+
+    from repro_torch.configs.classical import build
+    from repro_torch.core import autotune as at
+    from repro_torch.core.artifacts import ArtifactError, ArtifactStore, load_program
+    from repro_torch.core.compiler import MafiaCompiler
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.serve.async_engine import AsyncServeEngine
+    from repro_torch.serve.classical_engine import get_program
+
+    store = ArtifactStore(os.path.join(tmp, "store"))
+    rec: dict = {"engines": [], "measured": []}
+    launches: dict[str, int] = {}
+    arrays: dict[str, object] = {}
+    progs = {}
+    # -- cold compiles, published to the store
+    for bench, prec, lane, kw in STORE_ENGINES:
+        label = _store_label(bench, prec, lane)
+        t1 = time.perf_counter()
+        prog = get_program(bench, precision=prec, device=dev,
+                           artifact_store=store, **kw)
+        cold_s = time.perf_counter() - t1
+        if prog.pf_source != "cold":
+            raise AssertionError(f"{label}: pf_source {prog.pf_source}")
+        (spec,) = prog.dfg.graph_inputs.values()
+        X = np.random.default_rng(11).standard_normal(
+            (BUCKET,) + tuple(spec.shape)).astype(np.float32)
+        out = _run_bucket(prog, X, launches)
+        arrays[f"{label}:x"] = X
+        arrays.update({f"{label}:{k}": v for k, v in out.items()})
+        progs[bench, prec, lane] = prog, out
+        rec["engines"].append(dict(
+            label=label, bench=bench, precision=prec, lane=lane, kw=kw,
+            cold_s=cold_s, fingerprint=prog.plan.megakernel.fingerprint(),
+            expected=_store_expected(prog)))
+    if store.saves != len(STORE_ENGINES) or store.misses != len(STORE_ENGINES):
+        raise AssertionError(f"cold compiles: {store}")
+    # -- an artifact of the JAX package: a miss, never unpickled
+    foreign = store.path("f" * 64)
+    digest = hashlib.sha256(REF_PAYLOAD).hexdigest()
+    with open(foreign, "wb") as fh:
+        fh.write(REF_MAGIC + f"version=2 digest={digest}\n".encode()
+                 + REF_PAYLOAD)
+    unpickled, real_loads = [], pickle.loads
+    pickle.loads = lambda *a, **k: unpickled.append(a) or real_loads(*a, **k)
+    try:
+        misses = store.misses
+        if store.load("f" * 64, dev) is not None or store.misses != misses + 1:
+            raise AssertionError("an artifact of the JAX package was not a miss")
+        try:
+            load_program(foreign, dev)
+            raise AssertionError("load_program took an artifact of the JAX package")
+        except ArtifactError as e:
+            refused = str(e)
+    finally:
+        pickle.loads = real_loads
+    os.remove(foreign)
+    if unpickled or any(m.split(".")[0] == "repro" for m in sys.modules):
+        raise AssertionError("an artifact of the JAX package reached the unpickler")
+    rec["foreign"] = refused
+    print(f"  an artifact with the JAX package's magic: a miss, refused before "
+          f"unpickling ({refused.split(': ', 1)[-1]})", flush=True)
+    # -- the async engine: two tenants in turns, one resident
+    eng = AsyncServeEngine(max_resident=1, artifact_store=store)
+    tenants = list(TRAINED)
+    for b in tenants:
+        eng.register_model(b, b, max_batch=BUCKET, device=dev,
+                           exec_mode="megakernel_grid")
+    before = LAUNCHES["megakernel"]
+    for turn in range(STORE_TURNS):
+        b = tenants[(turn + 1) % 2]          # the resident one first
+        _, out = progs[b, "float32", "megakernel_grid"]
+        X = arrays[f"{_store_label(b, 'float32', 'megakernel_grid')}:x"]
+        for row in X:
+            eng.submit(b, row)
+        done = eng.flush(b)
+        preds = np.array([int(r.pred) for r in done])
+        if not np.array_equal(preds, out["Pred"].reshape(-1)):
+            raise AssertionError(f"async turn {turn} {b}: predictions differ "
+                                 "from the resident program's")
+    hits, misses = eng.metrics.cache_hits, eng.metrics.cache_misses
+    launches["megakernel"] = (launches.get("megakernel", 0)
+                              + LAUNCHES["megakernel"] - before)
+    if hits != STORE_TURNS - 1 or misses:
+        raise AssertionError(f"async engine: {hits} cache hits, {misses} "
+                             f"misses over {STORE_TURNS} turns")
+    rec["async"] = dict(turns=STORE_TURNS, cache_hits=hits,
+                        cache_misses=misses,
+                        megakernel=LAUNCHES["megakernel"] - before)
+    print(f"  async engine, max_resident=1, two tenants: {STORE_TURNS} flushes, "
+          f"{hits} restored from the store (cache hits), {misses} misses; "
+          "predictions equal the resident program's", flush=True)
+    # -- profiling and autotuning on the card
+    before = dict(LAUNCHES)
+    t1 = time.perf_counter()
+    table = at.profile_device(quick=True, device=dev)
+    prof_s = time.perf_counter() - t1
+    prof = {k: LAUNCHES[k] - before[k] for k in ("linear_chain", "megakernel")}
+    if min(prof.values()) <= 0:
+        raise AssertionError(f"profiling launched {prof}")
+    t1 = time.perf_counter()
+    at.autotune_knobs(table, device=dev)
+    tune_s = time.perf_counter() - t1
+    for k in LAUNCHES:
+        if LAUNCHES[k] != before[k]:
+            launches[k] = launches.get(k, 0) + LAUNCHES[k] - before[k]
+    model = at.CalibratedCostModel.fit(table)
+    store.save_calibration(table)
+    rec["profile"] = dict(
+        device_class=table.device_class, seconds=prof_s, autotune_s=tune_s,
+        samples=len(table.samples), launches=prof,
+        autotune_launches=LAUNCHES["linear_chain"] - before["linear_chain"]
+        - prof["linear_chain"],
+        op_fit={op: model.op_fit[op] for op in ("gemv", "add", "relu")},
+        global_fit=model.global_fit, chain_fit=model.chain_fit,
+        segment_fit=model.segment_fit,
+        split_sweep_us=[[c, us] for c, us in table.knobs["split_sweep_us"]],
+        chain_split_bytes=table.knobs["chain_split_bytes"])
+    print(f"  profile_device(quick=True) on {table.device_class}: "
+          f"{len(table.samples)} samples in {prof_s:.2f} s; launches "
+          f"linear_chain {prof['linear_chain']}, megakernel (nb = 1) "
+          f"{prof['megakernel']}", flush=True)
+    for op in ("gemv", "add", "relu"):
+        t0_, s_ = model.op_fit[op]
+        print(f"    {op}: intercept {t0_:.2f} us, slope {s_:.5f} us/cycle")
+    print(f"    chain: {model.chain_fit[0]:.2f} us a launch + "
+          f"{model.chain_fit[1]:.3f} us a stage; segment: "
+          f"{model.segment_fit[0]:.2f} us a launch + "
+          f"{model.segment_fit[1]:.3f} us an instruction; global "
+          f"{model.global_fit[0]:.2f} us + {model.global_fit[1]:.5f} us/cycle")
+    print(f"  autotune_knobs in {tune_s:.2f} s: chain_split_bytes " + ", ".join(
+        f"{c} {us:.1f} us" for c, us in table.knobs["split_sweep_us"])
+        + f"; winner {table.knobs['chain_split_bytes']}", flush=True)
+    # -- measured-mode compiles: the table from the store, no profiling
+    profiled, real_profile = [], at.profile_device
+    at.profile_device = lambda **kw: profiled.append(kw) or real_profile(**kw)
+    try:
+        for prec in ("float32", "int8"):
+            label = _store_label(STORE_MEASURED, prec, "measured")
+            comp = MafiaCompiler(precision=prec, artifact_store=store,
+                                 device=dev, **MEASURED_KW)
+            if comp.cost_source != "measured":
+                raise AssertionError(f"{label}: cost_source {comp.cost_source}")
+            pm = comp.compile(build(STORE_MEASURED)[0],
+                              calib=_store_calib(STORE_MEASURED, prec))
+            pa, want = progs[STORE_MEASURED, prec, "use_pallas"]
+            X = arrays[f"{_store_label(STORE_MEASURED, prec, 'use_pallas')}:x"]
+            out = _run_bucket(pm, X, launches)
+            _same_outputs(f"{label} vs the analytic compile", out, want)
+            arrays.update({f"{label}:{k}": v for k, v in out.items()})
+            rec["measured"].append(dict(
+                label=label, precision=prec, cost_source=pm.cost_source,
+                chain_split_bytes=comp.chain_split_bytes,
+                assignment=pm.assignment, analytic_assignment=pa.assignment,
+                schedule_us=pm.schedule.total_cycles,
+                analytic_cycles=pa.schedule.total_cycles,
+                chain_splits=pm.plan.chain_splits,
+                analytic_chain_splits=pa.plan.chain_splits,
+                fingerprint=pm.plan.megakernel.fingerprint()))
+            print(f"  measured {STORE_MEASURED} {prec}: cost_source "
+                  f"{pm.cost_source}, chain_split_bytes {comp.chain_split_bytes}"
+                  f", schedule {pm.schedule.total_cycles:.2f} us (analytic "
+                  f"{pa.schedule.total_cycles:.0f} cycles), chain splits "
+                  f"{pm.plan.chain_splits} (analytic {pa.plan.chain_splits}); "
+                  f"assignment {pm.assignment}; analytic {pa.assignment}; "
+                  "outputs bitwise equal to the analytic compile's", flush=True)
+    finally:
+        at.profile_device = real_profile
+    if profiled:
+        raise AssertionError(f"measured compiles profiled {len(profiled)} times "
+                             "with the table in the store")
+    # -- a fresh process restores everything
+    np.savez(os.path.join(tmp, "outputs.npz"), **arrays)
+    with open(os.path.join(tmp, "engines.json"), "w") as fh:
+        json.dump(rec, fh)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t1 = time.perf_counter()
+    res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--store-child", tmp], capture_output=True, text=True,
+                         env=env, timeout=600)
+    child_s = time.perf_counter() - t1
+    for line in res.stdout.splitlines()[:-1]:
+        print("  child:", line, flush=True)
+    if res.returncode != 0:
+        raise AssertionError(f"the fresh process failed (rc {res.returncode}): "
+                             f"{res.stdout[-2000:]} {res.stderr[-2000:]}")
+    child = json.loads(res.stdout.splitlines()[-1])
+    for k, v in child["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    rec.update(child=child, child_s=child_s)
+    for e, c in zip(rec["engines"], child["engines"]):
+        e.update(load_s=c["load_s"], warm_load_s=c["warm_load_s"])
+        print(f"  {e['label']}: get_program seconds: cold compile "
+              f"{e['cold_s']:.4f} (parent), load {c['load_s']:.4f} (fresh "
+              f"process, first) and {c['warm_load_s']:.4f} (again)", flush=True)
+    return rec, launches
+
+
+def store_child(tmp: str) -> int:
+    """Phase 9 in a fresh process: every engine through ``get_program``
+    with a fresh compiler from the store (``pf_source == "artifact"``, the
+    parent's fingerprint, its outputs bitwise, the expected launches), and
+    measured-mode compiles that find the table in the store without
+    profiling.  Prints one JSON line last."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.configs.classical import build
+    from repro_torch.core import autotune as at
+    from repro_torch.core.artifacts import ArtifactStore
+    from repro_torch.core.compiler import MafiaCompiler
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.serve.classical_engine import (clear_program_cache,
+                                                    get_program)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    store = ArtifactStore(os.path.join(tmp, "store"))
+    with open(os.path.join(tmp, "engines.json")) as fh:
+        rec = json.load(fh)
+    data = np.load(os.path.join(tmp, "outputs.npz"))
+    profiled, real_profile = [], at.profile_device
+    at.profile_device = lambda **kw: profiled.append(kw) or real_profile(**kw)
+    launches: dict[str, int] = {}
+    out_rec = {"engines": [], "measured": []}
+    for e in rec["engines"]:
+        label = e["label"]
+        t1 = time.perf_counter()
+        prog = get_program(e["bench"], precision=e["precision"], device=dev,
+                           artifact_store=store, **e["kw"])
+        load_s = time.perf_counter() - t1
+        if prog.pf_source != "artifact":
+            raise AssertionError(f"{label}: pf_source {prog.pf_source}")
+        if prog.plan.megakernel.fingerprint() != e["fingerprint"]:
+            raise AssertionError(f"{label}: fingerprint differs from the parent's")
+        X = data[f"{label}:x"]
+        got = _run_bucket(prog, X, launches)
+        _same_outputs(label, got, {k.split(":", 1)[1]: data[k] for k in data.files
+                                   if k.startswith(label + ":")
+                                   and k != f"{label}:x"})
+        out_rec["engines"].append(dict(label=label, load_s=load_s))
+        print(f"{label}: pf_source artifact, fingerprint equal, bucket of "
+              f"{BUCKET} bitwise equal, launches {_store_expected(prog)}; "
+              f"loaded in {load_s:.3f} s", flush=True)
+    # the same loads again, past this process's one-time costs (imports,
+    # the analytic estimator bank every compiler builds)
+    clear_program_cache()
+    for e, r in zip(rec["engines"], out_rec["engines"]):
+        t1 = time.perf_counter()
+        prog = get_program(e["bench"], precision=e["precision"], device=dev,
+                           artifact_store=store, **e["kw"])
+        r["warm_load_s"] = time.perf_counter() - t1
+        if prog.pf_source != "artifact":
+            raise AssertionError(f"{e['label']} again: {prog.pf_source}")
+    for m in rec["measured"]:
+        prec = m["precision"]
+        comp = MafiaCompiler(precision=prec, artifact_store=store, device=dev,
+                             **MEASURED_KW)
+        if comp.cost_source != "measured":
+            raise AssertionError(f"{m['label']}: cost_source {comp.cost_source}")
+        prog = comp.compile(build(STORE_MEASURED)[0],
+                            calib=_store_calib(STORE_MEASURED, prec))
+        if prog.pf_source != "artifact" or prog.cost_source != "measured":
+            raise AssertionError(f"{m['label']}: {prog.pf_source}, "
+                                 f"{prog.cost_source}")
+        X = data[f"{_store_label(STORE_MEASURED, prec, 'use_pallas')}:x"]
+        got = _run_bucket(prog, X, launches)
+        _same_outputs(m["label"], got, {
+            k.split(":", 1)[1]: data[k] for k in data.files
+            if k.startswith(m["label"] + ":")})
+        out_rec["measured"].append(dict(label=m["label"],
+                                        pf_source=prog.pf_source))
+        print(f"{m['label']}: the table from the store, pf_source artifact, "
+              "outputs bitwise equal", flush=True)
+    if profiled:
+        raise AssertionError(f"profile_device ran {len(profiled)} times")
+    out_rec.update(launches=launches, profile_calls=len(profiled),
+                   store_hits=store.hits, store_misses=store.misses)
+    print(f"profile_device calls: {len(profiled)}; store {store.hits} hits, "
+          f"{store.misses} misses; launches {launches}", flush=True)
+    print(json.dumps(out_rec))
+    return 0
 
 
 def main() -> int:
@@ -1721,7 +2121,24 @@ def main() -> int:
           f"megakernel {got['megakernel']}, chains "
           f"{got['linear_chain'] + got['linear_chain_q']}")
 
-    # ------------------------------------------------------------ 9. report
+    # ------------------------------------------------------------ 9. store
+    t = time.perf_counter()
+    import tempfile
+
+    try:
+        with tempfile.TemporaryDirectory(prefix="mafia-store-") as tmp:
+            store_rec, store_launches = store_phase(dev, tmp)
+    except AssertionError as e:
+        return fail("store", str(e))
+    for k, v in store_launches.items():
+        launches[k] = launches.get(k, 0) + v
+    phase("store", t, f"{len(STORE_ENGINES)} engines compiled into a store "
+          f"and restored in a fresh process (in "
+          f"{store_rec['child_s']:.2f} s); profile "
+          f"{store_rec['profile']['seconds']:.2f} s; launches "
+          f"{store_launches}")
+
+    # ----------------------------------------------------------- 10. report
     t = time.perf_counter()
     saved = dict(LAUNCHES)
     timed = []
@@ -1889,7 +2306,7 @@ def main() -> int:
     report.update(served=served, timed=timed, launches=launches, rows=rows,
                   chain_floor=chain_floor,
                   attention_cases=attn_cases, lm_runs=lm_runs, front=front,
-                  front_timed=front_timed,
+                  front_timed=front_timed, store=store_rec,
                   mm_f32_route=MM_F32_ROUTE.get("bfloat16"))
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
@@ -1944,4 +2361,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--store-child"]:
+        sys.exit(store_child(sys.argv[2]))
     sys.exit(main())

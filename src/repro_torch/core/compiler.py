@@ -13,14 +13,19 @@ CPU.  ``exec_mode="megakernel_grid"`` serves each bucket through one launch
 of the CUDA megakernel; ``use_pallas=True`` on the ``interpret`` lane runs
 each fused §IV-G chain through one launch of the CUDA chain kernel.
 
-Not ported yet (they raise ``NotImplementedError``): the persistent
-artifact store, and profile-guided compilation (``cost_source="measured"``,
-``calibration``, ``autotune``).
+``artifact_store`` (:mod:`repro_torch.core.artifacts`) is consulted before
+the Best-PF search and receives every fresh compile, so a new process
+cold-starts from a shared store.  ``cost_source="measured"`` prices the
+search, the chain cuts and the schedule with a
+:class:`~repro_torch.core.autotune.CalibratedCostModel` fitted from
+measurements of the compiler's device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
+import warnings
 from typing import Any, Callable
 
 import torch
@@ -75,9 +80,13 @@ class CompiledProgram:
     source_dfg: DFG | None = None      # the pre-rewrite graph, for reference
     rewrite_result: RewriteResult | None = None
     # "cold" (fresh search), "near" (seeded by a cached result for the same
-    # wiring), "exact" (cache hit — no search ran) or "external"
+    # wiring), "exact" (cache hit — no search ran), "external", or
+    # "artifact" (restored from the artifact store — no search, no
+    # calibration)
     pf_source: str = "cold"
     chain_split_bytes: float | None = DEFAULT_CHAIN_SPLIT_BYTES
+    # "analytic" (paper cycle model) or "measured" (calibrated µs: the
+    # schedule's units are then µs); never changes the emitted numerics
     cost_source: str = "analytic"
     device: torch.device | None = None   # None: the card, which must exist
 
@@ -90,10 +99,31 @@ class CompiledProgram:
 
     @property
     def latency_us(self) -> float:
+        if self.cost_source == "measured":
+            return self.schedule.total_cycles   # measured schedules are µs
         return self.budget.cycles_to_us(self.schedule.total_cycles)
 
     def __call__(self, **inputs: Any) -> dict[str, Any]:
         return self.fn(**inputs)
+
+    def save(self, path: Any) -> str:
+        """Persist this program as a versioned artifact (data only; the
+        callables are bound again on :meth:`load`).  Returns the payload's
+        content digest.  See :mod:`repro_torch.core.artifacts`."""
+        from repro_torch.core import artifacts
+
+        return artifacts.save_program(self, path)
+
+    @staticmethod
+    def load(path: Any,
+             device: torch.device | str | None = None) -> "CompiledProgram":
+        """Restore a program saved by :meth:`save` onto ``device`` (None:
+        the card): the digest is checked, the back-end plan pipeline re-run
+        and the relinearized megakernel stream held against the saved
+        fingerprint.  ``pf_source`` is ``"artifact"``."""
+        from repro_torch.core import artifacts
+
+        return artifacts.load_program(path, device)
 
     def batch(self, max_batch: int = 64, *, mode: str = "vmap",
               exec_mode: str | None = None) -> "BatchedProgram":
@@ -199,6 +229,25 @@ class BatchedProgram:
         return {k: torch.cat([c[k] for c in chunks], dim=0) for k in chunks[0]}
 
 
+# stale-calibration warnings fire once per table per process
+_STALE_CALIB_WARNED: set[str] = set()
+
+
+def _warn_stale_calibration(key: str, age_days: float,
+                            max_age_days: float) -> None:
+    if key in _STALE_CALIB_WARNED:
+        return
+    _STALE_CALIB_WARNED.add(key)
+    age = ("of unknown age (no created_at stamp)" if age_days == float("inf")
+           else f"{age_days:.1f} days old")
+    warnings.warn(
+        f"calibration table {key[:12]} is {age} (max_age_days="
+        f"{max_age_days:g}); measurements may no longer reflect the device "
+        "— falling back to the analytic cost model. Re-run "
+        "repro_torch.core.autotune.profile_device() to refresh.",
+        UserWarning, stacklevel=3)
+
+
 class MafiaCompiler:
     def __init__(
         self,
@@ -214,13 +263,14 @@ class MafiaCompiler:
         precision: str = "float32",
         calib_samples: int = 64,
         per_channel: bool = False,
-        chain_split_bytes: float | None = DEFAULT_CHAIN_SPLIT_BYTES,
+        chain_split_bytes: float | str | None = DEFAULT_CHAIN_SPLIT_BYTES,
         warm_start: bool = True,
         exec_mode: str = "interpret",
         artifact_store: Any | None = None,
         cost_source: str = "analytic",
         autotune: bool = False,
         calibration: Any | None = None,
+        max_age_days: float | None = 30.0,
         device: torch.device | str | None = None,
     ) -> None:
         """Knobs as in the JAX package's compiler: ``precision="int8"`` /
@@ -230,7 +280,29 @@ class MafiaCompiler:
         ``chain_split_bytes`` bounds fused chains; ``warm_start`` reuses
         Best-PF results across recompiles of the same canonical graph;
         ``exec_mode`` picks the execution lane.  ``device`` is where the
-        emitted callables run (None: the card)."""
+        emitted callables run, and where profile-guided compilation
+        measures (None: the card).
+
+        ``artifact_store`` (a :class:`repro_torch.core.artifacts.
+        ArtifactStore`) is consulted before the Best-PF search, keyed on the
+        canonical graph, its parameter values, every plan-relevant knob and
+        the calibration digest; a hit returns the restored program on
+        ``device``, a miss compiles and publishes.
+
+        ``cost_source="measured"`` makes the Best-PF search, chain splitting
+        and the schedule use a :class:`~repro_torch.core.autotune.
+        CalibratedCostModel`.  ``calibration`` is a ``CalibrationTable``, a
+        fitted ``CalibratedCostModel``, or None: the table the store holds
+        for ``device``'s class, else a quick profile of ``device``, published
+        back to the store.  A table of another device class, or one older
+        than ``max_age_days`` (None: no limit; a warning once per table),
+        is refused and the compiler degrades to ``cost_source="analytic"``.
+        Outputs are bitwise identical across cost sources.
+
+        ``autotune=True`` applies the table's swept knobs:
+        ``chain_split_bytes="auto"`` resolves to the swept split budget
+        (else the built-in default), and a table carrying ``bb``/``bn``
+        tiles installs them process-wide."""
         if backend not in ("fpga", "tpu"):
             raise ValueError(f"unknown backend {backend!r}")
         if precision not in ("float32", "int8", "int16"):
@@ -239,12 +311,6 @@ class MafiaCompiler:
             raise ValueError(f"unknown exec_mode {exec_mode!r}")
         if cost_source not in ("analytic", "measured"):
             raise ValueError(f"unknown cost_source {cost_source!r}")
-        if artifact_store is not None:
-            raise NotImplementedError("the artifact store is not ported yet")
-        if (cost_source != "analytic" or autotune or calibration is not None
-                or chain_split_bytes == "auto"):
-            raise NotImplementedError(
-                "profile-guided compilation is not ported yet")
         self.backend = backend
         self.budget = budget or (ARTY_A7 if backend == "fpga" else TpuBudget())
         self.strategy = strategy
@@ -259,18 +325,104 @@ class MafiaCompiler:
         self.chain_split_bytes = chain_split_bytes
         self.warm_start = warm_start
         self.exec_mode = exec_mode
+        self.artifact_store = artifact_store
+        self.autotune = autotune
         self.cost_source = cost_source
+        self.max_age_days = max_age_days
         self.device = resolve_device(device)
+        self.calibrated: Any | None = None
+        if cost_source == "measured" or autotune:
+            self._resolve_calibration(calibration)
+        if self.chain_split_bytes == "auto":
+            knobs = self.calibrated.knobs if self.calibrated else {}
+            self.chain_split_bytes = knobs.get(
+                "chain_split_bytes", DEFAULT_CHAIN_SPLIT_BYTES)
         # rewrite-aware PF warm-start caches, keyed on the canonical
         # rewritten graph's structural hash (exact / dims-blind near).
         self._pf_cache: dict[str, PFResult] = {}
         self._near_cache: dict[str, PFResult] = {}
 
+    # ----------------------------------------------- profile-guided plumbing
+    def _resolve_calibration(self, calibration: Any | None) -> None:
+        """Resolve ``calibration`` into ``self.calibrated`` and, in measured
+        mode, swap the calibrated bank in (rules in ``__init__``)."""
+        from repro_torch.core import autotune as autotune_mod
+
+        dev = autotune_mod.device_class(self.device)
+        model: Any | None = None
+        if calibration is None:
+            model = autotune_mod.default_calibration(
+                store=self.artifact_store, autotune=self.autotune,
+                device=self.device)
+        elif isinstance(calibration, autotune_mod.CalibratedCostModel):
+            model = calibration
+        elif isinstance(calibration, autotune_mod.CalibrationTable):
+            if calibration.device_class == dev:
+                if (self.autotune
+                        and "chain_split_bytes" not in calibration.knobs):
+                    autotune_mod.autotune_knobs(calibration,
+                                                device=self.device)
+                model = autotune_mod.CalibratedCostModel.fit(calibration)
+        else:
+            raise TypeError(
+                "calibration must be a CalibrationTable, a "
+                f"CalibratedCostModel or None, got {type(calibration)!r}")
+        if model is not None and model.device_class != dev:
+            model = None
+        if model is not None and self.max_age_days is not None:
+            age = ((time.time() - model.created_at) / 86400.0
+                   if model.created_at > 0.0 else float("inf"))
+            if age > self.max_age_days:
+                _warn_stale_calibration(model.table_digest or dev, age,
+                                        self.max_age_days)
+                model = None
+        if model is None:
+            # another device's (or stale) numbers would misprice this
+            # device: keep the analytic model instead
+            self.cost_source = "analytic"
+            return
+        self.calibrated = model
+        if self.cost_source == "measured":
+            self.bank = model
+        if self.autotune and "bb" in model.knobs:
+            from repro_torch.kernels import linear_pipeline
+
+            linear_pipeline.set_tuned_tiles(model.knobs["bb"],
+                                            model.knobs["bn"])
+
+    def _profile(self, rdfg: DFG) -> None:
+        """PF-1 profiling for this instance's cost source: the analytic
+        sweep, then in measured mode each node's ``latency1`` rewritten from
+        cycles to calibrated µs, so both Best-PF strategies optimize
+        measured time."""
+        profile_pf1(rdfg, backend=self.backend)
+        if self.cost_source == "measured" and self.calibrated is not None:
+            for node in rdfg.nodes.values():
+                node.latency1 = self.calibrated.lat1_us(node.op, node.latency1)
+
+    def _artifact_key(self, rdfg: DFG, calib: Any | None) -> str:
+        """Store key for compiling ``rdfg`` under this instance's knobs —
+        every knob the emitted plan or its numerics depend on."""
+        from repro_torch.core import artifacts
+
+        knobs = dict(
+            backend=self.backend, budget=repr(self.budget),
+            strategy=self.strategy, metric=self.metric, order=self.order,
+            pipelining=self.pipelining, use_pallas=self.use_pallas,
+            precision=self.precision, per_channel=self.per_channel,
+            chain_split_bytes=self.chain_split_bytes,
+            exec_mode=self.exec_mode, cost_source=self.cost_source)
+        if self.cost_source == "measured" and self.calibrated is not None:
+            knobs["calibration"] = self.calibrated.table_digest
+        cal = ("none" if self.precision == "float32" else
+               artifacts.calib_digest(calib, n_samples=self.calib_samples))
+        return artifacts.program_key(rdfg, knobs, cal)
+
     def optimize(
         self, dfg: DFG, warm_assignment: dict[str, int] | None = None
     ) -> tuple[PFResult, PFGroups]:
         """Run the Best-PF search, optionally seeded at a prior solution."""
-        profile_pf1(dfg, backend=self.backend)
+        self._profile(dfg)
         groups = PFGroups.build(dfg)
         ctx = CostContext(dfg, groups, self.budget, backend=self.backend, bank=self.bank)
         warm: list[int] | None = None
@@ -303,6 +455,20 @@ class MafiaCompiler:
         ``calib`` (fixed-point lanes only) is the calibration batch."""
         rw = rewrite(dfg, precision=self.precision)
         rdfg = rw.dfg
+        # the artifact store comes before the Best-PF search; a hit also
+        # primes the warm-start caches.  External assignments bypass it.
+        art_key: str | None = None
+        if self.artifact_store is not None and assignment is None:
+            art_key = self._artifact_key(rdfg, calib)
+            loaded = self.artifact_store.load(art_key, self.device)
+            if loaded is not None:
+                if self.warm_start and loaded.pf_result is not None:
+                    self._pf_cache.setdefault(loaded.dfg.structural_hash(),
+                                              loaded.pf_result)
+                    self._near_cache.setdefault(
+                        loaded.dfg.structural_hash(include_dims=False),
+                        loaded.pf_result)
+                return loaded
         pf_result: PFResult | None = None
         pf_source = "external"
         if assignment is None:
@@ -315,7 +481,7 @@ class MafiaCompiler:
             if cached is not None:
                 pf_source = "exact"
                 pf_result = cached
-                profile_pf1(rdfg, backend=self.backend)
+                self._profile(rdfg)
                 groups = PFGroups.build(rdfg)
                 assignment = dict(pf_result.assignment)
                 for nid in rdfg.nodes:
@@ -342,7 +508,7 @@ class MafiaCompiler:
                 if rid in rdfg.nodes:
                     eff[rid] = max(eff.get(rid, 1), int(pf))
             assignment = {nid: eff.get(nid, 1) for nid in rdfg.nodes}
-            profile_pf1(rdfg, backend=self.backend)
+            self._profile(rdfg)
             groups = PFGroups.build(rdfg)
             for nid, pf in assignment.items():
                 rdfg.nodes[nid].pf = pf
@@ -353,6 +519,11 @@ class MafiaCompiler:
         if self.use_pallas:
             sim_kw.update(decompose_chains=True,
                           chain_split_bytes=self.chain_split_bytes)
+        if self.cost_source == "measured" and self.calibrated is not None:
+            # schedule units in measured µs: nodes by the per-op fit, fused
+            # sub-chains as one launch
+            sim_kw.update(node_cost=self.calibrated.node_us,
+                          chain_cost=self.calibrated.chain_us)
         if self.pipelining == "auto":
             sched_p = simulate(rdfg, assignment, pipelining=True, **sim_kw)
             sched_n = simulate(rdfg, assignment, pipelining=False, **sim_kw)
@@ -383,7 +554,7 @@ class MafiaCompiler:
             node_types.get(n.op).dsp(assignment[n.id])
             for n in rdfg.nodes.values()
         )
-        return CompiledProgram(
+        prog = CompiledProgram(
             dfg=rdfg,
             fn=fn,
             assignment=assignment,
@@ -406,3 +577,6 @@ class MafiaCompiler:
             cost_source=self.cost_source,
             device=self.device,
         )
+        if art_key is not None:
+            self.artifact_store.save(art_key, prog)   # publish for the fleet
+        return prog

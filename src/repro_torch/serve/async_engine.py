@@ -19,13 +19,14 @@ forward:
   rejects at ``submit`` (:class:`~repro_torch.serve.scheduling.QueueFull`) —
   backpressure, not unbounded memory.
 * **LRU residency**: at most ``max_resident`` programs keep their compiled
-  callables alive.  The least-recently-served model is evicted and
-  recompiled (through the program cache of
-  :func:`~repro_torch.serve.classical_engine.get_program`) on its next
-  request; the persistent artifact store is not ported yet.
+  callables alive.  The least-recently-served model is evicted into the
+  persistent artifact store (:class:`~repro_torch.core.artifacts.
+  ArtifactStore`) and restored from it on its next request, on the device
+  it was served on — a load re-binds callables instead of re-running
+  Best-PF.  Without a store it is recompiled through its loader.
 * **Metrics**: per-model and engine-wide
   :class:`~repro_torch.serve.metrics.ServeMetrics` — enqueue→complete p50/p99,
-  rps, batch occupancy, SLO misses.
+  rps, batch occupancy, SLO misses, artifact cache hits/misses.
 
 The scheduling core is deliberately **synchronous and clock-injectable**:
 ``submit`` / ``poll`` / ``flush`` take an explicit ``now`` and never sleep,
@@ -64,9 +65,11 @@ class ModelState:
         self.max_batch = max_batch
         self.mode = mode
         self.queue = AdmissionQueue(queue_limit)
-        self.loader = loader          # recompile path after an eviction
+        self.loader = loader          # recompile path when no artifact hits
         self.program: Any | None = None
         self.batched: Any | None = None
+        self.art_key: str | None = None   # content-addressed store key
+        self.device: Any | None = None    # where the program is served
         self.input_name: str = ""
         self.in_shape: tuple[int, ...] = ()
         self.output_names: tuple[str, ...] = ()
@@ -88,6 +91,7 @@ class ModelState:
             raise ValueError(
                 f"serving engine handles single-input DFGs; got {sorted(gi)}")
         self.program = program
+        self.device = program.device
         self.batched = program.batch(max_batch, mode=mode)
         self.input_name = next(iter(gi))
         self.in_shape = gi[self.input_name].shape
@@ -99,8 +103,10 @@ class ModelState:
 class AsyncServeEngine:
     """Multi-tenant continuous-batching engine (see module docstring).
 
-    ``artifact_store`` must stay None: the store is not ported yet.
-    ``clock`` is injectable for deterministic tests.
+    ``artifact_store`` enables both halves of persistence: compiles
+    through a benchmark name publish artifacts, and LRU eviction parks
+    programs there instead of discarding the compile.  ``clock`` is
+    injectable for deterministic tests.
     """
 
     def __init__(self, *, max_resident: int = 8,
@@ -109,8 +115,6 @@ class AsyncServeEngine:
                  clock: Callable[[], float] = time.monotonic) -> None:
         if max_resident < 1:
             raise ValueError(f"max_resident must be >= 1, got {max_resident}")
-        if artifact_store is not None:
-            raise NotImplementedError("the artifact store is not ported yet")
         self.max_resident = max_resident
         self.artifact_store = artifact_store
         self.queue_limit = queue_limit
@@ -140,7 +144,8 @@ class AsyncServeEngine:
         ``program`` is a :class:`~repro_torch.core.compiler.CompiledProgram` or a
         benchmark name resolved through
         :func:`~repro_torch.serve.classical_engine.get_program` (compile knobs,
-        ``device`` included, in ``**compile_kw``).  ``slo_ms`` is the per-request deadline; a partially-empty
+        ``device`` included, in ``**compile_kw``; the engine's artifact
+        store is passed through).  ``slo_ms`` is the per-request deadline; a partially-empty
         bucket flushes early rather than miss it.  ``batch_wait_ms`` caps
         how long the oldest request waits for its bucket to fill (default:
         ``slo/4``, or 2 ms without an SLO).
@@ -164,11 +169,12 @@ class AsyncServeEngine:
             prog = program
         else:
             bench = program
+            store = self.artifact_store
 
             def loader() -> Any:
                 from repro_torch.serve.classical_engine import get_program
 
-                return get_program(bench, **compile_kw)
+                return get_program(bench, artifact_store=store, **compile_kw)
 
             prog = loader()
         state = ModelState(
@@ -199,6 +205,10 @@ class AsyncServeEngine:
     # -------------------------------------------------------------- residency
     def _make_resident(self, state: ModelState, prog: Any) -> None:
         state.bind(prog, state.max_batch, state.mode)
+        if self.artifact_store is not None and state.art_key is None:
+            from repro_torch.core import artifacts
+
+            state.art_key = artifacts.program_self_key(prog)
         state.last_used = self._tick
         self._evict_over_budget(keep=state.name)
 
@@ -214,10 +224,14 @@ class AsyncServeEngine:
             resident.remove(victim)
 
     def evict(self, name: str) -> None:
-        """Drop ``name``'s compiled callables (restored by its loader)."""
+        """Drop ``name``'s compiled callables; park the program in the
+        artifact store (if any) so restoring it skips Best-PF."""
         state = self._model(name)
         if not state.resident:
             return
+        if (self.artifact_store is not None and state.art_key is not None
+                and not self.artifact_store.contains(state.art_key)):
+            self.artifact_store.save(state.art_key, state.program)
         state.program = None
         state.batched = None
         state.metrics.evictions += 1
@@ -227,11 +241,20 @@ class AsyncServeEngine:
         if state.resident:
             state.last_used = self._tick
             return
-        if state.loader is None:
-            raise RuntimeError(
-                f"model {state.name!r} was evicted and has no loader to "
-                f"restore from")
-        prog = state.loader()
+        prog = None
+        if self.artifact_store is not None and state.art_key is not None:
+            prog = self.artifact_store.load(state.art_key, state.device)
+            for m in (state.metrics, self.metrics):
+                if prog is not None:
+                    m.cache_hits += 1
+                else:
+                    m.cache_misses += 1
+        if prog is None:
+            if state.loader is None:
+                raise RuntimeError(
+                    f"model {state.name!r} was evicted and has no loader "
+                    f"or artifact to restore from")
+            prog = state.loader()
         self._make_resident(state, prog)
 
     # -------------------------------------------------------------- admission

@@ -16,7 +16,7 @@ its outputs, bitwise — is exactly the async tier's.
 
 Programs are cached per ``(benchmark, trained, seed, backend, strategy,
 metric, pipelining, use_pallas, precision, per_channel, chain_split_bytes,
-exec_mode, device)``; the cache is thread-safe with single-flight
+exec_mode, device, artifact-store root)``; the cache is thread-safe with single-flight
 compilation: concurrent ``get_program`` calls for the same key produce one
 compile.
 
@@ -72,6 +72,7 @@ def get_program(
     chain_split_bytes: float | None = DEFAULT_CHAIN_SPLIT_BYTES,
     exec_mode: str = "interpret",
     device: torch.device | str | None = None,
+    artifact_store: Any | None = None,
 ) -> CompiledProgram:
     """Compile (or fetch from cache) one classical benchmark program.
 
@@ -81,12 +82,17 @@ def get_program(
     fixed-point ``precision`` the scales are calibrated from the
     benchmark's seeded training split.  Thread-safe, with single-flight
     compiles; a failed leader lets one waiter retry.
+
+    ``artifact_store`` (a :class:`repro_torch.core.artifacts.ArtifactStore`)
+    goes to the compiler: a cache miss consults the store before the
+    Best-PF search and publishes its result.  The store's root is part of
+    the cache key.
     """
     name = bench if isinstance(bench, str) else bench.name
     dev = resolve_device(device)
     key = (name, trained, seed, backend, strategy, metric, pipelining,
            use_pallas, precision, per_channel, chain_split_bytes, exec_mode,
-           str(dev))
+           str(dev), None if artifact_store is None else str(artifact_store.root))
     while True:
         with _CACHE_LOCK:
             prog = _PROGRAM_CACHE.get(key)
@@ -113,7 +119,7 @@ def get_program(
                 pipelining=pipelining, use_pallas=use_pallas,
                 precision=precision, per_channel=per_channel,
                 chain_split_bytes=chain_split_bytes, exec_mode=exec_mode,
-                device=dev)
+                artifact_store=artifact_store, device=dev)
             prog = compiler.compile(dfg, calib=calib)
             with _CACHE_LOCK:
                 _PROGRAM_CACHE[key] = prog

@@ -102,8 +102,66 @@ def test_eviction_restores_through_loader():
     eng.submit("a", _requests(1)[0])
     assert len(eng.flush("a")) == 1
     assert eng._models["a"].resident
-    with pytest.raises(NotImplementedError):
-        AsyncServeEngine(artifact_store=object())
+    # without a store the loader restores, and no artifact cache is counted
+    assert eng.metrics.cache_hits == eng.metrics.cache_misses == 0
+
+
+@pytest.mark.parametrize("precision", ["float32", "int8"])
+@pytest.mark.parametrize("lane", [dict(exec_mode="megakernel_grid"),
+                                  dict(use_pallas=True)],
+                         ids=["megakernel_grid", "use_pallas"])
+def test_lru_eviction_into_artifact_store_and_reload(tmp_path, lane,
+                                                     precision):
+    """Registering beyond ``max_resident`` parks the least-recently-used
+    model in the artifact store; its next request restores it from there
+    (a cache hit, no Best-PF) on the device it was served on, and it serves
+    exactly as before.  Turns between two tenants restore every time."""
+    from repro_torch.core.artifacts import ArtifactStore
+
+    store = ArtifactStore(tmp_path / "store")
+    eng = AsyncServeEngine(clock=FakeClock(), max_resident=1,
+                           artifact_store=store)
+    kw = dict(lane, precision=precision, device="cpu", batch_wait_ms=1e6,
+              max_batch=8)
+    eng.register_model("a", BENCH, **kw)
+    ref_prog = eng._models["a"].program
+    X = _requests(8)
+    ref = {k: v.numpy() for k, v in ref_prog.batch(8)(x=X).items()}
+    eng.register_model("b", "protonn/usps-b", **kw)
+    assert eng.resident_models == ("b",) and eng.metrics.evictions == 1
+    assert store.contains(eng._models["a"].art_key)
+    for turn in range(4):
+        name = "a" if turn % 2 == 0 else "b"
+        for x in X:
+            eng.submit(name, x)
+        done = eng.flush(name)
+        assert eng.resident_models == (name,)
+        prog = eng._models[name].program
+        assert prog.pf_source == "artifact"
+        assert prog.device == torch.device("cpu")
+        if name == "a":
+            for k, v in ref.items():
+                got = np.stack([r.outputs[k] for r in done])
+                assert np.array_equal(got, v), k
+    assert eng.metrics.cache_hits == 4 and eng.metrics.cache_misses == 0
+    assert eng._models["a"].metrics.cache_hits == 2
+
+
+def test_store_miss_falls_back_to_the_loader(tmp_path):
+    """An evicted model whose artifact is gone (swept, or corrupt) counts a
+    cache miss and comes back through its loader."""
+    from repro_torch.core.artifacts import ArtifactStore
+
+    store = ArtifactStore(tmp_path / "store")
+    eng = AsyncServeEngine(clock=FakeClock(), max_resident=1,
+                           artifact_store=store)
+    for name, bench in (("a", BENCH), ("b", "protonn/usps-b")):
+        eng.register_model(name, bench, batch_wait_ms=1e6, **KW)
+    store.path(eng._models["a"].art_key).write_bytes(b"torn")
+    eng.submit("a", _requests(1)[0])
+    assert len(eng.flush("a")) == 1 and eng._models["a"].resident
+    assert eng.metrics.cache_hits == 0 and eng.metrics.cache_misses == 1
+    assert eng._models["a"].program.pf_source != "artifact"
 
 
 def test_two_tenants_answer_like_the_sync_engine():

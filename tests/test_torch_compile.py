@@ -140,15 +140,29 @@ def test_compiled_program_needs_a_device_or_a_card():
     assert CompiledProgram(**fields, device="cpu").device == torch.device("cpu")
 
 
-def test_unported_compile_options_raise():
-    """Options whose machinery is not in the port yet refuse, by name."""
+def test_unported_compile_options_raise(tmp_path):
+    """Every compile option of the JAX package's compiler is ported: the
+    artifact store and profile-guided compilation are accepted, and a
+    calibration of the wrong type or an unknown cost source refuses, by
+    name, as in the JAX package."""
     from repro_torch.configs.classical import build
+    from repro_torch.core.artifacts import ArtifactStore
+    from repro_torch.core.autotune import CalibrationTable
+    from repro_torch.core.lowering import DEFAULT_CHAIN_SPLIT_BYTES
 
-    for kw in (dict(artifact_store=object()),
-               dict(cost_source="measured"), dict(autotune=True),
-               dict(calibration=object())):
-        with pytest.raises(NotImplementedError):
-            MafiaCompiler(device="cpu", **kw)
+    table = CalibrationTable(device_class="fpga:none")
+    for kw in (dict(artifact_store=ArtifactStore(tmp_path)),
+               dict(cost_source="measured", calibration=table),
+               dict(autotune=True, calibration=table,
+                    chain_split_bytes="auto")):
+        comp = MafiaCompiler(device="cpu", **kw)
+        assert comp.cost_source == "analytic"   # a foreign table degrades
+        assert comp.chain_split_bytes == DEFAULT_CHAIN_SPLIT_BYTES
+    with pytest.raises(TypeError, match="calibration"):
+        MafiaCompiler(device="cpu", cost_source="measured",
+                      calibration=object())
+    with pytest.raises(ValueError, match="cost_source"):
+        MafiaCompiler(device="cpu", cost_source="vibes")
     # training is ported: build(trained=True) trains where training runs,
     # the card unless the caller scopes another device
     from repro_torch.core.device import default_device

@@ -2,7 +2,9 @@
 
 Every module of ``repro_torch`` is scanned for such imports, and a fresh
 interpreter with ``jax``, ``jaxlib`` and ``repro`` blocked serves on the CPU
-through the classical engine, the LM engine and the LM launcher."""
+through the classical engine, the LM engine and the LM launcher, and loads
+a program from an artifact store and serves it: the payload pickles no
+class of the JAX package."""
 
 import os
 import re
@@ -62,6 +64,58 @@ _BLOCKED = textwrap.dedent("""
                    for m in sys.modules)
     print("served", int(req.pred))
 """)
+
+
+_BLOCKED_STORE = textwrap.dedent("""
+    import sys
+
+    class Block:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+                raise ImportError(f"blocked import of {name}")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    import numpy as np
+    from repro_torch.core.artifacts import ArtifactStore
+    from repro_torch.serve.classical_engine import ClassicalServeEngine
+
+    store = ArtifactStore(sys.argv[1])
+    (key,) = store.keys()
+    prog = store.load(key, "cpu")
+    assert prog is not None and prog.pf_source == "artifact", store
+    eng = ClassicalServeEngine(prog, max_batch=4)
+    X = np.load(sys.argv[2])
+    for x in X:
+        eng.submit(x)
+    preds = [int(r.pred) for r in eng.run_to_completion()]
+    assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro")
+                   for m in sys.modules)
+    print("preds", *preds)
+""")
+
+
+def test_store_loads_and_serves_with_jax_and_reference_blocked(tmp_path):
+    """An artifact the port wrote loads and serves in an interpreter that
+    cannot import JAX or the JAX package, with the predictions of the
+    program that wrote it."""
+    import numpy as np
+
+    from repro_torch.core.artifacts import ArtifactStore
+    from repro_torch.serve.classical_engine import get_program
+
+    store = ArtifactStore(tmp_path / "store")
+    prog = get_program("bonsai/usps-b", use_pallas=True, precision="int8",
+                       device="cpu", artifact_store=store)
+    X = np.random.default_rng(0).standard_normal((6, 256)).astype(np.float32)
+    np.save(tmp_path / "x.npy", X)
+    want = prog.batch(4)(x=X)["Pred"].reshape(-1).tolist()
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, "-c", _BLOCKED_STORE,
+                          str(store.root), str(tmp_path / "x.npy")], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split()[1:] == [str(p) for p in want]
 
 
 def test_serves_with_jax_and_reference_blocked():

@@ -810,3 +810,88 @@ def test_mlperf_tiny_lanes_agree_on_the_card(card, name, precision,
             torch.testing.assert_close(got[lane], per, rtol=1e-5, atol=1e-5)
         else:
             assert torch.equal(got[lane], per), lane
+
+
+@pytest.mark.parametrize("precision", ["float32", "int8"])
+@pytest.mark.parametrize("lane", ["megakernel_grid", "use_pallas"])
+@pytest.mark.parametrize("bench", ["bonsai/curet-m", "protonn/curet-m"])
+def test_artifacts_cross_between_cpu_and_card(card, tmp_path, bench, lane,
+                                              precision):
+    """An artifact written on the CPU loads on the card and serves a bucket
+    bitwise as a card compile does, through the kernels (megakernel: one
+    launch; chains: one launch per chain); one written on the card loads on
+    the CPU bitwise as a CPU compile."""
+    from repro_torch.configs.classical import build, training_split
+    from repro_torch.core.artifacts import ArtifactStore
+    from repro_torch.core.compiler import CompiledProgram
+
+    kw = (dict(exec_mode="megakernel_grid") if lane == "megakernel_grid"
+          else dict(use_pallas=True))
+    calib = (None if precision == "float32"
+             else training_split(bench, seed=0)[0][:64])
+    store = ArtifactStore(tmp_path / "store")
+
+    def compile_on(dev, **extra):
+        return MafiaCompiler(precision=precision, device=dev, **kw,
+                             **extra).compile(build(bench)[0], calib=calib)
+
+    on_cpu = compile_on("cpu", artifact_store=store)
+    on_card = compile_on(card)
+    loaded = compile_on(card, artifact_store=store)
+    assert loaded.pf_source == "artifact" and loaded.device.type == "cuda"
+    (name, spec), = loaded.dfg.graph_inputs.items()
+    X = np.random.default_rng(8).standard_normal(
+        (64,) + tuple(spec.shape)).astype(np.float32)
+    want = on_card.batch(64)(**{name: X})
+    n_chains = sum(type(s).__name__ == "ChainStep" for s in loaded.plan.steps)
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    got = loaded.batch(64)(**{name: X})
+    torch.cuda.synchronize()
+    if lane == "megakernel_grid":
+        assert LAUNCHES["megakernel"] == 1
+    else:
+        assert n_chains and (LAUNCHES["linear_chain"]
+                             + LAUNCHES["linear_chain_q"]) == n_chains
+    for k in want:
+        assert got[k].device.type == "cuda" and torch.equal(got[k], want[k])
+    on_card.save(tmp_path / "card.mafia")
+    back = CompiledProgram.load(tmp_path / "card.mafia", device="cpu")
+    want_cpu = on_cpu.batch(64)(**{name: X})
+    for k, v in back.batch(64)(**{name: X}).items():
+        assert v.device.type == "cpu" and torch.equal(v, want_cpu[k]), k
+
+
+def test_profiling_launches_the_chain_and_segment_kernels(card, tmp_path):
+    """bench_chain is one chain-kernel launch a call, bench_segments one
+    megakernel launch a call (nb = 1); a measured compile with a fresh table
+    of this card keeps cost_source "measured" and the analytic outputs."""
+    from repro_torch.configs.classical import build
+    from repro_torch.core import autotune as at
+
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    s = at.bench_chain(400, 4, warmup=1, reps=3, device=card)
+    assert LAUNCHES["linear_chain"] == 4 and s.wall_us > 0
+    assert s.device_class == at.device_class(card)
+    assert s.device_class.startswith("cuda:") and " " not in s.device_class
+    (seg,) = at.bench_segments(("bonsai/usps-b",), warmup=1, reps=3,
+                               device=card)
+    assert LAUNCHES["megakernel"] == 4 and seg.extent > 0
+    table = at.profile_device(quick=True, ops=("gemv", "add", "relu"),
+                              reps=2, device=card)
+    at.autotune_knobs(table, reps=2, device=card)
+    assert "bb" not in table.knobs
+    dfg = build("bonsai/curet-m")[0]
+    pm = MafiaCompiler(use_pallas=True, cost_source="measured",
+                       calibration=table, autotune=True,
+                       chain_split_bytes="auto", device=card).compile(dfg)
+    pa = MafiaCompiler(use_pallas=True, device=card).compile(
+        build("bonsai/curet-m")[0])
+    assert pm.cost_source == "measured"
+    (name, spec), = pa.dfg.graph_inputs.items()
+    X = np.random.default_rng(9).standard_normal(
+        (64,) + tuple(spec.shape)).astype(np.float32)
+    want = pa.batch(64)(**{name: X})
+    for k, v in pm.batch(64)(**{name: X}).items():
+        assert torch.equal(v, want[k]), k

@@ -113,6 +113,33 @@ def test_default_device_is_the_card():
         ClassicalServeEngine("protonn/usps-b", exec_mode="megakernel_grid")
 
 
+def test_get_program_store_in_the_cache_key(tmp_path):
+    """The store's root is part of ``get_program``'s key: one store and its
+    absence give distinct programs, the same root the cached one; a fresh
+    process (emptied cache) loads the published artifact, equal bitwise."""
+    from repro_torch.core.artifacts import ArtifactStore
+    from repro_torch.serve import classical_engine as ce
+
+    kw = dict(exec_mode="megakernel_grid", precision="int8", device="cpu")
+    s1, s2 = ArtifactStore(tmp_path / "one"), ArtifactStore(tmp_path / "two")
+    plain = get_program("protonn/usps-b", **kw)
+    p1 = get_program("protonn/usps-b", artifact_store=s1, **kw)
+    assert p1 is not plain and s1.saves == 1 and s1.misses == 1
+    assert get_program("protonn/usps-b", artifact_store=s1, **kw) is p1
+    assert get_program("protonn/usps-b",
+                       artifact_store=ArtifactStore(tmp_path / "one"),
+                       **kw) is p1
+    p2 = get_program("protonn/usps-b", artifact_store=s2, **kw)
+    assert p2 is not p1 and s2.saves == 1
+    X = _requests("protonn/usps-b", 8)
+    want = p1.batch(8)(x=X)
+    ce.clear_program_cache()
+    back = get_program("protonn/usps-b", artifact_store=s1, **kw)
+    assert back.pf_source == "artifact" and s1.hits == 1
+    for k, v in back.batch(8)(x=X).items():
+        assert torch.equal(v, want[k]), k
+
+
 @pytest.mark.parametrize("precision", ["float32", "int8"])
 @pytest.mark.parametrize("bench", BENCHES)
 def test_use_pallas_engine_serves_like_reference(bench, precision):
