@@ -55,7 +55,12 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               bitwise equal; at G = 128, dh = 320; and with the lengths on
               the card under CUDA's sync debug mode (no synchronisation)
               and captured in a CUDA graph, whose replay must equal the
-              eager call bitwise; float32 and bfloat16.  Limits: float32
+              eager call bitwise; float32 and bfloat16.  Then both kernels
+              at phase 7's other heads (``FAMILY_HEADS``): flash at S =
+              1024 for olmoe (H = KV = 16), granite (32 / 8), codeqwen
+              (32 / 32) and deepseek-v2's MLA prefill (H = KV = 128, dh
+              192, and v zero-padded from 128 to 192), decode at the first
+              three at the served lengths.  Limits: float32
               ``rtol = atol = 1e-5``; bfloat16 one bf16 ulp of the
               output's largest magnitude;
 7. lm-serve — the port's ``ServeEngine`` on qwen2.5-3b at full width (36
@@ -74,7 +79,34 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               ``flash_attention_wgmma``) and none on the other, and decode
               launches = 36 x decode steps, exactly; a decode step makes
               one host-to-device copy (tokens and positions; the 36 layers'
-              lengths are made on the card from it);
+              lengths are made on the card from it), counted at
+              PyTorch's dispatcher (``htod_ops``; the trace shows no
+              more), and no synchronisation
+              (CUDA's sync debug mode).  Then the same traffic, the same
+              prompt lengths (tokens within each vocabulary), through
+              ``LM_FAMILY_ENGINES``: olmoe-1b-7b (all 16 layers) and
+              deepseek-v2-236b (full width, depth cut to 2 of 60 layers:
+              the whole model is 472 GB in bf16) in float32 and bfloat16,
+              granite-8b and codeqwen1.5-7b in bfloat16, each freed before
+              the next; flash launches = layers x prefills, decode launches
+              = layers x steps (0 for MLA, whose absorbed decode is plain
+              PyTorch), the decode step's device time beside its bytes
+              bound (every weight, every expert, the caches' valid prefix)
+              and peak memory.  Dense: bf16 teacher-forced agreement >= 95
+              %.  MoE at the served capacity, where teacher forcing is no
+              oracle (a longer input drops other copies): each prefill
+              bucket's dropped copies by layer and, in float32, its logits
+              with the kernels within ``LM_F32_ATOL`` of the same bucket
+              with their plain versions; then the same weights with every
+              copy kept (``nodrop``: cap >= T at every T), served again:
+              float32 tokens = the teacher-forced argmax except near-ties,
+              logits within ``LM_F32_ATOL`` of the plain-attention forward
+              (where a router chose otherwise only at gates within
+              ``ROUTE_TIE``, the difference is reported, not failed);
+              bfloat16 agreement >= 95 % over the positions that the engine
+              and the teacher-forced forward routed to the same experts in
+              every layer (a bf16 rounding can move a token to another
+              expert; those positions are counted and printed);
 8. front    — the front of the paper's pipeline on the card.  Trained
               programs: bonsai/curet-m and protonn/curet-m trained with the
               port's ``train`` (``build(trained=True)``: 1,024 rows, 120
@@ -142,7 +174,8 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               JSON line, the card line, and last ``{"ok": true, "device":
               {...}}``.
 
-Every path runs at its full depth.
+Every path runs at its full depth, except deepseek-v2-236b (2 of 60
+layers, every width kept).
 
 Needs only the repository (``src/`` on the path) and one card.  Writes the
 full per-case report to ``chiprun_out/chip_smoke.json``.
@@ -150,6 +183,7 @@ full per-case report to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -190,10 +224,31 @@ LM_PROMPT_LEN = (16, 1024)
 LM_F32_GAP = 1e-3
 LM_F32_ATOL = 1e-3
 LM_BF16_AGREE = 0.95
+# phase 7's engines beside qwen2.5-3b: (arch, dtype, layers; None: all).
+# deepseek-v2's 60 layers (472 GB in bf16) do not fit on one card, so it
+# runs at full width on 2 layers.
+LM_FAMILY_ENGINES = (("olmoe-1b-7b", "float32", None),
+                     ("olmoe-1b-7b", "bfloat16", None),
+                     ("deepseek-v2-236b", "float32", 2),
+                     ("deepseek-v2-236b", "bfloat16", 2),
+                     ("granite-8b", "bfloat16", None),
+                     ("codeqwen1.5-7b", "bfloat16", None))
+# A MoE router's choices may differ between two float32 runs of one input
+# that differ only in rounding (the attention kernels against their plain
+# versions) where two gates lie within ROUTE_TIE of each other: the token
+# then goes to another expert, and its logits move by more than LM_F32_ATOL
+# with no fault.  Such a difference passes only where every choice that
+# differs in the first layer with a difference is such a near-tie (later
+# layers see that layer's other output).
+ROUTE_TIE = 1e-4
 # the two passes of csrc/decode_attention.cu, by kernel name in a trace
 DECODE_PASSES = ("da_kernel", "da_combine")
 HTOD = "Memcpy HtoD"               # a host-to-device copy, by name in a trace
 TRACE_TRIES = 3                    # traces taken before an empty one fails
+# (H, KV, dh) of phase 7's other prefills and decodes: olmoe-1b-7b,
+# granite-8b, codeqwen1.5-7b, and deepseek-v2's MLA prefill (q and k of
+# 128 + 64, v zero-padded to them; its decode runs no kernel)
+FAMILY_HEADS = ((16, 16, 128), (32, 8, 128), (32, 32, 128), (128, 128, 192))
 # matmul/gemv cases (M, K, N) of phase 3, each in float32 and bfloat16 with
 # both layouts of b: aligned and unaligned pitches, split and unsplit K
 MATMUL_SHAPES = ((129, 65, 70), (128, 128, 128), (64, 610, 24),
@@ -723,6 +778,30 @@ def device_split(fn, names: tuple[str, ...], reps: int = 3,
             n_act / reps)
 
 
+def device_top(fn, n: int = 6, reps: int = 3) -> list[tuple[str, float, float]]:
+    """The ``n`` kernels (by name) that take the most device time in a call
+    of ``fn``: (name, ms per call, launches per call), from a profiler
+    trace over ``reps`` calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by: dict[str, list] = {}
+    for e in p.events():
+        if e.device_type == DeviceType.CUDA:
+            acc = by.setdefault(e.name, [0.0, 0])
+            acc[0] += e.time_range.elapsed_us()
+            acc[1] += 1
+    top = sorted(by.items(), key=lambda kv: -kv[1][0])[:n]
+    return [(name, us / 1e3 / reps, k / reps) for name, (us, k) in top]
+
+
 def htod_copies(fn, reps: int = 5) -> tuple[float, float]:
     """Host-to-device copies per call of ``fn``: the copies a profiler trace
     shows on the card (``HTOD``; a trace may drop a small one), and the
@@ -747,22 +826,151 @@ def htod_copies(fn, reps: int = 5) -> tuple[float, float]:
     return dev / reps, calls / reps
 
 
-def teacher_forced(model, done, vocab: int, plain: bool):
+@contextlib.contextmanager
+def route_log(enabled: bool = True):
+    """Record every MoE layer the port runs while the block is open, in
+    order: its tokens, capacity, choices (T, k), the least gap between
+    adjacent gates among each token's top k + 1 (T,) and its dropped
+    copies (a tensor on the card).  Recomputes the router's choices beside
+    the layer; not for timed runs."""
+    from repro_torch.models import moe, transformer
+
+    log: list[dict] = []
+    if not enabled:
+        yield log
+        return
+    real = transformer.moe_ffn
+
+    def spy(p, x, *, k, capacity_factor):
+        T = x.shape[0] * x.shape[1]
+        cap = moe.capacity(T, k, p["router"].shape[-1], capacity_factor)
+        gates, _, top_i, _, keep = moe.route(p["router"], x.reshape(T, -1), k,
+                                             cap)
+        top = gates.topk(k + 1, dim=-1).values
+        log.append(dict(T=T, cap=cap, top_i=top_i,
+                        gap=(top[:, :-1] - top[:, 1:]).min(-1).values,
+                        dropped=(~keep).sum()))
+        return real(p, x, k=k, capacity_factor=capacity_factor)
+
+    transformer.moe_ffn = spy
+    try:
+        yield log
+    finally:
+        transformer.moe_ffn = real
+
+
+def route_flips(a: list[dict], b: list[dict]) -> dict | None:
+    """The first layer in which two logs of one input chose other experts
+    (or another order of them): the layer, its tokens and their least gate
+    gaps in either run; None where every choice agrees."""
+    import torch
+
+    for layer, (x, y) in enumerate(zip(a, b)):
+        rows = (x["top_i"] != y["top_i"]).any(-1)
+        if bool(rows.any()):
+            idx = rows.nonzero()[:, 0]
+            gaps = torch.minimum(x["gap"][idx], y["gap"][idx])
+            return dict(layer=layer, tokens=idx.tolist(), gaps=gaps.tolist())
+    return None
+
+
+def htod_ops(fn) -> int:
+    """Host-to-device copies one call of ``fn`` asks for: the ``_to_copy``
+    and ``copy_`` operations, seen at PyTorch's dispatcher, whose source
+    lies on the host and whose result lies on the card.  Exact where the
+    profiler's trace drops a small copy now and then (ROADMAP Queue C item
+    8), and blind to the card's own copies, which the runtime's
+    ``cudaMemcpy*`` calls also count."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func is torch.ops.aten._to_copy.default:
+                src, dst = args[0], out
+            elif func is torch.ops.aten.copy_.default:
+                dst, src = args[0], args[1]
+            else:
+                return out
+            if src.device.type == "cpu" and dst.device.type == "cuda":
+                self.n += 1
+            return out
+
+    fn()
+    torch.cuda.synchronize()
+    counter = Count()
+    with counter:
+        fn()
+    torch.cuda.synchronize()
+    return counter.n
+
+
+def engine_routes(eng_log: list[dict], done, L: int) -> dict:
+    """The experts (sorted, per layer: (tokens, k)) that chose each served
+    token in an engine run logged by ``route_log``: the prefill of request
+    r (the first ``len(done)`` forwards, every request admitted at once)
+    at its last prompt position, then decode step j - 1 at the request's
+    slot."""
+    import torch
+
+    n = len(done)
+    if len(eng_log) % L or len(eng_log) // L < n:
+        raise AssertionError(f"{len(eng_log)} MoE layers logged, not "
+                             f"{L} per forward")
+    out = {}
+    for i, r in enumerate(sorted(done, key=lambda q: q.rid)):
+        per_layer = []
+        for layer in range(L):
+            rows = [eng_log[i * L + layer]["top_i"][len(r.prompt) - 1]]
+            rows += [eng_log[(n + j - 1) * L + layer]["top_i"][r.slot]
+                     for j in range(1, len(r.tokens))]
+            per_layer.append(torch.stack(rows).sort(-1).values)
+        out[r.rid] = per_layer
+    return out
+
+
+def teacher_forced(model, done, vocab: int, plain: bool, eng_routes=None):
     """Hold every served token against the argmax of the model's
     teacher-forced ``forward_full`` over the prompt and the tokens served
     before it.  Returns (positions, disagreements, max |logits - logits
-    with the attention kernels' plain versions| or None)."""
+    with the attention kernels' plain versions| over the requests whose
+    routers chose alike in both runs, or None; the requests whose routers
+    chose otherwise: the first such layer, its tokens and gate gaps, and
+    the logits' difference; the positions whose router chose the same
+    experts in every layer in the engine's run (``eng_routes``, from
+    ``engine_routes``) and in the teacher-forced one, or None).  Each
+    disagreement says whether its position was routed alike."""
     import numpy as np
     import torch
 
-    n, worse, diff = 0, [], (0.0 if plain else None)
+    moe = model.cfg.family == "moe"
+    n, worse, diff, flipped = 0, [], (0.0 if plain else None), []
+    n_alike = None if eng_routes is None else 0
     for r in done:
         full = np.asarray(r.prompt + r.tokens, np.int32)[None, :]
-        logits, _, _ = model.forward_full(full)
+        with route_log(moe and (plain or eng_routes is not None)) as ka:
+            logits, _, _ = model.forward_full(full)
+        alike = None
+        if eng_routes is not None:
+            p0, m = len(r.prompt) - 1, len(r.tokens)
+            alike = torch.ones(m, dtype=torch.bool, device=logits.device)
+            for e, tf in zip(eng_routes[r.rid], ka):
+                alike &= (e == tf["top_i"][p0:p0 + m].sort(-1).values).all(-1)
+            alike = alike.tolist()
+            n_alike += sum(alike)
         if plain:
-            ref, _, _ = model.forward_full(full, plain_attention=True)
-            diff = max(diff, float((logits - ref).abs().max()))
-            del ref
+            with route_log(moe) as pa:
+                ref, _, _ = model.forward_full(full, plain_attention=True)
+            d = float((logits - ref).abs().max())
+            flips = route_flips(ka, pa) if moe else None
+            if flips is None:
+                diff = max(diff, d)
+            else:
+                flipped.append(dict(rid=r.rid, diff=d, **flips))
+            del ref, ka, pa
         p0 = len(r.prompt) - 1
         lf = logits[0, p0:p0 + len(r.tokens)].clone()
         del logits
@@ -775,8 +983,64 @@ def teacher_forced(model, done, vocab: int, plain: bool):
             if tok != arg[i]:
                 worse.append(dict(rid=r.rid, step=i, served=tok, argmax=arg[i],
                                   top2_gap=gap[i],
-                                  served_gap=float(lf[i, arg[i]] - lf[i, tok])))
-    return n, worse, diff
+                                  served_gap=float(lf[i, arg[i]] - lf[i, tok]),
+                                  routed_alike=None if alike is None
+                                  else alike[i]))
+    return n, worse, diff, flipped, n_alike
+
+
+def bucket_check(model, prompts, plain: bool) -> list[dict]:
+    """Each prompt's prefill bucket (zero-padded, as the engine pads it)
+    through ``forward_full`` with the kernels: the capacity and each
+    layer's dropped copies; with ``plain`` also the logits' max abs
+    difference from the same bucket with the kernels' plain versions, and
+    the first layer whose router chose otherwise (``route_flips``)."""
+    import numpy as np
+
+    from repro_torch.serve.scheduling import bucket_for
+
+    cfg = model.cfg
+    out = []
+    for i, p in enumerate(prompts):
+        sp = bucket_for(len(p), LM_MAX_LEN, floor=8)
+        padded = np.zeros((1, sp), np.int32)
+        padded[0, :len(p)] = p
+        with route_log() as ka:
+            lk, _, _ = model.forward_full(padded)
+        rec = dict(rid=i, bucket=sp, cap=ka[0]["cap"],
+                   copies=sp * cfg.experts_per_token,
+                   dropped=[int(e["dropped"]) for e in ka])
+        if plain:
+            with route_log() as pa:
+                lp, _, _ = model.forward_full(padded, plain_attention=True)
+            rec.update(diff=float((lk - lp).abs().max()),
+                       flips=route_flips(ka, pa))
+            del lp
+        del lk
+        out.append(rec)
+    return out
+
+
+def nodrop(cfg):
+    """``cfg`` with the capacity factor raised to (E + 0.5) / k, so that
+    every expert has a slot for every token (cap >= T at any T)."""
+    return dataclasses.replace(
+        cfg, capacity_factor=(cfg.n_experts + 0.5) / cfg.experts_per_token)
+
+
+def decode_bound(model, lens) -> tuple[float, float]:
+    """(bytes, ms) a decode step at batch ``len(lens)`` must move: every
+    weight read once (all experts: the capacity dispatch runs each over
+    its slots), of the embedding only the batch's rows, and the valid
+    prefix ``lens`` of every layer's caches; over ``HBM_BYTES_PER_S``."""
+    cfg = model.cfg
+    emb = model.embed
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    nbytes -= (emb.shape[0] - len(lens)) * emb.shape[1] * emb.element_size()
+    per_pos = ((cfg.kv_lora_rank + cfg.d_rope) if cfg.use_mla
+               else 2 * cfg.n_kv_heads_eff * cfg.d_head)
+    nbytes += cfg.n_layers * int(sum(lens)) * per_pos * emb.element_size()
+    return float(nbytes), nbytes / HBM_BYTES_PER_S * 1e3
 
 
 # ------------------------------------------------------- phase 9: the store
@@ -1188,6 +1452,7 @@ def main() -> int:
         from repro_torch.kernels.ref import (decode_attention_ref,
                                              flash_attention_ref)
         from repro_torch.models.layers import MM_F32_ROUTE
+        from repro_torch.models.moe import capacity
         from repro_torch.models.transformer import init_params
         from repro_torch.serve.engine import ServeEngine
         from repro_torch.serve.scheduling import bucket_for
@@ -1583,6 +1848,11 @@ def main() -> int:
                              (1, 64, 64, 12, 2, 64, True),
                              (1, 70, 70, 8, 2, 320, True),
                              (2, 33, 45, 4, 1, 320, False)]
+            # phase 7's other prefills at their largest bucket: olmoe (H =
+            # KV = 16), granite (32 / 8), codeqwen (32 / 32) and
+            # deepseek-v2's MLA (H = KV = 128, q and k of dh 192)
+            flash_shapes += [(1, 1024, 1024, H, KV, dh, True)
+                             for H, KV, dh in FAMILY_HEADS]
             cases = []
             for B, Sq, Sk, H, KV, dh, causal in flash_shapes:
                 q = rnd((B, Sq, H, dh), dt)
@@ -1596,6 +1866,12 @@ def main() -> int:
             cases.append(("fused QKV view B=2 Sq=Sk=1024 H=16 KV=2 dh=128 "
                           "causal", qkv[:, :, :16], qkv[:, :, 16:18],
                           qkv[:, :, 18:], True))
+            # MLA's prefill: v of width 128 zero-padded to q's and k's 192
+            qm = rnd((1, 1024, 128, 192), dt)
+            km = rnd((1, 1024, 128, 192), dt)
+            vm = torch.nn.functional.pad(rnd((1, 1024, 128, 128), dt), (0, 64))
+            cases.append(("MLA B=1 Sq=Sk=1024 H=KV=128 dh=192, v of 128 "
+                          "zero-padded", qm, km, vm, True))
             for label, q, k, v, causal in cases:
                 route = flash_route(q, k, v)
                 kname = ("flash_attention_wgmma" if route == "wgmma"
@@ -1634,6 +1910,21 @@ def main() -> int:
                                              "calls differ")
                     attn_case("decode_attention", label, got,
                               decode_attention_ref(q, kc, vc, ld, round_p=rp))
+            # phase 7's other GQA decodes: olmoe, granite and codeqwen's
+            # heads at the served lengths, given on the card as the engine
+            # gives them
+            ld = torch.from_numpy(np.asarray(served_lens, np.int32)).to(dev)
+            for H, KV, dh in FAMILY_HEADS[:3]:
+                qf = rnd((B, H, dh), dt)
+                kf, vf = rnd((B, S, KV, dh), dt), rnd((B, S, KV, dh), dt)
+                for rp in (False, True):
+                    attn_case("decode_attention",
+                              f"{dname} B={B} S={S} H={H} KV={KV} dh={dh} "
+                              f"served lens on the card p "
+                              f"{'rounded' if rp else 'fp32'}",
+                              decode_attention(qf, kf, vf, ld, round_p=rp),
+                              decode_attention_ref(qf, kf, vf, ld, round_p=rp))
+                del qf, kf, vf
             # wider than any config: G = 128 query rows per KV head (two
             # groups of 64) and dh = 320, lengths on the host and the card
             qw = rnd((2, 128, 320), dt)
@@ -1699,13 +1990,16 @@ def main() -> int:
     prefills = steps_total = 0
     lm_counts = ("flash_attention", "flash_attention_wgmma", "decode_attention")
 
-    def lm_serve(label, cfg, plain_check):
+    def lm_serve(label, cfg, model, prompts, plain_check, timed=True,
+                 teacher=True, log_routes=False):
+        """Serve ``prompts`` through a fresh engine on ``model``: launches
+        counted over the run and checked; with ``timed`` the steady-state
+        times, the device split, the host-to-device copies and a decode
+        step under CUDA's sync debug mode; with ``teacher`` every served
+        token against the teacher-forced argmax, and with ``log_routes``
+        (a MoE model, an untimed run) whether each token's position was
+        routed alike in the engine and the teacher-forced forward."""
         nonlocal prefills, steps_total
-        torch.cuda.reset_peak_memory_stats()
-        t1 = time.perf_counter()
-        model = init_params(cfg, 0, dev)
-        torch.cuda.synchronize()
-        init_s = time.perf_counter() - t1
         model.forward_full(np.arange(1, 9, dtype=np.int32)[None, :])  # warm up
         eng = ServeEngine(cfg, model, max_batch=LM_MAX_BATCH,
                           max_len=LM_MAX_LEN, device=dev)
@@ -1715,22 +2009,25 @@ def main() -> int:
         for k in lm_counts:
             LAUNCHES[k] = 0
         t1 = time.perf_counter()
-        done = eng.run_to_completion()
+        with route_log(log_routes) as eng_log:
+            done = eng.run_to_completion()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
         got = {k: LAUNCHES[k] for k in lm_counts}
         snap = eng.metrics.snapshot()
         steps, decode_s = snap["batches"], snap["device_s"]
         L = cfg.n_layers
-        # bf16 prefills run on the tensor cores, float32 on the CUDA cores
+        # bf16 prefills run on the tensor cores, float32 on the CUDA cores;
+        # MLA's decode is plain PyTorch (no decode kernel takes it)
         flash, other = (("flash_attention_wgmma", "flash_attention")
                         if cfg.act_dtype == "bfloat16"
                         else ("flash_attention", "flash_attention_wgmma"))
+        want_decode = 0 if cfg.use_mla else L * steps
         print(f"  {label}: {len(done)} requests, {steps} decode steps, "
               f"launches {got} (expected {flash} {L} x {len(done)}, {other} "
-              f"0, decode {L} x {steps})", flush=True)
+              f"0, decode {want_decode})", flush=True)
         if (got[flash] != L * len(done) or got[other] != 0
-                or got["decode_attention"] != L * steps
+                or got["decode_attention"] != want_decode
                 or len(done) != LM_REQUESTS
                 or any(len(r.tokens) != LM_NEW_TOKENS for r in done)):
             raise AssertionError(f"{label}: launches {got}, {len(done)} "
@@ -1740,106 +2037,259 @@ def main() -> int:
         prefills += len(done)
         steps_total += steps
         n_tok = sum(len(r.tokens) for r in done)
-        # steady state: one decode step at batch 8, and one prefill of the
-        # largest bucket, each warm, median on the host clock
-        step_ms = host_median_ms(lambda: model.forward_decode(
-            eng.last_token, eng.caches, eng.pos), reps=5)
-        bucket = bucket_for(int(plens.max()), LM_MAX_LEN, floor=8)
-        pre_ms = host_median_ms(lambda: model.forward_full(
-            np.ones((1, bucket), np.int32), return_cache=True), reps=3)
-        # the attention kernels' share of one decode step's and of one
-        # prefill's device time, and the device activities of each
-        step_dev, part, step_n = device_split(
-            lambda: model.forward_decode(eng.last_token, eng.caches, eng.pos),
-            DECODE_PASSES)
-        attn_ms = sum(part[k] for k in DECODE_PASSES)
-        # host-to-device copies of a decode step: tokens and positions in
-        # one; the layers' lengths are made on the card from it
-        _, cp, _ = device_split(
-            lambda: model.forward_decode(eng.last_token, eng.caches, eng.pos),
-            (HTOD,), count=True)
-        htod = cp[HTOD]
-        if htod != 1:
-            raise AssertionError(f"{label}: {htod} host-to-device copies per "
-                                 "decode step, expected 1")
-        pre_dev, pre_part, pre_n = device_split(
-            lambda: model.forward_full(np.ones((1, bucket), np.int32),
-                                       return_cache=True),
-            ("fa_kernel", "fa_tc_kernel"))
-        flash_ms = pre_part["fa_kernel"] + pre_part["fa_tc_kernel"]
-        n_pos, worse, diff = teacher_forced(model, done, cfg.vocab_size,
-                                            plain_check)
-        rec = dict(run=label, dtype=cfg.act_dtype, params=cfg.param_dtype,
-                   layers=L, requests=len(done), prompt_lens=plens.tolist(),
+        rec = dict(run=label, arch=cfg.name, dtype=cfg.act_dtype,
+                   params=cfg.param_dtype, layers=L,
+                   capacity_factor=cfg.capacity_factor if cfg.n_experts else None,
+                   requests=len(done), prompt_lens=[len(p) for p in prompts],
                    new_tokens=n_tok, decode_steps=steps, launches=got,
-                   init_s=init_s, wall_s=wall, tokens_per_s=n_tok / wall,
+                   wall_s=wall, tokens_per_s=n_tok / wall,
                    decode_ms_per_step=decode_s / steps * 1e3,
-                   decode_ms_steady=step_ms, prefill_bucket=bucket,
-                   prefill_ms_bucket=pre_ms,
                    prefill_ms_per_request=(wall - decode_s) / len(done) * 1e3,
-                   decode_step_device_ms=step_dev,
-                   decode_attention_device_ms=attn_ms,
-                   decode_attention_pass_ms={k: part[k] for k in DECODE_PASSES},
-                   attention_share=attn_ms / step_dev,
-                   decode_step_device_activities=step_n,
-                   decode_step_htod_copies=htod,
-                   prefill_device_ms=pre_dev,
-                   prefill_flash_device_ms=flash_ms,
-                   prefill_device_activities=pre_n,
-                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-                   positions=n_pos, disagreements=worse,
-                   agreement=1 - len(worse) / n_pos, plain_logit_diff=diff,
                    final_lens=eng.pos.tolist())
-        for w in worse:
-            print(f"    request {w['rid']} token {w['step']}: served {w['served']}"
-                  f", teacher-forced argmax {w['argmax']}, top-2 gap "
-                  f"{w['top2_gap']:.3g}, argmax leads the served token by "
-                  f"{w['served_gap']:.3g}")
-        print(f"  {label}: {n_pos - len(worse)}/{n_pos} served tokens equal the "
-              f"teacher-forced argmax; " + ("" if diff is None else
-              f"logits vs plain-attention forward max abs diff {diff:.3g}; ")
-              + f"{n_tok / wall:.1f} tokens/s, prefill "
-              f"{rec['prefill_ms_per_request']:.1f} ms/request, decode "
-              f"{rec['decode_ms_per_step']:.2f} ms/step at batch "
-              f"{LM_MAX_BATCH} (host clock; warm: {step_ms:.2f} ms/step, "
-              f"prefill of {bucket} tokens {pre_ms:.1f} ms); decode step device "
-              f"{step_dev:.3f} ms, attention {attn_ms:.3f} ms "
-              f"({attn_ms / step_dev:.1%}: " + ", ".join(
-                  f"{k} {part[k]:.3f}" for k in DECODE_PASSES)
-              + f"), {step_n:.0f} device "
-              f"activities ({htod:.0f} host-to-device copy); prefill of {bucket} tokens device {pre_dev:.3f} ms, "
-              f"flash {flash_ms:.3f} ms, {pre_n:.0f} activities; peak "
-              f"{rec['peak_gib']:.1f} GiB", flush=True)
+        msg = (f"{n_tok / wall:.1f} tokens/s, prefill "
+               f"{rec['prefill_ms_per_request']:.1f} ms/request, decode "
+               f"{rec['decode_ms_per_step']:.2f} ms/step at batch "
+               f"{LM_MAX_BATCH} (host clock)")
+        if timed:
+            # steady state: one decode step at batch 8, and one prefill of
+            # the largest bucket, each warm, median on the host clock
+            step = lambda: model.forward_decode(              # noqa: E731
+                eng.last_token, eng.caches, eng.pos)
+            step_ms = host_median_ms(step, reps=5)
+            bucket = bucket_for(max(len(p) for p in prompts), LM_MAX_LEN,
+                                floor=8)
+            prefill = lambda: model.forward_full(              # noqa: E731
+                np.ones((1, bucket), np.int32), return_cache=True)
+            pre_ms = host_median_ms(prefill, reps=3)
+            # the attention kernels' share of one decode step's and of one
+            # prefill's device time, and the device activities of each
+            step_dev, part, step_n = device_split(step, DECODE_PASSES)
+            attn_ms = sum(part[k] for k in DECODE_PASSES)
+            # host-to-device copies of a decode step: tokens and positions
+            # in one; the layers' lengths are made on the card from it.
+            # Counted at the dispatcher (the trace drops a small copy now
+            # and then: ROADMAP Queue C item 8), and the trace may show no
+            # more
+            htod = htod_ops(step)
+            trace_htod, _ = htod_copies(step)
+            if htod != 1 or trace_htod > 1:
+                raise AssertionError(f"{label}: {htod} host-to-device copies "
+                                     f"per decode step ({trace_htod} in the "
+                                     "trace), expected 1")
+            # no synchronisation inside a decode step (the MoE dispatch
+            # reads nothing back): CUDA's sync debug mode raises on one
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                step()
+            except RuntimeError as e:
+                raise AssertionError(f"{label}: a decode step synchronised: "
+                                     f"{e}") from e
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            pre_dev, pre_part, pre_n = device_split(
+                prefill, ("fa_kernel", "fa_tc_kernel"))
+            flash_ms = pre_part["fa_kernel"] + pre_part["fa_tc_kernel"]
+            b_bytes, b_ms = decode_bound(model, eng.pos + 1)
+            top = device_top(step)
+            rec.update(decode_ms_steady=step_ms, prefill_bucket=bucket,
+                       prefill_ms_bucket=pre_ms,
+                       decode_step_device_ms=step_dev,
+                       decode_attention_device_ms=attn_ms,
+                       decode_attention_pass_ms={k: part[k]
+                                                 for k in DECODE_PASSES},
+                       attention_share=attn_ms / step_dev,
+                       decode_step_device_activities=step_n,
+                       decode_step_htod_copies=htod,
+                       decode_step_htod_in_trace=trace_htod,
+                       decode_step_sync_free=True,
+                       decode_step_bound_bytes=b_bytes,
+                       decode_step_bound_ms=b_ms,
+                       decode_step_top_kernels=top,
+                       prefill_device_ms=pre_dev,
+                       prefill_flash_device_ms=flash_ms,
+                       prefill_device_activities=pre_n)
+            msg += (f" (warm: {step_ms:.2f} ms/step, prefill of {bucket} "
+                    f"tokens {pre_ms:.1f} ms); decode step device "
+                    f"{step_dev:.3f} ms against a bytes bound of {b_ms:.3f} ms "
+                    f"({b_bytes / 1e9:.2f} GB over {HBM_BYTES_PER_S / 1e12} "
+                    f"TB/s), attention {attn_ms:.3f} ms "
+                    f"({attn_ms / step_dev:.1%}: " + ", ".join(
+                        f"{k} {part[k]:.3f}" for k in DECODE_PASSES)
+                    + f"), {step_n:.0f} device activities ({htod:.0f} "
+                    f"host-to-device copy, no synchronisation); prefill of "
+                    f"{bucket} tokens device {pre_dev:.3f} ms, flash "
+                    f"{flash_ms:.3f} ms, {pre_n:.0f} activities; a decode "
+                    f"step's heaviest kernels: " + "; ".join(
+                        f"{name[:60]} {ms:.3f} ms x{k:.0f}"
+                        for name, ms, k in top))
+        if teacher:
+            n_pos, worse, diff, flipped, n_alike = teacher_forced(
+                model, done, cfg.vocab_size, plain_check,
+                engine_routes(eng_log, done, L) if log_routes else None)
+            rec.update(positions=n_pos, disagreements=worse,
+                       agreement=1 - len(worse) / n_pos, plain_logit_diff=diff,
+                       route_flips=flipped)
+            if n_alike is not None:
+                miss = sum(1 for w in worse if w["routed_alike"])
+                rec.update(routed_alike=n_alike,
+                           agreement_routed_alike=1 - miss / n_alike)
+                msg = (f"{n_alike}/{n_pos} positions routed alike in every "
+                       f"layer in both runs, {n_alike - miss} of them served "
+                       f"the teacher-forced argmax; " + msg)
+            for w in worse:
+                print(f"    request {w['rid']} token {w['step']}: served "
+                      f"{w['served']}, teacher-forced argmax {w['argmax']}, "
+                      f"top-2 gap {w['top2_gap']:.3g}, argmax leads the served "
+                      f"token by {w['served_gap']:.3g}" + (
+                          "" if w["routed_alike"] is None else
+                          ", routed alike" if w["routed_alike"] else
+                          ", routed otherwise"))
+            for f in flipped:
+                print(f"    request {f['rid']}: the router chose otherwise in "
+                      f"layer {f['layer']} at tokens {f['tokens'][:8]} (gate "
+                      f"gaps {[round(g, 8) for g in f['gaps'][:8]]}); logits "
+                      f"{f['diff']:.3g} apart")
+            msg = (f"{n_pos - len(worse)}/{n_pos} served tokens equal the "
+                   f"teacher-forced argmax; " + ("" if diff is None else
+                   f"logits vs plain-attention forward max abs diff "
+                   f"{diff:.3g}; ") + msg)
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        print(f"  {label}: {msg}; peak {rec['peak_gib']:.1f} GiB", flush=True)
         lm_runs.append(rec)
-        return model, eng, rec
+        return eng, rec
 
-    try:
-        cfg32 = dataclasses.replace(spec.model, act_dtype="float32",
-                                    param_dtype="float32")
-        model, eng, rec = lm_serve("float32", cfg32, plain_check=True)
+    def check_f32(label, rec):
         bad = [w for w in rec["disagreements"] if w["served_gap"] >= LM_F32_GAP]
         if bad:
-            raise AssertionError(f"float32: {len(bad)} served tokens differ "
+            raise AssertionError(f"{label}: {len(bad)} served tokens differ "
                                  f"from the teacher-forced argmax by more than "
                                  f"a near-tie ({LM_F32_GAP}): {bad[:4]}")
         if not rec["plain_logit_diff"] <= LM_F32_ATOL:
-            raise AssertionError(f"float32: logits off the plain-attention "
+            raise AssertionError(f"{label}: logits off the plain-attention "
                                  f"forward by {rec['plain_logit_diff']}")
+        for f in rec["route_flips"]:
+            if f["diff"] > LM_F32_ATOL and not max(f["gaps"]) < ROUTE_TIE:
+                raise AssertionError(f"{label}: logits off the plain-attention "
+                                     f"forward by {f['diff']} where the router "
+                                     f"chose otherwise beyond a near-tie: {f}")
+
+    try:
+        t1 = time.perf_counter()
+        cfg32 = dataclasses.replace(spec.model, act_dtype="float32",
+                                    param_dtype="float32")
+        torch.cuda.reset_peak_memory_stats()
+        model = init_params(cfg32, 0, dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t1
+        eng, rec = lm_serve("float32", cfg32, model, prompts, plain_check=True)
+        rec["init_s"] = init_s
+        check_f32("float32", rec)
         lens32 = rec["final_lens"]
         del model, eng
         torch.cuda.empty_cache()
+        t1 = time.perf_counter()
         cfg16 = spec.cell_config(SHAPES["decode_32k"])
-        model, eng, rec = lm_serve("bfloat16", cfg16, plain_check=False)
+        torch.cuda.reset_peak_memory_stats()
+        model = init_params(cfg16, 0, dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t1
+        eng, rec = lm_serve("bfloat16", cfg16, model, prompts, plain_check=False)
+        rec["init_s"] = init_s
         if rec["agreement"] < LM_BF16_AGREE:
             raise AssertionError(f"bfloat16: teacher-forced agreement "
                                  f"{rec['agreement']:.3f} < {LM_BF16_AGREE}")
         lens16 = rec["final_lens"]
         del model, eng
         torch.cuda.empty_cache()
+
+        # the dense and MoE families at full width: the same prompt lengths,
+        # tokens drawn from the same seed within each vocabulary
+        fam_lens: dict[str, list] = {}
+        for arch, dtype, layers in LM_FAMILY_ENGINES:
+            fspec = get_arch(arch)
+            cfg = (dataclasses.replace(fspec.model, act_dtype="float32",
+                                       param_dtype="float32")
+                   if dtype == "float32"
+                   else fspec.cell_config(SHAPES["decode_32k"]))
+            label = f"{arch} {dtype}"
+            if layers is not None:
+                print(f"  {label}: depth cut to {layers} of {cfg.n_layers} "
+                      "layers, every width kept", flush=True)
+                cfg = dataclasses.replace(cfg, n_layers=layers)
+            r = np.random.default_rng(0)
+            r.integers(LM_PROMPT_LEN[0], LM_PROMPT_LEN[1] + 1, size=LM_REQUESTS)
+            fprompts = [r.integers(1, cfg.vocab_size, size=n).tolist()
+                        for n in plens]
+            t1 = time.perf_counter()
+            torch.cuda.reset_peak_memory_stats()
+            model = init_params(cfg, 0, dev)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t1
+            moe_arch = cfg.family == "moe"
+            eng, rec = lm_serve(label, cfg, model, fprompts,
+                                plain_check=False, teacher=not moe_arch)
+            rec.update(init_s=init_s, full_layers=fspec.model.n_layers)
+            fam_lens[label] = rec["final_lens"]
+            if not moe_arch:
+                if rec["agreement"] < LM_BF16_AGREE:
+                    raise AssertionError(f"{label}: teacher-forced agreement "
+                                         f"{rec['agreement']:.3f} < "
+                                         f"{LM_BF16_AGREE}")
+            else:
+                # the served capacity: each prefill bucket's dropped copies
+                # and, in float32, its logits with the kernels against the
+                # same bucket with their plain versions
+                f32 = dtype == "float32"
+                buckets = bucket_check(model, fprompts, plain=f32)
+                rec["buckets"] = buckets
+                for b in buckets:
+                    print(f"    bucket {b['bucket']} (request {b['rid']}): "
+                          f"capacity {b['cap']}, dropped copies by layer "
+                          f"{b['dropped']} of {b['copies']} a layer"
+                          + ("" if not f32 else f"; logits vs plain versions "
+                             f"max abs diff {b['diff']:.3g}"), flush=True)
+                    if f32 and b["diff"] > LM_F32_ATOL and not (
+                            b["flips"] and max(b["flips"]["gaps"]) < ROUTE_TIE):
+                        raise AssertionError(
+                            f"{label}: bucket {b['bucket']} logits off the "
+                            f"plain versions by {b['diff']} (router flips "
+                            f"{b['flips']})")
+                # a copy with every copy kept: there teacher forcing is an
+                # oracle (a longer input drops no other copies)
+                nd = nodrop(cfg)
+                tf_lens = [len(p) + LM_NEW_TOKENS for p in fprompts]
+                for T in ([bucket_for(n, LM_MAX_LEN, floor=8) for n in plens]
+                          + tf_lens + [LM_MAX_BATCH]):
+                    if capacity(T, nd.experts_per_token, nd.n_experts,
+                                nd.capacity_factor) < T:
+                        raise AssertionError(f"{label}: the no-drop copy "
+                                             f"drops at {T} tokens")
+                model.cfg = nd
+                eng2, rec2 = lm_serve(f"{label} no-drop (capacity factor "
+                                   f"{nd.capacity_factor:.4g})", nd, model,
+                                   fprompts, plain_check=f32, timed=False,
+                                   log_routes=not f32)
+                model.cfg = cfg
+                del eng2
+                rec["no_drop"] = rec2["run"]
+                if f32:
+                    check_f32(rec2["run"], rec2)
+                elif rec2["agreement_routed_alike"] < LM_BF16_AGREE:
+                    raise AssertionError(
+                        f"{rec2['run']}: teacher-forced agreement "
+                        f"{rec2['agreement_routed_alike']:.3f} < "
+                        f"{LM_BF16_AGREE} where both runs routed alike")
+            del model, eng
+            torch.cuda.empty_cache()
     except AssertionError as e:
         return fail("lm-serve", str(e))
     phase("lm-serve", t, f"qwen2.5-3b, {spec.model.n_layers} layers, float32 "
-          f"and bfloat16; {prefills} prefills, {steps_total} decode steps; "
+          f"and bfloat16; " + ", ".join(
+              f"{a} {d}" + (f" ({n} layers)" if n else "")
+              for a, d, n in LM_FAMILY_ENGINES)
+          + f"; {prefills} prefills, {steps_total} decode steps; "
           f"launches flash {launches['flash_attention']} (float32, CUDA "
           f"cores), {launches['flash_attention_wgmma']} (bfloat16, tensor "
           f"cores), decode "
@@ -2289,7 +2739,51 @@ def main() -> int:
         print(f"    decode_attention {dname} passes: " + ", ".join(
             f"{k} {v:.5f} ms" for k, v in passes.items()), flush=True)
         rows["decode_attention"].append(r)
+    # the same two kernels at phase 7's other heads: flash at the largest
+    # bucket (MLA's v zero-padded to dh 192, as mla_prefill gives it), decode
+    # at the served lengths
+    for dt, lens in ((torch.bfloat16, lens16), (torch.float32, lens32)):
+        dname = str(dt).split(".")[-1]
+        S = 1024
+        for H, KV, dh in FAMILY_HEADS:
+            q = rnd((1, S, H, dh), dt)
+            k = rnd((1, S, KV, dh), dt)
+            v = rnd((1, S, KV, dh), dt)
+            if dh == 192:
+                v[..., 128:] = 0
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            kname = ("flash_attention_wgmma" if flash_route(q, k, v) == "wgmma"
+                     else "flash_attention")
+            rows[kname].append(row(
+                kname, f"{dname} B=1 Sq=Sk={S} H={H} KV={KV} dh={dh} causal "
+                "p fp32" + (" (MLA, v zero-padded from 128)" if dh == 192 else ""),
+                lambda: flash_attention_fused(q, k, v, round_p=False),
+                lambda: flash_attention_ref(q, k, v, round_p=False),
+                lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                       is_causal=True,
+                                                       enable_gqa=True), 10,
+                flash_work(1, S, S, H, KV, dh, q.element_size(), True), dname))
+            del q, k, v, qt, kt, vt
+        B, Sc = LM_MAX_BATCH, LM_MAX_LEN
+        ld = torch.tensor(lens, dtype=torch.int32, device=dev)
+        mask = (torch.arange(Sc, device=dev)[None, :] < ld[:, None])[:, None, None]
+        for H, KV, dh in FAMILY_HEADS[:3]:
+            qd = rnd((B, H, dh), dt)
+            kc, vc = rnd((B, Sc, KV, dh), dt), rnd((B, Sc, KV, dh), dt)
+            q4, k4, v4 = qd[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+            rows["decode_attention"].append(row(
+                "decode_attention", f"{dname} B={B} S={Sc} H={H} KV={KV} "
+                f"dh={dh} served lens {lens} (on the card) p fp32",
+                lambda: decode_attention(qd, kc, vc, ld, round_p=False),
+                lambda: decode_attention_ref(qd, kc, vc, ld),
+                lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                       attn_mask=mask,
+                                                       enable_gqa=True), 50,
+                decode_work(lens, H, KV, dh, qd.element_size()), dname))
+            del qd, kc, vc, q4, k4, v4
     for r in lm_runs:
+        if "decode_step_device_ms" not in r:
+            continue
         print(f"  lm-serve {r['run']}: prefill {r['prefill_ms_per_request']:.2f} "
               f"ms per request, decode {r['decode_ms_per_step']:.3f} ms per step "
               f"at batch {LM_MAX_BATCH} (warm {r['decode_ms_steady']:.3f}; "
@@ -2299,7 +2793,9 @@ def main() -> int:
               f" ms on the device, attention {r['attention_share']:.1%} of it; "
               f"prefill of {r['prefill_bucket']} tokens "
               f"{r['prefill_device_ms']:.3f} ms on the device, flash "
-              f"{r['prefill_flash_device_ms'] / r['prefill_device_ms']:.1%} of it")
+              f"{r['prefill_flash_device_ms'] / r['prefill_device_ms']:.1%} of "
+              f"it; decode step bytes bound {r['decode_step_bound_ms']:.3f} ms; "
+              f"peak {r['peak_gib']:.1f} GiB")
     LAUNCHES.update(saved)
     phase("report", t, "device times from the profiler trace; per-call times "
           "between CUDA events; serving wall time on the host clock")

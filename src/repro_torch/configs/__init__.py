@@ -1,3 +1,3 @@
 """Configs: the paper's classical benchmarks (``classical``), the two
 MLPerf-Tiny ONNX programs (``mlperf_tiny``) and the LM architecture registry
-(``registry``; qwen2.5-3b is ported)."""
+(``registry``; the dense and MoE architectures are ported)."""

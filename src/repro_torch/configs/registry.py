@@ -4,8 +4,10 @@ The port of the JAX package's ``configs/registry.py``: every architecture
 registers an :class:`ArchSpec` with its full-size
 :class:`~repro_torch.models.transformer.ModelConfig` from the public config,
 a reduced smoke config of the same family, and per-shape-cell metadata.
-Only qwen2.5-3b is ported; :func:`get_arch` raises ``NotImplementedError``
-for the other nine ids (ROADMAP.md, Queue A item 8).
+The ``dense`` and ``moe`` families are ported: qwen2.5-3b, granite-8b,
+codeqwen1.5-7b, olmoe-1b-7b and deepseek-v2-236b (MLA).  :func:`get_arch`
+raises ``NotImplementedError`` for the other five ids, the SSM, hybrid and
+prefix families (ROADMAP.md, Queue A item 8).
 
 Shape cells (fixed by the reference):
 
@@ -86,7 +88,8 @@ ARCH_IDS: list[str] = [
     "zamba2-7b",
     "mamba2-1.3b",
 ]
-PORTED: tuple[str, ...] = ("qwen2.5-3b",)
+PORTED: tuple[str, ...] = ("qwen2.5-3b", "granite-8b", "codeqwen1.5-7b",
+                           "olmoe-1b-7b", "deepseek-v2-236b")
 
 _CACHE: dict[str, ArchSpec] = {}
 

@@ -1,15 +1,20 @@
 """Serving launcher: batched generation with the slot engine, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
-        [--smoke] [--requests 6] [--max-new 12] [--device cpu]
+        [--smoke] [--layers N] [--requests 6] [--max-new 12] [--device cpu]
 
-The weights are random, made on the device from ``--seed``.  Without
-``--device`` the engine runs on the card (and raises without one).
+``--arch`` is any ported architecture: qwen2.5-3b, granite-8b,
+codeqwen1.5-7b, olmoe-1b-7b or deepseek-v2-236b.  The weights are random,
+made on the device from ``--seed``.  ``--layers`` cuts the depth and keeps
+every width (deepseek-v2-236b's 60 layers do not fit on one card: ``--layers
+2``); the cut is printed.  Without ``--device`` the engine runs on the card
+(and raises without one).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -27,6 +32,8 @@ def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (widths kept)")
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=12)
     ap.add_argument("--max-batch", type=int, default=4)
@@ -38,6 +45,12 @@ def main(argv: list[str] | None = None) -> int:
 
     spec = get_arch(args.arch)
     cfg = spec.smoke if args.smoke else spec.model
+    if args.layers is not None:
+        if not 1 <= args.layers <= cfg.n_layers:
+            ap.error(f"--layers {args.layers}: {cfg.name} has {cfg.n_layers}")
+        print(f"{cfg.name}: depth cut to {args.layers} of {cfg.n_layers} "
+              "layers, every width kept")
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     dev = resolve_device(args.device)
     model = init_params(cfg, args.seed, dev)
     engine = ServeEngine(cfg, model, max_batch=args.max_batch,

@@ -1,9 +1,11 @@
-"""Grouped-query attention (GQA) of the dense LM stack, in PyTorch.
+"""Attention of the LM stack, in PyTorch: GQA and MLA.
 
-The port of the GQA half of the JAX package's ``models/attention.py``:
-``plain_attention`` (the materialised oracle), ``flash_attention`` (the
-streaming-softmax formulation, a loop over KV chunks with fp32 running
-statistics), ``init_gqa``, ``gqa_prefill`` and ``gqa_decode``.
+The port of the JAX package's ``models/attention.py``: ``plain_attention``
+(the materialised oracle), ``flash_attention`` (the streaming-softmax
+formulation, a loop over KV chunks with fp32 running statistics),
+``init_gqa``, ``gqa_prefill`` and ``gqa_decode``, and deepseek-v2's
+multi-head latent attention, ``init_mla``, ``mla_prefill`` and
+``mla_decode``.
 
 On the served path the attention itself runs on the port's hand-written
 kernels: ``gqa_prefill`` calls
@@ -15,8 +17,19 @@ reference model's function.  ``gqa_prefill(..., plain=True)`` runs the flash
 kernel's plain version on any device instead (a comparison, never the
 served path).
 
+``mla_prefill`` materialises per-head keys of width ``dn + dr`` (the
+latent's up-projection and the shared rope key) and values of width ``dn``,
+and runs the same flash kernel: the kernel takes k and v of one width, so v
+is padded with zeros to ``dn + dr`` and the first ``dn`` columns of the
+output are kept (zero columns of v leave the others untouched), and its
+``dh ** -0.5`` is MLA's ``(dn + dr) ** -0.5``.  ``mla_decode`` is the
+reference's absorbed form in plain products (the reference has no Pallas
+kernel there): one latent "head" of width ``r + dr`` shared by every query
+head, values of width ``r``.  ``rms_norm`` of the latents uses its default
+eps, as the reference's does.
+
 Sliding windows and ring-buffer caches (``window``, ``write_pos``,
-``valid_len``) belong to the hybrid family and raise; so does MLA.
+``valid_len``) belong to the hybrid family and raise.
 """
 
 from __future__ import annotations
@@ -28,10 +41,11 @@ import torch
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention_fused
 from repro_torch.kernels.ref import flash_attention_ref
-from repro_torch.models.layers import apply_rope, dot_f32, he_init
+from repro_torch.models.layers import (apply_rope, bmm_f32, dot_f32, he_init,
+                                       rms_norm)
 
-__all__ = ["init_gqa", "gqa_prefill", "gqa_decode", "flash_attention",
-           "plain_attention"]
+__all__ = ["init_gqa", "gqa_prefill", "gqa_decode", "init_mla", "mla_prefill",
+           "mla_decode", "flash_attention", "plain_attention"]
 
 _NEG = -1e30
 _HYBRID_ONLY = ("is not ported: sliding windows and ring-buffer caches belong "
@@ -195,3 +209,119 @@ def gqa_decode(p: Mapping[str, torch.Tensor], x: torch.Tensor,
         cache_len = idx + 1
     ctx = decode_attention(q[:, 0], k_cache, v_cache, cache_len, round_p=False)
     return _out(p, ctx[:, None], x.dtype), (k_cache, v_cache)
+
+
+# ------------------------------------------------------------------------ MLA
+def init_mla(gen: torch.Generator, d_model: int, n_heads: int, *,
+             kv_lora_rank: int, q_lora_rank: int, d_head: int, d_rope: int,
+             dtype: torch.dtype = torch.float32) -> dict[str, torch.Tensor]:
+    """``d_head`` is the no-rope width of a query/key head, which is also
+    the value width."""
+    H, r, rq, dn, dr = n_heads, kv_lora_rank, q_lora_rank, d_head, d_rope
+    dev = gen.device
+    p = {
+        "w_dkv": he_init(gen, (d_model, r), d_model, dtype),
+        "norm_kv": torch.ones((r,), dtype=dtype, device=dev),
+        "w_kr": he_init(gen, (d_model, dr), d_model, dtype),
+        "w_uk": he_init(gen, (r, H, dn), r, dtype),
+        "w_uv": he_init(gen, (r, H, dn), r, dtype),
+        "wo": he_init(gen, (H, dn, d_model), H * dn, dtype),
+    }
+    if rq:
+        p["w_dq"] = he_init(gen, (d_model, rq), d_model, dtype)
+        p["norm_q"] = torch.ones((rq,), dtype=dtype, device=dev)
+        p["w_uq"] = he_init(gen, (rq, H, dn), rq, dtype)
+        p["w_qr"] = he_init(gen, (rq, H, dr), rq, dtype)
+    else:
+        p["w_uq"] = he_init(gen, (d_model, H, dn), d_model, dtype)
+        p["w_qr"] = he_init(gen, (d_model, H, dr), d_model, dtype)
+    return p
+
+
+def _mla_q(p: Mapping[str, torch.Tensor], x: torch.Tensor
+           ) -> tuple[torch.Tensor, torch.Tensor]:
+    dt = x.dtype
+    if "w_dq" in p:
+        cq = dot_f32(x, p["w_dq"].to(dt)).to(dt)
+        cq = rms_norm(cq, p["norm_q"])
+    else:
+        cq = x
+    return _proj(cq, p["w_uq"]), _proj(cq, p["w_qr"])
+
+
+def _mla_latent(p: Mapping[str, torch.Tensor], x: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    dt = x.dtype
+    c_kv = rms_norm(dot_f32(x, p["w_dkv"].to(dt)).to(dt), p["norm_kv"])
+    return c_kv, dot_f32(x, p["w_kr"].to(dt)).to(dt)
+
+
+def mla_prefill(p: Mapping[str, torch.Tensor], x: torch.Tensor,
+                cos: torch.Tensor, sin: torch.Tensor, *,
+                probs_bf16: bool = False, plain: bool = False
+                ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """Materialised-KV MLA for prefill; returns (out, (c_kv, k_rope)), the
+    latent caches only.  ``plain`` runs the flash kernel's plain version."""
+    if probs_bf16 and x.dtype != torch.bfloat16:
+        raise NotImplementedError(
+            "mla_prefill: probs_bf16 with float32 activations (the reference "
+            "also rounds v to bfloat16) is not ported")
+    dt = x.dtype
+    B, S, _ = x.shape
+    q_nope, q_rope = _mla_q(p, x)
+    dn, dr = q_nope.shape[-1], q_rope.shape[-1]
+    c_kv, k_rope = _mla_latent(p, x)
+    q_rope = apply_rope(q_rope, cos, sin)
+    k_rope = apply_rope(k_rope[:, :, None, :], cos, sin)[:, :, 0, :]
+    k_nope = _proj(c_kv, p["w_uk"])
+    v = _proj(c_kv, p["w_uv"])
+    H = k_nope.shape[2]
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, dr)], dim=-1)
+    v = torch.nn.functional.pad(v, (0, dr))          # zero columns dn..dn+dr
+    attend = flash_attention_ref if plain else flash_attention_fused
+    out = attend(q, k, v, causal=True, round_p=probs_bf16)[..., :dn]
+    return _out(p, out, dt), (c_kv, k_rope)
+
+
+def _per_head(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(B, H, i) × (H, i, o) → (B, H, o) fp32: one product per head."""
+    return bmm_f32(a.transpose(0, 1), w).transpose(0, 1)
+
+
+def mla_decode(p: Mapping[str, torch.Tensor], x: torch.Tensor,
+               ckv_cache: torch.Tensor, krope_cache: torch.Tensor,
+               pos: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, *,
+               cache_len=None
+               ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """Absorbed-form decode, attention in the latent space: scores =
+    (q_nope·W_uk)·c_kv + q_rope·k_rope, the caches (B, S, r) and (B, S, dr)
+    written in place at ``pos`` (B,) on the card, the first ``cache_len =
+    pos + 1`` positions attended.  Returns (out, caches)."""
+    dt = x.dtype
+    B = x.shape[0]
+    S = ckv_cache.shape[1]
+    q_nope, q_rope = _mla_q(p, x)                       # (B, 1, H, dn / dr)
+    q_rope = apply_rope(q_rope, cos, sin)
+    c_kv, k_rope = _mla_latent(p, x)                    # (B, 1, r), (B, 1, dr)
+    k_rope = apply_rope(k_rope[:, :, None, :], cos, sin)[:, :, 0, :]
+    rows = torch.arange(B, device=x.device)
+    idx = pos.to(device=x.device, dtype=torch.long)
+    ckv_cache[rows, idx] = c_kv[:, 0]
+    krope_cache[rows, idx] = k_rope[:, 0]
+    if cache_len is None:
+        cache_len = idx + 1
+    dn, dr = q_nope.shape[-1], q_rope.shape[-1]
+    ckv = ckv_cache.float()
+    # absorb W_uk into the query: a latent-space query (B, H, r)
+    q_lat = _per_head(q_nope[:, 0], p["w_uk"].to(dt).permute(1, 2, 0))
+    s = torch.bmm(q_lat, ckv.transpose(1, 2))
+    s = s + torch.bmm(q_rope[:, 0].float(), krope_cache.float().transpose(1, 2))
+    s = s * (dn + dr) ** -0.5
+    valid = torch.arange(S, device=x.device)[None, :] < cache_len[:, None]
+    s = s.masked_fill(~valid[:, None, :], _NEG)
+    pr = torch.softmax(s, dim=-1)
+    ctx = _per_head(torch.bmm(pr, ckv), p["w_uv"].float().permute(1, 0, 2))
+    H, _, D = p["wo"].shape
+    y = ctx.reshape(B, H * dn) @ p["wo"].float().reshape(H * dn, D)
+    return y[:, None, :].to(dt), (ckv_cache, krope_cache)

@@ -1,13 +1,15 @@
-"""Common layers of the dense LM stack, in PyTorch.
+"""Common layers of the LM stack, in PyTorch.
 
-The port of the JAX package's ``models/layers.py`` for the dense family:
-vocabulary padding, RMSNorm with fp32 statistics, the SwiGLU MLP, RoPE
-tables and the half-split rotation, and the he-scaled normal initializer.
+The port of the JAX package's ``models/layers.py`` for the dense and MoE
+families: vocabulary padding, RMSNorm with fp32 statistics, the SwiGLU MLP,
+RoPE tables and the half-split rotation, and the he-scaled normal
+initializer.
 Parameters are plain tensors (``nn.Module``s hold them one level up, in
 :mod:`repro_torch.models.transformer`).
 
 Every product that the reference computes with
-``preferred_element_type=float32`` goes through :func:`dot_f32`, so that a
+``preferred_element_type=float32`` goes through :func:`dot_f32` (or
+:func:`bmm_f32`, over the MoE expert axis), so that a
 bfloat16 activation meets a bfloat16 weight and gives an fp32 result without
 being rounded to bfloat16 first.  Float32 products run in full float32: the
 model turns TF32 off on the card.
@@ -21,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["pad_vocab", "he_init", "normal_init", "rms_norm", "dot_f32",
-           "init_mlp", "mlp_swiglu", "rope_table", "apply_rope",
+           "bmm_f32", "init_mlp", "mlp_swiglu", "rope_table", "apply_rope",
            "MM_F32_ROUTE"]
 
 
@@ -90,6 +92,19 @@ def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     else:
         out = a.float() @ w.float()
     return out.reshape(*lead, w.shape[-1])
+
+
+def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` over a leading batch axis, ``a`` (E, M, K) and ``b`` (E,
+    K, N) of one dtype, with an fp32 result: the reference's
+    ``einsum("ecd,edf->ecf", ..., preferred_element_type=float32)``.  On
+    the card a bfloat16 product keeps its operands (the (E, K, N) weight
+    stacks are never upcast); on the CPU both are upcast."""
+    if a.dtype == torch.float32:
+        return torch.bmm(a, b)
+    if a.device.type == "cuda" and a.dtype == torch.bfloat16:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
 
 
 # -------------------------------------------------------------------- SwiGLU

@@ -1,29 +1,36 @@
-"""The dense LM of the JAX package's ``models/transformer.py``, in PyTorch.
+"""The LM of the JAX package's ``models/transformer.py``, in PyTorch.
 
 :class:`ModelConfig` keeps the reference's fields (``adt``/``pdt`` are torch
-dtypes here).  :class:`Transformer` is the dense family: a pre-norm GQA
-transformer (qwen2.5, granite, codeqwen, ...) with an ``nn.ModuleList`` of
-blocks and two entry points,
+dtypes here).  :class:`Transformer` covers the reference's attention
+families: ``dense`` (a pre-norm GQA transformer: qwen2.5, granite, codeqwen,
+...) and ``moe`` (GQA or MLA attention with top-k routed experts: olmoe,
+deepseek-v2), with an ``nn.ModuleList`` of blocks and two entry points,
 
 * :meth:`Transformer.forward_full` — teacher-forced full-sequence forward;
-  with ``return_cache`` it also returns the serving caches (prefill),
+  with ``return_cache`` it also returns the serving caches (prefill), and
+  the summed router aux loss of the MoE layers,
 * :meth:`Transformer.forward_decode` — one new token per sequence against
-  the caches of :func:`init_cache`, updated in place.
+  the caches of :func:`init_cache` (``k``/``v``, or MLA's latent ``ckv``/
+  ``kr``), updated in place.
 
-Prefill attention runs on the flash-attention kernel and decode attention
-on the decode-attention kernel (:mod:`repro_torch.models.attention`).
-Matmul weights, the embedding, the biases and the head are held in the
-activation dtype (the reference casts them on every einsum, which gives the
-same values); the norm weights keep the parameter dtype.  Products the
-reference computes with an fp32 result keep it (``layers.dot_f32``).  On
-the card the model turns TF32 off: float32 products run in full float32.
+Prefill attention runs on the flash-attention kernel and GQA decode
+attention on the decode-attention kernel (:mod:`repro_torch.models.
+attention`; MLA decode is the reference's plain absorbed form).  The MoE
+FFN is :mod:`repro_torch.models.moe`.  Matmul weights, the embedding, the
+biases and the head are held in the activation dtype (the reference casts
+them on every einsum, which gives the same values); the norm weights keep
+the parameter dtype, and so do MLA's ``w_uv`` and ``wo``, which the
+reference's absorbed decode multiplies in float32; the MoE router is
+float32 always.  Products the reference computes with an fp32 result keep
+it (``layers.dot_f32``, ``layers.bmm_f32``).  On the card the model turns
+TF32 off: float32 products run in full float32.
 
 :func:`init_params` makes random weights with the reference's he-scaled
 normal distribution directly on the device (not the JAX values: the two
 generators differ); :func:`params_from_reference` carries a JAX parameter
-tree across.  The MoE, SSM and hybrid families, MLA and prefix embeddings
-are not ported (ROADMAP.md, Queue A item 8).  There is no ``shard_act``
-(the identity outside a mesh) and no remat (a training option).
+tree across.  The SSM and hybrid families and prefix embeddings are not
+ported (ROADMAP.md, Queue A item 8).  There is no ``shard_act`` (the
+identity outside a mesh) and no remat (a training option).
 """
 
 from __future__ import annotations
@@ -36,10 +43,12 @@ import torch
 from torch import nn
 
 from repro_torch.core.device import resolve_device
-from repro_torch.models.attention import gqa_decode, gqa_prefill, init_gqa
+from repro_torch.models.attention import (gqa_decode, gqa_prefill, init_gqa,
+                                          init_mla, mla_decode, mla_prefill)
 from repro_torch.models.layers import (dot_f32, he_init, init_mlp, mlp_swiglu,
                                        normal_init, pad_vocab, rms_norm,
                                        rope_freqs, rope_table)
+from repro_torch.models.moe import init_moe, moe_ffn
 
 __all__ = ["ModelConfig", "Transformer", "init_params", "init_cache",
            "params_from_reference"]
@@ -162,10 +171,16 @@ class ModelConfig:
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"the {cfg.family!r} family {_NOT_PORTED}")
-    if cfg.use_mla:
-        raise NotImplementedError(f"MLA attention {_NOT_PORTED}")
+
+
+def _cache_keys(cfg: ModelConfig) -> tuple[str, str]:
+    return ("ckv", "kr") if cfg.use_mla else ("k", "v")
+
+
+def _rope_dim(cfg: ModelConfig) -> int:
+    return cfg.d_rope if cfg.use_mla else cfg.d_head
 
 
 def _param(shape: tuple[int, ...], dtype: torch.dtype,
@@ -176,8 +191,10 @@ def _param(shape: tuple[int, ...], dtype: torch.dtype,
 
 # ==================================================================== modules
 class Block(nn.Module):
-    """One pre-norm block: RMSNorm → GQA → residual → RMSNorm → SwiGLU →
-    residual.  ``attn`` and ``mlp`` hold the reference's leaf names."""
+    """One pre-norm block: RMSNorm → attention → residual → RMSNorm → FFN →
+    residual.  ``attn`` holds GQA's or MLA's leaves, and ``mlp`` (dense) or
+    ``moe`` (with ``shared``, deepseek's shared experts, beside it) the
+    FFN's, under the reference's leaf names."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device) -> None:
         super().__init__()
@@ -186,37 +203,94 @@ class Block(nn.Module):
         mdt, ndt = cfg.adt, cfg.pdt
         self.norm1 = _param((D,), ndt, device)
         self.norm2 = _param((D,), ndt, device)
-        attn = {"wq": _param((D, H, dh), mdt, device),
-                "wk": _param((D, KV, dh), mdt, device),
-                "wv": _param((D, KV, dh), mdt, device),
-                "wo": _param((H, dh, D), mdt, device)}
-        if cfg.qkv_bias:
-            attn.update(bq=_param((H, dh), mdt, device),
-                        bk=_param((KV, dh), mdt, device),
-                        bv=_param((KV, dh), mdt, device))
+        if cfg.use_mla:
+            r, rq, dr = cfg.kv_lora_rank, cfg.q_lora_rank, cfg.d_rope
+            attn = {"w_dkv": _param((D, r), mdt, device),
+                    "norm_kv": _param((r,), ndt, device),
+                    "w_kr": _param((D, dr), mdt, device),
+                    "w_uk": _param((r, H, dh), mdt, device),
+                    "w_uv": _param((r, H, dh), ndt, device),
+                    "wo": _param((H, dh, D), ndt, device)}
+            q_in = rq or D
+            if rq:
+                attn.update(w_dq=_param((D, rq), mdt, device),
+                            norm_q=_param((rq,), ndt, device))
+            attn.update(w_uq=_param((q_in, H, dh), mdt, device),
+                        w_qr=_param((q_in, H, dr), mdt, device))
+        else:
+            attn = {"wq": _param((D, H, dh), mdt, device),
+                    "wk": _param((D, KV, dh), mdt, device),
+                    "wv": _param((D, KV, dh), mdt, device),
+                    "wo": _param((H, dh, D), mdt, device)}
+            if cfg.qkv_bias:
+                attn.update(bq=_param((H, dh), mdt, device),
+                            bk=_param((KV, dh), mdt, device),
+                            bv=_param((KV, dh), mdt, device))
         self.attn = nn.ParameterDict(attn)
-        self.mlp = nn.ParameterDict({"w_gate": _param((D, F), mdt, device),
-                                     "w_up": _param((D, F), mdt, device),
-                                     "w_down": _param((F, D), mdt, device)})
+        if cfg.family == "moe":
+            E, Fe = cfg.n_experts, cfg.d_ff_expert
+            self.moe = nn.ParameterDict({
+                "router": _param((D, E), torch.float32, device),
+                "w_gate": _param((E, D, Fe), mdt, device),
+                "w_up": _param((E, D, Fe), mdt, device),
+                "w_down": _param((E, Fe, D), mdt, device)})
+            if cfg.n_shared_experts:
+                Fs = cfg.n_shared_experts * Fe
+                self.shared = nn.ParameterDict(
+                    {"w_gate": _param((D, Fs), mdt, device),
+                     "w_up": _param((D, Fs), mdt, device),
+                     "w_down": _param((Fs, D), mdt, device)})
+        else:
+            self.mlp = nn.ParameterDict({"w_gate": _param((D, F), mdt, device),
+                                         "w_up": _param((D, F), mdt, device),
+                                         "w_down": _param((F, D), mdt, device)})
+
+    def groups(self) -> dict[str, nn.ParameterDict]:
+        """The reference tree's groups under a block, by path."""
+        out = {"attn": self.attn}
+        if hasattr(self, "moe"):
+            out["moe"] = self.moe
+            if hasattr(self, "shared"):
+                out["moe/shared"] = self.shared
+        else:
+            out["mlp"] = self.mlp
+        return out
+
+    def _ffn(self, cfg: ModelConfig, h: torch.Tensor):
+        if cfg.family != "moe":
+            return mlp_swiglu(self.mlp, h), None
+        p = dict(self.moe)
+        if hasattr(self, "shared"):
+            p["shared"] = self.shared
+        return moe_ffn(p, h, k=cfg.experts_per_token,
+                       capacity_factor=cfg.capacity_factor)
 
     def full(self, cfg: ModelConfig, x: torch.Tensor, cos: torch.Tensor,
              sin: torch.Tensor, window: int, plain: bool):
         h = rms_norm(x, self.norm1, cfg.norm_eps)
-        a, cache = gqa_prefill(self.attn, h, cos, sin, window=window,
-                               probs_bf16=cfg.attn_probs_bf16, plain=plain)
+        if cfg.use_mla:
+            a, cache = mla_prefill(self.attn, h, cos, sin,
+                                   probs_bf16=cfg.attn_probs_bf16, plain=plain)
+        else:
+            a, cache = gqa_prefill(self.attn, h, cos, sin, window=window,
+                                   probs_bf16=cfg.attn_probs_bf16, plain=plain)
         x = x + a
-        h = rms_norm(x, self.norm2, cfg.norm_eps)
-        return x + mlp_swiglu(self.mlp, h), cache
+        f, aux = self._ffn(cfg, rms_norm(x, self.norm2, cfg.norm_eps))
+        return x + f, cache, aux
 
-    def decode(self, cfg: ModelConfig, x: torch.Tensor, kc: torch.Tensor,
-               vc: torch.Tensor, pos: torch.Tensor, cache_len,
+    def decode(self, cfg: ModelConfig, x: torch.Tensor, c0: torch.Tensor,
+               c1: torch.Tensor, pos: torch.Tensor, cache_len,
                cos: torch.Tensor, sin: torch.Tensor):
         h = rms_norm(x, self.norm1, cfg.norm_eps)
-        a, _ = gqa_decode(self.attn, h, kc, vc, pos, cos, sin,
-                          window=cfg.attn_window, cache_len=cache_len)
+        if cfg.use_mla:
+            a, _ = mla_decode(self.attn, h, c0, c1, pos, cos, sin,
+                              cache_len=cache_len)
+        else:
+            a, _ = gqa_decode(self.attn, h, c0, c1, pos, cos, sin,
+                              window=cfg.attn_window, cache_len=cache_len)
         x = x + a
-        h = rms_norm(x, self.norm2, cfg.norm_eps)
-        return x + mlp_swiglu(self.mlp, h)
+        f, _ = self._ffn(cfg, rms_norm(x, self.norm2, cfg.norm_eps))
+        return x + f
 
 
 class Transformer(nn.Module):
@@ -253,25 +327,30 @@ class Transformer(nn.Module):
                      plain_attention: bool = False
                      ) -> tuple[torch.Tensor, dict | None, torch.Tensor]:
         """Teacher-forced forward of ``tokens`` (B, S).  Returns (logits
-        (B, S, Vp) fp32, caches {"k", "v"} of (L, B, S, KV, dh) or None,
-        aux = 0).  ``plain_attention`` runs the attention kernels' plain
-        versions instead of the kernels (a comparison)."""
+        (B, S, Vp) fp32, caches {"k", "v"} of (L, B, S, KV, dh) — under MLA
+        {"ckv", "kr"} of (L, B, S, r) and (L, B, S, dr) — or None, aux: the
+        MoE layers' summed router loss, a float32 scalar, 0 for dense).
+        ``plain_attention`` runs the attention kernels' plain versions
+        instead of the kernels (a comparison)."""
         if prefix_embeds is not None:
             raise NotImplementedError(f"prefix embeddings {_NOT_PORTED}")
         cfg = self.cfg
         window = cfg.attn_window if window is None else window
         x = self.embed[self._tokens(tokens)]
         S = x.shape[1]
-        cos, sin = rope_table(S, cfg.d_head, cfg.rope_theta, device=self.device)
-        ks, vs = [], []
-        for blk in self.blocks:
-            x, (k, v) = blk.full(cfg, x, cos, sin, window, plain_attention)
-            if return_cache:
-                ks.append(k)
-                vs.append(v)
-        caches = ({"k": torch.stack(ks), "v": torch.stack(vs)}
-                  if return_cache else None)
+        cos, sin = rope_table(S, _rope_dim(cfg), cfg.rope_theta,
+                              device=self.device)
+        c0s, c1s = [], []
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        for blk in self.blocks:
+            x, (c0, c1), a = blk.full(cfg, x, cos, sin, window, plain_attention)
+            if a is not None:
+                aux = aux + a
+            if return_cache:
+                c0s.append(c0)
+                c1s.append(c1)
+        caches = (dict(zip(_cache_keys(cfg), (torch.stack(c0s), torch.stack(c1s))))
+                  if return_cache else None)
         return self._logits(x), caches, aux
 
     @torch.no_grad()
@@ -285,7 +364,8 @@ class Transformer(nn.Module):
         with the one ``cache_len = pos + 1`` made there.  ``pos`` on the card
         is not read back."""
         cfg = self.cfg
-        S = caches["k"].shape[2]
+        keys = _cache_keys(cfg)
+        S = caches[keys[0]].shape[2]
         p = pos if torch.is_tensor(pos) else torch.as_tensor(np.asarray(pos))
         tok = token if torch.is_tensor(token) else torch.as_tensor(np.asarray(token))
         if p.device.type == "cpu":
@@ -297,23 +377,28 @@ class Transformer(nn.Module):
         p = p.to(device=self.device, dtype=torch.int32)
         cache_len = p + 1
         x = self.embed[self._tokens(tok)[:, None]]            # (B, 1, D)
-        ang = p.float()[:, None] * rope_freqs(cfg.d_head, cfg.rope_theta,
+        ang = p.float()[:, None] * rope_freqs(_rope_dim(cfg), cfg.rope_theta,
                                               self.device)[None, :]
         cos, sin = torch.cos(ang)[:, None, :], torch.sin(ang)[:, None, :]
-        for blk, kc, vc in zip(self.blocks, caches["k"], caches["v"]):
-            x = blk.decode(cfg, x, kc, vc, p, cache_len, cos, sin)
+        for blk, c0, c1 in zip(self.blocks, caches[keys[0]], caches[keys[1]]):
+            x = blk.decode(cfg, x, c0, c1, p, cache_len, cos, sin)
         return self._logits(x)[:, 0], caches
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device: torch.device | str | None = None) -> dict[str, torch.Tensor]:
-    """Zeroed serving caches {"k", "v"} of (L, B, S, KV, dh) in the
-    activation dtype."""
+    """Zeroed serving caches in the activation dtype: {"k", "v"} of (L, B,
+    S, KV, dh), or under MLA the latents {"ckv", "kr"} of (L, B, S, r) and
+    (L, B, S, dr)."""
     _check_ported(cfg)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads_eff, cfg.d_head)
+    lead = (cfg.n_layers, batch, max_len)
+    if cfg.use_mla:
+        shapes = (lead + (cfg.kv_lora_rank,), lead + (cfg.d_rope,))
+    else:
+        shapes = (lead + (cfg.n_kv_heads_eff, cfg.d_head),) * 2
     dev = resolve_device(device)
-    return {"k": torch.zeros(shape, dtype=cfg.adt, device=dev),
-            "v": torch.zeros(shape, dtype=cfg.adt, device=dev)}
+    return {key: torch.zeros(shape, dtype=cfg.adt, device=dev)
+            for key, shape in zip(_cache_keys(cfg), shapes)}
 
 
 # ================================================================ parameters
@@ -326,8 +411,8 @@ def _leaves(model: Transformer) -> dict[str, list[torch.Tensor]]:
     for blk in model.blocks:
         for name in ("norm1", "norm2"):
             out.setdefault(f"blocks/{name}", []).append(getattr(blk, name))
-        for group in ("attn", "mlp"):
-            for name, t in getattr(blk, group).items():
+        for group, params in blk.groups().items():
+            for name, t in params.items():
                 out.setdefault(f"blocks/{group}/{name}", []).append(t)
     return out
 
@@ -347,10 +432,12 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     ``device`` (None: the card): the reference's distribution (embedding
     N(0, 0.02²), he-scaled normal matrices, unit norms, zero biases, the
     padded heads' output rows zeroed), drawn in float32 by a
-    ``torch.Generator`` and cast to each tensor's dtype."""
+    ``torch.Generator`` and cast to each tensor's dtype (the MoE router
+    stays float32)."""
     model = Transformer(cfg, device)
     gen = torch.Generator(device=model.device).manual_seed(seed)
     D, Vp, F = cfg.d_model, cfg.padded_vocab, cfg.d_ff
+    adt = cfg.adt
     with torch.no_grad():
         model.embed.copy_(normal_init(gen, (Vp, D), 0.02, model.embed.dtype))
         model.final_norm.fill_(1.0)
@@ -358,15 +445,32 @@ def init_params(cfg: ModelConfig, seed: int = 0,
         for blk in model.blocks:
             blk.norm1.fill_(1.0)
             blk.norm2.fill_(1.0)
-            attn = init_gqa(gen, D, cfg.n_heads_eff, cfg.n_kv_heads_eff,
-                            cfg.d_head, bias=cfg.qkv_bias,
-                            dtype=blk.attn["wq"].dtype)
-            if cfg.n_heads_eff != cfg.n_heads:
-                attn["wo"][cfg.n_heads:] = 0.0
-            for src in (attn, init_mlp(gen, D, F, blk.mlp["w_up"].dtype)):
-                for name, t in src.items():
-                    (blk.attn if name in blk.attn else blk.mlp)[name].copy_(t)
+            if cfg.use_mla:
+                attn = init_mla(gen, D, cfg.n_heads,
+                                kv_lora_rank=cfg.kv_lora_rank,
+                                q_lora_rank=cfg.q_lora_rank, d_head=cfg.d_head,
+                                d_rope=cfg.d_rope)  # float32: w_uv, wo keep pdt
+            else:
+                attn = init_gqa(gen, D, cfg.n_heads_eff, cfg.n_kv_heads_eff,
+                                cfg.d_head, bias=cfg.qkv_bias, dtype=adt)
+                if cfg.n_heads_eff != cfg.n_heads:
+                    attn["wo"][cfg.n_heads:] = 0.0
+            _copy_into(blk.attn, attn)
+            del attn
+            if cfg.family == "moe":
+                ffn = init_moe(gen, D, cfg.d_ff_expert, cfg.n_experts,
+                               n_shared=cfg.n_shared_experts, dtype=adt)
+                if "shared" in ffn:
+                    _copy_into(blk.shared, ffn.pop("shared"))
+                _copy_into(blk.moe, ffn)
+            else:
+                _copy_into(blk.mlp, init_mlp(gen, D, F, adt))
     return model
+
+
+def _copy_into(params: nn.ParameterDict, values: dict[str, torch.Tensor]) -> None:
+    for name, t in values.items():
+        params[name].copy_(t)
 
 
 def params_from_reference(np_params: dict[str, Any], cfg: ModelConfig,

@@ -1,13 +1,15 @@
 """Batched token serving: slot-based continuous batching over a fixed cache.
 
-The port of the JAX package's ``serve/engine.py`` for the dense family.  The
-engine owns KV caches for ``max_batch`` sequence *slots* of ``max_len``
-tokens plus per-slot cursors.  Requests are prefilled one at a time (prompt
+The port of the JAX package's ``serve/engine.py`` for the dense and MoE
+families.  The engine owns the caches (GQA's ``k``/``v`` or MLA's latent
+``ckv``/``kr``) for ``max_batch`` sequence *slots* of ``max_len`` tokens
+plus per-slot cursors.  Requests are prefilled one at a time (prompt
 lengths bucketed to powers of two from 8) and inserted into a free slot;
 ``step()`` then decodes one token for *every* slot in a single batched
-``forward_decode``.  Prefill attention runs on the flash-attention kernel
-and decode attention on the decode-attention kernel; the caches are updated
-in place.
+``forward_decode`` (idle slots too, as the reference does: MoE rows share
+the experts' capacity, so only the same rows give the same function).
+Prefill attention runs on the flash-attention kernel and GQA decode
+attention on the decode-attention kernel; the caches are updated in place.
 
 The engine reports through the shared :class:`~repro_torch.serve.metrics.
 ServeMetrics`: one ``record_batch`` per batched decode (active slots,

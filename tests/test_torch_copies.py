@@ -20,6 +20,9 @@ COPIES = [
     "serve/metrics.py", "frontends/onnx_proto.py",
     "frontends/onnx_importer.py", "frontends/seedot.py",
     "frontends/tf_subset.py", "configs/mlperf_tiny.py",
+    "configs/qwen2_5_3b.py", "configs/granite_8b.py",
+    "configs/codeqwen1_5_7b.py", "configs/olmoe_1b_7b.py",
+    "configs/deepseek_v2_236b.py",
 ]
 
 # the one place a copy differs: ``teacher_labels`` reads the program's

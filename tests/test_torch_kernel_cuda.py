@@ -426,7 +426,10 @@ def _randn(card, *shape, dtype=torch.float32, seed=0):
     (1, 1, 1, 16, 1, 72, True), (2, 37, 37, 16, 1, 200, False),
     (1, 130, 130, 32, 2, 64, True), (1, 600, 600, 16, 2, 128, True),
     (1, 70, 70, 8, 2, 320, True), (2, 33, 45, 4, 1, 320, False),
-    (1, 64, 64, 12, 2, 64, True), (1, 90, 90, 12, 2, 128, False)])
+    (1, 64, 64, 12, 2, 64, True), (1, 90, 90, 12, 2, 128, False),
+    (1, 1024, 1024, 16, 16, 128, True), (1, 1024, 1024, 32, 8, 128, True),
+    (1, 1024, 1024, 32, 32, 128, True), (1, 1024, 1024, 128, 128, 192, True),
+    (2, 77, 77, 128, 128, 192, True)])
 def test_flash_attention_kernel_matches_plain(card, B, Sq, Sk, H, KV, dh,
                                               causal, dtype, round_p):
     from repro_torch.kernels.flash_attention import flash_attention_fused
@@ -489,7 +492,9 @@ SERVED_LENS = [905, 689, 562, 319, 357, 88, 122, 63]   # qwen2.5-3b, last step
     (2, 50, 8, 8, 256, None), (4, 77, 8, 2, 100, None),
     (8, 2048, 16, 2, 128, SERVED_LENS), (8, 2048, 16, 2, 128, [1] * 8),
     (2, 300, 32, 2, 64, None), (2, 5000, 16, 1, 128, [4999, 17]),
-    (2, 64, 128, 1, 320, None), (3, 40, 100, 1, 64, None)])
+    (2, 64, 128, 1, 320, None), (3, 40, 100, 1, 64, None),
+    (8, 2048, 16, 16, 128, SERVED_LENS), (8, 2048, 32, 8, 128, SERVED_LENS),
+    (8, 2048, 32, 32, 128, SERVED_LENS)])
 def test_decode_attention_kernel_matches_plain(card, B, S, H, KV, dh, lens,
                                                dtype, round_p, lens_on):
     """None: random lengths with a 1 and an S; then the served lengths,
@@ -620,6 +625,84 @@ def test_lm_engine_on_the_card_matches_the_cpu(card):
             assert LAUNCHES["decode_attention"] - before["decode_attention"] \
                 == cfg.n_layers * steps
     assert done["cpu"] == done[str(card)]
+
+
+def test_mla_prefill_pads_v_for_the_flash_kernel(card):
+    """deepseek-v2's prefill widths (H = 128, q and k of 128 + 64, v of 128
+    zero-padded to 192): the kernel's first 128 columns against the plain
+    attention with v of width 128, and its padded columns exactly zero."""
+    from repro_torch.kernels.flash_attention import flash_attention_fused
+    from repro_torch.models.attention import plain_attention
+
+    for dt in (torch.float32, torch.bfloat16):
+        q = _randn(card, 1, 300, 128, 192, dtype=dt, seed=31)
+        k = _randn(card, 1, 300, 128, 192, dtype=dt, seed=32)
+        v = _randn(card, 1, 300, 128, 128, dtype=dt, seed=33)
+        got = flash_attention_fused(q, k, torch.nn.functional.pad(v, (0, 64)),
+                                    round_p=False)
+        want = plain_attention(q, k, v, scale=192 ** -0.5)
+        torch.cuda.synchronize()
+        assert torch.equal(got[..., 128:], torch.zeros_like(got[..., 128:]))
+        _attn_close(got[..., :128].contiguous(), want)
+
+
+@pytest.mark.parametrize("arch", ["granite-8b", "codeqwen1.5-7b", "olmoe-1b-7b",
+                                  "deepseek-v2-236b"])
+def test_family_engines_on_the_card_match_the_cpu(card, arch):
+    """Each family's SMOKE config in float32 at its own capacity: the same
+    greedy tokens on the card (both attention kernels; MLA decode in plain
+    products) as on the CPU, one flash launch per layer per prefill and,
+    for GQA, one decode launch per layer per step."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = get_arch(arch).smoke
+    rng = np.random.default_rng(0)
+    prompts = [list(rng.integers(1, cfg.vocab_size, size=n)) for n in (5, 17, 40)]
+    cpu_model = init_params(cfg, 0, "cpu")
+    done = {}
+    for dev in ("cpu", card):
+        model = cpu_model if dev == "cpu" else _to_card(cpu_model, cfg, card)
+        eng = ServeEngine(cfg, model, max_batch=2, max_len=64, device=dev)
+        for p in prompts:
+            eng.submit(p, max_new_tokens=5)
+        before = dict(LAUNCHES)
+        done[str(dev)] = [r.tokens for r in eng.run_to_completion()]
+        if dev != "cpu":
+            steps = eng.metrics.snapshot()["batches"]
+            assert LAUNCHES["flash_attention"] - before["flash_attention"] \
+                == cfg.n_layers * len(prompts)
+            assert LAUNCHES["decode_attention"] - before["decode_attention"] \
+                == (0 if cfg.use_mla else cfg.n_layers * steps)
+    assert done["cpu"] == done[str(card)]
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v2-236b"])
+def test_moe_decode_step_syncs_never(card, arch):
+    """A MoE decode step (routing, the capacity dispatch by index_add_, the
+    batched expert products, the gather) under CUDA's sync debug mode,
+    which raises on a synchronisation; and the step's logits equal the same
+    step's on the CPU."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.transformer import init_cache, init_params
+
+    cfg = get_arch(arch).smoke
+    cpu_model = init_params(cfg, 0, "cpu")
+    model = _to_card(cpu_model, cfg, card)
+    tok = np.array([3, 17, 42, 9], np.int32)
+    pos = np.array([0, 1, 2, 5], np.int32)
+    caches = init_cache(cfg, 4, 16, device=card)
+    model.forward_decode(tok, caches, pos)              # warm: routes, grants
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, _ = model.forward_decode(tok, caches, pos)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want, _ = cpu_model.forward_decode(tok, init_cache(cfg, 4, 16, device="cpu"),
+                                       pos)
+    torch.testing.assert_close(logits.cpu(), want, rtol=1e-5, atol=1e-5)
 
 
 def _to_card(model, cfg, card):
