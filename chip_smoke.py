@@ -60,9 +60,22 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               1024 for olmoe (H = KV = 16), granite (32 / 8), codeqwen
               (32 / 32) and deepseek-v2's MLA prefill (H = KV = 128, dh
               192, and v zero-padded from 128 to 192), decode at the first
-              three at the served lengths.  Limits: float32
-              ``rtol = atol = 1e-5``; bfloat16 one bf16 ulp of the
-              output's largest magnitude;
+              three at the served lengths; then flash at S = 1024 for
+              command-r (64 / 8), internvl2 (48 / 8) and musicgen (24 / 24,
+              dh 64), zamba2's shared block (H = KV = 32, dh 224) at S =
+              100 and 1024, a window of 256 at dh 224 and at qwen's heads,
+              and float32 with p rounded to bfloat16 (``round_p=
+              torch.bfloat16``, the model's ``probs_bf16``); decode at
+              those heads at the served lengths against LM_MAX_LEN slots,
+              zamba2's as its served config decodes (no window), and at
+              zamba2's against a ring of 256 slots (lengths min(pos + 1, 256), most
+              past the ring's width), also under CUDA's sync debug mode and
+              captured in a CUDA graph; and the chunked SSD scan against
+              its sequential oracle at one full-width layer of mamba2 (H
+              64, P 64, N 128) and zamba2 (H 112, N 64), S = 1024.
+              Limits: float32 ``rtol = atol = 1e-5``; bfloat16, and float32
+              with bf16 p, one bf16 ulp of the output's largest magnitude;
+              the SSD scan ``1e-5 x max |y|``;
 7. lm-serve — the port's ``ServeEngine`` on qwen2.5-3b at full width (36
               layers, every published width), random weights from seed 0
               made on the card, 8 requests of 16–1024 prompt tokens (drawn
@@ -106,7 +119,21 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               bfloat16 agreement >= 95 % over the positions that the engine
               and the teacher-forced forward routed to the same experts in
               every layer (a bf16 rounding can move a token to another
-              expert; those positions are counted and printed);
+              expert; those positions are counted and printed).  Then also
+              mamba2-1.3b (48 layers; exact-length prefills, the
+              recurrent decode against the chunked scan's teacher forcing)
+              and zamba2-7b (68 Mamba2 layers, 13 shared applications) in
+              float32 and bfloat16, musicgen-medium, internvl2-26b (bf16
+              flash on the CUDA-core kernel: G 6) and command-r-35b (~65 GB)
+              in bfloat16, all at full depth: float32 as qwen's run, bf16
+              >= 95 %, or for mamba2 and internvl2 every disagreement a
+              rounding tie (see ``LM_BF16_TIES``), launches = attention
+              layers x prefills and x steps (0 for mamba2), the bound
+              counting the float32 state read and written and zamba2's
+              shared block once per application; internvl2 also runs one
+              ``forward_full`` behind a seeded 1,024-row prefix, each
+              layer's flash output there within one bf16 ulp of its plain
+              version on the same inputs;
 8. front    — the front of the paper's pipeline on the card.  Trained
               programs: bonsai/curet-m and protonn/curet-m trained with the
               port's ``train`` (``build(trained=True)``: 1,024 rows, 120
@@ -224,6 +251,16 @@ LM_PROMPT_LEN = (16, 1024)
 LM_F32_GAP = 1e-3
 LM_F32_ATOL = 1e-3
 LM_BF16_AGREE = 0.95
+# bf16 engines that read below LM_BF16_AGREE on the card without a fault found
+# (ROADMAP Queue C item 11): mamba2-1.3b, whose engine decodes by the
+# recurrence while its teacher forcing runs the chunked scan, and
+# internvl2-26b.  There every disagreement must instead be a rounding tie:
+# the teacher-forced argmax leads the served token by no more than moving
+# each element of the head's bf16 input by one ulp can change the two
+# logits' difference, sum_i ulp(h_i) |W[i, argmax] - W[i, served]|
+# (``tie_grain``).  The limit depends on the weights and the normed input
+# only, not on how far a kernel is off its plain version.
+LM_BF16_TIES = ("mamba2-1.3b", "internvl2-26b")
 # phase 7's engines beside qwen2.5-3b: (arch, dtype, layers; None: all).
 # deepseek-v2's 60 layers (472 GB in bf16) do not fit on one card, so it
 # runs at full width on 2 layers.
@@ -232,7 +269,14 @@ LM_FAMILY_ENGINES = (("olmoe-1b-7b", "float32", None),
                      ("deepseek-v2-236b", "float32", 2),
                      ("deepseek-v2-236b", "bfloat16", 2),
                      ("granite-8b", "bfloat16", None),
-                     ("codeqwen1.5-7b", "bfloat16", None))
+                     ("codeqwen1.5-7b", "bfloat16", None),
+                     ("mamba2-1.3b", "float32", None),
+                     ("mamba2-1.3b", "bfloat16", None),
+                     ("zamba2-7b", "float32", None),
+                     ("zamba2-7b", "bfloat16", None),
+                     ("musicgen-medium", "bfloat16", None),
+                     ("internvl2-26b", "bfloat16", None),
+                     ("command-r-35b", "bfloat16", None))
 # A MoE router's choices may differ between two float32 runs of one input
 # that differ only in rounding (the attention kernels against their plain
 # versions) where two gates lie within ROUTE_TIE of each other: the token
@@ -244,11 +288,24 @@ ROUTE_TIE = 1e-4
 # the two passes of csrc/decode_attention.cu, by kernel name in a trace
 DECODE_PASSES = ("da_kernel", "da_combine")
 HTOD = "Memcpy HtoD"               # a host-to-device copy, by name in a trace
-TRACE_TRIES = 3                    # traces taken before an empty one fails
+TRACE_TRIES = 3                    # traces taken before CUDA events stand in
 # (H, KV, dh) of phase 7's other prefills and decodes: olmoe-1b-7b,
 # granite-8b, codeqwen1.5-7b, and deepseek-v2's MLA prefill (q and k of
 # 128 + 64, v zero-padded to them; its decode runs no kernel)
 FAMILY_HEADS = ((16, 16, 128), (32, 8, 128), (32, 32, 128), (128, 128, 192))
+# (H, KV, dh) of the remaining dense heads served: command-r-35b,
+# internvl2-26b (G 6: bf16 on the CUDA-core kernel) and musicgen-medium;
+# then zamba2-7b's shared block (2 x 3584 / 32 = 224), whose decode runs
+# against a ring of RING_WIDTH slots at long context and whose prefill
+# there takes a window of the same width (``PROBE_WINDOW``)
+NEW_HEADS = ((64, 8, 128), (48, 8, 128), (24, 24, 64))
+SHARED_HEADS = (32, 32, 224)
+RING_WIDTH = PROBE_WINDOW = 256
+# the chunked SSD scan against its sequential oracle, one full-width layer
+# of each model: (label, H, P, N) at B 1, S 1024, chunk 128; float32 limit
+# max |difference| <= SSD_RTOL x max |y|
+SSD_LAYERS = (("mamba2-1.3b", 64, 64, 128), ("zamba2-7b", 112, 64, 64))
+SSD_RTOL = 1e-5
 # matmul/gemv cases (M, K, N) of phase 3, each in float32 and bfloat16 with
 # both layouts of b: aligned and unaligned pitches, split and unsplit K
 MATMUL_SHAPES = ((129, 65, 70), (128, 128, 128), (64, 610, 24),
@@ -702,10 +759,12 @@ def matmul_work(M: int, N: int, K: int, item: int) -> tuple[float, float]:
     return float(item * (M * K + K * N + M * N)), float(2 * M * N * K)
 
 
-def attn_compare(got, want) -> tuple[bool, float, float]:
+def attn_compare(got, want, bf16_p: bool = False) -> tuple[bool, float, float]:
     """(within the limit, max abs err, the limit) of an attention kernel's
     output against its plain version: float32 ``rtol = atol = 1e-5``
-    (the limit reported is the atol); bfloat16 one bf16 ulp at the
+    (the limit reported is the atol); bfloat16, and float32 with p rounded
+    to bfloat16 (``bf16_p``: the kernel rounds p against a tile's running
+    maximum, the plain version against the row's), one bf16 ulp at the
     output's largest magnitude."""
     import torch
 
@@ -713,18 +772,20 @@ def attn_compare(got, want) -> tuple[bool, float, float]:
         return False, float("inf"), 0.0
     g, w = got.float(), want.float()
     err = float((g - w).abs().max())
-    if got.dtype == torch.float32:
+    if got.dtype == torch.float32 and not bf16_p:
         return bool(torch.allclose(g, w, rtol=F32_RTOL, atol=F32_ATOL)), err, F32_ATOL
     ulp = 2.0 ** (math.floor(math.log2(float(w.abs().max()))) - 7)
     return err <= ulp, err, ulp
 
 
 def flash_work(B: int, Sq: int, Sk: int, H: int, KV: int, dh: int, item: int,
-               causal: bool) -> tuple[float, float]:
+               causal: bool, window: int = 0) -> tuple[float, float]:
     """(bytes, operations) of one flash-attention call: q, k, v read once
     and the output written once; four operations per (query, key, dh)
-    element of the pairs the mask keeps (q·k and p·v)."""
-    pairs = (sum(min(t + 1, Sk) for t in range(Sq)) if causal else Sq * Sk)
+    element of the pairs the mask keeps (q·k and p·v; a window keeps at
+    most ``window`` keys a query)."""
+    pairs = (sum(min(t + 1, Sk, window or Sk) for t in range(Sq)) if causal
+             else Sq * Sk)
     nbytes = item * (2 * B * Sq * H * dh + 2 * B * Sk * KV * dh)
     return float(nbytes), float(4 * B * H * dh * pairs)
 
@@ -745,7 +806,9 @@ def device_split(fn, names: tuple[str, ...], reps: int = 3,
     how many of them run per call), and the number of device activities
     (kernels, copies, sets) per call.  A trace that recorded no device
     activity at all (the profiler drops events now and then) is taken
-    again, up to ``TRACE_TRIES`` times; then it raises."""
+    again, up to ``TRACE_TRIES`` times; then, as in ``device_ms``, the time
+    between CUDA events around ``reps`` calls run back to back, over
+    ``reps``, with the split and the activities not measured (NaN)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -771,8 +834,18 @@ def device_split(fn, names: tuple[str, ...], reps: int = 3,
         if n_act:
             break
     else:
-        raise AssertionError(f"{TRACE_TRIES} profiler traces of {reps} calls "
-                             "recorded no device activity")
+        print(f"    {TRACE_TRIES} profiler traces of {reps} calls recorded no "
+              "device activity: CUDA events, the split not measured",
+              flush=True)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        nan = float("nan")
+        return a.elapsed_time(b) / reps, dict.fromkeys(names, nan), nan
     scale = reps if count else 1e3 * reps
     return (total / 1e3 / reps, {n: v / scale for n, v in part.items()},
             n_act / reps)
@@ -824,6 +897,33 @@ def htod_copies(fn, reps: int = 5) -> tuple[float, float]:
                 if e.device_type == DeviceType.CPU
                 and e.name.startswith("cudaMemcpy"))
     return dev / reps, calls / reps
+
+
+@contextlib.contextmanager
+def flash_check():
+    """Hold every flash launch the model's attention makes while the block
+    is open against the kernel's plain version on the same inputs
+    (``attn_compare``); yields the list of (within the limit, max abs err,
+    the limit), one a launch.  Not for timed runs."""
+    import torch
+
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.models import attention
+
+    held: list[tuple[bool, float, float]] = []
+    real = attention.flash_attention_fused
+
+    def spy(q, k, v, **kw):
+        out = real(q, k, v, **kw)
+        held.append(attn_compare(out, flash_attention_ref(q, k, v, **kw),
+                                 bf16_p=kw.get("round_p") is torch.bfloat16))
+        return out
+
+    attention.flash_attention_fused = spy
+    try:
+        yield held
+    finally:
+        attention.flash_attention_fused = real
 
 
 @contextlib.contextmanager
@@ -951,7 +1051,8 @@ def teacher_forced(model, done, vocab: int, plain: bool, eng_routes=None):
     n_alike = None if eng_routes is None else 0
     for r in done:
         full = np.asarray(r.prompt + r.tokens, np.int32)[None, :]
-        with route_log(moe and (plain or eng_routes is not None)) as ka:
+        with (route_log(moe and (plain or eng_routes is not None)) as ka,
+              head_inputs(model) as heads):
             logits, _, _ = model.forward_full(full)
         alike = None
         if eng_routes is not None:
@@ -984,9 +1085,45 @@ def teacher_forced(model, done, vocab: int, plain: bool, eng_routes=None):
                 worse.append(dict(rid=r.rid, step=i, served=tok, argmax=arg[i],
                                   top2_gap=gap[i],
                                   served_gap=float(lf[i, arg[i]] - lf[i, tok]),
+                                  tie=tie_grain(model, heads[0][0, p0 + i],
+                                                arg[i], tok),
                                   routed_alike=None if alike is None
                                   else alike[i]))
+        del heads
     return n, worse, diff, flipped, n_alike
+
+
+@contextlib.contextmanager
+def head_inputs(model):
+    """Record what the model's head reads while the block is open: each
+    ``_logits`` call's input after the final norm, in the activation dtype,
+    as ``_logits`` computes it."""
+    from repro_torch.models.layers import rms_norm
+
+    seen: list = []
+    real = model._logits
+
+    def spy(x):
+        seen.append(rms_norm(x, model.final_norm, model.cfg.norm_eps))
+        return real(x)
+
+    model._logits = spy
+    try:
+        yield seen
+    finally:
+        del model._logits
+
+
+def tie_grain(model, h, a: int, b: int) -> float:
+    """How far moving each element of the head's input ``h`` (D,) by one
+    ulp of its dtype can change the difference of logits ``a`` and ``b``:
+    sum_i ulp(h_i) |W[i, a] - W[i, b]|."""
+    import torch
+
+    hf = h.float().abs()
+    ulp = torch.exp2(torch.floor(torch.log2(hf))) * torch.finfo(h.dtype).eps
+    w = model.lm_head
+    return float((ulp * (w[:, a].float() - w[:, b].float()).abs()).sum())
 
 
 def bucket_check(model, prompts, plain: bool) -> list[dict]:
@@ -1031,16 +1168,52 @@ def nodrop(cfg):
 def decode_bound(model, lens) -> tuple[float, float]:
     """(bytes, ms) a decode step at batch ``len(lens)`` must move: every
     weight read once (all experts: the capacity dispatch runs each over
-    its slots), of the embedding only the batch's rows, and the valid
-    prefix ``lens`` of every layer's caches; over ``HBM_BYTES_PER_S``."""
+    its slots; the hybrid's shared block once per application: its 1 GB
+    in bf16 does not stay in the 50 MB L2), of the embedding only the
+    batch's rows, the valid prefix ``lens`` of every attention layer's
+    caches (a ring: at most its width), and the Mamba2 layers' states, the
+    float32 ``h`` and the conv states, read and written; over
+    ``HBM_BYTES_PER_S``."""
     cfg = model.cfg
     emb = model.embed
+    item = emb.element_size()
+    B, n = len(lens), int(sum(lens))
     nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    nbytes -= (emb.shape[0] - len(lens)) * emb.shape[1] * emb.element_size()
-    per_pos = ((cfg.kv_lora_rank + cfg.d_rope) if cfg.use_mla
-               else 2 * cfg.n_kv_heads_eff * cfg.d_head)
-    nbytes += cfg.n_layers * int(sum(lens)) * per_pos * emb.element_size()
+    nbytes -= (emb.shape[0] - B) * emb.shape[1] * item
+    if cfg.family in ("dense", "moe"):
+        per_pos = ((cfg.kv_lora_rank + cfg.d_rope) if cfg.use_mla
+                   else 2 * cfg.n_kv_heads_eff * cfg.d_head)
+        nbytes += cfg.n_layers * n * per_pos * item
+        return float(nbytes), nbytes / HBM_BYTES_PER_S * 1e3
+    state = (cfg.ssm_heads * cfg.ssm_state * cfg.ssm_head_dim * 4
+             + (cfg.ssm_conv - 1) * cfg.d_conv_ch * item)
+    nbytes += 2 * cfg.n_mamba_layers * B * state
+    if cfg.family == "hybrid":
+        G, dh2 = cfg.hybrid_groups, 2 * cfg.d_model // cfg.n_heads
+        shared = sum(p.numel() * p.element_size()
+                     for p in model.shared_attn.parameters())
+        nbytes += (G - 1) * shared
+        win = cfg.attn_window or LM_MAX_LEN
+        valid = sum(min(int(x), win) for x in lens)
+        nbytes += G * valid * 2 * cfg.n_kv_heads * dh2 * item
     return float(nbytes), nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def attention_layers(cfg) -> int:
+    """The attention layers a forward runs: the hybrid's shared
+    applications, none for the ``ssm``, every layer otherwise."""
+    if cfg.family == "hybrid":
+        return cfg.hybrid_groups
+    return 0 if cfg.family == "ssm" else cfg.n_layers
+
+
+def flash_heads(cfg) -> tuple[int, int, int]:
+    """(H, KV, dh) of the model's prefill attention."""
+    if cfg.use_mla:
+        return cfg.n_heads, cfg.n_heads, cfg.d_head + cfg.d_rope
+    if cfg.family == "hybrid":
+        return cfg.n_heads, cfg.n_kv_heads, 2 * cfg.d_model // cfg.n_heads
+    return cfg.n_heads_eff, cfg.n_kv_heads_eff, cfg.d_head
 
 
 # ------------------------------------------------------- phase 9: the store
@@ -1451,7 +1624,9 @@ def main() -> int:
                                                          flash_route)
         from repro_torch.kernels.ref import (decode_attention_ref,
                                              flash_attention_ref)
+        from repro_torch.kernels.ref import mamba2_ssd_ref
         from repro_torch.models.layers import MM_F32_ROUTE
+        from repro_torch.models.mamba2 import ssd_chunked
         from repro_torch.models.moe import capacity
         from repro_torch.models.transformer import init_params
         from repro_torch.serve.engine import ServeEngine
@@ -1824,9 +1999,9 @@ def main() -> int:
     def rnd(shape, dt):
         return torch.randn(shape, generator=ga, device=dev).to(dt)
 
-    def attn_case(kernel, label, got, want):
+    def attn_case(kernel, label, got, want, bf16_p=False):
         torch.cuda.synchronize()
-        ok, err, lim = attn_compare(got, want)
+        ok, err, lim = attn_compare(got, want, bf16_p)
         attn_cases.append(dict(kernel=kernel, case=label, max_abs_err=err,
                                limit=lim, ok=ok))
         print(f"  {kernel} {label}: max abs err {err:.3g} (limit {lim:.3g})",
@@ -1853,26 +2028,35 @@ def main() -> int:
             # deepseek-v2's MLA (H = KV = 128, q and k of dh 192)
             flash_shapes += [(1, 1024, 1024, H, KV, dh, True)
                              for H, KV, dh in FAMILY_HEADS]
+            # the remaining served heads at their largest bucket: command-r,
+            # internvl2, musicgen, and zamba2's shared block at S = 100 and
+            # 1024; then a window of PROBE_WINDOW at dh 224 and at qwen's heads
+            flash_shapes += [(1, 1024, 1024, H, KV, dh, True)
+                             for H, KV, dh in NEW_HEADS]
+            flash_shapes += [(1, S, S) + SHARED_HEADS + (True,) for S in (100, 1024)]
+            flash_shapes += [(1, 1024, 1024) + heads + (True, PROBE_WINDOW)
+                             for heads in (SHARED_HEADS, (16, 2, 128))]
             cases = []
-            for B, Sq, Sk, H, KV, dh, causal in flash_shapes:
+            for B, Sq, Sk, H, KV, dh, causal, *win in flash_shapes:
+                w = win[0] if win else 0
                 q = rnd((B, Sq, H, dh), dt)
                 k, v = rnd((B, Sk, KV, dh), dt), rnd((B, Sk, KV, dh), dt)
                 cases.append((f"B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} dh={dh} "
-                              f"{'causal' if causal else 'full'}", q, k, v,
-                              causal))
+                              f"{'causal' if causal else 'full'}"
+                              + (f" window {w}" if w else ""), q, k, v, causal, w))
             # q, k and v as slices of one fused QKV projection (B, S, H + 2 KV,
             # dh): strided views, read in place
             qkv = rnd((2, 1024, 16 + 2 + 2, 128), dt)
             cases.append(("fused QKV view B=2 Sq=Sk=1024 H=16 KV=2 dh=128 "
                           "causal", qkv[:, :, :16], qkv[:, :, 16:18],
-                          qkv[:, :, 18:], True))
+                          qkv[:, :, 18:], True, 0))
             # MLA's prefill: v of width 128 zero-padded to q's and k's 192
             qm = rnd((1, 1024, 128, 192), dt)
             km = rnd((1, 1024, 128, 192), dt)
             vm = torch.nn.functional.pad(rnd((1, 1024, 128, 128), dt), (0, 64))
             cases.append(("MLA B=1 Sq=Sk=1024 H=KV=128 dh=192, v of 128 "
-                          "zero-padded", qm, km, vm, True))
-            for label, q, k, v, causal in cases:
+                          "zero-padded", qm, km, vm, True, 0))
+            for label, q, k, v, causal, w in cases:
                 route = flash_route(q, k, v)
                 kname = ("flash_attention_wgmma" if route == "wgmma"
                          else "flash_attention")
@@ -1880,10 +2064,30 @@ def main() -> int:
                     attn_case(kname,
                               f"{dname} {label} p {'rounded' if rp else 'fp32'}",
                               flash_attention_fused(q, k, v, causal=causal,
-                                                    round_p=rp),
+                                                    window=w, round_p=rp),
                               flash_attention_ref(q.contiguous(), k.contiguous(),
                                                   v.contiguous(), causal=causal,
-                                                  round_p=rp))
+                                                  window=w, round_p=rp))
+            del cases, qkv, qm, km, vm
+            if dt == torch.float32:
+                # the model's probs_bf16 at float32 (Queue C item 10): v
+                # rounded to bfloat16 before the kernel, p rounded to
+                # bfloat16 by fa_kernel's third rounding mode
+                for heads, w in (((16, 2, 128), 0), (SHARED_HEADS, 0),
+                                 (SHARED_HEADS, PROBE_WINDOW)):
+                    H, KV, dh = heads
+                    q = rnd((1, 1024, H, dh), dt)
+                    k = rnd((1, 1024, KV, dh), dt)
+                    v = rnd((1, 1024, KV, dh), dt).bfloat16().float()
+                    attn_case("flash_attention",
+                              f"float32 B=1 Sq=Sk=1024 H={H} KV={KV} dh={dh} "
+                              f"causal{f' window {w}' if w else ''} p rounded to "
+                              "bfloat16 (probs_bf16)",
+                              flash_attention_fused(q, k, v, window=w,
+                                                    round_p=torch.bfloat16),
+                              flash_attention_ref(q, k, v, window=w,
+                                                  round_p=torch.bfloat16),
+                              bf16_p=True)
             # decode at qwen2.5-3b's heads: ragged lengths with 1 and S, the
             # lengths of phase 7's last decode step (given on the host and on
             # the card), and every length 1; each case twice, bitwise equal
@@ -1925,6 +2129,59 @@ def main() -> int:
                               decode_attention(qf, kf, vf, ld, round_p=rp),
                               decode_attention_ref(qf, kf, vf, ld, round_p=rp))
                 del qf, kf, vf
+            # the remaining served heads at the served lengths, zamba2's
+            # shared block included: with no window its decode reads a cache
+            # of LM_MAX_LEN slots
+            for H, KV, dh in NEW_HEADS + (SHARED_HEADS,):
+                qf = rnd((B, H, dh), dt)
+                kf, vf = rnd((B, S, KV, dh), dt), rnd((B, S, KV, dh), dt)
+                for rp in (False, True):
+                    attn_case("decode_attention",
+                              f"{dname} B={B} S={S} H={H} KV={KV} dh={dh} "
+                              f"served lens on the card p "
+                              f"{'rounded' if rp else 'fp32'}",
+                              decode_attention(qf, kf, vf, ld, round_p=rp),
+                              decode_attention_ref(qf, kf, vf, ld, round_p=rp))
+                del qf, kf, vf
+            # zamba2's shared decode against a ring of RING_WIDTH slots at the
+            # served positions (most past its width): valid_len = min(pos +
+            # 1, W) on the card; under CUDA's sync debug mode, and captured
+            # in a CUDA graph whose replay equals the eager call bitwise
+            H, KV, dh = SHARED_HEADS
+            ring_lens = np.minimum(served_lens, RING_WIDTH).astype(np.int32)
+            lr = torch.from_numpy(ring_lens).to(dev)
+            qr = rnd((B, H, dh), dt)
+            kr_, vr = rnd((B, RING_WIDTH, KV, dh), dt), rnd((B, RING_WIDTH, KV, dh), dt)
+            ring_label = (f"{dname} B={B} ring of {RING_WIDTH} H={H} KV={KV} "
+                          f"dh={dh} lens {ring_lens.tolist()} on the card")
+            for rp in (False, True):
+                attn_case("decode_attention",
+                          f"{ring_label} p {'rounded' if rp else 'fp32'}",
+                          decode_attention(qr, kr_, vr, lr, round_p=rp),
+                          decode_attention_ref(qr, kr_, vr, lr, round_p=rp))
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                eager = decode_attention(qr, kr_, vr, lr, round_p=False)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                decode_attention(qr, kr_, vr, lr, round_p=False)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                captured = decode_attention(qr, kr_, vr, lr, round_p=False)
+            graph.replay()
+            torch.cuda.synchronize()
+            if not torch.equal(captured, eager):
+                raise AssertionError(f"decode_attention {ring_label}: the "
+                                     "graph's replay differs from the eager call")
+            attn_case("decode_attention", f"{ring_label} p fp32, no "
+                      "synchronisation, graph replay", captured,
+                      decode_attention_ref(qr, kr_, vr, lr, round_p=False))
+            del graph, captured, eager, qr, kr_, vr
             # wider than any config: G = 128 query rows per KV head (two
             # groups of 64) and dh = 320, lengths on the host and the card
             qw = rnd((2, 128, 320), dt)
@@ -1968,6 +2225,29 @@ def main() -> int:
                       "the card, no synchronisation, graph replay", captured,
                       decode_attention_ref(q, kc, vc, ld, round_p=False))
             del graph, captured
+        # the chunked SSD scan (PyTorch ops, as in the reference: no TPU
+        # kernel computes it) against its sequential oracle on the card
+        ssd_cases = []
+        for label, H, P, N in SSD_LAYERS:
+            x = rnd((1, 1024, H, P), torch.float32)
+            a = -(0.1 + torch.rand((1, 1024, H), generator=ga, device=dev))
+            b, c = rnd((1, 1024, N), torch.float32), rnd((1, 1024, N), torch.float32)
+            y, _ = ssd_chunked(x, a, b, c, chunk=128)
+            want = mamba2_ssd_ref(x, a, b, c)
+            torch.cuda.synchronize()
+            err, lim = float((y - want).abs().max()), SSD_RTOL * float(want.abs().max())
+            ms, timer = device_ms(lambda: ssd_chunked(x, a, b, c, chunk=128), 5)
+            ssd_cases.append(dict(case=f"{label} B=1 S=1024 H={H} P={P} N={N}",
+                                  max_abs_err=err, limit=lim, ok=err <= lim,
+                                  chunked_ms=ms, timer=timer))
+            print(f"  ssd_chunked {label} B=1 S=1024 H={H} P={P} N={N} chunk "
+                  f"128 vs the sequential scan: max abs err {err:.3g} (limit "
+                  f"{lim:.3g}); chunked {ms:.3f} ms on the device ({timer})",
+                  flush=True)
+            if err > lim:
+                raise AssertionError(f"ssd_chunked {label}: max abs err {err} "
+                                     f"over its limit {lim}")
+            del x, a, b, c, y, want
     except AssertionError as e:
         return fail("lm-kernel", str(e))
     for name in ("flash_attention", "flash_attention_wgmma",
@@ -1975,7 +2255,8 @@ def main() -> int:
         errs = [c["max_abs_err"] for c in attn_cases if c["kernel"] == name]
         checks[name] = {"cases": len(errs), "max_abs_err": max(errs)}
     phase("lm-kernel", t, f"{len(attn_cases)} attention cases within their "
-          "limits of the plain versions")
+          f"limits of the plain versions; {len(ssd_cases)} SSD scans within "
+          f"{SSD_RTOL} x max |y| of the sequential one")
 
     # ------------------------------------------------------- 7. lm-serve (main)
     t = time.perf_counter()
@@ -2016,11 +2297,15 @@ def main() -> int:
         got = {k: LAUNCHES[k] for k in lm_counts}
         snap = eng.metrics.snapshot()
         steps, decode_s = snap["batches"], snap["device_s"]
-        L = cfg.n_layers
-        # bf16 prefills run on the tensor cores, float32 on the CUDA cores;
-        # MLA's decode is plain PyTorch (no decode kernel takes it)
+        L = attention_layers(cfg)
+        # bf16 prefills run on the tensor cores where flash_route takes the
+        # heads (not internvl2's G = 6), float32 on the CUDA cores; MLA's
+        # decode is plain PyTorch (no decode kernel takes it)
+        H, KV, dh = flash_heads(cfg)
+        probe = [torch.empty((1, 1, h, dh), dtype=cfg.adt, device=dev)
+                 for h in (H, KV, KV)] if L else None
         flash, other = (("flash_attention_wgmma", "flash_attention")
-                        if cfg.act_dtype == "bfloat16"
+                        if L and flash_route(*probe) == "wgmma"
                         else ("flash_attention", "flash_attention_wgmma"))
         want_decode = 0 if cfg.use_mla else L * steps
         print(f"  {label}: {len(done)} requests, {steps} decode steps, "
@@ -2038,7 +2323,8 @@ def main() -> int:
         steps_total += steps
         n_tok = sum(len(r.tokens) for r in done)
         rec = dict(run=label, arch=cfg.name, dtype=cfg.act_dtype,
-                   params=cfg.param_dtype, layers=L,
+                   params=cfg.param_dtype, layers=cfg.n_layers,
+                   attention_layers=L,
                    capacity_factor=cfg.capacity_factor if cfg.n_experts else None,
                    requests=len(done), prompt_lens=[len(p) for p in prompts],
                    new_tokens=n_tok, decode_steps=steps, launches=got,
@@ -2166,7 +2452,8 @@ def main() -> int:
             raise AssertionError(f"{label}: {len(bad)} served tokens differ "
                                  f"from the teacher-forced argmax by more than "
                                  f"a near-tie ({LM_F32_GAP}): {bad[:4]}")
-        if not rec["plain_logit_diff"] <= LM_F32_ATOL:
+        if (rec["plain_logit_diff"] is not None
+                and not rec["plain_logit_diff"] <= LM_F32_ATOL):
             raise AssertionError(f"{label}: logits off the plain-attention "
                                  f"forward by {rec['plain_logit_diff']}")
         for f in rec["route_flips"]:
@@ -2174,6 +2461,56 @@ def main() -> int:
                 raise AssertionError(f"{label}: logits off the plain-attention "
                                      f"forward by {f['diff']} where the router "
                                      f"chose otherwise beyond a near-tie: {f}")
+
+    def check_ties(label, rec):
+        """A bf16 run of LM_BF16_TIES under LM_BF16_AGREE: every
+        disagreement a rounding tie, its served gap within ``tie``."""
+        beyond = [w for w in rec["disagreements"]
+                  if not w["served_gap"] <= w["tie"]]
+        print(f"  {label}: agreement {rec['agreement']:.4f} < {LM_BF16_AGREE}; "
+              "served gap / one-ulp tie grain by disagreement: "
+              + ", ".join(f"{w['served_gap']:.3g}/{w['tie']:.3g}"
+                          for w in rec["disagreements"])
+              + f"; beyond it: {len(beyond)}", flush=True)
+        if beyond:
+            raise AssertionError(f"{label}: teacher-forced agreement "
+                                 f"{rec['agreement']:.3f} < {LM_BF16_AGREE} and "
+                                 f"{len(beyond)} disagreements beyond a "
+                                 f"rounding tie: {beyond[:4]}")
+
+    def prefix_check(label, cfg, model, prompt):
+        """One ``forward_full`` of ``prompt`` behind a seeded prefix of
+        ``vision_prefix_len`` embeddings (N(0, 0.02²), internvl2's patch
+        stub): finite logits of Np + S positions, one flash launch per
+        layer, and each launch's output within ``attn_compare``'s limit of
+        its plain version on the same inputs (``flash_check``)."""
+        gp = torch.Generator(device=dev).manual_seed(21)
+        Np = cfg.vision_prefix_len
+        prefix = (0.02 * torch.randn((1, Np, cfg.d_model), generator=gp,
+                                     device=dev)).to(cfg.adt)
+        toks = np.asarray(prompt, np.int32)[None, :]
+        before = {k: LAUNCHES[k] for k in lm_counts}
+        with flash_check() as held:
+            lk, _, _ = model.forward_full(toks, prefix_embeds=prefix)
+        torch.cuda.synchronize()
+        got = sum(LAUNCHES[k] - before[k] for k in lm_counts)
+        S = Np + toks.shape[1]
+        worst = max(held, key=lambda c: c[1] / c[2])
+        out = dict(prefix=Np, tokens=toks.shape[1], launches=got,
+                   shape=list(lk.shape), finite=bool(torch.isfinite(lk).all()),
+                   flash_held=len(held), flash_within=sum(c[0] for c in held),
+                   flash_max_err=worst[1], flash_limit=worst[2])
+        print(f"  {label}: a {Np}-row prefix before a {toks.shape[1]}-token "
+              f"prompt: logits {tuple(lk.shape)}, {got} flash launches, "
+              f"{out['flash_within']}/{len(held)} flash outputs within one "
+              f"bf16 ulp of their plain versions on the same inputs (worst "
+              f"{worst[1]:.3g} against {worst[2]:.3g})", flush=True)
+        if (tuple(lk.shape) != (1, S, cfg.padded_vocab) or not out["finite"]
+                or got != cfg.n_layers or len(held) != cfg.n_layers
+                or out["flash_within"] != len(held)):
+            raise AssertionError(f"{label}: prefix check {out}")
+        del lk
+        return out
 
     try:
         t1 = time.perf_counter()
@@ -2228,20 +2565,27 @@ def main() -> int:
             torch.cuda.synchronize()
             init_s = time.perf_counter() - t1
             moe_arch = cfg.family == "moe"
+            f32 = dtype == "float32"
             eng, rec = lm_serve(label, cfg, model, fprompts,
-                                plain_check=False, teacher=not moe_arch)
+                                plain_check=f32 and not moe_arch
+                                and cfg.family != "ssm", teacher=not moe_arch)
             rec.update(init_s=init_s, full_layers=fspec.model.n_layers)
             fam_lens[label] = rec["final_lens"]
-            if not moe_arch:
+            if cfg.vision_prefix_len:
+                rec["prefix"] = prefix_check(label, cfg, model, fprompts[0])
+            if not moe_arch and f32:
+                check_f32(label, rec)
+            elif not moe_arch:
                 if rec["agreement"] < LM_BF16_AGREE:
-                    raise AssertionError(f"{label}: teacher-forced agreement "
-                                         f"{rec['agreement']:.3f} < "
-                                         f"{LM_BF16_AGREE}")
+                    if arch not in LM_BF16_TIES:
+                        raise AssertionError(f"{label}: teacher-forced "
+                                             f"agreement {rec['agreement']:.3f}"
+                                             f" < {LM_BF16_AGREE}")
+                    check_ties(label, rec)
             else:
                 # the served capacity: each prefill bucket's dropped copies
                 # and, in float32, its logits with the kernels against the
                 # same bucket with their plain versions
-                f32 = dtype == "float32"
                 buckets = bucket_check(model, fprompts, plain=f32)
                 rec["buckets"] = buckets
                 for b in buckets:
@@ -2290,9 +2634,9 @@ def main() -> int:
               f"{a} {d}" + (f" ({n} layers)" if n else "")
               for a, d, n in LM_FAMILY_ENGINES)
           + f"; {prefills} prefills, {steps_total} decode steps; "
-          f"launches flash {launches['flash_attention']} (float32, CUDA "
-          f"cores), {launches['flash_attention_wgmma']} (bfloat16, tensor "
-          f"cores), decode "
+          f"launches flash {launches['flash_attention']} (CUDA cores: float32 "
+          f"and internvl2's G 6), {launches['flash_attention_wgmma']} "
+          f"(bfloat16, tensor cores), decode "
           f"{launches['decode_attention']}; bf16 products with an fp32 result "
           f"via {MM_F32_ROUTE.get('bfloat16', 'none')}")
 
@@ -2781,6 +3125,63 @@ def main() -> int:
                                                        enable_gqa=True), 50,
                 decode_work(lens, H, KV, dh, qd.element_size()), dname))
             del qd, kc, vc, q4, k4, v4
+    # the remaining served heads: flash at the largest bucket (zamba2's
+    # shared block also with a window of PROBE_WINDOW, and the float32 p
+    # rounded to bfloat16 of probs_bf16), decode at the served lengths
+    # (zamba2's against a ring of RING_WIDTH)
+    for dt, lens in ((torch.bfloat16, lens16), (torch.float32, lens32)):
+        dname = str(dt).split(".")[-1]
+        S = 1024
+        probes = [(heads, 0, False) for heads in NEW_HEADS + (SHARED_HEADS,)]
+        probes += [(SHARED_HEADS, PROBE_WINDOW, False)]
+        if dt == torch.float32:
+            probes += [((16, 2, 128), 0, True), (SHARED_HEADS, 0, True)]
+        for (H, KV, dh), w, bf16_p in probes:
+            q = rnd((1, S, H, dh), dt)
+            k = rnd((1, S, KV, dh), dt)
+            v = rnd((1, S, KV, dh), dt)
+            if bf16_p:
+                v = v.bfloat16().float()
+            rp = torch.bfloat16 if bf16_p else False
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            pos = torch.arange(S, device=dev)
+            allowed = pos[None, :] <= pos[:, None]
+            if w:
+                allowed &= pos[None, :] > pos[:, None] - w
+            kname = ("flash_attention_wgmma" if flash_route(q, k, v) == "wgmma"
+                     else "flash_attention")
+            rows[kname].append(row(
+                kname, f"{dname} B=1 Sq=Sk={S} H={H} KV={KV} dh={dh} causal"
+                + (f" window {w}" if w else "")
+                + (" p rounded to bfloat16 (probs_bf16)" if bf16_p else " p fp32"),
+                lambda: flash_attention_fused(q, k, v, window=w, round_p=rp),
+                lambda: flash_attention_ref(q, k, v, window=w, round_p=rp),
+                lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                       attn_mask=allowed,
+                                                       enable_gqa=True), 10,
+                flash_work(1, S, S, H, KV, dh, q.element_size(), True, w), dname))
+            del q, k, v, qt, kt, vt, allowed
+        B, Sc = LM_MAX_BATCH, LM_MAX_LEN
+        for (H, KV, dh), width in [(h, Sc) for h in NEW_HEADS + (SHARED_HEADS,)
+                                   ] + [(SHARED_HEADS, RING_WIDTH)]:
+            lw = [min(int(x), width) for x in lens]
+            ld = torch.tensor(lw, dtype=torch.int32, device=dev)
+            mask = (torch.arange(width, device=dev)[None, :]
+                    < ld[:, None])[:, None, None]
+            qd = rnd((B, H, dh), dt)
+            kc, vc = rnd((B, width, KV, dh), dt), rnd((B, width, KV, dh), dt)
+            q4, k4, v4 = qd[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+            rows["decode_attention"].append(row(
+                "decode_attention", f"{dname} B={B} "
+                + (f"ring of {width}" if width != Sc else f"S={Sc}")
+                + f" H={H} KV={KV} dh={dh} served lens {lw} (on the card) p fp32",
+                lambda: decode_attention(qd, kc, vc, ld, round_p=False),
+                lambda: decode_attention_ref(qd, kc, vc, ld),
+                lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                       attn_mask=mask,
+                                                       enable_gqa=True), 50,
+                decode_work(lw, H, KV, dh, qd.element_size()), dname))
+            del qd, kc, vc, q4, k4, v4
     for r in lm_runs:
         if "decode_step_device_ms" not in r:
             continue
@@ -2801,7 +3202,8 @@ def main() -> int:
           "between CUDA events; serving wall time on the host clock")
     report.update(served=served, timed=timed, launches=launches, rows=rows,
                   chain_floor=chain_floor,
-                  attention_cases=attn_cases, lm_runs=lm_runs, front=front,
+                  attention_cases=attn_cases, ssd_cases=ssd_cases,
+                  lm_runs=lm_runs, front=front,
                   front_timed=front_timed, store=store_rec,
                   mm_f32_route=MM_F32_ROUTE.get("bfloat16"))
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

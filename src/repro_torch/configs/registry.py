@@ -4,10 +4,12 @@ The port of the JAX package's ``configs/registry.py``: every architecture
 registers an :class:`ArchSpec` with its full-size
 :class:`~repro_torch.models.transformer.ModelConfig` from the public config,
 a reduced smoke config of the same family, and per-shape-cell metadata.
-The ``dense`` and ``moe`` families are ported: qwen2.5-3b, granite-8b,
-codeqwen1.5-7b, olmoe-1b-7b and deepseek-v2-236b (MLA).  :func:`get_arch`
-raises ``NotImplementedError`` for the other five ids, the SSM, hybrid and
-prefix families (ROADMAP.md, Queue A item 8).
+All ten architectures of the reference are ported (``PORTED``): the
+``dense`` family (qwen2.5-3b, granite-8b, codeqwen1.5-7b, command-r-35b,
+musicgen-medium, internvl2-26b with its vision prefix), ``moe``
+(olmoe-1b-7b, deepseek-v2-236b with MLA), ``ssm`` (mamba2-1.3b) and
+``hybrid`` (zamba2-7b).  :func:`get_arch` would raise
+``NotImplementedError`` for an id registered but not in ``PORTED``.
 
 Shape cells (fixed by the reference):
 
@@ -89,7 +91,9 @@ ARCH_IDS: list[str] = [
     "mamba2-1.3b",
 ]
 PORTED: tuple[str, ...] = ("qwen2.5-3b", "granite-8b", "codeqwen1.5-7b",
-                           "olmoe-1b-7b", "deepseek-v2-236b")
+                           "olmoe-1b-7b", "deepseek-v2-236b", "mamba2-1.3b",
+                           "zamba2-7b", "musicgen-medium", "command-r-35b",
+                           "internvl2-26b")
 
 _CACHE: dict[str, ArchSpec] = {}
 

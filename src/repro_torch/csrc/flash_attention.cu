@@ -6,9 +6,13 @@
 // dtype, float32 or bfloat16.  Query head h reads KV head h / G (G = H/KV);
 // the q rows of one KV head are the (token, g) pairs, interleaved as in the
 // TPU kernel.  Scores, the softmax statistics and the output accumulator are
-// fp32; `round_p` rounds p to v's dtype before P.V, as the TPU kernel does,
-// else p stays fp32, as the model's own attention does.  No fast math: expf,
-// or exp2f of pre-scaled scores in the tensor-core kernel.
+// fp32; `round_p` 1 rounds p to v's dtype before P.V, as the TPU kernel
+// does, 2 rounds it to bfloat16 whatever v's dtype (the model's
+// `probs_bf16` at float32), 0 keeps it fp32, as the model's own attention
+// does.  `window` > 0 (causal only) also masks the keys at or below
+// qpos - window, a sliding window: key tiles wholly below the window of a
+// block's first row are not loaded, the edge tiles are masked.  No fast
+// math: expf, or exp2f of pre-scaled scores in the tensor-core kernel.
 // Two kernels; repro_torch.kernels.flash_attention.flash_route picks one
 // from the dtype and the shapes:
 //
@@ -101,7 +105,7 @@ struct FaArgs {
   int B, Sq, Sk, H, KV, dh;
   long long qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh;
   float scale;
-  int causal, round_p, vec;
+  int causal, round_p, vec, window;
 };
 
 // fa_kernel<T, DHP, BN>'s shared memory, in floats: q [FA_ROWS][QP], the k
@@ -243,6 +247,9 @@ fa_kernel(FaArgs a) {
   const int last_row = min(r0 + FA_ROWS, nrows) - 1;
   const int kend = a.causal ? min(a.Sk, last_row / G + 1) : a.Sk;
   const int nkt = (kend + BN - 1) / BN;
+  // the first key tile that holds a key inside the window of the tile's
+  // first row (later rows' windows start later)
+  const int jt0 = a.window > 0 ? max(0, r0 / G - a.window + 1) / BN : 0;
   int tok[4];
   float m[4], l[4], acc[4][NH][4];
 #pragma unroll
@@ -257,12 +264,12 @@ fa_kernel(FaArgs a) {
   }
   if (!WIDE) {
     fa_fill_q<T>(Qs, S::QP, q, a, G, r0, 0, dh);
-    stage(0, 0);
+    stage(0, jt0 * BN);
   }
 
-  for (int jt = 0; jt < nkt; ++jt) {
+  for (int jt = jt0; jt < nkt; ++jt) {
     const int j0 = jt * BN, nk = min(BN, a.Sk - j0);
-    const int buf = WIDE ? 0 : jt & 1;
+    const int buf = WIDE ? 0 : (jt - jt0) & 1;
     float s[4][TN];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -300,7 +307,8 @@ fa_kernel(FaArgs a) {
 #pragma unroll
       for (int j = 0; j < TN; ++j) {
         const int c = tc + 16 * j, key = j0 + c;
-        const bool ok = c < nk && (!a.causal || key <= tok[i]);
+        const bool ok = c < nk && (!a.causal || key <= tok[i]) &&
+                        (a.window <= 0 || key > tok[i] - a.window);
         s[i][j] = ok ? s[i][j] : ATT_NEG;
         mx[i] = fmaxf(mx[i], s[i][j]);
       }
@@ -321,7 +329,9 @@ fa_kernel(FaArgs a) {
       for (int j = 0; j < TN; ++j) {
         const float p = expf(s[i][j] - m_new);
         sum[i] += p;
-        P[16 * i * S::PP + tc + 16 * j] = a.round_p ? att_round<T>(p) : p;
+        P[16 * i * S::PP + tc + 16 * j] =
+            a.round_p == 1 ? att_round<T>(p)
+            : a.round_p == 2 ? att_round<__nv_bfloat16>(p) : p;
       }
     }
 #pragma unroll
@@ -413,7 +423,8 @@ static int fa_dispatch(const FaArgs& a, cudaStream_t s) {
 // Strides in elements; the last axis of q, k and v is contiguous.  dtype 0 =
 // float32, 1 = bfloat16 (q, k, v and out alike); vec = 1 when every row of
 // k and v starts on a 16-byte boundary and dh fills whole 16-byte words
-// (float32 then stages k and v by cp.async).
+// (float32 then stages k and v by cp.async); round_p 0, 1 or 2 and window
+// (0: none; else causal only) as above.
 // Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int fa_launch(const void* q, const void* k, const void* v, void* o,
                          int B, int Sq, int Sk, int H, int KV, int dh,
@@ -421,11 +432,13 @@ extern "C" int fa_launch(const void* q, const void* k, const void* v, void* o,
                          long long ksb, long long kss, long long ksh,
                          long long vsb, long long vss, long long vsh,
                          float scale, int causal, int round_p, int vec,
-                         int dtype, void* stream) {
+                         int dtype, int window, void* stream) {
   if (B == 0 || Sq == 0) return 0;
-  if (Sk < 1 || KV < 1 || H % KV != 0 || dh < 1) return (int)cudaErrorInvalidValue;
+  if (Sk < 1 || KV < 1 || H % KV != 0 || dh < 1 || round_p < 0 || round_p > 2 ||
+      window < 0 || (window > 0 && !causal))
+    return (int)cudaErrorInvalidValue;
   FaArgs a{q, k, v, o, B, Sq, Sk, H, KV, dh, qsb, qss, qsh, ksb, kss, ksh,
-           vsb, vss, vsh, scale, causal, round_p, vec};
+           vsb, vss, vsh, scale, causal, round_p, vec, window};
   cudaStream_t s = (cudaStream_t)stream;
   return dtype == 0 ? fa_dispatch<float>(a, s) : fa_dispatch<__nv_bfloat16>(a, s);
 }
@@ -448,7 +461,7 @@ struct FtArgs {
   __nv_bfloat16* o;
   int B, Sq, Sk, H, KV, dh;
   float scale;
-  int causal;
+  int causal, window;
 };
 
 template <int DHP, int RP>
@@ -475,6 +488,8 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap mq,
   const int last_row = min(r0 + FT_BM, nrows) - 1;
   const int kend = a.causal ? min(a.Sk, last_row / G + 1) : a.Sk;
   const int nt = (kend + FT_BK - 1) / FT_BK;
+  // the first key tile inside the window of the block's first row
+  const int j0 = a.window > 0 ? max(0, r0 / G - a.window + 1) / FT_BK : 0;
   if (tid == 0) {
     hp_bar_init(q_full, 1);
     for (int s = 0; s < FT_STAGES; ++s) {
@@ -493,9 +508,10 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap mq,
 #pragma unroll
     for (int c = 0; c < DHP / 64; ++c)
       hp_tma_4d(Qs + c * FT_BM * 128, &mq, q_full, c * 64, kvh * G, r0 / G, b);
-    for (int j = 0; j < nt; ++j) {
-      const int s = j % FT_STAGES;
-      if (j >= FT_STAGES) hp_bar_wait(&empty[s], ((j / FT_STAGES) - 1) & 1);
+    for (int j = j0; j < nt; ++j) {
+      const int s = (j - j0) % FT_STAGES;
+      if (j - j0 >= FT_STAGES)
+        hp_bar_wait(&empty[s], (((j - j0) / FT_STAGES) - 1) & 1);
       uint8_t* Kt = KVs + s * 2 * S::KV_BYTES;
       uint8_t* Vt = Kt + S::KV_BYTES;
       hp_bar_expect_tx(&full[s], 2 * S::KV_BYTES);
@@ -512,15 +528,16 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap mq,
     const int rl = wg * 64 + warp * 16 + lane / 4;    // rows rl and rl + 8
     const int tok[2] = {(r0 + rl) / G, (r0 + rl + 8) / G};
     const int tok_lo = (r0 + wg * 64) / G;            // this warpgroup's first
+    const int tok_hi = (r0 + wg * 64 + 63) / G;       // and last token
     const float sl2 = a.scale * 1.4426950408889634f;  // scale * log2(e)
     float o[NO];
 #pragma unroll
     for (int i = 0; i < NO; ++i) o[i] = 0.0f;
     float mrow[2] = {ATT_NEG, ATT_NEG}, lrow[2] = {0.0f, 0.0f};
     hp_bar_wait(q_full, 0);
-    for (int j = 0; j < nt; ++j) {
-      const int s = j % FT_STAGES;
-      hp_bar_wait(&full[s], (j / FT_STAGES) & 1);
+    for (int j = j0; j < nt; ++j) {
+      const int s = (j - j0) % FT_STAGES;
+      hp_bar_wait(&full[s], ((j - j0) / FT_STAGES) & 1);
       const uint8_t* Kt = KVs + s * 2 * S::KV_BYTES;
       const uint8_t* Vt = Kt + S::KV_BYTES;
 
@@ -541,17 +558,20 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap mq,
       hp_wgmma_wait<0>();
       hp_fence_regs(sc);
 
-      // mask (only where the tile crosses the diagonal or the end of the
-      // keys), then the online softmax in base 2 of the scores scaled by
-      // scale * log2(e)
+      // mask (only where the tile crosses the diagonal, the end of the
+      // keys or the window's lower edge), then the online softmax in base 2
+      // of the scores scaled by scale * log2(e)
       const bool edge = (j + 1) * FT_BK > a.Sk ||
-                        (a.causal && (j + 1) * FT_BK - 1 > tok_lo);
+                        (a.causal && (j + 1) * FT_BK - 1 > tok_lo) ||
+                        (a.window > 0 && j * FT_BK <= tok_hi - a.window);
       if (edge) {
 #pragma unroll
         for (int i = 0; i < NSC; ++i) {
           const int h = (i / 2) % 2;
           const int key = j * FT_BK + 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
-          if (key >= a.Sk || (a.causal && key > tok[h])) sc[i] = ATT_NEG;
+          if (key >= a.Sk || (a.causal && key > tok[h]) ||
+              (a.window > 0 && key <= tok[h] - a.window))
+            sc[i] = ATT_NEG;
         }
       }
       float mx[2] = {ATT_NEG, ATT_NEG};
@@ -566,10 +586,14 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap mq,
         alpha[h] = exp2f(mrow[h] - m_new);
         mrow[h] = m_new;
       }
+      // a masked score gives p = 0 exactly: in a row that has met no key
+      // yet (a window's first tiles), mrow is the masked score's own scaled
+      // value, and the fmaf's residual would give exp2f of +-2^72
 #pragma unroll
       for (int i = 0; i < NSC; ++i) {
         const int h = (i / 2) % 2;
-        sc[i] = exp2f(fmaf(sc[i], sl2, -mrow[h]));
+        const float e = exp2f(fmaf(sc[i], sl2, -mrow[h]));
+        sc[i] = (edge && sc[i] == ATT_NEG) ? 0.0f : e;
         rs[h] += sc[i];
       }
 #pragma unroll
@@ -661,7 +685,8 @@ static int fa_tc_map(CUtensorMap* m, const void* base, int B, int S, int heads,
 }
 
 // bfloat16 q, k, v and out; strides in elements, every one a multiple of 8
-// and every base 16-byte aligned; dh a multiple of 8 up to 256; 128 % G == 0.
+// and every base 16-byte aligned; dh a multiple of 8 up to 256; 128 % G == 0;
+// round_p 0 or not (1 and 2 alike: v is bfloat16); window as fa_launch's.
 // Returns cudaGetLastError() after the launch (0 = launched), or the error
 // of a refused grant or tensor-map encoding.
 extern "C" int fa_tc_launch(const void* q, const void* k, const void* v, void* o,
@@ -669,9 +694,11 @@ extern "C" int fa_tc_launch(const void* q, const void* k, const void* v, void* o
                             long long qsb, long long qss, long long qsh,
                             long long ksb, long long kss, long long ksh,
                             long long vsb, long long vss, long long vsh,
-                            float scale, int causal, int round_p, void* stream) {
+                            float scale, int causal, int round_p, int window,
+                            void* stream) {
   if (B == 0 || Sq == 0) return 0;
-  if (Sk < 1 || KV < 1 || H % KV != 0 || dh < 8 || dh % 8 != 0 || dh > 256)
+  if (Sk < 1 || KV < 1 || H % KV != 0 || dh < 8 || dh % 8 != 0 || dh > 256 ||
+      window < 0 || (window > 0 && !causal))
     return (int)cudaErrorInvalidValue;
   const int G = H / KV;
   if (FT_BM % G != 0) return (int)cudaErrorInvalidValue;
@@ -680,7 +707,7 @@ extern "C" int fa_tc_launch(const void* q, const void* k, const void* v, void* o
   if ((e = fa_tc_map(&mq, q, B, Sq, H, dh, qsb, qss, qsh, G, FT_BM / G))) return e;
   if ((e = fa_tc_map(&mk, k, B, Sk, KV, dh, ksb, kss, ksh, 1, FT_BK))) return e;
   if ((e = fa_tc_map(&mv, v, B, Sk, KV, dh, vsb, vss, vsh, 1, FT_BK))) return e;
-  FtArgs a{(__nv_bfloat16*)o, B, Sq, Sk, H, KV, dh, scale, causal};
+  FtArgs a{(__nv_bfloat16*)o, B, Sq, Sk, H, KV, dh, scale, causal, window};
   cudaStream_t s = (cudaStream_t)stream;
   if (dh <= 64)
     return round_p ? fa_tc_run<64, 1>(a, mq, mk, mv, s) : fa_tc_run<64, 0>(a, mq, mk, mv, s);

@@ -17,8 +17,12 @@ the output columns over blocks.
 count the two kernels' launches.
 
 ``round_p`` (default True, what the TPU kernel does) rounds the
-probabilities to v's dtype before P·V; False keeps them in fp32, as the
-model's own attention does.  The CUDA-core kernel scales q in fp32 before
+probabilities to v's dtype before P·V; ``torch.bfloat16`` rounds them to
+bfloat16 whatever v's dtype (the model's ``probs_bf16`` at float32); False
+keeps them in fp32, as the model's own attention does.  ``window`` > 0
+(causal only) masks the keys at or below ``qpos - window`` too, a sliding
+window; both kernels skip the key tiles wholly below it.  The CUDA-core
+kernel scales q in fp32 before
 the product, the model's order; the tensor-core kernel multiplies the
 unscaled bf16 q and scales the fp32 scores, which differs by fp32 rounding
 only, and keeps an fp32 p as three bf16 terms (hi + mid + lo: all 24 bits).
@@ -86,10 +90,10 @@ def plan_flash_simt(B: int, Sq: int, H: int, KV: int, dh: int) -> FlashSimtPlan:
 def _declare(lib: ctypes.CDLL) -> None:
     vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.fa_launch.argtypes = ([vp] * 4 + [ci] * 6 + [cl] * 9 + [ctypes.c_float]
-                              + [ci] * 4 + [vp])
+                              + [ci] * 5 + [vp])
     lib.fa_launch.restype = ci
     lib.fa_tc_launch.argtypes = ([vp] * 4 + [ci] * 6 + [cl] * 9
-                                 + [ctypes.c_float] + [ci] * 2 + [vp])
+                                 + [ctypes.c_float] + [ci] * 3 + [vp])
     lib.fa_tc_launch.restype = ci
 
 
@@ -128,13 +132,27 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("flash_attention: no keys")
 
 
+def _round_mode(round_p: bool | torch.dtype) -> int:
+    """The kernels' ``round_p``: 0 fp32 p, 1 v's dtype, 2 bfloat16."""
+    if round_p is True or round_p is False:
+        return int(round_p)
+    if round_p == torch.bfloat16:
+        return 2
+    raise ValueError(f"flash_attention: round_p={round_p!r} (a bool or "
+                     "torch.bfloat16)")
+
+
 def flash_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True,
-                          round_p: bool = True) -> torch.Tensor:
+                          *, causal: bool = True, window: int = 0,
+                          round_p: bool | torch.dtype = True) -> torch.Tensor:
     """Fused attention → (B, Sq, H, dh) in q's dtype."""
     _check(q, k, v)
+    mode = _round_mode(round_p)
+    if window < 0 or (window and not causal):
+        raise ValueError(f"flash_attention: window={window} (>= 0, causal only)")
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, round_p=round_p)
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   round_p=round_p)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     if k.device != q.device or v.device != q.device:
@@ -157,7 +175,7 @@ def flash_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                out.data_ptr(), B, Sq, Sk, H, KV, dh,
                                *q.stride()[:3], *k.stride()[:3],
                                *v.stride()[:3], dh ** -0.5, int(causal),
-                               int(round_p), stream)
+                               mode, window, stream)
         check_launch("flash_attention_wgmma", err)
         return out
     words = 16 // q.element_size()
@@ -165,7 +183,7 @@ def flash_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               for t in (k, v)) and dh % words == 0
     err = lib.fa_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                         B, Sq, Sk, H, KV, dh, *q.stride()[:3], *k.stride()[:3],
-                        *v.stride()[:3], dh ** -0.5, int(causal), int(round_p),
-                        int(vec), _DTYPE[q.dtype], stream)
+                        *v.stride()[:3], dh ** -0.5, int(causal), mode,
+                        int(vec), _DTYPE[q.dtype], window, stream)
     check_launch("flash_attention", err)
     return out

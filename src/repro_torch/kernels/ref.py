@@ -11,7 +11,9 @@ block-sparse product (:mod:`repro_torch.kernels.spmv`),
 (:mod:`repro_torch.kernels.gemv`), and :func:`flash_attention_ref` and
 :func:`decode_attention_ref` for the attention kernels
 (:mod:`repro_torch.kernels.flash_attention`,
-:mod:`repro_torch.kernels.decode_attention`).
+:mod:`repro_torch.kernels.decode_attention`), and :func:`mamba2_ssd_ref`,
+the sequential oracle of the chunked SSD scan (PyTorch ops in the port, as
+in the reference: no TPU kernel computes it).
 
 Float reductions (matvec rows, squared distances, sums, dots) accumulate in
 index order, one rounded multiply and one rounded add per term — the order
@@ -28,7 +30,7 @@ import numpy as np
 import torch
 
 __all__ = ["spmv_ref", "gemv_ref", "matmul_ref", "flash_attention_ref",
-           "decode_attention_ref", "apply_stage",
+           "decode_attention_ref", "mamba2_ssd_ref", "apply_stage",
            "apply_stage_q", "linear_chain_ref", "linear_chain_q_ref",
            "run_segment_ref", "run_segment_grid_ref", "float_pe_outputs"]
 
@@ -52,34 +54,41 @@ def matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # q in fp32 before the product (as the model's attention does), keep the
 # scores and the softmax statistics in fp32, and divide by the row sum after
 # P·V.  ``round_p`` rounds the unnormalised probabilities to v's dtype before
-# P·V, as the TPU kernels do; without it p stays fp32, as the model does.
+# P·V, as the TPU kernels do (``torch.bfloat16``: to bfloat16 whatever v's
+# dtype); without it p stays fp32, as the model does.
 _NEG = -1e30
 
 
 def _softmax_pv(s: torch.Tensor, v: torch.Tensor, eq: str,
-                round_p: bool) -> torch.Tensor:
+                round_p: bool | torch.dtype) -> torch.Tensor:
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     l = p.sum(dim=-1, keepdim=True)
-    if round_p:
-        p = p.to(v.dtype).float()
+    if round_p is not False:
+        p = p.to(v.dtype if round_p is True else round_p).float()
     return torch.einsum(eq, p, v.float()) / l
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True,
-                        round_p: bool = False) -> torch.Tensor:
+                        causal: bool = True, window: int = 0,
+                        round_p: bool | torch.dtype = False) -> torch.Tensor:
     """GQA attention, q (B, Sq, H, dh), k and v (B, Sk, KV, dh) → (B, Sq,
     H, dh) in q's dtype; query head h reads KV head h // (H / KV); causal
-    masks ``kpos > qpos`` from the top-left corner."""
+    masks ``kpos > qpos`` from the top-left corner, and a ``window`` > 0
+    also ``kpos <= qpos - window``."""
     B, Sq, H, dh = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
     qg = (q.float() * dh ** -0.5).reshape(B, Sq, KV, G, dh)
     s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float())
-    if causal:
-        qpos = torch.arange(Sq, device=q.device)
-        kpos = torch.arange(Sk, device=q.device)
-        s = s.masked_fill(kpos[None, :] > qpos[:, None], _NEG)
+    if causal or window:
+        qpos = torch.arange(Sq, device=q.device)[:, None]
+        kpos = torch.arange(Sk, device=q.device)[None, :]
+        masked = torch.zeros((Sq, Sk), dtype=torch.bool, device=q.device)
+        if causal:
+            masked |= kpos > qpos
+        if window:
+            masked |= kpos <= qpos - window
+        s = s.masked_fill(masked, _NEG)
     out = _softmax_pv(s, v, "bkgqs,bskd->bkgqd", round_p)   # (B, KV, G, Sq, dh)
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, dh).to(q.dtype)
 
@@ -100,6 +109,30 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = s.masked_fill(~valid[:, None, None, :], _NEG)
     out = _softmax_pv(s, v, "bkgs,bskd->bkgd", round_p)
     return out.reshape(B, H, dh).to(q.dtype)
+
+
+# ----------------------------------------------------------------- mamba2 SSD
+def mamba2_ssd_ref(x: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor,
+                   c: torch.Tensor) -> torch.Tensor:
+    """Sequential state-space recurrence, the oracle of
+    :func:`repro_torch.models.mamba2.ssd_chunked` → (B, S, H, P) in x's
+    dtype.  x (B, S, H, P) are the dt-scaled inputs, a_log (B, S, H) the
+    per-step decay logits (<= 0), b and c (B, S, N) the input and output
+    projections shared across heads; in fp32, one step at a time:
+
+        h_t = exp(a_t) * h_{t-1} + b_t ⊗ x_t        h ∈ (N, P) per head
+        y_t = c_t @ h_t
+    """
+    Bsz, S, H, P = x.shape
+    N = b.shape[-1]
+    xf, af, bf, cf = x.float(), a_log.float(), b.float(), c.float()
+    h = torch.zeros((Bsz, H, N, P), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        h = (torch.exp(af[:, t])[:, :, None, None] * h
+             + bf[:, t, None, :, None] * xf[:, t, :, None, :])
+        ys.append(torch.einsum("bn,bhnp->bhp", cf[:, t], h))
+    return torch.stack(ys, dim=1).to(x.dtype)
 
 
 # ------------------------------------------------------------- linear pipeline

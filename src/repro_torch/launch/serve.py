@@ -3,8 +3,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
         [--smoke] [--layers N] [--requests 6] [--max-new 12] [--device cpu]
 
-``--arch`` is any ported architecture: qwen2.5-3b, granite-8b,
-codeqwen1.5-7b, olmoe-1b-7b or deepseek-v2-236b.  The weights are random,
+``--arch`` is any of the reference's ten architectures: qwen2.5-3b,
+granite-8b, codeqwen1.5-7b, command-r-35b, musicgen-medium, internvl2-26b
+(served from its tokens: no vision prefix), olmoe-1b-7b, deepseek-v2-236b,
+mamba2-1.3b or zamba2-7b.  The weights are random,
 made on the device from ``--seed``.  ``--layers`` cuts the depth and keeps
 every width (deepseek-v2-236b's 60 layers do not fit on one card: ``--layers
 2``); the cut is printed.  Without ``--device`` the engine runs on the card

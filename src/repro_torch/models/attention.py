@@ -13,8 +13,11 @@ kernels: ``gqa_prefill`` calls
 ``gqa_decode`` calls :func:`repro_torch.kernels.decode_attention.
 decode_attention`; on CPU tensors those run their plain versions.  Both keep
 p in fp32 unless ``probs_bf16`` asks for the rounding, so they compute the
-reference model's function.  ``gqa_prefill(..., plain=True)`` runs the flash
-kernel's plain version on any device instead (a comparison, never the
+reference model's function.  ``probs_bf16`` rounds p and v to bfloat16 for
+the P·V product with an fp32 result, as the reference does: v is rounded
+before the kernel (exact in float32) and the kernel rounds p
+(``round_p=torch.bfloat16``).  ``gqa_prefill(..., plain=True)`` runs the
+flash kernel's plain version on any device instead (a comparison, never the
 served path).
 
 ``mla_prefill`` materialises per-head keys of width ``dn + dr`` (the
@@ -28,8 +31,14 @@ kernel there): one latent "head" of width ``r + dr`` shared by every query
 head, values of width ``r``.  ``rms_norm`` of the latents uses its default
 eps, as the reference's does.
 
-Sliding windows and ring-buffer caches (``window``, ``write_pos``,
-``valid_len``) belong to the hybrid family and raise.
+Sliding windows (zamba2's shared block at long context): ``gqa_prefill``
+passes ``window`` to the flash kernel, and ``gqa_decode`` takes a
+ring-buffer cache of width W through ``write_pos = pos % W`` (the slot
+written) and ``valid_len = min(pos + 1, W)`` (the slots attended, the
+kernel's ``cache_len``): a ring fills from slot 0 and RoPE was applied at
+the absolute position, so slot order does not matter.  A window on a
+full-length decode cache raises: no config or cell reaches it (ROADMAP.md,
+Queue A item 8.9).
 """
 
 from __future__ import annotations
@@ -48,8 +57,6 @@ __all__ = ["init_gqa", "gqa_prefill", "gqa_decode", "init_mla", "mla_prefill",
            "mla_decode", "flash_attention", "plain_attention"]
 
 _NEG = -1e30
-_HYBRID_ONLY = ("is not ported: sliding windows and ring-buffer caches belong "
-                "to the hybrid family (ROADMAP.md, Queue A item 8)")
 
 
 # ----------------------------------------------------------- core attention
@@ -166,21 +173,27 @@ def gqa_prefill(p: Mapping[str, torch.Tensor], x: torch.Tensor,
                 cos: torch.Tensor, sin: torch.Tensor, *, window: int = 0,
                 probs_bf16: bool = False, plain: bool = False
                 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
-    """Full-sequence causal attention; returns (out, (k, v)) for the cache.
-    The reference's ``kv_chunk`` (the chunk of its jnp loop) has no
-    counterpart: the kernel has its own tiles."""
-    if window:
-        raise NotImplementedError(f"gqa_prefill: window={window} {_HYBRID_ONLY}")
-    if probs_bf16 and x.dtype != torch.bfloat16:
-        raise NotImplementedError(
-            "gqa_prefill: probs_bf16 with float32 activations (the reference "
-            "also rounds v to bfloat16) is not ported")
+    """Full-sequence causal attention, with a sliding ``window`` > 0;
+    returns (out, (k, v)) for the cache.  The reference's ``kv_chunk`` (the
+    chunk of its jnp loop) has no counterpart: the kernel has its own
+    tiles."""
     q, k, v = _qkv(p, x)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     attend = flash_attention_ref if plain else flash_attention_fused
-    out = attend(q, k, v, causal=True, round_p=probs_bf16)
+    out = attend(q, k, _bf16_v(v, probs_bf16), causal=True, window=window,
+                 round_p=_p_rounding(probs_bf16))
     return _out(p, out, x.dtype), (k, v)
+
+
+def _bf16_v(v: torch.Tensor, probs_bf16: bool) -> torch.Tensor:
+    """v as the P·V product of ``probs_bf16`` reads it: rounded to
+    bfloat16 (and held in v's dtype, exactly)."""
+    return v.to(torch.bfloat16).to(v.dtype) if probs_bf16 else v
+
+
+def _p_rounding(probs_bf16: bool) -> bool | torch.dtype:
+    return torch.bfloat16 if probs_bf16 else False
 
 
 def gqa_decode(p: Mapping[str, torch.Tensor], x: torch.Tensor,
@@ -189,24 +202,33 @@ def gqa_decode(p: Mapping[str, torch.Tensor], x: torch.Tensor,
                write_pos: torch.Tensor | None = None,
                valid_len: torch.Tensor | None = None, cache_len=None
                ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
-    """Single-token decode against a full-length cache; returns (out,
-    caches).  The new K/V row of each sequence is written in place at
-    ``pos`` (B,) (what the reference's one-hot rewrite computes), then the
-    first ``cache_len = pos + 1`` positions are attended.  ``cache_len`` may
-    be passed on the host, where the kernel's wrapper checks it without a
-    synchronisation."""
-    if window or write_pos is not None or valid_len is not None:
-        raise NotImplementedError(f"gqa_decode: window/ring cache {_HYBRID_ONLY}")
+    """Single-token decode against the cache; returns (out, caches).  The
+    new K/V row of each sequence is written in place at ``write_pos`` (B,)
+    (default ``pos``: what the reference's one-hot rewrite computes), then
+    the first ``cache_len`` positions are attended: ``valid_len`` for a
+    ring-buffer cache of width W (``write_pos = pos % W``, ``valid_len =
+    min(pos + 1, W)``), else ``pos + 1``.  ``cache_len`` may be passed on
+    the host, where the kernel's wrapper checks it without a
+    synchronisation.  A ``window`` against a full-length cache (no
+    ``valid_len``) raises."""
+    if window and valid_len is None:
+        raise NotImplementedError(
+            f"gqa_decode: window={window} on a full-length cache is not "
+            "ported (ROADMAP.md, Queue A item 8.9): a windowed cache is a "
+            "ring (write_pos, valid_len)")
     B = x.shape[0]
     q, k, v = _qkv(p, x)                       # (B, 1, H/KV, dh)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     rows = torch.arange(B, device=x.device)
-    idx = pos.to(device=x.device, dtype=torch.long)
+    idx = (pos if write_pos is None else write_pos).to(device=x.device,
+                                                        dtype=torch.long)
     k_cache[rows, idx] = k[:, 0]
     v_cache[rows, idx] = v[:, 0]
-    if cache_len is None:
-        cache_len = idx + 1
+    if valid_len is not None:
+        cache_len = valid_len
+    elif cache_len is None:
+        cache_len = pos.to(device=x.device, dtype=torch.long) + 1
     ctx = decode_attention(q[:, 0], k_cache, v_cache, cache_len, round_p=False)
     return _out(p, ctx[:, None], x.dtype), (k_cache, v_cache)
 
@@ -262,10 +284,6 @@ def mla_prefill(p: Mapping[str, torch.Tensor], x: torch.Tensor,
                 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """Materialised-KV MLA for prefill; returns (out, (c_kv, k_rope)), the
     latent caches only.  ``plain`` runs the flash kernel's plain version."""
-    if probs_bf16 and x.dtype != torch.bfloat16:
-        raise NotImplementedError(
-            "mla_prefill: probs_bf16 with float32 activations (the reference "
-            "also rounds v to bfloat16) is not ported")
     dt = x.dtype
     B, S, _ = x.shape
     q_nope, q_rope = _mla_q(p, x)
@@ -278,9 +296,10 @@ def mla_prefill(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     H = k_nope.shape[2]
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, dr)], dim=-1)
-    v = torch.nn.functional.pad(v, (0, dr))          # zero columns dn..dn+dr
+    v = torch.nn.functional.pad(_bf16_v(v, probs_bf16), (0, dr))  # zeros dn..
     attend = flash_attention_ref if plain else flash_attention_fused
-    out = attend(q, k, v, causal=True, round_p=probs_bf16)[..., :dn]
+    out = attend(q, k, v, causal=True,
+                 round_p=_p_rounding(probs_bf16))[..., :dn]
     return _out(p, out, dt), (c_kv, k_rope)
 
 

@@ -1,22 +1,34 @@
 """The LM of the JAX package's ``models/transformer.py``, in PyTorch.
 
 :class:`ModelConfig` keeps the reference's fields (``adt``/``pdt`` are torch
-dtypes here).  :class:`Transformer` covers the reference's attention
-families: ``dense`` (a pre-norm GQA transformer: qwen2.5, granite, codeqwen,
-...) and ``moe`` (GQA or MLA attention with top-k routed experts: olmoe,
-deepseek-v2), with an ``nn.ModuleList`` of blocks and two entry points,
+dtypes here).  :class:`Transformer` covers the reference's four families
+with an ``nn.ModuleList`` of blocks: ``dense`` (a pre-norm GQA transformer:
+qwen2.5, granite, codeqwen, command-r, musicgen's and internvl2's
+backbones), ``moe`` (GQA or MLA attention with top-k routed experts: olmoe,
+deepseek-v2), ``ssm`` (an attention-free Mamba2 stack: mamba2) and
+``hybrid`` (a Mamba2 backbone with one *shared* attention block at 2 ×
+d_model over concat(hidden, initial embedding), applied after every
+``hybrid_attn_every − 1`` Mamba2 layers: zamba2).  Two entry points:
 
-* :meth:`Transformer.forward_full` — teacher-forced full-sequence forward;
+* :meth:`Transformer.forward_full` — teacher-forced full-sequence forward,
+  after an optional prefix of embeddings (internvl2's vision patches);
   with ``return_cache`` it also returns the serving caches (prefill), and
   the summed router aux loss of the MoE layers,
 * :meth:`Transformer.forward_decode` — one new token per sequence against
-  the caches of :func:`init_cache` (``k``/``v``, or MLA's latent ``ckv``/
-  ``kr``), updated in place.
+  the caches of :func:`init_cache` (``k``/``v``, MLA's latent ``ckv``/
+  ``kr``, or the Mamba2 layers' state ``h`` and conv states ``conv_x``/
+  ``conv_b``/``conv_c`` beside the shared block's ``k``/``v``), updated in
+  place.
 
 Prefill attention runs on the flash-attention kernel and GQA decode
 attention on the decode-attention kernel (:mod:`repro_torch.models.
 attention`; MLA decode is the reference's plain absorbed form).  The MoE
-FFN is :mod:`repro_torch.models.moe`.  Matmul weights, the embedding, the
+FFN is :mod:`repro_torch.models.moe`, the Mamba2 block
+:mod:`repro_torch.models.mamba2` (PyTorch ops: the reference has no kernel
+there).  The hybrid's shared cache is a ring of width ``min(max_len,
+attn_window)`` when the config has a window (``long_500k``), written at
+``pos % W``; its Mamba2 state caches are indexed in the reference's order,
+group g's ``hybrid_attn_every − 1`` layers, then the tail.  Matmul weights, the embedding, the
 biases and the head are held in the activation dtype (the reference casts
 them on every einsum, which gives the same values); the norm weights keep
 the parameter dtype, and so do MLA's ``w_uv`` and ``wo``, which the
@@ -28,9 +40,8 @@ TF32 off: float32 products run in full float32.
 :func:`init_params` makes random weights with the reference's he-scaled
 normal distribution directly on the device (not the JAX values: the two
 generators differ); :func:`params_from_reference` carries a JAX parameter
-tree across.  The SSM and hybrid families and prefix embeddings are not
-ported (ROADMAP.md, Queue A item 8).  There is no ``shard_act`` (the
-identity outside a mesh) and no remat (a training option).
+tree across.  There is no ``shard_act`` (the identity outside a mesh) and
+no remat (a training option).
 """
 
 from __future__ import annotations
@@ -48,6 +59,7 @@ from repro_torch.models.attention import (gqa_decode, gqa_prefill, init_gqa,
 from repro_torch.models.layers import (dot_f32, he_init, init_mlp, mlp_swiglu,
                                        normal_init, pad_vocab, rms_norm,
                                        rope_freqs, rope_table)
+from repro_torch.models.mamba2 import init_mamba2, mamba2_decode, mamba2_prefill
 from repro_torch.models.moe import init_moe, moe_ffn
 
 __all__ = ["ModelConfig", "Transformer", "init_params", "init_cache",
@@ -55,7 +67,8 @@ __all__ = ["ModelConfig", "Transformer", "init_params", "init_cache",
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
-_NOT_PORTED = "is not ported yet (ROADMAP.md, Queue A item 8)"
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
+SSM_KEYS = ("h", "conv_x", "conv_b", "conv_c")    # a Mamba2 layer's caches
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,13 +183,18 @@ class ModelConfig:
         return self.n_kv_heads
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(f"the {cfg.family!r} family {_NOT_PORTED}")
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}")
 
 
 def _cache_keys(cfg: ModelConfig) -> tuple[str, str]:
     return ("ckv", "kr") if cfg.use_mla else ("k", "v")
+
+
+def _shared_dh(cfg: ModelConfig) -> int:
+    """The hybrid shared block's head width: 2 · d_model / n_heads."""
+    return 2 * cfg.d_model // cfg.n_heads
 
 
 def _rope_dim(cfg: ModelConfig) -> int:
@@ -195,6 +213,8 @@ class Block(nn.Module):
     residual.  ``attn`` holds GQA's or MLA's leaves, and ``mlp`` (dense) or
     ``moe`` (with ``shared``, deepseek's shared experts, beside it) the
     FFN's, under the reference's leaf names."""
+
+    NORMS = ("norm1", "norm2")
 
     def __init__(self, cfg: ModelConfig, device: torch.device) -> None:
         super().__init__()
@@ -218,14 +238,7 @@ class Block(nn.Module):
             attn.update(w_uq=_param((q_in, H, dh), mdt, device),
                         w_qr=_param((q_in, H, dr), mdt, device))
         else:
-            attn = {"wq": _param((D, H, dh), mdt, device),
-                    "wk": _param((D, KV, dh), mdt, device),
-                    "wv": _param((D, KV, dh), mdt, device),
-                    "wo": _param((H, dh, D), mdt, device)}
-            if cfg.qkv_bias:
-                attn.update(bq=_param((H, dh), mdt, device),
-                            bk=_param((KV, dh), mdt, device),
-                            bv=_param((KV, dh), mdt, device))
+            attn = _gqa_params(D, H, KV, dh, cfg.qkv_bias, mdt, device)
         self.attn = nn.ParameterDict(attn)
         if cfg.family == "moe":
             E, Fe = cfg.n_experts, cfg.d_ff_expert
@@ -293,14 +306,111 @@ class Block(nn.Module):
         return x + f
 
 
+def _gqa_params(D: int, H: int, KV: int, dh: int, bias: bool, mdt: torch.dtype,
+                device: torch.device) -> dict[str, nn.Parameter]:
+    out = {"wq": _param((D, H, dh), mdt, device),
+           "wk": _param((D, KV, dh), mdt, device),
+           "wv": _param((D, KV, dh), mdt, device),
+           "wo": _param((H, dh, D), mdt, device)}
+    if bias:
+        out.update(bq=_param((H, dh), mdt, device),
+                   bk=_param((KV, dh), mdt, device),
+                   bv=_param((KV, dh), mdt, device))
+    return out
+
+
+class MambaBlock(nn.Module):
+    """One Mamba2 layer: RMSNorm → Mamba2 → residual.  ``ssm`` holds the
+    reference's leaves: the projections, conv taps and biases and
+    ``out_proj`` in the activation dtype (the reference casts them on every
+    use), the gate ``norm`` in the parameter dtype, ``A_log``, ``D`` and
+    ``dt_bias`` in float32."""
+
+    NORMS = ("norm1",)
+
+    def __init__(self, cfg: ModelConfig, device: torch.device) -> None:
+        super().__init__()
+        D, E, N, W = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+        H, mdt, f32 = cfg.ssm_heads, cfg.adt, torch.float32
+        self.norm1 = _param((D,), cfg.pdt, device)
+        shapes = {"w_z": ((D, E), mdt), "w_x": ((D, E), mdt),
+                  "w_b": ((D, N), mdt), "w_c": ((D, N), mdt),
+                  "w_dt": ((D, H), mdt),
+                  "conv_x_w": ((W, E), mdt), "conv_x_b": ((E,), mdt),
+                  "conv_b_w": ((W, N), mdt), "conv_b_b": ((N,), mdt),
+                  "conv_c_w": ((W, N), mdt), "conv_c_b": ((N,), mdt),
+                  "A_log": ((H,), f32), "D": ((H,), f32),
+                  "dt_bias": ((H,), f32), "norm": ((E,), cfg.pdt),
+                  "out_proj": ((E, D), mdt)}
+        self.ssm = nn.ParameterDict({k: _param(shape, dt, device)
+                                     for k, (shape, dt) in shapes.items()})
+
+    def groups(self) -> dict[str, nn.ParameterDict]:
+        return {"ssm": self.ssm}
+
+    def full(self, cfg: ModelConfig, x: torch.Tensor):
+        y, state = mamba2_prefill(self.ssm, rms_norm(x, self.norm1, cfg.norm_eps),
+                                  chunk=cfg.ssm_chunk)
+        return x + y, state
+
+    def decode(self, cfg: ModelConfig, x: torch.Tensor,
+               state: tuple[torch.Tensor, ...]) -> torch.Tensor:
+        y, _ = mamba2_decode(self.ssm, rms_norm(x, self.norm1, cfg.norm_eps),
+                             state)
+        return x + y
+
+
+class SharedAttn(nn.Module):
+    """zamba2's shared block at 2 · d_model over concat(hidden, initial
+    embedding): RMSNorm → GQA (``n_heads`` / ``n_kv_heads`` heads of
+    2 · d_model / ``n_heads``) → residual → RMSNorm → SwiGLU MLP →
+    residual → the ``out`` projection back to d_model, added to the
+    hidden state.  One set of weights serves every application."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device) -> None:
+        super().__init__()
+        d2, mdt = 2 * cfg.d_model, cfg.adt
+        self.norm1 = _param((d2,), cfg.pdt, device)
+        self.norm2 = _param((d2,), cfg.pdt, device)
+        self.attn = nn.ParameterDict(_gqa_params(
+            d2, cfg.n_heads, cfg.n_kv_heads, _shared_dh(cfg), False, mdt, device))
+        self.mlp = nn.ParameterDict({"w_gate": _param((d2, cfg.d_ff), mdt, device),
+                                     "w_up": _param((d2, cfg.d_ff), mdt, device),
+                                     "w_down": _param((cfg.d_ff, d2), mdt, device)})
+        self.out = _param((d2, cfg.d_model), mdt, device)
+
+    def _tail(self, cfg: ModelConfig, x: torch.Tensor, z: torch.Tensor,
+              a: torch.Tensor) -> torch.Tensor:
+        z = z + a
+        z = z + mlp_swiglu(self.mlp, rms_norm(z, self.norm2, cfg.norm_eps))
+        return x + dot_f32(z, self.out.to(z.dtype)).to(z.dtype)
+
+    def full(self, cfg: ModelConfig, x: torch.Tensor, emb0: torch.Tensor,
+             cos: torch.Tensor, sin: torch.Tensor, window: int, plain: bool):
+        z = torch.cat([x, emb0], dim=-1)
+        a, cache = gqa_prefill(self.attn, rms_norm(z, self.norm1, cfg.norm_eps),
+                               cos, sin, window=window, plain=plain)
+        return self._tail(cfg, x, z, a), cache
+
+    def decode(self, cfg: ModelConfig, x: torch.Tensor, emb0: torch.Tensor,
+               kc: torch.Tensor, vc: torch.Tensor, pos: torch.Tensor,
+               write_pos: torch.Tensor, valid_len: torch.Tensor,
+               cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+        z = torch.cat([x, emb0], dim=-1)
+        a, _ = gqa_decode(self.attn, rms_norm(z, self.norm1, cfg.norm_eps),
+                          kc, vc, pos, cos, sin, write_pos=write_pos,
+                          valid_len=valid_len)
+        return self._tail(cfg, x, z, a)
+
+
 class Transformer(nn.Module):
-    """The dense LM; its parameters are allocated, not initialised (see
-    :func:`init_params` and :func:`params_from_reference`)."""
+    """The LM of any family; its parameters are allocated, not initialised
+    (see :func:`init_params` and :func:`params_from_reference`)."""
 
     def __init__(self, cfg: ModelConfig,
                  device: torch.device | str | None = None) -> None:
         super().__init__()
-        _check_ported(cfg)
+        _check_family(cfg)
         dev = resolve_device(device)
         if dev.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -311,7 +421,14 @@ class Transformer(nn.Module):
         self.embed = _param((Vp, D), cfg.adt, dev)
         self.final_norm = _param((D,), cfg.pdt, dev)
         self.lm_head = _param((D, Vp), cfg.adt, dev)
-        self.blocks = nn.ModuleList(Block(cfg, dev) for _ in range(cfg.n_layers))
+        if cfg.family in ("dense", "moe"):
+            self.blocks = nn.ModuleList(Block(cfg, dev)
+                                        for _ in range(cfg.n_layers))
+        else:
+            self.blocks = nn.ModuleList(MambaBlock(cfg, dev)
+                                        for _ in range(cfg.n_mamba_layers))
+        if cfg.family == "hybrid":
+            self.shared_attn = SharedAttn(cfg, dev)
 
     def _tokens(self, tokens: Any) -> torch.Tensor:
         t = tokens if torch.is_tensor(tokens) else torch.as_tensor(np.asarray(tokens))
@@ -322,36 +439,95 @@ class Transformer(nn.Module):
         return dot_f32(x, self.lm_head)
 
     @torch.no_grad()
-    def forward_full(self, tokens: Any, *, prefix_embeds: Any = None,
+    def forward_full(self, tokens: Any, *,
+                     prefix_embeds: torch.Tensor | None = None,
                      window: int | None = None, return_cache: bool = False,
                      plain_attention: bool = False
                      ) -> tuple[torch.Tensor, dict | None, torch.Tensor]:
-        """Teacher-forced forward of ``tokens`` (B, S).  Returns (logits
-        (B, S, Vp) fp32, caches {"k", "v"} of (L, B, S, KV, dh) — under MLA
-        {"ckv", "kr"} of (L, B, S, r) and (L, B, S, dr) — or None, aux: the
-        MoE layers' summed router loss, a float32 scalar, 0 for dense).
-        ``plain_attention`` runs the attention kernels' plain versions
-        instead of the kernels (a comparison)."""
-        if prefix_embeds is not None:
-            raise NotImplementedError(f"prefix embeddings {_NOT_PORTED}")
+        """Teacher-forced forward of ``tokens`` (B, S), after
+        ``prefix_embeds`` (B, Np, D) where given (cast to the activation
+        dtype and put before the tokens' embeddings, so positions count from
+        the prefix).  Returns (logits (B, Np + S, Vp) fp32, the caches or
+        None, aux: the MoE layers' summed router loss, a float32 scalar, 0
+        for the other families).  Caches: {"k", "v"} of (L, B, S, KV, dh);
+        under MLA {"ckv", "kr"} of (L, B, S, r) and (L, B, S, dr); for the
+        Mamba2 layers {"h", "conv_x", "conv_b", "conv_c"} of (M, B, H, N, P)
+        float32 and (M, B, W − 1, C), and the hybrid's shared block {"k",
+        "v"} of (G, B, S, KV, dh).  ``window`` (None: the config's) is the
+        attention's sliding window.  ``plain_attention`` runs the attention
+        kernels' plain versions instead of the kernels (a comparison)."""
         cfg = self.cfg
         window = cfg.attn_window if window is None else window
         x = self.embed[self._tokens(tokens)]
-        S = x.shape[1]
-        cos, sin = rope_table(S, _rope_dim(cfg), cfg.rope_theta,
-                              device=self.device)
-        c0s, c1s = [], []
+        if prefix_embeds is not None:
+            x = torch.cat([prefix_embeds.to(device=self.device, dtype=cfg.adt),
+                           x], dim=1)
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
-        for blk in self.blocks:
-            x, (c0, c1), a = blk.full(cfg, x, cos, sin, window, plain_attention)
-            if a is not None:
-                aux = aux + a
-            if return_cache:
-                c0s.append(c0)
-                c1s.append(c1)
-        caches = (dict(zip(_cache_keys(cfg), (torch.stack(c0s), torch.stack(c1s))))
-                  if return_cache else None)
+        if cfg.family == "ssm":
+            states = [] if return_cache else None
+            x = self._mamba_full(x, range(len(self.blocks)), states)
+            caches = _stack_states(states) if return_cache else None
+        elif cfg.family == "hybrid":
+            x, caches = self._hybrid_full(x, window, return_cache,
+                                          plain_attention)
+        else:
+            cos, sin = rope_table(x.shape[1], _rope_dim(cfg), cfg.rope_theta,
+                                  device=self.device)
+            c0s, c1s = [], []
+            for blk in self.blocks:
+                x, (c0, c1), a = blk.full(cfg, x, cos, sin, window,
+                                          plain_attention)
+                if a is not None:
+                    aux = aux + a
+                if return_cache:
+                    c0s.append(c0)
+                    c1s.append(c1)
+            caches = (dict(zip(_cache_keys(cfg), (torch.stack(c0s),
+                                                  torch.stack(c1s))))
+                      if return_cache else None)
         return self._logits(x), caches, aux
+
+    def _mamba_full(self, x: torch.Tensor, layers,
+                    states: list | None) -> torch.Tensor:
+        """Mamba2 layers ``layers`` (indices into ``blocks``) over x, their
+        final states appended to ``states`` (None: dropped)."""
+        for i in layers:
+            x, st = self.blocks[i].full(self.cfg, x)
+            if states is not None:
+                states.append(st)
+        return x
+
+    def _hybrid_layout(self) -> list[tuple[int, int]]:
+        """The reference's order of the hybrid's Mamba2 layers: for each
+        group g, (the first layer index, the layer count), then the tail."""
+        cfg = self.cfg
+        k, G = cfg.hybrid_attn_every, cfg.hybrid_groups
+        return ([(g * (k - 1), k - 1) for g in range(G)]
+                + [(G * (k - 1), cfg.hybrid_tail)])
+
+    def _hybrid_full(self, x: torch.Tensor, window: int, return_cache: bool,
+                     plain: bool):
+        cfg = self.cfg
+        emb0 = x
+        cos, sin = rope_table(x.shape[1], _shared_dh(cfg), cfg.rope_theta,
+                              device=self.device)
+        states = [] if return_cache else None
+        kvs = []
+        *groups, (t0, tail) = self._hybrid_layout()
+        for first, n in groups:
+            x = self._mamba_full(x, range(first, first + n), states)
+            x, kv = self.shared_attn.full(cfg, x, emb0, cos, sin, window, plain)
+            if return_cache:
+                kvs.append(kv)
+        x = self._mamba_full(x, range(t0, t0 + tail), states)
+        if not return_cache:
+            return x, None
+        caches = _stack_states(states)
+        kv_shape = (0, x.shape[0], x.shape[1], cfg.n_kv_heads, _shared_dh(cfg))
+        for i, key in enumerate(("k", "v")):
+            caches[key] = (torch.stack([kv[i] for kv in kvs]) if kvs
+                           else x.new_zeros(kv_shape))
+        return x, caches
 
     @torch.no_grad()
     def forward_decode(self, token: Any, caches: dict[str, torch.Tensor],
@@ -360,45 +536,114 @@ class Transformer(nn.Module):
         Returns (logits (B, Vp) fp32, caches), the caches updated in place.
         ``pos`` on the host (a numpy array, as the engine keeps it) is
         checked there and costs no synchronisation; with ``token`` on the
-        host too, both reach the card in one copy, and every layer attends
-        with the one ``cache_len = pos + 1`` made there.  ``pos`` on the card
-        is not read back."""
+        host too, both reach the card in one copy, with what every layer
+        needs made there: ``cache_len = pos + 1``, or for the hybrid's
+        shared cache of width W the ring's slot ``pos % W`` and its valid
+        length ``min(pos + 1, W)``.  ``pos`` on the card is not read back.
+        The ``ssm`` family reads no position (its one copy is the tokens).
+        """
         cfg = self.cfg
-        keys = _cache_keys(cfg)
-        S = caches[keys[0]].shape[2]
-        p = pos if torch.is_tensor(pos) else torch.as_tensor(np.asarray(pos))
         tok = token if torch.is_tensor(token) else torch.as_tensor(np.asarray(token))
-        if p.device.type == "cpu":
-            if bool(((p < 0) | (p >= S)).any()):
-                raise ValueError(f"decode positions {p.tolist()} outside [0, {S})")
+        if cfg.family == "ssm":
+            tok = tok.reshape(-1).long()
             if tok.device.type == "cpu":
-                both = torch.stack([tok.reshape(-1).long(), p.reshape(-1).long()])
-                tok, p = both.to(self.device, non_blocking=True)
-        p = p.to(device=self.device, dtype=torch.int32)
-        cache_len = p + 1
+                tok = tok.to(self.device, non_blocking=True)
+            x = self.embed[self._tokens(tok)[:, None]]        # (B, 1, D)
+            for blk, *st in zip(self.blocks, *(caches[k] for k in SSM_KEYS)):
+                x = blk.decode(cfg, x, tuple(st))
+            return self._logits(x)[:, 0], caches
+        p = pos if torch.is_tensor(pos) else torch.as_tensor(np.asarray(pos))
+        hybrid = cfg.family == "hybrid"
+        keys = ("k", "v") if hybrid else _cache_keys(cfg)
+        S = caches[keys[0]].shape[2]
+        # a full-length cache bounds the positions; a ring wraps
+        limit = S if not (hybrid and cfg.attn_window) else None
+        if p.device.type == "cpu":
+            p = p.reshape(-1).long()
+            if bool((p < 0).any()) or (limit is not None
+                                      and bool((p >= limit).any())):
+                raise ValueError(f"decode positions {p.tolist()} outside "
+                                 f"[0, {limit if limit is not None else 'inf'})")
+            rows = [p] + ([p % S, torch.clamp_max(p + 1, S)] if hybrid else [])
+            if tok.device.type == "cpu":
+                both = torch.stack([tok.reshape(-1).long()] + rows)
+                tok, *rows = both.to(self.device, non_blocking=True)
+            else:
+                rows = list(torch.stack(rows).to(self.device, non_blocking=True))
+        else:
+            p = p.to(device=self.device, dtype=torch.long)
+            rows = [p] + ([p % S, torch.clamp_max(p + 1, S)] if hybrid else [])
+        p = rows[0].to(torch.int32)
         x = self.embed[self._tokens(tok)[:, None]]            # (B, 1, D)
-        ang = p.float()[:, None] * rope_freqs(_rope_dim(cfg), cfg.rope_theta,
+        dim = _shared_dh(cfg) if hybrid else _rope_dim(cfg)
+        ang = p.float()[:, None] * rope_freqs(dim, cfg.rope_theta,
                                               self.device)[None, :]
         cos, sin = torch.cos(ang)[:, None, :], torch.sin(ang)[:, None, :]
-        for blk, c0, c1 in zip(self.blocks, caches[keys[0]], caches[keys[1]]):
-            x = blk.decode(cfg, x, c0, c1, p, cache_len, cos, sin)
+        if hybrid:
+            x = self._hybrid_decode(x, caches, p, rows[1],
+                                    rows[2].to(torch.int32), cos, sin)
+        else:
+            cache_len = p + 1
+            for blk, c0, c1 in zip(self.blocks, caches[keys[0]], caches[keys[1]]):
+                x = blk.decode(cfg, x, c0, c1, p, cache_len, cos, sin)
         return self._logits(x)[:, 0], caches
+
+    def _hybrid_decode(self, x, caches, p, write_pos, valid_len, cos, sin):
+        cfg = self.cfg
+        emb0 = x
+        state = list(zip(*(caches[k] for k in SSM_KEYS)))
+        *groups, (t0, tail) = self._hybrid_layout()
+        for g, (first, n) in enumerate(groups):
+            for i in range(first, first + n):
+                x = self.blocks[i].decode(cfg, x, state[i])
+            x = self.shared_attn.decode(cfg, x, emb0, caches["k"][g],
+                                        caches["v"][g], p, write_pos, valid_len,
+                                        cos, sin)
+        for i in range(t0, t0 + tail):
+            x = self.blocks[i].decode(cfg, x, state[i])
+        return x
+
+
+def _stack_states(states: list) -> dict[str, torch.Tensor]:
+    """Per-layer Mamba2 states (h, conv_x, conv_b, conv_c) → the caches,
+    stacked on a leading layer axis."""
+    return dict(zip(SSM_KEYS, (torch.stack(s) for s in zip(*states))))
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device: torch.device | str | None = None) -> dict[str, torch.Tensor]:
-    """Zeroed serving caches in the activation dtype: {"k", "v"} of (L, B,
-    S, KV, dh), or under MLA the latents {"ckv", "kr"} of (L, B, S, r) and
-    (L, B, S, dr)."""
-    _check_ported(cfg)
-    lead = (cfg.n_layers, batch, max_len)
-    if cfg.use_mla:
-        shapes = (lead + (cfg.kv_lora_rank,), lead + (cfg.d_rope,))
-    else:
-        shapes = (lead + (cfg.n_kv_heads_eff, cfg.d_head),) * 2
+    """Zeroed serving caches: {"k", "v"} of (L, B, S, KV, dh), or under MLA
+    the latents {"ckv", "kr"} of (L, B, S, r) and (L, B, S, dr), in the
+    activation dtype; for the Mamba2 layers (``ssm``, ``hybrid``) the state
+    "h" (M, B, H, N, P) in float32 and the conv states "conv_x", "conv_b",
+    "conv_c" (M, B, W − 1, C) in the activation dtype, and the hybrid's
+    shared {"k", "v"} of (G, B, W, n_kv_heads, 2 · d_model / n_heads), W =
+    min(S, attn_window), or S without a window."""
+    _check_family(cfg)
     dev = resolve_device(device)
-    return {key: torch.zeros(shape, dtype=cfg.adt, device=dev)
-            for key, shape in zip(_cache_keys(cfg), shapes)}
+    adt, B, S = cfg.adt, batch, max_len
+
+    def zeros(shape, dt=adt):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    if cfg.family in ("dense", "moe"):
+        lead = (cfg.n_layers, B, S)
+        if cfg.use_mla:
+            shapes = (lead + (cfg.kv_lora_rank,), lead + (cfg.d_rope,))
+        else:
+            shapes = (lead + (cfg.n_kv_heads_eff, cfg.d_head),) * 2
+        return {key: zeros(shape) for key, shape in zip(_cache_keys(cfg), shapes)}
+    M, W1 = cfg.n_mamba_layers, cfg.ssm_conv - 1
+    out = {"h": zeros((M, B, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim),
+                      torch.float32),
+           "conv_x": zeros((M, B, W1, cfg.d_inner)),
+           "conv_b": zeros((M, B, W1, cfg.ssm_state)),
+           "conv_c": zeros((M, B, W1, cfg.ssm_state))}
+    if cfg.family == "hybrid":
+        win = min(S, cfg.attn_window) if cfg.attn_window else S
+        shape = (cfg.hybrid_groups, B, win, cfg.n_kv_heads, _shared_dh(cfg))
+        out.update(k=zeros(shape), v=zeros(shape))
+    return out
 
 
 # ================================================================ parameters
@@ -409,11 +654,18 @@ def _leaves(model: Transformer) -> dict[str, list[torch.Tensor]]:
         "embed": [model.embed], "final_norm": [model.final_norm],
         "lm_head": [model.lm_head]}
     for blk in model.blocks:
-        for name in ("norm1", "norm2"):
+        for name in blk.NORMS:
             out.setdefault(f"blocks/{name}", []).append(getattr(blk, name))
         for group, params in blk.groups().items():
             for name, t in params.items():
                 out.setdefault(f"blocks/{group}/{name}", []).append(t)
+    if hasattr(model, "shared_attn"):
+        sa = model.shared_attn
+        for name in ("norm1", "norm2", "out"):
+            out[f"shared_attn/{name}"] = [getattr(sa, name)]
+        for group in ("attn", "mlp"):
+            for name, t in getattr(sa, group).items():
+                out[f"shared_attn/{group}/{name}"] = [t]
     return out
 
 
@@ -431,9 +683,10 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     """A :class:`Transformer` with random weights from ``seed``, made on
     ``device`` (None: the card): the reference's distribution (embedding
     N(0, 0.02²), he-scaled normal matrices, unit norms, zero biases, the
-    padded heads' output rows zeroed), drawn in float32 by a
-    ``torch.Generator`` and cast to each tensor's dtype (the MoE router
-    stays float32)."""
+    padded heads' output rows zeroed; Mamba2's N(0, 0.1²) conv taps, A = −1,
+    D = 1), drawn in float32 by a ``torch.Generator`` and cast to each
+    tensor's dtype (the MoE router and Mamba2's ``A_log``, ``D``,
+    ``dt_bias`` stay float32)."""
     model = Transformer(cfg, device)
     gen = torch.Generator(device=model.device).manual_seed(seed)
     D, Vp, F = cfg.d_model, cfg.padded_vocab, cfg.d_ff
@@ -443,8 +696,13 @@ def init_params(cfg: ModelConfig, seed: int = 0,
         model.final_norm.fill_(1.0)
         model.lm_head.copy_(he_init(gen, (D, Vp), D, model.lm_head.dtype))
         for blk in model.blocks:
-            blk.norm1.fill_(1.0)
-            blk.norm2.fill_(1.0)
+            for name in blk.NORMS:
+                getattr(blk, name).fill_(1.0)
+            if isinstance(blk, MambaBlock):
+                _copy_into(blk.ssm, init_mamba2(
+                    gen, D, d_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim,
+                    expand=cfg.ssm_expand, conv_width=cfg.ssm_conv, dtype=adt))
+                continue
             if cfg.use_mla:
                 attn = init_mla(gen, D, cfg.n_heads,
                                 kv_lora_rank=cfg.kv_lora_rank,
@@ -465,6 +723,14 @@ def init_params(cfg: ModelConfig, seed: int = 0,
                 _copy_into(blk.moe, ffn)
             else:
                 _copy_into(blk.mlp, init_mlp(gen, D, F, adt))
+        if cfg.family == "hybrid":
+            sa, d2 = model.shared_attn, 2 * D
+            sa.norm1.fill_(1.0)
+            sa.norm2.fill_(1.0)
+            _copy_into(sa.attn, init_gqa(gen, d2, cfg.n_heads, cfg.n_kv_heads,
+                                         _shared_dh(cfg), dtype=adt))
+            _copy_into(sa.mlp, init_mlp(gen, d2, F, adt))
+            sa.out.copy_(he_init(gen, (d2, D), d2, adt))
     return model
 
 

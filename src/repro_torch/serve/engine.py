@@ -1,10 +1,15 @@
 """Batched token serving: slot-based continuous batching over a fixed cache.
 
-The port of the JAX package's ``serve/engine.py`` for the dense and MoE
-families.  The engine owns the caches (GQA's ``k``/``v`` or MLA's latent
-``ckv``/``kr``) for ``max_batch`` sequence *slots* of ``max_len`` tokens
-plus per-slot cursors.  Requests are prefilled one at a time (prompt
-lengths bucketed to powers of two from 8) and inserted into a free slot;
+The port of the JAX package's ``serve/engine.py``, for every family.  The
+engine owns the caches (GQA's ``k``/``v``, MLA's latent ``ckv``/``kr``, the
+Mamba2 layers' states, the hybrid's shared ``k``/``v``) for ``max_batch``
+sequence *slots* of ``max_len`` tokens plus per-slot cursors.  Requests are
+prefilled one at a time (prompt lengths bucketed to powers of two from 8 for
+the attention families; exact lengths for ``ssm``/``hybrid``, whose state
+integrates every position and must not see padding) and inserted into a
+free slot: a cache with a sequence axis (``_SEQ_KEYS``) takes the prompt's
+positions, a ring of width W its last W at ``idx % W``, a state cache the
+whole of the slot;
 ``step()`` then decodes one token for *every* slot in a single batched
 ``forward_decode`` (idle slots too, as the reference does: MoE rows share
 the experts' capacity, so only the same rows give the same function).
@@ -41,6 +46,8 @@ from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.scheduling import AdmissionQueue, SlotPool, bucket_for
 
 __all__ = ["ServeEngine", "Request"]
+
+_SEQ_KEYS = ("k", "v", "ckv", "kr")       # cache leaves with a sequence axis
 
 
 @dataclasses.dataclass
@@ -113,6 +120,7 @@ class ServeEngine:
         self._next_rid = 0
         self._queue = AdmissionQueue(queue_limit)
         self._finished: list[Request] = []
+        self._exact_prefill = cfg.family in ("ssm", "hybrid")
         self.prefill_slo_s = prefill_slo_s
         self.decode_slo_s = decode_slo_s
         self.metrics = ServeMetrics()
@@ -138,6 +146,8 @@ class ServeEngine:
         return req.rid
 
     def _bucket(self, n: int) -> int:
+        if self._exact_prefill:
+            return n
         return bucket_for(n, self.max_len, floor=8)
 
     def _sample(self, logits: torch.Tensor) -> list[int]:
@@ -162,7 +172,16 @@ class ServeEngine:
         logits, pcache, _ = self.model.forward_full(padded, return_cache=True)
         (first,) = self._sample(logits[0, plen - 1:plen])
         for key, leaf in self.caches.items():
-            leaf[:, slot, :sp] = pcache[key][:, 0]
+            new = pcache[key][:, 0]
+            if key not in _SEQ_KEYS:
+                leaf[:, slot] = new
+                continue
+            S, win = new.shape[1], leaf.shape[2]
+            if S <= win:
+                leaf[:, slot, :S] = new
+            else:                     # a ring: the last ``win`` positions
+                idx = torch.arange(S - win, S, device=leaf.device)
+                leaf[:, slot, idx % win] = new[:, idx]
         self.pos[slot] = plen
         self.slots.acquire(slot)
         self.last_token[slot] = first

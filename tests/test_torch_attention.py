@@ -219,16 +219,3 @@ def test_gqa_decode_matches_reference():
     # the caches were written in place, one row per sequence
     np.testing.assert_allclose(kt.numpy(), np.asarray(kj), **TOL)
     np.testing.assert_allclose(vt.numpy(), np.asarray(vj), **TOL)
-
-
-def test_gqa_window_and_ring_cache_raise():
-    rng = np.random.default_rng(23)
-    _, _, pt = _gqa_params(rng)
-    cos, sin = rope_table(4, 8)
-    x = torch.zeros((1, 4, 32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tatt.gqa_prefill(pt, x, cos, sin, window=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tatt.gqa_decode(pt, x[:, :1], torch.zeros((1, 4, 2, 8)),
-                        torch.zeros((1, 4, 2, 8)), torch.zeros(1, dtype=torch.int32),
-                        cos[:1], sin[:1], valid_len=torch.ones(1))

@@ -22,7 +22,9 @@ COPIES = [
     "frontends/tf_subset.py", "configs/mlperf_tiny.py",
     "configs/qwen2_5_3b.py", "configs/granite_8b.py",
     "configs/codeqwen1_5_7b.py", "configs/olmoe_1b_7b.py",
-    "configs/deepseek_v2_236b.py",
+    "configs/deepseek_v2_236b.py", "configs/mamba2_1_3b.py",
+    "configs/zamba2_7b.py", "configs/musicgen_medium.py",
+    "configs/command_r_35b.py", "configs/internvl2_26b.py",
 ]
 
 # the one place a copy differs: ``teacher_labels`` reads the program's

@@ -445,6 +445,58 @@ def test_flash_attention_kernel_matches_plain(card, B, Sq, Sk, H, KV, dh,
     _attn_close(got, want)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,KV,dh,window", [
+    (1, 1024, 32, 32, 224, 256), (1, 100, 32, 32, 224, 0),
+    (1, 1024, 32, 32, 224, 0), (1, 1024, 16, 2, 128, 256),
+    (1, 300, 16, 2, 128, 64), (2, 100, 4, 4, 64, 1), (1, 257, 8, 1, 64, 100),
+    (1, 130, 12, 2, 64, 33), (1, 70, 8, 2, 320, 16), (2, 77, 4, 4, 32, 500)])
+def test_flash_attention_window_and_dh_224_match_plain(card, B, S, H, KV, dh,
+                                                       window, dtype):
+    """zamba2's shared block (H = KV = 32, dh 224) and sliding windows on
+    both kernels: the key tiles below a block's window skipped, the edge
+    tiles masked, rows that meet no key in their first tiles."""
+    from repro_torch.kernels.flash_attention import flash_attention_fused
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    dt = getattr(torch, dtype)
+    q = _randn(card, B, S, H, dh, dtype=dt, seed=41)
+    k = _randn(card, B, S, KV, dh, dtype=dt, seed=42)
+    v = _randn(card, B, S, KV, dh, dtype=dt, seed=43)
+    for rp in (False, True):
+        got = flash_attention_fused(q, k, v, window=window, round_p=rp)
+        want = flash_attention_ref(q, k, v, window=window, round_p=rp)
+        torch.cuda.synchronize()
+        _attn_close(got, want)
+
+
+@pytest.mark.parametrize("B,S,H,KV,dh,window", [
+    (1, 1024, 16, 2, 128, 0), (1, 300, 32, 32, 224, 0),
+    (1, 1024, 32, 32, 224, 256), (2, 77, 8, 2, 320, 0)])
+def test_flash_attention_rounds_p_to_bfloat16_at_float32(card, B, S, H, KV, dh,
+                                                         window):
+    """``round_p=torch.bfloat16`` on float32 (the model's ``probs_bf16``):
+    ``fa_kernel`` rounds each p to bfloat16, against its plain version
+    within one bf16 ulp of the output's largest magnitude (the kernel
+    rounds p against a tile's running maximum, the plain version against
+    the row's)."""
+    from repro_torch.kernels.flash_attention import flash_attention_fused
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    q = _randn(card, B, S, H, dh, seed=44)
+    k = _randn(card, B, S, KV, dh, seed=45)
+    v = _randn(card, B, S, KV, dh, seed=46).bfloat16().float()
+    got = flash_attention_fused(q, k, v, window=window, round_p=torch.bfloat16)
+    want = flash_attention_ref(q, k, v, window=window, round_p=torch.bfloat16)
+    fp32 = flash_attention_ref(q, k, v, window=window)
+    torch.cuda.synchronize()
+    mag = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 2.0 ** (np.floor(np.log2(mag)) - 7)
+    assert not torch.equal(got, flash_attention_fused(q, k, v, window=window,
+                                                      round_p=False))
+    assert float((want - fp32).abs().max()) > 0
+
+
 def test_flash_attention_reads_strided_views(card):
     """q, k, v as slices of one fused (B, S, H + 2 KV, dh) projection, the
     layout a fused QKV product gives: no copy, same result."""
@@ -517,6 +569,45 @@ def test_decode_attention_kernel_matches_plain(card, B, S, H, KV, dh, lens,
                                 round_p=round_p)
     torch.cuda.synchronize()
     _attn_close(got, want)
+
+
+RING = 256
+RING_POS = [905, 689, 562, 319, 357, 88, 122, 63]     # past and below the ring
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_on_a_ring_cache(card, dtype):
+    """zamba2's shared decode (H = KV = 32, dh 224) against a ring of 256
+    slots: the lengths are min(pos + 1, 256), given on the card; no
+    synchronisation, and a CUDA graph's replay equals the eager call."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.ref import decode_attention_ref
+
+    dt = getattr(torch, dtype)
+    q = _randn(card, 8, 32, 224, dtype=dt, seed=51)
+    k = _randn(card, 8, RING, 32, 224, dtype=dt, seed=52)
+    v = _randn(card, 8, RING, 32, 224, dtype=dt, seed=53)
+    lens = torch.tensor(np.minimum(np.asarray(RING_POS) + 1, RING),
+                        dtype=torch.int32, device=card)
+    decode_attention(q, k, v, lens, round_p=False)      # build, plan, grant
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager = decode_attention(q, k, v, lens, round_p=False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _attn_close(eager, decode_attention_ref(q, k, v, lens))
+    side = torch.cuda.Stream(card)
+    side.wait_stream(torch.cuda.current_stream(card))
+    with torch.cuda.stream(side):
+        decode_attention(q, k, v, lens, round_p=False)
+    torch.cuda.current_stream(card).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = decode_attention(q, k, v, lens, round_p=False)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
 
 
 def test_decode_attention_reads_a_layer_of_the_stacked_cache(card):
@@ -647,7 +738,8 @@ def test_mla_prefill_pads_v_for_the_flash_kernel(card):
 
 
 @pytest.mark.parametrize("arch", ["granite-8b", "codeqwen1.5-7b", "olmoe-1b-7b",
-                                  "deepseek-v2-236b"])
+                                  "deepseek-v2-236b", "command-r-35b",
+                                  "musicgen-medium", "internvl2-26b"])
 def test_family_engines_on_the_card_match_the_cpu(card, arch):
     """Each family's SMOKE config in float32 at its own capacity: the same
     greedy tokens on the card (both attention kernels; MLA decode in plain
@@ -675,6 +767,51 @@ def test_family_engines_on_the_card_match_the_cpu(card, arch):
                 == cfg.n_layers * len(prompts)
             assert LAUNCHES["decode_attention"] - before["decode_attention"] \
                 == (0 if cfg.use_mla else cfg.n_layers * steps)
+    assert done["cpu"] == done[str(card)]
+
+
+@pytest.mark.parametrize("arch,window", [("mamba2-1.3b", 0), ("zamba2-7b", 0),
+                                         ("zamba2-7b", 8)])
+def test_state_families_on_the_card_match_the_cpu(card, arch, window):
+    """mamba2's and zamba2's SMOKE configs in float32 (zamba2 also with a
+    window of 8: a ring shorter than the prompts): the same greedy tokens
+    on the card as on the CPU; flash launches = shared applications x
+    prefills, decode launches = shared applications x steps (0 for the
+    ssm); a decode step syncs nowhere and makes one host-to-device copy."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.transformer import init_cache, init_params
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = dataclasses.replace(get_arch(arch).smoke, attn_window=window)
+    rng = np.random.default_rng(0)
+    prompts = [list(rng.integers(1, cfg.vocab_size, size=n)) for n in (1, 5, 17, 40)]
+    cpu_model = init_params(cfg, 0, "cpu")
+    done = {}
+    for dev in ("cpu", card):
+        model = cpu_model if dev == "cpu" else _to_card(cpu_model, cfg, card)
+        eng = ServeEngine(cfg, model, max_batch=2, max_len=64, device=dev)
+        for p in prompts:
+            eng.submit(p, max_new_tokens=5)
+        before = dict(LAUNCHES)
+        done[str(dev)] = [r.tokens for r in eng.run_to_completion()]
+        if dev != "cpu":
+            steps = eng.metrics.snapshot()["batches"]
+            G = cfg.hybrid_groups
+            assert LAUNCHES["flash_attention"] - before["flash_attention"] \
+                == G * len(prompts)
+            assert LAUNCHES["decode_attention"] - before["decode_attention"] \
+                == G * steps
+            caches = init_cache(cfg, 2, 64, device=card)
+            tok, pos = np.array([3, 4], np.int32), np.array([40, 2], np.int32)
+            model.forward_decode(tok, caches, pos)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                model.forward_decode(tok, caches, pos)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
     assert done["cpu"] == done[str(card)]
 
 

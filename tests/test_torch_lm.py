@@ -226,18 +226,3 @@ def test_default_config_keeps_matmul_weights_in_the_activation_dtype():
         == torch.bfloat16
     assert m.final_norm.dtype == m.blocks[0].norm1.dtype == torch.float32
     assert init_cache(cfg, 2, 8, device="cpu")["k"].dtype == torch.bfloat16
-
-
-@pytest.mark.parametrize("change", [dict(family="ssm"), dict(family="hybrid"),
-                                    dict(family="hybrid", attn_window=16)])
-def test_unported_families_raise(change):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Transformer(dataclasses.replace(SMOKE, **change), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_cache(dataclasses.replace(SMOKE, **change), 1, 4, device="cpu")
-
-
-def test_prefix_embeddings_raise():
-    m = init_params(SMOKE, 0, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m.forward_full(np.ones((1, 4), np.int32), prefix_embeds=torch.zeros(1, 2, 64))

@@ -1,10 +1,13 @@
-"""The dense and MoE families of the port against the JAX package's, on the
-CPU: granite-8b (GQA, G 4), codeqwen1.5-7b (MHA, QKV bias), olmoe-1b-7b
-(GQA + 64 routed experts, top-8) and deepseek-v2-236b (MLA + 2 shared and
-160 routed experts, top-6), each at its SMOKE config with the JAX weights
-carried across by ``params_from_reference`` (norm weights and QKV biases set
-to random values first, so that their paths are exercised).  Inputs come
-from numpy seeds.
+"""Every architecture of the port beside qwen2.5-3b against the JAX
+package's, on the CPU: granite-8b (GQA, G 4), codeqwen1.5-7b (MHA, QKV
+bias), command-r-35b (G 4, a 256k vocabulary), musicgen-medium (MHA over
+audio tokens), internvl2-26b (G 4 behind a vision prefix), olmoe-1b-7b
+(GQA + 64 routed experts, top-8), deepseek-v2-236b (MLA + 2 shared and
+160 routed experts, top-6), mamba2-1.3b (attention-free Mamba2) and
+zamba2-7b (Mamba2 with a shared attention block), each at its SMOKE config
+with the JAX weights carried across by ``params_from_reference`` (norm
+weights and QKV biases set to random values first, so that their paths are
+exercised).  Inputs come from numpy seeds.
 
 * ``forward_full`` (logits, caches, the MoE layers' summed aux loss) and
   three ``forward_decode`` steps against the JAX functions: float32
@@ -14,8 +17,12 @@ from numpy seeds.
   the real SMOKE capacity, where the prefill buckets drop copies: identical
   greedy tokens;
 * the configs field by field, the parameter tree by name and shape,
-  ``get_arch`` refusing the five architectures still missing, and the
-  launcher serving each architecture on the CPU.
+  ``get_arch`` taking all ten architectures, and the launcher serving each
+  one on the CPU.
+
+The ``ssm`` and ``hybrid`` caches hold a state that integrates every
+position, so a decode test prefills each sequence's own prefix alone, as
+the engines do.
 """
 
 import dataclasses
@@ -38,9 +45,9 @@ from repro_torch.models.transformer import (init_cache, init_params,
                                             params_from_reference)
 from repro_torch.serve.engine import ServeEngine
 
-ARCHS = ["granite-8b", "codeqwen1.5-7b", "olmoe-1b-7b", "deepseek-v2-236b"]
-MISSING = ["musicgen-medium", "internvl2-26b", "command-r-35b", "zamba2-7b",
-           "mamba2-1.3b"]
+ARCHS = ["granite-8b", "codeqwen1.5-7b", "olmoe-1b-7b", "deepseek-v2-236b",
+         "command-r-35b", "musicgen-medium", "internvl2-26b", "mamba2-1.3b",
+         "zamba2-7b"]
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
@@ -49,7 +56,7 @@ def _tree(arch: str, seed: int = 0):
     tree = jax.tree.map(np.array, jt.init_params(j_get_arch(arch).smoke,
                                                  jax.random.key(seed)))
     rng = np.random.default_rng(seed)
-    leaves = tree["blocks"]["attn"]
+    leaves = tree["blocks"].get("attn", {})
     for name in ("bq", "bk", "bv", "norm_kv", "norm_q"):
         if name in leaves:
             base = 1.0 if name.startswith("norm") else 0.0
@@ -92,11 +99,11 @@ def test_config_equals_reference_field_by_field(arch, which):
     assert get_arch(arch).skip_cells == j_get_arch(arch).skip_cells
 
 
-@pytest.mark.parametrize("arch", MISSING)
-def test_missing_architectures_raise(arch):
-    assert arch not in registry.PORTED
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_arch(arch)
+def test_every_architecture_is_ported():
+    assert sorted(registry.PORTED) == sorted(registry.ARCH_IDS)
+    assert sorted(ARCHS + ["qwen2.5-3b"]) == sorted(registry.ARCH_IDS)
+    for arch in registry.ARCH_IDS:
+        assert get_arch(arch).arch_id == arch
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -131,7 +138,7 @@ def test_forward_full_and_decode_match_reference(arch):
     lt, ct, aux_t = model.forward_full(toks, return_cache=True)
     assert lt.dtype == torch.float32 and lt.shape == (B, S, cfg.padded_vocab)
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL)
-    assert set(ct) == set(cj) == ({"ckv", "kr"} if cfg.use_mla else {"k", "v"})
+    assert set(ct) == set(cj) == set(jt.init_cache(cfg_j, 1, 1))
     for key in ct:
         np.testing.assert_allclose(ct[key].numpy(), np.asarray(cj[key]), **TOL)
     assert aux_t.dtype == torch.float32 and aux_t.shape == ()
@@ -140,14 +147,26 @@ def test_forward_full_and_decode_match_reference(arch):
 
     # decode three steps from a prefix of P tokens, the second sequence
     # behind the first
+    pos = np.array([P, P - 5], np.int32)
     cache_j = jt.init_cache(cfg_j, B, S)
-    cache_j = {k: v.at[:, :, :P].set(cj[k][:, :, :P]) for k, v in cache_j.items()}
     cache_t = init_cache(cfg, B, S, device="cpu")
     assert {k: tuple(v.shape) for k, v in cache_t.items()} == \
         {k: tuple(v.shape) for k, v in cache_j.items()}
-    for k in cache_t:
-        cache_t[k][:, :, :P] = ct[k][:, :, :P]
-    pos = np.array([P, P - 5], np.int32)
+    if cfg.family in ("dense", "moe"):
+        cache_j = {k: v.at[:, :, :P].set(cj[k][:, :, :P])
+                   for k, v in cache_j.items()}
+        for k in cache_t:
+            cache_t[k][:, :, :P] = ct[k][:, :, :P]
+    else:
+        # a state integrates every position: each sequence's prefix alone
+        for b, n in enumerate(pos):
+            _, cjb, _ = jt.forward_full(pj, cfg_j, jnp.asarray(toks[b:b + 1, :n]),
+                                        return_cache=True)
+            _, ctb, _ = model.forward_full(toks[b:b + 1, :n], return_cache=True)
+            for k in cache_t:
+                at = (slice(None), b) + ((slice(0, n),) if k in ("k", "v") else ())
+                cache_j[k] = cache_j[k].at[at].set(cjb[k][:, 0])
+                cache_t[k][at] = ctb[k][:, 0]
     for _ in range(3):
         tok = toks[np.arange(B), pos]
         dj, cache_j = jt.forward_decode(pj, cfg_j, jnp.asarray(tok), cache_j,
@@ -186,5 +205,5 @@ def test_launcher_serves_each_arch_on_the_cpu(arch, capsys):
                               "--requests", "2", "--max-new", "3",
                               "--max-batch", "2", "--layers", "1"]) == 0
     out = capsys.readouterr().out
-    assert "depth cut to 1 of 2 layers" in out
+    assert f"depth cut to 1 of {get_arch(arch).smoke.n_layers} layers" in out
     assert out.count("req ") == 2 and "2 requests, 6 tokens" in out
