@@ -184,7 +184,46 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               ``.npz``), the expected launches, load seconds beside the cold
               compile seconds; and its measured-mode compiles find the table
               in the store (0 calls into ``profile_device``);
-10. report  — the chain kernels' launch floor (an empty kernel with their
+10. lm-train — training on the card.  The flash backward kernels
+              (``flash_attention_bwd``) against their plain version
+              (autograd through ``flash_attention_ref``) at B 1, S 1,024
+              (``FLASH_BWD_S``),
+              float32 and bfloat16, at every head shape phase 7 serves:
+              qwen2.5-3b's (16 / 2 / 128), ``FAMILY_HEADS`` (deepseek-v2's
+              MLA with v and the output's gradient zero past column 128),
+              ``NEW_HEADS``, ``SHARED_HEADS`` without and with a window of
+              256; dq, dk, dv within ``FLASH_BWD_F32_REL`` of each one's
+              largest magnitude (float32) or ``FLASH_BWD_BF16_ULPS`` bf16
+              ulps of it (bfloat16), the rows' log-sum-exp within
+              ``FLASH_BWD_LSE_REL``; the same at qwen2.5-3b's heads at the
+              lengths the 36-layer run trains (S 4,096 and 2,048); and in
+              every case the training forward (``flash_attention_fused``,
+              p in fp32) on the same inputs against its plain version
+              within phase 6's limits (``attn_compare``).  The float32 twin: qwen2.5-3b at every
+              width, 4 layers, S 1,024, batch 2, seed 0: the first gradient
+              of every weight (each must exist) within
+              ``LM_TRAIN_GRAD_REL`` of the same model's with the attention's
+              plain version, then 3 AdamW steps of each, losses within
+              ``LM_TRAIN_LOSS_RTOL``.  olmoe-1b-7b at every width, 2 layers,
+              bfloat16: the first gradient (finite), 2 steps (finite
+              losses), and ``ProductF32``'s backward at its expert ``bmm``
+              and an ``mm`` against autograd through the upcast product
+              (one bf16 ulp).  qwen2.5-3b at full width and depth (36
+              layers), bfloat16 activations, float32 masters, remat
+              ``"nothing"``, S 4,096 (train_4k's; 2,048 only if 4,096 does
+              not fit, printed), global batch 2 in 2 microbatches
+              (reduced from 256 in 4): one warm-up step and 3 timed steps,
+              each's loss (finite), grad norm, seconds, tokens/s, peak
+              memory, launches; one more step in a profiler trace for the
+              flash backward's and forward's share of device time.  Resume:
+              ``launch.train.run_training`` on the 4-layer float32 copy (B
+              1, S 512), 4 steps straight against 2 steps, a checkpoint and
+              2 resumed steps: every master and moment bitwise equal.  In
+              every run flash forward launches = 2 x layers x microbatches
+              x steps (the forward and its remat recompute) on its dtype's
+              kernel, backward launches = layers x microbatches x steps
+              (both backward kernels as one), and none on the plain twins;
+11. report  — the chain kernels' launch floor (an empty kernel with their
               parameter block) beside each served chain call's device time
               and time per call, against ``CHAIN_DEVICE_MS`` /
               ``CHAIN_FLOOR_X`` / ``CHAIN_CALL_MS`` (printed, not checked);
@@ -197,9 +236,14 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               it; the LM engine's prefill ms per request, decode ms per
               step at batch 8, generated tokens/s and the attention
               kernels' share of a decode step's device time (decode
-              attention's two passes, ``DECODE_PASSES``); the ``kernels``
-              JSON line, the card line, and last ``{"ok": true, "device":
-              {...}}``.
+              attention's two passes, ``DECODE_PASSES``); the flash
+              backward at qwen2.5-3b's heads, S 4,096 and 1,024, bfloat16
+              and float32, beside its plain version, SDPA's backward
+              (alone, and with its forward), and its bound (five
+              products); the
+              ``kernels`` JSON line (the forward flash kernels' launches
+              are the served paths', their training launches beside them),
+              the card line, and last ``{"ok": true, "device": {...}}``.
 
 Every path runs at its full depth, except deepseek-v2-236b (2 of 60
 layers, every width kept).
@@ -219,8 +263,12 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# phase 10 trains qwen2.5-3b at full width in ~70 of the card's 79 GiB:
+# segments that grow keep the allocator's free memory in one piece
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_OPS = {"float32": 67e12,      # fp32 outside the tensor cores
             "bfloat16": 989e12,    # dense bf16 tensor-core peak
@@ -306,6 +354,44 @@ RING_WIDTH = PROBE_WINDOW = 256
 # max |difference| <= SSD_RTOL x max |y|
 SSD_LAYERS = (("mamba2-1.3b", 64, 64, 128), ("zamba2-7b", 112, 64, 64))
 SSD_RTOL = 1e-5
+# lm-train.  The flash backward kernels against their plain version
+# (autograd through flash_attention_ref on the same inputs), each of dq, dk,
+# dv against its own largest magnitude: float32 within FLASH_BWD_F32_REL of
+# it (the kernels sum up to S x G terms in fp32 in another order than the
+# plain version, and ds = p (dp - D) cancels, which lifts the rounding of
+# the sums above 2^-24 of the result; the CPU tests hold the plain version
+# to XLA's autodiff within 1e-5 of the same scale); bfloat16 within
+# FLASH_BWD_BF16_ULPS bf16 ulps of it (both round one fp32 result once: up
+# to one ulp each way); the rows' log-sum-exp (fp32 in both) within
+# FLASH_BWD_LSE_REL of its largest magnitude.  B 1, S FLASH_BWD_S.
+FLASH_BWD_F32_REL = 1e-4
+FLASH_BWD_BF16_ULPS = 2
+FLASH_BWD_LSE_REL = 1e-5
+FLASH_BWD_S = 1024
+# The float32 twin check: qwen2.5-3b at every width, LM_TRAIN_LAYERS layers,
+# S LM_TRAIN_S, LM_TRAIN_STEPS AdamW steps from seed 0, against the same
+# model differentiating the attention's plain version: each step's loss
+# within rtol LM_TRAIN_LOSS_RTOL, each parameter's first-step gradient
+# within LM_TRAIN_GRAD_REL of its largest magnitude (the forward kernel
+# moves the output by 1e-5 and the backward kernels the attention's
+# gradients by 1e-4 of their scale; a gradient cut off at a kernel without
+# a backward is off by all of it).
+LM_TRAIN_LAYERS, LM_TRAIN_S, LM_TRAIN_STEPS = 4, 1024, 3
+LM_TRAIN_LOSS_RTOL, LM_TRAIN_GRAD_REL = 1e-4, 1e-3
+# olmoe-1b-7b in bfloat16 at every width: the router and the expert bmm's
+# backward (arch, layers, steps)
+LM_TRAIN_MOE = ("olmoe-1b-7b", 2, 2)
+# qwen2.5-3b at full width and depth, train_4k's sequence length; reduced:
+# global batch 256 -> 2, microbatches 4 -> 2.  LM_TRAIN_FULL_S_OOM if that
+# does not fit the card.
+LM_TRAIN_FULL_S, LM_TRAIN_FULL_S_OOM = 4096, 2048
+LM_TRAIN_FULL_BATCH, LM_TRAIN_FULL_MB = 2, 2
+LM_TRAIN_FULL_STEPS, LM_TRAIN_FULL_WARM = 3, 1
+# launch.train.run_training on the 4-layer float32 copy: LM_RESUME_STEPS
+# steps straight, against LM_RESUME_AT steps, a checkpoint, and a resumed
+# run to the end; batch and length of each step
+LM_RESUME_STEPS, LM_RESUME_AT, LM_RESUME_BATCH, LM_RESUME_S = 4, 2, 1, 512
+FLASH_BWD_KERNELS = ("fb_dq_kernel", "fb_dkdv_kernel")
 # matmul/gemv cases (M, K, N) of phase 3, each in float32 and bfloat16 with
 # both layouts of b: aligned and unaligned pitches, split and unsplit K
 MATMUL_SHAPES = ((129, 65, 70), (128, 128, 128), (64, 610, 24),
@@ -1581,6 +1667,407 @@ def store_child(tmp: str) -> int:
     return 0
 
 
+def flash_bwd_work(B: int, S: int, H: int, KV: int, dh: int, item: int,
+                   window: int = 0) -> tuple[float, float]:
+    """(bytes, operations) of one causal flash-attention backward: q, k, v
+    and the output's gradient read once, dq, dk, dv and the rows' float32
+    log-sum-exp written once; five products (s, dp, dv, dk, dq) of two
+    operations per (query, key, dh) element of the pairs the mask keeps."""
+    pairs = sum(min(t + 1, window or S) for t in range(S))
+    nbytes = item * (3 * B * S * H * dh + 4 * B * S * KV * dh) + 4 * B * H * S
+    return float(nbytes), float(10 * B * H * dh * pairs)
+
+
+def bwd_cases() -> list[tuple[int, int, int, int, int, bool]]:
+    """(S, H, KV, dh, window, mla) of every head shape phase 7 serves, at
+    ``FLASH_BWD_S``: qwen2.5-3b's, ``FAMILY_HEADS`` (deepseek-v2's MLA with
+    v zero-padded from 128 to 192), ``NEW_HEADS``, ``SHARED_HEADS`` without
+    and with a window of ``PROBE_WINDOW``; then qwen2.5-3b's at the lengths
+    the 36-layer run trains (``LM_TRAIN_FULL_S``, and
+    ``LM_TRAIN_FULL_S_OOM`` should it fall back)."""
+    heads = [(16, 2, 128)] + list(FAMILY_HEADS) + list(NEW_HEADS)
+    out = [(H, KV, dh, 0, dh == 192) for H, KV, dh in heads]
+    out += [(*SHARED_HEADS, 0, False), (*SHARED_HEADS, PROBE_WINDOW, False)]
+    return ([(FLASH_BWD_S, *case) for case in out]
+            + [(S, 16, 2, 128, 0, False)
+               for S in (LM_TRAIN_FULL_S, LM_TRAIN_FULL_S_OOM)])
+
+
+def train_phase(dev) -> tuple[dict, dict, dict]:
+    """Phase lm-train (see the module docstring).  Returns (record, checks of
+    the backward kernels, launches over the training runs by kernel);
+    raises AssertionError on a failed check."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.tokens import PipelineState, TokenPipeline
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_fused,
+                                                     flash_route)
+    from repro_torch.kernels.ref import (flash_attention_bwd_ref,
+                                         flash_attention_ref)
+    from repro_torch.launch.train import run_training
+    from repro_torch.models.layers import ProductF32
+    from repro_torch.models.transformer import _flatten, _leaves, lm_loss
+    from repro_torch.train.optim import OptConfig
+    from repro_torch.train.train_loop import init_state, make_train_step
+
+    rec: dict = {"bwd_cases": []}
+    counted = ("flash_attention", "flash_attention_wgmma", "flash_attention_bwd")
+    launches = dict.fromkeys(counted, 0)
+    spec = get_arch(LM_ARCH)
+
+    def ulp(x: float) -> float:
+        return 2.0 ** (math.floor(math.log2(x)) - 7)
+
+    def reset():
+        for key in counted:
+            LAUNCHES[key] = 0
+
+    def take(label, want: dict) -> dict:
+        torch.cuda.synchronize()
+        got = {key: LAUNCHES[key] for key in counted}
+        print(f"  {label}: launches {got} (expected {want})", flush=True)
+        if any(got[key] != want.get(key, 0) for key in counted):
+            raise AssertionError(f"{label}: launches {got}, expected {want}")
+        for key in counted:
+            launches[key] += got[key]
+        return got
+
+    def fwd_kernel(cfg) -> str:
+        H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+        probe = [torch.empty((1, 1, h, dh), dtype=cfg.adt, device=dev)
+                 for h in (H, KV, KV)]
+        return ("flash_attention_wgmma" if flash_route(*probe) == "wgmma"
+                else "flash_attention")
+
+    def batches(cfg, batch, S, n):
+        pipe = TokenPipeline(vocab_size=cfg.vocab_size, batch=batch, seq_len=S)
+        return [pipe.batch_at(PipelineState(step=i))[0] for i in range(n)]
+
+    def first_grads(model, tokens, plain: bool):
+        weights = [t for ts in _leaves(model).values() for t in ts]
+        loss = lm_loss(model, tokens, plain_attention=plain)
+        # raises if a weight is cut off the loss's path
+        return float(loss.detach()), torch.autograd.grad(loss, weights)
+
+    # 1. the backward kernels against their plain version, and the training
+    # forward (p in fp32) against its own on the same inputs
+    def bwd_checks():
+        for dt in (torch.float32, torch.bfloat16):
+            for S, H, KV, dh, w, mla in bwd_cases():
+                g = torch.Generator(device=dev).manual_seed(H * 1000 + dh + w + S)
+                q, go = (torch.randn((1, S, H, dh), generator=g, device=dev).to(dt)
+                         for _ in range(2))
+                k, v = (torch.randn((1, S, KV, dh), generator=g, device=dev).to(dt)
+                        for _ in range(2))
+                if mla:                 # v and out's gradient past 128 are zeros
+                    v[..., 128:] = 0
+                    go[..., 128:] = 0
+                fwd_ok, fwd_err, fwd_lim = attn_compare(
+                    flash_attention_fused(q, k, v, window=w, round_p=False),
+                    flash_attention_ref(q, k, v, window=w, round_p=False))
+                got = flash_attention_bwd(q, k, v, go, causal=True, window=w)
+                want = flash_attention_bwd_ref(q, k, v, go, causal=True, window=w)
+                torch.cuda.synchronize()
+                errs, lims = {"out": fwd_err}, {"out": fwd_lim}
+                for name, a, b in zip(("dq", "dk", "dv", "lse"), got, want):
+                    top = float(b.float().abs().max())
+                    lims[name] = (FLASH_BWD_LSE_REL * max(top, 1.0) if name == "lse"
+                                  else FLASH_BWD_F32_REL * top if dt == torch.float32
+                                  else FLASH_BWD_BF16_ULPS * ulp(top))
+                    errs[name] = float((a.float() - b.float()).abs().max())
+                label = (f"{str(dt)[6:]} B=1 S={S} H={H} KV={KV} dh={dh}"
+                         + (f" window {w}" if w else "")
+                         + (" mla v 128->192" if mla else ""))
+                ok = fwd_ok and all(errs[n] <= lims[n] for n in errs if n != "out")
+                rec["bwd_cases"].append(dict(case=label, errs=errs, limits=lims,
+                                             ok=ok))
+                print(f"  flash_attention_bwd {label}: max abs err "
+                      + ", ".join(f"{n} {errs[n]:.3g} (limit {lims[n]:.3g})"
+                                  for n in errs), flush=True)
+                if not ok:
+                    raise AssertionError(f"flash_attention_bwd {label}: {errs} "
+                                         f"over the limits {lims}")
+                del q, k, v, go, got, want
+        return {"cases": len(rec["bwd_cases"]),
+                "max_abs_err": max(max(c["errs"][n] for n in ("dq", "dk", "dv"))
+                                   for c in rec["bwd_cases"])}
+
+    # 2. the float32 twin: kernels against the attention's plain version
+    def twin():
+        L = LM_TRAIN_LAYERS
+        cfg = dataclasses.replace(spec.model, n_layers=L, act_dtype="float32")
+        data = batches(cfg, 2, LM_TRAIN_S, LM_TRAIN_STEPS)
+        model, state = init_state(cfg, 0, device=dev)
+        paths = [(p, len(ts)) for p, ts in _leaves(model).items()]
+        fk = fwd_kernel(cfg)
+        reset()
+        loss_k, gk = first_grads(model, data[0]["tokens"], False)
+        take(f"{cfg.name} x{L} float32 first gradient",
+             {fk: 2 * L, "flash_attention_bwd": L})
+        reset()
+        loss_p, gp = first_grads(model, data[0]["tokens"], True)
+        take(f"{cfg.name} x{L} float32 first gradient, plain attention", {})
+        grad_errs = {}
+        it_k, it_p = iter(gk), iter(gp)
+        for path, n in paths:
+            a = torch.stack([next(it_k) for _ in range(n)]).float()
+            b = torch.stack([next(it_p) for _ in range(n)]).float()
+            top = float(b.abs().max())
+            err = float((a - b).abs().max())
+            grad_errs[path] = (err, top)
+            if not (math.isfinite(err) and top > 0
+                    and err <= LM_TRAIN_GRAD_REL * top):
+                raise AssertionError(f"twin gradient {path}: max abs err {err} "
+                                     f"against largest {top}")
+        worst = max(grad_errs, key=lambda p: grad_errs[p][0] / grad_errs[p][1])
+        print(f"  {cfg.name} x{L} float32 S={LM_TRAIN_S}: loss {loss_k:.6f} "
+              f"(plain attention {loss_p:.6f}); every one of {len(paths)} leaves "
+              f"has a gradient; worst {worst} {grad_errs[worst][0]:.3g} of "
+              f"{grad_errs[worst][1]:.3g}", flush=True)
+        del gk, gp
+        oc = OptConfig(lr=1e-4, warmup_steps=0, total_steps=LM_TRAIN_STEPS)
+        losses = {}
+        for plain in (False, True):
+            if plain:
+                del model, state
+                gc.collect()
+                model, state = init_state(cfg, 0, device=dev)
+            step = make_train_step(model, oc, plain_attention=plain)
+            reset()
+            losses[plain] = []
+            for b in data:
+                state, m = step(state, b)
+                losses[plain].append(float(m["loss"]))
+            take(f"{cfg.name} x{L} float32 {LM_TRAIN_STEPS} steps"
+                 + (", plain attention" if plain else ""),
+                 {} if plain else {fk: 2 * L * LM_TRAIN_STEPS,
+                                   "flash_attention_bwd": L * LM_TRAIN_STEPS})
+        print(f"  {cfg.name} x{L} float32 losses {losses[False]} (plain attention "
+              f"{losses[True]})", flush=True)
+        if not all(math.isfinite(x) for x in losses[False]) or not all(
+                abs(a - b) <= LM_TRAIN_LOSS_RTOL * abs(b)
+                for a, b in zip(losses[False], losses[True])):
+            raise AssertionError(f"twin losses {losses[False]} against the plain "
+                                 f"attention's {losses[True]}")
+        rec["twin"] = dict(config=f"{cfg.name} x{L} float32 S={LM_TRAIN_S} B=2",
+                           loss=loss_k, loss_plain=loss_p, losses=losses[False],
+                           losses_plain=losses[True],
+                           worst_grad=(worst, *grad_errs[worst]))
+
+    # 3. olmoe-1b-7b in bfloat16: the router and the expert bmm's backward
+    def moe():
+        arch, L, n = LM_TRAIN_MOE
+        cfg = dataclasses.replace(get_arch(arch).model, n_layers=L,
+                                  act_dtype="bfloat16")
+        data = batches(cfg, 2, LM_TRAIN_S, n)
+        model, state = init_state(cfg, 0, device=dev)
+        fk = fwd_kernel(cfg)
+        reset()
+        loss0, grads = first_grads(model, data[0]["tokens"], False)
+        names = [f"{p}[{i}]" for p, ts in _leaves(model).items()
+                 for i in range(len(ts))]
+        bad = [name for name, g in zip(names, grads)
+               if not bool(torch.isfinite(g).all())]
+        nonzero = sum(bool(g.any()) for g in grads)
+        del grads
+        step = make_train_step(model, OptConfig(lr=1e-4, warmup_steps=0,
+                                                total_steps=n))
+        moe_losses = []
+        for b in data:
+            state, m = step(state, b)
+            moe_losses.append(float(m["loss"]))
+        take(f"{cfg.name} x{L} bfloat16 first gradient and {n} steps",
+             {fk: 2 * L * (n + 1), "flash_attention_bwd": L * (n + 1)})
+        print(f"  {cfg.name} x{L} bfloat16 S={LM_TRAIN_S}: first loss {loss0:.4f}, "
+              f"{nonzero} of {len(names)} weights with a "
+              f"non-zero gradient, losses {moe_losses}", flush=True)
+        if bad or not all(math.isfinite(x) for x in [loss0] + moe_losses):
+            raise AssertionError(f"{cfg.name} bf16: non-finite gradients {bad[:5]} "
+                                 f"or losses {moe_losses}")
+        # ProductF32's backward against autograd through the upcast product
+        E, D, Fe = cfg.n_experts, cfg.d_model, cfg.d_ff_expert
+        gen = torch.Generator(device=dev).manual_seed(5)
+        prod_err = 0.0
+        for sa, sb in (((E, 64, D), (E, D, Fe)), ((512, D), (D, Fe))):
+            a = torch.randn(sa, generator=gen, device=dev).to(torch.bfloat16)
+            w = (torch.randn(sb, generator=gen, device=dev)
+                 * D ** -0.5).to(torch.bfloat16)
+            go = torch.randn(sa[:-1] + sb[-1:], generator=gen, device=dev)
+            a1, w1 = a.clone().requires_grad_(), w.clone().requires_grad_()
+            ProductF32.apply(a1, w1).backward(go)
+            a2, w2 = a.clone().requires_grad_(), w.clone().requires_grad_()
+            (a2.float() @ w2.float()).backward(go)
+            for x, y in ((a1.grad, a2.grad), (w1.grad, w2.grad)):
+                err = float((x.float() - y.float()).abs().max())
+                prod_err = max(prod_err, err)
+                if err > ulp(float(y.float().abs().max())):
+                    raise AssertionError(f"ProductF32 backward {sa} x {sb}: max "
+                                         f"abs err {err}")
+        print(f"  ProductF32 backward (expert bmm and mm, bf16) against autograd "
+              f"through the upcast product: max abs err {prod_err:.3g}", flush=True)
+        rec["moe"] = dict(config=f"{cfg.name} x{L} bfloat16 S={LM_TRAIN_S} B=2",
+                          first_loss=loss0, losses=moe_losses,
+                          nonzero_grads=nonzero, product_err=prod_err)
+
+    # 4. qwen2.5-3b at full width and depth
+    def full():
+        cfg = spec.model
+        L = cfg.n_layers
+        fk = fwd_kernel(cfg)
+        S = LM_TRAIN_FULL_S
+        while True:
+            oom = None
+            try:
+                print(f"  {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+                      f"before {cfg.name} x{L} at S={S}", flush=True)
+                torch.cuda.reset_peak_memory_stats()
+                model, state = init_state(cfg, 0, device=dev)
+                print(f"  {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+                      "with the model, masters and moments", flush=True)
+                step = make_train_step(model, OptConfig(),
+                                       n_microbatches=LM_TRAIN_FULL_MB)
+                data = batches(cfg, LM_TRAIN_FULL_BATCH, S,
+                               LM_TRAIN_FULL_WARM + LM_TRAIN_FULL_STEPS + 1)
+                full_steps = []
+                for i, b in enumerate(data[:-1]):
+                    reset()
+                    t1 = time.perf_counter()
+                    state, m = step(state, b)
+                    loss = float(m["loss"])
+                    sec = time.perf_counter() - t1
+                    per = LM_TRAIN_FULL_MB * L
+                    got = take(f"{cfg.name} step {i}", {fk: 2 * per,
+                                                       "flash_attention_bwd": per})
+                    row = dict(step=i, warm=i < LM_TRAIN_FULL_WARM, loss=loss,
+                               grad_norm=float(m["grad_norm"]), seconds=sec,
+                               tokens_per_s=LM_TRAIN_FULL_BATCH * S / sec,
+                               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                               launches=got)
+                    full_steps.append(row)
+                    print(f"  {cfg.name} x{L} bf16 S={S} step {i}"
+                          + (" (warm-up)" if row["warm"] else "")
+                          + f": loss {loss:.4f}, grad norm {row['grad_norm']:.3f}, "
+                          f"{sec:.3f} s, {row['tokens_per_s']:.0f} tokens/s, peak "
+                          f"{row['peak_gib']:.2f} GiB", flush=True)
+                    if not (math.isfinite(loss) and math.isfinite(row["grad_norm"])
+                            and row["grad_norm"] > 0):
+                        raise AssertionError(f"{cfg.name} step {i}: loss {loss}, "
+                                             f"grad norm {row['grad_norm']}")
+                break
+            except torch.cuda.OutOfMemoryError as e:
+                if S == LM_TRAIN_FULL_S_OOM:
+                    raise
+                oom = f"{e}".splitlines()[0]
+                traceback.print_exc()
+            # out of the handler, so that its frames no longer hold the tensors
+            print(f"  {cfg.name} x{L} at S={S} does not fit the card ({oom}); "
+                  f"S={LM_TRAIN_FULL_S_OOM}", flush=True)
+            rec["full_oom"] = dict(seq_len=S, error=oom)
+            model = state = step = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            S = LM_TRAIN_FULL_S_OOM
+        # one more step in a profiler trace: the backward kernels' share
+        reset()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+            state, m = step(state, data[-1])
+            torch.cuda.synchronize()
+        per = LM_TRAIN_FULL_MB * L
+        take(f"{cfg.name} traced step", {fk: 2 * per, "flash_attention_bwd": per})
+        by: dict[str, float] = {}
+        for e in p.events():
+            if e.device_type == DeviceType.CUDA:
+                by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        # a trace that lost every device activity (ROADMAP Queue C item 8)
+        # leaves the split not measured (NaN)
+        total = sum(by.values()) or float("nan")
+        bwd = sum(v for name, v in by.items()
+                  if any(k in name for k in FLASH_BWD_KERNELS)) or float("nan")
+        fwd = sum(v for name, v in by.items()
+                  if "fa_tc_kernel" in name or "fa_kernel" in name) or float("nan")
+        top = sorted(by.items(), key=lambda kv: -kv[1])[:6]
+        timed = [r for r in full_steps if not r["warm"]]
+        rec["full"] = dict(
+            config=f"{cfg.name} x{L} bfloat16 (f32 masters) S={S} "
+                   f"B={LM_TRAIN_FULL_BATCH} in {LM_TRAIN_FULL_MB} microbatches, "
+                   f"remat {cfg.remat_policy}",
+            seq_len=S, steps=full_steps,
+            seconds=statistics.median(r["seconds"] for r in timed),
+            tokens_per_s=statistics.median(r["tokens_per_s"] for r in timed),
+            peak_gib=max(r["peak_gib"] for r in full_steps),
+            device_ms=total, flash_bwd_ms=bwd, flash_fwd_ms=fwd,
+            top=[(name, ms) for name, ms in top])
+        r = rec["full"]
+        print(f"  {cfg.name} x{L} bf16 S={S}: a step {r['seconds']:.3f} s "
+              f"(median of {len(timed)}), {r['tokens_per_s']:.0f} tokens/s, "
+              f"peak {r['peak_gib']:.2f} GiB; traced step {total:.1f} ms on "
+              f"the device ({'; '.join(f'{n[:40]} {ms:.1f}' for n, ms in top)}), "
+              f"flash backward {bwd:.1f} ms ({bwd / total:.1%}), flash forward "
+              f"{fwd:.1f} ms ({fwd / total:.1%})", flush=True)
+
+    # 5. resume from a checkpoint: launch.train.run_training, 4-layer f32 copy
+    def resume():
+        kw = dict(smoke=False, batch=LM_RESUME_BATCH, seq_len=LM_RESUME_S,
+                  ckpt_every=LM_RESUME_AT, microbatches=1, lr=1e-3, log_every=1,
+                  device=dev, layers=LM_TRAIN_LAYERS, act_dtype="float32", seed=0)
+        L = LM_TRAIN_LAYERS
+        fk = fwd_kernel(dataclasses.replace(spec.model, act_dtype="float32"))
+        with tempfile.TemporaryDirectory(prefix="mafia-ckpt-") as d:
+            print(f"  checkpoints under a temporary directory, "
+                  f"{shutil.disk_usage(d).free / 2**30:.0f} GiB free", flush=True)
+            reset()
+            t1 = time.perf_counter()
+            straight = run_training(LM_ARCH, steps=LM_RESUME_STEPS, ckpt_dir=None,
+                                    **kw)["state"]
+            run_training(LM_ARCH, steps=LM_RESUME_AT, ckpt_dir=d, **kw)
+            resumed = run_training(LM_ARCH, steps=LM_RESUME_STEPS, ckpt_dir=d,
+                                   **kw)["state"]
+            n_steps = 2 * LM_RESUME_STEPS          # straight, then 2 + 2 resumed
+            take("launch.train straight, to the checkpoint, resumed",
+                 {fk: 2 * L * n_steps, "flash_attention_bwd": L * n_steps})
+            resume_s = time.perf_counter() - t1
+        diffs = []
+        for part in ("params", "m", "v"):
+            flat_a = _flatten(getattr(straight, part))
+            flat_b = _flatten(getattr(resumed, part))
+            for path in flat_a:
+                if not torch.equal(flat_a[path], flat_b[path]):
+                    diffs.append((f"{part}/{path}", float(
+                        (flat_a[path] - flat_b[path]).abs().max())))
+        same_step = int(straight.step) == int(resumed.step) == LM_RESUME_STEPS
+        rec["resume"] = dict(steps=LM_RESUME_STEPS, at=LM_RESUME_AT,
+                             seconds=resume_s, differing=diffs,
+                             leaves=3 * len(_flatten(straight.params)))
+        print(f"  resume: {LM_RESUME_STEPS} steps straight against "
+              f"{LM_RESUME_AT} + checkpoint + {LM_RESUME_STEPS - LM_RESUME_AT} "
+              f"resumed: {len(diffs)} of {rec['resume']['leaves']} leaves differ"
+              + (f" (largest {max(x for _, x in diffs):.3g}: "
+                 f"{[p for p, _ in diffs[:6]]})" if diffs else ", bitwise equal")
+              + f"; {resume_s:.1f} s", flush=True)
+        if diffs or not same_step:
+            raise AssertionError(f"resume is not bitwise: {diffs[:6]}, steps "
+                                 f"{int(straight.step)} / {int(resumed.step)}")
+
+    # each part in its own function: its tensors die when it returns
+    checks = None
+    for part in (bwd_checks, twin, moe, full, resume):
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+              f"before the {part.__name__} part", flush=True)
+        checks = part() or checks
+    return rec, checks, launches
+
+
 def main() -> int:
     t0 = time.perf_counter()
     # ------------------------------------------------------------ 1. device
@@ -1620,9 +2107,11 @@ def main() -> int:
                                                         get_program)
         from repro_torch.configs.registry import SHAPES, get_arch
         from repro_torch.kernels.decode_attention import decode_attention
-        from repro_torch.kernels.flash_attention import (flash_attention_fused,
+        from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                         flash_attention_fused,
                                                          flash_route)
         from repro_torch.kernels.ref import (decode_attention_ref,
+                                             flash_attention_bwd_ref,
                                              flash_attention_ref)
         from repro_torch.kernels.ref import mamba2_ssd_ref
         from repro_torch.models.layers import MM_F32_ROUTE
@@ -2932,7 +3421,22 @@ def main() -> int:
           f"{store_rec['profile']['seconds']:.2f} s; launches "
           f"{store_launches}")
 
-    # ----------------------------------------------------------- 10. report
+    # -------------------------------------------------------- 10. lm-train
+    t = time.perf_counter()
+    try:
+        train_rec, checks["flash_attention_bwd"], train_launches = train_phase(dev)
+    except AssertionError as e:
+        return fail("lm-train", str(e))
+    full = train_rec["full"]
+    phase("lm-train", t, f"{len(train_rec['bwd_cases'])} forward and backward "
+          f"cases within "
+          f"their limits; the float32 twin within its limits; "
+          f"{train_rec['moe']['config']} trained; {full['config']}: "
+          f"{full['seconds']:.3f} s a step, {full['tokens_per_s']:.0f} tokens/s, "
+          f"peak {full['peak_gib']:.2f} GiB; resume bitwise; launches "
+          f"{train_launches}")
+
+    # ----------------------------------------------------------- 11. report
     t = time.perf_counter()
     saved = dict(LAUNCHES)
     timed = []
@@ -3182,6 +3686,49 @@ def main() -> int:
                                                        enable_gqa=True), 50,
                 decode_work(lw, H, KV, dh, qd.element_size()), dname))
             del qd, kc, vc, q4, k4, v4
+    # the flash backward at the trained shapes (qwen2.5-3b's heads, causal):
+    # the kernels, their plain version, and SDPA's backward alone (its
+    # forward run once outside the timer; forward and backward together
+    # printed beside it)
+    rows["flash_attention_bwd"] = []
+    for S in (full["seq_len"], FLASH_BWD_S):
+        for dt in (torch.bfloat16, torch.float32):
+            gen = torch.Generator(device=dev).manual_seed(S)
+            q, go = (torch.randn((1, S, 16, 128), generator=gen, device=dev)
+                     .to(dt) for _ in range(2))
+            k, v = (torch.randn((1, S, 2, 128), generator=gen, device=dev)
+                    .to(dt) for _ in range(2))
+            qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_()
+                          for x in (q, k, v))
+            gs = go.transpose(1, 2)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                                      enable_gqa=True)
+
+            out = sdpa()
+
+            # milliseconds a call: CUDA events time these as well as a
+            # trace would, and a trace this late in the run may drop some
+            # of the kernels (ROADMAP Queue C item 8)
+            shape = f"{str(dt)[6:]} B=1 S={S} H=16 KV=2 dh=128 causal"
+            k_ms = median_ms(lambda: flash_attention_bwd(q, k, v, go), 5)
+            p_ms = median_ms(lambda: flash_attention_bwd_ref(q, k, v, go), 5)
+            lib_ms = median_ms(lambda: torch.autograd.grad(
+                out, (qs, ks, vs), gs, retain_graph=True), 5)
+            both_ms = median_ms(lambda: torch.autograd.grad(
+                sdpa(), (qs, ks, vs), gs), 5)
+            b_ms, b_by = work_bound(*flash_bwd_work(
+                1, S, 16, 2, 128, q.element_size()), str(dt)[6:])
+            print(f"  flash_attention_bwd {shape}: kernel {k_ms:.5f} ms a call "
+                  f"(events), plain {p_ms:.5f} ms, SDPA backward {lib_ms:.5f} "
+                  f"ms (forward and backward {both_ms:.5f} ms), bound "
+                  f"{b_ms:.7f} ms ({b_by})", flush=True)
+            rows["flash_attention_bwd"].append(dict(
+                shape=shape, ms=k_ms, timer="events", call_ms=k_ms,
+                plain_ms=p_ms, library_ms=lib_ms, library_fwd_bwd_ms=both_ms,
+                bound_ms=b_ms, bound_by=b_by))
+            del q, k, v, go, qs, ks, vs, gs, out
     for r in lm_runs:
         if "decode_step_device_ms" not in r:
             continue
@@ -3200,6 +3747,7 @@ def main() -> int:
     LAUNCHES.update(saved)
     phase("report", t, "device times from the profiler trace; per-call times "
           "between CUDA events; serving wall time on the host clock")
+    report.update(lm_train=train_rec, train_launches=train_launches)
     report.update(served=served, timed=timed, launches=launches, rows=rows,
                   chain_floor=chain_floor,
                   attention_cases=attn_cases, ssd_cases=ssd_cases,
@@ -3224,28 +3772,33 @@ def main() -> int:
         "cases": timed + front_timed,
     }]
     for name, source, replaces, pick in (
-            ("linear_chain", "linear_chain.cu", "linear_pipeline.py:142",
+            ("linear_chain", "linear_chain.cu", "kernels/linear_pipeline.py:142",
              lambda r: "(64, 976)" in r["shape"] and "bonsai" in r["shape"]),
-            ("linear_chain_q", "linear_chain.cu", "linear_pipeline.py:197",
+            ("linear_chain_q", "linear_chain.cu", "kernels/linear_pipeline.py:197",
              lambda r: "(64, 976)" in r["shape"] and "bonsai" in r["shape"]),
-            ("spmv", "spmv.cu", "spmv.py:95", lambda r: "4096" in r["shape"]),
-            ("matmul", "gemv.cu", "gemv.py:25",
+            ("spmv", "spmv.cu", "kernels/spmv.py:95", lambda r: "4096" in r["shape"]),
+            ("matmul", "gemv.cu", "kernels/gemv.py:25",
              lambda r: r["shape"] == "matmul 4096^3 float32"),
-            ("matmul_wgmma", "gemv.cu", "gemv.py:25",
+            ("matmul_wgmma", "gemv.cu", "kernels/gemv.py:25",
              lambda r: r["shape"] == "matmul 4096^3 bfloat16"),
-            ("flash_attention", "flash_attention.cu", "flash_attention.py:39",
+            ("flash_attention", "flash_attention.cu", "kernels/flash_attention.py:39",
              lambda r: r["shape"].startswith("float32")),
             ("flash_attention_wgmma", "flash_attention.cu",
-             "flash_attention.py:39",
+             "kernels/flash_attention.py:39",
              lambda r: r["shape"].startswith("bfloat16") and "fp32" in r["shape"]),
-            ("decode_attention", "decode_attention.cu", "decode_attention.py:32",
-             lambda r: r["shape"].startswith("bfloat16"))):
+            ("decode_attention", "decode_attention.cu", "kernels/decode_attention.py:32",
+             lambda r: r["shape"].startswith("bfloat16")),
+            ("flash_attention_bwd", "flash_attention.cu",
+             "models/attention.py:70",
+             lambda r: r["shape"].startswith(f"bfloat16 B=1 S={full['seq_len']}"))):
         h = next(r for r in rows[name] if pick(r))
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{source}",
-            "replaces": f"src/repro/kernels/{replaces}",
-            "launches": launches[name],
+            "replaces": f"src/repro/{replaces}",
+            "launches": (train_launches[name] if name == "flash_attention_bwd"
+                         else launches[name]),
+            "train_launches": train_launches.get(name, 0),
             "max_abs_err": checks[name]["max_abs_err"],
             "ms": h["ms"], "call_ms": h["call_ms"], "plain_ms": h["plain_ms"],
             "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],

@@ -1,4 +1,5 @@
-// Fused flash attention forward (GQA, causal or full) for Hopper (sm_90a).
+// Fused flash attention forward (GQA, causal or full) for Hopper (sm_90a),
+// and its backward for training (fb_dq_kernel, fb_dkdv_kernel: at the end).
 //
 // Replaces the TPU kernel `_kernel` of src/repro/kernels/flash_attention.py
 // (:39), launched by `flash_attention_fused` (:80, pallas_call at :118):
@@ -714,4 +715,495 @@ extern "C" int fa_tc_launch(const void* q, const void* k, const void* v, void* o
   if (dh <= 128)
     return round_p ? fa_tc_run<128, 1>(a, mq, mk, mv, s) : fa_tc_run<128, 0>(a, mq, mk, mv, s);
   return round_p ? fa_tc_run<256, 1>(a, mq, mk, mv, s) : fa_tc_run<256, 0>(a, mq, mk, mv, s);
+}
+
+// ------------------------------------------- backward, on the CUDA cores
+//
+// The gradient of the forward with fp32 p (round_p 0, the model's own
+// attention), for training: dq, dk and dv in q's dtype from q, k, v and
+// the output's gradient g (all (B, S, heads, dh), read through their
+// strides; dq, dk and dv written contiguous).  It stands in for what XLA
+// derives by autodiff from the reference model's training attention,
+// src/repro/models/attention.py:70 `flash_attention` (pure jnp: the Pallas
+// kernel `_kernel` has no backward and is not on the reference's training
+// path).  Masks as the forward: causal from the top-left corner, a window
+// > 0 also masks the keys at or below qpos - window; key tiles and row
+// tiles that the masks leave empty are skipped.  dh up to 256 (padded to
+// 64, 128 or 256 in shared memory).  Deterministic: no atomics; every sum
+// is one thread's fmaf chain in a fixed order; fp32 inside, each result
+// rounded once to the input dtype.  Two kernels, launched in this order:
+//
+// fb_dq_kernel: one block per (b * KV + kv head, tile of QM (token, g)
+//   rows), the heaviest causal tiles first.  Pass 1 over the tile's key
+//   tiles recomputes s = (q * scale) . k and dp = g . v and keeps, per
+//   row, the online max m, l = sum exp(s - m) and sum exp(s - m) * dp:
+//   lse = m + log l and D = sum_j p_j dp_j, which equals rowsum(g o out)
+//   for the unrounded out (a bf16 out would move D by its rounding; one
+//   more product buys the exact value).  lse and D go to (B, H, Sq) fp32
+//   scratch for the second kernel (lse is also returned).  Pass 2
+//   recomputes s and dp, p = exp(s - lse), ds = p (dp - D) into shared
+//   memory, and dq += ds . k; dq = scale * that.
+// fb_dkdv_kernel: one block per (b * KV + kv head, tile of KN keys), key
+//   tile 0 (under the causal mask the heaviest) first.  For each tile of
+//   KM (token, g) rows that can see the keys (causal: tokens from the
+//   first key on; window: tokens before the last key + window), in order:
+//   s and dp transposed (keys x rows), p and ds from the rows' lse and D,
+//   then dv += p^T . g and dk += ds^T . (q * scale).  The G query heads of
+//   the KV head are rows of the same walk, so their sum needs no atomics.
+// Thread (tr, tc) of a 16 x 16 grid owns score rows tr + 16 i and columns
+// tc + 16 j, accumulator rows tr + 16 i and columns 64 h + 4 tc + e, as
+// fa_kernel; each row's 16 owners (one half-warp) reduce its statistics by
+// shuffles.  Every operand is staged in shared memory as fp32 by element
+// loads (row pitch padded by 16 bytes); one stage, two barriers per tile.
+//
+// Bound: operations.  The gradient needs 5 products of 2 Sq Sk H dh flops
+// (s, dp, dv, dk, dq; halved under the causal mask); these kernels run 9
+// (pass 1's two, pass 2's three, dkdv's four) on the fp32 CUDA cores.
+
+#define FB_THREADS 256
+#define FB_INF __int_as_float(0x7f800000)   // the lse of a row that sees no key
+
+struct FbArgs {
+  const void* q; const void* k; const void* v; const void* g;
+  void* dq; void* dk; void* dv; float* lse; float* delta;
+  int B, Sq, Sk, H, KV, dh;
+  long long qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, gsb, gss, gsh;
+  float scale;
+  int causal, window;
+};
+
+// s[i][j] += a(row tr + 16 i) . b(row tc + 16 j) over d in [0, d4), one
+// fmaf chain per element in index order, from float4 loads of 4 d's.
+template <int TI, int TJ>
+__device__ __forceinline__ void fb_dots(float (&s)[TI][TJ], const float* A,
+                                        int ap, const float* Bm, int bp,
+                                        int d4, int tr, int tc) {
+#pragma unroll 2
+  for (int d = 0; d < d4; d += 4) {
+    float4 x[TI], y[TJ];
+#pragma unroll
+    for (int i = 0; i < TI; ++i)
+      x[i] = *reinterpret_cast<const float4*>(A + (tr + 16 * i) * ap + d);
+#pragma unroll
+    for (int j = 0; j < TJ; ++j)
+      y[j] = *reinterpret_cast<const float4*>(Bm + (tc + 16 * j) * bp + d);
+#pragma unroll
+    for (int i = 0; i < TI; ++i)
+#pragma unroll
+      for (int j = 0; j < TJ; ++j) {
+        s[i][j] = fmaf(x[i].x, y[j].x, s[i][j]);
+        s[i][j] = fmaf(x[i].y, y[j].y, s[i][j]);
+        s[i][j] = fmaf(x[i].z, y[j].z, s[i][j]);
+        s[i][j] = fmaf(x[i].w, y[j].w, s[i][j]);
+      }
+  }
+}
+
+// acc[i][h][e] += sum_n w(row tr + 16 i, n) * m(n, 64 h + 4 tc + e) over
+// n in [0, n4), fmaf in n order: w row-major (pitch wp), m row-major
+// (pitch mp), both read as float4s.
+template <int TI, int NH>
+__device__ __forceinline__ void fb_accum(float (&acc)[TI][NH][4],
+                                         const float* W, int wp,
+                                         const float* M, int mp, int n4,
+                                         int tr, int tc) {
+  const float* Mt = M + 4 * tc;
+#pragma unroll 2
+  for (int n = 0; n < n4; n += 4) {
+    float4 w[TI];
+#pragma unroll
+    for (int i = 0; i < TI; ++i)
+      w[i] = *reinterpret_cast<const float4*>(W + (tr + 16 * i) * wp + n);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float4 mb[NH];
+#pragma unroll
+      for (int h = 0; h < NH; ++h)
+        mb[h] = *reinterpret_cast<const float4*>(Mt + (n + e) * mp + 64 * h);
+#pragma unroll
+      for (int i = 0; i < TI; ++i) {
+        const float we = fa_at(w[i], e);
+#pragma unroll
+        for (int h = 0; h < NH; ++h) {
+          acc[i][h][0] = fmaf(we, mb[h].x, acc[i][h][0]);
+          acc[i][h][1] = fmaf(we, mb[h].y, acc[i][h][1]);
+          acc[i][h][2] = fmaf(we, mb[h].z, acc[i][h][2]);
+          acc[i][h][3] = fmaf(we, mb[h].w, acc[i][h][3]);
+        }
+      }
+    }
+  }
+}
+
+// Rows r0 .. r0 + R of one KV head's (token, g) rows of a (B, S, H, dh)
+// tensor (base at the head group's first head; token and head strides ss,
+// sh) as fp32 times mul into dst (pitch), columns [0, DHP): zeros past
+// nrows and past dh.  A warp takes a row at a time, its lanes along d.
+template <typename T, int DHP>
+__device__ __forceinline__ void fb_fill_rows(float* dst, int pitch,
+                                             const T* base, long long ss,
+                                             long long sh, int G, int r0,
+                                             int R, int nrows, int dh,
+                                             float mul) {
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < R; r += FB_THREADS / 32) {
+    const int row = r0 + r, t = row / G, g = row - t * G;
+    const bool live = row < nrows;
+    const T* src = base + t * ss + g * sh;
+    for (int d = lane; d < DHP; d += 32)
+      dst[r * pitch + d] = (live && d < dh) ? att_in<T>(src[d]) * mul : 0.0f;
+  }
+}
+
+// `rows` rows of a key tile (row r at src + r * rs) as fp32, columns
+// [0, DHP): zeros for rows at or past nvalid and past dh.
+template <typename T, int DHP>
+__device__ __forceinline__ void fb_fill_keys(float* dst, int pitch,
+                                             const T* src, long long rs,
+                                             int nvalid, int rows, int dh) {
+  for (int e = threadIdx.x; e < rows * DHP; e += FB_THREADS) {
+    const int r = e / DHP, d = e - r * DHP;
+    dst[r * pitch + d] = (r < nvalid && d < dh) ? att_in<T>(src[r * rs + d]) : 0.0f;
+  }
+}
+
+__device__ __forceinline__ bool fb_visible(const FbArgs& a, int key, int tok) {
+  return key < a.Sk && (!a.causal || key <= tok) &&
+         (a.window <= 0 || key > tok - a.window);
+}
+
+// fb_dq_kernel's shared memory, in floats: q * scale and g [QM][P], k and
+// v [QN][P], ds [QM][QN + 4].
+template <int DHP, int QM, int QN>
+struct FbQShape {
+  static constexpr int P = DHP + 4, SP = QN + 4;
+  static constexpr int FLOATS = 2 * QM * P + 2 * QN * P + QM * SP;
+};
+
+template <typename T, int DHP, int QM, int QN>
+__global__ void __launch_bounds__(FB_THREADS, 1)
+fb_dq_kernel(FbArgs a) {
+  using S = FbQShape<DHP, QM, QN>;
+  constexpr int TI = QM / 16, TJ = QN / 16, NH = DHP / 64;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;                       // [QM][P] q * scale
+  float* Gs = Qs + QM * S::P;             // [QM][P] g
+  float* Ks = Gs + QM * S::P;             // [QN][P]
+  float* Vs = Ks + QN * S::P;             // [QN][P]
+  float* Ds = Vs + QN * S::P;             // [QM][SP] ds
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int tr = (tid >> 5) * 2 + (lane >> 4), tc = lane & 15;
+  const int G = a.H / a.KV, nrows = a.Sq * G, dh = a.dh;
+  const int dh4 = (dh + 3) & ~3;
+  const int nt = (nrows + QM - 1) / QM, nbkv = a.B * a.KV;
+  const int bkv = blockIdx.x % nbkv, rank = blockIdx.x / nbkv;   // heaviest first
+  const int r0 = (nt - 1 - rank) * QM;
+  const int b = bkv / a.KV, kvh = bkv - b * a.KV;
+  const T* q = static_cast<const T*>(a.q) + b * a.qsb + (long long)kvh * G * a.qsh;
+  const T* go = static_cast<const T*>(a.g) + b * a.gsb + (long long)kvh * G * a.gsh;
+  const T* k = static_cast<const T*>(a.k) + b * a.ksb + kvh * a.ksh;
+  const T* v = static_cast<const T*>(a.v) + b * a.vsb + kvh * a.vsh;
+
+  const int last_row = min(r0 + QM, nrows) - 1;
+  const int kend = a.causal ? min(a.Sk, last_row / G + 1) : a.Sk;
+  const int nkt = (kend + QN - 1) / QN;
+  const int jt0 = a.window > 0 ? max(0, r0 / G - a.window + 1) / QN : 0;
+
+  fb_fill_rows<T, DHP>(Qs, S::P, q, a.qss, a.qsh, G, r0, QM, nrows, dh, a.scale);
+  fb_fill_rows<T, DHP>(Gs, S::P, go, a.gss, a.gsh, G, r0, QM, nrows, dh, 1.0f);
+
+  int tok[TI];
+  bool live[TI];
+  float m[TI], l[TI], pd[TI];
+#pragma unroll
+  for (int i = 0; i < TI; ++i) {
+    const int row = r0 + tr + 16 * i;
+    tok[i] = row / G;
+    live[i] = row < nrows;
+    m[i] = ATT_NEG;
+    l[i] = 0.0f;
+    pd[i] = 0.0f;
+  }
+
+  // scores and dp of key tile jt into s and dp (k and v staged first)
+  auto tile = [&](int jt, float (&s)[TI][TJ], float (&dp)[TI][TJ]) {
+    const int j0 = jt * QN, nk = min(QN, a.Sk - j0);
+    __syncthreads();                      // the last tile's readers are done
+    fb_fill_keys<T, DHP>(Ks, S::P, k + j0 * a.kss, a.kss, nk, QN, dh);
+    fb_fill_keys<T, DHP>(Vs, S::P, v + j0 * a.vss, a.vss, nk, QN, dh);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < TI; ++i)
+#pragma unroll
+      for (int j = 0; j < TJ; ++j) s[i][j] = dp[i][j] = 0.0f;
+    fb_dots<TI, TJ>(s, Qs, S::P, Ks, S::P, dh4, tr, tc);
+    fb_dots<TI, TJ>(dp, Gs, S::P, Vs, S::P, dh4, tr, tc);
+  };
+
+  // pass 1: the rows' softmax statistics and D, online
+  for (int jt = jt0; jt < nkt; ++jt) {
+    float s[TI][TJ], dp[TI][TJ];
+    tile(jt, s, dp);
+    const int j0 = jt * QN;
+    float mx[TI], ps[TI], pds[TI];
+#pragma unroll
+    for (int i = 0; i < TI; ++i) {
+      mx[i] = ATT_NEG;
+#pragma unroll
+      for (int j = 0; j < TJ; ++j)
+        if (live[i] && fb_visible(a, j0 + tc + 16 * j, tok[i]))
+          mx[i] = fmaxf(mx[i], s[i][j]);
+    }
+#pragma unroll
+    for (int off = 1; off < 16; off <<= 1)
+#pragma unroll
+      for (int i = 0; i < TI; ++i)
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], off));
+    float alpha[TI];
+#pragma unroll
+    for (int i = 0; i < TI; ++i) {
+      const float m_new = fmaxf(m[i], mx[i]);
+      alpha[i] = expf(m[i] - m_new);
+      m[i] = m_new;
+      ps[i] = 0.0f;
+      pds[i] = 0.0f;
+#pragma unroll
+      for (int j = 0; j < TJ; ++j)
+        if (live[i] && fb_visible(a, j0 + tc + 16 * j, tok[i])) {
+          const float p = expf(s[i][j] - m_new);
+          ps[i] += p;
+          pds[i] = fmaf(p, dp[i][j], pds[i]);
+        }
+    }
+#pragma unroll
+    for (int off = 1; off < 16; off <<= 1)
+#pragma unroll
+      for (int i = 0; i < TI; ++i) {
+        ps[i] += __shfl_xor_sync(0xffffffffu, ps[i], off);
+        pds[i] += __shfl_xor_sync(0xffffffffu, pds[i], off);
+      }
+#pragma unroll
+    for (int i = 0; i < TI; ++i) {
+      l[i] = l[i] * alpha[i] + ps[i];
+      pd[i] = pd[i] * alpha[i] + pds[i];
+    }
+  }
+  float lse[TI], D[TI];
+#pragma unroll
+  for (int i = 0; i < TI; ++i) {
+    // a row that sees no key (none of the model's) gets p = 0 everywhere
+    lse[i] = l[i] > 0.0f ? m[i] + logf(l[i]) : FB_INF;
+    D[i] = l[i] > 0.0f ? pd[i] / l[i] : 0.0f;
+    const int row = r0 + tr + 16 * i;
+    if (tc == 0 && live[i]) {
+      const int g = row - tok[i] * G;
+      const long long at = ((long long)b * a.H + kvh * G + g) * a.Sq + tok[i];
+      a.lse[at] = lse[i];
+      a.delta[at] = D[i];
+    }
+  }
+
+  // pass 2: ds into shared memory, dq += ds . k
+  float acc[TI][NH][4];
+#pragma unroll
+  for (int i = 0; i < TI; ++i)
+#pragma unroll
+    for (int h = 0; h < NH; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][h][e] = 0.0f;
+  float* Drow = Ds + tr * S::SP;
+  for (int jt = jt0; jt < nkt; ++jt) {
+    float s[TI][TJ], dp[TI][TJ];
+    tile(jt, s, dp);
+    const int j0 = jt * QN;
+#pragma unroll
+    for (int i = 0; i < TI; ++i)
+#pragma unroll
+      for (int j = 0; j < TJ; ++j) {
+        const bool ok = live[i] && fb_visible(a, j0 + tc + 16 * j, tok[i]);
+        Drow[16 * i * S::SP + tc + 16 * j] =
+            ok ? expf(s[i][j] - lse[i]) * (dp[i][j] - D[i]) : 0.0f;
+      }
+    __syncwarp();                         // a row's ds come from its half-warp
+    fb_accum<TI, NH>(acc, Ds, S::SP, Ks, S::P, QN, tr, tc);
+  }
+
+  T* dq = static_cast<T*>(a.dq);
+#pragma unroll
+  for (int i = 0; i < TI; ++i) {
+    if (!live[i]) continue;
+    const int g = r0 + tr + 16 * i - tok[i] * G;
+    T* dst = dq + (((long long)b * a.Sq + tok[i]) * a.H + kvh * G + g) * dh;
+#pragma unroll
+    for (int h = 0; h < NH; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 64 * h + 4 * tc + e;
+        if (col < dh) dst[col] = att_out<T>(acc[i][h][e] * a.scale);
+      }
+  }
+}
+
+// fb_dkdv_kernel's shared memory, in floats: k and v [KN][P], q * scale
+// and g [KM][P], p and ds transposed [KN][KM + 4], lse and D [KM].
+template <int DHP, int KN, int KM>
+struct FbKShape {
+  static constexpr int P = DHP + 4, SP = KM + 4;
+  static constexpr int FLOATS = 2 * KN * P + 2 * KM * P + 2 * KN * SP + 2 * KM;
+};
+
+template <typename T, int DHP, int KN, int KM>
+__global__ void __launch_bounds__(FB_THREADS, 1)
+fb_dkdv_kernel(FbArgs a) {
+  using S = FbKShape<DHP, KN, KM>;
+  constexpr int TK = KN / 16, TR = KM / 16, NH = DHP / 64;
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem;                       // [KN][P]
+  float* Vs = Ks + KN * S::P;             // [KN][P]
+  float* Qs = Vs + KN * S::P;             // [KM][P] q * scale
+  float* Gs = Qs + KM * S::P;             // [KM][P] g
+  float* Pt = Gs + KM * S::P;             // [KN][SP] p, key-major
+  float* St = Pt + KN * S::SP;            // [KN][SP] ds, key-major
+  float* Ls = St + KN * S::SP;            // [KM] lse
+  float* Dl = Ls + KM;                    // [KM] D
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int tr = (tid >> 5) * 2 + (lane >> 4), tc = lane & 15;
+  const int G = a.H / a.KV, nrows = a.Sq * G, dh = a.dh;
+  const int dh4 = (dh + 3) & ~3;
+  const int nbkv = a.B * a.KV;
+  const int bkv = blockIdx.x % nbkv, kt = blockIdx.x / nbkv;
+  const int b = bkv / a.KV, kvh = bkv - b * a.KV;
+  const int j0 = kt * KN, nk = min(KN, a.Sk - j0);
+  const T* q = static_cast<const T*>(a.q) + b * a.qsb + (long long)kvh * G * a.qsh;
+  const T* go = static_cast<const T*>(a.g) + b * a.gsb + (long long)kvh * G * a.gsh;
+  fb_fill_keys<T, DHP>(Ks, S::P, static_cast<const T*>(a.k) + b * a.ksb +
+                       kvh * a.ksh + j0 * a.kss, a.kss, nk, KN, dh);
+  fb_fill_keys<T, DHP>(Vs, S::P, static_cast<const T*>(a.v) + b * a.vsb +
+                       kvh * a.vsh + j0 * a.vss, a.vss, nk, KN, dh);
+
+  // the rows that can see a key of this tile
+  const int row_lo = a.causal ? min(nrows, j0 * G) : 0;
+  const int row_hi = a.window > 0
+      ? (int)min((long long)nrows, (long long)(j0 + nk - 1 + a.window) * G)
+      : nrows;
+  float accK[TK][NH][4], accV[TK][NH][4];
+#pragma unroll
+  for (int i = 0; i < TK; ++i)
+#pragma unroll
+    for (int h = 0; h < NH; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) accK[i][h][e] = accV[i][h][e] = 0.0f;
+  const float* lse_bh = a.lse + ((long long)b * a.H + kvh * G) * a.Sq;
+  const float* del_bh = a.delta + ((long long)b * a.H + kvh * G) * a.Sq;
+
+  for (int r0 = row_lo; r0 < row_hi; r0 += KM) {
+    __syncthreads();                      // the last tile's readers are done
+    fb_fill_rows<T, DHP>(Qs, S::P, q, a.qss, a.qsh, G, r0, KM, nrows, dh, a.scale);
+    fb_fill_rows<T, DHP>(Gs, S::P, go, a.gss, a.gsh, G, r0, KM, nrows, dh, 1.0f);
+    for (int r = tid; r < KM; r += FB_THREADS) {
+      const int row = r0 + r, t = row / G, g = row - t * G;
+      const bool live = row < nrows;
+      Ls[r] = live ? lse_bh[(long long)g * a.Sq + t] : FB_INF;
+      Dl[r] = live ? del_bh[(long long)g * a.Sq + t] : 0.0f;
+    }
+    __syncthreads();
+    float s[TK][TR], dp[TK][TR];
+#pragma unroll
+    for (int i = 0; i < TK; ++i)
+#pragma unroll
+      for (int j = 0; j < TR; ++j) s[i][j] = dp[i][j] = 0.0f;
+    fb_dots<TK, TR>(s, Ks, S::P, Qs, S::P, dh4, tr, tc);
+    fb_dots<TK, TR>(dp, Vs, S::P, Gs, S::P, dh4, tr, tc);
+#pragma unroll
+    for (int i = 0; i < TK; ++i)
+#pragma unroll
+      for (int j = 0; j < TR; ++j) {
+        const int r = tc + 16 * j, row = r0 + r;
+        const bool ok = tr + 16 * i < nk && row < nrows &&
+                        fb_visible(a, j0 + tr + 16 * i, row / G);
+        const float p = ok ? expf(s[i][j] - Ls[r]) : 0.0f;
+        Pt[(tr + 16 * i) * S::SP + r] = p;
+        St[(tr + 16 * i) * S::SP + r] = ok ? p * (dp[i][j] - Dl[r]) : 0.0f;
+      }
+    __syncwarp();                         // a key's p and ds come from its half-warp
+    fb_accum<TK, NH>(accV, Pt, S::SP, Gs, S::P, KM, tr, tc);
+    fb_accum<TK, NH>(accK, St, S::SP, Qs, S::P, KM, tr, tc);
+  }
+
+  T* dk = static_cast<T*>(a.dk);
+  T* dv = static_cast<T*>(a.dv);
+#pragma unroll
+  for (int i = 0; i < TK; ++i) {
+    if (tr + 16 * i >= nk) continue;
+    const long long at = (((long long)b * a.Sk + j0 + tr + 16 * i) * a.KV + kvh) * dh;
+#pragma unroll
+    for (int h = 0; h < NH; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 64 * h + 4 * tc + e;
+        if (col < dh) {
+          dk[at + col] = att_out<T>(accK[i][h][e]);
+          dv[at + col] = att_out<T>(accV[i][h][e]);
+        }
+      }
+  }
+}
+
+template <typename T, int DHP, int QM, int QN, int KN, int KM>
+static int fb_run(const FbArgs& a, cudaStream_t s) {
+  static int granted_q[HP_MAX_DEVICES] = {0}, granted_k[HP_MAX_DEVICES] = {0};
+  const int smq = FbQShape<DHP, QM, QN>::FLOATS * (int)sizeof(float);
+  const int smk = FbKShape<DHP, KN, KM>::FLOATS * (int)sizeof(float);
+  int e = hp_grant_smem((const void*)fb_dq_kernel<T, DHP, QM, QN>, smq, granted_q);
+  if (e) return e;
+  e = hp_grant_smem((const void*)fb_dkdv_kernel<T, DHP, KN, KM>, smk, granted_k);
+  if (e) return e;
+  const long long nbkv = (long long)a.B * a.KV;
+  const long long bq = ((long long)a.Sq * (a.H / a.KV) + QM - 1) / QM * nbkv;
+  const long long bk = ((long long)a.Sk + KN - 1) / KN * nbkv;
+  if (bq > 0x7fffffffLL || bk > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  fb_dq_kernel<T, DHP, QM, QN><<<(unsigned)bq, FB_THREADS, smq, s>>>(a);
+  e = (int)cudaGetLastError();
+  if (e) return e;
+  fb_dkdv_kernel<T, DHP, KN, KM><<<(unsigned)bk, FB_THREADS, smk, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// Tiles: dq blocks of QM rows over key tiles of QN, dkdv blocks of KN keys
+// over row tiles of KM; 32 keys a dkdv block (twice the blocks of 64, and
+// half the longest block's walk under the causal mask).
+template <typename T>
+static int fb_dispatch(const FbArgs& a, cudaStream_t s) {
+  if (a.dh <= 64) return fb_run<T, 64, 64, 64, 32, 64>(a, s);
+  if (a.dh <= 128) return fb_run<T, 128, 64, 64, 32, 64>(a, s);
+  return fb_run<T, 256, 32, 32, 32, 32>(a, s);
+}
+
+// q (B, Sq, H, dh), k and v (B, Sk, KV, dh) and g (B, Sq, H, dh) with
+// element strides (last axis contiguous); dq, dk, dv contiguous in the
+// same dtype (0 float32, 1 bfloat16); lse and delta (B, H, Sq) float32
+// scratch, lse left holding the rows' log-sum-exp; dh <= 256; causal and
+// window as fa_launch's.  Launches fb_dq_kernel, then fb_dkdv_kernel.
+// Returns the first cudaGetLastError() that is not 0, else 0.
+extern "C" int fb_launch(const void* q, const void* k, const void* v,
+                         const void* g, void* dq, void* dk, void* dv,
+                         float* lse, float* delta,
+                         int B, int Sq, int Sk, int H, int KV, int dh,
+                         long long qsb, long long qss, long long qsh,
+                         long long ksb, long long kss, long long ksh,
+                         long long vsb, long long vss, long long vsh,
+                         long long gsb, long long gss, long long gsh,
+                         float scale, int causal, int window, int dtype,
+                         void* stream) {
+  if (B == 0 || Sq == 0) return 0;
+  if (Sk < 1 || KV < 1 || H % KV != 0 || dh < 1 || dh > 256 || window < 0 ||
+      (window > 0 && !causal) || dtype < 0 || dtype > 1)
+    return (int)cudaErrorInvalidValue;
+  FbArgs a{q, k, v, g, dq, dk, dv, lse, delta, B, Sq, Sk, H, KV, dh,
+           qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, gsb, gss, gsh,
+           scale, causal, window};
+  cudaStream_t s = (cudaStream_t)stream;
+  return dtype == 0 ? fb_dispatch<float>(a, s) : fb_dispatch<__nv_bfloat16>(a, s);
 }

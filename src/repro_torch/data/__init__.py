@@ -1,1 +1,1 @@
-"""Synthetic Table-I datasets."""
+"""Synthetic Table-I datasets and the LM's synthetic token pipeline."""

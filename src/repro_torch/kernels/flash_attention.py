@@ -16,6 +16,18 @@ the output columns over blocks.
 ``LAUNCHES["flash_attention_wgmma"]`` and ``LAUNCHES["flash_attention"]``
 count the two kernels' launches.
 
+The gradient, for training: :func:`flash_attention_bwd` gives dq, dk, dv
+(and each row's log-sum-exp) of the attention with fp32 p from the output's
+gradient, on the card by the two backward kernels of the same source
+(``fb_dq_kernel``, then ``fb_dkdv_kernel``; no atomics), on CPU tensors by
+the plain version :func:`repro_torch.kernels.ref.flash_attention_bwd_ref`;
+``LAUNCHES["flash_attention_bwd"]`` counts its calls on the card, both
+kernels as one.  :class:`FlashAttentionFn` is the forward kernel with that
+backward, as autograd takes it; :func:`flash_attention_train` is what the
+model's attention calls when it needs a gradient (the plain version on the
+CPU, autograd through it).  There is no fallback on the card: a build or
+launch that fails raises.
+
 ``round_p`` (default True, what the TPU kernel does) rounds the
 probabilities to v's dtype before P·V; ``torch.bfloat16`` rounds them to
 bfloat16 whatever v's dtype (the model's ``probs_bf16`` at float32); False
@@ -36,10 +48,11 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.kernels.build import check_launch, load
-from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_ref
 
 __all__ = ["flash_attention_fused", "flash_route", "plan_flash_simt",
-           "FlashSimtPlan"]
+           "FlashSimtPlan", "flash_attention_bwd", "FlashAttentionFn",
+           "flash_attention_train"]
 
 MAX_DH = 256          # the widest head the tensor-core kernel takes
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
@@ -95,6 +108,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fa_tc_launch.argtypes = ([vp] * 4 + [ci] * 6 + [cl] * 9
                                  + [ctypes.c_float] + [ci] * 3 + [vp])
     lib.fa_tc_launch.restype = ci
+    lib.fb_launch.argtypes = ([vp] * 9 + [ci] * 6 + [cl] * 12
+                              + [ctypes.c_float] + [ci] * 3 + [vp])
+    lib.fb_launch.restype = ci
 
 
 # fa_tc_kernel's q tile: 128 (token, g) rows, so G must divide it.
@@ -148,8 +164,7 @@ def flash_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Fused attention → (B, Sq, H, dh) in q's dtype."""
     _check(q, k, v)
     mode = _round_mode(round_p)
-    if window < 0 or (window and not causal):
-        raise ValueError(f"flash_attention: window={window} (>= 0, causal only)")
+    _check_window(causal, window)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    round_p=round_p)
@@ -187,3 +202,91 @@ def flash_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         int(vec), _DTYPE[q.dtype], window, stream)
     check_launch("flash_attention", err)
     return out
+
+
+def _check_window(causal: bool, window: int) -> None:
+    if window < 0 or (window and not causal):
+        raise ValueError(f"flash_attention: window={window} (>= 0, causal only)")
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        g: torch.Tensor, *, causal: bool = True,
+                        window: int = 0) -> tuple[torch.Tensor, ...]:
+    """The gradient of :func:`flash_attention_fused` with fp32 p against
+    the output gradient ``g`` (B, Sq, H, dh): (dq, dk, dv) in the inputs'
+    dtype, and lse (B, H, Sq) float32, each row's log-sum-exp of its
+    scaled, masked scores.  dh up to 256 on the card."""
+    _check(q, k, v)
+    _check_window(causal, window)
+    if g.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd: g {tuple(g.shape)} is not "
+                         f"q's shape {tuple(q.shape)}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, g, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    if any(t.device != q.device for t in (k, v, g)):
+        raise ValueError("flash_attention_bwd: q, k, v and g must share a device")
+    if q.dtype not in _DTYPE or any(t.dtype != q.dtype for t in (k, v, g)):
+        raise TypeError(f"flash_attention_bwd: dtypes {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}, {g.dtype} (float32 or bfloat16, all the same)")
+    B, Sq, H, dh = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    if dh > MAX_DH:
+        raise ValueError(f"flash_attention_bwd: dh {dh} > {MAX_DH} (no config "
+                         "trains such heads)")
+    if g.stride(-1) != 1:
+        g = g.contiguous()
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("flash_attention_bwd: the last axis of q, k and v "
+                         "must be contiguous")
+    dq = torch.empty((B, Sq, H, dh), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Sk, KV, dh), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    if dq.numel() == 0:
+        return dq, dk.zero_(), dv.zero_(), lse
+    delta = torch.empty_like(lse)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    lib = load("flash_attention", _declare)
+    err = lib.fb_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                        lse.data_ptr(), delta.data_ptr(), B, Sq, Sk, H, KV, dh,
+                        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                        *g.stride()[:3], dh ** -0.5, int(causal), window,
+                        _DTYPE[q.dtype], stream)
+    check_launch("flash_attention_bwd", err)
+    return dq, dk, dv, lse
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention with fp32 p on the card's kernels, forward and backward:
+    the forward saves q, k and v (the backward recomputes the scores and
+    each row's statistics), the backward launches the backward kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return flash_attention_fused(q, k, v, causal=causal, window=window,
+                                     round_p=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv, _ = flash_attention_bwd(q, k, v, g, causal=ctx.causal,
+                                            window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, window: int = 0
+                          ) -> torch.Tensor:
+    """Attention with fp32 p that autograd can differentiate: on CUDA
+    tensors :class:`FlashAttentionFn` (the kernels both ways), on CPU
+    tensors the plain version."""
+    _check(q, k, v)
+    _check_window(causal, window)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window)
+    return FlashAttentionFn.apply(q, k, v, causal, window)

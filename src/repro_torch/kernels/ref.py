@@ -8,8 +8,9 @@ held against, run on the CPU by the tests and on the card by
 (:mod:`repro_torch.kernels.linear_pipeline`), :func:`spmv_ref` for the
 block-sparse product (:mod:`repro_torch.kernels.spmv`),
 :func:`gemv_ref`/:func:`matmul_ref` for the tiled matmul
-(:mod:`repro_torch.kernels.gemv`), and :func:`flash_attention_ref` and
-:func:`decode_attention_ref` for the attention kernels
+(:mod:`repro_torch.kernels.gemv`), and :func:`flash_attention_ref` (and the gradient
+:func:`flash_attention_bwd_ref`) and :func:`decode_attention_ref` for the
+attention kernels
 (:mod:`repro_torch.kernels.flash_attention`,
 :mod:`repro_torch.kernels.decode_attention`), and :func:`mamba2_ssd_ref`,
 the sequential oracle of the chunked SSD scan (PyTorch ops in the port, as
@@ -30,9 +31,10 @@ import numpy as np
 import torch
 
 __all__ = ["spmv_ref", "gemv_ref", "matmul_ref", "flash_attention_ref",
-           "decode_attention_ref", "mamba2_ssd_ref", "apply_stage",
-           "apply_stage_q", "linear_chain_ref", "linear_chain_q_ref",
-           "run_segment_ref", "run_segment_grid_ref", "float_pe_outputs"]
+           "flash_attention_bwd_ref", "decode_attention_ref",
+           "mamba2_ssd_ref", "apply_stage", "apply_stage_q",
+           "linear_chain_ref", "linear_chain_q_ref", "run_segment_ref",
+           "run_segment_grid_ref", "float_pe_outputs"]
 
 
 def spmv_ref(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -61,7 +63,9 @@ _NEG = -1e30
 
 def _softmax_pv(s: torch.Tensor, v: torch.Tensor, eq: str,
                 round_p: bool | torch.dtype) -> torch.Tensor:
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    # the row max only shifts the exponent: held constant under autograd,
+    # as the gradient of a shift-invariant function allows
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True).detach())
     l = p.sum(dim=-1, keepdim=True)
     if round_p is not False:
         p = p.to(v.dtype if round_p is True else round_p).float()
@@ -76,9 +80,18 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     masks ``kpos > qpos`` from the top-left corner, and a ``window`` > 0
     also ``kpos <= qpos - window``."""
     B, Sq, H, dh = q.shape
+    s = _flash_scores(q, k, causal, window)
+    out = _softmax_pv(s, v, "bkgqs,bskd->bkgqd", round_p)   # (B, KV, G, Sq, dh)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, dh).to(q.dtype)
+
+
+def _flash_scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
+                  window: int) -> torch.Tensor:
+    """The scaled, masked fp32 scores (B, KV, G, Sq, Sk) of
+    :func:`flash_attention_ref`."""
+    B, Sq, H, dh = q.shape
     Sk, KV = k.shape[1], k.shape[2]
-    G = H // KV
-    qg = (q.float() * dh ** -0.5).reshape(B, Sq, KV, G, dh)
+    qg = (q.float() * dh ** -0.5).reshape(B, Sq, KV, H // KV, dh)
     s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float())
     if causal or window:
         qpos = torch.arange(Sq, device=q.device)[:, None]
@@ -89,8 +102,25 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if window:
             masked |= kpos <= qpos - window
         s = s.masked_fill(masked, _NEG)
-    out = _softmax_pv(s, v, "bkgqs,bskd->bkgqd", round_p)   # (B, KV, G, Sq, dh)
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, dh).to(q.dtype)
+    return s
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            g: torch.Tensor, *, causal: bool = True,
+                            window: int = 0
+                            ) -> tuple[torch.Tensor, ...]:
+    """The gradient of :func:`flash_attention_ref` (p in fp32) against the
+    output gradient ``g`` (B, Sq, H, dh), by autograd: (dq, dk, dv) in the
+    inputs' dtypes, and lse (B, H, Sq) float32, each row's log-sum-exp of
+    its scaled, masked scores."""
+    with torch.enable_grad():
+        qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+        out = flash_attention_ref(qq, kk, vv, causal=causal, window=window)
+        dq, dk, dv = torch.autograd.grad(out, (qq, kk, vv), g)
+    with torch.no_grad():
+        s = _flash_scores(q, k, causal, window)
+        lse = torch.logsumexp(s, dim=-1)                      # (B, KV, G, Sq)
+    return dq, dk, dv, lse.reshape(q.shape[0], q.shape[2], q.shape[1])
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

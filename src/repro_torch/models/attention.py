@@ -20,6 +20,13 @@ before the kernel (exact in float32) and the kernel rounds p
 flash kernel's plain version on any device instead (a comparison, never the
 served path).
 
+Training: when autograd needs the attention's gradient (grad enabled and
+q, k or v requiring it), ``gqa_prefill`` and ``mla_prefill`` run
+:func:`repro_torch.kernels.flash_attention.flash_attention_train` instead
+(the same forward kernel with a hand-written backward on the card, the plain
+version on CPU tensors).  ``probs_bf16`` has no backward yet and raises there
+(ROADMAP.md, Queue A item 8.10; no config sets ``attn_probs_bf16``).
+
 ``mla_prefill`` materialises per-head keys of width ``dn + dr`` (the
 latent's up-projection and the shared rope key) and values of width ``dn``,
 and runs the same flash kernel: the kernel takes k and v of one width, so v
@@ -48,7 +55,8 @@ from typing import Mapping
 import torch
 
 from repro_torch.kernels.decode_attention import decode_attention
-from repro_torch.kernels.flash_attention import flash_attention_fused
+from repro_torch.kernels.flash_attention import (flash_attention_fused,
+                                                 flash_attention_train)
 from repro_torch.kernels.ref import flash_attention_ref
 from repro_torch.models.layers import (apply_rope, bmm_f32, dot_f32, he_init,
                                        rms_norm)
@@ -180,10 +188,26 @@ def gqa_prefill(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     q, k, v = _qkv(p, x)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    attend = flash_attention_ref if plain else flash_attention_fused
-    out = attend(q, k, _bf16_v(v, probs_bf16), causal=True, window=window,
-                 round_p=_p_rounding(probs_bf16))
+    out = _attend(q, k, _bf16_v(v, probs_bf16), window, probs_bf16, plain)
     return _out(p, out, x.dtype), (k, v)
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
+            probs_bf16: bool, plain: bool) -> torch.Tensor:
+    """Causal flash attention: the plain version (``plain``), the kernel
+    with its backward (autograd needs a gradient), or the kernel."""
+    if plain:
+        return flash_attention_ref(q, k, v, causal=True, window=window,
+                                   round_p=_p_rounding(probs_bf16))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if probs_bf16:
+            raise NotImplementedError(
+                "attention with probs_bf16 has no backward in the port yet "
+                "(ROADMAP.md, Queue A item 8.10; no config sets "
+                "attn_probs_bf16)")
+        return flash_attention_train(q, k, v, causal=True, window=window)
+    return flash_attention_fused(q, k, v, causal=True, window=window,
+                                 round_p=_p_rounding(probs_bf16))
 
 
 def _bf16_v(v: torch.Tensor, probs_bf16: bool) -> torch.Tensor:
@@ -296,10 +320,9 @@ def mla_prefill(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     H = k_nope.shape[2]
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, dr)], dim=-1)
-    v = torch.nn.functional.pad(_bf16_v(v, probs_bf16), (0, dr))  # zeros dn..
-    attend = flash_attention_ref if plain else flash_attention_fused
-    out = attend(q, k, v, causal=True,
-                 round_p=_p_rounding(probs_bf16))[..., :dn]
+    # zeros in v's columns dn.., outside the kernel: autograd drops their dv
+    v = torch.nn.functional.pad(_bf16_v(v, probs_bf16), (0, dr))
+    out = _attend(q, k, v, 0, probs_bf16, plain)[..., :dn]
     return _out(p, out, dt), (c_kv, k_rope)
 
 

@@ -12,7 +12,14 @@ Every product that the reference computes with
 :func:`bmm_f32`, over the MoE expert axis), so that a
 bfloat16 activation meets a bfloat16 weight and gives an fp32 result without
 being rounded to bfloat16 first.  Float32 products run in full float32: the
-model turns TF32 off on the card.
+model turns TF32 off on the card.  On the card such a bfloat16 product is
+``torch.mm``/``torch.bmm`` with ``out_dtype=torch.float32``, which autograd
+cannot differentiate; :class:`ProductF32` wraps it with the reference's
+gradient: XLA transposes ``dot_general(x, w) → f32`` on bfloat16 operands
+into ``convert(dot_general(g_f32, w) → f32, bf16)``, an fp32 product of the
+fp32 cotangent with the other operand upcast, rounded once (on the CPU its
+forward upcasts both operands: the same values).  :func:`cross_entropy_loss`
+is the reference's next-token loss.
 """
 
 from __future__ import annotations
@@ -23,8 +30,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["pad_vocab", "he_init", "normal_init", "rms_norm", "dot_f32",
-           "bmm_f32", "init_mlp", "mlp_swiglu", "rope_table", "apply_rope",
-           "MM_F32_ROUTE"]
+           "bmm_f32", "ProductF32", "init_mlp", "mlp_swiglu", "rope_table",
+           "apply_rope", "cross_entropy_loss", "MM_F32_ROUTE"]
 
 
 def pad_vocab(vocab_size: int, multiple: int = 256) -> int:
@@ -77,18 +84,47 @@ def _mm_bf16_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.float() @ b.float()
 
 
+class ProductF32(torch.autograd.Function):
+    """``a @ b`` of two bfloat16 operands, (M, K) × (K, N) or batched (E, M,
+    K) × (E, K, N), with an fp32 result: on the card by the ``out_dtype``
+    route, on the CPU by upcast operands.  The backward is the reference's:
+    ``da = (g @ bᵀ.float())`` and ``db = (aᵀ.float() @ g)``, fp32 products
+    rounded once to the operands' dtype (what autograd gives the upcast
+    product)."""
+
+    @staticmethod
+    def forward(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(a, b)
+        if a.device.type != "cuda":
+            return a.float() @ b.float()
+        if a.dim() == 3:
+            return torch.bmm(a, b, out_dtype=torch.float32)
+        return _mm_bf16_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        a, b = ctx.saved_tensors
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = (g @ b.float().mT).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            db = (a.float().mT @ g).to(b.dtype)
+        return da, db
+
+
 def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` over the last axis of ``x`` with an fp32 result, ``x``
     (..., K) and ``w`` (K, N) of one dtype: the reference's einsum with
-    ``preferred_element_type=float32``.  On the CPU both operands are
-    upcast (bfloat16 products are exact in float32); on the card a
-    bfloat16 product keeps its operands and accumulates in fp32."""
+    ``preferred_element_type=float32``.  A bfloat16 product is
+    :class:`ProductF32`: on the CPU both operands are upcast (bfloat16
+    products are exact in float32); on the card it keeps its operands and
+    accumulates in fp32."""
     lead = x.shape[:-1]
     a = x.reshape(-1, x.shape[-1])
     if x.dtype == torch.float32:
         out = a @ w
-    elif x.device.type == "cuda" and x.dtype == torch.bfloat16:
-        out = _mm_bf16_f32(a, w)
+    elif x.dtype == torch.bfloat16:
+        out = ProductF32.apply(a, w)
     else:
         out = a.float() @ w.float()
     return out.reshape(*lead, w.shape[-1])
@@ -97,13 +133,14 @@ def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` over a leading batch axis, ``a`` (E, M, K) and ``b`` (E,
     K, N) of one dtype, with an fp32 result: the reference's
-    ``einsum("ecd,edf->ecf", ..., preferred_element_type=float32)``.  On
-    the card a bfloat16 product keeps its operands (the (E, K, N) weight
-    stacks are never upcast); on the CPU both are upcast."""
+    ``einsum("ecd,edf->ecf", ..., preferred_element_type=float32)``.  A
+    bfloat16 product is :class:`ProductF32`: on the card it keeps its
+    operands (the (E, K, N) weight stacks are never upcast in the forward);
+    on the CPU both are upcast."""
     if a.dtype == torch.float32:
         return torch.bmm(a, b)
-    if a.device.type == "cuda" and a.dtype == torch.bfloat16:
-        return torch.bmm(a, b, out_dtype=torch.float32)
+    if a.dtype == torch.bfloat16:
+        return ProductF32.apply(a, b)
     return torch.bmm(a.float(), b.float())
 
 
@@ -156,3 +193,25 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     xf1, xf2 = x[..., :half].float(), x[..., half:].float()
     return torch.cat([xf1 * c - xf2 * s, xf2 * c + xf1 * s],
                      dim=-1).to(x.dtype)
+
+
+# ------------------------------------------------------------- cross entropy
+def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor, *,
+                       vocab_size: int,
+                       mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean next-token negative log-likelihood: ``logits`` (B, S, Vp),
+    possibly vocab-padded (the padded columns masked to -1e30), ``targets``
+    (B, S) integers; the log-sum-exp in float32; ``mask`` (B, S), 1.0 where
+    a position counts."""
+    lf = logits.float()
+    vp = lf.shape[-1]
+    if vp != vocab_size:
+        col = torch.arange(vp, device=lf.device)
+        lf = lf.masked_fill(col >= vocab_size, -1e30)
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return torch.mean(nll)
+    m = mask.float()
+    return torch.sum(nll * m) / torch.clamp_min(torch.sum(m), 1.0)

@@ -18,7 +18,15 @@ d_model over concat(hidden, initial embedding), applied after every
   the caches of :func:`init_cache` (``k``/``v``, MLA's latent ``ckv``/
   ``kr``, or the Mamba2 layers' state ``h`` and conv states ``conv_x``/
   ``conv_b``/``conv_c`` beside the shared block's ``k``/``v``), updated in
-  place.
+  place,
+* :meth:`Transformer.forward_train` — the same full forward with autograd
+  on (both entry points above run under ``no_grad``), each block
+  rematerialised in the backward as ``cfg.remat``/``cfg.remat_policy`` ask
+  (the reference's ``_maybe_remat``: ``torch.utils.checkpoint`` without
+  reentry; ``"nothing"`` saves nothing inside a block, ``"dots"`` saves
+  every product's output and ``"dots_nobatch"`` those without a batch
+  axis, by selective checkpointing), and :func:`lm_loss`, the reference's
+  next-token loss on it.  Every parameter is trainable (``requires_grad``).
 
 Prefill attention runs on the flash-attention kernel and GQA decode
 attention on the decode-attention kernel (:mod:`repro_torch.models.
@@ -40,30 +48,33 @@ TF32 off: float32 products run in full float32.
 :func:`init_params` makes random weights with the reference's he-scaled
 normal distribution directly on the device (not the JAX values: the two
 generators differ); :func:`params_from_reference` carries a JAX parameter
-tree across.  There is no ``shard_act`` (the identity outside a mesh) and
-no remat (a training option).
+tree across.  There is no ``shard_act`` (the identity outside a mesh).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+import functools
+from typing import Any, Callable
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.core.device import resolve_device
 from repro_torch.models.attention import (gqa_decode, gqa_prefill, init_gqa,
                                           init_mla, mla_decode, mla_prefill)
-from repro_torch.models.layers import (dot_f32, he_init, init_mlp, mlp_swiglu,
-                                       normal_init, pad_vocab, rms_norm,
-                                       rope_freqs, rope_table)
+from repro_torch.models.layers import (cross_entropy_loss, dot_f32, he_init,
+                                       init_mlp, mlp_swiglu, normal_init,
+                                       pad_vocab, rms_norm, rope_freqs,
+                                       rope_table)
 from repro_torch.models.mamba2 import init_mamba2, mamba2_decode, mamba2_prefill
 from repro_torch.models.moe import init_moe, moe_ffn
 
 __all__ = ["ModelConfig", "Transformer", "init_params", "init_cache",
-           "params_from_reference"]
+           "params_from_reference", "lm_loss"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -203,8 +214,43 @@ def _rope_dim(cfg: ModelConfig) -> int:
 
 def _param(shape: tuple[int, ...], dtype: torch.dtype,
            device: torch.device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                        requires_grad=False)
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
+
+
+_ATEN = torch.ops.aten
+# the reference's remat policies as the products whose outputs a block
+# keeps: every product ("dots"), or those without a batch axis
+# ("dots_nobatch": the weight products; attention's scores live inside the
+# flash kernels and are recomputed under every policy)
+_SAVED_PRODUCTS = {
+    "dots": (_ATEN.mm.default, _ATEN.mm.dtype, _ATEN.addmm.default,
+             _ATEN.bmm.default, _ATEN.bmm.dtype, _ATEN.baddbmm.default),
+    "dots_nobatch": (_ATEN.mm.default, _ATEN.mm.dtype, _ATEN.addmm.default),
+}
+
+
+def _keep_products(saved: tuple, ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in saved
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _block_runner(cfg: ModelConfig, train: bool) -> Callable:
+    """How the full forward runs one block: directly, or (training, with
+    ``cfg.remat``) under ``torch.utils.checkpoint`` with the policy's
+    saved products."""
+    if not (train and cfg.remat):
+        return lambda fn, *args: fn(*args)
+    if cfg.remat_policy == "nothing":
+        kw = {}
+    elif cfg.remat_policy in _SAVED_PRODUCTS:
+        policy = functools.partial(_keep_products,
+                                   _SAVED_PRODUCTS[cfg.remat_policy])
+        kw = {"context_fn": functools.partial(
+            create_selective_checkpoint_contexts, policy)}
+    else:
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+    return lambda fn, *args: checkpoint(fn, *args, use_reentrant=False,
+                                        preserve_rng_state=False, **kw)
 
 
 # ==================================================================== modules
@@ -456,7 +502,27 @@ class Transformer(nn.Module):
         "v"} of (G, B, S, KV, dh).  ``window`` (None: the config's) is the
         attention's sliding window.  ``plain_attention`` runs the attention
         kernels' plain versions instead of the kernels (a comparison)."""
+        return self._forward(tokens, prefix_embeds, window, return_cache,
+                             plain_attention, train=False)
+
+    def forward_train(self, tokens: Any, *,
+                      prefix_embeds: torch.Tensor | None = None,
+                      window: int | None = None,
+                      plain_attention: bool = False
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`forward_full` with autograd on and the config's remat:
+        (logits (B, Np + S, Vp) fp32, aux).  Attention runs on the flash
+        kernel with its backward kernels (``plain_attention``: the plain
+        versions, autograd through them)."""
+        logits, _, aux = self._forward(tokens, prefix_embeds, window, False,
+                                       plain_attention, train=True)
+        return logits, aux
+
+    def _forward(self, tokens: Any, prefix_embeds: torch.Tensor | None,
+                 window: int | None, return_cache: bool, plain: bool,
+                 train: bool) -> tuple[torch.Tensor, dict | None, torch.Tensor]:
         cfg = self.cfg
+        run = _block_runner(cfg, train)
         window = cfg.attn_window if window is None else window
         x = self.embed[self._tokens(tokens)]
         if prefix_embeds is not None:
@@ -465,18 +531,17 @@ class Transformer(nn.Module):
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         if cfg.family == "ssm":
             states = [] if return_cache else None
-            x = self._mamba_full(x, range(len(self.blocks)), states)
+            x = self._mamba_full(x, range(len(self.blocks)), states, run)
             caches = _stack_states(states) if return_cache else None
         elif cfg.family == "hybrid":
-            x, caches = self._hybrid_full(x, window, return_cache,
-                                          plain_attention)
+            x, caches = self._hybrid_full(x, window, return_cache, plain, run)
         else:
             cos, sin = rope_table(x.shape[1], _rope_dim(cfg), cfg.rope_theta,
                                   device=self.device)
             c0s, c1s = [], []
             for blk in self.blocks:
-                x, (c0, c1), a = blk.full(cfg, x, cos, sin, window,
-                                          plain_attention)
+                x, (c0, c1), a = run(functools.partial(blk.full, cfg), x, cos,
+                                     sin, window, plain)
                 if a is not None:
                     aux = aux + a
                 if return_cache:
@@ -487,12 +552,13 @@ class Transformer(nn.Module):
                       if return_cache else None)
         return self._logits(x), caches, aux
 
-    def _mamba_full(self, x: torch.Tensor, layers,
-                    states: list | None) -> torch.Tensor:
-        """Mamba2 layers ``layers`` (indices into ``blocks``) over x, their
-        final states appended to ``states`` (None: dropped)."""
+    def _mamba_full(self, x: torch.Tensor, layers, states: list | None,
+                    run: Callable) -> torch.Tensor:
+        """Mamba2 layers ``layers`` (indices into ``blocks``) over x, each
+        by ``run``, their final states appended to ``states`` (None:
+        dropped)."""
         for i in layers:
-            x, st = self.blocks[i].full(self.cfg, x)
+            x, st = run(functools.partial(self.blocks[i].full, self.cfg), x)
             if states is not None:
                 states.append(st)
         return x
@@ -506,7 +572,7 @@ class Transformer(nn.Module):
                 + [(G * (k - 1), cfg.hybrid_tail)])
 
     def _hybrid_full(self, x: torch.Tensor, window: int, return_cache: bool,
-                     plain: bool):
+                     plain: bool, run: Callable):
         cfg = self.cfg
         emb0 = x
         cos, sin = rope_table(x.shape[1], _shared_dh(cfg), cfg.rope_theta,
@@ -514,12 +580,13 @@ class Transformer(nn.Module):
         states = [] if return_cache else None
         kvs = []
         *groups, (t0, tail) = self._hybrid_layout()
+        shared = functools.partial(self.shared_attn.full, cfg)
         for first, n in groups:
-            x = self._mamba_full(x, range(first, first + n), states)
-            x, kv = self.shared_attn.full(cfg, x, emb0, cos, sin, window, plain)
+            x = self._mamba_full(x, range(first, first + n), states, run)
+            x, kv = run(shared, x, emb0, cos, sin, window, plain)
             if return_cache:
                 kvs.append(kv)
-        x = self._mamba_full(x, range(t0, t0 + tail), states)
+        x = self._mamba_full(x, range(t0, t0 + tail), states, run)
         if not return_cache:
             return x, None
         caches = _stack_states(states)
@@ -602,6 +669,26 @@ class Transformer(nn.Module):
         for i in range(t0, t0 + tail):
             x = self.blocks[i].decode(cfg, x, state[i])
         return x
+
+
+def lm_loss(model: Transformer, tokens: Any, *,
+            prefix_embeds: torch.Tensor | None = None,
+            loss_mask: torch.Tensor | None = None,
+            plain_attention: bool = False) -> torch.Tensor:
+    """Next-token cross entropy (+ ``router_aux_weight`` · the router aux
+    loss) of :meth:`Transformer.forward_train`: the prefix's positions are
+    sliced off, targets are the tokens shifted by one, ``loss_mask`` (B,
+    S − 1) over the target positions.  A float32 scalar with autograd."""
+    cfg = model.cfg
+    tok = model._tokens(tokens)
+    logits, aux = model.forward_train(tok, prefix_embeds=prefix_embeds,
+                                      plain_attention=plain_attention)
+    Np = prefix_embeds.shape[1] if prefix_embeds is not None else 0
+    pred = logits[:, Np:, :][:, :-1]
+    mask = None if loss_mask is None else torch.as_tensor(loss_mask).to(tok.device)
+    ce = cross_entropy_loss(pred, tok[:, 1:], vocab_size=cfg.vocab_size,
+                            mask=mask)
+    return ce + cfg.router_aux_weight * aux
 
 
 def _stack_states(states: list) -> dict[str, torch.Tensor]:

@@ -25,6 +25,7 @@ COPIES = [
     "configs/deepseek_v2_236b.py", "configs/mamba2_1_3b.py",
     "configs/zamba2_7b.py", "configs/musicgen_medium.py",
     "configs/command_r_35b.py", "configs/internvl2_26b.py",
+    "data/tokens.py", "train/fault_tolerance.py",
 ]
 
 # the one place a copy differs: ``teacher_labels`` reads the program's

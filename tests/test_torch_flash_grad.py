@@ -1,0 +1,187 @@
+"""The gradient of the port's flash attention, against the reference's.
+
+The reference trains through its pure-jnp streaming attention
+(``repro.models.attention.flash_attention``) and differentiates it with
+XLA; the port's training attention is the flash kernel with a hand-written
+backward (``kernels.flash_attention.FlashAttentionFn``), whose plain version
+on the CPU is autograd through ``kernels.ref.flash_attention_ref``.  Here the
+plain version's (dq, dk, dv) and each row's log-sum-exp are held against
+``jax.vjp`` of the reference on the same numpy inputs: causal, sliding
+window, full, GQA (G 1, 2, 4) and MLA's shape (v zero-padded to the q/k
+width, the padded columns of dv dropped), float32 and bfloat16.
+
+Tolerances: float32 ``rtol = atol = 1e-5`` of each gradient's largest
+magnitude (the two sum the same fp32 terms in other orders); bfloat16: both
+compute in fp32 and round each gradient once, so they agree within one bf16
+ulp of the gradient's largest magnitude.
+
+The card case (``@pytest.mark.cuda``, skipped here) holds the backward
+kernels against the plain version: float32 within ``1e-4`` of each
+gradient's largest magnitude, bfloat16 within two bf16 ulps of it, and lse
+within ``1e-5`` of its largest magnitude; two calls bitwise equal (no
+atomics).  JAX is imported inside the reference's helper only, so that
+the card case runs where JAX is not installed.
+"""
+
+import os
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels.build import LAUNCHES
+from repro_torch.kernels.ref import flash_attention_bwd_ref
+
+# (B, S, H, KV, dh, dhv, causal, window): dhv < dh is MLA's shape
+CASES = [
+    (2, 40, 4, 2, 16, 16, True, 0),
+    (1, 33, 4, 1, 8, 8, True, 0),
+    (2, 40, 4, 2, 16, 16, True, 8),
+    (1, 24, 2, 2, 16, 16, False, 0),
+    (1, 37, 4, 4, 24, 16, True, 0),
+]
+IDS = ["gqa", "mqa-ragged", "window", "full", "mla-pad"]
+
+
+def _inputs(B, S, H, KV, dh, dhv, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, S, H, dh)).astype(np.float32)
+    k = rng.standard_normal((B, S, KV, dh)).astype(np.float32)
+    v = rng.standard_normal((B, S, KV, dhv)).astype(np.float32)
+    g = rng.standard_normal((B, S, H, dhv)).astype(np.float32)
+    return q, k, v, g
+
+
+def _ulp(x: float) -> float:
+    """One bf16 ulp at magnitude ``x``."""
+    return 2.0 ** (np.floor(np.log2(x)) - 7)
+
+
+def _reference(q, k, v, g, causal, window, dtype):
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models import attention as jatt
+
+    jd = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    args = [jnp.asarray(a).astype(jd) for a in (q, k, v)]
+
+    def f(q_, k_, v_):
+        return jatt.flash_attention(q_, k_, v_, causal=causal, window=window,
+                                    kv_chunk=16)
+
+    _, vjp = jax.vjp(f, *args)
+    return [np.asarray(t.astype(jnp.float32)) for t in
+            vjp(jnp.asarray(g).astype(jd))]
+
+
+def _port(q, k, v, g, causal, window, dtype):
+    """The port's route: v zero-padded to q's width (as ``mla_prefill``
+    pads it), the plain backward, dv's padded columns dropped."""
+    dhv = v.shape[-1]
+    qt, kt, vt, gt = (torch.from_numpy(a).to(dtype) for a in (q, k, v, g))
+    pad = q.shape[-1] - dhv
+    vp = torch.nn.functional.pad(vt, (0, pad))
+    gp = torch.nn.functional.pad(gt, (0, pad))
+    dq, dk, dv, lse = flash_attention_bwd_ref(qt, kt, vp, gp, causal=causal,
+                                              window=window)
+    return [t.float().numpy() for t in (dq, dk, dv[..., :dhv])], lse
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_plain_backward_matches_jax_grad(case, dtype):
+    B, S, H, KV, dh, dhv, causal, window = case
+    q, k, v, g = _inputs(B, S, H, KV, dh, dhv, seed=S)
+    if dtype == torch.bfloat16:          # the same bf16 values on both sides
+        q, k, v, g = (torch.from_numpy(a).to(dtype).float().numpy()
+                      for a in (q, k, v, g))
+    got, _ = _port(q, k, v, g, causal, window, dtype)
+    want = _reference(q, k, v, g, causal, window, dtype)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        top = float(np.abs(b).max())
+        tol = 1e-5 * max(top, 1.0) if dtype == torch.float32 else _ulp(top)
+        err = float(np.abs(a - b).max())
+        assert err <= tol, f"{name}: {err} > {tol}"
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_lse_is_the_rows_logsumexp(case):
+    B, S, H, KV, dh, dhv, causal, window = case
+    q, k, v, g = _inputs(B, S, H, KV, dh, dhv, seed=1)
+    _, lse = _port(q, k, v, g, causal, window, torch.float32)
+    s = np.einsum("bqhd,bkhd->bhqk", q.astype(np.float64),
+                  np.repeat(k, H // KV, axis=2).astype(np.float64)) * dh ** -0.5
+    qpos, kpos = np.arange(S)[:, None], np.arange(S)[None, :]
+    mask = np.ones((S, S), bool)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    s = np.where(mask, s, -np.inf)
+    want = np.log(np.exp(s - s.max(-1, keepdims=True)).sum(-1)) + s.max(-1)
+    np.testing.assert_allclose(lse.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_train_attention_differentiates_on_the_cpu():
+    """``flash_attention_train`` on CPU tensors is the plain version with
+    autograd: its gradients are the plain backward's."""
+    q, k, v, g = (torch.from_numpy(a) for a in _inputs(1, 20, 4, 2, 8, 8, 3))
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+    out = fa.flash_attention_train(q, k, v, causal=True, window=5)
+    out.backward(g)
+    want = flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(), g,
+                                   causal=True, window=5)
+    for t, w in zip((q, k, v), want):
+        torch.testing.assert_close(t.grad, w, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="window"):
+        fa.flash_attention_train(q, k, v, causal=False, window=5)
+
+
+# ------------------------------------------------------------------ the card
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    if not (shutil.which("nvcc") or os.path.exists("/usr/local/cuda/bin/nvcc")):
+        pytest.skip("needs nvcc to build csrc/flash_attention.cu")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+# (B, S, H, KV, dh, causal, window): qwen's heads, G 6, dh 64, 192, 224,
+# 256, a window, full attention, a ragged length
+CARD_CASES = [(1, 300, 16, 2, 128, True, 0), (2, 130, 12, 2, 100, True, 0),
+              (1, 200, 4, 4, 64, True, 0), (1, 160, 8, 8, 192, True, 0),
+              (1, 300, 4, 4, 224, True, 64), (1, 97, 2, 1, 256, False, 0),
+              (1, 257, 16, 2, 128, True, 33)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CARD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_backward_kernels_match_plain(card, case, dtype):
+    B, S, H, KV, dh, causal, window = case
+    q, k, v, g = (torch.from_numpy(a).to(card, dtype) for a in
+                  _inputs(B, S, H, KV, dh, dh, seed=S + dh))
+    before = LAUNCHES["flash_attention_bwd"]
+    got = fa.flash_attention_bwd(q, k, v, g, causal=causal, window=window)
+    again = fa.flash_attention_bwd(q, k, v, g, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention_bwd"] == before + 2
+    want = flash_attention_bwd_ref(q, k, v, g, causal=causal, window=window)
+    for name, a, b, c in zip(("dq", "dk", "dv", "lse"), got, want, again):
+        assert torch.equal(a, c), f"{name}: two calls differ"
+        top = float(b.float().abs().max())
+        if name == "lse":
+            tol = 1e-5 * max(top, 1.0)
+        elif dtype == torch.float32:
+            tol = 1e-4 * top
+        else:
+            tol = 2 * _ulp(top)
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= tol, f"{name}: {err} > {tol}"

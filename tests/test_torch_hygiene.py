@@ -15,16 +15,22 @@ from pathlib import Path
 
 import pytest
 
-SRC = Path(__file__).resolve().parents[1] / "src"
-PORT_FILES = sorted((SRC / "repro_torch").rglob("*.py"))
+ROOT = Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
+# the port and the script that runs it on the card
+PORT_FILES = (sorted((SRC / "repro_torch").rglob("*.py"))
+              + [ROOT / "chip_smoke.py"])
 _IMPORT = re.compile(r"^\s*(import|from)\s+(jax|repro)\b", re.M)
 
 
-@pytest.mark.parametrize("path", PORT_FILES,
-                         ids=[str(p.relative_to(SRC)) for p in PORT_FILES])
+def _id(path: Path) -> str:
+    return str(path.relative_to(SRC if path.is_relative_to(SRC) else ROOT))
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=[_id(p) for p in PORT_FILES])
 def test_no_jax_or_reference_import(path):
     hits = [m.group(0).strip() for m in _IMPORT.finditer(path.read_text())]
-    assert not hits, f"{path.relative_to(SRC)} imports {hits}"
+    assert not hits, f"{_id(path)} imports {hits}"
 
 
 _BLOCKED = textwrap.dedent("""
