@@ -185,14 +185,19 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               compile seconds; and its measured-mode compiles find the table
               in the store (0 calls into ``profile_device``);
 10. lm-train — training on the card.  The flash backward kernels
-              (``flash_attention_bwd``) against their plain version
-              (autograd through ``flash_attention_ref``) at B 1, S 1,024
-              (``FLASH_BWD_S``),
-              float32 and bfloat16, at every head shape phase 7 serves:
-              qwen2.5-3b's (16 / 2 / 128), ``FAMILY_HEADS`` (deepseek-v2's
-              MLA with v and the output's gradient zero past column 128),
-              ``NEW_HEADS``, ``SHARED_HEADS`` without and with a window of
-              256; dq, dk, dv within ``FLASH_BWD_F32_REL`` of each one's
+              (``flash_attention_bwd``: the tensor-core route, counted as
+              ``flash_attention_bwd_wgmma``, where ``flash_bwd_route``
+              picks it, else the CUDA-core route) against their plain
+              version (autograd through ``flash_attention_ref``) at B 1, S
+              1,024 (``FLASH_BWD_S``), float32 and bfloat16, at every head
+              shape phase 7 serves: qwen2.5-3b's (16 / 2 / 128),
+              ``FAMILY_HEADS`` (deepseek-v2's MLA with v and the output's
+              gradient zero past column 128), ``NEW_HEADS``,
+              ``SHARED_HEADS`` without and with a window of 256, and
+              qwen2.5-3b's with that window and with full attention; each
+              case's route printed and counted (qwen2.5-3b's heads in
+              bfloat16 must take the tensor cores), a second call bitwise
+              equal to the first; dq, dk, dv within ``FLASH_BWD_F32_REL`` of each one's
               largest magnitude (float32) or ``FLASH_BWD_BF16_ULPS`` bf16
               ulps of it (bfloat16), the rows' log-sum-exp within
               ``FLASH_BWD_LSE_REL``; the same at qwen2.5-3b's heads at the
@@ -222,7 +227,8 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               every run flash forward launches = 2 x layers x microbatches
               x steps (the forward and its remat recompute) on its dtype's
               kernel, backward launches = layers x microbatches x steps
-              (both backward kernels as one), and none on the plain twins;
+              (both backward kernels as one) on its dtype's route (bfloat16
+              on the tensor cores), and none on the plain twins;
 11. report  — the chain kernels' launch floor (an empty kernel with their
               parameter block) beside each served chain call's device time
               and time per call, against ``CHAIN_DEVICE_MS`` /
@@ -238,7 +244,7 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               kernels' share of a decode step's device time (decode
               attention's two passes, ``DECODE_PASSES``); the flash
               backward at qwen2.5-3b's heads, S 4,096 and 1,024, bfloat16
-              and float32, beside its plain version, SDPA's backward
+              on both routes and float32, beside its plain version, SDPA's backward
               (alone, and with its forward), and its bound (five
               products); the
               ``kernels`` JSON line (the forward flash kernels' launches
@@ -391,7 +397,9 @@ LM_TRAIN_FULL_STEPS, LM_TRAIN_FULL_WARM = 3, 1
 # steps straight, against LM_RESUME_AT steps, a checkpoint, and a resumed
 # run to the end; batch and length of each step
 LM_RESUME_STEPS, LM_RESUME_AT, LM_RESUME_BATCH, LM_RESUME_S = 4, 2, 1, 512
-FLASH_BWD_KERNELS = ("fb_dq_kernel", "fb_dkdv_kernel")
+# the two routes' kernels, as a trace names them (by substring)
+FLASH_BWD_KERNELS = ("fb_dq_kernel", "fb_dkdv_kernel", "fbt_dq_kernel",
+                     "fbt_dkdv_kernel")
 # matmul/gemv cases (M, K, N) of phase 3, each in float32 and bfloat16 with
 # both layouts of b: aligned and unaligned pitches, split and unsplit K
 MATMUL_SHAPES = ((129, 65, 70), (128, 128, 128), (64, 610, 24),
@@ -1678,25 +1686,29 @@ def flash_bwd_work(B: int, S: int, H: int, KV: int, dh: int, item: int,
     return float(nbytes), float(10 * B * H * dh * pairs)
 
 
-def bwd_cases() -> list[tuple[int, int, int, int, int, bool]]:
-    """(S, H, KV, dh, window, mla) of every head shape phase 7 serves, at
-    ``FLASH_BWD_S``: qwen2.5-3b's, ``FAMILY_HEADS`` (deepseek-v2's MLA with
-    v zero-padded from 128 to 192), ``NEW_HEADS``, ``SHARED_HEADS`` without
-    and with a window of ``PROBE_WINDOW``; then qwen2.5-3b's at the lengths
-    the 36-layer run trains (``LM_TRAIN_FULL_S``, and
-    ``LM_TRAIN_FULL_S_OOM`` should it fall back)."""
+def bwd_cases() -> list[tuple[int, int, int, int, int, bool, bool]]:
+    """(S, H, KV, dh, window, mla, causal) of every head shape phase 7
+    serves, at ``FLASH_BWD_S``, causal: qwen2.5-3b's, ``FAMILY_HEADS``
+    (deepseek-v2's MLA with v zero-padded from 128 to 192), ``NEW_HEADS``,
+    ``SHARED_HEADS`` without and with a window of ``PROBE_WINDOW``;
+    qwen2.5-3b's with that window and with full attention (the tensor-core
+    route's other masks); then qwen2.5-3b's at the lengths the 36-layer run
+    trains (``LM_TRAIN_FULL_S``, and ``LM_TRAIN_FULL_S_OOM`` should it fall
+    back)."""
     heads = [(16, 2, 128)] + list(FAMILY_HEADS) + list(NEW_HEADS)
-    out = [(H, KV, dh, 0, dh == 192) for H, KV, dh in heads]
-    out += [(*SHARED_HEADS, 0, False), (*SHARED_HEADS, PROBE_WINDOW, False)]
+    out = [(H, KV, dh, 0, dh == 192, True) for H, KV, dh in heads]
+    out += [(*SHARED_HEADS, 0, False, True),
+            (*SHARED_HEADS, PROBE_WINDOW, False, True),
+            (16, 2, 128, PROBE_WINDOW, False, True), (16, 2, 128, 0, False, False)]
     return ([(FLASH_BWD_S, *case) for case in out]
-            + [(S, 16, 2, 128, 0, False)
+            + [(S, 16, 2, 128, 0, False, True)
                for S in (LM_TRAIN_FULL_S, LM_TRAIN_FULL_S_OOM)])
 
 
 def train_phase(dev) -> tuple[dict, dict, dict]:
     """Phase lm-train (see the module docstring).  Returns (record, checks of
-    the backward kernels, launches over the training runs by kernel);
-    raises AssertionError on a failed check."""
+    the backward kernels by route, launches over the training runs by
+    kernel); raises AssertionError on a failed check."""
     import gc
     import shutil
     import tempfile
@@ -1710,6 +1722,7 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
     from repro_torch.kernels.build import LAUNCHES
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                      flash_attention_fused,
+                                                     flash_bwd_route,
                                                      flash_route)
     from repro_torch.kernels.ref import (flash_attention_bwd_ref,
                                          flash_attention_ref)
@@ -1720,7 +1733,8 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
     from repro_torch.train.train_loop import init_state, make_train_step
 
     rec: dict = {"bwd_cases": []}
-    counted = ("flash_attention", "flash_attention_wgmma", "flash_attention_bwd")
+    counted = ("flash_attention", "flash_attention_wgmma", "flash_attention_bwd",
+               "flash_attention_bwd_wgmma")
     launches = dict.fromkeys(counted, 0)
     spec = get_arch(LM_ARCH)
 
@@ -1731,22 +1745,33 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
         for key in counted:
             LAUNCHES[key] = 0
 
-    def take(label, want: dict) -> dict:
+    def take(label, want: dict, quiet: bool = False) -> dict:
+        """Check the launches since ``reset()``; add them to the training
+        runs' (``quiet``: a check's calls, neither printed nor added)."""
         torch.cuda.synchronize()
         got = {key: LAUNCHES[key] for key in counted}
-        print(f"  {label}: launches {got} (expected {want})", flush=True)
+        if not quiet:
+            print(f"  {label}: launches {got} (expected {want})", flush=True)
         if any(got[key] != want.get(key, 0) for key in counted):
             raise AssertionError(f"{label}: launches {got}, expected {want}")
-        for key in counted:
-            launches[key] += got[key]
+        if not quiet:
+            for key in counted:
+                launches[key] += got[key]
         return got
 
-    def fwd_kernel(cfg) -> str:
+    def probe(cfg):
         H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-        probe = [torch.empty((1, 1, h, dh), dtype=cfg.adt, device=dev)
-                 for h in (H, KV, KV)]
-        return ("flash_attention_wgmma" if flash_route(*probe) == "wgmma"
+        return [torch.empty((1, 1, h, dh), dtype=cfg.adt, device=dev)
+                for h in (H, KV, KV)]
+
+    def fwd_kernel(cfg) -> str:
+        return ("flash_attention_wgmma" if flash_route(*probe(cfg)) == "wgmma"
                 else "flash_attention")
+
+    def bwd_kernel(cfg) -> str:
+        return ("flash_attention_bwd_wgmma"
+                if flash_bwd_route(*probe(cfg)) == "wgmma"
+                else "flash_attention_bwd")
 
     def batches(cfg, batch, S, n):
         pipe = TokenPipeline(vocab_size=cfg.vocab_size, batch=batch, seq_len=S)
@@ -1759,11 +1784,14 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
         return float(loss.detach()), torch.autograd.grad(loss, weights)
 
     # 1. the backward kernels against their plain version, and the training
-    # forward (p in fp32) against its own on the same inputs
+    # forward (p in fp32) against its own on the same inputs; each case on
+    # the route flash_bwd_route picks (qwen2.5-3b's heads in bfloat16 on the
+    # tensor cores), counted, and a second call bitwise equal to the first
     def bwd_checks():
         for dt in (torch.float32, torch.bfloat16):
-            for S, H, KV, dh, w, mla in bwd_cases():
-                g = torch.Generator(device=dev).manual_seed(H * 1000 + dh + w + S)
+            for S, H, KV, dh, w, mla, causal in bwd_cases():
+                g = torch.Generator(device=dev).manual_seed(
+                    H * 1000 + dh + w + S + (not causal))
                 q, go = (torch.randn((1, S, H, dh), generator=g, device=dev).to(dt)
                          for _ in range(2))
                 k, v = (torch.randn((1, S, KV, dh), generator=g, device=dev).to(dt)
@@ -1772,12 +1800,27 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
                     v[..., 128:] = 0
                     go[..., 128:] = 0
                 fwd_ok, fwd_err, fwd_lim = attn_compare(
-                    flash_attention_fused(q, k, v, window=w, round_p=False),
-                    flash_attention_ref(q, k, v, window=w, round_p=False))
-                got = flash_attention_bwd(q, k, v, go, causal=True, window=w)
-                want = flash_attention_bwd_ref(q, k, v, go, causal=True, window=w)
+                    flash_attention_fused(q, k, v, causal=causal, window=w,
+                                          round_p=False),
+                    flash_attention_ref(q, k, v, causal=causal, window=w,
+                                        round_p=False))
+                route = flash_bwd_route(q, k, v)
+                kernel = ("flash_attention_bwd_wgmma" if route == "wgmma"
+                          else "flash_attention_bwd")
+                if dt == torch.bfloat16 and (H, KV, dh) == (16, 2, 128) \
+                        and route != "wgmma":
+                    raise AssertionError(f"qwen2.5-3b's heads S={S} bf16 take "
+                                         f"the {route} backward")
+                reset()
+                got = flash_attention_bwd(q, k, v, go, causal=causal, window=w)
+                again = flash_attention_bwd(q, k, v, go, causal=causal, window=w)
+                take(f"backward {route} S={S} H={H} KV={KV} dh={dh}", {kernel: 2},
+                     quiet=True)
+                want = flash_attention_bwd_ref(q, k, v, go, causal=causal,
+                                               window=w)
                 torch.cuda.synchronize()
                 errs, lims = {"out": fwd_err}, {"out": fwd_lim}
+                same = all(torch.equal(a, c) for a, c in zip(got, again))
                 for name, a, b in zip(("dq", "dk", "dv", "lse"), got, want):
                     top = float(b.float().abs().max())
                     lims[name] = (FLASH_BWD_LSE_REL * max(top, 1.0) if name == "lse"
@@ -1785,21 +1828,30 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
                                   else FLASH_BWD_BF16_ULPS * ulp(top))
                     errs[name] = float((a.float() - b.float()).abs().max())
                 label = (f"{str(dt)[6:]} B=1 S={S} H={H} KV={KV} dh={dh}"
+                         + ("" if causal else " full")
                          + (f" window {w}" if w else "")
                          + (" mla v 128->192" if mla else ""))
-                ok = fwd_ok and all(errs[n] <= lims[n] for n in errs if n != "out")
-                rec["bwd_cases"].append(dict(case=label, errs=errs, limits=lims,
-                                             ok=ok))
-                print(f"  flash_attention_bwd {label}: max abs err "
+                ok = fwd_ok and same and all(errs[n] <= lims[n]
+                                             for n in errs if n != "out")
+                rec["bwd_cases"].append(dict(case=label, route=route, errs=errs,
+                                             limits=lims, bitwise=same, ok=ok))
+                print(f"  flash_attention_bwd {label} ({route}): max abs err "
                       + ", ".join(f"{n} {errs[n]:.3g} (limit {lims[n]:.3g})"
-                                  for n in errs), flush=True)
+                                  for n in errs)
+                      + ("; two calls bitwise equal" if same
+                         else "; TWO CALLS DIFFER"), flush=True)
                 if not ok:
-                    raise AssertionError(f"flash_attention_bwd {label}: {errs} "
-                                         f"over the limits {lims}")
-                del q, k, v, go, got, want
-        return {"cases": len(rec["bwd_cases"]),
-                "max_abs_err": max(max(c["errs"][n] for n in ("dq", "dk", "dv"))
-                                   for c in rec["bwd_cases"])}
+                    raise AssertionError(f"flash_attention_bwd {label} ({route}): "
+                                         f"{errs} over the limits {lims}, or "
+                                         f"two calls differ ({not same})")
+                del q, k, v, go, got, again, want
+        out = {}
+        for route, kernel in (("simt", "flash_attention_bwd"),
+                              ("wgmma", "flash_attention_bwd_wgmma")):
+            cases = [c for c in rec["bwd_cases"] if c["route"] == route]
+            out[kernel] = {"cases": len(cases), "max_abs_err": max(
+                max(c["errs"][n] for n in ("dq", "dk", "dv")) for c in cases)}
+        return out
 
     # 2. the float32 twin: kernels against the attention's plain version
     def twin():
@@ -1808,11 +1860,10 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
         data = batches(cfg, 2, LM_TRAIN_S, LM_TRAIN_STEPS)
         model, state = init_state(cfg, 0, device=dev)
         paths = [(p, len(ts)) for p, ts in _leaves(model).items()]
-        fk = fwd_kernel(cfg)
+        fk, bk = fwd_kernel(cfg), bwd_kernel(cfg)
         reset()
         loss_k, gk = first_grads(model, data[0]["tokens"], False)
-        take(f"{cfg.name} x{L} float32 first gradient",
-             {fk: 2 * L, "flash_attention_bwd": L})
+        take(f"{cfg.name} x{L} float32 first gradient", {fk: 2 * L, bk: L})
         reset()
         loss_p, gp = first_grads(model, data[0]["tokens"], True)
         take(f"{cfg.name} x{L} float32 first gradient, plain attention", {})
@@ -1850,7 +1901,7 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
             take(f"{cfg.name} x{L} float32 {LM_TRAIN_STEPS} steps"
                  + (", plain attention" if plain else ""),
                  {} if plain else {fk: 2 * L * LM_TRAIN_STEPS,
-                                   "flash_attention_bwd": L * LM_TRAIN_STEPS})
+                                   bk: L * LM_TRAIN_STEPS})
         print(f"  {cfg.name} x{L} float32 losses {losses[False]} (plain attention "
               f"{losses[True]})", flush=True)
         if not all(math.isfinite(x) for x in losses[False]) or not all(
@@ -1870,7 +1921,9 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
                                   act_dtype="bfloat16")
         data = batches(cfg, 2, LM_TRAIN_S, n)
         model, state = init_state(cfg, 0, device=dev)
-        fk = fwd_kernel(cfg)
+        fk, bk = fwd_kernel(cfg), bwd_kernel(cfg)
+        if bk != "flash_attention_bwd_wgmma":
+            raise AssertionError(f"{cfg.name} bf16 takes the {bk} backward")
         reset()
         loss0, grads = first_grads(model, data[0]["tokens"], False)
         names = [f"{p}[{i}]" for p, ts in _leaves(model).items()
@@ -1886,7 +1939,7 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
             state, m = step(state, b)
             moe_losses.append(float(m["loss"]))
         take(f"{cfg.name} x{L} bfloat16 first gradient and {n} steps",
-             {fk: 2 * L * (n + 1), "flash_attention_bwd": L * (n + 1)})
+             {fk: 2 * L * (n + 1), bk: L * (n + 1)})
         print(f"  {cfg.name} x{L} bfloat16 S={LM_TRAIN_S}: first loss {loss0:.4f}, "
               f"{nonzero} of {len(names)} weights with a "
               f"non-zero gradient, losses {moe_losses}", flush=True)
@@ -1922,7 +1975,9 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
     def full():
         cfg = spec.model
         L = cfg.n_layers
-        fk = fwd_kernel(cfg)
+        fk, bk = fwd_kernel(cfg), bwd_kernel(cfg)
+        if bk != "flash_attention_bwd_wgmma":
+            raise AssertionError(f"{cfg.name} bf16 takes the {bk} backward")
         S = LM_TRAIN_FULL_S
         while True:
             oom = None
@@ -1945,8 +2000,7 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
                     loss = float(m["loss"])
                     sec = time.perf_counter() - t1
                     per = LM_TRAIN_FULL_MB * L
-                    got = take(f"{cfg.name} step {i}", {fk: 2 * per,
-                                                       "flash_attention_bwd": per})
+                    got = take(f"{cfg.name} step {i}", {fk: 2 * per, bk: per})
                     row = dict(step=i, warm=i < LM_TRAIN_FULL_WARM, loss=loss,
                                grad_norm=float(m["grad_norm"]), seconds=sec,
                                tokens_per_s=LM_TRAIN_FULL_BATCH * S / sec,
@@ -1982,7 +2036,7 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
             state, m = step(state, data[-1])
             torch.cuda.synchronize()
         per = LM_TRAIN_FULL_MB * L
-        take(f"{cfg.name} traced step", {fk: 2 * per, "flash_attention_bwd": per})
+        take(f"{cfg.name} traced step", {fk: 2 * per, bk: per})
         by: dict[str, float] = {}
         for e in p.events():
             if e.device_type == DeviceType.CUDA:
@@ -2020,7 +2074,8 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
                   ckpt_every=LM_RESUME_AT, microbatches=1, lr=1e-3, log_every=1,
                   device=dev, layers=LM_TRAIN_LAYERS, act_dtype="float32", seed=0)
         L = LM_TRAIN_LAYERS
-        fk = fwd_kernel(dataclasses.replace(spec.model, act_dtype="float32"))
+        f32 = dataclasses.replace(spec.model, act_dtype="float32")
+        fk, bk = fwd_kernel(f32), bwd_kernel(f32)
         with tempfile.TemporaryDirectory(prefix="mafia-ckpt-") as d:
             print(f"  checkpoints under a temporary directory, "
                   f"{shutil.disk_usage(d).free / 2**30:.0f} GiB free", flush=True)
@@ -2033,7 +2088,7 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
                                    **kw)["state"]
             n_steps = 2 * LM_RESUME_STEPS          # straight, then 2 + 2 resumed
             take("launch.train straight, to the checkpoint, resumed",
-                 {fk: 2 * L * n_steps, "flash_attention_bwd": L * n_steps})
+                 {fk: 2 * L * n_steps, bk: L * n_steps})
             resume_s = time.perf_counter() - t1
         diffs = []
         for part in ("params", "m", "v"):
@@ -2109,6 +2164,7 @@ def main() -> int:
         from repro_torch.kernels.decode_attention import decode_attention
         from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                          flash_attention_fused,
+                                                         flash_bwd_route,
                                                          flash_route)
         from repro_torch.kernels.ref import (decode_attention_ref,
                                              flash_attention_bwd_ref,
@@ -3424,13 +3480,16 @@ def main() -> int:
     # -------------------------------------------------------- 10. lm-train
     t = time.perf_counter()
     try:
-        train_rec, checks["flash_attention_bwd"], train_launches = train_phase(dev)
+        train_rec, bwd_checks, train_launches = train_phase(dev)
+        checks.update(bwd_checks)
     except AssertionError as e:
         return fail("lm-train", str(e))
     full = train_rec["full"]
+    n_tc = sum(c["route"] == "wgmma" for c in train_rec["bwd_cases"])
     phase("lm-train", t, f"{len(train_rec['bwd_cases'])} forward and backward "
-          f"cases within "
-          f"their limits; the float32 twin within its limits; "
+          f"cases ({n_tc} of them on the tensor-core backward) within "
+          f"their limits, two calls bitwise equal; the float32 twin within "
+          f"its limits; "
           f"{train_rec['moe']['config']} trained; {full['config']}: "
           f"{full['seconds']:.3f} s a step, {full['tokens_per_s']:.0f} tokens/s, "
           f"peak {full['peak_gib']:.2f} GiB; resume bitwise; launches "
@@ -3687,10 +3746,11 @@ def main() -> int:
                 decode_work(lw, H, KV, dh, qd.element_size()), dname))
             del qd, kc, vc, q4, k4, v4
     # the flash backward at the trained shapes (qwen2.5-3b's heads, causal):
-    # the kernels, their plain version, and SDPA's backward alone (its
-    # forward run once outside the timer; forward and backward together
-    # printed beside it)
-    rows["flash_attention_bwd"] = []
+    # each route's kernels (bfloat16 on both: the tensor cores, and the
+    # CUDA cores the route replaced), their plain version, and SDPA's
+    # backward alone (its forward run once outside the timer; forward and
+    # backward together printed beside it)
+    rows["flash_attention_bwd"], rows["flash_attention_bwd_wgmma"] = [], []
     for S in (full["seq_len"], FLASH_BWD_S):
         for dt in (torch.bfloat16, torch.float32):
             gen = torch.Generator(device=dev).manual_seed(S)
@@ -3712,7 +3772,15 @@ def main() -> int:
             # trace would, and a trace this late in the run may drop some
             # of the kernels (ROADMAP Queue C item 8)
             shape = f"{str(dt)[6:]} B=1 S={S} H=16 KV=2 dh=128 causal"
-            k_ms = median_ms(lambda: flash_attention_bwd(q, k, v, go), 5)
+            # bfloat16 on the route the call takes (checked), then forced
+            # onto the CUDA cores
+            routes = (flash_bwd_route(q, k, v), "simt") if dt == torch.bfloat16 \
+                else ("simt",)
+            if routes[0] != ("wgmma" if dt == torch.bfloat16 else "simt"):
+                return fail("report", f"flash_attention_bwd {shape}: {routes[0]}")
+            k_ms = {r: median_ms(lambda r=r: flash_attention_bwd(
+                q, k, v, go, route="simt" if r == "simt" else None), 5)
+                for r in routes}
             p_ms = median_ms(lambda: flash_attention_bwd_ref(q, k, v, go), 5)
             lib_ms = median_ms(lambda: torch.autograd.grad(
                 out, (qs, ks, vs), gs, retain_graph=True), 5)
@@ -3720,14 +3788,17 @@ def main() -> int:
                 sdpa(), (qs, ks, vs), gs), 5)
             b_ms, b_by = work_bound(*flash_bwd_work(
                 1, S, 16, 2, 128, q.element_size()), str(dt)[6:])
-            print(f"  flash_attention_bwd {shape}: kernel {k_ms:.5f} ms a call "
-                  f"(events), plain {p_ms:.5f} ms, SDPA backward {lib_ms:.5f} "
+            print(f"  flash_attention_bwd {shape}: "
+                  + ", ".join(f"{r} kernels {k_ms[r]:.5f} ms a call" for r in routes)
+                  + f" (events), plain {p_ms:.5f} ms, SDPA backward {lib_ms:.5f} "
                   f"ms (forward and backward {both_ms:.5f} ms), bound "
                   f"{b_ms:.7f} ms ({b_by})", flush=True)
-            rows["flash_attention_bwd"].append(dict(
-                shape=shape, ms=k_ms, timer="events", call_ms=k_ms,
-                plain_ms=p_ms, library_ms=lib_ms, library_fwd_bwd_ms=both_ms,
-                bound_ms=b_ms, bound_by=b_by))
+            for r in routes:
+                name = "flash_attention_bwd" + ("_wgmma" if r == "wgmma" else "")
+                rows[name].append(dict(
+                    shape=shape, ms=k_ms[r], timer="events", call_ms=k_ms[r],
+                    plain_ms=p_ms, library_ms=lib_ms, library_fwd_bwd_ms=both_ms,
+                    bound_ms=b_ms, bound_by=b_by))
             del q, k, v, go, qs, ks, vs, gs, out
     for r in lm_runs:
         if "decode_step_device_ms" not in r:
@@ -3790,14 +3861,17 @@ def main() -> int:
              lambda r: r["shape"].startswith("bfloat16")),
             ("flash_attention_bwd", "flash_attention.cu",
              "models/attention.py:70",
+             lambda r: r["shape"].startswith(f"float32 B=1 S={FLASH_BWD_S}")),
+            ("flash_attention_bwd_wgmma", "flash_attention.cu",
+             "models/attention.py:70",
              lambda r: r["shape"].startswith(f"bfloat16 B=1 S={full['seq_len']}"))):
         h = next(r for r in rows[name] if pick(r))
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{source}",
             "replaces": f"src/repro/{replaces}",
-            "launches": (train_launches[name] if name == "flash_attention_bwd"
-                         else launches[name]),
+            "launches": (train_launches[name] if name.startswith(
+                "flash_attention_bwd") else launches[name]),
             "train_launches": train_launches.get(name, 0),
             "max_abs_err": checks[name]["max_abs_err"],
             "ms": h["ms"], "call_ms": h["call_ms"], "plain_ms": h["plain_ms"],

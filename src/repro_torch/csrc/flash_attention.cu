@@ -1207,3 +1207,635 @@ extern "C" int fb_launch(const void* q, const void* k, const void* v,
   cudaStream_t s = (cudaStream_t)stream;
   return dtype == 0 ? fb_dispatch<float>(a, s) : fb_dispatch<__nv_bfloat16>(a, s);
 }
+
+// ------------------------------------- backward, bf16 on the tensor cores
+//
+// fbt_dq_kernel, then fbt_dkdv_kernel: the same gradient as fb_dq_kernel
+// and fb_dkdv_kernel (fp32 p, the model's own attention) for bfloat16 q, k,
+// v and g, dq, dk and dv in bfloat16, lse (B, H, Sq) fp32; causal, full or
+// causal with a window, masked as fa_tc_kernel masks.  They replace no TPU
+// kernel: the reference's gradient is XLA's autodiff of
+// src/repro/models/attention.py:70 `flash_attention`, and the Pallas
+// `_kernel` has no backward.  Deterministic: no atomics on floats; every
+// sum runs in an order fixed by the shapes.
+//
+// Bound: operations.  Five products of 2 Sq Sk H dh flops (s, dp, dv, dk,
+// dq; the pairs the mask keeps), chip_smoke.flash_bwd_work; at qwen2.5-3b's
+// trained shape that is 60x the bytes' time.  What the design does:
+//   1. Every product is a wgmma.  A producer warp's TMA loads bring q, g, k
+//      and v in the model's own strided layout into 128-byte-swizzled
+//      shared memory through 4-D tensor maps (fa_tc_map), completed on
+//      mbarriers (full/empty, as fa_tc_kernel).
+//      * fbt_dq_kernel: one block per (b * KV + kv head, tile of FBT_BM
+//        (token, g) rows), the heaviest causal tiles of all heads first, two
+//        consumer warpgroups of 64 rows; the q and g tiles load once (box G
+//        heads x 128 / G tokens), k and v stream through a ring, twice.
+//        Pass 1: S = q.k^T and dP = g.v^T (_ss, both K-major), the online
+//        max m, l = sum exp(s - m) and sum exp(s - m) dp, in base 2 as the
+//        forward: lse = m + log l and D = sum p dp, written to fp32 scratch
+//        (lse also to its (B, H, Sq) output).  Pass 2: S and dP again,
+//        p = exp(s scale - lse), ds = p (dp - D), dQ += dS.K with dS from
+//        registers in the accumulator layout and K read MN-major (transpose
+//        bit) from the same swizzled tile.  As fa_tc_kernel, the unscaled
+//        bf16 q goes into the product and the fp32 scores are scaled after
+//        it (fp32 rounding apart from the plain version, which scales q
+//        first); dq = scale * the sum, in the epilogue.
+//      * fbt_dkdv_kernel: one block per (b * KV + kv head, tile of FBT_BK
+//        keys, piece), one consumer warpgroup, two blocks an SM.  k and v
+//        load once; tiles of FBT_RM (token, g) rows of q and g stream
+//        through the ring with their rows' lse and D (bulk copies from the
+//        scratch).  S^T = K.q^T and dP^T = V.g^T (_ss, K-major); P^T and dS^T
+//        form in the accumulator layout; dV += P^T.g and dK += dS^T.q with
+//        A from registers and B the row tile read MN-major: the tile that fed
+//        S^T K-major, no second copy.  dk = scale * its sum.  The G query
+//        heads of the KV head are rows of the same walk, so their sum needs
+//        no atomics.
+//   2. p and ds are fp32 A operands: each is split into NT bf16 terms (hi,
+//      then what hi left, then what both left), one wgmma a term, as
+//      fa_tc_kernel splits p: three terms carry all 24 bits, so the products
+//      that take p or ds keep the plain version's fp32 operands.  7 products
+//      in dq and 8 in dkdv against the bound's 5: the price of fp32
+//      fidelity, still on the tensor cores.
+//   3. Registers (dkdv, dh 128): dK and dV 64 + 64, S^T and dP^T 32 + 32, the
+//      terms 48 exceed a consumer's 232 at once; so P^T's terms go first and
+//      their products retire before dS^T's terms (formed from dP^T's
+//      registers) are made.  dh > 128 would not fit: such heads stay on the
+//      CUDA cores.
+//   4. 132 SMs: at B 1, KV 2, S 4,096 there are only 128 key tiles, and the
+//      causal mask gives the first 64 times the rows of the last.  Each key
+//      tile's walk is cut into `pieces` runs of row tiles of equal count
+//      (repro_torch.kernels.flash_attention.plan_flash_bwd); each piece
+//      writes fp32 partial dk and dv to scratch, and the last piece of a key
+//      tile to arrive (an integer counter) sums all of them in piece order
+//      and rounds once: the sum's order never depends on arrival.
+// float32 stays on the CUDA cores (the tensor cores would mean TF32 or
+// split operands on both sides), and so do dh > 128 (point 3) and G not
+// dividing 128 (the (token, g) row tiles are TMA boxes of whole tokens).
+
+#define FBT_BM 128         // dq kernel: (token, g) rows a block
+#define FBT_BK 64          // keys a stage (dq kernel), a block (dkdv kernel)
+#define FBT_RM 64          // dkdv kernel: (token, g) rows a stage
+#define FBT_STAGES 2
+#define FBT_DQ_THREADS 384
+#define FBT_KV_THREADS 256
+#define FBT_LOG2E 1.4426950408889634f
+#define FBT_LN2 0.6931471805599453f
+
+struct FbtArgs {
+  __nv_bfloat16* dq; __nv_bfloat16* dk; __nv_bfloat16* dv;
+  float* lse;            // (B, H, Sq): natural log-sum-exp of each row
+  float* stats;          // [2][B * KV][rows_pad]: base-2 lse, then D, by row
+  float* part;           // [B * KV * key tiles * pieces][2][DHP / 2][128]
+  int* count;            // [key tiles * B * KV] pieces arrived
+  int B, Sq, Sk, H, KV, dh, rows_pad, pieces;
+  float scale;
+  int causal, window;
+};
+
+template <int DHP>
+struct FbtQShape {
+  static constexpr int ROW_BYTES = FBT_BM * DHP * 2;   // the q or g tile
+  static constexpr int KV_BYTES = FBT_BK * DHP * 2;    // a k or v stage
+  static constexpr int BARS = 2 * ROW_BYTES + FBT_STAGES * 2 * KV_BYTES;
+  static constexpr int SMEM = BARS + (1 + 2 * FBT_STAGES) * 8 + 1024;
+};
+
+template <int DHP>
+struct FbtKShape {
+  static constexpr int KV_BYTES = FBT_BK * DHP * 2;    // the block's k or v
+  static constexpr int ROW_BYTES = FBT_RM * DHP * 2;   // a stage's q or g rows
+  static constexpr int STATS = 2 * KV_BYTES + FBT_STAGES * 2 * ROW_BYTES;
+  static constexpr int BARS = STATS + FBT_STAGES * 2 * FBT_RM * 4;
+  static constexpr int SMEM = BARS + (1 + 2 * FBT_STAGES) * 8 + 16 + 1024;
+};
+
+// The A operands of the four k-steps of a 64 x 64 fp32 accumulator fragment
+// x (the keys, or rows, of k-step kk are 16 kk .. 16 kk + 15): term t is the
+// bf16 rounding of what terms 0 .. t-1 left of x.
+template <int NT>
+__device__ __forceinline__ void fbt_terms(uint32_t (&a)[NT][4][4],
+                                          const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      float x0 = x[8 * kk + 2 * r], x1 = x[8 * kk + 2 * r + 1];
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        const __nv_bfloat162 b = __floats2bfloat162_rn(x0, x1);
+        a[t][kk][r] = *reinterpret_cast<const uint32_t*>(&b);
+        x0 -= __low2float(b);
+        x1 -= __high2float(b);
+      }
+    }
+}
+
+// d (64 x DHP) += sum over the terms of a (64 x 64) . B, B a 64-row tile
+// read MN-major (its rows are the contraction index).
+template <int DHP, int NT>
+__device__ __forceinline__ void fbt_accum(float (&d)[DHP / 2],
+                                          const uint32_t (&a)[NT][4][4],
+                                          const uint8_t* tile) {
+  hp_fence_regs(d);
+  hp_wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db = hp_desc(tile + kk * 2048, 64 * 128, 1024);
+#pragma unroll
+    for (int t = 0; t < NT; ++t) hp_wgmma_rs<DHP, 1>(d, a[t][kk], db, 1);
+  }
+  hp_wgmma_commit();
+  hp_wgmma_wait<0>();
+  hp_fence_regs(d);
+}
+
+// x = A . B^T and y = C . D^T (64 x 64 each, over DHP): A and C 64 rows at
+// a and c (chunks of 64 columns `ap` bytes apart), B and D 64 rows at b
+// and d (chunks `bp` bytes apart), all K-major.
+template <int DHP>
+__device__ __forceinline__ void fbt_pair(float (&x)[32], float (&y)[32],
+                                         const uint8_t* a, const uint8_t* b,
+                                         const uint8_t* c, const uint8_t* d,
+                                         int ap, int bp) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) x[i] = y[i] = 0.0f;
+  hp_fence_regs(x);
+  hp_fence_regs(y);
+  hp_wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < DHP / 16; ++kk) {
+    const int o = (kk / 4), kin = (kk % 4) * 32;
+    hp_wgmma_ss<64, 0>(x, hp_desc(a + o * ap + kin, 16, 1024),
+                       hp_desc(b + o * bp + kin, 16, 1024), 1);
+  }
+#pragma unroll
+  for (int kk = 0; kk < DHP / 16; ++kk) {
+    const int o = (kk / 4), kin = (kk % 4) * 32;
+    hp_wgmma_ss<64, 0>(y, hp_desc(c + o * ap + kin, 16, 1024),
+                       hp_desc(d + o * bp + kin, 16, 1024), 1);
+  }
+  hp_wgmma_commit();
+  hp_wgmma_wait<0>();
+  hp_fence_regs(x);
+  hp_fence_regs(y);
+}
+
+template <int DHP, int NT>
+__global__ void __launch_bounds__(FBT_DQ_THREADS, 1)
+fbt_dq_kernel(const __grid_constant__ CUtensorMap mq,
+              const __grid_constant__ CUtensorMap mg,
+              const __grid_constant__ CUtensorMap mk,
+              const __grid_constant__ CUtensorMap mv, FbtArgs a) {
+  using S = FbtQShape<DHP>;
+  constexpr int NO = DHP / 2;                       // dq fragment registers
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (hp_smem(smem_raw) & 1023)) & 1023);
+  uint8_t* Qs = smem;
+  uint8_t* Gs = smem + S::ROW_BYTES;
+  uint8_t* KVs = Gs + S::ROW_BYTES;                 // stage s: K, then V
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + S::BARS);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + FBT_STAGES;
+
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int G = a.H / a.KV, nrows = a.Sq * G, nbkv = a.B * a.KV;
+  const int ntile = (nrows + FBT_BM - 1) / FBT_BM;
+  const int bkv = blockIdx.x % nbkv, rank = blockIdx.x / nbkv;   // heaviest first
+  const int r0 = (ntile - 1 - rank) * FBT_BM;
+  const int b = bkv / a.KV, kvh = bkv % a.KV;
+  const int last_row = min(r0 + FBT_BM, nrows) - 1;
+  const int kend = a.causal ? min(a.Sk, last_row / G + 1) : a.Sk;
+  const int nt = (kend + FBT_BK - 1) / FBT_BK;
+  // the first key tile inside the window of the block's first row
+  const int j0 = a.window > 0 ? max(0, r0 / G - a.window + 1) / FBT_BK : 0;
+  const int nj = max(0, nt - j0);                   // key tiles a pass
+  if (tid == 0) {
+    hp_bar_init(q_full, 1);
+    for (int s = 0; s < FBT_STAGES; ++s) {
+      hp_bar_init(&full[s], 1);
+      hp_bar_init(&empty[s], 8);          // one arrival per consumer warp
+    }
+    hp_bar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ----------------------------------------------------- producer
+    hp_regs_dec<40>();
+    if (tid != 256) return;
+    hp_bar_expect_tx(q_full, 2 * S::ROW_BYTES);
+#pragma unroll
+    for (int c = 0; c < DHP / 64; ++c) {
+      hp_tma_4d(Qs + c * FBT_BM * 128, &mq, q_full, c * 64, kvh * G, r0 / G, b);
+      hp_tma_4d(Gs + c * FBT_BM * 128, &mg, q_full, c * 64, kvh * G, r0 / G, b);
+    }
+    for (int n = 0; n < 2 * nj; ++n) {    // the key tiles, once a pass
+      const int j = j0 + n % nj, s = n % FBT_STAGES;
+      if (n >= FBT_STAGES) hp_bar_wait(&empty[s], ((n / FBT_STAGES) - 1) & 1);
+      uint8_t* Kt = KVs + s * 2 * S::KV_BYTES;
+      uint8_t* Vt = Kt + S::KV_BYTES;
+      hp_bar_expect_tx(&full[s], 2 * S::KV_BYTES);
+#pragma unroll
+      for (int c = 0; c < DHP / 64; ++c) {
+        hp_tma_4d(Kt + c * FBT_BK * 128, &mk, &full[s], c * 64, kvh, j * FBT_BK, b);
+        hp_tma_4d(Vt + c * FBT_BK * 128, &mv, &full[s], c * 64, kvh, j * FBT_BK, b);
+      }
+    }
+    return;
+  }
+  // ------------------------------------------------------ consumers
+  hp_regs_inc<232>();
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  const int rl = wg * 64 + warp * 16 + lane / 4;    // rows rl and rl + 8
+  const int tok[2] = {(r0 + rl) / G, (r0 + rl + 8) / G};
+  const int tok_lo = (r0 + wg * 64) / G;            // this warpgroup's first
+  const int tok_hi = (r0 + wg * 64 + 63) / G;       // and last token
+  const float sl2 = a.scale * FBT_LOG2E;
+  const uint8_t* Qw = Qs + wg * 64 * 128;
+  const uint8_t* Gw = Gs + wg * 64 * 128;
+  // a tile that crosses the diagonal, the end of the keys or the window's
+  // lower edge, and the keys it hides from row half h
+  auto edge_of = [&](int j) {
+    return (j + 1) * FBT_BK > a.Sk || (a.causal && (j + 1) * FBT_BK - 1 > tok_lo) ||
+           (a.window > 0 && j * FBT_BK <= tok_hi - a.window);
+  };
+  auto hidden = [&](int j, int i) {
+    const int h = (i / 2) % 2;
+    const int key = j * FBT_BK + 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
+    return key >= a.Sk || (a.causal && key > tok[h]) ||
+           (a.window > 0 && key <= tok[h] - a.window);
+  };
+  hp_bar_wait(q_full, 0);
+
+  // pass 1: the rows' statistics, online in base 2
+  float m2[2] = {ATT_NEG, ATT_NEG}, l[2] = {0.0f, 0.0f}, pd[2] = {0.0f, 0.0f};
+  for (int n = 0; n < nj; ++n) {
+    const int j = j0 + n, s = n % FBT_STAGES;
+    hp_bar_wait(&full[s], (n / FBT_STAGES) & 1);
+    const uint8_t* Kt = KVs + s * 2 * S::KV_BYTES;
+    float sc[32], dp[32];
+    fbt_pair<DHP>(sc, dp, Qw, Kt, Gw, Kt + S::KV_BYTES, FBT_BM * 128, FBT_BK * 128);
+    if (lane == 0) hp_bar_arrive(&empty[s]);        // the stage is read
+    const bool edge = edge_of(j);
+    if (edge) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if (hidden(j, i)) sc[i] = ATT_NEG;
+    }
+    float mx[2] = {ATT_NEG, ATT_NEG};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], sc[i]);
+    float alpha[2], rs[2] = {0.0f, 0.0f}, rd[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m2[h], mx[h] * sl2);
+      alpha[h] = exp2f(m2[h] - m_new);
+      m2[h] = m_new;
+    }
+    // a hidden score gives p = 0 exactly (see fa_tc_kernel)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i / 2) % 2;
+      float e = exp2f(fmaf(sc[i], sl2, -m2[h]));
+      e = (edge && sc[i] == ATT_NEG) ? 0.0f : e;
+      rs[h] += e;
+      rd[h] = fmaf(e, dp[i], rd[h]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 1);
+      rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 2);
+      rd[h] += __shfl_xor_sync(0xffffffffu, rd[h], 1);
+      rd[h] += __shfl_xor_sync(0xffffffffu, rd[h], 2);
+      l[h] = l[h] * alpha[h] + rs[h];
+      pd[h] = pd[h] * alpha[h] + rd[h];
+    }
+  }
+  float lse2[2], D[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + rl + 8 * h;
+    // a row that sees no key (none of the model's) and the rows past the
+    // last token get p = 0 everywhere
+    const bool live = row < nrows && l[h] > 0.0f;
+    lse2[h] = live ? m2[h] + log2f(l[h]) : FB_INF;
+    D[h] = live ? pd[h] / l[h] : 0.0f;
+    if (lane % 4 == 0) {
+      float* st = a.stats + (long long)bkv * a.rows_pad + row;
+      st[0] = lse2[h];
+      st[(long long)nbkv * a.rows_pad] = D[h];
+      if (row < nrows) {
+        const int t = row / G, g = row % G;
+        a.lse[((long long)b * a.H + kvh * G + g) * a.Sq + t] = lse2[h] * FBT_LN2;
+      }
+    }
+  }
+
+  // pass 2: dQ += dS . K
+  float dqa[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) dqa[i] = 0.0f;
+  for (int n = nj; n < 2 * nj; ++n) {
+    const int j = j0 + n - nj, s = n % FBT_STAGES;
+    hp_bar_wait(&full[s], (n / FBT_STAGES) & 1);
+    const uint8_t* Kt = KVs + s * 2 * S::KV_BYTES;
+    float sc[32], dp[32];
+    fbt_pair<DHP>(sc, dp, Qw, Kt, Gw, Kt + S::KV_BYTES, FBT_BM * 128, FBT_BK * 128);
+    const bool edge = edge_of(j);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i / 2) % 2;
+      const float p = exp2f(fmaf(sc[i], sl2, -lse2[h]));
+      sc[i] = (edge && hidden(j, i)) ? 0.0f : p * (dp[i] - D[h]);
+    }
+    uint32_t ds[NT][4][4];
+    fbt_terms<NT>(ds, sc);
+    fbt_accum<DHP, NT>(dqa, ds, Kt);
+    if (lane == 0) hp_bar_arrive(&empty[s]);
+  }
+
+  // ------------------------------------------------------ epilogue
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + rl + 8 * h;
+    if (row >= nrows) continue;
+    const int t = row / G, g = row % G;
+    __nv_bfloat16* dst = a.dq + (((long long)b * a.Sq + t) * a.H + kvh * G + g) * a.dh;
+#pragma unroll
+    for (int n8 = 0; n8 < DHP / 8; ++n8) {
+      const int col = 8 * n8 + 2 * (lane % 4);
+      if (col < a.dh)
+        *reinterpret_cast<__nv_bfloat162*>(dst + col) = __floats2bfloat162_rn(
+            dqa[4 * n8 + 2 * h] * a.scale, dqa[4 * n8 + 2 * h + 1] * a.scale);
+    }
+  }
+}
+
+// Row tiles [lo, hi) of FBT_RM rows that can see a key of key tile kt
+// (causal: tokens from its first key on; window: tokens before its last key
+// + window), as plan_flash_bwd states them.
+__device__ __forceinline__ int2 fbt_row_tiles(const FbtArgs& a, int kt) {
+  const int G = a.H / a.KV, nrows = a.Sq * G;
+  const int k0 = kt * FBT_BK, nk = min(FBT_BK, a.Sk - k0);
+  const long long lo = a.causal ? min((long long)nrows, (long long)k0 * G) : 0;
+  const long long hi = a.window > 0
+      ? min((long long)nrows, (long long)(k0 + nk - 1 + a.window) * G) : nrows;
+  return make_int2((int)(lo / FBT_RM), (int)((hi + FBT_RM - 1) / FBT_RM));
+}
+
+template <int DHP, int NT>
+__global__ void __launch_bounds__(FBT_KV_THREADS, 2)
+fbt_dkdv_kernel(const __grid_constant__ CUtensorMap mq,
+                const __grid_constant__ CUtensorMap mg,
+                const __grid_constant__ CUtensorMap mk,
+                const __grid_constant__ CUtensorMap mv, FbtArgs a) {
+  using S = FbtKShape<DHP>;
+  constexpr int NO = DHP / 2;                       // dk, dv fragment registers
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (hp_smem(smem_raw) & 1023)) & 1023);
+  uint8_t* Ks = smem;
+  uint8_t* Vs = smem + S::KV_BYTES;
+  uint8_t* Rs = Vs + S::KV_BYTES;                   // stage s: q rows, then g rows
+  float* stat = reinterpret_cast<float*>(smem + S::STATS);   // stage s: lse2, D
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + S::BARS);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + FBT_STAGES;
+  int* last = reinterpret_cast<int*>(empty + FBT_STAGES);
+
+  const int tid = threadIdx.x;
+  const int G = a.H / a.KV, nrows = a.Sq * G, nbkv = a.B * a.KV;
+  const int piece = blockIdx.x % a.pieces, tile = blockIdx.x / a.pieces;
+  const int bkv = tile % nbkv, kt = tile / nbkv;    // key tile 0 (causal: the heaviest) first
+  const int b = bkv / a.KV, kvh = bkv % a.KV;
+  const int k0 = kt * FBT_BK;
+  const int2 rt = fbt_row_tiles(a, kt);
+  const int nrt = max(0, rt.y - rt.x);
+  const int p_lo = rt.x + (int)((long long)nrt * piece / a.pieces);
+  const int p_hi = rt.x + (int)((long long)nrt * (piece + 1) / a.pieces);
+  if (tid == 0) {
+    hp_bar_init(kv_full, 1);
+    for (int s = 0; s < FBT_STAGES; ++s) {
+      hp_bar_init(&full[s], 1);
+      hp_bar_init(&empty[s], 4);          // one arrival per consumer warp
+    }
+    hp_bar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= 128) {
+    // ----------------------------------------------------- producer
+    hp_regs_dec<24>();
+    if (tid != 128) return;
+    hp_bar_expect_tx(kv_full, 2 * S::KV_BYTES);
+#pragma unroll
+    for (int c = 0; c < DHP / 64; ++c) {
+      hp_tma_4d(Ks + c * FBT_BK * 128, &mk, kv_full, c * 64, kvh, k0, b);
+      hp_tma_4d(Vs + c * FBT_BK * 128, &mv, kv_full, c * 64, kvh, k0, b);
+    }
+    const float* st = a.stats + (long long)bkv * a.rows_pad;
+    for (int r = p_lo; r < p_hi; ++r) {
+      const int n = r - p_lo, s = n % FBT_STAGES, r0 = r * FBT_RM;
+      if (n >= FBT_STAGES) hp_bar_wait(&empty[s], ((n / FBT_STAGES) - 1) & 1);
+      uint8_t* Qt = Rs + s * 2 * S::ROW_BYTES;
+      uint8_t* Gt = Qt + S::ROW_BYTES;
+      hp_bar_expect_tx(&full[s], 2 * S::ROW_BYTES + 2 * FBT_RM * 4);
+#pragma unroll
+      for (int c = 0; c < DHP / 64; ++c) {
+        hp_tma_4d(Qt + c * FBT_RM * 128, &mq, &full[s], c * 64, kvh * G + r0 % G,
+                  r0 / G, b);
+        hp_tma_4d(Gt + c * FBT_RM * 128, &mg, &full[s], c * 64, kvh * G + r0 % G,
+                  r0 / G, b);
+      }
+      hp_bulk_load(stat + s * 2 * FBT_RM, st + r0, FBT_RM * 4, &full[s]);
+      hp_bulk_load(stat + s * 2 * FBT_RM + FBT_RM,
+                   st + (long long)nbkv * a.rows_pad + r0, FBT_RM * 4, &full[s]);
+    }
+    return;
+  }
+  // ------------------------------------------------------- consumer
+  hp_regs_inc<232>();
+  const int warp = tid / 32, lane = tid % 32;
+  const int kl = warp * 16 + lane / 4;              // keys k0 + kl and + 8
+  const float sl2 = a.scale * FBT_LOG2E;
+  float dka[NO], dva[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) dka[i] = dva[i] = 0.0f;
+  hp_bar_wait(kv_full, 0);
+  for (int r = p_lo; r < p_hi; ++r) {
+    const int n = r - p_lo, s = n % FBT_STAGES, r0 = r * FBT_RM;
+    hp_bar_wait(&full[s], (n / FBT_STAGES) & 1);
+    const uint8_t* Qt = Rs + s * 2 * S::ROW_BYTES;
+    const uint8_t* Gt = Qt + S::ROW_BYTES;
+    const float* Ls = stat + s * 2 * FBT_RM;
+    const float* Ds = Ls + FBT_RM;
+    float sc[32], dp[32];                           // S^T, dP^T: keys x rows
+    fbt_pair<DHP>(sc, dp, Ks, Qt, Vs, Gt, FBT_BK * 128, FBT_RM * 128);
+    // the tile crosses the diagonal, the window's lower edge, the end of
+    // the keys or of the rows
+    const int t_lo = r0 / G, t_hi = (r0 + FBT_RM - 1) / G;
+    const bool edge = k0 + FBT_BK > a.Sk || r0 + FBT_RM > nrows ||
+                      (a.causal && k0 + FBT_BK - 1 > t_lo) ||
+                      (a.window > 0 && k0 <= t_hi - a.window);
+#pragma unroll
+    for (int n8 = 0; n8 < 8; ++n8)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * n8 + 2 * (lane % 4) + e;    // row r0 + col
+        const float L = Ls[col], Dr = Ds[col];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 4 * n8 + 2 * h + e;
+          bool hide = false;
+          if (edge) {
+            const int row = r0 + col, t = row / G, key = k0 + kl + 8 * h;
+            hide = row >= nrows || key >= a.Sk || (a.causal && key > t) ||
+                   (a.window > 0 && key <= t - a.window);
+          }
+          const float p = hide ? 0.0f : exp2f(fmaf(sc[i], sl2, -L));
+          dp[i] = hide ? 0.0f : p * (dp[i] - Dr);
+          sc[i] = p;
+        }
+      }
+    {
+      uint32_t pt[NT][4][4];
+      fbt_terms<NT>(pt, sc);
+      fbt_accum<DHP, NT>(dva, pt, Gt);               // dV += P^T . g
+    }
+    {
+      uint32_t dst[NT][4][4];
+      fbt_terms<NT>(dst, dp);
+      fbt_accum<DHP, NT>(dka, dst, Qt);              // dK += dS^T . q
+    }
+    if (lane == 0) hp_bar_arrive(&empty[s]);
+  }
+
+  // ------------------------------------------------------ epilogue
+  if (a.pieces > 1) {
+    // this piece's partial sums, [dk | dv][register][thread]; the last piece
+    // of the key tile to arrive adds them all in piece order
+    const long long per = 2LL * NO * 128;
+    float* base = a.part + (long long)tile * a.pieces * per;
+    float* mine = base + piece * per;
+#pragma unroll
+    for (int i = 0; i < NO; ++i) {
+      mine[i * 128 + tid] = dka[i];
+      mine[(NO + i) * 128 + tid] = dva[i];
+    }
+    __threadfence();
+    asm volatile("bar.sync 1, 128;\n" ::: "memory");
+    if (tid == 0) *last = atomicAdd(&a.count[tile], 1) == a.pieces - 1;
+    asm volatile("bar.sync 1, 128;\n" ::: "memory");
+    if (!*last) return;
+    __threadfence();
+#pragma unroll
+    for (int i = 0; i < NO; ++i) {
+      dka[i] = __ldcg(base + i * 128 + tid);
+      dva[i] = __ldcg(base + (NO + i) * 128 + tid);
+    }
+    for (int p = 1; p < a.pieces; ++p) {
+      const float* part = base + p * per;
+#pragma unroll
+      for (int i = 0; i < NO; ++i) {
+        dka[i] += __ldcg(part + i * 128 + tid);
+        dva[i] += __ldcg(part + (NO + i) * 128 + tid);
+      }
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = k0 + kl + 8 * h;
+    if (key >= a.Sk) continue;
+    const long long at = (((long long)b * a.Sk + key) * a.KV + kvh) * a.dh;
+#pragma unroll
+    for (int n8 = 0; n8 < DHP / 8; ++n8) {
+      const int col = 8 * n8 + 2 * (lane % 4);
+      if (col < a.dh) {
+        *reinterpret_cast<__nv_bfloat162*>(a.dk + at + col) = __floats2bfloat162_rn(
+            dka[4 * n8 + 2 * h] * a.scale, dka[4 * n8 + 2 * h + 1] * a.scale);
+        *reinterpret_cast<__nv_bfloat162*>(a.dv + at + col) = __floats2bfloat162_rn(
+            dva[4 * n8 + 2 * h], dva[4 * n8 + 2 * h + 1]);
+      }
+    }
+  }
+}
+
+// The bf16 terms of p and ds: 3 keep all 24 bits of the fp32 operands.
+#define FBT_TERMS 3
+
+template <int DHP>
+static int fbt_run(const FbtArgs& a, const CUtensorMap (&m)[6], cudaStream_t s) {
+  static int granted_q[HP_MAX_DEVICES] = {0}, granted_k[HP_MAX_DEVICES] = {0};
+  const int smq = FbtQShape<DHP>::SMEM, smk = FbtKShape<DHP>::SMEM;
+  int e = hp_grant_smem((const void*)fbt_dq_kernel<DHP, FBT_TERMS>, smq, granted_q);
+  if (e) return e;
+  e = hp_grant_smem((const void*)fbt_dkdv_kernel<DHP, FBT_TERMS>, smk, granted_k);
+  if (e) return e;
+  const long long nbkv = (long long)a.B * a.KV;
+  const long long bq = ((long long)a.Sq * (a.H / a.KV) + FBT_BM - 1) / FBT_BM * nbkv;
+  const long long nkt = ((long long)a.Sk + FBT_BK - 1) / FBT_BK;
+  const long long bk = nkt * nbkv * a.pieces;
+  if (bq > 0x7fffffffLL || bk > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (a.pieces > 1) {
+    e = (int)cudaMemsetAsync(a.count, 0, nkt * nbkv * sizeof(int), s);
+    if (e) return e;
+  }
+  fbt_dq_kernel<DHP, FBT_TERMS><<<(unsigned)bq, FBT_DQ_THREADS, smq, s>>>(
+      m[0], m[1], m[2], m[3], a);
+  e = (int)cudaGetLastError();
+  if (e) return e;
+  fbt_dkdv_kernel<DHP, FBT_TERMS><<<(unsigned)bk, FBT_KV_THREADS, smk, s>>>(
+      m[4], m[5], m[2], m[3], a);
+  return (int)cudaGetLastError();
+}
+
+// bfloat16 q (B, Sq, H, dh), k and v (B, Sk, KV, dh), g (B, Sq, H, dh) with
+// element strides, every one a multiple of 8, every base 16-byte aligned; dh
+// a multiple of 8 up to 128; 128 % G == 0; dq, dk, dv contiguous bfloat16;
+// lse (B, H, Sq) float32; `scratch` of `scratch_bytes` (16-byte aligned) for
+// the rows' statistics, and with pieces > 1 the partial sums and the arrival
+// counters, as plan_flash_bwd sizes it; causal and window as fa_launch's.
+// Launches fbt_dq_kernel, then fbt_dkdv_kernel.  Returns the first error
+// (a refused grant or tensor-map encoding, cudaGetLastError()), else 0.
+extern "C" int fbt_launch(const void* q, const void* k, const void* v,
+                          const void* g, void* dq, void* dk, void* dv,
+                          float* lse, void* scratch, long long scratch_bytes,
+                          int B, int Sq, int Sk, int H, int KV, int dh,
+                          long long qsb, long long qss, long long qsh,
+                          long long ksb, long long kss, long long ksh,
+                          long long vsb, long long vss, long long vsh,
+                          long long gsb, long long gss, long long gsh,
+                          float scale, int causal, int window, int pieces,
+                          void* stream) {
+  if (B == 0 || Sq == 0) return 0;
+  if (Sk < 1 || KV < 1 || H % KV != 0 || dh < 8 || dh % 8 != 0 || dh > 128 ||
+      window < 0 || (window > 0 && !causal) || pieces < 1)
+    return (int)cudaErrorInvalidValue;
+  const int G = H / KV;
+  if (FBT_BM % G != 0) return (int)cudaErrorInvalidValue;
+  const int dhp = dh <= 64 ? 64 : 128;
+  const long long nbkv = (long long)B * KV, nkt = (Sk + FBT_BK - 1) / FBT_BK;
+  const long long rows_pad = ((long long)Sq * G + FBT_BM - 1) / FBT_BM * FBT_BM;
+  const long long stats = 2 * nbkv * rows_pad * 4;
+  const long long parts = pieces > 1 ? nkt * nbkv * pieces * 2LL * 64 * dhp * 4 : 0;
+  const long long counts = pieces > 1 ? nkt * nbkv * 4 : 0;
+  if (scratch_bytes < stats + parts + counts || rows_pad > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  uint8_t* sp = static_cast<uint8_t*>(scratch);
+  FbtArgs a{(__nv_bfloat16*)dq, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, lse,
+            reinterpret_cast<float*>(sp), reinterpret_cast<float*>(sp + stats),
+            reinterpret_cast<int*>(sp + stats + parts),
+            B, Sq, Sk, H, KV, dh, (int)rows_pad, pieces, scale, causal, window};
+  const int gh = G < FBT_RM ? G : FBT_RM;
+  CUtensorMap m[6];           // q, g (dq rows), k, v, q, g (dkdv rows)
+  int e;
+  if ((e = fa_tc_map(&m[0], q, B, Sq, H, dh, qsb, qss, qsh, G, FBT_BM / G))) return e;
+  if ((e = fa_tc_map(&m[1], g, B, Sq, H, dh, gsb, gss, gsh, G, FBT_BM / G))) return e;
+  if ((e = fa_tc_map(&m[2], k, B, Sk, KV, dh, ksb, kss, ksh, 1, FBT_BK))) return e;
+  if ((e = fa_tc_map(&m[3], v, B, Sk, KV, dh, vsb, vss, vsh, 1, FBT_BK))) return e;
+  if ((e = fa_tc_map(&m[4], q, B, Sq, H, dh, qsb, qss, qsh, gh, FBT_RM / gh))) return e;
+  if ((e = fa_tc_map(&m[5], g, B, Sq, H, dh, gsb, gss, gsh, gh, FBT_RM / gh))) return e;
+  cudaStream_t s = (cudaStream_t)stream;
+  return dhp == 64 ? fbt_run<64>(a, m, s) : fbt_run<128>(a, m, s);
+}

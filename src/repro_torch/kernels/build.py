@@ -42,7 +42,9 @@ LAUNCHES: dict[str, int] = {"megakernel": 0, "linear_chain": 0,
                             "linear_chain_q": 0, "spmv": 0, "matmul": 0,
                             "matmul_wgmma": 0, "flash_attention": 0,
                             "flash_attention_wgmma": 0,
-                            "flash_attention_bwd": 0, "decode_attention": 0}
+                            "flash_attention_bwd": 0,
+                            "flash_attention_bwd_wgmma": 0,
+                            "decode_attention": 0}
 BUILD_LOG: list[str] = []             # nvcc's -Xptxas -v report of each build
 BUILD_SECONDS: dict[str, float] = {}  # wall seconds of each build this process
 

@@ -18,15 +18,22 @@ count the two kernels' launches.
 
 The gradient, for training: :func:`flash_attention_bwd` gives dq, dk, dv
 (and each row's log-sum-exp) of the attention with fp32 p from the output's
-gradient, on the card by the two backward kernels of the same source
-(``fb_dq_kernel``, then ``fb_dkdv_kernel``; no atomics), on CPU tensors by
-the plain version :func:`repro_torch.kernels.ref.flash_attention_bwd_ref`;
-``LAUNCHES["flash_attention_bwd"]`` counts its calls on the card, both
-kernels as one.  :class:`FlashAttentionFn` is the forward kernel with that
-backward, as autograd takes it; :func:`flash_attention_train` is what the
-model's attention calls when it needs a gradient (the plain version on the
-CPU, autograd through it).  There is no fallback on the card: a build or
-launch that fails raises.
+gradient, on CPU tensors by the plain version
+:func:`repro_torch.kernels.ref.flash_attention_bwd_ref`, on the card by one
+of two pairs of backward kernels of the same source (no atomics on floats,
+two calls bitwise equal).  :func:`flash_bwd_route` picks the pair: bfloat16
+with dh a multiple of 8 up to 128, G dividing 128 and 16-byte bases and
+strides runs on the tensor cores (``fbt_dq_kernel``, then
+``fbt_dkdv_kernel``: wgmma, TMA, p and ds as three bf16 terms, each key
+tile's row walk cut into the pieces :func:`plan_flash_bwd` states);
+float32, dh > 128 and G 6 on the CUDA cores (``fb_dq_kernel``, then
+``fb_dkdv_kernel``).  ``LAUNCHES["flash_attention_bwd_wgmma"]`` and
+``LAUNCHES["flash_attention_bwd"]`` count the two routes' calls, both
+kernels of a call as one.  :class:`FlashAttentionFn` is the forward kernel
+with that backward, as autograd takes it; :func:`flash_attention_train` is
+what the model's attention calls when it needs a gradient (the plain
+version on the CPU, autograd through it).  There is no fallback on the
+card: a build or launch that fails raises.
 
 ``round_p`` (default True, what the TPU kernel does) rounds the
 probabilities to v's dtype before P·V; ``torch.bfloat16`` rounds them to
@@ -43,6 +50,7 @@ only, and keeps an fp32 p as three bf16 terms (hi + mid + lo: all 24 bits).
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -51,7 +59,8 @@ from repro_torch.kernels.build import check_launch, load
 from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_ref
 
 __all__ = ["flash_attention_fused", "flash_route", "plan_flash_simt",
-           "FlashSimtPlan", "flash_attention_bwd", "FlashAttentionFn",
+           "FlashSimtPlan", "flash_attention_bwd", "flash_bwd_route",
+           "plan_flash_bwd", "FlashBwdPlan", "FlashAttentionFn",
            "flash_attention_train"]
 
 MAX_DH = 256          # the widest head the tensor-core kernel takes
@@ -100,6 +109,85 @@ def plan_flash_simt(B: int, Sq: int, H: int, KV: int, dh: int) -> FlashSimtPlan:
                          B * KV * col_chunks * tiles, 4 * floats)
 
 
+# csrc/flash_attention.cu, fbt_dq_kernel and fbt_dkdv_kernel: (token, g)
+# rows of a dq block, keys of a dq stage and of a dkdv block, rows of a dkdv
+# stage; the widest head; dkdv blocks resident at once on an H100 (two on
+# each of its 132 SMs); the fewest row tiles a piece walks once a key tile's
+# walk is cut.
+BWD_QROWS, BWD_KEYS, BWD_KROWS = 128, 64, 64
+BWD_MAX_DH = 128
+BWD_SLOTS = 2 * 132
+BWD_MIN_TILES = 4
+
+
+@dataclass(frozen=True)
+class FlashBwdPlan:
+    """How the tensor-core backward runs one call: ``dq_blocks`` blocks of
+    ``fbt_dq_kernel`` (``BWD_QROWS`` (token, g) rows each), then
+    ``dkdv_blocks`` of ``fbt_dkdv_kernel``: ``key_tiles`` tiles of
+    ``BWD_KEYS`` keys per (b, KV head), each walking the row tiles
+    ``row_tiles[kt]`` = [lo, hi) of ``BWD_KROWS`` rows that can see one of
+    its keys, cut into ``pieces`` runs (:meth:`piece`).  ``scratch_bytes``:
+    each row's base-2 log-sum-exp and D (``rows_pad`` rows per (b, KV
+    head)), and with ``pieces`` > 1 the pieces' fp32 partial dk and dv and
+    one arrival counter per key tile."""
+
+    dhp: int
+    rows_pad: int
+    key_tiles: int
+    row_tiles: tuple[tuple[int, int], ...]
+    pieces: int
+    dq_blocks: int
+    dkdv_blocks: int
+    scratch_bytes: int
+
+    def piece(self, kt: int, p: int) -> tuple[int, int]:
+        """Row tiles [lo, hi) that piece ``p`` of key tile ``kt`` walks."""
+        lo, hi = self.row_tiles[kt]
+        n = max(0, hi - lo)
+        return lo + n * p // self.pieces, lo + n * (p + 1) // self.pieces
+
+
+@functools.lru_cache(maxsize=256)
+def plan_flash_bwd(B: int, Sq: int, Sk: int, H: int, KV: int, dh: int,
+                   causal: bool = True, window: int = 0) -> FlashBwdPlan:
+    """The tensor-core backward's plan, from the shapes and the mask alone
+    (the kernels take ``pieces`` from it and compute the rest alike).  The
+    pieces a key tile's walk is cut into: enough that the longest walk,
+    so cut, is no longer than ``BWD_SLOTS`` resident blocks take for the
+    whole work, but no piece shorter than ``BWD_MIN_TILES`` row tiles.
+    qwen2.5-3b's heads at S 4,096, causal: 64 key tiles a KV head (128 in
+    all), 5 pieces each."""
+    if dh < 1 or dh > BWD_MAX_DH or KV < 1 or H % KV or Sk < 1:
+        raise ValueError(f"flash_attention_bwd: H {H}, KV {KV}, dh {dh}, Sk {Sk}")
+    if window < 0 or (window and not causal):
+        raise ValueError(f"flash_attention_bwd: window={window} (>= 0, causal only)")
+    G = H // KV
+    nrows = Sq * G
+    dhp = 64 if dh <= 64 else 128
+    rows_pad = _cdiv(nrows, BWD_QROWS) * BWD_QROWS
+    nkt = _cdiv(Sk, BWD_KEYS)
+    tiles = []
+    for kt in range(nkt):
+        k0 = kt * BWD_KEYS
+        nk = min(BWD_KEYS, Sk - k0)
+        lo = min(nrows, k0 * G) if causal else 0
+        hi = min(nrows, (k0 + nk - 1 + window) * G) if window else nrows
+        tiles.append((lo // BWD_KROWS, _cdiv(hi, BWD_KROWS)))
+    walks = [max(0, hi - lo) for lo, hi in tiles]
+    total, top = B * KV * sum(walks), max(walks)
+    pieces = 1
+    if total:
+        pieces = max(1, min(_cdiv(top * BWD_SLOTS, total), top // BWD_MIN_TILES))
+    nbkv = B * KV
+    scratch = 4 * 2 * nbkv * rows_pad
+    if pieces > 1:
+        scratch += 4 * nkt * nbkv * (pieces * 2 * 64 * dhp + 1)
+    return FlashBwdPlan(dhp, rows_pad, nkt, tuple(tiles), pieces,
+                        _cdiv(nrows, BWD_QROWS) * nbkv, nkt * nbkv * pieces,
+                        scratch)
+
+
 def _declare(lib: ctypes.CDLL) -> None:
     vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.fa_launch.argtypes = ([vp] * 4 + [ci] * 6 + [cl] * 9 + [ctypes.c_float]
@@ -111,6 +199,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fb_launch.argtypes = ([vp] * 9 + [ci] * 6 + [cl] * 12
                               + [ctypes.c_float] + [ci] * 3 + [vp])
     lib.fb_launch.restype = ci
+    lib.fbt_launch.argtypes = ([vp] * 9 + [cl] + [ci] * 6 + [cl] * 12
+                               + [ctypes.c_float] + [ci] * 3 + [vp])
+    lib.fbt_launch.restype = ci
 
 
 # fa_tc_kernel's q tile: 128 (token, g) rows, so G must divide it.
@@ -126,10 +217,28 @@ def flash_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     if (q.dtype != torch.bfloat16 or dh % 8 or dh > MAX_DH
             or TC_ROWS % (H // KV)):
         return "simt"
-    for t in (q, k, v):
-        if t.data_ptr() % 16 or any((2 * s) % 16 for s in t.stride()[:3]):
-            return "simt"
-    return "wgmma"
+    return "wgmma" if all(_aligned(t) for t in (q, k, v)) else "simt"
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    """Base and the strides of the first three axes on 16 bytes (bf16):
+    what TMA needs."""
+    return t.data_ptr() % 16 == 0 and all((2 * s) % 16 == 0
+                                          for s in t.stride()[:3])
+
+
+def flash_bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """``"wgmma"`` where the tensor-core backward (``fbt_dq_kernel``,
+    ``fbt_dkdv_kernel``) takes the call — bfloat16, dh a multiple of 8 up
+    to 128, G = H / KV dividing 128, and every base and stride of q, k and
+    v on 16 bytes — else ``"simt"`` (``fb_dq_kernel``, ``fb_dkdv_kernel``:
+    float32, dh 192 and 224, G 6).  Reads shapes, strides and pointers
+    only."""
+    H, dh, KV = q.shape[2], q.shape[3], k.shape[2]
+    if (q.dtype != torch.bfloat16 or dh % 8 or dh > BWD_MAX_DH
+            or TC_ROWS % (H // KV)):
+        return "simt"
+    return "wgmma" if all(_aligned(t) for t in (q, k, v)) else "simt"
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -211,16 +320,22 @@ def _check_window(causal: bool, window: int) -> None:
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         g: torch.Tensor, *, causal: bool = True,
-                        window: int = 0) -> tuple[torch.Tensor, ...]:
+                        window: int = 0, route: str | None = None
+                        ) -> tuple[torch.Tensor, ...]:
     """The gradient of :func:`flash_attention_fused` with fp32 p against
     the output gradient ``g`` (B, Sq, H, dh): (dq, dk, dv) in the inputs'
     dtype, and lse (B, H, Sq) float32, each row's log-sum-exp of its
-    scaled, masked scores.  dh up to 256 on the card."""
+    scaled, masked scores.  dh up to 256 on the card, on the kernels
+    :func:`flash_bwd_route` picks; ``route="simt"`` runs the CUDA-core
+    kernels on any call (to time them against the tensor cores)."""
     _check(q, k, v)
     _check_window(causal, window)
     if g.shape != q.shape:
         raise ValueError(f"flash_attention_bwd: g {tuple(g.shape)} is not "
                          f"q's shape {tuple(q.shape)}")
+    if route not in (None, "simt"):
+        raise ValueError(f"flash_attention_bwd: route={route!r} (None or "
+                         "'simt')")
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, g, causal=causal, window=window)
     if q.device.type != "cuda":
@@ -240,15 +355,31 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention_bwd: the last axis of q, k and v "
                          "must be contiguous")
+    route = route or flash_bwd_route(q, k, v)
     dq = torch.empty((B, Sq, H, dh), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, Sk, KV, dh), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     if dq.numel() == 0:
         return dq, dk.zero_(), dv.zero_(), lse
-    delta = torch.empty_like(lse)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     lib = load("flash_attention", _declare)
+    if route == "wgmma":
+        if not _aligned(g):              # TMA reads g too
+            g = torch.empty_like(g, memory_format=torch.contiguous_format).copy_(g)
+        plan = plan_flash_bwd(B, Sq, Sk, H, KV, dh, causal, window)
+        scratch = torch.empty(_cdiv(plan.scratch_bytes, 16) * 4,
+                              dtype=torch.float32, device=q.device)
+        err = lib.fbt_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                             g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                             dv.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
+                             plan.scratch_bytes, B, Sq, Sk, H, KV, dh,
+                             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                             *g.stride()[:3], dh ** -0.5, int(causal), window,
+                             plan.pieces, stream)
+        check_launch("flash_attention_bwd_wgmma", err)
+        return dq, dk, dv, lse
+    delta = torch.empty_like(lse)
     err = lib.fb_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
                         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                         lse.data_ptr(), delta.data_ptr(), B, Sq, Sk, H, KV, dh,

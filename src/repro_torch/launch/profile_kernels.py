@@ -1,6 +1,6 @@
 """Time kernels on the card under other plans and variants than their own.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_kernels [--chains | --chain-trace]
+    PYTHONPATH=src python -m repro_torch.launch.profile_kernels [--chains | --chain-trace | --flash-bwd | --served-attention]
 
 First the chain kernels (``csrc/linear_chain.cu``): the launch floor (an
 empty kernel with the chain kernels' parameter block) and the six served
@@ -25,7 +25,20 @@ packed, with every matrix read from global memory (no ``LOAD_MAT``
 buffers), and with a barrier before every instruction; and the float32
 flash kernel at qwen2.5-3b's 1,024-token prefill (B 1, H 16, KV 2, dh 128,
 causal) as it runs and with k and v staged by element loads instead of
-cp.async.  Then the megakernel's
+cp.async.  ``--flash-bwd`` runs only the flash backward: ``ptxas``'s
+registers and spills of its kernels; both routes (``flash_attention_bwd``
+as it routes the call, and with ``route="simt"``) against the plain version on
+qwen2.5-3b's heads (causal, a window of 256, full) and G 1, G 128, dh 64,
+two calls bitwise equal; then each route at qwen2.5-3b's heads, causal, S
+4,096 and 1,024, bfloat16: time per call between CUDA events and each
+kernel's device time, beside the five-product bound.
+``--served-attention`` runs only the served attention kernels at
+``PERF.md`` §6's shapes (flash forward, p fp32, B 1, S 1,024, causal, at
+every served head shape; decode at B 8, S 2,048 and the served lengths),
+bfloat16 and float32: device time and time per call; it uses no API newer
+than PR 21's, so ``PYTHONPATH=<tree>/src python
+src/repro_torch/launch/profile_kernels.py --served-attention`` times an
+older tree's kernels in the same call.  Then the megakernel's
 walk instruction by instruction: SM cycles from clock stamps in a build of
 ``csrc/megakernel.cu`` that adds them (thread 0 of block 0, a bucket of
 64).  These variants say what dominates each kernel.  Each line gives the device time
@@ -262,6 +275,125 @@ def profile_flash(dev: torch.device) -> None:
         parts = device_parts(lambda: launch(vec))
         print(f"flash_attention float32 B=1 S=1024 H=16 KV=2 dh=128 causal, "
               f"{variant}: {_fmt(parts)}", flush=True)
+
+
+def profile_flash_bwd(dev: torch.device) -> None:
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_bwd_ref
+
+    build.build(("flash_attention",))
+    for line in "\n".join(build.BUILD_LOG).splitlines():
+        if "fbt_" in line or "fb_d" in line or "registers" in line or "spill" in line:
+            print("  ptxas:", line.strip(), flush=True)
+
+    def ulp(x: float) -> float:
+        return 2.0 ** (np.floor(np.log2(x)) - 7)
+
+    def inputs(S, H, KV, dh, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        q, go = (torch.randn((1, S, H, dh), generator=g, device=dev)
+                 .bfloat16() for _ in range(2))
+        k, v = (torch.randn((1, S, KV, dh), generator=g, device=dev)
+                .bfloat16() for _ in range(2))
+        return q, k, v, go
+
+    bad = 0
+    for S, H, KV, dh, causal, w in ((1024, 16, 2, 128, True, 0),
+                                    (1024, 16, 2, 128, True, 256),
+                                    (1024, 16, 2, 128, False, 0),
+                                    (300, 16, 2, 128, True, 0),
+                                    (257, 16, 16, 128, True, 33),
+                                    (200, 24, 24, 64, True, 0),
+                                    (77, 128, 1, 64, True, 0),
+                                    (33, 4, 1, 8, True, 0)):
+        q, k, v, go = inputs(S, H, KV, dh, S + dh)
+        want = flash_attention_bwd_ref(q, k, v, go, causal=causal, window=w)
+        plan = fa.plan_flash_bwd(1, S, S, H, KV, dh, causal, w)
+        if fa.flash_bwd_route(q, k, v) != "wgmma":
+            raise RuntimeError(f"S {S} H {H} KV {KV} dh {dh}: not the tensor cores")
+        for route in (None, "simt"):
+            got = fa.flash_attention_bwd(q, k, v, go, causal=causal, window=w,
+                                         route=route)
+            again = fa.flash_attention_bwd(q, k, v, go, causal=causal,
+                                           window=w, route=route)
+            torch.cuda.synchronize()
+            errs = []
+            for name, a, b, c in zip(("dq", "dk", "dv", "lse"), got, want, again):
+                top = float(b.float().abs().max())
+                lim = 1e-5 * max(top, 1.0) if name == "lse" else 2 * ulp(top)
+                err = float((a.float() - b.float()).abs().max())
+                same = torch.equal(a, c)
+                ok = err <= lim and same
+                bad += not ok
+                errs.append(f"{name} {err:.3g}/{lim:.3g}"
+                            + ("" if same else " NOT BITWISE"))
+            print(f"flash_attention_bwd {route or 'wgmma'} B=1 S={S} H={H} KV={KV} dh={dh} "
+                  f"{'causal' if causal else 'full'}{f' window {w}' if w else ''}"
+                  f" ({plan.pieces} pieces): " + ", ".join(errs), flush=True)
+    print(f"flash_attention_bwd checks: {bad} over their limits", flush=True)
+
+    for S in (4096, 1024):
+        q, k, v, go = inputs(S, 16, 2, 128, S)
+        pairs = sum(t + 1 for t in range(S))
+        bound = 10 * 16 * 128 * pairs / 989e12 * 1e3
+        for route in (None, "simt"):
+            def call(route=route):
+                fa.flash_attention_bwd(q, k, v, go, route=route)
+            ms = call_ms(call, 20)
+            print(f"flash_attention_bwd {route or 'wgmma'} bfloat16 B=1 S={S} H=16 KV=2 "
+                  f"dh=128 causal: {ms:.5f} ms a call (events), bound "
+                  f"{bound:.5f} ms (operations); {_fmt(device_parts(call, 10))}",
+                  flush=True)
+
+
+# (H, KV, dh, window, mla) of the served prefills and decodes (PERF.md §6
+# rows 7 and 8): qwen2.5-3b, olmoe, granite, codeqwen, deepseek-v2's MLA,
+# command-r, internvl2 (G 6), musicgen, zamba2's shared block with and
+# without its window
+SERVED_HEADS = ((16, 2, 128, 0, False), (16, 16, 128, 0, False),
+                (32, 8, 128, 0, False), (32, 32, 128, 0, False),
+                (128, 128, 192, 0, True), (64, 8, 128, 0, False),
+                (48, 8, 128, 0, False), (24, 24, 64, 0, False),
+                (32, 32, 224, 0, False), (32, 32, 224, 256, False))
+
+
+def profile_served_attention(dev: torch.device) -> None:
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention_fused
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt)[6:]
+        for H, KV, dh, w, mla in SERVED_HEADS:
+            q = torch.randn((1, 1024, H, dh), generator=g, device=dev).to(dt)
+            k, v = (torch.randn((1, 1024, KV, dh), generator=g, device=dev)
+                    .to(dt) for _ in range(2))
+            if mla:
+                v[..., 128:] = 0
+
+            def fwd():
+                flash_attention_fused(q, k, v, window=w, round_p=False)
+
+            parts = device_parts(fwd, 20)
+            print(f"flash_attention {name} B=1 S=1024 H={H} KV={KV} dh={dh} causal"
+                  f"{f' window {w}' if w else ''} p fp32: {call_ms(fwd, 50):.5f} "
+                  f"ms a call (events); {_fmt(parts)}", flush=True)
+            if mla or w:
+                continue
+            B, S = 8, 2048
+            qd = torch.randn((B, H, dh), generator=g, device=dev).to(dt)
+            kc, vc = (torch.randn((B, S, KV, dh), generator=g, device=dev)
+                      .to(dt) for _ in range(2))
+            lens = torch.tensor(SERVED_LENS, dtype=torch.int32, device=dev)
+
+            def dec():
+                decode_attention(qd, kc, vc, lens, round_p=False)
+
+            parts = device_parts(dec, 20)
+            print(f"decode_attention {name} B=8 S=2048 H={H} KV={KV} dh={dh} "
+                  f"served lens p fp32: {call_ms(dec, 50):.5f} ms a call "
+                  f"(events); {_fmt(parts)}", flush=True)
 
 
 def call_ms(fn, reps: int = 200) -> float:
@@ -567,6 +699,14 @@ def main(argv: list[str] | None = None) -> int:
                           text=True).stdout.strip()
     print(card, flush=True)
     dev = torch.device("cuda")
+    if argv == ["--flash-bwd"]:
+        profile_flash_bwd(dev)
+        print(card)
+        return 0
+    if argv == ["--served-attention"]:
+        profile_served_attention(dev)
+        print(card)
+        return 0
     profile_chains(dev)
     if argv == ["--chains"]:
         return 0

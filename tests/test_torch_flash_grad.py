@@ -15,11 +15,14 @@ magnitude (the two sum the same fp32 terms in other orders); bfloat16: both
 compute in fp32 and round each gradient once, so they agree within one bf16
 ulp of the gradient's largest magnitude.
 
-The card case (``@pytest.mark.cuda``, skipped here) holds the backward
+The card cases (``@pytest.mark.cuda``, skipped here) hold the backward
 kernels against the plain version: float32 within ``1e-4`` of each
 gradient's largest magnitude, bfloat16 within two bf16 ulps of it, and lse
 within ``1e-5`` of its largest magnitude; two calls bitwise equal (no
-atomics).  JAX is imported inside the reference's helper only, so that
+atomics); each call on the route ``flash_bwd_route`` picks, as its launch
+counter shows (bfloat16 with dh <= 128 and G | 128 on the tensor cores,
+its key tiles' walks cut into pieces at S 300 and 1,024), and the
+CUDA-core route forced on the tensor-core cases.  JAX is imported inside the reference's helper only, so that
 the card case runs where JAX is not installed.
 """
 
@@ -153,27 +156,19 @@ def card():
 
 
 # (B, S, H, KV, dh, causal, window): qwen's heads, G 6, dh 64, 192, 224,
-# 256, a window, full attention, a ragged length
+# 256, a window, full attention, a ragged length; qwen's heads at S 1,024
+# (16 pieces a key tile on the tensor cores) causal, with a window of 256
+# and full; G 128; one piece and dh 8; B 2 (olmoe's training batch)
 CARD_CASES = [(1, 300, 16, 2, 128, True, 0), (2, 130, 12, 2, 100, True, 0),
               (1, 200, 4, 4, 64, True, 0), (1, 160, 8, 8, 192, True, 0),
               (1, 300, 4, 4, 224, True, 64), (1, 97, 2, 1, 256, False, 0),
-              (1, 257, 16, 2, 128, True, 33)]
+              (1, 257, 16, 2, 128, True, 33), (1, 1024, 16, 2, 128, True, 0),
+              (1, 1024, 16, 2, 128, True, 256), (1, 1024, 16, 2, 128, False, 0),
+              (1, 77, 128, 1, 64, True, 0), (1, 33, 4, 1, 8, True, 0),
+              (2, 200, 16, 16, 128, True, 0)]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", CARD_CASES)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
-def test_backward_kernels_match_plain(card, case, dtype):
-    B, S, H, KV, dh, causal, window = case
-    q, k, v, g = (torch.from_numpy(a).to(card, dtype) for a in
-                  _inputs(B, S, H, KV, dh, dh, seed=S + dh))
-    before = LAUNCHES["flash_attention_bwd"]
-    got = fa.flash_attention_bwd(q, k, v, g, causal=causal, window=window)
-    again = fa.flash_attention_bwd(q, k, v, g, causal=causal, window=window)
-    torch.cuda.synchronize()
-    assert LAUNCHES["flash_attention_bwd"] == before + 2
-    want = flash_attention_bwd_ref(q, k, v, g, causal=causal, window=window)
+def _hold(got, want, again, dtype):
     for name, a, b, c in zip(("dq", "dk", "dv", "lse"), got, want, again):
         assert torch.equal(a, c), f"{name}: two calls differ"
         top = float(b.float().abs().max())
@@ -185,3 +180,34 @@ def test_backward_kernels_match_plain(card, case, dtype):
             tol = 2 * _ulp(top)
         err = float((a.float() - b.float()).abs().max())
         assert err <= tol, f"{name}: {err} > {tol}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CARD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_backward_kernels_match_plain(card, case, dtype):
+    B, S, H, KV, dh, causal, window = case
+    q, k, v, g = (torch.from_numpy(a).to(card, dtype) for a in
+                  _inputs(B, S, H, KV, dh, dh, seed=S + dh))
+    route = fa.flash_bwd_route(q, k, v)
+    tc = dtype == torch.bfloat16 and dh % 8 == 0 and dh <= 128 and 128 % (H // KV) == 0
+    assert route == ("wgmma" if tc else "simt")
+    key = "flash_attention_bwd_wgmma" if tc else "flash_attention_bwd"
+    before = dict(LAUNCHES)
+    got = fa.flash_attention_bwd(q, k, v, g, causal=causal, window=window)
+    again = fa.flash_attention_bwd(q, k, v, g, causal=causal, window=window)
+    torch.cuda.synchronize()
+    for name in ("flash_attention_bwd", "flash_attention_bwd_wgmma"):
+        assert LAUNCHES[name] == before[name] + (2 if name == key else 0)
+    want = flash_attention_bwd_ref(q, k, v, g, causal=causal, window=window)
+    _hold(got, want, again, dtype)
+    if tc:                               # the CUDA-core route on the same call
+        got = fa.flash_attention_bwd(q, k, v, g, causal=causal, window=window,
+                                     route="simt")
+        again = fa.flash_attention_bwd(q, k, v, g, causal=causal,
+                                       window=window, route="simt")
+        torch.cuda.synchronize()
+        assert LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 2
+        _hold(got, want, again, dtype)
+
