@@ -195,13 +195,15 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               gradient zero past column 128), ``NEW_HEADS``,
               ``SHARED_HEADS`` without and with a window of 256, and
               qwen2.5-3b's with that window and with full attention; each
-              case's route printed and counted (qwen2.5-3b's heads in
-              bfloat16 must take the tensor cores), a second call bitwise
-              equal to the first; dq, dk, dv within ``FLASH_BWD_F32_REL`` of each one's
+              case's route printed and counted (every bfloat16 head shape
+              must take the tensor cores, float32 the CUDA cores), a
+              second call bitwise equal to the first; dq, dk, dv within ``FLASH_BWD_F32_REL`` of each one's
               largest magnitude (float32) or ``FLASH_BWD_BF16_ULPS`` bf16
               ulps of it (bfloat16), the rows' log-sum-exp within
               ``FLASH_BWD_LSE_REL``; the same at qwen2.5-3b's heads at the
-              lengths the 36-layer run trains (S 4,096 and 2,048); and in
+              lengths the 36-layer run trains (S 4,096 and 2,048), and in
+              bfloat16 at the MLA, zamba2 and internvl2 heads at S 4,096;
+              and in
               every case the training forward (``flash_attention_fused``,
               p in fp32) on the same inputs against its plain version
               within phase 6's limits (``attn_compare``).  The float32 twin: qwen2.5-3b at every
@@ -213,7 +215,18 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               bfloat16: the first gradient (finite), 2 steps (finite
               losses), and ``ProductF32``'s backward at its expert ``bmm``
               and an ``mm`` against autograd through the upcast product
-              (one bf16 ulp).  qwen2.5-3b at full width and depth (36
+              (one bf16 ulp).  The families whose heads need the
+              tensor-core backward's DHP 256 or whole-token row tiles,
+              bfloat16 at every width, batch
+              2, a first gradient (every weight finite) and 2 steps (finite
+              losses), seconds a step, tokens/s, peak memory:
+              ``LM_TRAIN_FAMILIES`` zamba2-7b (12 layers: two periods, 2
+              applications of the shared block, S 4,096; 2,048 only if it
+              does not fit, printed) and internvl2-26b (2 of 48 layers, S
+              4,096 of which 256 rows are a seeded vision prefix);
+              deepseek-v2-236b's one layer is only counted (5.02 B
+              parameters, 84.2 GiB of training state: it does not fit the
+              card).  qwen2.5-3b at full width and depth (36
               layers), bfloat16 activations, float32 masters, remat
               ``"nothing"``, S 4,096 (train_4k's; 2,048 only if 4,096 does
               not fit, printed), global batch 2 in 2 microbatches
@@ -228,7 +241,8 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               x steps (the forward and its remat recompute) on its dtype's
               kernel, backward launches = layers x microbatches x steps
               (both backward kernels as one) on its dtype's route (bfloat16
-              on the tensor cores), and none on the plain twins;
+              on the tensor cores: ``flash_attention_bwd_wgmma``), and
+              none on the plain twins;
 11. report  — the chain kernels' launch floor (an empty kernel with their
               parameter block) beside each served chain call's device time
               and time per call, against ``CHAIN_DEVICE_MS`` /
@@ -244,7 +258,9 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               kernels' share of a decode step's device time (decode
               attention's two passes, ``DECODE_PASSES``); the flash
               backward at qwen2.5-3b's heads, S 4,096 and 1,024, bfloat16
-              on both routes and float32, beside its plain version, SDPA's backward
+              on both routes and float32, and at the MLA, zamba2 and
+              internvl2 heads in bfloat16 (the CUDA cores at S 1,024 only),
+              beside its plain version, SDPA's backward
               (alone, and with its forward), and its bound (five
               products); the
               ``kernels`` JSON line (the forward flash kernels' launches
@@ -252,7 +268,8 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               the card line, and last ``{"ok": true, "device": {...}}``.
 
 Every path runs at its full depth, except deepseek-v2-236b (2 of 60
-layers, every width kept).
+layers, every width kept) and phase 10's training runs beside qwen2.5-3b
+(every width kept; depths as ``LM_TRAIN_FAMILIES`` states).
 
 Needs only the repository (``src/`` on the path) and one card.  Writes the
 full per-case report to ``chiprun_out/chip_smoke.json``.
@@ -393,13 +410,27 @@ LM_TRAIN_MOE = ("olmoe-1b-7b", 2, 2)
 LM_TRAIN_FULL_S, LM_TRAIN_FULL_S_OOM = 4096, 2048
 LM_TRAIN_FULL_BATCH, LM_TRAIN_FULL_MB = 2, 2
 LM_TRAIN_FULL_STEPS, LM_TRAIN_FULL_WARM = 3, 1
+# the bf16 families whose heads need the tensor-core backward's DHP 256
+# or whole-token row tiles, at every width: (arch, layers, S, S should S
+# not fit the card).
+# zamba2-7b: two periods of its pattern (10 Mamba2 layers, 2 applications
+# of the shared block, dh 224); internvl2-26b: 2 of 48 layers (G 6), S
+# counting LM_TRAIN_PREFIX seeded vision-prefix rows.  Batch
+# LM_TRAIN_FAMILY_BATCH in one microbatch, a first gradient, then
+# LM_TRAIN_FAMILY_STEPS steps.  deepseek-v2-236b is not trained: one of its
+# layers holds 5.02 B parameters (``LM_TRAIN_NOT_FIT``), whose f32 masters,
+# Adam moments and bf16 weights (14 bytes each) with the f32 gradient sum
+# (4 more) need 84.2 GiB of the card's 79.2.
+LM_TRAIN_FAMILIES = (("zamba2-7b", 12, 4096, 2048), ("internvl2-26b", 2, 4096, 2048))
+LM_TRAIN_FAMILY_BATCH, LM_TRAIN_FAMILY_STEPS, LM_TRAIN_PREFIX = 2, 2, 256
+LM_TRAIN_NOT_FIT = ("deepseek-v2-236b", 1)
 # launch.train.run_training on the 4-layer float32 copy: LM_RESUME_STEPS
 # steps straight, against LM_RESUME_AT steps, a checkpoint, and a resumed
 # run to the end; batch and length of each step
 LM_RESUME_STEPS, LM_RESUME_AT, LM_RESUME_BATCH, LM_RESUME_S = 4, 2, 1, 512
 # the two routes' kernels, as a trace names them (by substring)
 FLASH_BWD_KERNELS = ("fb_dq_kernel", "fb_dkdv_kernel", "fbt_dq_kernel",
-                     "fbt_dkdv_kernel")
+                     "fbt_dkdv_kernel", "fbt_dkdv2_kernel")
 # matmul/gemv cases (M, K, N) of phase 3, each in float32 and bfloat16 with
 # both layouts of b: aligned and unaligned pitches, split and unsplit K
 MATMUL_SHAPES = ((129, 65, 70), (128, 128, 128), (64, 610, 24),
@@ -1686,23 +1717,27 @@ def flash_bwd_work(B: int, S: int, H: int, KV: int, dh: int, item: int,
     return float(nbytes), float(10 * B * H * dh * pairs)
 
 
-def bwd_cases() -> list[tuple[int, int, int, int, int, bool, bool]]:
-    """(S, H, KV, dh, window, mla, causal) of every head shape phase 7
-    serves, at ``FLASH_BWD_S``, causal: qwen2.5-3b's, ``FAMILY_HEADS``
-    (deepseek-v2's MLA with v zero-padded from 128 to 192), ``NEW_HEADS``,
-    ``SHARED_HEADS`` without and with a window of ``PROBE_WINDOW``;
-    qwen2.5-3b's with that window and with full attention (the tensor-core
-    route's other masks); then qwen2.5-3b's at the lengths the 36-layer run
-    trains (``LM_TRAIN_FULL_S``, and ``LM_TRAIN_FULL_S_OOM`` should it fall
-    back)."""
+def bwd_cases() -> list[tuple[int, int, int, int, int, bool, bool, bool]]:
+    """(S, H, KV, dh, window, mla, causal, float32 too) of every head shape
+    phase 7 serves, at ``FLASH_BWD_S``, causal, in float32 and bfloat16:
+    qwen2.5-3b's, ``FAMILY_HEADS`` (deepseek-v2's MLA with v zero-padded
+    from 128 to 192), ``NEW_HEADS``, ``SHARED_HEADS`` without and with a
+    window of ``PROBE_WINDOW``; qwen2.5-3b's with that window and with full
+    attention (the tensor-core route's other masks); then qwen2.5-3b's at
+    the lengths the 36-layer run trains (``LM_TRAIN_FULL_S``, and
+    ``LM_TRAIN_FULL_S_OOM`` should it fall back); and in bfloat16 alone the
+    heads of DHP 256 and G 6 (MLA, zamba2's shared block, internvl2's) at
+    ``LM_TRAIN_FULL_S``, the length their families train at."""
     heads = [(16, 2, 128)] + list(FAMILY_HEADS) + list(NEW_HEADS)
     out = [(H, KV, dh, 0, dh == 192, True) for H, KV, dh in heads]
     out += [(*SHARED_HEADS, 0, False, True),
             (*SHARED_HEADS, PROBE_WINDOW, False, True),
             (16, 2, 128, PROBE_WINDOW, False, True), (16, 2, 128, 0, False, False)]
-    return ([(FLASH_BWD_S, *case) for case in out]
-            + [(S, 16, 2, 128, 0, False, True)
-               for S in (LM_TRAIN_FULL_S, LM_TRAIN_FULL_S_OOM)])
+    return ([(FLASH_BWD_S, *case, True) for case in out]
+            + [(S, 16, 2, 128, 0, False, True, True)
+               for S in (LM_TRAIN_FULL_S, LM_TRAIN_FULL_S_OOM)]
+            + [(LM_TRAIN_FULL_S, H, KV, dh, 0, dh == 192, True, False)
+               for H, KV, dh in ((128, 128, 192), SHARED_HEADS, (48, 8, 128))])
 
 
 def train_phase(dev) -> tuple[dict, dict, dict]:
@@ -1728,7 +1763,7 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
                                          flash_attention_ref)
     from repro_torch.launch.train import run_training
     from repro_torch.models.layers import ProductF32
-    from repro_torch.models.transformer import _flatten, _leaves, lm_loss
+    from repro_torch.models.transformer import Transformer, _flatten, _leaves, lm_loss
     from repro_torch.train.optim import OptConfig
     from repro_torch.train.train_loop import init_state, make_train_step
 
@@ -1777,19 +1812,21 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
         pipe = TokenPipeline(vocab_size=cfg.vocab_size, batch=batch, seq_len=S)
         return [pipe.batch_at(PipelineState(step=i))[0] for i in range(n)]
 
-    def first_grads(model, tokens, plain: bool):
+    def first_grads(model, tokens, plain: bool, prefix=None):
         weights = [t for ts in _leaves(model).values() for t in ts]
-        loss = lm_loss(model, tokens, plain_attention=plain)
+        loss = lm_loss(model, tokens, prefix_embeds=prefix, plain_attention=plain)
         # raises if a weight is cut off the loss's path
         return float(loss.detach()), torch.autograd.grad(loss, weights)
 
     # 1. the backward kernels against their plain version, and the training
     # forward (p in fp32) against its own on the same inputs; each case on
-    # the route flash_bwd_route picks (qwen2.5-3b's heads in bfloat16 on the
+    # the route flash_bwd_route picks (every bfloat16 head shape on the
     # tensor cores), counted, and a second call bitwise equal to the first
     def bwd_checks():
         for dt in (torch.float32, torch.bfloat16):
-            for S, H, KV, dh, w, mla, causal in bwd_cases():
+            for S, H, KV, dh, w, mla, causal, f32 in bwd_cases():
+                if dt == torch.float32 and not f32:
+                    continue
                 g = torch.Generator(device=dev).manual_seed(
                     H * 1000 + dh + w + S + (not causal))
                 q, go = (torch.randn((1, S, H, dh), generator=g, device=dev).to(dt)
@@ -1807,10 +1844,9 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
                 route = flash_bwd_route(q, k, v)
                 kernel = ("flash_attention_bwd_wgmma" if route == "wgmma"
                           else "flash_attention_bwd")
-                if dt == torch.bfloat16 and (H, KV, dh) == (16, 2, 128) \
-                        and route != "wgmma":
-                    raise AssertionError(f"qwen2.5-3b's heads S={S} bf16 take "
-                                         f"the {route} backward")
+                if (dt == torch.bfloat16) != (route == "wgmma"):
+                    raise AssertionError(f"H={H} KV={KV} dh={dh} S={S} {dt} "
+                                         f"takes the {route} backward")
                 reset()
                 got = flash_attention_bwd(q, k, v, go, causal=causal, window=w)
                 again = flash_attention_bwd(q, k, v, go, causal=causal, window=w)
@@ -1971,7 +2007,95 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
                           first_loss=loss0, losses=moe_losses,
                           nonzero_grads=nonzero, product_err=prod_err)
 
-    # 4. qwen2.5-3b at full width and depth
+    # 4. the bf16 families on the tensor-core backward's DHP 256 and G 6
+    # heads, at every width; deepseek-v2-236b's memory need, from its shapes
+    def families():
+        arch, L = LM_TRAIN_NOT_FIT
+        cfg = dataclasses.replace(get_arch(arch).model, n_layers=L,
+                                  act_dtype="bfloat16")
+        n = sum(t.numel() for ts in _leaves(Transformer(cfg, torch.device(
+            "meta"))).values() for t in ts)
+        need = 18 * n / 2**30
+        print(f"  {cfg.name} x{L} bf16: {n / 1e9:.3f} B parameters; f32 masters, "
+              f"m, v, bf16 weights and the f32 gradient sum {need:.1f} GiB of the "
+              f"card's {torch.cuda.get_device_properties(dev).total_memory / 2**30:.1f}:"
+              " not trained (its heads' backward is held above)", flush=True)
+        rec["families"] = [dict(config=f"{cfg.name} x{L} bfloat16", trained=False,
+                                params=n, need_gib=need)]
+        for arch, L, S, S_oom in LM_TRAIN_FAMILIES:
+            rec["families"].append(family(arch, L, S, S_oom))
+
+    def family(arch, L, S, S_oom) -> dict:
+        cfg = dataclasses.replace(get_arch(arch).model, n_layers=L,
+                                  act_dtype="bfloat16")
+        fk, bk = fwd_kernel(cfg), bwd_kernel(cfg)
+        if bk != "flash_attention_bwd_wgmma":
+            raise AssertionError(f"{cfg.name} bf16 takes the {bk} backward")
+        na, B, n = attention_layers(cfg), LM_TRAIN_FAMILY_BATCH, LM_TRAIN_FAMILY_STEPS
+        Np = LM_TRAIN_PREFIX if cfg.modality == "vision_prefix" else 0
+        while True:
+            oom = None
+            try:
+                torch.cuda.reset_peak_memory_stats()
+                model, state = init_state(cfg, 0, device=dev)
+                params = sum(t.numel() for ts in _leaves(model).values() for t in ts)
+                data = batches(cfg, B, S - Np, n)
+                gp = torch.Generator(device=dev).manual_seed(21)
+                for b in data if Np else ():   # internvl2's patch stub, N(0, 0.02²)
+                    b["prefix"] = (0.02 * torch.randn((B, Np, cfg.d_model), generator=gp,
+                                                      device=dev)).to(cfg.adt)
+                reset()
+                loss0, grads = first_grads(model, data[0]["tokens"], False,
+                                           data[0].get("prefix"))
+                names = [f"{p}[{i}]" for p, ts in _leaves(model).items()
+                         for i in range(len(ts))]
+                bad = [name for name, g in zip(names, grads)
+                       if not bool(torch.isfinite(g).all())]
+                nonzero = sum(bool(g.any()) for g in grads)
+                del grads
+                step = make_train_step(model, OptConfig(lr=1e-4, warmup_steps=0,
+                                                        total_steps=n))
+                losses, secs = [], []
+                for b in data:
+                    t1 = time.perf_counter()
+                    state, m = step(state, b)
+                    losses.append(float(m["loss"]))
+                    secs.append(time.perf_counter() - t1)
+                break
+            except torch.cuda.OutOfMemoryError as e:
+                if S == S_oom:
+                    raise
+                oom = f"{e}".splitlines()[0]
+                traceback.print_exc()
+            # out of the handler, so that its frames no longer hold the tensors
+            print(f"  {cfg.name} x{L} at S={S} does not fit the card ({oom}); "
+                  f"S={S_oom}", flush=True)
+            model = state = step = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            S = S_oom
+        label = (f"{cfg.name} x{L} bfloat16 (f32 masters) S={S}"
+                 + (f" ({Np} prefix rows)" if Np else "") + f" B={B}, remat "
+                 f"{cfg.remat_policy}")
+        got = take(f"{label}: first gradient and {n} steps",
+                   {fk: 2 * na * (n + 1), bk: na * (n + 1)})
+        r = dict(config=label, trained=True, params=params, seq_len=S, prefix=Np,
+                 first_loss=loss0, losses=losses, nonzero_grads=nonzero,
+                 leaves=len(names), seconds=statistics.median(secs),
+                 tokens_per_s=B * (S - Np) / statistics.median(secs),
+                 peak_gib=torch.cuda.max_memory_allocated() / 2**30, launches=got,
+                 oom=oom)
+        print(f"  {label}: {params / 1e9:.3f} B parameters; first loss {loss0:.4f}, "
+              f"{nonzero} of {len(names)} weights with a non-zero gradient; losses "
+              f"{losses}; a step {r['seconds']:.3f} s (median of {n}), "
+              f"{r['tokens_per_s']:.0f} tokens/s, peak {r['peak_gib']:.2f} GiB",
+              flush=True)
+        if bad or not all(math.isfinite(x) for x in [loss0] + losses):
+            raise AssertionError(f"{cfg.name} bf16: non-finite gradients {bad[:5]} "
+                                 f"or losses {losses}")
+        return r
+
+    # 5. qwen2.5-3b at full width and depth
     def full():
         cfg = spec.model
         L = cfg.n_layers
@@ -2068,7 +2192,7 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
               f"flash backward {bwd:.1f} ms ({bwd / total:.1%}), flash forward "
               f"{fwd:.1f} ms ({fwd / total:.1%})", flush=True)
 
-    # 5. resume from a checkpoint: launch.train.run_training, 4-layer f32 copy
+    # 6. resume from a checkpoint: launch.train.run_training, 4-layer f32 copy
     def resume():
         kw = dict(smoke=False, batch=LM_RESUME_BATCH, seq_len=LM_RESUME_S,
                   ckpt_every=LM_RESUME_AT, microbatches=1, lr=1e-3, log_every=1,
@@ -2114,7 +2238,7 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
 
     # each part in its own function: its tensors die when it returns
     checks = None
-    for part in (bwd_checks, twin, moe, full, resume):
+    for part in (bwd_checks, twin, moe, families, full, resume):
         gc.collect()
         torch.cuda.empty_cache()
         print(f"  {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
@@ -3490,7 +3614,11 @@ def main() -> int:
           f"cases ({n_tc} of them on the tensor-core backward) within "
           f"their limits, two calls bitwise equal; the float32 twin within "
           f"its limits; "
-          f"{train_rec['moe']['config']} trained; {full['config']}: "
+          f"{train_rec['moe']['config']} trained; "
+          + "".join(f"{r['config']}: {r['seconds']:.3f} s a step, "
+                    f"{r['tokens_per_s']:.0f} tokens/s, peak {r['peak_gib']:.2f} "
+                    "GiB; " for r in train_rec["families"] if r["trained"])
+          + f"{full['config']}: "
           f"{full['seconds']:.3f} s a step, {full['tokens_per_s']:.0f} tokens/s, "
           f"peak {full['peak_gib']:.2f} GiB; resume bitwise; launches "
           f"{train_launches}")
@@ -3745,61 +3873,75 @@ def main() -> int:
                                                        enable_gqa=True), 50,
                 decode_work(lw, H, KV, dh, qd.element_size()), dname))
             del qd, kc, vc, q4, k4, v4
-    # the flash backward at the trained shapes (qwen2.5-3b's heads, causal):
-    # each route's kernels (bfloat16 on both: the tensor cores, and the
-    # CUDA cores the route replaced), their plain version, and SDPA's
-    # backward alone (its forward run once outside the timer; forward and
-    # backward together printed beside it)
+    # the flash backward at the trained shapes (causal): qwen2.5-3b's heads,
+    # bfloat16 on both routes (the tensor cores, and the CUDA cores the
+    # route replaced) and float32; the heads of DHP 256 and G 6 (deepseek-v2's
+    # MLA with v zero-padded as the model pads it, zamba2's shared block,
+    # internvl2's), bfloat16, the CUDA cores at FLASH_BWD_S only; each beside
+    # its plain version and SDPA's backward alone (k and v expanded over G;
+    # its forward run once outside the timer; forward and backward together
+    # printed beside it)
     rows["flash_attention_bwd"], rows["flash_attention_bwd_wgmma"] = [], []
-    for S in (full["seq_len"], FLASH_BWD_S):
-        for dt in (torch.bfloat16, torch.float32):
-            gen = torch.Generator(device=dev).manual_seed(S)
-            q, go = (torch.randn((1, S, 16, 128), generator=gen, device=dev)
-                     .to(dt) for _ in range(2))
-            k, v = (torch.randn((1, S, 2, 128), generator=gen, device=dev)
-                    .to(dt) for _ in range(2))
-            qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_()
-                          for x in (q, k, v))
-            gs = go.transpose(1, 2)
 
-            def sdpa():
-                return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
-                                                      enable_gqa=True)
+    def bwd_row(S, H, KV, dh, dt, mla=False):
+        gen = torch.Generator(device=dev).manual_seed(S + H + dh)
+        q, go = (torch.randn((1, S, H, dh), generator=gen, device=dev).to(dt)
+                 for _ in range(2))
+        k, v = (torch.randn((1, S, KV, dh), generator=gen, device=dev).to(dt)
+                for _ in range(2))
+        if mla:
+            v[..., 128:] = 0
+            go[..., 128:] = 0
+        qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        gs = go.transpose(1, 2)
 
-            out = sdpa()
+        def sdpa():
+            return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                                  enable_gqa=H != KV)
 
-            # milliseconds a call: CUDA events time these as well as a
-            # trace would, and a trace this late in the run may drop some
-            # of the kernels (ROADMAP Queue C item 8)
-            shape = f"{str(dt)[6:]} B=1 S={S} H=16 KV=2 dh=128 causal"
-            # bfloat16 on the route the call takes (checked), then forced
-            # onto the CUDA cores
-            routes = (flash_bwd_route(q, k, v), "simt") if dt == torch.bfloat16 \
-                else ("simt",)
-            if routes[0] != ("wgmma" if dt == torch.bfloat16 else "simt"):
-                return fail("report", f"flash_attention_bwd {shape}: {routes[0]}")
-            k_ms = {r: median_ms(lambda r=r: flash_attention_bwd(
-                q, k, v, go, route="simt" if r == "simt" else None), 5)
-                for r in routes}
-            p_ms = median_ms(lambda: flash_attention_bwd_ref(q, k, v, go), 5)
-            lib_ms = median_ms(lambda: torch.autograd.grad(
-                out, (qs, ks, vs), gs, retain_graph=True), 5)
-            both_ms = median_ms(lambda: torch.autograd.grad(
-                sdpa(), (qs, ks, vs), gs), 5)
-            b_ms, b_by = work_bound(*flash_bwd_work(
-                1, S, 16, 2, 128, q.element_size()), str(dt)[6:])
-            print(f"  flash_attention_bwd {shape}: "
-                  + ", ".join(f"{r} kernels {k_ms[r]:.5f} ms a call" for r in routes)
-                  + f" (events), plain {p_ms:.5f} ms, SDPA backward {lib_ms:.5f} "
-                  f"ms (forward and backward {both_ms:.5f} ms), bound "
-                  f"{b_ms:.7f} ms ({b_by})", flush=True)
-            for r in routes:
-                name = "flash_attention_bwd" + ("_wgmma" if r == "wgmma" else "")
-                rows[name].append(dict(
-                    shape=shape, ms=k_ms[r], timer="events", call_ms=k_ms[r],
-                    plain_ms=p_ms, library_ms=lib_ms, library_fwd_bwd_ms=both_ms,
-                    bound_ms=b_ms, bound_by=b_by))
-            del q, k, v, go, qs, ks, vs, gs, out
+        out = sdpa()
+        # milliseconds a call: CUDA events time these as well as a trace
+        # would, and a trace this late in the run may drop some of the
+        # kernels (ROADMAP Queue C item 8)
+        shape = (f"{str(dt)[6:]} B=1 S={S} H={H} KV={KV} dh={dh} causal"
+                 + (" mla v 128->192" if mla else ""))
+        # bfloat16 on the route the call takes (checked), then forced onto
+        # the CUDA cores
+        routes = ((flash_bwd_route(q, k, v),)
+                  + (("simt",) if (H, KV, dh) == (16, 2, 128) or S == FLASH_BWD_S
+                     else ())) if dt == torch.bfloat16 else ("simt",)
+        if routes[0] != ("wgmma" if dt == torch.bfloat16 else "simt"):
+            raise AssertionError(f"flash_attention_bwd {shape}: {routes[0]}")
+        k_ms = {r: median_ms(lambda r=r: flash_attention_bwd(
+            q, k, v, go, route="simt" if r == "simt" else None), 5)
+            for r in routes}
+        p_ms = median_ms(lambda: flash_attention_bwd_ref(q, k, v, go), 5)
+        lib_ms = median_ms(lambda: torch.autograd.grad(
+            out, (qs, ks, vs), gs, retain_graph=True), 5)
+        both_ms = median_ms(lambda: torch.autograd.grad(sdpa(), (qs, ks, vs), gs), 5)
+        b_ms, b_by = work_bound(*flash_bwd_work(1, S, H, KV, dh, q.element_size()),
+                                str(dt)[6:])
+        print(f"  flash_attention_bwd {shape}: "
+              + ", ".join(f"{r} kernels {k_ms[r]:.5f} ms a call" for r in routes)
+              + f" (events), plain {p_ms:.5f} ms, SDPA backward {lib_ms:.5f} "
+              f"ms (forward and backward {both_ms:.5f} ms), bound "
+              f"{b_ms:.7f} ms ({b_by})", flush=True)
+        for r in routes:
+            name = "flash_attention_bwd" + ("_wgmma" if r == "wgmma" else "")
+            rows[name].append(dict(
+                shape=shape, ms=k_ms[r], timer="events", call_ms=k_ms[r],
+                plain_ms=p_ms, library_ms=lib_ms, library_fwd_bwd_ms=both_ms,
+                bound_ms=b_ms, bound_by=b_by))
+
+    try:
+        for S in (full["seq_len"], FLASH_BWD_S):
+            for dt in (torch.bfloat16, torch.float32):
+                bwd_row(S, 16, 2, 128, dt)
+        for H, KV, dh in ((128, 128, 192), SHARED_HEADS, (48, 8, 128)):
+            for S in (LM_TRAIN_FULL_S, FLASH_BWD_S):
+                bwd_row(S, H, KV, dh, torch.bfloat16, mla=dh == 192)
+    except AssertionError as e:
+        return fail("report", str(e))
     for r in lm_runs:
         if "decode_step_device_ms" not in r:
             continue

@@ -1210,11 +1210,13 @@ extern "C" int fb_launch(const void* q, const void* k, const void* v,
 
 // ------------------------------------- backward, bf16 on the tensor cores
 //
-// fbt_dq_kernel, then fbt_dkdv_kernel: the same gradient as fb_dq_kernel
-// and fb_dkdv_kernel (fp32 p, the model's own attention) for bfloat16 q, k,
+// fbt_dq_kernel, then fbt_dkdv_kernel (fbt_dkdv2_kernel at DHP 256): the
+// same gradient as fb_dq_kernel and fb_dkdv_kernel (fp32 p, the model's own
+// attention) for bfloat16 q, k,
 // v and g, dq, dk and dv in bfloat16, lse (B, H, Sq) fp32; causal, full or
-// causal with a window, masked as fa_tc_kernel masks.  They replace no TPU
-// kernel: the reference's gradient is XLA's autodiff of
+// causal with a window, masked as fa_tc_kernel masks; dh a multiple of 8 up
+// to 256 (padded to DHP 64, 128 or 256), G = H / KV up to 64, or 128.  They
+// replace no TPU kernel: the reference's gradient is XLA's autodiff of
 // src/repro/models/attention.py:70 `flash_attention`, and the Pallas
 // `_kernel` has no backward.  Deterministic: no atomics on floats; every
 // sum runs in an order fixed by the shapes.
@@ -1226,97 +1228,123 @@ extern "C" int fb_launch(const void* q, const void* k, const void* v,
 //      and v in the model's own strided layout into 128-byte-swizzled
 //      shared memory through 4-D tensor maps (fa_tc_map), completed on
 //      mbarriers (full/empty, as fa_tc_kernel).
-//      * fbt_dq_kernel: one block per (b * KV + kv head, tile of FBT_BM
-//        (token, g) rows), the heaviest causal tiles of all heads first, two
-//        consumer warpgroups of 64 rows; the q and g tiles load once (box G
-//        heads x 128 / G tokens), k and v stream through a ring, twice.
-//        Pass 1: S = q.k^T and dP = g.v^T (_ss, both K-major), the online
-//        max m, l = sum exp(s - m) and sum exp(s - m) dp, in base 2 as the
-//        forward: lse = m + log l and D = sum p dp, written to fp32 scratch
-//        (lse also to its (B, H, Sq) output).  Pass 2: S and dP again,
-//        p = exp(s scale - lse), ds = p (dp - D), dQ += dS.K with dS from
-//        registers in the accumulator layout and K read MN-major (transpose
-//        bit) from the same swizzled tile.  As fa_tc_kernel, the unscaled
-//        bf16 q goes into the product and the fp32 scores are scaled after
-//        it (fp32 rounding apart from the plain version, which scales q
-//        first); dq = scale * the sum, in the epilogue.
-//      * fbt_dkdv_kernel: one block per (b * KV + kv head, tile of FBT_BK
-//        keys, piece), one consumer warpgroup, two blocks an SM.  k and v
-//        load once; tiles of FBT_RM (token, g) rows of q and g stream
-//        through the ring with their rows' lse and D (bulk copies from the
-//        scratch).  S^T = K.q^T and dP^T = V.g^T (_ss, K-major); P^T and dS^T
-//        form in the accumulator layout; dV += P^T.g and dK += dS^T.q with
-//        A from registers and B the row tile read MN-major: the tile that fed
-//        S^T K-major, no second copy.  dk = scale * its sum.  The G query
-//        heads of the KV head are rows of the same walk, so their sum needs
-//        no atomics.
+//      * Rows are (token, g) pairs.  A row tile is a wgmma's 64 row slots
+//        holding the a.rt = G * floor(64 / G) rows of whole tokens (60 at
+//        internvl2's G 6: 10 tokens of 6 heads), one TMA box of G heads x
+//        floor(64 / G) tokens; at G 128 it holds half a token (box 64
+//        heads x 1 token).  The slots past a.rt are never loaded: the dkdv
+//        kernel zeroes them once in every stage, their statistics are lse
+//        = +inf and D = 0 (so p = ds = 0 there), and nothing is written
+//        for them.  Where G divides 64 (or is 128) a.rt = 64 and no slot
+//        is empty.
+//      * fbt_dq_kernel: one block per (b * KV + kv head, pair of row
+//        tiles), the heaviest causal pairs of all heads first, two consumer
+//        warpgroups of one row tile each; the q and g tiles load once, k
+//        and v stream through a ring of BK-key stages, twice (BK 64, or 32
+//        at DHP 256: 128 rows of q and g then take 128 KB).  Pass 1: S =
+//        q.k^T and dP = g.v^T (_ss, both K-major), the online max m, l =
+//        sum exp(s - m) and sum exp(s - m) dp, in base 2 as the forward:
+//        lse = m + log l and D = sum p dp, written to fp32 scratch by slot
+//        (lse also to its (B, H, Sq) output).  Pass 2: S and dP again, p =
+//        exp(s scale - lse), ds = p (dp - D) formed in S's registers, dQ +=
+//        dS.K with dS from registers in the accumulator layout and K read
+//        MN-major (transpose bit) from the same swizzled tile.  As
+//        fa_tc_kernel, the unscaled bf16 q goes into the product and the
+//        fp32 scores are scaled after it (fp32 rounding apart from the
+//        plain version, which scales q first); dq = scale * the sum.
+//      * fbt_dkdv_kernel (fbt_dkdv2_kernel at DHP 256, point 3): one block
+//        per (b * KV + kv head, tile of FBT_BK keys, piece).  k and v load once; row tiles of q and g stream
+//        through the ring with their slots' lse and D (bulk copies from the
+//        scratch).  S^T = K.q^T and dP^T = V.g^T (_ss, K-major); P^T and
+//        dS^T form in the accumulator layout; dV += P^T.g and dK += dS^T.q
+//        with A from registers and B the row tile read MN-major: the tile
+//        that fed S^T K-major, no second copy.  dk = scale * its sum.  The G
+//        query heads of the KV head are rows of the same walk, so their sum
+//        needs no atomics.
 //   2. p and ds are fp32 A operands: each is split into NT bf16 terms (hi,
 //      then what hi left, then what both left), one wgmma a term, as
 //      fa_tc_kernel splits p: three terms carry all 24 bits, so the products
 //      that take p or ds keep the plain version's fp32 operands.  7 products
 //      in dq and 8 in dkdv against the bound's 5: the price of fp32
 //      fidelity, still on the tensor cores.
-//   3. Registers (dkdv, dh 128): dK and dV 64 + 64, S^T and dP^T 32 + 32, the
-//      terms 48 exceed a consumer's 232 at once; so P^T's terms go first and
-//      their products retire before dS^T's terms (formed from dP^T's
-//      registers) are made.  dh > 128 would not fit: such heads stay on the
-//      CUDA cores.
+//   3. Registers: a consumer has 232.  fbt_dkdv_kernel (DHP <= 128: one
+//      consumer warpgroup, two blocks an SM): dK and dV 64 + 64, S^T and
+//      dP^T 32 + 32, the terms 48 exceed them at once; so P^T's terms go
+//      first and their products retire before dS^T's terms (formed from
+//      dP^T's registers) are made.  At DHP 256 dK and dV alone would take
+//      256, so fbt_dkdv2_kernel's two consumer warpgroups share the work by
+//      output: warpgroup 0 computes S^T, P^T and dV (128 registers),
+//      warpgroup 1 dP^T, dS^T and dK (128), each product over the whole
+//      DHP; P^T alone crosses, through 16 KB of shared memory (two named
+//      barriers a row tile).  Each does four of the eight products, and
+//      neither needs the other's accumulator.  Splitting dh instead (each
+//      warpgroup 128 columns of both, S^T and dP^T swapped) spilled (ptxas:
+//      164 B, wgmma serialised) and ran 6-9 % slower.  k, v (32 KB each),
+//      two stages of q and g rows (128 KB) and P^T fill one SM.  dq at DHP
+//      256: dQ 128 registers, S and dP 16 + 16 at 32 keys a stage, ds's
+//      terms 24.
 //   4. 132 SMs: at B 1, KV 2, S 4,096 there are only 128 key tiles, and the
 //      causal mask gives the first 64 times the rows of the last.  Each key
 //      tile's walk is cut into `pieces` runs of row tiles of equal count
-//      (repro_torch.kernels.flash_attention.plan_flash_bwd); each piece
+//      (repro_torch.kernels.flash_attention.plan_flash_bwd, which sizes it
+//      by the blocks resident on an SM: 2, or 1 at DHP 256); each piece
 //      writes fp32 partial dk and dv to scratch, and the last piece of a key
 //      tile to arrive (an integer counter) sums all of them in piece order
 //      and rounds once: the sum's order never depends on arrival.
 // float32 stays on the CUDA cores (the tensor cores would mean TF32 or
-// split operands on both sides), and so do dh > 128 (point 3) and G not
-// dividing 128 (the (token, g) row tiles are TMA boxes of whole tokens).
+// split operands on both sides), and so do G 65..127 and above 128 (a row
+// tile holds neither whole tokens nor a whole part of one).
 
-#define FBT_BM 128         // dq kernel: (token, g) rows a block
-#define FBT_BK 64          // keys a stage (dq kernel), a block (dkdv kernel)
-#define FBT_RM 64          // dkdv kernel: (token, g) rows a stage
+#define FBT_BM 128         // dq kernel: row slots a block (two row tiles)
+#define FBT_BK 64          // keys a dkdv block
+#define FBT_RM 64          // row slots a row tile, a stage of the dkdv ring
 #define FBT_STAGES 2
 #define FBT_DQ_THREADS 384
-#define FBT_KV_THREADS 256
 #define FBT_LOG2E 1.4426950408889634f
 #define FBT_LN2 0.6931471805599453f
 
 struct FbtArgs {
   __nv_bfloat16* dq; __nv_bfloat16* dk; __nv_bfloat16* dv;
   float* lse;            // (B, H, Sq): natural log-sum-exp of each row
-  float* stats;          // [2][B * KV][rows_pad]: base-2 lse, then D, by row
-  float* part;           // [B * KV * key tiles * pieces][2][DHP / 2][128]
+  float* stats;          // [2][B * KV][rows_pad]: base-2 lse, then D, by slot
+  float* part;           // [B * KV * key tiles * pieces][DHP * 128]: registers
+                         // by consumer thread
   int* count;            // [key tiles * B * KV] pieces arrived
   int B, Sq, Sk, H, KV, dh, rows_pad, pieces;
+  int rt;                // rows of a row tile: whole tokens, or half of one
   float scale;
   int causal, window;
 };
 
 template <int DHP>
 struct FbtQShape {
+  static constexpr int BK = DHP > 128 ? 32 : 64;       // keys a stage
   static constexpr int ROW_BYTES = FBT_BM * DHP * 2;   // the q or g tile
-  static constexpr int KV_BYTES = FBT_BK * DHP * 2;    // a k or v stage
+  static constexpr int KV_BYTES = BK * DHP * 2;        // a k or v stage
   static constexpr int BARS = 2 * ROW_BYTES + FBT_STAGES * 2 * KV_BYTES;
   static constexpr int SMEM = BARS + (1 + 2 * FBT_STAGES) * 8 + 1024;
 };
 
 template <int DHP>
 struct FbtKShape {
+  static constexpr int WG = DHP > 128 ? 2 : 1;         // consumer warpgroups
+  static constexpr int THREADS = 128 * (WG + 1);
   static constexpr int KV_BYTES = FBT_BK * DHP * 2;    // the block's k or v
   static constexpr int ROW_BYTES = FBT_RM * DHP * 2;   // a stage's q or g rows
-  static constexpr int STATS = 2 * KV_BYTES + FBT_STAGES * 2 * ROW_BYTES;
+  static constexpr int PT = 2 * KV_BYTES + FBT_STAGES * 2 * ROW_BYTES;
+  static constexpr int STATS = PT + (WG - 1) * 32 * 128 * 4;   // WG 2: P^T
   static constexpr int BARS = STATS + FBT_STAGES * 2 * FBT_RM * 4;
   static constexpr int SMEM = BARS + (1 + 2 * FBT_STAGES) * 8 + 16 + 1024;
 };
 
-// The A operands of the four k-steps of a 64 x 64 fp32 accumulator fragment
-// x (the keys, or rows, of k-step kk are 16 kk .. 16 kk + 15): term t is the
-// bf16 rounding of what terms 0 .. t-1 left of x.
-template <int NT>
-__device__ __forceinline__ void fbt_terms(uint32_t (&a)[NT][4][4],
-                                          const float (&x)[32]) {
+// The A operands of the KS k-steps of a 64 x 16 KS fp32 accumulator
+// fragment x (the keys, or rows, of k-step kk are 16 kk .. 16 kk + 15):
+// term t is the bf16 rounding of what terms 0 .. t-1 left of x.
+template <int NT, int KS>
+__device__ __forceinline__ void fbt_terms(uint32_t (&a)[NT][KS][4],
+                                          const float (&x)[8 * KS]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
+  for (int kk = 0; kk < KS; ++kk)
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       float x0 = x[8 * kk + 2 * r], x1 = x[8 * kk + 2 * r + 1];
@@ -1330,54 +1358,77 @@ __device__ __forceinline__ void fbt_terms(uint32_t (&a)[NT][4][4],
     }
 }
 
-// d (64 x DHP) += sum over the terms of a (64 x 64) . B, B a 64-row tile
-// read MN-major (its rows are the contraction index).
-template <int DHP, int NT>
-__device__ __forceinline__ void fbt_accum(float (&d)[DHP / 2],
-                                          const uint32_t (&a)[NT][4][4],
-                                          const uint8_t* tile) {
+// d (64 x N) += sum over the terms of a (64 x 16 KS) . B, B a tile of 16 KS
+// rows read MN-major (its rows are the contraction index; the next 64 of
+// its N columns `lbo` bytes on).
+template <int N, int NT, int KS>
+__device__ __forceinline__ void fbt_accum(float (&d)[N / 2],
+                                          const uint32_t (&a)[NT][KS][4],
+                                          const uint8_t* tile, int lbo) {
   hp_fence_regs(d);
   hp_wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint64_t db = hp_desc(tile + kk * 2048, 64 * 128, 1024);
+  for (int kk = 0; kk < KS; ++kk) {
+    const uint64_t db = hp_desc(tile + kk * 2048, lbo, 1024);
 #pragma unroll
-    for (int t = 0; t < NT; ++t) hp_wgmma_rs<DHP, 1>(d, a[t][kk], db, 1);
+    for (int t = 0; t < NT; ++t) hp_wgmma_rs<N, 1>(d, a[t][kk], db, 1);
   }
   hp_wgmma_commit();
   hp_wgmma_wait<0>();
   hp_fence_regs(d);
 }
 
-// x = A . B^T and y = C . D^T (64 x 64 each, over DHP): A and C 64 rows at
-// a and c (chunks of 64 columns `ap` bytes apart), B and D 64 rows at b
-// and d (chunks `bp` bytes apart), all K-major.
-template <int DHP>
-__device__ __forceinline__ void fbt_pair(float (&x)[32], float (&y)[32],
+// Issue x (64 x N) += A . B^T over DHP: A 64 rows at a (chunks of 64
+// columns `ap` bytes apart), B N rows at b (chunks `bp` apart), K-major.
+template <int DHP, int N>
+__device__ __forceinline__ void fbt_ss(float (&x)[N / 2], const uint8_t* a,
+                                       const uint8_t* b, int ap, int bp) {
+#pragma unroll
+  for (int kk = 0; kk < DHP / 16; ++kk) {
+    const int o = (kk / 4), kin = (kk % 4) * 32;
+    hp_wgmma_ss<N, 0>(x, hp_desc(a + o * ap + kin, 16, 1024),
+                      hp_desc(b + o * bp + kin, 16, 1024), 1);
+  }
+}
+
+// x = A . B^T and y = C . D^T (64 x N each, over DHP), as fbt_ss lays
+// them out (C as A, D as B).
+template <int DHP, int N>
+__device__ __forceinline__ void fbt_pair(float (&x)[N / 2], float (&y)[N / 2],
                                          const uint8_t* a, const uint8_t* b,
                                          const uint8_t* c, const uint8_t* d,
                                          int ap, int bp) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) x[i] = y[i] = 0.0f;
+  for (int i = 0; i < N / 2; ++i) x[i] = y[i] = 0.0f;
   hp_fence_regs(x);
   hp_fence_regs(y);
   hp_wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < DHP / 16; ++kk) {
-    const int o = (kk / 4), kin = (kk % 4) * 32;
-    hp_wgmma_ss<64, 0>(x, hp_desc(a + o * ap + kin, 16, 1024),
-                       hp_desc(b + o * bp + kin, 16, 1024), 1);
-  }
-#pragma unroll
-  for (int kk = 0; kk < DHP / 16; ++kk) {
-    const int o = (kk / 4), kin = (kk % 4) * 32;
-    hp_wgmma_ss<64, 0>(y, hp_desc(c + o * ap + kin, 16, 1024),
-                       hp_desc(d + o * bp + kin, 16, 1024), 1);
-  }
+  fbt_ss<DHP, N>(x, a, b, ap, bp);
+  fbt_ss<DHP, N>(y, c, d, ap, bp);
   hp_wgmma_commit();
   hp_wgmma_wait<0>();
   hp_fence_regs(x);
   hp_fence_regs(y);
+}
+
+// x = A . B^T alone (64 x 64 over DHP), laid out as fbt_ss's.
+template <int DHP>
+__device__ __forceinline__ void fbt_one(float (&x)[32], const uint8_t* a,
+                                        const uint8_t* b, int ap, int bp) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) x[i] = 0.0f;
+  hp_fence_regs(x);
+  hp_wgmma_fence();
+  fbt_ss<DHP, 64>(x, a, b, ap, bp);
+  hp_wgmma_commit();
+  hp_wgmma_wait<0>();
+  hp_fence_regs(x);
+}
+
+// Named barrier `id` over the first `n` threads (the consumer warpgroups).
+template <int ID, int N>
+__device__ __forceinline__ void fbt_bar() {
+  asm volatile("bar.sync %0, %1;\n" :: "n"(ID), "n"(N) : "memory");
 }
 
 template <int DHP, int NT>
@@ -1387,6 +1438,7 @@ fbt_dq_kernel(const __grid_constant__ CUtensorMap mq,
               const __grid_constant__ CUtensorMap mk,
               const __grid_constant__ CUtensorMap mv, FbtArgs a) {
   using S = FbtQShape<DHP>;
+  constexpr int BK = S::BK, NSC = BK / 2, KS = BK / 16;
   constexpr int NO = DHP / 2;                       // dq fragment registers
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (hp_smem(smem_raw) & 1023)) & 1023);
@@ -1398,16 +1450,17 @@ fbt_dq_kernel(const __grid_constant__ CUtensorMap mq,
   uint64_t* empty = full + FBT_STAGES;
 
   const int tid = threadIdx.x, wg = tid / 128;
-  const int G = a.H / a.KV, nrows = a.Sq * G, nbkv = a.B * a.KV;
-  const int ntile = (nrows + FBT_BM - 1) / FBT_BM;
+  const int G = a.H / a.KV, nrows = a.Sq * G, nbkv = a.B * a.KV, RT = a.rt;
+  const int npair = ((nrows + RT - 1) / RT + 1) / 2;  // row-tile pairs a head
   const int bkv = blockIdx.x % nbkv, rank = blockIdx.x / nbkv;   // heaviest first
-  const int r0 = (ntile - 1 - rank) * FBT_BM;
+  const int pair = npair - 1 - rank;
+  const int r0 = 2 * pair * RT;                     // the block's first row
   const int b = bkv / a.KV, kvh = bkv % a.KV;
-  const int last_row = min(r0 + FBT_BM, nrows) - 1;
+  const int last_row = min(r0 + 2 * RT, nrows) - 1;
   const int kend = a.causal ? min(a.Sk, last_row / G + 1) : a.Sk;
-  const int nt = (kend + FBT_BK - 1) / FBT_BK;
+  const int nt = (kend + BK - 1) / BK;
   // the first key tile inside the window of the block's first row
-  const int j0 = a.window > 0 ? max(0, r0 / G - a.window + 1) / FBT_BK : 0;
+  const int j0 = a.window > 0 ? max(0, r0 / G - a.window + 1) / BK : 0;
   const int nj = max(0, nt - j0);                   // key tiles a pass
   if (tid == 0) {
     hp_bar_init(q_full, 1);
@@ -1423,11 +1476,16 @@ fbt_dq_kernel(const __grid_constant__ CUtensorMap mq,
     // ----------------------------------------------------- producer
     hp_regs_dec<40>();
     if (tid != 256) return;
-    hp_bar_expect_tx(q_full, 2 * S::ROW_BYTES);
+    hp_bar_expect_tx(q_full, 2 * 2 * (DHP / 64) * RT * 128);
 #pragma unroll
-    for (int c = 0; c < DHP / 64; ++c) {
-      hp_tma_4d(Qs + c * FBT_BM * 128, &mq, q_full, c * 64, kvh * G, r0 / G, b);
-      hp_tma_4d(Gs + c * FBT_BM * 128, &mg, q_full, c * 64, kvh * G, r0 / G, b);
+    for (int h = 0; h < 2; ++h) {         // row tile h into slots 64 h ..
+      const int rr = r0 + h * RT;
+#pragma unroll
+      for (int c = 0; c < DHP / 64; ++c) {
+        const int at = c * FBT_BM * 128 + h * FBT_RM * 128;
+        hp_tma_4d(Qs + at, &mq, q_full, c * 64, kvh * G + rr % G, rr / G, b);
+        hp_tma_4d(Gs + at, &mg, q_full, c * 64, kvh * G + rr % G, rr / G, b);
+      }
     }
     for (int n = 0; n < 2 * nj; ++n) {    // the key tiles, once a pass
       const int j = j0 + n % nj, s = n % FBT_STAGES;
@@ -1437,8 +1495,8 @@ fbt_dq_kernel(const __grid_constant__ CUtensorMap mq,
       hp_bar_expect_tx(&full[s], 2 * S::KV_BYTES);
 #pragma unroll
       for (int c = 0; c < DHP / 64; ++c) {
-        hp_tma_4d(Kt + c * FBT_BK * 128, &mk, &full[s], c * 64, kvh, j * FBT_BK, b);
-        hp_tma_4d(Vt + c * FBT_BK * 128, &mv, &full[s], c * 64, kvh, j * FBT_BK, b);
+        hp_tma_4d(Kt + c * BK * 128, &mk, &full[s], c * 64, kvh, j * BK, b);
+        hp_tma_4d(Vt + c * BK * 128, &mv, &full[s], c * 64, kvh, j * BK, b);
       }
     }
     return;
@@ -1446,22 +1504,24 @@ fbt_dq_kernel(const __grid_constant__ CUtensorMap mq,
   // ------------------------------------------------------ consumers
   hp_regs_inc<232>();
   const int warp = (tid % 128) / 32, lane = tid % 32;
-  const int rl = wg * 64 + warp * 16 + lane / 4;    // rows rl and rl + 8
-  const int tok[2] = {(r0 + rl) / G, (r0 + rl + 8) / G};
-  const int tok_lo = (r0 + wg * 64) / G;            // this warpgroup's first
-  const int tok_hi = (r0 + wg * 64 + 63) / G;       // and last token
+  const int sl = warp * 16 + lane / 4;              // slots sl and sl + 8
+  const int rw = r0 + wg * RT;                      // this row tile's first row
+  const bool filled[2] = {sl < RT, sl + 8 < RT};
+  const int tok[2] = {(rw + sl) / G, (rw + sl + 8) / G};
+  const int tok_lo = rw / G;                        // this row tile's first
+  const int tok_hi = (rw + RT - 1) / G;             // and last token
   const float sl2 = a.scale * FBT_LOG2E;
-  const uint8_t* Qw = Qs + wg * 64 * 128;
-  const uint8_t* Gw = Gs + wg * 64 * 128;
+  const uint8_t* Qw = Qs + wg * FBT_RM * 128;
+  const uint8_t* Gw = Gs + wg * FBT_RM * 128;
   // a tile that crosses the diagonal, the end of the keys or the window's
   // lower edge, and the keys it hides from row half h
   auto edge_of = [&](int j) {
-    return (j + 1) * FBT_BK > a.Sk || (a.causal && (j + 1) * FBT_BK - 1 > tok_lo) ||
-           (a.window > 0 && j * FBT_BK <= tok_hi - a.window);
+    return (j + 1) * BK > a.Sk || (a.causal && (j + 1) * BK - 1 > tok_lo) ||
+           (a.window > 0 && j * BK <= tok_hi - a.window);
   };
   auto hidden = [&](int j, int i) {
     const int h = (i / 2) % 2;
-    const int key = j * FBT_BK + 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
+    const int key = j * BK + 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
     return key >= a.Sk || (a.causal && key > tok[h]) ||
            (a.window > 0 && key <= tok[h] - a.window);
   };
@@ -1473,18 +1533,18 @@ fbt_dq_kernel(const __grid_constant__ CUtensorMap mq,
     const int j = j0 + n, s = n % FBT_STAGES;
     hp_bar_wait(&full[s], (n / FBT_STAGES) & 1);
     const uint8_t* Kt = KVs + s * 2 * S::KV_BYTES;
-    float sc[32], dp[32];
-    fbt_pair<DHP>(sc, dp, Qw, Kt, Gw, Kt + S::KV_BYTES, FBT_BM * 128, FBT_BK * 128);
+    float sc[NSC], dp[NSC];
+    fbt_pair<DHP, BK>(sc, dp, Qw, Kt, Gw, Kt + S::KV_BYTES, FBT_BM * 128, BK * 128);
     if (lane == 0) hp_bar_arrive(&empty[s]);        // the stage is read
     const bool edge = edge_of(j);
     if (edge) {
 #pragma unroll
-      for (int i = 0; i < 32; ++i)
+      for (int i = 0; i < NSC; ++i)
         if (hidden(j, i)) sc[i] = ATT_NEG;
     }
     float mx[2] = {ATT_NEG, ATT_NEG};
 #pragma unroll
-    for (int i = 0; i < 32; ++i) mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], sc[i]);
+    for (int i = 0; i < NSC; ++i) mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], sc[i]);
     float alpha[2], rs[2] = {0.0f, 0.0f}, rd[2] = {0.0f, 0.0f};
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -1496,7 +1556,7 @@ fbt_dq_kernel(const __grid_constant__ CUtensorMap mq,
     }
     // a hidden score gives p = 0 exactly (see fa_tc_kernel)
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
+    for (int i = 0; i < NSC; ++i) {
       const int h = (i / 2) % 2;
       float e = exp2f(fmaf(sc[i], sl2, -m2[h]));
       e = (edge && sc[i] == ATT_NEG) ? 0.0f : e;
@@ -1516,17 +1576,19 @@ fbt_dq_kernel(const __grid_constant__ CUtensorMap mq,
   float lse2[2], D[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int row = r0 + rl + 8 * h;
-    // a row that sees no key (none of the model's) and the rows past the
-    // last token get p = 0 everywhere
-    const bool live = row < nrows && l[h] > 0.0f;
+    const int row = rw + sl + 8 * h;
+    // a row that sees no key (none of the model's), the rows past the last
+    // token and the empty slots get p = 0 everywhere
+    const bool real = filled[h] && row < nrows;
+    const bool live = real && l[h] > 0.0f;
     lse2[h] = live ? m2[h] + log2f(l[h]) : FB_INF;
     D[h] = live ? pd[h] / l[h] : 0.0f;
     if (lane % 4 == 0) {
-      float* st = a.stats + (long long)bkv * a.rows_pad + row;
+      float* st = a.stats + (long long)bkv * a.rows_pad + pair * FBT_BM +
+                  wg * FBT_RM + sl + 8 * h;
       st[0] = lse2[h];
       st[(long long)nbkv * a.rows_pad] = D[h];
-      if (row < nrows) {
+      if (real) {
         const int t = row / G, g = row % G;
         a.lse[((long long)b * a.H + kvh * G + g) * a.Sq + t] = lse2[h] * FBT_LN2;
       }
@@ -1541,26 +1603,26 @@ fbt_dq_kernel(const __grid_constant__ CUtensorMap mq,
     const int j = j0 + n - nj, s = n % FBT_STAGES;
     hp_bar_wait(&full[s], (n / FBT_STAGES) & 1);
     const uint8_t* Kt = KVs + s * 2 * S::KV_BYTES;
-    float sc[32], dp[32];
-    fbt_pair<DHP>(sc, dp, Qw, Kt, Gw, Kt + S::KV_BYTES, FBT_BM * 128, FBT_BK * 128);
+    float sc[NSC], dp[NSC];
+    fbt_pair<DHP, BK>(sc, dp, Qw, Kt, Gw, Kt + S::KV_BYTES, FBT_BM * 128, BK * 128);
     const bool edge = edge_of(j);
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
+    for (int i = 0; i < NSC; ++i) {
       const int h = (i / 2) % 2;
       const float p = exp2f(fmaf(sc[i], sl2, -lse2[h]));
       sc[i] = (edge && hidden(j, i)) ? 0.0f : p * (dp[i] - D[h]);
     }
-    uint32_t ds[NT][4][4];
-    fbt_terms<NT>(ds, sc);
-    fbt_accum<DHP, NT>(dqa, ds, Kt);
+    uint32_t ds[NT][KS][4];
+    fbt_terms<NT, KS>(ds, sc);
+    fbt_accum<DHP, NT, KS>(dqa, ds, Kt, BK * 128);
     if (lane == 0) hp_bar_arrive(&empty[s]);
   }
 
   // ------------------------------------------------------ epilogue
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int row = r0 + rl + 8 * h;
-    if (row >= nrows) continue;
+    const int row = rw + sl + 8 * h;
+    if (!filled[h] || row >= nrows) continue;
     const int t = row / G, g = row % G;
     __nv_bfloat16* dst = a.dq + (((long long)b * a.Sq + t) * a.H + kvh * G + g) * a.dh;
 #pragma unroll
@@ -1573,25 +1635,93 @@ fbt_dq_kernel(const __grid_constant__ CUtensorMap mq,
   }
 }
 
-// Row tiles [lo, hi) of FBT_RM rows that can see a key of key tile kt
-// (causal: tokens from its first key on; window: tokens before its last key
-// + window), as plan_flash_bwd states them.
+// Row tiles [lo, hi) that can see a key of key tile kt (causal: tokens
+// from its first key on; window: tokens before its last key + window), as
+// plan_flash_bwd states them.
 __device__ __forceinline__ int2 fbt_row_tiles(const FbtArgs& a, int kt) {
   const int G = a.H / a.KV, nrows = a.Sq * G;
   const int k0 = kt * FBT_BK, nk = min(FBT_BK, a.Sk - k0);
   const long long lo = a.causal ? min((long long)nrows, (long long)k0 * G) : 0;
   const long long hi = a.window > 0
       ? min((long long)nrows, (long long)(k0 + nk - 1 + a.window) * G) : nrows;
-  return make_int2((int)(lo / FBT_RM), (int)((hi + FBT_RM - 1) / FBT_RM));
+  return make_int2((int)(lo / a.rt), (int)((hi + a.rt - 1) / a.rt));
 }
 
+// The dkdv kernels' start: the barriers, and the empty slots of every
+// stage's q and g chunks (TMA never writes them) zeroed, so that they add
+// nothing to S^T, dP^T, dV or dK.  Every thread of the block calls it.
+template <int DHP>
+__device__ __forceinline__ void fbt_kv_init(uint8_t* Rs, uint64_t* kv_full,
+                                            uint64_t* full, uint64_t* empty,
+                                            int rt, int tid) {
+  using S = FbtKShape<DHP>;
+  if (tid == 0) {
+    hp_bar_init(kv_full, 1);
+    for (int s = 0; s < FBT_STAGES; ++s) {
+      hp_bar_init(&full[s], 1);
+      hp_bar_init(&empty[s], 4 * S::WG);  // one arrival per consumer warp
+    }
+    hp_bar_init_fence();
+  }
+  if (rt < FBT_RM) {
+    const int dead = FBT_RM - rt, n16 = FBT_STAGES * 2 * (DHP / 64) * dead * 8;
+    for (int i = tid; i < n16; i += S::THREADS) {
+      const int u = i % 8, r = (i / 8) % dead, c = i / (8 * dead);
+      *reinterpret_cast<uint4*>(Rs + c * FBT_RM * 128 + (rt + r) * 128 + u * 16) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+    hp_fence_async_smem();
+  }
+  __syncthreads();
+}
+
+// The dkdv kernels' producer (one thread): k and v of the block once, then
+// row tiles p_lo .. p_hi - 1 of q and g through the ring, each with its
+// slots' lse and D.
+template <int DHP>
+__device__ __forceinline__ void fbt_kv_load(
+    const FbtArgs& a, const CUtensorMap* mq, const CUtensorMap* mg,
+    const CUtensorMap* mk, const CUtensorMap* mv, uint8_t* Ks, uint8_t* Vs,
+    uint8_t* Rs, float* stat, uint64_t* kv_full, uint64_t* full,
+    uint64_t* empty, int bkv, int k0, int p_lo, int p_hi) {
+  using S = FbtKShape<DHP>;
+  const int G = a.H / a.KV, nbkv = a.B * a.KV, b = bkv / a.KV, kvh = bkv % a.KV;
+  hp_bar_expect_tx(kv_full, 2 * S::KV_BYTES);
+#pragma unroll
+  for (int c = 0; c < DHP / 64; ++c) {
+    hp_tma_4d(Ks + c * FBT_BK * 128, mk, kv_full, c * 64, kvh, k0, b);
+    hp_tma_4d(Vs + c * FBT_BK * 128, mv, kv_full, c * 64, kvh, k0, b);
+  }
+  const float* st = a.stats + (long long)bkv * a.rows_pad;
+  for (int r = p_lo; r < p_hi; ++r) {
+    const int n = r - p_lo, s = n % FBT_STAGES, r0 = r * a.rt;
+    if (n >= FBT_STAGES) hp_bar_wait(&empty[s], ((n / FBT_STAGES) - 1) & 1);
+    uint8_t* Qt = Rs + s * 2 * S::ROW_BYTES;
+    uint8_t* Gt = Qt + S::ROW_BYTES;
+    hp_bar_expect_tx(&full[s], 2 * (DHP / 64) * a.rt * 128 + 2 * FBT_RM * 4);
+#pragma unroll
+    for (int c = 0; c < DHP / 64; ++c) {
+      hp_tma_4d(Qt + c * FBT_RM * 128, mq, &full[s], c * 64, kvh * G + r0 % G,
+                r0 / G, b);
+      hp_tma_4d(Gt + c * FBT_RM * 128, mg, &full[s], c * 64, kvh * G + r0 % G,
+                r0 / G, b);
+    }
+    hp_bulk_load(stat + s * 2 * FBT_RM, st + r * FBT_RM, FBT_RM * 4, &full[s]);
+    hp_bulk_load(stat + s * 2 * FBT_RM + FBT_RM,
+                 st + (long long)nbkv * a.rows_pad + r * FBT_RM, FBT_RM * 4,
+                 &full[s]);
+  }
+}
+
+// DHP 64 and 128: one consumer warpgroup holds dK and dV; two blocks an SM.
 template <int DHP, int NT>
-__global__ void __launch_bounds__(FBT_KV_THREADS, 2)
+__global__ void __launch_bounds__(256, 2)
 fbt_dkdv_kernel(const __grid_constant__ CUtensorMap mq,
                 const __grid_constant__ CUtensorMap mg,
                 const __grid_constant__ CUtensorMap mk,
                 const __grid_constant__ CUtensorMap mv, FbtArgs a) {
   using S = FbtKShape<DHP>;
+  static_assert(S::WG == 1, "fbt_dkdv_kernel: DHP 64 or 128");
   constexpr int NO = DHP / 2;                       // dk, dv fragment registers
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (hp_smem(smem_raw) & 1023)) & 1023);
@@ -1605,7 +1735,7 @@ fbt_dkdv_kernel(const __grid_constant__ CUtensorMap mq,
   int* last = reinterpret_cast<int*>(empty + FBT_STAGES);
 
   const int tid = threadIdx.x;
-  const int G = a.H / a.KV, nrows = a.Sq * G, nbkv = a.B * a.KV;
+  const int G = a.H / a.KV, nrows = a.Sq * G, nbkv = a.B * a.KV, RT = a.rt;
   const int piece = blockIdx.x % a.pieces, tile = blockIdx.x / a.pieces;
   const int bkv = tile % nbkv, kt = tile / nbkv;    // key tile 0 (causal: the heaviest) first
   const int b = bkv / a.KV, kvh = bkv % a.KV;
@@ -1614,44 +1744,14 @@ fbt_dkdv_kernel(const __grid_constant__ CUtensorMap mq,
   const int nrt = max(0, rt.y - rt.x);
   const int p_lo = rt.x + (int)((long long)nrt * piece / a.pieces);
   const int p_hi = rt.x + (int)((long long)nrt * (piece + 1) / a.pieces);
-  if (tid == 0) {
-    hp_bar_init(kv_full, 1);
-    for (int s = 0; s < FBT_STAGES; ++s) {
-      hp_bar_init(&full[s], 1);
-      hp_bar_init(&empty[s], 4);          // one arrival per consumer warp
-    }
-    hp_bar_init_fence();
-  }
-  __syncthreads();
+  fbt_kv_init<DHP>(Rs, kv_full, full, empty, RT, tid);
 
   if (tid >= 128) {
     // ----------------------------------------------------- producer
     hp_regs_dec<24>();
-    if (tid != 128) return;
-    hp_bar_expect_tx(kv_full, 2 * S::KV_BYTES);
-#pragma unroll
-    for (int c = 0; c < DHP / 64; ++c) {
-      hp_tma_4d(Ks + c * FBT_BK * 128, &mk, kv_full, c * 64, kvh, k0, b);
-      hp_tma_4d(Vs + c * FBT_BK * 128, &mv, kv_full, c * 64, kvh, k0, b);
-    }
-    const float* st = a.stats + (long long)bkv * a.rows_pad;
-    for (int r = p_lo; r < p_hi; ++r) {
-      const int n = r - p_lo, s = n % FBT_STAGES, r0 = r * FBT_RM;
-      if (n >= FBT_STAGES) hp_bar_wait(&empty[s], ((n / FBT_STAGES) - 1) & 1);
-      uint8_t* Qt = Rs + s * 2 * S::ROW_BYTES;
-      uint8_t* Gt = Qt + S::ROW_BYTES;
-      hp_bar_expect_tx(&full[s], 2 * S::ROW_BYTES + 2 * FBT_RM * 4);
-#pragma unroll
-      for (int c = 0; c < DHP / 64; ++c) {
-        hp_tma_4d(Qt + c * FBT_RM * 128, &mq, &full[s], c * 64, kvh * G + r0 % G,
-                  r0 / G, b);
-        hp_tma_4d(Gt + c * FBT_RM * 128, &mg, &full[s], c * 64, kvh * G + r0 % G,
-                  r0 / G, b);
-      }
-      hp_bulk_load(stat + s * 2 * FBT_RM, st + r0, FBT_RM * 4, &full[s]);
-      hp_bulk_load(stat + s * 2 * FBT_RM + FBT_RM,
-                   st + (long long)nbkv * a.rows_pad + r0, FBT_RM * 4, &full[s]);
-    }
+    if (tid == 128)
+      fbt_kv_load<DHP>(a, &mq, &mg, &mk, &mv, Ks, Vs, Rs, stat, kv_full, full,
+                       empty, bkv, k0, p_lo, p_hi);
     return;
   }
   // ------------------------------------------------------- consumer
@@ -1664,25 +1764,26 @@ fbt_dkdv_kernel(const __grid_constant__ CUtensorMap mq,
   for (int i = 0; i < NO; ++i) dka[i] = dva[i] = 0.0f;
   hp_bar_wait(kv_full, 0);
   for (int r = p_lo; r < p_hi; ++r) {
-    const int n = r - p_lo, s = n % FBT_STAGES, r0 = r * FBT_RM;
+    const int n = r - p_lo, s = n % FBT_STAGES, r0 = r * RT;
     hp_bar_wait(&full[s], (n / FBT_STAGES) & 1);
     const uint8_t* Qt = Rs + s * 2 * S::ROW_BYTES;
     const uint8_t* Gt = Qt + S::ROW_BYTES;
     const float* Ls = stat + s * 2 * FBT_RM;
     const float* Ds = Ls + FBT_RM;
-    float sc[32], dp[32];                           // S^T, dP^T: keys x rows
-    fbt_pair<DHP>(sc, dp, Ks, Qt, Vs, Gt, FBT_BK * 128, FBT_RM * 128);
+    float sc[32], dp[32];                           // S^T, dP^T: keys x slots
+    fbt_pair<DHP, 64>(sc, dp, Ks, Qt, Vs, Gt, FBT_BK * 128, FBT_RM * 128);
     // the tile crosses the diagonal, the window's lower edge, the end of
-    // the keys or of the rows
-    const int t_lo = r0 / G, t_hi = (r0 + FBT_RM - 1) / G;
-    const bool edge = k0 + FBT_BK > a.Sk || r0 + FBT_RM > nrows ||
+    // the keys or of the rows (empty slots need no mask: zero q and g give
+    // s = dp = 0, and their lse +inf and D 0 give p = ds = 0)
+    const int t_lo = r0 / G, t_hi = (r0 + RT - 1) / G;
+    const bool edge = k0 + FBT_BK > a.Sk || r0 + RT > nrows ||
                       (a.causal && k0 + FBT_BK - 1 > t_lo) ||
                       (a.window > 0 && k0 <= t_hi - a.window);
 #pragma unroll
     for (int n8 = 0; n8 < 8; ++n8)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int col = 8 * n8 + 2 * (lane % 4) + e;    // row r0 + col
+        const int col = 8 * n8 + 2 * (lane % 4) + e;    // slot col: row r0 + col
         const float L = Ls[col], Dr = Ds[col];
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
@@ -1690,8 +1791,8 @@ fbt_dkdv_kernel(const __grid_constant__ CUtensorMap mq,
           bool hide = false;
           if (edge) {
             const int row = r0 + col, t = row / G, key = k0 + kl + 8 * h;
-            hide = row >= nrows || key >= a.Sk || (a.causal && key > t) ||
-                   (a.window > 0 && key <= t - a.window);
+            hide = col >= RT || row >= nrows || key >= a.Sk ||
+                   (a.causal && key > t) || (a.window > 0 && key <= t - a.window);
           }
           const float p = hide ? 0.0f : exp2f(fmaf(sc[i], sl2, -L));
           dp[i] = hide ? 0.0f : p * (dp[i] - Dr);
@@ -1700,13 +1801,13 @@ fbt_dkdv_kernel(const __grid_constant__ CUtensorMap mq,
       }
     {
       uint32_t pt[NT][4][4];
-      fbt_terms<NT>(pt, sc);
-      fbt_accum<DHP, NT>(dva, pt, Gt);               // dV += P^T . g
+      fbt_terms<NT, 4>(pt, sc);
+      fbt_accum<DHP, NT, 4>(dva, pt, Gt, FBT_RM * 128);   // dV += P^T . g
     }
     {
       uint32_t dst[NT][4][4];
-      fbt_terms<NT>(dst, dp);
-      fbt_accum<DHP, NT>(dka, dst, Qt);              // dK += dS^T . q
+      fbt_terms<NT, 4>(dst, dp);
+      fbt_accum<DHP, NT, 4>(dka, dst, Qt, FBT_RM * 128);  // dK += dS^T . q
     }
     if (lane == 0) hp_bar_arrive(&empty[s]);
   }
@@ -1724,9 +1825,9 @@ fbt_dkdv_kernel(const __grid_constant__ CUtensorMap mq,
       mine[(NO + i) * 128 + tid] = dva[i];
     }
     __threadfence();
-    asm volatile("bar.sync 1, 128;\n" ::: "memory");
+    fbt_bar<1, 128>();
     if (tid == 0) *last = atomicAdd(&a.count[tile], 1) == a.pieces - 1;
-    asm volatile("bar.sync 1, 128;\n" ::: "memory");
+    fbt_bar<1, 128>();
     if (!*last) return;
     __threadfence();
 #pragma unroll
@@ -1761,19 +1862,176 @@ fbt_dkdv_kernel(const __grid_constant__ CUtensorMap mq,
   }
 }
 
+// DHP 256: two consumer warpgroups, one block an SM.  Warpgroup 0 computes
+// S^T and P^T, hands P^T to warpgroup 1 (once it has read the last row
+// tile's) and accumulates dV += P^T . g; warpgroup 1 computes dP^T, dS^T =
+// P^T (dP^T - D) (a hidden pair's p is 0) and accumulates dK += dS^T . q.
+// acc: the warpgroup's dV or dK, all DHP columns.
+template <int NT>
+__global__ void __launch_bounds__(384, 1)
+fbt_dkdv2_kernel(const __grid_constant__ CUtensorMap mq,
+                 const __grid_constant__ CUtensorMap mg,
+                 const __grid_constant__ CUtensorMap mk,
+                 const __grid_constant__ CUtensorMap mv, FbtArgs a) {
+  constexpr int DHP = 256, NO = DHP / 2;
+  using S = FbtKShape<DHP>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (hp_smem(smem_raw) & 1023)) & 1023);
+  uint8_t* Ks = smem;
+  uint8_t* Vs = smem + S::KV_BYTES;
+  uint8_t* Rs = Vs + S::KV_BYTES;                   // stage s: q rows, then g rows
+  float* Ps = reinterpret_cast<float*>(smem + S::PT);        // P^T, handed over
+  float* stat = reinterpret_cast<float*>(smem + S::STATS);   // stage s: lse2, D
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + S::BARS);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + FBT_STAGES;
+  int* last = reinterpret_cast<int*>(empty + FBT_STAGES);
+
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int G = a.H / a.KV, nrows = a.Sq * G, nbkv = a.B * a.KV, RT = a.rt;
+  const int piece = blockIdx.x % a.pieces, tile = blockIdx.x / a.pieces;
+  const int bkv = tile % nbkv, kt = tile / nbkv;
+  const int b = bkv / a.KV, kvh = bkv % a.KV;
+  const int k0 = kt * FBT_BK;
+  const int2 rt = fbt_row_tiles(a, kt);
+  const int nrt = max(0, rt.y - rt.x);
+  const int p_lo = rt.x + (int)((long long)nrt * piece / a.pieces);
+  const int p_hi = rt.x + (int)((long long)nrt * (piece + 1) / a.pieces);
+  fbt_kv_init<DHP>(Rs, kv_full, full, empty, RT, tid);
+
+  if (wg == 2) {
+    // ----------------------------------------------------- producer
+    hp_regs_dec<24>();
+    if (tid == 256)
+      fbt_kv_load<DHP>(a, &mq, &mg, &mk, &mv, Ks, Vs, Rs, stat, kv_full, full,
+                       empty, bkv, k0, p_lo, p_hi);
+    return;
+  }
+  // ------------------------------------------------------ consumers
+  hp_regs_inc<232>();
+  const int ct = tid % 128, warp = ct / 32, lane = tid % 32;
+  const int kl = warp * 16 + lane / 4;              // keys k0 + kl and + 8
+  const float sl2 = a.scale * FBT_LOG2E;
+  float acc[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) acc[i] = 0.0f;
+  hp_bar_wait(kv_full, 0);
+  for (int r = p_lo; r < p_hi; ++r) {
+    const int n = r - p_lo, s = n % FBT_STAGES, r0 = r * RT;
+    hp_bar_wait(&full[s], (n / FBT_STAGES) & 1);
+    const uint8_t* Qt = Rs + s * 2 * S::ROW_BYTES;
+    const uint8_t* Gt = Qt + S::ROW_BYTES;
+    const float* Ls = stat + s * 2 * FBT_RM;
+    const float* Ds = Ls + FBT_RM;
+    float x[32];                                    // S^T, or dP^T
+    if (wg == 0) {
+      fbt_one<DHP>(x, Ks, Qt, FBT_BK * 128, FBT_RM * 128);
+      // as fbt_dkdv_kernel masks
+      const int t_lo = r0 / G, t_hi = (r0 + RT - 1) / G;
+      const bool edge = k0 + FBT_BK > a.Sk || r0 + RT > nrows ||
+                        (a.causal && k0 + FBT_BK - 1 > t_lo) ||
+                        (a.window > 0 && k0 <= t_hi - a.window);
+#pragma unroll
+      for (int n8 = 0; n8 < 8; ++n8)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * n8 + 2 * (lane % 4) + e;    // slot col: row r0 + col
+          const float L = Ls[col];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = 4 * n8 + 2 * h + e;
+            bool hide = false;
+            if (edge) {
+              const int row = r0 + col, t = row / G, key = k0 + kl + 8 * h;
+              hide = col >= RT || row >= nrows || key >= a.Sk ||
+                     (a.causal && key > t) || (a.window > 0 && key <= t - a.window);
+            }
+            x[i] = hide ? 0.0f : exp2f(fmaf(x[i], sl2, -L));
+          }
+        }
+      if (n > 0) fbt_bar<2, 256>();
+#pragma unroll
+      for (int i = 0; i < 32; ++i) Ps[i * 128 + ct] = x[i];
+      fbt_bar<2, 256>();
+      uint32_t pt[NT][4][4];
+      fbt_terms<NT, 4>(pt, x);
+      fbt_accum<DHP, NT, 4>(acc, pt, Gt, FBT_RM * 128);      // dV += P^T . g
+    } else {
+      fbt_one<DHP>(x, Vs, Gt, FBT_BK * 128, FBT_RM * 128);
+      if (n > 0) fbt_bar<2, 256>();
+      fbt_bar<2, 256>();
+#pragma unroll
+      for (int n8 = 0; n8 < 8; ++n8)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float Dr = Ds[8 * n8 + 2 * (lane % 4) + e];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = 4 * n8 + 2 * h + e;
+            x[i] = Ps[i * 128 + ct] * (x[i] - Dr);
+          }
+        }
+      uint32_t dst[NT][4][4];
+      fbt_terms<NT, 4>(dst, x);
+      fbt_accum<DHP, NT, 4>(acc, dst, Qt, FBT_RM * 128);     // dK += dS^T . q
+    }
+    if (lane == 0) hp_bar_arrive(&empty[s]);
+  }
+
+  // ------------------------------------------------------ epilogue
+  if (a.pieces > 1) {
+    // as fbt_dkdv_kernel's, [register][consumer thread] of acc
+    const long long per = (long long)NO * 256;
+    float* base = a.part + (long long)tile * a.pieces * per;
+#pragma unroll
+    for (int i = 0; i < NO; ++i) base[piece * per + i * 256 + tid] = acc[i];
+    __threadfence();
+    fbt_bar<1, 256>();
+    if (tid == 0) *last = atomicAdd(&a.count[tile], 1) == a.pieces - 1;
+    fbt_bar<1, 256>();
+    if (!*last) return;
+    __threadfence();
+#pragma unroll
+    for (int i = 0; i < NO; ++i) acc[i] = __ldcg(base + i * 256 + tid);
+    for (int p = 1; p < a.pieces; ++p)
+#pragma unroll
+      for (int i = 0; i < NO; ++i) acc[i] += __ldcg(base + p * per + i * 256 + tid);
+  }
+  const float sk = wg == 0 ? 1.0f : a.scale;       // dk = scale * the sum
+  __nv_bfloat16* out = wg == 0 ? a.dv : a.dk;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = k0 + kl + 8 * h;
+    if (key >= a.Sk) continue;
+    const long long at = (((long long)b * a.Sk + key) * a.KV + kvh) * a.dh;
+#pragma unroll
+    for (int n8 = 0; n8 < DHP / 8; ++n8) {
+      const int col = 8 * n8 + 2 * (lane % 4);
+      if (col < a.dh)
+        *reinterpret_cast<__nv_bfloat162*>(out + at + col) = __floats2bfloat162_rn(
+            acc[4 * n8 + 2 * h] * sk, acc[4 * n8 + 2 * h + 1] * sk);
+    }
+  }
+}
+
 // The bf16 terms of p and ds: 3 keep all 24 bits of the fp32 operands.
 #define FBT_TERMS 3
 
+// q, g (both kernels' row tiles), k, v (dq stages), k, v (dkdv blocks)
 template <int DHP>
 static int fbt_run(const FbtArgs& a, const CUtensorMap (&m)[6], cudaStream_t s) {
   static int granted_q[HP_MAX_DEVICES] = {0}, granted_k[HP_MAX_DEVICES] = {0};
   const int smq = FbtQShape<DHP>::SMEM, smk = FbtKShape<DHP>::SMEM;
+  const void* kv;
+  if constexpr (DHP == 256) kv = (const void*)fbt_dkdv2_kernel<FBT_TERMS>;
+  else kv = (const void*)fbt_dkdv_kernel<DHP, FBT_TERMS>;
   int e = hp_grant_smem((const void*)fbt_dq_kernel<DHP, FBT_TERMS>, smq, granted_q);
   if (e) return e;
-  e = hp_grant_smem((const void*)fbt_dkdv_kernel<DHP, FBT_TERMS>, smk, granted_k);
+  e = hp_grant_smem(kv, smk, granted_k);
   if (e) return e;
   const long long nbkv = (long long)a.B * a.KV;
-  const long long bq = ((long long)a.Sq * (a.H / a.KV) + FBT_BM - 1) / FBT_BM * nbkv;
+  const long long ntile = ((long long)a.Sq * (a.H / a.KV) + a.rt - 1) / a.rt;
+  const long long bq = (ntile + 1) / 2 * nbkv;
   const long long nkt = ((long long)a.Sk + FBT_BK - 1) / FBT_BK;
   const long long bk = nkt * nbkv * a.pieces;
   if (bq > 0x7fffffffLL || bk > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
@@ -1785,19 +2043,25 @@ static int fbt_run(const FbtArgs& a, const CUtensorMap (&m)[6], cudaStream_t s) 
       m[0], m[1], m[2], m[3], a);
   e = (int)cudaGetLastError();
   if (e) return e;
-  fbt_dkdv_kernel<DHP, FBT_TERMS><<<(unsigned)bk, FBT_KV_THREADS, smk, s>>>(
-      m[4], m[5], m[2], m[3], a);
+  if constexpr (DHP == 256)
+    fbt_dkdv2_kernel<FBT_TERMS><<<(unsigned)bk, FbtKShape<DHP>::THREADS, smk, s>>>(
+        m[0], m[1], m[4], m[5], a);
+  else
+    fbt_dkdv_kernel<DHP, FBT_TERMS><<<(unsigned)bk, FbtKShape<DHP>::THREADS, smk, s>>>(
+        m[0], m[1], m[4], m[5], a);
   return (int)cudaGetLastError();
 }
 
 // bfloat16 q (B, Sq, H, dh), k and v (B, Sk, KV, dh), g (B, Sq, H, dh) with
 // element strides, every one a multiple of 8, every base 16-byte aligned; dh
-// a multiple of 8 up to 128; 128 % G == 0; dq, dk, dv contiguous bfloat16;
-// lse (B, H, Sq) float32; `scratch` of `scratch_bytes` (16-byte aligned) for
-// the rows' statistics, and with pieces > 1 the partial sums and the arrival
-// counters, as plan_flash_bwd sizes it; causal and window as fa_launch's.
-// Launches fbt_dq_kernel, then fbt_dkdv_kernel.  Returns the first error
-// (a refused grant or tensor-map encoding, cudaGetLastError()), else 0.
+// a multiple of 8 up to 256; G = H / KV up to 64, or 128; dq, dk, dv
+// contiguous bfloat16; lse (B, H, Sq) float32; `scratch` of `scratch_bytes`
+// (16-byte aligned) for the slots' statistics, and with pieces > 1 the
+// partial sums and the arrival counters, as plan_flash_bwd sizes it; causal
+// and window as fa_launch's.  Launches fbt_dq_kernel, then fbt_dkdv_kernel
+// (fbt_dkdv2_kernel at DHP 256).
+// Returns the first error (a refused grant or tensor-map encoding,
+// cudaGetLastError()), else 0.
 extern "C" int fbt_launch(const void* q, const void* k, const void* v,
                           const void* g, void* dq, void* dk, void* dv,
                           float* lse, void* scratch, long long scratch_bytes,
@@ -1809,16 +2073,19 @@ extern "C" int fbt_launch(const void* q, const void* k, const void* v,
                           float scale, int causal, int window, int pieces,
                           void* stream) {
   if (B == 0 || Sq == 0) return 0;
-  if (Sk < 1 || KV < 1 || H % KV != 0 || dh < 8 || dh % 8 != 0 || dh > 128 ||
+  if (Sk < 1 || KV < 1 || H % KV != 0 || dh < 8 || dh % 8 != 0 || dh > 256 ||
       window < 0 || (window > 0 && !causal) || pieces < 1)
     return (int)cudaErrorInvalidValue;
   const int G = H / KV;
-  if (FBT_BM % G != 0) return (int)cudaErrorInvalidValue;
-  const int dhp = dh <= 64 ? 64 : 128;
+  // a row tile: the whole tokens of FBT_RM slots, or at G 128 half a token
+  const int rt = G <= FBT_RM ? G * (FBT_RM / G) : G == 2 * FBT_RM ? FBT_RM : 0;
+  if (rt == 0) return (int)cudaErrorInvalidValue;
+  const int dhp = dh <= 64 ? 64 : dh <= 128 ? 128 : 256;
   const long long nbkv = (long long)B * KV, nkt = (Sk + FBT_BK - 1) / FBT_BK;
-  const long long rows_pad = ((long long)Sq * G + FBT_BM - 1) / FBT_BM * FBT_BM;
+  const long long ntile = ((long long)Sq * G + rt - 1) / rt;
+  const long long rows_pad = (ntile + 1) / 2 * FBT_BM;
   const long long stats = 2 * nbkv * rows_pad * 4;
-  const long long parts = pieces > 1 ? nkt * nbkv * pieces * 2LL * 64 * dhp * 4 : 0;
+  const long long parts = pieces > 1 ? nkt * nbkv * pieces * 2LL * FBT_BK * dhp * 4 : 0;
   const long long counts = pieces > 1 ? nkt * nbkv * 4 : 0;
   if (scratch_bytes < stats + parts + counts || rows_pad > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
@@ -1826,16 +2093,19 @@ extern "C" int fbt_launch(const void* q, const void* k, const void* v,
   FbtArgs a{(__nv_bfloat16*)dq, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, lse,
             reinterpret_cast<float*>(sp), reinterpret_cast<float*>(sp + stats),
             reinterpret_cast<int*>(sp + stats + parts),
-            B, Sq, Sk, H, KV, dh, (int)rows_pad, pieces, scale, causal, window};
-  const int gh = G < FBT_RM ? G : FBT_RM;
-  CUtensorMap m[6];           // q, g (dq rows), k, v, q, g (dkdv rows)
+            B, Sq, Sk, H, KV, dh, (int)rows_pad, pieces, rt, scale, causal,
+            window};
+  const int gh = G < FBT_RM ? G : FBT_RM;           // a row tile's TMA box
+  const int bkq = dhp == 256 ? FbtQShape<256>::BK : FbtQShape<128>::BK;
+  CUtensorMap m[6];
   int e;
-  if ((e = fa_tc_map(&m[0], q, B, Sq, H, dh, qsb, qss, qsh, G, FBT_BM / G))) return e;
-  if ((e = fa_tc_map(&m[1], g, B, Sq, H, dh, gsb, gss, gsh, G, FBT_BM / G))) return e;
-  if ((e = fa_tc_map(&m[2], k, B, Sk, KV, dh, ksb, kss, ksh, 1, FBT_BK))) return e;
-  if ((e = fa_tc_map(&m[3], v, B, Sk, KV, dh, vsb, vss, vsh, 1, FBT_BK))) return e;
-  if ((e = fa_tc_map(&m[4], q, B, Sq, H, dh, qsb, qss, qsh, gh, FBT_RM / gh))) return e;
-  if ((e = fa_tc_map(&m[5], g, B, Sq, H, dh, gsb, gss, gsh, gh, FBT_RM / gh))) return e;
+  if ((e = fa_tc_map(&m[0], q, B, Sq, H, dh, qsb, qss, qsh, gh, FBT_RM / gh))) return e;
+  if ((e = fa_tc_map(&m[1], g, B, Sq, H, dh, gsb, gss, gsh, gh, FBT_RM / gh))) return e;
+  if ((e = fa_tc_map(&m[2], k, B, Sk, KV, dh, ksb, kss, ksh, 1, bkq))) return e;
+  if ((e = fa_tc_map(&m[3], v, B, Sk, KV, dh, vsb, vss, vsh, 1, bkq))) return e;
+  if ((e = fa_tc_map(&m[4], k, B, Sk, KV, dh, ksb, kss, ksh, 1, FBT_BK))) return e;
+  if ((e = fa_tc_map(&m[5], v, B, Sk, KV, dh, vsb, vss, vsh, 1, FBT_BK))) return e;
   cudaStream_t s = (cudaStream_t)stream;
-  return dhp == 64 ? fbt_run<64>(a, m, s) : fbt_run<128>(a, m, s);
+  return dhp == 64 ? fbt_run<64>(a, m, s)
+       : dhp == 128 ? fbt_run<128>(a, m, s) : fbt_run<256>(a, m, s);
 }

@@ -177,7 +177,7 @@ __device__ __forceinline__ void hp_regs_inc() {
 }
 
 // d (64 x N, fp32, the accumulator fragment of one warpgroup) += A (64 x 16,
-// bf16) . B (16 x N, bf16), or = when scale_d is 0.  _ss (N = 64, 128)
+// bf16) . B (16 x N, bf16), or = when scale_d is 0.  _ss (N = 32, 64, 128)
 // reads A from shared memory through descriptor da (K-major); _rs (N = 64,
 // 128, 256: the flash kernel's head widths) takes A from registers, in
 // the accumulator fragment's layout (a[0]: row g, k 2c..2c+1; a[1]: row g+8;
@@ -185,6 +185,20 @@ __device__ __forceinline__ void hp_regs_inc() {
 // warp, c = lane % 4).  TB is the transpose bit of B: 0 K-major, 1
 // MN-major.  The accumulator's element i of thread (warp w, lane) is row
 // 16 w + lane / 4 + 8 ((i / 2) % 2), column 8 (i / 4) + 2 (lane % 4) + i % 2.
+
+template <int TB>
+__device__ __forceinline__ void hp_wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, %19;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+}
 
 template <int TB>
 __device__ __forceinline__ void hp_wgmma_ss_n64(float (&d)[32], uint64_t da,
@@ -325,8 +339,9 @@ __device__ __forceinline__ void hp_wgmma_rs_n256(float (&d)[128],
 template <int N, int TB>
 __device__ __forceinline__ void hp_wgmma_ss(float (&d)[N / 2], uint64_t da,
                                             uint64_t db, int scale_d) {
-  static_assert(N == 64 || N == 128, "hp_wgmma_ss: N is 64 or 128");
-  if constexpr (N == 64) hp_wgmma_ss_n64<TB>(d, da, db, scale_d);
+  static_assert(N == 32 || N == 64 || N == 128, "hp_wgmma_ss: N is 32, 64 or 128");
+  if constexpr (N == 32) hp_wgmma_ss_n32<TB>(d, da, db, scale_d);
+  else if constexpr (N == 64) hp_wgmma_ss_n64<TB>(d, da, db, scale_d);
   else hp_wgmma_ss_n128<TB>(d, da, db, scale_d);
 }
 

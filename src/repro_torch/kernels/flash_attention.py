@@ -22,11 +22,12 @@ gradient, on CPU tensors by the plain version
 :func:`repro_torch.kernels.ref.flash_attention_bwd_ref`, on the card by one
 of two pairs of backward kernels of the same source (no atomics on floats,
 two calls bitwise equal).  :func:`flash_bwd_route` picks the pair: bfloat16
-with dh a multiple of 8 up to 128, G dividing 128 and 16-byte bases and
-strides runs on the tensor cores (``fbt_dq_kernel``, then
-``fbt_dkdv_kernel``: wgmma, TMA, p and ds as three bf16 terms, each key
-tile's row walk cut into the pieces :func:`plan_flash_bwd` states);
-float32, dh > 128 and G 6 on the CUDA cores (``fb_dq_kernel``, then
+with dh a multiple of 8 up to 256, G = H / KV up to 64 or 128, and 16-byte
+bases and strides runs on the tensor cores (``fbt_dq_kernel``, then
+``fbt_dkdv_kernel``: wgmma, TMA, p and ds as three bf16 terms, row tiles of
+whole tokens, each key tile's row walk cut into the pieces
+:func:`plan_flash_bwd` states); float32, dh not a multiple of 8 and
+unaligned views on the CUDA cores (``fb_dq_kernel``, then
 ``fb_dkdv_kernel``).  ``LAUNCHES["flash_attention_bwd_wgmma"]`` and
 ``LAUNCHES["flash_attention_bwd"]`` count the two routes' calls, both
 kernels of a call as one.  :class:`FlashAttentionFn` is the forward kernel
@@ -60,8 +61,8 @@ from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_ref
 
 __all__ = ["flash_attention_fused", "flash_route", "plan_flash_simt",
            "FlashSimtPlan", "flash_attention_bwd", "flash_bwd_route",
-           "plan_flash_bwd", "FlashBwdPlan", "FlashAttentionFn",
-           "flash_attention_train"]
+           "plan_flash_bwd", "FlashBwdPlan", "bwd_tile_rows",
+           "FlashAttentionFn", "flash_attention_train"]
 
 MAX_DH = 256          # the widest head the tensor-core kernel takes
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
@@ -109,30 +110,45 @@ def plan_flash_simt(B: int, Sq: int, H: int, KV: int, dh: int) -> FlashSimtPlan:
                          B * KV * col_chunks * tiles, 4 * floats)
 
 
-# csrc/flash_attention.cu, fbt_dq_kernel and fbt_dkdv_kernel: (token, g)
-# rows of a dq block, keys of a dq stage and of a dkdv block, rows of a dkdv
-# stage; the widest head; dkdv blocks resident at once on an H100 (two on
-# each of its 132 SMs); the fewest row tiles a piece walks once a key tile's
-# walk is cut.
+# csrc/flash_attention.cu, fbt_dq_kernel and fbt_dkdv_kernel: row slots of
+# a dq block (two row tiles), keys of a dkdv block, row slots of a row tile
+# (a wgmma's 64 rows); the widest head; the H100's SMs; the fewest row tiles
+# a piece walks once a key tile's walk is cut.
 BWD_QROWS, BWD_KEYS, BWD_KROWS = 128, 64, 64
-BWD_MAX_DH = 128
-BWD_SLOTS = 2 * 132
+BWD_MAX_DH = 256
+BWD_SMS = 132
 BWD_MIN_TILES = 4
+
+
+def bwd_tile_rows(G: int) -> int:
+    """(token, g) rows a row tile holds: the whole tokens that fit its
+    ``BWD_KROWS`` slots (60 at G 6: 10 tokens, 4 slots left empty), or at
+    G 128 half a token.  0 where neither fits (G 65..127, G > 128): such
+    calls stay on the CUDA cores."""
+    if G <= BWD_KROWS:
+        return G * (BWD_KROWS // G)
+    return BWD_KROWS if G == 2 * BWD_KROWS else 0
 
 
 @dataclass(frozen=True)
 class FlashBwdPlan:
-    """How the tensor-core backward runs one call: ``dq_blocks`` blocks of
-    ``fbt_dq_kernel`` (``BWD_QROWS`` (token, g) rows each), then
-    ``dkdv_blocks`` of ``fbt_dkdv_kernel``: ``key_tiles`` tiles of
-    ``BWD_KEYS`` keys per (b, KV head), each walking the row tiles
-    ``row_tiles[kt]`` = [lo, hi) of ``BWD_KROWS`` rows that can see one of
-    its keys, cut into ``pieces`` runs (:meth:`piece`).  ``scratch_bytes``:
-    each row's base-2 log-sum-exp and D (``rows_pad`` rows per (b, KV
-    head)), and with ``pieces`` > 1 the pieces' fp32 partial dk and dv and
-    one arrival counter per key tile."""
+    """How the tensor-core backward runs one call.  Rows are (token, g)
+    pairs, ``tile_rows`` of them to a row tile of ``BWD_KROWS`` slots (the
+    slots past them empty: zero in the operands, never written).
+    ``dq_blocks`` blocks of ``fbt_dq_kernel``, two row tiles each, k and v
+    streamed ``dq_keys`` keys a stage; then ``dkdv_blocks`` of
+    ``fbt_dkdv_kernel`` (``fbt_dkdv2_kernel`` at DHP 256): ``key_tiles``
+    tiles of ``BWD_KEYS`` keys per (b, KV head), each walking the row tiles
+    ``row_tiles[kt]`` = [lo, hi) that can see one of its keys, cut into
+    ``pieces`` runs (:meth:`piece`), ``per_sm`` blocks resident on an SM.
+    ``scratch_bytes``: each slot's base-2 log-sum-exp and D (``rows_pad``
+    slots per (b, KV head)), and with ``pieces`` > 1 the pieces' fp32
+    partial dk and dv and one arrival counter per key tile."""
 
     dhp: int
+    tile_rows: int
+    dq_keys: int
+    per_sm: int
     rows_pad: int
     key_tiles: int
     row_tiles: tuple[tuple[int, int], ...]
@@ -152,20 +168,29 @@ class FlashBwdPlan:
 def plan_flash_bwd(B: int, Sq: int, Sk: int, H: int, KV: int, dh: int,
                    causal: bool = True, window: int = 0) -> FlashBwdPlan:
     """The tensor-core backward's plan, from the shapes and the mask alone
-    (the kernels take ``pieces`` from it and compute the rest alike).  The
-    pieces a key tile's walk is cut into: enough that the longest walk,
-    so cut, is no longer than ``BWD_SLOTS`` resident blocks take for the
-    whole work, but no piece shorter than ``BWD_MIN_TILES`` row tiles.
-    qwen2.5-3b's heads at S 4,096, causal: 64 key tiles a KV head (128 in
-    all), 5 pieces each."""
+    (the kernels take ``pieces`` from it and compute the rest alike).
+    ``dhp``: dh padded to 64, 128 or 256; at 256 a dq stage holds 32 keys
+    (the 128-row q and g tiles take 128 KB) and one dkdv block
+    (``fbt_dkdv2_kernel``) fills an SM (k, v, two stages of rows and P^T
+    handed between its warpgroups: 208 KB), else 64 keys and two blocks.
+    The pieces a key tile's walk is cut into: enough that the longest walk,
+    so cut, is no longer than the resident blocks (``per_sm`` x ``BWD_SMS``)
+    take for the whole work, but no piece shorter than ``BWD_MIN_TILES`` row
+    tiles.  qwen2.5-3b's heads at S 4,096, causal: 64 key tiles a KV head
+    (128 in all), 5 pieces each."""
     if dh < 1 or dh > BWD_MAX_DH or KV < 1 or H % KV or Sk < 1:
         raise ValueError(f"flash_attention_bwd: H {H}, KV {KV}, dh {dh}, Sk {Sk}")
     if window < 0 or (window and not causal):
         raise ValueError(f"flash_attention_bwd: window={window} (>= 0, causal only)")
     G = H // KV
+    rt = bwd_tile_rows(G)
+    if not rt:
+        raise ValueError(f"flash_attention_bwd: G {G} (up to 64, or 128)")
     nrows = Sq * G
-    dhp = 64 if dh <= 64 else 128
-    rows_pad = _cdiv(nrows, BWD_QROWS) * BWD_QROWS
+    dhp = 64 if dh <= 64 else 128 if dh <= 128 else 256
+    ntiles = _cdiv(nrows, rt)
+    nqb = _cdiv(ntiles, 2)
+    rows_pad = nqb * BWD_QROWS
     nkt = _cdiv(Sk, BWD_KEYS)
     tiles = []
     for kt in range(nkt):
@@ -173,19 +198,21 @@ def plan_flash_bwd(B: int, Sq: int, Sk: int, H: int, KV: int, dh: int,
         nk = min(BWD_KEYS, Sk - k0)
         lo = min(nrows, k0 * G) if causal else 0
         hi = min(nrows, (k0 + nk - 1 + window) * G) if window else nrows
-        tiles.append((lo // BWD_KROWS, _cdiv(hi, BWD_KROWS)))
+        tiles.append((lo // rt, _cdiv(hi, rt)))
     walks = [max(0, hi - lo) for lo, hi in tiles]
     total, top = B * KV * sum(walks), max(walks)
+    per_sm = 1 if dhp == 256 else 2
     pieces = 1
     if total:
-        pieces = max(1, min(_cdiv(top * BWD_SLOTS, total), top // BWD_MIN_TILES))
+        pieces = max(1, min(_cdiv(top * per_sm * BWD_SMS, total),
+                            top // BWD_MIN_TILES))
     nbkv = B * KV
     scratch = 4 * 2 * nbkv * rows_pad
     if pieces > 1:
-        scratch += 4 * nkt * nbkv * (pieces * 2 * 64 * dhp + 1)
-    return FlashBwdPlan(dhp, rows_pad, nkt, tuple(tiles), pieces,
-                        _cdiv(nrows, BWD_QROWS) * nbkv, nkt * nbkv * pieces,
-                        scratch)
+        scratch += 4 * nkt * nbkv * (pieces * 2 * BWD_KEYS * dhp + 1)
+    return FlashBwdPlan(dhp, rt, 32 if dhp == 256 else 64, per_sm, rows_pad,
+                        nkt, tuple(tiles), pieces, nqb * nbkv,
+                        nkt * nbkv * pieces, scratch)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -230,13 +257,14 @@ def _aligned(t: torch.Tensor) -> bool:
 def flash_bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """``"wgmma"`` where the tensor-core backward (``fbt_dq_kernel``,
     ``fbt_dkdv_kernel``) takes the call — bfloat16, dh a multiple of 8 up
-    to 128, G = H / KV dividing 128, and every base and stride of q, k and
-    v on 16 bytes — else ``"simt"`` (``fb_dq_kernel``, ``fb_dkdv_kernel``:
-    float32, dh 192 and 224, G 6).  Reads shapes, strides and pointers
-    only."""
+    to 256, G = H / KV whose tokens row tiles can hold whole (up to 64) or
+    halve (128: :func:`bwd_tile_rows`), and every base and stride of q, k
+    and v on 16 bytes — else ``"simt"`` (``fb_dq_kernel``,
+    ``fb_dkdv_kernel``: float32, dh not a multiple of 8, unaligned views).
+    Reads shapes, strides and pointers only."""
     H, dh, KV = q.shape[2], q.shape[3], k.shape[2]
     if (q.dtype != torch.bfloat16 or dh % 8 or dh > BWD_MAX_DH
-            or TC_ROWS % (H // KV)):
+            or not bwd_tile_rows(H // KV)):
         return "simt"
     return "wgmma" if all(_aligned(t) for t in (q, k, v)) else "simt"
 

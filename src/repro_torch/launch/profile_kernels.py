@@ -28,10 +28,13 @@ causal) as it runs and with k and v staged by element loads instead of
 cp.async.  ``--flash-bwd`` runs only the flash backward: ``ptxas``'s
 registers and spills of its kernels; both routes (``flash_attention_bwd``
 as it routes the call, and with ``route="simt"``) against the plain version on
-qwen2.5-3b's heads (causal, a window of 256, full) and G 1, G 128, dh 64,
-two calls bitwise equal; then each route at qwen2.5-3b's heads, causal, S
-4,096 and 1,024, bfloat16: time per call between CUDA events and each
-kernel's device time, beside the five-product bound.
+qwen2.5-3b's heads (causal, a window of 256, full), G 1, G 128, dh 64, and
+the DHP 256 and whole-token shapes (deepseek-v2's MLA, zamba2's dh 224 with
+its window, internvl2's G 6, G 7, dh 256), two calls bitwise equal; then
+each route at ``BWD_HEADS`` (qwen2.5-3b's, MLA, zamba2's, internvl2's),
+causal, S 4,096 and 1,024, bfloat16: time per call between CUDA events and
+each kernel's device time, beside the five-product bound and SDPA's
+backward alone (k and v expanded over G).
 ``--served-attention`` runs only the served attention kernels at
 ``PERF.md`` §6's shapes (flash forward, p fp32, B 1, S 1,024, causal, at
 every served head shape; decode at B 8, S 2,048 and the served lengths),
@@ -51,6 +54,8 @@ from __future__ import annotations
 import shutil
 import subprocess
 import sys
+import tempfile
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
@@ -277,25 +282,43 @@ def profile_flash(dev: torch.device) -> None:
               f"{variant}: {_fmt(parts)}", flush=True)
 
 
+# (H, KV, dh, mla) the flash backward is timed at: qwen2.5-3b's heads,
+# deepseek-v2's MLA (v and the output's gradient zero past column 128, as
+# the model pads v), zamba2-7b's shared block, internvl2-26b's G 6
+BWD_HEADS = ((16, 2, 128, False), (128, 128, 192, True), (32, 32, 224, False),
+             (48, 8, 128, False))
+
+
 def profile_flash_bwd(dev: torch.device) -> None:
+    import torch.nn.functional as F
+
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import flash_attention_bwd_ref
 
     build.build(("flash_attention",))
-    for line in "\n".join(build.BUILD_LOG).splitlines():
-        if "fbt_" in line or "fb_d" in line or "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip(), flush=True)
+    if not any(x.startswith("flash_attention.cu:") for x in build.BUILD_LOG):
+        # built before this process: compile a copy for ptxas's report
+        with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as d:
+            build._nvcc("flash_attention", Path(d) / "report.so")
+    lines = "\n".join(build.BUILD_LOG).splitlines()
+    for i, line in enumerate(lines):
+        if "Function properties for" in line and ("fbt_" in line or "fb_d" in line):
+            print("  ptxas:", line.split("for ")[-1], "|", lines[i + 1].strip(),
+                  "|", lines[i + 2].strip(), flush=True)
 
     def ulp(x: float) -> float:
         return 2.0 ** (np.floor(np.log2(x)) - 7)
 
-    def inputs(S, H, KV, dh, seed):
+    def inputs(S, H, KV, dh, seed, mla=False):
         g = torch.Generator(device=dev).manual_seed(seed)
         q, go = (torch.randn((1, S, H, dh), generator=g, device=dev)
                  .bfloat16() for _ in range(2))
         k, v = (torch.randn((1, S, KV, dh), generator=g, device=dev)
                 .bfloat16() for _ in range(2))
+        if mla:
+            v[..., 128:] = 0
+            go[..., 128:] = 0
         return q, k, v, go
 
     bad = 0
@@ -306,8 +329,14 @@ def profile_flash_bwd(dev: torch.device) -> None:
                                     (257, 16, 16, 128, True, 33),
                                     (200, 24, 24, 64, True, 0),
                                     (77, 128, 1, 64, True, 0),
-                                    (33, 4, 1, 8, True, 0)):
-        q, k, v, go = inputs(S, H, KV, dh, S + dh)
+                                    (33, 4, 1, 8, True, 0),
+                                    (1024, 128, 128, 192, True, 0),
+                                    (1024, 32, 32, 224, True, 256),
+                                    (1024, 48, 8, 128, True, 0),
+                                    (301, 48, 8, 128, True, 40),
+                                    (77, 7, 1, 64, True, 0),
+                                    (97, 2, 1, 256, False, 0)):
+        q, k, v, go = inputs(S, H, KV, dh, S + dh, mla=dh == 192)
         want = flash_attention_bwd_ref(q, k, v, go, causal=causal, window=w)
         plan = fa.plan_flash_bwd(1, S, S, H, KV, dh, causal, w)
         if fa.flash_bwd_route(q, k, v) != "wgmma":
@@ -330,21 +359,34 @@ def profile_flash_bwd(dev: torch.device) -> None:
                             + ("" if same else " NOT BITWISE"))
             print(f"flash_attention_bwd {route or 'wgmma'} B=1 S={S} H={H} KV={KV} dh={dh} "
                   f"{'causal' if causal else 'full'}{f' window {w}' if w else ''}"
-                  f" ({plan.pieces} pieces): " + ", ".join(errs), flush=True)
+                  f" ({plan.pieces} pieces, {plan.tile_rows} rows a tile): "
+                  + ", ".join(errs), flush=True)
     print(f"flash_attention_bwd checks: {bad} over their limits", flush=True)
 
-    for S in (4096, 1024):
-        q, k, v, go = inputs(S, 16, 2, 128, S)
-        pairs = sum(t + 1 for t in range(S))
-        bound = 10 * 16 * 128 * pairs / 989e12 * 1e3
-        for route in (None, "simt"):
-            def call(route=route):
-                fa.flash_attention_bwd(q, k, v, go, route=route)
-            ms = call_ms(call, 20)
-            print(f"flash_attention_bwd {route or 'wgmma'} bfloat16 B=1 S={S} H=16 KV=2 "
-                  f"dh=128 causal: {ms:.5f} ms a call (events), bound "
-                  f"{bound:.5f} ms (operations); {_fmt(device_parts(call, 10))}",
-                  flush=True)
+    for H, KV, dh, mla in BWD_HEADS:
+        for S in (4096, 1024):
+            q, k, v, go = inputs(S, H, KV, dh, S, mla)
+            pairs = sum(t + 1 for t in range(S))
+            bound = 10 * H * dh * pairs / 989e12 * 1e3
+            shape = (f"bfloat16 B=1 S={S} H={H} KV={KV} dh={dh} causal"
+                     + (" mla v 128->192" if mla else ""))
+            for route in (None, "simt"):
+                def call(route=route):
+                    fa.flash_attention_bwd(q, k, v, go, route=route)
+                ms = call_ms(call, 20)
+                print(f"flash_attention_bwd {route or 'wgmma'} {shape}: {ms:.5f} ms "
+                      f"a call (events), bound {bound:.5f} ms (operations); "
+                      f"{_fmt(device_parts(call, 10))}", flush=True)
+            # SDPA's backward alone (its forward once, outside the timer)
+            qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_()
+                          for x in (q, k, v))
+            out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                                 enable_gqa=H != KV)
+            gs = go.transpose(1, 2)
+            ms = call_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), gs,
+                                                     retain_graph=True), 20)
+            print(f"SDPA backward {shape}: {ms:.5f} ms a call (events)", flush=True)
+            del q, k, v, go, qs, ks, vs, gs, out
 
 
 # (H, KV, dh, window, mla) of the served prefills and decodes (PERF.md §6
@@ -494,8 +536,6 @@ def _patched_build(name: str, patches, tag: str):
     """A build of ``csrc/<name>.cu`` with ``patches`` applied (each old
     text must occur once), loaded with ctypes."""
     import ctypes
-    import tempfile
-    from pathlib import Path
 
     from repro_torch.kernels import build
 

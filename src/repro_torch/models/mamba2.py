@@ -124,10 +124,13 @@ def ssd_chunked(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     """Chunked scan of x (B, S, H, P) (dt-scaled inputs), a (B, S, H) (decay
     logits, <= 0), b and c (B, S, N), from the state ``h0`` (B, H, N, P)
     (None: zeros).  Returns (y (B, S, H, P) in x's dtype, the final state
-    (B, H, N, P) float32); fp32 inside.  The decay matrix is exponentiated
-    before the causal mask, which selects (a product with the mask would
-    give inf · 0 above the diagonal), and every product is pairwise: no
-    tensor of (Q, Q, H, P) is built."""
+    (B, H, N, P) float32); fp32 inside.  The causal mask selects the decay
+    matrix's exponent, −inf above the diagonal, before it is exponentiated:
+    there A_t − A_s > 0 overflows exp at long chunks, and a mask applied
+    after it (the reference's ``where``) leaves a zero gradient times inf,
+    NaN, in the backward (a product with the mask would give inf · 0 in the
+    values too); the values are the same either way.  Every product is
+    pairwise: no tensor of (Q, Q, H, P) is built."""
     B, S, H, P = x.shape
     N = b.shape[-1]
     Q = min(chunk, S)
@@ -146,9 +149,9 @@ def ssd_chunked(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     A = torch.cumsum(af, dim=2)                                 # inclusive
     # within-chunk decay L[t, s] = exp(A_t − A_s) for s <= t: (B, nc, t, s, H)
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
-    L = torch.where(tri[None, None, :, :, None],
-                    torch.exp(A[:, :, :, None, :] - A[:, :, None, :, :]),
-                    torch.zeros((), dtype=torch.float32, device=x.device))
+    L = torch.exp(torch.where(tri[None, None, :, :, None],
+                              A[:, :, :, None, :] - A[:, :, None, :, :],
+                              float("-inf")))
     scores = torch.einsum("bcqn,bcsn->bcqs", cf, bf)            # (B, nc, Q, Q)
     y_diag = torch.einsum("bcqsh,bcshp->bcqhp", scores[..., None] * L, xf)
     del L

@@ -20,8 +20,9 @@ kernels against the plain version: float32 within ``1e-4`` of each
 gradient's largest magnitude, bfloat16 within two bf16 ulps of it, and lse
 within ``1e-5`` of its largest magnitude; two calls bitwise equal (no
 atomics); each call on the route ``flash_bwd_route`` picks, as its launch
-counter shows (bfloat16 with dh <= 128 and G | 128 on the tensor cores,
-its key tiles' walks cut into pieces at S 300 and 1,024), and the
+counter shows (bfloat16 with dh a multiple of 8 up to 256 and G up to 64
+or 128 on the tensor cores, its key tiles' walks cut into pieces at S 300
+and 1,024, G 6 in row tiles of whole tokens), and the
 CUDA-core route forced on the tensor-core cases.  JAX is imported inside the reference's helper only, so that
 the card case runs where JAX is not installed.
 """
@@ -155,17 +156,19 @@ def card():
     return torch.device("cuda")
 
 
-# (B, S, H, KV, dh, causal, window): qwen's heads, G 6, dh 64, 192, 224,
-# 256, a window, full attention, a ragged length; qwen's heads at S 1,024
-# (16 pieces a key tile on the tensor cores) causal, with a window of 256
-# and full; G 128; one piece and dh 8; B 2 (olmoe's training batch)
+# (B, S, H, KV, dh, causal, window): qwen's heads, G 6 at dh 100, dh 64,
+# 192, 224, 256, a window, full attention, a ragged length; qwen's heads at
+# S 1,024 (16 pieces a key tile on the tensor cores) causal, with a window
+# of 256 and full; G 128; one piece and dh 8; B 2 (olmoe's training
+# batch); internvl2's G 6 (48 / 8 / 128) ragged and with a window
 CARD_CASES = [(1, 300, 16, 2, 128, True, 0), (2, 130, 12, 2, 100, True, 0),
               (1, 200, 4, 4, 64, True, 0), (1, 160, 8, 8, 192, True, 0),
               (1, 300, 4, 4, 224, True, 64), (1, 97, 2, 1, 256, False, 0),
               (1, 257, 16, 2, 128, True, 33), (1, 1024, 16, 2, 128, True, 0),
               (1, 1024, 16, 2, 128, True, 256), (1, 1024, 16, 2, 128, False, 0),
               (1, 77, 128, 1, 64, True, 0), (1, 33, 4, 1, 8, True, 0),
-              (2, 200, 16, 16, 128, True, 0)]
+              (2, 200, 16, 16, 128, True, 0), (1, 301, 48, 8, 128, True, 0),
+              (2, 150, 12, 2, 64, True, 40)]
 
 
 def _hold(got, want, again, dtype):
@@ -191,7 +194,8 @@ def test_backward_kernels_match_plain(card, case, dtype):
     q, k, v, g = (torch.from_numpy(a).to(card, dtype) for a in
                   _inputs(B, S, H, KV, dh, dh, seed=S + dh))
     route = fa.flash_bwd_route(q, k, v)
-    tc = dtype == torch.bfloat16 and dh % 8 == 0 and dh <= 128 and 128 % (H // KV) == 0
+    tc = dtype == torch.bfloat16 and dh % 8 == 0 and dh <= 256 and (
+        H // KV <= 64 or H // KV == 128)
     assert route == ("wgmma" if tc else "simt")
     key = "flash_attention_bwd_wgmma" if tc else "flash_attention_bwd"
     before = dict(LAUNCHES)

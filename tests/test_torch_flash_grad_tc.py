@@ -40,12 +40,17 @@ def _ulp(x: float) -> float:
     (torch.bfloat16, 64, 24, 24, "wgmma"),    # musicgen-medium
     (torch.bfloat16, 128, 16, 16, "wgmma"),   # olmoe-1b-7b
     (torch.bfloat16, 64, 128, 1, "wgmma"),    # G 128
-    (torch.bfloat16, 192, 128, 128, "simt"),  # deepseek-v2's MLA
-    (torch.bfloat16, 224, 32, 32, "simt"),    # zamba2-7b's shared block
-    (torch.bfloat16, 128, 48, 8, "simt"),     # internvl2-26b: G 6
-    (torch.bfloat16, 100, 12, 2, "simt"),     # dh not a multiple of 8
+    (torch.bfloat16, 192, 128, 128, "wgmma"),  # deepseek-v2's MLA
+    (torch.bfloat16, 224, 32, 32, "wgmma"),    # zamba2-7b's shared block
+    (torch.bfloat16, 128, 48, 8, "wgmma"),     # internvl2-26b: G 6
+    (torch.bfloat16, 256, 4, 4, "wgmma"),      # the widest head
+    (torch.bfloat16, 64, 7, 1, "wgmma"),       # G 7: 63 rows a tile
+    (torch.bfloat16, 264, 4, 4, "simt"),       # dh above 256
+    (torch.bfloat16, 64, 96, 1, "simt"),       # G 96: no whole tokens
+    (torch.bfloat16, 100, 12, 2, "simt"),      # dh not a multiple of 8
     (torch.float32, 128, 16, 2, "simt"),
     (torch.float32, 64, 8, 8, "simt"),
+    (torch.float32, 192, 128, 128, "simt"),
 ])
 def test_bwd_route(dtype, dh, H, KV, want):
     q = torch.zeros((1, 4, H, dh), dtype=dtype)
@@ -66,6 +71,13 @@ def test_bwd_route_needs_aligned_views():
     assert fa.flash_bwd_route(q, k, k) == "wgmma"      # pitch 272 bytes
     q = torch.zeros((1, 8, 16, 132), dtype=torch.bfloat16)[..., :128]
     assert fa.flash_bwd_route(q, k, k) == "simt"       # pitch 264 bytes
+    # internvl2's G 6: q, k, v of a fused projection, at 8 and at 4 columns
+    for off, want in ((8, "wgmma"), (4, "simt")):
+        qkv = torch.zeros((1, 8, 64 * 128 + 8), dtype=torch.bfloat16)
+        q = qkv[..., off:off + 48 * 128].unflatten(-1, (48, 128))
+        k = qkv[..., off + 6144:off + 7168].unflatten(-1, (8, 128))
+        v = qkv[..., off + 7168:off + 8192].unflatten(-1, (8, 128))
+        assert fa.flash_bwd_route(q, k, v) == want
 
 
 def test_bwd_route_argument_on_the_cpu():
@@ -94,30 +106,38 @@ def _visible_rows(Sq, Sk, G, causal, window, kt):
     return np.flatnonzero(vis.any(axis=1))
 
 
-@settings(max_examples=80, deadline=None)
+@settings(max_examples=120, deadline=None)
 @given(B=st.integers(1, 2), S=st.integers(1, 700), Sk_extra=st.integers(-40, 40),
-       logG=st.integers(0, 7), KV=st.integers(1, 3),
-       dh=st.integers(1, 16).map(lambda x: 8 * x),
+       G=st.sampled_from([1, 2, 3, 4, 5, 6, 7, 8, 16, 128]), KV=st.integers(1, 3),
+       dh=st.integers(1, 32).map(lambda x: 8 * x),
        causal=st.booleans(), window=st.integers(0, 900))
-def test_plan_pieces_cover_each_visible_row_once(B, S, Sk_extra, logG, KV, dh,
+def test_plan_pieces_cover_each_visible_row_once(B, S, Sk_extra, G, KV, dh,
                                                  causal, window):
-    G = 2 ** logG
     Sq = max(1, min(S, 30000 // G))
     Sk = max(1, Sq + Sk_extra)
     window = window if causal else 0
     H = G * KV
     plan = fa.plan_flash_bwd(B, Sq, Sk, H, KV, dh, causal, window)
     nrows = Sq * G
-    R = fa.BWD_KROWS
+    RT, SL = plan.tile_rows, fa.BWD_KROWS
+    # a row tile holds whole tokens (G 128: each token two whole tiles)
+    assert RT == (G * (SL // G) if G <= SL else SL)
+    assert RT % G == 0 if G <= SL else G % RT == 0
+    ntiles = -(-nrows // RT)
     assert plan.key_tiles == -(-Sk // fa.BWD_KEYS)
-    assert plan.dq_blocks == -(-nrows // fa.BWD_QROWS) * B * KV
+    assert plan.rows_pad == -(-ntiles // 2) * fa.BWD_QROWS
+    assert plan.dq_blocks == -(-ntiles // 2) * B * KV
     assert plan.dkdv_blocks == plan.key_tiles * B * KV * plan.pieces
-    assert plan.rows_pad == -(-nrows // fa.BWD_QROWS) * fa.BWD_QROWS
-    assert plan.dhp == (64 if dh <= 64 else 128)
+    assert plan.dhp == (64 if dh <= 64 else 128 if dh <= 128 else 256)
+    assert (plan.dq_keys, plan.per_sm) == ((32, 1) if dh > 128 else (64, 2))
+    walks = [max(0, hi - lo) for lo, hi in plan.row_tiles]
+    total, top = B * KV * sum(walks), max(walks)
+    want = 1 if not total else max(1, min(
+        -(-top * plan.per_sm * fa.BWD_SMS // total), top // fa.BWD_MIN_TILES))
+    assert plan.pieces == want
     parts = (plan.key_tiles * B * KV * (plan.pieces * 2 * 64 * plan.dhp + 1)
              if plan.pieces > 1 else 0)
     assert plan.scratch_bytes == 4 * (2 * B * KV * plan.rows_pad + parts)
-    assert plan.pieces >= 1
     for kt in range(plan.key_tiles):
         seen = np.zeros(nrows, int)
         prev_hi = plan.row_tiles[kt][0]
@@ -125,9 +145,9 @@ def test_plan_pieces_cover_each_visible_row_once(B, S, Sk_extra, logG, KV, dh,
             lo, hi = plan.piece(kt, p)
             assert lo == prev_hi and lo <= hi           # in row order, no gap
             prev_hi = hi
-            # a stage's rows lie inside the scratch the dq kernel writes
-            assert hi * R <= plan.rows_pad or lo == hi
-            seen[lo * R:min(hi * R, nrows)] += 1
+            # a stage's slots lie inside the scratch the dq kernel writes
+            assert hi * SL <= plan.rows_pad or lo == hi
+            seen[lo * RT:min(hi * RT, nrows)] += 1
         lo, hi = plan.row_tiles[kt]
         assert prev_hi == max(lo, hi)
         vis = _visible_rows(Sq, Sk, G, causal, window, kt)
@@ -151,9 +171,31 @@ def test_plan_at_qwen_heads():
     tiny = fa.plan_flash_bwd(1, 33, 33, 4, 1, 8)
     assert tiny.pieces == 1 and tiny.scratch_bytes == 4 * 2 * 256
     with pytest.raises(ValueError):
-        fa.plan_flash_bwd(1, 64, 64, 32, 32, 192)
+        fa.plan_flash_bwd(1, 64, 64, 32, 32, 264)       # dh above 256
+    with pytest.raises(ValueError):
+        fa.plan_flash_bwd(1, 64, 64, 96, 1, 64)         # G 96
     with pytest.raises(ValueError):
         fa.plan_flash_bwd(1, 64, 64, 16, 2, 128, False, 8)
+
+
+def test_plan_at_the_new_heads():
+    """The three head shapes this route took from the CUDA cores, causal:
+    deepseek-v2's MLA (128 / 128 / 192) and zamba2's shared block (32 / 32 /
+    224) at DHP 256 (32-key dq stages, one dkdv block an SM), internvl2's
+    G 6 (48 / 8 / 128) in row tiles of 10 tokens (60 rows)."""
+    mla = fa.plan_flash_bwd(1, 1024, 1024, 128, 128, 192)
+    assert (mla.dhp, mla.dq_keys, mla.per_sm, mla.tile_rows) == (256, 32, 1, 64)
+    assert (mla.key_tiles, mla.dq_blocks, mla.pieces) == (16, 1024, 1)
+    z = fa.plan_flash_bwd(1, 4096, 4096, 32, 32, 224)
+    assert (z.dhp, z.key_tiles, z.dq_blocks, z.pieces) == (256, 64, 1024, 1)
+    zw = fa.plan_flash_bwd(1, 1024, 1024, 32, 32, 224, True, 256)
+    assert zw.row_tiles[0] == (0, 5) and zw.row_tiles[-1] == (15, 16)
+    iv = fa.plan_flash_bwd(1, 1024, 1024, 48, 8, 128)
+    assert (iv.dhp, iv.tile_rows, iv.per_sm) == (128, 60, 2)
+    # 6,144 rows in 103 tiles (the last 24 rows), 52 dq blocks a KV head
+    assert iv.rows_pad == 52 * 128 and iv.dq_blocks == 8 * 52
+    # key tile 1 (keys 64..127) first sees row 384: tile 6 (tokens 60..69)
+    assert iv.row_tiles[1] == (6, 103) and iv.pieces == 4
 
 
 # -------------------------------------------------------------- the terms
@@ -199,7 +241,11 @@ def _f32(x: float) -> torch.Tensor:
 
 
 def _emulate(q, k, v, g, causal, window):
-    """fbt_dq_kernel and fbt_dkdv_kernel in fp32 torch, tile by tile."""
+    """fbt_dq_kernel and fbt_dkdv_kernel in fp32 torch, tile by tile: rows
+    in row tiles of ``plan.tile_rows`` whole-token rows at ``BWD_KROWS``
+    slots each (the empty slots zero in q and g, lse +inf and D 0, as the
+    kernels keep them; nothing written for them), dq stages of
+    ``plan.dq_keys`` keys, the statistics by slot."""
     B, Sq, H, dh = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -207,15 +253,22 @@ def _emulate(q, k, v, g, causal, window):
     plan = fa.plan_flash_bwd(B, Sq, Sk, H, KV, dh, causal, window)
     scale = _f32(dh ** -0.5)
     sl2 = scale * _f32(LOG2E)
-    BM, BK, RM = fa.BWD_QROWS, fa.BWD_KEYS, fa.BWD_KROWS
+    RT, SL, BQ, BK = plan.tile_rows, fa.BWD_KROWS, plan.dq_keys, fa.BWD_KEYS
+    ntiles = -(-nrows // RT)
     dq = torch.zeros((B, Sq, H, dh), dtype=torch.bfloat16)
     dk = torch.zeros((B, Sk, KV, dh), dtype=torch.bfloat16)
     dv = torch.zeros_like(dk)
     lse = torch.zeros((B, H, Sq))
+    # slot -> row (-1: an empty slot, or past the last row)
+    slot_row = torch.full((plan.rows_pad,), -1)
+    for t in range(ntiles):
+        n = min(RT, nrows - t * RT)
+        slot_row[t * SL:t * SL + n] = torch.arange(t * RT, t * RT + n)
+    real = slot_row >= 0
 
-    def hidden(rows, keys):
-        tok = rows[:, None] // G
-        h = (rows[:, None] >= nrows) | (keys[None, :] >= Sk)
+    def hidden(slots, keys):
+        tok = slot_row[slots][:, None] // G
+        h = ~real[slots][:, None] | (keys[None, :] >= Sk)
         if causal:
             h |= keys[None, :] > tok
         if window:
@@ -228,51 +281,53 @@ def _emulate(q, k, v, g, causal, window):
     for b in range(B):
         for kvh in range(KV):
             heads = slice(kvh * G, (kvh + 1) * G)
-            pad = plan.rows_pad - nrows
-            Qr, Gr = (torch.nn.functional.pad(
-                t[b, :, heads].float().reshape(nrows, dh), (0, 0, 0, pad))
-                for t in (q, g))
+            Qr, Gr = (t[b, :, heads].float().reshape(nrows, dh) for t in (q, g))
+            Qs, Gs = (torch.zeros((plan.rows_pad, dh)) for _ in range(2))
+            Qs[real], Gs[real] = Qr[slot_row[real]], Gr[slot_row[real]]
             Kk = torch.nn.functional.pad(k[b, :, kvh].float(), (0, 0, 0, BK))
             Vk = torch.nn.functional.pad(v[b, :, kvh].float(), (0, 0, 0, BK))
             lse2 = torch.full((plan.rows_pad,), math.inf)
             D = torch.zeros(plan.rows_pad)
-            for r0 in range(0, nrows, BM):
-                rows = torch.arange(r0, r0 + BM)
-                last = min(r0 + BM, nrows) - 1
+            for pair in range(plan.rows_pad // fa.BWD_QROWS):
+                r0 = 2 * pair * RT
+                last = min(r0 + 2 * RT, nrows) - 1
                 kend = min(Sk, last // G + 1) if causal else Sk
-                nt = -(-kend // BK)
-                j0 = max(0, r0 // G - window + 1) // BK if window else 0
-                m2 = torch.full((BM,), NEG)
-                l_, pd = torch.zeros(BM), torch.zeros(BM)
-                Q, Gq = Qr[r0:r0 + BM], Gr[r0:r0 + BM]
-                for j in range(j0, nt):             # pass 1
-                    keys = torch.arange(j * BK, j * BK + BK)
-                    s = Q @ Kk[j * BK:j * BK + BK].T
-                    dp = Gq @ Vk[j * BK:j * BK + BK].T
-                    hid = hidden(rows, keys) & (rows[:, None] < nrows)
-                    s = s.masked_fill(hid, NEG)
-                    m_new = torch.maximum(m2, s.max(1).values * sl2)
-                    alpha = torch.exp2(m2 - m_new)
-                    m2 = m_new
-                    e = torch.exp2(s * sl2 - m2[:, None]).masked_fill(hid, 0.0)
-                    l_ = l_ * alpha + e.sum(1)
-                    pd = pd * alpha + (e * dp).sum(1)
-                live = (rows < nrows) & (l_ > 0)
-                lse2[r0:r0 + BM] = torch.where(live, m2 + torch.log2(l_), math.inf)
-                D[r0:r0 + BM] = torch.where(live, pd / l_, 0.0)
-                acc = torch.zeros((BM, dh))
-                for j in range(j0, nt):             # pass 2
-                    keys = torch.arange(j * BK, j * BK + BK)
-                    Kt = Kk[j * BK:j * BK + BK]
-                    s, dp = Q @ Kt.T, Gq @ Vk[j * BK:j * BK + BK].T
-                    p = torch.exp2(s * sl2 - lse2[r0:r0 + BM, None])
-                    ds = (p * (dp - D[r0:r0 + BM, None])).masked_fill(
-                        hidden(rows, keys) & (rows[:, None] < nrows), 0.0)
-                    acc += terms_product(ds, Kt)
-                for r in range(r0, min(r0 + BM, nrows)):
-                    t, gg = divmod(r, G)
-                    dq[b, t, kvh * G + gg] = (acc[r - r0] * scale).bfloat16()
-                    lse[b, kvh * G + gg, t] = lse2[r] * _f32(0.6931471805599453)
+                nt = -(-kend // BQ)
+                j0 = max(0, r0 // G - window + 1) // BQ if window else 0
+                for w in range(2):                  # a warpgroup a row tile
+                    slots = torch.arange((2 * pair + w) * SL, (2 * pair + w + 1) * SL)
+                    m2 = torch.full((SL,), NEG)
+                    l_, pd = torch.zeros(SL), torch.zeros(SL)
+                    Q, Gq = Qs[slots], Gs[slots]
+                    for j in range(j0, nt):         # pass 1
+                        keys = torch.arange(j * BQ, j * BQ + BQ)
+                        s = Q @ Kk[j * BQ:j * BQ + BQ].T
+                        dp = Gq @ Vk[j * BQ:j * BQ + BQ].T
+                        hid = hidden(slots, keys)
+                        s = s.masked_fill(hid, NEG)
+                        m_new = torch.maximum(m2, s.max(1).values * sl2)
+                        alpha = torch.exp2(m2 - m_new)
+                        m2 = m_new
+                        e = torch.exp2(s * sl2 - m2[:, None]).masked_fill(hid, 0.0)
+                        l_ = l_ * alpha + e.sum(1)
+                        pd = pd * alpha + (e * dp).sum(1)
+                    live = real[slots] & (l_ > 0)
+                    lse2[slots] = torch.where(live, m2 + torch.log2(l_), math.inf)
+                    D[slots] = torch.where(live, pd / l_, 0.0)
+                    acc = torch.zeros((SL, dh))
+                    for j in range(j0, nt):         # pass 2
+                        keys = torch.arange(j * BQ, j * BQ + BQ)
+                        Kt = Kk[j * BQ:j * BQ + BQ]
+                        s, dp = Q @ Kt.T, Gq @ Vk[j * BQ:j * BQ + BQ].T
+                        p = torch.exp2(s * sl2 - lse2[slots, None])
+                        ds = (p * (dp - D[slots, None])).masked_fill(
+                            hidden(slots, keys), 0.0)
+                        acc += terms_product(ds, Kt)
+                    for i, sl in enumerate(slots.tolist()):
+                        if real[sl]:
+                            t, gg = divmod(int(slot_row[sl]), G)
+                            dq[b, t, kvh * G + gg] = (acc[i] * scale).bfloat16()
+                            lse[b, kvh * G + gg, t] = lse2[sl] * _f32(0.6931471805599453)
             for kt in range(plan.key_tiles):
                 keys = torch.arange(kt * BK, kt * BK + BK)
                 Kt, Vt = Kk[kt * BK:kt * BK + BK], Vk[kt * BK:kt * BK + BK]
@@ -281,12 +336,14 @@ def _emulate(q, k, v, g, causal, window):
                     lo, hi = plan.piece(kt, p_)
                     pk, pv = torch.zeros((BK, dh)), torch.zeros((BK, dh))
                     for rt in range(lo, hi):
-                        rows = torch.arange(rt * RM, rt * RM + RM)
-                        Q, Gq = Qr[rt * RM:rt * RM + RM], Gr[rt * RM:rt * RM + RM]
+                        slots = torch.arange(rt * SL, rt * SL + SL)
+                        Q, Gq = Qs[slots], Gs[slots]
                         sT, dpT = Kt @ Q.T, Vt @ Gq.T
-                        hid = hidden(rows, keys).T
-                        pT = torch.exp2(sT * sl2 - lse2[rows][None, :]).masked_fill(hid, 0.0)
-                        dsT = (pT * (dpT - D[rows][None, :])).masked_fill(hid, 0.0)
+                        # the kernel masks real rows only: an empty slot's
+                        # zero q, g and +inf lse give p = ds = 0 by arithmetic
+                        hid = (hidden(slots, keys) & real[slots][:, None]).T
+                        pT = torch.exp2(sT * sl2 - lse2[slots][None, :]).masked_fill(hid, 0.0)
+                        dsT = (pT * (dpT - D[slots][None, :])).masked_fill(hid, 0.0)
                         pv += terms_product(pT, Gq)
                         pk += terms_product(dsT, Q)
                     parts.append((pk, pv))
@@ -299,28 +356,40 @@ def _emulate(q, k, v, g, causal, window):
     return dq, dk, dv, lse, plan
 
 
-# (B, S, H, KV, dh, causal, window): qwen's G 8 at a length cut in pieces,
-# a window, full attention, G 1 with dh 64 and a ragged length, G 128
-EMU_CASES = [(1, 300, 16, 2, 128, True, 0), (1, 200, 16, 2, 32, True, 40),
-             (2, 90, 4, 2, 16, False, 0), (1, 77, 3, 3, 64, True, 0),
-             (1, 40, 128, 1, 8, True, 0)]
-EMU_IDS = ["gqa-pieces", "window", "full", "mha-ragged", "g128"]
+# (B, S, H, KV, dh, dhv, causal, window): qwen's G 8 at a length cut in
+# pieces, a window, full attention, G 1 with dh 64 and a ragged length, G
+# 128; G 6 (internvl2's: 60-row tiles) cut in pieces and with a window, G 7
+# and G 5 at dh 8 (63 and 60 rows); DHP 256: deepseek-v2's MLA (dh 192, v
+# and g zero-padded from 128), zamba2's dh 224 with a window, dh 256 full
+EMU_CASES = [(1, 300, 16, 2, 128, 128, True, 0), (1, 200, 16, 2, 32, 32, True, 40),
+             (2, 90, 4, 2, 16, 16, False, 0), (1, 77, 3, 3, 64, 64, True, 0),
+             (1, 40, 128, 1, 8, 8, True, 0), (1, 96, 12, 2, 32, 32, True, 0),
+             (1, 90, 6, 1, 16, 16, True, 20), (1, 50, 14, 2, 8, 8, True, 0),
+             (1, 41, 5, 1, 8, 8, False, 0), (1, 72, 4, 4, 192, 128, True, 0),
+             (1, 80, 2, 2, 224, 224, True, 24), (1, 45, 3, 1, 256, 256, False, 0)]
+EMU_IDS = ["gqa-pieces", "window", "full", "mha-ragged", "g128", "g6-pieces",
+           "g6-window", "g7", "g5-full", "mla-dh192", "dh224-window", "dh256-full"]
 
 
 @pytest.mark.parametrize("case", EMU_CASES, ids=EMU_IDS)
 def test_emulated_kernels_match_plain_and_jax(case):
     from test_torch_flash_grad import _inputs, _reference
 
-    B, S, H, KV, dh, causal, window = case
-    q, k, v, g = (torch.from_numpy(a).bfloat16() for a in
-                  _inputs(B, S, H, KV, dh, dh, seed=S + dh))
+    B, S, H, KV, dh, dhv, causal, window = case
+    qn, kn, vn, gn = _inputs(B, S, H, KV, dh, dhv, seed=S + dh)
+    # the port's route: v and g zero-padded to q's width (mla_prefill)
+    q, k, v, g = (torch.nn.functional.pad(torch.from_numpy(a), (0, dh - a.shape[-1]))
+                  .bfloat16() for a in (qn, kn, vn, gn))
     *got, lse, plan = _emulate(q, k, v, g, causal, window)
-    if case == EMU_CASES[0]:
+    if case in (EMU_CASES[0], EMU_CASES[5]):
         assert plan.pieces > 1
     want = flash_attention_bwd_ref(q, k, v, g, causal=causal, window=window)
-    jax = _reference(*(t.float().numpy() for t in (q, k, v, g)), causal,
-                     window, torch.bfloat16)
+    jax = _reference(*(t.float().numpy() for t in (q[..., :dh], k, v[..., :dhv],
+                                                    g[..., :dhv])),
+                     causal, window, torch.bfloat16)
     for name, a, b, c in zip(("dq", "dk", "dv"), got, want, jax):
+        if name == "dv":                    # autograd drops the padded columns
+            a, b = a[..., :dhv], b[..., :dhv]
         top = float(b.float().abs().max())
         err = float((a.float() - b.float()).abs().max())
         assert err <= 2 * _ulp(top), f"{name} vs plain: {err}"

@@ -651,6 +651,47 @@ def test_kernels_give_bitwise_equal_results_on_two_calls(card):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("S", [256, 1100])
+@pytest.mark.parametrize("H,KV,dh,window,mla", [
+    (128, 128, 192, 0, True),       # deepseek-v2's MLA, v zero past 128
+    (32, 32, 224, 0, False),        # zamba2-7b's shared block
+    (32, 32, 224, 256, False),      # ... with its long-context window
+    (48, 8, 128, 0, False),         # internvl2-26b: G 6
+])
+def test_flash_backward_takes_the_tensor_cores_at_the_trained_heads(
+        card, S, H, KV, dh, window, mla):
+    """The bf16 heads the tensor-core backward took from the CUDA cores
+    (DHP 256, G 6): routed to ``fbt_*``, counted, two calls bitwise equal,
+    dq, dk, dv within two bf16 ulps of each one's largest magnitude of the
+    plain version and lse within 1e-5 (``chip_smoke.py``'s limits)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_bwd_ref
+
+    g = torch.Generator(device=card).manual_seed(S + dh + H)
+    q, go = (torch.randn((1, S, H, dh), generator=g, device=card).bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn((1, S, KV, dh), generator=g, device=card).bfloat16()
+            for _ in range(2))
+    if mla:
+        v[..., 128:] = 0
+        go[..., 128:] = 0
+    assert fa.flash_bwd_route(q, k, v) == "wgmma"
+    before = LAUNCHES["flash_attention_bwd_wgmma"], LAUNCHES["flash_attention_bwd"]
+    got = fa.flash_attention_bwd(q, k, v, go, window=window)
+    again = fa.flash_attention_bwd(q, k, v, go, window=window)
+    torch.cuda.synchronize()
+    assert (LAUNCHES["flash_attention_bwd_wgmma"], LAUNCHES["flash_attention_bwd"]) \
+        == (before[0] + 2, before[1])
+    want = flash_attention_bwd_ref(q, k, v, go, window=window)
+    for name, a, b, c in zip(("dq", "dk", "dv", "lse"), got, want, again):
+        assert torch.equal(a, c), f"{name}: two calls differ"
+        top = float(b.float().abs().max())
+        tol = (1e-5 * max(top, 1.0) if name == "lse"
+               else 2 * 2.0 ** (np.floor(np.log2(top)) - 7))
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= tol, f"{name}: {err} > {tol}"
+
+
 def test_attention_wrappers_check_and_count(card):
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention_fused
