@@ -45,7 +45,8 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               dh 128), B = 1, Sq = Sk in {8, 100, 1024, 2048}, float32 and
               bfloat16, p in fp32 and p rounded, plus G in {1, 4, 8} at small
               shapes, one non-causal case, dh 256, dh 100 and G = 6 (bf16
-              on the CUDA-core kernel), dh 320 causal and full (output
+              on the tensor cores in row tiles of whole tokens), dh 320
+              causal and full (output
               columns split over blocks), 600 tokens (more row tiles than
               SMs) and q, k, v as strided views of a fused QKV projection, each
               case on the kernel ``flash_route`` picks; decode attention at
@@ -65,7 +66,11 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               dh 64), zamba2's shared block (H = KV = 32, dh 224) at S =
               100 and 1024, a window of 256 at dh 224 and at qwen's heads,
               and float32 with p rounded to bfloat16 (``round_p=
-              torch.bfloat16``, the model's ``probs_bf16``); decode at
+              torch.bfloat16``, the model's ``probs_bf16``); internvl2's
+              G 6 (``G6_HEADS``) at S 1,024 and 4,096, causal, full and
+              with a window of 256, and G 3 and G 5 at dh 64 (63- and
+              60-row tiles), each required to take ``fa_tc_kernel`` in
+              bfloat16; decode at
               those heads at the served lengths against LM_MAX_LEN slots,
               zamba2's as its served config decodes (no window), and at
               zamba2's against a ring of 256 slots (lengths min(pos + 1, 256), most
@@ -124,7 +129,8 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               recurrent decode against the chunked scan's teacher forcing)
               and zamba2-7b (68 Mamba2 layers, 13 shared applications) in
               float32 and bfloat16, musicgen-medium, internvl2-26b (bf16
-              flash on the CUDA-core kernel: G 6) and command-r-35b (~65 GB)
+              flash on the tensor cores at G 6: ``flash_attention`` 0) and
+              command-r-35b (~65 GB)
               in bfloat16, all at full depth: float32 as qwen's run, bf16
               >= 95 %, or for mamba2 and internvl2 every disagreement a
               rounding tie (see ``LM_BF16_TIES``), launches = attention
@@ -196,13 +202,19 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               ``SHARED_HEADS`` without and with a window of 256, and
               qwen2.5-3b's with that window and with full attention; each
               case's route printed and counted (every bfloat16 head shape
-              must take the tensor cores, float32 the CUDA cores), a
+              and every float32 one of dh up to 128 must take the tensor
+              cores, float32 at DHP 256 the CUDA cores; each float32
+              tensor-core case also on ``route="simt"``), a
               second call bitwise equal to the first; dq, dk, dv within ``FLASH_BWD_F32_REL`` of each one's
               largest magnitude (float32) or ``FLASH_BWD_BF16_ULPS`` bf16
               ulps of it (bfloat16), the rows' log-sum-exp within
               ``FLASH_BWD_LSE_REL``; the same at qwen2.5-3b's heads at the
-              lengths the 36-layer run trains (S 4,096 and 2,048), and in
-              bfloat16 at the MLA, zamba2 and internvl2 heads at S 4,096;
+              lengths the 36-layer run trains (S 4,096 and 2,048), at
+              internvl2's heads at S 4,096 in both dtypes, and in bfloat16
+              at the MLA and zamba2 heads at S 4,096; and in float32 with
+              q and k ``FLASH_BWD_PEAK`` times larger (peaked scores) at
+              qwen2.5-3b's and internvl2's heads at S 4,096, on the tensor
+              cores, within the same limits;
               and in
               every case the training forward (``flash_attention_fused``,
               p in fp32) on the same inputs against its plain version
@@ -226,7 +238,15 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               4,096 of which 256 rows are a seeded vision prefix);
               deepseek-v2-236b's one layer is only counted (5.02 B
               parameters, 84.2 GiB of training state: it does not fit the
-              card).  qwen2.5-3b at full width and depth (36
+              card).  zamba2-7b in float32 (``LM_TRAIN_F32_DHP256``: one
+              period, 6 layers, S 1,024): its shared block's dh 224 trains
+              on the CUDA-core backward, the one training route left there.
+              qwen2.5-3b in float32 at every width (``LM_TRAIN_F32``: 8 of
+              36 layers, S 4,096, global batch 2 in 2 microbatches, one
+              warm-up step and 2 timed, one traced): the float32 backward
+              on the tensor cores in training, seconds a step, tokens/s,
+              peak memory, launches and the flash backward's share of the
+              traced step.  qwen2.5-3b at full width and depth (36
               layers), bfloat16 activations, float32 masters, remat
               ``"nothing"``, S 4,096 (train_4k's; 2,048 only if 4,096 does
               not fit, printed), global batch 2 in 2 microbatches
@@ -240,9 +260,9 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               every run flash forward launches = 2 x layers x microbatches
               x steps (the forward and its remat recompute) on its dtype's
               kernel, backward launches = layers x microbatches x steps
-              (both backward kernels as one) on its dtype's route (bfloat16
-              on the tensor cores: ``flash_attention_bwd_wgmma``), and
-              none on the plain twins;
+              (the split and both backward kernels as one) on its route
+              (``flash_attention_bwd_wgmma`` in every run but zamba2's
+              float32 one), and none on the plain twins;
 11. report  — the chain kernels' launch floor (an empty kernel with their
               parameter block) beside each served chain call's device time
               and time per call, against ``CHAIN_DEVICE_MS`` /
@@ -258,11 +278,19 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               kernels' share of a decode step's device time (decode
               attention's two passes, ``DECODE_PASSES``); the flash
               backward at qwen2.5-3b's heads, S 4,096 and 1,024, bfloat16
-              on both routes and float32, and at the MLA, zamba2 and
-              internvl2 heads in bfloat16 (the CUDA cores at S 1,024 only),
-              beside its plain version, SDPA's backward
-              (alone, and with its forward), and its bound (five
-              products); the
+              and float32 on both routes, at internvl2's in both dtypes,
+              and at the MLA and zamba2 heads in bfloat16 (the CUDA cores
+              at S 1,024 only), beside its plain version, SDPA's backward
+              (alone, and with its forward), its bound (five products at
+              the type's peak; for the float32 tensor-core route three
+              16-bit products for each of the five at the 16-bit peak,
+              beside the fp32 one and the 16-bit bound of the products
+              the kernels issue, as ``fbt_query`` states them, and the
+              plan's shared memory checked against the kernels'); the
+              CUDA-core route in float32 at the MLA and zamba2 heads at S
+              1,024 (its main path; the kernels line's
+              ``flash_attention_bwd`` is zamba2's); internvl2's G 6 forward at S
+              4,096 beside masked SDPA; the
               ``kernels`` JSON line (the forward flash kernels' launches
               are the served paths', their training launches beside them),
               the card line, and last ``{"ok": true, "device": {...}}``.
@@ -391,6 +419,9 @@ FLASH_BWD_F32_REL = 1e-4
 FLASH_BWD_BF16_ULPS = 2
 FLASH_BWD_LSE_REL = 1e-5
 FLASH_BWD_S = 1024
+# The float32 backward's peaked-score cases: q and k this many times larger
+# (scaled scores of standard deviation 25, a row's attention on a few keys)
+FLASH_BWD_PEAK = 5.0
 # The float32 twin check: qwen2.5-3b at every width, LM_TRAIN_LAYERS layers,
 # S LM_TRAIN_S, LM_TRAIN_STEPS AdamW steps from seed 0, against the same
 # model differentiating the attention's plain version: each step's loss
@@ -422,6 +453,21 @@ LM_TRAIN_FULL_STEPS, LM_TRAIN_FULL_WARM = 3, 1
 # Adam moments and bf16 weights (14 bytes each) with the f32 gradient sum
 # (4 more) need 84.2 GiB of the card's 79.2.
 LM_TRAIN_FAMILIES = (("zamba2-7b", 12, 4096, 2048), ("internvl2-26b", 2, 4096, 2048))
+# zamba2-7b in float32, one period of its pattern (5 Mamba2 layers, 1
+# application of the shared block), S 1,024, as the families above: its dh
+# 224 (DHP 256) keeps the float32 backward on the CUDA cores
+LM_TRAIN_F32_DHP256 = ("zamba2-7b", 6, 1024, 1024)
+# qwen2.5-3b in float32 at every width: LM_TRAIN_F32 layers of 36 at S
+# LM_TRAIN_FULL_S, global batch and microbatches as the 36-layer run,
+# LM_TRAIN_F32_WARM + LM_TRAIN_F32_STEPS steps and one traced
+LM_TRAIN_F32, LM_TRAIN_F32_STEPS, LM_TRAIN_F32_WARM = 8, 2, 1
+# The float32 backward on the tensor cores: the fewest 16-bit products that
+# meet the float32 limits for each of the five products the gradient needs
+# (two fp16 terms of each operand, hi.hi + hi.mid + mid.hi: one term fewer
+# of any operand misses, tests/test_torch_flash_f32tc.py)
+FLASH_BWD_F32_MIN_PRODUCTS = 3
+# internvl2-26b's heads, G 6: the forward's and backward's whole-token tiles
+G6_HEADS = (48, 8, 128)
 LM_TRAIN_FAMILY_BATCH, LM_TRAIN_FAMILY_STEPS, LM_TRAIN_PREFIX = 2, 2, 256
 LM_TRAIN_NOT_FIT = ("deepseek-v2-236b", 1)
 # launch.train.run_training on the 4-layer float32 copy: LM_RESUME_STEPS
@@ -430,7 +476,7 @@ LM_TRAIN_NOT_FIT = ("deepseek-v2-236b", 1)
 LM_RESUME_STEPS, LM_RESUME_AT, LM_RESUME_BATCH, LM_RESUME_S = 4, 2, 1, 512
 # the two routes' kernels, as a trace names them (by substring)
 FLASH_BWD_KERNELS = ("fb_dq_kernel", "fb_dkdv_kernel", "fbt_dq_kernel",
-                     "fbt_dkdv_kernel", "fbt_dkdv2_kernel")
+                     "fbt_dkdv_kernel", "fbt_dkdv2_kernel", "fbs_split_kernel")
 # matmul/gemv cases (M, K, N) of phase 3, each in float32 and bfloat16 with
 # both layouts of b: aligned and unaligned pitches, split and unsplit K
 MATMUL_SHAPES = ((129, 65, 70), (128, 128, 128), (64, 610, 24),
@@ -1725,9 +1771,10 @@ def bwd_cases() -> list[tuple[int, int, int, int, int, bool, bool, bool]]:
     window of ``PROBE_WINDOW``; qwen2.5-3b's with that window and with full
     attention (the tensor-core route's other masks); then qwen2.5-3b's at
     the lengths the 36-layer run trains (``LM_TRAIN_FULL_S``, and
-    ``LM_TRAIN_FULL_S_OOM`` should it fall back); and in bfloat16 alone the
-    heads of DHP 256 and G 6 (MLA, zamba2's shared block, internvl2's) at
-    ``LM_TRAIN_FULL_S``, the length their families train at."""
+    ``LM_TRAIN_FULL_S_OOM`` should it fall back); and the heads of DHP 256
+    and G 6 (MLA, zamba2's shared block, internvl2's) at
+    ``LM_TRAIN_FULL_S``, the length their families train at, in bfloat16
+    alone but internvl2's (float32 too)."""
     heads = [(16, 2, 128)] + list(FAMILY_HEADS) + list(NEW_HEADS)
     out = [(H, KV, dh, 0, dh == 192, True) for H, KV, dh in heads]
     out += [(*SHARED_HEADS, 0, False, True),
@@ -1736,8 +1783,8 @@ def bwd_cases() -> list[tuple[int, int, int, int, int, bool, bool, bool]]:
     return ([(FLASH_BWD_S, *case, True) for case in out]
             + [(S, 16, 2, 128, 0, False, True, True)
                for S in (LM_TRAIN_FULL_S, LM_TRAIN_FULL_S_OOM)]
-            + [(LM_TRAIN_FULL_S, H, KV, dh, 0, dh == 192, True, False)
-               for H, KV, dh in ((128, 128, 192), SHARED_HEADS, (48, 8, 128))])
+            + [(LM_TRAIN_FULL_S, H, KV, dh, 0, dh == 192, True, dh == 128)
+               for H, KV, dh in ((128, 128, 192), SHARED_HEADS, G6_HEADS)])
 
 
 def train_phase(dev) -> tuple[dict, dict, dict]:
@@ -1820,67 +1867,92 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
 
     # 1. the backward kernels against their plain version, and the training
     # forward (p in fp32) against its own on the same inputs; each case on
-    # the route flash_bwd_route picks (every bfloat16 head shape on the
-    # tensor cores), counted, and a second call bitwise equal to the first
+    # the route flash_bwd_route picks (every head shape on the tensor cores
+    # but float32 at DHP 256), counted, and a second call bitwise equal to
+    # the first; a float32 case on the tensor cores also on route="simt"
+    def bwd_case(dt, S, H, KV, dh, w, mla, causal, peak=1.0):
+        g = torch.Generator(device=dev).manual_seed(
+            H * 1000 + dh + w + S + (not causal))
+        q, go = (torch.randn((1, S, H, dh), generator=g, device=dev).to(dt)
+                 for _ in range(2))
+        k, v = (torch.randn((1, S, KV, dh), generator=g, device=dev).to(dt)
+                for _ in range(2))
+        if peak != 1.0:
+            q, k = q * peak, k * peak
+        if mla:                 # v and out's gradient past 128 are zeros
+            v[..., 128:] = 0
+            go[..., 128:] = 0
+        fwd_ok, fwd_err, fwd_lim = attn_compare(
+            flash_attention_fused(q, k, v, causal=causal, window=w,
+                                  round_p=False),
+            flash_attention_ref(q, k, v, causal=causal, window=w,
+                                round_p=False))
+        route = flash_bwd_route(q, k, v)
+        if route != ("simt" if dt == torch.float32 and dh > 128
+                     else "wgmma"):
+            raise AssertionError(f"H={H} KV={KV} dh={dh} S={S} {dt} "
+                                 f"takes the {route} backward")
+        want = flash_attention_bwd_ref(q, k, v, go, causal=causal,
+                                       window=w)
+        label = (f"{str(dt)[6:]} B=1 S={S} H={H} KV={KV} dh={dh}"
+                 + ("" if causal else " full")
+                 + (f" window {w}" if w else "")
+                 + (" mla v 128->192" if mla else "")
+                 + (f" q, k x{peak:g}" if peak != 1.0 else ""))
+        # the route flash_bwd_route picks; a float32 call it gives
+        # the tensor cores also forced onto the CUDA cores
+        for r in (route, "simt") if (dt == torch.float32 and route == "wgmma"
+                                     and peak == 1.0) else (route,):
+            kernel = ("flash_attention_bwd_wgmma" if r == "wgmma"
+                      else "flash_attention_bwd")
+            forced = "simt" if r != route else None
+            reset()
+            got = flash_attention_bwd(q, k, v, go, causal=causal,
+                                      window=w, route=forced)
+            again = flash_attention_bwd(q, k, v, go, causal=causal,
+                                        window=w, route=forced)
+            take(f"backward {r} S={S} H={H} KV={KV} dh={dh}", {kernel: 2},
+                 quiet=True)
+            torch.cuda.synchronize()
+            errs, lims = {"out": fwd_err}, {"out": fwd_lim}
+            same = all(torch.equal(a, c) for a, c in zip(got, again))
+            for name, a, b in zip(("dq", "dk", "dv", "lse"), got, want):
+                top = float(b.float().abs().max())
+                lims[name] = (FLASH_BWD_LSE_REL * max(top, 1.0)
+                              if name == "lse"
+                              else FLASH_BWD_F32_REL * top
+                              if dt == torch.float32
+                              else FLASH_BWD_BF16_ULPS * ulp(top))
+                errs[name] = float((a.float() - b.float()).abs().max())
+            ok = fwd_ok and same and all(errs[n] <= lims[n]
+                                         for n in errs if n != "out")
+            rec["bwd_cases"].append(dict(case=label, route=r, errs=errs,
+                                         limits=lims, bitwise=same, ok=ok,
+                                         forced=forced is not None))
+            print(f"  flash_attention_bwd {label} ({r}"
+                  + (", forced" if forced else "") + "): max abs err "
+                  + ", ".join(f"{n} {errs[n]:.3g} (limit {lims[n]:.3g})"
+                              for n in errs)
+                  + ("; two calls bitwise equal" if same
+                     else "; TWO CALLS DIFFER"), flush=True)
+            if not ok:
+                raise AssertionError(f"flash_attention_bwd {label} ({r}): "
+                                     f"{errs} over the limits {lims}, or "
+                                     f"two calls differ ({not same})")
+            del got, again
+        del q, k, v, go, want
+
     def bwd_checks():
         for dt in (torch.float32, torch.bfloat16):
             for S, H, KV, dh, w, mla, causal, f32 in bwd_cases():
                 if dt == torch.float32 and not f32:
                     continue
-                g = torch.Generator(device=dev).manual_seed(
-                    H * 1000 + dh + w + S + (not causal))
-                q, go = (torch.randn((1, S, H, dh), generator=g, device=dev).to(dt)
-                         for _ in range(2))
-                k, v = (torch.randn((1, S, KV, dh), generator=g, device=dev).to(dt)
-                        for _ in range(2))
-                if mla:                 # v and out's gradient past 128 are zeros
-                    v[..., 128:] = 0
-                    go[..., 128:] = 0
-                fwd_ok, fwd_err, fwd_lim = attn_compare(
-                    flash_attention_fused(q, k, v, causal=causal, window=w,
-                                          round_p=False),
-                    flash_attention_ref(q, k, v, causal=causal, window=w,
-                                        round_p=False))
-                route = flash_bwd_route(q, k, v)
-                kernel = ("flash_attention_bwd_wgmma" if route == "wgmma"
-                          else "flash_attention_bwd")
-                if (dt == torch.bfloat16) != (route == "wgmma"):
-                    raise AssertionError(f"H={H} KV={KV} dh={dh} S={S} {dt} "
-                                         f"takes the {route} backward")
-                reset()
-                got = flash_attention_bwd(q, k, v, go, causal=causal, window=w)
-                again = flash_attention_bwd(q, k, v, go, causal=causal, window=w)
-                take(f"backward {route} S={S} H={H} KV={KV} dh={dh}", {kernel: 2},
-                     quiet=True)
-                want = flash_attention_bwd_ref(q, k, v, go, causal=causal,
-                                               window=w)
-                torch.cuda.synchronize()
-                errs, lims = {"out": fwd_err}, {"out": fwd_lim}
-                same = all(torch.equal(a, c) for a, c in zip(got, again))
-                for name, a, b in zip(("dq", "dk", "dv", "lse"), got, want):
-                    top = float(b.float().abs().max())
-                    lims[name] = (FLASH_BWD_LSE_REL * max(top, 1.0) if name == "lse"
-                                  else FLASH_BWD_F32_REL * top if dt == torch.float32
-                                  else FLASH_BWD_BF16_ULPS * ulp(top))
-                    errs[name] = float((a.float() - b.float()).abs().max())
-                label = (f"{str(dt)[6:]} B=1 S={S} H={H} KV={KV} dh={dh}"
-                         + ("" if causal else " full")
-                         + (f" window {w}" if w else "")
-                         + (" mla v 128->192" if mla else ""))
-                ok = fwd_ok and same and all(errs[n] <= lims[n]
-                                             for n in errs if n != "out")
-                rec["bwd_cases"].append(dict(case=label, route=route, errs=errs,
-                                             limits=lims, bitwise=same, ok=ok))
-                print(f"  flash_attention_bwd {label} ({route}): max abs err "
-                      + ", ".join(f"{n} {errs[n]:.3g} (limit {lims[n]:.3g})"
-                                  for n in errs)
-                      + ("; two calls bitwise equal" if same
-                         else "; TWO CALLS DIFFER"), flush=True)
-                if not ok:
-                    raise AssertionError(f"flash_attention_bwd {label} ({route}): "
-                                         f"{errs} over the limits {lims}, or "
-                                         f"two calls differ ({not same})")
-                del q, k, v, go, got, again, want
+                bwd_case(dt, S, H, KV, dh, w, mla, causal)
+        # peaked scores: q and k FLASH_BWD_PEAK times larger, float32 on
+        # the tensor cores at the trained length
+        for H, KV, dh in ((16, 2, 128), G6_HEADS):
+            bwd_case(torch.float32, LM_TRAIN_FULL_S, H, KV, dh, 0, False, True,
+                     peak=FLASH_BWD_PEAK)
         out = {}
         for route, kernel in (("simt", "flash_attention_bwd"),
                               ("wgmma", "flash_attention_bwd_wgmma")):
@@ -1897,6 +1969,8 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
         model, state = init_state(cfg, 0, device=dev)
         paths = [(p, len(ts)) for p, ts in _leaves(model).items()]
         fk, bk = fwd_kernel(cfg), bwd_kernel(cfg)
+        if bk != "flash_attention_bwd_wgmma":
+            raise AssertionError(f"the float32 twin takes the {bk} backward")
         reset()
         loss_k, gk = first_grads(model, data[0]["tokens"], False)
         take(f"{cfg.name} x{L} float32 first gradient", {fk: 2 * L, bk: L})
@@ -2024,13 +2098,17 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
                                 params=n, need_gib=need)]
         for arch, L, S, S_oom in LM_TRAIN_FAMILIES:
             rec["families"].append(family(arch, L, S, S_oom))
+        rec["families"].append(family(*LM_TRAIN_F32_DHP256, dtype="float32"))
 
-    def family(arch, L, S, S_oom) -> dict:
+    def family(arch, L, S, S_oom, dtype="bfloat16") -> dict:
+        """bfloat16: the tensor-core backward; float32 (DHP 256 only
+        here): the CUDA-core one."""
         cfg = dataclasses.replace(get_arch(arch).model, n_layers=L,
-                                  act_dtype="bfloat16")
+                                  act_dtype=dtype)
         fk, bk = fwd_kernel(cfg), bwd_kernel(cfg)
-        if bk != "flash_attention_bwd_wgmma":
-            raise AssertionError(f"{cfg.name} bf16 takes the {bk} backward")
+        if bk != ("flash_attention_bwd_wgmma" if dtype == "bfloat16"
+                  else "flash_attention_bwd"):
+            raise AssertionError(f"{cfg.name} {dtype} takes the {bk} backward")
         na, B, n = attention_layers(cfg), LM_TRAIN_FAMILY_BATCH, LM_TRAIN_FAMILY_STEPS
         Np = LM_TRAIN_PREFIX if cfg.modality == "vision_prefix" else 0
         while True:
@@ -2074,7 +2152,7 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
             gc.collect()
             torch.cuda.empty_cache()
             S = S_oom
-        label = (f"{cfg.name} x{L} bfloat16 (f32 masters) S={S}"
+        label = (f"{cfg.name} x{L} {dtype} (f32 masters) S={S}"
                  + (f" ({Np} prefix rows)" if Np else "") + f" B={B}, remat "
                  f"{cfg.remat_policy}")
         got = take(f"{label}: first gradient and {n} steps",
@@ -2091,17 +2169,25 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
               f"{r['tokens_per_s']:.0f} tokens/s, peak {r['peak_gib']:.2f} GiB",
               flush=True)
         if bad or not all(math.isfinite(x) for x in [loss0] + losses):
-            raise AssertionError(f"{cfg.name} bf16: non-finite gradients {bad[:5]} "
-                                 f"or losses {losses}")
+            raise AssertionError(f"{cfg.name} {dtype}: non-finite gradients "
+                                 f"{bad[:5]} or losses {losses}")
         return r
 
-    # 5. qwen2.5-3b at full width and depth
-    def full():
-        cfg = spec.model
+    # 5. qwen2.5-3b at every width: in float32 at LM_TRAIN_F32 layers, then
+    # in bfloat16 at full depth
+    def full_f32():
+        full("full_f32", dataclasses.replace(spec.model, n_layers=LM_TRAIN_F32,
+                                             act_dtype="float32"),
+             LM_TRAIN_F32_WARM, LM_TRAIN_F32_STEPS)
+
+    def full(key="full", cfg=None, warm=LM_TRAIN_FULL_WARM,
+             steps=LM_TRAIN_FULL_STEPS):
+        cfg = cfg or spec.model
         L = cfg.n_layers
+        dname = cfg.act_dtype
         fk, bk = fwd_kernel(cfg), bwd_kernel(cfg)
         if bk != "flash_attention_bwd_wgmma":
-            raise AssertionError(f"{cfg.name} bf16 takes the {bk} backward")
+            raise AssertionError(f"{cfg.name} {dname} takes the {bk} backward")
         S = LM_TRAIN_FULL_S
         while True:
             oom = None
@@ -2114,8 +2200,7 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
                       "with the model, masters and moments", flush=True)
                 step = make_train_step(model, OptConfig(),
                                        n_microbatches=LM_TRAIN_FULL_MB)
-                data = batches(cfg, LM_TRAIN_FULL_BATCH, S,
-                               LM_TRAIN_FULL_WARM + LM_TRAIN_FULL_STEPS + 1)
+                data = batches(cfg, LM_TRAIN_FULL_BATCH, S, warm + steps + 1)
                 full_steps = []
                 for i, b in enumerate(data[:-1]):
                     reset()
@@ -2125,13 +2210,13 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
                     sec = time.perf_counter() - t1
                     per = LM_TRAIN_FULL_MB * L
                     got = take(f"{cfg.name} step {i}", {fk: 2 * per, bk: per})
-                    row = dict(step=i, warm=i < LM_TRAIN_FULL_WARM, loss=loss,
+                    row = dict(step=i, warm=i < warm, loss=loss,
                                grad_norm=float(m["grad_norm"]), seconds=sec,
                                tokens_per_s=LM_TRAIN_FULL_BATCH * S / sec,
                                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                                launches=got)
                     full_steps.append(row)
-                    print(f"  {cfg.name} x{L} bf16 S={S} step {i}"
+                    print(f"  {cfg.name} x{L} {dname} S={S} step {i}"
                           + (" (warm-up)" if row["warm"] else "")
                           + f": loss {loss:.4f}, grad norm {row['grad_norm']:.3f}, "
                           f"{sec:.3f} s, {row['tokens_per_s']:.0f} tokens/s, peak "
@@ -2149,7 +2234,7 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
             # out of the handler, so that its frames no longer hold the tensors
             print(f"  {cfg.name} x{L} at S={S} does not fit the card ({oom}); "
                   f"S={LM_TRAIN_FULL_S_OOM}", flush=True)
-            rec["full_oom"] = dict(seq_len=S, error=oom)
+            rec[f"{key}_oom"] = dict(seq_len=S, error=oom)
             model = state = step = None
             gc.collect()
             torch.cuda.empty_cache()
@@ -2174,8 +2259,8 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
                   if "fa_tc_kernel" in name or "fa_kernel" in name) or float("nan")
         top = sorted(by.items(), key=lambda kv: -kv[1])[:6]
         timed = [r for r in full_steps if not r["warm"]]
-        rec["full"] = dict(
-            config=f"{cfg.name} x{L} bfloat16 (f32 masters) S={S} "
+        rec[key] = dict(
+            config=f"{cfg.name} x{L} {dname} (f32 masters) S={S} "
                    f"B={LM_TRAIN_FULL_BATCH} in {LM_TRAIN_FULL_MB} microbatches, "
                    f"remat {cfg.remat_policy}",
             seq_len=S, steps=full_steps,
@@ -2184,8 +2269,8 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
             peak_gib=max(r["peak_gib"] for r in full_steps),
             device_ms=total, flash_bwd_ms=bwd, flash_fwd_ms=fwd,
             top=[(name, ms) for name, ms in top])
-        r = rec["full"]
-        print(f"  {cfg.name} x{L} bf16 S={S}: a step {r['seconds']:.3f} s "
+        r = rec[key]
+        print(f"  {cfg.name} x{L} {dname} S={S}: a step {r['seconds']:.3f} s "
               f"(median of {len(timed)}), {r['tokens_per_s']:.0f} tokens/s, "
               f"peak {r['peak_gib']:.2f} GiB; traced step {total:.1f} ms on "
               f"the device ({'; '.join(f'{n[:40]} {ms:.1f}' for n, ms in top)}), "
@@ -2200,6 +2285,8 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
         L = LM_TRAIN_LAYERS
         f32 = dataclasses.replace(spec.model, act_dtype="float32")
         fk, bk = fwd_kernel(f32), bwd_kernel(f32)
+        if bk != "flash_attention_bwd_wgmma":
+            raise AssertionError(f"the float32 resume takes the {bk} backward")
         with tempfile.TemporaryDirectory(prefix="mafia-ckpt-") as d:
             print(f"  checkpoints under a temporary directory, "
                   f"{shutil.disk_usage(d).free / 2**30:.0f} GiB free", flush=True)
@@ -2238,7 +2325,7 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
 
     # each part in its own function: its tensors die when it returns
     checks = None
-    for part in (bwd_checks, twin, moe, families, full, resume):
+    for part in (bwd_checks, twin, moe, families, full_f32, full, resume):
         gc.collect()
         torch.cuda.empty_cache()
         print(f"  {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
@@ -2286,10 +2373,12 @@ def main() -> int:
                                                         get_program)
         from repro_torch.configs.registry import SHAPES, get_arch
         from repro_torch.kernels.decode_attention import decode_attention
-        from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+        from repro_torch.kernels.flash_attention import (bwd_kernel_facts,
+                                                         flash_attention_bwd,
                                                          flash_attention_fused,
                                                          flash_bwd_route,
-                                                         flash_route)
+                                                         flash_route,
+                                                         plan_flash_bwd)
         from repro_torch.kernels.ref import (decode_attention_ref,
                                              flash_attention_bwd_ref,
                                              flash_attention_ref)
@@ -2705,6 +2794,15 @@ def main() -> int:
             flash_shapes += [(1, S, S) + SHARED_HEADS + (True,) for S in (100, 1024)]
             flash_shapes += [(1, 1024, 1024) + heads + (True, PROBE_WINDOW)
                              for heads in (SHARED_HEADS, (16, 2, 128))]
+            # internvl2's G 6 at both trained lengths, causal (1,024 is in
+            # NEW_HEADS), full and with a window; G 3 and G 5 at dh 64
+            flash_shapes += [(1, S, S) + G6_HEADS + (causal, w)
+                             for S in (1024, 4096)
+                             for causal, w in ((True, 0), (False, 0),
+                                               (True, PROBE_WINDOW))
+                             if (S, causal, w) != (1024, True, 0)]
+            flash_shapes += [(1, 300, 300, 6, 2, 64, True),
+                             (1, 257, 257, 10, 2, 64, False)]
             cases = []
             for B, Sq, Sk, H, KV, dh, causal, *win in flash_shapes:
                 w = win[0] if win else 0
@@ -2727,6 +2825,11 @@ def main() -> int:
                           "zero-padded", qm, km, vm, True, 0))
             for label, q, k, v, causal, w in cases:
                 route = flash_route(q, k, v)
+                # bfloat16 at a G that does not divide 128 (internvl2's 6,
+                # 3, 5) must take the tensor cores' whole-token row tiles
+                if (dt == torch.bfloat16 and (q.shape[2] // k.shape[2]) in (3, 5, 6)
+                        and route != "wgmma"):
+                    raise AssertionError(f"{dname} {label}: flash_route {route}")
                 kname = ("flash_attention_wgmma" if route == "wgmma"
                          else "flash_attention")
                 for rp in (False, True):
@@ -2968,14 +3071,18 @@ def main() -> int:
         steps, decode_s = snap["batches"], snap["device_s"]
         L = attention_layers(cfg)
         # bf16 prefills run on the tensor cores where flash_route takes the
-        # heads (not internvl2's G = 6), float32 on the CUDA cores; MLA's
-        # decode is plain PyTorch (no decode kernel takes it)
+        # heads (every served head, internvl2's G 6 included: its engine
+        # launches flash_attention 0 times), float32 on the CUDA cores;
+        # MLA's decode is plain PyTorch (no decode kernel takes it)
         H, KV, dh = flash_heads(cfg)
         probe = [torch.empty((1, 1, h, dh), dtype=cfg.adt, device=dev)
                  for h in (H, KV, KV)] if L else None
         flash, other = (("flash_attention_wgmma", "flash_attention")
                         if L and flash_route(*probe) == "wgmma"
                         else ("flash_attention", "flash_attention_wgmma"))
+        if (H, KV, dh) == G6_HEADS and cfg.adt == torch.bfloat16 \
+                and flash != "flash_attention_wgmma":
+            raise AssertionError(f"{label}: G 6 prefill on {flash}")
         want_decode = 0 if cfg.use_mla else L * steps
         print(f"  {label}: {len(done)} requests, {steps} decode steps, "
               f"launches {got} (expected {flash} {L} x {len(done)}, {other} "
@@ -3608,7 +3715,7 @@ def main() -> int:
         checks.update(bwd_checks)
     except AssertionError as e:
         return fail("lm-train", str(e))
-    full = train_rec["full"]
+    full, f32 = train_rec["full"], train_rec["full_f32"]
     n_tc = sum(c["route"] == "wgmma" for c in train_rec["bwd_cases"])
     phase("lm-train", t, f"{len(train_rec['bwd_cases'])} forward and backward "
           f"cases ({n_tc} of them on the tensor-core backward) within "
@@ -3618,9 +3725,11 @@ def main() -> int:
           + "".join(f"{r['config']}: {r['seconds']:.3f} s a step, "
                     f"{r['tokens_per_s']:.0f} tokens/s, peak {r['peak_gib']:.2f} "
                     "GiB; " for r in train_rec["families"] if r["trained"])
-          + f"{full['config']}: "
-          f"{full['seconds']:.3f} s a step, {full['tokens_per_s']:.0f} tokens/s, "
-          f"peak {full['peak_gib']:.2f} GiB; resume bitwise; launches "
+          + "".join(f"{r['config']}: {r['seconds']:.3f} s a step, "
+                    f"{r['tokens_per_s']:.0f} tokens/s, peak {r['peak_gib']:.2f} "
+                    f"GiB, flash backward {r['flash_bwd_ms'] / r['device_ms']:.1%} "
+                    "of a traced step; " for r in (f32, full))
+          + "resume bitwise; launches "
           f"{train_launches}")
 
     # ----------------------------------------------------------- 11. report
@@ -3883,7 +3992,13 @@ def main() -> int:
     # printed beside it)
     rows["flash_attention_bwd"], rows["flash_attention_bwd_wgmma"] = [], []
 
-    def bwd_row(S, H, KV, dh, dt, mla=False):
+    def bwd_issued(dh):
+        """Products the float32 tensor-core kernels issue for each of the
+        five, as the library states them."""
+        f = bwd_kernel_facts(dh, torch.float32)
+        return f["dq_products"] + f["dkdv_products"]
+
+    def bwd_row(S, H, KV, dh, dt, mla=False, simt_only=False):
         gen = torch.Generator(device=dev).manual_seed(S + H + dh)
         q, go = (torch.randn((1, S, H, dh), generator=gen, device=dev).to(dt)
                  for _ in range(2))
@@ -3905,13 +4020,21 @@ def main() -> int:
         # kernels (ROADMAP Queue C item 8)
         shape = (f"{str(dt)[6:]} B=1 S={S} H={H} KV={KV} dh={dh} causal"
                  + (" mla v 128->192" if mla else ""))
-        # bfloat16 on the route the call takes (checked), then forced onto
-        # the CUDA cores
+        # on the route the call takes (checked: the tensor cores), then
+        # forced onto the CUDA cores
         routes = ((flash_bwd_route(q, k, v),)
                   + (("simt",) if (H, KV, dh) == (16, 2, 128) or S == FLASH_BWD_S
-                     else ())) if dt == torch.bfloat16 else ("simt",)
-        if routes[0] != ("wgmma" if dt == torch.bfloat16 else "simt"):
+                     or dt == torch.float32 else ()))
+        if simt_only:                   # float32 at DHP 256: the CUDA cores
+            routes = routes[:1]
+        if routes[0] != ("simt" if simt_only else "wgmma"):
             raise AssertionError(f"flash_attention_bwd {shape}: {routes[0]}")
+        if not simt_only:               # the plan's bytes are the kernels' own
+            plan, facts = plan_flash_bwd(1, S, S, H, KV, dh, dtype=dt), bwd_kernel_facts(dh, dt)
+            if (plan.dq_smem, plan.dkdv_smem) != (facts["dq_smem"], facts["dkdv_smem"]):
+                raise AssertionError(f"flash_attention_bwd {shape}: plan's shared "
+                                     f"memory {plan.dq_smem}, {plan.dkdv_smem}; "
+                                     f"the kernels' {facts}")
         k_ms = {r: median_ms(lambda r=r: flash_attention_bwd(
             q, k, v, go, route="simt" if r == "simt" else None), 5)
             for r in routes}
@@ -3919,29 +4042,66 @@ def main() -> int:
         lib_ms = median_ms(lambda: torch.autograd.grad(
             out, (qs, ks, vs), gs, retain_graph=True), 5)
         both_ms = median_ms(lambda: torch.autograd.grad(sdpa(), (qs, ks, vs), gs), 5)
-        b_ms, b_by = work_bound(*flash_bwd_work(1, S, H, KV, dh, q.element_size()),
-                                str(dt)[6:])
+        nbytes, ops = flash_bwd_work(1, S, H, KV, dh, q.element_size())
+        b_ms, b_by = work_bound(nbytes, ops, str(dt)[6:])
+        # float32 on the tensor cores: each of the five products as the
+        # fewest 16-bit products that meet the float32 limits
+        # (FLASH_BWD_F32_MIN_PRODUCTS) at the 16-bit peak, the float32
+        # bytes; beside it the 16-bit bound of the products the kernels issue
+        tc_ms = tc_by = issued_ms = None
+        if dt == torch.float32 and routes[0] == "wgmma":
+            tc_ms, tc_by = work_bound(nbytes, ops * FLASH_BWD_F32_MIN_PRODUCTS,
+                                      "bfloat16")
+            issued_ms = work_bound(nbytes, ops * bwd_issued(dh) / 5, "bfloat16")[0]
         print(f"  flash_attention_bwd {shape}: "
               + ", ".join(f"{r} kernels {k_ms[r]:.5f} ms a call" for r in routes)
               + f" (events), plain {p_ms:.5f} ms, SDPA backward {lib_ms:.5f} "
               f"ms (forward and backward {both_ms:.5f} ms), bound "
-              f"{b_ms:.7f} ms ({b_by})", flush=True)
+              f"{b_ms:.7f} ms ({b_by})"
+              + ("" if tc_ms is None else f"; on the tensor cores "
+                 f"{FLASH_BWD_F32_MIN_PRODUCTS} x 5 16-bit products "
+                 f"{tc_ms:.7f} ms ({tc_by}), the {bwd_issued(dh)} issued "
+                 f"{issued_ms:.7f} ms"),
+              flush=True)
         for r in routes:
             name = "flash_attention_bwd" + ("_wgmma" if r == "wgmma" else "")
+            tc = r == "wgmma" and tc_ms is not None
             rows[name].append(dict(
                 shape=shape, ms=k_ms[r], timer="events", call_ms=k_ms[r],
                 plain_ms=p_ms, library_ms=lib_ms, library_fwd_bwd_ms=both_ms,
-                bound_ms=b_ms, bound_by=b_by))
+                bound_ms=tc_ms if tc else b_ms, bound_by=tc_by if tc else b_by,
+                fp32_bound_ms=b_ms if tc else None,
+                issued_bound_ms=issued_ms if tc else None))
 
     try:
         for S in (full["seq_len"], FLASH_BWD_S):
             for dt in (torch.bfloat16, torch.float32):
                 bwd_row(S, 16, 2, 128, dt)
-        for H, KV, dh in ((128, 128, 192), SHARED_HEADS, (48, 8, 128)):
+        for H, KV, dh in ((128, 128, 192), SHARED_HEADS, G6_HEADS):
             for S in (LM_TRAIN_FULL_S, FLASH_BWD_S):
-                bwd_row(S, H, KV, dh, torch.bfloat16, mla=dh == 192)
+                for dt in ((torch.bfloat16, torch.float32) if dh == 128
+                           else (torch.bfloat16,)):
+                    bwd_row(S, H, KV, dh, dt, mla=dh == 192)
+            if dh > 128:                # float32 at DHP 256: fb_*'s main path
+                bwd_row(FLASH_BWD_S, H, KV, dh, torch.float32, mla=dh == 192,
+                        simt_only=True)
     except AssertionError as e:
         return fail("report", str(e))
+    # internvl2's G 6 forward at its trained length, bfloat16, p in fp32
+    # (its training forward), beside masked SDPA
+    S = LM_TRAIN_FULL_S
+    q = rnd((1, S) + G6_HEADS[:1] + G6_HEADS[2:], torch.bfloat16)
+    k, v = (rnd((1, S) + G6_HEADS[1:], torch.bfloat16) for _ in range(2))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    rows["flash_attention_wgmma"].append(row(
+        "flash_attention_wgmma", f"bfloat16 B=1 Sq=Sk={S} H={G6_HEADS[0]} "
+        f"KV={G6_HEADS[1]} dh={G6_HEADS[2]} causal p fp32",
+        lambda: flash_attention_fused(q, k, v, round_p=False),
+        lambda: flash_attention_ref(q, k, v, round_p=False),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               enable_gqa=True), 10,
+        flash_work(1, S, S, *G6_HEADS, 2, True), "bfloat16"))
+    del q, k, v, qt, kt, vt
     for r in lm_runs:
         if "decode_step_device_ms" not in r:
             continue
@@ -4003,7 +4163,9 @@ def main() -> int:
              lambda r: r["shape"].startswith("bfloat16")),
             ("flash_attention_bwd", "flash_attention.cu",
              "models/attention.py:70",
-             lambda r: r["shape"].startswith(f"float32 B=1 S={FLASH_BWD_S}")),
+             lambda r: r["shape"].startswith(
+                 f"float32 B=1 S={FLASH_BWD_S} H={SHARED_HEADS[0]} "
+                 f"KV={SHARED_HEADS[1]} dh={SHARED_HEADS[2]}")),
             ("flash_attention_bwd_wgmma", "flash_attention.cu",
              "models/attention.py:70",
              lambda r: r["shape"].startswith(f"bfloat16 B=1 S={full['seq_len']}"))):

@@ -1,5 +1,6 @@
 // Fused flash attention forward (GQA, causal or full) for Hopper (sm_90a),
-// and its backward for training (fb_dq_kernel, fb_dkdv_kernel: at the end).
+// and its backward for training (fb_dq_kernel, fb_dkdv_kernel and the
+// tensor-core fbt_* kernels: at the end).
 //
 // Replaces the TPU kernel `_kernel` of src/repro/kernels/flash_attention.py
 // (:39), launched by `flash_attention_fused` (:80, pallas_call at :118):
@@ -18,22 +19,28 @@
 // from the dtype and the shapes:
 //
 // fa_tc_kernel, bfloat16 on the tensor cores (dh a multiple of 8 up to 256,
-// G dividing 128, 16-byte-aligned bases and strides):
-//   * One block per (b * KV + kv head, tile of 128 q rows), the heaviest
-//     causal tiles first: two consumer warpgroups of 64 rows and one
-//     producer warpgroup (registers moved to the consumers by setmaxnreg).
+// G up to 64, or 128; 16-byte-aligned bases and strides):
+//   * One block per (b * KV + kv head, pair of row tiles), the heaviest
+//     causal pairs first: two consumer warpgroups of one row tile each and
+//     one producer warpgroup (registers moved to the consumers by
+//     setmaxnreg).  A row tile is a wgmma's 64 row slots holding a.rt =
+//     G * floor(64 / G) (token, g) rows of whole tokens (60 at internvl2's
+//     G 6: 10 tokens, 4 slots empty), or at G 128 half a token; the empty
+//     slots are zeroed once and never written.
 //   * The producer's TMA loads read q, k and v in the model's own strided
-//     layout through 4-D tensor maps (dh, head, token, batch): the q tile
-//     once (its box of G heads x 128 / G tokens gives the (token, g) rows in
-//     order), then keys and values in a ring of 2 stages of 64 keys, each
-//     completed on an mbarrier and handed back on another.  dh is padded
-//     to 64, 128 or 256 in shared memory by TMA's zero fill.
+//     layout through 4-D tensor maps (dh, head, token, batch): the q rows
+//     once (where G divides 128 one box of G heads x 128 / G tokens, the
+//     block's 128 rows in order; else a box of G heads x floor(64 / G)
+//     tokens a row tile), then keys and values in a ring of 2 stages of 64
+//     keys, each completed on an mbarrier and handed back on another.  dh
+//     is padded to 64, 128 or 256 in shared memory by TMA's zero fill.
 //   * S = Q.K^T by wgmma from shared memory into fp32 registers.  The
 //     unscaled bf16 q goes into the product and the fp32 scores are scaled
 //     after it (rounding a scaled q to bf16 would change the inputs); against
 //     the plain version, which scales q in fp32 first, this moves the result
 //     by fp32 rounding only.
-//   * Masking on token positions (row / G), only in the tiles that cross
+//   * Masking on token positions (row / G, a row being its tile's first
+//     row plus its slot), only in the tiles that cross
 //     the diagonal or the end of the keys, then the online softmax in
 //     registers, in base 2 (exp2f of the scores times scale * log2(e), one
 //     FMA before each exp2f; the same function as expf of the scaled
@@ -53,7 +60,7 @@
 //
 // fa_kernel, on the CUDA cores: float32 (the tensor cores would mean TF32,
 // which the port's parity contract forbids) and the bf16 shapes the tensor
-// cores cannot take (G not dividing 128, unaligned views, dh > 256).
+// cores cannot take (G 65..127 or above 128, unaligned views, dh > 256).
 // Redesigned for this card; what bounded the first version was shared
 // memory, not the FMAs (scalar 4-byte loads, 8 for 16 FMAs), one 8-warp
 // block per SM over two waves, and three barriers per key tile.
@@ -96,6 +103,7 @@
 
 #include "attention.cuh"
 #include "hopper.cuh"
+#include <cuda_fp16.h>
 
 #define FA_THREADS 256
 #define FA_ROWS 64          // (token, g) rows of a tile, 4 per thread
@@ -461,6 +469,7 @@ struct FtShape {
 struct FtArgs {
   __nv_bfloat16* o;
   int B, Sq, Sk, H, KV, dh;
+  int rt;                // rows of a row tile: whole tokens, or half of one
   float scale;
   int causal, window;
 };
@@ -482,11 +491,11 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap mq,
   uint64_t* empty = full + FT_STAGES;
 
   const int tid = threadIdx.x, wg = tid / 128;
-  const int G = a.H / a.KV;
+  const int G = a.H / a.KV, RT = a.rt;
   const int b = blockIdx.y / a.KV, kvh = blockIdx.y % a.KV;
-  const int r0 = (gridDim.x - 1 - blockIdx.x) * FT_BM;
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * 2 * RT;   // the block's first row
   const int nrows = a.Sq * G;
-  const int last_row = min(r0 + FT_BM, nrows) - 1;
+  const int last_row = min(r0 + 2 * RT, nrows) - 1;
   const int kend = a.causal ? min(a.Sk, last_row / G + 1) : a.Sk;
   const int nt = (kend + FT_BK - 1) / FT_BK;
   // the first key tile inside the window of the block's first row
@@ -499,16 +508,35 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap mq,
     }
     hp_bar_init_fence();
   }
+  if (RT < 64) {                          // the empty slots of both row tiles
+    const int dead = 64 - RT, n16 = 2 * (DHP / 64) * dead * 8;
+    for (int i = tid; i < n16; i += FT_THREADS) {
+      const int u = i % 8, r = (i / 8) % dead, c = i / (8 * dead);
+      *reinterpret_cast<uint4*>(Qs + c * 64 * 128 + (RT + r) * 128 + u * 16) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+    hp_fence_async_smem();
+  }
   __syncthreads();
 
   if (wg == 2) {
     // ----------------------------------------------------- producer
     hp_regs_dec<40>();
     if (tid != 256) return;
-    hp_bar_expect_tx(q_full, S::Q_BYTES);
+    if (RT == 64) {                       // G divides 128: one box of 128 rows
+      hp_bar_expect_tx(q_full, S::Q_BYTES);
 #pragma unroll
-    for (int c = 0; c < DHP / 64; ++c)
-      hp_tma_4d(Qs + c * FT_BM * 128, &mq, q_full, c * 64, kvh * G, r0 / G, b);
+      for (int c = 0; c < DHP / 64; ++c)
+        hp_tma_4d(Qs + c * FT_BM * 128, &mq, q_full, c * 64, kvh * G, r0 / G, b);
+    } else {                              // a box of whole tokens a row tile
+      hp_bar_expect_tx(q_full, 2 * (DHP / 64) * RT * 128);
+#pragma unroll
+      for (int c = 0; c < DHP / 64; ++c)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          hp_tma_4d(Qs + c * FT_BM * 128 + h * 64 * 128, &mq, q_full, c * 64,
+                    kvh * G, (r0 + h * RT) / G, b);
+    }
     for (int j = j0; j < nt; ++j) {
       const int s = (j - j0) % FT_STAGES;
       if (j - j0 >= FT_STAGES)
@@ -526,10 +554,11 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap mq,
     // ---------------------------------------------------- consumers
     hp_regs_inc<232>();
     const int warp = (tid % 128) / 32, lane = tid % 32;
-    const int rl = wg * 64 + warp * 16 + lane / 4;    // rows rl and rl + 8
-    const int tok[2] = {(r0 + rl) / G, (r0 + rl + 8) / G};
-    const int tok_lo = (r0 + wg * 64) / G;            // this warpgroup's first
-    const int tok_hi = (r0 + wg * 64 + 63) / G;       // and last token
+    const int sl = warp * 16 + lane / 4;              // slots sl and sl + 8
+    const int rw = r0 + wg * RT;                      // this row tile's first row
+    const int tok[2] = {(rw + sl) / G, (rw + sl + 8) / G};
+    const int tok_lo = rw / G;                        // this row tile's first
+    const int tok_hi = (rw + RT - 1) / G;             // and last token
     const float sl2 = a.scale * 1.4426950408889634f;  // scale * log2(e)
     float o[NO];
 #pragma unroll
@@ -641,8 +670,8 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap mq,
     // ------------------------------------------------------ epilogue
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int row = r0 + rl + 8 * h;
-      if (row >= nrows) continue;
+      const int row = rw + sl + 8 * h;
+      if (sl + 8 * h >= RT || row >= nrows) continue;
       const int t = row / G, g = row % G;
       const float l = fmaxf(lrow[h], 1e-30f);
       __nv_bfloat16* dst =
@@ -666,7 +695,8 @@ static int fa_tc_run(const FtArgs& a, const CUtensorMap& mq,
   const int smem = FtShape<DHP>::SMEM;
   const int e = hp_grant_smem((const void*)fa_tc_kernel<DHP, RP>, smem, granted);
   if (e) return e;
-  dim3 grid((a.Sq * (a.H / a.KV) + FT_BM - 1) / FT_BM, a.B * a.KV);
+  const long long ntile = ((long long)a.Sq * (a.H / a.KV) + a.rt - 1) / a.rt;
+  dim3 grid((unsigned)((ntile + 1) / 2), a.B * a.KV);
   if (grid.y > 65535) return (int)cudaErrorInvalidValue;
   fa_tc_kernel<DHP, RP><<<grid, FT_THREADS, smem, s>>>(mq, mk, mv, a);
   return (int)cudaGetLastError();
@@ -686,7 +716,8 @@ static int fa_tc_map(CUtensorMap* m, const void* base, int B, int S, int heads,
 }
 
 // bfloat16 q, k, v and out; strides in elements, every one a multiple of 8
-// and every base 16-byte aligned; dh a multiple of 8 up to 256; 128 % G == 0;
+// and every base 16-byte aligned; dh a multiple of 8 up to 256; G up to 64,
+// or 128;
 // round_p 0 or not (1 and 2 alike: v is bfloat16); window as fa_launch's.
 // Returns cudaGetLastError() after the launch (0 = launched), or the error
 // of a refused grant or tensor-map encoding.
@@ -702,13 +733,17 @@ extern "C" int fa_tc_launch(const void* q, const void* k, const void* v, void* o
       window < 0 || (window > 0 && !causal))
     return (int)cudaErrorInvalidValue;
   const int G = H / KV;
-  if (FT_BM % G != 0) return (int)cudaErrorInvalidValue;
+  // a row tile: the whole tokens of 64 slots, or at G 128 half a token
+  const int rt = G <= 64 ? G * (64 / G) : G == 128 ? 64 : 0;
+  if (rt == 0) return (int)cudaErrorInvalidValue;
   CUtensorMap mq{}, mk{}, mv{};
   int e;
-  if ((e = fa_tc_map(&mq, q, B, Sq, H, dh, qsb, qss, qsh, G, FT_BM / G))) return e;
+  // where G divides 128 one box holds both row tiles, else one a box
+  const int bq = FT_BM % G == 0 ? FT_BM / G : 64 / G;
+  if ((e = fa_tc_map(&mq, q, B, Sq, H, dh, qsb, qss, qsh, G, bq))) return e;
   if ((e = fa_tc_map(&mk, k, B, Sk, KV, dh, ksb, kss, ksh, 1, FT_BK))) return e;
   if ((e = fa_tc_map(&mv, v, B, Sk, KV, dh, vsb, vss, vsh, 1, FT_BK))) return e;
-  FtArgs a{(__nv_bfloat16*)o, B, Sq, Sk, H, KV, dh, scale, causal, window};
+  FtArgs a{(__nv_bfloat16*)o, B, Sq, Sk, H, KV, dh, rt, scale, causal, window};
   cudaStream_t s = (cudaStream_t)stream;
   if (dh <= 64)
     return round_p ? fa_tc_run<64, 1>(a, mq, mk, mv, s) : fa_tc_run<64, 0>(a, mq, mk, mv, s);
@@ -1208,14 +1243,15 @@ extern "C" int fb_launch(const void* q, const void* k, const void* v,
   return dtype == 0 ? fb_dispatch<float>(a, s) : fb_dispatch<__nv_bfloat16>(a, s);
 }
 
-// ------------------------------------- backward, bf16 on the tensor cores
+// ----------------------------------------- backward on the tensor cores
 //
-// fbt_dq_kernel, then fbt_dkdv_kernel (fbt_dkdv2_kernel at DHP 256): the
-// same gradient as fb_dq_kernel and fb_dkdv_kernel (fp32 p, the model's own
-// attention) for bfloat16 q, k,
-// v and g, dq, dk and dv in bfloat16, lse (B, H, Sq) fp32; causal, full or
-// causal with a window, masked as fa_tc_kernel masks; dh a multiple of 8 up
-// to 256 (padded to DHP 64, 128 or 256), G = H / KV up to 64, or 128.  They
+// fbt_dq_kernel, then fbt_dkdv_kernel (fbt_dkdv2_kernel where DHP x NI is
+// above 128): the same gradient as fb_dq_kernel and fb_dkdv_kernel (fp32 p,
+// the model's own attention) for bfloat16 q, k, v and g (NI = 1) or
+// float32 (NI = 2, point 2), dq, dk and dv in that dtype, lse (B, H, Sq)
+// fp32; causal, full or causal with a window, masked as fa_tc_kernel masks;
+// dh a multiple of 8 up to 256 (float32: 128; padded to DHP 64, 128 or
+// 256), G = H / KV up to 64, or 128.  They
 // replace no TPU kernel: the reference's gradient is XLA's autodiff of
 // src/repro/models/attention.py:70 `flash_attention`, and the Pallas
 // `_kernel` has no backward.  Deterministic: no atomics on floats; every
@@ -1266,7 +1302,29 @@ extern "C" int fb_launch(const void* q, const void* k, const void* v,
 //      fa_tc_kernel splits p: three terms carry all 24 bits, so the products
 //      that take p or ds keep the plain version's fp32 operands.  7 products
 //      in dq and 8 in dkdv against the bound's 5: the price of fp32
-//      fidelity, still on the tensor cores.
+//      fidelity, still on the tensor cores.  Float32 inputs (no TF32):
+//      fbs_split_kernel first copies q, g, k and v as NI = 2 fp16 terms of
+//      the input scaled by a power of two 2^s (its largest magnitude into
+//      [2^13, 2^14): fp16's range is narrow), hi = fp16(2^s x) and mid =
+//      fp16(2^s x - hi) (22 bits), into a [2][B][S][heads][dh] block the
+//      tensor maps read as batch b + t B; p and ds take NT = 2 fp16 terms
+//      too, each row scaled by its own power of two (fbt_terms16), and
+//      every product keeps the pairs hi.hi, hi.mid and mid.hi on fp16
+//      wgmma (fbt_ss_terms, fbt_accum), its sum times the inverse powers:
+//      15 products in dq and 12 in dkdv.  Two bf16 terms (16 bits) held
+//      unit-scale inputs but not peaked scores (q and k five times larger:
+//      dq 1.9x its limit), three bf16 terms of q and k do not fit the
+//      shared memory; two fp16 terms hold every gradient within 1e-4 of its
+//      largest magnitude and lse within 1e-5 at either scale (one term of
+//      any operand does not: tests/test_torch_flash_f32tc.py) once each row
+//      tile's (dq: each key stage's) products are summed apart and added to
+//      the running sum with rounding (fbt_accum); the terms are copied
+//      once in device memory because fp32 landing tiles beside the terms
+//      do not fit a block's shared memory (the dq block's two terms of
+//      128 rows of q and g alone take 128 KB).  A float32 head's tiles
+//      weigh as a bfloat16 head of twice the width, so DHP 128 runs the
+//      DHP 256 geometry (32-key dq stages, fbt_dkdv2_kernel), and DHP 256
+//      stays on fb_*.
 //   3. Registers: a consumer has 232.  fbt_dkdv_kernel (DHP <= 128: one
 //      consumer warpgroup, two blocks an SM): dK and dV 64 + 64, S^T and
 //      dP^T 32 + 32, the terms 48 exceed them at once; so P^T's terms go
@@ -1291,9 +1349,9 @@ extern "C" int fb_launch(const void* q, const void* k, const void* v,
 //      writes fp32 partial dk and dv to scratch, and the last piece of a key
 //      tile to arrive (an integer counter) sums all of them in piece order
 //      and rounds once: the sum's order never depends on arrival.
-// float32 stays on the CUDA cores (the tensor cores would mean TF32 or
-// split operands on both sides), and so do G 65..127 and above 128 (a row
-// tile holds neither whole tokens nor a whole part of one).
+// float32 at DHP 256 stays on the CUDA cores (point 2), and so do G 65..127
+// and above 128 (a row tile holds neither whole tokens nor a whole part of
+// one).
 
 #define FBT_BM 128         // dq kernel: row slots a block (two row tiles)
 #define FBT_BK 64          // keys a dkdv block
@@ -1304,7 +1362,7 @@ extern "C" int fb_launch(const void* q, const void* k, const void* v,
 #define FBT_LN2 0.6931471805599453f
 
 struct FbtArgs {
-  __nv_bfloat16* dq; __nv_bfloat16* dk; __nv_bfloat16* dv;
+  void* dq; void* dk; void* dv;    // bfloat16 (NI 1) or float32 (NI 2)
   float* lse;            // (B, H, Sq): natural log-sum-exp of each row
   float* stats;          // [2][B * KV][rows_pad]: base-2 lse, then D, by slot
   float* part;           // [B * KV * key tiles * pieces][DHP * 128]: registers
@@ -1314,24 +1372,29 @@ struct FbtArgs {
   int rt;                // rows of a row tile: whole tokens, or half of one
   float scale;
   int causal, window;
+  // float32: the largest magnitudes of q, g, k and v (their bits), whose
+  // powers of two scaled the inputs' fp16 terms (fbs_split_kernel)
+  const unsigned* amax;
 };
 
-template <int DHP>
+// NI: 16-bit terms of each of q, k, v and g, 1 (bfloat16) or 2 (float32: fp16);
+// every tile below holds one term, the NI terms of an operand side by side.
+template <int DHP, int NI = 1>
 struct FbtQShape {
-  static constexpr int BK = DHP > 128 ? 32 : 64;       // keys a stage
+  static constexpr int BK = DHP * NI > 128 ? 32 : 64;  // keys a stage
   static constexpr int ROW_BYTES = FBT_BM * DHP * 2;   // the q or g tile
   static constexpr int KV_BYTES = BK * DHP * 2;        // a k or v stage
-  static constexpr int BARS = 2 * ROW_BYTES + FBT_STAGES * 2 * KV_BYTES;
+  static constexpr int BARS = NI * (2 * ROW_BYTES + FBT_STAGES * 2 * KV_BYTES);
   static constexpr int SMEM = BARS + (1 + 2 * FBT_STAGES) * 8 + 1024;
 };
 
-template <int DHP>
+template <int DHP, int NI = 1>
 struct FbtKShape {
-  static constexpr int WG = DHP > 128 ? 2 : 1;         // consumer warpgroups
+  static constexpr int WG = DHP * NI > 128 ? 2 : 1;    // consumer warpgroups
   static constexpr int THREADS = 128 * (WG + 1);
   static constexpr int KV_BYTES = FBT_BK * DHP * 2;    // the block's k or v
   static constexpr int ROW_BYTES = FBT_RM * DHP * 2;   // a stage's q or g rows
-  static constexpr int PT = 2 * KV_BYTES + FBT_STAGES * 2 * ROW_BYTES;
+  static constexpr int PT = NI * (2 * KV_BYTES + FBT_STAGES * 2 * ROW_BYTES);
   static constexpr int STATS = PT + (WG - 1) * 32 * 128 * 4;   // WG 2: P^T
   static constexpr int BARS = STATS + FBT_STAGES * 2 * FBT_RM * 4;
   static constexpr int SMEM = BARS + (1 + 2 * FBT_STAGES) * 8 + 16 + 1024;
@@ -1358,71 +1421,206 @@ __device__ __forceinline__ void fbt_terms(uint32_t (&a)[NT][KS][4],
     }
 }
 
+// The float32 route's scales: the power 2^s that brings a largest
+// magnitude m into [2^13, 2^14) (s at most 126, so that 2^-s is normal),
+// and 2^s itself.
+__device__ __forceinline__ int fbt_pow2(float m) {
+  return min(13 - ((int)((__float_as_uint(m) >> 23) & 0xff) - 127), 126);
+}
+__device__ __forceinline__ float fbt_exp2i(int s) {
+  return __uint_as_float((unsigned)(s + 127) << 23);
+}
+
+// fbt_terms on the float32 route: each row of the fragment x times 2^s of
+// its largest magnitude (over the quad that holds the row), in NT fp16
+// terms; inv[h] = 2^-s of row half h.
+template <int NT, int KS>
+__device__ __forceinline__ void fbt_terms16(uint32_t (&a)[NT][KS][4],
+                                            const float (&x)[8 * KS],
+                                            float (&inv)[2]) {
+  float m[2] = {0.0f, 0.0f}, c[2];
+#pragma unroll
+  for (int i = 0; i < 8 * KS; ++i) m[(i / 2) % 2] = fmaxf(m[(i / 2) % 2], fabsf(x[i]));
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 1));
+    m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 2));
+    const int e = fbt_pow2(m[h]);
+    c[h] = fbt_exp2i(e);
+    inv[h] = fbt_exp2i(-e);
+  }
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      float x0 = x[8 * kk + 2 * r] * c[r % 2], x1 = x[8 * kk + 2 * r + 1] * c[r % 2];
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        const __half2 b = __floats2half2_rn(x0, x1);
+        a[t][kk][r] = *reinterpret_cast<const uint32_t*>(&b);
+        x0 -= __low2float(b);
+        x1 -= __high2float(b);
+      }
+    }
+}
+
 // d (64 x N) += sum over the terms of a (64 x 16 KS) . B, B a tile of 16 KS
 // rows read MN-major (its rows are the contraction index; the next 64 of
-// its N columns `lbo` bytes on).
-template <int N, int NT, int KS>
-__device__ __forceinline__ void fbt_accum(float (&d)[N / 2],
-                                          const uint32_t (&a)[NT][KS][4],
-                                          const uint8_t* tile, int lbo) {
+// its N columns `lbo` bytes on).  With NI terms of B (`bt` bytes apart), the
+// pairs (a's t, B's j) with t + j < max(NT, NI): NI 1, every term of a;
+// NT = NI = 2, hi.hi, hi.mid and mid.hi.
+template <int N, int NT, int KS, int NI>
+__device__ __forceinline__ void fbt_rs_terms(float (&d)[N / 2],
+                                             const uint32_t (&a)[NT][KS][4],
+                                             const uint8_t* tile, int lbo,
+                                             int bt) {
+  constexpr int ORDER = NT > NI ? NT : NI;
   hp_fence_regs(d);
   hp_wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk) {
-    const uint64_t db = hp_desc(tile + kk * 2048, lbo, 1024);
 #pragma unroll
-    for (int t = 0; t < NT; ++t) hp_wgmma_rs<N, 1>(d, a[t][kk], db, 1);
+    for (int j = 0; j < NI; ++j) {
+      const uint64_t db = hp_desc(tile + j * bt + kk * 2048, lbo, 1024);
+#pragma unroll
+      for (int t = 0; t + j < ORDER && t < NT; ++t)
+        hp_wgmma_rs<N, 1, NI == 2>(d, a[t][kk], db, 1);
+    }
   }
   hp_wgmma_commit();
   hp_wgmma_wait<0>();
   hp_fence_regs(d);
 }
 
+// fbt_rs_terms into d.  At NI 2 (float32) the products go to a fresh
+// accumulator, added to d by rounded fp32 adds, row half h times f[h] (the
+// inverse scales of a's row and of B): the tensor cores' own fp32
+// accumulation, carried over a walk of hundreds of row tiles, drifted dk
+// and dv to 1.7-1.9x the float32 limit (internvl2's heads at S 4,096, one
+// piece a key tile), where the same products summed with rounding stay
+// under a tenth of it.
+template <int N, int NT, int KS, int NI = 1>
+__device__ __forceinline__ void fbt_accum(float (&d)[N / 2],
+                                          const uint32_t (&a)[NT][KS][4],
+                                          const uint8_t* tile, int lbo,
+                                          int bt = 0, float f0 = 1.0f,
+                                          float f1 = 1.0f) {
+  if constexpr (NI == 1) {
+    fbt_rs_terms<N, NT, KS, NI>(d, a, tile, lbo, bt);
+  } else {
+    float x[N / 2];
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) x[i] = 0.0f;
+    fbt_rs_terms<N, NT, KS, NI>(x, a, tile, lbo, bt);
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) d[i] += x[i] * ((i / 2) % 2 ? f1 : f0);
+  }
+}
+
 // Issue x (64 x N) += A . B^T over DHP: A 64 rows at a (chunks of 64
 // columns `ap` bytes apart), B N rows at b (chunks `bp` apart), K-major.
-template <int DHP, int N>
+template <int DHP, int N, bool F16 = false>
 __device__ __forceinline__ void fbt_ss(float (&x)[N / 2], const uint8_t* a,
                                        const uint8_t* b, int ap, int bp) {
 #pragma unroll
   for (int kk = 0; kk < DHP / 16; ++kk) {
     const int o = (kk / 4), kin = (kk % 4) * 32;
-    hp_wgmma_ss<N, 0>(x, hp_desc(a + o * ap + kin, 16, 1024),
+    hp_wgmma_ss<N, 0, F16>(x, hp_desc(a + o * ap + kin, 16, 1024),
                       hp_desc(b + o * bp + kin, 16, 1024), 1);
   }
 }
 
+// x += A . B^T over NI terms of each (A's `at` bytes apart, B's `bt`): the
+// pairs (i, j) with i + j < NI, so at NI 2 hi.hi, hi.mid and mid.hi (the
+// mid.mid product is below the terms' own 2^-16).
+template <int DHP, int N, int NI>
+__device__ __forceinline__ void fbt_ss_terms(float (&x)[N / 2], const uint8_t* a,
+                                             const uint8_t* b, int ap, int bp,
+                                             int at, int bt) {
+#pragma unroll
+  for (int i = 0; i < NI; ++i)
+#pragma unroll
+    for (int j = 0; i + j < NI; ++j)
+      fbt_ss<DHP, N, NI == 2>(x, a + i * at, b + j * bt, ap, bp);
+}
+
 // x = A . B^T and y = C . D^T (64 x N each, over DHP), as fbt_ss lays
-// them out (C as A, D as B).
-template <int DHP, int N>
+// them out (C as A, D as B), over NI terms as fbt_ss_terms; at NI 2 times
+// fx and fy (the inverse scales of the operands' terms).
+template <int DHP, int N, int NI = 1>
 __device__ __forceinline__ void fbt_pair(float (&x)[N / 2], float (&y)[N / 2],
                                          const uint8_t* a, const uint8_t* b,
                                          const uint8_t* c, const uint8_t* d,
-                                         int ap, int bp) {
+                                         int ap, int bp, int at = 0, int bt = 0,
+                                         float fx = 1.0f, float fy = 1.0f) {
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) x[i] = y[i] = 0.0f;
   hp_fence_regs(x);
   hp_fence_regs(y);
   hp_wgmma_fence();
-  fbt_ss<DHP, N>(x, a, b, ap, bp);
-  fbt_ss<DHP, N>(y, c, d, ap, bp);
+  fbt_ss_terms<DHP, N, NI>(x, a, b, ap, bp, at, bt);
+  fbt_ss_terms<DHP, N, NI>(y, c, d, ap, bp, at, bt);
   hp_wgmma_commit();
   hp_wgmma_wait<0>();
   hp_fence_regs(x);
   hp_fence_regs(y);
+  if constexpr (NI == 2) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      x[i] *= fx;
+      y[i] *= fy;
+    }
+  }
 }
 
-// x = A . B^T alone (64 x 64 over DHP), laid out as fbt_ss's.
-template <int DHP>
+// x = A . B^T alone (64 x 64 over DHP), laid out as fbt_ss's (NI 2: times fx).
+template <int DHP, int NI = 1>
 __device__ __forceinline__ void fbt_one(float (&x)[32], const uint8_t* a,
-                                        const uint8_t* b, int ap, int bp) {
+                                        const uint8_t* b, int ap, int bp,
+                                        int at = 0, int bt = 0, float fx = 1.0f) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) x[i] = 0.0f;
   hp_fence_regs(x);
   hp_wgmma_fence();
-  fbt_ss<DHP, 64>(x, a, b, ap, bp);
+  fbt_ss_terms<DHP, 64, NI>(x, a, b, ap, bp, at, bt);
   hp_wgmma_commit();
   hp_wgmma_wait<0>();
   hp_fence_regs(x);
+  if constexpr (NI == 2) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) x[i] *= fx;
+  }
+}
+
+// Two adjacent outputs at element `at` of out: bfloat16 on the bf16 route
+// (NI 1), float32 on the float32 one (NI 2).
+template <int NI>
+__device__ __forceinline__ void fbt_out2(void* out, long long at, float x0,
+                                         float x1) {
+  if constexpr (NI == 1)
+    *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) + at) =
+        __floats2bfloat162_rn(x0, x1);
+  else
+    *reinterpret_cast<float2*>(static_cast<float*>(out) + at) = make_float2(x0, x1);
+}
+
+// The float32 route's inverse scales of q.k, g.v, q, g and k: 2^-s of
+// each input's largest magnitude (fbt_pow2), as fbs_split_kernel scaled
+// their terms; all 1 at NI 1.
+struct FbtInv {
+  float qk = 1.0f, gv = 1.0f, q = 1.0f, g = 1.0f, k = 1.0f;
+};
+template <int NI>
+__device__ __forceinline__ FbtInv fbt_inv(const FbtArgs& a) {
+  FbtInv f;
+  if constexpr (NI == 2) {
+    f.q = fbt_exp2i(-fbt_pow2(__uint_as_float(a.amax[0])));
+    f.g = fbt_exp2i(-fbt_pow2(__uint_as_float(a.amax[1])));
+    f.k = fbt_exp2i(-fbt_pow2(__uint_as_float(a.amax[2])));
+    f.qk = f.q * f.k;
+    f.gv = f.g * fbt_exp2i(-fbt_pow2(__uint_as_float(a.amax[3])));
+  }
+  return f;
 }
 
 // Named barrier `id` over the first `n` threads (the consumer warpgroups).
@@ -1431,20 +1629,20 @@ __device__ __forceinline__ void fbt_bar() {
   asm volatile("bar.sync %0, %1;\n" :: "n"(ID), "n"(N) : "memory");
 }
 
-template <int DHP, int NT>
+template <int DHP, int NT, int NI>
 __global__ void __launch_bounds__(FBT_DQ_THREADS, 1)
 fbt_dq_kernel(const __grid_constant__ CUtensorMap mq,
               const __grid_constant__ CUtensorMap mg,
               const __grid_constant__ CUtensorMap mk,
               const __grid_constant__ CUtensorMap mv, FbtArgs a) {
-  using S = FbtQShape<DHP>;
+  using S = FbtQShape<DHP, NI>;
   constexpr int BK = S::BK, NSC = BK / 2, KS = BK / 16;
   constexpr int NO = DHP / 2;                       // dq fragment registers
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (hp_smem(smem_raw) & 1023)) & 1023);
   uint8_t* Qs = smem;
-  uint8_t* Gs = smem + S::ROW_BYTES;
-  uint8_t* KVs = Gs + S::ROW_BYTES;                 // stage s: K, then V
+  uint8_t* Gs = smem + NI * S::ROW_BYTES;          // term t at t * ROW_BYTES
+  uint8_t* KVs = Gs + NI * S::ROW_BYTES;            // stage s: K's terms, then V's
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + S::BARS);
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + FBT_STAGES;
@@ -1476,28 +1674,37 @@ fbt_dq_kernel(const __grid_constant__ CUtensorMap mq,
     // ----------------------------------------------------- producer
     hp_regs_dec<40>();
     if (tid != 256) return;
-    hp_bar_expect_tx(q_full, 2 * 2 * (DHP / 64) * RT * 128);
+    // term t of batch b is batch b + t B of the maps (float32: the terms'
+    // copy; bfloat16: t = 0, the inputs themselves)
+    hp_bar_expect_tx(q_full, 2 * 2 * NI * (DHP / 64) * RT * 128);
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {         // row tile h into slots 64 h ..
-      const int rr = r0 + h * RT;
+    for (int t = 0; t < NI; ++t)
 #pragma unroll
-      for (int c = 0; c < DHP / 64; ++c) {
-        const int at = c * FBT_BM * 128 + h * FBT_RM * 128;
-        hp_tma_4d(Qs + at, &mq, q_full, c * 64, kvh * G + rr % G, rr / G, b);
-        hp_tma_4d(Gs + at, &mg, q_full, c * 64, kvh * G + rr % G, rr / G, b);
+      for (int h = 0; h < 2; ++h) {       // row tile h into slots 64 h ..
+        const int rr = r0 + h * RT;
+#pragma unroll
+        for (int c = 0; c < DHP / 64; ++c) {
+          const int at = t * S::ROW_BYTES + c * FBT_BM * 128 + h * FBT_RM * 128;
+          hp_tma_4d(Qs + at, &mq, q_full, c * 64, kvh * G + rr % G, rr / G,
+                    b + t * a.B);
+          hp_tma_4d(Gs + at, &mg, q_full, c * 64, kvh * G + rr % G, rr / G,
+                    b + t * a.B);
+        }
       }
-    }
     for (int n = 0; n < 2 * nj; ++n) {    // the key tiles, once a pass
       const int j = j0 + n % nj, s = n % FBT_STAGES;
       if (n >= FBT_STAGES) hp_bar_wait(&empty[s], ((n / FBT_STAGES) - 1) & 1);
-      uint8_t* Kt = KVs + s * 2 * S::KV_BYTES;
-      uint8_t* Vt = Kt + S::KV_BYTES;
-      hp_bar_expect_tx(&full[s], 2 * S::KV_BYTES);
+      uint8_t* Kt = KVs + s * 2 * NI * S::KV_BYTES;
+      uint8_t* Vt = Kt + NI * S::KV_BYTES;
+      hp_bar_expect_tx(&full[s], 2 * NI * S::KV_BYTES);
 #pragma unroll
-      for (int c = 0; c < DHP / 64; ++c) {
-        hp_tma_4d(Kt + c * BK * 128, &mk, &full[s], c * 64, kvh, j * BK, b);
-        hp_tma_4d(Vt + c * BK * 128, &mv, &full[s], c * 64, kvh, j * BK, b);
-      }
+      for (int t = 0; t < NI; ++t)
+#pragma unroll
+        for (int c = 0; c < DHP / 64; ++c) {
+          const int at = t * S::KV_BYTES + c * BK * 128;
+          hp_tma_4d(Kt + at, &mk, &full[s], c * 64, kvh, j * BK, b + t * a.B);
+          hp_tma_4d(Vt + at, &mv, &full[s], c * 64, kvh, j * BK, b + t * a.B);
+        }
     }
     return;
   }
@@ -1513,6 +1720,7 @@ fbt_dq_kernel(const __grid_constant__ CUtensorMap mq,
   const float sl2 = a.scale * FBT_LOG2E;
   const uint8_t* Qw = Qs + wg * FBT_RM * 128;
   const uint8_t* Gw = Gs + wg * FBT_RM * 128;
+  const FbtInv f = fbt_inv<NI>(a);
   // a tile that crosses the diagonal, the end of the keys or the window's
   // lower edge, and the keys it hides from row half h
   auto edge_of = [&](int j) {
@@ -1532,9 +1740,10 @@ fbt_dq_kernel(const __grid_constant__ CUtensorMap mq,
   for (int n = 0; n < nj; ++n) {
     const int j = j0 + n, s = n % FBT_STAGES;
     hp_bar_wait(&full[s], (n / FBT_STAGES) & 1);
-    const uint8_t* Kt = KVs + s * 2 * S::KV_BYTES;
+    const uint8_t* Kt = KVs + s * 2 * NI * S::KV_BYTES;
     float sc[NSC], dp[NSC];
-    fbt_pair<DHP, BK>(sc, dp, Qw, Kt, Gw, Kt + S::KV_BYTES, FBT_BM * 128, BK * 128);
+    fbt_pair<DHP, BK, NI>(sc, dp, Qw, Kt, Gw, Kt + NI * S::KV_BYTES, FBT_BM * 128,
+                          BK * 128, S::ROW_BYTES, S::KV_BYTES, f.qk, f.gv);
     if (lane == 0) hp_bar_arrive(&empty[s]);        // the stage is read
     const bool edge = edge_of(j);
     if (edge) {
@@ -1602,9 +1811,10 @@ fbt_dq_kernel(const __grid_constant__ CUtensorMap mq,
   for (int n = nj; n < 2 * nj; ++n) {
     const int j = j0 + n - nj, s = n % FBT_STAGES;
     hp_bar_wait(&full[s], (n / FBT_STAGES) & 1);
-    const uint8_t* Kt = KVs + s * 2 * S::KV_BYTES;
+    const uint8_t* Kt = KVs + s * 2 * NI * S::KV_BYTES;
     float sc[NSC], dp[NSC];
-    fbt_pair<DHP, BK>(sc, dp, Qw, Kt, Gw, Kt + S::KV_BYTES, FBT_BM * 128, BK * 128);
+    fbt_pair<DHP, BK, NI>(sc, dp, Qw, Kt, Gw, Kt + NI * S::KV_BYTES, FBT_BM * 128,
+                          BK * 128, S::ROW_BYTES, S::KV_BYTES, f.qk, f.gv);
     const bool edge = edge_of(j);
 #pragma unroll
     for (int i = 0; i < NSC; ++i) {
@@ -1613,8 +1823,15 @@ fbt_dq_kernel(const __grid_constant__ CUtensorMap mq,
       sc[i] = (edge && hidden(j, i)) ? 0.0f : p * (dp[i] - D[h]);
     }
     uint32_t ds[NT][KS][4];
-    fbt_terms<NT, KS>(ds, sc);
-    fbt_accum<DHP, NT, KS>(dqa, ds, Kt, BK * 128);
+    if constexpr (NI == 2) {
+      float inv[2];
+      fbt_terms16<NT, KS>(ds, sc, inv);
+      fbt_accum<DHP, NT, KS, NI>(dqa, ds, Kt, BK * 128, S::KV_BYTES,
+                                 inv[0] * f.k, inv[1] * f.k);
+    } else {
+      fbt_terms<NT, KS>(ds, sc);
+      fbt_accum<DHP, NT, KS, NI>(dqa, ds, Kt, BK * 128, S::KV_BYTES);
+    }
     if (lane == 0) hp_bar_arrive(&empty[s]);
   }
 
@@ -1624,13 +1841,13 @@ fbt_dq_kernel(const __grid_constant__ CUtensorMap mq,
     const int row = rw + sl + 8 * h;
     if (!filled[h] || row >= nrows) continue;
     const int t = row / G, g = row % G;
-    __nv_bfloat16* dst = a.dq + (((long long)b * a.Sq + t) * a.H + kvh * G + g) * a.dh;
+    const long long at = (((long long)b * a.Sq + t) * a.H + kvh * G + g) * a.dh;
 #pragma unroll
     for (int n8 = 0; n8 < DHP / 8; ++n8) {
       const int col = 8 * n8 + 2 * (lane % 4);
       if (col < a.dh)
-        *reinterpret_cast<__nv_bfloat162*>(dst + col) = __floats2bfloat162_rn(
-            dqa[4 * n8 + 2 * h] * a.scale, dqa[4 * n8 + 2 * h + 1] * a.scale);
+        fbt_out2<NI>(a.dq, at + col, dqa[4 * n8 + 2 * h] * a.scale,
+                     dqa[4 * n8 + 2 * h + 1] * a.scale);
     }
   }
 }
@@ -1650,11 +1867,11 @@ __device__ __forceinline__ int2 fbt_row_tiles(const FbtArgs& a, int kt) {
 // The dkdv kernels' start: the barriers, and the empty slots of every
 // stage's q and g chunks (TMA never writes them) zeroed, so that they add
 // nothing to S^T, dP^T, dV or dK.  Every thread of the block calls it.
-template <int DHP>
+template <int DHP, int NI>
 __device__ __forceinline__ void fbt_kv_init(uint8_t* Rs, uint64_t* kv_full,
                                             uint64_t* full, uint64_t* empty,
                                             int rt, int tid) {
-  using S = FbtKShape<DHP>;
+  using S = FbtKShape<DHP, NI>;
   if (tid == 0) {
     hp_bar_init(kv_full, 1);
     for (int s = 0; s < FBT_STAGES; ++s) {
@@ -1664,7 +1881,7 @@ __device__ __forceinline__ void fbt_kv_init(uint8_t* Rs, uint64_t* kv_full,
     hp_bar_init_fence();
   }
   if (rt < FBT_RM) {
-    const int dead = FBT_RM - rt, n16 = FBT_STAGES * 2 * (DHP / 64) * dead * 8;
+    const int dead = FBT_RM - rt, n16 = FBT_STAGES * 2 * NI * (DHP / 64) * dead * 8;
     for (int i = tid; i < n16; i += S::THREADS) {
       const int u = i % 8, r = (i / 8) % dead, c = i / (8 * dead);
       *reinterpret_cast<uint4*>(Rs + c * FBT_RM * 128 + (rt + r) * 128 + u * 16) =
@@ -1677,35 +1894,41 @@ __device__ __forceinline__ void fbt_kv_init(uint8_t* Rs, uint64_t* kv_full,
 
 // The dkdv kernels' producer (one thread): k and v of the block once, then
 // row tiles p_lo .. p_hi - 1 of q and g through the ring, each with its
-// slots' lse and D.
-template <int DHP>
+// slots' lse and D; each tile's NI terms (batch b + t B of the maps).
+template <int DHP, int NI>
 __device__ __forceinline__ void fbt_kv_load(
     const FbtArgs& a, const CUtensorMap* mq, const CUtensorMap* mg,
     const CUtensorMap* mk, const CUtensorMap* mv, uint8_t* Ks, uint8_t* Vs,
     uint8_t* Rs, float* stat, uint64_t* kv_full, uint64_t* full,
     uint64_t* empty, int bkv, int k0, int p_lo, int p_hi) {
-  using S = FbtKShape<DHP>;
+  using S = FbtKShape<DHP, NI>;
   const int G = a.H / a.KV, nbkv = a.B * a.KV, b = bkv / a.KV, kvh = bkv % a.KV;
-  hp_bar_expect_tx(kv_full, 2 * S::KV_BYTES);
+  hp_bar_expect_tx(kv_full, 2 * NI * S::KV_BYTES);
 #pragma unroll
-  for (int c = 0; c < DHP / 64; ++c) {
-    hp_tma_4d(Ks + c * FBT_BK * 128, mk, kv_full, c * 64, kvh, k0, b);
-    hp_tma_4d(Vs + c * FBT_BK * 128, mv, kv_full, c * 64, kvh, k0, b);
-  }
+  for (int t = 0; t < NI; ++t)
+#pragma unroll
+    for (int c = 0; c < DHP / 64; ++c) {
+      const int at = t * S::KV_BYTES + c * FBT_BK * 128;
+      hp_tma_4d(Ks + at, mk, kv_full, c * 64, kvh, k0, b + t * a.B);
+      hp_tma_4d(Vs + at, mv, kv_full, c * 64, kvh, k0, b + t * a.B);
+    }
   const float* st = a.stats + (long long)bkv * a.rows_pad;
   for (int r = p_lo; r < p_hi; ++r) {
     const int n = r - p_lo, s = n % FBT_STAGES, r0 = r * a.rt;
     if (n >= FBT_STAGES) hp_bar_wait(&empty[s], ((n / FBT_STAGES) - 1) & 1);
-    uint8_t* Qt = Rs + s * 2 * S::ROW_BYTES;
-    uint8_t* Gt = Qt + S::ROW_BYTES;
-    hp_bar_expect_tx(&full[s], 2 * (DHP / 64) * a.rt * 128 + 2 * FBT_RM * 4);
+    uint8_t* Qt = Rs + s * 2 * NI * S::ROW_BYTES;
+    uint8_t* Gt = Qt + NI * S::ROW_BYTES;
+    hp_bar_expect_tx(&full[s], 2 * NI * (DHP / 64) * a.rt * 128 + 2 * FBT_RM * 4);
 #pragma unroll
-    for (int c = 0; c < DHP / 64; ++c) {
-      hp_tma_4d(Qt + c * FBT_RM * 128, mq, &full[s], c * 64, kvh * G + r0 % G,
-                r0 / G, b);
-      hp_tma_4d(Gt + c * FBT_RM * 128, mg, &full[s], c * 64, kvh * G + r0 % G,
-                r0 / G, b);
-    }
+    for (int t = 0; t < NI; ++t)
+#pragma unroll
+      for (int c = 0; c < DHP / 64; ++c) {
+        const int at = t * S::ROW_BYTES + c * FBT_RM * 128;
+        hp_tma_4d(Qt + at, mq, &full[s], c * 64, kvh * G + r0 % G, r0 / G,
+                  b + t * a.B);
+        hp_tma_4d(Gt + at, mg, &full[s], c * 64, kvh * G + r0 % G, r0 / G,
+                  b + t * a.B);
+      }
     hp_bulk_load(stat + s * 2 * FBT_RM, st + r * FBT_RM, FBT_RM * 4, &full[s]);
     hp_bulk_load(stat + s * 2 * FBT_RM + FBT_RM,
                  st + (long long)nbkv * a.rows_pad + r * FBT_RM, FBT_RM * 4,
@@ -1713,21 +1936,22 @@ __device__ __forceinline__ void fbt_kv_load(
   }
 }
 
-// DHP 64 and 128: one consumer warpgroup holds dK and dV; two blocks an SM.
-template <int DHP, int NT>
+// DHP 64 and 128 (float32: 64): one consumer warpgroup holds dK and dV; two
+// blocks an SM.
+template <int DHP, int NT, int NI>
 __global__ void __launch_bounds__(256, 2)
 fbt_dkdv_kernel(const __grid_constant__ CUtensorMap mq,
                 const __grid_constant__ CUtensorMap mg,
                 const __grid_constant__ CUtensorMap mk,
                 const __grid_constant__ CUtensorMap mv, FbtArgs a) {
-  using S = FbtKShape<DHP>;
-  static_assert(S::WG == 1, "fbt_dkdv_kernel: DHP 64 or 128");
+  using S = FbtKShape<DHP, NI>;
+  static_assert(S::WG == 1, "fbt_dkdv_kernel: DHP * NI up to 128");
   constexpr int NO = DHP / 2;                       // dk, dv fragment registers
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (hp_smem(smem_raw) & 1023)) & 1023);
-  uint8_t* Ks = smem;
-  uint8_t* Vs = smem + S::KV_BYTES;
-  uint8_t* Rs = Vs + S::KV_BYTES;                   // stage s: q rows, then g rows
+  uint8_t* Ks = smem;                               // term t at t * KV_BYTES
+  uint8_t* Vs = smem + NI * S::KV_BYTES;
+  uint8_t* Rs = Vs + NI * S::KV_BYTES;              // stage s: q's terms, then g's
   float* stat = reinterpret_cast<float*>(smem + S::STATS);   // stage s: lse2, D
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + S::BARS);
   uint64_t* full = kv_full + 1;
@@ -1744,13 +1968,13 @@ fbt_dkdv_kernel(const __grid_constant__ CUtensorMap mq,
   const int nrt = max(0, rt.y - rt.x);
   const int p_lo = rt.x + (int)((long long)nrt * piece / a.pieces);
   const int p_hi = rt.x + (int)((long long)nrt * (piece + 1) / a.pieces);
-  fbt_kv_init<DHP>(Rs, kv_full, full, empty, RT, tid);
+  fbt_kv_init<DHP, NI>(Rs, kv_full, full, empty, RT, tid);
 
   if (tid >= 128) {
     // ----------------------------------------------------- producer
     hp_regs_dec<24>();
     if (tid == 128)
-      fbt_kv_load<DHP>(a, &mq, &mg, &mk, &mv, Ks, Vs, Rs, stat, kv_full, full,
+      fbt_kv_load<DHP, NI>(a, &mq, &mg, &mk, &mv, Ks, Vs, Rs, stat, kv_full, full,
                        empty, bkv, k0, p_lo, p_hi);
     return;
   }
@@ -1759,6 +1983,7 @@ fbt_dkdv_kernel(const __grid_constant__ CUtensorMap mq,
   const int warp = tid / 32, lane = tid % 32;
   const int kl = warp * 16 + lane / 4;              // keys k0 + kl and + 8
   const float sl2 = a.scale * FBT_LOG2E;
+  const FbtInv f = fbt_inv<NI>(a);
   float dka[NO], dva[NO];
 #pragma unroll
   for (int i = 0; i < NO; ++i) dka[i] = dva[i] = 0.0f;
@@ -1766,12 +1991,13 @@ fbt_dkdv_kernel(const __grid_constant__ CUtensorMap mq,
   for (int r = p_lo; r < p_hi; ++r) {
     const int n = r - p_lo, s = n % FBT_STAGES, r0 = r * RT;
     hp_bar_wait(&full[s], (n / FBT_STAGES) & 1);
-    const uint8_t* Qt = Rs + s * 2 * S::ROW_BYTES;
-    const uint8_t* Gt = Qt + S::ROW_BYTES;
+    const uint8_t* Qt = Rs + s * 2 * NI * S::ROW_BYTES;
+    const uint8_t* Gt = Qt + NI * S::ROW_BYTES;
     const float* Ls = stat + s * 2 * FBT_RM;
     const float* Ds = Ls + FBT_RM;
     float sc[32], dp[32];                           // S^T, dP^T: keys x slots
-    fbt_pair<DHP, 64>(sc, dp, Ks, Qt, Vs, Gt, FBT_BK * 128, FBT_RM * 128);
+    fbt_pair<DHP, 64, NI>(sc, dp, Ks, Qt, Vs, Gt, FBT_BK * 128, FBT_RM * 128,
+                          S::KV_BYTES, S::ROW_BYTES, f.qk, f.gv);
     // the tile crosses the diagonal, the window's lower edge, the end of
     // the keys or of the rows (empty slots need no mask: zero q and g give
     // s = dp = 0, and their lse +inf and D 0 give p = ds = 0)
@@ -1799,15 +2025,29 @@ fbt_dkdv_kernel(const __grid_constant__ CUtensorMap mq,
           sc[i] = p;
         }
       }
-    {
+    if constexpr (NI == 2) {
+      float inv[2];
       uint32_t pt[NT][4][4];
-      fbt_terms<NT, 4>(pt, sc);
-      fbt_accum<DHP, NT, 4>(dva, pt, Gt, FBT_RM * 128);   // dV += P^T . g
-    }
-    {
+      fbt_terms16<NT, 4>(pt, sc, inv);
+      fbt_accum<DHP, NT, 4, NI>(dva, pt, Gt, FBT_RM * 128, S::ROW_BYTES,
+                                inv[0] * f.g, inv[1] * f.g);
       uint32_t dst[NT][4][4];
-      fbt_terms<NT, 4>(dst, dp);
-      fbt_accum<DHP, NT, 4>(dka, dst, Qt, FBT_RM * 128);  // dK += dS^T . q
+      fbt_terms16<NT, 4>(dst, dp, inv);
+      fbt_accum<DHP, NT, 4, NI>(dka, dst, Qt, FBT_RM * 128, S::ROW_BYTES,
+                                inv[0] * f.q, inv[1] * f.q);
+    } else {
+      {
+        uint32_t pt[NT][4][4];
+        fbt_terms<NT, 4>(pt, sc);
+        // dV += P^T . g
+        fbt_accum<DHP, NT, 4, NI>(dva, pt, Gt, FBT_RM * 128, S::ROW_BYTES);
+      }
+      {
+        uint32_t dst[NT][4][4];
+        fbt_terms<NT, 4>(dst, dp);
+        // dK += dS^T . q
+        fbt_accum<DHP, NT, 4, NI>(dka, dst, Qt, FBT_RM * 128, S::ROW_BYTES);
+      }
     }
     if (lane == 0) hp_bar_arrive(&empty[s]);
   }
@@ -1853,33 +2093,34 @@ fbt_dkdv_kernel(const __grid_constant__ CUtensorMap mq,
     for (int n8 = 0; n8 < DHP / 8; ++n8) {
       const int col = 8 * n8 + 2 * (lane % 4);
       if (col < a.dh) {
-        *reinterpret_cast<__nv_bfloat162*>(a.dk + at + col) = __floats2bfloat162_rn(
-            dka[4 * n8 + 2 * h] * a.scale, dka[4 * n8 + 2 * h + 1] * a.scale);
-        *reinterpret_cast<__nv_bfloat162*>(a.dv + at + col) = __floats2bfloat162_rn(
-            dva[4 * n8 + 2 * h], dva[4 * n8 + 2 * h + 1]);
+        fbt_out2<NI>(a.dk, at + col, dka[4 * n8 + 2 * h] * a.scale,
+                     dka[4 * n8 + 2 * h + 1] * a.scale);
+        fbt_out2<NI>(a.dv, at + col, dva[4 * n8 + 2 * h], dva[4 * n8 + 2 * h + 1]);
       }
     }
   }
 }
 
-// DHP 256: two consumer warpgroups, one block an SM.  Warpgroup 0 computes
+// DHP 256 (float32: 128): two consumer warpgroups, one block an SM.
+// Warpgroup 0 computes
 // S^T and P^T, hands P^T to warpgroup 1 (once it has read the last row
 // tile's) and accumulates dV += P^T . g; warpgroup 1 computes dP^T, dS^T =
 // P^T (dP^T - D) (a hidden pair's p is 0) and accumulates dK += dS^T . q.
 // acc: the warpgroup's dV or dK, all DHP columns.
-template <int NT>
+template <int DHP, int NT, int NI>
 __global__ void __launch_bounds__(384, 1)
 fbt_dkdv2_kernel(const __grid_constant__ CUtensorMap mq,
                  const __grid_constant__ CUtensorMap mg,
                  const __grid_constant__ CUtensorMap mk,
                  const __grid_constant__ CUtensorMap mv, FbtArgs a) {
-  constexpr int DHP = 256, NO = DHP / 2;
-  using S = FbtKShape<DHP>;
+  constexpr int NO = DHP / 2;
+  using S = FbtKShape<DHP, NI>;
+  static_assert(S::WG == 2, "fbt_dkdv2_kernel: DHP * NI above 128");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (hp_smem(smem_raw) & 1023)) & 1023);
-  uint8_t* Ks = smem;
-  uint8_t* Vs = smem + S::KV_BYTES;
-  uint8_t* Rs = Vs + S::KV_BYTES;                   // stage s: q rows, then g rows
+  uint8_t* Ks = smem;                               // term t at t * KV_BYTES
+  uint8_t* Vs = smem + NI * S::KV_BYTES;
+  uint8_t* Rs = Vs + NI * S::KV_BYTES;              // stage s: q's terms, then g's
   float* Ps = reinterpret_cast<float*>(smem + S::PT);        // P^T, handed over
   float* stat = reinterpret_cast<float*>(smem + S::STATS);   // stage s: lse2, D
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + S::BARS);
@@ -1897,13 +2138,13 @@ fbt_dkdv2_kernel(const __grid_constant__ CUtensorMap mq,
   const int nrt = max(0, rt.y - rt.x);
   const int p_lo = rt.x + (int)((long long)nrt * piece / a.pieces);
   const int p_hi = rt.x + (int)((long long)nrt * (piece + 1) / a.pieces);
-  fbt_kv_init<DHP>(Rs, kv_full, full, empty, RT, tid);
+  fbt_kv_init<DHP, NI>(Rs, kv_full, full, empty, RT, tid);
 
   if (wg == 2) {
     // ----------------------------------------------------- producer
     hp_regs_dec<24>();
     if (tid == 256)
-      fbt_kv_load<DHP>(a, &mq, &mg, &mk, &mv, Ks, Vs, Rs, stat, kv_full, full,
+      fbt_kv_load<DHP, NI>(a, &mq, &mg, &mk, &mv, Ks, Vs, Rs, stat, kv_full, full,
                        empty, bkv, k0, p_lo, p_hi);
     return;
   }
@@ -1912,6 +2153,7 @@ fbt_dkdv2_kernel(const __grid_constant__ CUtensorMap mq,
   const int ct = tid % 128, warp = ct / 32, lane = tid % 32;
   const int kl = warp * 16 + lane / 4;              // keys k0 + kl and + 8
   const float sl2 = a.scale * FBT_LOG2E;
+  const FbtInv f = fbt_inv<NI>(a);
   float acc[NO];
 #pragma unroll
   for (int i = 0; i < NO; ++i) acc[i] = 0.0f;
@@ -1919,13 +2161,14 @@ fbt_dkdv2_kernel(const __grid_constant__ CUtensorMap mq,
   for (int r = p_lo; r < p_hi; ++r) {
     const int n = r - p_lo, s = n % FBT_STAGES, r0 = r * RT;
     hp_bar_wait(&full[s], (n / FBT_STAGES) & 1);
-    const uint8_t* Qt = Rs + s * 2 * S::ROW_BYTES;
-    const uint8_t* Gt = Qt + S::ROW_BYTES;
+    const uint8_t* Qt = Rs + s * 2 * NI * S::ROW_BYTES;
+    const uint8_t* Gt = Qt + NI * S::ROW_BYTES;
     const float* Ls = stat + s * 2 * FBT_RM;
     const float* Ds = Ls + FBT_RM;
     float x[32];                                    // S^T, or dP^T
     if (wg == 0) {
-      fbt_one<DHP>(x, Ks, Qt, FBT_BK * 128, FBT_RM * 128);
+      fbt_one<DHP, NI>(x, Ks, Qt, FBT_BK * 128, FBT_RM * 128, S::KV_BYTES,
+                       S::ROW_BYTES, f.qk);
       // as fbt_dkdv_kernel masks
       const int t_lo = r0 / G, t_hi = (r0 + RT - 1) / G;
       const bool edge = k0 + FBT_BK > a.Sk || r0 + RT > nrows ||
@@ -1954,10 +2197,19 @@ fbt_dkdv2_kernel(const __grid_constant__ CUtensorMap mq,
       for (int i = 0; i < 32; ++i) Ps[i * 128 + ct] = x[i];
       fbt_bar<2, 256>();
       uint32_t pt[NT][4][4];
-      fbt_terms<NT, 4>(pt, x);
-      fbt_accum<DHP, NT, 4>(acc, pt, Gt, FBT_RM * 128);      // dV += P^T . g
+      // dV += P^T . g
+      if constexpr (NI == 2) {
+        float inv[2];
+        fbt_terms16<NT, 4>(pt, x, inv);
+        fbt_accum<DHP, NT, 4, NI>(acc, pt, Gt, FBT_RM * 128, S::ROW_BYTES,
+                                  inv[0] * f.g, inv[1] * f.g);
+      } else {
+        fbt_terms<NT, 4>(pt, x);
+        fbt_accum<DHP, NT, 4, NI>(acc, pt, Gt, FBT_RM * 128, S::ROW_BYTES);
+      }
     } else {
-      fbt_one<DHP>(x, Vs, Gt, FBT_BK * 128, FBT_RM * 128);
+      fbt_one<DHP, NI>(x, Vs, Gt, FBT_BK * 128, FBT_RM * 128, S::KV_BYTES,
+                       S::ROW_BYTES, f.gv);
       if (n > 0) fbt_bar<2, 256>();
       fbt_bar<2, 256>();
 #pragma unroll
@@ -1972,8 +2224,16 @@ fbt_dkdv2_kernel(const __grid_constant__ CUtensorMap mq,
           }
         }
       uint32_t dst[NT][4][4];
-      fbt_terms<NT, 4>(dst, x);
-      fbt_accum<DHP, NT, 4>(acc, dst, Qt, FBT_RM * 128);     // dK += dS^T . q
+      // dK += dS^T . q
+      if constexpr (NI == 2) {
+        float inv[2];
+        fbt_terms16<NT, 4>(dst, x, inv);
+        fbt_accum<DHP, NT, 4, NI>(acc, dst, Qt, FBT_RM * 128, S::ROW_BYTES,
+                                  inv[0] * f.q, inv[1] * f.q);
+      } else {
+        fbt_terms<NT, 4>(dst, x);
+        fbt_accum<DHP, NT, 4, NI>(acc, dst, Qt, FBT_RM * 128, S::ROW_BYTES);
+      }
     }
     if (lane == 0) hp_bar_arrive(&empty[s]);
   }
@@ -1998,7 +2258,7 @@ fbt_dkdv2_kernel(const __grid_constant__ CUtensorMap mq,
       for (int i = 0; i < NO; ++i) acc[i] += __ldcg(base + p * per + i * 256 + tid);
   }
   const float sk = wg == 0 ? 1.0f : a.scale;       // dk = scale * the sum
-  __nv_bfloat16* out = wg == 0 ? a.dv : a.dk;
+  void* out = wg == 0 ? a.dv : a.dk;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int key = k0 + kl + 8 * h;
@@ -2008,26 +2268,109 @@ fbt_dkdv2_kernel(const __grid_constant__ CUtensorMap mq,
     for (int n8 = 0; n8 < DHP / 8; ++n8) {
       const int col = 8 * n8 + 2 * (lane % 4);
       if (col < a.dh)
-        *reinterpret_cast<__nv_bfloat162*>(out + at + col) = __floats2bfloat162_rn(
-            acc[4 * n8 + 2 * h] * sk, acc[4 * n8 + 2 * h + 1] * sk);
+        fbt_out2<NI>(out, at + col, acc[4 * n8 + 2 * h] * sk,
+                     acc[4 * n8 + 2 * h + 1] * sk);
     }
   }
 }
 
-// The bf16 terms of p and ds: 3 keep all 24 bits of the fp32 operands.
+// The bf16 terms of p and ds: 3 keep all 24 bits of the fp32 operands
+// (bfloat16 inputs).  On the float32 route every operand, q, k, v and g as
+// well as p and ds, enters as FBT_F32_TERMS scaled fp16 terms and each
+// product keeps hi.hi, hi.mid and mid.hi (fbt_ss_terms, fbt_accum).
 #define FBT_TERMS 3
+#define FBT_F32_TERMS 2
+
+// float32 -> its two fp16 terms for the float32 route: with 2^s the power
+// that brings the input's largest magnitude into [2^13, 2^14) (fbt_pow2),
+// hi = fp16(2^s x) and mid = fp16(2^s x - hi), 22 bits; each of q, g, k
+// and v ((B, S, heads, dh) through its element strides; dh, the strides
+// and the base on 16 bytes) into a contiguous [2][B][S][heads][dh] block,
+// hi first, that the backward's tensor maps read as a batch of 2 B.
+// fbs_amax_kernel first finds each input's largest magnitude (an integer
+// maximum of the bits, so any order gives the same).  Two passes, bound by
+// bytes.
+struct FbsPart {
+  const float* x;
+  __half* t;
+  long long sb, ss, sh;
+  int S, heads;
+};
+struct FbsArgs {
+  FbsPart p[4];
+  int B, dh;
+  unsigned* amax;        // [4], zeroed before fbs_amax_kernel
+};
+
+// Calls f(x, r, d) on the float4 of part p at (b, s, head) row r, column d.
+template <typename F>
+__device__ __forceinline__ void fbs_each(const FbsArgs& a, const FbsPart& p, F f) {
+  const int d4 = a.dh / 4;
+  const long long rows = (long long)a.B * p.S * p.heads, n = rows * d4;
+  for (long long i = blockIdx.x * 256LL + threadIdx.x; i < n;
+       i += (long long)gridDim.x * 256) {
+    const long long r = i / d4;               // the (b, s, head) row
+    const int d = (int)(i - r * d4) * 4, h = (int)(r % p.heads);
+    const long long bs = r / p.heads;
+    const int s = (int)(bs % p.S), b = (int)(bs / p.S);
+    f(*reinterpret_cast<const float4*>(p.x + b * p.sb + s * p.ss + h * p.sh + d),
+      r, d);
+  }
+}
+
+__global__ void __launch_bounds__(256)
+fbs_amax_kernel(const __grid_constant__ FbsArgs a) {
+  __shared__ float wm[8];
+  float m = 0.0f;
+  fbs_each(a, a.p[blockIdx.y], [&](const float4& x, long long, int) {
+    m = fmaxf(m, fmaxf(fmaxf(fabsf(x.x), fabsf(x.y)), fmaxf(fabsf(x.z), fabsf(x.w))));
+  });
+#pragma unroll
+  for (int o = 16; o > 0; o /= 2) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  if (threadIdx.x % 32 == 0) wm[threadIdx.x / 32] = m;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < 8; ++w) m = fmaxf(m, wm[w]);
+    atomicMax(a.amax + blockIdx.y, __float_as_uint(m));
+  }
+}
+
+__global__ void __launch_bounds__(256)
+fbs_split_kernel(const __grid_constant__ FbsArgs a) {
+  const FbsPart& p = a.p[blockIdx.y];
+  const long long rows = (long long)a.B * p.S * p.heads;
+  const float c = fbt_exp2i(fbt_pow2(__uint_as_float(a.amax[blockIdx.y])));
+  fbs_each(a, p, [&](const float4& x4, long long r, int d) {
+    const float4 x = make_float4(x4.x * c, x4.y * c, x4.z * c, x4.w * c);
+    const __half2 h01 = __floats2half2_rn(x.x, x.y);
+    const __half2 h23 = __floats2half2_rn(x.z, x.w);
+    const __half2 m01 = __floats2half2_rn(x.x - __low2float(h01),
+                                          x.y - __high2float(h01));
+    const __half2 m23 = __floats2half2_rn(x.z - __low2float(h23),
+                                          x.w - __high2float(h23));
+    uint2 hi, mid;
+    hi.x = *reinterpret_cast<const uint32_t*>(&h01);
+    hi.y = *reinterpret_cast<const uint32_t*>(&h23);
+    mid.x = *reinterpret_cast<const uint32_t*>(&m01);
+    mid.y = *reinterpret_cast<const uint32_t*>(&m23);
+    *reinterpret_cast<uint2*>(p.t + r * a.dh + d) = hi;
+    *reinterpret_cast<uint2*>(p.t + (rows + r) * a.dh + d) = mid;
+  });
+}
 
 // q, g (both kernels' row tiles), k, v (dq stages), k, v (dkdv blocks)
-template <int DHP>
+template <int DHP, int NI>
 static int fbt_run(const FbtArgs& a, const CUtensorMap (&m)[6], cudaStream_t s) {
+  using SQ = FbtQShape<DHP, NI>;
+  using SK = FbtKShape<DHP, NI>;
+  constexpr int NT = NI == 1 ? FBT_TERMS : FBT_F32_TERMS;
   static int granted_q[HP_MAX_DEVICES] = {0}, granted_k[HP_MAX_DEVICES] = {0};
-  const int smq = FbtQShape<DHP>::SMEM, smk = FbtKShape<DHP>::SMEM;
   const void* kv;
-  if constexpr (DHP == 256) kv = (const void*)fbt_dkdv2_kernel<FBT_TERMS>;
-  else kv = (const void*)fbt_dkdv_kernel<DHP, FBT_TERMS>;
-  int e = hp_grant_smem((const void*)fbt_dq_kernel<DHP, FBT_TERMS>, smq, granted_q);
+  if constexpr (SK::WG == 2) kv = (const void*)fbt_dkdv2_kernel<DHP, NT, NI>;
+  else kv = (const void*)fbt_dkdv_kernel<DHP, NT, NI>;
+  int e = hp_grant_smem((const void*)fbt_dq_kernel<DHP, NT, NI>, SQ::SMEM, granted_q);
   if (e) return e;
-  e = hp_grant_smem(kv, smk, granted_k);
+  e = hp_grant_smem(kv, SK::SMEM, granted_k);
   if (e) return e;
   const long long nbkv = (long long)a.B * a.KV;
   const long long ntile = ((long long)a.Sq * (a.H / a.KV) + a.rt - 1) / a.rt;
@@ -2039,27 +2382,70 @@ static int fbt_run(const FbtArgs& a, const CUtensorMap (&m)[6], cudaStream_t s) 
     e = (int)cudaMemsetAsync(a.count, 0, nkt * nbkv * sizeof(int), s);
     if (e) return e;
   }
-  fbt_dq_kernel<DHP, FBT_TERMS><<<(unsigned)bq, FBT_DQ_THREADS, smq, s>>>(
+  fbt_dq_kernel<DHP, NT, NI><<<(unsigned)bq, FBT_DQ_THREADS, SQ::SMEM, s>>>(
       m[0], m[1], m[2], m[3], a);
   e = (int)cudaGetLastError();
   if (e) return e;
-  if constexpr (DHP == 256)
-    fbt_dkdv2_kernel<FBT_TERMS><<<(unsigned)bk, FbtKShape<DHP>::THREADS, smk, s>>>(
+  if constexpr (SK::WG == 2)
+    fbt_dkdv2_kernel<DHP, NT, NI><<<(unsigned)bk, SK::THREADS, SK::SMEM, s>>>(
         m[0], m[1], m[4], m[5], a);
   else
-    fbt_dkdv_kernel<DHP, FBT_TERMS><<<(unsigned)bk, FbtKShape<DHP>::THREADS, smk, s>>>(
+    fbt_dkdv_kernel<DHP, NT, NI><<<(unsigned)bk, SK::THREADS, SK::SMEM, s>>>(
         m[0], m[1], m[4], m[5], a);
   return (int)cudaGetLastError();
 }
 
-// bfloat16 q (B, Sq, H, dh), k and v (B, Sk, KV, dh), g (B, Sq, H, dh) with
-// element strides, every one a multiple of 8, every base 16-byte aligned; dh
-// a multiple of 8 up to 256; G = H / KV up to 64, or 128; dq, dk, dv
-// contiguous bfloat16; lse (B, H, Sq) float32; `scratch` of `scratch_bytes`
-// (16-byte aligned) for the slots' statistics, and with pieces > 1 the
-// partial sums and the arrival counters, as plan_flash_bwd sizes it; causal
-// and window as fa_launch's.  Launches fbt_dq_kernel, then fbt_dkdv_kernel
-// (fbt_dkdv2_kernel at DHP 256).
+// Products of a 64-row tile over DHP a kernel issues: fbt_ss_terms keeps
+// the term pairs i + j < NI, fbt_rs_terms the (t, j) with t < NT, j < NI
+// and t + j < max(NT, NI).
+constexpr int fbt_ss_pairs(int ni) { return ni * (ni + 1) / 2; }
+constexpr int fbt_rs_pairs(int nt, int ni) {
+  int n = 0;
+  for (int j = 0; j < ni; ++j)
+    for (int t = 0; t < nt && t + j < (nt > ni ? nt : ni); ++t) ++n;
+  return n;
+}
+
+template <int DHP, int NI>
+static void fbt_facts(long long* out) {
+  constexpr int NT = NI == 1 ? FBT_TERMS : FBT_F32_TERMS;
+  out[0] = FbtQShape<DHP, NI>::SMEM;
+  out[1] = FbtKShape<DHP, NI>::SMEM;
+  // dq: S and dP in each of its two passes, then dQ; dkdv: S^T, dP^T, dV, dK
+  out[2] = 4 * fbt_ss_pairs(NI) + fbt_rs_pairs(NT, NI);
+  out[3] = 2 * fbt_ss_pairs(NI) + 2 * fbt_rs_pairs(NT, NI);
+}
+
+// The tensor-core backward's figures at head width dh and dtype (as
+// fbt_launch's), for the plan and the report to read: out[0] and out[1]
+// the shared memory of a dq and of a dkdv block, out[2] and out[3] the
+// products the dq and the dkdv kernel issue for each product the gradient
+// needs.  Returns cudaErrorInvalidValue for a head the route does not take.
+extern "C" int fbt_query(int dh, int dtype, long long* out) {
+  if (dh < 8 || dh % 8 != 0 || dh > (dtype == 0 ? 128 : 256) || dtype < 0 ||
+      dtype > 1)
+    return (int)cudaErrorInvalidValue;
+  const int dhp = dh <= 64 ? 64 : dh <= 128 ? 128 : 256;
+  if (dtype == 0 && dhp == 64) fbt_facts<64, 2>(out);
+  else if (dtype == 0) fbt_facts<128, 2>(out);
+  else if (dhp == 64) fbt_facts<64, 1>(out);
+  else if (dhp == 128) fbt_facts<128, 1>(out);
+  else fbt_facts<256, 1>(out);
+  return 0;
+}
+
+// q (B, Sq, H, dh), k and v (B, Sk, KV, dh), g (B, Sq, H, dh) with element
+// strides, every one on 16 bytes, every base 16-byte aligned; dtype 1
+// bfloat16 (dh a multiple of 8 up to 256) or 0 float32 (up to 128); G = H /
+// KV up to 64, or 128; dq, dk, dv contiguous in that dtype; lse (B, H, Sq)
+// float32; `scratch` of `scratch_bytes` (16-byte aligned) for the slots'
+// statistics, and with pieces > 1 the partial sums and the arrival
+// counters, as plan_flash_bwd sizes it; float32: `terms`, 4 (B Sq H dh + B
+// Sk KV dh) fp16 elements (16-byte aligned) for the inputs' two terms
+// (fbs_split_kernel), then 16 bytes for their largest magnitudes, else
+// unused; causal and window as fa_launch's.  Launches (float32)
+// fbs_amax_kernel and fbs_split_kernel, then fbt_dq_kernel, then fbt_dkdv_kernel
+// (fbt_dkdv2_kernel at DHP 256, and at float32 DHP 128).
 // Returns the first error (a refused grant or tensor-map encoding,
 // cudaGetLastError()), else 0.
 extern "C" int fbt_launch(const void* q, const void* k, const void* v,
@@ -2071,10 +2457,11 @@ extern "C" int fbt_launch(const void* q, const void* k, const void* v,
                           long long vsb, long long vss, long long vsh,
                           long long gsb, long long gss, long long gsh,
                           float scale, int causal, int window, int pieces,
-                          void* stream) {
+                          int dtype, void* terms, void* stream) {
   if (B == 0 || Sq == 0) return 0;
   if (Sk < 1 || KV < 1 || H % KV != 0 || dh < 8 || dh % 8 != 0 || dh > 256 ||
-      window < 0 || (window > 0 && !causal) || pieces < 1)
+      window < 0 || (window > 0 && !causal) || pieces < 1 || dtype < 0 ||
+      dtype > 1 || (dtype == 0 && (dh > 128 || terms == nullptr)))
     return (int)cudaErrorInvalidValue;
   const int G = H / KV;
   // a row tile: the whole tokens of FBT_RM slots, or at G 128 half a token
@@ -2090,22 +2477,51 @@ extern "C" int fbt_launch(const void* q, const void* k, const void* v,
   if (scratch_bytes < stats + parts + counts || rows_pad > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   uint8_t* sp = static_cast<uint8_t*>(scratch);
-  FbtArgs a{(__nv_bfloat16*)dq, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, lse,
+  FbtArgs a{dq, dk, dv, lse,
             reinterpret_cast<float*>(sp), reinterpret_cast<float*>(sp + stats),
             reinterpret_cast<int*>(sp + stats + parts),
             B, Sq, Sk, H, KV, dh, (int)rows_pad, pieces, rt, scale, causal,
-            window};
-  const int gh = G < FBT_RM ? G : FBT_RM;           // a row tile's TMA box
-  const int bkq = dhp == 256 ? FbtQShape<256>::BK : FbtQShape<128>::BK;
-  CUtensorMap m[6];
-  int e;
-  if ((e = fa_tc_map(&m[0], q, B, Sq, H, dh, qsb, qss, qsh, gh, FBT_RM / gh))) return e;
-  if ((e = fa_tc_map(&m[1], g, B, Sq, H, dh, gsb, gss, gsh, gh, FBT_RM / gh))) return e;
-  if ((e = fa_tc_map(&m[2], k, B, Sk, KV, dh, ksb, kss, ksh, 1, bkq))) return e;
-  if ((e = fa_tc_map(&m[3], v, B, Sk, KV, dh, vsb, vss, vsh, 1, bkq))) return e;
-  if ((e = fa_tc_map(&m[4], k, B, Sk, KV, dh, ksb, kss, ksh, 1, FBT_BK))) return e;
-  if ((e = fa_tc_map(&m[5], v, B, Sk, KV, dh, vsb, vss, vsh, 1, FBT_BK))) return e;
+            window, nullptr};
   cudaStream_t s = (cudaStream_t)stream;
-  return dhp == 64 ? fbt_run<64>(a, m, s)
-       : dhp == 128 ? fbt_run<128>(a, m, s) : fbt_run<256>(a, m, s);
+  int e;
+  // float32: the maps read the inputs' terms, contiguous, as batches 0..2B-1
+  int Bm = B;
+  if (dtype == 0) {
+    const long long nq = (long long)B * Sq * H * dh, nk = (long long)B * Sk * KV * dh;
+    __half* tq = static_cast<__half*>(terms);
+    __half* tg = tq + 2 * nq;
+    __half* tk = tg + 2 * nq;
+    __half* tv = tk + 2 * nk;
+    unsigned* amax = reinterpret_cast<unsigned*>(tv + 2 * nk);
+    FbsArgs sa{{{(const float*)q, tq, qsb, qss, qsh, Sq, H},
+                {(const float*)g, tg, gsb, gss, gsh, Sq, H},
+                {(const float*)k, tk, ksb, kss, ksh, Sk, KV},
+                {(const float*)v, tv, vsb, vss, vsh, Sk, KV}}, B, dh, amax};
+    a.amax = amax;
+    const long long most = (nq > nk ? nq : nk) / 4;
+    const unsigned gx = (unsigned)(most < 256LL * 1056 ? (most + 255) / 256 : 1056);
+    if ((e = (int)cudaMemsetAsync(amax, 0, 4 * sizeof(unsigned), s))) return e;
+    fbs_amax_kernel<<<dim3(gx, 4), 256, 0, s>>>(sa);
+    if ((e = (int)cudaGetLastError())) return e;
+    fbs_split_kernel<<<dim3(gx, 4), 256, 0, s>>>(sa);
+    if ((e = (int)cudaGetLastError())) return e;
+    q = tq; g = tg; k = tk; v = tv;
+    qsb = gsb = (long long)Sq * H * dh; qss = gss = (long long)H * dh; qsh = gsh = dh;
+    ksb = vsb = (long long)Sk * KV * dh; kss = vss = (long long)KV * dh; ksh = vsh = dh;
+    Bm = 2 * B;
+  }
+  const int gh = G < FBT_RM ? G : FBT_RM;           // a row tile's TMA box
+  const int bkq = dtype == 0 ? (dhp == 128 ? FbtQShape<128, 2>::BK : FbtQShape<64, 2>::BK)
+                             : dhp == 256 ? FbtQShape<256>::BK : FbtQShape<128>::BK;
+  CUtensorMap m[6];
+  if ((e = fa_tc_map(&m[0], q, Bm, Sq, H, dh, qsb, qss, qsh, gh, FBT_RM / gh))) return e;
+  if ((e = fa_tc_map(&m[1], g, Bm, Sq, H, dh, gsb, gss, gsh, gh, FBT_RM / gh))) return e;
+  if ((e = fa_tc_map(&m[2], k, Bm, Sk, KV, dh, ksb, kss, ksh, 1, bkq))) return e;
+  if ((e = fa_tc_map(&m[3], v, Bm, Sk, KV, dh, vsb, vss, vsh, 1, bkq))) return e;
+  if ((e = fa_tc_map(&m[4], k, Bm, Sk, KV, dh, ksb, kss, ksh, 1, FBT_BK))) return e;
+  if ((e = fa_tc_map(&m[5], v, Bm, Sk, KV, dh, vsb, vss, vsh, 1, FBT_BK))) return e;
+  if (dtype == 0)
+    return dhp == 64 ? fbt_run<64, 2>(a, m, s) : fbt_run<128, 2>(a, m, s);
+  return dhp == 64 ? fbt_run<64, 1>(a, m, s)
+       : dhp == 128 ? fbt_run<128, 1>(a, m, s) : fbt_run<256, 1>(a, m, s);
 }

@@ -6,10 +6,12 @@ h // (H / KV), the output (B, Sq, H, dh) in q's dtype.  On CPU tensors it
 runs the plain version :func:`repro_torch.kernels.ref.flash_attention_ref`;
 on CUDA tensors a hand-written kernel of ``csrc/flash_attention.cu`` or it
 raises.  :func:`flash_route` picks the kernel: bfloat16 runs on the tensor
-cores (``fa_tc_kernel``: wgmma, TMA) wherever the shapes allow it, float32
-and the other bfloat16 shapes on the CUDA cores (``fa_kernel``; TF32 would
-break the parity contract), with the tiling :func:`plan_flash_simt` states
-(the kernel computes the same from the shapes).
+cores (``fa_tc_kernel``: wgmma, TMA; row tiles of the whole tokens
+:func:`tile_rows` states, so any G up to 64, or 128) wherever the shapes
+allow it, float32 and the other bfloat16 shapes on the CUDA cores
+(``fa_kernel``; TF32 would break the parity contract), with the tiling
+:func:`plan_flash_simt` states (the kernel computes the same from the
+shapes).
 Both read q, k and v in this layout through their strides, so a strided
 view needs no copy.  Any dh is taken: above 256 the CUDA-core kernel splits
 the output columns over blocks.
@@ -21,15 +23,19 @@ The gradient, for training: :func:`flash_attention_bwd` gives dq, dk, dv
 gradient, on CPU tensors by the plain version
 :func:`repro_torch.kernels.ref.flash_attention_bwd_ref`, on the card by one
 of two pairs of backward kernels of the same source (no atomics on floats,
-two calls bitwise equal).  :func:`flash_bwd_route` picks the pair: bfloat16
-with dh a multiple of 8 up to 256, G = H / KV up to 64 or 128, and 16-byte
-bases and strides runs on the tensor cores (``fbt_dq_kernel``, then
-``fbt_dkdv_kernel``: wgmma, TMA, p and ds as three bf16 terms, row tiles of
-whole tokens, each key tile's row walk cut into the pieces
-:func:`plan_flash_bwd` states); float32, dh not a multiple of 8 and
-unaligned views on the CUDA cores (``fb_dq_kernel``, then
-``fb_dkdv_kernel``).  ``LAUNCHES["flash_attention_bwd_wgmma"]`` and
-``LAUNCHES["flash_attention_bwd"]`` count the two routes' calls, both
+two calls bitwise equal).  :func:`flash_bwd_route` picks the pair: dh a
+multiple of 8 up to 256 in bfloat16 or up to 128 in float32, G = H / KV up
+to 64 or 128, and 16-byte bases and strides runs on the tensor cores
+(``fbt_dq_kernel``, then ``fbt_dkdv_kernel`` or ``fbt_dkdv2_kernel``:
+wgmma, TMA, row tiles of whole tokens, each key tile's row walk cut into
+the pieces :func:`plan_flash_bwd` states; bfloat16: p and ds as three bf16
+terms; float32: every operand as two fp16 terms, hi and mid, of the
+input scaled by a power of two (``fbs_amax_kernel``, then
+``fbs_split_kernel`` for q, k, v and g; p and ds by each row's power),
+each product hi.hi + hi.mid + mid.hi); float32 at dh above 128, dh not a multiple of 8 and unaligned
+views on the CUDA cores (``fb_dq_kernel``, then ``fb_dkdv_kernel``).
+``LAUNCHES["flash_attention_bwd_wgmma"]`` and
+``LAUNCHES["flash_attention_bwd"]`` count the two routes' calls, all the
 kernels of a call as one.  :class:`FlashAttentionFn` is the forward kernel
 with that backward, as autograd takes it; :func:`flash_attention_train` is
 what the model's attention calls when it needs a gradient (the plain
@@ -61,7 +67,7 @@ from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_ref
 
 __all__ = ["flash_attention_fused", "flash_route", "plan_flash_simt",
            "FlashSimtPlan", "flash_attention_bwd", "flash_bwd_route",
-           "plan_flash_bwd", "FlashBwdPlan", "bwd_tile_rows",
+           "plan_flash_bwd", "FlashBwdPlan", "tile_rows",
            "FlashAttentionFn", "flash_attention_train"]
 
 MAX_DH = 256          # the widest head the tensor-core kernel takes
@@ -112,19 +118,23 @@ def plan_flash_simt(B: int, Sq: int, H: int, KV: int, dh: int) -> FlashSimtPlan:
 
 # csrc/flash_attention.cu, fbt_dq_kernel and fbt_dkdv_kernel: row slots of
 # a dq block (two row tiles), keys of a dkdv block, row slots of a row tile
-# (a wgmma's 64 rows); the widest head; the H100's SMs; the fewest row tiles
-# a piece walks once a key tile's walk is cut.
+# (a wgmma's 64 rows); the widest head (float32: its two fp16 terms weigh
+# as a bfloat16 head of twice the width); the H100's SMs; the fewest row
+# tiles a piece walks once a key tile's walk is cut; the shared memory a
+# block may take.
 BWD_QROWS, BWD_KEYS, BWD_KROWS = 128, 64, 64
-BWD_MAX_DH = 256
+BWD_MAX_DH, BWD_F32_MAX_DH = 256, 128
 BWD_SMS = 132
 BWD_MIN_TILES = 4
+SMEM_MAX = 232448
 
 
-def bwd_tile_rows(G: int) -> int:
-    """(token, g) rows a row tile holds: the whole tokens that fit its
-    ``BWD_KROWS`` slots (60 at G 6: 10 tokens, 4 slots left empty), or at
-    G 128 half a token.  0 where neither fits (G 65..127, G > 128): such
-    calls stay on the CUDA cores."""
+def tile_rows(G: int) -> int:
+    """(token, g) rows a row tile of the tensor-core kernels (forward and
+    backward) holds: the whole tokens that fit its ``BWD_KROWS`` slots (60
+    at G 6: 10 tokens, 4 slots left empty), or at G 128 half a token.  0
+    where neither fits (G 65..127, G > 128): such calls stay on the CUDA
+    cores."""
     if G <= BWD_KROWS:
         return G * (BWD_KROWS // G)
     return BWD_KROWS if G == 2 * BWD_KROWS else 0
@@ -132,12 +142,18 @@ def bwd_tile_rows(G: int) -> int:
 
 @dataclass(frozen=True)
 class FlashBwdPlan:
-    """How the tensor-core backward runs one call.  Rows are (token, g)
-    pairs, ``tile_rows`` of them to a row tile of ``BWD_KROWS`` slots (the
-    slots past them empty: zero in the operands, never written).
+    """How the tensor-core backward runs one call.  ``terms``: 16-bit terms
+    of each of q, k, v and g (1 bfloat16; 2 float32, fp16 hi and mid of the
+    input scaled by a power of two, copied with the four inputs' largest
+    magnitudes to ``terms_bytes`` of scratch by ``fbs_amax_kernel`` and
+    ``fbs_split_kernel`` first).  Rows are
+    (token, g) pairs, ``tile_rows`` of them to a row tile of ``BWD_KROWS``
+    slots (the slots past them empty: zero in the operands, never written).
     ``dq_blocks`` blocks of ``fbt_dq_kernel``, two row tiles each, k and v
-    streamed ``dq_keys`` keys a stage; then ``dkdv_blocks`` of
-    ``fbt_dkdv_kernel`` (``fbt_dkdv2_kernel`` at DHP 256): ``key_tiles``
+    streamed ``dq_keys`` keys a stage, ``dq_smem`` bytes of shared memory;
+    then ``dkdv_blocks`` of ``fbt_dkdv_kernel`` (``fbt_dkdv2_kernel``, two
+    consumer warpgroups, where ``dhp`` x ``terms`` is above 128),
+    ``dkdv_smem`` bytes each: ``key_tiles``
     tiles of ``BWD_KEYS`` keys per (b, KV head), each walking the row tiles
     ``row_tiles[kt]`` = [lo, hi) that can see one of its keys, cut into
     ``pieces`` runs (:meth:`piece`), ``per_sm`` blocks resident on an SM.
@@ -156,6 +172,10 @@ class FlashBwdPlan:
     dq_blocks: int
     dkdv_blocks: int
     scratch_bytes: int
+    terms: int
+    dq_smem: int
+    dkdv_smem: int
+    terms_bytes: int
 
     def piece(self, kt: int, p: int) -> tuple[int, int]:
         """Row tiles [lo, hi) that piece ``p`` of key tile ``kt`` walks."""
@@ -166,24 +186,31 @@ class FlashBwdPlan:
 
 @functools.lru_cache(maxsize=256)
 def plan_flash_bwd(B: int, Sq: int, Sk: int, H: int, KV: int, dh: int,
-                   causal: bool = True, window: int = 0) -> FlashBwdPlan:
-    """The tensor-core backward's plan, from the shapes and the mask alone
-    (the kernels take ``pieces`` from it and compute the rest alike).
-    ``dhp``: dh padded to 64, 128 or 256; at 256 a dq stage holds 32 keys
-    (the 128-row q and g tiles take 128 KB) and one dkdv block
-    (``fbt_dkdv2_kernel``) fills an SM (k, v, two stages of rows and P^T
-    handed between its warpgroups: 208 KB), else 64 keys and two blocks.
+                   causal: bool = True, window: int = 0,
+                   dtype: torch.dtype = torch.bfloat16) -> FlashBwdPlan:
+    """The tensor-core backward's plan, from the shapes, the mask and the
+    dtype alone (the kernels take ``pieces`` from it and compute the rest
+    alike).  ``dhp``: dh padded to 64, 128 or 256; float32 (dh up to 128)
+    holds each operand as two fp16 terms, so its tiles weigh as a bfloat16
+    head of twice the width.  Where ``dhp`` x ``terms`` is above 128 a dq
+    stage holds 32 keys (the 128-row q and g tiles take 128 KB) and one
+    dkdv block (``fbt_dkdv2_kernel``) fills an SM (k, v, two stages of rows
+    and P^T handed between its warpgroups: 208 KB), else 64 keys and two
+    blocks.
     The pieces a key tile's walk is cut into: enough that the longest walk,
     so cut, is no longer than the resident blocks (``per_sm`` x ``BWD_SMS``)
     take for the whole work, but no piece shorter than ``BWD_MIN_TILES`` row
     tiles.  qwen2.5-3b's heads at S 4,096, causal: 64 key tiles a KV head
     (128 in all), 5 pieces each."""
-    if dh < 1 or dh > BWD_MAX_DH or KV < 1 or H % KV or Sk < 1:
-        raise ValueError(f"flash_attention_bwd: H {H}, KV {KV}, dh {dh}, Sk {Sk}")
+    ni = {torch.bfloat16: 1, torch.float32: 2}.get(dtype)
+    widest = BWD_MAX_DH if ni == 1 else BWD_F32_MAX_DH
+    if ni is None or dh < 1 or dh > widest or KV < 1 or H % KV or Sk < 1:
+        raise ValueError(f"flash_attention_bwd: H {H}, KV {KV}, dh {dh}, Sk {Sk}, "
+                         f"{dtype}")
     if window < 0 or (window and not causal):
         raise ValueError(f"flash_attention_bwd: window={window} (>= 0, causal only)")
     G = H // KV
-    rt = bwd_tile_rows(G)
+    rt = tile_rows(G)
     if not rt:
         raise ValueError(f"flash_attention_bwd: G {G} (up to 64, or 128)")
     nrows = Sq * G
@@ -201,7 +228,8 @@ def plan_flash_bwd(B: int, Sq: int, Sk: int, H: int, KV: int, dh: int,
         tiles.append((lo // rt, _cdiv(hi, rt)))
     walks = [max(0, hi - lo) for lo, hi in tiles]
     total, top = B * KV * sum(walks), max(walks)
-    per_sm = 1 if dhp == 256 else 2
+    wide = dhp * ni > 128
+    per_sm = 1 if wide else 2
     pieces = 1
     if total:
         pieces = max(1, min(_cdiv(top * per_sm * BWD_SMS, total),
@@ -210,9 +238,34 @@ def plan_flash_bwd(B: int, Sq: int, Sk: int, H: int, KV: int, dh: int,
     scratch = 4 * 2 * nbkv * rows_pad
     if pieces > 1:
         scratch += 4 * nkt * nbkv * (pieces * 2 * BWD_KEYS * dhp + 1)
-    return FlashBwdPlan(dhp, rt, 32 if dhp == 256 else 64, per_sm, rows_pad,
-                        nkt, tuple(tiles), pieces, nqb * nbkv,
-                        nkt * nbkv * pieces, scratch)
+    dq_keys = 32 if wide else 64
+    # csrc FbtQShape, FbtKShape: each term's q and g tiles and k and v
+    # stages; k and v, two stages of rows, P^T (two warpgroups) and the
+    # rows' statistics; then the mbarriers and 1 KB of alignment
+    dq_smem = ni * 2 * dhp * 2 * (BWD_QROWS + 2 * dq_keys) + 40 + 1024
+    dkdv_smem = (ni * 2 * dhp * 2 * (BWD_KEYS + 2 * BWD_KROWS)
+                 + (32 * 128 * 4 if wide else 0) + 2 * 2 * BWD_KROWS * 4
+                 + 56 + 1024)
+    terms_bytes = (0 if ni == 1     # two fp16 terms of q, g, k, v; 4 maxima
+                   else 2 * 2 * (2 * B * Sq * H * dh + 2 * B * Sk * KV * dh) + 16)
+    return FlashBwdPlan(dhp, rt, dq_keys, per_sm, rows_pad, nkt, tuple(tiles),
+                        pieces, nqb * nbkv, nkt * nbkv * pieces, scratch, ni,
+                        dq_smem, dkdv_smem, terms_bytes)
+
+
+def bwd_kernel_facts(dh: int, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The tensor-core backward kernels' own figures at head width ``dh``
+    (``fbt_query``; builds the library, so on the card only): the shared
+    memory of a dq and of a dkdv block (what :func:`plan_flash_bwd` states
+    as ``dq_smem`` and ``dkdv_smem``), and the products each kernel issues
+    for each of the five products the gradient needs."""
+    out = (ctypes.c_longlong * 4)()
+    err = load("flash_attention", _declare).fbt_query(dh, _DTYPE[dtype], out)
+    if err:
+        raise ValueError(f"fbt_query: dh {dh} {dtype} is not on the "
+                         f"tensor-core route ({err})")
+    return dict(dq_smem=out[0], dkdv_smem=out[1], dq_products=out[2],
+                dkdv_products=out[3])
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -227,44 +280,46 @@ def _declare(lib: ctypes.CDLL) -> None:
                               + [ctypes.c_float] + [ci] * 3 + [vp])
     lib.fb_launch.restype = ci
     lib.fbt_launch.argtypes = ([vp] * 9 + [cl] + [ci] * 6 + [cl] * 12
-                               + [ctypes.c_float] + [ci] * 3 + [vp])
+                               + [ctypes.c_float] + [ci] * 4 + [vp] * 2)
     lib.fbt_launch.restype = ci
-
-
-# fa_tc_kernel's q tile: 128 (token, g) rows, so G must divide it.
-TC_ROWS = 128
+    lib.fbt_query.argtypes = [ci, ci, ctypes.POINTER(cl)]
+    lib.fbt_query.restype = ci
 
 
 def flash_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """``"wgmma"`` where ``fa_tc_kernel`` takes the call — bfloat16, dh a
-    multiple of 8 up to 256, G = H / KV dividing 128, and every base and
+    multiple of 8 up to 256, G = H / KV whose tokens a row tile can hold
+    whole (up to 64) or halve (128: :func:`tile_rows`), and every base and
     every stride of q, k and v on 16 bytes (what TMA needs) — else
     ``"simt"`` (``fa_kernel``).  Reads shapes, strides and pointers only."""
     H, dh, KV = q.shape[2], q.shape[3], k.shape[2]
     if (q.dtype != torch.bfloat16 or dh % 8 or dh > MAX_DH
-            or TC_ROWS % (H // KV)):
+            or not tile_rows(H // KV)):
         return "simt"
     return "wgmma" if all(_aligned(t) for t in (q, k, v)) else "simt"
 
 
 def _aligned(t: torch.Tensor) -> bool:
-    """Base and the strides of the first three axes on 16 bytes (bf16):
-    what TMA needs."""
-    return t.data_ptr() % 16 == 0 and all((2 * s) % 16 == 0
+    """Base and the strides of the first three axes on 16 bytes (a multiple
+    of 8 bf16 or 4 float32 elements): what TMA, and the float32 split's
+    16-byte loads, need."""
+    return t.data_ptr() % 16 == 0 and all((t.element_size() * s) % 16 == 0
                                           for s in t.stride()[:3])
 
 
 def flash_bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
-    """``"wgmma"`` where the tensor-core backward (``fbt_dq_kernel``,
-    ``fbt_dkdv_kernel``) takes the call — bfloat16, dh a multiple of 8 up
-    to 256, G = H / KV whose tokens row tiles can hold whole (up to 64) or
-    halve (128: :func:`bwd_tile_rows`), and every base and stride of q, k
-    and v on 16 bytes — else ``"simt"`` (``fb_dq_kernel``,
-    ``fb_dkdv_kernel``: float32, dh not a multiple of 8, unaligned views).
-    Reads shapes, strides and pointers only."""
+    """``"wgmma"`` where the tensor-core backward (``fbt_dq_kernel``, then
+    ``fbt_dkdv_kernel`` or ``fbt_dkdv2_kernel``) takes the call — dh a
+    multiple of 8 up to 256 in bfloat16 or up to 128 in float32 (the two
+    terms of a wider head do not fit the shared memory), G = H / KV whose
+    tokens row tiles can hold whole (up to 64) or halve (128:
+    :func:`tile_rows`), and every base and stride of q, k and v on 16 bytes
+    — else ``"simt"`` (``fb_dq_kernel``, ``fb_dkdv_kernel``: float32 at dh
+    above 128, dh not a multiple of 8, unaligned views).  Reads shapes,
+    strides and pointers only."""
     H, dh, KV = q.shape[2], q.shape[3], k.shape[2]
-    if (q.dtype != torch.bfloat16 or dh % 8 or dh > BWD_MAX_DH
-            or not bwd_tile_rows(H // KV)):
+    top = {torch.bfloat16: BWD_MAX_DH, torch.float32: BWD_F32_MAX_DH}.get(q.dtype, 0)
+    if dh % 8 or dh > top or not tile_rows(H // KV):
         return "simt"
     return "wgmma" if all(_aligned(t) for t in (q, k, v)) else "simt"
 
@@ -395,16 +450,19 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if route == "wgmma":
         if not _aligned(g):              # TMA reads g too
             g = torch.empty_like(g, memory_format=torch.contiguous_format).copy_(g)
-        plan = plan_flash_bwd(B, Sq, Sk, H, KV, dh, causal, window)
+        plan = plan_flash_bwd(B, Sq, Sk, H, KV, dh, causal, window, q.dtype)
         scratch = torch.empty(_cdiv(plan.scratch_bytes, 16) * 4,
                               dtype=torch.float32, device=q.device)
+        terms = (torch.empty(plan.terms_bytes // 2, dtype=torch.bfloat16,
+                             device=q.device) if plan.terms_bytes else None)
         err = lib.fbt_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                              g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                              dv.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
                              plan.scratch_bytes, B, Sq, Sk, H, KV, dh,
                              *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                              *g.stride()[:3], dh ** -0.5, int(causal), window,
-                             plan.pieces, stream)
+                             plan.pieces, _DTYPE[q.dtype],
+                             None if terms is None else terms.data_ptr(), stream)
         check_launch("flash_attention_bwd_wgmma", err)
         return dq, dk, dv, lse
     delta = torch.empty_like(lse)

@@ -1,6 +1,6 @@
 """Time kernels on the card under other plans and variants than their own.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_kernels [--chains | --chain-trace | --flash-bwd | --served-attention]
+    PYTHONPATH=src python -m repro_torch.launch.profile_kernels [--chains | --chain-trace | --flash-bwd | --served-attention | --bwd-ab]
 
 First the chain kernels (``csrc/linear_chain.cu``): the launch floor (an
 empty kernel with the chain kernels' parameter block) and the six served
@@ -30,18 +30,32 @@ registers and spills of its kernels; both routes (``flash_attention_bwd``
 as it routes the call, and with ``route="simt"``) against the plain version on
 qwen2.5-3b's heads (causal, a window of 256, full), G 1, G 128, dh 64, and
 the DHP 256 and whole-token shapes (deepseek-v2's MLA, zamba2's dh 224 with
-its window, internvl2's G 6, G 7, dh 256), two calls bitwise equal; then
-each route at ``BWD_HEADS`` (qwen2.5-3b's, MLA, zamba2's, internvl2's),
-causal, S 4,096 and 1,024, bfloat16: time per call between CUDA events and
-each kernel's device time, beside the five-product bound and SDPA's
-backward alone (k and v expanded over G).
+its window, internvl2's G 6, G 7, dh 256), bfloat16, and the float32
+shapes of dh up to 128 (the tensor cores: two scaled fp16 terms of each
+operand; the float32 limits), and float32 with q and k five times larger
+at qwen2.5-3b's and internvl2's heads, S 4,096 (``BWD_PEAKED``), two calls
+bitwise equal; then each route at ``BWD_HEADS`` (qwen2.5-3b's, MLA,
+zamba2's, internvl2's), causal, S 4,096 and 1,024, bfloat16, and at
+qwen2.5-3b's and internvl2's in float32: time per call between CUDA events
+and each kernel's device time, beside the five-product bound (float32: at
+the fp32 peak, and on the tensor cores three 16-bit products for each of
+the five, and the products the kernels issue, as ``fbt_query`` states
+them) and SDPA's backward alone (k and v expanded over G).
 ``--served-attention`` runs only the served attention kernels at
 ``PERF.md`` §6's shapes (flash forward, p fp32, B 1, S 1,024, causal, at
 every served head shape; decode at B 8, S 2,048 and the served lengths),
-bfloat16 and float32: device time and time per call; it uses no API newer
-than PR 21's, so ``PYTHONPATH=<tree>/src python
+bfloat16 and float32: device time and time per call; then internvl2's G 6
+in bfloat16 at S 1,024 and 4,096 on both forward kernels (``fa_tc_kernel``
+as the call routes, ``fa_kernel`` through the library's own entry) beside
+SDPA; it uses only entry points that every tree with the flash window
+has, so ``PYTHONPATH=<tree>/src python
 src/repro_torch/launch/profile_kernels.py --served-attention`` times an
-older tree's kernels in the same call.  Then the megakernel's
+older tree's kernels in the same call.  ``--bwd-ab`` does the same for
+the training attention: the backward at qwen2.5-3b's heads (bfloat16 and
+float32) and internvl2's (float32), S 4,096 and 1,024, and the forward at
+qwen2.5-3b's heads, bfloat16, S 4,096, p fp32 and rounded: time per call
+and device time, and a digest of each output (equal digests: bitwise equal
+outputs) — run it once per tree, parent, change, change, parent.  Then the megakernel's
 walk instruction by instruction: SM cycles from clock stamps in a build of
 ``csrc/megakernel.cu`` that adds them (thread 0 of block 0, a bucket of
 64).  These variants say what dominates each kernel.  Each line gives the device time
@@ -289,6 +303,25 @@ BWD_HEADS = ((16, 2, 128, False), (128, 128, 192, True), (32, 32, 224, False),
              (48, 8, 128, False))
 
 
+# (S, H, KV, dh, causal, window) the backward's routes are checked at:
+# qwen2.5-3b's heads (causal, a window of 256, full; cut in pieces at S
+# 300), a window of 33 at G 1, dh 64, G 128, dh 8, the MLA, zamba2 (a
+# window) and internvl2 (G 6, also ragged with a window) heads, G 7, dh 256
+BWD_CHECKS = ((1024, 16, 2, 128, True, 0), (1024, 16, 2, 128, True, 256),
+              (1024, 16, 2, 128, False, 0), (300, 16, 2, 128, True, 0),
+              (257, 16, 16, 128, True, 33), (200, 24, 24, 64, True, 0),
+              (77, 128, 1, 64, True, 0), (33, 4, 1, 8, True, 0),
+              (1024, 128, 128, 192, True, 0), (1024, 32, 32, 224, True, 256),
+              (1024, 48, 8, 128, True, 0), (301, 48, 8, 128, True, 40),
+              (77, 7, 1, 64, True, 0), (97, 2, 1, 256, False, 0))
+
+
+# float32 with q and k BWD_PEAK times larger (scaled scores of standard
+# deviation 25): qwen2.5-3b's and internvl2-26b's heads at S 4,096
+BWD_PEAKED = ((4096, 16, 2, 128, True, 0), (4096, 48, 8, 128, True, 0))
+BWD_PEAK = 5.0
+
+
 def profile_flash_bwd(dev: torch.device) -> None:
     import torch.nn.functional as F
 
@@ -303,42 +336,34 @@ def profile_flash_bwd(dev: torch.device) -> None:
             build._nvcc("flash_attention", Path(d) / "report.so")
     lines = "\n".join(build.BUILD_LOG).splitlines()
     for i, line in enumerate(lines):
-        if "Function properties for" in line and ("fbt_" in line or "fb_d" in line):
+        if "Function properties for" in line and any(
+                x in line for x in ("fbt_", "fb_d", "fbs_")):
             print("  ptxas:", line.split("for ")[-1], "|", lines[i + 1].strip(),
                   "|", lines[i + 2].strip(), flush=True)
 
     def ulp(x: float) -> float:
         return 2.0 ** (np.floor(np.log2(x)) - 7)
 
-    def inputs(S, H, KV, dh, seed, mla=False):
+    def inputs(S, H, KV, dh, seed, mla=False, dt=torch.bfloat16):
         g = torch.Generator(device=dev).manual_seed(seed)
         q, go = (torch.randn((1, S, H, dh), generator=g, device=dev)
-                 .bfloat16() for _ in range(2))
+                 .to(dt) for _ in range(2))
         k, v = (torch.randn((1, S, KV, dh), generator=g, device=dev)
-                .bfloat16() for _ in range(2))
+                .to(dt) for _ in range(2))
         if mla:
             v[..., 128:] = 0
             go[..., 128:] = 0
         return q, k, v, go
 
     bad = 0
-    for S, H, KV, dh, causal, w in ((1024, 16, 2, 128, True, 0),
-                                    (1024, 16, 2, 128, True, 256),
-                                    (1024, 16, 2, 128, False, 0),
-                                    (300, 16, 2, 128, True, 0),
-                                    (257, 16, 16, 128, True, 33),
-                                    (200, 24, 24, 64, True, 0),
-                                    (77, 128, 1, 64, True, 0),
-                                    (33, 4, 1, 8, True, 0),
-                                    (1024, 128, 128, 192, True, 0),
-                                    (1024, 32, 32, 224, True, 256),
-                                    (1024, 48, 8, 128, True, 0),
-                                    (301, 48, 8, 128, True, 40),
-                                    (77, 7, 1, 64, True, 0),
-                                    (97, 2, 1, 256, False, 0)):
-        q, k, v, go = inputs(S, H, KV, dh, S + dh, mla=dh == 192)
+    for S, H, KV, dh, causal, w, dt, peak in (
+            [c + (torch.bfloat16, 1.0) for c in BWD_CHECKS]
+            + [c + (torch.float32, 1.0) for c in BWD_CHECKS if c[3] <= 128]
+            + [c + (torch.float32, BWD_PEAK) for c in BWD_PEAKED]):
+        q, k, v, go = inputs(S, H, KV, dh, S + dh, mla=dh == 192, dt=dt)
+        q, k = q * peak, k * peak
         want = flash_attention_bwd_ref(q, k, v, go, causal=causal, window=w)
-        plan = fa.plan_flash_bwd(1, S, S, H, KV, dh, causal, w)
+        plan = fa.plan_flash_bwd(1, S, S, H, KV, dh, causal, w, dt)
         if fa.flash_bwd_route(q, k, v) != "wgmma":
             raise RuntimeError(f"S {S} H {H} KV {KV} dh {dh}: not the tensor cores")
         for route in (None, "simt"):
@@ -350,32 +375,44 @@ def profile_flash_bwd(dev: torch.device) -> None:
             errs = []
             for name, a, b, c in zip(("dq", "dk", "dv", "lse"), got, want, again):
                 top = float(b.float().abs().max())
-                lim = 1e-5 * max(top, 1.0) if name == "lse" else 2 * ulp(top)
+                lim = (1e-5 * max(top, 1.0) if name == "lse" else 1e-4 * top
+                       if dt == torch.float32 else 2 * ulp(top))
                 err = float((a.float() - b.float()).abs().max())
                 same = torch.equal(a, c)
                 ok = err <= lim and same
                 bad += not ok
                 errs.append(f"{name} {err:.3g}/{lim:.3g}"
                             + ("" if same else " NOT BITWISE"))
-            print(f"flash_attention_bwd {route or 'wgmma'} B=1 S={S} H={H} KV={KV} dh={dh} "
+            print(f"flash_attention_bwd {route or 'wgmma'} {str(dt)[6:]} B=1 S={S} "
+                  f"H={H} KV={KV} dh={dh} "
                   f"{'causal' if causal else 'full'}{f' window {w}' if w else ''}"
+                  f"{f' q, k x{peak:g}' if peak != 1.0 else ''}"
                   f" ({plan.pieces} pieces, {plan.tile_rows} rows a tile): "
                   + ", ".join(errs), flush=True)
     print(f"flash_attention_bwd checks: {bad} over their limits", flush=True)
 
-    for H, KV, dh, mla in BWD_HEADS:
+    for H, KV, dh, mla, dt in [h + (torch.bfloat16,) for h in BWD_HEADS] + [
+            h + (torch.float32,) for h in BWD_HEADS if h[2] <= 128]:
         for S in (4096, 1024):
-            q, k, v, go = inputs(S, H, KV, dh, S, mla)
+            q, k, v, go = inputs(S, H, KV, dh, S, mla, dt)
             pairs = sum(t + 1 for t in range(S))
-            bound = 10 * H * dh * pairs / 989e12 * 1e3
-            shape = (f"bfloat16 B=1 S={S} H={H} KV={KV} dh={dh} causal"
+            flops = 10 * H * dh * pairs
+            bound = flops / (989e12 if dt == torch.bfloat16 else 67e12) * 1e3
+            shape = (f"{str(dt)[6:]} B=1 S={S} H={H} KV={KV} dh={dh} causal"
                      + (" mla v 128->192" if mla else ""))
+            extra = ""
+            if dt == torch.float32:     # the tensor cores' bounds
+                facts = fa.bwd_kernel_facts(dh, dt)
+                issued = facts["dq_products"] + facts["dkdv_products"]
+                extra = (f"; on the tensor cores 3 x 5 16-bit products "
+                         f"{flops * 3 / 989e12 * 1e3:.5f} ms, the {issued} "
+                         f"issued {flops * issued / 5 / 989e12 * 1e3:.5f} ms")
             for route in (None, "simt"):
                 def call(route=route):
                     fa.flash_attention_bwd(q, k, v, go, route=route)
                 ms = call_ms(call, 20)
                 print(f"flash_attention_bwd {route or 'wgmma'} {shape}: {ms:.5f} ms "
-                      f"a call (events), bound {bound:.5f} ms (operations); "
+                      f"a call (events), bound {bound:.5f} ms (operations){extra}; "
                       f"{_fmt(device_parts(call, 10))}", flush=True)
             # SDPA's backward alone (its forward once, outside the timer)
             qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_()
@@ -387,6 +424,48 @@ def profile_flash_bwd(dev: torch.device) -> None:
                                                      retain_graph=True), 20)
             print(f"SDPA backward {shape}: {ms:.5f} ms a call (events)", flush=True)
             del q, k, v, go, qs, ks, vs, gs, out
+
+
+def profile_bwd_ab(dev: torch.device) -> None:
+    import hashlib
+
+    import repro_torch
+    from repro_torch.kernels import flash_attention as fa
+
+    print(f"tree {Path(repro_torch.__file__).resolve().parents[2]}", flush=True)
+
+    def digest(ts) -> str:
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.float().cpu().numpy().tobytes())
+        return h.hexdigest()[:12]
+
+    for H, KV, dt in ((16, 2, torch.bfloat16), (16, 2, torch.float32),
+                      (48, 8, torch.float32)):
+        for S in (4096, 1024):
+            g = torch.Generator(device=dev).manual_seed(S + H)
+            q, go = (torch.randn((1, S, H, 128), generator=g, device=dev).to(dt)
+                     for _ in range(2))
+            k, v = (torch.randn((1, S, KV, 128), generator=g, device=dev).to(dt)
+                    for _ in range(2))
+            out = fa.flash_attention_bwd(q, k, v, go)
+
+            def call():
+                fa.flash_attention_bwd(q, k, v, go)
+            print(f"backward {str(dt)[6:]} S={S} H={H} KV={KV} dh=128: "
+                  f"{call_ms(call, 20):.5f} ms a call (events); "
+                  f"{_fmt(device_parts(call, 10))}; outputs {digest(out)}", flush=True)
+    g = torch.Generator(device=dev).manual_seed(7)
+    q = torch.randn((1, 4096, 16, 128), generator=g, device=dev).bfloat16()
+    k, v = (torch.randn((1, 4096, 2, 128), generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    for rp in (False, True):
+        def fwd(rp=rp):
+            return fa.flash_attention_fused(q, k, v, round_p=rp)
+        print(f"forward bfloat16 S=4096 H=16 KV=2 dh=128 p "
+              f"{'rounded' if rp else 'fp32'}: {call_ms(fwd, 50):.5f} ms a call "
+              f"(events); {_fmt(device_parts(fwd, 20))}; outputs {digest([fwd()])}",
+              flush=True)
 
 
 # (H, KV, dh, window, mla) of the served prefills and decodes (PERF.md §6
@@ -436,6 +515,47 @@ def profile_served_attention(dev: torch.device) -> None:
             print(f"decode_attention {name} B=8 S=2048 H={H} KV={KV} dh={dh} "
                   f"served lens p fp32: {call_ms(dec, 50):.5f} ms a call "
                   f"(events); {_fmt(parts)}", flush=True)
+    # internvl2's G 6, bfloat16: both forward kernels on the same call
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    for S in (1024, 4096):
+        q = torch.randn((1, S, 48, 128), generator=g, device=dev).bfloat16()
+        k, v = (torch.randn((1, S, 8, 128), generator=g, device=dev).bfloat16()
+                for _ in range(2))
+        out = torch.empty_like(q)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        for name, fn in (
+                (f"{fa.flash_route(q, k, v)} (as routed)",
+                 lambda: flash_attention_fused(q, k, v, round_p=False)),
+                ("fa_kernel", lambda: _fa_kernel(q, k, v, out)),
+                ("SDPA", lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True))):
+            parts = device_parts(fn, 20)
+            print(f"flash_attention bfloat16 B=1 S={S} H=48 KV=8 dh=128 causal "
+                  f"p fp32, {name}: {call_ms(fn, 50):.5f} ms a call (events); "
+                  f"{_fmt(parts)}", flush=True)
+
+
+def _fa_kernel(q, k, v, out, causal: bool = True, round_p: int = 0) -> None:
+    """``fa_kernel`` (the CUDA-core forward) through the library's own
+    entry, whatever ``flash_route`` gives the call: to time the two forward
+    kernels on the same inputs.  Counts no launch."""
+    from repro_torch.kernels import flash_attention as fa
+
+    lib = fa.load("flash_attention", fa._declare)
+    B, Sq, H, dh = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    words = 16 // q.element_size()
+    vec = all(t.data_ptr() % 16 == 0 and all(s % words == 0 for s in t.stride()[:3])
+              for t in (k, v)) and dh % words == 0
+    err = lib.fa_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                        B, Sq, Sk, H, KV, dh, *q.stride()[:3], *k.stride()[:3],
+                        *v.stride()[:3], dh ** -0.5, int(causal), round_p,
+                        int(vec), fa._DTYPE[q.dtype], 0,
+                        torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"fa_kernel launch failed: CUDA error {err}")
 
 
 def call_ms(fn, reps: int = 200) -> float:
@@ -745,6 +865,10 @@ def main(argv: list[str] | None = None) -> int:
         return 0
     if argv == ["--served-attention"]:
         profile_served_attention(dev)
+        print(card)
+        return 0
+    if argv == ["--bwd-ab"]:
+        profile_bwd_ab(dev)
         print(card)
         return 0
     profile_chains(dev)

@@ -20,10 +20,12 @@ kernels against the plain version: float32 within ``1e-4`` of each
 gradient's largest magnitude, bfloat16 within two bf16 ulps of it, and lse
 within ``1e-5`` of its largest magnitude; two calls bitwise equal (no
 atomics); each call on the route ``flash_bwd_route`` picks, as its launch
-counter shows (bfloat16 with dh a multiple of 8 up to 256 and G up to 64
-or 128 on the tensor cores, its key tiles' walks cut into pieces at S 300
-and 1,024, G 6 in row tiles of whole tokens), and the
-CUDA-core route forced on the tensor-core cases.  JAX is imported inside the reference's helper only, so that
+counter shows (dh a multiple of 8 up to 256 in bfloat16, up to 128 in
+float32, and G up to 64 or 128 on the tensor cores, its key tiles' walks
+cut into pieces at S 300 and 1,024, G 6 in row tiles of whole tokens), and
+the CUDA-core route forced on the tensor-core cases; float32 at qwen2.5-3b's
+and internvl2-26b's heads up to S 4,096; the forward at G 3, 5 and 6 on the
+tensor cores.  JAX is imported inside the reference's helper only, so that
 the card case runs where JAX is not installed.
 """
 
@@ -194,7 +196,7 @@ def test_backward_kernels_match_plain(card, case, dtype):
     q, k, v, g = (torch.from_numpy(a).to(card, dtype) for a in
                   _inputs(B, S, H, KV, dh, dh, seed=S + dh))
     route = fa.flash_bwd_route(q, k, v)
-    tc = dtype == torch.bfloat16 and dh % 8 == 0 and dh <= 256 and (
+    tc = dh % 8 == 0 and dh <= (256 if dtype == torch.bfloat16 else 128) and (
         H // KV <= 64 or H // KV == 128)
     assert route == ("wgmma" if tc else "simt")
     key = "flash_attention_bwd_wgmma" if tc else "flash_attention_bwd"
@@ -215,3 +217,82 @@ def test_backward_kernels_match_plain(card, case, dtype):
         assert LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 2
         _hold(got, want, again, dtype)
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("peak", [1.0, 5.0], ids=["unit", "peaked"])
+@pytest.mark.parametrize("S,H,KV", [(1024, 16, 2), (4096, 16, 2), (1024, 48, 8),
+                                    (4096, 48, 8)],
+                         ids=["qwen-1024", "qwen-4096", "internvl2-1024",
+                              "internvl2-4096"])
+def test_float32_backward_on_the_tensor_cores_at_the_trained_heads(card, S, H, KV,
+                                                                   peak):
+    """qwen2.5-3b's and internvl2-26b's heads in float32: on
+    ``flash_attention_bwd_wgmma`` (the split and the two kernels one call),
+    within the float32 limits of the plain version and of the CUDA-core
+    route on the same inputs, two calls bitwise equal; also with q and k
+    five times larger (``peaked``: scaled scores of standard deviation 25).
+    internvl2's at S 4,096 walks 410 row tiles a key tile in one piece: the
+    longest sum."""
+    q, k, v, g = (torch.from_numpy(a).to(card) for a in
+                  _inputs(1, S, H, KV, 128, 128, seed=S + H))
+    q, k = q * peak, k * peak
+    assert fa.flash_bwd_route(q, k, v) == "wgmma"
+    before = dict(LAUNCHES)
+    got = fa.flash_attention_bwd(q, k, v, g)
+    again = fa.flash_attention_bwd(q, k, v, g)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention_bwd_wgmma"] == before["flash_attention_bwd_wgmma"] + 2
+    assert LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"]
+    assert all(t.dtype == torch.float32 for t in got)
+    _hold(got, flash_attention_bwd_ref(q, k, v, g), again, torch.float32)
+    simt = fa.flash_attention_bwd(q, k, v, g, route="simt")
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    _hold(got, simt, again, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_plan_states_the_kernels_shared_memory(card, dtype):
+    """``plan_flash_bwd``'s ``dq_smem`` and ``dkdv_smem`` are the kernels'
+    own (``fbt_query``) at every head width the route takes, and the
+    kernels issue 15 (bfloat16: p and ds in three terms) or 27 (float32:
+    three of every product) products for the gradient's five."""
+    top = fa.BWD_MAX_DH if dtype == torch.bfloat16 else fa.BWD_F32_MAX_DH
+    for dh in range(8, top + 1, 8):
+        plan = fa.plan_flash_bwd(1, 256, 256, 16, 2, dh, dtype=dtype)
+        facts = fa.bwd_kernel_facts(dh, dtype)
+        assert (plan.dq_smem, plan.dkdv_smem) == (facts["dq_smem"],
+                                                  facts["dkdv_smem"]), dh
+        assert facts["dq_products"] + facts["dkdv_products"] == (
+            27 if dtype == torch.float32 else 15)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,H,KV,dh", [(1024, 48, 8, 128), (4096, 48, 8, 128),
+                                       (300, 6, 2, 64), (257, 10, 2, 64)],
+                         ids=["g6-1024", "g6-4096", "g3", "g5"])
+def test_forward_at_any_g_on_the_tensor_cores(card, S, H, KV, dh):
+    """internvl2-26b's G 6 and the odd G 3 and 5 on ``fa_tc_kernel`` (row
+    tiles of whole tokens): counted there and not on ``fa_kernel``, within
+    one bf16 ulp of the output's largest magnitude of the plain version,
+    causal, full and with a window of 256, p rounded and fp32."""
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    q, k, v, _ = (torch.from_numpy(a).to(card, torch.bfloat16) for a in
+                  _inputs(1, S, H, KV, dh, dh, seed=S + H))
+    assert fa.flash_route(q, k, v) == "wgmma"
+    for causal, window in ((True, 0), (False, 0), (True, 256)):
+        for rp in (True, False):
+            before = dict(LAUNCHES)
+            got = fa.flash_attention_fused(q, k, v, causal=causal, window=window,
+                                           round_p=rp)
+            torch.cuda.synchronize()
+            assert LAUNCHES["flash_attention_wgmma"] == before["flash_attention_wgmma"] + 1
+            assert LAUNCHES["flash_attention"] == before["flash_attention"]
+            want = flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       round_p=rp)
+            err = float((got.float() - want.float()).abs().max())
+            assert err <= _ulp(float(want.float().abs().max())), (causal, window, rp)

@@ -48,9 +48,9 @@ def _ulp(x: float) -> float:
     (torch.bfloat16, 264, 4, 4, "simt"),       # dh above 256
     (torch.bfloat16, 64, 96, 1, "simt"),       # G 96: no whole tokens
     (torch.bfloat16, 100, 12, 2, "simt"),      # dh not a multiple of 8
-    (torch.float32, 128, 16, 2, "simt"),
-    (torch.float32, 64, 8, 8, "simt"),
-    (torch.float32, 192, 128, 128, "simt"),
+    (torch.float32, 128, 16, 2, "wgmma"),     # float32: two bf16 terms
+    (torch.float32, 64, 8, 8, "wgmma"),
+    (torch.float32, 192, 128, 128, "simt"),    # float32 above dh 128
 ])
 def test_bwd_route(dtype, dh, H, KV, want):
     q = torch.zeros((1, 4, H, dh), dtype=dtype)
@@ -210,6 +210,26 @@ def _terms(x: torch.Tensor, n: int = 3) -> list[torch.Tensor]:
     return out
 
 
+def _pow2(m: torch.Tensor) -> torch.Tensor:
+    """fbt_pow2: 2^s with s = 13 - floor(log2 m) from m's exponent bits (at
+    most 126), bringing the largest magnitude m into [2^13, 2^14)."""
+    m = m.to(torch.float32)
+    e = ((m.view(torch.int32) >> 23) & 0xFF) - 127
+    return torch.ldexp(torch.ones_like(m), torch.clamp(13 - e, max=126))
+
+
+def _terms16(x: torch.Tensor, n: int, c: torch.Tensor) -> list[torch.Tensor]:
+    """The float32 route's terms (fbs_split_kernel, fbt_terms16): term t is
+    the fp16 rounding of what terms 0 .. t-1 left of c x, c a power of two;
+    returned divided by c (exactly), in fp32."""
+    out, y = [], x * c
+    for _ in range(n):
+        t = y.to(torch.float16).float()
+        out.append(t / c)
+        y = y - t
+    return out
+
+
 @pytest.mark.parametrize("kind", ["p", "ds"])
 def test_three_bf16_terms_sum_back_exactly(kind):
     """p in (0, 1] down to 2^-110, ds = p (dp - D) of either sign up to
@@ -240,23 +260,46 @@ def _f32(x: float) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32)
 
 
-def _emulate(q, k, v, g, causal, window):
+# terms of each operand: the bf16 route's inputs are bf16 already, and p
+# and ds take three bf16 terms; the float32 route splits every operand in
+# two fp16 terms, scaled by powers of two
+TERMS = {torch.bfloat16: dict(q=1, k=1, v=1, g=1, p=3),
+         torch.float32: dict(q=2, k=2, v=2, g=2, p=2)}
+
+
+def _emulate(q, k, v, g, causal, window, drop=None, half=True):
     """fbt_dq_kernel and fbt_dkdv_kernel in fp32 torch, tile by tile: rows
     in row tiles of ``plan.tile_rows`` whole-token rows at ``BWD_KROWS``
     slots each (the empty slots zero in q and g, lse +inf and D 0, as the
     kernels keep them; nothing written for them), dq stages of
-    ``plan.dq_keys`` keys, the statistics by slot."""
+    ``plan.dq_keys`` keys, the statistics by slot.  Each product A.B takes
+    ``TERMS[dtype]`` terms of its operands (``p`` for p and ds) and keeps
+    the pairs (i, j) with i + j below the larger count: bf16 terms, or at
+    float32 (``half``) fp16 terms of q, k, v and g each scaled by the power
+    of two of its largest magnitude, and of p and ds by that of each row;
+    ``drop`` names an operand cut to one term."""
     B, Sq, H, dh = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
     nrows = Sq * G
-    plan = fa.plan_flash_bwd(B, Sq, Sk, H, KV, dh, causal, window)
+    plan = fa.plan_flash_bwd(B, Sq, Sk, H, KV, dh, causal, window, q.dtype)
+    nterms = dict(TERMS[q.dtype])
+    if drop:
+        nterms[drop] = 1
+    f16 = half and q.dtype == torch.float32
+    tscale = {n: _pow2(t.abs().max()) for n, t in zip("qkvg", (q, k, v, g))}
+
+    def split(x, name):
+        if not f16:
+            return _terms(x, nterms[name])
+        c = _pow2(x.abs().amax(1, keepdim=True)) if name == "p" else tscale[name]
+        return _terms16(x, nterms[name], c)
     scale = _f32(dh ** -0.5)
     sl2 = scale * _f32(LOG2E)
     RT, SL, BQ, BK = plan.tile_rows, fa.BWD_KROWS, plan.dq_keys, fa.BWD_KEYS
     ntiles = -(-nrows // RT)
-    dq = torch.zeros((B, Sq, H, dh), dtype=torch.bfloat16)
-    dk = torch.zeros((B, Sk, KV, dh), dtype=torch.bfloat16)
+    dq = torch.zeros((B, Sq, H, dh), dtype=q.dtype)
+    dk = torch.zeros((B, Sk, KV, dh), dtype=q.dtype)
     dv = torch.zeros_like(dk)
     lse = torch.zeros((B, H, Sq))
     # slot -> row (-1: an empty slot, or past the last row)
@@ -275,8 +318,12 @@ def _emulate(q, k, v, g, causal, window):
             h |= keys[None, :] <= tok - window
         return h
 
-    def terms_product(x, m):
-        return sum(t @ m for t in _terms(x))
+    def prod(a, na, b, nb):
+        """a @ b over the kept pairs of their na and nb terms."""
+        ta, tb = split(a, na), split(b, nb)
+        top = max(len(ta), len(tb))
+        return sum(x @ y for j, y in enumerate(tb) for i, x in enumerate(ta)
+                   if i + j < top)
 
     for b in range(B):
         for kvh in range(KV):
@@ -301,8 +348,8 @@ def _emulate(q, k, v, g, causal, window):
                     Q, Gq = Qs[slots], Gs[slots]
                     for j in range(j0, nt):         # pass 1
                         keys = torch.arange(j * BQ, j * BQ + BQ)
-                        s = Q @ Kk[j * BQ:j * BQ + BQ].T
-                        dp = Gq @ Vk[j * BQ:j * BQ + BQ].T
+                        s = prod(Q, "q", Kk[j * BQ:j * BQ + BQ].T, "k")
+                        dp = prod(Gq, "g", Vk[j * BQ:j * BQ + BQ].T, "v")
                         hid = hidden(slots, keys)
                         s = s.masked_fill(hid, NEG)
                         m_new = torch.maximum(m2, s.max(1).values * sl2)
@@ -318,15 +365,16 @@ def _emulate(q, k, v, g, causal, window):
                     for j in range(j0, nt):         # pass 2
                         keys = torch.arange(j * BQ, j * BQ + BQ)
                         Kt = Kk[j * BQ:j * BQ + BQ]
-                        s, dp = Q @ Kt.T, Gq @ Vk[j * BQ:j * BQ + BQ].T
+                        s = prod(Q, "q", Kt.T, "k")
+                        dp = prod(Gq, "g", Vk[j * BQ:j * BQ + BQ].T, "v")
                         p = torch.exp2(s * sl2 - lse2[slots, None])
                         ds = (p * (dp - D[slots, None])).masked_fill(
                             hidden(slots, keys), 0.0)
-                        acc += terms_product(ds, Kt)
+                        acc += prod(ds, "p", Kt, "k")
                     for i, sl in enumerate(slots.tolist()):
                         if real[sl]:
                             t, gg = divmod(int(slot_row[sl]), G)
-                            dq[b, t, kvh * G + gg] = (acc[i] * scale).bfloat16()
+                            dq[b, t, kvh * G + gg] = (acc[i] * scale).to(q.dtype)
                             lse[b, kvh * G + gg, t] = lse2[sl] * _f32(0.6931471805599453)
             for kt in range(plan.key_tiles):
                 keys = torch.arange(kt * BK, kt * BK + BK)
@@ -338,21 +386,21 @@ def _emulate(q, k, v, g, causal, window):
                     for rt in range(lo, hi):
                         slots = torch.arange(rt * SL, rt * SL + SL)
                         Q, Gq = Qs[slots], Gs[slots]
-                        sT, dpT = Kt @ Q.T, Vt @ Gq.T
+                        sT, dpT = prod(Kt, "k", Q.T, "q"), prod(Vt, "v", Gq.T, "g")
                         # the kernel masks real rows only: an empty slot's
                         # zero q, g and +inf lse give p = ds = 0 by arithmetic
                         hid = (hidden(slots, keys) & real[slots][:, None]).T
                         pT = torch.exp2(sT * sl2 - lse2[slots][None, :]).masked_fill(hid, 0.0)
                         dsT = (pT * (dpT - D[slots][None, :])).masked_fill(hid, 0.0)
-                        pv += terms_product(pT, Gq)
-                        pk += terms_product(dsT, Q)
+                        pv += prod(pT, "p", Gq, "g")
+                        pk += prod(dsT, "p", Q, "q")
                     parts.append((pk, pv))
                 sk, sv = parts[0]
                 for pk, pv in parts[1:]:            # in piece order
                     sk, sv = sk + pk, sv + pv
                 n = min(BK, Sk - kt * BK)
-                dk[b, kt * BK:kt * BK + n, kvh] = (sk[:n] * scale).bfloat16()
-                dv[b, kt * BK:kt * BK + n, kvh] = sv[:n].bfloat16()
+                dk[b, kt * BK:kt * BK + n, kvh] = (sk[:n] * scale).to(q.dtype)
+                dv[b, kt * BK:kt * BK + n, kvh] = sv[:n].to(q.dtype)
     return dq, dk, dv, lse, plan
 
 

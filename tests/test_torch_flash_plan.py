@@ -138,7 +138,7 @@ def test_flash_route_takes_the_tensor_cores_only_where_it_can():
     assert flash_route(*qkv(64, 8, 2, 256)) == "wgmma"
     assert flash_route(*qkv(64, 8, 2, 100)) == "simt"      # dh % 8
     assert flash_route(*qkv(64, 8, 2, 264)) == "simt"      # dh > 256
-    assert flash_route(*qkv(64, 6, 2, 64)) == "simt"       # G = 3 does not divide 128
+    assert flash_route(*qkv(64, 6, 2, 64)) == "wgmma"      # G = 3: 63-row tiles
     fused = torch.zeros(2, 75, 16 + 2 + 2, 128, dtype=bf)
     assert flash_route(fused[:, :, :16], fused[:, :, 16:18],
                        fused[:, :, 18:]) == "wgmma"        # strided views
