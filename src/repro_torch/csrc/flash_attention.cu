@@ -766,7 +766,11 @@ extern "C" int fa_tc_launch(const void* q, const void* k, const void* v, void* o
 // tiles that the masks leave empty are skipped.  dh up to 256 (padded to
 // 64, 128 or 256 in shared memory).  Deterministic: no atomics; every sum
 // is one thread's fmaf chain in a fixed order; fp32 inside, each result
-// rounded once to the input dtype.  Two kernels, launched in this order:
+// rounded once to the input dtype.  The route of the calls the tensor
+// cores do not take (repro_torch.kernels.flash_attention.flash_bwd_route):
+// dh not a multiple of 8, views off 16 bytes, G 65..127 or above 128 (and
+// float32 at DHP 256 above G 16), and any call forced onto it (`route=
+// "simt"`).  Two kernels, launched in this order:
 //
 // fb_dq_kernel: one block per (b * KV + kv head, tile of QM (token, g)
 //   rows), the heaviest causal tiles first.  Pass 1 over the tile's key
@@ -1250,8 +1254,8 @@ extern "C" int fb_launch(const void* q, const void* k, const void* v,
 // the model's own attention) for bfloat16 q, k, v and g (NI = 1) or
 // float32 (NI = 2, point 2), dq, dk and dv in that dtype, lse (B, H, Sq)
 // fp32; causal, full or causal with a window, masked as fa_tc_kernel masks;
-// dh a multiple of 8 up to 256 (float32: 128; padded to DHP 64, 128 or
-// 256), G = H / KV up to 64, or 128.  They
+// dh a multiple of 8 up to 256 (padded to DHP 64, 128 or 256), G = H / KV
+// up to 64, or 128 (float32 at DHP 256: up to 16, point 5).  They
 // replace no TPU kernel: the reference's gradient is XLA's autodiff of
 // src/repro/models/attention.py:70 `flash_attention`, and the Pallas
 // `_kernel` has no backward.  Deterministic: no atomics on floats; every
@@ -1313,18 +1317,29 @@ extern "C" int fb_launch(const void* q, const void* k, const void* v,
 //      wgmma (fbt_ss_terms, fbt_accum), its sum times the inverse powers:
 //      15 products in dq and 12 in dkdv.  Two bf16 terms (16 bits) held
 //      unit-scale inputs but not peaked scores (q and k five times larger:
-//      dq 1.9x its limit), three bf16 terms of q and k do not fit the
-//      shared memory; two fp16 terms hold every gradient within 1e-4 of its
-//      largest magnitude and lse within 1e-5 at either scale (one term of
-//      any operand does not: tests/test_torch_flash_f32tc.py) once each row
+//      dq 1.9x its limit); two fp16 terms hold every gradient within 1e-4
+//      of its largest magnitude and lse within 1e-5 (one term of any
+//      operand does not: tests/test_torch_flash_f32tc.py) once each row
 //      tile's (dq: each key stage's) products are summed apart and added to
-//      the running sum with rounding (fbt_accum); the terms are copied
-//      once in device memory because fp32 landing tiles beside the terms
-//      do not fit a block's shared memory (the dq block's two terms of
-//      128 rows of q and g alone take 128 KB).  A float32 head's tiles
+//      the running sum with rounding (fbt_accum).  At peaked scores (q and
+//      k 8 to 16 times larger, scaled scores in the hundreds) what moves
+//      the gradients is the rounding of the score's own fp32 sum, not the
+//      terms' 22 bits (a third term of q and k changes nothing there):
+//      the tensor cores add each k-step to the accumulator with rounding
+//      that does not reach round-to-nearest, and the cross pairs, 2^-11 of
+//      the score, went through the same accumulator.  So the score
+//      products (S, S^T) keep hi.hi in two accumulators of their own (the
+//      even and the odd k-steps) and the cross pairs in a third, summed
+//      once at the end (fbt_ss_scores): the same products, no data read,
+//      and the gradients' error against the exact one falls to a half or
+//      a third (the CPU emulation's model of the accumulator, tests/
+//      test_torch_flash_f32tc.py; the card, PERF.md).  The terms are
+//      copied once in device memory because fp32 landing tiles beside the
+//      terms do not fit a block's shared memory (the dq block's two terms
+//      of 128 rows of q and g alone take 128 KB).  A float32 head's tiles
 //      weigh as a bfloat16 head of twice the width, so DHP 128 runs the
 //      DHP 256 geometry (32-key dq stages, fbt_dkdv2_kernel), and DHP 256
-//      stays on fb_*.
+//      a geometry of its own (point 5).
 //   3. Registers: a consumer has 232.  fbt_dkdv_kernel (DHP <= 128: one
 //      consumer warpgroup, two blocks an SM): dK and dV 64 + 64, S^T and
 //      dP^T 32 + 32, the terms 48 exceed them at once; so P^T's terms go
@@ -1349,15 +1364,23 @@ extern "C" int fb_launch(const void* q, const void* k, const void* v,
 //      writes fp32 partial dk and dv to scratch, and the last piece of a key
 //      tile to arrive (an integer counter) sums all of them in piece order
 //      and rounds once: the sum's order never depends on arrival.
-// float32 at DHP 256 stays on the CUDA cores (point 2), and so do G 65..127
-// and above 128 (a row tile holds neither whole tokens nor a whole part of
-// one).
+//   5. Float32 at DHP 256 (zamba2's dh 224, deepseek-v2's MLA dh 192): two
+//      fp16 terms of a row (or key) of one operand take 1 KB, so the
+//      DHP-256 bfloat16 geometry would need 384 KB.  Row tiles of 16 slots
+//      instead (FbtGeo: a.rt = G floor(16 / G) rows, G up to 16): a dq
+//      block is one consumer warpgroup of 64 slots, four row tiles of q
+//      and g (128 KB), with k and v in two stages of 16 keys (64 KB): 193
+//      KB; a fbt_dkdv2_kernel block k and v of its 64 keys (128 KB), two
+//      stages of one row tile of q and g (64 KB) and P^T of 64 x 16 (4 KB):
+//      197 KB.  Every wgmma of the scores and of dP is then 64 x 16 (N 16),
+//      the ones of dQ, dV and dK 64 x 256 over a single k-step.
+// G 65..127 and above 128 stay on the CUDA cores (a row tile holds neither
+// whole tokens nor a whole part of one), and so does float32 at DHP 256
+// with G above 16.
 
-#define FBT_BM 128         // dq kernel: row slots a block (two row tiles)
 #define FBT_BK 64          // keys a dkdv block
-#define FBT_RM 64          // row slots a row tile, a stage of the dkdv ring
+#define FBT_RM 64          // row slots a consumer warpgroup holds (a wgmma's 64 rows)
 #define FBT_STAGES 2
-#define FBT_DQ_THREADS 384
 #define FBT_LOG2E 1.4426950408889634f
 #define FBT_LN2 0.6931471805599453f
 
@@ -1377,12 +1400,28 @@ struct FbtArgs {
   const unsigned* amax;
 };
 
+// Where the row slots lie.  A row tile is RS slots holding a.rt rows of
+// whole tokens; a dq block holds WGQ consumer warpgroups of FBT_RM slots
+// (TILES row tiles), a dkdv stage one row tile.  The float32 route at DHP
+// 256 (ONE, point 5) cuts row tiles of 16 slots, one warpgroup a dq block;
+// every other instance row tiles of 64 slots, two a dq block.
+template <int DHP, int NI>
+struct FbtGeo {
+  static constexpr bool ONE = DHP == 256 && NI == 2;
+  static constexpr int RS = ONE ? 16 : FBT_RM;
+  static constexpr int WGQ = ONE ? 1 : 2;
+  static constexpr int TILES = WGQ * FBT_RM / RS;
+};
+
 // NI: 16-bit terms of each of q, k, v and g, 1 (bfloat16) or 2 (float32: fp16);
 // every tile below holds one term, the NI terms of an operand side by side.
 template <int DHP, int NI = 1>
 struct FbtQShape {
-  static constexpr int BK = DHP * NI > 128 ? 32 : 64;  // keys a stage
-  static constexpr int ROW_BYTES = FBT_BM * DHP * 2;   // the q or g tile
+  using Geo = FbtGeo<DHP, NI>;
+  static constexpr int BK = Geo::ONE ? 16 : DHP * NI > 128 ? 32 : 64;  // keys a stage
+  static constexpr int SLOTS = Geo::WGQ * FBT_RM;      // row slots a block
+  static constexpr int THREADS = 128 * (Geo::WGQ + 1);
+  static constexpr int ROW_BYTES = SLOTS * DHP * 2;    // the q or g tile
   static constexpr int KV_BYTES = BK * DHP * 2;        // a k or v stage
   static constexpr int BARS = NI * (2 * ROW_BYTES + FBT_STAGES * 2 * KV_BYTES);
   static constexpr int SMEM = BARS + (1 + 2 * FBT_STAGES) * 8 + 1024;
@@ -1390,13 +1429,14 @@ struct FbtQShape {
 
 template <int DHP, int NI = 1>
 struct FbtKShape {
+  static constexpr int RS = FbtGeo<DHP, NI>::RS;       // row slots a stage
   static constexpr int WG = DHP * NI > 128 ? 2 : 1;    // consumer warpgroups
   static constexpr int THREADS = 128 * (WG + 1);
   static constexpr int KV_BYTES = FBT_BK * DHP * 2;    // the block's k or v
-  static constexpr int ROW_BYTES = FBT_RM * DHP * 2;   // a stage's q or g rows
+  static constexpr int ROW_BYTES = RS * DHP * 2;       // a stage's q or g rows
   static constexpr int PT = NI * (2 * KV_BYTES + FBT_STAGES * 2 * ROW_BYTES);
-  static constexpr int STATS = PT + (WG - 1) * 32 * 128 * 4;   // WG 2: P^T
-  static constexpr int BARS = STATS + FBT_STAGES * 2 * FBT_RM * 4;
+  static constexpr int STATS = PT + (WG - 1) * (RS / 2) * 128 * 4;   // WG 2: P^T
+  static constexpr int BARS = STATS + FBT_STAGES * 2 * RS * 4;
   static constexpr int SMEM = BARS + (1 + 2 * FBT_STAGES) * 8 + 16 + 1024;
 };
 
@@ -1475,13 +1515,15 @@ __device__ __forceinline__ void fbt_rs_terms(float (&d)[N / 2],
                                              const uint8_t* tile, int lbo,
                                              int bt) {
   constexpr int ORDER = NT > NI ? NT : NI;
+  const uint64_t d0 = hp_desc(tile, lbo, 1024);
   hp_fence_regs(d);
   hp_wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk) {
 #pragma unroll
     for (int j = 0; j < NI; ++j) {
-      const uint64_t db = hp_desc(tile + j * bt + kk * 2048, lbo, 1024);
+      const uint64_t db = NI == 2 ? d0 + ((j * bt + kk * 2048) >> 4)   // as fbt_ss's
+                                  : hp_desc(tile + j * bt + kk * 2048, lbo, 1024);
 #pragma unroll
       for (int t = 0; t + j < ORDER && t < NT; ++t)
         hp_wgmma_rs<N, 1, NI == 2>(d, a[t][kk], db, 1);
@@ -1499,6 +1541,9 @@ __device__ __forceinline__ void fbt_rs_terms(float (&d)[N / 2],
 // and dv to 1.7-1.9x the float32 limit (internvl2's heads at S 4,096, one
 // piece a key tile), where the same products summed with rounding stay
 // under a tenth of it.
+// At N 256 (float32, DHP 256) the fresh accumulator covers 64 columns at a
+// time (the next 64 of B `lbo` bytes on): a second 128 registers beside d's
+// spilled more.  Each column's products run in the same order either way.
 template <int N, int NT, int KS, int NI = 1>
 __device__ __forceinline__ void fbt_accum(float (&d)[N / 2],
                                           const uint32_t (&a)[NT][KS][4],
@@ -1508,25 +1553,38 @@ __device__ __forceinline__ void fbt_accum(float (&d)[N / 2],
   if constexpr (NI == 1) {
     fbt_rs_terms<N, NT, KS, NI>(d, a, tile, lbo, bt);
   } else {
-    float x[N / 2];
+    constexpr int NC = N > 128 ? 64 : N;            // columns a fresh accumulator
 #pragma unroll
-    for (int i = 0; i < N / 2; ++i) x[i] = 0.0f;
-    fbt_rs_terms<N, NT, KS, NI>(x, a, tile, lbo, bt);
+    for (int c = 0; c < N / NC; ++c) {
+      float x[NC / 2];
 #pragma unroll
-    for (int i = 0; i < N / 2; ++i) d[i] += x[i] * ((i / 2) % 2 ? f1 : f0);
+      for (int i = 0; i < NC / 2; ++i) x[i] = 0.0f;
+      fbt_rs_terms<NC, NT, KS, NI>(x, a, tile + c * (NC / 64) * lbo, lbo, bt);
+#pragma unroll
+      for (int i = 0; i < NC / 2; ++i)
+        d[c * NC / 2 + i] += x[i] * ((i / 2) % 2 ? f1 : f0);
+    }
   }
 }
 
 // Issue x (64 x N) += A . B^T over DHP: A 64 rows at a (chunks of 64
 // columns `ap` bytes apart), B N rows at b (chunks `bp` apart), K-major.
+// On the float32 route (F16) every descriptor is its tile's first plus
+// the byte offset / 16 (the start address field, shared memory below 256
+// KB): one add a k-step, where building each whole took registers the DHP
+// 256 instances lack (ptxas spilled more).
 template <int DHP, int N, bool F16 = false>
 __device__ __forceinline__ void fbt_ss(float (&x)[N / 2], const uint8_t* a,
                                        const uint8_t* b, int ap, int bp) {
+  const uint64_t da = hp_desc(a, 16, 1024), db = hp_desc(b, 16, 1024);
 #pragma unroll
   for (int kk = 0; kk < DHP / 16; ++kk) {
     const int o = (kk / 4), kin = (kk % 4) * 32;
-    hp_wgmma_ss<N, 0, F16>(x, hp_desc(a + o * ap + kin, 16, 1024),
-                      hp_desc(b + o * bp + kin, 16, 1024), 1);
+    if constexpr (F16)
+      hp_wgmma_ss<N, 0, F16>(x, da + ((o * ap + kin) >> 4), db + ((o * bp + kin) >> 4), 1);
+    else
+      hp_wgmma_ss<N, 0, F16>(x, hp_desc(a + o * ap + kin, 16, 1024),
+                        hp_desc(b + o * bp + kin, 16, 1024), 1);
   }
 }
 
@@ -1544,52 +1602,94 @@ __device__ __forceinline__ void fbt_ss_terms(float (&x)[N / 2], const uint8_t* a
       fbt_ss<DHP, N, NI == 2>(x, a + i * at, b + j * bt, ap, bp);
 }
 
-// x = A . B^T and y = C . D^T (64 x N each, over DHP), as fbt_ss lays
-// them out (C as A, D as B), over NI terms as fbt_ss_terms; at NI 2 times
-// fx and fy (the inverse scales of the operands' terms).
+// The float32 route's scores, A . B^T over the terms' pairs hi.hi, hi.mid
+// and mid.hi, as three accumulators: hi.hi of the even k-steps into h0, of
+// the odd ones into h1, the two cross pairs (2^-11 of it) into x; summed
+// after, h0 + h1 + x (point 2).
+template <int DHP, int N>
+__device__ __forceinline__ void fbt_ss_scores(float (&x)[N / 2], float (&h0)[N / 2],
+                                              float (&h1)[N / 2], const uint8_t* a,
+                                              const uint8_t* b, int ap, int bp,
+                                              int at, int bt) {
+  const uint64_t da = hp_desc(a, 16, 1024), db = hp_desc(b, 16, 1024);
+#pragma unroll
+  for (int kk = 0; kk < DHP / 16; ++kk) {       // as fbt_ss's descriptors
+    const int o = (kk / 4), kin = (kk % 4) * 32;
+    const uint64_t dak = da + ((o * ap + kin) >> 4), dbk = db + ((o * bp + kin) >> 4);
+    if (kk % 2) hp_wgmma_ss<N, 0, true>(h1, dak, dbk, 1);
+    else hp_wgmma_ss<N, 0, true>(h0, dak, dbk, 1);
+  }
+  fbt_ss<DHP, N, true>(x, a, b + bt, ap, bp);
+  fbt_ss<DHP, N, true>(x, a + at, b, ap, bp);
+}
+
+// x = A . B^T (64 x N over DHP, as fbt_ss lays it out), and with PAIR y =
+// C . D^T alike, over NI terms as fbt_ss_terms; at NI 2 times fx and fy
+// (the inverse scales of the operands' terms), x as scores (SCORES:
+// fbt_ss_scores).
+template <int DHP, int N, int NI, bool SCORES, bool PAIR>
+__device__ __forceinline__ void fbt_prod(float (&x)[N / 2], float (&y)[N / 2],
+                                         const uint8_t* a, const uint8_t* b,
+                                         const uint8_t* c, const uint8_t* d,
+                                         int ap, int bp, int at, int bt,
+                                         float fx, float fy) {
+  constexpr bool SPLIT = NI == 2 && SCORES;
+  float h0[SPLIT ? N / 2 : 1], h1[SPLIT ? N / 2 : 1];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) x[i] = 0.0f;
+  hp_fence_regs(x);
+  if constexpr (PAIR) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) y[i] = 0.0f;
+    hp_fence_regs(y);
+  }
+  if constexpr (SPLIT) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) h0[i] = h1[i] = 0.0f;
+    hp_fence_regs(h0);
+    hp_fence_regs(h1);
+  }
+  hp_wgmma_fence();
+  if constexpr (SPLIT) fbt_ss_scores<DHP, N>(x, h0, h1, a, b, ap, bp, at, bt);
+  else fbt_ss_terms<DHP, N, NI>(x, a, b, ap, bp, at, bt);
+  if constexpr (PAIR) fbt_ss_terms<DHP, N, NI>(y, c, d, ap, bp, at, bt);
+  hp_wgmma_commit();
+  hp_wgmma_wait<0>();
+  hp_fence_regs(x);
+  if constexpr (PAIR) hp_fence_regs(y);
+  if constexpr (SPLIT) {
+    hp_fence_regs(h0);
+    hp_fence_regs(h1);
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) x[i] += h0[i] + h1[i];
+  }
+  if constexpr (NI == 2) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      x[i] *= fx;
+      if constexpr (PAIR) y[i] *= fy;
+    }
+  }
+}
+
+// S = q.k^T (or S^T = K.q^T) and dP = g.v^T (dP^T = V.g^T), 64 x N each.
 template <int DHP, int N, int NI = 1>
 __device__ __forceinline__ void fbt_pair(float (&x)[N / 2], float (&y)[N / 2],
                                          const uint8_t* a, const uint8_t* b,
                                          const uint8_t* c, const uint8_t* d,
                                          int ap, int bp, int at = 0, int bt = 0,
                                          float fx = 1.0f, float fy = 1.0f) {
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) x[i] = y[i] = 0.0f;
-  hp_fence_regs(x);
-  hp_fence_regs(y);
-  hp_wgmma_fence();
-  fbt_ss_terms<DHP, N, NI>(x, a, b, ap, bp, at, bt);
-  fbt_ss_terms<DHP, N, NI>(y, c, d, ap, bp, at, bt);
-  hp_wgmma_commit();
-  hp_wgmma_wait<0>();
-  hp_fence_regs(x);
-  hp_fence_regs(y);
-  if constexpr (NI == 2) {
-#pragma unroll
-    for (int i = 0; i < N / 2; ++i) {
-      x[i] *= fx;
-      y[i] *= fy;
-    }
-  }
+  fbt_prod<DHP, N, NI, true, true>(x, y, a, b, c, d, ap, bp, at, bt, fx, fy);
 }
 
-// x = A . B^T alone (64 x 64 over DHP), laid out as fbt_ss's (NI 2: times fx).
-template <int DHP, int NI = 1>
-__device__ __forceinline__ void fbt_one(float (&x)[32], const uint8_t* a,
+// x = A . B^T alone (64 x N), scores (S^T) or not (dP^T).
+template <int DHP, int N, int NI, bool SCORES>
+__device__ __forceinline__ void fbt_one(float (&x)[N / 2], const uint8_t* a,
                                         const uint8_t* b, int ap, int bp,
                                         int at = 0, int bt = 0, float fx = 1.0f) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) x[i] = 0.0f;
-  hp_fence_regs(x);
-  hp_wgmma_fence();
-  fbt_ss_terms<DHP, 64, NI>(x, a, b, ap, bp, at, bt);
-  hp_wgmma_commit();
-  hp_wgmma_wait<0>();
-  hp_fence_regs(x);
-  if constexpr (NI == 2) {
-#pragma unroll
-    for (int i = 0; i < 32; ++i) x[i] *= fx;
-  }
+  float y[N / 2];
+  fbt_prod<DHP, N, NI, SCORES, false>(x, y, a, b, nullptr, nullptr, ap, bp, at,
+                                      bt, fx, 1.0f);
 }
 
 // Two adjacent outputs at element `at` of out: bfloat16 on the bf16 route
@@ -1630,14 +1730,16 @@ __device__ __forceinline__ void fbt_bar() {
 }
 
 template <int DHP, int NT, int NI>
-__global__ void __launch_bounds__(FBT_DQ_THREADS, 1)
+__global__ void __launch_bounds__(FbtQShape<DHP, NI>::THREADS, 1)
 fbt_dq_kernel(const __grid_constant__ CUtensorMap mq,
               const __grid_constant__ CUtensorMap mg,
               const __grid_constant__ CUtensorMap mk,
               const __grid_constant__ CUtensorMap mv, FbtArgs a) {
   using S = FbtQShape<DHP, NI>;
-  constexpr int BK = S::BK, NSC = BK / 2, KS = BK / 16;
+  using Geo = FbtGeo<DHP, NI>;
+  constexpr int BK = S::BK, NSC = BK / 2, KS = BK / 16, RS = Geo::RS;
   constexpr int NO = DHP / 2;                       // dq fragment registers
+  constexpr int TPW = FBT_RM / RS;                  // row tiles a warpgroup
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (hp_smem(smem_raw) & 1023)) & 1023);
   uint8_t* Qs = smem;
@@ -1649,12 +1751,12 @@ fbt_dq_kernel(const __grid_constant__ CUtensorMap mq,
 
   const int tid = threadIdx.x, wg = tid / 128;
   const int G = a.H / a.KV, nrows = a.Sq * G, nbkv = a.B * a.KV, RT = a.rt;
-  const int npair = ((nrows + RT - 1) / RT + 1) / 2;  // row-tile pairs a head
+  const int nblk = ((nrows + RT - 1) / RT + Geo::TILES - 1) / Geo::TILES;  // a head
   const int bkv = blockIdx.x % nbkv, rank = blockIdx.x / nbkv;   // heaviest first
-  const int pair = npair - 1 - rank;
-  const int r0 = 2 * pair * RT;                     // the block's first row
+  const int blk = nblk - 1 - rank;
+  const int r0 = blk * Geo::TILES * RT;             // the block's first row
   const int b = bkv / a.KV, kvh = bkv % a.KV;
-  const int last_row = min(r0 + 2 * RT, nrows) - 1;
+  const int last_row = min(r0 + Geo::TILES * RT, nrows) - 1;
   const int kend = a.causal ? min(a.Sk, last_row / G + 1) : a.Sk;
   const int nt = (kend + BK - 1) / BK;
   // the first key tile inside the window of the block's first row
@@ -1664,27 +1766,29 @@ fbt_dq_kernel(const __grid_constant__ CUtensorMap mq,
     hp_bar_init(q_full, 1);
     for (int s = 0; s < FBT_STAGES; ++s) {
       hp_bar_init(&full[s], 1);
-      hp_bar_init(&empty[s], 8);          // one arrival per consumer warp
+      hp_bar_init(&empty[s], 4 * Geo::WGQ);   // one arrival per consumer warp
     }
     hp_bar_init_fence();
   }
   __syncthreads();
 
-  if (wg == 2) {
+  // setmaxnreg moves registers to two consumer warpgroups; with one, the
+  // 256 threads' 255 each fit the register file as they are
+  if (wg == Geo::WGQ) {
     // ----------------------------------------------------- producer
-    hp_regs_dec<40>();
-    if (tid != 256) return;
+    if constexpr (Geo::WGQ > 1) hp_regs_dec<40>();
+    if (tid != 128 * Geo::WGQ) return;
     // term t of batch b is batch b + t B of the maps (float32: the terms'
     // copy; bfloat16: t = 0, the inputs themselves)
-    hp_bar_expect_tx(q_full, 2 * 2 * NI * (DHP / 64) * RT * 128);
+    hp_bar_expect_tx(q_full, 2 * NI * (DHP / 64) * Geo::TILES * RT * 128);
 #pragma unroll
     for (int t = 0; t < NI; ++t)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {       // row tile h into slots 64 h ..
+      for (int h = 0; h < Geo::TILES; ++h) {   // row tile h into slots RS h ..
         const int rr = r0 + h * RT;
 #pragma unroll
         for (int c = 0; c < DHP / 64; ++c) {
-          const int at = t * S::ROW_BYTES + c * FBT_BM * 128 + h * FBT_RM * 128;
+          const int at = t * S::ROW_BYTES + c * S::SLOTS * 128 + h * RS * 128;
           hp_tma_4d(Qs + at, &mq, q_full, c * 64, kvh * G + rr % G, rr / G,
                     b + t * a.B);
           hp_tma_4d(Gs + at, &mg, q_full, c * 64, kvh * G + rr % G, rr / G,
@@ -1709,14 +1813,17 @@ fbt_dq_kernel(const __grid_constant__ CUtensorMap mq,
     return;
   }
   // ------------------------------------------------------ consumers
-  hp_regs_inc<232>();
+  if constexpr (Geo::WGQ > 1) hp_regs_inc<232>();
   const int warp = (tid % 128) / 32, lane = tid % 32;
   const int sl = warp * 16 + lane / 4;              // slots sl and sl + 8
-  const int rw = r0 + wg * RT;                      // this row tile's first row
-  const bool filled[2] = {sl < RT, sl + 8 < RT};
-  const int tok[2] = {(rw + sl) / G, (rw + sl + 8) / G};
-  const int tok_lo = rw / G;                        // this row tile's first
-  const int tok_hi = (rw + RT - 1) / G;             // and last token
+  const int rw = r0 + wg * TPW * RT;                // the warpgroup's first row
+  // slot s of the warpgroup: slot s % RS of its row tile s / RS
+  const int row[2] = {rw + (sl / RS) * RT + sl % RS,
+                      rw + ((sl + 8) / RS) * RT + (sl + 8) % RS};
+  const bool filled[2] = {sl % RS < RT, (sl + 8) % RS < RT};
+  const int tok[2] = {row[0] / G, row[1] / G};
+  const int tok_lo = rw / G;                        // the warpgroup's first
+  const int tok_hi = (rw + TPW * RT - 1) / G;       // and last token
   const float sl2 = a.scale * FBT_LOG2E;
   const uint8_t* Qw = Qs + wg * FBT_RM * 128;
   const uint8_t* Gw = Gs + wg * FBT_RM * 128;
@@ -1742,8 +1849,9 @@ fbt_dq_kernel(const __grid_constant__ CUtensorMap mq,
     hp_bar_wait(&full[s], (n / FBT_STAGES) & 1);
     const uint8_t* Kt = KVs + s * 2 * NI * S::KV_BYTES;
     float sc[NSC], dp[NSC];
-    fbt_pair<DHP, BK, NI>(sc, dp, Qw, Kt, Gw, Kt + NI * S::KV_BYTES, FBT_BM * 128,
-                          BK * 128, S::ROW_BYTES, S::KV_BYTES, f.qk, f.gv);
+    fbt_pair<DHP, BK, NI>(sc, dp, Qw, Kt, Gw, Kt + NI * S::KV_BYTES,
+                          S::SLOTS * 128, BK * 128, S::ROW_BYTES, S::KV_BYTES,
+                          f.qk, f.gv);
     if (lane == 0) hp_bar_arrive(&empty[s]);        // the stage is read
     const bool edge = edge_of(j);
     if (edge) {
@@ -1785,20 +1893,19 @@ fbt_dq_kernel(const __grid_constant__ CUtensorMap mq,
   float lse2[2], D[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int row = rw + sl + 8 * h;
     // a row that sees no key (none of the model's), the rows past the last
     // token and the empty slots get p = 0 everywhere
-    const bool real = filled[h] && row < nrows;
+    const bool real = filled[h] && row[h] < nrows;
     const bool live = real && l[h] > 0.0f;
     lse2[h] = live ? m2[h] + log2f(l[h]) : FB_INF;
     D[h] = live ? pd[h] / l[h] : 0.0f;
     if (lane % 4 == 0) {
-      float* st = a.stats + (long long)bkv * a.rows_pad + pair * FBT_BM +
+      float* st = a.stats + (long long)bkv * a.rows_pad + blk * S::SLOTS +
                   wg * FBT_RM + sl + 8 * h;
       st[0] = lse2[h];
       st[(long long)nbkv * a.rows_pad] = D[h];
       if (real) {
-        const int t = row / G, g = row % G;
+        const int t = row[h] / G, g = row[h] % G;
         a.lse[((long long)b * a.H + kvh * G + g) * a.Sq + t] = lse2[h] * FBT_LN2;
       }
     }
@@ -1813,8 +1920,9 @@ fbt_dq_kernel(const __grid_constant__ CUtensorMap mq,
     hp_bar_wait(&full[s], (n / FBT_STAGES) & 1);
     const uint8_t* Kt = KVs + s * 2 * NI * S::KV_BYTES;
     float sc[NSC], dp[NSC];
-    fbt_pair<DHP, BK, NI>(sc, dp, Qw, Kt, Gw, Kt + NI * S::KV_BYTES, FBT_BM * 128,
-                          BK * 128, S::ROW_BYTES, S::KV_BYTES, f.qk, f.gv);
+    fbt_pair<DHP, BK, NI>(sc, dp, Qw, Kt, Gw, Kt + NI * S::KV_BYTES,
+                          S::SLOTS * 128, BK * 128, S::ROW_BYTES, S::KV_BYTES,
+                          f.qk, f.gv);
     const bool edge = edge_of(j);
 #pragma unroll
     for (int i = 0; i < NSC; ++i) {
@@ -1838,9 +1946,8 @@ fbt_dq_kernel(const __grid_constant__ CUtensorMap mq,
   // ------------------------------------------------------ epilogue
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int row = rw + sl + 8 * h;
-    if (!filled[h] || row >= nrows) continue;
-    const int t = row / G, g = row % G;
+    if (!filled[h] || row[h] >= nrows) continue;
+    const int t = row[h] / G, g = row[h] % G;
     const long long at = (((long long)b * a.Sq + t) * a.H + kvh * G + g) * a.dh;
 #pragma unroll
     for (int n8 = 0; n8 < DHP / 8; ++n8) {
@@ -1880,11 +1987,11 @@ __device__ __forceinline__ void fbt_kv_init(uint8_t* Rs, uint64_t* kv_full,
     }
     hp_bar_init_fence();
   }
-  if (rt < FBT_RM) {
-    const int dead = FBT_RM - rt, n16 = FBT_STAGES * 2 * NI * (DHP / 64) * dead * 8;
+  if (rt < S::RS) {
+    const int dead = S::RS - rt, n16 = FBT_STAGES * 2 * NI * (DHP / 64) * dead * 8;
     for (int i = tid; i < n16; i += S::THREADS) {
       const int u = i % 8, r = (i / 8) % dead, c = i / (8 * dead);
-      *reinterpret_cast<uint4*>(Rs + c * FBT_RM * 128 + (rt + r) * 128 + u * 16) =
+      *reinterpret_cast<uint4*>(Rs + c * S::RS * 128 + (rt + r) * 128 + u * 16) =
           make_uint4(0u, 0u, 0u, 0u);
     }
     hp_fence_async_smem();
@@ -1918,20 +2025,20 @@ __device__ __forceinline__ void fbt_kv_load(
     if (n >= FBT_STAGES) hp_bar_wait(&empty[s], ((n / FBT_STAGES) - 1) & 1);
     uint8_t* Qt = Rs + s * 2 * NI * S::ROW_BYTES;
     uint8_t* Gt = Qt + NI * S::ROW_BYTES;
-    hp_bar_expect_tx(&full[s], 2 * NI * (DHP / 64) * a.rt * 128 + 2 * FBT_RM * 4);
+    hp_bar_expect_tx(&full[s], 2 * NI * (DHP / 64) * a.rt * 128 + 2 * S::RS * 4);
 #pragma unroll
     for (int t = 0; t < NI; ++t)
 #pragma unroll
       for (int c = 0; c < DHP / 64; ++c) {
-        const int at = t * S::ROW_BYTES + c * FBT_RM * 128;
+        const int at = t * S::ROW_BYTES + c * S::RS * 128;
         hp_tma_4d(Qt + at, mq, &full[s], c * 64, kvh * G + r0 % G, r0 / G,
                   b + t * a.B);
         hp_tma_4d(Gt + at, mg, &full[s], c * 64, kvh * G + r0 % G, r0 / G,
                   b + t * a.B);
       }
-    hp_bulk_load(stat + s * 2 * FBT_RM, st + r * FBT_RM, FBT_RM * 4, &full[s]);
-    hp_bulk_load(stat + s * 2 * FBT_RM + FBT_RM,
-                 st + (long long)nbkv * a.rows_pad + r * FBT_RM, FBT_RM * 4,
+    hp_bulk_load(stat + s * 2 * S::RS, st + r * S::RS, S::RS * 4, &full[s]);
+    hp_bulk_load(stat + s * 2 * S::RS + S::RS,
+                 st + (long long)nbkv * a.rows_pad + r * S::RS, S::RS * 4,
                  &full[s]);
   }
 }
@@ -1945,7 +2052,7 @@ fbt_dkdv_kernel(const __grid_constant__ CUtensorMap mq,
                 const __grid_constant__ CUtensorMap mk,
                 const __grid_constant__ CUtensorMap mv, FbtArgs a) {
   using S = FbtKShape<DHP, NI>;
-  static_assert(S::WG == 1, "fbt_dkdv_kernel: DHP * NI up to 128");
+  static_assert(S::WG == 1 && S::RS == FBT_RM, "fbt_dkdv_kernel: DHP * NI up to 128");
   constexpr int NO = DHP / 2;                       // dk, dv fragment registers
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (hp_smem(smem_raw) & 1023)) & 1023);
@@ -2115,6 +2222,7 @@ fbt_dkdv2_kernel(const __grid_constant__ CUtensorMap mq,
                  const __grid_constant__ CUtensorMap mv, FbtArgs a) {
   constexpr int NO = DHP / 2;
   using S = FbtKShape<DHP, NI>;
+  constexpr int RS = S::RS, NX = RS / 2, KS = RS / 16;   // a stage's slots
   static_assert(S::WG == 2, "fbt_dkdv2_kernel: DHP * NI above 128");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (hp_smem(smem_raw) & 1023)) & 1023);
@@ -2163,19 +2271,19 @@ fbt_dkdv2_kernel(const __grid_constant__ CUtensorMap mq,
     hp_bar_wait(&full[s], (n / FBT_STAGES) & 1);
     const uint8_t* Qt = Rs + s * 2 * NI * S::ROW_BYTES;
     const uint8_t* Gt = Qt + NI * S::ROW_BYTES;
-    const float* Ls = stat + s * 2 * FBT_RM;
-    const float* Ds = Ls + FBT_RM;
-    float x[32];                                    // S^T, or dP^T
+    const float* Ls = stat + s * 2 * RS;
+    const float* Ds = Ls + RS;
+    float x[NX];                                    // S^T, or dP^T
     if (wg == 0) {
-      fbt_one<DHP, NI>(x, Ks, Qt, FBT_BK * 128, FBT_RM * 128, S::KV_BYTES,
-                       S::ROW_BYTES, f.qk);
+      fbt_one<DHP, RS, NI, true>(x, Ks, Qt, FBT_BK * 128, RS * 128, S::KV_BYTES,
+                                 S::ROW_BYTES, f.qk);
       // as fbt_dkdv_kernel masks
       const int t_lo = r0 / G, t_hi = (r0 + RT - 1) / G;
       const bool edge = k0 + FBT_BK > a.Sk || r0 + RT > nrows ||
                         (a.causal && k0 + FBT_BK - 1 > t_lo) ||
                         (a.window > 0 && k0 <= t_hi - a.window);
 #pragma unroll
-      for (int n8 = 0; n8 < 8; ++n8)
+      for (int n8 = 0; n8 < RS / 8; ++n8)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int col = 8 * n8 + 2 * (lane % 4) + e;    // slot col: row r0 + col
@@ -2194,26 +2302,26 @@ fbt_dkdv2_kernel(const __grid_constant__ CUtensorMap mq,
         }
       if (n > 0) fbt_bar<2, 256>();
 #pragma unroll
-      for (int i = 0; i < 32; ++i) Ps[i * 128 + ct] = x[i];
+      for (int i = 0; i < NX; ++i) Ps[i * 128 + ct] = x[i];
       fbt_bar<2, 256>();
-      uint32_t pt[NT][4][4];
+      uint32_t pt[NT][KS][4];
       // dV += P^T . g
       if constexpr (NI == 2) {
         float inv[2];
-        fbt_terms16<NT, 4>(pt, x, inv);
-        fbt_accum<DHP, NT, 4, NI>(acc, pt, Gt, FBT_RM * 128, S::ROW_BYTES,
-                                  inv[0] * f.g, inv[1] * f.g);
+        fbt_terms16<NT, KS>(pt, x, inv);
+        fbt_accum<DHP, NT, KS, NI>(acc, pt, Gt, RS * 128, S::ROW_BYTES,
+                                   inv[0] * f.g, inv[1] * f.g);
       } else {
-        fbt_terms<NT, 4>(pt, x);
-        fbt_accum<DHP, NT, 4, NI>(acc, pt, Gt, FBT_RM * 128, S::ROW_BYTES);
+        fbt_terms<NT, KS>(pt, x);
+        fbt_accum<DHP, NT, KS, NI>(acc, pt, Gt, RS * 128, S::ROW_BYTES);
       }
     } else {
-      fbt_one<DHP, NI>(x, Vs, Gt, FBT_BK * 128, FBT_RM * 128, S::KV_BYTES,
-                       S::ROW_BYTES, f.gv);
+      fbt_one<DHP, RS, NI, false>(x, Vs, Gt, FBT_BK * 128, RS * 128, S::KV_BYTES,
+                                  S::ROW_BYTES, f.gv);
       if (n > 0) fbt_bar<2, 256>();
       fbt_bar<2, 256>();
 #pragma unroll
-      for (int n8 = 0; n8 < 8; ++n8)
+      for (int n8 = 0; n8 < RS / 8; ++n8)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const float Dr = Ds[8 * n8 + 2 * (lane % 4) + e];
@@ -2223,16 +2331,16 @@ fbt_dkdv2_kernel(const __grid_constant__ CUtensorMap mq,
             x[i] = Ps[i * 128 + ct] * (x[i] - Dr);
           }
         }
-      uint32_t dst[NT][4][4];
+      uint32_t dst[NT][KS][4];
       // dK += dS^T . q
       if constexpr (NI == 2) {
         float inv[2];
-        fbt_terms16<NT, 4>(dst, x, inv);
-        fbt_accum<DHP, NT, 4, NI>(acc, dst, Qt, FBT_RM * 128, S::ROW_BYTES,
-                                  inv[0] * f.q, inv[1] * f.q);
+        fbt_terms16<NT, KS>(dst, x, inv);
+        fbt_accum<DHP, NT, KS, NI>(acc, dst, Qt, RS * 128, S::ROW_BYTES,
+                                   inv[0] * f.q, inv[1] * f.q);
       } else {
-        fbt_terms<NT, 4>(dst, x);
-        fbt_accum<DHP, NT, 4, NI>(acc, dst, Qt, FBT_RM * 128, S::ROW_BYTES);
+        fbt_terms<NT, KS>(dst, x);
+        fbt_accum<DHP, NT, KS, NI>(acc, dst, Qt, RS * 128, S::ROW_BYTES);
       }
     }
     if (lane == 0) hp_bar_arrive(&empty[s]);
@@ -2374,7 +2482,8 @@ static int fbt_run(const FbtArgs& a, const CUtensorMap (&m)[6], cudaStream_t s) 
   if (e) return e;
   const long long nbkv = (long long)a.B * a.KV;
   const long long ntile = ((long long)a.Sq * (a.H / a.KV) + a.rt - 1) / a.rt;
-  const long long bq = (ntile + 1) / 2 * nbkv;
+  constexpr int TILES = FbtGeo<DHP, NI>::TILES;
+  const long long bq = (ntile + TILES - 1) / TILES * nbkv;
   const long long nkt = ((long long)a.Sk + FBT_BK - 1) / FBT_BK;
   const long long bk = nkt * nbkv * a.pieces;
   if (bq > 0x7fffffffLL || bk > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
@@ -2382,7 +2491,7 @@ static int fbt_run(const FbtArgs& a, const CUtensorMap (&m)[6], cudaStream_t s) 
     e = (int)cudaMemsetAsync(a.count, 0, nkt * nbkv * sizeof(int), s);
     if (e) return e;
   }
-  fbt_dq_kernel<DHP, NT, NI><<<(unsigned)bq, FBT_DQ_THREADS, SQ::SMEM, s>>>(
+  fbt_dq_kernel<DHP, NT, NI><<<(unsigned)bq, SQ::THREADS, SQ::SMEM, s>>>(
       m[0], m[1], m[2], m[3], a);
   e = (int)cudaGetLastError();
   if (e) return e;
@@ -2422,12 +2531,12 @@ static void fbt_facts(long long* out) {
 // products the dq and the dkdv kernel issue for each product the gradient
 // needs.  Returns cudaErrorInvalidValue for a head the route does not take.
 extern "C" int fbt_query(int dh, int dtype, long long* out) {
-  if (dh < 8 || dh % 8 != 0 || dh > (dtype == 0 ? 128 : 256) || dtype < 0 ||
-      dtype > 1)
+  if (dh < 8 || dh % 8 != 0 || dh > 256 || dtype < 0 || dtype > 1)
     return (int)cudaErrorInvalidValue;
   const int dhp = dh <= 64 ? 64 : dh <= 128 ? 128 : 256;
   if (dtype == 0 && dhp == 64) fbt_facts<64, 2>(out);
-  else if (dtype == 0) fbt_facts<128, 2>(out);
+  else if (dtype == 0 && dhp == 128) fbt_facts<128, 2>(out);
+  else if (dtype == 0) fbt_facts<256, 2>(out);
   else if (dhp == 64) fbt_facts<64, 1>(out);
   else if (dhp == 128) fbt_facts<128, 1>(out);
   else fbt_facts<256, 1>(out);
@@ -2436,8 +2545,9 @@ extern "C" int fbt_query(int dh, int dtype, long long* out) {
 
 // q (B, Sq, H, dh), k and v (B, Sk, KV, dh), g (B, Sq, H, dh) with element
 // strides, every one on 16 bytes, every base 16-byte aligned; dtype 1
-// bfloat16 (dh a multiple of 8 up to 256) or 0 float32 (up to 128); G = H /
-// KV up to 64, or 128; dq, dk, dv contiguous in that dtype; lse (B, H, Sq)
+// bfloat16 or 0 float32, dh a multiple of 8 up to 256; G = H / KV up to 64,
+// or 128 (float32 at dh above 128: up to 16); dq, dk, dv contiguous in that
+// dtype; lse (B, H, Sq)
 // float32; `scratch` of `scratch_bytes` (16-byte aligned) for the slots'
 // statistics, and with pieces > 1 the partial sums and the arrival
 // counters, as plan_flash_bwd sizes it; float32: `terms`, 4 (B Sq H dh + B
@@ -2445,7 +2555,7 @@ extern "C" int fbt_query(int dh, int dtype, long long* out) {
 // (fbs_split_kernel), then 16 bytes for their largest magnitudes, else
 // unused; causal and window as fa_launch's.  Launches (float32)
 // fbs_amax_kernel and fbs_split_kernel, then fbt_dq_kernel, then fbt_dkdv_kernel
-// (fbt_dkdv2_kernel at DHP 256, and at float32 DHP 128).
+// (fbt_dkdv2_kernel at DHP 256, and at float32 DHP 128 and 256).
 // Returns the first error (a refused grant or tensor-map encoding,
 // cudaGetLastError()), else 0.
 extern "C" int fbt_launch(const void* q, const void* k, const void* v,
@@ -2461,16 +2571,20 @@ extern "C" int fbt_launch(const void* q, const void* k, const void* v,
   if (B == 0 || Sq == 0) return 0;
   if (Sk < 1 || KV < 1 || H % KV != 0 || dh < 8 || dh % 8 != 0 || dh > 256 ||
       window < 0 || (window > 0 && !causal) || pieces < 1 || dtype < 0 ||
-      dtype > 1 || (dtype == 0 && (dh > 128 || terms == nullptr)))
+      dtype > 1 || (dtype == 0 && terms == nullptr))
     return (int)cudaErrorInvalidValue;
   const int G = H / KV;
-  // a row tile: the whole tokens of FBT_RM slots, or at G 128 half a token
-  const int rt = G <= FBT_RM ? G * (FBT_RM / G) : G == 2 * FBT_RM ? FBT_RM : 0;
-  if (rt == 0) return (int)cudaErrorInvalidValue;
   const int dhp = dh <= 64 ? 64 : dh <= 128 ? 128 : 256;
+  // FbtGeo: float32 at DHP 256 cuts row tiles of 16 slots, four a dq block
+  const bool one = dtype == 0 && dhp == 256;
+  const int rs = one ? FbtGeo<256, 2>::RS : FBT_RM;
+  const int tiles = one ? FbtGeo<256, 2>::TILES : FbtGeo<128, 1>::TILES;
+  // a row tile: the whole tokens of rs slots, or at G 128 (64 slots) half a token
+  const int rt = G <= rs ? G * (rs / G) : (!one && G == 2 * FBT_RM) ? FBT_RM : 0;
+  if (rt == 0) return (int)cudaErrorInvalidValue;
   const long long nbkv = (long long)B * KV, nkt = (Sk + FBT_BK - 1) / FBT_BK;
   const long long ntile = ((long long)Sq * G + rt - 1) / rt;
-  const long long rows_pad = (ntile + 1) / 2 * FBT_BM;
+  const long long rows_pad = (ntile + tiles - 1) / tiles * (tiles * rs);
   const long long stats = 2 * nbkv * rows_pad * 4;
   const long long parts = pieces > 1 ? nkt * nbkv * pieces * 2LL * FBT_BK * dhp * 4 : 0;
   const long long counts = pieces > 1 ? nkt * nbkv * 4 : 0;
@@ -2510,18 +2624,21 @@ extern "C" int fbt_launch(const void* q, const void* k, const void* v,
     ksb = vsb = (long long)Sk * KV * dh; kss = vss = (long long)KV * dh; ksh = vsh = dh;
     Bm = 2 * B;
   }
-  const int gh = G < FBT_RM ? G : FBT_RM;           // a row tile's TMA box
-  const int bkq = dtype == 0 ? (dhp == 128 ? FbtQShape<128, 2>::BK : FbtQShape<64, 2>::BK)
+  const int gh = G < rs ? G : rs;                   // a row tile's TMA box
+  const int bkq = dtype == 0 ? (dhp == 256 ? FbtQShape<256, 2>::BK
+                                : dhp == 128 ? FbtQShape<128, 2>::BK
+                                : FbtQShape<64, 2>::BK)
                              : dhp == 256 ? FbtQShape<256>::BK : FbtQShape<128>::BK;
   CUtensorMap m[6];
-  if ((e = fa_tc_map(&m[0], q, Bm, Sq, H, dh, qsb, qss, qsh, gh, FBT_RM / gh))) return e;
-  if ((e = fa_tc_map(&m[1], g, Bm, Sq, H, dh, gsb, gss, gsh, gh, FBT_RM / gh))) return e;
+  if ((e = fa_tc_map(&m[0], q, Bm, Sq, H, dh, qsb, qss, qsh, gh, rs / gh))) return e;
+  if ((e = fa_tc_map(&m[1], g, Bm, Sq, H, dh, gsb, gss, gsh, gh, rs / gh))) return e;
   if ((e = fa_tc_map(&m[2], k, Bm, Sk, KV, dh, ksb, kss, ksh, 1, bkq))) return e;
   if ((e = fa_tc_map(&m[3], v, Bm, Sk, KV, dh, vsb, vss, vsh, 1, bkq))) return e;
   if ((e = fa_tc_map(&m[4], k, Bm, Sk, KV, dh, ksb, kss, ksh, 1, FBT_BK))) return e;
   if ((e = fa_tc_map(&m[5], v, Bm, Sk, KV, dh, vsb, vss, vsh, 1, FBT_BK))) return e;
   if (dtype == 0)
-    return dhp == 64 ? fbt_run<64, 2>(a, m, s) : fbt_run<128, 2>(a, m, s);
+    return dhp == 64 ? fbt_run<64, 2>(a, m, s)
+         : dhp == 128 ? fbt_run<128, 2>(a, m, s) : fbt_run<256, 2>(a, m, s);
   return dhp == 64 ? fbt_run<64, 1>(a, m, s)
        : dhp == 128 ? fbt_run<128, 1>(a, m, s) : fbt_run<256, 1>(a, m, s);
 }

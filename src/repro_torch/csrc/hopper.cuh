@@ -178,7 +178,7 @@ __device__ __forceinline__ void hp_regs_inc() {
 
 // d (64 x N, fp32, the accumulator fragment of one warpgroup) += A (64 x 16,
 // bf16) . B (16 x N, bf16), or = when scale_d is 0; with F16, A and B are
-// fp16 (the same layouts and rate).  _ss (N = 32, 64, 128)
+// fp16 (the same layouts and rate).  _ss (N = 16, 32, 64, 128)
 // reads A from shared memory through descriptor da (K-major); _rs (N = 64,
 // 128, 256: the flash kernel's head widths) takes A from registers, in
 // the accumulator fragment's layout (a[0]: row g, k 2c..2c+1; a[1]: row g+8;
@@ -186,6 +186,21 @@ __device__ __forceinline__ void hp_regs_inc() {
 // warp, c = lane % 4).  TB is the transpose bit of B: 0 K-major, 1
 // MN-major.  The accumulator's element i of thread (warp w, lane) is row
 // 16 w + lane / 4 + 8 ((i / 2) % 2), column 8 (i / 4) + 2 (lane % 4) + i % 2.
+
+#define HP_WGMMA_SS_N16_ASM(TY) \
+  asm volatile( \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n" \
+  "wgmma.mma_async.sync.aligned.m64n16k16.f32." TY "." TY " {" \
+  "%0, %1, %2, %3, %4, %5, %6, %7" \
+  "}, %8, %9, p, 1, 1, 0, %11;\n}\n" \
+  : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]) \
+  : "l"(da), "l"(db), "r"(scale_d), "n"(TB))
+template <int TB, bool F16 = false>
+__device__ __forceinline__ void hp_wgmma_ss_n16(float (&d)[8], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  if constexpr (F16) HP_WGMMA_SS_N16_ASM("f16");
+  else HP_WGMMA_SS_N16_ASM("bf16");
+}
 
 #define HP_WGMMA_SS_N32_ASM(TY) \
   asm volatile( \
@@ -358,8 +373,10 @@ __device__ __forceinline__ void hp_wgmma_rs_n256(float (&d)[128],
 template <int N, int TB, bool F16 = false>
 __device__ __forceinline__ void hp_wgmma_ss(float (&d)[N / 2], uint64_t da,
                                             uint64_t db, int scale_d) {
-  static_assert(N == 32 || N == 64 || N == 128, "hp_wgmma_ss: N is 32, 64 or 128");
-  if constexpr (N == 32) hp_wgmma_ss_n32<TB, F16>(d, da, db, scale_d);
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128,
+                "hp_wgmma_ss: N is 16, 32, 64 or 128");
+  if constexpr (N == 16) hp_wgmma_ss_n16<TB, F16>(d, da, db, scale_d);
+  else if constexpr (N == 32) hp_wgmma_ss_n32<TB, F16>(d, da, db, scale_d);
   else if constexpr (N == 64) hp_wgmma_ss_n64<TB, F16>(d, da, db, scale_d);
   else hp_wgmma_ss_n128<TB, F16>(d, da, db, scale_d);
 }

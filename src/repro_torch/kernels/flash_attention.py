@@ -24,16 +24,18 @@ gradient, on CPU tensors by the plain version
 :func:`repro_torch.kernels.ref.flash_attention_bwd_ref`, on the card by one
 of two pairs of backward kernels of the same source (no atomics on floats,
 two calls bitwise equal).  :func:`flash_bwd_route` picks the pair: dh a
-multiple of 8 up to 256 in bfloat16 or up to 128 in float32, G = H / KV up
-to 64 or 128, and 16-byte bases and strides runs on the tensor cores
+multiple of 8 up to 256, G = H / KV up to 64 or 128 (float32 above dh 128:
+up to 16), and 16-byte bases and strides runs on the tensor cores
 (``fbt_dq_kernel``, then ``fbt_dkdv_kernel`` or ``fbt_dkdv2_kernel``:
 wgmma, TMA, row tiles of whole tokens, each key tile's row walk cut into
 the pieces :func:`plan_flash_bwd` states; bfloat16: p and ds as three bf16
 terms; float32: every operand as two fp16 terms, hi and mid, of the
 input scaled by a power of two (``fbs_amax_kernel``, then
 ``fbs_split_kernel`` for q, k, v and g; p and ds by each row's power),
-each product hi.hi + hi.mid + mid.hi); float32 at dh above 128, dh not a multiple of 8 and unaligned
-views on the CUDA cores (``fb_dq_kernel``, then ``fb_dkdv_kernel``).
+each product hi.hi + hi.mid + mid.hi, the scores' hi.hi summed apart from
+the cross pairs; float32 at DHP 256 in row tiles of 16 slots); dh not a
+multiple of 8, unaligned views and the G the row tiles cannot hold on the
+CUDA cores (``fb_dq_kernel``, then ``fb_dkdv_kernel``).
 ``LAUNCHES["flash_attention_bwd_wgmma"]`` and
 ``LAUNCHES["flash_attention_bwd"]`` count the two routes' calls, all the
 kernels of a call as one.  :class:`FlashAttentionFn` is the forward kernel
@@ -118,26 +120,33 @@ def plan_flash_simt(B: int, Sq: int, H: int, KV: int, dh: int) -> FlashSimtPlan:
 
 # csrc/flash_attention.cu, fbt_dq_kernel and fbt_dkdv_kernel: row slots of
 # a dq block (two row tiles), keys of a dkdv block, row slots of a row tile
-# (a wgmma's 64 rows); the widest head (float32: its two fp16 terms weigh
-# as a bfloat16 head of twice the width); the H100's SMs; the fewest row
-# tiles a piece walks once a key tile's walk is cut; the shared memory a
-# block may take.
-BWD_QROWS, BWD_KEYS, BWD_KROWS = 128, 64, 64
-BWD_MAX_DH, BWD_F32_MAX_DH = 256, 128
+# (a wgmma's 64 rows), and of a row tile of float32 at DHP 256 (FbtGeo: its
+# two fp16 terms weigh as a bfloat16 head of width 512); the widest head;
+# the H100's SMs; the fewest row tiles a piece walks once a key tile's walk
+# is cut; the shared memory a block may take.
+BWD_QROWS, BWD_KEYS, BWD_KROWS, BWD_F32_WIDE_ROWS = 128, 64, 64, 16
+BWD_MAX_DH, BWD_F32_MAX_DH = 256, 256
 BWD_SMS = 132
 BWD_MIN_TILES = 4
 SMEM_MAX = 232448
 
 
-def tile_rows(G: int) -> int:
+def tile_rows(G: int, slots: int = BWD_KROWS) -> int:
     """(token, g) rows a row tile of the tensor-core kernels (forward and
-    backward) holds: the whole tokens that fit its ``BWD_KROWS`` slots (60
-    at G 6: 10 tokens, 4 slots left empty), or at G 128 half a token.  0
-    where neither fits (G 65..127, G > 128): such calls stay on the CUDA
-    cores."""
-    if G <= BWD_KROWS:
-        return G * (BWD_KROWS // G)
-    return BWD_KROWS if G == 2 * BWD_KROWS else 0
+    backward) holds: the whole tokens that fit its ``slots`` (``BWD_KROWS``:
+    60 at G 6, 10 tokens, 4 slots left empty), or in 64 slots at G 128 half
+    a token.  0 where neither fits (G 65..127, G > 128; in the 16 slots of
+    float32 at DHP 256, ``BWD_F32_WIDE_ROWS``, G above 16): such calls stay
+    on the CUDA cores."""
+    if G <= slots:
+        return G * (slots // G)
+    return BWD_KROWS if slots == BWD_KROWS and G == 2 * BWD_KROWS else 0
+
+
+def bwd_row_slots(dh: int, dtype: torch.dtype) -> int:
+    """Row slots of a row tile of the tensor-core backward: 16 for float32
+    at DHP 256 (``BWD_F32_WIDE_ROWS``), else ``BWD_KROWS``."""
+    return BWD_F32_WIDE_ROWS if dtype == torch.float32 and dh > 128 else BWD_KROWS
 
 
 @dataclass(frozen=True)
@@ -147,16 +156,18 @@ class FlashBwdPlan:
     input scaled by a power of two, copied with the four inputs' largest
     magnitudes to ``terms_bytes`` of scratch by ``fbs_amax_kernel`` and
     ``fbs_split_kernel`` first).  Rows are
-    (token, g) pairs, ``tile_rows`` of them to a row tile of ``BWD_KROWS``
+    (token, g) pairs, ``tile_rows`` of them to a row tile of ``row_slots``
     slots (the slots past them empty: zero in the operands, never written).
-    ``dq_blocks`` blocks of ``fbt_dq_kernel``, two row tiles each, k and v
+    ``dq_blocks`` blocks of ``fbt_dq_kernel``, ``dq_slots`` row slots each
+    (two row tiles of 64; float32 at DHP 256 four of 16), k and v
     streamed ``dq_keys`` keys a stage, ``dq_smem`` bytes of shared memory;
     then ``dkdv_blocks`` of ``fbt_dkdv_kernel`` (``fbt_dkdv2_kernel``, two
     consumer warpgroups, where ``dhp`` x ``terms`` is above 128),
     ``dkdv_smem`` bytes each: ``key_tiles``
     tiles of ``BWD_KEYS`` keys per (b, KV head), each walking the row tiles
-    ``row_tiles[kt]`` = [lo, hi) that can see one of its keys, cut into
-    ``pieces`` runs (:meth:`piece`), ``per_sm`` blocks resident on an SM.
+    ``row_tiles[kt]`` = [lo, hi) that can see one of its keys (a row tile a
+    stage), cut into ``pieces`` runs (:meth:`piece`), ``per_sm`` blocks
+    resident on an SM.
     ``scratch_bytes``: each slot's base-2 log-sum-exp and D (``rows_pad``
     slots per (b, KV head)), and with ``pieces`` > 1 the pieces' fp32
     partial dk and dv and one arrival counter per key tile."""
@@ -176,6 +187,8 @@ class FlashBwdPlan:
     dq_smem: int
     dkdv_smem: int
     terms_bytes: int
+    row_slots: int
+    dq_slots: int
 
     def piece(self, kt: int, p: int) -> tuple[int, int]:
         """Row tiles [lo, hi) that piece ``p`` of key tile ``kt`` walks."""
@@ -190,13 +203,15 @@ def plan_flash_bwd(B: int, Sq: int, Sk: int, H: int, KV: int, dh: int,
                    dtype: torch.dtype = torch.bfloat16) -> FlashBwdPlan:
     """The tensor-core backward's plan, from the shapes, the mask and the
     dtype alone (the kernels take ``pieces`` from it and compute the rest
-    alike).  ``dhp``: dh padded to 64, 128 or 256; float32 (dh up to 128)
-    holds each operand as two fp16 terms, so its tiles weigh as a bfloat16
-    head of twice the width.  Where ``dhp`` x ``terms`` is above 128 a dq
-    stage holds 32 keys (the 128-row q and g tiles take 128 KB) and one
-    dkdv block (``fbt_dkdv2_kernel``) fills an SM (k, v, two stages of rows
-    and P^T handed between its warpgroups: 208 KB), else 64 keys and two
-    blocks.
+    alike).  ``dhp``: dh padded to 64, 128 or 256; float32 holds each
+    operand as two fp16 terms, so its tiles weigh as a bfloat16 head of
+    twice the width.  Where ``dhp`` x ``terms`` is above 128 a dq stage
+    holds 32 keys (the 128-row q and g tiles take 128 KB) and one dkdv
+    block (``fbt_dkdv2_kernel``) fills an SM (k, v, two stages of rows and
+    P^T handed between its warpgroups: 208 KB), else 64 keys and two
+    blocks; float32 at DHP 256 (512 in bfloat16 terms) cuts row tiles of
+    16 slots (G up to 16): a dq block of 64 slots (four row tiles) over
+    stages of 16 keys, a dkdv stage one row tile.
     The pieces a key tile's walk is cut into: enough that the longest walk,
     so cut, is no longer than the resident blocks (``per_sm`` x ``BWD_SMS``)
     take for the whole work, but no piece shorter than ``BWD_MIN_TILES`` row
@@ -210,14 +225,18 @@ def plan_flash_bwd(B: int, Sq: int, Sk: int, H: int, KV: int, dh: int,
     if window < 0 or (window and not causal):
         raise ValueError(f"flash_attention_bwd: window={window} (>= 0, causal only)")
     G = H // KV
-    rt = tile_rows(G)
+    rs = bwd_row_slots(dh, dtype)
+    rt = tile_rows(G, rs)
     if not rt:
-        raise ValueError(f"flash_attention_bwd: G {G} (up to 64, or 128)")
+        raise ValueError(f"flash_attention_bwd: G {G} (up to 64, or 128; "
+                         f"float32 above dh 128: up to {BWD_F32_WIDE_ROWS})")
     nrows = Sq * G
     dhp = 64 if dh <= 64 else 128 if dh <= 128 else 256
+    one = rs != BWD_KROWS                   # csrc FbtGeo::ONE
+    dq_slots = BWD_KROWS if one else BWD_QROWS
     ntiles = _cdiv(nrows, rt)
-    nqb = _cdiv(ntiles, 2)
-    rows_pad = nqb * BWD_QROWS
+    nqb = _cdiv(ntiles, dq_slots // rs)
+    rows_pad = nqb * dq_slots
     nkt = _cdiv(Sk, BWD_KEYS)
     tiles = []
     for kt in range(nkt):
@@ -238,19 +257,19 @@ def plan_flash_bwd(B: int, Sq: int, Sk: int, H: int, KV: int, dh: int,
     scratch = 4 * 2 * nbkv * rows_pad
     if pieces > 1:
         scratch += 4 * nkt * nbkv * (pieces * 2 * BWD_KEYS * dhp + 1)
-    dq_keys = 32 if wide else 64
+    dq_keys = 16 if one else 32 if wide else 64
     # csrc FbtQShape, FbtKShape: each term's q and g tiles and k and v
     # stages; k and v, two stages of rows, P^T (two warpgroups) and the
     # rows' statistics; then the mbarriers and 1 KB of alignment
-    dq_smem = ni * 2 * dhp * 2 * (BWD_QROWS + 2 * dq_keys) + 40 + 1024
-    dkdv_smem = (ni * 2 * dhp * 2 * (BWD_KEYS + 2 * BWD_KROWS)
-                 + (32 * 128 * 4 if wide else 0) + 2 * 2 * BWD_KROWS * 4
+    dq_smem = ni * 2 * dhp * 2 * (dq_slots + 2 * dq_keys) + 40 + 1024
+    dkdv_smem = (ni * 2 * dhp * 2 * (BWD_KEYS + 2 * rs)
+                 + (rs // 2 * 128 * 4 if wide else 0) + 2 * 2 * rs * 4
                  + 56 + 1024)
     terms_bytes = (0 if ni == 1     # two fp16 terms of q, g, k, v; 4 maxima
                    else 2 * 2 * (2 * B * Sq * H * dh + 2 * B * Sk * KV * dh) + 16)
     return FlashBwdPlan(dhp, rt, dq_keys, per_sm, rows_pad, nkt, tuple(tiles),
                         pieces, nqb * nbkv, nkt * nbkv * pieces, scratch, ni,
-                        dq_smem, dkdv_smem, terms_bytes)
+                        dq_smem, dkdv_smem, terms_bytes, rs, dq_slots)
 
 
 def bwd_kernel_facts(dh: int, dtype: torch.dtype = torch.bfloat16) -> dict:
@@ -309,17 +328,17 @@ def _aligned(t: torch.Tensor) -> bool:
 
 def flash_bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """``"wgmma"`` where the tensor-core backward (``fbt_dq_kernel``, then
-    ``fbt_dkdv_kernel`` or ``fbt_dkdv2_kernel``) takes the call — dh a
-    multiple of 8 up to 256 in bfloat16 or up to 128 in float32 (the two
-    terms of a wider head do not fit the shared memory), G = H / KV whose
-    tokens row tiles can hold whole (up to 64) or halve (128:
-    :func:`tile_rows`), and every base and stride of q, k and v on 16 bytes
-    — else ``"simt"`` (``fb_dq_kernel``, ``fb_dkdv_kernel``: float32 at dh
-    above 128, dh not a multiple of 8, unaligned views).  Reads shapes,
-    strides and pointers only."""
+    ``fbt_dkdv_kernel`` or ``fbt_dkdv2_kernel``) takes the call — bfloat16
+    or float32, dh a multiple of 8 up to 256, G = H / KV whose tokens row
+    tiles can hold whole (up to 64) or halve (128: :func:`tile_rows`;
+    float32 above dh 128, row tiles of 16 slots: up to 16), and every base
+    and stride of q, k and v on 16 bytes — else ``"simt"``
+    (``fb_dq_kernel``, ``fb_dkdv_kernel``: dh not a multiple of 8,
+    unaligned views, the G the row tiles refuse).  Reads shapes, strides
+    and pointers only."""
     H, dh, KV = q.shape[2], q.shape[3], k.shape[2]
     top = {torch.bfloat16: BWD_MAX_DH, torch.float32: BWD_F32_MAX_DH}.get(q.dtype, 0)
-    if dh % 8 or dh > top or not tile_rows(H // KV):
+    if dh % 8 or dh > top or not tile_rows(H // KV, bwd_row_slots(dh, q.dtype)):
         return "simt"
     return "wgmma" if all(_aligned(t) for t in (q, k, v)) else "simt"
 

@@ -30,13 +30,15 @@ registers and spills of its kernels; both routes (``flash_attention_bwd``
 as it routes the call, and with ``route="simt"``) against the plain version on
 qwen2.5-3b's heads (causal, a window of 256, full), G 1, G 128, dh 64, and
 the DHP 256 and whole-token shapes (deepseek-v2's MLA, zamba2's dh 224 with
-its window, internvl2's G 6, G 7, dh 256), bfloat16, and the float32
-shapes of dh up to 128 (the tensor cores: two scaled fp16 terms of each
-operand; the float32 limits), and float32 with q and k five times larger
-at qwen2.5-3b's and internvl2's heads, S 4,096 (``BWD_PEAKED``), two calls
-bitwise equal; then each route at ``BWD_HEADS`` (qwen2.5-3b's, MLA,
-zamba2's, internvl2's), causal, S 4,096 and 1,024, bfloat16, and at
-qwen2.5-3b's and internvl2's in float32: time per call between CUDA events
+its window, internvl2's G 6, G 7, dh 256), bfloat16 and float32 (the
+tensor cores: two scaled fp16 terms of each operand; the float32 limits),
+and float32 with q and k five times larger at qwen2.5-3b's and internvl2's
+heads, S 4,096 (``BWD_PEAKED``), two calls bitwise equal; then float32 with
+q and k 8, 12 and 16 times larger at the four ``BWD_HEADS``, S 1,024,
+against the plain version and the exact gradient (float64), a reading
+held to nothing (``BWD_PEAKS``); then each route at ``BWD_HEADS``
+(qwen2.5-3b's, MLA, zamba2's, internvl2's), causal, S 4,096 and 1,024,
+bfloat16 and float32: time per call between CUDA events
 and each kernel's device time, beside the five-product bound (float32: at
 the fp32 peak, and on the tensor cores three 16-bit products for each of
 the five, and the products the kernels issue, as ``fbt_query`` states
@@ -52,7 +54,9 @@ has, so ``PYTHONPATH=<tree>/src python
 src/repro_torch/launch/profile_kernels.py --served-attention`` times an
 older tree's kernels in the same call.  ``--bwd-ab`` does the same for
 the training attention: the backward at qwen2.5-3b's heads (bfloat16 and
-float32) and internvl2's (float32), S 4,096 and 1,024, and the forward at
+float32) and internvl2's (float32), S 4,096 and 1,024, zamba2's and the
+MLA's (float32, S 1,024: ``fb_*`` in trees before the float32 DHP-256
+route), and the forward at
 qwen2.5-3b's heads, bfloat16, S 4,096, p fp32 and rounded: time per call
 and device time, and a digest of each output (equal digests: bitwise equal
 outputs) — run it once per tree, parent, change, change, parent.  Then the megakernel's
@@ -320,6 +324,37 @@ BWD_CHECKS = ((1024, 16, 2, 128, True, 0), (1024, 16, 2, 128, True, 256),
 # deviation 25): qwen2.5-3b's and internvl2-26b's heads at S 4,096
 BWD_PEAKED = ((4096, 16, 2, 128, True, 0), (4096, 48, 8, 128, True, 0))
 BWD_PEAK = 5.0
+# the readings beyond it: q and k this many times larger at BWD_HEADS, S 1,024
+BWD_PEAKS = (8.0, 12.0, 16.0)
+
+
+def exact_flash_bwd(q, k, v, g, causal: bool = True, window: int = 0):
+    """The flash backward in float64 from the same inputs, a head at a
+    time (the plain version's arithmetic, exact but for float64's
+    rounding): dq, dk, dv and lse, each rounded once to float32."""
+    q, k, v, g = (t.double() for t in (q, k, v, g))
+    B, S, H, dh = q.shape
+    G = H // k.shape[2]
+    dq, dk, dv = torch.empty_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    lse = torch.empty((B, H, S), dtype=torch.float64, device=q.device)
+    i = torch.arange(S, device=q.device)
+    hide = torch.zeros((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        hide |= i[None, :] > i[:, None]
+    if window:
+        hide |= i[None, :] <= i[:, None] - window
+    for h in range(H):
+        kh, vh = k[:, :, h // G], v[:, :, h // G]
+        s = (torch.einsum("bqd,bkd->bqk", q[:, :, h], kh) * dh ** -0.5).masked_fill(
+            hide, -np.inf)
+        lse[:, h] = torch.logsumexp(s, -1)
+        p = torch.exp(s - lse[:, h, :, None])
+        dp = torch.einsum("bqd,bkd->bqk", g[:, :, h], vh)
+        ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+        dq[:, :, h] = torch.einsum("bqk,bkd->bqd", ds, kh) * dh ** -0.5
+        dk[:, :, h // G] += torch.einsum("bqk,bqd->bkd", ds, q[:, :, h]) * dh ** -0.5
+        dv[:, :, h // G] += torch.einsum("bqk,bqd->bkd", p, g[:, :, h])
+    return dq.float(), dk.float(), dv.float(), lse.float()
 
 
 def profile_flash_bwd(dev: torch.device) -> None:
@@ -358,7 +393,7 @@ def profile_flash_bwd(dev: torch.device) -> None:
     bad = 0
     for S, H, KV, dh, causal, w, dt, peak in (
             [c + (torch.bfloat16, 1.0) for c in BWD_CHECKS]
-            + [c + (torch.float32, 1.0) for c in BWD_CHECKS if c[3] <= 128]
+            + [c + (torch.float32, 1.0) for c in BWD_CHECKS]
             + [c + (torch.float32, BWD_PEAK) for c in BWD_PEAKED]):
         q, k, v, go = inputs(S, H, KV, dh, S + dh, mla=dh == 192, dt=dt)
         q, k = q * peak, k * peak
@@ -391,8 +426,31 @@ def profile_flash_bwd(dev: torch.device) -> None:
                   + ", ".join(errs), flush=True)
     print(f"flash_attention_bwd checks: {bad} over their limits", flush=True)
 
+    def shares(got, want):
+        out = []
+        for name, a, b in zip(("dq", "dk", "dv", "lse"), got, want):
+            top = float(b.abs().max())
+            lim = 1e-5 * max(top, 1.0) if name == "lse" else 1e-4 * top
+            out.append(f"{name} {float((a - b).abs().max()) / lim:.3f}")
+        return ", ".join(out)
+
+    for H, KV, dh, mla in BWD_HEADS:
+        for peak in BWD_PEAKS:
+            q, k, v, go = inputs(1024, H, KV, dh, 1024 + dh, mla=mla, dt=torch.float32)
+            q, k = q * peak, k * peak
+            exact = exact_flash_bwd(q, k, v, go)
+            plain = flash_attention_bwd_ref(q, k, v, go, causal=True)
+            got = fa.flash_attention_bwd(q, k, v, go)
+            torch.cuda.synchronize()
+            print(f"peaked float32 B=1 S=1024 H={H} KV={KV} dh={dh} q, k x{peak:g}, "
+                  f"share of the limits: wgmma vs plain [{shares(got, plain)}], "
+                  f"wgmma vs exact [{shares(got, exact)}], plain vs exact "
+                  f"[{shares(plain, exact)}]", flush=True)
+            del q, k, v, go, exact, plain, got
+            torch.cuda.empty_cache()
+
     for H, KV, dh, mla, dt in [h + (torch.bfloat16,) for h in BWD_HEADS] + [
-            h + (torch.float32,) for h in BWD_HEADS if h[2] <= 128]:
+            h + (torch.float32,) for h in BWD_HEADS]:
         for S in (4096, 1024):
             q, k, v, go = inputs(S, H, KV, dh, S, mla, dt)
             pairs = sum(t + 1 for t in range(S))
@@ -440,19 +498,22 @@ def profile_bwd_ab(dev: torch.device) -> None:
             h.update(t.float().cpu().numpy().tobytes())
         return h.hexdigest()[:12]
 
-    for H, KV, dt in ((16, 2, torch.bfloat16), (16, 2, torch.float32),
-                      (48, 8, torch.float32)):
-        for S in (4096, 1024):
+    for H, KV, dh, dt, lens in ((16, 2, 128, torch.bfloat16, (4096, 1024)),
+                                (16, 2, 128, torch.float32, (4096, 1024)),
+                                (48, 8, 128, torch.float32, (4096, 1024)),
+                                (32, 32, 224, torch.float32, (1024,)),
+                                (128, 128, 192, torch.float32, (1024,))):
+        for S in lens:
             g = torch.Generator(device=dev).manual_seed(S + H)
-            q, go = (torch.randn((1, S, H, 128), generator=g, device=dev).to(dt)
+            q, go = (torch.randn((1, S, H, dh), generator=g, device=dev).to(dt)
                      for _ in range(2))
-            k, v = (torch.randn((1, S, KV, 128), generator=g, device=dev).to(dt)
+            k, v = (torch.randn((1, S, KV, dh), generator=g, device=dev).to(dt)
                     for _ in range(2))
             out = fa.flash_attention_bwd(q, k, v, go)
 
             def call():
                 fa.flash_attention_bwd(q, k, v, go)
-            print(f"backward {str(dt)[6:]} S={S} H={H} KV={KV} dh=128: "
+            print(f"backward {str(dt)[6:]} S={S} H={H} KV={KV} dh={dh}: "
                   f"{call_ms(call, 20):.5f} ms a call (events); "
                   f"{_fmt(device_parts(call, 10))}; outputs {digest(out)}", flush=True)
     g = torch.Generator(device=dev).manual_seed(7)

@@ -20,13 +20,15 @@ kernels against the plain version: float32 within ``1e-4`` of each
 gradient's largest magnitude, bfloat16 within two bf16 ulps of it, and lse
 within ``1e-5`` of its largest magnitude; two calls bitwise equal (no
 atomics); each call on the route ``flash_bwd_route`` picks, as its launch
-counter shows (dh a multiple of 8 up to 256 in bfloat16, up to 128 in
-float32, and G up to 64 or 128 on the tensor cores, its key tiles' walks
+counter shows (dh a multiple of 8 up to 256, G up to 64 or 128, float32
+above dh 128 up to 16, on the tensor cores, its key tiles' walks
 cut into pieces at S 300 and 1,024, G 6 in row tiles of whole tokens), and
 the CUDA-core route forced on the tensor-core cases; float32 at qwen2.5-3b's
-and internvl2-26b's heads up to S 4,096; the forward at G 3, 5 and 6 on the
-tensor cores.  JAX is imported inside the reference's helper only, so that
-the card case runs where JAX is not installed.
+and internvl2-26b's heads up to S 4,096, with q and k 8 and 12 times larger
+against the exact gradient (float64), and at zamba2-7b's and the MLA's
+(DHP 256); the forward at G 3, 5 and 6 on the tensor cores.  JAX is
+imported inside the reference's helper only, so that the card case runs
+where JAX is not installed.
 """
 
 import os
@@ -196,8 +198,9 @@ def test_backward_kernels_match_plain(card, case, dtype):
     q, k, v, g = (torch.from_numpy(a).to(card, dtype) for a in
                   _inputs(B, S, H, KV, dh, dh, seed=S + dh))
     route = fa.flash_bwd_route(q, k, v)
-    tc = dh % 8 == 0 and dh <= (256 if dtype == torch.bfloat16 else 128) and (
-        H // KV <= 64 or H // KV == 128)
+    G = H // KV                          # float32 at DHP 256: row tiles of 16 slots
+    tc = dh % 8 == 0 and dh <= 256 and (G <= 64 or G == 128) and not (
+        dtype == torch.float32 and dh > 128 and G > 16)
     assert route == ("wgmma" if tc else "simt")
     key = "flash_attention_bwd_wgmma" if tc else "flash_attention_bwd"
     before = dict(LAUNCHES)
@@ -250,6 +253,53 @@ def test_float32_backward_on_the_tensor_cores_at_the_trained_heads(card, S, H, K
     torch.cuda.synchronize()
     assert LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
     _hold(got, simt, again, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KV,dh,dhv", [(32, 32, 224, 224), (128, 128, 192, 128)],
+                         ids=["zamba2-dh224", "mla-dh192"])
+def test_float32_backward_at_dhp256_on_the_tensor_cores(card, H, KV, dh, dhv):
+    """zamba2-7b's shared block and deepseek-v2's MLA (v and g zero past
+    column 128, as the model pads v) in float32 at S 1,024: on
+    ``flash_attention_bwd_wgmma`` (row tiles of 16 slots), within the
+    float32 limits of the plain version and of the CUDA-core route on the
+    same inputs, two calls bitwise equal."""
+    q, k, v, g = (torch.nn.functional.pad(torch.from_numpy(a), (0, dh - a.shape[-1]))
+                  .to(card) for a in _inputs(1, 1024, H, KV, dh, dhv, seed=dh + H))
+    assert fa.flash_bwd_route(q, k, v) == "wgmma"
+    before = dict(LAUNCHES)
+    got = fa.flash_attention_bwd(q, k, v, g)
+    again = fa.flash_attention_bwd(q, k, v, g)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention_bwd_wgmma"] == before["flash_attention_bwd_wgmma"] + 2
+    assert LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"]
+    _hold(got, flash_attention_bwd_ref(q, k, v, g), again, torch.float32)
+    simt = fa.flash_attention_bwd(q, k, v, g, route="simt")
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    _hold(got, simt, again, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("peak", [8.0, 12.0])
+@pytest.mark.parametrize("H,KV", [(16, 2), (48, 8)], ids=["qwen", "internvl2"])
+def test_float32_backward_holds_scores_peaked_further(card, H, KV, peak):
+    """qwen2.5-3b's and internvl2-26b's heads in float32 at S 1,024 with q
+    and k 8 and 12 times larger: within the float32 limits of the exact
+    gradient (float64 from the same inputs), at x8 also of the plain
+    version (at x12 the plain version is itself up to 0.9 of the limits
+    from the exact gradient on the card); two calls bitwise equal."""
+    from repro_torch.launch.profile_kernels import exact_flash_bwd
+
+    q, k, v, g = (torch.from_numpy(a).to(card) for a in
+                  _inputs(1, 1024, H, KV, 128, 128, seed=1024 + H))
+    q, k = q * peak, k * peak
+    got = fa.flash_attention_bwd(q, k, v, g)
+    again = fa.flash_attention_bwd(q, k, v, g)
+    torch.cuda.synchronize()
+    _hold(got, exact_flash_bwd(q, k, v, g), again, torch.float32)
+    if peak == 8.0:
+        _hold(got, flash_attention_bwd_ref(q, k, v, g), again, torch.float32)
 
 
 @pytest.mark.cuda

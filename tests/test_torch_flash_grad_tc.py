@@ -50,7 +50,7 @@ def _ulp(x: float) -> float:
     (torch.bfloat16, 100, 12, 2, "simt"),      # dh not a multiple of 8
     (torch.float32, 128, 16, 2, "wgmma"),     # float32: two bf16 terms
     (torch.float32, 64, 8, 8, "wgmma"),
-    (torch.float32, 192, 128, 128, "simt"),    # float32 above dh 128
+    (torch.float32, 192, 128, 128, "wgmma"),   # float32 at DHP 256: 16-slot row tiles
 ])
 def test_bwd_route(dtype, dh, H, KV, want):
     q = torch.zeros((1, 4, H, dh), dtype=dtype)
@@ -267,33 +267,24 @@ TERMS = {torch.bfloat16: dict(q=1, k=1, v=1, g=1, p=3),
          torch.float32: dict(q=2, k=2, v=2, g=2, p=2)}
 
 
-def _emulate(q, k, v, g, causal, window, drop=None, half=True):
-    """fbt_dq_kernel and fbt_dkdv_kernel in fp32 torch, tile by tile: rows
-    in row tiles of ``plan.tile_rows`` whole-token rows at ``BWD_KROWS``
-    slots each (the empty slots zero in q and g, lse +inf and D 0, as the
-    kernels keep them; nothing written for them), dq stages of
-    ``plan.dq_keys`` keys, the statistics by slot.  Each product A.B takes
-    ``TERMS[dtype]`` terms of its operands (``p`` for p and ds) and keeps
-    the pairs (i, j) with i + j below the larger count: bf16 terms, or at
-    float32 (``half``) fp16 terms of q, k, v and g each scaled by the power
-    of two of its largest magnitude, and of p and ds by that of each row;
-    ``drop`` names an operand cut to one term."""
+def _emulate(q, k, v, g, causal, window):
+    """fbt_dq_kernel and fbt_dkdv_kernel on the bfloat16 route in fp32
+    torch, tile by tile: rows in row tiles of ``plan.tile_rows`` whole-token
+    rows at ``BWD_KROWS`` slots each (the empty slots zero in q and g, lse
+    +inf and D 0, as the kernels keep them; nothing written for them), dq
+    stages of ``plan.dq_keys`` keys, the statistics by slot.  Each product
+    A.B takes ``TERMS[dtype]`` bf16 terms of its operands (``p`` for p and
+    ds) and keeps the pairs (i, j) with i + j below the larger count (the
+    float32 route: ``test_torch_flash_f32tc._emulate32``)."""
     B, Sq, H, dh = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
     nrows = Sq * G
     plan = fa.plan_flash_bwd(B, Sq, Sk, H, KV, dh, causal, window, q.dtype)
-    nterms = dict(TERMS[q.dtype])
-    if drop:
-        nterms[drop] = 1
-    f16 = half and q.dtype == torch.float32
-    tscale = {n: _pow2(t.abs().max()) for n, t in zip("qkvg", (q, k, v, g))}
+    nterms = TERMS[q.dtype]
 
     def split(x, name):
-        if not f16:
-            return _terms(x, nterms[name])
-        c = _pow2(x.abs().amax(1, keepdim=True)) if name == "p" else tscale[name]
-        return _terms16(x, nterms[name], c)
+        return _terms(x, nterms[name])
     scale = _f32(dh ** -0.5)
     sl2 = scale * _f32(LOG2E)
     RT, SL, BQ, BK = plan.tile_rows, fa.BWD_KROWS, plan.dq_keys, fa.BWD_KEYS
