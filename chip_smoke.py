@@ -268,7 +268,28 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               (the split and both backward kernels as one) on its route
               (``flash_attention_bwd_wgmma`` in every run), and none on
               the plain twins;
-11. report  — the chain kernels' launch floor (an empty kernel with their
+11. dist    — distribution on ``torch.distributed``: a one-rank NCCL group
+              (a store in a temporary directory) and the mesh (pod 1,
+              data 1, model 1); ``plan_for``'s PF report, notes and bytes a
+              device for qwen2.5-3b's train_4k on it; qwen2.5-3b at every
+              width, ``DIST_LAYERS`` layers (phase 10's twin), bf16
+              activations, fp32 masters, S ``DIST_S``, batch ``DIST_BATCH``
+              in ``DIST_MB`` microbatches: ``DIST_STEPS`` steps through
+              ``launch.steps.build_cell``'s step with the state placed on
+              the plan as the launcher places it, the fp32 reduce (losses,
+              grad norms, every master and moment bitwise equal to
+              ``make_train_step`` without a mesh from the same seed) and
+              ``int8_ef`` (bitwise equal to the EF math of one pod on the
+              host around the one-process gradient, the residuals too);
+              flash launches over each run = 2 x layers x microbatches x
+              steps (``flash_attention_wgmma``) and layers x microbatches
+              x steps (``flash_attention_bwd_wgmma``); the step's seconds
+              on the mesh and without, peak memory; then ``dryrun.run_cell``
+              for the ten archs x four shapes x both production meshes on
+              the host, one line of totals.  Several ranks cannot share
+              one card under NCCL: 2 and 4 ranks are held on the CPU by
+              ``tests/test_torch_distributed.py`` (gloo);
+12. report  — the chain kernels' launch floor (an empty kernel with their
               parameter block) beside each served chain call's device time
               and time per call, against ``CHAIN_DEVICE_MS`` /
               ``CHAIN_FLOOR_X`` / ``CHAIN_CALL_MS`` (printed, not checked);
@@ -301,8 +322,9 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               the card line, and last ``{"ok": true, "device": {...}}``.
 
 Every path runs at its full depth, except deepseek-v2-236b (2 of 60
-layers, every width kept) and phase 10's training runs beside qwen2.5-3b
-(every width kept; depths as ``LM_TRAIN_FAMILIES`` states).
+layers, every width kept), phase 10's training runs beside qwen2.5-3b
+(every width kept; depths as ``LM_TRAIN_FAMILIES`` states) and phase 11's
+mesh runs (``DIST_LAYERS`` of qwen2.5-3b's 36 layers, every width kept).
 
 Needs only the repository (``src/`` on the path) and one card.  Writes the
 full per-case report to ``chiprun_out/chip_smoke.json``.
@@ -487,6 +509,14 @@ LM_TRAIN_NOT_FIT = ("deepseek-v2-236b", 1)
 # steps straight, against LM_RESUME_AT steps, a checkpoint, and a resumed
 # run to the end; batch and length of each step
 LM_RESUME_STEPS, LM_RESUME_AT, LM_RESUME_BATCH, LM_RESUME_S = 4, 2, 1, 512
+# phase dist: qwen2.5-3b at every width, DIST_LAYERS of 36 layers (phase
+# 10's twin), S DIST_S, global batch DIST_BATCH in DIST_MB microbatches,
+# DIST_STEPS steps on the mesh (pod 1, data 1, model 1) of a one-rank NCCL
+# group, fp32 and int8_ef, each against its reference from seed 0
+DIST_LAYERS, DIST_S, DIST_BATCH, DIST_MB, DIST_STEPS = 4, 4096, 2, 2, 2
+# then the fp32 step's seconds on the mesh and without, in turns after a
+# warm-up step of each
+DIST_TIMING = ("plain", "mesh", "mesh", "plain", "plain", "mesh")
 # the two routes' kernels, as a trace names them (by substring)
 FLASH_BWD_KERNELS = ("fb_dq_kernel", "fb_dkdv_kernel", "fbt_dq_kernel",
                      "fbt_dkdv_kernel", "fbt_dkdv2_kernel", "fbs_split_kernel")
@@ -2398,6 +2428,248 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
     return rec, checks, launches
 
 
+def dist_phase(dev) -> tuple[dict, dict]:
+    """Phase dist (see the module docstring).  Returns (record, launches of
+    the flash kernels over the mesh's steps); raises AssertionError on a
+    failed check."""
+    import gc
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import ARCH_IDS, SHAPES, ShapeCell, get_arch
+    from repro_torch.data.tokens import PipelineState, TokenPipeline
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import init_group, make_mesh, mesh_axes
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models.transformer import _flatten, _nest
+    from repro_torch.sharding.placement import local_rows
+    from repro_torch.train import compression as tcomp
+    from repro_torch.train import train_loop as tloop
+    from repro_torch.train.optim import OptConfig, adamw_update, global_norm
+
+    counted = ("flash_attention", "flash_attention_wgmma", "flash_attention_bwd",
+               "flash_attention_bwd_wgmma")
+    launches = dict.fromkeys(counted, 0)
+    rec: dict = {}
+    spec = get_arch(LM_ARCH)
+    spec4 = dataclasses.replace(spec, model=dataclasses.replace(
+        spec.model, n_layers=DIST_LAYERS))
+    cell = ShapeCell("dist", "train", DIST_S, DIST_BATCH)
+    cfg = spec4.cell_config(cell)
+    L, mb = DIST_LAYERS, DIST_MB
+    oc = OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, batch=DIST_BATCH,
+                         seq_len=DIST_S)
+    data = [{k: torch.as_tensor(v) for k, v in
+             pipe.batch_at(PipelineState(step=i))[0].items()}
+            for i in range(DIST_STEPS)]
+    want = {"flash_attention_wgmma": 2 * L * mb * DIST_STEPS,
+            "flash_attention_bwd_wgmma": L * mb * DIST_STEPS}
+
+    def sync_time(fn):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t1
+
+    def run_mesh(mesh, pod_reduce: str) -> dict:
+        """DIST_STEPS steps through build_cell's step on the mesh; the
+        launches counted over them."""
+        ef = pod_reduce == "int8_ef"
+        torch.cuda.reset_peak_memory_stats()
+        model, state = tloop.init_state(cfg, 0, device=dev, ef=ef)
+        prog = build_cell(spec4, cell, mesh, pod_reduce=pod_reduce,
+                          microbatch_override=mb, oc=oc, model=model)
+        state = tloop.shard_state(state, prog.in_shardings[0], mesh)
+        rows = prog.in_shardings[1]["tokens"]
+        for key in counted:
+            LAUNCHES[key] = 0
+        steps = []
+        for b in data:
+            (state, m), sec = sync_time(
+                lambda: prog.fn(state, local_rows(b, rows, mesh)))
+            steps.append(dict(loss=float(m["loss"]),
+                              grad_norm=float(m["grad_norm"]),
+                              lr=float(m["lr"]), seconds=sec))
+        got = {key: LAUNCHES[key] for key in counted}
+        print(f"  {pod_reduce} on the mesh: launches {got} (expected {want})",
+              flush=True)
+        if any(got[key] != want.get(key, 0) for key in counted):
+            raise AssertionError(f"{pod_reduce}: launches {got}, expected {want}")
+        for key in counted:
+            launches[key] += got[key]
+        full = tloop.gather_state(state)
+        return dict(steps=steps, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                    params=_flatten(full.params), m=_flatten(full.m),
+                    v=_flatten(full.v),
+                    ef=_flatten(full.ef) if ef else None, plan=prog.plan)
+
+    def compare(label: str, got: dict, ref: dict, parts) -> int:
+        same = [a["loss"] == b["loss"] and a["grad_norm"] == b["grad_norm"]
+                and a["lr"] == b["lr"] for a, b in zip(got["steps"], ref["steps"])]
+        diffs = [f"{part}/{path}" for part in parts
+                 for path in ref[part] if not torch.equal(got[part][path],
+                                                          ref[part][path])]
+        n = sum(len(ref[part]) for part in parts)
+        print(f"  {label}: losses {[s['loss'] for s in got['steps']]} against "
+              f"{[s['loss'] for s in ref['steps']]}, grad norms "
+              f"{[s['grad_norm'] for s in got['steps']]}; {len(diffs)} of {n} "
+              "leaves differ" + (f": {diffs[:6]}" if diffs else ", bitwise equal"),
+              flush=True)
+        if diffs or not all(same):
+            raise AssertionError(f"{label} is not bitwise: steps {same}, "
+                                 f"leaves {diffs[:6]}")
+        return n
+
+    def fp32_reference() -> dict:
+        model, st = tloop.init_state(cfg, 0, device=dev)
+        step = tloop.make_train_step(model, oc, n_microbatches=mb)
+        steps = []
+        for b in data:
+            (st, m), sec = sync_time(lambda: step(st, b))
+            steps.append(dict(loss=float(m["loss"]),
+                              grad_norm=float(m["grad_norm"]),
+                              lr=float(m["lr"]), seconds=sec))
+        return dict(steps=steps, params=_flatten(st.params), m=_flatten(st.m),
+                    v=_flatten(st.v))
+
+    def int8_reference() -> dict:
+        """The EF math of one pod on the host around the one-process
+        gradient: c = g + ef, its int8 quantization, the mean of one pod's
+        dequantized values, the residual c - q·scale."""
+        model, st = tloop.init_state(cfg, 0, device=dev)
+        accumulate = tloop._accumulator(model, mb, False)
+        ef = {}
+        steps = []
+        for b in data:
+            acc, loss_sum = accumulate(b)
+            mean = {}
+            for path, a in acc.items():
+                c = a.mul_(1.0 / mb).cpu() + ef.get(path, 0.0)
+                deq = tcomp.dequantize_int8(*tcomp.quantize_int8(c))
+                ef[path] = c - deq
+                mean[path] = deq.to(dev)          # the mean of one pod
+            del acc
+            mean = _nest(mean)
+            gnorm = global_norm(mean)
+            _, _, _, m = adamw_update(st.params, mean, st.m, st.v, st.step, oc,
+                                      gnorm=gnorm)
+            st = tloop.TrainState(st.params, st.m, st.v, st.step + 1, None)
+            tloop.load_masters(model, st.params)
+            steps.append(dict(loss=float(loss_sum * (1.0 / mb) / 1),
+                              grad_norm=float(gnorm), lr=float(m["lr"])))
+        return dict(steps=steps, params=_flatten(st.params), m=_flatten(st.m),
+                    v=_flatten(st.v), ef={k: v.to(dev) for k, v in ef.items()})
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def timing(mesh) -> dict:
+        """The fp32 step on the mesh and without it, both alive, in turns
+        (ABBA after one warm-up step each): seconds a step."""
+        model, state = tloop.init_state(cfg, 0, device=dev)
+        prog = build_cell(spec4, cell, mesh, microbatch_override=mb, oc=oc,
+                          model=model)
+        state = tloop.shard_state(state, prog.in_shardings[0], mesh)
+        rows = prog.in_shardings[1]["tokens"]
+        model2, st2 = tloop.init_state(cfg, 0, device=dev)
+        plain = tloop.make_train_step(model2, oc, n_microbatches=mb)
+        secs: dict[str, list] = {"mesh": [], "plain": []}
+        for i, who in enumerate(("mesh", "plain") + DIST_TIMING):
+            b = data[i % len(data)]
+            if who == "mesh":
+                (state, _), sec = sync_time(
+                    lambda: prog.fn(state, local_rows(b, rows, mesh)))
+            else:
+                (st2, _), sec = sync_time(lambda: plain(st2, b))
+            if i >= 2:
+                secs[who].append(sec)
+        return secs
+
+    with tempfile.TemporaryDirectory(prefix="mafia-dist-") as tmp:
+        backend = init_group(dev, init_method=f"file://{tmp}/store",
+                             world_size=1, rank=0)
+        try:
+            mesh = make_mesh((1, 1, 1), ("pod", "data", "model"), dev)
+            print(f"  {backend} group of {dist.get_world_size()} rank, mesh "
+                  f"{mesh_axes(mesh)} (several ranks cannot share one card "
+                  "under NCCL: the tests hold 2 and 4 gloo ranks on the CPU)",
+                  flush=True)
+            # the plan of qwen2.5-3b's train_4k on this mesh
+            full_prog = build_cell(spec, SHAPES["train_4k"], mesh)
+            plan = full_prog.plan
+            rec["plan"] = dict(
+                pf_report=plan.pf_report, notes=plan.notes,
+                arg_bytes_per_device=dryrun.args_bytes_per_device(
+                    full_prog, mesh_axes(mesh)))
+            print(f"  plan of {LM_ARCH} train_4k: pf {plan.pf_report}; notes "
+                  f"{plan.notes}; {rec['plan']['arg_bytes_per_device'] / 2**30:.2f}"
+                  " GiB of state and batch a device", flush=True)
+            del full_prog, plan
+
+            # fp32 reduce against the step without a mesh, then int8_ef
+            # against the EF math of one pod on the host
+            for pod_reduce, reference, parts in (
+                    ("fp32", fp32_reference, ("params", "m", "v")),
+                    ("int8_ef", int8_reference, ("params", "m", "v", "ef"))):
+                free()
+                got = run_mesh(mesh, pod_reduce)
+                got.pop("plan")
+                free()
+                ref = reference()
+                n = compare(f"{pod_reduce} on the mesh against "
+                            + ("the step without a mesh" if pod_reduce == "fp32"
+                               else "the host's EF math"), got, ref, parts)
+                rec[pod_reduce] = dict(
+                    steps=got["steps"], ref_steps=ref["steps"],
+                    peak_gib=got["peak_gib"], leaves=n)
+                del got, ref
+            free()
+            rec["timing"] = timing(mesh)
+        finally:
+            dist.destroy_process_group()
+    free()
+    r, secs = rec["fp32"], rec["timing"]
+    dist_s = statistics.median(secs["mesh"])
+    ref_s = statistics.median(secs["plain"])
+    rec.update(mesh_step_s=dist_s, plain_step_s=ref_s,
+               overhead=dist_s / ref_s - 1.0)
+    print(f"  {cfg.name} x{L} {cfg.act_dtype} (f32 masters) S={DIST_S} "
+          f"B={DIST_BATCH} in {mb} microbatches: a step {dist_s:.4f} s on the "
+          f"mesh, {ref_s:.4f} s without (medians of {len(secs['mesh'])}, in "
+          f"turns: {secs}; {rec['overhead']:+.2%}); peak {r['peak_gib']:.2f} "
+          f"GiB (fp32), {rec['int8_ef']['peak_gib']:.2f} GiB (int8_ef)",
+          flush=True)
+
+    # the dry-run of every cell on both production meshes, on the host
+    t1 = time.perf_counter()
+    counts: dict[str, int] = {}
+    arg_bytes = []
+    for arch in ARCH_IDS:
+        for shape_name in SHAPES:
+            for multi_pod in (False, True):
+                cell_rec = dryrun.run_cell(arch, shape_name, multi_pod=multi_pod)
+                counts[cell_rec["status"]] = counts.get(cell_rec["status"], 0) + 1
+                if cell_rec["status"] == "ok":
+                    arg_bytes.append(cell_rec["arg_bytes_per_device"])
+                elif cell_rec["status"] == "error":
+                    raise AssertionError(f"dry-run {arch} {shape_name} "
+                                         f"multi_pod={multi_pod}: "
+                                         f"{cell_rec['error']}")
+    rec["dryrun"] = dict(counts=counts, seconds=time.perf_counter() - t1,
+                         max_arg_gib=max(arg_bytes) / 2**30)
+    print(f"  dry-run: {sum(counts.values())} cells (archs x shapes x 2 "
+          f"meshes): {counts}; largest state and batch a device "
+          f"{rec['dryrun']['max_arg_gib']:.2f} GiB; "
+          f"{rec['dryrun']['seconds']:.2f} s on the host", flush=True)
+    return rec, launches
+
+
 def main() -> int:
     t0 = time.perf_counter()
     # ------------------------------------------------------------ 1. device
@@ -3796,7 +4068,22 @@ def main() -> int:
           + "resume bitwise; launches "
           f"{train_launches}")
 
-    # ----------------------------------------------------------- 11. report
+    # ------------------------------------------------------------- 11. dist
+    t = time.perf_counter()
+    try:
+        dist_rec, dist_launches = dist_phase(dev)
+    except AssertionError as e:
+        return fail("dist", str(e))
+    dist_rec["seconds"] = time.perf_counter() - t
+    phase("dist", t, f"{LM_ARCH} x{DIST_LAYERS} S={DIST_S} on a one-rank mesh: "
+          f"fp32 ({dist_rec['fp32']['leaves']} leaves) and int8_ef "
+          f"({dist_rec['int8_ef']['leaves']} leaves) bitwise equal to their "
+          f"references; a step {dist_rec['mesh_step_s']:.4f} s on the mesh, "
+          f"{dist_rec['plain_step_s']:.4f} s without; "
+          f"{sum(dist_rec['dryrun']['counts'].values())} dry-run cells; "
+          f"launches {dist_launches}")
+
+    # ----------------------------------------------------------- 12. report
     t = time.perf_counter()
     saved = dict(LAUNCHES)
     timed = []
@@ -4178,7 +4465,8 @@ def main() -> int:
     LAUNCHES.update(saved)
     phase("report", t, "device times from the profiler trace; per-call times "
           "between CUDA events; serving wall time on the host clock")
-    report.update(lm_train=train_rec, train_launches=train_launches)
+    report.update(lm_train=train_rec, train_launches=train_launches,
+                  dist=dist_rec, dist_launches=dist_launches)
     report.update(served=served, timed=timed, launches=launches, rows=rows,
                   chain_floor=chain_floor,
                   attention_cases=attn_cases, ssd_cases=ssd_cases,
@@ -4235,6 +4523,7 @@ def main() -> int:
             "launches": (train_launches[name] if name.startswith(
                 "flash_attention_bwd") else launches[name]),
             "train_launches": train_launches.get(name, 0),
+            "dist_launches": dist_launches.get(name, 0),
             "max_abs_err": checks[name]["max_abs_err"],
             "ms": h["ms"], "call_ms": h["call_ms"], "plain_ms": h["plain_ms"],
             "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],

@@ -74,7 +74,7 @@ from repro_torch.models.mamba2 import init_mamba2, mamba2_decode, mamba2_prefill
 from repro_torch.models.moe import init_moe, moe_ffn
 
 __all__ = ["ModelConfig", "Transformer", "init_params", "init_cache",
-           "params_from_reference", "lm_loss"]
+           "abstract_params", "params_from_reference", "lm_loss"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -756,6 +756,18 @@ def _leaves(model: Transformer) -> dict[str, list[torch.Tensor]]:
     return out
 
 
+def _nest(flat: dict[str, Any]) -> dict:
+    """``{"a/b": x}`` → ``{"a": {"b": x}}``: the inverse of :func:`_flatten`."""
+    out: dict = {}
+    for path, t in flat.items():
+        *head, leaf = path.split("/")
+        node = out
+        for key in head:
+            node = node.setdefault(key, {})
+        node[leaf] = t
+    return out
+
+
 def _flatten(tree: Any, prefix: str = "") -> dict[str, Any]:
     if isinstance(tree, dict):
         flat: dict[str, Any] = {}
@@ -763,6 +775,22 @@ def _flatten(tree: Any, prefix: str = "") -> dict[str, Any]:
             flat.update(_flatten(v, f"{prefix}{k}/"))
         return flat
     return {prefix[:-1]: tree}
+
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    """The reference's parameter tree as meta tensors (shapes and dtypes,
+    nothing allocated): its leaf paths, ``blocks/...`` stacked on a leading
+    layer axis, every leaf in the parameter dtype except those the model
+    keeps in float32 always (the MoE router, Mamba2's ``A_log``, ``D``,
+    ``dt_bias``), as the reference's ``abstract_params`` has them."""
+    model = Transformer(dataclasses.replace(cfg, act_dtype=cfg.param_dtype),
+                        "meta")
+    flat = {}
+    for path, ts in _leaves(model).items():
+        lead = (len(ts),) if path.startswith("blocks/") else ()
+        flat[path] = torch.empty(lead + tuple(ts[0].shape), dtype=ts[0].dtype,
+                                 device="meta")
+    return _nest(flat)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,

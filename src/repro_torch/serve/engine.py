@@ -95,8 +95,8 @@ class ServeEngine:
         ``device`` (None: the card).  ``prefill_slo_s``/``decode_slo_s`` are
         the two SLO classes; ``queue_limit`` bounds admission."""
         if mesh is not None or plan is not None:
-            raise NotImplementedError("distributed serving (mesh/plan) is not "
-                                      "ported yet (ROADMAP.md, Queue A item 9)")
+            raise NotImplementedError("serving on a mesh and plan is not "
+                                      "ported yet (ROADMAP.md, Queue A item 10)")
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"the model lies on {model.device}, the engine "

@@ -15,6 +15,12 @@ alone.  Restore reads leaves by path into the structure of a target tree
 (values ignored) onto a device: the device's layout at save time does not
 matter.  Metadata (the data pipeline's cursor, the step) rides in the
 manifest.
+
+On a mesh a save gathers each sharded leaf (a DTensor) onto every rank
+(a collective: every rank calls :func:`save`) and rank 0 writes the same
+files; restore into a target of DTensors places each leaf on the target's
+placements (the caller's plan), whatever mesh wrote it: reshard on
+restore, as the reference's ``device_put`` onto the caller's shardings.
 """
 
 from __future__ import annotations
@@ -27,6 +33,9 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.sharding.placement import gather_full, shard_tensor, spec_of
 
 __all__ = ["save", "restore", "latest_step", "available_steps"]
 
@@ -62,21 +71,33 @@ def _unflatten(tree: Any, leaves: dict[str, Any], prefix: str = "") -> Any:
 
 def _numpy(leaf: Any) -> np.ndarray:
     if torch.is_tensor(leaf):
+        if _is_dtensor(leaf):
+            leaf = gather_full(leaf)
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
 
 
+def _is_dtensor(x: Any) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
 def save(ckpt_dir: str, step: int, tree: Any, *,
          metadata: dict | None = None) -> str:
-    """Write checkpoint for ``step``; returns the final directory path."""
+    """Write checkpoint for ``step``; returns the final directory path.
+    With a process group running, every rank calls it and rank 0 writes."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = os.path.join(ckpt_dir, f".tmp_step_{step:08d}")
+    pairs = _leaves_with_paths(tree)
+    arrays = [_numpy(leaf) for _, leaf in pairs]   # gathers every shard
+    if dist.is_initialized() and dist.get_rank() != 0:
+        dist.barrier()
+        return final
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp, exist_ok=True)
 
-    pairs = _leaves_with_paths(tree)
-    arrays = [_numpy(leaf) for _, leaf in pairs]
     manifest = {
         "step": step,
         "paths": [path for path, _ in pairs],
@@ -91,6 +112,8 @@ def save(ckpt_dir: str, step: int, tree: Any, *,
     if os.path.exists(final):
         shutil.rmtree(final)
     os.replace(tmp, final)           # atomic publish
+    if dist.is_initialized():
+        dist.barrier()
     return final
 
 
@@ -112,8 +135,9 @@ def latest_step(ckpt_dir: str) -> int | None:
 def restore(ckpt_dir: str, target: Any, *, step: int | None = None,
             device: torch.device | str | None = None) -> tuple[Any, dict]:
     """Restore into the structure of ``target`` (values ignored): each leaf
-    a tensor on ``device`` (None: the target leaf's device, or the CPU).
-    Returns (tree, metadata)."""
+    a tensor on ``device`` (None: the target leaf's device, or the CPU),
+    and where the target leaf is a DTensor, this rank's slice of it on the
+    target's mesh and placements.  Returns (tree, metadata)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -131,11 +155,14 @@ def restore(ckpt_dir: str, target: Any, *, step: int | None = None,
     leaves = {}
     for path, tgt in want:
         arr = np.load(os.path.join(d, f"arr_{have[path]}.npy"))
-        want_shape = tuple(np.shape(tgt))
+        want_shape = tuple(tgt.shape if torch.is_tensor(tgt) else np.shape(tgt))
         if want_shape and tuple(arr.shape) != want_shape:
             raise ValueError(f"{path}: checkpoint shape {arr.shape} != target "
                              f"{want_shape}")
         dev = device if device is not None else (
             tgt.device if torch.is_tensor(tgt) else "cpu")
         leaves[path] = torch.from_numpy(arr).to(dev)
+        if _is_dtensor(tgt):
+            leaves[path] = shard_tensor(leaves[path], spec_of(tgt),
+                                        tgt.device_mesh)
     return _unflatten(target, leaves), manifest["metadata"]

@@ -11,9 +11,15 @@ step::
 
 :func:`quantize_int8` and :func:`dequantize_int8` give the reference's
 values bit for bit (both frameworks round half to even).  The cross-pod
-reduce (:func:`pod_allreduce_int8`, :func:`compressed_mean`) needs a process
-group across pods, which the port does not have yet: both raise
-(ROADMAP.md, Queue A item 9).
+reduce (:func:`pod_allreduce_int8`, :func:`compressed_mean`) runs over the
+ranks along one axis of the installed mesh (:func:`repro_torch.sharding.
+ctx.use_mesh`), as the reference's runs inside a ``shard_map`` over
+``pod``: the int8 payload and the per-tensor scale go through
+``all_gather_into_tensor`` (int8 on the wire: 4x fewer bytes an element
+than a float32 all-reduce), then every rank dequantizes and takes the mean
+over pods in pod order, ``(((q_0 s_0 + q_1 s_1) + ...) / n``, the same
+values on every rank and on any device (each division a division, also on
+the card).
 """
 
 from __future__ import annotations
@@ -21,14 +27,25 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.distributed as dist
+
+from repro_torch.launch.mesh import all_gather_flat, axis_group
+from repro_torch.sharding.ctx import current_mesh
 
 __all__ = ["quantize_int8", "dequantize_int8", "ef_init",
-           "pod_allreduce_int8", "compressed_mean"]
+           "pod_allreduce_int8", "compressed_mean", "divide"]
+
+
+def divide(x: torch.Tensor, d: float) -> torch.Tensor:
+    """``x / d`` correctly rounded on every device: PyTorch's CUDA kernels
+    multiply by the reciprocal of a Python scalar divisor, one ulp off the
+    reference's division at times; a divisor on the device is divided."""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
 
 
 def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     xf = x.float()
-    scale = torch.amax(torch.abs(xf)) / 127.0
+    scale = divide(torch.amax(torch.abs(xf)), 127.0)
     scale = torch.clamp_min(scale, 1e-30)
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return q, scale
@@ -45,18 +62,32 @@ def ef_init(grads_like: Any) -> Any:
     return torch.zeros_like(grads_like, dtype=torch.float32)
 
 
-def _needs_pods(name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{name}: the cross-pod int8 reduce needs a process group over pods, "
-        "which is not ported (ROADMAP.md, Queue A item 9)")
-
-
 def pod_allreduce_int8(g: torch.Tensor, ef: torch.Tensor, axis_name: str
                        ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Cross-pod mean of one gradient tensor with int8 EF compression."""
-    raise _needs_pods("pod_allreduce_int8")
+    """Cross-pod mean of one gradient tensor with int8 EF compression over
+    the installed mesh's ``axis_name``.  Returns (mean gradient fp32, new
+    EF residual)."""
+    c = g.float() + ef
+    q, scale = quantize_int8(c)
+    group = axis_group(current_mesh(), (axis_name,))
+    n = dist.get_world_size(group)
+    # int8 payload on the wire; scales are scalar per tensor
+    q_all = q.new_empty((n * q.numel(),))
+    all_gather_flat(q_all, q, group)
+    q_all = q_all.view((n,) + tuple(q.shape))
+    s_all = scale.new_empty((n,))
+    all_gather_flat(s_all, scale, group)
+    acc = dequantize_int8(q_all[0], s_all[0])
+    for i in range(1, n):
+        acc = acc + dequantize_int8(q_all[i], s_all[i])
+    ef_new = c - dequantize_int8(q, scale)
+    return divide(acc, n), ef_new
 
 
 def compressed_mean(grads: Any, ef: Any, axis_name: str) -> tuple[Any, Any]:
-    """Tree version of :func:`pod_allreduce_int8`."""
-    raise _needs_pods("compressed_mean")
+    """Tree version of :func:`pod_allreduce_int8` (nested dicts)."""
+    if isinstance(grads, dict):
+        out = {k: compressed_mean(grads[k], ef[k], axis_name) for k in grads}
+        return ({k: v[0] for k, v in out.items()},
+                {k: v[1] for k, v in out.items()})
+    return pod_allreduce_int8(grads, ef, axis_name)

@@ -76,6 +76,8 @@ def _slices(*xs: torch.Tensor):
     qwen2.5-3b is 3 GB)."""
     if xs[0].dim() == 0:
         return [xs]
+    if xs[0].numel() == 0:           # a rank's empty shard of an uneven dim
+        return []
     rows = max(1, _CHUNK // max(1, xs[0][0].numel()))
     return zip(*(x.split(rows) for x in xs))
 
@@ -86,12 +88,16 @@ def global_norm(tree: Any) -> torch.Tensor:
 
 
 def adamw_update(params: Any, grads: Any, m: Any, v: Any,
-                 step: torch.Tensor, oc: OptConfig
+                 step: torch.Tensor, oc: OptConfig,
+                 gnorm: torch.Tensor | None = None
                  ) -> tuple[Any, Any, Any, dict[str, torch.Tensor]]:
     """One AdamW step (decoupled weight decay, global-norm clipping) on
-    float32 ``params``, ``m`` and ``v``, updated in place.  Returns
-    (params, m, v, metrics)."""
-    gnorm = global_norm(grads)
+    float32 ``params``, ``m`` and ``v``, updated in place.  ``gnorm`` is the
+    clipping norm when ``grads`` are slices of the gradient it was taken on
+    (a rank's shards); None takes it on ``grads``.  Returns (params, m, v,
+    metrics)."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp_max(oc.clip_norm / torch.clamp_min(gnorm, 1e-9), 1.0)
     lr = lr_at(step, oc).to(gnorm.device)
     t = torch.as_tensor(step).to(device=gnorm.device, dtype=torch.float32) + 1.0

@@ -1,11 +1,10 @@
 """The LM train step: microbatch gradient accumulation + AdamW on fp32
 masters.
 
-The port of the JAX package's ``train/train_loop.py`` on one device (no
-mesh: ROADMAP.md, Queue A item 9).  :class:`TrainState` holds the float32
-master parameters in the reference's tree and leaf names (``blocks/...``
-stacked on a leading layer axis), the AdamW moments and the step, so that a
-checkpoint has the reference's leaves.  The model
+The port of the JAX package's ``train/train_loop.py``.  :class:`TrainState`
+holds the float32 master parameters in the reference's tree and leaf names
+(``blocks/...`` stacked on a leading layer axis), the AdamW moments and
+the step, so that a checkpoint has the reference's leaves.  The model
 (:class:`~repro_torch.models.transformer.Transformer`) holds each weight in
 its own dtype (matmul weights in the activation dtype), a cast of its
 master.  A step of :func:`make_train_step`:
@@ -20,22 +19,39 @@ master.  A step of :func:`make_train_step`:
 
 Every weight must receive a gradient: autograd raises if one is not on the
 loss's path (a kernel without a backward would cut it).
+
+On a mesh (``make_train_step(mesh=...)``) the masters, moments and EF
+residuals are DTensors on the plan's placements (:func:`state_specs`,
+:func:`shard_state`): the plan's layouts hold the state, while each rank
+computes its own batch rows with every weight whole.  Splitting a layer's
+compute over ``model`` is the next slice (ROADMAP.md, Queue A item 10).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.models.transformer import (ModelConfig, Transformer,
-                                            _flatten, _leaves, init_params,
-                                            lm_loss, params_from_reference)
-from repro_torch.train.optim import OptConfig, adamw_init, adamw_update
+                                            _flatten, _leaves, _nest,
+                                            init_params, lm_loss,
+                                            params_from_reference)
+from repro_torch.launch.mesh import axis_group
+from repro_torch.sharding.ctx import use_mesh
+from repro_torch.sharding.placement import (gather_full, gather_tree,
+                                            local_slices, shard_tree)
+from repro_torch.sharding.spec import P
+from repro_torch.train.compression import compressed_mean, divide, ef_init
+from repro_torch.train.optim import (OptConfig, adamw_init, adamw_update,
+                                     global_norm)
 
-__all__ = ["TrainState", "init_state", "make_train_step", "load_masters"]
+__all__ = ["TrainState", "init_state", "make_train_step", "load_masters",
+           "state_specs", "shard_state", "gather_state"]
 
 
 @dataclasses.dataclass
@@ -44,19 +60,7 @@ class TrainState:
     m: Any
     v: Any
     step: torch.Tensor     # int32 scalar
-    ef: Any = None         # the reference's int8-EF residual: always None
-                           # here (pod_reduce="int8_ef" is not ported)
-
-
-def _nest(flat: dict[str, torch.Tensor]) -> dict:
-    out: dict = {}
-    for path, t in flat.items():
-        *head, leaf = path.split("/")
-        node = out
-        for key in head:
-            node = node.setdefault(key, {})
-        node[leaf] = t
-    return out
+    ef: Any = None         # int8-EF residual (pod_reduce="int8_ef" only)
 
 
 def _master_tree(model: Transformer) -> dict:
@@ -85,11 +89,12 @@ def load_masters(model: Transformer, params: dict) -> None:
 
 def init_state(cfg: ModelConfig, seed: int = 0, *,
                device: torch.device | str | None = None,
-               params: dict | None = None) -> tuple[Transformer, TrainState]:
+               params: dict | None = None, ef: bool = False
+               ) -> tuple[Transformer, TrainState]:
     """(model, state): float32 masters drawn from ``seed`` as
     :func:`~repro_torch.models.transformer.init_params` draws them (or the
     JAX package's numpy tree ``params``), the model holding their casts,
-    zero moments, step 0."""
+    zero moments (and with ``ef`` zero EF residuals), step 0."""
     if cfg.param_dtype != "float32":
         raise ValueError(f"training keeps float32 masters: param_dtype "
                          f"{cfg.param_dtype!r}")
@@ -106,27 +111,52 @@ def init_state(cfg: ModelConfig, seed: int = 0, *,
         load_masters(model, masters)
     m, v = adamw_init(masters)
     step = torch.zeros((), dtype=torch.int32, device=model.device)
-    return model, TrainState(masters, m, v, step)
+    return model, TrainState(masters, m, v, step,
+                             ef_init(masters) if ef else None)
 
 
-def make_train_step(model: Transformer, oc: OptConfig, *,
-                    n_microbatches: int = 1, pod_reduce: str = "fp32",
-                    plain_attention: bool = False
-                    ) -> Callable[[TrainState, dict], tuple[TrainState, dict]]:
-    """Build ``train_step(state, batch) → (state, metrics)`` for ``model``;
-    ``batch`` = {"tokens": (B, S)[, "prefix": (B, Np, D)]}, numpy or
-    tensors.  ``metrics``: loss, grad_norm, lr (float32 scalars on the
-    model's device).  ``plain_attention`` differentiates the attention's
-    plain version instead of the kernels (a comparison)."""
-    if pod_reduce == "int8_ef":
-        raise ValueError("int8_ef pod reduce needs a mesh with a 'pod' axis")
-    if pod_reduce != "fp32":
-        raise ValueError(f"unknown pod_reduce {pod_reduce!r}")
+def state_specs(plan, *, ef: bool = False) -> TrainState:
+    """The spec tree of a :class:`TrainState` for a plan: masters, moments
+    and the EF residual on the plan's parameter specs, the step
+    replicated."""
+    ps = plan.param_specs
+    return TrainState(params=ps, m=ps, v=ps, step=P(), ef=ps if ef else None)
+
+
+def shard_state(state: TrainState, specs: TrainState, mesh) -> TrainState:
+    """A state of whole tensors (the same on every rank) as DTensors on the
+    specs' placements: each rank keeps its slice."""
+    place = lambda tree, sp: None if tree is None else shard_tree(tree, sp, mesh)
+    return TrainState(place(state.params, specs.params),
+                      place(state.m, specs.m), place(state.v, specs.v),
+                      state.step, place(state.ef, specs.ef))
+
+
+def gather_state(state: TrainState) -> TrainState:
+    """A sharded state as whole tensors on every rank (one all-gather a
+    leaf)."""
+    gather = lambda tree: None if tree is None else gather_tree(tree)
+    return TrainState(gather(state.params), gather(state.m), gather(state.v),
+                      state.step, gather(state.ef))
+
+
+def _local(tree: Any) -> Any:
+    """The local tensors of a nested dict of DTensors (the same storage)."""
+    if isinstance(tree, dict):
+        return {k: _local(v) for k, v in tree.items()}
+    return tree.to_local()
+
+
+def _accumulator(model: Transformer, n_microbatches: int,
+                 plain_attention: bool) -> Callable:
+    """``accumulate(batch) → (gradient sums, loss sum)`` over the batch's
+    microbatches: each weight's gradient added, in float32, to an
+    accumulator in the reference's tree, in microbatch order."""
     leaves = _leaves(model)
     weights = [t for ts in leaves.values() for t in ts]
     dev = model.device
 
-    def accumulate_grads(batch: dict) -> tuple[dict, torch.Tensor]:
+    def accumulate(batch: dict) -> tuple[dict, torch.Tensor]:
         tokens = batch["tokens"]              # lm_loss moves it to the card
         prefix = batch.get("prefix")
         if prefix is not None:
@@ -154,16 +184,116 @@ def make_train_step(model: Transformer, oc: OptConfig, *,
                     (a[j] if path.startswith("blocks/") else a).add_(next(grads))
             del grads
             loss_sum = loss_sum + loss.detach()
-        inv = 1.0 / n_microbatches
-        return _nest({p: a.mul_(inv) for p, a in acc.items()}), loss_sum * inv
+        return acc, loss_sum
+
+    return accumulate
+
+
+def make_train_step(model: Transformer, oc: OptConfig, *,
+                    n_microbatches: int = 1, pod_reduce: str = "fp32",
+                    plain_attention: bool = False, mesh=None,
+                    grad_specs: Any | None = None
+                    ) -> Callable[[TrainState, dict], tuple[TrainState, dict]]:
+    """Build ``train_step(state, batch) → (state, metrics)`` for ``model``;
+    ``batch`` = {"tokens": (B, S)[, "prefix": (B, Np, D)]}, numpy or
+    tensors.  ``metrics``: loss, grad_norm, lr (float32 scalars on the
+    model's device).  ``plain_attention`` differentiates the attention's
+    plain version instead of the kernels (a comparison).
+
+    With a ``mesh`` (a ``DeviceMesh``) the state is sharded on
+    ``grad_specs`` (the plan's parameter specs; :func:`shard_state`) and
+    ``batch`` is this rank's rows (``plan.batch_spec``,
+    :func:`repro_torch.sharding.placement.local_rows`).  A step gathers
+    each master into the model's weight (cast), accumulates this rank's
+    microbatches, sums the gradients and the loss over the data-parallel
+    ranks (``pod`` × ``data``) in one all-reduce a leaf and divides by
+    microbatches × ranks; with ``pod_reduce="int8_ef"`` the sum runs over
+    ``data`` only and :func:`~repro_torch.train.compression.compressed_mean`
+    takes the mean over ``pod`` (the reference's ``shard_map``).  The
+    clipping norm is taken on the whole reduced gradient, then each rank
+    runs AdamW on its own slices."""
+    if pod_reduce == "int8_ef" and (
+            mesh is None or "pod" not in mesh.mesh_dim_names):
+        raise ValueError("int8_ef pod reduce needs a mesh with a 'pod' axis")
+    if pod_reduce not in ("fp32", "int8_ef"):
+        raise ValueError(f"unknown pod_reduce {pod_reduce!r}")
+    accumulate = _accumulator(model, n_microbatches, plain_attention)
+
+    if mesh is None:
+        def train_step(state: TrainState, batch: dict
+                       ) -> tuple[TrainState, dict]:
+            acc, loss_sum = accumulate(batch)
+            inv = 1.0 / n_microbatches
+            grads = _nest({p: a.mul_(inv) for p, a in acc.items()})
+            params, m, v, metrics = adamw_update(state.params, grads, state.m,
+                                                 state.v, state.step, oc)
+            del grads, acc
+            load_masters(model, params)
+            metrics["loss"] = loss_sum * inv
+            return TrainState(params, m, v, state.step + 1, state.ef), metrics
+
+        return train_step
+
+    if grad_specs is None:
+        raise ValueError("a train step on a mesh needs grad_specs (the plan's "
+                         "parameter specs)")
+    names = mesh.mesh_dim_names
+    axes = dict(zip(names, mesh.shape))
+    coord = dict(zip(names, mesh.get_coordinate()))
+    flat_specs = _flatten(grad_specs)
+    leaves = _leaves(model)
+    # the sum runs over these axes; int8_ef then takes the mean over "pod"
+    sum_axes = tuple(a for a in (("data",) if pod_reduce == "int8_ef"
+                                 else ("pod", "data")) if a in axes)
+    n_sum = math.prod(axes[a] for a in sum_axes)
+
+    def all_reduce(t: torch.Tensor, over: tuple[str, ...]) -> None:
+        if over:
+            dist.all_reduce(t, group=axis_group(mesh, over))
+
+    def load_sharded(params: dict) -> None:
+        flat = _flatten(params)
+        with torch.no_grad():
+            for path, ts in leaves.items():
+                full = gather_full(flat[path])
+                for i, t in enumerate(ts):
+                    t.copy_(full[i] if path.startswith("blocks/") else full)
+                del full
 
     def train_step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
-        grads, loss = accumulate_grads(batch)
-        params, m, v, metrics = adamw_update(state.params, grads, state.m,
-                                             state.v, state.step, oc)
-        del grads
-        load_masters(model, params)
+        load_sharded(state.params)
+        acc, loss_sum = accumulate(batch)
+        inv = 1.0 / (n_microbatches * n_sum)
+        for a in acc.values():
+            all_reduce(a, sum_axes)
+            a.mul_(inv)
+        all_reduce(loss_sum, sum_axes)
+        loss = loss_sum * inv
+        if pod_reduce == "int8_ef":
+            ef_full = _flatten(gather_tree(state.ef))
+            with use_mesh(mesh):
+                g_pod, ef_new = compressed_mean(acc, ef_full, "pod")
+            del ef_full
+            acc = g_pod
+            all_reduce(loss, ("pod",))
+            loss = divide(loss, axes["pod"])          # the reference's pmean
+            ef = _flatten(_local(state.ef))
+            with torch.no_grad():
+                for path, e in ef.items():
+                    e.copy_(ef_new[path][local_slices(
+                        tuple(ef_new[path].shape), flat_specs[path], axes,
+                        coord)])
+            del ef_new
+        gnorm = global_norm(_nest(acc))        # the reference's leaf order
+        grads = _nest({path: a[local_slices(tuple(a.shape), flat_specs[path],
+                                            axes, coord)]
+                       for path, a in acc.items()})
+        _, _, _, metrics = adamw_update(_local(state.params), grads,
+                                        _local(state.m), _local(state.v),
+                                        state.step, oc, gnorm=gnorm)
+        del grads, acc
         metrics["loss"] = loss
-        return TrainState(params, m, v, state.step + 1, state.ef), metrics
+        return TrainState(state.params, state.m, state.v, state.step + 1,
+                          state.ef), metrics
 
     return train_step

@@ -2,9 +2,10 @@
 
 Every module of ``repro_torch`` is scanned for such imports, and a fresh
 interpreter with ``jax``, ``jaxlib`` and ``repro`` blocked serves on the CPU
-through the classical engine, the LM engine and the LM launcher, and loads
-a program from an artifact store and serves it: the payload pickles no
-class of the JAX package."""
+through the classical engine, the LM engine and the LM launcher, plans a
+dry-run cell, trains a step through the launcher on a one-rank gloo mesh,
+and loads a program from an artifact store and serves it: the payload
+pickles no class of the JAX package."""
 
 import os
 import re
@@ -66,6 +67,17 @@ _BLOCKED = textwrap.dedent("""
     assert len(gen.tokens) == 3
     assert launch_serve.main(["--arch", "qwen2.5-3b", "--smoke", "--device",
                               "cpu", "--requests", "2", "--max-new", "2"]) == 0
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import train as launch_train
+
+    rec = dryrun.run_cell("deepseek-v2-236b", "train_4k", multi_pod=True)
+    assert rec["status"] == "ok" and rec["arg_bytes_per_device"] > 0, rec
+    out = launch_train.run_training(
+        "qwen2.5-3b", smoke=True, steps=1, batch=2, seq_len=8, ckpt_dir=None,
+        ckpt_every=1, microbatches=1, lr=1e-3, log_every=1, device="cpu",
+        layers=1)
+    assert out["history"][0]["step"] == 1
     assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro")
                    for m in sys.modules)
     print("served", int(req.pred))

@@ -404,14 +404,34 @@ def test_loss_decreases_smoke():
 
 
 def test_int8_ef_pod_reduce_raises():
+    """int8_ef without a pod axis raises, as in the reference; on a one-rank
+    gloo group the cross-pod reduce is the plain EF math of one pod."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_group, make_mesh
+    from repro_torch.sharding.ctx import use_mesh
+
     model, _ = tloop.init_state(get_arch(LM).smoke, 0, device="cpu")
     with pytest.raises(ValueError, match="pod"):
         tloop.make_train_step(model, toptim.OptConfig(), pod_reduce="int8_ef")
-    g = {"a": torch.ones(3)}
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
-        tcomp.pod_allreduce_int8(g["a"], tcomp.ef_init(g["a"]), "pod")
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
-        tcomp.compressed_mean(g, tcomp.ef_init(g), "pod")
+    rng = np.random.default_rng(0)
+    g = {"a": torch.from_numpy(rng.standard_normal((5, 7)).astype(np.float32)),
+         "b": {"c": torch.from_numpy(rng.standard_normal(9).astype(np.float32))}}
+    ef = {"a": torch.from_numpy(rng.standard_normal((5, 7)).astype(np.float32)
+                                * 1e-2), "b": {"c": torch.zeros(9)}}
+    init_group("cpu")
+    try:
+        with use_mesh(make_mesh((1, 1, 1), ("pod", "data", "model"), "cpu")):
+            got, got_ef = tcomp.compressed_mean(g, ef, "pod")
+    finally:
+        dist.destroy_process_group()
+    for want_g, want_e, mean, e in (
+            (g["a"], ef["a"], got["a"], got_ef["a"]),
+            (g["b"]["c"], ef["b"]["c"], got["b"]["c"], got_ef["b"]["c"])):
+        c = want_g + want_e
+        q, scale = tcomp.quantize_int8(c)
+        deq = tcomp.dequantize_int8(q, scale)
+        assert torch.equal(mean, deq) and torch.equal(e, c - deq)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
