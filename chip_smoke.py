@@ -289,7 +289,38 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               the host, one line of totals.  Several ranks cannot share
               one card under NCCL: 2 and 4 ranks are held on the CPU by
               ``tests/test_torch_distributed.py`` (gloo);
-12. report  — the chain kernels' launch floor (an empty kernel with their
+12. tp      — the dense split over ``model`` (``sharding/tp.py``: heads,
+              KV groups, FFN columns and the vocabulary, Megatron's
+              scheme), its ranks processes on this card over a gloo group
+              (``tp_child``; NCCL refuses two ranks on one card; gloo takes
+              the CUDA tensors as they lie).  First the decode kernel's
+              log-sum-exp output against its plain version (``TP_LSE_TOL``;
+              bf16 and f32, one split and many, lengths 0 included: zeros
+              and -inf), two calls bitwise.  Then this process runs the
+              one-process references: qwen2.5-3b at every width,
+              ``TP_LAYERS`` layers, float32, ``TP_STEPS`` steps at S
+              ``TP_S``, batch ``TP_BATCH`` in ``TP_MB`` microbatches, and a
+              ``TP_FWD_S``-token forward; the bf16 engines of ``TP_SERVE``.
+              2 ranks at (data 1, model 2): the same training through
+              ``build_cell``'s step on the rank's model (its shards), held
+              to ``TP_LOGIT_REL``, ``TP_FIRST_REL`` (each rank's first
+              moments against its slice of the reference's),
+              ``TP_GNORM_RTOL``, ``TP_LOSS_RTOL``; then qwen2.5-3b x4
+              (``wk``/``wv`` whole, ``bk``/``bv`` split) and granite-8b x2
+              (``wk``/``wv`` split) served on a plan; 4 ranks at (data 1,
+              model 4): qwen2.5-3b x4 served on a cache over the sequence
+              (each rank its positions; q gathered, the decode kernel's
+              log-sum-exp merging the ranks' outputs).  Every rank emits
+              the same tokens, within phase 7's bf16 rule against the
+              one-process model's teacher forcing.  Launches a rank: flash
+              2 x layers x microbatches x steps (``flash_attention``,
+              float32) and layers x microbatches x steps
+              (``flash_attention_bwd_wgmma``); serving layers x prefills
+              (``flash_attention_wgmma``) and layers x decode steps.  Each
+              rank's parameter GiB against the whole model's, peak GiB,
+              and the step's seconds (ranks time-share the card: a
+              rehearsal of correctness, not a scaling figure);
+13. report  — the chain kernels' launch floor (an empty kernel with their
               parameter block) beside each served chain call's device time
               and time per call, against ``CHAIN_DEVICE_MS`` /
               ``CHAIN_FLOOR_X`` / ``CHAIN_CALL_MS`` (printed, not checked);
@@ -316,15 +347,19 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               kernels line's ``flash_attention_bwd`` is zamba2's float32
               at S 1,024 on ``route="simt"``, on no model's training path);
               internvl2's G 6 forward at S
-              4,096 beside masked SDPA; the
+              4,096 beside masked SDPA; decode attention at qwen2.5-3b's
+              served shape with the log-sum-exp output beside the row
+              without it; the
               ``kernels`` JSON line (the forward flash kernels' launches
-              are the served paths', their training launches beside them),
+              are the served paths', their training launches beside them,
+              and phase 12's summed over its ranks, ``tp_launches``),
               the card line, and last ``{"ok": true, "device": {...}}``.
 
 Every path runs at its full depth, except deepseek-v2-236b (2 of 60
 layers, every width kept), phase 10's training runs beside qwen2.5-3b
-(every width kept; depths as ``LM_TRAIN_FAMILIES`` states) and phase 11's
-mesh runs (``DIST_LAYERS`` of qwen2.5-3b's 36 layers, every width kept).
+(every width kept; depths as ``LM_TRAIN_FAMILIES`` states), phase 11's
+mesh runs (``DIST_LAYERS`` of qwen2.5-3b's 36 layers, every width kept)
+and phase 12's (``TP_LAYERS`` of qwen2.5-3b's, 2 of granite-8b's 36).
 
 Needs only the repository (``src/`` on the path) and one card.  Writes the
 full per-case report to ``chiprun_out/chip_smoke.json``.
@@ -342,6 +377,7 @@ import subprocess
 import sys
 import time
 import traceback
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # phase 10 trains qwen2.5-3b at full width in ~70 of the card's 79 GiB:
@@ -517,6 +553,35 @@ DIST_LAYERS, DIST_S, DIST_BATCH, DIST_MB, DIST_STEPS = 4, 4096, 2, 2, 2
 # then the fp32 step's seconds on the mesh and without, in turns after a
 # warm-up step of each
 DIST_TIMING = ("plain", "mesh", "mesh", "plain", "plain", "mesh")
+# phase tp: the dense split over `model` (src/repro_torch/sharding/tp.py),
+# its ranks processes on this one card over a gloo group (NCCL refuses two
+# ranks on one card).  Training: qwen2.5-3b at every width, TP_LAYERS of 36
+# layers (phase 11's depth), float32, S TP_S, global batch TP_BATCH in
+# TP_MB microbatches, TP_STEPS steps at (data 1, model 2), against the
+# one-process step this process runs first from the same seed.  Limits,
+# stated before the first card run (a sum split over ranks only reorders
+# float32 adds): a forward's logits (one sequence of TP_FWD_S tokens)
+# within TP_LOGIT_REL of the one-process forward's largest logit; the first
+# update's moments (the first gradient) within TP_FIRST_REL of each leaf's
+# largest magnitude; grad norms rtol TP_GNORM_RTOL, losses rtol
+# TP_LOSS_RTOL.  Masters are not compared element by element after AdamW:
+# its first update is lr·sign(g) wherever |g| >> eps, so a rounding-level
+# difference on a near-zero gradient moves a master by up to 2·lr.
+TP_LAYERS, TP_S, TP_BATCH, TP_MB, TP_STEPS, TP_FWD_S = 4, 1024, 2, 2, 2, 128
+TP_LOGIT_REL, TP_FIRST_REL, TP_GNORM_RTOL, TP_LOSS_RTOL = 1e-5, 1e-5, 1e-5, 1e-4
+# serving: the bfloat16 engine on a plan, (arch, layers, model ranks), each
+# rank the same TP_REQUESTS requests of TP_PROMPT_LEN prompt tokens (seed 0),
+# TP_NEW_TOKENS each (phase 7's traffic, prompts cut to fit TP_MAX_LEN): qwen2.5-3b (wk/wv whole, bk/bv split) at model 2,
+# granite-8b (wk/wv split) at model 2, and qwen2.5-3b at model 4, where its
+# 2 KV heads do not divide the axis: a cache over the sequence, the decode
+# kernel's log-sum-exp.  Tokens under phase 7's bf16 rule (teacher-forced
+# agreement >= LM_BF16_AGREE) against the one-process model.
+TP_SERVE = (("qwen2.5-3b", 4, 2), ("granite-8b", 2, 2), ("qwen2.5-3b", 4, 4))
+TP_REQUESTS, TP_NEW_TOKENS, TP_MAX_BATCH, TP_MAX_LEN = 8, 32, 8, 512
+TP_PROMPT_LEN = (16, 256)
+# the decode kernel's log-sum-exp against its plain version: |lse - lse'|
+# <= TP_LSE_TOL * max(1, |lse'|); -inf (no keys) exactly
+TP_LSE_TOL = 1e-5
 # the two routes' kernels, as a trace names them (by substring)
 FLASH_BWD_KERNELS = ("fb_dq_kernel", "fb_dkdv_kernel", "fbt_dq_kernel",
                      "fbt_dkdv_kernel", "fbt_dkdv2_kernel", "fbs_split_kernel")
@@ -2670,6 +2735,419 @@ def dist_phase(dev) -> tuple[dict, dict]:
     return rec, launches
 
 
+def _tp_serve_cfg(arch: str, layers: int):
+    """The bfloat16 inference config of ``arch`` (decode_32k's) cut to
+    ``layers`` layers, every width kept."""
+    from repro_torch.configs.registry import SHAPES, get_arch
+
+    spec = get_arch(arch)
+    cfg = dataclasses.replace(spec.cell_config(SHAPES["decode_32k"]),
+                              n_layers=layers)
+    return dataclasses.replace(spec, model=cfg), cfg
+
+
+def _tp_prompts(vocab: int) -> list[list[int]]:
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    plens = rng.integers(TP_PROMPT_LEN[0], TP_PROMPT_LEN[1] + 1,
+                         size=TP_REQUESTS)
+    return [rng.integers(1, vocab, size=n).tolist() for n in plens]
+
+
+def _tp_train_cfg():
+    from repro_torch.configs.registry import ShapeCell, get_arch
+
+    spec = get_arch(LM_ARCH)
+    spec = dataclasses.replace(spec, model=dataclasses.replace(
+        spec.model, n_layers=TP_LAYERS, act_dtype="float32"))
+    cell = ShapeCell("tp", "train", TP_S, TP_BATCH)
+    return spec, cell, spec.cell_config(cell)
+
+
+def _tp_data(vocab: int) -> list[dict]:
+    import torch
+
+    from repro_torch.data.tokens import PipelineState, TokenPipeline
+
+    pipe = TokenPipeline(vocab_size=vocab, batch=TP_BATCH, seq_len=TP_S)
+    return [{k: torch.as_tensor(v) for k, v in
+             pipe.batch_at(PipelineState(step=i))[0].items()}
+            for i in range(TP_STEPS)]
+
+
+def _tp_fwd_tokens(vocab: int):
+    import numpy as np
+
+    return np.random.default_rng(3).integers(
+        1, vocab, size=(1, TP_FWD_S)).astype(np.int32)
+
+
+def _tp_bytes(model) -> float:
+    return float(sum(p.numel() * p.element_size() for p in model.parameters()))
+
+
+def tp_child(rank: int, world: int, tmp: str, jobs, device: str) -> None:
+    """One rank of phase tp, a process on the parent's card ``device``:
+    joins the gloo group of ``world`` ranks and runs ``jobs``, each writing
+    its results under ``tmp``.  Raises on any failure (the parent's spawn
+    reports it)."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import ShapeCell
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.launch.mesh import init_group, make_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models.transformer import (Transformer, _flatten,
+                                                init_params)
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.sharding.placement import local_rows
+    from repro_torch.sharding.planner import plan_for
+    from repro_torch.sharding.tp import gather_from_model, model_split
+    from repro_torch.train import train_loop as tloop
+    from repro_torch.train.optim import OptConfig
+
+    torch.set_num_threads(2)
+    dev = torch.device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_group(dev, init_method=f"file://{tmp}/store{world}",
+               world_size=world, rank=rank, backend="gloo")
+    counted = ("flash_attention", "flash_attention_wgmma",
+               "flash_attention_bwd", "flash_attention_bwd_wgmma",
+               "decode_attention")
+
+    def sync_time(fn):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t1
+
+    def train(shape):
+        spec, cell, cfg = _tp_train_cfg()
+        mesh = make_mesh(shape, ("data", "model"), dev)
+        torch.cuda.reset_peak_memory_stats()
+        split = build_cell(spec, cell, mesh).split(mesh)
+        model, state = tloop.init_state(cfg, 0, device=dev, split=split)
+        prog = build_cell(spec, cell, mesh, microbatch_override=TP_MB,
+                          oc=OptConfig(lr=1e-3, warmup_steps=1, total_steps=10),
+                          model=model)
+        state = tloop.shard_state(state, prog.in_shardings[0], mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        whole = _tp_bytes(Transformer(cfg, "meta"))
+        rows = prog.in_shardings[1]["tokens"]
+        ref_first = torch.load(os.path.join(tmp, f"tp_ref_first_{rank}.pt"))
+        for k in counted:
+            LAUNCHES[k] = 0
+        steps, first_err = [], {}
+        for i, b in enumerate(_tp_data(cfg.vocab_size)):
+            (state, m), sec = sync_time(
+                lambda: prog.fn(state, local_rows(b, rows, mesh)))
+            steps.append(dict(loss=float(m["loss"]),
+                              grad_norm=float(m["grad_norm"]), seconds=sec))
+            if i == 0:       # this rank's first moments against the reference's
+                got = _flatten(state.m)
+                for path, want in ref_first.items():
+                    w = want.to(dev)
+                    first_err[path] = (float((got[path].to_local() - w).abs().max())
+                                       / max(float(w.abs().max()), 1e-30))
+                    del w
+        launches = {k: LAUNCHES[k] for k in counted}
+        with torch.no_grad():
+            logits, _, _ = model.forward_full(_tp_fwd_tokens(cfg.vocab_size))
+            logits = gather_from_model(logits, -1, split)
+        want = torch.load(os.path.join(tmp, "tp_ref_logits.pt")).to(dev)
+        logit_err = float((logits - want).abs().max()) / float(want.abs().max())
+        out = dict(steps=steps, first_err=first_err, launches=launches,
+                   logit_err=logit_err, param_gib=_tp_bytes(model) / 2**30,
+                   whole_gib=whole / 2**30,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   partial=sorted(split.partial))
+        del model, state, prog, logits, want, ref_first
+        return out
+
+    def serve(arch, layers, shape):
+        spec, cfg = _tp_serve_cfg(arch, layers)
+        mesh = make_mesh(shape, ("data", "model"), dev)
+        torch.cuda.reset_peak_memory_stats()
+        plan = plan_for(spec, mesh, mode="decode",
+                        cell=ShapeCell("tp", "decode", TP_MAX_LEN, TP_MAX_BATCH),
+                        cache_batch=TP_MAX_BATCH, cache_len=TP_MAX_LEN)
+        split = model_split(cfg, plan.param_specs, mesh, plan.cache_specs)
+        model = init_params(cfg, 0, dev, split)
+        whole = _tp_bytes(Transformer(cfg, "meta"))
+        model.forward_full(np.arange(1, 9, dtype=np.int32)[None, :])  # warm up
+        eng = ServeEngine(cfg, model, max_batch=TP_MAX_BATCH,
+                          max_len=TP_MAX_LEN, mesh=mesh, plan=plan, device=dev)
+        for p in _tp_prompts(cfg.vocab_size):
+            eng.submit(p, max_new_tokens=TP_NEW_TOKENS)
+        torch.cuda.synchronize()
+        for k in counted:
+            LAUNCHES[k] = 0
+        done, sec = sync_time(eng.run_to_completion)
+        out = dict(tokens=[(r.rid, r.prompt, r.tokens) for r in done],
+                   launches={k: LAUNCHES[k] for k in counted},
+                   steps=eng.metrics.snapshot()["batches"], seconds=sec,
+                   cache=split.cache, heads=split.heads, kv=split.kv,
+                   param_gib=_tp_bytes(model) / 2**30, whole_gib=whole / 2**30,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   sharded_wk=split.sharded("blocks/attn/wk"))
+        del model, eng
+        return out
+
+    try:
+        for name, *args in jobs:
+            res = train(*args) if name == "train" else serve(*args)
+            torch.save(res, os.path.join(tmp, f"tp_{name}_{'_'.join(map(str, args))}"
+                                              f"_{rank}.pt"))
+            gc.collect()
+            torch.cuda.empty_cache()
+            dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_phase(dev, tmp: str) -> tuple[dict, dict]:
+    """Phase tp (see the module docstring): the decode kernel's
+    log-sum-exp against its plain version, the one-process references,
+    then the ranks as processes on this card.  Returns (record, launches
+    summed over the ranks' main-path runs); raises AssertionError on a
+    failed check."""
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.ref import decode_attention_ref
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models.transformer import _flatten, init_params
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.sharding.spec import MeshShape
+    from repro_torch.sharding.tp import plan_split
+    from repro_torch.train import train_loop as tloop
+    from repro_torch.train.optim import OptConfig
+
+    rec: dict = {"lse_cases": []}
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # 1. the decode kernel's log-sum-exp output against its plain version, at
+    # the local pieces qwen2.5-3b's model-4 engine decodes (B 8, 128 of 512
+    # slots a rank, lengths 0 included) and a split cache of 2,048 slots
+    g = torch.Generator(device=dev).manual_seed(11)
+    for dt in (torch.bfloat16, torch.float32):
+        for B, S, lens in ((TP_MAX_BATCH, TP_MAX_LEN // 4,
+                             [0, 1, 3 * TP_MAX_LEN // 20, TP_MAX_LEN // 4, 0,
+                              TP_MAX_LEN // 8, TP_MAX_LEN // 4 - 1, 0]),
+                           (8, 2048, [0, 1, 33, 700, 1024, 1500, 2047, 2048])):
+            q = torch.randn((B, 16, 128), generator=g, device=dev).to(dt)
+            k = torch.randn((B, S, 2, 128), generator=g, device=dev).to(dt)
+            v = torch.randn((B, S, 2, 128), generator=g, device=dev).to(dt)
+            ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+            out, lse = decode_attention(q, k, v, ln, round_p=False,
+                                        return_lse=True)
+            out2, lse2 = decode_attention(q, k, v, ln, round_p=False,
+                                          return_lse=True)
+            w_out, w_lse = decode_attention_ref(q, k, v, ln, return_lse=True)
+            torch.cuda.synchronize()
+            ok, err, lim = attn_compare(out, w_out)
+            empty = w_lse == -torch.inf
+            lse_ok = bool(torch.equal(lse == -torch.inf, empty))
+            fin = ~empty
+            lse_err = float(((lse - w_lse)[fin].abs()
+                             / torch.clamp_min(w_lse[fin].abs(), 1.0)).max())
+            same = torch.equal(out, out2) and torch.equal(lse, lse2)
+            case = dict(dtype=str(dt).split(".")[-1], B=B, S=S, lens=lens,
+                        max_abs_err=err, limit=lim, lse_rel_err=lse_err,
+                        bitwise_repeat=same)
+            rec["lse_cases"].append(case)
+            print(f"  decode lse {case['dtype']} B={B} S={S} lens {lens}: out "
+                  f"err {err:.3g} (limit {lim:.3g}), lse rel err "
+                  f"{lse_err:.3g} (limit {TP_LSE_TOL}), -inf where no keys "
+                  f"{lse_ok}, two calls bitwise {same}", flush=True)
+            if not (ok and lse_ok and lse_err <= TP_LSE_TOL and same):
+                raise AssertionError(f"decode lse case {case}")
+    del q, k, v, out, lse, out2, lse2, w_out, w_lse
+    free()
+
+    # 2. the one-process references: the float32 train step, then the bf16
+    # engines (kept for the teacher-forced checks)
+    spec, cell, cfg = _tp_train_cfg()
+    oc = OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    model, st = tloop.init_state(cfg, 0, device=dev)
+    with torch.no_grad():
+        logits, _, _ = model.forward_full(_tp_fwd_tokens(cfg.vocab_size))
+    torch.save(logits.cpu(), os.path.join(tmp, "tp_ref_logits.pt"))
+    del logits
+    step = tloop.make_train_step(model, oc, n_microbatches=TP_MB)
+    prog = build_cell(spec, cell, MeshShape((1, 2), ("data", "model")))
+    ref_steps = []
+    for i, b in enumerate(_tp_data(cfg.vocab_size)):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        st, m = step(st, b)
+        torch.cuda.synchronize()
+        ref_steps.append(dict(loss=float(m["loss"]),
+                              grad_norm=float(m["grad_norm"]),
+                              seconds=time.perf_counter() - t1))
+        if i == 0:           # each rank's slice of the first moments
+            m1 = _flatten(st.m)
+            for r in range(2):
+                sp = plan_split(cfg, prog.plan.param_specs, 2, r)
+                part = {}
+                for path, x in m1.items():
+                    if path.startswith("blocks/"):
+                        sl = (slice(None),) + sp.local_slices(
+                            path, tuple(x.shape[1:]))
+                    else:
+                        sl = sp.local_slices(path, tuple(x.shape))
+                    part[path] = x[sl].cpu()
+                torch.save(part, os.path.join(tmp, f"tp_ref_first_{r}.pt"))
+                del part
+            del m1
+    rec["train_ref"] = ref_steps
+    del model, st, step
+    free()
+    ref_models = {}
+    for arch, layers, m in TP_SERVE:
+        if (arch, layers) in ref_models:
+            continue
+        _, scfg = _tp_serve_cfg(arch, layers)
+        rmodel = init_params(scfg, 0, dev)
+        rmodel.forward_full(np.arange(1, 9, dtype=np.int32)[None, :])
+        eng = ServeEngine(scfg, rmodel, max_batch=TP_MAX_BATCH,
+                          max_len=TP_MAX_LEN, device=dev)
+        for p in _tp_prompts(scfg.vocab_size):
+            eng.submit(p, max_new_tokens=TP_NEW_TOKENS)
+        done = eng.run_to_completion()
+        ref_models[arch, layers] = (scfg, rmodel,
+                                    [(r.rid, r.prompt, r.tokens) for r in done])
+        del eng
+    free()
+
+    # 3. the ranks: 2 processes (training at model 2, serving at model 2),
+    # then 4 (serving at model 4)
+    t1 = time.perf_counter()
+    jobs2 = [("train", (1, 2))] + [("serve", a, n, (1, m))
+                                   for a, n, m in TP_SERVE if m == 2]
+    jobs4 = [("serve", a, n, (1, m)) for a, n, m in TP_SERVE if m == 4]
+    for world, jobs in ((2, jobs2), (4, jobs4)):
+        try:
+            mp.spawn(tp_child, args=(world, tmp, jobs, str(dev)), nprocs=world,
+                     join=True)
+        except Exception as e:        # a rank's traceback, as the check's failure
+            raise AssertionError(f"phase tp ranks ({world}): {e}") from None
+    rec["ranks_s"] = time.perf_counter() - t1
+    load = lambda name, args, r: torch.load(os.path.join(
+        tmp, f"tp_{name}_{'_'.join(map(str, args))}_{r}.pt"), weights_only=False)
+    launches: dict[str, int] = {}
+
+    # training: every rank within the limits of the one-process step
+    L, mb = TP_LAYERS, TP_MB
+    want_train = {"flash_attention": 2 * L * mb * TP_STEPS,
+                  "flash_attention_bwd_wgmma": L * mb * TP_STEPS}
+    rec["train"] = []
+    for r in range(2):
+        got = load("train", [(1, 2)], r)
+        rec["train"].append(got)
+        for a, b in zip(got["steps"], ref_steps):
+            if not (math.isclose(a["loss"], b["loss"], rel_tol=TP_LOSS_RTOL)
+                    and math.isclose(a["grad_norm"], b["grad_norm"],
+                                     rel_tol=TP_GNORM_RTOL)):
+                raise AssertionError(f"tp train rank {r}: steps {got['steps']} "
+                                     f"against {ref_steps}")
+        worst = max(got["first_err"].items(), key=lambda kv: kv[1])
+        print(f"  train rank {r} (data 1, model 2): losses "
+              f"{[s['loss'] for s in got['steps']]} against "
+              f"{[s['loss'] for s in ref_steps]}, grad norms "
+              f"{[s['grad_norm'] for s in got['steps']]} against "
+              f"{[s['grad_norm'] for s in ref_steps]}; first moments: largest "
+              f"relative error {worst[1]:.3g} ({worst[0]}; limit {TP_FIRST_REL}); "
+              f"forward logits {got['logit_err']:.3g} of the largest (limit "
+              f"{TP_LOGIT_REL}); launches {got['launches']} (expected "
+              f"{want_train}); parameters {got['param_gib']:.3f} of "
+              f"{got['whole_gib']:.3f} GiB, peak {got['peak_gib']:.2f} GiB; "
+              f"partial leaves {got['partial']}", flush=True)
+        if worst[1] > TP_FIRST_REL or got["logit_err"] > TP_LOGIT_REL:
+            raise AssertionError(f"tp train rank {r}: first moments {worst}, "
+                                 f"logits {got['logit_err']}")
+        if any(got["launches"][k] != want_train.get(k, 0) for k in got["launches"]):
+            raise AssertionError(f"tp train rank {r}: launches {got['launches']}"
+                                 f", expected {want_train}")
+        for k, n in got["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    # the last step (the first warms every kernel and library up)
+    rec["step_s"] = rec["train"][0]["steps"][-1]["seconds"]
+    rec["ref_step_s"] = ref_steps[-1]["seconds"]
+    print(f"  train: step {TP_STEPS} took {rec['step_s']:.4f} s on 2 ranks "
+          f"sharing this card ({card_line()}; the two processes time-share "
+          f"one card: a rehearsal of correctness, not a scaling figure), "
+          f"{rec['ref_step_s']:.4f} s in one process", flush=True)
+
+    # serving: every rank the same tokens, each within phase 7's bf16 rule
+    # against the one-process model's teacher forcing
+    rec["serve"] = []
+    for arch, layers, m in TP_SERVE:
+        scfg, rmodel, ref_done = ref_models[arch, layers]
+        ranks = [load("serve", [arch, layers, (1, m)], r) for r in range(m)]
+        toks = ranks[0]["tokens"]
+        if any(x["tokens"] != toks for x in ranks):
+            raise AssertionError(f"tp serve {arch} model {m}: ranks differ")
+        done = [types.SimpleNamespace(rid=rid, prompt=p, tokens=t)
+                for rid, p, t in toks]
+        n, worse, _, _, _ = teacher_forced(rmodel, done, scfg.vocab_size, False)
+        agree = 1 - len(worse) / n
+        ties = sum(w["served_gap"] <= w["tie"] for w in worse)
+        same = sum(a == b for (_, _, ta), (_, _, tb) in zip(toks, ref_done)
+                   for a, b in zip(ta, tb)) / n
+        x = ranks[0]
+        want = {"flash_attention_wgmma": layers * TP_REQUESTS,
+                "decode_attention": layers * x["steps"]}
+        case = dict(arch=arch, layers=layers, model=m, cache=x["cache"],
+                    sharded_wk=x["sharded_wk"], agreement=agree,
+                    disagreements=len(worse), rounding_ties=ties,
+                    same_as_one_process=same, positions=n,
+                    launches=[y["launches"] for y in ranks],
+                    param_gib=[y["param_gib"] for y in ranks],
+                    whole_gib=x["whole_gib"],
+                    peak_gib=[y["peak_gib"] for y in ranks],
+                    seconds=x["seconds"], steps=x["steps"])
+        rec["serve"].append(case)
+        print(f"  serve {arch} x{layers} bf16 at model {m}: cache over "
+              f"{x['cache']}, wk/wv {'split' if x['sharded_wk'] else 'whole'}; "
+              f"{n} tokens, teacher-forced agreement {agree:.4f} (limit "
+              f"{LM_BF16_AGREE}; {len(worse)} disagreements, {ties} of them "
+              f"rounding ties), equal to the one-process engine's "
+              f"{same:.4f}; launches a rank {x['launches']} (expected {want}); "
+              f"parameters a rank {case['param_gib']} of {x['whole_gib']:.3f} "
+              f"GiB, peak {[round(p, 2) for p in case['peak_gib']]} GiB; "
+              f"{x['seconds']:.2f} s for {x['steps']} decode steps (ranks "
+              "time-share the card)", flush=True)
+        if agree < LM_BF16_AGREE:
+            raise AssertionError(f"tp serve {arch} model {m}: agreement {agree}"
+                                 f": {worse[:4]}")
+        for y in ranks:
+            if any(y["launches"][k] != want.get(k, 0) for k in y["launches"]):
+                raise AssertionError(f"tp serve {arch} model {m}: launches "
+                                     f"{y['launches']}, expected {want}")
+            for k, c in y["launches"].items():
+                launches[k] = launches.get(k, 0) + c
+    del ref_models
+    free()
+    return rec, launches
+
+
 def main() -> int:
     t0 = time.perf_counter()
     # ------------------------------------------------------------ 1. device
@@ -4083,7 +4561,23 @@ def main() -> int:
           f"{sum(dist_rec['dryrun']['counts'].values())} dry-run cells; "
           f"launches {dist_launches}")
 
-    # ----------------------------------------------------------- 12. report
+    # --------------------------------------------------------------- 12. tp
+    t = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory(prefix="mafia-tp-") as tmp:
+            tp_rec, tp_launches = tp_phase(dev, tmp)
+    except AssertionError as e:
+        return fail("tp", str(e))
+    tp_rec["seconds"] = time.perf_counter() - t
+    phase("tp", t, f"{LM_ARCH} x{TP_LAYERS} float32 trained at (data 1, model "
+          f"2) within the limits of the one-process step; "
+          + "; ".join(f"{c['arch']} x{c['layers']} served at model {c['model']}"
+                      f" (cache over {c['cache']}): agreement "
+                      f"{c['agreement']:.4f}" for c in tp_rec["serve"])
+          + f"; ranks as processes on this card over gloo; launches "
+          f"{tp_launches}")
+
+    # ----------------------------------------------------------- 13. report
     t = time.perf_counter()
     saved = dict(LAUNCHES)
     timed = []
@@ -4234,6 +4728,16 @@ def main() -> int:
         print(f"    decode_attention {dname} passes: " + ", ".join(
             f"{k} {v:.5f} ms" for k, v in passes.items()), flush=True)
         rows["decode_attention"].append(r)
+        # the same call with the log-sum-exp output (phase tp's decode on a
+        # cache over the sequence): B x H more floats written
+        lb, lo = decode_work(lens, 16, 2, 128, qd.element_size())
+        rows["decode_attention"].append(row(
+            "decode_attention", f"{dname} B={B} S={Sc} H=16 KV=2 dh=128 "
+            f"served lens {lens} (on the card) p fp32, with lse",
+            lambda: decode_attention(qd, kc, vc, ld, round_p=False,
+                                     return_lse=True),
+            lambda: decode_attention_ref(qd, kc, vc, ld, return_lse=True),
+            None, 50, (lb + 4 * B * 16, lo), dname))
     # the same two kernels at phase 7's other heads: flash at the largest
     # bucket (MLA's v zero-padded to dh 192, as mla_prefill gives it), decode
     # at the served lengths
@@ -4466,7 +4970,8 @@ def main() -> int:
     phase("report", t, "device times from the profiler trace; per-call times "
           "between CUDA events; serving wall time on the host clock")
     report.update(lm_train=train_rec, train_launches=train_launches,
-                  dist=dist_rec, dist_launches=dist_launches)
+                  dist=dist_rec, dist_launches=dist_launches, tp=tp_rec,
+                  tp_launches=tp_launches)
     report.update(served=served, timed=timed, launches=launches, rows=rows,
                   chain_floor=chain_floor,
                   attention_cases=attn_cases, ssd_cases=ssd_cases,
@@ -4524,6 +5029,7 @@ def main() -> int:
                 "flash_attention_bwd") else launches[name]),
             "train_launches": train_launches.get(name, 0),
             "dist_launches": dist_launches.get(name, 0),
+            "tp_launches": tp_launches.get(name, 0),
             "max_abs_err": checks[name]["max_abs_err"],
             "ms": h["ms"], "call_ms": h["call_ms"], "plain_ms": h["plain_ms"],
             "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],

@@ -51,6 +51,10 @@
 //     order: m = max m_s, l = sum e^(m_s - m) l_s, acc = sum e^(m_s - m)
 //     acc_s, out = acc / l in q's dtype.  No atomics: two calls give
 //     bitwise equal outputs.
+//   * With `lse` (not null) the pass that normalises a row also writes its
+//     log-sum-exp m + log(l) (fp32, natural log; -inf for a length of 0):
+//     da_kernel with one split, da_combine with more.  A caller that splits
+//     one sequence's keys over ranks merges their outputs by it.
 //   * With `round_p`, each split rounds p against its own running max, as
 //     the TPU kernel rounds against its running max of each tile.
 //   * Lengths are read on the card and clamped into [0, S], so a bad length
@@ -76,6 +80,7 @@ struct DaArgs {
   const void* q; const void* k; const void* v; void* o; const int* lens;
   float* ws;        // splits > 1: (B * KV, splits, G) x (m, l), then
                     // (B * KV, splits, G, dh) accumulators
+  float* lse;       // (B, H) row log-sum-exps, or null
   int B, S, H, KV, dh, chunk, splits, warps;
   int gsz;          // query rows of a KV head per block (blockIdx.y a group)
   long long qsb, qsh, ksb, kss, ksh, vsb, vss, vsh;
@@ -170,6 +175,9 @@ da_kernel(DaArgs a) {
     } else {                       // a length of 0: zero rows
       T* o = static_cast<T*>(a.o) + ((long long)b * a.H + kvh * G + g0) * dh;
       for (int e = tid; e < gn * dh; e += blockDim.x) o[e] = att_out<T>(0.0f);
+      if (a.lse)
+        for (int g = tid; g < gn; g += blockDim.x)
+          a.lse[(long long)b * a.H + kvh * G + g0 + g] = -INFINITY;
     }
     return;
   }
@@ -351,6 +359,9 @@ da_kernel(DaArgs a) {
       ws_ml[2 * g] = m[r];
       ws_ml[2 * g + 1] = l[r];
     }
+    if (!split_out && a.lse && sg == 0)
+      a.lse[(long long)b * a.H + kvh * G + g] =
+          l[r] > 0.0f ? m[r] + logf(l[r]) : -INFINITY;
 #pragma unroll
     for (int s = 0; s < SPL; ++s)
 #pragma unroll
@@ -396,6 +407,7 @@ __global__ void da_combine(DaArgs a) {
   float l = 0.0f;
   for (int s = 0; s < ns; ++s) l = fmaf(cw[s], cw[ns + s], l);
   const float den = fmaxf(l, 1e-30f);
+  if (a.lse && tid == 0) a.lse[blockIdx.x] = l > 0.0f ? mx + logf(l) : -INFINITY;
   T* o = static_cast<T*>(a.o) + (long long)blockIdx.x * a.dh;
   for (int d = tid; d < a.dh; d += blockDim.x) {
     float acc = 0.0f;
@@ -455,11 +467,12 @@ static int da_dispatch(const DaArgs& a, int rows, cudaStream_t s) {
 // clamped into [0, S]); out (B, H, dh) contiguous.  The plan: `chunk` keys
 // per block (a multiple of DA_TILE), `splits` = ceil(S / chunk) blocks per
 // (b, KV head) and group of `gsz` query rows, `warps` warps of `rows` query
-// rows (1, 2 or 4; gsz <= warps * rows); ws holds B * KV * splits * G * (dh + 2) floats when splits > 1.
+// rows (1, 2 or 4; gsz <= warps * rows); ws holds B * KV * splits * G * (dh + 2) floats when splits > 1;
+// lse (B, H) floats, or null.
 // `vec`: 16-byte copies of the caches.  dtype 0 = float32, 1 = bfloat16.
 // Returns cudaGetLastError() after the launches (0 = launched).
 extern "C" int da_launch(const void* q, const void* k, const void* v, void* o,
-                         const void* lens, void* ws, int B, int S, int H,
+                         const void* lens, void* ws, void* lse, int B, int S, int H,
                          int KV, int dh, long long qsb, long long qsh,
                          long long ksb, long long kss, long long ksh,
                          long long vsb, long long vss, long long vsh,
@@ -473,7 +486,7 @@ extern "C" int da_launch(const void* q, const void* k, const void* v, void* o,
       gsz < 1 || gsz > warps * rows || chunk < DA_TILE || chunk % DA_TILE != 0 ||
       splits != (S + chunk - 1) / chunk || (splits > 1 && ws == nullptr))
     return (int)cudaErrorInvalidValue;
-  DaArgs a{q, k, v, o, (const int*)lens, (float*)ws, B, S, H, KV, dh, chunk,
+  DaArgs a{q, k, v, o, (const int*)lens, (float*)ws, (float*)lse, B, S, H, KV, dh, chunk,
            splits, warps, gsz, qsb, qsh, ksb, kss, ksh, vsb, vss, vsh, scale,
            round_p, vec};
   cudaStream_t s = (cudaStream_t)stream;

@@ -13,15 +13,23 @@ sequence over blocks and merges the splits in a second pass;
 ``LAUNCHES["decode_attention"]`` counts calls that launched the kernel
 (with its combine pass, where there is one).
 
-``cache_len`` must lie in [1, S].  Given on the host (a CPU tensor, numpy
-array or sequence), it is checked there and copied to the card once.  Given
-on the card, it is not read back: the call makes no synchronisation and can
-be captured in a CUDA graph, and checking the lengths is the caller's job,
-as for the reference's ``decode_attention``.  The kernel clamps each length
-into [0, S], so a bad one never reads outside the cache; a length of 0
-gives a zero row.  ``round_p``
-(default True, what the TPU kernel does) rounds the probabilities to v's
-dtype before P·V; False keeps them fp32, as the model's ``gqa_decode`` does.
+``return_lse`` also returns each row's log-sum-exp (B, H) float32 of its
+scaled valid scores (natural log), written where the kernel's last pass
+normalises the row (``da_kernel`` with one split, ``da_combine`` with
+more): the statistic that merges attention over pieces of one sequence
+(:func:`repro_torch.models.attention.gqa_decode` on a cache split over the
+sequence).  A row of length 0 then gives zeros and -inf.
+
+``cache_len`` must lie in [1, S] ([0, S] with ``return_lse``). Given on the
+host (a CPU tensor, numpy array or sequence), it is checked there and
+copied to the card once. Given on the card, it is not read back: the call
+makes no synchronisation and can be captured in a CUDA graph, and checking
+the lengths is the caller's job, as for the reference's
+``decode_attention``. The kernel clamps each length into [0, S], so a bad
+one never reads outside the cache; a length of 0 gives a zero row.
+``round_p`` (default True, what the TPU kernel does) rounds the
+probabilities to v's dtype before P·V; False keeps them fp32, as the
+model's ``gqa_decode`` does.
 """
 
 from __future__ import annotations
@@ -111,31 +119,32 @@ def plan_decode(B: int, KV: int, G: int, S: int, dh: int, dtype: torch.dtype,
 
 def _declare(lib: ctypes.CDLL) -> None:
     vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.da_launch.argtypes = ([vp] * 6 + [ci] * 5 + [cl] * 8 + [ctypes.c_float]
+    lib.da_launch.argtypes = ([vp] * 7 + [ci] * 5 + [cl] * 8 + [ctypes.c_float]
                               + [ci] * 8 + [vp])
     lib.da_launch.restype = ci
 
 
-def _lengths(cache_len, B: int, S: int) -> torch.Tensor:
+def _lengths(cache_len, B: int, S: int, least: int = 1) -> torch.Tensor:
     """``cache_len`` as an int32 tensor of B lengths, on the device it was
     given on (the host for a sequence).  Lengths on the host are checked to
-    lie in [1, S]; lengths on the card are not read back."""
+    lie in [least, S]; lengths on the card are not read back."""
     lens = (cache_len if torch.is_tensor(cache_len)
             else torch.as_tensor(np.asarray(cache_len)))
     if lens.shape != (B,):
         raise ValueError(f"decode_attention: cache_len of shape "
                          f"{tuple(lens.shape)}, expected ({B},)")
     lens = lens.to(torch.int32).contiguous()
-    if lens.device.type == "cpu" and B and bool(((lens < 1) | (lens > S)).any()):
-        raise ValueError(f"decode_attention: cache_len must lie in [1, {S}], "
+    if lens.device.type == "cpu" and B and bool(((lens < least) | (lens > S)).any()):
+        raise ValueError(f"decode_attention: cache_len must lie in [{least}, {S}], "
                          f"got {lens.tolist()}")
     return lens
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len, *,
-                     round_p: bool = True) -> torch.Tensor:
-    """One decode step of attention → (B, H, dh) in q's dtype."""
+                     round_p: bool = True, return_lse: bool = False):
+    """One decode step of attention → (B, H, dh) in q's dtype, and with
+    ``return_lse`` (out, log-sum-exp (B, H) float32)."""
     if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
         raise ValueError(f"decode_attention: q (B, H, dh) and caches (B, S, KV, "
                          f"dh) expected, got {tuple(q.shape)}, "
@@ -145,9 +154,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if k_cache.shape[0] != B or k_cache.shape[3] != dh or KV < 1 or H % KV:
         raise ValueError(f"decode_attention: caches {tuple(k_cache.shape)} do "
                          f"not match q {tuple(q.shape)}")
-    lens = _lengths(cache_len, B, S)
+    lens = _lengths(cache_len, B, S, least=0 if return_lse else 1)
     if q.device.type == "cpu":
-        return decode_attention_ref(q, k_cache, v_cache, lens, round_p=round_p)
+        return decode_attention_ref(q, k_cache, v_cache, lens, round_p=round_p,
+                                    return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on cuda or cpu, not {q.device}")
     if k_cache.device != q.device or v_cache.device != q.device:
@@ -163,8 +173,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     lib = load("decode_attention", _declare)
     lens = lens.to(q.device, non_blocking=True)
     out = torch.empty((B, H, dh), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     ws = (torch.empty(plan.splits * B * H * (dh + 2), dtype=torch.float32,
                       device=q.device) if plan.splits > 1 else None)
     words = 16 // q.element_size()
@@ -172,11 +184,12 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
               for t in (k_cache, v_cache)) and dh % words == 0
     err = lib.da_launch(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                         out.data_ptr(), lens.data_ptr(),
-                        None if ws is None else ws.data_ptr(), B, S, H, KV, dh,
+                        None if ws is None else ws.data_ptr(),
+                        None if lse is None else lse.data_ptr(), B, S, H, KV, dh,
                         q.stride(0), q.stride(1), *k_cache.stride()[:3],
                         *v_cache.stride()[:3], dh ** -0.5, int(round_p),
                         int(vec), _DTYPE[q.dtype], plan.chunk, plan.splits,
                         plan.warps, plan.rows, plan.group_rows(H // KV),
                         torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("decode_attention", err)
-    return out
+    return (out, lse) if return_lse else out

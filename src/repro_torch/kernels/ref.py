@@ -125,10 +125,12 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          cache_len: torch.Tensor, *,
-                         round_p: bool = False) -> torch.Tensor:
+                         round_p: bool = False, return_lse: bool = False):
     """One new token per sequence, q (B, H, dh), against the caches k and
     v (B, S, KV, dh), of which the first ``cache_len[b]`` positions are
-    valid → (B, H, dh) in q's dtype."""
+    valid → (B, H, dh) in q's dtype.  With ``return_lse`` also each row's
+    log-sum-exp (B, H) float32 of its scaled valid scores; a row of length
+    0 then gives zeros and a log-sum-exp of -inf, as the kernel does."""
     B, H, dh = q.shape
     S, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -138,7 +140,13 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     valid = torch.arange(S, device=q.device)[None, :] < lens       # (B, S)
     s = s.masked_fill(~valid[:, None, None, :], _NEG)
     out = _softmax_pv(s, v, "bkgs,bskd->bkgd", round_p)
-    return out.reshape(B, H, dh).to(q.dtype)
+    if not return_lse:
+        return out.reshape(B, H, dh).to(q.dtype)
+    some = (lens[:, 0] > 0)[:, None, None]
+    out = torch.where(some[..., None], out, torch.zeros_like(out))
+    lse = torch.where(some, torch.logsumexp(s, dim=-1),
+                      torch.full_like(s[..., 0], -torch.inf))
+    return out.reshape(B, H, dh).to(q.dtype), lse.reshape(B, H)
 
 
 # ----------------------------------------------------------------- mamba2 SSD

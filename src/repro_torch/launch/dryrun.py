@@ -33,10 +33,12 @@ from repro_torch.configs.registry import ARCH_IDS, SHAPES, get_arch
 from repro_torch.launch.mesh import PRODUCTION_SHAPES, abstract_mesh, mesh_axes
 from repro_torch.launch.roofline import StepCost, model_flops, summarize
 from repro_torch.launch.steps import CellProgram, build_cell
+from repro_torch.models.transformer import _flatten
 from repro_torch.sharding.spec import P, entry_axes, shard_shape
+from repro_torch.sharding.tp import plan_split
 
 __all__ = ["run_cell", "main", "args_bytes_per_device", "OPT_OVERRIDES",
-           "ABSENT"]
+           "ABSENT", "split_collective_bytes"]
 
 # Beyond-paper optimized-variant config overrides per arch (the reference's
 # table): the per-arch knobs that change parameter layouts stay opt-in.
@@ -79,28 +81,99 @@ def args_bytes_per_device(prog: CellProgram, axes: dict[str, int]) -> float:
                      for x, s in _pairs(prog.args, prog.in_shardings)))
 
 
+def _ring(n: int) -> float:
+    """Bytes a rank sends, per byte reduced, in a ring all-reduce of n."""
+    return 2 * (n - 1) / n if n > 1 else 0.0
+
+
+def _rows(prog: CellProgram) -> int:
+    """The sequences a rank runs: its share of the cell's global batch."""
+    B, dp = prog.cell.global_batch, max(1, prog.plan.dp_size)
+    return B // dp if B % dp == 0 else B
+
+
+def split_collective_bytes(prog: CellProgram, axes: dict[str, int]) -> float:
+    """Bytes a rank sends in the collectives of the dense split over
+    ``model`` (:mod:`repro_torch.sharding.tp`) in one step of the cell, ring
+    algorithms over m = |model|, T the rank's tokens (rows × S; decode: one
+    a row), D the width, a the activation's bytes:
+
+    * forward: per layer one all-reduce of T × D fp32 partial sums for the
+      heads and one for the FFN columns (where each is split), and the
+      vocab-parallel embedding's all-reduce of T × D × a;
+    * train: the forward again in the remat recompute (blocks only), the
+      backward's all-reduce of the split inputs' gradients (T × D × a per
+      split product group, and the head's input), and the loss's three
+      reductions of T fp32 (the row max, the sum of exponentials, the gold
+      logit);
+    * decode on a cache split over the sequence: per layer q gathered over
+      ``model`` (B × H/m × dh × a) and each rank's output (B × H × dh × a)
+      and log-sum-exp (B × H fp32) gathered.
+
+    0 where nothing is split over ``model``; raises NotImplementedError for
+    a family whose split is not ported."""
+    cfg = prog.cfg
+    m = axes.get("model", 1)
+    sp = plan_split(cfg, prog.plan.param_specs, m, 0, prog.plan.cache_specs)
+    if sp is None:
+        return 0.0
+    kind, rows = prog.cell.kind, _rows(prog)
+    T = rows * (1 if kind == "decode" else prog.cell.seq_len)
+    D, L, a = cfg.d_model, cfg.n_layers, cfg.adt.itemsize
+    groups = (sp.heads is not None) + (sp.ffn is not None)
+    blocks = L * groups * _ring(m) * T * D * 4
+    embed = _ring(m) * T * D * a if sp.vocab_in is not None else 0.0
+    sent = blocks + embed
+    if kind == "train":
+        sent += blocks if cfg.remat else 0.0
+        sent += L * groups * _ring(m) * T * D * a
+        if sp.vocab_out is not None:
+            sent += _ring(m) * T * D * a + 3 * _ring(m) * T * 4
+    elif kind == "decode" and sp.cache == "seq":
+        H, dh = cfg.n_heads_eff, cfg.d_head
+        q = rows * (H // m) * dh * a if sp.heads is not None else 0.0
+        sent += L * (m - 1) * (q + rows * H * dh * a + rows * H * 4)
+    return sent
+
+
 def _train_collective_bytes(prog: CellProgram, axes: dict[str, int],
                             pod_reduce: str) -> float:
     """Bytes a rank sends in one step of the port's train step (ring
-    algorithms): each master's all-gather over the ranks that shard it,
-    then the gradients' all-reduce over (pod, data) in float32, or over
-    data in float32 and an int8 all-gather (+ a float32 scale a leaf) over
-    pod."""
-    masters = _pairs(prog.args[0].params, prog.in_shardings[0].params)
+    algorithms): each master's all-gather over the axes but ``model``
+    that shard it (a ``model``-sharded leaf stays the rank's shard), the
+    gradients' all-reduce (of the rank's shards) over (pod, data) in
+    float32 — over (pod, data, model) for the replicated leaves a rank
+    reads in part —, or over data in float32 and an int8 all-gather (+ a
+    float32 scale a leaf, a ``model``-sharded leaf's reduced over
+    ``model``) over pod; and the split's own collectives
+    (:func:`split_collective_bytes`)."""
+    params = _flatten(prog.args[0].params)
+    specs = _flatten(prog.in_shardings[0].params)
+    m = axes.get("model", 1)
+    sp = plan_split(prog.cfg, prog.plan.param_specs, m, 0)
+    partial = sp.partial if sp is not None else frozenset()
+    pods, data = axes.get("pod", 1), axes.get("data", 1)
+    over = data if pod_reduce == "int8_ef" else pods * data
     sent = 0.0
-    for x, s in masters:
-        k = math.prod(axes[a] for e in (s or ()) for a in entry_axes(e))
+    for path, x in params.items():
+        s = specs[path]
+        k = math.prod(axes[a] for e in (s or ()) for a in entry_axes(e)
+                      if a != "model")
         sent += (k - 1) * _shard_bytes(x, s, axes)
-    grads = sum(math.prod(x.shape) for x, _ in masters)
-    n_leaves = len(masters)
-    ring = lambda n: 2 * (n - 1) / n if n > 1 else 0.0
-    if pod_reduce == "int8_ef":
-        pods = axes.get("pod", 1)
-        sent += ring(axes.get("data", 1)) * 4 * grads
-        sent += (pods - 1) * (grads + 4 * n_leaves)
-    else:
-        sent += ring(axes.get("pod", 1) * axes.get("data", 1)) * 4 * grads
-    return sent
+        # the gradient of the rank's model shard, float32
+        g = 4 * math.prod(shard_shape(tuple(x.shape), _model_only(s), axes))
+        sent += _ring(over * (m if path in partial else 1)) * g
+        if pod_reduce == "int8_ef":
+            sent += (pods - 1) * (g / 4 + 4)      # int8 payload + a scale
+            if any("model" in entry_axes(e) for e in (s or ())):
+                sent += _ring(m) * 4              # the scale's max over model
+    return sent + split_collective_bytes(prog, axes)
+
+
+def _model_only(spec) -> P:
+    """``spec`` with every axis but ``model`` dropped."""
+    return P(*("model" if "model" in entry_axes(e) else None
+               for e in (spec or ())))
 
 
 def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool,
@@ -132,14 +205,23 @@ def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool,
             "bytes": "arg_bytes_per_device: every argument shard read once",
         }
         coll = None
-        if cell.kind == "train":
-            coll = _train_collective_bytes(prog, axes, pod_reduce)
-            sources["collective_bytes"] = (
-                "the port's train step: the masters' all-gather and the "
-                "gradients' all-reduce, ring algorithms")
-        else:
-            sources["collective_bytes"] = (
-                "not counted: serving on a plan is the next slice")
+        try:
+            if cell.kind == "train":
+                coll = _train_collective_bytes(prog, axes, pod_reduce)
+                sources["collective_bytes"] = (
+                    "the port's train step: the masters' all-gather over the "
+                    "axes but model, the gradients' all-reduce, the split's "
+                    "all-reduces over model (2 a layer forward, again in the "
+                    "recompute and the backward, the embedding's, the loss's "
+                    "3), ring algorithms")
+            else:
+                coll = split_collective_bytes(prog, axes)
+                sources["collective_bytes"] = (
+                    "the split over model in one forward: 2 all-reduces a "
+                    "layer, the embedding's; on a sequence-split cache q's, "
+                    "the outputs' and the log-sum-exps' all-gathers a layer")
+        except NotImplementedError as e:
+            sources["collective_bytes"] = f"not counted: {e}"
         cost = StepCost(flops=model_flops(prog.cfg, cell) / n_chips,
                         bytes=rec["arg_bytes_per_device"],
                         collective_bytes=coll, sources=sources)

@@ -45,10 +45,11 @@ def abstract_mesh(shape: tuple[int, ...], axis_names: tuple[str, ...]
 
 def init_group(device: torch.device | str | None = None, *,
                init_method: str | None = None, world_size: int = 1,
-               rank: int = 0) -> str:
+               rank: int = 0, backend: str | None = None) -> str:
     """Start the default process group unless one is running: NCCL on the
     card (this rank's card set current: ``LOCAL_RANK``'s under
-    ``torchrun``), gloo on the CPU.  With ``init_method`` (``file://...``,
+    ``torchrun``), gloo on the CPU, or ``backend`` (gloo on the card lets
+    several ranks share one card, which NCCL refuses).  With ``init_method`` (``file://...``,
     ``tcp://...``) it joins ``world_size`` ranks as ``rank``; without, it
     reads ``torchrun``'s variables (``RANK``, ``WORLD_SIZE``,
     ``MASTER_ADDR``, ...) when they are set, else starts a group of this
@@ -56,16 +57,18 @@ def init_group(device: torch.device | str | None = None, *,
     dev = resolve_device(device)
     if dist.is_initialized():
         return dist.get_backend()
-    backend = "nccl" if dev.type == "cuda" else "gloo"
+    backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
     torchrun = init_method is None and "WORLD_SIZE" in os.environ
     if torchrun:
         rank = int(os.environ["RANK"])
     kw: dict[str, Any] = {}
     if dev.type == "cuda":
         local = int(os.environ.get("LOCAL_RANK", rank))
-        kw["device_id"] = torch.device("cuda", dev.index if dev.index is not None
-                                       else local % torch.cuda.device_count())
-        torch.cuda.set_device(kw["device_id"])
+        card = torch.device("cuda", dev.index if dev.index is not None
+                            else local % torch.cuda.device_count())
+        torch.cuda.set_device(card)
+        if backend == "nccl":
+            kw["device_id"] = card
     if init_method is not None:
         dist.init_process_group(backend, init_method=init_method,
                                 world_size=world_size, rank=rank, **kw)

@@ -13,9 +13,13 @@ computed from a stated source, which the record names:
     memory_s     = the arguments' bytes a device holds (state and batch
                    shards), each read once / 3.35e12 B/s (its HBM)
     collective_s = the bytes a device sends in the step's collectives (the
-                   port's train step: the masters' all-gather and the
-                   gradients' all-reduce over the data-parallel group, ring
-                   algorithms) / 450e9 B/s (one direction of its NVLink)
+                   port's train step: the masters' all-gather over the
+                   axes but ``model``, the gradients' all-reduce over the
+                   data-parallel group, and the dense split's all-reduces
+                   over ``model``; a serving cell: the split's collectives
+                   of one forward; ring algorithms;
+                   ``dryrun.split_collective_bytes``) / 450e9 B/s (one
+                   direction of its NVLink)
 
 These are lower bounds on a step of the port's design, not a trace of one.
 """

@@ -23,8 +23,13 @@ one the cell only plans, and allocates nothing: deepseek-v2-236b's cells
 plan on the host); its state is :func:`~repro_torch.train.train_loop.
 shard_state`'s and its batch ``local_rows`` of the global batch.  Prefill
 and decode cells' ``fn`` take the :class:`~repro_torch.models.transformer.
-Transformer` holding the whole weights: serving on a plan is the next
-slice (ROADMAP.md, Queue A item 10).
+Transformer` and, to decode, its caches.  On a mesh whose plan shards
+leaves over ``model`` every cell runs on the rank's model: the caller
+builds it (and the caches) with :meth:`CellProgram.split`, the plan's
+:class:`~repro_torch.sharding.tp.ModelSplit` (``init_state(...,
+split=)``, ``init_params(..., split=)``, ``init_cache(..., split=)``);
+its logits are the rank's vocabulary columns, as the plan's
+``out_shardings`` say.
 """
 
 from __future__ import annotations
@@ -37,8 +42,10 @@ import torch
 from repro_torch.configs.registry import ArchSpec, ShapeCell
 from repro_torch.models.transformer import (ModelConfig, Transformer,
                                             abstract_params, init_cache)
+from repro_torch.sharding.ctx import use_plan
 from repro_torch.sharding.planner import Plan, plan_for
 from repro_torch.sharding.spec import P
+from repro_torch.sharding.tp import ModelSplit, model_split
 from repro_torch.train.optim import OptConfig
 from repro_torch.train.train_loop import (TrainState, make_train_step,
                                           state_specs)
@@ -59,6 +66,13 @@ class CellProgram:
     plan: Plan
     cfg: ModelConfig
     meta: dict[str, Any]
+
+    def split(self, mesh) -> ModelSplit | None:
+        """This rank's split of the cell's model on ``mesh`` (a
+        ``DeviceMesh``): the plan's parameter specs, and to serve its cache
+        specs; None where nothing is split over ``model``."""
+        return model_split(self.cfg, self.plan.param_specs, mesh,
+                           self.plan.cache_specs)
 
 
 def _meta(shape: tuple[int, ...], dtype: torch.dtype) -> torch.Tensor:
@@ -151,9 +165,10 @@ def build_cell(
     aparams = abstract_params(cfg)
     if cell.kind == "prefill":
         def prefill_step(model: Transformer, batch: dict):
-            logits, caches, _ = model.forward_full(
-                batch["tokens"], prefix_embeds=batch.get("prefix"),
-                return_cache=True)
+            with use_plan(mesh, plan.act_specs):
+                logits, caches, _ = model.forward_full(
+                    batch["tokens"], prefix_embeds=batch.get("prefix"),
+                    return_cache=True)
             return logits, caches
 
         abatch = _batch_abstract(cfg, cell, cell.global_batch)
@@ -172,7 +187,8 @@ def build_cell(
     B = cell.global_batch
 
     def serve_step(model: Transformer, token, caches: dict, pos):
-        return model.forward_decode(token, caches, pos)
+        with use_plan(mesh, plan.act_specs):
+            return model.forward_decode(token, caches, pos)
 
     acache = init_cache(cfg, B, cell.seq_len, device="meta")
     atoken = _meta((B,), torch.int32)

@@ -11,7 +11,8 @@ process group's ranks (:func:`build_mesh_for_devices`, elastic:
 ``elastic_mesh_shape(world, prefer_model=min(16, world))``), the MAFIA
 plan (:func:`repro_torch.sharding.planner.plan_for`), the train state
 placed on the plan and the train step on the mesh
-(:mod:`repro_torch.train.train_loop`), the deterministic synthetic token
+(:mod:`repro_torch.train.train_loop`; the dense family's layers split over
+``model`` as the plan says, :mod:`repro_torch.sharding.tp`), the deterministic synthetic token
 pipeline (every rank reads the global batch and keeps its rows),
 periodic and preemption-triggered checkpoints (gathered, written by rank
 0), and straggler tracking.  Under ``torchrun`` the ranks come from its
@@ -40,6 +41,7 @@ from repro_torch.launch.mesh import init_group, make_mesh
 from repro_torch.sharding.ctx import use_activation_sharding
 from repro_torch.sharding.placement import local_rows
 from repro_torch.sharding.planner import plan_for
+from repro_torch.sharding.tp import model_split
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.fault_tolerance import (PreemptionHandler,
                                                StragglerPolicy,
@@ -100,7 +102,9 @@ def run_training(arch: str, *, smoke: bool, steps: int, batch: int,
         log = print if dist.get_rank() == 0 else (lambda *a, **k: None)
         pstate = PipelineState()
         start_step = 0
-        model, state = init_state(cfg, seed, device=dev)
+        # the rank's model: its shards of what the plan splits over `model`
+        model, state = init_state(cfg, seed, device=dev,
+                                  split=model_split(cfg, plan.param_specs, mesh))
         state = shard_state(state, state_specs(plan), mesh)
         if ckpt_dir and ckpt.latest_step(ckpt_dir) is not None:
             state, meta = ckpt.restore(ckpt_dir, state)

@@ -60,9 +60,11 @@ from repro_torch.kernels.flash_attention import (flash_attention_fused,
 from repro_torch.kernels.ref import flash_attention_ref
 from repro_torch.models.layers import (apply_rope, bmm_f32, dot_f32, he_init,
                                        rms_norm)
+from repro_torch.sharding.tp import (copy_to_model, gather_from_model,
+                                     reduce_from_model)
 
 __all__ = ["init_gqa", "gqa_prefill", "gqa_decode", "init_mla", "mla_prefill",
-           "mla_decode", "flash_attention", "plain_attention"]
+           "mla_decode", "flash_attention", "plain_attention", "merge_by_lse"]
 
 _NEG = -1e30
 
@@ -158,38 +160,67 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         *x.shape[:-1], h, dh)
 
 
-def _qkv(p: Mapping[str, torch.Tensor], x: torch.Tensor
+def _qkv(p: Mapping[str, torch.Tensor], x: torch.Tensor, split=None,
+         all_kv: bool = False
          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q, k, v (B, S, h, dh).  Under a split of the heads: q of this rank's
+    heads (``wq``'s and ``bq``'s local columns), k and v of the KV heads
+    those read (the local shards of ``wk``/``wv``/``bk``/``bv``, or their
+    columns of the replicated leaves), or of every KV head with
+    ``all_kv`` (a cache split over the sequence needs every head's row)."""
     dt = x.dtype
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    if split is None or split.heads is None:
+        take = lambda name, dim, rng: p[name]                 # noqa: E731
+        hr = kr = None
+    else:
+        x = copy_to_model(x, split)
+        take = lambda name, dim, rng: split.take(p, name, "attn", dim, rng)  # noqa: E731
+        hr = split.heads
+        kr = (0, p["wk"].shape[1]) if all_kv else split.kv
+    q = _proj(x, take("wq", 1, hr))
+    k, v = _proj(x, take("wk", 1, kr)), _proj(x, take("wv", 1, kr))
     if "bq" in p:
-        q = q + p["bq"].to(dt)
-        k = k + p["bk"].to(dt)
-        v = v + p["bv"].to(dt)
+        q = q + take("bq", 0, hr).to(dt)
+        k = k + take("bk", 0, kr).to(dt)
+        v = v + take("bv", 0, kr).to(dt)
     return q, k, v
 
 
 def _out(p: Mapping[str, torch.Tensor], ctx: torch.Tensor,
-         dt: torch.dtype) -> torch.Tensor:
-    """(B, S, H, dh) × wo (H, dh, D) → (B, S, D) in ``dt``."""
-    H, dh, D = p["wo"].shape
-    return dot_f32(ctx.to(dt).reshape(*ctx.shape[:2], H * dh),
-                   p["wo"].to(dt).reshape(H * dh, D)).to(dt)
+         dt: torch.dtype, split=None) -> torch.Tensor:
+    """(B, S, H, dh) × wo (H, dh, D) → (B, S, D) in ``dt``.  Under a split
+    of the heads ``ctx`` holds this rank's heads, read against their rows
+    of ``wo``: the fp32 partial sums are all-reduced over ``model`` before
+    the one rounding to ``dt``."""
+    heads = split is not None and split.heads is not None
+    wo = split.take(p, "wo", "attn", 0, split.heads) if heads else p["wo"]
+    H, dh, D = wo.shape
+    out = dot_f32(ctx.to(dt).reshape(*ctx.shape[:2], H * dh),
+                  wo.to(dt).reshape(H * dh, D))
+    return (reduce_from_model(out, split) if heads else out).to(dt)
 
 
 def gqa_prefill(p: Mapping[str, torch.Tensor], x: torch.Tensor,
                 cos: torch.Tensor, sin: torch.Tensor, *, window: int = 0,
-                probs_bf16: bool = False, plain: bool = False
+                probs_bf16: bool = False, plain: bool = False, split=None
                 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """Full-sequence causal attention, with a sliding ``window`` > 0;
     returns (out, (k, v)) for the cache.  The reference's ``kv_chunk`` (the
     chunk of its jnp loop) has no counterpart: the kernel has its own
-    tiles."""
-    q, k, v = _qkv(p, x)
+    tiles.  Under a :class:`~repro_torch.sharding.tp.ModelSplit` the flash
+    kernels run on this rank's heads against the KV heads they read, and
+    the cache rows are those KV heads' (every KV head's where the split's
+    cache is over the sequence)."""
+    seq = split is not None and split.cache == "seq"
+    q, k, v = _qkv(p, x, split, all_kv=seq)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    out = _attend(q, k, _bf16_v(v, probs_bf16), window, probs_bf16, plain)
-    return _out(p, out, x.dtype), (k, v)
+    ka, va = k, v
+    if seq and split.heads is not None:
+        k0, k1 = split.kv
+        ka, va = k[:, :, k0:k1].contiguous(), v[:, :, k0:k1].contiguous()
+    out = _attend(q, ka, _bf16_v(va, probs_bf16), window, probs_bf16, plain)
+    return _out(p, out, x.dtype, split), (k, v)
 
 
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
@@ -224,7 +255,8 @@ def gqa_decode(p: Mapping[str, torch.Tensor], x: torch.Tensor,
                k_cache: torch.Tensor, v_cache: torch.Tensor, pos: torch.Tensor,
                cos: torch.Tensor, sin: torch.Tensor, *, window: int = 0,
                write_pos: torch.Tensor | None = None,
-               valid_len: torch.Tensor | None = None, cache_len=None
+               valid_len: torch.Tensor | None = None, cache_len=None,
+               split=None
                ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """Single-token decode against the cache; returns (out, caches).  The
     new K/V row of each sequence is written in place at ``write_pos`` (B,)
@@ -234,27 +266,77 @@ def gqa_decode(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     min(pos + 1, W)``), else ``pos + 1``.  ``cache_len`` may be passed on
     the host, where the kernel's wrapper checks it without a
     synchronisation.  A ``window`` against a full-length cache (no
-    ``valid_len``) raises."""
+    ``valid_len``) raises.
+
+    Under a :class:`~repro_torch.sharding.tp.ModelSplit` the caches are
+    this rank's: of the KV heads its query heads read, or, where the split
+    puts the cache over the sequence, every KV head at positions ``[r·Sl,
+    (r + 1)·Sl)`` (Sl the local slots).  Then only the owner of ``pos``
+    writes the new row, q is gathered over ``model``, the decode kernel
+    runs on the local piece with its local lengths (0 included) and gives
+    each row's log-sum-exp, and the ranks' outputs are merged by it
+    (:func:`_merge_pieces`)."""
     if window and valid_len is None:
         raise NotImplementedError(
             f"gqa_decode: window={window} on a full-length cache is not "
             "ported (ROADMAP.md, Queue A item 8.9): a windowed cache is a "
             "ring (write_pos, valid_len)")
     B = x.shape[0]
-    q, k, v = _qkv(p, x)                       # (B, 1, H/KV, dh)
+    seq = split is not None and split.cache == "seq"
+    q, k, v = _qkv(p, x, split, all_kv=seq)    # (B, 1, H/KV, dh)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     rows = torch.arange(B, device=x.device)
     idx = (pos if write_pos is None else write_pos).to(device=x.device,
                                                         dtype=torch.long)
-    k_cache[rows, idx] = k[:, 0]
-    v_cache[rows, idx] = v[:, 0]
     if valid_len is not None:
         cache_len = valid_len
     elif cache_len is None:
         cache_len = pos.to(device=x.device, dtype=torch.long) + 1
-    ctx = decode_attention(q[:, 0], k_cache, v_cache, cache_len, round_p=False)
-    return _out(p, ctx[:, None], x.dtype), (k_cache, v_cache)
+    if not seq:
+        k_cache[rows, idx] = k[:, 0]
+        v_cache[rows, idx] = v[:, 0]
+        ctx = decode_attention(q[:, 0], k_cache, v_cache, cache_len,
+                               round_p=False)
+        return _out(p, ctx[:, None], x.dtype, split), (k_cache, v_cache)
+    Sl = k_cache.shape[1]
+    c0 = split.r * Sl
+    here = idx - c0
+    mine = ((here >= 0) & (here < Sl))[:, None, None]
+    here = here.clamp(0, Sl - 1)
+    k_cache[rows, here] = torch.where(mine, k[:, 0], k_cache[rows, here])
+    v_cache[rows, here] = torch.where(mine, v[:, 0], v_cache[rows, here])
+    lens = torch.as_tensor(cache_len).to(device=x.device, dtype=torch.long)
+    lens = (lens - c0).clamp(0, Sl)
+    qa = q[:, 0] if split.heads is None else gather_from_model(q[:, 0], 1,
+                                                               split)
+    ctx, lse = decode_attention(qa.contiguous(), k_cache, v_cache, lens,
+                                round_p=False, return_lse=True)
+    ctx = _merge_pieces(ctx, lse, split)
+    if split.heads is not None:
+        ctx = ctx[:, split.heads[0]:split.heads[1]]
+    return _out(p, ctx[:, None], x.dtype, split), (k_cache, v_cache)
+
+
+def _merge_pieces(out: torch.Tensor, lse: torch.Tensor, split) -> torch.Tensor:
+    """Attention over the ranks' pieces of one sequence: each rank's
+    output (B, H, dh) and log-sum-exp (B, H) gathered over ``model`` and
+    merged by :func:`merge_by_lse`, rounded once to the outputs' dtype."""
+    outs = gather_from_model(out[None], 0, split)
+    lses = gather_from_model(lse[None], 0, split)
+    return merge_by_lse(outs, lses).to(out.dtype)
+
+
+def merge_by_lse(outs: torch.Tensor, lses: torch.Tensor) -> torch.Tensor:
+    """Attention over pieces of the keys from each piece's normalised
+    output (n, ..., dh) and log-sum-exp (n, ...): Σ_i e^(lse_i − M) out_i /
+    Σ_i e^(lse_i − M), M = max_i lse_i, in fp32; a piece with no keys
+    (lse −inf) weighs 0.  A plain elementwise merge, not ``da_combine``:
+    that pass merges the kernel's unnormalised fp32 partials in its own
+    workspace, while the ranks hold normalised rows in the activation
+    dtype, n × B × H × dh elements."""
+    w = torch.exp(lses - lses.amax(dim=0, keepdim=True))
+    return (w[..., None] * outs.float()).sum(dim=0) / w.sum(dim=0)[..., None]
 
 
 # ------------------------------------------------------------------------ MLA

@@ -25,6 +25,7 @@ is the reference's next-token loss.
 from __future__ import annotations
 
 import math
+from typing import Any
 
 import torch
 import torch.nn.functional as F
@@ -154,14 +155,29 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int,
     }
 
 
-def mlp_swiglu(p: dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+def mlp_swiglu(p: dict[str, torch.Tensor], x: torch.Tensor,
+               split: Any = None) -> torch.Tensor:
     """SwiGLU with the gate and up products in fp32, the hidden state
-    rounded to ``x.dtype`` once, and the down product rounded once."""
+    rounded to ``x.dtype`` once, and the down product rounded once.  Under
+    a :class:`~repro_torch.sharding.tp.ModelSplit` with FFN columns this
+    rank computes its columns (``w_gate``/``w_up`` column-parallel,
+    ``w_down`` row-parallel): the down product's fp32 partial sums are
+    all-reduced over ``model`` before the one rounding."""
     dt = x.dtype
-    g = dot_f32(x, p["w_gate"].to(dt))
-    u = dot_f32(x, p["w_up"].to(dt))
+    if split is None or split.ffn is None:
+        g = dot_f32(x, p["w_gate"].to(dt))
+        u = dot_f32(x, p["w_up"].to(dt))
+        h = (F.silu(g) * u).to(dt)
+        return dot_f32(h, p["w_down"].to(dt)).to(dt)
+    from repro_torch.sharding.tp import copy_to_model, reduce_from_model
+
+    x = copy_to_model(x, split)
+    rng = split.ffn
+    g = dot_f32(x, split.take(p, "w_gate", "mlp", 1, rng).to(dt))
+    u = dot_f32(x, split.take(p, "w_up", "mlp", 1, rng).to(dt))
     h = (F.silu(g) * u).to(dt)
-    return dot_f32(h, p["w_down"].to(dt)).to(dt)
+    part = dot_f32(h, split.take(p, "w_down", "mlp", 0, rng).to(dt))
+    return reduce_from_model(part, split).to(dt)
 
 
 # ----------------------------------------------------------------------- RoPE
@@ -198,18 +214,38 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 # ------------------------------------------------------------- cross entropy
 def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor, *,
                        vocab_size: int,
-                       mask: torch.Tensor | None = None) -> torch.Tensor:
+                       mask: torch.Tensor | None = None,
+                       split: Any = None) -> torch.Tensor:
     """Mean next-token negative log-likelihood: ``logits`` (B, S, Vp),
     possibly vocab-padded (the padded columns masked to -1e30), ``targets``
     (B, S) integers; the log-sum-exp in float32; ``mask`` (B, S), 1.0 where
-    a position counts."""
+    a position counts.  Under a :class:`~repro_torch.sharding.tp.
+    ModelSplit` whose head is split over the vocabulary, ``logits`` are this
+    rank's columns ``split.vocab_out``: the row max, the sum of
+    exponentials and the gold logit are each reduced over ``model``, and
+    the padded columns are masked by their global index."""
     lf = logits.float()
+    vocab_split = split is not None and split.vocab_out is not None
+    v0 = split.vocab_out[0] if vocab_split else 0
     vp = lf.shape[-1]
-    if vp != vocab_size:
-        col = torch.arange(vp, device=lf.device)
+    col = torch.arange(v0, v0 + vp, device=lf.device)
+    if v0 + vp > vocab_size:
         lf = lf.masked_fill(col >= vocab_size, -1e30)
-    logz = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
+    if not vocab_split:
+        logz = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
+    else:
+        from repro_torch.sharding.tp import max_over_model, reduce_from_model
+
+        mx = max_over_model(lf.amax(dim=-1), split)
+        sumexp = reduce_from_model(torch.exp(lf - mx[..., None]).sum(dim=-1),
+                                   split)
+        logz = torch.log(sumexp) + mx
+        t = targets.long() - v0
+        mine = (t >= 0) & (t < vp)
+        local = torch.gather(lf, -1, t.clamp(0, vp - 1)[..., None])[..., 0]
+        gold = reduce_from_model(torch.where(mine, local, torch.zeros_like(local)),
+                                 split)
     nll = logz - gold
     if mask is None:
         return torch.mean(nll)

@@ -48,7 +48,23 @@ TF32 off: float32 products run in full float32.
 :func:`init_params` makes random weights with the reference's he-scaled
 normal distribution directly on the device (not the JAX values: the two
 generators differ); :func:`params_from_reference` carries a JAX parameter
-tree across.  There is no ``shard_act`` (the identity outside a mesh).
+tree across.
+
+On a mesh whose plan shards leaves over ``model`` (a
+:class:`~repro_torch.sharding.tp.ModelSplit`, dense family only) the model
+holds each such leaf as this rank's shard and runs Megatron's split: the
+attention on its query heads (against the KV heads they read), the FFN on
+its columns, the embedding as a lookup of its vocabulary rows (zeros
+elsewhere) summed over ``model``, the head on its vocabulary columns: the
+logits of :meth:`Transformer.forward_full`, :meth:`~Transformer.
+forward_train` and :meth:`~Transformer.forward_decode` are then this
+rank's columns (``tp.gather_from_model`` gives the whole row) and
+:func:`lm_loss` reduces over the ranks.  :func:`init_params` and
+:func:`params_from_reference` draw or read the whole tree on every rank and
+keep each rank's shards; :func:`init_cache` gives the rank's caches.
+``shard_act`` checks the residual stream (whole over ``model``) and the
+logits (the rank's columns) against the plan's hints where they are
+installed.
 """
 
 from __future__ import annotations
@@ -72,6 +88,9 @@ from repro_torch.models.layers import (cross_entropy_loss, dot_f32, he_init,
                                        rope_table)
 from repro_torch.models.mamba2 import init_mamba2, mamba2_decode, mamba2_prefill
 from repro_torch.models.moe import init_moe, moe_ffn
+from repro_torch.sharding.ctx import shard_act
+from repro_torch.sharding.tp import (ROADMAP_ITEMS, ModelSplit, copy_to_model,
+                                     reduce_from_model)
 
 __all__ = ["ModelConfig", "Transformer", "init_params", "init_cache",
            "abstract_params", "params_from_reference", "lm_loss"]
@@ -262,11 +281,14 @@ class Block(nn.Module):
 
     NORMS = ("norm1", "norm2")
 
-    def __init__(self, cfg: ModelConfig, device: torch.device) -> None:
+    def __init__(self, cfg: ModelConfig, device: torch.device,
+                 split: ModelSplit | None = None) -> None:
         super().__init__()
         D, F, dh = cfg.d_model, cfg.d_ff, cfg.d_head
         H, KV = cfg.n_heads_eff, cfg.n_kv_heads_eff
         mdt, ndt = cfg.adt, cfg.pdt
+        self.split = split
+        at = _local_shape(split, "blocks/")
         self.norm1 = _param((D,), ndt, device)
         self.norm2 = _param((D,), ndt, device)
         if cfg.use_mla:
@@ -284,7 +306,7 @@ class Block(nn.Module):
             attn.update(w_uq=_param((q_in, H, dh), mdt, device),
                         w_qr=_param((q_in, H, dr), mdt, device))
         else:
-            attn = _gqa_params(D, H, KV, dh, cfg.qkv_bias, mdt, device)
+            attn = _gqa_params(D, H, KV, dh, cfg.qkv_bias, mdt, device, at)
         self.attn = nn.ParameterDict(attn)
         if cfg.family == "moe":
             E, Fe = cfg.n_experts, cfg.d_ff_expert
@@ -300,9 +322,10 @@ class Block(nn.Module):
                      "w_up": _param((D, Fs), mdt, device),
                      "w_down": _param((Fs, D), mdt, device)})
         else:
-            self.mlp = nn.ParameterDict({"w_gate": _param((D, F), mdt, device),
-                                         "w_up": _param((D, F), mdt, device),
-                                         "w_down": _param((F, D), mdt, device)})
+            self.mlp = nn.ParameterDict(
+                {"w_gate": _param(at("mlp/w_gate", (D, F)), mdt, device),
+                 "w_up": _param(at("mlp/w_up", (D, F)), mdt, device),
+                 "w_down": _param(at("mlp/w_down", (F, D)), mdt, device)})
 
     def groups(self) -> dict[str, nn.ParameterDict]:
         """The reference tree's groups under a block, by path."""
@@ -317,7 +340,7 @@ class Block(nn.Module):
 
     def _ffn(self, cfg: ModelConfig, h: torch.Tensor):
         if cfg.family != "moe":
-            return mlp_swiglu(self.mlp, h), None
+            return mlp_swiglu(self.mlp, h, self.split), None
         p = dict(self.moe)
         if hasattr(self, "shared"):
             p["shared"] = self.shared
@@ -332,7 +355,8 @@ class Block(nn.Module):
                                    probs_bf16=cfg.attn_probs_bf16, plain=plain)
         else:
             a, cache = gqa_prefill(self.attn, h, cos, sin, window=window,
-                                   probs_bf16=cfg.attn_probs_bf16, plain=plain)
+                                   probs_bf16=cfg.attn_probs_bf16, plain=plain,
+                                   split=self.split)
         x = x + a
         f, aux = self._ffn(cfg, rms_norm(x, self.norm2, cfg.norm_eps))
         return x + f, cache, aux
@@ -346,23 +370,34 @@ class Block(nn.Module):
                               cache_len=cache_len)
         else:
             a, _ = gqa_decode(self.attn, h, c0, c1, pos, cos, sin,
-                              window=cfg.attn_window, cache_len=cache_len)
+                              window=cfg.attn_window, cache_len=cache_len,
+                              split=self.split)
         x = x + a
         f, _ = self._ffn(cfg, rms_norm(x, self.norm2, cfg.norm_eps))
         return x + f
 
 
 def _gqa_params(D: int, H: int, KV: int, dh: int, bias: bool, mdt: torch.dtype,
-                device: torch.device) -> dict[str, nn.Parameter]:
-    out = {"wq": _param((D, H, dh), mdt, device),
-           "wk": _param((D, KV, dh), mdt, device),
-           "wv": _param((D, KV, dh), mdt, device),
-           "wo": _param((H, dh, D), mdt, device)}
+                device: torch.device, at: Callable | None = None
+                ) -> dict[str, nn.Parameter]:
+    at = at or (lambda name, shape: shape)
+    out = {"wq": _param(at("attn/wq", (D, H, dh)), mdt, device),
+           "wk": _param(at("attn/wk", (D, KV, dh)), mdt, device),
+           "wv": _param(at("attn/wv", (D, KV, dh)), mdt, device),
+           "wo": _param(at("attn/wo", (H, dh, D)), mdt, device)}
     if bias:
-        out.update(bq=_param((H, dh), mdt, device),
-                   bk=_param((KV, dh), mdt, device),
-                   bv=_param((KV, dh), mdt, device))
+        out.update(bq=_param(at("attn/bq", (H, dh)), mdt, device),
+                   bk=_param(at("attn/bk", (KV, dh)), mdt, device),
+                   bv=_param(at("attn/bv", (KV, dh)), mdt, device))
     return out
+
+
+def _local_shape(split: ModelSplit | None, prefix: str = "") -> Callable:
+    """``at(name, whole shape)`` → the shape this rank holds of the leaf
+    ``prefix + name`` (the whole shape without a split)."""
+    if split is None:
+        return lambda name, shape: shape
+    return lambda name, shape: split.local_shape(prefix + name, shape)
 
 
 class MambaBlock(nn.Module):
@@ -451,24 +486,33 @@ class SharedAttn(nn.Module):
 
 class Transformer(nn.Module):
     """The LM of any family; its parameters are allocated, not initialised
-    (see :func:`init_params` and :func:`params_from_reference`)."""
+    (see :func:`init_params` and :func:`params_from_reference`).  With a
+    ``split`` (dense only) each leaf the plan shards over ``model`` is
+    allocated as this rank's shard."""
 
     def __init__(self, cfg: ModelConfig,
-                 device: torch.device | str | None = None) -> None:
+                 device: torch.device | str | None = None,
+                 split: ModelSplit | None = None) -> None:
         super().__init__()
         _check_family(cfg)
+        if split is not None and cfg.family != "dense":
+            raise NotImplementedError(
+                f"splitting the {cfg.family} family's compute over `model` is "
+                f"not ported yet ({ROADMAP_ITEMS[cfg.family]})")
         dev = resolve_device(device)
         if dev.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         self.cfg = cfg
         self.device = dev
+        self.split = split
+        at = _local_shape(split)
         Vp, D = cfg.padded_vocab, cfg.d_model
-        self.embed = _param((Vp, D), cfg.adt, dev)
+        self.embed = _param(at("embed", (Vp, D)), cfg.adt, dev)
         self.final_norm = _param((D,), cfg.pdt, dev)
-        self.lm_head = _param((D, Vp), cfg.adt, dev)
+        self.lm_head = _param(at("lm_head", (D, Vp)), cfg.adt, dev)
         if cfg.family in ("dense", "moe"):
-            self.blocks = nn.ModuleList(Block(cfg, dev)
+            self.blocks = nn.ModuleList(Block(cfg, dev, split)
                                         for _ in range(cfg.n_layers))
         else:
             self.blocks = nn.ModuleList(MambaBlock(cfg, dev)
@@ -480,9 +524,28 @@ class Transformer(nn.Module):
         t = tokens if torch.is_tensor(tokens) else torch.as_tensor(np.asarray(tokens))
         return t.to(device=self.device, dtype=torch.long)
 
+    def _embed(self, tok: torch.Tensor) -> torch.Tensor:
+        """The embedding rows of ``tok``; vocab-parallel under a split of
+        the embedding's rows: this rank's rows, zeros for the others'
+        tokens, summed over ``model`` (one nonzero row: exact)."""
+        sp = self.split
+        if sp is None or sp.vocab_in is None:
+            return self.embed[tok]
+        v0, v1 = sp.vocab_in
+        t = tok - v0
+        rows = self.embed[t.clamp(0, v1 - v0 - 1)]
+        mine = ((t >= 0) & (t < v1 - v0))[..., None]
+        return reduce_from_model(torch.where(mine, rows, torch.zeros_like(rows)),
+                                 sp)
+
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
-        return dot_f32(x, self.lm_head)
+        D, Vp = self.cfg.d_model, self.cfg.padded_vocab
+        x = rms_norm(shard_act(x, "hidden", (None, None, D)), self.final_norm,
+                     self.cfg.norm_eps)
+        sp = self.split
+        if sp is not None and sp.vocab_out is not None:
+            x = copy_to_model(x, sp)
+        return shard_act(dot_f32(x, self.lm_head), "logits", (None, None, Vp))
 
     @torch.no_grad()
     def forward_full(self, tokens: Any, *,
@@ -493,9 +556,10 @@ class Transformer(nn.Module):
         """Teacher-forced forward of ``tokens`` (B, S), after
         ``prefix_embeds`` (B, Np, D) where given (cast to the activation
         dtype and put before the tokens' embeddings, so positions count from
-        the prefix).  Returns (logits (B, Np + S, Vp) fp32, the caches or
-        None, aux: the MoE layers' summed router loss, a float32 scalar, 0
-        for the other families).  Caches: {"k", "v"} of (L, B, S, KV, dh);
+        the prefix).  Returns (logits (B, Np + S, Vp) fp32 — under a split
+        of the head this rank's columns —, the caches or None, aux: the MoE
+        layers' summed router loss, a float32 scalar, 0 for the other
+        families).  Caches: {"k", "v"} of (L, B, S, KV, dh);
         under MLA {"ckv", "kr"} of (L, B, S, r) and (L, B, S, dr); for the
         Mamba2 layers {"h", "conv_x", "conv_b", "conv_c"} of (M, B, H, N, P)
         float32 and (M, B, W − 1, C), and the hybrid's shared block {"k",
@@ -524,10 +588,11 @@ class Transformer(nn.Module):
         cfg = self.cfg
         run = _block_runner(cfg, train)
         window = cfg.attn_window if window is None else window
-        x = self.embed[self._tokens(tokens)]
+        x = self._embed(self._tokens(tokens))
         if prefix_embeds is not None:
             x = torch.cat([prefix_embeds.to(device=self.device, dtype=cfg.adt),
                            x], dim=1)
+        x = shard_act(x, "hidden", (None, None, cfg.d_model))
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         if cfg.family == "ssm":
             states = [] if return_cache else None
@@ -600,7 +665,8 @@ class Transformer(nn.Module):
     def forward_decode(self, token: Any, caches: dict[str, torch.Tensor],
                        pos: Any) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
         """One decode step: ``token`` (B,) at positions ``pos`` (B,).
-        Returns (logits (B, Vp) fp32, caches), the caches updated in place.
+        Returns (logits (B, Vp) fp32 — under a split of the head this
+        rank's columns —, caches), the caches updated in place.
         ``pos`` on the host (a numpy array, as the engine keeps it) is
         checked there and costs no synchronisation; with ``token`` on the
         host too, both reach the card in one copy, with what every layer
@@ -615,7 +681,7 @@ class Transformer(nn.Module):
             tok = tok.reshape(-1).long()
             if tok.device.type == "cpu":
                 tok = tok.to(self.device, non_blocking=True)
-            x = self.embed[self._tokens(tok)[:, None]]        # (B, 1, D)
+            x = self._embed(self._tokens(tok)[:, None])       # (B, 1, D)
             for blk, *st in zip(self.blocks, *(caches[k] for k in SSM_KEYS)):
                 x = blk.decode(cfg, x, tuple(st))
             return self._logits(x)[:, 0], caches
@@ -623,6 +689,8 @@ class Transformer(nn.Module):
         hybrid = cfg.family == "hybrid"
         keys = ("k", "v") if hybrid else _cache_keys(cfg)
         S = caches[keys[0]].shape[2]
+        if self.split is not None and self.split.cache == "seq":
+            S *= self.split.m               # the ranks' pieces of the sequence
         # a full-length cache bounds the positions; a ring wraps
         limit = S if not (hybrid and cfg.attn_window) else None
         if p.device.type == "cpu":
@@ -641,7 +709,7 @@ class Transformer(nn.Module):
             p = p.to(device=self.device, dtype=torch.long)
             rows = [p] + ([p % S, torch.clamp_max(p + 1, S)] if hybrid else [])
         p = rows[0].to(torch.int32)
-        x = self.embed[self._tokens(tok)[:, None]]            # (B, 1, D)
+        x = self._embed(self._tokens(tok)[:, None])           # (B, 1, D)
         dim = _shared_dh(cfg) if hybrid else _rope_dim(cfg)
         ang = p.float()[:, None] * rope_freqs(dim, cfg.rope_theta,
                                               self.device)[None, :]
@@ -687,7 +755,7 @@ def lm_loss(model: Transformer, tokens: Any, *,
     pred = logits[:, Np:, :][:, :-1]
     mask = None if loss_mask is None else torch.as_tensor(loss_mask).to(tok.device)
     ce = cross_entropy_loss(pred, tok[:, 1:], vocab_size=cfg.vocab_size,
-                            mask=mask)
+                            mask=mask, split=model.split)
     return ce + cfg.router_aux_weight * aux
 
 
@@ -698,14 +766,18 @@ def _stack_states(states: list) -> dict[str, torch.Tensor]:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               device: torch.device | str | None = None) -> dict[str, torch.Tensor]:
+               device: torch.device | str | None = None,
+               split: ModelSplit | None = None) -> dict[str, torch.Tensor]:
     """Zeroed serving caches: {"k", "v"} of (L, B, S, KV, dh), or under MLA
     the latents {"ckv", "kr"} of (L, B, S, r) and (L, B, S, dr), in the
     activation dtype; for the Mamba2 layers (``ssm``, ``hybrid``) the state
     "h" (M, B, H, N, P) in float32 and the conv states "conv_x", "conv_b",
     "conv_c" (M, B, W − 1, C) in the activation dtype, and the hybrid's
     shared {"k", "v"} of (G, B, W, n_kv_heads, 2 · d_model / n_heads), W =
-    min(S, attn_window), or S without a window."""
+    min(S, attn_window), or S without a window.  Under a ``split`` (dense)
+    the rank's caches: its KV heads, or where the split puts the cache over
+    the sequence every KV head at ⌈S / m⌉ positions (the last rank's tail
+    past S is never written nor read)."""
     _check_family(cfg)
     dev = resolve_device(device)
     adt, B, S = cfg.adt, batch, max_len
@@ -718,7 +790,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
         if cfg.use_mla:
             shapes = (lead + (cfg.kv_lora_rank,), lead + (cfg.d_rope,))
         else:
-            shapes = (lead + (cfg.n_kv_heads_eff, cfg.d_head),) * 2
+            kv = cfg.n_kv_heads_eff
+            if split is not None and split.cache == "seq":
+                lead = (cfg.n_layers, B, -(-S // split.m))
+            elif split is not None and split.kv is not None:
+                kv = split.kv[1] - split.kv[0]
+            shapes = (lead + (kv, cfg.d_head),) * 2
         return {key: zeros(shape) for key, shape in zip(_cache_keys(cfg), shapes)}
     M, W1 = cfg.n_mamba_layers, cfg.ssm_conv - 1
     out = {"h": zeros((M, B, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim),
@@ -794,22 +871,26 @@ def abstract_params(cfg: ModelConfig) -> dict:
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
-                device: torch.device | str | None = None) -> Transformer:
+                device: torch.device | str | None = None,
+                split: ModelSplit | None = None) -> Transformer:
     """A :class:`Transformer` with random weights from ``seed``, made on
     ``device`` (None: the card): the reference's distribution (embedding
     N(0, 0.02²), he-scaled normal matrices, unit norms, zero biases, the
     padded heads' output rows zeroed; Mamba2's N(0, 0.1²) conv taps, A = −1,
     D = 1), drawn in float32 by a ``torch.Generator`` and cast to each
     tensor's dtype (the MoE router and Mamba2's ``A_log``, ``D``,
-    ``dt_bias`` stay float32)."""
-    model = Transformer(cfg, device)
+    ``dt_bias`` stay float32).  Under a ``split`` every rank draws the
+    whole tree and keeps its shards."""
+    model = Transformer(cfg, device, split)
     gen = torch.Generator(device=model.device).manual_seed(seed)
     D, Vp, F = cfg.d_model, cfg.padded_vocab, cfg.d_ff
     adt = cfg.adt
     with torch.no_grad():
-        model.embed.copy_(normal_init(gen, (Vp, D), 0.02, model.embed.dtype))
+        _put(model.embed, split, "embed",
+             normal_init(gen, (Vp, D), 0.02, model.embed.dtype))
         model.final_norm.fill_(1.0)
-        model.lm_head.copy_(he_init(gen, (D, Vp), D, model.lm_head.dtype))
+        _put(model.lm_head, split, "lm_head",
+             he_init(gen, (D, Vp), D, model.lm_head.dtype))
         for blk in model.blocks:
             for name in blk.NORMS:
                 getattr(blk, name).fill_(1.0)
@@ -828,7 +909,7 @@ def init_params(cfg: ModelConfig, seed: int = 0,
                                 cfg.d_head, bias=cfg.qkv_bias, dtype=adt)
                 if cfg.n_heads_eff != cfg.n_heads:
                     attn["wo"][cfg.n_heads:] = 0.0
-            _copy_into(blk.attn, attn)
+            _copy_into(blk.attn, attn, split, "blocks/attn/")
             del attn
             if cfg.family == "moe":
                 ffn = init_moe(gen, D, cfg.d_ff_expert, cfg.n_experts,
@@ -837,7 +918,7 @@ def init_params(cfg: ModelConfig, seed: int = 0,
                     _copy_into(blk.shared, ffn.pop("shared"))
                 _copy_into(blk.moe, ffn)
             else:
-                _copy_into(blk.mlp, init_mlp(gen, D, F, adt))
+                _copy_into(blk.mlp, init_mlp(gen, D, F, adt), split, "blocks/mlp/")
         if cfg.family == "hybrid":
             sa, d2 = model.shared_attn, 2 * D
             sa.norm1.fill_(1.0)
@@ -849,19 +930,29 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     return model
 
 
-def _copy_into(params: nn.ParameterDict, values: dict[str, torch.Tensor]) -> None:
+def _copy_into(params: nn.ParameterDict, values: dict[str, torch.Tensor],
+               split: ModelSplit | None = None, prefix: str = "") -> None:
     for name, t in values.items():
-        params[name].copy_(t)
+        _put(params[name], split, prefix + name, t)
+
+
+def _put(param: torch.Tensor, split: ModelSplit | None, path: str,
+         whole: torch.Tensor) -> None:
+    """``param`` ← this rank's slice of the leaf's ``whole`` value."""
+    if split is not None:
+        whole = whole[split.local_slices(path, tuple(whole.shape))]
+    param.copy_(whole)
 
 
 def params_from_reference(np_params: dict[str, Any], cfg: ModelConfig,
-                          device: torch.device | str | None = None
-                          ) -> Transformer:
+                          device: torch.device | str | None = None,
+                          split: ModelSplit | None = None) -> Transformer:
     """The JAX package's parameter tree (``jax.tree.map(np.asarray,
     init_params(cfg, key))``, blocks stacked on a leading L axis) as a
-    :class:`Transformer` on ``device``.  Every leaf is used; an unknown or
-    missing leaf, or a shape that does not match, raises ``ValueError``."""
-    model = Transformer(cfg, device)
+    :class:`Transformer` on ``device`` (under a ``split``: each rank's
+    shards of the whole tree).  Every leaf is used; an unknown or missing
+    leaf, or a shape that does not match, raises ``ValueError``."""
+    model = Transformer(cfg, device, split)
     want = _leaves(model)
     flat = _flatten(np_params)
     unknown, missing = sorted(set(flat) - set(want)), sorted(set(want) - set(flat))
@@ -872,12 +963,16 @@ def params_from_reference(np_params: dict[str, Any], cfg: ModelConfig,
         for path, targets in want.items():
             a = np.asarray(flat[path])
             stacked = path.startswith("blocks/")
-            shape = ((len(targets),) if stacked else ()) + tuple(targets[0].shape)
-            if a.shape != shape:
+            lead = (len(targets),) if stacked else ()
+            one = a.shape[len(lead):]
+            if split is not None and a.shape[:len(lead)] == lead:
+                one = split.local_shape(path, tuple(one))
+            shape = lead + tuple(targets[0].shape)
+            if a.shape[:len(lead)] + tuple(one) != shape:
                 raise ValueError(f"params_from_reference: {path} has shape "
                                  f"{a.shape}, expected {shape}")
             src = torch.from_numpy(np.array(a, dtype=np.float32))
             for i, t in enumerate(targets):
-                t.copy_((src[i] if stacked else src).to(device=t.device,
-                                                       dtype=t.dtype))
+                _put(t, split, path, (src[i] if stacked else src).to(
+                    device=t.device, dtype=t.dtype))
     return model

@@ -27,8 +27,18 @@ completion) via ``metrics_decode``.
 
 Sampling is greedy by default; ``greedy=False`` draws from the softmax of
 the logits with a ``torch.Generator`` on the engine's device seeded by
-``seed``.  ``device=None`` means the card; ``mesh``/``plan`` (the
-reference's distributed serving) are not ported.
+``seed``.  ``device=None`` means the card.
+
+On a ``mesh`` (a ``DeviceMesh``) with a ``plan`` (the reference's
+distributed serving), every rank runs this host loop on the same requests
+(SPMD): the model is the rank's (built with the plan's
+:class:`~repro_torch.sharding.tp.ModelSplit`, dense family), the caches
+are the plan's local caches (its KV heads, or its piece of the sequence),
+the logits are gathered over ``model`` before sampling, and the
+generators are seeded alike, so that every rank emits the same tokens.
+A mesh whose ``pod`` × ``data`` exceeds one rank raises: the reference
+splits the cache's batch over ``data``, which is not ported (ROADMAP.md,
+Queue A item 10h).
 """
 
 from __future__ import annotations
@@ -42,6 +52,8 @@ import torch
 
 from repro_torch.core.device import resolve_device
 from repro_torch.models.transformer import ModelConfig, Transformer, init_cache
+from repro_torch.sharding.ctx import use_plan
+from repro_torch.sharding.tp import gather_from_model, model_split
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.scheduling import AdmissionQueue, SlotPool, bucket_for
 
@@ -93,10 +105,27 @@ class ServeEngine:
     ) -> None:
         """``model`` (a :class:`Transformer` of ``cfg``) must lie on
         ``device`` (None: the card).  ``prefill_slo_s``/``decode_slo_s`` are
-        the two SLO classes; ``queue_limit`` bounds admission."""
-        if mesh is not None or plan is not None:
-            raise NotImplementedError("serving on a mesh and plan is not "
-                                      "ported yet (ROADMAP.md, Queue A item 10)")
+        the two SLO classes; ``queue_limit`` bounds admission.  ``mesh``
+        and ``plan`` come together; the plan's caches must hold
+        ``max_batch`` sequences of ``max_len``, and ``model`` must carry
+        the plan's split (:func:`~repro_torch.sharding.tp.model_split`)."""
+        if (mesh is None) != (plan is None):
+            raise ValueError("serving on a plan needs both mesh and plan")
+        split = None
+        if mesh is not None:
+            axes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+            if axes.get("pod", 1) * axes.get("data", 1) > 1:
+                raise NotImplementedError(
+                    f"serving on a mesh {axes} with pod x data > 1 is not "
+                    "ported yet (ROADMAP.md, Queue A item 10h: the cache's "
+                    "batch over data)")
+            split = model_split(cfg, plan.param_specs, mesh, plan.cache_specs)
+            if (split is None) != (model.split is None) or (
+                    split is not None and (split.specs, split.cache) !=
+                    (model.split.specs, model.split.cache)):
+                raise ValueError("the model was not built with the plan's "
+                                 "split (sharding.tp.model_split)")
+        self.mesh, self.plan, self.split = mesh, plan, split
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"the model lies on {model.device}, the engine "
@@ -109,7 +138,8 @@ class ServeEngine:
         self.max_len = max_len
         self.greedy = greedy
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
-        self.caches = init_cache(cfg, max_batch, max_len, device=self.device)
+        self.caches = init_cache(cfg, max_batch, max_len, device=self.device,
+                                 split=split)
         self.pos = np.zeros(max_batch, np.int32)
         # slot occupancy lives in the shared SlotPool; ``active`` aliases
         # its flags array so the decode mask and the pool stay one state
@@ -151,8 +181,11 @@ class ServeEngine:
         return bucket_for(n, self.max_len, floor=8)
 
     def _sample(self, logits: torch.Tensor) -> list[int]:
-        """One token per row of ``logits`` (N, Vp), the vocabulary padding
+        """One token per row of ``logits`` (N, Vp; on a plan the rank's
+        columns, gathered over ``model`` first), the vocabulary padding
         masked: the argmax, or a draw from the softmax."""
+        if self.split is not None and self.split.vocab_out is not None:
+            logits = gather_from_model(logits, -1, self.split)
         lf = logits.float().clone()
         lf[:, self.cfg.vocab_size:] = -torch.inf
         if self.greedy:
@@ -169,12 +202,21 @@ class ServeEngine:
         sp = self._bucket(plen)
         padded = np.zeros((1, sp), np.int32)
         padded[0, :plen] = req.prompt
-        logits, pcache, _ = self.model.forward_full(padded, return_cache=True)
+        with use_plan(self.mesh, getattr(self.plan, "act_specs", None)):
+            logits, pcache, _ = self.model.forward_full(padded,
+                                                        return_cache=True)
         (first,) = self._sample(logits[0, plen - 1:plen])
         for key, leaf in self.caches.items():
             new = pcache[key][:, 0]
             if key not in _SEQ_KEYS:
                 leaf[:, slot] = new
+                continue
+            if self.split is not None and self.split.cache == "seq":
+                # this rank's positions [r·Sl, (r + 1)·Sl) of the prompt
+                Sl = leaf.shape[2]
+                c0 = self.split.r * Sl
+                n = max(0, min(new.shape[1] - c0, Sl))
+                leaf[:, slot, :n] = new[:, c0:c0 + n]
                 continue
             S, win = new.shape[1], leaf.shape[2]
             if S <= win:
@@ -225,8 +267,9 @@ class ServeEngine:
 
         n_active = len(self._slots)
         t0 = time.perf_counter()
-        logits, self.caches = self.model.forward_decode(
-            self.last_token, self.caches, self.pos)
+        with use_plan(self.mesh, getattr(self.plan, "act_specs", None)):
+            logits, self.caches = self.model.forward_decode(
+                self.last_token, self.caches, self.pos)
         toks = self._sample(logits)              # waits for the card
         self.metrics.record_batch(n_active, time.perf_counter() - t0)
         out: dict[int, int] = {}

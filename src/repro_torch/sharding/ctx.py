@@ -1,31 +1,33 @@
 """Sharding context: the installed mesh and activation-sharding hints.
 
-The port of the JAX package's ``sharding/ctx.py``.  Model code stays
-sharding-agnostic.  The reference calls ``shard_act`` with a logical
-activation name at a few points (embeddings, the residual stream, logits)
-and the launcher installs the plan's name → spec hints
-(``Plan.act_specs``) for GSPMD.  In the port the train step runs each
-layer on the rank's own batch rows with the layer's whole weights
-(gathered from the plan's shards), so an activation is never split across
-ranks: :func:`use_activation_sharding` records the hints and
-:func:`shard_act` is the identity.  Splitting a layer's compute over
-``model`` (heads, FFN columns, vocabulary, experts) is the next slice, and
-the hints stay in ``Plan.act_specs`` for it.
+The port of the JAX package's ``sharding/ctx.py``.  Model code calls
+``shard_act`` with a logical activation name at the reference's points (the
+embeddings' output and the residual stream before the final norm:
+``"hidden"``; the logits: ``"logits"``), and the launcher installs the
+plan's name → spec hints (``Plan.act_specs``).  GSPMD reads them as
+constraints; in the port a layer's split is written out
+(:mod:`repro_torch.sharding.tp`), so :func:`shard_act` checks instead:
+under an installed mesh (:func:`use_mesh`) and hints, each dim that the
+hint splits over ``model`` must hold this rank's piece of the model's
+whole size, and every other dim but the rows (the caller's batch rows)
+the whole size.  ``hidden`` is replicated over ``model``; ``logits`` are
+the rank's vocabulary columns.  The values pass unchanged; outside a mesh
+or without hints it is the identity.
 
-:func:`use_mesh` installs the ``DeviceMesh`` whose axes the collectives of
-:mod:`repro_torch.train.compression` name, as the reference's ``shard_map``
-region binds its axis names.
+:func:`use_mesh` also installs the ``DeviceMesh`` whose axes the
+collectives of :mod:`repro_torch.train.compression` name, as the
+reference's ``shard_map`` region binds its axis names.
 """
 
 from __future__ import annotations
 
 import contextlib
 from contextvars import ContextVar
-from typing import Any, Iterator
+from typing import Any, Iterator, Sequence
 
 import torch
 
-__all__ = ["use_activation_sharding", "shard_act", "use_mesh",
+__all__ = ["use_activation_sharding", "shard_act", "use_mesh", "use_plan",
            "current_mesh"]
 
 _ACT: ContextVar[dict | None] = ContextVar("repro_torch_act_shardings",
@@ -43,8 +45,30 @@ def use_activation_sharding(specs: dict) -> Iterator[None]:
         _ACT.reset(tok)
 
 
-def shard_act(x: torch.Tensor, name: str) -> torch.Tensor:
-    """The identity: activations are the rank's own rows (see above)."""
+def shard_act(x: torch.Tensor, name: str,
+              full: Sequence[int | None] | None = None) -> torch.Tensor:
+    """``x`` unchanged, after a check of its local shape against the hint
+    ``name`` where a mesh and hints are installed: ``full`` is the model's
+    whole size of each dim (None: not checked, as the rows)."""
+    specs, mesh = _ACT.get(), _MESH.get()
+    if specs is None or mesh is None or full is None or specs.get(name) is None:
+        return x
+    from repro_torch.sharding.tp import local_range
+
+    names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+    if "model" not in names:
+        return x
+    m = dict(zip(names, mesh.shape))["model"]
+    r = dict(zip(names, mesh.get_coordinate()))["model"]
+    spec = specs[name]
+    for d, n in enumerate(full):
+        if n is None:
+            continue
+        a, b = local_range(n, spec, m, r, d)
+        if x.shape[d] != b - a:
+            raise ValueError(
+                f"shard_act({name!r}): dim {d} holds {x.shape[d]}, the hint "
+                f"{spec} on model = {m} gives rank {r} {b - a} of {n}")
     return x
 
 
@@ -56,6 +80,18 @@ def use_mesh(mesh) -> Iterator[Any]:
         yield mesh
     finally:
         _MESH.reset(tok)
+
+
+@contextlib.contextmanager
+def use_plan(mesh, act_specs: dict | None) -> Iterator[None]:
+    """Install ``mesh`` and a plan's activation hints ``act_specs`` for the
+    enclosed block where ``mesh`` is a ``DeviceMesh`` (None, or a
+    ``MeshShape`` that only plans: nothing)."""
+    if mesh is None or not hasattr(mesh, "get_coordinate"):
+        yield
+        return
+    with use_mesh(mesh), use_activation_sharding(act_specs or {}):
+        yield
 
 
 def current_mesh():

@@ -109,20 +109,35 @@ def spec_of(x) -> P:
     return P(*spec)
 
 
-def gather_full(x) -> torch.Tensor:
-    """The whole tensor of a DTensor, on every rank: one all-gather over the
-    ranks that hold its distinct pieces (each padded to the largest)."""
+def gather_full(x, over: tuple[str, ...] | None = None) -> torch.Tensor:
+    """The tensor of a DTensor gathered over the mesh axes ``over`` (None:
+    every axis, the whole tensor), on every rank: one all-gather over the
+    ranks that hold its distinct pieces along those axes (each padded to
+    the largest).  The result is this rank's slice over the other axes:
+    over ``("pod", "data")`` a master sharded over ``data`` (FSDP) and
+    ``model`` gives this rank's ``model`` shard, whole along ``data``.  A
+    dim split over both a gathered and a kept axis is not taken."""
     from torch.distributed.tensor import Shard
 
     mesh = x.device_mesh
     local = x.to_local()
     axes, coord = _axes(mesh), _coord(mesh)
     names = [n for n, p in zip(mesh.mesh_dim_names, x.placements)
-             if isinstance(p, Shard) and axes[n] > 1]
+             if isinstance(p, Shard) and axes[n] > 1
+             and (over is None or n in over)]
     if not names:                      # no other rank holds a piece
         return local
     spec = spec_of(x)
     shape = tuple(x.shape)
+    kept = []
+    for e in spec:
+        ax = entry_axes(e)
+        gone = [a for a in ax if a in names]
+        if gone and len(gone) != len(ax):
+            raise ValueError(f"gather_full: dim spec {e} mixes gathered axes "
+                             f"{names} with kept ones")
+        kept.append(None if gone else e)
+    region = local_slices(shape, tuple(kept), axes, coord)
     big = tuple(sl.stop - sl.start for sl in local_slices(
         shape, spec, axes, {n: 0 for n in axes}))
     padded = local.new_zeros(big)
@@ -132,14 +147,16 @@ def gather_full(x) -> torch.Tensor:
     out = local.new_empty((k * padded.numel(),))
     all_gather_flat(out, padded, group)
     out = out.view((k,) + big)
-    full = local.new_empty(shape)
+    full = local.new_empty(tuple(sl.stop - sl.start for sl in region))
     sizes = [axes[n] for n in names]
     for g in range(k):                 # group rank g: its coordinates
         c, rem = dict(coord), g
         for n, size in zip(reversed(names), reversed(sizes)):
             c[n], rem = rem % size, rem // size
         sl = local_slices(shape, spec, axes, c)
-        full[sl] = out[g][tuple(slice(0, s.stop - s.start) for s in sl)]
+        full[tuple(slice(s.start - q.start, s.stop - q.start)
+                   for s, q in zip(sl, region))] = out[g][tuple(
+                       slice(0, s.stop - s.start) for s in sl)]
     return full
 
 

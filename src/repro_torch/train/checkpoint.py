@@ -16,11 +16,14 @@ alone.  Restore reads leaves by path into the structure of a target tree
 matter.  Metadata (the data pipeline's cursor, the step) rides in the
 manifest.
 
-On a mesh a save gathers each sharded leaf (a DTensor) onto every rank
-(a collective: every rank calls :func:`save`) and rank 0 writes the same
-files; restore into a target of DTensors places each leaf on the target's
-placements (the caller's plan), whatever mesh wrote it: reshard on
-restore, as the reference's ``device_put`` onto the caller's shardings.
+On a mesh a save gathers each sharded leaf (a DTensor) whole onto every
+rank, over every axis its plan splits, ``model`` included (a collective:
+every rank calls :func:`save`), and rank 0 writes the same files; restore
+into a target of DTensors places each leaf on the target's placements (the
+caller's plan), whatever mesh wrote it: reshard on restore, as the
+reference's ``device_put`` onto the caller's shardings.  A state trained
+at (data 1, model 2) restores bitwise at (data 2, model 1) and in one
+process.
 """
 
 from __future__ import annotations

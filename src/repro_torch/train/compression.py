@@ -19,7 +19,11 @@ ctx.use_mesh`), as the reference's runs inside a ``shard_map`` over
 than a float32 all-reduce), then every rank dequantizes and takes the mean
 over pods in pod order, ``(((q_0 s_0 + q_1 s_1) + ...) / n``, the same
 values on every rank and on any device (each division a division, also on
-the card).
+the card).  Where a rank holds a tensor's shard over ``model`` (the dense
+split, :mod:`repro_torch.sharding.tp`), ``max|c|`` is the whole tensor's,
+reduced over ``model`` (``scale_group``), as GSPMD reduces it across the
+auto axes inside the reference's ``shard_map``: every shard quantizes on
+the same scale as the unsplit tensor.
 """
 
 from __future__ import annotations
@@ -43,9 +47,14 @@ def divide(x: torch.Tensor, d: float) -> torch.Tensor:
     return x / torch.full((), d, dtype=x.dtype, device=x.device)
 
 
-def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_int8(x: torch.Tensor, amax: torch.Tensor | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(q, scale) of ``x`` on the scale ``amax / 127`` (None: ``x``'s own
+    largest magnitude)."""
     xf = x.float()
-    scale = divide(torch.amax(torch.abs(xf)), 127.0)
+    if amax is None:
+        amax = torch.amax(torch.abs(xf))
+    scale = divide(amax, 127.0)
     scale = torch.clamp_min(scale, 1e-30)
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return q, scale
@@ -62,13 +71,19 @@ def ef_init(grads_like: Any) -> Any:
     return torch.zeros_like(grads_like, dtype=torch.float32)
 
 
-def pod_allreduce_int8(g: torch.Tensor, ef: torch.Tensor, axis_name: str
+def pod_allreduce_int8(g: torch.Tensor, ef: torch.Tensor, axis_name: str,
+                       scale_group: Any = None
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """Cross-pod mean of one gradient tensor with int8 EF compression over
-    the installed mesh's ``axis_name``.  Returns (mean gradient fp32, new
-    EF residual)."""
+    the installed mesh's ``axis_name``; with ``scale_group`` (the ranks
+    holding the tensor's other shards) the scale is the whole tensor's.
+    Returns (mean gradient fp32, new EF residual)."""
     c = g.float() + ef
-    q, scale = quantize_int8(c)
+    amax = None
+    if scale_group is not None:
+        amax = torch.amax(torch.abs(c))
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=scale_group)
+    q, scale = quantize_int8(c, amax)
     group = axis_group(current_mesh(), (axis_name,))
     n = dist.get_world_size(group)
     # int8 payload on the wire; scales are scalar per tensor
@@ -84,10 +99,15 @@ def pod_allreduce_int8(g: torch.Tensor, ef: torch.Tensor, axis_name: str
     return divide(acc, n), ef_new
 
 
-def compressed_mean(grads: Any, ef: Any, axis_name: str) -> tuple[Any, Any]:
-    """Tree version of :func:`pod_allreduce_int8` (nested dicts)."""
+def compressed_mean(grads: Any, ef: Any, axis_name: str,
+                    scale_groups: Any = None) -> tuple[Any, Any]:
+    """Tree version of :func:`pod_allreduce_int8` (nested dicts);
+    ``scale_groups``, a tree like ``grads`` (None: no group anywhere),
+    gives each tensor's ``scale_group``."""
     if isinstance(grads, dict):
-        out = {k: compressed_mean(grads[k], ef[k], axis_name) for k in grads}
+        out = {k: compressed_mean(grads[k], ef[k], axis_name,
+                                  None if scale_groups is None
+                                  else scale_groups[k]) for k in grads}
         return ({k: v[0] for k, v in out.items()},
                 {k: v[1] for k, v in out.items()})
-    return pod_allreduce_int8(grads, ef, axis_name)
+    return pod_allreduce_int8(grads, ef, axis_name, scale_groups)

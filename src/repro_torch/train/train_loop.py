@@ -22,9 +22,13 @@ loss's path (a kernel without a backward would cut it).
 
 On a mesh (``make_train_step(mesh=...)``) the masters, moments and EF
 residuals are DTensors on the plan's placements (:func:`state_specs`,
-:func:`shard_state`): the plan's layouts hold the state, while each rank
-computes its own batch rows with every weight whole.  Splitting a layer's
-compute over ``model`` is the next slice (ROADMAP.md, Queue A item 10).
+:func:`shard_state`), and each rank computes its own batch rows.  Where
+the plan shards leaves over ``model`` (dense family), the model is built
+with the plan's :class:`~repro_torch.sharding.tp.ModelSplit` and holds
+each such leaf as this rank's shard (gathered over the FSDP axis, never
+over ``model``), and the layer's compute splits as Megatron splits it
+(:mod:`repro_torch.sharding.tp`).  Other families raise there
+(ROADMAP.md, Queue A items 10c, 10f, 10g).
 """
 
 from __future__ import annotations
@@ -38,14 +42,15 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.models.transformer import (ModelConfig, Transformer,
-                                            _flatten, _leaves, _nest,
+                                            _flatten, _leaves, _nest, _put,
                                             init_params, lm_loss,
                                             params_from_reference)
 from repro_torch.launch.mesh import axis_group
 from repro_torch.sharding.ctx import use_mesh
 from repro_torch.sharding.placement import (gather_full, gather_tree,
                                             local_slices, shard_tree)
-from repro_torch.sharding.spec import P
+from repro_torch.sharding.spec import P, entry_axes
+from repro_torch.sharding.tp import ModelSplit
 from repro_torch.train.compression import compressed_mean, divide, ef_init
 from repro_torch.train.optim import (OptConfig, adamw_init, adamw_update,
                                      global_norm)
@@ -75,31 +80,35 @@ def _master_tree(model: Transformer) -> dict:
 
 
 def load_masters(model: Transformer, params: dict) -> None:
-    """Copy each master, cast to its weight's dtype, into the model."""
+    """Copy each master (whole), cast to its weight's dtype, into the model
+    (under its split, the rank's shard of it)."""
     flat = _flatten(params)
     with torch.no_grad():
         for path, ts in _leaves(model).items():
             src = flat[path]
             if path.startswith("blocks/"):
                 for i, t in enumerate(ts):
-                    t.copy_(src[i])
+                    _put(t, model.split, path, src[i])
             else:
-                ts[0].copy_(src)
+                _put(ts[0], model.split, path, src)
 
 
 def init_state(cfg: ModelConfig, seed: int = 0, *,
                device: torch.device | str | None = None,
-               params: dict | None = None, ef: bool = False
+               params: dict | None = None, ef: bool = False,
+               split: ModelSplit | None = None
                ) -> tuple[Transformer, TrainState]:
     """(model, state): float32 masters drawn from ``seed`` as
     :func:`~repro_torch.models.transformer.init_params` draws them (or the
-    JAX package's numpy tree ``params``), the model holding their casts,
-    zero moments (and with ``ef`` zero EF residuals), step 0."""
+    JAX package's numpy tree ``params``), the model holding their casts
+    (under ``split``, its shards: the masters stay whole, for
+    :func:`shard_state`), zero moments (and with ``ef`` zero EF
+    residuals), step 0."""
     if cfg.param_dtype != "float32":
         raise ValueError(f"training keeps float32 masters: param_dtype "
                          f"{cfg.param_dtype!r}")
     if params is not None:
-        model = params_from_reference(params, cfg, device)
+        model = params_from_reference(params, cfg, device, split)
         masters = _nest({path: torch.from_numpy(np.array(a, dtype=np.float32))
                          .to(model.device) for path, a in _flatten(params).items()})
     else:
@@ -107,7 +116,7 @@ def init_state(cfg: ModelConfig, seed: int = 0, *,
                           device)
         masters = _master_tree(f32)
         del f32
-        model = Transformer(cfg, device)
+        model = Transformer(cfg, device, split)
         load_masters(model, masters)
     m, v = adamw_init(masters)
     step = torch.zeros((), dtype=torch.int32, device=model.device)
@@ -204,14 +213,25 @@ def make_train_step(model: Transformer, oc: OptConfig, *,
     ``grad_specs`` (the plan's parameter specs; :func:`shard_state`) and
     ``batch`` is this rank's rows (``plan.batch_spec``,
     :func:`repro_torch.sharding.placement.local_rows`).  A step gathers
-    each master into the model's weight (cast), accumulates this rank's
-    microbatches, sums the gradients and the loss over the data-parallel
-    ranks (``pod`` × ``data``) in one all-reduce a leaf and divides by
-    microbatches × ranks; with ``pod_reduce="int8_ef"`` the sum runs over
-    ``data`` only and :func:`~repro_torch.train.compression.compressed_mean`
-    takes the mean over ``pod`` (the reference's ``shard_map``).  The
-    clipping norm is taken on the whole reduced gradient, then each rank
-    runs AdamW on its own slices."""
+    each master over every axis but ``model`` into the model's weight
+    (cast): the whole leaf, or where the plan shards it over ``model`` the
+    rank's shard, which the model (built with the plan's
+    :class:`~repro_torch.sharding.tp.ModelSplit`) holds.  It accumulates
+    this rank's microbatches, sums the gradients and the loss over the
+    data-parallel ranks (``pod`` × ``data``) in one all-reduce a leaf and
+    divides by microbatches × ranks; a replicated leaf that a rank reads
+    only in part (``ModelSplit.partial``: ``wk``/``wv``/``bk``/``bv`` kept
+    whole beside split heads) is summed over ``model`` too, while a
+    ``model``-sharded leaf's gradient stays the rank's and a leaf every
+    rank reads whole (the norms) has the whole gradient on every rank.
+    With ``pod_reduce="int8_ef"`` the sum runs over ``data`` (and
+    ``model`` where partial) and :func:`~repro_torch.train.compression.
+    compressed_mean` takes the mean over ``pod`` (the reference's
+    ``shard_map``; a ``model``-sharded leaf on the whole leaf's scale,
+    its largest magnitude reduced over ``model``).  The
+    clipping norm sums the squares of the ``model``-sharded gradients over
+    ``model`` and counts the replicated ones once; then each rank runs
+    AdamW on its own slices."""
     if pod_reduce == "int8_ef" and (
             mesh is None or "pod" not in mesh.mesh_dim_names):
         raise ValueError("int8_ef pod reduce needs a mesh with a 'pod' axis")
@@ -242,37 +262,77 @@ def make_train_step(model: Transformer, oc: OptConfig, *,
     coord = dict(zip(names, mesh.get_coordinate()))
     flat_specs = _flatten(grad_specs)
     leaves = _leaves(model)
+    split = model.split
+    on_model = {p for p, sp in flat_specs.items()
+                if axes.get("model", 1) > 1
+                and any("model" in entry_axes(e) for e in sp)}
+    if on_model and split is None:
+        raise ValueError(
+            f"the plan shards {sorted(on_model)[:3]} over model = "
+            f"{axes['model']}: build the model with the plan's split "
+            "(sharding.tp.model_split) so that it holds those shards")
+    partial = split.partial if split is not None else frozenset()
     # the sum runs over these axes; int8_ef then takes the mean over "pod"
     sum_axes = tuple(a for a in (("data",) if pod_reduce == "int8_ef"
                                  else ("pod", "data")) if a in axes)
     n_sum = math.prod(axes[a] for a in sum_axes)
+    part_axes = tuple(a for a in names if a in sum_axes or a == "model")
+    gather_over = tuple(a for a in names if a != "model")
 
     def all_reduce(t: torch.Tensor, over: tuple[str, ...]) -> None:
         if over:
             dist.all_reduce(t, group=axis_group(mesh, over))
 
+    def own(path: str, a: torch.Tensor, whole: tuple[int, ...]) -> torch.Tensor:
+        """This rank's slice of ``a``, the model's (its ``model`` shard, or
+        the whole leaf) gradient or residual of a leaf of shape ``whole``."""
+        spec = flat_specs[path]
+        region = local_slices(whole, P(*(e if "model" in entry_axes(e) else None
+                                         for e in spec)), axes, coord)
+        sl = local_slices(whole, spec, axes, coord)
+        return a[tuple(slice(x.start - r.start, x.stop - r.start)
+                       for x, r in zip(sl, region))]
+
     def load_sharded(params: dict) -> None:
         flat = _flatten(params)
         with torch.no_grad():
             for path, ts in leaves.items():
-                full = gather_full(flat[path])
+                full = gather_full(flat[path], over=gather_over)
                 for i, t in enumerate(ts):
                     t.copy_(full[i] if path.startswith("blocks/") else full)
                 del full
 
+    def norm(acc: dict) -> torch.Tensor:
+        """The clipping norm: the reference's leaf order without a split;
+        with one, the squares of the ``model``-sharded gradients summed
+        over ``model``, the replicated ones' counted once."""
+        if split is None:
+            return global_norm(_nest(acc))
+        sq = lambda ps: sum((torch.sum(torch.square(acc[p].float())) for p in ps),
+                            torch.zeros((), device=model.device))
+        sharded = sq(p for p in acc if p in on_model)
+        all_reduce(sharded, ("model",))
+        return torch.sqrt(sharded + sq(p for p in acc if p not in on_model))
+
     def train_step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
+        whole = {p: tuple(x.shape) for p, x in _flatten(state.params).items()}
         load_sharded(state.params)
-        acc, loss_sum = accumulate(batch)
+        with use_mesh(mesh):
+            acc, loss_sum = accumulate(batch)
         inv = 1.0 / (n_microbatches * n_sum)
-        for a in acc.values():
-            all_reduce(a, sum_axes)
+        for path, a in acc.items():
+            all_reduce(a, part_axes if path in partial else sum_axes)
             a.mul_(inv)
         all_reduce(loss_sum, sum_axes)
         loss = loss_sum * inv
         if pod_reduce == "int8_ef":
-            ef_full = _flatten(gather_tree(state.ef))
+            ef_full = _flatten(_nest({p: gather_full(e, over=gather_over)
+                                      for p, e in _flatten(state.ef).items()}))
+            scale_groups = ({p: split.group if p in on_model else None
+                             for p in acc} if split is not None else None)
             with use_mesh(mesh):
-                g_pod, ef_new = compressed_mean(acc, ef_full, "pod")
+                g_pod, ef_new = compressed_mean(acc, ef_full, "pod",
+                                                scale_groups)
             del ef_full
             acc = g_pod
             all_reduce(loss, ("pod",))
@@ -280,14 +340,10 @@ def make_train_step(model: Transformer, oc: OptConfig, *,
             ef = _flatten(_local(state.ef))
             with torch.no_grad():
                 for path, e in ef.items():
-                    e.copy_(ef_new[path][local_slices(
-                        tuple(ef_new[path].shape), flat_specs[path], axes,
-                        coord)])
+                    e.copy_(own(path, ef_new[path], whole[path]))
             del ef_new
-        gnorm = global_norm(_nest(acc))        # the reference's leaf order
-        grads = _nest({path: a[local_slices(tuple(a.shape), flat_specs[path],
-                                            axes, coord)]
-                       for path, a in acc.items()})
+        gnorm = norm(acc)
+        grads = _nest({path: own(path, a, whole[path]) for path, a in acc.items()})
         _, _, _, metrics = adamw_update(_local(state.params), grads,
                                         _local(state.m), _local(state.v),
                                         state.step, oc, gnorm=gnorm)
