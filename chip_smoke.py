@@ -320,7 +320,42 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               rank's parameter GiB against the whole model's, peak GiB,
               and the step's seconds (ranks time-share the card: a
               rehearsal of correctness, not a scaling figure);
-13. report  — the chain kernels' launch floor (an empty kernel with their
+13. tp-moe  — the MoE family over ``model`` (``sharding/tp.py``,
+              ``models/moe.py``: the experts' slots, the shared experts'
+              columns, MLA's heads with the latent cache over the
+              sequence; the full config's plan on the mesh), ranks as in
+              phase 12.  2 ranks at (data 1, model 2): olmoe-1b-7b at
+              every width, ``TPM_TRAIN`` layers, float32, ``TPM_STEPS``
+              steps at S ``TPM_S``, batch ``TPM_BATCH`` in ``TPM_MB``
+              microbatches, then a ``TPM_FWD_S``-token forward, on the
+              rank's model (32 of 64 experts, 8 of 16 heads, the router
+              whole: its gradient summed over ``model``), every MoE
+              layer's choices logged (``route_log``); then
+              ``TPM_SERVE``'s olmoe-1b-7b x2 and
+              deepseek-v2-236b x2 (80 of 160 experts, 64 of 128 MLA heads,
+              the shared experts' columns, the latent cache over the
+              sequence) served in bfloat16 on a plan; 4 ranks at (data 1,
+              model 4): deepseek-v2-236b x2.  Each served twice, phase
+              12's traffic: at the served capacity (every rank the same
+              tokens; the share equal to the one-process engine's printed)
+              and on the no-drop copy (``nodrop``), held to phase 7's MoE
+              bf16 rule against the one-process model's teacher forcing
+              (built after the ranks ran, one arch at a time).  After the
+              ranks this process runs the one-process training and
+              forward, each MoE layer routed on the ranks' choices
+              (``route_log(force=)``, gated by its own router), and holds
+              every rank's losses, grad norms, first moments and logits to
+              phase 12's limits; a choice its own router would have made
+              otherwise must be a near-tie (``ROUTE_TIE``), reported, and
+              the ranks must have routed alike.  Launches a
+              rank: flash 2 x layers x microbatches x steps
+              (``flash_attention``, float32) and layers x microbatches x
+              steps (``flash_attention_bwd_wgmma``); serving layers x
+              prefills (``flash_attention_wgmma``: MLA at dh 192 on 64 or
+              32 heads) and layers x decode steps (0 under MLA, whose
+              absorbed decode is PyTorch products); parameter GiB a rank
+              against the whole model's;
+14. report  — the chain kernels' launch floor (an empty kernel with their
               parameter block) beside each served chain call's device time
               and time per call, against ``CHAIN_DEVICE_MS`` /
               ``CHAIN_FLOOR_X`` / ``CHAIN_CALL_MS`` (printed, not checked);
@@ -352,14 +387,16 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               without it; the
               ``kernels`` JSON line (the forward flash kernels' launches
               are the served paths', their training launches beside them,
-              and phase 12's summed over its ranks, ``tp_launches``),
+              and phases 12's and 13's summed over their ranks,
+              ``tp_launches``),
               the card line, and last ``{"ok": true, "device": {...}}``.
 
 Every path runs at its full depth, except deepseek-v2-236b (2 of 60
 layers, every width kept), phase 10's training runs beside qwen2.5-3b
 (every width kept; depths as ``LM_TRAIN_FAMILIES`` states), phase 11's
-mesh runs (``DIST_LAYERS`` of qwen2.5-3b's 36 layers, every width kept)
-and phase 12's (``TP_LAYERS`` of qwen2.5-3b's, 2 of granite-8b's 36).
+mesh runs (``DIST_LAYERS`` of qwen2.5-3b's 36 layers, every width kept),
+phase 12's (``TP_LAYERS`` of qwen2.5-3b's, 2 of granite-8b's 36) and
+phase 13's (2 of olmoe-1b-7b's 16, 2 of deepseek-v2-236b's 60).
 
 Needs only the repository (``src/`` on the path) and one card.  Writes the
 full per-case report to ``chiprun_out/chip_smoke.json``.
@@ -369,6 +406,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -582,6 +620,28 @@ TP_PROMPT_LEN = (16, 256)
 # the decode kernel's log-sum-exp against its plain version: |lse - lse'|
 # <= TP_LSE_TOL * max(1, |lse'|); -inf (no keys) exactly
 TP_LSE_TOL = 1e-5
+# phase tp-moe: the MoE family over `model` (experts, the shared experts'
+# columns, MLA's heads with the latent cache over the sequence; the plan of
+# the full config on the mesh).  Training: olmoe-1b-7b at every width,
+# TPM_TRAIN[1] of 16 layers, float32, S TPM_S, global batch TPM_BATCH in
+# TPM_MB microbatches, TPM_STEPS steps at (data 1, model 2) against the
+# one-process step this process runs after the ranks from the same seed,
+# under phase tp's limits (TP_LOSS_RTOL, TP_GNORM_RTOL, TP_FIRST_REL,
+# TP_LOGIT_REL, stated before the first card run).  A split reorders the
+# attention's fp32 sums, so a router at a near-tie may choose another
+# expert: the ranks' routes are logged (route_log) and the one-process
+# run routes on them (route_log(force=)), so steps, first moments and
+# logits are held on every run; a choice its own router would have made
+# otherwise must be a near-tie (ROUTE_TIE), reported.  Serving:
+# (arch, layers, model ranks) in bfloat16 on the plan of decode_32k's
+# config, phase tp's traffic, at the served capacity (every rank the same
+# tokens; the share equal to the one-process engine's printed) and on the
+# no-drop copy (nodrop), held to phase 7's MoE bf16 rule: teacher-forced
+# agreement >= LM_BF16_AGREE over the positions routed alike.
+TPM_TRAIN = ("olmoe-1b-7b", 2)
+TPM_S, TPM_BATCH, TPM_MB, TPM_STEPS, TPM_FWD_S = 1024, 2, 2, 2, 128
+TPM_SERVE = (("olmoe-1b-7b", 2, 2), ("deepseek-v2-236b", 2, 2),
+             ("deepseek-v2-236b", 2, 4))
 # the two routes' kernels, as a trace names them (by substring)
 FLASH_BWD_KERNELS = ("fb_dq_kernel", "fb_dkdv_kernel", "fbt_dq_kernel",
                      "fbt_dkdv_kernel", "fbt_dkdv2_kernel", "fbs_split_kernel")
@@ -1206,46 +1266,88 @@ def flash_check():
 
 
 @contextlib.contextmanager
-def route_log(enabled: bool = True):
+def route_log(enabled: bool = True, force: list | None = None):
     """Record every MoE layer the port runs while the block is open, in
     order: its tokens, capacity, choices (T, k), the least gap between
     adjacent gates among each token's top k + 1 (T,) and its dropped
-    copies (a tensor on the card).  Recomputes the router's choices beside
-    the layer; not for timed runs."""
+    copies (a tensor on the card), recomputed beside the layer (under a
+    split, from the whole router: its columns gathered where the plan
+    splits them), and ``used``, the choices the layer routed on.  Not for
+    timed runs.  With ``force`` (the ``used`` choices of another run's
+    log, one a layer call in the same order) each layer routes on those
+    choices instead, gated by its own router's probabilities, while
+    ``top_i`` keeps the choices its router makes.  Raises unless the block
+    ran exactly ``len(force)`` layers."""
+    import torch
+
     from repro_torch.models import moe, transformer
+    from repro_torch.sharding.tp import gather_from_model
 
     log: list[dict] = []
     if not enabled:
         yield log
         return
-    real = transformer.moe_ffn
+    real, real_route = transformer.moe_ffn, moe._route
 
-    def spy(p, x, *, k, capacity_factor):
+    def forced_route(top_i, logits, k, cap, tokens=None):
+        gates = torch.softmax(logits, dim=-1)
+        top_g = gates.gather(1, top_i)
+        top_g = top_g / torch.clamp_min(top_g.sum(-1, keepdim=True), 1e-9)
+        slot, keep = moe._slots(top_i, logits.shape[1], cap, tokens)
+        return gates, top_g, top_i, slot, keep
+
+    def spy(p, x, *, k, capacity_factor, **kw):
         T = x.shape[0] * x.shape[1]
-        cap = moe.capacity(T, k, p["router"].shape[-1], capacity_factor)
-        gates, _, top_i, _, keep = moe.route(p["router"], x.reshape(T, -1), k,
-                                             cap)
-        top = gates.topk(k + 1, dim=-1).values
-        log.append(dict(T=T, cap=cap, top_i=top_i,
-                        gap=(top[:, :-1] - top[:, 1:]).min(-1).values,
-                        dropped=(~keep).sum()))
-        return real(p, x, k=k, capacity_factor=capacity_factor)
+        router, sp = p["router"], kw.get("split")
+        with torch.no_grad():
+            if sp is not None and sp.router is not None:     # its columns
+                router = gather_from_model(router.detach(), -1, sp)
+            cap = moe.capacity(T, k, router.shape[-1], capacity_factor)
+            gates, _, top_i, _, keep = moe.route(router, x.reshape(T, -1), k,
+                                                 cap)
+            top = gates.topk(k + 1, dim=-1).values
+        entry = dict(T=T, cap=cap, top_i=top_i,
+                     gap=(top[:, :-1] - top[:, 1:]).min(-1).values,
+                     dropped=(~keep).sum())
+        log.append(entry)
+        if force is not None and len(log) > len(force):
+            raise AssertionError(f"route_log: more than the {len(force)} MoE "
+                                 "layers to force")
+        route = (real_route if force is None else functools.partial(
+            forced_route, force[len(log) - 1].to(x.device)))
+
+        def recorded(*args, **kwargs):
+            out = route(*args, **kwargs)
+            entry["used"] = out[2].detach()
+            return out
+
+        moe._route = recorded
+        try:
+            return real(p, x, k=k, capacity_factor=capacity_factor, **kw)
+        finally:
+            moe._route = real_route
 
     transformer.moe_ffn = spy
     try:
         yield log
     finally:
         transformer.moe_ffn = real
+    if force is not None and len(log) != len(force):
+        raise AssertionError(f"route_log: {len(log)} MoE layers ran, "
+                             f"{len(force)} forced")
 
 
-def route_flips(a: list[dict], b: list[dict]) -> dict | None:
+def route_flips(a: list[dict], b: list[dict], key: str = "top_i",
+                key_b: str | None = None) -> dict | None:
     """The first layer in which two logs of one input chose other experts
     (or another order of them): the layer, its tokens and their least gate
-    gaps in either run; None where every choice agrees."""
+    gaps in either run; None where every choice agrees.  ``key`` (and
+    ``key_b`` for ``b``, by default the same) names the choices compared:
+    ``top_i``, the router's, or ``used``, those the layer routed on."""
     import torch
 
     for layer, (x, y) in enumerate(zip(a, b)):
-        rows = (x["top_i"] != y["top_i"]).any(-1)
+        rows = (x[key] != y[key_b or key]).any(-1)
         if bool(rows.any()):
             idx = rows.nonzero()[:, 0]
             gaps = torch.minimum(x["gap"][idx], y["gap"][idx])
@@ -2787,6 +2889,46 @@ def _tp_bytes(model) -> float:
     return float(sum(p.numel() * p.element_size() for p in model.parameters()))
 
 
+def _tpm_train_cfg():
+    from repro_torch.configs.registry import ShapeCell, get_arch
+
+    arch, layers = TPM_TRAIN
+    spec = get_arch(arch)
+    spec = dataclasses.replace(spec, model=dataclasses.replace(
+        spec.model, n_layers=layers, act_dtype="float32"))
+    cell = ShapeCell("tp-moe", "train", TPM_S, TPM_BATCH)
+    return spec, cell, spec.cell_config(cell)
+
+
+def _tpm_data(vocab: int) -> list[dict]:
+    import torch
+
+    from repro_torch.data.tokens import PipelineState, TokenPipeline
+
+    pipe = TokenPipeline(vocab_size=vocab, batch=TPM_BATCH, seq_len=TPM_S)
+    return [{k: torch.as_tensor(v) for k, v in
+             pipe.batch_at(PipelineState(step=i))[0].items()}
+            for i in range(TPM_STEPS)]
+
+
+def _tpm_fwd_tokens(vocab: int):
+    import numpy as np
+
+    return np.random.default_rng(4).integers(
+        1, vocab, size=(1, TPM_FWD_S)).astype(np.int32)
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: n for k, n in counts.items() if n}
+
+
+def _cpu_routes(log: list[dict]) -> list[dict]:
+    """A ``route_log`` on the host: each layer's choices (the router's and
+    those it routed on) and gate gaps."""
+    return [dict(top_i=e["top_i"].cpu(), used=e["used"].cpu(),
+                 gap=e["gap"].cpu()) for e in log]
+
+
 def tp_child(rank: int, world: int, tmp: str, jobs, device: str) -> None:
     """One rank of phase tp, a process on the parent's card ``device``:
     joins the gloo group of ``world`` ranks and runs ``jobs``, each writing
@@ -2902,9 +3044,94 @@ def tp_child(rank: int, world: int, tmp: str, jobs, device: str) -> None:
         del model, eng
         return out
 
+    def moe_train(shape):
+        spec, cell, cfg = _tpm_train_cfg()
+        mesh = make_mesh(shape, ("data", "model"), dev)
+        torch.cuda.reset_peak_memory_stats()
+        split = build_cell(spec, cell, mesh).split(mesh)
+        model, state = tloop.init_state(cfg, 0, device=dev, split=split)
+        prog = build_cell(spec, cell, mesh, microbatch_override=TPM_MB,
+                          oc=OptConfig(lr=1e-3, warmup_steps=1, total_steps=10),
+                          model=model)
+        state = tloop.shard_state(state, prog.in_shardings[0], mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        whole = _tp_bytes(Transformer(cfg, "meta"))
+        rows = prog.in_shardings[1]["tokens"]
+        for k in counted:
+            LAUNCHES[k] = 0
+        steps, routes = [], []
+        for i, b in enumerate(_tpm_data(cfg.vocab_size)):
+            with route_log() as log:      # every step: the reference routes alike
+                (state, m), sec = sync_time(
+                    lambda: prog.fn(state, local_rows(b, rows, mesh)))
+            routes.append(_cpu_routes(log))
+            steps.append(dict(loss=float(m["loss"]),
+                              grad_norm=float(m["grad_norm"]), seconds=sec))
+            if i == 0:       # this rank's first moments, for the parent to hold
+                torch.save({path: t.to_local().cpu()
+                            for path, t in _flatten(state.m).items()},
+                           os.path.join(tmp, f"tpm_first_{rank}.pt"))
+            del log
+        launches = {k: LAUNCHES[k] for k in counted}
+        with torch.no_grad(), route_log() as log:
+            logits, _, _ = model.forward_full(_tpm_fwd_tokens(cfg.vocab_size))
+            if split.vocab_out is not None:
+                logits = gather_from_model(logits, -1, split)
+        out = dict(steps=steps, launches=launches,
+                   logits=logits.cpu(), routes=routes,
+                   fwd_routes=_cpu_routes(log), param_gib=_tp_bytes(model) / 2**30,
+                   whole_gib=whole / 2**30,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   partial=sorted(split.partial), experts=split.experts,
+                   heads=split.heads)
+        del model, state, prog, logits
+        return out
+
+    def moe_serve(arch, layers, shape):
+        spec, cfg = _tp_serve_cfg(arch, layers)
+        mesh = make_mesh(shape, ("data", "model"), dev)
+        torch.cuda.reset_peak_memory_stats()
+        plan = plan_for(spec, mesh, mode="decode",
+                        cell=ShapeCell("tp", "decode", TP_MAX_LEN, TP_MAX_BATCH),
+                        cache_batch=TP_MAX_BATCH, cache_len=TP_MAX_LEN)
+        split = model_split(cfg, plan.param_specs, mesh, plan.cache_specs)
+        model = init_params(cfg, 0, dev, split)
+        whole = _tp_bytes(Transformer(cfg, "meta"))
+        model.forward_full(np.arange(1, 9, dtype=np.int32)[None, :])  # warm up
+        out = dict(cache=split.cache, heads=split.heads, experts=split.experts,
+                   shared=split.shared, param_gib=_tp_bytes(model) / 2**30,
+                   whole_gib=whole / 2**30)
+        for key, run_cfg in (("served", cfg), ("nodrop", nodrop(cfg))):
+            model.cfg = run_cfg
+            eng = ServeEngine(run_cfg, model, max_batch=TP_MAX_BATCH,
+                              max_len=TP_MAX_LEN, mesh=mesh, plan=plan,
+                              device=dev)
+            for p in _tp_prompts(cfg.vocab_size):
+                eng.submit(p, max_new_tokens=TP_NEW_TOKENS)
+            torch.cuda.synchronize()
+            for k in counted:
+                LAUNCHES[k] = 0
+            with route_log(key == "nodrop") as log:
+                done, sec = sync_time(eng.run_to_completion)
+            routes = (engine_routes(log, done, layers) if key == "nodrop"
+                      else None)
+            out[key] = dict(
+                tokens=[(r.rid, r.prompt, r.tokens, r.slot) for r in done],
+                launches={k: LAUNCHES[k] for k in counted},
+                steps=eng.metrics.snapshot()["batches"], seconds=sec,
+                routes=None if routes is None else {
+                    rid: [t.cpu() for t in ts] for rid, ts in routes.items()})
+            del eng, log
+        model.cfg = cfg
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        del model
+        return out
+
     try:
         for name, *args in jobs:
-            res = train(*args) if name == "train" else serve(*args)
+            res = {"train": train, "serve": serve, "moe_train": moe_train,
+                   "moe_serve": moe_serve}[name](*args)
             torch.save(res, os.path.join(tmp, f"tp_{name}_{'_'.join(map(str, args))}"
                                               f"_{rank}.pt"))
             gc.collect()
@@ -3145,6 +3372,252 @@ def tp_phase(dev, tmp: str) -> tuple[dict, dict]:
                 launches[k] = launches.get(k, 0) + c
     del ref_models
     free()
+    return rec, launches
+
+
+def tpm_phase(dev, tmp: str) -> tuple[dict, dict]:
+    """Phase tp-moe (see the module docstring): the ranks as processes on
+    this card (2, then 4), the one-process training reference on the
+    ranks' routes, then the serving references one model at a time.  Returns (record, launches
+    summed over the ranks' main-path runs); raises AssertionError on a
+    failed check."""
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models.transformer import _flatten, init_params
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.sharding.spec import MeshShape
+    from repro_torch.sharding.tp import plan_split
+    from repro_torch.train import train_loop as tloop
+    from repro_torch.train.optim import OptConfig
+
+    rec: dict = {}
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # 1. the ranks: 2 processes (training and serving at model 2), then 4
+    t1 = time.perf_counter()
+    jobs2 = [("moe_train", (1, 2))] + [("moe_serve", a, n, (1, m))
+                                       for a, n, m in TPM_SERVE if m == 2]
+    jobs4 = [("moe_serve", a, n, (1, m)) for a, n, m in TPM_SERVE if m == 4]
+    for world, jobs in ((2, jobs2), (4, jobs4)):
+        try:
+            mp.spawn(tp_child, args=(world, tmp, jobs, str(dev)), nprocs=world,
+                     join=True)
+        except Exception as e:        # a rank's traceback, as the check's failure
+            raise AssertionError(f"phase tp-moe ranks ({world}): {e}") from None
+    rec["ranks_s"] = time.perf_counter() - t1
+    load = lambda name, args, r: torch.load(os.path.join(
+        tmp, f"tp_{name}_{'_'.join(map(str, args))}_{r}.pt"), weights_only=False)
+    launches: dict[str, int] = {}
+
+    # 2. the one-process training reference, routed on the ranks' choices:
+    # a split reorders the attention's fp32 sums, so a router at a
+    # near-tie may choose another expert; forced onto the ranks' choices
+    # (each layer gated by its own router) the two runs compute one
+    # function, held at the limits, and each choice the reference's router
+    # would have made otherwise must be a near-tie (reported)
+    spec, cell, cfg = _tpm_train_cfg()
+    got = [load("moe_train", [(1, 2)], r) for r in range(2)]
+    for r in range(1, 2):
+        for i, (a, b) in enumerate(zip(got[r]["routes"] + [got[r]["fwd_routes"]],
+                                       got[0]["routes"] + [got[0]["fwd_routes"]])):
+            f = route_flips(a, b, "used")
+            if f is not None or len(a) != len(b):
+                raise AssertionError(f"tpm train: rank {r} routed otherwise "
+                                     f"than rank 0 (run {i}): {f}")
+    oc = OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    model, st = tloop.init_state(cfg, 0, device=dev)
+    with torch.no_grad(), route_log(force=[e["used"] for e in
+                                           got[0]["fwd_routes"]]) as log:
+        logits, _, _ = model.forward_full(_tpm_fwd_tokens(cfg.vocab_size))
+    ref_logits, fwd_flips = logits.cpu(), route_flips(log, log, "top_i", "used")
+    del logits, log
+    step = tloop.make_train_step(model, oc, n_microbatches=TPM_MB)
+    prog = build_cell(spec, cell, MeshShape((1, 2), ("data", "model")))
+    ref_steps, flips, first_err = [], [], [{}, {}]
+    for i, b in enumerate(_tpm_data(cfg.vocab_size)):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with route_log(force=[e["used"] for e in got[0]["routes"][i]]) as log:
+            st, m = step(st, b)
+        torch.cuda.synchronize()
+        ref_steps.append(dict(loss=float(m["loss"]),
+                              grad_norm=float(m["grad_norm"]),
+                              seconds=time.perf_counter() - t1))
+        flips.append(route_flips(log, log, "top_i", "used"))
+        del log
+        if i == 0:       # each rank's first moments against its slices
+            m1 = _flatten(st.m)
+            for r in range(2):
+                sp = plan_split(cfg, prog.plan.param_specs, 2, r)
+                part = torch.load(os.path.join(tmp, f"tpm_first_{r}.pt"))
+                for path, x in m1.items():
+                    if path.startswith("blocks/"):
+                        sl = (slice(None),) + sp.local_slices(
+                            path, tuple(x.shape[1:]))
+                    else:
+                        sl = sp.local_slices(path, tuple(x.shape))
+                    want, have = x[sl], part.pop(path).to(dev)
+                    first_err[r][path] = (float((have - want).abs().max())
+                                          / max(float(want.abs().max()), 1e-30))
+                    del want, have
+                if part:
+                    raise AssertionError(f"tpm train rank {r}: first moments "
+                                         f"of leaves the reference lacks: "
+                                         f"{sorted(part)}")
+                del part
+            del m1
+    rec["train_ref"] = ref_steps
+    del model, st, step
+    free()
+
+    # training: every rank within the limits, on every run
+    L, mb = cfg.n_layers, TPM_MB
+    want_train = {"flash_attention": 2 * L * mb * TPM_STEPS,
+                  "flash_attention_bwd_wgmma": L * mb * TPM_STEPS}
+    rec["train"] = []
+    for r in range(2):
+        g = got[r]
+        err = float((g["logits"] - ref_logits).abs().max())
+        logit_err = err / float(ref_logits.abs().max())
+        worst = max(first_err[r].items(), key=lambda kv: kv[1])
+        rec["train"].append(dict(
+            {k: v for k, v in g.items() if k not in ("logits", "routes",
+                                                     "fwd_routes")},
+            first_err=first_err[r], flips=flips, fwd_flips=fwd_flips,
+            logit_err=logit_err))
+        print(f"  moe train rank {r} (data 1, model 2; experts {g['experts']}"
+              f", heads {g['heads']}): losses "
+              f"{[s['loss'] for s in g['steps']]} against "
+              f"{[s['loss'] for s in ref_steps]}, grad norms "
+              f"{[s['grad_norm'] for s in g['steps']]} against "
+              f"{[s['grad_norm'] for s in ref_steps]} (one process routed on "
+              f"the ranks' choices; its router's own choices differ at {flips} "
+              f"by step, {fwd_flips} in the forward); first moments: largest "
+              f"relative error {worst[1]:.3g} ({worst[0]}; limit {TP_FIRST_REL}); "
+              f"forward logits {logit_err:.3g} of the largest over "
+              f"{TPM_FWD_S} positions (limit {TP_LOGIT_REL}); launches "
+              f"{_nonzero(g['launches'])} (expected {want_train}); parameters "
+              f"{g['param_gib']:.3f} of {g['whole_gib']:.3f} GiB, peak "
+              f"{g['peak_gib']:.2f} GiB; partial leaves {g['partial']}",
+              flush=True)
+        for f in flips + [fwd_flips]:
+            if f is not None and not max(f["gaps"]) < ROUTE_TIE:
+                raise AssertionError(f"tpm train rank {r}: routes differ beyond "
+                                     f"a near-tie: {f}")
+        for a, b in zip(g["steps"], ref_steps):
+            if not (math.isclose(a["loss"], b["loss"], rel_tol=TP_LOSS_RTOL)
+                    and math.isclose(a["grad_norm"], b["grad_norm"],
+                                     rel_tol=TP_GNORM_RTOL)):
+                raise AssertionError(f"tpm train rank {r}: steps "
+                                     f"{g['steps']} against {ref_steps}")
+        if worst[1] > TP_FIRST_REL:
+            raise AssertionError(f"tpm train rank {r}: first moments {worst}")
+        if logit_err > TP_LOGIT_REL:
+            raise AssertionError(f"tpm train rank {r}: logits {logit_err}")
+        if any(g["launches"][k] != want_train.get(k, 0)
+               for k in g["launches"]):
+            raise AssertionError(f"tpm train rank {r}: launches "
+                                 f"{g['launches']}, expected {want_train}")
+        for k, n in g["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    del got
+    rec["step_s"] = rec["train"][0]["steps"][-1]["seconds"]
+    rec["ref_step_s"] = ref_steps[-1]["seconds"]
+    print(f"  moe train: step {TPM_STEPS} took {rec['step_s']:.4f} s on 2 ranks "
+          f"sharing this card ({card_line()}; a rehearsal of correctness, not "
+          f"a scaling figure; both runs log their routes), "
+          f"{rec['ref_step_s']:.4f} s in one process", flush=True)
+
+    # serving: the one-process model of each arch built after the ranks
+    # ran, its engine's tokens at the served capacity, then the no-drop
+    # copy's teacher forcing of the ranks' no-drop tokens
+    rec["serve"] = []
+    for arch in dict.fromkeys(a for a, _, _ in TPM_SERVE):
+        cases = [(a, n, m) for a, n, m in TPM_SERVE if a == arch]
+        _, scfg = _tp_serve_cfg(arch, cases[0][1])
+        rmodel = init_params(scfg, 0, dev)
+        rmodel.forward_full(np.arange(1, 9, dtype=np.int32)[None, :])
+        eng = ServeEngine(scfg, rmodel, max_batch=TP_MAX_BATCH,
+                          max_len=TP_MAX_LEN, device=dev)
+        for p in _tp_prompts(scfg.vocab_size):
+            eng.submit(p, max_new_tokens=TP_NEW_TOKENS)
+        ref_done = [(r.rid, r.prompt, r.tokens) for r in eng.run_to_completion()]
+        del eng
+        rmodel.cfg = nodrop(scfg)
+        for a, layers, m in cases:
+            ranks = [load("moe_serve", [a, layers, (1, m)], r) for r in range(m)]
+            x = ranks[0]
+            for key in ("served", "nodrop"):
+                if any(y[key]["tokens"] != x[key]["tokens"] for y in ranks):
+                    raise AssertionError(f"tpm serve {a} model {m} {key}: ranks "
+                                         "differ")
+            toks = x["served"]["tokens"]
+            n_tok = sum(len(t) for _, _, t, _ in toks)
+            same = sum(ta == tb for (_, _, t1, _), (_, _, t2) in zip(toks, ref_done)
+                       for ta, tb in zip(t1, t2)) / n_tok
+            done = [types.SimpleNamespace(rid=rid, prompt=p, tokens=t, slot=sl)
+                    for rid, p, t, sl in x["nodrop"]["tokens"]]
+            routes = {rid: [t.to(dev) for t in ts]
+                      for rid, ts in x["nodrop"]["routes"].items()}
+            n, worse, _, _, n_alike = teacher_forced(rmodel, done,
+                                                     scfg.vocab_size, False,
+                                                     routes)
+            miss = sum(1 for w in worse if w["routed_alike"])
+            agree = 1 - miss / n_alike
+            case = dict(arch=a, layers=layers, model=m, cache=x["cache"],
+                        heads=x["heads"], experts=x["experts"],
+                        shared=x["shared"], same_as_one_process=same,
+                        positions=n, routed_alike=n_alike,
+                        agreement_routed_alike=agree, disagreements=len(worse),
+                        param_gib=[y["param_gib"] for y in ranks],
+                        whole_gib=x["whole_gib"],
+                        peak_gib=[y["peak_gib"] for y in ranks],
+                        launches={k: [y[k]["launches"] for y in ranks]
+                                  for k in ("served", "nodrop")},
+                        seconds={k: x[k]["seconds"] for k in ("served", "nodrop")},
+                        steps={k: x[k]["steps"] for k in ("served", "nodrop")})
+            rec["serve"].append(case)
+            print(f"  moe serve {a} x{layers} bf16 at model {m}: experts "
+                  f"{x['experts']} of rank 0, heads {x['heads']}, shared columns "
+                  f"{x['shared']}, cache over {x['cache']}; at the served "
+                  f"capacity every rank the same tokens, {same:.4f} of them the "
+                  f"one-process engine's; no-drop copy: {n_alike}/{n} positions "
+                  f"routed alike, teacher-forced agreement {agree:.4f} over them "
+                  f"(limit {LM_BF16_AGREE}; {len(worse)} disagreements in all); "
+                  f"launches a rank: served "
+                  f"{_nonzero(case['launches']['served'][0])}, no-drop "
+                  f"{_nonzero(case['launches']['nodrop'][0])}; parameters a rank "
+                  f"{[round(g, 3) for g in case['param_gib']]} of "
+                  f"{x['whole_gib']:.3f} GiB, peak "
+                  f"{[round(g, 2) for g in case['peak_gib']]} GiB; "
+                  f"{x['served']['seconds']:.2f} s for "
+                  f"{x['served']['steps']} decode steps (ranks time-share the "
+                  "card)", flush=True)
+            if agree < LM_BF16_AGREE:
+                raise AssertionError(f"tpm serve {a} model {m}: agreement "
+                                     f"{agree} where routed alike: {worse[:4]}")
+            for key in ("served", "nodrop"):
+                steps_k = x[key]["steps"]
+                w = {"flash_attention_wgmma": layers * TP_REQUESTS,
+                     "decode_attention": 0 if scfg.use_mla else layers * steps_k}
+                for y in ranks:
+                    got = y[key]["launches"]
+                    if any(got[k] != w.get(k, 0) for k in got):
+                        raise AssertionError(f"tpm serve {a} model {m} {key}: "
+                                             f"launches {got}, expected {w}")
+                    for k, c in got.items():
+                        launches[k] = launches.get(k, 0) + c
+            del ranks, routes
+        del rmodel
+        free()
     return rec, launches
 
 
@@ -4577,7 +5050,25 @@ def main() -> int:
           + f"; ranks as processes on this card over gloo; launches "
           f"{tp_launches}")
 
-    # ----------------------------------------------------------- 13. report
+    # ----------------------------------------------------------- 13. tp-moe
+    t = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory(prefix="mafia-tpm-") as tmp:
+            tpm_rec, tpm_launches = tpm_phase(dev, tmp)
+    except AssertionError as e:
+        return fail("tp-moe", str(e))
+    tpm_rec["seconds"] = time.perf_counter() - t
+    for k, n in tpm_launches.items():
+        tp_launches[k] = tp_launches.get(k, 0) + n
+    phase("tp-moe", t, f"{TPM_TRAIN[0]} x{TPM_TRAIN[1]} float32 trained at "
+          f"(data 1, model 2), experts split; "
+          + "; ".join(f"{c['arch']} x{c['layers']} served at model {c['model']}"
+                      f" (cache over {c['cache']}): no-drop agreement "
+                      f"{c['agreement_routed_alike']:.4f}"
+                      for c in tpm_rec["serve"])
+          + f"; launches {tpm_launches}")
+
+    # ----------------------------------------------------------- 14. report
     t = time.perf_counter()
     saved = dict(LAUNCHES)
     timed = []
@@ -4971,7 +5462,7 @@ def main() -> int:
           "between CUDA events; serving wall time on the host clock")
     report.update(lm_train=train_rec, train_launches=train_launches,
                   dist=dist_rec, dist_launches=dist_launches, tp=tp_rec,
-                  tp_launches=tp_launches)
+                  tp_moe=tpm_rec, tp_launches=tp_launches)
     report.update(served=served, timed=timed, launches=launches, rows=rows,
                   chain_floor=chain_floor,
                   attention_cases=attn_cases, ssd_cases=ssd_cases,

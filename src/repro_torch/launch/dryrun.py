@@ -38,7 +38,7 @@ from repro_torch.sharding.spec import P, entry_axes, shard_shape
 from repro_torch.sharding.tp import plan_split
 
 __all__ = ["run_cell", "main", "args_bytes_per_device", "OPT_OVERRIDES",
-           "ABSENT", "split_collective_bytes"]
+           "ABSENT", "split_collective_bytes", "routing_collective_bytes"]
 
 # Beyond-paper optimized-variant config overrides per arch (the reference's
 # table): the per-arch knobs that change parameter layouts stay opt-in.
@@ -93,22 +93,30 @@ def _rows(prog: CellProgram) -> int:
 
 
 def split_collective_bytes(prog: CellProgram, axes: dict[str, int]) -> float:
-    """Bytes a rank sends in the collectives of the dense split over
-    ``model`` (:mod:`repro_torch.sharding.tp`) in one step of the cell, ring
+    """Bytes a rank sends in the collectives of the split over ``model``
+    (:mod:`repro_torch.sharding.tp`) in one step of the cell, ring
     algorithms over m = |model|, T the rank's tokens (rows × S; decode: one
-    a row), D the width, a the activation's bytes:
+    a row), D the width, E the experts, a the activation's bytes:
 
     * forward: per layer one all-reduce of T × D fp32 partial sums for the
-      heads and one for the FFN columns (where each is split), and the
+      heads (GQA's or MLA's) and one for the FFN (the dense FFN's columns;
+      MoE: the experts' combine, the shared experts' column partials
+      folded in, or the shared experts' alone where the experts stay
+      whole), where each is split; the router's fp32 logits (T × E/m a
+      rank) all-gathered where its columns are split; and the
       vocab-parallel embedding's all-reduce of T × D × a;
     * train: the forward again in the remat recompute (blocks only), the
       backward's all-reduce of the split inputs' gradients (T × D × a per
-      split product group, and the head's input), and the loss's three
-      reductions of T fp32 (the row max, the sum of exponentials, the gold
-      logit);
+      layer input read in part: the attention's, the FFN's; and the
+      head's input), the router logits' gradient summed (T × E fp32) where
+      both the router's columns and the experts are split, and the loss's
+      three reductions of T fp32 (the row max, the sum of exponentials,
+      the gold logit);
     * decode on a cache split over the sequence: per layer q gathered over
-      ``model`` (B × H/m × dh × a) and each rank's output (B × H × dh × a)
-      and log-sum-exp (B × H fp32) gathered.
+      ``model`` (B × H/m × dh × a; MLA: the fp32 latent and rope queries,
+      B × H/m × (r + dr) × 4) and each rank's output (B × H × dh × a; MLA:
+      the fp32 latent context, B × H × r × 4) and log-sum-exp (B × H fp32)
+      gathered.
 
     0 where nothing is split over ``model``; raises NotImplementedError for
     a family whose split is not ported."""
@@ -120,20 +128,61 @@ def split_collective_bytes(prog: CellProgram, axes: dict[str, int]) -> float:
     kind, rows = prog.cell.kind, _rows(prog)
     T = rows * (1 if kind == "decode" else prog.cell.seq_len)
     D, L, a = cfg.d_model, cfg.n_layers, cfg.adt.itemsize
-    groups = (sp.heads is not None) + (sp.ffn is not None)
-    blocks = L * groups * _ring(m) * T * D * 4
+    heads = sp.heads is not None
+    if cfg.family == "moe":
+        ep, sh = sp.experts is not None, sp.shared is not None
+        reduces = heads + ep + (sh and not ep)
+        inputs = heads + (ep or sh or sp.router is not None)
+        router = (L * (m - 1) * T * (cfg.n_experts // m) * 4
+                  if sp.router is not None else 0.0)
+    else:
+        reduces = inputs = heads + (sp.ffn is not None)
+        router = 0.0
+    blocks = L * reduces * _ring(m) * T * D * 4 + router
     embed = _ring(m) * T * D * a if sp.vocab_in is not None else 0.0
     sent = blocks + embed
     if kind == "train":
         sent += blocks if cfg.remat else 0.0
-        sent += L * groups * _ring(m) * T * D * a
+        sent += L * inputs * _ring(m) * T * D * a
+        if sp.router is not None and sp.experts is not None:
+            sent += L * _ring(m) * T * cfg.n_experts * 4
         if sp.vocab_out is not None:
             sent += _ring(m) * T * D * a + 3 * _ring(m) * T * 4
     elif kind == "decode" and sp.cache == "seq":
-        H, dh = cfg.n_heads_eff, cfg.d_head
-        q = rows * (H // m) * dh * a if sp.heads is not None else 0.0
-        sent += L * (m - 1) * (q + rows * H * dh * a + rows * H * 4)
+        H = cfg.n_heads_eff
+        if cfg.use_mla:
+            r, dr = cfg.kv_lora_rank, cfg.d_rope
+            q = rows * (H // m) * (r + dr) * 4 if heads else 0.0
+            ctx = rows * H * r * 4
+        else:
+            q = rows * (H // m) * cfg.d_head * a if heads else 0.0
+            ctx = rows * H * cfg.d_head * a
+        sent += L * (m - 1) * (q + ctx + rows * H * 4)
     return sent
+
+
+def routing_collective_bytes(prog: CellProgram, axes: dict[str, int],
+                             pod_reduce: str) -> float:
+    """Bytes a rank sends in one train step for the MoE layers' routing
+    over the whole microbatch (:mod:`repro_torch.models.moe`), over the n
+    ranks of the token group (pod × data, or data under the int8 cross-pod
+    reduce), per layer and microbatch: the all-gather of the (k, E) int64
+    counts ((n − 1) × k × E × 8) and the all-reduce of f's and p's sums (2
+    × E fp32) in the forward and again in the remat recompute, and that
+    all-reduce once more in the backward; with several microbatches, the
+    all-gather of the rank's token rows ((n − 1) × rows × S × 4).  0 for a
+    family without experts or at n = 1."""
+    cfg = prog.cfg
+    n = axes.get("data", 1) * (axes.get("pod", 1) if pod_reduce == "fp32" else 1)
+    if cfg.family != "moe" or n == 1 or prog.cell.kind != "train":
+        return 0.0
+    E, k, L = cfg.n_experts, cfg.experts_per_token, cfg.n_layers
+    micro = prog.meta.get("n_microbatches", 1)
+    forward = (n - 1) * k * E * 8 + _ring(n) * 2 * E * 4
+    per = forward * (2 if cfg.remat else 1) + _ring(n) * 2 * E * 4
+    regroup = ((n - 1) * _rows(prog) * prog.cell.seq_len * 4
+               if micro > 1 else 0.0)
+    return L * micro * per + regroup
 
 
 def _train_collective_bytes(prog: CellProgram, axes: dict[str, int],
@@ -145,8 +194,9 @@ def _train_collective_bytes(prog: CellProgram, axes: dict[str, int],
     float32 — over (pod, data, model) for the replicated leaves a rank
     reads in part —, or over data in float32 and an int8 all-gather (+ a
     float32 scale a leaf, a ``model``-sharded leaf's reduced over
-    ``model``) over pod; and the split's own collectives
-    (:func:`split_collective_bytes`)."""
+    ``model``) over pod; the split's own collectives
+    (:func:`split_collective_bytes`) and the MoE routing's over the
+    microbatch (:func:`routing_collective_bytes`)."""
     params = _flatten(prog.args[0].params)
     specs = _flatten(prog.in_shardings[0].params)
     m = axes.get("model", 1)
@@ -167,7 +217,8 @@ def _train_collective_bytes(prog: CellProgram, axes: dict[str, int],
             sent += (pods - 1) * (g / 4 + 4)      # int8 payload + a scale
             if any("model" in entry_axes(e) for e in (s or ())):
                 sent += _ring(m) * 4              # the scale's max over model
-    return sent + split_collective_bytes(prog, axes)
+    return (sent + split_collective_bytes(prog, axes)
+            + routing_collective_bytes(prog, axes, pod_reduce))
 
 
 def _model_only(spec) -> P:
@@ -213,13 +264,16 @@ def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool,
                     "axes but model, the gradients' all-reduce, the split's "
                     "all-reduces over model (2 a layer forward, again in the "
                     "recompute and the backward, the embedding's, the loss's "
-                    "3), ring algorithms")
+                    "3; MoE: the router logits' gather), the MoE routing's "
+                    "counts and aux sums over the data ranks, ring "
+                    "algorithms")
             else:
                 coll = split_collective_bytes(prog, axes)
                 sources["collective_bytes"] = (
                     "the split over model in one forward: 2 all-reduces a "
-                    "layer, the embedding's; on a sequence-split cache q's, "
-                    "the outputs' and the log-sum-exps' all-gathers a layer")
+                    "layer (MoE: the router logits' gather), the "
+                    "embedding's; on a sequence-split cache q's, the "
+                    "outputs' and the log-sum-exps' all-gathers a layer")
         except NotImplementedError as e:
             sources["collective_bytes"] = f"not counted: {e}"
         cost = StepCost(flops=model_flops(prog.cfg, cell) / n_chips,

@@ -31,7 +31,7 @@ from repro_torch.core.device import resolve_device
 from repro_torch.sharding.spec import MeshShape
 
 __all__ = ["abstract_mesh", "make_mesh", "make_production_mesh", "mesh_axes",
-           "init_group", "axis_group", "all_gather_flat", "PRODUCTION_SHAPES"]
+           "init_group", "axis_group", "PRODUCTION_SHAPES"]
 
 PRODUCTION_SHAPES = {False: ((16, 16), ("data", "model")),
                      True: ((2, 16, 16), ("pod", "data", "model"))}
@@ -136,11 +136,3 @@ def axis_group(mesh, names: tuple[str, ...]):
                 if me in row:
                     groups[order] = group
     return groups[order]
-
-
-def all_gather_flat(out: torch.Tensor, x: torch.Tensor, group) -> None:
-    """``out`` (1-D, group size × ``x.numel()``) ← every group rank's
-    ``x`` in group-rank order: ``all_gather_into_tensor``, under the name
-    newer PyTorch gives it."""
-    gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
-    gather(out, x.reshape(-1), group=group)

@@ -64,7 +64,8 @@ from repro_torch.sharding.tp import (copy_to_model, gather_from_model,
                                      reduce_from_model)
 
 __all__ = ["init_gqa", "gqa_prefill", "gqa_decode", "init_mla", "mla_prefill",
-           "mla_decode", "flash_attention", "plain_attention", "merge_by_lse"]
+           "mla_decode", "flash_attention", "plain_attention", "merge_by_lse",
+           "latent_piece"]
 
 _NEG = -1e30
 
@@ -366,7 +367,16 @@ def init_mla(gen: torch.Generator, d_model: int, n_heads: int, *,
     return p
 
 
-def _mla_q(p: Mapping[str, torch.Tensor], x: torch.Tensor
+def _mla_take(p: Mapping[str, torch.Tensor], name: str, split,
+              dim: int = 1) -> torch.Tensor:
+    """An MLA head leaf (``w_uq``/``w_qr``/``w_uk``/``w_uv`` on dim 1,
+    ``wo`` on dim 0): this rank's heads under a split of the heads."""
+    if split is None or split.heads is None:
+        return p[name]
+    return split.take(p, name, "attn", dim, split.heads)
+
+
+def _mla_q(p: Mapping[str, torch.Tensor], x: torch.Tensor, split=None
            ) -> tuple[torch.Tensor, torch.Tensor]:
     dt = x.dtype
     if "w_dq" in p:
@@ -374,7 +384,8 @@ def _mla_q(p: Mapping[str, torch.Tensor], x: torch.Tensor
         cq = rms_norm(cq, p["norm_q"])
     else:
         cq = x
-    return _proj(cq, p["w_uq"]), _proj(cq, p["w_qr"])
+    return (_proj(cq, _mla_take(p, "w_uq", split)),
+            _proj(cq, _mla_take(p, "w_qr", split)))
 
 
 def _mla_latent(p: Mapping[str, torch.Tensor], x: torch.Tensor
@@ -386,26 +397,33 @@ def _mla_latent(p: Mapping[str, torch.Tensor], x: torch.Tensor
 
 def mla_prefill(p: Mapping[str, torch.Tensor], x: torch.Tensor,
                 cos: torch.Tensor, sin: torch.Tensor, *,
-                probs_bf16: bool = False, plain: bool = False
+                probs_bf16: bool = False, plain: bool = False, split=None
                 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """Materialised-KV MLA for prefill; returns (out, (c_kv, k_rope)), the
-    latent caches only.  ``plain`` runs the flash kernel's plain version."""
+    latent caches only.  ``plain`` runs the flash kernel's plain version.
+    Under a :class:`~repro_torch.sharding.tp.ModelSplit` of the heads the
+    flash kernels run on this rank's heads (``w_uq``/``w_qr``/``w_uk``/
+    ``w_uv`` shards), their ``wo`` rows give fp32 partial sums all-reduced
+    before the one rounding, and the latents (from the replicated
+    ``w_dkv``/``w_kr``) are whole on every rank."""
     dt = x.dtype
     B, S, _ = x.shape
-    q_nope, q_rope = _mla_q(p, x)
+    if split is not None and split.heads is not None:
+        x = copy_to_model(x, split)
+    q_nope, q_rope = _mla_q(p, x, split)
     dn, dr = q_nope.shape[-1], q_rope.shape[-1]
     c_kv, k_rope = _mla_latent(p, x)
     q_rope = apply_rope(q_rope, cos, sin)
     k_rope = apply_rope(k_rope[:, :, None, :], cos, sin)[:, :, 0, :]
-    k_nope = _proj(c_kv, p["w_uk"])
-    v = _proj(c_kv, p["w_uv"])
+    k_nope = _proj(c_kv, _mla_take(p, "w_uk", split))
+    v = _proj(c_kv, _mla_take(p, "w_uv", split))
     H = k_nope.shape[2]
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, dr)], dim=-1)
     # zeros in v's columns dn.., outside the kernel: autograd drops their dv
     v = torch.nn.functional.pad(_bf16_v(v, probs_bf16), (0, dr))
     out = _attend(q, k, v, 0, probs_bf16, plain)[..., :dn]
-    return _out(p, out, dt), (c_kv, k_rope)
+    return _out(p, out, dt, split), (c_kv, k_rope)
 
 
 def _per_head(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -413,39 +431,106 @@ def _per_head(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return bmm_f32(a.transpose(0, 1), w).transpose(0, 1)
 
 
+def _latent_scores(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                   ckv: torch.Tensor, kr: torch.Tensor, lens: torch.Tensor,
+                   scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The absorbed decode's fp32 scores (B, H, S), the positions at or past
+    ``lens`` (B,) masked, and the valid positions (B, S)."""
+    s = torch.bmm(q_lat, ckv.transpose(1, 2))
+    s = (s + torch.bmm(q_rope, kr.float().transpose(1, 2))) * scale
+    valid = torch.arange(ckv.shape[1], device=s.device)[None, :] < lens[:, None]
+    return s.masked_fill(~valid[:, None, :], _NEG), valid
+
+
+def latent_piece(q_lat: torch.Tensor, q_rope: torch.Tensor, ckv: torch.Tensor,
+                 kr: torch.Tensor, lens: torch.Tensor, scale: float
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The absorbed decode over one piece of the latent cache: the latent
+    queries (B, H, r) and rope queries (B, H, dr) in fp32 against ``ckv``
+    (B, S, r) fp32 and ``kr`` (B, S, dr) at the first ``lens`` (B,)
+    positions.  Returns (the normalised latent context (B, H, r), the
+    log-sum-exp (B, H)) in fp32: zeros and −inf where ``lens`` is 0, as
+    :func:`merge_by_lse` reads them."""
+    s, valid = _latent_scores(q_lat, q_rope, ckv, kr, lens, scale)
+    mx = s.amax(dim=-1, keepdim=True)
+    e = torch.where(valid[:, None, :], torch.exp(s - mx), torch.zeros_like(s))
+    l = e.sum(dim=-1)
+    some = l > 0
+    l1 = torch.where(some, l, torch.ones_like(l))
+    lse = torch.where(some, mx[..., 0] + torch.log(l1),
+                      torch.full_like(l, -torch.inf))
+    return torch.bmm(e, ckv) / l1[..., None], lse
+
+
 def mla_decode(p: Mapping[str, torch.Tensor], x: torch.Tensor,
                ckv_cache: torch.Tensor, krope_cache: torch.Tensor,
                pos: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, *,
-               cache_len=None
+               cache_len=None, split=None
                ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """Absorbed-form decode, attention in the latent space: scores =
     (q_nope·W_uk)·c_kv + q_rope·k_rope, the caches (B, S, r) and (B, S, dr)
     written in place at ``pos`` (B,) on the card, the first ``cache_len =
-    pos + 1`` positions attended.  Returns (out, caches)."""
+    pos + 1`` positions attended.  Returns (out, caches).
+
+    Under a :class:`~repro_torch.sharding.tp.ModelSplit` the query side
+    runs on this rank's heads, and where the split puts the latents over
+    the sequence (the plan's layout) the caches are this rank's positions
+    ``[r·Sl, (r + 1)·Sl)``: the owner of ``pos`` writes the new rows
+    (every rank computes them whole: ``w_dkv``/``w_kr`` are replicated),
+    the latent queries ``q_nope·W_uk`` (B, H, r) and ``q_rope`` are
+    gathered over the heads, every head attends the local positions (the
+    local lengths, 0 included, give zeros and a log-sum-exp of −inf), the
+    pieces are merged by :func:`merge_by_lse`, and ``w_uv`` and ``wo`` run
+    on the local heads, their fp32 partial sums all-reduced."""
     dt = x.dtype
     B = x.shape[0]
-    S = ckv_cache.shape[1]
-    q_nope, q_rope = _mla_q(p, x)                       # (B, 1, H, dn / dr)
+    heads = split is not None and split.heads is not None
+    seq = split is not None and split.cache == "seq"
+    q_nope, q_rope = _mla_q(p, x, split)                # (B, 1, H, dn / dr)
     q_rope = apply_rope(q_rope, cos, sin)
     c_kv, k_rope = _mla_latent(p, x)                    # (B, 1, r), (B, 1, dr)
     k_rope = apply_rope(k_rope[:, :, None, :], cos, sin)[:, :, 0, :]
+    S = ckv_cache.shape[1]
     rows = torch.arange(B, device=x.device)
     idx = pos.to(device=x.device, dtype=torch.long)
-    ckv_cache[rows, idx] = c_kv[:, 0]
-    krope_cache[rows, idx] = k_rope[:, 0]
     if cache_len is None:
         cache_len = idx + 1
+    lens = torch.as_tensor(cache_len).to(device=x.device, dtype=torch.long)
+    if seq:         # only the owner of pos writes; the local lengths
+        c0 = split.r * S
+        here = idx - c0
+        mine = ((here >= 0) & (here < S))[:, None]
+        here = here.clamp(0, S - 1)
+        ckv_cache[rows, here] = torch.where(mine, c_kv[:, 0],
+                                            ckv_cache[rows, here])
+        krope_cache[rows, here] = torch.where(mine, k_rope[:, 0],
+                                              krope_cache[rows, here])
+        lens = (lens - c0).clamp(0, S)
+    else:
+        ckv_cache[rows, idx] = c_kv[:, 0]
+        krope_cache[rows, idx] = k_rope[:, 0]
     dn, dr = q_nope.shape[-1], q_rope.shape[-1]
     ckv = ckv_cache.float()
     # absorb W_uk into the query: a latent-space query (B, H, r)
-    q_lat = _per_head(q_nope[:, 0], p["w_uk"].to(dt).permute(1, 2, 0))
-    s = torch.bmm(q_lat, ckv.transpose(1, 2))
-    s = s + torch.bmm(q_rope[:, 0].float(), krope_cache.float().transpose(1, 2))
-    s = s * (dn + dr) ** -0.5
-    valid = torch.arange(S, device=x.device)[None, :] < cache_len[:, None]
-    s = s.masked_fill(~valid[:, None, :], _NEG)
-    pr = torch.softmax(s, dim=-1)
-    ctx = _per_head(torch.bmm(pr, ckv), p["w_uv"].float().permute(1, 0, 2))
-    H, _, D = p["wo"].shape
-    y = ctx.reshape(B, H * dn) @ p["wo"].float().reshape(H * dn, D)
+    q_lat = _per_head(q_nope[:, 0], _mla_take(p, "w_uk", split).to(dt)
+                      .permute(1, 2, 0))
+    qr = q_rope[:, 0].float()
+    if seq and heads:           # every head attends this rank's positions
+        q_lat = gather_from_model(q_lat, 1, split)
+        qr = gather_from_model(qr, 1, split)
+    if not seq:
+        s, valid = _latent_scores(q_lat, qr, ckv, krope_cache, lens,
+                                  (dn + dr) ** -0.5)
+        ctx_lat = torch.bmm(torch.softmax(s, dim=-1), ckv)
+    else:           # this piece's softmax, merged over the ranks' pieces
+        ctx_lat = _merge_pieces(*latent_piece(q_lat, qr, ckv, krope_cache,
+                                              lens, (dn + dr) ** -0.5), split)
+        if heads:
+            ctx_lat = ctx_lat[:, split.heads[0]:split.heads[1]]
+    ctx = _per_head(ctx_lat, _mla_take(p, "w_uv", split).float().permute(1, 0, 2))
+    wo = _mla_take(p, "wo", split, 0)
+    H, _, D = wo.shape
+    y = ctx.reshape(B, H * dn) @ wo.float().reshape(H * dn, D)
+    if heads:
+        y = reduce_from_model(y, split)
     return y[:, None, :].to(dt), (ckv_cache, krope_cache)

@@ -31,7 +31,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["pad_vocab", "he_init", "normal_init", "rms_norm", "dot_f32",
-           "bmm_f32", "ProductF32", "init_mlp", "mlp_swiglu", "rope_table",
+           "bmm_f32", "ProductF32", "init_mlp", "mlp_swiglu", "swiglu_partial",
+           "rope_table",
            "apply_rope", "cross_entropy_loss", "MM_F32_ROUTE"]
 
 
@@ -171,13 +172,21 @@ def mlp_swiglu(p: dict[str, torch.Tensor], x: torch.Tensor,
         return dot_f32(h, p["w_down"].to(dt)).to(dt)
     from repro_torch.sharding.tp import copy_to_model, reduce_from_model
 
-    x = copy_to_model(x, split)
-    rng = split.ffn
-    g = dot_f32(x, split.take(p, "w_gate", "mlp", 1, rng).to(dt))
-    u = dot_f32(x, split.take(p, "w_up", "mlp", 1, rng).to(dt))
-    h = (F.silu(g) * u).to(dt)
-    part = dot_f32(h, split.take(p, "w_down", "mlp", 0, rng).to(dt))
+    part = swiglu_partial(p, copy_to_model(x, split), split, split.ffn, "mlp")
     return reduce_from_model(part, split).to(dt)
+
+
+def swiglu_partial(p: dict[str, torch.Tensor], x: torch.Tensor, split: Any,
+                   rng: tuple[int, int], group: str) -> torch.Tensor:
+    """This rank's fp32 partial sums of a SwiGLU split over its columns
+    ``rng`` (the leaves of ``blocks/<group>/``, their shards or slices of
+    the whole ones): ``x`` must come through ``tp.copy_to_model``, and
+    the result be all-reduced over ``model`` before its one rounding."""
+    dt = x.dtype
+    g = dot_f32(x, split.take(p, "w_gate", group, 1, rng).to(dt))
+    u = dot_f32(x, split.take(p, "w_up", group, 1, rng).to(dt))
+    h = (F.silu(g) * u).to(dt)
+    return dot_f32(h, split.take(p, "w_down", group, 0, rng).to(dt))
 
 
 # ----------------------------------------------------------------------- RoPE

@@ -51,10 +51,12 @@ generators differ); :func:`params_from_reference` carries a JAX parameter
 tree across.
 
 On a mesh whose plan shards leaves over ``model`` (a
-:class:`~repro_torch.sharding.tp.ModelSplit`, dense family only) the model
-holds each such leaf as this rank's shard and runs Megatron's split: the
-attention on its query heads (against the KV heads they read), the FFN on
-its columns, the embedding as a lookup of its vocabulary rows (zeros
+:class:`~repro_torch.sharding.tp.ModelSplit`, dense and MoE families) the
+model holds each such leaf as this rank's shard and runs Megatron's split:
+the attention on its query heads (against the KV heads they read; MLA on
+its heads, its latent caches over the sequence), the FFN on its columns
+(MoE: its experts' slots, the router's columns gathered, the shared
+experts' columns), the embedding as a lookup of its vocabulary rows (zeros
 elsewhere) summed over ``model``, the head on its vocabulary columns: the
 logits of :meth:`Transformer.forward_full`, :meth:`~Transformer.
 forward_train` and :meth:`~Transformer.forward_decode` are then this
@@ -87,7 +89,7 @@ from repro_torch.models.layers import (cross_entropy_loss, dot_f32, he_init,
                                        pad_vocab, rms_norm, rope_freqs,
                                        rope_table)
 from repro_torch.models.mamba2 import init_mamba2, mamba2_decode, mamba2_prefill
-from repro_torch.models.moe import init_moe, moe_ffn
+from repro_torch.models.moe import moe_ffn, moe_leaves
 from repro_torch.sharding.ctx import shard_act
 from repro_torch.sharding.tp import (ROADMAP_ITEMS, ModelSplit, copy_to_model,
                                      reduce_from_model)
@@ -292,35 +294,26 @@ class Block(nn.Module):
         self.norm1 = _param((D,), ndt, device)
         self.norm2 = _param((D,), ndt, device)
         if cfg.use_mla:
-            r, rq, dr = cfg.kv_lora_rank, cfg.q_lora_rank, cfg.d_rope
-            attn = {"w_dkv": _param((D, r), mdt, device),
-                    "norm_kv": _param((r,), ndt, device),
-                    "w_kr": _param((D, dr), mdt, device),
-                    "w_uk": _param((r, H, dh), mdt, device),
-                    "w_uv": _param((r, H, dh), ndt, device),
-                    "wo": _param((H, dh, D), ndt, device)}
-            q_in = rq or D
-            if rq:
-                attn.update(w_dq=_param((D, rq), mdt, device),
-                            norm_q=_param((rq,), ndt, device))
-            attn.update(w_uq=_param((q_in, H, dh), mdt, device),
-                        w_qr=_param((q_in, H, dr), mdt, device))
+            attn = _mla_params(cfg, mdt, ndt, device, at)
         else:
             attn = _gqa_params(D, H, KV, dh, cfg.qkv_bias, mdt, device, at)
         self.attn = nn.ParameterDict(attn)
         if cfg.family == "moe":
             E, Fe = cfg.n_experts, cfg.d_ff_expert
             self.moe = nn.ParameterDict({
-                "router": _param((D, E), torch.float32, device),
-                "w_gate": _param((E, D, Fe), mdt, device),
-                "w_up": _param((E, D, Fe), mdt, device),
-                "w_down": _param((E, Fe, D), mdt, device)})
+                "router": _param(at("moe/router", (D, E)), torch.float32,
+                                 device),
+                "w_gate": _param(at("moe/w_gate", (E, D, Fe)), mdt, device),
+                "w_up": _param(at("moe/w_up", (E, D, Fe)), mdt, device),
+                "w_down": _param(at("moe/w_down", (E, Fe, D)), mdt, device)})
             if cfg.n_shared_experts:
                 Fs = cfg.n_shared_experts * Fe
                 self.shared = nn.ParameterDict(
-                    {"w_gate": _param((D, Fs), mdt, device),
-                     "w_up": _param((D, Fs), mdt, device),
-                     "w_down": _param((Fs, D), mdt, device)})
+                    {"w_gate": _param(at("moe/shared/w_gate", (D, Fs)), mdt,
+                                      device),
+                     "w_up": _param(at("moe/shared/w_up", (D, Fs)), mdt, device),
+                     "w_down": _param(at("moe/shared/w_down", (Fs, D)), mdt,
+                                      device)})
         else:
             self.mlp = nn.ParameterDict(
                 {"w_gate": _param(at("mlp/w_gate", (D, F)), mdt, device),
@@ -344,15 +337,17 @@ class Block(nn.Module):
         p = dict(self.moe)
         if hasattr(self, "shared"):
             p["shared"] = self.shared
+        kw = {} if self.split is None else {"split": self.split}
         return moe_ffn(p, h, k=cfg.experts_per_token,
-                       capacity_factor=cfg.capacity_factor)
+                       capacity_factor=cfg.capacity_factor, **kw)
 
     def full(self, cfg: ModelConfig, x: torch.Tensor, cos: torch.Tensor,
              sin: torch.Tensor, window: int, plain: bool):
         h = rms_norm(x, self.norm1, cfg.norm_eps)
         if cfg.use_mla:
             a, cache = mla_prefill(self.attn, h, cos, sin,
-                                   probs_bf16=cfg.attn_probs_bf16, plain=plain)
+                                   probs_bf16=cfg.attn_probs_bf16, plain=plain,
+                                   split=self.split)
         else:
             a, cache = gqa_prefill(self.attn, h, cos, sin, window=window,
                                    probs_bf16=cfg.attn_probs_bf16, plain=plain,
@@ -367,7 +362,7 @@ class Block(nn.Module):
         h = rms_norm(x, self.norm1, cfg.norm_eps)
         if cfg.use_mla:
             a, _ = mla_decode(self.attn, h, c0, c1, pos, cos, sin,
-                              cache_len=cache_len)
+                              cache_len=cache_len, split=self.split)
         else:
             a, _ = gqa_decode(self.attn, h, c0, c1, pos, cos, sin,
                               window=cfg.attn_window, cache_len=cache_len,
@@ -390,6 +385,28 @@ def _gqa_params(D: int, H: int, KV: int, dh: int, bias: bool, mdt: torch.dtype,
                    bk=_param(at("attn/bk", (KV, dh)), mdt, device),
                    bv=_param(at("attn/bv", (KV, dh)), mdt, device))
     return out
+
+
+def _mla_params(cfg: ModelConfig, mdt: torch.dtype, ndt: torch.dtype,
+                device: torch.device, at: Callable) -> dict[str, nn.Parameter]:
+    """MLA's leaves (``w_uv`` and ``wo`` in the parameter dtype, which the
+    reference's absorbed decode multiplies in float32), each of
+    ``at(name, whole shape)``."""
+    D, H, dh = cfg.d_model, cfg.n_heads_eff, cfg.d_head
+    r, rq, dr = cfg.kv_lora_rank, cfg.q_lora_rank, cfg.d_rope
+    attn = {"w_dkv": _param((D, r), mdt, device),
+            "norm_kv": _param((r,), ndt, device),
+            "w_kr": _param((D, dr), mdt, device),
+            "w_uk": _param(at("attn/w_uk", (r, H, dh)), mdt, device),
+            "w_uv": _param(at("attn/w_uv", (r, H, dh)), ndt, device),
+            "wo": _param(at("attn/wo", (H, dh, D)), ndt, device)}
+    q_in = rq or D
+    if rq:
+        attn.update(w_dq=_param((D, rq), mdt, device),
+                    norm_q=_param((rq,), ndt, device))
+    attn.update(w_uq=_param(at("attn/w_uq", (q_in, H, dh)), mdt, device),
+                w_qr=_param(at("attn/w_qr", (q_in, H, dr)), mdt, device))
+    return attn
 
 
 def _local_shape(split: ModelSplit | None, prefix: str = "") -> Callable:
@@ -487,7 +504,7 @@ class SharedAttn(nn.Module):
 class Transformer(nn.Module):
     """The LM of any family; its parameters are allocated, not initialised
     (see :func:`init_params` and :func:`params_from_reference`).  With a
-    ``split`` (dense only) each leaf the plan shards over ``model`` is
+    ``split`` (dense and MoE) each leaf the plan shards over ``model`` is
     allocated as this rank's shard."""
 
     def __init__(self, cfg: ModelConfig,
@@ -495,7 +512,7 @@ class Transformer(nn.Module):
                  split: ModelSplit | None = None) -> None:
         super().__init__()
         _check_family(cfg)
-        if split is not None and cfg.family != "dense":
+        if split is not None and cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
                 f"splitting the {cfg.family} family's compute over `model` is "
                 f"not ported yet ({ROADMAP_ITEMS[cfg.family]})")
@@ -774,10 +791,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     "h" (M, B, H, N, P) in float32 and the conv states "conv_x", "conv_b",
     "conv_c" (M, B, W − 1, C) in the activation dtype, and the hybrid's
     shared {"k", "v"} of (G, B, W, n_kv_heads, 2 · d_model / n_heads), W =
-    min(S, attn_window), or S without a window.  Under a ``split`` (dense)
-    the rank's caches: its KV heads, or where the split puts the cache over
-    the sequence every KV head at ⌈S / m⌉ positions (the last rank's tail
-    past S is never written nor read)."""
+    min(S, attn_window), or S without a window.  Under a ``split`` the
+    rank's caches: its KV heads, or where the split puts the cache over the
+    sequence (MLA's latents always) every KV head, or the whole latent, at
+    ⌈S / m⌉ positions (the last rank's tail past S is never written nor
+    read)."""
     _check_family(cfg)
     dev = resolve_device(device)
     adt, B, S = cfg.adt, batch, max_len
@@ -787,13 +805,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
     if cfg.family in ("dense", "moe"):
         lead = (cfg.n_layers, B, S)
+        if split is not None and split.cache == "seq":
+            lead = (cfg.n_layers, B, -(-S // split.m))
         if cfg.use_mla:
             shapes = (lead + (cfg.kv_lora_rank,), lead + (cfg.d_rope,))
         else:
             kv = cfg.n_kv_heads_eff
-            if split is not None and split.cache == "seq":
-                lead = (cfg.n_layers, B, -(-S // split.m))
-            elif split is not None and split.kv is not None:
+            if split is not None and split.cache != "seq" and split.kv is not None:
                 kv = split.kv[1] - split.kv[0]
             shapes = (lead + (kv, cfg.d_head),) * 2
         return {key: zeros(shape) for key, shape in zip(_cache_keys(cfg), shapes)}
@@ -911,12 +929,15 @@ def init_params(cfg: ModelConfig, seed: int = 0,
                     attn["wo"][cfg.n_heads:] = 0.0
             _copy_into(blk.attn, attn, split, "blocks/attn/")
             del attn
-            if cfg.family == "moe":
-                ffn = init_moe(gen, D, cfg.d_ff_expert, cfg.n_experts,
-                               n_shared=cfg.n_shared_experts, dtype=adt)
-                if "shared" in ffn:
-                    _copy_into(blk.shared, ffn.pop("shared"))
-                _copy_into(blk.moe, ffn)
+            if cfg.family == "moe":     # one whole leaf at a time
+                for path, t in moe_leaves(gen, D, cfg.d_ff_expert,
+                                          cfg.n_experts,
+                                          n_shared=cfg.n_shared_experts,
+                                          dtype=adt):
+                    group, name = (blk.shared, path[7:]) if path.startswith(
+                        "shared/") else (blk.moe, path)
+                    _put(group[name], split, "blocks/moe/" + path, t)
+                    del t
             else:
                 _copy_into(blk.mlp, init_mlp(gen, D, F, adt), split, "blocks/mlp/")
         if cfg.family == "hybrid":

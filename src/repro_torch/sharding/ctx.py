@@ -28,11 +28,12 @@ from typing import Any, Iterator, Sequence
 import torch
 
 __all__ = ["use_activation_sharding", "shard_act", "use_mesh", "use_plan",
-           "current_mesh"]
+           "current_mesh", "use_token_group", "token_group", "all_gather_flat"]
 
 _ACT: ContextVar[dict | None] = ContextVar("repro_torch_act_shardings",
                                            default=None)
 _MESH: ContextVar[Any] = ContextVar("repro_torch_mesh", default=None)
+_TOKENS: ContextVar[Any] = ContextVar("repro_torch_token_group", default=None)
 
 
 @contextlib.contextmanager
@@ -100,3 +101,38 @@ def current_mesh():
     if mesh is None:
         raise RuntimeError("no mesh is installed (sharding.ctx.use_mesh)")
     return mesh
+
+
+@contextlib.contextmanager
+def use_token_group(group) -> Iterator[None]:
+    """Install ``group`` (a process group, or None: none) as the ranks
+    whose rows together make one microbatch: the data-parallel ranks of a
+    train step, over whose tokens the MoE layers route (the reference's
+    GSPMD routes over the global microbatch)."""
+    tok = _TOKENS.set(group)
+    try:
+        yield
+    finally:
+        _TOKENS.reset(tok)
+
+
+def token_group() -> tuple[Any, int, int] | None:
+    """(the installed token group, its size, this rank's index in it), or
+    None where none is installed or it holds one rank."""
+    group = _TOKENS.get()
+    if group is None:
+        return None
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    return None if n == 1 else (group, n, dist.get_rank(group))
+
+
+def all_gather_flat(out: torch.Tensor, x: torch.Tensor, group) -> None:
+    """``out`` (1-D, group size × ``x.numel()``) ← every group rank's
+    ``x`` in group-rank order: ``all_gather_into_tensor``, under the name
+    newer PyTorch gives it."""
+    import torch.distributed as dist
+
+    gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+    gather(out, x.reshape(-1), group=group)

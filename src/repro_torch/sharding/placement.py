@@ -19,7 +19,8 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
-from repro_torch.launch.mesh import all_gather_flat, axis_group
+from repro_torch.launch.mesh import axis_group
+from repro_torch.sharding.ctx import all_gather_flat
 from repro_torch.sharding.spec import P, entry_axes
 
 __all__ = ["placements", "local_slices", "shard_tensor", "shard_tree",

@@ -1,5 +1,5 @@
 """A layer's compute split over the mesh's ``model`` axis (Megatron's
-scheme) for the dense family.
+scheme) for the dense and MoE families.
 
 The reference leaves this split to GSPMD, which reads the plan's specs
 and inserts the collectives; the port's kernels take plain tensors, so the
@@ -23,6 +23,18 @@ which query heads, KV heads, FFN columns and vocabulary rows it computes:
   (:attr:`ModelSplit.partial`).  A replicated leaf every rank uses whole
   (the norms) has the whole gradient on every rank.
 
+The MoE family (olmoe, deepseek-v2) adds, as the reference's plan lays
+them out: the experts over ``model`` (``w_gate``/``w_up``/``w_down`` on
+their expert axis: each rank runs its experts' capacity slots, and the
+combine's fp32 partial sums are all-reduced as a row-parallel product's
+are), the router's columns where the plan splits it (its fp32 logits
+gathered before the softmax), the shared experts' FFN columns, MLA's heads
+(``w_uq``/``w_qr``/``w_uk``/``w_uv`` on the head axis, ``wo`` on its
+rows) and MLA's latent caches ``ckv``/``kr`` over the sequence.  MLA's
+replicated ``w_dq``/``norm_q``/``w_dkv``/``norm_kv``/``w_kr`` feed only the
+local heads, and a router kept whole beside split experts only the local
+experts' combine: those are partial.
+
 At ``model = 1`` no split is made (:func:`model_split` returns None) and
 no collective is issued.  The collectives are ``torch.distributed`` calls
 on the tensors as they lie: gloo takes CUDA tensors as well as NCCL does.
@@ -37,8 +49,9 @@ from typing import Any, Mapping
 import torch
 import torch.distributed as dist
 
-from repro_torch.launch.mesh import all_gather_flat, axis_group
+from repro_torch.launch.mesh import axis_group
 from repro_torch.sharding.placement import local_slices
+from repro_torch.sharding.ctx import all_gather_flat
 from repro_torch.sharding.spec import entry_axes
 
 __all__ = ["ModelSplit", "model_split", "plan_split", "local_range",
@@ -48,8 +61,6 @@ __all__ = ["ModelSplit", "model_split", "plan_split", "local_range",
 MODEL = "model"
 # what the port cannot split yet, by family: the ROADMAP items that cite it
 ROADMAP_ITEMS = {
-    "moe": "ROADMAP.md, Queue A items 10c (experts over `model`) and 10f "
-           "(MLA heads and the latent cache)",
     "ssm": "ROADMAP.md, Queue A item 10g (SSM heads and state over `model`)",
     "hybrid": "ROADMAP.md, Queue A item 10g (SSM heads and state, zamba2's "
               "shared block, over `model`)",
@@ -110,13 +121,18 @@ def _gather(x: torch.Tensor, dim: int, group, m: int) -> torch.Tensor:
 
 class _GatherFromModel(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, dim, group, m, r):
+    def forward(ctx, x, dim, group, m, r, grad_sum):
         ctx.dim, ctx.n, ctx.r = dim, x.shape[dim], r
+        ctx.group, ctx.grad_sum = group, grad_sum
         return _gather(x, dim, group, m)
 
     @staticmethod
     def backward(ctx, g):
-        return g.narrow(ctx.dim, ctx.r * ctx.n, ctx.n), None, None, None, None
+        if ctx.grad_sum:
+            g = g.contiguous().clone()
+            dist.all_reduce(g, group=ctx.group)
+        return (g.narrow(ctx.dim, ctx.r * ctx.n, ctx.n), None, None, None,
+                None, None)
 
 
 def copy_to_model(x: torch.Tensor, split: "ModelSplit | None") -> torch.Tensor:
@@ -137,13 +153,17 @@ def reduce_from_model(x: torch.Tensor, split: "ModelSplit | None"
 
 
 def gather_from_model(x: torch.Tensor, dim: int,
-                      split: "ModelSplit | None") -> torch.Tensor:
+                      split: "ModelSplit | None", grad_sum: bool = False
+                      ) -> torch.Tensor:
     """Every rank's equal piece of ``x`` along ``dim``, in rank order:
-    forward an all-gather over ``model``, backward the local slice."""
+    forward an all-gather over ``model``, backward the local slice (of the
+    gradient summed over ``model`` first with ``grad_sum``: where what
+    reads the gathered tensor is itself split, each rank's gradient is
+    partial)."""
     if split is None:
         return x
     return _GatherFromModel.apply(x, dim % x.dim(), split.group, split.m,
-                                  split.r)
+                                  split.r, grad_sum)
 
 
 def max_over_model(x: torch.Tensor, split: "ModelSplit | None"
@@ -159,14 +179,17 @@ def max_over_model(x: torch.Tensor, split: "ModelSplit | None"
 # ----------------------------------------------------------------- layout
 @dataclasses.dataclass
 class ModelSplit:
-    """One rank's share of a dense model over ``model``.
+    """One rank's share of a dense or MoE model over ``model``.
 
     ``heads`` / ``kv`` / ``ffn`` / ``vocab_in`` / ``vocab_out`` are
-    ``[start, stop)`` of the query heads, the KV heads those read, the FFN
-    columns, the embedding's rows and the head's columns that this rank
-    computes (None: all of them, on every rank).  ``cache`` is how the
-    serving caches are split: ``"heads"`` (KV heads), ``"seq"`` (positions;
-    the plan's choice where KV heads do not divide the axis) or None."""
+    ``[start, stop)`` of the query heads (MLA's heads), the KV heads those
+    read (GQA), the FFN columns, the embedding's rows and the head's
+    columns that this rank computes (None: all of them, on every rank);
+    ``experts`` / ``router`` / ``shared`` those of the routed experts, the
+    router's logit columns and the shared experts' FFN columns.  ``cache``
+    is how the serving caches are split: ``"heads"`` (KV heads), ``"seq"``
+    (positions; the plan's choice where KV heads do not divide the axis,
+    and MLA's latents always) or None."""
 
     m: int
     r: int
@@ -179,6 +202,9 @@ class ModelSplit:
     vocab_out: tuple[int, int] | None
     cache: str | None = None
     partial: frozenset = frozenset()  # replicated leaves a rank reads in part
+    experts: tuple[int, int] | None = None
+    router: tuple[int, int] | None = None
+    shared: tuple[int, int] | None = None
 
     def sharded(self, path: str) -> bool:
         """Whether the plan shards the leaf at ``path`` over ``model``."""
@@ -241,16 +267,74 @@ def model_split(cfg, param_specs: Any, mesh, cache_specs: Any = None
     return split
 
 
+def _leaf_axes(cfg) -> tuple[dict[str, tuple[int, ...]], dict[str, int]]:
+    """(whole per-layer shape, the dim that may name ``model``) of each
+    leaf of ``cfg`` that a split reads in part."""
+    H, KV, dh, D = cfg.n_heads_eff, cfg.n_kv_heads_eff, cfg.d_head, cfg.d_model
+    Vp = cfg.padded_vocab
+    whole = {"embed": (Vp, D), "lm_head": (D, Vp)}
+    axis = {"embed": 0, "lm_head": 1}
+    if cfg.use_mla:
+        q_in, dr = cfg.q_lora_rank or D, cfg.d_rope
+        r = cfg.kv_lora_rank
+        whole.update({"blocks/attn/w_uq": (q_in, H, dh),
+                      "blocks/attn/w_qr": (q_in, H, dr),
+                      "blocks/attn/w_uk": (r, H, dh),
+                      "blocks/attn/w_uv": (r, H, dh),
+                      "blocks/attn/wo": (H, dh, D)})
+        axis.update({p: 1 for p in ("blocks/attn/w_uq", "blocks/attn/w_qr",
+                                     "blocks/attn/w_uk", "blocks/attn/w_uv")})
+        axis["blocks/attn/wo"] = 0
+    else:
+        whole.update({"blocks/attn/wq": (D, H, dh), "blocks/attn/wk": (D, KV, dh),
+                      "blocks/attn/wv": (D, KV, dh), "blocks/attn/wo": (H, dh, D),
+                      "blocks/attn/bq": (H, dh), "blocks/attn/bk": (KV, dh),
+                      "blocks/attn/bv": (KV, dh)})
+        axis.update({"blocks/attn/wq": 1, "blocks/attn/wk": 1,
+                     "blocks/attn/wv": 1, "blocks/attn/wo": 0,
+                     "blocks/attn/bq": 0, "blocks/attn/bk": 0,
+                     "blocks/attn/bv": 0})
+    if cfg.family == "moe":
+        E, Fe = cfg.n_experts, cfg.d_ff_expert
+        whole.update({"blocks/moe/router": (D, E),
+                      "blocks/moe/w_gate": (E, D, Fe),
+                      "blocks/moe/w_up": (E, D, Fe),
+                      "blocks/moe/w_down": (E, Fe, D)})
+        axis.update({"blocks/moe/router": 1, "blocks/moe/w_gate": 0,
+                     "blocks/moe/w_up": 0, "blocks/moe/w_down": 0})
+        if cfg.n_shared_experts:
+            Fs = cfg.n_shared_experts * Fe
+            whole.update({"blocks/moe/shared/w_gate": (D, Fs),
+                          "blocks/moe/shared/w_up": (D, Fs),
+                          "blocks/moe/shared/w_down": (Fs, D)})
+            axis.update({"blocks/moe/shared/w_gate": 1,
+                         "blocks/moe/shared/w_up": 1,
+                         "blocks/moe/shared/w_down": 0})
+    else:
+        F = cfg.d_ff
+        whole.update({"blocks/mlp/w_gate": (D, F), "blocks/mlp/w_up": (D, F),
+                      "blocks/mlp/w_down": (F, D)})
+        axis.update({"blocks/mlp/w_gate": 1, "blocks/mlp/w_up": 1,
+                     "blocks/mlp/w_down": 0})
+    return whole, axis
+
+
+# the replicated MLA leaves that feed only the local heads
+_MLA_SHARED = ("blocks/attn/w_dq", "blocks/attn/norm_q", "blocks/attn/w_dkv",
+               "blocks/attn/norm_kv", "blocks/attn/w_kr")
+
+
 def plan_split(cfg, param_specs: Any, m: int, r: int = 0,
                cache_specs: Any = None) -> ModelSplit | None:
     """The split of ``cfg`` over a ``model`` axis of ``m`` ranks that the
     plan's specs ask for, for the rank at ``r`` (no process group: the
     dry-run counts from it); None at ``m = 1`` or where the plan shards
     nothing over ``model``.  Raises ``NotImplementedError`` for what is not
-    ported: a family other than dense with a leaf over ``model``, a dim
-    that does not divide the axis, and combinations the dense split cannot
+    ported: the ``ssm`` and ``hybrid`` families with a leaf over ``model``,
+    a dim that does not divide the axis, and combinations the split cannot
     run (a KV-head range the local query heads do not read, a head-split
-    cache without split heads)."""
+    cache without split heads, MLA head leaves or expert leaves split over
+    different ranges)."""
     flat = {p: _per_layer(p, s) for p, s in _flat(param_specs).items()}
     flat_cache = ({p: tuple(s or ()) for p, s in _flat(cache_specs).items()}
                   if cache_specs is not None else None)
@@ -259,30 +343,18 @@ def plan_split(cfg, param_specs: Any, m: int, r: int = 0,
                                               for s in flat_cache.values())
     if m == 1 or not (on_model or cache_on):
         return None
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"splitting the {cfg.family} family's compute over `model` is not "
             f"ported yet ({ROADMAP_ITEMS[cfg.family]}): the plan shards "
             f"{on_model[:4]} over model = {m}; run it at model = 1")
-    H, KV, dh, D = cfg.n_heads_eff, cfg.n_kv_heads_eff, cfg.d_head, cfg.d_model
-    F, Vp = cfg.d_ff, cfg.padded_vocab
-    whole = {"blocks/attn/wq": (D, H, dh), "blocks/attn/wk": (D, KV, dh),
-             "blocks/attn/wv": (D, KV, dh), "blocks/attn/wo": (H, dh, D),
-             "blocks/attn/bq": (H, dh), "blocks/attn/bk": (KV, dh),
-             "blocks/attn/bv": (KV, dh), "blocks/mlp/w_gate": (D, F),
-             "blocks/mlp/w_up": (D, F), "blocks/mlp/w_down": (F, D),
-             "embed": (Vp, D), "lm_head": (D, Vp)}
-    # the dim of each leaf that may name `model`
-    axis = {"blocks/attn/wq": 1, "blocks/attn/wk": 1, "blocks/attn/wv": 1,
-            "blocks/attn/wo": 0, "blocks/attn/bq": 0, "blocks/attn/bk": 0,
-            "blocks/attn/bv": 0, "blocks/mlp/w_gate": 1, "blocks/mlp/w_up": 1,
-            "blocks/mlp/w_down": 0, "embed": 0, "lm_head": 1}
+    whole, axis = _leaf_axes(cfg)
     for p in on_model:
         dims = _names_model(flat[p])
         if (p not in axis or dims != [axis[p]]
                 or entry_axes(flat[p][axis[p]]) != (MODEL,)):
             raise NotImplementedError(
-                f"{p}: the dense split takes `model` alone on dim "
+                f"{p}: the {cfg.family} split takes `model` alone on dim "
                 f"{axis.get(p)}, the plan's spec is {flat[p]}")
         n = whole[p][axis[p]]
         if n % m:
@@ -294,57 +366,108 @@ def plan_split(cfg, param_specs: Any, m: int, r: int = 0,
         return (local_range(whole[p][axis[p]], flat[p], m, r, axis[p])
                 if p in on_model else None)
 
-    heads, ffn = rng("blocks/attn/wq"), rng("blocks/mlp/w_gate")
-    attn_rest = ("blocks/attn/wk", "blocks/attn/wv", "blocks/attn/wo",
-                 "blocks/attn/bq", "blocks/attn/bk", "blocks/attn/bv")
-    if heads is None and any(p in on_model for p in attn_rest):
-        raise NotImplementedError(
-            "the plan shards attention leaves over `model` but not wq's "
-            "heads: not a split the dense path runs")
-    if ffn is None and any(p in on_model for p in ("blocks/mlp/w_up",
-                                                   "blocks/mlp/w_down")):
-        raise NotImplementedError(
-            "the plan shards w_up or w_down over `model` but not w_gate's "
-            "columns: not a split the dense path runs")
     partial: set[str] = set()
-    kv = None
-    if heads is not None:
-        G, hl = H // KV, heads[1] - heads[0]
-        if hl % G and G % hl:
-            raise NotImplementedError(
-                f"{hl} query heads a rank against G = {G}: the local heads "
-                "do not read whole KV heads")
-        kv = (heads[0] // G, (heads[1] - 1) // G + 1)
-        for p in attn_rest:
+
+    def follow(lead: str, rest: tuple[str, ...], what: str, want=None,
+               whole_ok: bool = True) -> tuple[int, int] | None:
+        """The range of ``lead``; each of ``rest`` split over it (or
+        ``want(p)``), or, where ``whole_ok``, kept whole and partial."""
+        got = rng(lead)
+        if got is None:
+            if any(p in on_model for p in rest):
+                raise NotImplementedError(
+                    f"the plan shards {[p for p in rest if p in on_model]} over "
+                    f"`model` but not {lead}: not a split the {what} runs")
+            return None
+        for p in rest:
             if p in on_model:
-                want = heads if p in ("blocks/attn/wo", "blocks/attn/bq") else kv
-                if rng(p) != want:
+                need = want(p) if want else got
+                if rng(p) != need:
                     raise NotImplementedError(
                         f"{p}: the plan's shard {rng(p)} is not the range "
-                        f"{want} the local query heads read")
+                        f"{need} the {what} reads")
             elif p in flat:
+                if not whole_ok:
+                    raise NotImplementedError(
+                        f"{p} whole beside {lead} split over `model`: not a "
+                        f"split the {what} runs")
                 partial.add(p)
-    if ffn is not None:
-        for p in ("blocks/mlp/w_up", "blocks/mlp/w_down"):
-            if p not in on_model:
-                partial.add(p)
+        return got
+
+    kv = None
+    if cfg.use_mla:
+        heads = follow("blocks/attn/w_uq", ("blocks/attn/w_qr",
+                       "blocks/attn/w_uk", "blocks/attn/w_uv", "blocks/attn/wo"),
+                       "MLA path", whole_ok=False)
+        if heads is not None:
+            partial.update(p for p in _MLA_SHARED if p in flat)
+    else:
+        H, KV = cfg.n_heads_eff, cfg.n_kv_heads_eff
+        heads = rng("blocks/attn/wq")
+        if heads is not None:
+            G, hl = H // KV, heads[1] - heads[0]
+            if hl % G and G % hl:
+                raise NotImplementedError(
+                    f"{hl} query heads a rank against G = {G}: the local heads "
+                    "do not read whole KV heads")
+            kv = (heads[0] // G, (heads[1] - 1) // G + 1)
+        follow("blocks/attn/wq", ("blocks/attn/wk", "blocks/attn/wv",
+               "blocks/attn/wo", "blocks/attn/bq", "blocks/attn/bk",
+               "blocks/attn/bv"), "attention",
+               want=lambda p: heads if p in ("blocks/attn/wo", "blocks/attn/bq")
+               else kv)
+    ffn = experts = router = shared = None
+    if cfg.family == "moe":
+        experts = follow("blocks/moe/w_gate", ("blocks/moe/w_up",
+                         "blocks/moe/w_down"), "MoE path")
+        router = rng("blocks/moe/router")
+        if experts is not None and router is None:
+            partial.add("blocks/moe/router")
+        if cfg.n_shared_experts:
+            shared = follow("blocks/moe/shared/w_gate", (
+                "blocks/moe/shared/w_up", "blocks/moe/shared/w_down"),
+                "shared experts")
+            if shared is not None and experts is None:
+                raise NotImplementedError(
+                    "the plan splits the shared experts over model and keeps "
+                    "the routed experts whole: their partials ride on the "
+                    "experts' all-reduce, which this layout does not run")
+    else:
+        ffn = follow("blocks/mlp/w_gate", ("blocks/mlp/w_up",
+                     "blocks/mlp/w_down"), "dense FFN")
     cache = None
     if cache_on:
-        k_dims = _names_model(flat_cache.get("k"))
-        cache = {3: "heads", 2: "seq"}.get(k_dims[0] if k_dims else -1)
-        if cache is None or any(p in flat_cache for p in ("ckv", "h")):
-            raise NotImplementedError(
-                f"cache specs {flat_cache}: the dense split serves caches "
-                "over KV heads or over the sequence")
-        if cache == "heads" and (heads is None or local_range(
-                KV, flat_cache["k"], m, r, 3) != kv):
-            raise NotImplementedError(
-                "a cache split over KV heads needs the query heads split "
-                "alike")
-        if cache == "seq" and "blocks/attn/wk" in on_model:
-            raise NotImplementedError(
-                "a cache split over the sequence needs wk/wv whole on every "
-                "rank (each rank writes the new row of every KV head)")
+        cache = _cache_split(cfg, flat_cache, flat, on_model, heads, kv, m, r)
     return ModelSplit(m=m, r=r, group=None, specs=flat, heads=heads, kv=kv,
                       ffn=ffn, vocab_in=rng("embed"), vocab_out=rng("lm_head"),
-                      cache=cache, partial=frozenset(partial))
+                      cache=cache, partial=frozenset(partial), experts=experts,
+                      router=router, shared=shared)
+
+
+def _cache_split(cfg, flat_cache: dict, flat: dict, on_model: list,
+                 heads, kv, m: int, r: int) -> str:
+    """How the plan's cache specs split the serving caches: ``"heads"`` or
+    ``"seq"``; raises for what the split cannot serve."""
+    if cfg.use_mla:
+        dims = {_names_model(flat_cache.get(p)) and _names_model(
+            flat_cache[p])[0] for p in ("ckv", "kr")}
+        if dims != {2}:
+            raise NotImplementedError(
+                f"cache specs {flat_cache}: the MLA split serves its latents "
+                "over the sequence")
+        return "seq"
+    k_dims = _names_model(flat_cache.get("k"))
+    cache = {3: "heads", 2: "seq"}.get(k_dims[0] if k_dims else -1)
+    if cache is None or any(p in flat_cache for p in ("ckv", "h")):
+        raise NotImplementedError(
+            f"cache specs {flat_cache}: the split serves caches over KV heads "
+            "or over the sequence")
+    if cache == "heads" and (heads is None or local_range(
+            cfg.n_kv_heads_eff, flat_cache["k"], m, r, 3) != kv):
+        raise NotImplementedError(
+            "a cache split over KV heads needs the query heads split alike")
+    if cache == "seq" and "blocks/attn/wk" in on_model:
+        raise NotImplementedError(
+            "a cache split over the sequence needs wk/wv whole on every rank "
+            "(each rank writes the new row of every KV head)")
+    return cache

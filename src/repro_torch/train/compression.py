@@ -33,8 +33,8 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
-from repro_torch.launch.mesh import all_gather_flat, axis_group
-from repro_torch.sharding.ctx import current_mesh
+from repro_torch.launch.mesh import axis_group
+from repro_torch.sharding.ctx import all_gather_flat, current_mesh
 
 __all__ = ["quantize_int8", "dequantize_int8", "ef_init",
            "pod_allreduce_int8", "compressed_mean", "divide"]

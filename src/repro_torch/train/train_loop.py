@@ -23,12 +23,19 @@ loss's path (a kernel without a backward would cut it).
 On a mesh (``make_train_step(mesh=...)``) the masters, moments and EF
 residuals are DTensors on the plan's placements (:func:`state_specs`,
 :func:`shard_state`), and each rank computes its own batch rows.  Where
-the plan shards leaves over ``model`` (dense family), the model is built
+the plan shards leaves over ``model`` (dense and MoE families), the model is built
 with the plan's :class:`~repro_torch.sharding.tp.ModelSplit` and holds
 each such leaf as this rank's shard (gathered over the FSDP axis, never
 over ``model``), and the layer's compute splits as Megatron splits it
-(:mod:`repro_torch.sharding.tp`).  Other families raise there
-(ROADMAP.md, Queue A items 10c, 10f, 10g).
+(:mod:`repro_torch.sharding.tp`; the MoE family's experts and MLA heads
+too).  The ``ssm`` and ``hybrid`` families raise there (ROADMAP.md, Queue
+A item 10g).  The MoE layers route over the whole microbatch, as the
+reference's GSPMD does: the data-parallel ranks whose rows make one
+microbatch (``pod`` × ``data``, or ``data`` within a pod under the int8
+cross-pod reduce) are installed as the token group
+(:func:`~repro_torch.sharding.ctx.use_token_group`), and with several
+microbatches a rank's rows of microbatch i are the reference's (global rows
+i·B/n + its share), gathered from the ranks' rows.
 """
 
 from __future__ import annotations
@@ -46,7 +53,8 @@ from repro_torch.models.transformer import (ModelConfig, Transformer,
                                             init_params, lm_loss,
                                             params_from_reference)
 from repro_torch.launch.mesh import axis_group
-from repro_torch.sharding.ctx import use_mesh
+from repro_torch.sharding.ctx import (all_gather_flat, token_group, use_mesh,
+                                      use_token_group)
 from repro_torch.sharding.placement import (gather_full, gather_tree,
                                             local_slices, shard_tree)
 from repro_torch.sharding.spec import P, entry_axes
@@ -174,6 +182,12 @@ def _accumulator(model: Transformer, n_microbatches: int,
         if B % n_microbatches:
             raise ValueError(f"batch {B} not divisible by {n_microbatches} "
                              "microbatches")
+        group = token_group()
+        if (group is not None and n_microbatches > 1
+                and model.cfg.family == "moe"):
+            tokens, prefix = (_microbatch_rows(x, group, n_microbatches, dev)
+                              if x is not None else None
+                              for x in (tokens, prefix))
         mb = B // n_microbatches
         acc = {path: torch.zeros((len(ts),) + tuple(ts[0].shape)
                                  if path.startswith("blocks/")
@@ -196,6 +210,24 @@ def _accumulator(model: Transformer, n_microbatches: int,
         return acc, loss_sum
 
     return accumulate
+
+
+def _microbatch_rows(x: Any, group: tuple, n_micro: int,
+                     dev: torch.device) -> torch.Tensor:
+    """This rank's rows of the reference's microbatches: microbatch i is
+    global rows ``[i·b, (i + 1)·b)`` (b = B / n_micro) and this rank (index
+    d of the n in ``group``) holds its d-th n-th of them, gathered from
+    every rank's rows (rank d's are global rows ``[d·B/n, (d + 1)·B/n)``:
+    ``local_rows`` under the plan's batch spec)."""
+    pg, n, d = group
+    x = torch.as_tensor(x).to(dev).contiguous()
+    every = x.new_empty((n * x.numel(),))
+    all_gather_flat(every, x, pg)
+    every = every.reshape((n * x.shape[0],) + tuple(x.shape[1:]))
+    mb = x.shape[0] // n_micro
+    rows = torch.arange(n_micro, device=dev)[:, None] * (n * mb) + d * mb + \
+        torch.arange(mb, device=dev)[None, :]
+    return every[rows.reshape(-1)]
 
 
 def make_train_step(model: Transformer, oc: OptConfig, *,
@@ -228,7 +260,9 @@ def make_train_step(model: Transformer, oc: OptConfig, *,
     ``model`` where partial) and :func:`~repro_torch.train.compression.
     compressed_mean` takes the mean over ``pod`` (the reference's
     ``shard_map``; a ``model``-sharded leaf on the whole leaf's scale,
-    its largest magnitude reduced over ``model``).  The
+    its largest magnitude reduced over ``model``).  The ranks the sum runs
+    over are the MoE layers' token group (they route over the whole
+    microbatch).  The
     clipping norm sums the squares of the ``model``-sharded gradients over
     ``model`` and counts the replicated ones once; then each rank runs
     AdamW on its own slices."""
@@ -317,7 +351,8 @@ def make_train_step(model: Transformer, oc: OptConfig, *,
     def train_step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         whole = {p: tuple(x.shape) for p, x in _flatten(state.params).items()}
         load_sharded(state.params)
-        with use_mesh(mesh):
+        tokens = axis_group(mesh, sum_axes) if n_sum > 1 else None
+        with use_mesh(mesh), use_token_group(tokens):
             acc, loss_sum = accumulate(batch)
         inv = 1.0 / (n_microbatches * n_sum)
         for path, a in acc.items():

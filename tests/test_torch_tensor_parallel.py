@@ -588,8 +588,7 @@ class _Mesh:
         return [0] * len(self.shape)
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v2-236b",
-                                  "mamba2-1.3b", "zamba2-7b"])
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-7b"])
 def test_other_families_refuse_a_split_and_run_at_model_1(arch):
     from repro_torch.models.transformer import Transformer, init_params
     from repro_torch.sharding.planner import plan_for
