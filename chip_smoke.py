@@ -355,7 +355,42 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               32 heads) and layers x decode steps (0 under MLA, whose
               absorbed decode is PyTorch products); parameter GiB a rank
               against the whole model's;
-14. report  — the chain kernels' launch floor (an empty kernel with their
+14. tp-ssm  — the ``ssm`` and ``hybrid`` families over ``model``
+              (``sharding/tp.py``, ``models/mamba2.py``: Mamba2's SSM heads,
+              conv channels and state; zamba2's shared block on its own
+              heads, KV heads at G 1 and FFN columns; the full configs'
+              plans), ranks as phase 12's.  This process first runs the
+              one-process float32 train references (``tp_train_ref``) of
+              ``TPS_TRAIN``: mamba2-1.3b at every width, 4 of 48 layers,
+              and zamba2-7b at every width, 6 of 81 block applications
+              (one period: 5 Mamba2 layers and the shared block), each S
+              ``TP_S``, batch ``TP_BATCH`` in ``TP_MB`` microbatches,
+              ``TP_STEPS`` steps, and the bf16 engines of ``TPS_SERVE``;
+              then 2 ranks at (data 1, model 2) train both (32 of 64 and 56
+              of 112 SSM heads a rank, zamba2's shared block on 16 of 32
+              heads: ``fa_kernel`` forward, ``fbt_dkdv2_kernel`` at DHP 256)
+              and serve mamba2-1.3b x4 and zamba2-7b x6 in bfloat16 on the
+              plan of decode_32k's config (phase 12's traffic; each slot's
+              ``h`` over the rank's heads, ``conv_x`` over its channels, the
+              shared cache over 16 KV heads: ``fa_tc_kernel`` and
+              ``da_kernel`` + ``da_combine`` at dh 224), then 4 ranks at
+              (data 1, model 4) serve both again (8 KV heads a rank).
+              Held as phase 12's runs: every rank's losses, grad norms
+              and a ``TP_FWD_S``-token forward's logits at phase 12's
+              limits, its first moments within ``TPS_FIRST_REL`` of each
+              leaf's largest (float32 reordering alone moves some leaves of
+              these models past phase 12's 1e-5; see the constant); every
+              rank the same tokens, phase 7's
+              bf16 rule against the one-process model's teacher forcing
+              (``LM_BF16_TIES``: mamba2's flips rounding ties); launches a
+              rank: flash 2 x applications x microbatches x steps
+              (``flash_attention``) and 1 x (``flash_attention_bwd_wgmma``),
+              serving applications x prefills (``flash_attention_wgmma``)
+              and applications x decode steps (0 for mamba2); parameter
+              GiB a rank against the model's, peak GiB and step seconds
+              (read, not gated).  No new kernel: each it launches has its
+              plain-version check in phases 6 and 10;
+15. report  — the chain kernels' launch floor (an empty kernel with their
               parameter block) beside each served chain call's device time
               and time per call, against ``CHAIN_DEVICE_MS`` /
               ``CHAIN_FLOOR_X`` / ``CHAIN_CALL_MS`` (printed, not checked);
@@ -387,7 +422,7 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               without it; the
               ``kernels`` JSON line (the forward flash kernels' launches
               are the served paths', their training launches beside them,
-              and phases 12's and 13's summed over their ranks,
+              and phases 12's, 13's and 14's summed over their ranks,
               ``tp_launches``),
               the card line, and last ``{"ok": true, "device": {...}}``.
 
@@ -395,8 +430,10 @@ Every path runs at its full depth, except deepseek-v2-236b (2 of 60
 layers, every width kept), phase 10's training runs beside qwen2.5-3b
 (every width kept; depths as ``LM_TRAIN_FAMILIES`` states), phase 11's
 mesh runs (``DIST_LAYERS`` of qwen2.5-3b's 36 layers, every width kept),
-phase 12's (``TP_LAYERS`` of qwen2.5-3b's, 2 of granite-8b's 36) and
-phase 13's (2 of olmoe-1b-7b's 16, 2 of deepseek-v2-236b's 60).
+phase 12's (``TP_LAYERS`` of qwen2.5-3b's, 2 of granite-8b's 36),
+phase 13's (2 of olmoe-1b-7b's 16, 2 of deepseek-v2-236b's 60) and phase
+14's (4 of mamba2-1.3b's 48 layers, 6 of zamba2-7b's 81 block
+applications), each cut for the phase's time, every width kept.
 
 Needs only the repository (``src/`` on the path) and one card.  Writes the
 full per-case report to ``chiprun_out/chip_smoke.json``.
@@ -642,6 +679,31 @@ TPM_TRAIN = ("olmoe-1b-7b", 2)
 TPM_S, TPM_BATCH, TPM_MB, TPM_STEPS, TPM_FWD_S = 1024, 2, 2, 2, 128
 TPM_SERVE = (("olmoe-1b-7b", 2, 2), ("deepseek-v2-236b", 2, 2),
              ("deepseek-v2-236b", 2, 4))
+# phase tp-ssm: the ssm and hybrid families over `model` (Mamba2's SSM
+# heads, conv channels and state; zamba2's shared block: heads, KV heads at
+# G 1, FFN columns; the plans of the full configs).  Training: (arch,
+# layers) at every width, float32, phase tp's cell (TP_S, TP_BATCH in
+# TP_MB microbatches, TP_STEPS steps, a TP_FWD_S-token forward) at (data 1,
+# model 2) against the one-process step this process runs first from the
+# same seed, under phase tp's limits: mamba2-1.3b 4 of 48 layers, zamba2-7b
+# one period (5 Mamba2 layers and the shared block: 6 of 81 block
+# applications), depths cut for the phase's time; the first moments within
+# TPS_FIRST_REL of each leaf's largest, not phase tp's TP_FIRST_REL: on a
+# sound split of these models float32 reordering alone moves some leaves
+# by more than 1e-5 (zamba2-7b x6's shared norm1 reads 1.40e-5, wq and wk
+# 1.25e-5, conv_b_w 1.12e-5; mamba2-1.3b x4's A_log 9.79e-6), while a
+# planted fault reads four orders of magnitude above the limit
+# (tools/tp_ssm_faults.py: w_b left out of the partial leaves, w_b's first
+# moments 0.815-1.09 off; the gated norm without its backward all-reduce,
+# conv_c_b's 0.362-0.381; NVIDIA H100 80GB HBM3, 700.00 W).  Serving:
+# (arch, layers, model ranks) in bfloat16 on the plan of decode_32k's
+# config, phase tp's traffic, every rank the same tokens, held to phase
+# 7's bf16 rule (LM_BF16_TIES) against the one-process model's teacher
+# forcing.
+TPS_TRAIN = (("mamba2-1.3b", 4), ("zamba2-7b", 6))
+TPS_SERVE = (("mamba2-1.3b", 4, 2), ("zamba2-7b", 6, 2),
+             ("mamba2-1.3b", 4, 4), ("zamba2-7b", 6, 4))
+TPS_FIRST_REL = 2e-5
 # the two routes' kernels, as a trace names them (by substring)
 FLASH_BWD_KERNELS = ("fb_dq_kernel", "fb_dkdv_kernel", "fbt_dq_kernel",
                      "fbt_dkdv_kernel", "fbt_dkdv2_kernel", "fbs_split_kernel")
@@ -1138,16 +1200,13 @@ def decode_work(lens, H: int, KV: int, dh: int, item: int) -> tuple[float, float
     return float(nbytes), float(4 * n * H * dh)
 
 
-def device_split(fn, names: tuple[str, ...], reps: int = 3,
-                 count: bool = False) -> tuple[float, dict, float]:
-    """Device ms per call of ``fn`` from a profiler trace, of that the ms
-    of the kernels whose names contain each of ``names`` (with ``count``:
-    how many of them run per call), and the number of device activities
-    (kernels, copies, sets) per call.  A trace that recorded no device
-    activity at all (the profiler drops events now and then) is taken
-    again, up to ``TRACE_TRIES`` times; then, as in ``device_ms``, the time
-    between CUDA events around ``reps`` calls run back to back, over
-    ``reps``, with the split and the activities not measured (NaN)."""
+def device_trace(fn, reps: int = 3) -> tuple[list | None, int]:
+    """One ``torch.profiler`` (CUPTI) trace of ``reps`` calls of ``fn``,
+    after one warm call: the device activities (kernels, copies, sets) as
+    (name, us), and the host's calls of the CUDA runtime's copy functions
+    (``cudaMemcpy*``).  A trace that recorded no device activity at all
+    (the profiler drops events now and then) is taken again, up to
+    ``TRACE_TRIES`` times; then (None, its copy calls)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1160,82 +1219,85 @@ def device_split(fn, names: tuple[str, ...], reps: int = 3,
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total, part, n_act = 0.0, dict.fromkeys(names, 0.0), 0
-        for e in p.events():
-            if e.device_type != DeviceType.CUDA:
-                continue
-            us = e.time_range.elapsed_us()
-            total += us
-            n_act += 1
-            for n in names:
-                if n in e.name:
-                    part[n] += 1 if count else us
-        if n_act:
-            break
-    else:
-        print(f"    {TRACE_TRIES} profiler traces of {reps} calls recorded no "
-              "device activity: CUDA events, the split not measured",
-              flush=True)
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        b.synchronize()
-        nan = float("nan")
-        return a.elapsed_time(b) / reps, dict.fromkeys(names, nan), nan
+        events = p.events()
+        calls = sum(1 for e in events if e.device_type == DeviceType.CPU
+                    and e.name.startswith("cudaMemcpy"))
+        acts = [(e.name, e.time_range.elapsed_us()) for e in events
+                if e.device_type == DeviceType.CUDA]
+        if acts:
+            return acts, calls
+    return None, calls
+
+
+def trace_split(acts: list, names: tuple[str, ...], reps: int,
+                count: bool = False) -> tuple[float, dict, float]:
+    """Of a ``device_trace`` of ``reps`` calls: device ms per call, of that
+    the ms of the activities whose names contain each of ``names`` (with
+    ``count``: how many of them run per call), and the number of device
+    activities per call."""
+    total, part = 0.0, dict.fromkeys(names, 0.0)
+    for name, us in acts:
+        total += us
+        for n in names:
+            if n in name:
+                part[n] += 1 if count else us
     scale = reps if count else 1e3 * reps
     return (total / 1e3 / reps, {n: v / scale for n, v in part.items()},
-            n_act / reps)
+            len(acts) / reps)
 
 
-def device_top(fn, n: int = 6, reps: int = 3) -> list[tuple[str, float, float]]:
-    """The ``n`` kernels (by name) that take the most device time in a call
-    of ``fn``: (name, ms per call, launches per call), from a profiler
-    trace over ``reps`` calls."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+def trace_top(acts: list, reps: int, n: int = 6
+              ) -> list[tuple[str, float, float]]:
+    """Of a ``device_trace`` of ``reps`` calls: the ``n`` kernels (by name)
+    that take the most device time in a call, as (name, ms per call,
+    launches per call)."""
     by: dict[str, list] = {}
-    for e in p.events():
-        if e.device_type == DeviceType.CUDA:
-            acc = by.setdefault(e.name, [0.0, 0])
-            acc[0] += e.time_range.elapsed_us()
-            acc[1] += 1
+    for name, us in acts:
+        acc = by.setdefault(name, [0.0, 0])
+        acc[0] += us
+        acc[1] += 1
     top = sorted(by.items(), key=lambda kv: -kv[1][0])[:n]
     return [(name, us / 1e3 / reps, k / reps) for name, (us, k) in top]
 
 
+def trace_htod(acts: list | None, reps: int) -> float:
+    """Of a ``device_trace`` of ``reps`` calls: the host-to-device copies
+    per call that it shows on the card (``HTOD``; a trace may drop a small
+    one)."""
+    return sum(1 for name, _ in acts or () if HTOD in name) / reps
+
+
+def device_split(fn, names: tuple[str, ...], reps: int = 3,
+                 count: bool = False) -> tuple[float, dict, float]:
+    """``trace_split`` of a ``device_trace`` of ``fn``; where no trace
+    recorded a device activity, as in ``device_ms``, the time between CUDA
+    events around ``reps`` calls run back to back, over ``reps``, with the
+    split and the activities not measured (NaN)."""
+    import torch
+
+    acts, _ = device_trace(fn, reps)
+    if acts is not None:
+        return trace_split(acts, names, reps, count)
+    print(f"    {TRACE_TRIES} profiler traces of {reps} calls recorded no "
+          "device activity: CUDA events, the split not measured", flush=True)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    nan = float("nan")
+    return a.elapsed_time(b) / reps, dict.fromkeys(names, nan), nan
+
+
 def htod_copies(fn, reps: int = 5) -> tuple[float, float]:
     """Host-to-device copies per call of ``fn``: the copies a profiler trace
-    shows on the card (``HTOD``; a trace may drop a small one), and the
-    host's calls of the CUDA runtime's copy functions (``cudaMemcpy*``),
-    which ``fn`` makes only for host-to-device copies when its results stay
-    on the card."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    dev = sum(1 for e in p.events()
-              if e.device_type == DeviceType.CUDA and HTOD in e.name)
-    calls = sum(1 for e in p.events()
-                if e.device_type == DeviceType.CPU
-                and e.name.startswith("cudaMemcpy"))
-    return dev / reps, calls / reps
+    shows on the card (``trace_htod``), and the host's calls of the CUDA
+    runtime's copy functions (``cudaMemcpy*``), which ``fn`` makes only for
+    host-to-device copies when its results stay on the card."""
+    acts, calls = device_trace(fn, reps)
+    return trace_htod(acts, reps), calls / reps
 
 
 @contextlib.contextmanager
@@ -2857,12 +2919,14 @@ def _tp_prompts(vocab: int) -> list[list[int]]:
     return [rng.integers(1, vocab, size=n).tolist() for n in plens]
 
 
-def _tp_train_cfg():
+def _tp_train_cfg(arch: str = LM_ARCH, layers: int = TP_LAYERS):
+    """``arch``'s float32 config cut to ``layers`` layers, every width
+    kept, and phase tp's train cell."""
     from repro_torch.configs.registry import ShapeCell, get_arch
 
-    spec = get_arch(LM_ARCH)
+    spec = get_arch(arch)
     spec = dataclasses.replace(spec, model=dataclasses.replace(
-        spec.model, n_layers=TP_LAYERS, act_dtype="float32"))
+        spec.model, n_layers=layers, act_dtype="float32"))
     cell = ShapeCell("tp", "train", TP_S, TP_BATCH)
     return spec, cell, spec.cell_config(cell)
 
@@ -2887,6 +2951,17 @@ def _tp_fwd_tokens(vocab: int):
 
 def _tp_bytes(model) -> float:
     return float(sum(p.numel() * p.element_size() for p in model.parameters()))
+
+
+def _tp_layout(split) -> str:
+    """What a rank's split computes, as a phase prints it."""
+    parts = [f"{k} {getattr(split, k)}" for k in ("heads", "kv", "ffn", "ssm",
+                                                  "inner", "experts")
+             if getattr(split, k) is not None]
+    if split.block is not None:
+        b = split.block
+        parts.append(f"shared block heads {b.heads}, KV {b.kv}, FFN {b.ffn}")
+    return ", ".join(parts) or "vocabulary only"
 
 
 def _tpm_train_cfg():
@@ -2971,8 +3046,8 @@ def tp_child(rank: int, world: int, tmp: str, jobs, device: str) -> None:
         torch.cuda.synchronize()
         return out, time.perf_counter() - t1
 
-    def train(shape):
-        spec, cell, cfg = _tp_train_cfg()
+    def train(shape, arch=LM_ARCH, layers=TP_LAYERS):
+        spec, cell, cfg = _tp_train_cfg(arch, layers)
         mesh = make_mesh(shape, ("data", "model"), dev)
         torch.cuda.reset_peak_memory_stats()
         split = build_cell(spec, cell, mesh).split(mesh)
@@ -2985,7 +3060,7 @@ def tp_child(rank: int, world: int, tmp: str, jobs, device: str) -> None:
         torch.cuda.empty_cache()
         whole = _tp_bytes(Transformer(cfg, "meta"))
         rows = prog.in_shardings[1]["tokens"]
-        ref_first = torch.load(os.path.join(tmp, f"tp_ref_first_{rank}.pt"))
+        ref_first = torch.load(os.path.join(tmp, f"tp_ref_first_{arch}_{rank}.pt"))
         for k in counted:
             LAUNCHES[k] = 0
         steps, first_err = [], {}
@@ -3005,13 +3080,13 @@ def tp_child(rank: int, world: int, tmp: str, jobs, device: str) -> None:
         with torch.no_grad():
             logits, _, _ = model.forward_full(_tp_fwd_tokens(cfg.vocab_size))
             logits = gather_from_model(logits, -1, split)
-        want = torch.load(os.path.join(tmp, "tp_ref_logits.pt")).to(dev)
+        want = torch.load(os.path.join(tmp, f"tp_ref_logits_{arch}.pt")).to(dev)
         logit_err = float((logits - want).abs().max()) / float(want.abs().max())
         out = dict(steps=steps, first_err=first_err, launches=launches,
                    logit_err=logit_err, param_gib=_tp_bytes(model) / 2**30,
                    whole_gib=whole / 2**30,
                    peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-                   partial=sorted(split.partial))
+                   partial=sorted(split.partial), layout=_tp_layout(split))
         del model, state, prog, logits, want, ref_first
         return out
 
@@ -3040,7 +3115,8 @@ def tp_child(rank: int, world: int, tmp: str, jobs, device: str) -> None:
                    cache=split.cache, heads=split.heads, kv=split.kv,
                    param_gib=_tp_bytes(model) / 2**30, whole_gib=whole / 2**30,
                    peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-                   sharded_wk=split.sharded("blocks/attn/wk"))
+                   sharded_wk=split.sharded("blocks/attn/wk"),
+                   layout=_tp_layout(split))
         del model, eng
         return out
 
@@ -3141,6 +3217,173 @@ def tp_child(rank: int, world: int, tmp: str, jobs, device: str) -> None:
         dist.destroy_process_group()
 
 
+def tp_train_ref(dev, tmp: str, arch: str, layers: int) -> list[dict]:
+    """The one-process float32 train step of ``_tp_train_cfg(arch,
+    layers)`` from seed 0: a ``TP_FWD_S``-token forward's logits
+    (``tp_ref_logits_<arch>.pt``), ``TP_STEPS`` steps and, for each rank of
+    (data 1, model 2), its slices of the first moments under the plan's
+    split (``tp_ref_first_<arch>_<rank>.pt``), all under ``tmp``.  Returns
+    the steps: loss, grad norm, seconds."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models.transformer import _flatten
+    from repro_torch.sharding.spec import MeshShape
+    from repro_torch.sharding.tp import plan_split
+    from repro_torch.train import train_loop as tloop
+    from repro_torch.train.optim import OptConfig
+
+    spec, cell, cfg = _tp_train_cfg(arch, layers)
+    oc = OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    model, st = tloop.init_state(cfg, 0, device=dev)
+    with torch.no_grad():
+        logits, _, _ = model.forward_full(_tp_fwd_tokens(cfg.vocab_size))
+    torch.save(logits.cpu(), os.path.join(tmp, f"tp_ref_logits_{arch}.pt"))
+    del logits
+    step = tloop.make_train_step(model, oc, n_microbatches=TP_MB)
+    prog = build_cell(spec, cell, MeshShape((1, 2), ("data", "model")))
+    ref_steps = []
+    for i, b in enumerate(_tp_data(cfg.vocab_size)):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        st, m = step(st, b)
+        torch.cuda.synchronize()
+        ref_steps.append(dict(loss=float(m["loss"]),
+                              grad_norm=float(m["grad_norm"]),
+                              seconds=time.perf_counter() - t1))
+        if i == 0:           # each rank's slice of the first moments
+            m1 = _flatten(st.m)
+            for r in range(2):
+                sp = plan_split(cfg, prog.plan.param_specs, 2, r)
+                part = {}
+                for path, x in m1.items():
+                    if path.startswith("blocks/"):
+                        sl = (slice(None),) + sp.local_slices(
+                            path, tuple(x.shape[1:]))
+                    else:
+                        sl = sp.local_slices(path, tuple(x.shape))
+                    part[path] = x[sl].cpu()
+                torch.save(part, os.path.join(tmp,
+                                              f"tp_ref_first_{arch}_{r}.pt"))
+                del part
+            del m1
+    del model, st, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ref_steps
+
+
+def tp_train_reading(got: dict, ref_steps: list[dict]) -> dict:
+    """How far a rank's train run (``tp_child``'s ``train``) lies from the
+    one-process steps: the largest relative error of the losses and of the
+    grad norms, the leaf whose first moments lie furthest off relative to
+    their largest (path, error), and the forward logits' error."""
+    rel = lambda a, b: abs(a - b) / abs(b)      # noqa: E731
+    pairs = list(zip(got["steps"], ref_steps, strict=True))
+    first = max(got["first_err"].items(), key=lambda kv: kv[1])
+    return dict(loss=max(rel(a["loss"], b["loss"]) for a, b in pairs),
+                grad_norm=max(rel(a["grad_norm"], b["grad_norm"])
+                              for a, b in pairs),
+                first=first, logits=got["logit_err"])
+
+
+def tp_train_hold(label: str, ranks: list[dict], ref_steps: list[dict],
+                  want: dict, launches: dict,
+                  first_rel: float = TP_FIRST_REL) -> list[dict]:
+    """Hold each rank's train run (``tp_child``'s ``train``) to phase tp's
+    limits against the one-process steps (the first moments to
+    ``first_rel``) and its launches to ``want``.  Print each, add the
+    launches to ``launches``, return the runs.  Raises AssertionError on a
+    failed check."""
+    for r, got in enumerate(ranks):
+        for a, b in zip(got["steps"], ref_steps, strict=True):
+            if not (math.isclose(a["loss"], b["loss"], rel_tol=TP_LOSS_RTOL)
+                    and math.isclose(a["grad_norm"], b["grad_norm"],
+                                     rel_tol=TP_GNORM_RTOL)):
+                raise AssertionError(f"tp {label} rank {r}: steps "
+                                     f"{got['steps']} against {ref_steps}")
+        worst = tp_train_reading(got, ref_steps)["first"]
+        print(f"  {label} rank {r} (data 1, model 2; {got['layout']}): losses "
+              f"{[s['loss'] for s in got['steps']]} against "
+              f"{[s['loss'] for s in ref_steps]}, grad norms "
+              f"{[s['grad_norm'] for s in got['steps']]} against "
+              f"{[s['grad_norm'] for s in ref_steps]}; first moments: largest "
+              f"relative error {worst[1]:.3g} ({worst[0]}; limit {first_rel}"
+              f"); forward logits {got['logit_err']:.3g} of the largest "
+              f"(limit {TP_LOGIT_REL}); launches {_nonzero(got['launches'])} (expected "
+              f"{want}); parameters {got['param_gib']:.3f} of "
+              f"{got['whole_gib']:.3f} GiB, peak {got['peak_gib']:.2f} GiB; "
+              f"step seconds {[round(s['seconds'], 4) for s in got['steps']]}"
+              f"; partial leaves {got['partial']}", flush=True)
+        if worst[1] > first_rel or got["logit_err"] > TP_LOGIT_REL:
+            raise AssertionError(f"tp {label} rank {r}: first moments {worst}, "
+                                 f"logits {got['logit_err']}")
+        if any(got["launches"][k] != want.get(k, 0) for k in got["launches"]):
+            raise AssertionError(f"tp {label} rank {r}: launches "
+                                 f"{got['launches']}, expected {want}")
+        for k, n in got["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    return ranks
+
+
+def tp_serve_hold(ranks: list[dict], arch: str, layers: int, m: int, rmodel,
+                  ref_done: list, launches: dict) -> dict:
+    """Hold a served run on a plan (``tp_child``'s ``serve``, one record a
+    rank): every rank the same tokens, teacher-forced agreement with the
+    one-process model ``rmodel`` >= ``LM_BF16_AGREE`` (for
+    ``LM_BF16_TIES`` below it only where every disagreement is a rounding
+    tie), each rank's launches = attention applications x prefills (flash)
+    and x decode steps; print it, add the launches to ``launches``, return
+    its record.  Raises AssertionError on a failed check."""
+    scfg = rmodel.cfg
+    toks = ranks[0]["tokens"]
+    if any(x["tokens"] != toks for x in ranks):
+        raise AssertionError(f"tp serve {arch} model {m}: ranks differ")
+    done = [types.SimpleNamespace(rid=rid, prompt=p, tokens=t)
+            for rid, p, t in toks]
+    n, worse, _, _, _ = teacher_forced(rmodel, done, scfg.vocab_size, False)
+    agree = 1 - len(worse) / n
+    ties = sum(w["served_gap"] <= w["tie"] for w in worse)
+    same = sum(a == b for (_, _, ta), (_, _, tb) in zip(toks, ref_done)
+               for a, b in zip(ta, tb)) / n
+    x = ranks[0]
+    apps = attention_layers(scfg)
+    want = {"flash_attention_wgmma": apps * TP_REQUESTS,
+            "decode_attention": apps * x["steps"]}
+    case = dict(arch=arch, layers=layers, model=m, cache=x["cache"],
+                layout=x["layout"], sharded_wk=x["sharded_wk"],
+                agreement=agree, disagreements=len(worse), rounding_ties=ties,
+                same_as_one_process=same, positions=n,
+                launches=[y["launches"] for y in ranks],
+                param_gib=[y["param_gib"] for y in ranks],
+                whole_gib=x["whole_gib"],
+                peak_gib=[y["peak_gib"] for y in ranks],
+                seconds=x["seconds"], steps=x["steps"])
+    print(f"  serve {arch} x{layers} bf16 at model {m}: cache over "
+          f"{x['cache']} (rank 0: {x['layout']}); {n} tokens, teacher-forced "
+          f"agreement {agree:.4f} (limit {LM_BF16_AGREE}; {len(worse)} "
+          f"disagreements, {ties} of them rounding ties), equal to the "
+          f"one-process engine's {same:.4f}; launches a rank "
+          f"{_nonzero(x['launches'])} (expected {want}); parameters a rank "
+          f"{[round(g, 3) for g in case['param_gib']]} of {x['whole_gib']:.3f} "
+          f"GiB, peak {[round(p, 2) for p in case['peak_gib']]} GiB; "
+          f"{x['seconds']:.2f} s for {x['steps']} decode steps (ranks "
+          "time-share the card)", flush=True)
+    if agree < LM_BF16_AGREE and (arch not in LM_BF16_TIES or ties < len(worse)):
+        raise AssertionError(f"tp serve {arch} model {m}: agreement {agree}"
+                             f" ({ties} of {len(worse)} disagreements rounding "
+                             f"ties): {worse[:4]}")
+    for y in ranks:
+        if any(y["launches"][k] != want.get(k, 0) for k in y["launches"]):
+            raise AssertionError(f"tp serve {arch} model {m}: launches "
+                                 f"{y['launches']}, expected {want}")
+        for k, c in y["launches"].items():
+            launches[k] = launches.get(k, 0) + c
+    return case
+
+
 def tp_phase(dev, tmp: str) -> tuple[dict, dict]:
     """Phase tp (see the module docstring): the decode kernel's
     log-sum-exp against its plain version, the one-process references,
@@ -3155,13 +3398,8 @@ def tp_phase(dev, tmp: str) -> tuple[dict, dict]:
 
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.ref import decode_attention_ref
-    from repro_torch.launch.steps import build_cell
-    from repro_torch.models.transformer import _flatten, init_params
+    from repro_torch.models.transformer import init_params
     from repro_torch.serve.engine import ServeEngine
-    from repro_torch.sharding.spec import MeshShape
-    from repro_torch.sharding.tp import plan_split
-    from repro_torch.train import train_loop as tloop
-    from repro_torch.train.optim import OptConfig
 
     rec: dict = {"lse_cases": []}
 
@@ -3210,41 +3448,8 @@ def tp_phase(dev, tmp: str) -> tuple[dict, dict]:
 
     # 2. the one-process references: the float32 train step, then the bf16
     # engines (kept for the teacher-forced checks)
-    spec, cell, cfg = _tp_train_cfg()
-    oc = OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
-    model, st = tloop.init_state(cfg, 0, device=dev)
-    with torch.no_grad():
-        logits, _, _ = model.forward_full(_tp_fwd_tokens(cfg.vocab_size))
-    torch.save(logits.cpu(), os.path.join(tmp, "tp_ref_logits.pt"))
-    del logits
-    step = tloop.make_train_step(model, oc, n_microbatches=TP_MB)
-    prog = build_cell(spec, cell, MeshShape((1, 2), ("data", "model")))
-    ref_steps = []
-    for i, b in enumerate(_tp_data(cfg.vocab_size)):
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        st, m = step(st, b)
-        torch.cuda.synchronize()
-        ref_steps.append(dict(loss=float(m["loss"]),
-                              grad_norm=float(m["grad_norm"]),
-                              seconds=time.perf_counter() - t1))
-        if i == 0:           # each rank's slice of the first moments
-            m1 = _flatten(st.m)
-            for r in range(2):
-                sp = plan_split(cfg, prog.plan.param_specs, 2, r)
-                part = {}
-                for path, x in m1.items():
-                    if path.startswith("blocks/"):
-                        sl = (slice(None),) + sp.local_slices(
-                            path, tuple(x.shape[1:]))
-                    else:
-                        sl = sp.local_slices(path, tuple(x.shape))
-                    part[path] = x[sl].cpu()
-                torch.save(part, os.path.join(tmp, f"tp_ref_first_{r}.pt"))
-                del part
-            del m1
+    ref_steps = tp_train_ref(dev, tmp, LM_ARCH, TP_LAYERS)
     rec["train_ref"] = ref_steps
-    del model, st, step
     free()
     ref_models = {}
     for arch, layers, m in TP_SERVE:
@@ -3284,36 +3489,9 @@ def tp_phase(dev, tmp: str) -> tuple[dict, dict]:
     L, mb = TP_LAYERS, TP_MB
     want_train = {"flash_attention": 2 * L * mb * TP_STEPS,
                   "flash_attention_bwd_wgmma": L * mb * TP_STEPS}
-    rec["train"] = []
-    for r in range(2):
-        got = load("train", [(1, 2)], r)
-        rec["train"].append(got)
-        for a, b in zip(got["steps"], ref_steps):
-            if not (math.isclose(a["loss"], b["loss"], rel_tol=TP_LOSS_RTOL)
-                    and math.isclose(a["grad_norm"], b["grad_norm"],
-                                     rel_tol=TP_GNORM_RTOL)):
-                raise AssertionError(f"tp train rank {r}: steps {got['steps']} "
-                                     f"against {ref_steps}")
-        worst = max(got["first_err"].items(), key=lambda kv: kv[1])
-        print(f"  train rank {r} (data 1, model 2): losses "
-              f"{[s['loss'] for s in got['steps']]} against "
-              f"{[s['loss'] for s in ref_steps]}, grad norms "
-              f"{[s['grad_norm'] for s in got['steps']]} against "
-              f"{[s['grad_norm'] for s in ref_steps]}; first moments: largest "
-              f"relative error {worst[1]:.3g} ({worst[0]}; limit {TP_FIRST_REL}); "
-              f"forward logits {got['logit_err']:.3g} of the largest (limit "
-              f"{TP_LOGIT_REL}); launches {got['launches']} (expected "
-              f"{want_train}); parameters {got['param_gib']:.3f} of "
-              f"{got['whole_gib']:.3f} GiB, peak {got['peak_gib']:.2f} GiB; "
-              f"partial leaves {got['partial']}", flush=True)
-        if worst[1] > TP_FIRST_REL or got["logit_err"] > TP_LOGIT_REL:
-            raise AssertionError(f"tp train rank {r}: first moments {worst}, "
-                                 f"logits {got['logit_err']}")
-        if any(got["launches"][k] != want_train.get(k, 0) for k in got["launches"]):
-            raise AssertionError(f"tp train rank {r}: launches {got['launches']}"
-                                 f", expected {want_train}")
-        for k, n in got["launches"].items():
-            launches[k] = launches.get(k, 0) + n
+    rec["train"] = tp_train_hold(
+        "train", [load("train", [(1, 2)], r) for r in range(2)], ref_steps,
+        want_train, launches)
     # the last step (the first warms every kernel and library up)
     rec["step_s"] = rec["train"][0]["steps"][-1]["seconds"]
     rec["ref_step_s"] = ref_steps[-1]["seconds"]
@@ -3326,50 +3504,10 @@ def tp_phase(dev, tmp: str) -> tuple[dict, dict]:
     # against the one-process model's teacher forcing
     rec["serve"] = []
     for arch, layers, m in TP_SERVE:
-        scfg, rmodel, ref_done = ref_models[arch, layers]
-        ranks = [load("serve", [arch, layers, (1, m)], r) for r in range(m)]
-        toks = ranks[0]["tokens"]
-        if any(x["tokens"] != toks for x in ranks):
-            raise AssertionError(f"tp serve {arch} model {m}: ranks differ")
-        done = [types.SimpleNamespace(rid=rid, prompt=p, tokens=t)
-                for rid, p, t in toks]
-        n, worse, _, _, _ = teacher_forced(rmodel, done, scfg.vocab_size, False)
-        agree = 1 - len(worse) / n
-        ties = sum(w["served_gap"] <= w["tie"] for w in worse)
-        same = sum(a == b for (_, _, ta), (_, _, tb) in zip(toks, ref_done)
-                   for a, b in zip(ta, tb)) / n
-        x = ranks[0]
-        want = {"flash_attention_wgmma": layers * TP_REQUESTS,
-                "decode_attention": layers * x["steps"]}
-        case = dict(arch=arch, layers=layers, model=m, cache=x["cache"],
-                    sharded_wk=x["sharded_wk"], agreement=agree,
-                    disagreements=len(worse), rounding_ties=ties,
-                    same_as_one_process=same, positions=n,
-                    launches=[y["launches"] for y in ranks],
-                    param_gib=[y["param_gib"] for y in ranks],
-                    whole_gib=x["whole_gib"],
-                    peak_gib=[y["peak_gib"] for y in ranks],
-                    seconds=x["seconds"], steps=x["steps"])
-        rec["serve"].append(case)
-        print(f"  serve {arch} x{layers} bf16 at model {m}: cache over "
-              f"{x['cache']}, wk/wv {'split' if x['sharded_wk'] else 'whole'}; "
-              f"{n} tokens, teacher-forced agreement {agree:.4f} (limit "
-              f"{LM_BF16_AGREE}; {len(worse)} disagreements, {ties} of them "
-              f"rounding ties), equal to the one-process engine's "
-              f"{same:.4f}; launches a rank {x['launches']} (expected {want}); "
-              f"parameters a rank {case['param_gib']} of {x['whole_gib']:.3f} "
-              f"GiB, peak {[round(p, 2) for p in case['peak_gib']]} GiB; "
-              f"{x['seconds']:.2f} s for {x['steps']} decode steps (ranks "
-              "time-share the card)", flush=True)
-        if agree < LM_BF16_AGREE:
-            raise AssertionError(f"tp serve {arch} model {m}: agreement {agree}"
-                                 f": {worse[:4]}")
-        for y in ranks:
-            if any(y["launches"][k] != want.get(k, 0) for k in y["launches"]):
-                raise AssertionError(f"tp serve {arch} model {m}: launches "
-                                     f"{y['launches']}, expected {want}")
-            for k, c in y["launches"].items():
-                launches[k] = launches.get(k, 0) + c
+        _, rmodel, ref_done = ref_models[arch, layers]
+        rec["serve"].append(tp_serve_hold(
+            [load("serve", [arch, layers, (1, m)], r) for r in range(m)], arch,
+            layers, m, rmodel, ref_done, launches))
     del ref_models
     free()
     return rec, launches
@@ -3618,6 +3756,92 @@ def tpm_phase(dev, tmp: str) -> tuple[dict, dict]:
             del ranks, routes
         del rmodel
         free()
+    return rec, launches
+
+
+def tps_phase(dev, tmp: str) -> tuple[dict, dict]:
+    """Phase tp-ssm (see the module docstring): the one-process float32
+    train references and bf16 engines, then the ranks as processes on this
+    card (2, then 4).  Returns (record, launches summed over the ranks'
+    main-path runs); raises AssertionError on a failed check."""
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import ServeEngine
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # 1. the one-process references: the float32 train steps, then the bf16
+    # engines (kept for the teacher-forced checks)
+    rec: dict = {"train_ref": {arch: tp_train_ref(dev, tmp, arch, layers)
+                               for arch, layers in TPS_TRAIN}}
+    ref_models = {}
+    for arch, layers, _ in TPS_SERVE:
+        if (arch, layers) in ref_models:
+            continue
+        _, scfg = _tp_serve_cfg(arch, layers)
+        rmodel = init_params(scfg, 0, dev)
+        rmodel.forward_full(np.arange(1, 9, dtype=np.int32)[None, :])
+        eng = ServeEngine(scfg, rmodel, max_batch=TP_MAX_BATCH,
+                          max_len=TP_MAX_LEN, device=dev)
+        for p in _tp_prompts(scfg.vocab_size):
+            eng.submit(p, max_new_tokens=TP_NEW_TOKENS)
+        ref_models[arch, layers] = (rmodel, [(r.rid, r.prompt, r.tokens)
+                                             for r in eng.run_to_completion()])
+        del eng
+    free()
+
+    # 2. the ranks: 2 processes (training and serving at model 2), then 4
+    t1 = time.perf_counter()
+    jobs2 = ([("train", (1, 2), a, n) for a, n in TPS_TRAIN]
+             + [("serve", a, n, (1, m)) for a, n, m in TPS_SERVE if m == 2])
+    jobs4 = [("serve", a, n, (1, m)) for a, n, m in TPS_SERVE if m == 4]
+    for world, jobs in ((2, jobs2), (4, jobs4)):
+        try:
+            mp.spawn(tp_child, args=(world, tmp, jobs, str(dev)), nprocs=world,
+                     join=True)
+        except Exception as e:        # a rank's traceback, as the check's failure
+            raise AssertionError(f"phase tp-ssm ranks ({world}): {e}") from None
+    rec["ranks_s"] = time.perf_counter() - t1
+    load = lambda name, args, r: torch.load(os.path.join(
+        tmp, f"tp_{name}_{'_'.join(map(str, args))}_{r}.pt"), weights_only=False)
+    launches: dict[str, int] = {}
+
+    # training: every rank within the limits of the one-process step
+    rec["train"] = {}
+    for arch, layers in TPS_TRAIN:
+        _, _, cfg = _tp_train_cfg(arch, layers)
+        apps = attention_layers(cfg)
+        want = {"flash_attention": 2 * apps * TP_MB * TP_STEPS,
+                "flash_attention_bwd_wgmma": apps * TP_MB * TP_STEPS}
+        ref = rec["train_ref"][arch]
+        ranks = tp_train_hold(f"{arch} x{layers} train",
+                              [load("train", [(1, 2), arch, layers], r)
+                               for r in range(2)], ref, want, launches,
+                              TPS_FIRST_REL)
+        rec["train"][arch] = ranks
+        print(f"  {arch} x{layers} train: step {TP_STEPS} took "
+              f"{ranks[0]['steps'][-1]['seconds']:.4f} s on 2 ranks sharing "
+              f"this card ({card_line()}; a rehearsal of correctness, not a "
+              f"scaling figure), {ref[-1]['seconds']:.4f} s in one process",
+              flush=True)
+
+    # serving: every rank the same tokens, each within phase 7's bf16 rule
+    # against the one-process model's teacher forcing
+    rec["serve"] = []
+    for arch, layers, m in TPS_SERVE:
+        rmodel, ref_done = ref_models[arch, layers]
+        rec["serve"].append(tp_serve_hold(
+            [load("serve", [arch, layers, (1, m)], r) for r in range(m)], arch,
+            layers, m, rmodel, ref_done, launches))
+    del ref_models
+    free()
     return rec, launches
 
 
@@ -4399,6 +4623,7 @@ def main() -> int:
                f"{rec['prefill_ms_per_request']:.1f} ms/request, decode "
                f"{rec['decode_ms_per_step']:.2f} ms/step at batch "
                f"{LM_MAX_BATCH} (host clock)")
+        t2 = time.perf_counter()
         if timed:
             # steady state: one decode step at batch 8, and one prefill of
             # the largest bucket, each warm, median on the host clock
@@ -4411,8 +4636,15 @@ def main() -> int:
                 np.ones((1, bucket), np.int32), return_cache=True)
             pre_ms = host_median_ms(prefill, reps=3)
             # the attention kernels' share of one decode step's and of one
-            # prefill's device time, and the device activities of each
-            step_dev, part, step_n = device_split(step, DECODE_PASSES)
+            # prefill's device time, and the device activities of each;
+            # one trace of 3 decode steps gives the step's split, its
+            # heaviest kernels and the copies it shows
+            acts, _ = device_trace(step)
+            if acts is None:        # CUDA events, the split not measured
+                step_dev, part, step_n = device_split(step, DECODE_PASSES)
+                acts = []
+            else:
+                step_dev, part, step_n = trace_split(acts, DECODE_PASSES, 3)
             attn_ms = sum(part[k] for k in DECODE_PASSES)
             # host-to-device copies of a decode step: tokens and positions
             # in one; the layers' lengths are made on the card from it.
@@ -4420,10 +4652,10 @@ def main() -> int:
             # and then: ROADMAP Queue C item 8), and the trace may show no
             # more
             htod = htod_ops(step)
-            trace_htod, _ = htod_copies(step)
-            if htod != 1 or trace_htod > 1:
+            in_trace = trace_htod(acts, 3)
+            if htod != 1 or in_trace > 1:
                 raise AssertionError(f"{label}: {htod} host-to-device copies "
-                                     f"per decode step ({trace_htod} in the "
+                                     f"per decode step ({in_trace} in the "
                                      "trace), expected 1")
             # no synchronisation inside a decode step (the MoE dispatch
             # reads nothing back): CUDA's sync debug mode raises on one
@@ -4441,7 +4673,7 @@ def main() -> int:
                 prefill, ("fa_kernel", "fa_tc_kernel"))
             flash_ms = pre_part["fa_kernel"] + pre_part["fa_tc_kernel"]
             b_bytes, b_ms = decode_bound(model, eng.pos + 1)
-            top = device_top(step)
+            top = trace_top(acts, 3)
             rec.update(decode_ms_steady=step_ms, prefill_bucket=bucket,
                        prefill_ms_bucket=pre_ms,
                        decode_step_device_ms=step_dev,
@@ -4451,7 +4683,7 @@ def main() -> int:
                        attention_share=attn_ms / step_dev,
                        decode_step_device_activities=step_n,
                        decode_step_htod_copies=htod,
-                       decode_step_htod_in_trace=trace_htod,
+                       decode_step_htod_in_trace=in_trace,
                        decode_step_sync_free=True,
                        decode_step_bound_bytes=b_bytes,
                        decode_step_bound_ms=b_ms,
@@ -4473,6 +4705,7 @@ def main() -> int:
                     f"step's heaviest kernels: " + "; ".join(
                         f"{name[:60]} {ms:.3f} ms x{k:.0f}"
                         for name, ms, k in top))
+        t3 = time.perf_counter()
         if teacher:
             n_pos, worse, diff, flipped, n_alike = teacher_forced(
                 model, done, cfg.vocab_size, plain_check,
@@ -4505,7 +4738,10 @@ def main() -> int:
                    f"logits vs plain-attention forward max abs diff "
                    f"{diff:.3g}; ") + msg)
         rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-        print(f"  {label}: {msg}; peak {rec['peak_gib']:.1f} GiB", flush=True)
+        rec.update(timed_s=t3 - t2, teacher_s=time.perf_counter() - t3)
+        print(f"  {label}: {msg}; peak {rec['peak_gib']:.1f} GiB; seconds: "
+              f"served {wall:.1f}, timed {rec['timed_s']:.1f}, teacher-forced "
+              f"{rec['teacher_s']:.1f}", flush=True)
         lm_runs.append(rec)
         return eng, rec
 
@@ -5068,7 +5304,25 @@ def main() -> int:
                       for c in tpm_rec["serve"])
           + f"; launches {tpm_launches}")
 
-    # ----------------------------------------------------------- 14. report
+    # ----------------------------------------------------------- 14. tp-ssm
+    t = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory(prefix="mafia-tps-") as tmp:
+            tps_rec, tps_launches = tps_phase(dev, tmp)
+    except AssertionError as e:
+        return fail("tp-ssm", str(e))
+    tps_rec["seconds"] = time.perf_counter() - t
+    for k, n in tps_launches.items():
+        tp_launches[k] = tp_launches.get(k, 0) + n
+    phase("tp-ssm", t, "; ".join(
+        f"{a} x{n} float32 trained at (data 1, model 2)" for a, n in TPS_TRAIN)
+          + " within the limits of the one-process step; "
+          + "; ".join(f"{c['arch']} x{c['layers']} served at model {c['model']}"
+                      f": agreement {c['agreement']:.4f}"
+                      for c in tps_rec["serve"])
+          + f"; launches {_nonzero(tps_launches)}")
+
+    # ----------------------------------------------------------- 15. report
     t = time.perf_counter()
     saved = dict(LAUNCHES)
     timed = []
@@ -5462,7 +5716,7 @@ def main() -> int:
           "between CUDA events; serving wall time on the host clock")
     report.update(lm_train=train_rec, train_launches=train_launches,
                   dist=dist_rec, dist_launches=dist_launches, tp=tp_rec,
-                  tp_moe=tpm_rec, tp_launches=tp_launches)
+                  tp_moe=tpm_rec, tp_ssm=tps_rec, tp_launches=tp_launches)
     report.update(served=served, timed=timed, launches=launches, rows=rows,
                   chain_floor=chain_floor,
                   attention_cases=attn_cases, ssd_cases=ssd_cases,

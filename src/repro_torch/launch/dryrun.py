@@ -118,8 +118,17 @@ def split_collective_bytes(prog: CellProgram, axes: dict[str, int]) -> float:
       the fp32 latent context, B × H × r × 4) and log-sum-exp (B × H fp32)
       gathered.
 
+    The ``ssm`` and ``hybrid`` families, with the same conventions: per
+    Mamba2 layer split over SSM heads ``out_proj``'s all-reduce (T × D
+    fp32) and the gated norm's squares (T fp32); per application of
+    zamba2's shared block one all-reduce of T × 2D fp32 for its heads and
+    one for its FFN columns, where each is split; in training the
+    recompute again, and in the backward each Mamba2 layer's input
+    gradient (T × D × a) and its squares' (T fp32), and the shared block's
+    split inputs' (T × 2D × a each).
+
     0 where nothing is split over ``model``; raises NotImplementedError for
-    a family whose split is not ported."""
+    a split the port cannot run."""
     cfg = prog.cfg
     m = axes.get("model", 1)
     sp = plan_split(cfg, prog.plan.param_specs, m, 0, prog.plan.cache_specs)
@@ -129,21 +138,30 @@ def split_collective_bytes(prog: CellProgram, axes: dict[str, int]) -> float:
     T = rows * (1 if kind == "decode" else prog.cell.seq_len)
     D, L, a = cfg.d_model, cfg.n_layers, cfg.adt.itemsize
     heads = sp.heads is not None
-    if cfg.family == "moe":
-        ep, sh = sp.experts is not None, sp.shared is not None
-        reduces = heads + ep + (sh and not ep)
-        inputs = heads + (ep or sh or sp.router is not None)
-        router = (L * (m - 1) * T * (cfg.n_experts // m) * 4
-                  if sp.router is not None else 0.0)
+    if cfg.family in ("ssm", "hybrid"):
+        M = cfg.n_mamba_layers if sp.ssm is not None else 0
+        b = sp.block
+        G = cfg.hybrid_groups if b is not None else 0
+        nb = (b.heads is not None) + (b.ffn is not None) if b is not None else 0
+        blocks = _ring(m) * (M * T * (D + 1) * 4 + G * nb * T * 2 * D * 4)
+        inputs = _ring(m) * (M * T * (D * a + 4) + G * nb * T * 2 * D * a)
     else:
-        reduces = inputs = heads + (sp.ffn is not None)
-        router = 0.0
-    blocks = L * reduces * _ring(m) * T * D * 4 + router
+        if cfg.family == "moe":
+            ep, sh = sp.experts is not None, sp.shared is not None
+            reduces = heads + ep + (sh and not ep)
+            n_in = heads + (ep or sh or sp.router is not None)
+            router = (L * (m - 1) * T * (cfg.n_experts // m) * 4
+                      if sp.router is not None else 0.0)
+        else:
+            reduces = n_in = heads + (sp.ffn is not None)
+            router = 0.0
+        blocks = L * reduces * _ring(m) * T * D * 4 + router
+        inputs = L * n_in * _ring(m) * T * D * a
     embed = _ring(m) * T * D * a if sp.vocab_in is not None else 0.0
     sent = blocks + embed
     if kind == "train":
         sent += blocks if cfg.remat else 0.0
-        sent += L * inputs * _ring(m) * T * D * a
+        sent += inputs
         if sp.router is not None and sp.experts is not None:
             sent += L * _ring(m) * T * cfg.n_experts * 4
         if sp.vocab_out is not None:
@@ -264,14 +282,18 @@ def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool,
                     "axes but model, the gradients' all-reduce, the split's "
                     "all-reduces over model (2 a layer forward, again in the "
                     "recompute and the backward, the embedding's, the loss's "
-                    "3; MoE: the router logits' gather), the MoE routing's "
+                    "3; MoE: the router logits' gather; Mamba2: out_proj's "
+                    "and the gated norm's squares a layer, the shared "
+                    "block's 2 an application), the MoE routing's "
                     "counts and aux sums over the data ranks, ring "
                     "algorithms")
             else:
                 coll = split_collective_bytes(prog, axes)
                 sources["collective_bytes"] = (
                     "the split over model in one forward: 2 all-reduces a "
-                    "layer (MoE: the router logits' gather), the "
+                    "layer (MoE: the router logits' gather; Mamba2: "
+                    "out_proj's and the gated norm's squares a layer, the "
+                    "shared block's 2 an application), the "
                     "embedding's; on a sequence-split cache q's, the "
                     "outputs' and the log-sum-exps' all-gathers a layer")
         except NotImplementedError as e:

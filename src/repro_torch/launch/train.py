@@ -11,7 +11,7 @@ process group's ranks (:func:`build_mesh_for_devices`, elastic:
 ``elastic_mesh_shape(world, prefer_model=min(16, world))``), the MAFIA
 plan (:func:`repro_torch.sharding.planner.plan_for`), the train state
 placed on the plan and the train step on the mesh
-(:mod:`repro_torch.train.train_loop`; the dense and MoE families' layers
+(:mod:`repro_torch.train.train_loop`; every family's layers
 split over ``model`` as the plan says, :mod:`repro_torch.sharding.tp`), the deterministic synthetic token
 pipeline (every rank reads the global batch and keeps its rows),
 periodic and preemption-triggered checkpoints (gathered, written by rank

@@ -23,6 +23,23 @@ projection is an fp32 product rounded to the activation dtype once
 softplus, the decay, the scan and ``D·x`` run in float32; ``A_log``, ``D``
 and ``dt_bias`` are float32 whatever the parameter dtype; the carried state
 ``h`` is float32 and the conv states are in the activation dtype.
+
+Under a :class:`~repro_torch.sharding.tp.ModelSplit` with SSM heads
+(``split.ssm``) a layer runs on this rank's heads: its input comes
+through ``tp.copy_to_model``; ``w_z``/``w_x``/``conv_x_*`` give the local
+channels (their shards, or slices of whole leaves); ``A_log``, ``D``,
+``dt_bias`` and the gate ``norm`` are read at the local heads and
+channels; ``w_dt``'s product is taken whole and its local heads' columns
+kept (``dt`` is then the unsplit model's bitwise); ``w_b``/``w_c`` and
+their convs are used whole (every rank computes the same b and c); the
+scan needs no collective.  The gated RMSNorm spans the
+whole ``d_inner``: its fp32 sum of squares over the local channels is
+summed over ``model`` (:func:`~repro_torch.sharding.tp.sum_over_model`,
+whose backward all-reduces too: every rank's output depends on every
+rank's squares) and divided by the whole width; ``out_proj`` is
+row-parallel, its fp32 partial sums all-reduced before the one rounding.
+The states (``h`` over the local heads, ``conv_x`` over the local
+channels) are the rank's.
 """
 
 from __future__ import annotations
@@ -33,8 +50,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import dot_f32, he_init, normal_init, rms_norm
+from repro_torch.sharding import tp
 
-__all__ = ["init_mamba2", "ssd_chunked", "mamba2_prefill", "mamba2_decode"]
+__all__ = ["init_mamba2", "ssd_chunked", "mamba2_prefill", "mamba2_decode",
+           "gated_rms_norm"]
 
 
 def init_mamba2(gen: torch.Generator, d_model: int, *, d_state: int,
@@ -75,8 +94,44 @@ def _dims(p: Mapping[str, torch.Tensor]) -> tuple[int, int, int, int]:
     return d_inner, H, p["w_b"].shape[1], d_inner // H
 
 
+def _local(p: Mapping[str, torch.Tensor], split
+           ) -> tuple[Mapping[str, torch.Tensor], object]:
+    """(the leaves this rank reads, the split or None where the layer is
+    not split over SSM heads)."""
+    if split is None or split.ssm is None:
+        return p, None
+    out = dict(p.items())
+    for name, (dim, what, _) in tp.SSM_LEAVES.items():
+        out[name] = split.take(p, name, "ssm", dim, getattr(split, what))
+    return out, split
+
+
+def gated_rms_norm(u: torch.Tensor, weight: torch.Tensor, split=None,
+                   eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm of the gated output ``u`` over the whole ``d_inner``: under
+    a split of the channels ``u`` and ``weight`` are this rank's and the
+    fp32 sum of squares is summed over ``model`` before it is divided by
+    the whole width (the local width × m)."""
+    if split is None:
+        return rms_norm(u, weight, eps)
+    uf = u.float()
+    ss = tp.sum_over_model(torch.sum(uf * uf, dim=-1, keepdim=True), split)
+    var = ss / (uf.shape[-1] * split.m)
+    return (uf * torch.rsqrt(var + eps) * weight.float()).to(u.dtype)
+
+
 def _proj(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return dot_f32(x, w.to(x.dtype)).to(x.dtype)
+
+
+def _dt_proj(p: Mapping[str, torch.Tensor], x: torch.Tensor, split
+             ) -> torch.Tensor:
+    """x's ``dt`` logits, of this rank's heads under a split: the product
+    with the whole ``w_dt`` (H columns, a small product), then the local
+    heads' columns, so that they are the unsplit model's bitwise (a
+    product over fewer columns may sum in another order)."""
+    dtr = _proj(p["w_dt"], x)
+    return dtr if split is None else dtr[..., split.ssm[0]:split.ssm[1]]
 
 
 def _silu(x: torch.Tensor) -> torch.Tensor:
@@ -174,12 +229,14 @@ def ssd_chunked(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
 
 # ------------------------------------------------------------ block forward
 def mamba2_prefill(p: Mapping[str, torch.Tensor], x: torch.Tensor, *,
-                   chunk: int = 128
+                   chunk: int = 128, split=None
                    ) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
     """Full-sequence forward of x (B, S, D).  Returns (y (B, S, D), (the
     final SSM state (B, H, N, P) float32, and the conv states (B, W − 1, C)
     of x, b and c: the last W − 1 pre-conv inputs, left-padded with zeros
-    when S < W − 1))."""
+    when S < W − 1)); under a ``split`` H and x's C are the rank's."""
+    p, split = _local(p, split)
+    x = tp.copy_to_model(x, split)
     d_inner, H, N, P = _dims(p)
     dt_ = x.dtype
     B, S, _ = x.shape
@@ -187,7 +244,7 @@ def mamba2_prefill(p: Mapping[str, torch.Tensor], x: torch.Tensor, *,
     xc_pre = _proj(p["w_x"], x)
     b_pre = _proj(p["w_b"], x)
     c_pre = _proj(p["w_c"], x)
-    dtr = _proj(p["w_dt"], x)
+    dtr = _dt_proj(p, x, split)
     xc = _causal_conv(p["conv_x_w"], p["conv_x_b"], xc_pre)
     b = _causal_conv(p["conv_b_w"], p["conv_b_b"], b_pre)
     c = _causal_conv(p["conv_c_w"], p["conv_c_b"], c_pre)
@@ -199,8 +256,8 @@ def mamba2_prefill(p: Mapping[str, torch.Tensor], x: torch.Tensor, *,
     y = y + p["D"][None, None, :, None] * xh.float()
     y = y.reshape(B, S, d_inner)
     zf = z.float()
-    y = rms_norm((y * _silu(zf)).to(dt_), p["norm"])
-    out = dot_f32(y, p["out_proj"].to(dt_)).to(dt_)
+    y = gated_rms_norm((y * _silu(zf)).to(dt_), p["norm"], split)
+    out = tp.reduce_from_model(dot_f32(y, p["out_proj"].to(dt_)), split).to(dt_)
 
     W1 = p["conv_x_w"].shape[0] - 1
 
@@ -213,11 +270,14 @@ def mamba2_prefill(p: Mapping[str, torch.Tensor], x: torch.Tensor, *,
 
 
 def mamba2_decode(p: Mapping[str, torch.Tensor], x: torch.Tensor,
-                  state: tuple[torch.Tensor, ...]
+                  state: tuple[torch.Tensor, ...], split=None
                   ) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
     """One recurrence step of x (B, 1, D) against ``state`` = (the SSM
-    state (B, H, N, P) float32, the conv states of x, b and c), all updated
-    in place.  Returns (y (B, 1, D), state)."""
+    state (B, H, N, P) float32, the conv states of x, b and c; under a
+    ``split`` the rank's heads and channels), all updated in place.
+    Returns (y (B, 1, D), state)."""
+    p, split = _local(p, split)
+    x = tp.copy_to_model(x, split)
     d_inner, H, N, P = _dims(p)
     ssm, cx, cb, cc = state
     dt_ = x.dtype
@@ -226,7 +286,7 @@ def mamba2_decode(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     xc_pre = _proj(p["w_x"], x)
     b_pre = _proj(p["w_b"], x)
     c_pre = _proj(p["w_c"], x)
-    dtr = _proj(p["w_dt"], x)
+    dtr = _dt_proj(p, x, split)
     xc = _conv_step(p["conv_x_w"], p["conv_x_b"], cx, xc_pre)
     b = _conv_step(p["conv_b_w"], p["conv_b_b"], cb, b_pre)
     c = _conv_step(p["conv_c_w"], p["conv_c_b"], cc, c_pre)
@@ -240,6 +300,6 @@ def mamba2_decode(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     y = torch.einsum("bn,bhnp->bhp", cf, ssm)
     y = y + p["D"][None, :, None] * xr
     y = y.reshape(B, 1, d_inner)
-    y = rms_norm((y * _silu(z.float())).to(dt_), p["norm"])
-    out = dot_f32(y, p["out_proj"].to(dt_)).to(dt_)
+    y = gated_rms_norm((y * _silu(z.float())).to(dt_), p["norm"], split)
+    out = tp.reduce_from_model(dot_f32(y, p["out_proj"].to(dt_)), split).to(dt_)
     return out, state

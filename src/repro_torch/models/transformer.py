@@ -51,12 +51,14 @@ generators differ); :func:`params_from_reference` carries a JAX parameter
 tree across.
 
 On a mesh whose plan shards leaves over ``model`` (a
-:class:`~repro_torch.sharding.tp.ModelSplit`, dense and MoE families) the
+:class:`~repro_torch.sharding.tp.ModelSplit`, every family) the
 model holds each such leaf as this rank's shard and runs Megatron's split:
 the attention on its query heads (against the KV heads they read; MLA on
 its heads, its latent caches over the sequence), the FFN on its columns
 (MoE: its experts' slots, the router's columns gathered, the shared
-experts' columns), the embedding as a lookup of its vocabulary rows (zeros
+experts' columns), a Mamba2 layer on its SSM heads (the states over its
+heads and channels), zamba2's shared block on its own heads, KV heads and
+FFN columns at 2 · d_model (its cache over KV heads), the embedding as a lookup of its vocabulary rows (zeros
 elsewhere) summed over ``model``, the head on its vocabulary columns: the
 logits of :meth:`Transformer.forward_full`, :meth:`~Transformer.
 forward_train` and :meth:`~Transformer.forward_decode` are then this
@@ -91,8 +93,7 @@ from repro_torch.models.layers import (cross_entropy_loss, dot_f32, he_init,
 from repro_torch.models.mamba2 import init_mamba2, mamba2_decode, mamba2_prefill
 from repro_torch.models.moe import moe_ffn, moe_leaves
 from repro_torch.sharding.ctx import shard_act
-from repro_torch.sharding.tp import (ROADMAP_ITEMS, ModelSplit, copy_to_model,
-                                     reduce_from_model)
+from repro_torch.sharding.tp import ModelSplit, copy_to_model, reduce_from_model
 
 __all__ = ["ModelConfig", "Transformer", "init_params", "init_cache",
            "abstract_params", "params_from_reference", "lm_loss"]
@@ -227,6 +228,12 @@ def _cache_keys(cfg: ModelConfig) -> tuple[str, str]:
 def _shared_dh(cfg: ModelConfig) -> int:
     """The hybrid shared block's head width: 2 · d_model / n_heads."""
     return 2 * cfg.d_model // cfg.n_heads
+
+
+def _shared_kv(cfg: ModelConfig, split: ModelSplit | None) -> int:
+    """The KV heads of the hybrid's shared cache a rank holds."""
+    b = split.block if split is not None else None
+    return cfg.n_kv_heads if b is None or b.kv is None else b.kv[1] - b.kv[0]
 
 
 def _rope_dim(cfg: ModelConfig) -> int:
@@ -422,14 +429,19 @@ class MambaBlock(nn.Module):
     reference's leaves: the projections, conv taps and biases and
     ``out_proj`` in the activation dtype (the reference casts them on every
     use), the gate ``norm`` in the parameter dtype, ``A_log``, ``D`` and
-    ``dt_bias`` in float32."""
+    ``dt_bias`` in float32.  Under a ``split`` each leaf the plan shards
+    over ``model`` is this rank's shard, and the layer runs on its SSM
+    heads."""
 
     NORMS = ("norm1",)
 
-    def __init__(self, cfg: ModelConfig, device: torch.device) -> None:
+    def __init__(self, cfg: ModelConfig, device: torch.device,
+                 split: ModelSplit | None = None) -> None:
         super().__init__()
         D, E, N, W = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
         H, mdt, f32 = cfg.ssm_heads, cfg.adt, torch.float32
+        self.split = split
+        at = _local_shape(split, "blocks/ssm/")
         self.norm1 = _param((D,), cfg.pdt, device)
         shapes = {"w_z": ((D, E), mdt), "w_x": ((D, E), mdt),
                   "w_b": ((D, N), mdt), "w_c": ((D, N), mdt),
@@ -440,7 +452,7 @@ class MambaBlock(nn.Module):
                   "A_log": ((H,), f32), "D": ((H,), f32),
                   "dt_bias": ((H,), f32), "norm": ((E,), cfg.pdt),
                   "out_proj": ((E, D), mdt)}
-        self.ssm = nn.ParameterDict({k: _param(shape, dt, device)
+        self.ssm = nn.ParameterDict({k: _param(at(k, shape), dt, device)
                                      for k, (shape, dt) in shapes.items()})
 
     def groups(self) -> dict[str, nn.ParameterDict]:
@@ -448,13 +460,13 @@ class MambaBlock(nn.Module):
 
     def full(self, cfg: ModelConfig, x: torch.Tensor):
         y, state = mamba2_prefill(self.ssm, rms_norm(x, self.norm1, cfg.norm_eps),
-                                  chunk=cfg.ssm_chunk)
+                                  chunk=cfg.ssm_chunk, split=self.split)
         return x + y, state
 
     def decode(self, cfg: ModelConfig, x: torch.Tensor,
                state: tuple[torch.Tensor, ...]) -> torch.Tensor:
         y, _ = mamba2_decode(self.ssm, rms_norm(x, self.norm1, cfg.norm_eps),
-                             state)
+                             state, self.split)
         return x + y
 
 
@@ -463,31 +475,42 @@ class SharedAttn(nn.Module):
     embedding): RMSNorm → GQA (``n_heads`` / ``n_kv_heads`` heads of
     2 · d_model / ``n_heads``) → residual → RMSNorm → SwiGLU MLP →
     residual → the ``out`` projection back to d_model, added to the
-    hidden state.  One set of weights serves every application."""
+    hidden state.  One set of weights serves every application.  Under a
+    split with a ``block`` (the plan's ranges for the shared block) the
+    attention runs on this rank's heads and the MLP on its columns,
+    column- and row-parallel as a dense block's; ``out`` and the norms stay
+    whole."""
 
-    def __init__(self, cfg: ModelConfig, device: torch.device) -> None:
+    def __init__(self, cfg: ModelConfig, device: torch.device,
+                 split: ModelSplit | None = None) -> None:
         super().__init__()
-        d2, mdt = 2 * cfg.d_model, cfg.adt
+        d2, mdt, F = 2 * cfg.d_model, cfg.adt, cfg.d_ff
+        self.split = split.block if split is not None else None
+        at = _local_shape(self.split, "shared_attn/")
         self.norm1 = _param((d2,), cfg.pdt, device)
         self.norm2 = _param((d2,), cfg.pdt, device)
         self.attn = nn.ParameterDict(_gqa_params(
-            d2, cfg.n_heads, cfg.n_kv_heads, _shared_dh(cfg), False, mdt, device))
-        self.mlp = nn.ParameterDict({"w_gate": _param((d2, cfg.d_ff), mdt, device),
-                                     "w_up": _param((d2, cfg.d_ff), mdt, device),
-                                     "w_down": _param((cfg.d_ff, d2), mdt, device)})
+            d2, cfg.n_heads, cfg.n_kv_heads, _shared_dh(cfg), False, mdt, device,
+            at))
+        self.mlp = nn.ParameterDict(
+            {"w_gate": _param(at("mlp/w_gate", (d2, F)), mdt, device),
+             "w_up": _param(at("mlp/w_up", (d2, F)), mdt, device),
+             "w_down": _param(at("mlp/w_down", (F, d2)), mdt, device)})
         self.out = _param((d2, cfg.d_model), mdt, device)
 
     def _tail(self, cfg: ModelConfig, x: torch.Tensor, z: torch.Tensor,
               a: torch.Tensor) -> torch.Tensor:
         z = z + a
-        z = z + mlp_swiglu(self.mlp, rms_norm(z, self.norm2, cfg.norm_eps))
+        z = z + mlp_swiglu(self.mlp, rms_norm(z, self.norm2, cfg.norm_eps),
+                           self.split)
         return x + dot_f32(z, self.out.to(z.dtype)).to(z.dtype)
 
     def full(self, cfg: ModelConfig, x: torch.Tensor, emb0: torch.Tensor,
              cos: torch.Tensor, sin: torch.Tensor, window: int, plain: bool):
         z = torch.cat([x, emb0], dim=-1)
         a, cache = gqa_prefill(self.attn, rms_norm(z, self.norm1, cfg.norm_eps),
-                               cos, sin, window=window, plain=plain)
+                               cos, sin, window=window, plain=plain,
+                               split=self.split)
         return self._tail(cfg, x, z, a), cache
 
     def decode(self, cfg: ModelConfig, x: torch.Tensor, emb0: torch.Tensor,
@@ -497,25 +520,21 @@ class SharedAttn(nn.Module):
         z = torch.cat([x, emb0], dim=-1)
         a, _ = gqa_decode(self.attn, rms_norm(z, self.norm1, cfg.norm_eps),
                           kc, vc, pos, cos, sin, write_pos=write_pos,
-                          valid_len=valid_len)
+                          valid_len=valid_len, split=self.split)
         return self._tail(cfg, x, z, a)
 
 
 class Transformer(nn.Module):
     """The LM of any family; its parameters are allocated, not initialised
     (see :func:`init_params` and :func:`params_from_reference`).  With a
-    ``split`` (dense and MoE) each leaf the plan shards over ``model`` is
-    allocated as this rank's shard."""
+    ``split`` each leaf the plan shards over ``model`` is allocated as
+    this rank's shard."""
 
     def __init__(self, cfg: ModelConfig,
                  device: torch.device | str | None = None,
                  split: ModelSplit | None = None) -> None:
         super().__init__()
         _check_family(cfg)
-        if split is not None and cfg.family not in ("dense", "moe"):
-            raise NotImplementedError(
-                f"splitting the {cfg.family} family's compute over `model` is "
-                f"not ported yet ({ROADMAP_ITEMS[cfg.family]})")
         dev = resolve_device(device)
         if dev.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -532,10 +551,10 @@ class Transformer(nn.Module):
             self.blocks = nn.ModuleList(Block(cfg, dev, split)
                                         for _ in range(cfg.n_layers))
         else:
-            self.blocks = nn.ModuleList(MambaBlock(cfg, dev)
+            self.blocks = nn.ModuleList(MambaBlock(cfg, dev, split)
                                         for _ in range(cfg.n_mamba_layers))
         if cfg.family == "hybrid":
-            self.shared_attn = SharedAttn(cfg, dev)
+            self.shared_attn = SharedAttn(cfg, dev, split)
 
     def _tokens(self, tokens: Any) -> torch.Tensor:
         t = tokens if torch.is_tensor(tokens) else torch.as_tensor(np.asarray(tokens))
@@ -672,7 +691,8 @@ class Transformer(nn.Module):
         if not return_cache:
             return x, None
         caches = _stack_states(states)
-        kv_shape = (0, x.shape[0], x.shape[1], cfg.n_kv_heads, _shared_dh(cfg))
+        kv_shape = (0, x.shape[0], x.shape[1], _shared_kv(cfg, self.split),
+                    _shared_dh(cfg))
         for i, key in enumerate(("k", "v")):
             caches[key] = (torch.stack([kv[i] for kv in kvs]) if kvs
                            else x.new_zeros(kv_shape))
@@ -795,7 +815,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     rank's caches: its KV heads, or where the split puts the cache over the
     sequence (MLA's latents always) every KV head, or the whole latent, at
     ⌈S / m⌉ positions (the last rank's tail past S is never written nor
-    read)."""
+    read); "h" over its SSM heads, "conv_x" over its channels, and the
+    shared block's KV heads."""
     _check_family(cfg)
     dev = resolve_device(device)
     adt, B, S = cfg.adt, batch, max_len
@@ -816,14 +837,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
             shapes = (lead + (kv, cfg.d_head),) * 2
         return {key: zeros(shape) for key, shape in zip(_cache_keys(cfg), shapes)}
     M, W1 = cfg.n_mamba_layers, cfg.ssm_conv - 1
-    out = {"h": zeros((M, B, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim),
-                      torch.float32),
-           "conv_x": zeros((M, B, W1, cfg.d_inner)),
+    H, E = cfg.ssm_heads, cfg.d_inner
+    if split is not None and split.ssm is not None:
+        H, E = split.ssm[1] - split.ssm[0], split.inner[1] - split.inner[0]
+    out = {"h": zeros((M, B, H, cfg.ssm_state, cfg.ssm_head_dim), torch.float32),
+           "conv_x": zeros((M, B, W1, E)),
            "conv_b": zeros((M, B, W1, cfg.ssm_state)),
            "conv_c": zeros((M, B, W1, cfg.ssm_state))}
     if cfg.family == "hybrid":
         win = min(S, cfg.attn_window) if cfg.attn_window else S
-        shape = (cfg.hybrid_groups, B, win, cfg.n_kv_heads, _shared_dh(cfg))
+        shape = (cfg.hybrid_groups, B, win, _shared_kv(cfg, split),
+                 _shared_dh(cfg))
         out.update(k=zeros(shape), v=zeros(shape))
     return out
 
@@ -915,7 +939,8 @@ def init_params(cfg: ModelConfig, seed: int = 0,
             if isinstance(blk, MambaBlock):
                 _copy_into(blk.ssm, init_mamba2(
                     gen, D, d_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim,
-                    expand=cfg.ssm_expand, conv_width=cfg.ssm_conv, dtype=adt))
+                    expand=cfg.ssm_expand, conv_width=cfg.ssm_conv, dtype=adt),
+                    split, "blocks/ssm/")
                 continue
             if cfg.use_mla:
                 attn = init_mla(gen, D, cfg.n_heads,
@@ -945,8 +970,10 @@ def init_params(cfg: ModelConfig, seed: int = 0,
             sa.norm1.fill_(1.0)
             sa.norm2.fill_(1.0)
             _copy_into(sa.attn, init_gqa(gen, d2, cfg.n_heads, cfg.n_kv_heads,
-                                         _shared_dh(cfg), dtype=adt))
-            _copy_into(sa.mlp, init_mlp(gen, d2, F, adt))
+                                         _shared_dh(cfg), dtype=adt),
+                       split, "shared_attn/attn/")
+            _copy_into(sa.mlp, init_mlp(gen, d2, F, adt), split,
+                       "shared_attn/mlp/")
             sa.out.copy_(he_init(gen, (d2, D), d2, adt))
     return model
 

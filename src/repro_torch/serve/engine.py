@@ -32,9 +32,12 @@ the logits with a ``torch.Generator`` on the engine's device seeded by
 On a ``mesh`` (a ``DeviceMesh``) with a ``plan`` (the reference's
 distributed serving), every rank runs this host loop on the same requests
 (SPMD): the model is the rank's (built with the plan's
-:class:`~repro_torch.sharding.tp.ModelSplit`: dense and MoE families,
-olmoe's and deepseek-v2's experts split), the caches are the plan's local
-caches (its KV heads, or its piece of the sequence: MLA's latents always),
+:class:`~repro_torch.sharding.tp.ModelSplit`: every family; olmoe's and
+deepseek-v2's experts, mamba2's and zamba2's SSM heads split), the caches
+are the plan's local caches (its KV heads, or its piece of the sequence:
+MLA's latents always; a Mamba2 layer's ``h`` over its SSM heads and
+``conv_x`` over its channels, each slot written whole at the exact-length
+prefill; zamba2's shared ``k``/``v`` over its KV heads),
 the logits are gathered over ``model`` before sampling, and the
 generators are seeded alike, so that every rank emits the same tokens.
 A mesh whose ``pod`` × ``data`` exceeds one rank raises: the reference

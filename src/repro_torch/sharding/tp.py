@@ -1,5 +1,5 @@
 """A layer's compute split over the mesh's ``model`` axis (Megatron's
-scheme) for the dense and MoE families.
+scheme) for every LM family.
 
 The reference leaves this split to GSPMD, which reads the plan's specs
 and inserts the collectives; the port's kernels take plain tensors, so the
@@ -35,6 +35,26 @@ replicated ``w_dq``/``norm_q``/``w_dkv``/``norm_kv``/``w_kr`` feed only the
 local heads, and a router kept whole beside split experts only the local
 experts' combine: those are partial.
 
+The ``ssm`` and ``hybrid`` families (mamba2, zamba2) add a Mamba2 layer
+over its SSM heads: ``w_z``/``w_x`` on their columns and ``conv_x_w``/
+``conv_x_b`` on their channels, a range of whole heads (``ssm_heads``
+divides the axis), ``out_proj`` on its rows (row-parallel; sliced at use
+and partial where the plan keeps it whole).  The scan runs on the local
+heads and needs no collective; the gated RMSNorm over the whole
+``d_inner`` sums its fp32 squares over ``model`` (:func:`sum_over_model`,
+an all-reduce in the forward and in the backward).  The replicated leaves
+read in part (``w_dt``'s columns, ``A_log``, ``D``, ``dt_bias``, the gated
+``norm``) or used whole to feed only the local heads (``w_b``, ``w_c``,
+their conv taps and biases) are partial.  The serving state ``h`` is
+split over SSM heads and ``conv_x`` over channels, as the weights;
+``conv_b``/``conv_c`` stay whole (every rank computes the same values).
+zamba2's shared attention block (``shared_attn/...``, unstacked: no layer
+axis) has ranges of its own, the dense split's heads, KV heads and FFN
+columns at 2 · d_model, in :attr:`ModelSplit.block`; its cache is split
+over KV heads (where the plan splits that cache and keeps the block's
+weights whole, the block runs on the cache's heads, its weights sliced at
+use).
+
 At ``model = 1`` no split is made (:func:`model_split` returns None) and
 no collective is issued.  The collectives are ``torch.distributed`` calls
 on the tensors as they lie: gloo takes CUDA tensors as well as NCCL does.
@@ -56,15 +76,11 @@ from repro_torch.sharding.spec import entry_axes
 
 __all__ = ["ModelSplit", "model_split", "plan_split", "local_range",
            "copy_to_model", "reduce_from_model", "gather_from_model",
-           "max_over_model", "ROADMAP_ITEMS"]
+           "sum_over_model", "max_over_model"]
 
 MODEL = "model"
-# what the port cannot split yet, by family: the ROADMAP items that cite it
-ROADMAP_ITEMS = {
-    "ssm": "ROADMAP.md, Queue A item 10g (SSM heads and state over `model`)",
-    "hybrid": "ROADMAP.md, Queue A item 10g (SSM heads and state, zamba2's "
-              "shared block, over `model`)",
-}
+SSM = "blocks/ssm/"
+SHARED = "shared_attn/"
 
 
 def _names_model(spec: tuple | None) -> list[int]:
@@ -152,6 +168,31 @@ def reduce_from_model(x: torch.Tensor, split: "ModelSplit | None"
     return _ReduceFromModel.apply(x, split.group)
 
 
+class _SumOverModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def sum_over_model(x: torch.Tensor, split: "ModelSplit | None") -> torch.Tensor:
+    """The sum over ``model`` of each rank's ``x``, where every rank's
+    output depends on every rank's input (the gated norm's squares):
+    forward an all-reduce, backward an all-reduce of the output's
+    gradients (each rank's is partial)."""
+    if split is None:
+        return x
+    return _SumOverModel.apply(x, split.group)
+
+
 def gather_from_model(x: torch.Tensor, dim: int,
                       split: "ModelSplit | None", grad_sum: bool = False
                       ) -> torch.Tensor:
@@ -186,10 +227,15 @@ class ModelSplit:
     read (GQA), the FFN columns, the embedding's rows and the head's
     columns that this rank computes (None: all of them, on every rank);
     ``experts`` / ``router`` / ``shared`` those of the routed experts, the
-    router's logit columns and the shared experts' FFN columns.  ``cache``
-    is how the serving caches are split: ``"heads"`` (KV heads), ``"seq"``
-    (positions; the plan's choice where KV heads do not divide the axis,
-    and MLA's latents always) or None."""
+    router's logit columns and the shared experts' FFN columns; ``ssm`` /
+    ``inner`` those of a Mamba2 layer's SSM heads and of its ``d_inner``
+    channels (the same heads).  ``cache`` is how the serving caches are
+    split: ``"heads"`` (KV heads; the Mamba2 states over SSM heads and
+    channels), ``"seq"`` (positions; the plan's choice where KV heads do
+    not divide the axis, and MLA's latents always) or None.  ``prefix``
+    is the leaf paths' (``blocks/``; ``shared_attn/`` in ``block``, the
+    split zamba2's shared block runs under, or None where it runs
+    whole)."""
 
     m: int
     r: int
@@ -205,6 +251,10 @@ class ModelSplit:
     experts: tuple[int, int] | None = None
     router: tuple[int, int] | None = None
     shared: tuple[int, int] | None = None
+    ssm: tuple[int, int] | None = None
+    inner: tuple[int, int] | None = None
+    block: "ModelSplit | None" = None
+    prefix: str = "blocks/"
 
     def sharded(self, path: str) -> bool:
         """Whether the plan shards the leaf at ``path`` over ``model``."""
@@ -230,7 +280,7 @@ class ModelSplit:
         plan shards it over ``model`` (it holds just that range), else a
         slice of the replicated leaf."""
         t = p[name]
-        if self.sharded(f"blocks/{group}/{name}"):
+        if self.sharded(f"{self.prefix}{group}/{name}"):
             return t
         return t.narrow(dim, rng[0], rng[1] - rng[0])
 
@@ -264,16 +314,50 @@ def model_split(cfg, param_specs: Any, mesh, cache_specs: Any = None
     split = plan_split(cfg, param_specs, m, r, cache_specs)
     if split is not None:
         split.group = axis_group(mesh, (MODEL,))
+        if split.block is not None:
+            split.block.group = split.group
     return split
+
+
+def _gqa_axes(prefix: str, D: int, H: int, KV: int, dh: int, whole: dict,
+              axis: dict) -> None:
+    whole.update({prefix + "wq": (D, H, dh), prefix + "wk": (D, KV, dh),
+                  prefix + "wv": (D, KV, dh), prefix + "wo": (H, dh, D),
+                  prefix + "bq": (H, dh), prefix + "bk": (KV, dh),
+                  prefix + "bv": (KV, dh)})
+    axis.update({prefix + "wq": 1, prefix + "wk": 1, prefix + "wv": 1,
+                 prefix + "wo": 0, prefix + "bq": 0, prefix + "bk": 0,
+                 prefix + "bv": 0})
+
+
+def _mlp_axes(prefix: str, D: int, F: int, whole: dict, axis: dict) -> None:
+    whole.update({prefix + "w_gate": (D, F), prefix + "w_up": (D, F),
+                  prefix + "w_down": (F, D)})
+    axis.update({prefix + "w_gate": 1, prefix + "w_up": 1,
+                 prefix + "w_down": 0})
 
 
 def _leaf_axes(cfg) -> tuple[dict[str, tuple[int, ...]], dict[str, int]]:
     """(whole per-layer shape, the dim that may name ``model``) of each
-    leaf of ``cfg`` that a split reads in part."""
+    leaf of ``cfg`` that a split reads in part (the unstacked
+    ``shared_attn/`` leaves: their whole shape)."""
     H, KV, dh, D = cfg.n_heads_eff, cfg.n_kv_heads_eff, cfg.d_head, cfg.d_model
     Vp = cfg.padded_vocab
     whole = {"embed": (Vp, D), "lm_head": (D, Vp)}
     axis = {"embed": 0, "lm_head": 1}
+    if cfg.family in ("ssm", "hybrid"):
+        E, W = cfg.d_inner, cfg.ssm_conv
+        whole.update({SSM + "w_z": (D, E), SSM + "w_x": (D, E),
+                      SSM + "conv_x_w": (W, E), SSM + "conv_x_b": (E,),
+                      SSM + "out_proj": (E, D)})
+        axis.update({SSM + n: dim for n, (dim, _, shards) in SSM_LEAVES.items()
+                     if shards})
+        if cfg.family == "hybrid":
+            d2 = 2 * D
+            _gqa_axes(SHARED + "attn/", d2, cfg.n_heads, cfg.n_kv_heads,
+                      d2 // cfg.n_heads, whole, axis)
+            _mlp_axes(SHARED + "mlp/", d2, cfg.d_ff, whole, axis)
+        return whole, axis
     if cfg.use_mla:
         q_in, dr = cfg.q_lora_rank or D, cfg.d_rope
         r = cfg.kv_lora_rank
@@ -286,14 +370,7 @@ def _leaf_axes(cfg) -> tuple[dict[str, tuple[int, ...]], dict[str, int]]:
                                      "blocks/attn/w_uk", "blocks/attn/w_uv")})
         axis["blocks/attn/wo"] = 0
     else:
-        whole.update({"blocks/attn/wq": (D, H, dh), "blocks/attn/wk": (D, KV, dh),
-                      "blocks/attn/wv": (D, KV, dh), "blocks/attn/wo": (H, dh, D),
-                      "blocks/attn/bq": (H, dh), "blocks/attn/bk": (KV, dh),
-                      "blocks/attn/bv": (KV, dh)})
-        axis.update({"blocks/attn/wq": 1, "blocks/attn/wk": 1,
-                     "blocks/attn/wv": 1, "blocks/attn/wo": 0,
-                     "blocks/attn/bq": 0, "blocks/attn/bk": 0,
-                     "blocks/attn/bv": 0})
+        _gqa_axes("blocks/attn/", D, H, KV, dh, whole, axis)
     if cfg.family == "moe":
         E, Fe = cfg.n_experts, cfg.d_ff_expert
         whole.update({"blocks/moe/router": (D, E),
@@ -303,25 +380,31 @@ def _leaf_axes(cfg) -> tuple[dict[str, tuple[int, ...]], dict[str, int]]:
         axis.update({"blocks/moe/router": 1, "blocks/moe/w_gate": 0,
                      "blocks/moe/w_up": 0, "blocks/moe/w_down": 0})
         if cfg.n_shared_experts:
-            Fs = cfg.n_shared_experts * Fe
-            whole.update({"blocks/moe/shared/w_gate": (D, Fs),
-                          "blocks/moe/shared/w_up": (D, Fs),
-                          "blocks/moe/shared/w_down": (Fs, D)})
-            axis.update({"blocks/moe/shared/w_gate": 1,
-                         "blocks/moe/shared/w_up": 1,
-                         "blocks/moe/shared/w_down": 0})
+            _mlp_axes("blocks/moe/shared/", D, cfg.n_shared_experts * Fe,
+                      whole, axis)
     else:
-        F = cfg.d_ff
-        whole.update({"blocks/mlp/w_gate": (D, F), "blocks/mlp/w_up": (D, F),
-                      "blocks/mlp/w_down": (F, D)})
-        axis.update({"blocks/mlp/w_gate": 1, "blocks/mlp/w_up": 1,
-                     "blocks/mlp/w_down": 0})
+        _mlp_axes("blocks/mlp/", D, cfg.d_ff, whole, axis)
     return whole, axis
 
 
 # the replicated MLA leaves that feed only the local heads
 _MLA_SHARED = ("blocks/attn/w_dq", "blocks/attn/norm_q", "blocks/attn/w_dkv",
                "blocks/attn/norm_kv", "blocks/attn/w_kr")
+# A Mamba2 layer's leaves that a split over SSM heads reads at the rank's
+# channels ("inner") or heads ("ssm"): (the per-layer dim that holds them,
+# which, whether the plan may shard the leaf over `model`; a leaf it keeps
+# whole is sliced at use).  The other leaves feed only the local heads
+# too: w_dt (its product taken whole, the local heads' columns kept), w_b,
+# w_c and their convs (used whole).  Every leaf but the sharded ones is
+# partial.
+SSM_LEAVES = {"w_z": (1, "inner", True), "w_x": (1, "inner", True),
+              "conv_x_w": (1, "inner", True), "conv_x_b": (0, "inner", True),
+              "out_proj": (0, "inner", True), "norm": (0, "inner", False),
+              "A_log": (0, "ssm", False), "D": (0, "ssm", False),
+              "dt_bias": (0, "ssm", False)}
+_SSM_SHARED = tuple(SSM + n for n in (
+    *(n for n, (_, _, shards) in SSM_LEAVES.items() if not shards),
+    "w_dt", "w_b", "w_c", "conv_b_w", "conv_b_b", "conv_c_w", "conv_c_b"))
 
 
 def plan_split(cfg, param_specs: Any, m: int, r: int = 0,
@@ -329,12 +412,13 @@ def plan_split(cfg, param_specs: Any, m: int, r: int = 0,
     """The split of ``cfg`` over a ``model`` axis of ``m`` ranks that the
     plan's specs ask for, for the rank at ``r`` (no process group: the
     dry-run counts from it); None at ``m = 1`` or where the plan shards
-    nothing over ``model``.  Raises ``NotImplementedError`` for what is not
-    ported: the ``ssm`` and ``hybrid`` families with a leaf over ``model``,
-    a dim that does not divide the axis, and combinations the split cannot
-    run (a KV-head range the local query heads do not read, a head-split
-    cache without split heads, MLA head leaves or expert leaves split over
-    different ranges)."""
+    nothing over ``model``.  Raises ``NotImplementedError`` for what the
+    split cannot run: a dim that does not divide the axis, SSM channels
+    that are not whole heads a rank, and combinations (a KV-head range the
+    local query heads do not read, a head-split cache without split heads,
+    MLA head leaves, expert leaves or a Mamba2 layer's ``w_x``/``w_z``/
+    ``conv_x_*`` split over different ranges or one whole beside
+    another split, a state cache whose range is not the weights')."""
     flat = {p: _per_layer(p, s) for p, s in _flat(param_specs).items()}
     flat_cache = ({p: tuple(s or ()) for p, s in _flat(cache_specs).items()}
                   if cache_specs is not None else None)
@@ -343,11 +427,6 @@ def plan_split(cfg, param_specs: Any, m: int, r: int = 0,
                                               for s in flat_cache.values())
     if m == 1 or not (on_model or cache_on):
         return None
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"splitting the {cfg.family} family's compute over `model` is not "
-            f"ported yet ({ROADMAP_ITEMS[cfg.family]}): the plan shards "
-            f"{on_model[:4]} over model = {m}; run it at model = 1")
     whole, axis = _leaf_axes(cfg)
     for p in on_model:
         dims = _names_model(flat[p])
@@ -394,6 +473,24 @@ def plan_split(cfg, param_specs: Any, m: int, r: int = 0,
                 partial.add(p)
         return got
 
+    def gqa(prefix: str, H: int, KV: int):
+        """(query heads, KV heads) of the GQA leaves under ``prefix``."""
+        heads, kv = rng(prefix + "wq"), None
+        if heads is not None:
+            G, hl = H // KV, heads[1] - heads[0]
+            if hl % G and G % hl:
+                raise NotImplementedError(
+                    f"{hl} query heads a rank against G = {G}: the local heads "
+                    "do not read whole KV heads")
+            kv = (heads[0] // G, (heads[1] - 1) // G + 1)
+        follow(prefix + "wq", tuple(prefix + n for n in (
+            "wk", "wv", "wo", "bq", "bk", "bv")), "attention",
+            want=lambda p: heads if p.endswith(("/wo", "/bq")) else kv)
+        return heads, kv
+
+    if cfg.family in ("ssm", "hybrid"):
+        return _ssm_split(cfg, flat, flat_cache if cache_on else None, m, r,
+                          rng, follow, gqa, partial)
     kv = None
     if cfg.use_mla:
         heads = follow("blocks/attn/w_uq", ("blocks/attn/w_qr",
@@ -402,20 +499,7 @@ def plan_split(cfg, param_specs: Any, m: int, r: int = 0,
         if heads is not None:
             partial.update(p for p in _MLA_SHARED if p in flat)
     else:
-        H, KV = cfg.n_heads_eff, cfg.n_kv_heads_eff
-        heads = rng("blocks/attn/wq")
-        if heads is not None:
-            G, hl = H // KV, heads[1] - heads[0]
-            if hl % G and G % hl:
-                raise NotImplementedError(
-                    f"{hl} query heads a rank against G = {G}: the local heads "
-                    "do not read whole KV heads")
-            kv = (heads[0] // G, (heads[1] - 1) // G + 1)
-        follow("blocks/attn/wq", ("blocks/attn/wk", "blocks/attn/wv",
-               "blocks/attn/wo", "blocks/attn/bq", "blocks/attn/bk",
-               "blocks/attn/bv"), "attention",
-               want=lambda p: heads if p in ("blocks/attn/wo", "blocks/attn/bq")
-               else kv)
+        heads, kv = gqa("blocks/attn/", cfg.n_heads_eff, cfg.n_kv_heads_eff)
     ffn = experts = router = shared = None
     if cfg.family == "moe":
         experts = follow("blocks/moe/w_gate", ("blocks/moe/w_up",
@@ -442,6 +526,95 @@ def plan_split(cfg, param_specs: Any, m: int, r: int = 0,
                       ffn=ffn, vocab_in=rng("embed"), vocab_out=rng("lm_head"),
                       cache=cache, partial=frozenset(partial), experts=experts,
                       router=router, shared=shared)
+
+
+def _ssm_split(cfg, flat: dict, flat_cache: dict | None, m: int, r: int,
+               rng, follow, gqa, partial: set) -> ModelSplit:
+    """:func:`plan_split` for the ``ssm`` and ``hybrid`` families: the
+    Mamba2 layers' SSM heads, zamba2's shared block (:attr:`ModelSplit.
+    block`) and the state caches."""
+    P, Hs = cfg.ssm_head_dim, cfg.ssm_heads
+    if rng(SSM + "w_x") is not None and Hs % m:
+        raise NotImplementedError(
+            f"{SSM}w_x: dim 1 ({cfg.d_inner} channels, {Hs} SSM heads of {P}) "
+            f"over model = {m} is not whole heads a rank")
+    inner = follow(SSM + "w_x", (SSM + "w_z", SSM + "conv_x_w",
+                                 SSM + "conv_x_b"), "Mamba2 layer",
+                   whole_ok=False)
+    follow(SSM + "w_x", (SSM + "out_proj",), "Mamba2 layer")
+    ssm = None
+    if inner is not None:
+        ssm = (inner[0] // P, inner[1] // P)
+        partial.update(p for p in _SSM_SHARED if p in flat)
+    block = None
+    if cfg.family == "hybrid":
+        A = SHARED + "attn/"
+        H, KV = cfg.n_heads, cfg.n_kv_heads
+        heads, kv = gqa(A, H, KV)
+        ffn = follow(SHARED + "mlp/w_gate", (SHARED + "mlp/w_up",
+                                             SHARED + "mlp/w_down"),
+                     "shared block's FFN")
+        kv_c = (_cache_range(flat_cache, "k", KV, 3, m, r)
+                if flat_cache is not None else None)
+        cache = None
+        if kv_c is not None:
+            _same_range("v", _cache_range(flat_cache, "v", KV, 3, m, r), kv_c)
+            if heads is None:
+                # the block's weights whole: it runs on the cache's KV
+                # heads, its leaves sliced at use
+                kv, heads = kv_c, (kv_c[0] * (H // KV), kv_c[1] * (H // KV))
+                partial.update(p for p in (A + "wq", A + "wk", A + "wv",
+                                           A + "wo") if p in flat)
+            else:
+                _same_range("k", kv_c, kv)
+            cache = "heads"
+        elif flat_cache is not None and heads is not None:
+            raise NotImplementedError(
+                f"cache specs {flat_cache}: the shared block's heads are split "
+                "over `model`, so its cache must be split over KV heads alike")
+        if heads is not None or ffn is not None:
+            block = ModelSplit(m=m, r=r, group=None, specs=flat, heads=heads,
+                               kv=kv, ffn=ffn, vocab_in=None, vocab_out=None,
+                               cache=cache, prefix=SHARED)
+    cache = None
+    if flat_cache is not None:
+        _same_range("h", _cache_range(flat_cache, "h", Hs, 2, m, r), ssm)
+        _same_range("conv_x", _cache_range(flat_cache, "conv_x", cfg.d_inner,
+                                           3, m, r), inner)
+        for key in ("conv_b", "conv_c"):
+            _same_range(key, _cache_range(flat_cache, key, cfg.ssm_state, 3,
+                                          m, r), None)
+        cache = "heads"
+    return ModelSplit(m=m, r=r, group=None, specs=flat, heads=None, kv=None,
+                      ffn=None, vocab_in=rng("embed"), vocab_out=rng("lm_head"),
+                      cache=cache, partial=frozenset(partial), ssm=ssm,
+                      inner=inner, block=block)
+
+
+def _cache_range(flat_cache: dict, key: str, n: int, dim: int, m: int,
+                 r: int) -> tuple[int, int] | None:
+    """This rank's range of dim ``dim`` (size ``n``) of the cache ``key``
+    (None: whole); raises where the plan splits it on another dim or
+    unevenly."""
+    spec = flat_cache.get(key)
+    dims = _names_model(spec)
+    if not dims:
+        return None
+    if dims != [dim] or entry_axes(spec[dim]) != (MODEL,) or n % m:
+        seq = key in ("k", "v") and 2 in dims
+        raise NotImplementedError(
+            f"cache {key}: spec {spec} over model = {m}: the split serves it "
+            f"over `model` alone on dim {dim}, evenly"
+            + ("; a sequence-split shared cache is not ported (no plan asks "
+               "for one)" if seq else ""))
+    return local_range(n, spec, m, r, dim)
+
+
+def _same_range(key: str, got, want) -> None:
+    if got != want:
+        raise NotImplementedError(
+            f"cache {key}: this rank's range {got} is not the range {want} its "
+            "weights compute (None: whole)")
 
 
 def _cache_split(cfg, flat_cache: dict, flat: dict, on_model: list,

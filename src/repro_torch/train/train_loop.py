@@ -23,13 +23,14 @@ loss's path (a kernel without a backward would cut it).
 On a mesh (``make_train_step(mesh=...)``) the masters, moments and EF
 residuals are DTensors on the plan's placements (:func:`state_specs`,
 :func:`shard_state`), and each rank computes its own batch rows.  Where
-the plan shards leaves over ``model`` (dense and MoE families), the model is built
+the plan shards leaves over ``model`` (every family), the model is built
 with the plan's :class:`~repro_torch.sharding.tp.ModelSplit` and holds
 each such leaf as this rank's shard (gathered over the FSDP axis, never
 over ``model``), and the layer's compute splits as Megatron splits it
-(:mod:`repro_torch.sharding.tp`; the MoE family's experts and MLA heads
-too).  The ``ssm`` and ``hybrid`` families raise there (ROADMAP.md, Queue
-A item 10g).  The MoE layers route over the whole microbatch, as the
+(:mod:`repro_torch.sharding.tp`; the MoE family's experts and MLA heads,
+Mamba2's SSM heads and zamba2's shared block too; the shared block's
+weights collect the gradients of every application before the sums
+below).  The MoE layers route over the whole microbatch, as the
 reference's GSPMD does: the data-parallel ranks whose rows make one
 microbatch (``pod`` × ``data``, or ``data`` within a pod under the int8
 cross-pod reduce) are installed as the token group
@@ -253,7 +254,9 @@ def make_train_step(model: Transformer, oc: OptConfig, *,
     data-parallel ranks (``pod`` × ``data``) in one all-reduce a leaf and
     divides by microbatches × ranks; a replicated leaf that a rank reads
     only in part (``ModelSplit.partial``: ``wk``/``wv``/``bk``/``bv`` kept
-    whole beside split heads) is summed over ``model`` too, while a
+    whole beside split heads; Mamba2's ``w_dt``, ``A_log``, ``D``,
+    ``dt_bias``, gate ``norm``, ``w_b``/``w_c`` and their convs beside
+    split SSM heads) is summed over ``model`` too, while a
     ``model``-sharded leaf's gradient stays the rank's and a leaf every
     rank reads whole (the norms) has the whole gradient on every rank.
     With ``pod_reduce="int8_ef"`` the sum runs over ``data`` (and

@@ -10,10 +10,11 @@ bfloat16 probabilities at float32, against the JAX package, on the CPU.
   window on a full-length decode cache raises.
 * zamba2-7b's SMOKE config (7 layers, a shared block after every 2 Mamba2
   layers, a tail of 1) through ``params_from_reference``:
-  ``forward_full``/``forward_decode`` in float32 and bfloat16, with and
-  without a window; the port's engine against the JAX engine's greedy
-  tokens, with a window whose ring is shorter than the prompts (the
-  prefill's last W positions land at ``idx % W``).
+  ``forward_full``/``forward_decode`` in float32 with a window (without a
+  window in float32 and bfloat16, and the port's engine against the JAX
+  engine's greedy tokens, with a window whose ring is shorter than the
+  prompts: ``tests/test_torch_hybrid_serve.py``, which runs beside this
+  file on another worker).
 * ``prefix_embeds`` in ``forward_full`` against the JAX function, for a
   dense (internvl2), an ``ssm`` and a ``hybrid`` config.
 
@@ -46,14 +47,12 @@ import torch
 from repro.configs import get_arch as j_get_arch
 from repro.models import attention as jatt
 from repro.models import transformer as jt
-from repro.serve.engine import ServeEngine as JServeEngine
 from repro_torch.configs.registry import get_arch
 from repro_torch.kernels.flash_attention import flash_attention_fused
 from repro_torch.models import attention as tatt
 from repro_torch.models.layers import rope_table
 from repro_torch.models.transformer import (init_cache, init_params,
                                             params_from_reference)
-from repro_torch.serve.engine import ServeEngine
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 ARCH = "zamba2-7b"
@@ -240,11 +239,17 @@ def _prefill_caches(model, cfg, pj, cfg_j, toks, lens, S):
     return cache_t, cache_j
 
 
-@pytest.mark.parametrize("dtype,window", [("float32", 0), ("bfloat16", 0),
-                                          ("float32", 8)])
+@pytest.mark.parametrize("dtype,window", [("float32", 8)])
 def test_forward_full_and_decode_match_reference(dtype, window):
     """With ``attn_window = 8`` the shared cache is a ring of 8 slots and
-    the decode steps run past it."""
+    the decode steps run past it (without a window, in float32 and
+    bfloat16: ``tests/test_torch_hybrid_serve.py``)."""
+    forward_and_decode(dtype, window)
+
+
+def forward_and_decode(dtype: str, window: int) -> None:
+    """zamba2's SMOKE ``forward_full`` (logits, caches) and 4 decode steps
+    from per-sequence prefills against the JAX package's."""
     cfg_j, pj, cfg, model = _models(act_dtype=dtype, attn_window=window)
     rng = np.random.default_rng(9)
     B, S = 2, 24
@@ -286,42 +291,6 @@ def test_forward_full_and_decode_match_reference(dtype, window):
             j = np.asarray(cache_j[key], np.float32)
             gap = float(np.abs(j - np.asarray(cache_f[key], np.float32)).max())
             assert float(np.abs(cache_t[key].float().numpy() - j).max()) <= 2 * gap
-
-
-@pytest.mark.parametrize("window", [0, 8])
-def test_engine_greedy_tokens_equal_the_jax_engine(window):
-    """Exact-length prefills; with a window of 8 the prompts of 13 and 17
-    tokens are longer than the ring, whose slots take the prefill's last 8
-    positions at ``idx % 8``."""
-    cfg_j, pj, cfg, model = _models(attn_window=window)
-    rng = np.random.default_rng(1)
-    prompts = [list(rng.integers(1, cfg.vocab_size, size=n)) for n in (1, 5, 13, 17)]
-    ref = JServeEngine(cfg_j, pj, max_batch=3, max_len=48)
-    eng = ServeEngine(cfg, model, max_batch=3, max_len=48, device="cpu")
-    for p in prompts:
-        ref.submit(p, max_new_tokens=7)
-        eng.submit(p, max_new_tokens=7)
-    want = [r.tokens for r in ref.run_to_completion()]
-    assert [r.tokens for r in eng.run_to_completion()] == want
-
-
-def test_engine_writes_a_ring_by_position_modulo_its_width():
-    """One 13-token prompt into a ring of 8: slot s holds the prefill's
-    position in [5, 13) that is s modulo 8; the state caches take the
-    slot whole."""
-    _, _, cfg, model = _models(attn_window=8)
-    eng = ServeEngine(cfg, model, max_batch=2, max_len=32, device="cpu")
-    prompt = list(range(3, 16))
-    eng.submit(prompt, max_new_tokens=1)
-    eng._insert(eng._queue.take(1)[0], 1)
-    _, pc, _ = model.forward_full(np.asarray(prompt)[None], return_cache=True)
-    assert eng.caches["k"].shape[2] == 8
-    for s in range(8):
-        p = next(i for i in range(5, 13) if i % 8 == s)
-        assert torch.equal(eng.caches["k"][:, 1, s], pc["k"][:, 0, p])
-        assert torch.equal(eng.caches["v"][:, 1, s], pc["v"][:, 0, p])
-    assert torch.equal(eng.caches["h"][:, 1], pc["h"][:, 0])
-    assert not eng.caches["k"][:, 0].any() and not eng.caches["h"][:, 0].any()
 
 
 def test_decode_makes_one_ring_slot_and_length_for_every_application(monkeypatch):

@@ -589,21 +589,35 @@ class _Mesh:
 
 
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-7b"])
-def test_other_families_refuse_a_split_and_run_at_model_1(arch):
+def test_other_families_refuse_a_split_and_run_at_model_1(arch, monkeypatch):
+    """The ``ssm`` and ``hybrid`` families take the plan's split at model 2
+    (``model_split`` and ``Transformer(split=)``: each rank's SSM heads),
+    model 1 gives no split, and a plan that splits ``w_x`` but keeps
+    ``w_z`` whole, or the reverse, is refused."""
     from repro_torch.models.transformer import Transformer, init_params
+    from repro_torch.sharding import tp
     from repro_torch.sharding.planner import plan_for
-    from repro_torch.sharding.tp import ModelSplit, model_split
+    from repro_torch.sharding.spec import P
+    from repro_torch.sharding.tp import model_split, plan_split
 
     spec = _spec(arch)
     cfg = spec.model
     plan = plan_for(spec, _Mesh((1, 2)), mode="train")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, Queue A item"):
-        model_split(cfg, plan.param_specs, _Mesh((1, 2)))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, Queue A item"):
-        Transformer(cfg, "cpu", ModelSplit(2, 0, None, {}, None, None, None,
-                                           None, None))
+    monkeypatch.setattr(tp, "axis_group", lambda mesh, axes: "model group")
+    split = model_split(cfg, plan.param_specs, _Mesh((1, 2)))
+    assert split.group == "model group"
+    assert split.ssm == (0, cfg.ssm_heads // 2)
+    assert split.inner == (0, cfg.d_inner // 2)
+    model = Transformer(cfg, "meta", split)
+    assert tuple(model.blocks[0].ssm["w_x"].shape) == (cfg.d_model,
+                                                       cfg.d_inner // 2)
     plan1 = plan_for(spec, _Mesh((2, 1)), mode="train")
     assert model_split(cfg, plan1.param_specs, _Mesh((2, 1))) is None
+    col = P(None, None, "model")
+    for split_one, whole in (("w_x", "w_z"), ("w_z", "w_x")):
+        specs = {"blocks": {"ssm": {split_one: col, whole: P()}}}
+        with pytest.raises(NotImplementedError, match="w_"):
+            plan_split(cfg, specs, 2, 0)
     logits, _, _ = init_params(cfg, 0, "cpu").forward_full(
         np.zeros((1, 4), np.int32))
     assert torch.isfinite(logits).all()
