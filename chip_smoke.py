@@ -296,7 +296,8 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               the CUDA tensors as they lie).  First the decode kernel's
               log-sum-exp output against its plain version (``TP_LSE_TOL``;
               bf16 and f32, one split and many, lengths 0 included: zeros
-              and -inf), two calls bitwise.  Then this process runs the
+              and -inf; the output then float32: what a cache over the
+              sequence merges before its one rounding), two calls bitwise.  Then this process runs the
               one-process references: qwen2.5-3b at every width,
               ``TP_LAYERS`` layers, float32, ``TP_STEPS`` steps at S
               ``TP_S``, batch ``TP_BATCH`` in ``TP_MB`` microbatches, and a
@@ -390,7 +391,33 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               GiB a rank against the model's, peak GiB and step seconds
               (read, not gated).  No new kernel: each it launches has its
               plain-version check in phases 6 and 10;
-15. report  — the chain kernels' launch floor (an empty kernel with their
+15. tp-dp   — serving over data-parallel ranks (``serve/engine.py``,
+              ``sharding/tp.py``'s ``DataSplit``; ranks as phase 12's):
+              ``TPD_SERVE``'s qwen2.5-3b x4, deepseek-v2-236b x2 and
+              zamba2-7b x6 in bfloat16 on the plan of decode_32k's config
+              at (data 2, model 1) (2 ranks) and (data 2, model 2) (4
+              ranks), phase 12's traffic: each data rank holds and decodes
+              4 of the 8 slots, the model split of phases 12-14 inside it
+              (qwen's cache over KV heads, deepseek's latents over the
+              sequence, zamba2's ``h``/``conv_x`` over SSM heads and its
+              shared cache over KV heads at model 2), the MoE decode
+              routed over the whole batch (the data ranks as the token
+              group), every rank prefilling every request, and deepseek's
+              weights on the plan's FSDP over ``data`` (8.99 B parameters:
+              more than 8 GB of bf16 a model rank): a rank holds its data
+              shard, gathers a layer's leaves while the layer runs, and
+              runs the experts, the embedding, the head and ``wo`` on their
+              shards (the activations move, not the weights).  Held as
+              phases 12-14's serving runs (every rank the same tokens,
+              phase 7's bf16 rule against the one-process model's teacher
+              forcing; MoE: at the served capacity and on the no-drop
+              copy, each request's routes from the rank that decoded it),
+              launches a rank = attention applications x prefills (flash)
+              and x decode steps (its rows), each rank's caches at 4 rows,
+              its resident parameters its model shard's less, under FSDP,
+              the other data rank's share of the FSDP leaves.  No new
+              kernel;
+16. report  — the chain kernels' launch floor (an empty kernel with their
               parameter block) beside each served chain call's device time
               and time per call, against ``CHAIN_DEVICE_MS`` /
               ``CHAIN_FLOOR_X`` / ``CHAIN_CALL_MS`` (printed, not checked);
@@ -418,11 +445,12 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               at S 1,024 on ``route="simt"``, on no model's training path);
               internvl2's G 6 forward at S
               4,096 beside masked SDPA; decode attention at qwen2.5-3b's
-              served shape with the log-sum-exp output beside the row
-              without it; the
+              served shape with the log-sum-exp output, and in bfloat16
+              with it and a float32 output, beside the row without it;
+              the
               ``kernels`` JSON line (the forward flash kernels' launches
               are the served paths', their training launches beside them,
-              and phases 12's, 13's and 14's summed over their ranks,
+              and phases 12's to 15's summed over their ranks,
               ``tp_launches``),
               the card line, and last ``{"ok": true, "device": {...}}``.
 
@@ -431,9 +459,10 @@ layers, every width kept), phase 10's training runs beside qwen2.5-3b
 (every width kept; depths as ``LM_TRAIN_FAMILIES`` states), phase 11's
 mesh runs (``DIST_LAYERS`` of qwen2.5-3b's 36 layers, every width kept),
 phase 12's (``TP_LAYERS`` of qwen2.5-3b's, 2 of granite-8b's 36),
-phase 13's (2 of olmoe-1b-7b's 16, 2 of deepseek-v2-236b's 60) and phase
+phase 13's (2 of olmoe-1b-7b's 16, 2 of deepseek-v2-236b's 60), phase
 14's (4 of mamba2-1.3b's 48 layers, 6 of zamba2-7b's 81 block
-applications), each cut for the phase's time, every width kept.
+applications) and phase 15's (phases 12-14's depths), each cut for the
+phase's time, every width kept.
 
 Needs only the repository (``src/`` on the path) and one card.  Writes the
 full per-case report to ``chiprun_out/chip_smoke.json``.
@@ -695,7 +724,14 @@ TPM_SERVE = (("olmoe-1b-7b", 2, 2), ("deepseek-v2-236b", 2, 2),
 # planted fault reads four orders of magnitude above the limit
 # (tools/tp_ssm_faults.py: w_b left out of the partial leaves, w_b's first
 # moments 0.815-1.09 off; the gated norm without its backward all-reduce,
-# conv_c_b's 0.362-0.381; NVIDIA H100 80GB HBM3, 700.00 W).  Serving:
+# conv_c_b's 0.362-0.381; NVIDIA H100 80GB HBM3, 700.00 W).  Against a
+# float64 step (tools/tp_ssm_first.py, same card) each run lies up to about
+# 1e-5 from the exact first update on its own: the float32 one-process step
+# 9.73e-6 (mamba2 x4's A_log) and 1.10e-5 (zamba2 x6's shared wq; its
+# shared norm1 8.91e-6), a rank 1.19e-5 and 1.26e-5; what the phase holds
+# is the distance between the two, which can reach the sum of theirs, so
+# the limit stays 2e-5 (1e-5 is under the float32 reference's own error).
+# Serving:
 # (arch, layers, model ranks) in bfloat16 on the plan of decode_32k's
 # config, phase tp's traffic, every rank the same tokens, held to phase
 # 7's bf16 rule (LM_BF16_TIES) against the one-process model's teacher
@@ -704,6 +740,23 @@ TPS_TRAIN = (("mamba2-1.3b", 4), ("zamba2-7b", 6))
 TPS_SERVE = (("mamba2-1.3b", 4, 2), ("zamba2-7b", 6, 2),
              ("mamba2-1.3b", 4, 4), ("zamba2-7b", 6, 4))
 TPS_FIRST_REL = 2e-5
+# phase tp-dp: serving over data-parallel ranks (pod x data > 1;
+# src/repro_torch/serve/engine.py, sharding/tp.py's DataSplit): the
+# engine's slots split as the plan splits the caches' batch (TP_MAX_BATCH /
+# 2 a data rank), phases 12-14's model split inside each data rank, the
+# MoE decode routed over the whole batch, and FSDP's weights over data
+# where the plan asks for it (deepseek-v2-236b x2: 8.99 B parameters, more
+# than 8 GB of bf16 a model rank at model 1 and 2).  (arch, layers) in
+# bfloat16 on the plan of decode_32k's config at each mesh of TPD_MESHES,
+# phase tp's traffic, held as phases 12-14's serving runs: every rank the
+# same tokens, phase 7's bf16 rule against the one-process model's teacher
+# forcing (LM_BF16_TIES; the MoE rule on the no-drop copy), launches a rank
+# = attention applications x prefills (every rank prefills every request)
+# and x decode steps (its rows); each rank's caches hold TP_MAX_BATCH / 2
+# rows, and its resident parameters are its model shard's less, under
+# FSDP, all but its 1 / data share of the leaves the plan puts over data.
+TPD_SERVE = (("qwen2.5-3b", 4), ("deepseek-v2-236b", 2), ("zamba2-7b", 6))
+TPD_MESHES = ((2, 1), (2, 2))
 # the two routes' kernels, as a trace names them (by substring)
 FLASH_BWD_KERNELS = ("fb_dq_kernel", "fb_dkdv_kernel", "fbt_dq_kernel",
                      "fbt_dkdv_kernel", "fbt_dkdv2_kernel", "fbs_split_kernel")
@@ -776,7 +829,6 @@ def device_ms(fn, reps: int, warm: int = 3) -> tuple[float, str]:
     activity, the time between CUDA events around the ``reps`` calls run
     back to back, over ``reps``.  Returns ``(ms, "profiler" | "events")``."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warm):
@@ -786,8 +838,7 @@ def device_ms(fn, reps: int, warm: int = 3) -> tuple[float, str]:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in p.events()
-             if e.device_type == DeviceType.CUDA)
+    us = sum(t for _, t in trace_acts(p)[0])
     if us > 0:
         return us / 1e3 / reps, "profiler"
     a = torch.cuda.Event(enable_timing=True)
@@ -1200,6 +1251,25 @@ def decode_work(lens, H: int, KV: int, dh: int, item: int) -> tuple[float, float
     return float(nbytes), float(4 * n * H * dh)
 
 
+def trace_acts(p) -> tuple[list, int]:
+    """Of a finished ``torch.profiler`` trace ``p``: its device activities
+    (kernels, copies, sets) as (name, us), and the host's calls of the CUDA
+    runtime's copy functions (``cudaMemcpy*``), read from the trace's raw
+    (kineto) events.  ``p.events()`` gives the same, but first builds every
+    host event's tree: 7 s for three of zamba2-7b's decode steps, against
+    0.07 s (NVIDIA H100 80GB HBM3)."""
+    from torch.autograd import DeviceType
+
+    acts, calls = [], 0
+    for e in p.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            acts.append((e.name(), (e.end_ns() - e.start_ns()) / 1e3))
+        elif (e.device_type() == DeviceType.CPU
+              and e.name().startswith("cudaMemcpy")):
+            calls += 1
+    return acts, calls
+
+
 def device_trace(fn, reps: int = 3) -> tuple[list | None, int]:
     """One ``torch.profiler`` (CUPTI) trace of ``reps`` calls of ``fn``,
     after one warm call: the device activities (kernels, copies, sets) as
@@ -1208,7 +1278,6 @@ def device_trace(fn, reps: int = 3) -> tuple[list | None, int]:
     (the profiler drops events now and then) is taken again, up to
     ``TRACE_TRIES`` times; then (None, its copy calls)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1219,11 +1288,7 @@ def device_trace(fn, reps: int = 3) -> tuple[list | None, int]:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        events = p.events()
-        calls = sum(1 for e in events if e.device_type == DeviceType.CPU
-                    and e.name.startswith("cudaMemcpy"))
-        acts = [(e.name, e.time_range.elapsed_us()) for e in events
-                if e.device_type == DeviceType.CUDA]
+        acts, calls = trace_acts(p)
         if acts:
             return acts, calls
     return None, calls
@@ -1451,26 +1516,31 @@ def htod_ops(fn) -> int:
     return counter.n
 
 
-def engine_routes(eng_log: list[dict], done, L: int) -> dict:
+def engine_routes(eng_log: list[dict], done, L: int,
+                  rows: tuple[int, int] | None = None) -> dict:
     """The experts (sorted, per layer: (tokens, k)) that chose each served
     token in an engine run logged by ``route_log``: the prefill of request
     r (the first ``len(done)`` forwards, every request admitted at once)
     at its last prompt position, then decode step j - 1 at the request's
-    slot."""
+    slot.  On a data rank that decodes the slots ``rows`` = [r0, r1) (the
+    engine's ``rows``), only the requests in those slots."""
     import torch
 
     n = len(done)
+    r0, r1 = rows or (0, 1 << 30)
     if len(eng_log) % L or len(eng_log) // L < n:
         raise AssertionError(f"{len(eng_log)} MoE layers logged, not "
                              f"{L} per forward")
     out = {}
     for i, r in enumerate(sorted(done, key=lambda q: q.rid)):
+        if not r0 <= r.slot < r1:
+            continue
         per_layer = []
         for layer in range(L):
-            rows = [eng_log[i * L + layer]["top_i"][len(r.prompt) - 1]]
-            rows += [eng_log[(n + j - 1) * L + layer]["top_i"][r.slot]
-                     for j in range(1, len(r.tokens))]
-            per_layer.append(torch.stack(rows).sort(-1).values)
+            rows_ = [eng_log[i * L + layer]["top_i"][len(r.prompt) - 1]]
+            rows_ += [eng_log[(n + j - 1) * L + layer]["top_i"][r.slot - r0]
+                      for j in range(1, len(r.tokens))]
+            per_layer.append(torch.stack(rows_).sort(-1).values)
         out[r.rid] = per_layer
     return out
 
@@ -2068,7 +2138,6 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
     import tempfile
 
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs.registry import get_arch
@@ -2570,9 +2639,8 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
         per = LM_TRAIN_FULL_MB * L
         take(f"{cfg.name} traced step", {fk: 2 * per, bk: per})
         by: dict[str, float] = {}
-        for e in p.events():
-            if e.device_type == DeviceType.CUDA:
-                by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        for name, us in trace_acts(p)[0]:
+            by[name] = by.get(name, 0.0) + us / 1e3
         # a trace that lost every device activity (ROADMAP Queue C item 8)
         # leaves the split not measured (NaN)
         total = sum(by.values()) or float("nan")
@@ -2955,6 +3023,8 @@ def _tp_bytes(model) -> float:
 
 def _tp_layout(split) -> str:
     """What a rank's split computes, as a phase prints it."""
+    if split is None:
+        return "whole over model"
     parts = [f"{k} {getattr(split, k)}" for k in ("heads", "kv", "ffn", "ssm",
                                                   "inner", "experts")
              if getattr(split, k) is not None]
@@ -3021,11 +3091,11 @@ def tp_child(rank: int, world: int, tmp: str, jobs, device: str) -> None:
     from repro_torch.launch.mesh import init_group, make_mesh
     from repro_torch.launch.steps import build_cell
     from repro_torch.models.transformer import (Transformer, _flatten,
-                                                init_params)
+                                                _leaves, init_params)
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.sharding.placement import local_rows
     from repro_torch.sharding.planner import plan_for
-    from repro_torch.sharding.tp import gather_from_model, model_split
+    from repro_torch.sharding.tp import data_split, gather_from_model, model_split
     from repro_torch.train import train_loop as tloop
     from repro_torch.train.optim import OptConfig
 
@@ -3090,7 +3160,8 @@ def tp_child(rank: int, world: int, tmp: str, jobs, device: str) -> None:
         del model, state, prog, logits, want, ref_first
         return out
 
-    def serve(arch, layers, shape):
+    def serve_model(arch, layers, shape):
+        """(cfg, mesh, plan, the rank's model on the plan, its record)."""
         spec, cfg = _tp_serve_cfg(arch, layers)
         mesh = make_mesh(shape, ("data", "model"), dev)
         torch.cuda.reset_peak_memory_stats()
@@ -3098,9 +3169,24 @@ def tp_child(rank: int, world: int, tmp: str, jobs, device: str) -> None:
                         cell=ShapeCell("tp", "decode", TP_MAX_LEN, TP_MAX_BATCH),
                         cache_batch=TP_MAX_BATCH, cache_len=TP_MAX_LEN)
         split = model_split(cfg, plan.param_specs, mesh, plan.cache_specs)
-        model = init_params(cfg, 0, dev, split)
-        whole = _tp_bytes(Transformer(cfg, "meta"))
+        data = data_split(cfg, plan, mesh)
+        model = init_params(cfg, 0, dev, split, data)
         model.forward_full(np.arange(1, 9, dtype=np.int32)[None, :])  # warm up
+        shard = Transformer(cfg, "meta", split)      # a (1, m) rank's model
+        over = data.fsdp if data is not None else {}
+        rec = dict(cache=None if split is None else split.cache,
+                   heads=None if split is None else split.heads,
+                   layout=_tp_layout(split), fsdp=len(over),
+                   data_ranks=1 if data is None else data.f,
+                   param_gib=_tp_bytes(model) / 2**30,
+                   shard_gib=_tp_bytes(shard) / 2**30,
+                   fsdp_gib=sum(t.numel() * t.element_size() for path, ts in
+                                _leaves(shard).items() if path in over
+                                for t in ts) / 2**30,
+                   whole_gib=_tp_bytes(Transformer(cfg, "meta")) / 2**30)
+        return cfg, mesh, plan, model, rec
+
+    def run_engine(cfg, model, mesh, plan) -> dict:
         eng = ServeEngine(cfg, model, max_batch=TP_MAX_BATCH,
                           max_len=TP_MAX_LEN, mesh=mesh, plan=plan, device=dev)
         for p in _tp_prompts(cfg.vocab_size):
@@ -3109,15 +3195,22 @@ def tp_child(rank: int, world: int, tmp: str, jobs, device: str) -> None:
         for k in counted:
             LAUNCHES[k] = 0
         done, sec = sync_time(eng.run_to_completion)
-        out = dict(tokens=[(r.rid, r.prompt, r.tokens) for r in done],
+        out = dict(tokens=[(r.rid, r.prompt, r.tokens, r.slot) for r in done],
                    launches={k: LAUNCHES[k] for k in counted},
                    steps=eng.metrics.snapshot()["batches"], seconds=sec,
-                   cache=split.cache, heads=split.heads, kv=split.kv,
-                   param_gib=_tp_bytes(model) / 2**30, whole_gib=whole / 2**30,
+                   rows=eng.rows,
+                   cache_rows={k: c.shape[1] for k, c in eng.caches.items()})
+        del eng
+        return out
+
+    def serve(arch, layers, shape):
+        cfg, mesh, plan, model, out = serve_model(arch, layers, shape)
+        split = model.split
+        out.update(run_engine(cfg, model, mesh, plan), kv=split and split.kv,
                    peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-                   sharded_wk=split.sharded("blocks/attn/wk"),
-                   layout=_tp_layout(split))
-        del model, eng
+                   sharded_wk=split is not None and split.sharded(
+                       "blocks/attn/wk"))
+        del model
         return out
 
     def moe_train(shape):
@@ -3165,40 +3258,20 @@ def tp_child(rank: int, world: int, tmp: str, jobs, device: str) -> None:
         return out
 
     def moe_serve(arch, layers, shape):
-        spec, cfg = _tp_serve_cfg(arch, layers)
-        mesh = make_mesh(shape, ("data", "model"), dev)
-        torch.cuda.reset_peak_memory_stats()
-        plan = plan_for(spec, mesh, mode="decode",
-                        cell=ShapeCell("tp", "decode", TP_MAX_LEN, TP_MAX_BATCH),
-                        cache_batch=TP_MAX_BATCH, cache_len=TP_MAX_LEN)
-        split = model_split(cfg, plan.param_specs, mesh, plan.cache_specs)
-        model = init_params(cfg, 0, dev, split)
-        whole = _tp_bytes(Transformer(cfg, "meta"))
-        model.forward_full(np.arange(1, 9, dtype=np.int32)[None, :])  # warm up
-        out = dict(cache=split.cache, heads=split.heads, experts=split.experts,
-                   shared=split.shared, param_gib=_tp_bytes(model) / 2**30,
-                   whole_gib=whole / 2**30)
+        cfg, mesh, plan, model, out = serve_model(arch, layers, shape)
+        split = model.split
+        out.update(experts=split and split.experts, shared=split and split.shared)
         for key, run_cfg in (("served", cfg), ("nodrop", nodrop(cfg))):
             model.cfg = run_cfg
-            eng = ServeEngine(run_cfg, model, max_batch=TP_MAX_BATCH,
-                              max_len=TP_MAX_LEN, mesh=mesh, plan=plan,
-                              device=dev)
-            for p in _tp_prompts(cfg.vocab_size):
-                eng.submit(p, max_new_tokens=TP_NEW_TOKENS)
-            torch.cuda.synchronize()
-            for k in counted:
-                LAUNCHES[k] = 0
             with route_log(key == "nodrop") as log:
-                done, sec = sync_time(eng.run_to_completion)
-            routes = (engine_routes(log, done, layers) if key == "nodrop"
-                      else None)
-            out[key] = dict(
-                tokens=[(r.rid, r.prompt, r.tokens, r.slot) for r in done],
-                launches={k: LAUNCHES[k] for k in counted},
-                steps=eng.metrics.snapshot()["batches"], seconds=sec,
-                routes=None if routes is None else {
-                    rid: [t.cpu() for t in ts] for rid, ts in routes.items()})
-            del eng, log
+                out[key] = run_engine(run_cfg, model, mesh, plan)
+            routes = (engine_routes(log, [types.SimpleNamespace(
+                rid=rid, prompt=p, tokens=t, slot=sl)
+                for rid, p, t, sl in out[key]["tokens"]], layers,
+                out[key]["rows"]) if key == "nodrop" else None)
+            out[key]["routes"] = None if routes is None else {
+                rid: [t.cpu() for t in ts] for rid, ts in routes.items()}
+            del log
         model.cfg = cfg
         out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         del model
@@ -3231,7 +3304,6 @@ def tp_train_ref(dev, tmp: str, arch: str, layers: int) -> list[dict]:
     from repro_torch.launch.steps import build_cell
     from repro_torch.models.transformer import _flatten
     from repro_torch.sharding.spec import MeshShape
-    from repro_torch.sharding.tp import plan_split
     from repro_torch.train import train_loop as tloop
     from repro_torch.train.optim import OptConfig
 
@@ -3254,25 +3326,33 @@ def tp_train_ref(dev, tmp: str, arch: str, layers: int) -> list[dict]:
                               grad_norm=float(m["grad_norm"]),
                               seconds=time.perf_counter() - t1))
         if i == 0:           # each rank's slice of the first moments
-            m1 = _flatten(st.m)
-            for r in range(2):
-                sp = plan_split(cfg, prog.plan.param_specs, 2, r)
-                part = {}
-                for path, x in m1.items():
-                    if path.startswith("blocks/"):
-                        sl = (slice(None),) + sp.local_slices(
-                            path, tuple(x.shape[1:]))
-                    else:
-                        sl = sp.local_slices(path, tuple(x.shape))
-                    part[path] = x[sl].cpu()
-                torch.save(part, os.path.join(tmp,
-                                              f"tp_ref_first_{arch}_{r}.pt"))
-                del part
-            del m1
+            tp_save_first(tmp, arch, cfg, prog.plan, _flatten(st.m))
     del model, st, step
     gc.collect()
     torch.cuda.empty_cache()
     return ref_steps
+
+
+def tp_save_first(tmp: str, arch: str, cfg, plan, m1: dict) -> None:
+    """Each (data 1, model 2) rank's slices under ``plan``'s split of the
+    whole first moments ``m1`` (leaf path → tensor, ``blocks/`` stacked),
+    as ``tp_ref_first_<arch>_<rank>.pt`` under ``tmp``: what the ranks'
+    ``train`` jobs hold their own against."""
+    import torch
+
+    from repro_torch.sharding.tp import plan_split
+
+    for r in range(2):
+        sp = plan_split(cfg, plan.param_specs, 2, r)
+        part = {}
+        for path, x in m1.items():
+            if path.startswith("blocks/"):
+                sl = (slice(None),) + sp.local_slices(path, tuple(x.shape[1:]))
+            else:
+                sl = sp.local_slices(path, tuple(x.shape))
+            part[path] = x[sl].cpu()
+        torch.save(part, os.path.join(tmp, f"tp_ref_first_{arch}_{r}.pt"))
+        del part
 
 
 def tp_train_reading(got: dict, ref_steps: list[dict]) -> dict:
@@ -3329,40 +3409,46 @@ def tp_train_hold(label: str, ranks: list[dict], ref_steps: list[dict],
 
 
 def tp_serve_hold(ranks: list[dict], arch: str, layers: int, m: int, rmodel,
-                  ref_done: list, launches: dict) -> dict:
+                  ref_done: list, launches: dict, shape=None) -> dict:
     """Hold a served run on a plan (``tp_child``'s ``serve``, one record a
-    rank): every rank the same tokens, teacher-forced agreement with the
-    one-process model ``rmodel`` >= ``LM_BF16_AGREE`` (for
-    ``LM_BF16_TIES`` below it only where every disagreement is a rounding
-    tie), each rank's launches = attention applications x prefills (flash)
-    and x decode steps; print it, add the launches to ``launches``, return
-    its record.  Raises AssertionError on a failed check."""
+    rank; on the mesh (data, model) = ``shape``, (1, m) where None): every
+    rank the same tokens, teacher-forced agreement with the one-process
+    model ``rmodel`` >= ``LM_BF16_AGREE`` (for ``LM_BF16_TIES`` below it
+    only where every disagreement is a rounding tie), each rank's launches
+    = attention applications x prefills (flash; every rank prefills every
+    request) and x decode steps; print it, add the launches to
+    ``launches``, return its record.  Raises AssertionError on a failed
+    check."""
+    shape = shape or (1, m)
     scfg = rmodel.cfg
     toks = ranks[0]["tokens"]
     if any(x["tokens"] != toks for x in ranks):
-        raise AssertionError(f"tp serve {arch} model {m}: ranks differ")
+        raise AssertionError(f"tp serve {arch} {shape}: ranks differ")
     done = [types.SimpleNamespace(rid=rid, prompt=p, tokens=t)
-            for rid, p, t in toks]
+            for rid, p, t, _ in toks]
     n, worse, _, _, _ = teacher_forced(rmodel, done, scfg.vocab_size, False)
     agree = 1 - len(worse) / n
     ties = sum(w["served_gap"] <= w["tie"] for w in worse)
-    same = sum(a == b for (_, _, ta), (_, _, tb) in zip(toks, ref_done)
+    same = sum(a == b for (_, _, ta, _), (_, _, tb) in zip(toks, ref_done)
                for a, b in zip(ta, tb)) / n
     x = ranks[0]
     apps = attention_layers(scfg)
     want = {"flash_attention_wgmma": apps * TP_REQUESTS,
             "decode_attention": apps * x["steps"]}
-    case = dict(arch=arch, layers=layers, model=m, cache=x["cache"],
-                layout=x["layout"], sharded_wk=x["sharded_wk"],
-                agreement=agree, disagreements=len(worse), rounding_ties=ties,
+    case = dict(arch=arch, layers=layers, model=m, mesh=shape,
+                cache=x["cache"], layout=x["layout"],
+                sharded_wk=x["sharded_wk"], agreement=agree,
+                disagreements=len(worse), rounding_ties=ties,
                 same_as_one_process=same, positions=n,
                 launches=[y["launches"] for y in ranks],
                 param_gib=[y["param_gib"] for y in ranks],
-                whole_gib=x["whole_gib"],
+                shard_gib=x["shard_gib"], whole_gib=x["whole_gib"],
+                fsdp=x["fsdp"], cache_rows=[y["cache_rows"] for y in ranks],
                 peak_gib=[y["peak_gib"] for y in ranks],
                 seconds=x["seconds"], steps=x["steps"])
-    print(f"  serve {arch} x{layers} bf16 at model {m}: cache over "
-          f"{x['cache']} (rank 0: {x['layout']}); {n} tokens, teacher-forced "
+    print(f"  serve {arch} x{layers} bf16 at (data, model) {shape}: cache "
+          f"over {x['cache']}, rows {x['rows']} (rank 0: {x['layout']}); {n} "
+          f"tokens, teacher-forced "
           f"agreement {agree:.4f} (limit {LM_BF16_AGREE}; {len(worse)} "
           f"disagreements, {ties} of them rounding ties), equal to the "
           f"one-process engine's {same:.4f}; launches a rank "
@@ -3372,12 +3458,12 @@ def tp_serve_hold(ranks: list[dict], arch: str, layers: int, m: int, rmodel,
           f"{x['seconds']:.2f} s for {x['steps']} decode steps (ranks "
           "time-share the card)", flush=True)
     if agree < LM_BF16_AGREE and (arch not in LM_BF16_TIES or ties < len(worse)):
-        raise AssertionError(f"tp serve {arch} model {m}: agreement {agree}"
+        raise AssertionError(f"tp serve {arch} {shape}: agreement {agree}"
                              f" ({ties} of {len(worse)} disagreements rounding "
                              f"ties): {worse[:4]}")
     for y in ranks:
         if any(y["launches"][k] != want.get(k, 0) for k in y["launches"]):
-            raise AssertionError(f"tp serve {arch} model {m}: launches "
+            raise AssertionError(f"tp serve {arch} {shape}: launches "
                                  f"{y['launches']}, expected {want}")
         for k, c in y["launches"].items():
             launches[k] = launches.get(k, 0) + c
@@ -3392,14 +3478,11 @@ def tp_phase(dev, tmp: str) -> tuple[dict, dict]:
     failed check."""
     import gc
 
-    import numpy as np
     import torch
     import torch.multiprocessing as mp
 
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.ref import decode_attention_ref
-    from repro_torch.models.transformer import init_params
-    from repro_torch.serve.engine import ServeEngine
 
     rec: dict = {"lse_cases": []}
 
@@ -3409,7 +3492,9 @@ def tp_phase(dev, tmp: str) -> tuple[dict, dict]:
 
     # 1. the decode kernel's log-sum-exp output against its plain version, at
     # the local pieces qwen2.5-3b's model-4 engine decodes (B 8, 128 of 512
-    # slots a rank, lengths 0 included) and a split cache of 2,048 slots
+    # slots a rank, lengths 0 included) and a split cache of 2,048 slots; its
+    # output float32 (what gqa_decode merges on a cache over the sequence,
+    # rounding once after the merge)
     g = torch.Generator(device=dev).manual_seed(11)
     for dt in (torch.bfloat16, torch.float32):
         for B, S, lens in ((TP_MAX_BATCH, TP_MAX_LEN // 4,
@@ -3433,11 +3518,12 @@ def tp_phase(dev, tmp: str) -> tuple[dict, dict]:
             lse_err = float(((lse - w_lse)[fin].abs()
                              / torch.clamp_min(w_lse[fin].abs(), 1.0)).max())
             same = torch.equal(out, out2) and torch.equal(lse, lse2)
-            case = dict(dtype=str(dt).split(".")[-1], B=B, S=S, lens=lens,
-                        max_abs_err=err, limit=lim, lse_rel_err=lse_err,
-                        bitwise_repeat=same)
+            case = dict(dtype=str(dt).split(".")[-1], B=B, S=S,
+                        lens=lens, max_abs_err=err, limit=lim,
+                        lse_rel_err=lse_err, bitwise_repeat=same)
             rec["lse_cases"].append(case)
-            print(f"  decode lse {case['dtype']} B={B} S={S} lens {lens}: out "
+            print(f"  decode lse {case['dtype']} output "
+                  f"{str(out.dtype).split('.')[-1]} B={B} S={S} lens {lens}: out "
                   f"err {err:.3g} (limit {lim:.3g}), lse rel err "
                   f"{lse_err:.3g} (limit {TP_LSE_TOL}), -inf where no keys "
                   f"{lse_ok}, two calls bitwise {same}", flush=True)
@@ -3451,21 +3537,9 @@ def tp_phase(dev, tmp: str) -> tuple[dict, dict]:
     ref_steps = tp_train_ref(dev, tmp, LM_ARCH, TP_LAYERS)
     rec["train_ref"] = ref_steps
     free()
-    ref_models = {}
-    for arch, layers, m in TP_SERVE:
-        if (arch, layers) in ref_models:
-            continue
-        _, scfg = _tp_serve_cfg(arch, layers)
-        rmodel = init_params(scfg, 0, dev)
-        rmodel.forward_full(np.arange(1, 9, dtype=np.int32)[None, :])
-        eng = ServeEngine(scfg, rmodel, max_batch=TP_MAX_BATCH,
-                          max_len=TP_MAX_LEN, device=dev)
-        for p in _tp_prompts(scfg.vocab_size):
-            eng.submit(p, max_new_tokens=TP_NEW_TOKENS)
-        done = eng.run_to_completion()
-        ref_models[arch, layers] = (scfg, rmodel,
-                                    [(r.rid, r.prompt, r.tokens) for r in done])
-        del eng
+    ref_models = {(arch, layers): tp_serve_ref(dev, arch, layers)
+                  for arch, layers in dict.fromkeys((a, n) for a, n, _ in
+                                                    TP_SERVE)}
     free()
 
     # 3. the ranks: 2 processes (training at model 2, serving at model 2),
@@ -3504,7 +3578,7 @@ def tp_phase(dev, tmp: str) -> tuple[dict, dict]:
     # against the one-process model's teacher forcing
     rec["serve"] = []
     for arch, layers, m in TP_SERVE:
-        _, rmodel, ref_done = ref_models[arch, layers]
+        rmodel, ref_done = ref_models[arch, layers]
         rec["serve"].append(tp_serve_hold(
             [load("serve", [arch, layers, (1, m)], r) for r in range(m)], arch,
             layers, m, rmodel, ref_done, launches))
@@ -3521,13 +3595,11 @@ def tpm_phase(dev, tmp: str) -> tuple[dict, dict]:
     failed check."""
     import gc
 
-    import numpy as np
     import torch
     import torch.multiprocessing as mp
 
     from repro_torch.launch.steps import build_cell
-    from repro_torch.models.transformer import _flatten, init_params
-    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.models.transformer import _flatten
     from repro_torch.sharding.spec import MeshShape
     from repro_torch.sharding.tp import plan_split
     from repro_torch.train import train_loop as tloop
@@ -3680,83 +3752,120 @@ def tpm_phase(dev, tmp: str) -> tuple[dict, dict]:
     rec["serve"] = []
     for arch in dict.fromkeys(a for a, _, _ in TPM_SERVE):
         cases = [(a, n, m) for a, n, m in TPM_SERVE if a == arch]
-        _, scfg = _tp_serve_cfg(arch, cases[0][1])
-        rmodel = init_params(scfg, 0, dev)
-        rmodel.forward_full(np.arange(1, 9, dtype=np.int32)[None, :])
-        eng = ServeEngine(scfg, rmodel, max_batch=TP_MAX_BATCH,
-                          max_len=TP_MAX_LEN, device=dev)
-        for p in _tp_prompts(scfg.vocab_size):
-            eng.submit(p, max_new_tokens=TP_NEW_TOKENS)
-        ref_done = [(r.rid, r.prompt, r.tokens) for r in eng.run_to_completion()]
-        del eng
-        rmodel.cfg = nodrop(scfg)
+        rmodel, ref_done = tpm_serve_ref(dev, arch, cases[0][1])
         for a, layers, m in cases:
-            ranks = [load("moe_serve", [a, layers, (1, m)], r) for r in range(m)]
-            x = ranks[0]
-            for key in ("served", "nodrop"):
-                if any(y[key]["tokens"] != x[key]["tokens"] for y in ranks):
-                    raise AssertionError(f"tpm serve {a} model {m} {key}: ranks "
-                                         "differ")
-            toks = x["served"]["tokens"]
-            n_tok = sum(len(t) for _, _, t, _ in toks)
-            same = sum(ta == tb for (_, _, t1, _), (_, _, t2) in zip(toks, ref_done)
-                       for ta, tb in zip(t1, t2)) / n_tok
-            done = [types.SimpleNamespace(rid=rid, prompt=p, tokens=t, slot=sl)
-                    for rid, p, t, sl in x["nodrop"]["tokens"]]
-            routes = {rid: [t.to(dev) for t in ts]
-                      for rid, ts in x["nodrop"]["routes"].items()}
-            n, worse, _, _, n_alike = teacher_forced(rmodel, done,
-                                                     scfg.vocab_size, False,
-                                                     routes)
-            miss = sum(1 for w in worse if w["routed_alike"])
-            agree = 1 - miss / n_alike
-            case = dict(arch=a, layers=layers, model=m, cache=x["cache"],
-                        heads=x["heads"], experts=x["experts"],
-                        shared=x["shared"], same_as_one_process=same,
-                        positions=n, routed_alike=n_alike,
-                        agreement_routed_alike=agree, disagreements=len(worse),
-                        param_gib=[y["param_gib"] for y in ranks],
-                        whole_gib=x["whole_gib"],
-                        peak_gib=[y["peak_gib"] for y in ranks],
-                        launches={k: [y[k]["launches"] for y in ranks]
-                                  for k in ("served", "nodrop")},
-                        seconds={k: x[k]["seconds"] for k in ("served", "nodrop")},
-                        steps={k: x[k]["steps"] for k in ("served", "nodrop")})
-            rec["serve"].append(case)
-            print(f"  moe serve {a} x{layers} bf16 at model {m}: experts "
-                  f"{x['experts']} of rank 0, heads {x['heads']}, shared columns "
-                  f"{x['shared']}, cache over {x['cache']}; at the served "
-                  f"capacity every rank the same tokens, {same:.4f} of them the "
-                  f"one-process engine's; no-drop copy: {n_alike}/{n} positions "
-                  f"routed alike, teacher-forced agreement {agree:.4f} over them "
-                  f"(limit {LM_BF16_AGREE}; {len(worse)} disagreements in all); "
-                  f"launches a rank: served "
-                  f"{_nonzero(case['launches']['served'][0])}, no-drop "
-                  f"{_nonzero(case['launches']['nodrop'][0])}; parameters a rank "
-                  f"{[round(g, 3) for g in case['param_gib']]} of "
-                  f"{x['whole_gib']:.3f} GiB, peak "
-                  f"{[round(g, 2) for g in case['peak_gib']]} GiB; "
-                  f"{x['served']['seconds']:.2f} s for "
-                  f"{x['served']['steps']} decode steps (ranks time-share the "
-                  "card)", flush=True)
-            if agree < LM_BF16_AGREE:
-                raise AssertionError(f"tpm serve {a} model {m}: agreement "
-                                     f"{agree} where routed alike: {worse[:4]}")
-            for key in ("served", "nodrop"):
-                steps_k = x[key]["steps"]
-                w = {"flash_attention_wgmma": layers * TP_REQUESTS,
-                     "decode_attention": 0 if scfg.use_mla else layers * steps_k}
-                for y in ranks:
-                    got = y[key]["launches"]
-                    if any(got[k] != w.get(k, 0) for k in got):
-                        raise AssertionError(f"tpm serve {a} model {m} {key}: "
-                                             f"launches {got}, expected {w}")
-                    for k, c in got.items():
-                        launches[k] = launches.get(k, 0) + c
-            del ranks, routes
+            rec["serve"].append(tpm_serve_hold(
+                [load("moe_serve", [a, layers, (1, m)], r) for r in range(m)],
+                a, layers, (1, m), rmodel, ref_done, launches))
         del rmodel
         free()
     return rec, launches
+
+
+def tp_serve_ref(dev, arch: str, layers: int):
+    """The one-process bf16 model of ``_tp_serve_cfg(arch, layers)`` from
+    seed 0 and its engine's tokens (phase tp's traffic): (model, [(rid,
+    prompt, tokens)])."""
+    import numpy as np
+
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import ServeEngine
+
+    _, scfg = _tp_serve_cfg(arch, layers)
+    rmodel = init_params(scfg, 0, dev)
+    rmodel.forward_full(np.arange(1, 9, dtype=np.int32)[None, :])
+    eng = ServeEngine(scfg, rmodel, max_batch=TP_MAX_BATCH,
+                      max_len=TP_MAX_LEN, device=dev)
+    for p in _tp_prompts(scfg.vocab_size):
+        eng.submit(p, max_new_tokens=TP_NEW_TOKENS)
+    return rmodel, [(r.rid, r.prompt, r.tokens) for r in eng.run_to_completion()]
+
+
+def tpm_serve_ref(dev, arch: str, layers: int):
+    """:func:`tp_serve_ref` of a MoE arch (its tokens at the served
+    capacity), the model returned as the no-drop copy (``nodrop``), for the
+    teacher forcing of the ranks' no-drop runs."""
+    rmodel, ref_done = tp_serve_ref(dev, arch, layers)
+    rmodel.cfg = nodrop(rmodel.cfg)
+    return rmodel, ref_done
+
+
+def tpm_serve_hold(ranks: list[dict], a: str, layers: int, shape, rmodel,
+                   ref_done: list, launches: dict) -> dict:
+    """Hold a MoE run on a plan (``tp_child``'s ``moe_serve``, one record a
+    rank, on the mesh (data, model) = ``shape``): every rank the same
+    tokens at the served capacity and on the no-drop copy, the no-drop
+    copy's teacher-forced agreement with ``rmodel`` (the one-process
+    no-drop model) >= ``LM_BF16_AGREE`` over the positions routed alike
+    (each request's routes from the rank that decoded its slot), each
+    rank's launches = layers x prefills (flash; every rank prefills every
+    request) and x decode steps (0 under MLA); print it, add the launches
+    to ``launches``, return its record.  Raises AssertionError on a failed
+    check."""
+    dev = rmodel.device
+    scfg = rmodel.cfg
+    x = ranks[0]
+    m = shape[1]
+    for key in ("served", "nodrop"):
+        if any(y[key]["tokens"] != x[key]["tokens"] for y in ranks):
+            raise AssertionError(f"tpm serve {a} {shape} {key}: ranks differ")
+    toks = x["served"]["tokens"]
+    n_tok = sum(len(t) for _, _, t, _ in toks)
+    same = sum(ta == tb for (_, _, t1, _), (_, _, t2) in zip(toks, ref_done)
+               for ta, tb in zip(t1, t2)) / n_tok
+    done = [types.SimpleNamespace(rid=rid, prompt=p, tokens=t, slot=sl)
+            for rid, p, t, sl in x["nodrop"]["tokens"]]
+    routes = {}
+    for y in ranks:                  # each request from its slot's data rank
+        routes.update({rid: [t.to(dev) for t in ts]
+                       for rid, ts in y["nodrop"]["routes"].items()})
+    n, worse, _, _, n_alike = teacher_forced(rmodel, done, scfg.vocab_size,
+                                             False, routes)
+    miss = sum(1 for w in worse if w["routed_alike"])
+    agree = 1 - miss / n_alike
+    case = dict(arch=a, layers=layers, model=m, mesh=shape, cache=x["cache"],
+                heads=x["heads"], experts=x["experts"], shared=x["shared"],
+                same_as_one_process=same, positions=n, routed_alike=n_alike,
+                agreement_routed_alike=agree, disagreements=len(worse),
+                param_gib=[y["param_gib"] for y in ranks],
+                shard_gib=x["shard_gib"], whole_gib=x["whole_gib"],
+                fsdp=x["fsdp"], cache_rows=[y["served"]["cache_rows"]
+                                            for y in ranks],
+                peak_gib=[y["peak_gib"] for y in ranks],
+                launches={k: [y[k]["launches"] for y in ranks]
+                          for k in ("served", "nodrop")},
+                seconds={k: x[k]["seconds"] for k in ("served", "nodrop")},
+                steps={k: x[k]["steps"] for k in ("served", "nodrop")})
+    print(f"  moe serve {a} x{layers} bf16 at (data, model) {shape}: experts "
+          f"{x['experts']} of rank 0, heads {x['heads']}, shared columns "
+          f"{x['shared']}, cache over {x['cache']}, rows {x['served']['rows']} "
+          f"of rank 0, {x['fsdp']} leaves over data (FSDP); at the served "
+          f"capacity every rank the same tokens, {same:.4f} of them the "
+          f"one-process engine's; no-drop copy: {n_alike}/{n} positions "
+          f"routed alike, teacher-forced agreement {agree:.4f} over them "
+          f"(limit {LM_BF16_AGREE}; {len(worse)} disagreements in all); "
+          f"launches a rank: served {_nonzero(case['launches']['served'][0])}, "
+          f"no-drop {_nonzero(case['launches']['nodrop'][0])}; parameters a "
+          f"rank {[round(g, 3) for g in case['param_gib']]} of "
+          f"{x['whole_gib']:.3f} GiB ({x['shard_gib']:.3f} a model rank's "
+          f"shard), peak {[round(g, 2) for g in case['peak_gib']]} GiB; "
+          f"{x['served']['seconds']:.2f} s for {x['served']['steps']} decode "
+          "steps (ranks time-share the card)", flush=True)
+    if agree < LM_BF16_AGREE:
+        raise AssertionError(f"tpm serve {a} {shape}: agreement {agree} where "
+                             f"routed alike: {worse[:4]}")
+    for key in ("served", "nodrop"):
+        steps_k = x[key]["steps"]
+        w = {"flash_attention_wgmma": layers * TP_REQUESTS,
+             "decode_attention": 0 if scfg.use_mla else layers * steps_k}
+        for y in ranks:
+            got = y[key]["launches"]
+            if any(got[k] != w.get(k, 0) for k in got):
+                raise AssertionError(f"tpm serve {a} {shape} {key}: launches "
+                                     f"{got}, expected {w}")
+            for k, c in got.items():
+                launches[k] = launches.get(k, 0) + c
+    return case
 
 
 def tps_phase(dev, tmp: str) -> tuple[dict, dict]:
@@ -3766,12 +3875,8 @@ def tps_phase(dev, tmp: str) -> tuple[dict, dict]:
     main-path runs); raises AssertionError on a failed check."""
     import gc
 
-    import numpy as np
     import torch
     import torch.multiprocessing as mp
-
-    from repro_torch.models.transformer import init_params
-    from repro_torch.serve.engine import ServeEngine
 
     def free():
         gc.collect()
@@ -3781,20 +3886,9 @@ def tps_phase(dev, tmp: str) -> tuple[dict, dict]:
     # engines (kept for the teacher-forced checks)
     rec: dict = {"train_ref": {arch: tp_train_ref(dev, tmp, arch, layers)
                                for arch, layers in TPS_TRAIN}}
-    ref_models = {}
-    for arch, layers, _ in TPS_SERVE:
-        if (arch, layers) in ref_models:
-            continue
-        _, scfg = _tp_serve_cfg(arch, layers)
-        rmodel = init_params(scfg, 0, dev)
-        rmodel.forward_full(np.arange(1, 9, dtype=np.int32)[None, :])
-        eng = ServeEngine(scfg, rmodel, max_batch=TP_MAX_BATCH,
-                          max_len=TP_MAX_LEN, device=dev)
-        for p in _tp_prompts(scfg.vocab_size):
-            eng.submit(p, max_new_tokens=TP_NEW_TOKENS)
-        ref_models[arch, layers] = (rmodel, [(r.rid, r.prompt, r.tokens)
-                                             for r in eng.run_to_completion()])
-        del eng
+    ref_models = {(arch, layers): tp_serve_ref(dev, arch, layers)
+                  for arch, layers in dict.fromkeys((a, n) for a, n, _ in
+                                                    TPS_SERVE)}
     free()
 
     # 2. the ranks: 2 processes (training and serving at model 2), then 4
@@ -3842,6 +3936,82 @@ def tps_phase(dev, tmp: str) -> tuple[dict, dict]:
             layers, m, rmodel, ref_done, launches))
     del ref_models
     free()
+    return rec, launches
+
+
+def tpd_phase(dev, tmp: str) -> tuple[dict, dict]:
+    """Phase tp-dp (see the module docstring): the ranks as processes on
+    this card (2 at (data 2, model 1), then 4 at (data 2, model 2)), then
+    the one-process references one model at a time.  Returns (record,
+    launches summed over the ranks' main-path runs); raises AssertionError
+    on a failed check."""
+    import gc
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs.registry import get_arch
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    moe = {a: get_arch(a).model.family == "moe" for a, _ in TPD_SERVE}
+    job = lambda a: "moe_serve" if moe[a] else "serve"      # noqa: E731
+    rec: dict = {"serve": []}
+    t1 = time.perf_counter()
+    for shape in TPD_MESHES:
+        world = shape[0] * shape[1]
+        jobs = [(job(a), a, n, shape) for a, n in TPD_SERVE]
+        try:
+            mp.spawn(tp_child, args=(world, tmp, jobs, str(dev)), nprocs=world,
+                     join=True)
+        except Exception as e:        # a rank's traceback, as the check's failure
+            raise AssertionError(f"phase tp-dp ranks {shape}: {e}") from None
+    rec["ranks_s"] = time.perf_counter() - t1
+    load = lambda name, args, r: torch.load(os.path.join(    # noqa: E731
+        tmp, f"tp_{name}_{'_'.join(map(str, args))}_{r}.pt"), weights_only=False)
+    launches: dict[str, int] = {}
+    for arch, layers in TPD_SERVE:
+        rmodel, ref_done = (tpm_serve_ref if moe[arch] else tp_serve_ref)(
+            dev, arch, layers)
+        for shape in TPD_MESHES:
+            ranks = [load(job(arch), [arch, layers, shape], r)
+                     for r in range(shape[0] * shape[1])]
+            if moe[arch]:
+                case = tpm_serve_hold(ranks, arch, layers, shape, rmodel,
+                                      ref_done, launches)
+            else:
+                case = tp_serve_hold(ranks, arch, layers, shape[1], rmodel,
+                                     ref_done, launches, shape)
+            rows = TP_MAX_BATCH // shape[0]
+            print(f"    launches a rank: flash = {attention_layers(rmodel.cfg)}"
+                  f" attention applications x {TP_REQUESTS} prefills (every "
+                  "rank prefills every request), decode = applications x "
+                  f"decode steps (each rank its {rows} rows; 0 under MLA)",
+                  flush=True)
+            for r, y in enumerate(ranks):
+                cr = y["served"]["cache_rows"] if moe[arch] else y["cache_rows"]
+                want = y["shard_gib"] - y["fsdp_gib"] * (1 - 1 / y["data_ranks"])
+                print(f"    rank {r}: cache rows {sorted(set(cr.values()))} of "
+                      f"{TP_MAX_BATCH}; parameters {y['param_gib']:.3f} GiB "
+                      f"(expected {want:.3f}), "
+                      f"{y['param_gib'] / y['shard_gib']:.4f} of a (1, "
+                      f"{shape[1]}) rank's {y['shard_gib']:.3f} and "
+                      f"{y['param_gib'] / y['whole_gib']:.4f} of the model's "
+                      f"{y['whole_gib']:.3f} GiB ({y['fsdp']} leaves, "
+                      f"{y['fsdp_gib']:.3f} GiB of the shard, over data)",
+                      flush=True)
+                if set(cr.values()) != {rows}:
+                    raise AssertionError(f"tp-dp {arch} {shape} rank {r}: cache "
+                                         f"rows {cr}, expected {rows}")
+                if not math.isclose(y["param_gib"], want, rel_tol=1e-9):
+                    raise AssertionError(
+                        f"tp-dp {arch} {shape} rank {r}: resident parameters "
+                        f"{y['param_gib']} GiB, expected {want}")
+            rec["serve"].append(case)
+        del rmodel
+        free()
     return rec, launches
 
 
@@ -5322,7 +5492,24 @@ def main() -> int:
                       for c in tps_rec["serve"])
           + f"; launches {_nonzero(tps_launches)}")
 
-    # ----------------------------------------------------------- 15. report
+    # ------------------------------------------------------------ 15. tp-dp
+    t = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory(prefix="mafia-tpd-") as tmp:
+            tpd_rec, tpd_launches = tpd_phase(dev, tmp)
+    except AssertionError as e:
+        return fail("tp-dp", str(e))
+    tpd_rec["seconds"] = time.perf_counter() - t
+    for k, n in tpd_launches.items():
+        tp_launches[k] = tp_launches.get(k, 0) + n
+    phase("tp-dp", t, "; ".join(
+        f"{c['arch']} x{c['layers']} served at (data, model) {c['mesh']}: "
+        + (f"no-drop agreement {c['agreement_routed_alike']:.4f}"
+           if "agreement_routed_alike" in c else
+           f"agreement {c['agreement']:.4f}") for c in tpd_rec["serve"])
+          + f"; launches {_nonzero(tpd_launches)}")
+
+    # ----------------------------------------------------------- 16. report
     t = time.perf_counter()
     saved = dict(LAUNCHES)
     timed = []
@@ -5473,16 +5660,18 @@ def main() -> int:
         print(f"    decode_attention {dname} passes: " + ", ".join(
             f"{k} {v:.5f} ms" for k, v in passes.items()), flush=True)
         rows["decode_attention"].append(r)
-        # the same call with the log-sum-exp output (phase tp's decode on a
-        # cache over the sequence): B x H more floats written
+        # the same call with the log-sum-exp output (gqa_decode on a cache
+        # over the sequence): B x H more floats written, the output float32
         lb, lo = decode_work(lens, 16, 2, 128, qd.element_size())
+        wider = (4 - qd.element_size()) * B * 16 * 128
         rows["decode_attention"].append(row(
             "decode_attention", f"{dname} B={B} S={Sc} H=16 KV=2 dh=128 "
-            f"served lens {lens} (on the card) p fp32, with lse",
+            f"served lens {lens} (on the card) p fp32, with lse, output "
+            "float32",
             lambda: decode_attention(qd, kc, vc, ld, round_p=False,
                                      return_lse=True),
             lambda: decode_attention_ref(qd, kc, vc, ld, return_lse=True),
-            None, 50, (lb + 4 * B * 16, lo), dname))
+            None, 50, (lb + 4 * B * 16 + wider, lo), dname))
     # the same two kernels at phase 7's other heads: flash at the largest
     # bucket (MLA's v zero-padded to dh 192, as mla_prefill gives it), decode
     # at the served lengths
@@ -5716,7 +5905,8 @@ def main() -> int:
           "between CUDA events; serving wall time on the host clock")
     report.update(lm_train=train_rec, train_launches=train_launches,
                   dist=dist_rec, dist_launches=dist_launches, tp=tp_rec,
-                  tp_moe=tpm_rec, tp_ssm=tps_rec, tp_launches=tp_launches)
+                  tp_moe=tpm_rec, tp_ssm=tps_rec, tp_dp=tpd_rec,
+                  tp_launches=tp_launches)
     report.update(served=served, timed=timed, launches=launches, rows=rows,
                   chain_floor=chain_floor,
                   attention_cases=attn_cases, ssd_cases=ssd_cases,

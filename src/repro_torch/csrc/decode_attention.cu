@@ -54,7 +54,8 @@
 //   * With `lse` (not null) the pass that normalises a row also writes its
 //     log-sum-exp m + log(l) (fp32, natural log; -inf for a length of 0):
 //     da_kernel with one split, da_combine with more.  A caller that splits
-//     one sequence's keys over ranks merges their outputs by it.
+//     one sequence's keys over ranks merges their outputs by it, so the
+//     output is then fp32, not rounded: the merge rounds once.
 //   * With `round_p`, each split rounds p against its own running max, as
 //     the TPU kernel rounds against its running max of each tile.
 //   * Lengths are read on the card and clamped into [0, S], so a bad length
@@ -93,6 +94,14 @@ template <typename T>
 __host__ __device__ __forceinline__ int da_pitch(int dh) {
   constexpr int V = 16 / sizeof(T);
   return (dh + V - 1) / V * V;
+}
+
+// Element i of the output: fp32 with `lse` (the caller merges pieces of one
+// sequence and rounds once, after its merge), else rounded once to T.
+template <typename T>
+__device__ __forceinline__ void da_store(const DaArgs& a, long long i, float x) {
+  if (a.lse) static_cast<float*>(a.o)[i] = x;
+  else static_cast<T*>(a.o)[i] = att_out<T>(x);
 }
 
 template <typename T>
@@ -173,8 +182,8 @@ da_kernel(DaArgs a) {
         ws_ml[2 * g + 1] = 0.0f;
       }
     } else {                       // a length of 0: zero rows
-      T* o = static_cast<T*>(a.o) + ((long long)b * a.H + kvh * G + g0) * dh;
-      for (int e = tid; e < gn * dh; e += blockDim.x) o[e] = att_out<T>(0.0f);
+      const long long o = ((long long)b * a.H + kvh * G + g0) * dh;
+      for (int e = tid; e < gn * dh; e += blockDim.x) da_store<T>(a, o + e, 0.0f);
       if (a.lse)
         for (int g = tid; g < gn; g += blockDim.x)
           a.lse[(long long)b * a.H + kvh * G + g0 + g] = -INFINITY;
@@ -349,7 +358,7 @@ da_kernel(DaArgs a) {
   const bool split_out = a.splits > 1;
   float* ws_acc = a.ws + (long long)a.B * a.KV * a.splits * G * 2
                   + ((long long)bkv * a.splits + split) * G * dh;
-  T* o = static_cast<T*>(a.o) + ((long long)b * a.H + kvh * G) * dh;
+  const long long o = ((long long)b * a.H + kvh * G) * dh;
 #pragma unroll
   for (int r = 0; r < RW; ++r) {
     if (r >= rows) continue;
@@ -369,7 +378,7 @@ da_kernel(DaArgs a) {
         const int d = (sg + R * s) * V + e;
         if (sg + R * s >= nseg || d >= dh) continue;
         if (split_out) ws_acc[g * dh + d] = acc[r][s][e];
-        else o[g * dh + d] = att_out<T>(acc[r][s][e] / den);
+        else da_store<T>(a, o + g * dh + d, acc[r][s][e] / den);
       }
   }
 }
@@ -408,7 +417,7 @@ __global__ void da_combine(DaArgs a) {
   for (int s = 0; s < ns; ++s) l = fmaf(cw[s], cw[ns + s], l);
   const float den = fmaxf(l, 1e-30f);
   if (a.lse && tid == 0) a.lse[blockIdx.x] = l > 0.0f ? mx + logf(l) : -INFINITY;
-  T* o = static_cast<T*>(a.o) + (long long)blockIdx.x * a.dh;
+  const long long o = (long long)blockIdx.x * a.dh;
   for (int d = tid; d < a.dh; d += blockDim.x) {
     float acc = 0.0f;
     for (int s0 = 0; s0 < ns; s0 += DA_BATCH) {   // DA_BATCH loads in flight
@@ -420,7 +429,7 @@ __global__ void da_combine(DaArgs a) {
       for (int i = 0; i < DA_BATCH; ++i)
         if (s0 + i < ns) acc = fmaf(cw[s0 + i], x[i], acc);
     }
-    o[d] = att_out<T>(acc / den);
+    da_store<T>(a, o + d, acc / den);
   }
 }
 
@@ -468,7 +477,8 @@ static int da_dispatch(const DaArgs& a, int rows, cudaStream_t s) {
 // per block (a multiple of DA_TILE), `splits` = ceil(S / chunk) blocks per
 // (b, KV head) and group of `gsz` query rows, `warps` warps of `rows` query
 // rows (1, 2 or 4; gsz <= warps * rows); ws holds B * KV * splits * G * (dh + 2) floats when splits > 1;
-// lse (B, H) floats, or null.
+// lse (B, H) floats, or null; with lse, out is float32 (each row normalised
+// in fp32 and not rounded), else q's dtype.
 // `vec`: 16-byte copies of the caches.  dtype 0 = float32, 1 = bfloat16.
 // Returns cudaGetLastError() after the launches (0 = launched).
 extern "C" int da_launch(const void* q, const void* k, const void* v, void* o,

@@ -18,7 +18,9 @@ scaled valid scores (natural log), written where the kernel's last pass
 normalises the row (``da_kernel`` with one split, ``da_combine`` with
 more): the statistic that merges attention over pieces of one sequence
 (:func:`repro_torch.models.attention.gqa_decode` on a cache split over the
-sequence).  A row of length 0 then gives zeros and -inf.
+sequence).  A row of length 0 then gives zeros and -inf.  The output is
+then float32, each row normalised in fp32 and not rounded: a caller that
+merges such pieces rounds once, after its merge.
 
 ``cache_len`` must lie in [1, S] ([0, S] with ``return_lse``). Given on the
 host (a CPU tensor, numpy array or sequence), it is checked there and
@@ -144,7 +146,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len, *,
                      round_p: bool = True, return_lse: bool = False):
     """One decode step of attention → (B, H, dh) in q's dtype, and with
-    ``return_lse`` (out, log-sum-exp (B, H) float32)."""
+    ``return_lse`` (out float32, log-sum-exp (B, H) float32)."""
     if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
         raise ValueError(f"decode_attention: q (B, H, dh) and caches (B, S, KV, "
                          f"dh) expected, got {tuple(q.shape)}, "
@@ -172,7 +174,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     plan = plan_decode(B, KV, H // KV, S, dh, q.dtype, sms)
     lib = load("decode_attention", _declare)
     lens = lens.to(q.device, non_blocking=True)
-    out = torch.empty((B, H, dh), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, H, dh),
+                      dtype=torch.float32 if return_lse else q.dtype,
+                      device=q.device)
     lse = (torch.empty((B, H), dtype=torch.float32, device=q.device)
            if return_lse else None)
     if out.numel() == 0:

@@ -128,9 +128,10 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          round_p: bool = False, return_lse: bool = False):
     """One new token per sequence, q (B, H, dh), against the caches k and
     v (B, S, KV, dh), of which the first ``cache_len[b]`` positions are
-    valid → (B, H, dh) in q's dtype.  With ``return_lse`` also each row's
-    log-sum-exp (B, H) float32 of its scaled valid scores; a row of length
-    0 then gives zeros and a log-sum-exp of -inf, as the kernel does."""
+    valid → (B, H, dh) in q's dtype.  With ``return_lse`` the output is
+    float32, not rounded, and each row's log-sum-exp (B, H) float32 of its
+    scaled valid scores comes beside it; a row of length 0 then gives
+    zeros and a log-sum-exp of -inf, as the kernel does."""
     B, H, dh = q.shape
     S, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -146,7 +147,7 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.where(some[..., None], out, torch.zeros_like(out))
     lse = torch.where(some, torch.logsumexp(s, dim=-1),
                       torch.full_like(s[..., 0], -torch.inf))
-    return out.reshape(B, H, dh).to(q.dtype), lse.reshape(B, H)
+    return out.reshape(B, H, dh).float(), lse.reshape(B, H)
 
 
 # ----------------------------------------------------------------- mamba2 SSD

@@ -29,7 +29,13 @@ builds it (and the caches) with :meth:`CellProgram.split`, the plan's
 :class:`~repro_torch.sharding.tp.ModelSplit` (``init_state(...,
 split=)``, ``init_params(..., split=)``, ``init_cache(..., split=)``);
 its logits are the rank's vocabulary columns, as the plan's
-``out_shardings`` say.
+``out_shardings`` say.  Where ``pod`` × ``data`` exceeds one rank, a
+decode cell's ``fn`` takes the rank's rows (``in_shardings``' ``P(dp)``:
+tokens, positions and the caches of :meth:`CellProgram.data`'s rows) and
+routes the MoE layers over the whole batch (the data ranks installed as
+the token group, as the engine's decode step does); under the plan's
+FSDP the model is built with :meth:`CellProgram.data` as well
+(``init_params(..., split=, data=)``).
 """
 
 from __future__ import annotations
@@ -42,10 +48,11 @@ import torch
 from repro_torch.configs.registry import ArchSpec, ShapeCell
 from repro_torch.models.transformer import (ModelConfig, Transformer,
                                             abstract_params, init_cache)
-from repro_torch.sharding.ctx import use_plan
+from repro_torch.sharding.ctx import use_plan, use_token_group
 from repro_torch.sharding.planner import Plan, plan_for
 from repro_torch.sharding.spec import P
-from repro_torch.sharding.tp import ModelSplit, model_split
+from repro_torch.sharding.tp import (DataSplit, ModelSplit, data_split,
+                                     model_split)
 from repro_torch.train.optim import OptConfig
 from repro_torch.train.train_loop import (TrainState, make_train_step,
                                           state_specs)
@@ -73,6 +80,12 @@ class CellProgram:
         specs; None where nothing is split over ``model``."""
         return model_split(self.cfg, self.plan.param_specs, mesh,
                            self.plan.cache_specs)
+
+    def data(self, mesh) -> DataSplit | None:
+        """This rank's data split of the cell on ``mesh`` (a
+        ``DeviceMesh``): its rows of the caches' batch and the leaves the
+        plan shards over ``data``; None where there is neither."""
+        return data_split(self.cfg, self.plan, mesh)
 
 
 def _meta(shape: tuple[int, ...], dtype: torch.dtype) -> torch.Tensor:
@@ -185,9 +198,13 @@ def build_cell(
 
     # ---- decode: 1 new token per sequence against a seq_len cache
     B = cell.global_batch
+    # the rank's rows: the MoE layers route over every data rank's (a
+    # MeshShape, which only plans, has no data split)
+    ds = data_split(cfg, plan, mesh)
+    group = ds.group if ds is not None and ds.batch else None
 
     def serve_step(model: Transformer, token, caches: dict, pos):
-        with use_plan(mesh, plan.act_specs):
+        with use_plan(mesh, plan.act_specs), use_token_group(group):
             return model.forward_decode(token, caches, pos)
 
     acache = init_cache(cfg, B, cell.seq_len, device="meta")

@@ -188,22 +188,31 @@ def _qkv(p: Mapping[str, torch.Tensor], x: torch.Tensor, split=None,
 
 
 def _out(p: Mapping[str, torch.Tensor], ctx: torch.Tensor,
-         dt: torch.dtype, split=None) -> torch.Tensor:
+         dt: torch.dtype, split=None, data=None) -> torch.Tensor:
     """(B, S, H, dh) × wo (H, dh, D) → (B, S, D) in ``dt``.  Under a split
     of the heads ``ctx`` holds this rank's heads, read against their rows
     of ``wo``: the fp32 partial sums are all-reduced over ``model`` before
-    the one rounding to ``dt``."""
+    the one rounding to ``dt``.  With ``data`` (a
+    :class:`~repro_torch.sharding.tp.DataSplit` whose FSDP leaves ``wo`` on
+    its output columns) the product gives this rank's columns, gathered
+    over ``data``."""
     heads = split is not None and split.heads is not None
     wo = split.take(p, "wo", "attn", 0, split.heads) if heads else p["wo"]
     H, dh, D = wo.shape
-    out = dot_f32(ctx.to(dt).reshape(*ctx.shape[:2], H * dh),
-                  wo.to(dt).reshape(H * dh, D))
-    return (reduce_from_model(out, split) if heads else out).to(dt)
+
+    def product(c: torch.Tensor) -> torch.Tensor:
+        out = dot_f32(c.to(dt).reshape(*c.shape[:2], H * dh),
+                      wo.to(dt).reshape(H * dh, D))
+        return reduce_from_model(out, split) if heads else out
+
+    out = product(ctx) if data is None else data.apply(product, ctx, cols=True)
+    return out.to(dt)
 
 
 def gqa_prefill(p: Mapping[str, torch.Tensor], x: torch.Tensor,
                 cos: torch.Tensor, sin: torch.Tensor, *, window: int = 0,
-                probs_bf16: bool = False, plain: bool = False, split=None
+                probs_bf16: bool = False, plain: bool = False, split=None,
+                data=None
                 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """Full-sequence causal attention, with a sliding ``window`` > 0;
     returns (out, (k, v)) for the cache.  The reference's ``kv_chunk`` (the
@@ -221,7 +230,7 @@ def gqa_prefill(p: Mapping[str, torch.Tensor], x: torch.Tensor,
         k0, k1 = split.kv
         ka, va = k[:, :, k0:k1].contiguous(), v[:, :, k0:k1].contiguous()
     out = _attend(q, ka, _bf16_v(va, probs_bf16), window, probs_bf16, plain)
-    return _out(p, out, x.dtype, split), (k, v)
+    return _out(p, out, x.dtype, split, data), (k, v)
 
 
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
@@ -257,7 +266,7 @@ def gqa_decode(p: Mapping[str, torch.Tensor], x: torch.Tensor,
                cos: torch.Tensor, sin: torch.Tensor, *, window: int = 0,
                write_pos: torch.Tensor | None = None,
                valid_len: torch.Tensor | None = None, cache_len=None,
-               split=None
+               split=None, data=None
                ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """Single-token decode against the cache; returns (out, caches).  The
     new K/V row of each sequence is written in place at ``write_pos`` (B,)
@@ -275,8 +284,9 @@ def gqa_decode(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     (r + 1)·Sl)`` (Sl the local slots).  Then only the owner of ``pos``
     writes the new row, q is gathered over ``model``, the decode kernel
     runs on the local piece with its local lengths (0 included) and gives
-    each row's log-sum-exp, and the ranks' outputs are merged by it
-    (:func:`_merge_pieces`)."""
+    each row's fp32 output and log-sum-exp, and the ranks' outputs are
+    merged by it in fp32 (:func:`_merge_pieces`) and rounded once to the
+    activation dtype, as the unsplit decode rounds."""
     if window and valid_len is None:
         raise NotImplementedError(
             f"gqa_decode: window={window} on a full-length cache is not "
@@ -299,7 +309,7 @@ def gqa_decode(p: Mapping[str, torch.Tensor], x: torch.Tensor,
         v_cache[rows, idx] = v[:, 0]
         ctx = decode_attention(q[:, 0], k_cache, v_cache, cache_len,
                                round_p=False)
-        return _out(p, ctx[:, None], x.dtype, split), (k_cache, v_cache)
+        return _out(p, ctx[:, None], x.dtype, split, data), (k_cache, v_cache)
     Sl = k_cache.shape[1]
     c0 = split.r * Sl
     here = idx - c0
@@ -316,16 +326,16 @@ def gqa_decode(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     ctx = _merge_pieces(ctx, lse, split)
     if split.heads is not None:
         ctx = ctx[:, split.heads[0]:split.heads[1]]
-    return _out(p, ctx[:, None], x.dtype, split), (k_cache, v_cache)
+    return _out(p, ctx[:, None], x.dtype, split, data), (k_cache, v_cache)
 
 
 def _merge_pieces(out: torch.Tensor, lse: torch.Tensor, split) -> torch.Tensor:
-    """Attention over the ranks' pieces of one sequence: each rank's
+    """Attention over the ranks' pieces of one sequence: each rank's fp32
     output (B, H, dh) and log-sum-exp (B, H) gathered over ``model`` and
-    merged by :func:`merge_by_lse`, rounded once to the outputs' dtype."""
+    merged by :func:`merge_by_lse`, in fp32 (the caller rounds once)."""
     outs = gather_from_model(out[None], 0, split)
     lses = gather_from_model(lse[None], 0, split)
-    return merge_by_lse(outs, lses).to(out.dtype)
+    return merge_by_lse(outs, lses)
 
 
 def merge_by_lse(outs: torch.Tensor, lses: torch.Tensor) -> torch.Tensor:
@@ -334,8 +344,8 @@ def merge_by_lse(outs: torch.Tensor, lses: torch.Tensor) -> torch.Tensor:
     Σ_i e^(lse_i − M), M = max_i lse_i, in fp32; a piece with no keys
     (lse −inf) weighs 0.  A plain elementwise merge, not ``da_combine``:
     that pass merges the kernel's unnormalised fp32 partials in its own
-    workspace, while the ranks hold normalised rows in the activation
-    dtype, n × B × H × dh elements."""
+    workspace, while the ranks hold normalised fp32 rows, n × B × H × dh
+    elements."""
     w = torch.exp(lses - lses.amax(dim=0, keepdim=True))
     return (w[..., None] * outs.float()).sum(dim=0) / w.sum(dim=0)[..., None]
 
@@ -397,7 +407,8 @@ def _mla_latent(p: Mapping[str, torch.Tensor], x: torch.Tensor
 
 def mla_prefill(p: Mapping[str, torch.Tensor], x: torch.Tensor,
                 cos: torch.Tensor, sin: torch.Tensor, *,
-                probs_bf16: bool = False, plain: bool = False, split=None
+                probs_bf16: bool = False, plain: bool = False, split=None,
+                data=None
                 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """Materialised-KV MLA for prefill; returns (out, (c_kv, k_rope)), the
     latent caches only.  ``plain`` runs the flash kernel's plain version.
@@ -423,7 +434,7 @@ def mla_prefill(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     # zeros in v's columns dn.., outside the kernel: autograd drops their dv
     v = torch.nn.functional.pad(_bf16_v(v, probs_bf16), (0, dr))
     out = _attend(q, k, v, 0, probs_bf16, plain)[..., :dn]
-    return _out(p, out, dt, split), (c_kv, k_rope)
+    return _out(p, out, dt, split, data), (c_kv, k_rope)
 
 
 def _per_head(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -465,7 +476,7 @@ def latent_piece(q_lat: torch.Tensor, q_rope: torch.Tensor, ckv: torch.Tensor,
 def mla_decode(p: Mapping[str, torch.Tensor], x: torch.Tensor,
                ckv_cache: torch.Tensor, krope_cache: torch.Tensor,
                pos: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, *,
-               cache_len=None, split=None
+               cache_len=None, split=None, data=None
                ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """Absorbed-form decode, attention in the latent space: scores =
     (q_nope·W_uk)·c_kv + q_rope·k_rope, the caches (B, S, r) and (B, S, dr)
@@ -481,7 +492,9 @@ def mla_decode(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     gathered over the heads, every head attends the local positions (the
     local lengths, 0 included, give zeros and a log-sum-exp of −inf), the
     pieces are merged by :func:`merge_by_lse`, and ``w_uv`` and ``wo`` run
-    on the local heads, their fp32 partial sums all-reduced."""
+    on the local heads, their fp32 partial sums all-reduced.  With
+    ``data`` ``wo`` holds this rank's output columns (FSDP), gathered over
+    ``data`` after the product, as :func:`_out` does."""
     dt = x.dtype
     B = x.shape[0]
     heads = split is not None and split.heads is not None
@@ -530,7 +543,10 @@ def mla_decode(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     ctx = _per_head(ctx_lat, _mla_take(p, "w_uv", split).float().permute(1, 0, 2))
     wo = _mla_take(p, "wo", split, 0)
     H, _, D = wo.shape
-    y = ctx.reshape(B, H * dn) @ wo.float().reshape(H * dn, D)
-    if heads:
-        y = reduce_from_model(y, split)
+
+    def product(c: torch.Tensor) -> torch.Tensor:
+        y = c.reshape(c.shape[0], H * dn) @ wo.float().reshape(H * dn, D)
+        return reduce_from_model(y, split) if heads else y
+
+    y = product(ctx) if data is None else data.apply(product, ctx, cols=True)
     return y[:, None, :].to(dt), (ckv_cache, krope_cache)

@@ -53,6 +53,16 @@ expert products on, and keeps for the backward about n times the slots of
 its own tokens (the reference's GSPMD buffer is replicated over ``data``
 as well).  The expert products are row by row, so the rank's slots hold
 the reference's values.
+
+Served under FSDP (``data``, a :class:`~repro_torch.sharding.tp.
+DataSplit` whose plan shards the experts over ``data`` on ``d_model``) a
+rank holds its ``d_model`` shard of the experts and moves the buffer, not
+the weights: the token group's buffers are summed (each slot holds one
+rank's copy, or none), each rank multiplies its shard of the buffer's
+columns by its shard of ``w_gate``/``w_up`` and the fp32 partial sums are
+summed over ``data``, and ``w_down``'s output columns are gathered over
+``data``.  A decode step's buffer is a few rows an expert; the experts'
+weights are most of the model.
 """
 
 from __future__ import annotations
@@ -187,12 +197,13 @@ class _ScaleGrad(torch.autograd.Function):
 
 
 def moe_ffn(p: dict, x: torch.Tensor, *, k: int,
-            capacity_factor: float = 1.25, split=None
+            capacity_factor: float = 1.25, split=None, data=None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (output (B, S, D) in ``x.dtype``, aux load-balance loss, a
     float32 scalar on ``x``'s device).  Under a ``split`` over ``model``
     (see the module docstring) the output and the aux loss are the whole
-    ones on every rank."""
+    ones on every rank; with ``data`` the experts are this rank's
+    ``d_model`` shard of them (FSDP, serving)."""
     B, S, D = x.shape
     ep = split is not None and split.experts is not None
     rs = split is not None and split.router is not None
@@ -224,13 +235,27 @@ def moe_ffn(p: dict, x: torch.Tensor, *, k: int,
     contrib = (xe[:, None, :] * keep[..., None].to(dt)).reshape(T * k, D)
     buf = torch.zeros(((e1 - e0) * cap, D), dtype=dt, device=x.device)
     buf.index_add_(0, flat, contrib)
+    if data is not None and tokens is not None:   # every rank's copies
+        whole = buf.float()
+        dist.all_reduce(whole, group=tokens[0])
+        buf = whole.to(dt)
     eb = buf.reshape(e1 - e0, cap, D)
 
-    # expert computation: batched SwiGLU over the expert axis
-    g = bmm_f32(eb, take("w_gate").to(dt))
-    u = bmm_f32(eb, take("w_up").to(dt))
+    # expert computation: batched SwiGLU over the expert axis (under FSDP
+    # on this rank's d_model columns, the partial sums summed over data)
+    if data is None:
+        g = bmm_f32(eb, take("w_gate").to(dt))
+        u = bmm_f32(eb, take("w_up").to(dt))
+    else:
+        c0, c1 = data.cols(D)
+        ebd = eb[..., c0:c1].contiguous()
+        g = data.sum(bmm_f32(ebd, take("w_gate").to(dt)))
+        u = data.sum(bmm_f32(ebd, take("w_up").to(dt)))
     h = (F.silu(g) * u).to(dt)
-    eo = bmm_f32(h, take("w_down").to(dt)).to(dt)
+    if data is None:
+        eo = bmm_f32(h, take("w_down").to(dt)).to(dt)
+    else:           # every rank's slots: whole over data once gathered
+        eo = data.gather_cols(bmm_f32(h, take("w_down").to(dt)).to(dt))
 
     # combine: one gather of every choice's slot output, weighted in fp32
     # over exact products of the activation-dtype operands, rounded once

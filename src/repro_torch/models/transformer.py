@@ -69,10 +69,21 @@ keep each rank's shards; :func:`init_cache` gives the rank's caches.
 ``shard_act`` checks the residual stream (whole over ``model``) and the
 logits (the rank's columns) against the plan's hints where they are
 installed.
+
+Served over data-parallel ranks (a :class:`~repro_torch.sharding.tp.
+DataSplit`), :func:`init_cache` gives a rank its rows of the batch, and
+the entry points run on whatever rows they are given.  Where the plan
+shards weights over ``data`` too (FSDP), the model holds each such leaf as
+the rank's ``data`` shard (of its ``model`` shard) and gathers one layer's
+leaves over ``data`` just before that layer runs, dropping them after it,
+but for the leaves it computes with on their shard (``tp.HELD``: the
+embedding, the head, the routed experts and the attention's ``wo``), whose
+products move the activations instead (``tp.DataSplit.apply``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Any, Callable
@@ -93,7 +104,8 @@ from repro_torch.models.layers import (cross_entropy_loss, dot_f32, he_init,
 from repro_torch.models.mamba2 import init_mamba2, mamba2_decode, mamba2_prefill
 from repro_torch.models.moe import moe_ffn, moe_leaves
 from repro_torch.sharding.ctx import shard_act
-from repro_torch.sharding.tp import ModelSplit, copy_to_model, reduce_from_model
+from repro_torch.sharding.tp import (DataSplit, ModelSplit, copy_to_model,
+                                     reduce_from_model)
 
 __all__ = ["ModelConfig", "Transformer", "init_params", "init_cache",
            "abstract_params", "params_from_reference", "lm_loss"]
@@ -291,13 +303,17 @@ class Block(nn.Module):
     NORMS = ("norm1", "norm2")
 
     def __init__(self, cfg: ModelConfig, device: torch.device,
-                 split: ModelSplit | None = None) -> None:
+                 split: ModelSplit | None = None,
+                 data: DataSplit | None = None) -> None:
         super().__init__()
         D, F, dh = cfg.d_model, cfg.d_ff, cfg.d_head
         H, KV = cfg.n_heads_eff, cfg.n_kv_heads_eff
         mdt, ndt = cfg.adt, cfg.pdt
         self.split = split
-        at = _local_shape(split, "blocks/")
+        # the leaves it computes with on their data shard (FSDP, tp.HELD)
+        self.wo_data = _in_place(data, "blocks/attn/wo")
+        self.moe_data = _in_place(data, "blocks/moe/w_gate")
+        at = _local_shape(split, "blocks/", data)
         self.norm1 = _param((D,), ndt, device)
         self.norm2 = _param((D,), ndt, device)
         if cfg.use_mla:
@@ -345,6 +361,8 @@ class Block(nn.Module):
         if hasattr(self, "shared"):
             p["shared"] = self.shared
         kw = {} if self.split is None else {"split": self.split}
+        if self.moe_data is not None:
+            kw["data"] = self.moe_data
         return moe_ffn(p, h, k=cfg.experts_per_token,
                        capacity_factor=cfg.capacity_factor, **kw)
 
@@ -354,11 +372,11 @@ class Block(nn.Module):
         if cfg.use_mla:
             a, cache = mla_prefill(self.attn, h, cos, sin,
                                    probs_bf16=cfg.attn_probs_bf16, plain=plain,
-                                   split=self.split)
+                                   split=self.split, data=self.wo_data)
         else:
             a, cache = gqa_prefill(self.attn, h, cos, sin, window=window,
                                    probs_bf16=cfg.attn_probs_bf16, plain=plain,
-                                   split=self.split)
+                                   split=self.split, data=self.wo_data)
         x = x + a
         f, aux = self._ffn(cfg, rms_norm(x, self.norm2, cfg.norm_eps))
         return x + f, cache, aux
@@ -369,11 +387,12 @@ class Block(nn.Module):
         h = rms_norm(x, self.norm1, cfg.norm_eps)
         if cfg.use_mla:
             a, _ = mla_decode(self.attn, h, c0, c1, pos, cos, sin,
-                              cache_len=cache_len, split=self.split)
+                              cache_len=cache_len, split=self.split,
+                              data=self.wo_data)
         else:
             a, _ = gqa_decode(self.attn, h, c0, c1, pos, cos, sin,
                               window=cfg.attn_window, cache_len=cache_len,
-                              split=self.split)
+                              split=self.split, data=self.wo_data)
         x = x + a
         f, _ = self._ffn(cfg, rms_norm(x, self.norm2, cfg.norm_eps))
         return x + f
@@ -401,27 +420,38 @@ def _mla_params(cfg: ModelConfig, mdt: torch.dtype, ndt: torch.dtype,
     ``at(name, whole shape)``."""
     D, H, dh = cfg.d_model, cfg.n_heads_eff, cfg.d_head
     r, rq, dr = cfg.kv_lora_rank, cfg.q_lora_rank, cfg.d_rope
-    attn = {"w_dkv": _param((D, r), mdt, device),
+    attn = {"w_dkv": _param(at("attn/w_dkv", (D, r)), mdt, device),
             "norm_kv": _param((r,), ndt, device),
-            "w_kr": _param((D, dr), mdt, device),
+            "w_kr": _param(at("attn/w_kr", (D, dr)), mdt, device),
             "w_uk": _param(at("attn/w_uk", (r, H, dh)), mdt, device),
             "w_uv": _param(at("attn/w_uv", (r, H, dh)), ndt, device),
             "wo": _param(at("attn/wo", (H, dh, D)), ndt, device)}
     q_in = rq or D
     if rq:
-        attn.update(w_dq=_param((D, rq), mdt, device),
+        attn.update(w_dq=_param(at("attn/w_dq", (D, rq)), mdt, device),
                     norm_q=_param((rq,), ndt, device))
     attn.update(w_uq=_param(at("attn/w_uq", (q_in, H, dh)), mdt, device),
                 w_qr=_param(at("attn/w_qr", (q_in, H, dr)), mdt, device))
     return attn
 
 
-def _local_shape(split: ModelSplit | None, prefix: str = "") -> Callable:
+def _in_place(data: DataSplit | None, path: str) -> DataSplit | None:
+    """The data split a part computes with on its shard of the leaf at
+    ``path`` (FSDP, ``tp.HELD``), else None (no split, or the leaf
+    gathered a layer at a time)."""
+    return None if data is None else data.in_place(path)
+
+
+def _local_shape(split: ModelSplit | None, prefix: str = "",
+                 data: DataSplit | None = None) -> Callable:
     """``at(name, whole shape)`` → the shape this rank holds of the leaf
-    ``prefix + name`` (the whole shape without a split)."""
-    if split is None:
-        return lambda name, shape: shape
-    return lambda name, shape: split.local_shape(prefix + name, shape)
+    ``prefix + name`` (the whole shape without a split): its ``model``
+    shard, and of that its ``data`` shard under FSDP."""
+    def at(name: str, shape: tuple[int, ...]) -> tuple[int, ...]:
+        if split is not None:
+            shape = split.local_shape(prefix + name, shape)
+        return shape if data is None else data.local_shape(prefix + name, shape)
+    return at
 
 
 class MambaBlock(nn.Module):
@@ -436,12 +466,13 @@ class MambaBlock(nn.Module):
     NORMS = ("norm1",)
 
     def __init__(self, cfg: ModelConfig, device: torch.device,
-                 split: ModelSplit | None = None) -> None:
+                 split: ModelSplit | None = None,
+                 data: DataSplit | None = None) -> None:
         super().__init__()
         D, E, N, W = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
         H, mdt, f32 = cfg.ssm_heads, cfg.adt, torch.float32
         self.split = split
-        at = _local_shape(split, "blocks/ssm/")
+        at = _local_shape(split, "blocks/ssm/", data)
         self.norm1 = _param((D,), cfg.pdt, device)
         shapes = {"w_z": ((D, E), mdt), "w_x": ((D, E), mdt),
                   "w_b": ((D, N), mdt), "w_c": ((D, N), mdt),
@@ -482,11 +513,13 @@ class SharedAttn(nn.Module):
     whole."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device,
-                 split: ModelSplit | None = None) -> None:
+                 split: ModelSplit | None = None,
+                 data: DataSplit | None = None) -> None:
         super().__init__()
         d2, mdt, F = 2 * cfg.d_model, cfg.adt, cfg.d_ff
         self.split = split.block if split is not None else None
-        at = _local_shape(self.split, "shared_attn/")
+        self.wo_data = _in_place(data, "shared_attn/attn/wo")
+        at = _local_shape(self.split, "shared_attn/", data)
         self.norm1 = _param((d2,), cfg.pdt, device)
         self.norm2 = _param((d2,), cfg.pdt, device)
         self.attn = nn.ParameterDict(_gqa_params(
@@ -496,7 +529,10 @@ class SharedAttn(nn.Module):
             {"w_gate": _param(at("mlp/w_gate", (d2, F)), mdt, device),
              "w_up": _param(at("mlp/w_up", (d2, F)), mdt, device),
              "w_down": _param(at("mlp/w_down", (F, d2)), mdt, device)})
-        self.out = _param((d2, cfg.d_model), mdt, device)
+        self.out = _param(at("out", (d2, cfg.d_model)), mdt, device)
+
+    def groups(self) -> dict[str, nn.ParameterDict]:
+        return {"attn": self.attn, "mlp": self.mlp}
 
     def _tail(self, cfg: ModelConfig, x: torch.Tensor, z: torch.Tensor,
               a: torch.Tensor) -> torch.Tensor:
@@ -510,7 +546,7 @@ class SharedAttn(nn.Module):
         z = torch.cat([x, emb0], dim=-1)
         a, cache = gqa_prefill(self.attn, rms_norm(z, self.norm1, cfg.norm_eps),
                                cos, sin, window=window, plain=plain,
-                               split=self.split)
+                               split=self.split, data=self.wo_data)
         return self._tail(cfg, x, z, a), cache
 
     def decode(self, cfg: ModelConfig, x: torch.Tensor, emb0: torch.Tensor,
@@ -520,7 +556,8 @@ class SharedAttn(nn.Module):
         z = torch.cat([x, emb0], dim=-1)
         a, _ = gqa_decode(self.attn, rms_norm(z, self.norm1, cfg.norm_eps),
                           kc, vc, pos, cos, sin, write_pos=write_pos,
-                          valid_len=valid_len, split=self.split)
+                          valid_len=valid_len, split=self.split,
+                          data=self.wo_data)
         return self._tail(cfg, x, z, a)
 
 
@@ -528,11 +565,14 @@ class Transformer(nn.Module):
     """The LM of any family; its parameters are allocated, not initialised
     (see :func:`init_params` and :func:`params_from_reference`).  With a
     ``split`` each leaf the plan shards over ``model`` is allocated as
-    this rank's shard."""
+    this rank's shard; with a ``data`` split that shards leaves over
+    ``data`` (FSDP, serving only), each such leaf as this rank's ``data``
+    shard of that, gathered whole for the run of its layer."""
 
     def __init__(self, cfg: ModelConfig,
                  device: torch.device | str | None = None,
-                 split: ModelSplit | None = None) -> None:
+                 split: ModelSplit | None = None,
+                 data: DataSplit | None = None) -> None:
         super().__init__()
         _check_family(cfg)
         dev = resolve_device(device)
@@ -542,19 +582,59 @@ class Transformer(nn.Module):
         self.cfg = cfg
         self.device = dev
         self.split = split
-        at = _local_shape(split)
+        self.data = data
+        at = _local_shape(split, "", data)
         Vp, D = cfg.padded_vocab, cfg.d_model
         self.embed = _param(at("embed", (Vp, D)), cfg.adt, dev)
         self.final_norm = _param((D,), cfg.pdt, dev)
         self.lm_head = _param(at("lm_head", (D, Vp)), cfg.adt, dev)
         if cfg.family in ("dense", "moe"):
-            self.blocks = nn.ModuleList(Block(cfg, dev, split)
+            self.blocks = nn.ModuleList(Block(cfg, dev, split, data)
                                         for _ in range(cfg.n_layers))
         else:
-            self.blocks = nn.ModuleList(MambaBlock(cfg, dev, split)
+            self.blocks = nn.ModuleList(MambaBlock(cfg, dev, split, data)
                                         for _ in range(cfg.n_mamba_layers))
         if cfg.family == "hybrid":
-            self.shared_attn = SharedAttn(cfg, dev, split)
+            self.shared_attn = SharedAttn(cfg, dev, split, data)
+        self.embed_data = _in_place(data, "embed")
+        self.head_data = _in_place(data, "lm_head")
+        # the FSDP leaves of each part that runs as one (a block, the
+        # shared block, the embedding, the head): (owner, name, path)
+        self._fsdp: dict[Any, list] = {}
+        if data is not None and data.fsdp:
+            self._fsdp.update({name: [(self, name, name)] for name in
+                               ("embed", "lm_head") if name in data.fsdp
+                               and not data.held(name)})
+            for mod, prefix in ([(b, "blocks/") for b in self.blocks]
+                                + ([(self.shared_attn, "shared_attn/")]
+                                   if cfg.family == "hybrid" else [])):
+                owners = {"": mod, **{g + "/": pd for g, pd in mod.groups().items()}}
+                self._fsdp[mod] = [
+                    (owner, name, prefix + g + name)
+                    for g, owner in owners.items()
+                    for name, _ in owner.named_parameters(recurse=False)
+                    if prefix + g + name in data.fsdp
+                    and not data.held(prefix + g + name)]
+
+    @contextlib.contextmanager
+    def _gathered(self, part: Any):
+        """Run the enclosed code with the FSDP leaves of ``part`` (a block,
+        the shared block, or ``"embed"``/``"lm_head"``) gathered over
+        ``data``: one all-gather a leaf, the gathered tensor dropped on
+        exit and the rank's shard put back."""
+        leaves = self._fsdp.get(part)
+        if not leaves:
+            yield
+            return
+        kept = [(owner, name, getattr(owner, name)) for owner, name, _ in leaves]
+        try:
+            for (owner, name, path), (_, _, t) in zip(leaves, kept):
+                setattr(owner, name, nn.Parameter(self.data.gather(t, path),
+                                                  requires_grad=False))
+            yield
+        finally:
+            for owner, name, t in kept:
+                setattr(owner, name, t)
 
     def _tokens(self, tokens: Any) -> torch.Tensor:
         t = tokens if torch.is_tensor(tokens) else torch.as_tensor(np.asarray(tokens))
@@ -564,15 +644,22 @@ class Transformer(nn.Module):
         """The embedding rows of ``tok``; vocab-parallel under a split of
         the embedding's rows: this rank's rows, zeros for the others'
         tokens, summed over ``model`` (one nonzero row: exact)."""
-        sp = self.split
-        if sp is None or sp.vocab_in is None:
-            return self.embed[tok]
-        v0, v1 = sp.vocab_in
-        t = tok - v0
-        rows = self.embed[t.clamp(0, v1 - v0 - 1)]
-        mine = ((t >= 0) & (t < v1 - v0))[..., None]
-        return reduce_from_model(torch.where(mine, rows, torch.zeros_like(rows)),
-                                 sp)
+        sp, ds = self.split, self.embed_data
+
+        def lookup(tok: torch.Tensor) -> torch.Tensor:
+            if sp is None or sp.vocab_in is None:
+                return self.embed[tok]
+            v0, v1 = sp.vocab_in
+            t = tok - v0
+            rows = self.embed[t.clamp(0, v1 - v0 - 1)]
+            mine = ((t >= 0) & (t < v1 - v0))[..., None]
+            return reduce_from_model(
+                torch.where(mine, rows, torch.zeros_like(rows)), sp)
+
+        if ds is not None:                          # this rank's columns
+            return ds.apply(lookup, tok, cols=True)
+        with self._gathered("embed"):
+            return lookup(tok)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         D, Vp = self.cfg.d_model, self.cfg.padded_vocab
@@ -581,7 +668,15 @@ class Transformer(nn.Module):
         sp = self.split
         if sp is not None and sp.vocab_out is not None:
             x = copy_to_model(x, sp)
-        return shard_act(dot_f32(x, self.lm_head), "logits", (None, None, Vp))
+        ds = self.head_data
+        if ds is not None:                           # its rows: partial sums
+            a, b = ds.cols(D)
+            logits = ds.apply(lambda y: dot_f32(y[..., a:b], self.lm_head), x,
+                              cols=False)
+        else:
+            with self._gathered("lm_head"):
+                logits = dot_f32(x, self.lm_head)
+        return shard_act(logits, "logits", (None, None, Vp))
 
     @torch.no_grad()
     def forward_full(self, tokens: Any, *,
@@ -613,7 +708,13 @@ class Transformer(nn.Module):
         """:meth:`forward_full` with autograd on and the config's remat:
         (logits (B, Np + S, Vp) fp32, aux).  Attention runs on the flash
         kernel with its backward kernels (``plain_attention``: the plain
-        versions, autograd through them)."""
+        versions, autograd through them).  Not under FSDP (a serving
+        layout: the gathered leaves take no gradient)."""
+        if self.data is not None and self.data.fsdp:
+            raise NotImplementedError(
+                "forward_train on a model whose leaves are sharded over "
+                "`data` (FSDP serving): training gathers its masters instead "
+                "(train_loop.make_train_step)")
         logits, _, aux = self._forward(tokens, prefix_embeds, window, False,
                                        plain_attention, train=True)
         return logits, aux
@@ -641,8 +742,9 @@ class Transformer(nn.Module):
                                   device=self.device)
             c0s, c1s = [], []
             for blk in self.blocks:
-                x, (c0, c1), a = run(functools.partial(blk.full, cfg), x, cos,
-                                     sin, window, plain)
+                with self._gathered(blk):
+                    x, (c0, c1), a = run(functools.partial(blk.full, cfg), x,
+                                         cos, sin, window, plain)
                 if a is not None:
                     aux = aux + a
                 if return_cache:
@@ -659,7 +761,8 @@ class Transformer(nn.Module):
         by ``run``, their final states appended to ``states`` (None:
         dropped)."""
         for i in layers:
-            x, st = run(functools.partial(self.blocks[i].full, self.cfg), x)
+            with self._gathered(self.blocks[i]):
+                x, st = run(functools.partial(self.blocks[i].full, self.cfg), x)
             if states is not None:
                 states.append(st)
         return x
@@ -684,7 +787,8 @@ class Transformer(nn.Module):
         shared = functools.partial(self.shared_attn.full, cfg)
         for first, n in groups:
             x = self._mamba_full(x, range(first, first + n), states, run)
-            x, kv = run(shared, x, emb0, cos, sin, window, plain)
+            with self._gathered(self.shared_attn):
+                x, kv = run(shared, x, emb0, cos, sin, window, plain)
             if return_cache:
                 kvs.append(kv)
         x = self._mamba_full(x, range(t0, t0 + tail), states, run)
@@ -720,7 +824,8 @@ class Transformer(nn.Module):
                 tok = tok.to(self.device, non_blocking=True)
             x = self._embed(self._tokens(tok)[:, None])       # (B, 1, D)
             for blk, *st in zip(self.blocks, *(caches[k] for k in SSM_KEYS)):
-                x = blk.decode(cfg, x, tuple(st))
+                with self._gathered(blk):
+                    x = blk.decode(cfg, x, tuple(st))
             return self._logits(x)[:, 0], caches
         p = pos if torch.is_tensor(pos) else torch.as_tensor(np.asarray(pos))
         hybrid = cfg.family == "hybrid"
@@ -757,7 +862,8 @@ class Transformer(nn.Module):
         else:
             cache_len = p + 1
             for blk, c0, c1 in zip(self.blocks, caches[keys[0]], caches[keys[1]]):
-                x = blk.decode(cfg, x, c0, c1, p, cache_len, cos, sin)
+                with self._gathered(blk):
+                    x = blk.decode(cfg, x, c0, c1, p, cache_len, cos, sin)
         return self._logits(x)[:, 0], caches
 
     def _hybrid_decode(self, x, caches, p, write_pos, valid_len, cos, sin):
@@ -765,14 +871,19 @@ class Transformer(nn.Module):
         emb0 = x
         state = list(zip(*(caches[k] for k in SSM_KEYS)))
         *groups, (t0, tail) = self._hybrid_layout()
+        def mamba(i, x):
+            with self._gathered(self.blocks[i]):
+                return self.blocks[i].decode(cfg, x, state[i])
+
         for g, (first, n) in enumerate(groups):
             for i in range(first, first + n):
-                x = self.blocks[i].decode(cfg, x, state[i])
-            x = self.shared_attn.decode(cfg, x, emb0, caches["k"][g],
-                                        caches["v"][g], p, write_pos, valid_len,
-                                        cos, sin)
+                x = mamba(i, x)
+            with self._gathered(self.shared_attn):
+                x = self.shared_attn.decode(cfg, x, emb0, caches["k"][g],
+                                            caches["v"][g], p, write_pos,
+                                            valid_len, cos, sin)
         for i in range(t0, t0 + tail):
-            x = self.blocks[i].decode(cfg, x, state[i])
+            x = mamba(i, x)
         return x
 
 
@@ -804,7 +915,8 @@ def _stack_states(states: list) -> dict[str, torch.Tensor]:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device: torch.device | str | None = None,
-               split: ModelSplit | None = None) -> dict[str, torch.Tensor]:
+               split: ModelSplit | None = None,
+               data: DataSplit | None = None) -> dict[str, torch.Tensor]:
     """Zeroed serving caches: {"k", "v"} of (L, B, S, KV, dh), or under MLA
     the latents {"ckv", "kr"} of (L, B, S, r) and (L, B, S, dr), in the
     activation dtype; for the Mamba2 layers (``ssm``, ``hybrid``) the state
@@ -816,10 +928,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     sequence (MLA's latents always) every KV head, or the whole latent, at
     ⌈S / m⌉ positions (the last rank's tail past S is never written nor
     read); "h" over its SSM heads, "conv_x" over its channels, and the
-    shared block's KV heads."""
+    shared block's KV heads.  Under a ``data`` split of the batch, every
+    cache holds the rank's rows (:meth:`~repro_torch.sharding.tp.
+    DataSplit.rows`): ``conv_b``/``conv_c`` too, which the reference's plan
+    keeps whole (every rank decodes only its rows, so the other rows'
+    states are the other ranks' to keep)."""
     _check_family(cfg)
     dev = resolve_device(device)
-    adt, B, S = cfg.adt, batch, max_len
+    rows = data.rows(batch) if data is not None else None
+    adt, S = cfg.adt, max_len
+    B = batch if rows is None else rows[1] - rows[0]
 
     def zeros(shape, dt=adt):
         return torch.zeros(shape, dtype=dt, device=dev)
@@ -914,25 +1032,27 @@ def abstract_params(cfg: ModelConfig) -> dict:
 
 def init_params(cfg: ModelConfig, seed: int = 0,
                 device: torch.device | str | None = None,
-                split: ModelSplit | None = None) -> Transformer:
+                split: ModelSplit | None = None,
+                data: DataSplit | None = None) -> Transformer:
     """A :class:`Transformer` with random weights from ``seed``, made on
     ``device`` (None: the card): the reference's distribution (embedding
     N(0, 0.02²), he-scaled normal matrices, unit norms, zero biases, the
     padded heads' output rows zeroed; Mamba2's N(0, 0.1²) conv taps, A = −1,
     D = 1), drawn in float32 by a ``torch.Generator`` and cast to each
     tensor's dtype (the MoE router and Mamba2's ``A_log``, ``D``,
-    ``dt_bias`` stay float32).  Under a ``split`` every rank draws the
-    whole tree and keeps its shards."""
-    model = Transformer(cfg, device, split)
+    ``dt_bias`` stay float32).  Under a ``split`` (and a ``data`` split's
+    FSDP) every rank draws the whole tree and keeps its shards."""
+    model = Transformer(cfg, device, split, data)
+    put = functools.partial(_put, data=data)
     gen = torch.Generator(device=model.device).manual_seed(seed)
     D, Vp, F = cfg.d_model, cfg.padded_vocab, cfg.d_ff
     adt = cfg.adt
     with torch.no_grad():
-        _put(model.embed, split, "embed",
-             normal_init(gen, (Vp, D), 0.02, model.embed.dtype))
+        put(model.embed, split, "embed",
+            normal_init(gen, (Vp, D), 0.02, model.embed.dtype))
         model.final_norm.fill_(1.0)
-        _put(model.lm_head, split, "lm_head",
-             he_init(gen, (D, Vp), D, model.lm_head.dtype))
+        put(model.lm_head, split, "lm_head",
+            he_init(gen, (D, Vp), D, model.lm_head.dtype))
         for blk in model.blocks:
             for name in blk.NORMS:
                 getattr(blk, name).fill_(1.0)
@@ -940,7 +1060,7 @@ def init_params(cfg: ModelConfig, seed: int = 0,
                 _copy_into(blk.ssm, init_mamba2(
                     gen, D, d_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim,
                     expand=cfg.ssm_expand, conv_width=cfg.ssm_conv, dtype=adt),
-                    split, "blocks/ssm/")
+                    split, "blocks/ssm/", data)
                 continue
             if cfg.use_mla:
                 attn = init_mla(gen, D, cfg.n_heads,
@@ -952,7 +1072,7 @@ def init_params(cfg: ModelConfig, seed: int = 0,
                                 cfg.d_head, bias=cfg.qkv_bias, dtype=adt)
                 if cfg.n_heads_eff != cfg.n_heads:
                     attn["wo"][cfg.n_heads:] = 0.0
-            _copy_into(blk.attn, attn, split, "blocks/attn/")
+            _copy_into(blk.attn, attn, split, "blocks/attn/", data)
             del attn
             if cfg.family == "moe":     # one whole leaf at a time
                 for path, t in moe_leaves(gen, D, cfg.d_ff_expert,
@@ -961,46 +1081,53 @@ def init_params(cfg: ModelConfig, seed: int = 0,
                                           dtype=adt):
                     group, name = (blk.shared, path[7:]) if path.startswith(
                         "shared/") else (blk.moe, path)
-                    _put(group[name], split, "blocks/moe/" + path, t)
+                    put(group[name], split, "blocks/moe/" + path, t)
                     del t
             else:
-                _copy_into(blk.mlp, init_mlp(gen, D, F, adt), split, "blocks/mlp/")
+                _copy_into(blk.mlp, init_mlp(gen, D, F, adt), split,
+                           "blocks/mlp/", data)
         if cfg.family == "hybrid":
             sa, d2 = model.shared_attn, 2 * D
             sa.norm1.fill_(1.0)
             sa.norm2.fill_(1.0)
             _copy_into(sa.attn, init_gqa(gen, d2, cfg.n_heads, cfg.n_kv_heads,
                                          _shared_dh(cfg), dtype=adt),
-                       split, "shared_attn/attn/")
+                       split, "shared_attn/attn/", data)
             _copy_into(sa.mlp, init_mlp(gen, d2, F, adt), split,
-                       "shared_attn/mlp/")
-            sa.out.copy_(he_init(gen, (d2, D), d2, adt))
+                       "shared_attn/mlp/", data)
+            put(sa.out, None, "shared_attn/out", he_init(gen, (d2, D), d2, adt))
     return model
 
 
 def _copy_into(params: nn.ParameterDict, values: dict[str, torch.Tensor],
-               split: ModelSplit | None = None, prefix: str = "") -> None:
+               split: ModelSplit | None = None, prefix: str = "",
+               data: DataSplit | None = None) -> None:
     for name, t in values.items():
-        _put(params[name], split, prefix + name, t)
+        _put(params[name], split, prefix + name, t, data)
 
 
 def _put(param: torch.Tensor, split: ModelSplit | None, path: str,
-         whole: torch.Tensor) -> None:
-    """``param`` ← this rank's slice of the leaf's ``whole`` value."""
+         whole: torch.Tensor, data: DataSplit | None = None) -> None:
+    """``param`` ← this rank's slice of the leaf's ``whole`` value (of
+    its ``model`` shard, its ``data`` shard under FSDP)."""
     if split is not None:
         whole = whole[split.local_slices(path, tuple(whole.shape))]
+    if data is not None:
+        whole = whole[data.local_slices(path, tuple(whole.shape))]
     param.copy_(whole)
 
 
 def params_from_reference(np_params: dict[str, Any], cfg: ModelConfig,
                           device: torch.device | str | None = None,
-                          split: ModelSplit | None = None) -> Transformer:
+                          split: ModelSplit | None = None,
+                          data: DataSplit | None = None) -> Transformer:
     """The JAX package's parameter tree (``jax.tree.map(np.asarray,
     init_params(cfg, key))``, blocks stacked on a leading L axis) as a
-    :class:`Transformer` on ``device`` (under a ``split``: each rank's
-    shards of the whole tree).  Every leaf is used; an unknown or missing
-    leaf, or a shape that does not match, raises ``ValueError``."""
-    model = Transformer(cfg, device, split)
+    :class:`Transformer` on ``device`` (under a ``split``, and a ``data``
+    split's FSDP: each rank's shards of the whole tree).  Every leaf is
+    used; an unknown or missing leaf, or a shape that does not match,
+    raises ``ValueError``."""
+    model = Transformer(cfg, device, split, data)
     want = _leaves(model)
     flat = _flatten(np_params)
     unknown, missing = sorted(set(flat) - set(want)), sorted(set(want) - set(flat))
@@ -1013,8 +1140,8 @@ def params_from_reference(np_params: dict[str, Any], cfg: ModelConfig,
             stacked = path.startswith("blocks/")
             lead = (len(targets),) if stacked else ()
             one = a.shape[len(lead):]
-            if split is not None and a.shape[:len(lead)] == lead:
-                one = split.local_shape(path, tuple(one))
+            if a.shape[:len(lead)] == lead:
+                one = _local_shape(split, "", data)(path, tuple(one))
             shape = lead + tuple(targets[0].shape)
             if a.shape[:len(lead)] + tuple(one) != shape:
                 raise ValueError(f"params_from_reference: {path} has shape "
@@ -1022,5 +1149,5 @@ def params_from_reference(np_params: dict[str, Any], cfg: ModelConfig,
             src = torch.from_numpy(np.array(a, dtype=np.float32))
             for i, t in enumerate(targets):
                 _put(t, split, path, (src[i] if stacked else src).to(
-                    device=t.device, dtype=t.dtype))
+                    device=t.device, dtype=t.dtype), data)
     return model

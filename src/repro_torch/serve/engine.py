@@ -40,9 +40,27 @@ MLA's latents always; a Mamba2 layer's ``h`` over its SSM heads and
 prefill; zamba2's shared ``k``/``v`` over its KV heads),
 the logits are gathered over ``model`` before sampling, and the
 generators are seeded alike, so that every rank emits the same tokens.
-A mesh whose ``pod`` × ``data`` exceeds one rank raises: the reference
-splits the cache's batch over ``data``, which is not ported (ROADMAP.md,
-Queue A item 10h).
+
+Where ``pod`` × ``data`` exceeds one rank (a :class:`~repro_torch.sharding.
+tp.DataSplit`) the data ranks split the slots as the plan splits the
+caches' batch: a rank holds rows ``[d·B/D, (d+1)·B/D)`` of the ``max_batch``
+slots (D the data-parallel ranks, pod-major, d this rank's index; every
+row where the plan leaves the batch whole), and the ``model`` split runs
+unchanged inside each data rank.  Every rank keeps the same queue, slot
+pool, positions and last tokens over all the slots, so every scheduling
+decision is the same without a collective.  A prefill runs on every rank
+(one request, B = 1, routed alone through the MoE layers; under FSDP its
+layers gather their weights over ``data``, a collective every data rank
+joins), so every rank samples the same first token, and only the slot's
+owner writes it into its cache.  A decode step runs each rank's rows
+through ``forward_decode``, the MoE layers routing over the whole batch
+(the data ranks installed as the token group: the capacity of all B rows,
+and positions after the earlier ranks' copies, as the reference's GSPMD
+routes); the logits (the rank's vocabulary columns of its rows) are
+gathered over the data ranks in row order, then over ``model``, and every
+rank samples the whole batch.  The model must
+carry the plan's data split (:func:`~repro_torch.sharding.tp.data_split`:
+FSDP's shards of the weights).
 """
 
 from __future__ import annotations
@@ -56,8 +74,8 @@ import torch
 
 from repro_torch.core.device import resolve_device
 from repro_torch.models.transformer import ModelConfig, Transformer, init_cache
-from repro_torch.sharding.ctx import use_plan
-from repro_torch.sharding.tp import gather_from_model, model_split
+from repro_torch.sharding.ctx import use_plan, use_token_group
+from repro_torch.sharding.tp import data_split, gather_from_model, model_split
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.scheduling import AdmissionQueue, SlotPool, bucket_for
 
@@ -112,24 +130,27 @@ class ServeEngine:
         the two SLO classes; ``queue_limit`` bounds admission.  ``mesh``
         and ``plan`` come together; the plan's caches must hold
         ``max_batch`` sequences of ``max_len``, and ``model`` must carry
-        the plan's split (:func:`~repro_torch.sharding.tp.model_split`)."""
+        the plan's split (:func:`~repro_torch.sharding.tp.model_split`) and
+        its data split (:func:`~repro_torch.sharding.tp.data_split`)."""
         if (mesh is None) != (plan is None):
             raise ValueError("serving on a plan needs both mesh and plan")
-        split = None
+        split = data = None
         if mesh is not None:
-            axes = dict(zip(mesh.mesh_dim_names, mesh.shape))
-            if axes.get("pod", 1) * axes.get("data", 1) > 1:
-                raise NotImplementedError(
-                    f"serving on a mesh {axes} with pod x data > 1 is not "
-                    "ported yet (ROADMAP.md, Queue A item 10h: the cache's "
-                    "batch over data)")
             split = model_split(cfg, plan.param_specs, mesh, plan.cache_specs)
             if (split is None) != (model.split is None) or (
                     split is not None and (split.specs, split.cache) !=
                     (model.split.specs, model.split.cache)):
                 raise ValueError("the model was not built with the plan's "
                                  "split (sharding.tp.model_split)")
-        self.mesh, self.plan, self.split = mesh, plan, split
+            data = data_split(cfg, plan, mesh)
+            if getattr(model, "data", None) != data:
+                raise ValueError("the model was not built with the plan's "
+                                 "data split (sharding.tp.data_split)")
+        self.mesh, self.plan, self.split, self.data = mesh, plan, split, data
+        # this rank's slots [r0, r1): its rows of the caches' batch
+        rows = data.rows(max_batch) if data is not None else None
+        self.rows = rows or (0, max_batch)
+        self._tokens = data.group if rows is not None else None
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"the model lies on {model.device}, the engine "
@@ -143,7 +164,7 @@ class ServeEngine:
         self.greedy = greedy
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self.caches = init_cache(cfg, max_batch, max_len, device=self.device,
-                                 split=split)
+                                 split=split, data=data)
         self.pos = np.zeros(max_batch, np.int32)
         # slot occupancy lives in the shared SlotPool; ``active`` aliases
         # its flags array so the decode mask and the pool stay one state
@@ -210,24 +231,25 @@ class ServeEngine:
             logits, pcache, _ = self.model.forward_full(padded,
                                                         return_cache=True)
         (first,) = self._sample(logits[0, plen - 1:plen])
-        for key, leaf in self.caches.items():
+        r0, r1 = self.rows
+        for key, leaf in (self.caches.items() if r0 <= slot < r1 else ()):
             new = pcache[key][:, 0]
             if key not in _SEQ_KEYS:
-                leaf[:, slot] = new
+                leaf[:, slot - r0] = new
                 continue
             if self.split is not None and self.split.cache == "seq":
                 # this rank's positions [r·Sl, (r + 1)·Sl) of the prompt
                 Sl = leaf.shape[2]
                 c0 = self.split.r * Sl
                 n = max(0, min(new.shape[1] - c0, Sl))
-                leaf[:, slot, :n] = new[:, c0:c0 + n]
+                leaf[:, slot - r0, :n] = new[:, c0:c0 + n]
                 continue
             S, win = new.shape[1], leaf.shape[2]
             if S <= win:
-                leaf[:, slot, :S] = new
+                leaf[:, slot - r0, :S] = new
             else:                     # a ring: the last ``win`` positions
                 idx = torch.arange(S - win, S, device=leaf.device)
-                leaf[:, slot, idx % win] = new[:, idx]
+                leaf[:, slot - r0, idx % win] = new[:, idx]
         self.pos[slot] = plen
         self.slots.acquire(slot)
         self.last_token[slot] = first
@@ -271,9 +293,13 @@ class ServeEngine:
 
         n_active = len(self._slots)
         t0 = time.perf_counter()
-        with use_plan(self.mesh, getattr(self.plan, "act_specs", None)):
+        r0, r1 = self.rows
+        with use_plan(self.mesh, getattr(self.plan, "act_specs", None)), \
+                use_token_group(self._tokens):
             logits, self.caches = self.model.forward_decode(
-                self.last_token, self.caches, self.pos)
+                self.last_token[r0:r1], self.caches, self.pos[r0:r1])
+        if self._tokens is not None:             # every rank's rows, in order
+            logits = self.data.gather_rows(logits)
         toks = self._sample(logits)              # waits for the card
         self.metrics.record_batch(n_active, time.perf_counter() - t0)
         out: dict[int, int] = {}

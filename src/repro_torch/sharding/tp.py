@@ -56,14 +56,38 @@ weights whole, the block runs on the cache's heads, its weights sliced at
 use).
 
 At ``model = 1`` no split is made (:func:`model_split` returns None) and
-no collective is issued.  The collectives are ``torch.distributed`` calls
-on the tensors as they lie: gloo takes CUDA tensors as well as NCCL does.
-No DTensor redistribute is used.
+no collective is issued.
+
+Serving on a mesh whose ``pod`` × ``data`` exceeds one rank adds a
+:class:`DataSplit` (:func:`data_split`) beside the ``model`` split: the
+rank's rows of the caches' batch where the plan splits it over the
+data-parallel axes (the reference's ``dp_b``), and, where the plan shards
+the weights over ``data`` as well (FSDP: the serving plan of a model whose
+weights a ``model`` rank cannot hold), the rank's ``data`` shard of each
+such leaf, gathered over ``data`` (:meth:`DataSplit.gather`, one
+all-gather a leaf) just before its layer runs and dropped after it.  The
+heaviest leaves stay on their shard instead (:data:`HELD`: the embedding,
+the head, the routed experts, the attention's output projection): their
+product moves the activations, a decode batch's few rows, in place of the
+weights, partial sums over the shard's inputs summed over ``data`` or the
+shard's output columns gathered over it.  A layer asks one hook,
+:meth:`DataSplit.in_place`, whether it computes with a leaf's shard; the
+rest of its leaves are gathered around it.  Why two ways: ranks that share
+one card over gloo move about 1 GB/s, and deepseek-v2's experts, embedding
+and head are most of a forward's gathered bytes.  Where the data ranks are
+cards joined by NCCL the table is to be measured again (a gather a layer
+for every leaf may then cost less than moving the activations).  The
+``model`` split runs unchanged inside each data rank.
+
+The collectives are ``torch.distributed`` calls on the tensors as they
+lie: gloo takes CUDA tensors as well as NCCL does.  No DTensor
+redistribute is used.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Mapping
 
 import torch
@@ -71,14 +95,23 @@ import torch.distributed as dist
 
 from repro_torch.launch.mesh import axis_group
 from repro_torch.sharding.placement import local_slices
-from repro_torch.sharding.ctx import all_gather_flat
+from repro_torch.sharding.ctx import all_gather_flat, token_group
 from repro_torch.sharding.spec import entry_axes
 
 __all__ = ["ModelSplit", "model_split", "plan_split", "local_range",
            "copy_to_model", "reduce_from_model", "gather_from_model",
-           "sum_over_model", "max_over_model"]
+           "sum_over_model", "max_over_model", "DataSplit", "data_split"]
 
 MODEL = "model"
+DP_AXES = ("pod", "data")            # the data-parallel axes, major first
+# the leaves a rank computes with on its `data` shard (FSDP) where the plan
+# shards them on this dim (per layer), not gathered: the embedding's and
+# the output projections' columns, the head's and the experts' gate and up
+# products' inputs
+HELD = {"embed": 1, "lm_head": 0, "blocks/moe/w_gate": 1,
+        "blocks/moe/w_up": 1, "blocks/moe/w_down": 2, "blocks/attn/wo": 2,
+        "shared_attn/attn/wo": 2}
+_EXPERTS = ("blocks/moe/w_gate", "blocks/moe/w_up", "blocks/moe/w_down")
 SSM = "blocks/ssm/"
 SHARED = "shared_attn/"
 
@@ -644,3 +677,162 @@ def _cache_split(cfg, flat_cache: dict, flat: dict, on_model: list,
             "a cache split over the sequence needs wk/wv whole on every rank "
             "(each rank writes the new row of every KV head)")
     return cache
+
+
+# ------------------------------------------------------------ data ranks
+@dataclasses.dataclass
+class DataSplit:
+    """One serving rank's share over the data-parallel axes ``pod`` ×
+    ``data``: ``n`` ranks (pod-major), this rank the ``d``-th, joined by
+    ``group``.  ``batch``: the plan splits the caches' batch over them, so
+    the rank holds and decodes the rows :meth:`rows` gives (else every
+    row).  ``fsdp``: the dims (per layer, for ``blocks/``) of the leaves
+    the plan shards over ``data`` (``f`` ranks, this rank the ``fr``-th,
+    joined by ``fsdp_group``): the rank holds its ``data`` shard of each
+    (of its ``model`` shard, where the plan also splits the leaf over
+    ``model``, on another dim) and :meth:`gather` makes the whole of it
+    for one layer's run."""
+
+    n: int
+    d: int
+    batch: bool
+    fsdp: dict[str, int] = dataclasses.field(default_factory=dict)
+    f: int = 1
+    fr: int = 0
+    group: Any = dataclasses.field(default=None, compare=False, repr=False)
+    fsdp_group: Any = dataclasses.field(default=None, compare=False,
+                                        repr=False)
+
+    def rows(self, batch: int) -> tuple[int, int] | None:
+        """This rank's ``[start, stop)`` of ``batch`` cache rows, or None
+        where it holds every row."""
+        if not self.batch:
+            return None
+        if batch % self.n:
+            raise ValueError(f"a batch of {batch} rows over {self.n} data "
+                             "ranks: the plan leaves such a batch whole")
+        k = batch // self.n
+        return self.d * k, (self.d + 1) * k
+
+    def local_shape(self, path: str, shape: tuple[int, ...]) -> tuple[int, ...]:
+        """The shape this rank holds of a leaf (one layer's) whose shape
+        under the ``model`` split is ``shape``."""
+        return tuple(b - a for a, b in ((s.start, s.stop) for s in
+                                        self.local_slices(path, shape)))
+
+    def local_slices(self, path: str, shape: tuple[int, ...]
+                     ) -> tuple[slice, ...]:
+        """The slices of ``shape`` (the leaf under the ``model`` split) that
+        this rank holds: its ``data`` shard of the FSDP dim."""
+        dim = self.fsdp.get(path)
+        out = [slice(0, n) for n in shape]
+        if dim is not None:
+            n = shape[dim]
+            if n % self.f:
+                raise NotImplementedError(
+                    f"{path}: dim {dim} ({n}) split unevenly over data = "
+                    f"{self.f} is not ported")
+            out[dim] = slice(*self.cols(n))
+        return tuple(out)
+
+    def gather(self, t: torch.Tensor, path: str) -> torch.Tensor:
+        """The leaf at ``path`` whole along its FSDP dim (this rank's
+        ``model`` shard): every ``data`` rank's shard ``t``, in order."""
+        return _gather(t, self.fsdp[path], self.fsdp_group, self.f)
+
+    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Every data rank's rows of ``x`` (dim 0), in row order."""
+        return _gather(x, 0, self.group, self.n) if self.batch else x
+
+    def held(self, path: str) -> bool:
+        """Whether the model computes with its shard of the leaf at
+        ``path`` in place (:data:`HELD`) rather than gathering it (the
+        routed experts' three leaves only together)."""
+        group = _EXPERTS if path in _EXPERTS else (path,)
+        return all(p in HELD and self.fsdp.get(p) == HELD[p] for p in group)
+
+    def in_place(self, path: str) -> "DataSplit | None":
+        """This split where the model computes with its shard of the leaf
+        at ``path`` in place (:meth:`held`), else None: the one hook a
+        layer asks, handing the split to the product over that leaf."""
+        return self if self.held(path) else None
+
+    def cols(self, n: int) -> tuple[int, int]:
+        """This rank's ``[start, stop)`` of a dim of ``n`` sharded over
+        ``data``."""
+        return self.fr * n // self.f, (self.fr + 1) * n // self.f
+
+    def gather_cols(self, x: torch.Tensor) -> torch.Tensor:
+        """Every ``data`` rank's columns of ``x`` (its last dim), in order:
+        a product over a held leaf's output columns made whole."""
+        return _gather(x, x.dim() - 1, self.fsdp_group, self.f)
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over ``data`` of each rank's ``x``: a product over a held
+        leaf's input shard made whole (fp32 partial sums)."""
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=self.fsdp_group)
+        return y
+
+    def apply(self, fn, x: torch.Tensor, cols: bool) -> torch.Tensor:
+        """``fn(x)``, a product over a held leaf, made whole: ``fn`` gives
+        this rank's output columns (``cols``: the leaf split on its output
+        dim), gathered over ``data``, or fp32 partial sums (the leaf split
+        on its input dim), summed over it.  Where the data ranks hold other
+        rows (a decode step: the token group installed) ``fn`` runs on
+        every ``data`` rank's rows of ``x`` (dim 0), and this rank's rows
+        of the result are returned."""
+        n = x.shape[0]
+        spread = token_group() is not None
+        if spread:
+            x = _gather(x, 0, self.fsdp_group, self.f)
+        y = fn(x)
+        y = self.gather_cols(y) if cols else self.sum(y)
+        return y.narrow(0, self.fr * n, n) if spread else y
+
+
+def data_split(cfg, plan, mesh) -> DataSplit | None:
+    """This rank's :class:`DataSplit` under ``plan`` (its cache and
+    parameter specs) on ``mesh`` (a ``DeviceMesh``); None where the mesh
+    has one data-parallel rank, or the plan neither splits the caches'
+    batch nor shards a weight over ``data``.  Raises
+    ``NotImplementedError`` for a spec the split does not serve: a cache
+    whose batch is split over other axes than ``pod`` × ``data``, a weight
+    sharded over ``pod`` or over ``data`` on two dims."""
+    names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+    axes = dict(zip(names, getattr(mesh, "shape", ())))
+    dp = tuple(a for a in DP_AXES if a in axes)
+    n = math.prod(axes[a] for a in dp)
+    if mesh is None or n == 1:
+        return None
+    coord = dict(zip(names, mesh.get_coordinate()))
+    d = 0
+    for a in dp:
+        d = d * axes[a] + coord[a]
+    batch = False
+    for path, spec in _flat(plan.cache_specs or {}).items():
+        on = entry_axes(tuple(spec or ())[1]) if len(spec or ()) > 1 else ()
+        if on and on != dp:
+            raise NotImplementedError(
+                f"cache {path}: spec {spec} splits the batch over {on}; the "
+                f"data split serves it over {dp} or whole")
+        batch = batch or bool(on)
+    fsdp: dict[str, int] = {}
+    for path, spec in _flat(plan.param_specs).items():
+        spec = _per_layer(path, spec)
+        dims = [i for i, e in enumerate(spec)
+                if set(entry_axes(e)) & set(DP_AXES)]
+        if not dims:
+            continue
+        if len(dims) > 1 or entry_axes(spec[dims[0]]) != ("data",):
+            raise NotImplementedError(
+                f"{path}: spec {spec}; the data split serves weights sharded "
+                "over `data` alone, on one dim")
+        if axes.get("data", 1) > 1:
+            fsdp[path] = dims[0]
+    if not (batch or fsdp):
+        return None
+    return DataSplit(n=n, d=d, batch=batch, fsdp=fsdp, f=axes.get("data", 1),
+                     fr=coord.get("data", 0), group=axis_group(mesh, dp),
+                     fsdp_group=(axis_group(mesh, ("data",)) if fsdp
+                                 else None))

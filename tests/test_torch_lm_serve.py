@@ -9,7 +9,6 @@ before it.  Inputs come from numpy seeds.
 """
 
 import dataclasses
-import types
 
 import jax
 import numpy as np
@@ -204,12 +203,6 @@ def test_sampling_draws_from_a_seeded_generator():
 
 
 def test_engine_refuses_what_is_not_ported_or_misplaced():
-    # serving on a plan is ported for a model axis only: a mesh whose pod x
-    # data exceeds one rank is not (the cache's batch over data)
-    mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"),
-                                 shape=(2, 1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeEngine(SMOKE, _MODEL, device="cpu", mesh=mesh, plan=object())
     with pytest.raises(ValueError, match="both mesh and plan"):
         ServeEngine(SMOKE, _MODEL, device="cpu", mesh=object())
     with pytest.raises(ValueError, match="another ModelConfig"):
