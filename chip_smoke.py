@@ -75,7 +75,15 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               zamba2's as its served config decodes (no window), and at
               zamba2's against a ring of 256 slots (lengths min(pos + 1, 256), most
               past the ring's width), also under CUDA's sync debug mode and
-              captured in a CUDA graph; and the chunked SSD scan against
+              captured in a CUDA graph; a sliding window on the
+              full-length cache (``WINDOWS``: 256 and 1,024) at qwen's and
+              zamba2's heads, lengths 1, W - 1, W, W + 1 and S, starts
+              max(0, len - W) on the card (the windowed grid of ceil(W /
+              chunk) + 1 splits), under CUDA's sync debug mode, two calls
+              and a CUDA graph's replay bitwise equal, and a rank's piece
+              of a sequence split over 4 ranks (local starts, a piece
+              wholly below its start: zeros and lse -inf) with the
+              log-sum-exp output (``TP_LSE_TOL``); and the chunked SSD scan against
               its sequential oracle at one full-width layer of mamba2 (H
               64, P 64, N 128) and zamba2 (H 112, N 64), S = 1024.
               Limits: float32 ``rtol = atol = 1e-5``; bfloat16, and float32
@@ -106,7 +114,10 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               deepseek-v2-236b (full width, depth cut to 2 of 60 layers:
               the whole model is 472 GB in bf16) in float32 and bfloat16,
               granite-8b and codeqwen1.5-7b in bfloat16, each freed before
-              the next; flash launches = layers x prefills, decode launches
+              the next (before them qwen2.5-3b with ``attn_window`` 256 at
+              every width, ``LM_WINDOW_LAYERS`` of its 36 layers: float32
+              held and timed as run 1, bfloat16 as run 2, the teacher-forced
+              forward cutting the same window); flash launches = layers x prefills, decode launches
               = layers x steps (0 for MLA, whose absorbed decode is plain
               PyTorch), the decode step's device time beside its bytes
               bound (every weight, every expert, the caches' valid prefix)
@@ -228,7 +239,25 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               of every weight (each must exist) within
               ``LM_TRAIN_GRAD_REL`` of the same model's with the attention's
               plain version, then 3 AdamW steps of each, losses within
-              ``LM_TRAIN_LOSS_RTOL``.  olmoe-1b-7b at every width, 2 layers,
+              ``LM_TRAIN_LOSS_RTOL``.  The backward with p rounded to
+              bfloat16 (``round_p``, the model's ``attn_probs_bf16``) on
+              the CUDA-core pair at qwen2.5-3b's, MLA's and zamba2's heads,
+              S 1,024, both dtypes (v rounded to bfloat16 as the model
+              rounds it), against the plain version's gradient (the row
+              max attached): float32 within ``FLASH_BWD_ROUNDED_REL`` of
+              each gradient's largest, which the fp32-p backward, run
+              beside it as a control, must fail; bfloat16 within
+              ``FLASH_BWD_BF16_ULPS`` bf16 ulps; two
+              calls bitwise equal, counted as ``flash_attention_bwd``, and
+              read against the reference's several-chunk function
+              (kv_chunk 256); then the float32 twin again with
+              ``attn_probs_bf16`` (``flash_attention`` forward with p
+              rounded against the row's max, ``flash_attention_bwd``
+              backward): losses within ``LM_TRAIN_LOSS_RTOL``, first
+              gradients within ``FLASH_BWD_BF16_ULPS`` bf16 ulps of each
+              leaf's largest (``LM_TRAIN_PROBS``: it shows the route runs,
+              not that the rounding is right).
+              olmoe-1b-7b at every width, 2 layers,
               bfloat16: the first gradient (finite), 2 steps (finite
               losses), and ``ProductF32``'s backward at its expert ``bmm``
               and an ``mm`` against autograd through the upcast product
@@ -442,11 +471,17 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               the kernels issue, as ``fbt_query`` states them, and the
               plan's shared memory checked against the kernels'; the
               kernels line's ``flash_attention_bwd`` is zamba2's float32
-              at S 1,024 on ``route="simt"``, on no model's training path);
+              at S 1,024 on ``route="simt"``; its model path is training with
+              ``attn_probs_bf16``, timed beside it as ``rounded``);
               internvl2's G 6 forward at S
               4,096 beside masked SDPA; decode attention at qwen2.5-3b's
               served shape with the log-sum-exp output, and in bfloat16
-              with it and a float32 output, beside the row without it;
+              with it and a float32 output, beside the row without it,
+              and with a window of 256 on the full-length cache beside
+              SDPA with the window's mask (the bound reads the window's
+              keys); the backward with p rounded to bfloat16 at qwen's
+              heads, S 4,096 and 1,024, beside its plain version (no
+              PyTorch call rounds p: no library time);
               the
               ``kernels`` JSON line (the forward flash kernels' launches
               are the served paths', their training launches beside them,
@@ -567,6 +602,12 @@ FAMILY_HEADS = ((16, 16, 128), (32, 8, 128), (32, 32, 128), (128, 128, 192))
 NEW_HEADS = ((64, 8, 128), (48, 8, 128), (24, 24, 64))
 SHARED_HEADS = (32, 32, 224)
 RING_WIDTH = PROBE_WINDOW = 256
+# Sliding windows on a full-length decode cache (phase 6): W of
+# PROBE_WINDOW and 1,024 at S = LM_MAX_LEN
+WINDOWS = (PROBE_WINDOW, 1024)
+# ... and in serving (phase 7): qwen2.5-3b with attn_window PROBE_WINDOW at
+# every width, its depth cut to this many of 36 layers (phase 12's, for time)
+LM_WINDOW_LAYERS = 4
 # the chunked SSD scan against its sequential oracle, one full-width layer
 # of each model: (label, H, P, N) at B 1, S 1024, chunk 128; float32 limit
 # max |difference| <= SSD_RTOL x max |y|
@@ -584,6 +625,15 @@ SSD_RTOL = 1e-5
 # FLASH_BWD_LSE_REL of its largest magnitude.  B 1, S FLASH_BWD_S.
 FLASH_BWD_F32_REL = 1e-4
 FLASH_BWD_BF16_ULPS = 2
+# ... with p rounded to bfloat16 (attn_probs_bf16), float32: within
+# FLASH_BWD_ROUNDED_REL of each gradient's largest.  The kernels read up to
+# about 2e-4 of it; the two faults this limit is there to catch lie beyond
+# it at these shapes: the fp32-p gradient (1.8e-3 to 3.9e-3 of dq's or dk's
+# largest) and the rounded gradient with the row max detached (2.3e-3 to
+# 8.5e-3; tests/test_torch_probs_bf16.py::test_rounded_limit_sees_both_faults).
+# The fp32-p backward runs beside each float32 case as a control that must
+# fail it.  bfloat16: FLASH_BWD_BF16_ULPS bf16 ulps.
+FLASH_BWD_ROUNDED_REL = 1e-3
 FLASH_BWD_LSE_REL = 1e-5
 FLASH_BWD_S = 1024
 # The float32 backward's peaked-score cases: q and k this many times larger
@@ -607,6 +657,19 @@ FLASH_BWD_PEAK_HEADS = ((16, 2, 128), (48, 8, 128), (32, 32, 224), (128, 128, 19
 # a backward is off by all of it).
 LM_TRAIN_LAYERS, LM_TRAIN_S, LM_TRAIN_STEPS = 4, 1024, 3
 LM_TRAIN_LOSS_RTOL, LM_TRAIN_GRAD_REL = 1e-4, 1e-3
+# LM_TRAIN_PROBS: the twin again with attn_probs_bf16 (p rounded to
+# bfloat16 in P.V): losses within LM_TRAIN_LOSS_RTOL, each first-step
+# gradient within FLASH_BWD_BF16_ULPS bf16 ulps of its leaf's largest.
+# Not LM_TRAIN_GRAD_REL: fp32 arithmetic fixes the rounded function's
+# gradient only to about 1e-3 of its largest at the twin's attention (each
+# layer's dq: the kernels and the plain version alike 6.0e-4 to 1.85e-3
+# from the same function in float64, 2.5e-4 to 6.7e-4 from each other; the
+# leaves part by up to 2.25e-3: tools/probs_bf16_f64.py on the card).  So
+# the twin shows that training with attn_probs_bf16 runs through the
+# rounded kernels end to end, not that the rounding is right: an fp32-p
+# backward parts from the rounded one by about as much (2.2e-3) and would
+# pass.  The kernel cases above (FLASH_BWD_ROUNDED_REL, with the fp32-p
+# control) carry that check.
 # olmoe-1b-7b in bfloat16 at every width: the router and the expert bmm's
 # backward (arch, layers, steps)
 LM_TRAIN_MOE = ("olmoe-1b-7b", 2, 2)
@@ -1211,20 +1274,19 @@ def matmul_work(M: int, N: int, K: int, item: int) -> tuple[float, float]:
     return float(item * (M * K + K * N + M * N)), float(2 * M * N * K)
 
 
-def attn_compare(got, want, bf16_p: bool = False) -> tuple[bool, float, float]:
+def attn_compare(got, want) -> tuple[bool, float, float]:
     """(within the limit, max abs err, the limit) of an attention kernel's
     output against its plain version: float32 ``rtol = atol = 1e-5``
-    (the limit reported is the atol); bfloat16, and float32 with p rounded
-    to bfloat16 (``bf16_p``: the kernel rounds p against a tile's running
-    maximum, the plain version against the row's), one bf16 ulp at the
-    output's largest magnitude."""
+    (the limit reported is the atol; p rounded to bfloat16 too:
+    ``fa_kernel`` rounds it against the row's max, as the plain version
+    does); bfloat16 one bf16 ulp at the output's largest magnitude."""
     import torch
 
     if got.dtype != want.dtype or got.shape != want.shape:
         return False, float("inf"), 0.0
     g, w = got.float(), want.float()
     err = float((g - w).abs().max())
-    if got.dtype == torch.float32 and not bf16_p:
+    if got.dtype == torch.float32:
         return bool(torch.allclose(g, w, rtol=F32_RTOL, atol=F32_ATOL)), err, F32_ATOL
     ulp = 2.0 ** (math.floor(math.log2(float(w.abs().max()))) - 7)
     return err <= ulp, err, ulp
@@ -1371,8 +1433,6 @@ def flash_check():
     is open against the kernel's plain version on the same inputs
     (``attn_compare``); yields the list of (within the limit, max abs err,
     the limit), one a launch.  Not for timed runs."""
-    import torch
-
     from repro_torch.kernels.ref import flash_attention_ref
     from repro_torch.models import attention
 
@@ -1381,8 +1441,7 @@ def flash_check():
 
     def spy(q, k, v, **kw):
         out = real(q, k, v, **kw)
-        held.append(attn_compare(out, flash_attention_ref(q, k, v, **kw),
-                                 bf16_p=kw.get("round_p") is torch.bfloat16))
+        held.append(attn_compare(out, flash_attention_ref(q, k, v, **kw)))
         return out
 
     attention.flash_attention_fused = spy
@@ -1684,7 +1743,8 @@ def decode_bound(model, lens) -> tuple[float, float]:
     its slots; the hybrid's shared block once per application: its 1 GB
     in bf16 does not stay in the 50 MB L2), of the embedding only the
     batch's rows, the valid prefix ``lens`` of every attention layer's
-    caches (a ring: at most its width), and the Mamba2 layers' states, the
+    caches (a ring, or a window on the full-length cache: at most its
+    width), and the Mamba2 layers' states, the
     float32 ``h`` and the conv states, read and written; over
     ``HBM_BYTES_PER_S``."""
     cfg = model.cfg
@@ -1696,6 +1756,8 @@ def decode_bound(model, lens) -> tuple[float, float]:
     if cfg.family in ("dense", "moe"):
         per_pos = ((cfg.kv_lora_rank + cfg.d_rope) if cfg.use_mla
                    else 2 * cfg.n_kv_heads_eff * cfg.d_head)
+        if cfg.attn_window and not cfg.use_mla:
+            n = sum(min(int(x), cfg.attn_window) for x in lens)
         nbytes += cfg.n_layers * n * per_pos * item
         return float(nbytes), nbytes / HBM_BYTES_PER_S * 1e3
     state = (cfg.ssm_heads * cfg.ssm_state * cfg.ssm_head_dim * 4
@@ -2354,15 +2416,20 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
                 max(c["errs"][n] for n in ("dq", "dk", "dv")) for c in cases)}
         return out
 
-    # 2. the float32 twin: kernels against the attention's plain version
-    def twin():
+    # 2. the float32 twin: kernels against the attention's plain version;
+    # with ``probs`` the config's attn_probs_bf16 on (p rounded to bfloat16
+    # in P.V: the CUDA-core backward with the rounding, against autograd
+    # through the plain version with the row max attached)
+    def twin(probs: bool = False):
         L = LM_TRAIN_LAYERS
-        cfg = dataclasses.replace(spec.model, n_layers=L, act_dtype="float32")
+        cfg = dataclasses.replace(spec.model, n_layers=L, act_dtype="float32",
+                                  attn_probs_bf16=probs)
         data = batches(cfg, 2, LM_TRAIN_S, LM_TRAIN_STEPS)
         model, state = init_state(cfg, 0, device=dev)
         paths = [(p, len(ts)) for p, ts in _leaves(model).items()]
-        fk, bk = fwd_kernel(cfg), bwd_kernel(cfg)
-        if bk != "flash_attention_bwd_wgmma":
+        fk = fwd_kernel(cfg)
+        bk = "flash_attention_bwd" if probs else bwd_kernel(cfg)
+        if not probs and bk != "flash_attention_bwd_wgmma":
             raise AssertionError(f"the float32 twin takes the {bk} backward")
         reset()
         loss_k, gk = first_grads(model, data[0]["tokens"], False)
@@ -2378,10 +2445,12 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
             top = float(b.abs().max())
             err = float((a - b).abs().max())
             grad_errs[path] = (err, top)
-            if not (math.isfinite(err) and top > 0
-                    and err <= LM_TRAIN_GRAD_REL * top):
+            # p rounded: the rounded backward's own limit (LM_TRAIN_PROBS)
+            lim = (FLASH_BWD_BF16_ULPS * ulp(top) if probs and top > 0
+                   else LM_TRAIN_GRAD_REL * top)
+            if not (math.isfinite(err) and top > 0 and err <= lim):
                 raise AssertionError(f"twin gradient {path}: max abs err {err} "
-                                     f"against largest {top}")
+                                     f"against largest {top} (limit {lim})")
         worst = max(grad_errs, key=lambda p: grad_errs[p][0] / grad_errs[p][1])
         print(f"  {cfg.name} x{L} float32 S={LM_TRAIN_S}: loss {loss_k:.6f} "
               f"(plain attention {loss_p:.6f}); every one of {len(paths)} leaves "
@@ -2412,10 +2481,120 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
                 for a, b in zip(losses[False], losses[True])):
             raise AssertionError(f"twin losses {losses[False]} against the plain "
                                  f"attention's {losses[True]}")
-        rec["twin"] = dict(config=f"{cfg.name} x{L} float32 S={LM_TRAIN_S} B=2",
-                           loss=loss_k, loss_plain=loss_p, losses=losses[False],
-                           losses_plain=losses[True],
-                           worst_grad=(worst, *grad_errs[worst]))
+        rec["twin_probs_bf16" if probs else "twin"] = dict(
+            config=(f"{cfg.name} x{L} float32 S={LM_TRAIN_S} B=2"
+                    + (" attn_probs_bf16" if probs else "")),
+            loss=loss_k, loss_plain=loss_p, losses=losses[False],
+            losses_plain=losses[True], worst_grad=(worst, *grad_errs[worst]))
+
+    # 2b. p rounded to bfloat16 (attn_probs_bf16): the CUDA-core backward
+    # with the rounding against the plain version's gradient (the row max
+    # attached) at qwen2.5-3b's, MLA's and zamba2's heads, S FLASH_BWD_S,
+    # both dtypes, v rounded to bfloat16 as the model rounds it; float32
+    # within FLASH_BWD_ROUNDED_REL of each gradient's largest, with the
+    # fp32-p backward as a control that must fail it; bfloat16 within
+    # FLASH_BWD_BF16_ULPS bf16 ulps of it (exp and the sums' order flip
+    # some roundings of p); lse FLASH_BWD_LSE_REL, two calls bitwise equal;
+    # the forward within phase 6's limits (float32: fa_kernel rounds p
+    # against the row's max, the plain version's function, within 1e-5); a
+    # reading of the reference's several-chunk function (kv_chunk < S), not
+    # gated; then the twin with attn_probs_bf16 (LM_TRAIN_PROBS)
+    def rounded():
+        from repro_torch.models.attention import flash_attention as streaming
+
+        bf = torch.bfloat16
+        errs_all = []
+        for dt in (torch.float32, torch.bfloat16):
+            for H, KV, dh in ((16, 2, 128), (128, 128, 192), SHARED_HEADS):
+                S, mla = FLASH_BWD_S, dh == 192
+                g = torch.Generator(device=dev).manual_seed(H * 1000 + dh + 7)
+                q, go = (torch.randn((1, S, H, dh), generator=g, device=dev).to(dt)
+                         for _ in range(2))
+                k, v = (torch.randn((1, S, KV, dh), generator=g, device=dev).to(dt)
+                        for _ in range(2))
+                v = v.to(bf).to(dt)
+                if mla:
+                    v[..., 128:] = 0
+                    go[..., 128:] = 0
+                if flash_bwd_route(q, k, v, bf) != "simt":
+                    raise AssertionError("a rounded-p backward off the CUDA cores")
+                f32 = dt == torch.float32
+                # the forward: float32 on fa_kernel, p rounded against the
+                # row's max; bfloat16 on the tensor cores, a tile's
+                fwd_ok, fwd_err, fwd_lim = attn_compare(
+                    flash_attention_fused(q, k, v, round_p=bf),
+                    flash_attention_ref(q, k, v, round_p=bf))
+                reset()
+                got = flash_attention_bwd(q, k, v, go, round_p=bf)
+                again = flash_attention_bwd(q, k, v, go, round_p=bf)
+                take(f"rounded-p backward H={H} KV={KV} dh={dh}",
+                     {"flash_attention_bwd": 2}, quiet=True)
+                want = flash_attention_bwd_ref(q, k, v, go, round_p=bf)
+                same = all(torch.equal(a, c) for a, c in zip(got, again))
+                errs, lims = {"out": fwd_err}, {"out": fwd_lim}
+                for name, a, b in zip(("dq", "dk", "dv", "lse"), got, want):
+                    top = float(b.float().abs().max())
+                    lims[name] = (FLASH_BWD_LSE_REL * max(top, 1.0)
+                                  if name == "lse"
+                                  else FLASH_BWD_ROUNDED_REL * top if f32
+                                  else FLASH_BWD_BF16_ULPS * ulp(top))
+                    errs[name] = float((a.float() - b.float()).abs().max())
+                # the control (float32): the fp32-p backward against the
+                # same rounded gradient must fail the limit
+                control = None
+                if f32:
+                    control = {n: float((a - b).abs().max()) / float(b.abs().max())
+                               for n, a, b in zip(
+                                   ("dq", "dk", "dv"),
+                                   flash_attention_bwd(q, k, v, go)[:3], want)}
+                label = (f"{str(dt)[6:]} B=1 S={S} H={H} KV={KV} dh={dh}"
+                         + (" mla v 128->192" if mla else "")
+                         + " p rounded to bfloat16")
+                chunked = None
+                if (H, KV, dh) == (16, 2, 128) and dt == torch.float32:
+                    # the reference's function at kv_chunk 256 < S: p rounded
+                    # against each chunk's running max (a reading)
+                    qq, kk, vv = (t.clone().requires_grad_(True) for t in (q, k, v))
+                    out = streaming(qq, kk, vv, kv_chunk=256, probs_bf16=True)
+                    chunk_g = torch.autograd.grad(out, (qq, kk, vv), go)
+                    # (its dv is rounded to bfloat16 by the cast of v, as
+                    # the model's _bf16_v rounds the kernel's)
+                    mine = (got[0], got[1], got[2].bfloat16().float())
+                    chunked = {n: float((a - c).abs().max()) / float(c.abs().max())
+                               for n, a, c in zip(("dq", "dk", "dv"), mine, chunk_g)}
+                    del qq, kk, vv, out, chunk_g
+                seen = control is None or max(control.values()) > FLASH_BWD_ROUNDED_REL
+                ok = fwd_ok and same and seen and all(
+                    errs[n] <= lims[n] for n in errs if n != "out")
+                rec["bwd_cases"].append(dict(case=label, route="simt", errs=errs,
+                                             limits=lims, bitwise=same, ok=ok,
+                                             forced=False, kv_chunk_256=chunked,
+                                             fp32_p_control=control))
+                errs_all.append(max(errs[n] for n in ("dq", "dk", "dv")))
+                print(f"  flash_attention_bwd {label} (simt): max abs err "
+                      + ", ".join(f"{n} {errs[n]:.3g} (limit {lims[n]:.3g})"
+                                  for n in errs)
+                      + ("; two calls bitwise equal" if same
+                         else "; TWO CALLS DIFFER")
+                      + ("" if control is None else
+                         "; control, the fp32-p backward: " + ", ".join(
+                             f"{n} {x:.3g}" for n, x in control.items())
+                         + f" of each largest (must exceed {FLASH_BWD_ROUNDED_REL})")
+                      + ("" if chunked is None else
+                         "; against kv_chunk 256 (the reference's several-chunk "
+                         "function, read): " + ", ".join(
+                             f"{n} {x:.3g} of its largest"
+                             for n, x in chunked.items())), flush=True)
+                if not ok:
+                    raise AssertionError(f"flash_attention_bwd {label}: {errs} "
+                                         f"over the limits {lims}, or two calls "
+                                         f"differ ({not same}), or the fp32-p "
+                                         f"control {control} within the limit")
+                del q, k, v, go, got, again, want
+        rec["bwd_rounded_max_abs_err"] = max(errs_all)
+        gc.collect()
+        torch.cuda.empty_cache()
+        twin(probs=True)
 
     # 3. olmoe-1b-7b in bfloat16: the router and the expert bmm's backward
     def moe():
@@ -2716,7 +2895,8 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
 
     # each part in its own function: its tensors die when it returns
     checks = None
-    for part in (bwd_checks, twin, moe, families, full_f32, full, resume):
+    for part in (bwd_checks, twin, rounded, moe, families, full_f32, full,
+                 resume):
         gc.collect()
         torch.cuda.empty_cache()
         print(f"  {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
@@ -4053,7 +4233,8 @@ def main() -> int:
         from repro_torch.serve.classical_engine import (ClassicalServeEngine,
                                                         get_program)
         from repro_torch.configs.registry import SHAPES, get_arch
-        from repro_torch.kernels.decode_attention import decode_attention
+        from repro_torch.kernels.decode_attention import (decode_attention,
+                                                          plan_decode)
         from repro_torch.kernels.flash_attention import (bwd_kernel_facts,
                                                          flash_attention_bwd,
                                                          flash_attention_fused,
@@ -4438,9 +4619,9 @@ def main() -> int:
     def rnd(shape, dt):
         return torch.randn(shape, generator=ga, device=dev).to(dt)
 
-    def attn_case(kernel, label, got, want, bf16_p=False):
+    def attn_case(kernel, label, got, want):
         torch.cuda.synchronize()
-        ok, err, lim = attn_compare(got, want, bf16_p)
+        ok, err, lim = attn_compare(got, want)
         attn_cases.append(dict(kernel=kernel, case=label, max_abs_err=err,
                                limit=lim, ok=ok))
         print(f"  {kernel} {label}: max abs err {err:.3g} (limit {lim:.3g})",
@@ -4525,7 +4706,7 @@ def main() -> int:
             if dt == torch.float32:
                 # the model's probs_bf16 at float32 (Queue C item 10): v
                 # rounded to bfloat16 before the kernel, p rounded to
-                # bfloat16 by fa_kernel's third rounding mode
+                # bfloat16 against the row's max by fa_kernel (mode 3)
                 for heads, w in (((16, 2, 128), 0), (SHARED_HEADS, 0),
                                  (SHARED_HEADS, PROBE_WINDOW)):
                     H, KV, dh = heads
@@ -4539,8 +4720,7 @@ def main() -> int:
                               flash_attention_fused(q, k, v, window=w,
                                                     round_p=torch.bfloat16),
                               flash_attention_ref(q, k, v, window=w,
-                                                  round_p=torch.bfloat16),
-                              bf16_p=True)
+                                                  round_p=torch.bfloat16))
             # decode at qwen2.5-3b's heads: ragged lengths with 1 and S, the
             # lengths of phase 7's last decode step (given on the host and on
             # the card), and every length 1; each case twice, bitwise equal
@@ -4635,6 +4815,89 @@ def main() -> int:
                       "synchronisation, graph replay", captured,
                       decode_attention_ref(qr, kr_, vr, lr, round_p=False))
             del graph, captured, eager, qr, kr_, vr
+            # a sliding window on the full-length cache (a dense or MoE
+            # config with attn_window): starts max(0, len - W) on the card,
+            # at qwen's and zamba2's heads, W of PROBE_WINDOW and 1,024,
+            # lengths 1, W - 1, W, W + 1 and S beside served ones; the
+            # windowed grid (ceil(W / chunk) + 1 splits), no
+            # synchronisation, two calls and a CUDA graph's replay bitwise
+            # equal; then a rank's piece of a sequence split over 4 ranks
+            # (local lengths and starts, one piece wholly below its start)
+            # with the log-sum-exp output
+            for H, KV, dh in ((16, 2, 128), SHARED_HEADS):
+                qw_ = rnd((B, H, dh), dt)
+                kw_, vw_ = rnd((B, S, KV, dh), dt), rnd((B, S, KV, dh), dt)
+                for W in WINDOWS:
+                    lens = np.array([1, W - 1, W, W + 1, S] + list(served_lens[:3]),
+                                    np.int32)
+                    ld = torch.from_numpy(lens).to(dev)
+                    sd = (ld - W).clamp(min=0)
+                    if not plan_decode(B, KV, H // KV, S, dh, dt,
+                                       window=W).windowed:
+                        raise AssertionError(f"decode W={W}: not a windowed grid")
+                    win = dict(cache_start=sd, window=W)
+                    label = (f"{dname} B={B} S={S} H={H} KV={KV} dh={dh} window "
+                             f"{W} lens {lens.tolist()} on the card")
+                    for rp in (False, True):
+                        attn_case("decode_attention",
+                                  f"{label} p {'rounded' if rp else 'fp32'}",
+                                  decode_attention(qw_, kw_, vw_, ld,
+                                                   round_p=rp, **win),
+                                  decode_attention_ref(qw_, kw_, vw_, ld,
+                                                       round_p=rp, **win))
+                    torch.cuda.synchronize()
+                    torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        eager = decode_attention(qw_, kw_, vw_, ld,
+                                                 round_p=False, **win)
+                        again = decode_attention(qw_, kw_, vw_, ld,
+                                                 round_p=False, **win)
+                    finally:
+                        torch.cuda.set_sync_debug_mode("default")
+                    side = torch.cuda.Stream(dev)
+                    side.wait_stream(torch.cuda.current_stream(dev))
+                    with torch.cuda.stream(side):
+                        decode_attention(qw_, kw_, vw_, ld, round_p=False, **win)
+                    torch.cuda.current_stream(dev).wait_stream(side)
+                    graph = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(graph):
+                        captured = decode_attention(qw_, kw_, vw_, ld,
+                                                    round_p=False, **win)
+                    graph.replay()
+                    torch.cuda.synchronize()
+                    if not (torch.equal(eager, again) and torch.equal(captured, eager)):
+                        raise AssertionError(f"decode_attention {label}: two calls "
+                                             "or the graph's replay differ")
+                    attn_case("decode_attention", f"{label} p fp32, no "
+                              "synchronisation, two calls and graph replay "
+                              "bitwise", captured,
+                              decode_attention_ref(qw_, kw_, vw_, ld, **win))
+                    Sl = S // 4                  # rank 1's piece of 4
+                    pl, ps = (ld - Sl).clamp(0, Sl), (sd - Sl).clamp(0, Sl)
+                    kp, vp = kw_[:, Sl:2 * Sl], vw_[:, Sl:2 * Sl]
+                    out, lse = decode_attention(qw_, kp, vp, pl, cache_start=ps,
+                                                window=W, round_p=False,
+                                                return_lse=True)
+                    wout, wlse = decode_attention_ref(qw_, kp, vp, pl,
+                                                      cache_start=ps, window=W,
+                                                      return_lse=True)
+                    torch.cuda.synchronize()
+                    empty = ps >= pl
+                    if not (bool(empty.any()) and not bool(empty.all())
+                            and bool(torch.isneginf(lse[empty]).all())
+                            and not bool(out[empty].any())):
+                        raise AssertionError(f"decode_attention {label}: a piece "
+                                             "below its start is not zeros and -inf")
+                    lse_err = float((lse[~empty] - wlse[~empty]).abs().max())
+                    if not lse_err <= TP_LSE_TOL * max(1.0, float(
+                            wlse[~empty].abs().max())):
+                        raise AssertionError(f"decode_attention {label}: piece lse "
+                                             f"off by {lse_err}")
+                    attn_case("decode_attention", f"{label}: rank 1 of 4's piece "
+                              f"(local starts {ps.tolist()}), with lse (max abs "
+                              f"err {lse_err:.3g})", out, wout)
+                    del graph, captured, eager, again, out, lse, wout, wlse
+                del qw_, kw_, vw_
             # wider than any config: G = 128 query rows per KV head (two
             # groups of 64) and dh = 320, lengths on the host and the card
             qw = rnd((2, 128, 320), dt)
@@ -5009,6 +5272,35 @@ def main() -> int:
         lens16 = rec["final_lens"]
         del model, eng
         torch.cuda.empty_cache()
+
+        # a sliding window on the full-length cache: qwen2.5-3b at every
+        # width, LM_WINDOW_LAYERS of its 36 layers, attn_window
+        # PROBE_WINDOW, the same traffic; float32 timed (one host-to-device
+        # copy a step, no synchronisation) and held as run 1, bfloat16 as
+        # run 2; the teacher-forced forward and its plain twin cut the same
+        # window
+        for base in (cfg32, cfg16):
+            cfgw = dataclasses.replace(base, n_layers=LM_WINDOW_LAYERS,
+                                       attn_window=PROBE_WINDOW)
+            f32 = cfgw.act_dtype == "float32"
+            label = (f"{LM_ARCH} x{LM_WINDOW_LAYERS} {cfgw.act_dtype} window "
+                     f"{PROBE_WINDOW}")
+            t1 = time.perf_counter()
+            torch.cuda.reset_peak_memory_stats()
+            model = init_params(cfgw, 0, dev)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t1
+            eng, rec = lm_serve(label, cfgw, model, prompts, plain_check=f32,
+                                timed=f32)
+            rec.update(init_s=init_s, window=PROBE_WINDOW,
+                       full_layers=spec.model.n_layers)
+            if f32:
+                check_f32(label, rec)
+            elif rec["agreement"] < LM_BF16_AGREE:
+                raise AssertionError(f"{label}: teacher-forced agreement "
+                                     f"{rec['agreement']:.3f} < {LM_BF16_AGREE}")
+            del model, eng
+            torch.cuda.empty_cache()
 
         # the dense and MoE families at full width: the same prompt lengths,
         # tokens drawn from the same seed within each vocabulary
@@ -5672,6 +5964,25 @@ def main() -> int:
                                      return_lse=True),
             lambda: decode_attention_ref(qd, kc, vc, ld, return_lse=True),
             None, 50, (lb + 4 * B * 16 + wider, lo), dname))
+        # the same call with a window of PROBE_WINDOW on the full-length
+        # cache (starts on the card, the windowed grid): the bound reads
+        # the window's keys; beside SDPA with the window's mask
+        W = PROBE_WINDOW
+        sd = (ld - W).clamp(min=0)
+        pos = torch.arange(Sc, device=dev)[None, :]
+        wmask = ((pos < ld[:, None]) & (pos >= sd[:, None]))[:, None, None]
+        wb, wo = decode_work([min(int(x), W) for x in lens], 16, 2, 128,
+                             qd.element_size())
+        rows["decode_attention"].append(row(
+            "decode_attention", f"{dname} B={B} S={Sc} H=16 KV=2 dh=128 "
+            f"served lens {lens} window {W} (starts on the card) p fp32",
+            lambda: decode_attention(qd, kc, vc, ld, cache_start=sd, window=W,
+                                     round_p=False),
+            lambda: decode_attention_ref(qd, kc, vc, ld, cache_start=sd,
+                                         window=W),
+            lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=wmask,
+                                                   enable_gqa=True), 50,
+            (wb + 4 * B, wo), dname))
     # the same two kernels at phase 7's other heads: flash at the largest
     # bucket (MLA's v zero-padded to dh 192, as mla_prefill gives it), decode
     # at the served lengths
@@ -5860,7 +6171,45 @@ def main() -> int:
                 fp32_bound_ms=b_ms if tc else None,
                 issued_bound_ms=issued_ms if tc else None))
 
+    def rounded_row(S, dt):
+        """The backward with p rounded to bfloat16 (attn_probs_bf16) at
+        qwen2.5-3b's heads on the CUDA-core pair, beside its plain version;
+        no PyTorch call rounds p, so no library time; the bound is the
+        function's five products (float32: as ``bwd_row`` states it, each
+        as FLASH_BWD_F32_MIN_PRODUCTS 16-bit products at the 16-bit peak,
+        the float32 peak's bound beside it)."""
+        gen = torch.Generator(device=dev).manual_seed(S + 3)
+        q, go = (torch.randn((1, S, 16, 128), generator=gen, device=dev).to(dt)
+                 for _ in range(2))
+        k, v = (torch.randn((1, S, 2, 128), generator=gen, device=dev).to(dt)
+                for _ in range(2))
+        v = v.bfloat16().to(dt)
+        bf = torch.bfloat16
+        k_ms = median_ms(lambda: flash_attention_bwd(q, k, v, go, round_p=bf), 5)
+        p_ms = median_ms(lambda: flash_attention_bwd_ref(q, k, v, go, round_p=bf), 3)
+        nbytes, ops = flash_bwd_work(1, S, 16, 2, 128, q.element_size())
+        b_ms, b_by = work_bound(nbytes, ops, str(dt)[6:])
+        f32_ms = None
+        if dt == torch.float32:
+            f32_ms = b_ms
+            b_ms, b_by = work_bound(nbytes, ops * FLASH_BWD_F32_MIN_PRODUCTS,
+                                    "bfloat16")
+        shape = (f"{str(dt)[6:]} B=1 S={S} H=16 KV=2 dh=128 causal p rounded "
+                 "to bfloat16")
+        print(f"  flash_attention_bwd {shape}: simt kernels {k_ms:.5f} ms a call "
+              f"(events), plain {p_ms:.5f} ms, no library call, bound "
+              f"{b_ms:.7f} ms ({b_by})"
+              + ("" if f32_ms is None else
+                 f"; at the float32 peak {f32_ms:.7f} ms"), flush=True)
+        return dict(shape=shape, ms=k_ms, timer="events", call_ms=k_ms,
+                    plain_ms=p_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                    fp32_bound_ms=f32_ms)
+
     try:
+        rows["flash_attention_bwd_rounded"] = [
+            rounded_row(S, dt) for S, dt in ((full["seq_len"], torch.bfloat16),
+                                             (FLASH_BWD_S, torch.bfloat16),
+                                             (FLASH_BWD_S, torch.float32))]
         for S in (full["seq_len"], FLASH_BWD_S):
             for dt in (torch.bfloat16, torch.float32):
                 bwd_row(S, 16, 2, 128, dt)
@@ -5970,12 +6319,21 @@ def main() -> int:
             "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
             "library_ms": h["library_ms"], "shape": h["shape"],
             "cases": rows[name]})
-    # the CUDA-core backward is on no model's training path: route="simt"
+    # the CUDA-core backward's model path is training with attn_probs_bf16
+    # (p rounded, timed as "rounded"); otherwise route="simt"
     # and the calls the tensor cores refuse (phase 10 holds it on every
     # float32 case and the served bfloat16 heads)
-    next(k for k in kernels if k["name"] == "flash_attention_bwd")["main_path"] = ("none: flash_attention_bwd(route='simt'), dh not "
-                                "a multiple of 8, views off 16 bytes, G the row "
-                                "tiles cannot hold")
+    bwd = next(k for k in kernels if k["name"] == "flash_attention_bwd")
+    bwd["main_path"] = ("training with attn_probs_bf16 (round_p=torch.bfloat16: "
+                        "phase 10's twin); else flash_attention_bwd(route="
+                        "'simt'), dh not a multiple of 8, views off 16 bytes, "
+                        "G the row tiles cannot hold")
+    bwd["rounded"] = rows["flash_attention_bwd_rounded"]
+    bwd["rounded_max_abs_err"] = train_rec["bwd_rounded_max_abs_err"]
+    da = next(k for k in kernels if k["name"] == "decode_attention")
+    da["window"] = next(r for r in rows["decode_attention"]
+                        if r["shape"].startswith("bfloat16")
+                        and f"window {PROBE_WINDOW}" in r["shape"])
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

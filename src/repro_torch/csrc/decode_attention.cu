@@ -62,6 +62,20 @@
 //     never reads outside the cache; a length of 0 gives a zero row (the
 //     output is divided by max(l, 1e-30)).  Checking them is the caller's
 //     job, as for the TPU kernel.
+//   * A sliding window on a full-length cache (the reference's gqa_decode
+//     with `window`): `starts` (B,) int32, or null, gives each row's first
+//     valid key, so keys [start, len) are attended (the start clamped into
+//     [0, len] on the card).  `window` > 0 is a shape, the caller's promise
+//     that a row attends at most W keys (a start below len - W is raised
+//     to it).  With `rel` the grid holds ceil(W / chunk) + 1 splits a (b,
+//     KV head), split s taking chunk start / chunk + s, so the grid
+//     follows W and not S (at S 32,768 and W 4,096 it spans 4,128 keys a
+//     row, not 32,768); else split s
+//     takes chunk s and the splits wholly below the start write the empty
+//     partial.  Either way the combine reads only the splits that hold
+//     keys, and a row whose keys all lie below its start (a piece of a
+//     sequence split over ranks) gives zeros and lse -inf, as a length of
+//     0 does.  The plan still depends on shapes only (W is one).
 //   * Wider shapes than the served ones: G > 64 takes a second grid axis
 //     over groups of at most 64 query rows of a KV head (each group reads
 //     the chunk's k and v again); dh > 256 takes twice the 16-byte segments
@@ -79,6 +93,7 @@
 
 struct DaArgs {
   const void* q; const void* k; const void* v; void* o; const int* lens;
+  const int* starts;  // (B,) first valid keys, or null (0)
   float* ws;        // splits > 1: (B * KV, splits, G) x (m, l), then
                     // (B * KV, splits, G, dh) accumulators
   float* lse;       // (B, H) row log-sum-exps, or null
@@ -87,7 +102,23 @@ struct DaArgs {
   long long qsb, qsh, ksb, kss, ksh, vsb, vss, vsh;
   float scale;
   int round_p, vec;
+  int window;       // > 0: at most the last `window` keys of a row
+  int rel;          // the grid's split 0 is the chunk of each row's start
 };
+
+// Row b's valid keys [st, len) (the length clamped into [0, S], the start
+// into [0, len] and, with a window, to at least len - window) and the
+// chunk of the grid's split 0.
+struct DaRow { int len, st, base; };
+
+__device__ __forceinline__ DaRow da_row(const DaArgs& a, int b) {
+  DaRow r;
+  r.len = min(max(a.lens[b], 0), a.S);
+  r.st = a.starts ? min(max(a.starts[b], 0), r.len) : 0;
+  if (a.window > 0) r.st = max(r.st, r.len - a.window);
+  r.base = a.rel ? r.st / a.chunk : 0;
+  return r;
+}
 
 // Elements of a dh row padded to whole 16-byte segments.
 template <typename T>
@@ -172,10 +203,11 @@ da_kernel(DaArgs a) {
   const int split = blockIdx.x / nbkv, bkv = blockIdx.x - split * nbkv;
   const int b = bkv / a.KV, kvh = bkv - b * a.KV;
   const int g0 = blockIdx.y * a.gsz, gn = min(a.gsz, G - g0);  // this group's rows
-  const int len = min(max(a.lens[b], 0), a.S);
-  const int c0 = split * a.chunk, c1 = min(c0 + a.chunk, len);
+  const DaRow row = da_row(a, b);
+  const int ck = (row.base + split) * a.chunk;      // this split's chunk
+  const int c0 = max(ck, row.st), c1 = min(ck + a.chunk, row.len);
   float* ws_ml = a.ws + ((long long)bkv * a.splits + split) * G * 2;
-  if (c0 >= len) {                 // no keys: an empty partial, never combined
+  if (c0 >= c1) {                  // no keys: an empty partial, never combined
     if (a.splits > 1) {
       for (int g = g0 + tid; g < g0 + gn; g += blockDim.x) {
         ws_ml[2 * g] = -INFINITY;
@@ -383,8 +415,8 @@ da_kernel(DaArgs a) {
   }
 }
 
-// One block per (b, query head): merge the splits that hold keys, in
-// order.  The splits' m and l are read once, in parallel, into shared
+// One block per (b, query head): merge the splits that hold keys (from the
+// start's chunk to the length's), in order.  The splits' m and l are read once, in parallel, into shared
 // memory with their weights e^(m_s - m); each thread then sums its
 // elements of the accumulators over the splits in order.
 template <typename T>
@@ -394,10 +426,13 @@ __global__ void da_combine(DaArgs a) {
   const int G = a.H / a.KV, tid = threadIdx.x;
   const int b = blockIdx.x / a.H, h = blockIdx.x - b * a.H;
   const int bkv = b * a.KV + h / G, g = h % G;
-  const int ns = (min(max(a.lens[b], 0), a.S) + a.chunk - 1) / a.chunk;
-  const float* ml = a.ws + (long long)bkv * a.splits * G * 2 + 2 * g;
+  const DaRow row = da_row(a, b);
+  const int lo = row.st / a.chunk - row.base;
+  const int ns = row.st < row.len
+      ? min(a.splits, (row.len + a.chunk - 1) / a.chunk - row.base) - lo : 0;
+  const float* ml = a.ws + ((long long)bkv * a.splits + lo) * G * 2 + 2 * g;
   const float* accs = a.ws + (long long)a.B * a.KV * a.splits * G * 2
-                      + ((long long)bkv * a.splits * G + g) * a.dh;
+                      + (((long long)bkv * a.splits + lo) * G + g) * a.dh;
   float mx = -INFINITY;
   for (int s = tid; s < ns; s += blockDim.x) {
     cw[s] = ml[s * G * 2];
@@ -473,32 +508,39 @@ static int da_dispatch(const DaArgs& a, int rows, cudaStream_t s) {
 
 // q (B, H, dh) with strides qsb, qsh; k and v (B, S, KV, dh) with strides
 // in elements, the last axis contiguous; lens (B,) int32 on the card (each
-// clamped into [0, S]); out (B, H, dh) contiguous.  The plan: `chunk` keys
-// per block (a multiple of DA_TILE), `splits` = ceil(S / chunk) blocks per
-// (b, KV head) and group of `gsz` query rows, `warps` warps of `rows` query
+// clamped into [0, S]); starts (B,) int32 on the card or null, window >= 0
+// and rel as DaArgs states; out (B, H, dh) contiguous.  The plan: `chunk`
+// keys per block (a multiple of DA_TILE), `splits` = ceil(S / chunk)
+// blocks per (b, KV head) (with rel: ceil(window / chunk) + 1, fewer) and
+// group of `gsz` query rows, `warps` warps of `rows` query
 // rows (1, 2 or 4; gsz <= warps * rows); ws holds B * KV * splits * G * (dh + 2) floats when splits > 1;
 // lse (B, H) floats, or null; with lse, out is float32 (each row normalised
 // in fp32 and not rounded), else q's dtype.
 // `vec`: 16-byte copies of the caches.  dtype 0 = float32, 1 = bfloat16.
 // Returns cudaGetLastError() after the launches (0 = launched).
 extern "C" int da_launch(const void* q, const void* k, const void* v, void* o,
-                         const void* lens, void* ws, void* lse, int B, int S, int H,
+                         const void* lens, const void* starts, void* ws,
+                         void* lse, int B, int S, int H,
                          int KV, int dh, long long qsb, long long qsh,
                          long long ksb, long long kss, long long ksh,
                          long long vsb, long long vss, long long vsh,
                          float scale, int round_p, int vec, int dtype,
                          int chunk, int splits, int warps, int rows, int gsz,
-                         void* stream) {
+                         int window, int rel, void* stream) {
   if (B == 0) return 0;
-  if (S < 1 || KV < 1 || H % KV != 0 || dh < 1 || dh > DA_WIDE_DH)
+  if (S < 1 || KV < 1 || H % KV != 0 || dh < 1 || dh > DA_WIDE_DH || window < 0)
     return (int)cudaErrorInvalidValue;
   if (warps < 1 || warps > DA_MAX_WARPS || (rows != 1 && rows != 2 && rows != 4) ||
       gsz < 1 || gsz > warps * rows || chunk < DA_TILE || chunk % DA_TILE != 0 ||
-      splits != (S + chunk - 1) / chunk || (splits > 1 && ws == nullptr))
+      (splits > 1 && ws == nullptr))
     return (int)cudaErrorInvalidValue;
-  DaArgs a{q, k, v, o, (const int*)lens, (float*)ws, (float*)lse, B, S, H, KV, dh, chunk,
-           splits, warps, gsz, qsb, qsh, ksb, kss, ksh, vsb, vss, vsh, scale,
-           round_p, vec};
+  const int full = (S + chunk - 1) / chunk;
+  if (rel ? (window < 1 || splits != min(full, (window + chunk - 1) / chunk + 1))
+          : splits != full)
+    return (int)cudaErrorInvalidValue;
+  DaArgs a{q, k, v, o, (const int*)lens, (const int*)starts, (float*)ws, (float*)lse,
+           B, S, H, KV, dh, chunk, splits, warps, gsz, qsb, qsh, ksb, kss, ksh,
+           vsb, vss, vsh, scale, round_p, vec, window, rel};
   cudaStream_t s = (cudaStream_t)stream;
   return dtype == 0 ? da_dispatch<float>(a, rows, s)
                     : da_dispatch<__nv_bfloat16>(a, rows, s);

@@ -11,7 +11,10 @@
 // fp32; `round_p` 1 rounds p to v's dtype before P.V, as the TPU kernel
 // does, 2 rounds it to bfloat16 whatever v's dtype (the model's
 // `probs_bf16` at float32), 0 keeps it fp32, as the model's own attention
-// does.  `window` > 0 (causal only) also masks the keys at or below
+// does.  1 and 2 round against the running max of each key tile, as the
+// TPU kernel does; 3 rounds to bfloat16 against each row's max (fa_kernel
+// only, dh <= 256: a first pass over the key tiles finds it), the function
+// the rounded-p backward differentiates (training with `probs_bf16`).  `window` > 0 (causal only) also masks the keys at or below
 // qpos - window, a sliding window: key tiles wholly below the window of a
 // block's first row are not loaded, the edge tiles are masked.  No fast
 // math: expf, or exp2f of pre-scaled scores in the tensor-core kernel.
@@ -273,6 +276,37 @@ fa_kernel(FaArgs a) {
   }
   if (!WIDE) {
     fa_fill_q<T>(Qs, S::QP, q, a, G, r0, 0, dh);
+    if (a.round_p == 3) {
+      // each row's max over its visible keys first, so the main loop
+      // rounds every p against it (there alpha = 1: no tile raises m)
+      for (int jt = jt0; jt < nkt; ++jt) {
+        const int j0 = jt * BN, nk = min(BN, a.Sk - j0);
+        stage(0, j0);
+        if (cp) hp_cp_wait<0>();
+        __syncthreads();
+        float s[4][TN];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) s[i][j] = 0.0f;
+        fa_scores<TN>(s, Qs, S::QP, Ks, S::KP, dh4, tr, tc);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) {
+            const int c = tc + 16 * j, key = j0 + c;
+            if (c < nk && (!a.causal || key <= tok[i]) &&
+                (a.window <= 0 || key > tok[i] - a.window))
+              m[i] = fmaxf(m[i], s[i][j]);
+          }
+        __syncthreads();             // slot 0 is staged again
+      }
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], off));
+    }
     stage(0, jt0 * BN);
   }
 
@@ -340,7 +374,7 @@ fa_kernel(FaArgs a) {
         sum[i] += p;
         P[16 * i * S::PP + tc + 16 * j] =
             a.round_p == 1 ? att_round<T>(p)
-            : a.round_p == 2 ? att_round<__nv_bfloat16>(p) : p;
+            : a.round_p >= 2 ? att_round<__nv_bfloat16>(p) : p;
       }
     }
 #pragma unroll
@@ -432,8 +466,8 @@ static int fa_dispatch(const FaArgs& a, cudaStream_t s) {
 // Strides in elements; the last axis of q, k and v is contiguous.  dtype 0 =
 // float32, 1 = bfloat16 (q, k, v and out alike); vec = 1 when every row of
 // k and v starts on a 16-byte boundary and dh fills whole 16-byte words
-// (float32 then stages k and v by cp.async); round_p 0, 1 or 2 and window
-// (0: none; else causal only) as above.
+// (float32 then stages k and v by cp.async); round_p 0 to 3 (3: dh <= 256)
+// and window (0: none; else causal only) as above.
 // Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int fa_launch(const void* q, const void* k, const void* v, void* o,
                          int B, int Sq, int Sk, int H, int KV, int dh,
@@ -443,8 +477,8 @@ extern "C" int fa_launch(const void* q, const void* k, const void* v, void* o,
                          float scale, int causal, int round_p, int vec,
                          int dtype, int window, void* stream) {
   if (B == 0 || Sq == 0) return 0;
-  if (Sk < 1 || KV < 1 || H % KV != 0 || dh < 1 || round_p < 0 || round_p > 2 ||
-      window < 0 || (window > 0 && !causal))
+  if (Sk < 1 || KV < 1 || H % KV != 0 || dh < 1 || round_p < 0 || round_p > 3 ||
+      (round_p == 3 && dh > 256) || window < 0 || (window > 0 && !causal))
     return (int)cudaErrorInvalidValue;
   FaArgs a{q, k, v, o, B, Sq, Sk, H, KV, dh, qsb, qss, qsh, ksb, kss, ksh,
            vsb, vss, vsh, scale, causal, round_p, vec, window};
@@ -770,7 +804,8 @@ extern "C" int fa_tc_launch(const void* q, const void* k, const void* v, void* o
 // cores do not take (repro_torch.kernels.flash_attention.flash_bwd_route):
 // dh not a multiple of 8, views off 16 bytes, G 65..127 or above 128 (and
 // float32 at DHP 256 above G 16), and any call forced onto it (`route=
-// "simt"`).  Two kernels, launched in this order:
+// "simt"`), and every call with p rounded to bfloat16 (`round_p`, below).
+// Two kernels, launched in this order:
 //
 // fb_dq_kernel: one block per (b * KV + kv head, tile of QM (token, g)
 //   rows), the heaviest causal tiles first.  Pass 1 over the tile's key
@@ -789,6 +824,26 @@ extern "C" int fa_tc_launch(const void* q, const void* k, const void* v, void* o
 //   s and dp transposed (keys x rows), p and ds from the rows' lse and D,
 //   then dv += p^T . g and dk += ds^T . (q * scale).  The G query heads of
 //   the KV head are rows of the same walk, so their sum needs no atomics.
+// round_p (the template flag RP): the gradient of the forward whose P.V
+// takes p rounded to bfloat16, the model's `probs_bf16` (the reference's
+// `flash_attention` with one KV chunk under jax.grad).  With m the row max,
+// p_j = e^(s_j - m), l = sum p_j and r() the rounding, out = sum r(p_j) v_j
+// / l.  The rounding is relative to m, so the function is not
+// shift-invariant and m's gradient reaches the row's argmax key:
+//   dp~_j = r((g / l) . v_j)   (the reference's order: g / l, then the dot)
+//   D = sum_j r(p_j) (g / l) . v_j = g . out
+//   ds_j = p_j (dp~_j - D / l) + [s_j = m] (D - sum_i p_i dp~_i) / n_ties
+//   dv_j = sum_rows r(p_j) g / l
+// (ties at the max split the share evenly, as jax.grad of max does; the
+// scores are bitwise alike in both kernels, so s_j = m is exact).  The
+// rounding needs the final m before any p is rounded, so fb_dq_kernel runs
+// three passes: m and l; then D, the share's D - sum p dp~ (summed from
+// each key's rounding residuals, (r(p) - p) x + p (x - r(x)) with x =
+// (g / l) . v: the difference of the two sums cancels to a few fp32 ulps of
+// them) and the ties, with the g rows divided by l in shared memory; then
+// ds and dq.  It leaves each row's m,
+// l, D / l and the argmax share in four (B, H, Sq) planes of the scratch,
+// and fb_dkdv_kernel stages g / l by them.
 // Thread (tr, tc) of a 16 x 16 grid owns score rows tr + 16 i and columns
 // tc + 16 j, accumulator rows tr + 16 i and columns 64 h + 4 tc + e, as
 // fa_kernel; each row's 16 owners (one half-warp) reduce its statistics by
@@ -797,14 +852,16 @@ extern "C" int fa_tc_launch(const void* q, const void* k, const void* v, void* o
 //
 // Bound: operations.  The gradient needs 5 products of 2 Sq Sk H dh flops
 // (s, dp, dv, dk, dq; halved under the causal mask); these kernels run 9
-// (pass 1's two, pass 2's three, dkdv's four) on the fp32 CUDA cores.
+// (pass 1's two, pass 2's three, dkdv's four) on the fp32 CUDA cores, 10
+// with round_p (pass 1's one, pass 2's two, pass 3's three, dkdv's four).
 
 #define FB_THREADS 256
 #define FB_INF __int_as_float(0x7f800000)   // the lse of a row that sees no key
 
 struct FbArgs {
   const void* q; const void* k; const void* v; const void* g;
-  void* dq; void* dk; void* dv; float* lse; float* delta;
+  void* dq; void* dk; void* dv; float* lse;
+  float* delta;     // (B, H, Sq) D; round_p: D / l, m, l, the argmax share
   int B, Sq, Sk, H, KV, dh;
   long long qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, gsb, gss, gsh;
   float scale;
@@ -878,19 +935,24 @@ __device__ __forceinline__ void fb_accum(float (&acc)[TI][NH][4],
 // tensor (base at the head group's first head; token and head strides ss,
 // sh) as fp32 times mul into dst (pitch), columns [0, DHP): zeros past
 // nrows and past dh.  A warp takes a row at a time, its lanes along d.
+// With `div` (shared memory, one value a row) each row is divided by its
+// value: g / l for round_p.
 template <typename T, int DHP>
 __device__ __forceinline__ void fb_fill_rows(float* dst, int pitch,
                                              const T* base, long long ss,
                                              long long sh, int G, int r0,
                                              int R, int nrows, int dh,
-                                             float mul) {
+                                             float mul,
+                                             const float* div = nullptr) {
   const int lane = threadIdx.x & 31;
   for (int r = threadIdx.x >> 5; r < R; r += FB_THREADS / 32) {
     const int row = r0 + r, t = row / G, g = row - t * G;
     const bool live = row < nrows;
     const T* src = base + t * ss + g * sh;
-    for (int d = lane; d < DHP; d += 32)
-      dst[r * pitch + d] = (live && d < dh) ? att_in<T>(src[d]) * mul : 0.0f;
+    for (int d = lane; d < DHP; d += 32) {
+      const float x = (live && d < dh) ? att_in<T>(src[d]) * mul : 0.0f;
+      dst[r * pitch + d] = div ? x / div[r] : x;
+    }
   }
 }
 
@@ -919,14 +981,14 @@ struct FbQShape {
   static constexpr int FLOATS = 2 * QM * P + 2 * QN * P + QM * SP;
 };
 
-template <typename T, int DHP, int QM, int QN>
+template <typename T, int DHP, int QM, int QN, bool RP>
 __global__ void __launch_bounds__(FB_THREADS, 1)
 fb_dq_kernel(FbArgs a) {
   using S = FbQShape<DHP, QM, QN>;
   constexpr int TI = QM / 16, TJ = QN / 16, NH = DHP / 64;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;                       // [QM][P] q * scale
-  float* Gs = Qs + QM * S::P;             // [QM][P] g
+  float* Gs = Qs + QM * S::P;             // [QM][P] g (round_p: g / l from pass 2)
   float* Ks = Gs + QM * S::P;             // [QN][P]
   float* Vs = Ks + QN * S::P;             // [QN][P]
   float* Ds = Vs + QN * S::P;             // [QM][SP] ds
@@ -965,25 +1027,26 @@ fb_dq_kernel(FbArgs a) {
     pd[i] = 0.0f;
   }
 
-  // scores and dp of key tile jt into s and dp (k and v staged first)
-  auto tile = [&](int jt, float (&s)[TI][TJ], float (&dp)[TI][TJ]) {
+  // scores and (with_dp) dp of key tile jt into s and dp (k and v staged
+  // first)
+  auto tile = [&](int jt, float (&s)[TI][TJ], float (&dp)[TI][TJ], bool with_dp) {
     const int j0 = jt * QN, nk = min(QN, a.Sk - j0);
     __syncthreads();                      // the last tile's readers are done
     fb_fill_keys<T, DHP>(Ks, S::P, k + j0 * a.kss, a.kss, nk, QN, dh);
-    fb_fill_keys<T, DHP>(Vs, S::P, v + j0 * a.vss, a.vss, nk, QN, dh);
+    if (with_dp) fb_fill_keys<T, DHP>(Vs, S::P, v + j0 * a.vss, a.vss, nk, QN, dh);
     __syncthreads();
 #pragma unroll
     for (int i = 0; i < TI; ++i)
 #pragma unroll
       for (int j = 0; j < TJ; ++j) s[i][j] = dp[i][j] = 0.0f;
     fb_dots<TI, TJ>(s, Qs, S::P, Ks, S::P, dh4, tr, tc);
-    fb_dots<TI, TJ>(dp, Gs, S::P, Vs, S::P, dh4, tr, tc);
+    if (with_dp) fb_dots<TI, TJ>(dp, Gs, S::P, Vs, S::P, dh4, tr, tc);
   };
 
-  // pass 1: the rows' softmax statistics and D, online
+  // pass 1: the rows' softmax statistics and (p in fp32) D, online
   for (int jt = jt0; jt < nkt; ++jt) {
     float s[TI][TJ], dp[TI][TJ];
-    tile(jt, s, dp);
+    tile(jt, s, dp, !RP);
     const int j0 = jt * QN;
     float mx[TI], ps[TI], pds[TI];
 #pragma unroll
@@ -1012,7 +1075,7 @@ fb_dq_kernel(FbArgs a) {
         if (live[i] && fb_visible(a, j0 + tc + 16 * j, tok[i])) {
           const float p = expf(s[i][j] - m_new);
           ps[i] += p;
-          pds[i] = fmaf(p, dp[i][j], pds[i]);
+          if (!RP) pds[i] = fmaf(p, dp[i][j], pds[i]);
         }
     }
 #pragma unroll
@@ -1020,7 +1083,7 @@ fb_dq_kernel(FbArgs a) {
 #pragma unroll
       for (int i = 0; i < TI; ++i) {
         ps[i] += __shfl_xor_sync(0xffffffffu, ps[i], off);
-        pds[i] += __shfl_xor_sync(0xffffffffu, pds[i], off);
+        if (!RP) pds[i] += __shfl_xor_sync(0xffffffffu, pds[i], off);
       }
 #pragma unroll
     for (int i = 0; i < TI; ++i) {
@@ -1028,22 +1091,79 @@ fb_dq_kernel(FbArgs a) {
       pd[i] = pd[i] * alpha[i] + pds[i];
     }
   }
-  float lse[TI], D[TI];
+  float lse[TI], D[TI], share[TI];
+  const long long plane = (long long)a.B * a.H * a.Sq;
 #pragma unroll
   for (int i = 0; i < TI; ++i) {
     // a row that sees no key (none of the model's) gets p = 0 everywhere
     lse[i] = l[i] > 0.0f ? m[i] + logf(l[i]) : FB_INF;
-    D[i] = l[i] > 0.0f ? pd[i] / l[i] : 0.0f;
+    D[i] = l[i] > 0.0f && !RP ? pd[i] / l[i] : 0.0f;
+    share[i] = 0.0f;
+  }
+
+  if (RP) {
+    // pass 2: g / l in place (each row by the 16 threads that own it), then
+    // D = sum r(p) (g / l) . v, the argmax share's D - sum p r((g / l) . v)
+    // and the ties at m
+    __syncthreads();                      // pass 1's readers of Gs are done
+#pragma unroll
+    for (int i = 0; i < TI; ++i) {
+      float* gr = Gs + (tr + 16 * i) * S::P;
+      if (l[i] > 0.0f)
+        for (int d = tc; d < DHP; d += 16) gr[d] = gr[d] / l[i];
+    }
+    float e[TI], ties[TI];
+#pragma unroll
+    for (int i = 0; i < TI; ++i) e[i] = ties[i] = 0.0f;
+    for (int jt = jt0; jt < nkt; ++jt) {
+      float s[TI][TJ], dp[TI][TJ];
+      tile(jt, s, dp, true);
+      const int j0 = jt * QN;
+#pragma unroll
+      for (int i = 0; i < TI; ++i)
+#pragma unroll
+        for (int j = 0; j < TJ; ++j)
+          if (live[i] && fb_visible(a, j0 + tc + 16 * j, tok[i])) {
+            // D - sum p r(dp) from each term's rounding residuals (exact in
+            // fp32), not as the difference of the two sums, which cancel
+            const float p = expf(s[i][j] - m[i]), rp = att_round<__nv_bfloat16>(p);
+            const float x = dp[i][j], rx = att_round<__nv_bfloat16>(x);
+            D[i] = fmaf(rp, x, D[i]);
+            e[i] = fmaf(rp - p, x, fmaf(p, x - rx, e[i]));
+            ties[i] += s[i][j] == m[i] ? 1.0f : 0.0f;
+          }
+    }
+#pragma unroll
+    for (int off = 1; off < 16; off <<= 1)
+#pragma unroll
+      for (int i = 0; i < TI; ++i) {
+        D[i] += __shfl_xor_sync(0xffffffffu, D[i], off);
+        e[i] += __shfl_xor_sync(0xffffffffu, e[i], off);
+        ties[i] += __shfl_xor_sync(0xffffffffu, ties[i], off);
+      }
+#pragma unroll
+    for (int i = 0; i < TI; ++i) {
+      share[i] = ties[i] > 0.0f ? e[i] / ties[i] : 0.0f;
+      D[i] = l[i] > 0.0f ? D[i] / l[i] : 0.0f;       // D / l from here on
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < TI; ++i) {
     const int row = r0 + tr + 16 * i;
     if (tc == 0 && live[i]) {
       const int g = row - tok[i] * G;
       const long long at = ((long long)b * a.H + kvh * G + g) * a.Sq + tok[i];
       a.lse[at] = lse[i];
       a.delta[at] = D[i];
+      if (RP) {
+        a.delta[plane + at] = l[i] > 0.0f ? m[i] : FB_INF;
+        a.delta[2 * plane + at] = l[i] > 0.0f ? l[i] : 1.0f;
+        a.delta[3 * plane + at] = share[i];
+      }
     }
   }
 
-  // pass 2: ds into shared memory, dq += ds . k
+  // the last pass: ds into shared memory, dq += ds . k
   float acc[TI][NH][4];
 #pragma unroll
   for (int i = 0; i < TI; ++i)
@@ -1054,15 +1174,21 @@ fb_dq_kernel(FbArgs a) {
   float* Drow = Ds + tr * S::SP;
   for (int jt = jt0; jt < nkt; ++jt) {
     float s[TI][TJ], dp[TI][TJ];
-    tile(jt, s, dp);
+    tile(jt, s, dp, true);
     const int j0 = jt * QN;
 #pragma unroll
     for (int i = 0; i < TI; ++i)
 #pragma unroll
       for (int j = 0; j < TJ; ++j) {
         const bool ok = live[i] && fb_visible(a, j0 + tc + 16 * j, tok[i]);
-        Drow[16 * i * S::SP + tc + 16 * j] =
-            ok ? expf(s[i][j] - lse[i]) * (dp[i][j] - D[i]) : 0.0f;
+        float ds = 0.0f;
+        if (ok && RP) {
+          ds = expf(s[i][j] - m[i]) * (att_round<__nv_bfloat16>(dp[i][j]) - D[i]);
+          if (s[i][j] == m[i]) ds += share[i];
+        } else if (ok) {
+          ds = expf(s[i][j] - lse[i]) * (dp[i][j] - D[i]);
+        }
+        Drow[16 * i * S::SP + tc + 16 * j] = ds;
       }
     __syncwarp();                         // a row's ds come from its half-warp
     fb_accum<TI, NH>(acc, Ds, S::SP, Ks, S::P, QN, tr, tc);
@@ -1085,14 +1211,15 @@ fb_dq_kernel(FbArgs a) {
 }
 
 // fb_dkdv_kernel's shared memory, in floats: k and v [KN][P], q * scale
-// and g [KM][P], p and ds transposed [KN][KM + 4], lse and D [KM].
+// and g [KM][P], p and ds transposed [KN][KM + 4], lse and D [KM] (round_p:
+// m and D / l, then l and the argmax share [KM]).
 template <int DHP, int KN, int KM>
 struct FbKShape {
   static constexpr int P = DHP + 4, SP = KM + 4;
-  static constexpr int FLOATS = 2 * KN * P + 2 * KM * P + 2 * KN * SP + 2 * KM;
+  static constexpr int FLOATS = 2 * KN * P + 2 * KM * P + 2 * KN * SP + 4 * KM;
 };
 
-template <typename T, int DHP, int KN, int KM>
+template <typename T, int DHP, int KN, int KM, bool RP>
 __global__ void __launch_bounds__(FB_THREADS, 1)
 fb_dkdv_kernel(FbArgs a) {
   using S = FbKShape<DHP, KN, KM>;
@@ -1104,8 +1231,10 @@ fb_dkdv_kernel(FbArgs a) {
   float* Gs = Qs + KM * S::P;             // [KM][P] g
   float* Pt = Gs + KM * S::P;             // [KN][SP] p, key-major
   float* St = Pt + KN * S::SP;            // [KN][SP] ds, key-major
-  float* Ls = St + KN * S::SP;            // [KM] lse
-  float* Dl = Ls + KM;                    // [KM] D
+  float* Ls = St + KN * S::SP;            // [KM] lse (round_p: m)
+  float* Dl = Ls + KM;                    // [KM] D (round_p: D / l)
+  float* Ll = Dl + KM;                    // [KM] round_p: l
+  float* Sh = Ll + KM;                    // [KM] round_p: the argmax share
 
   const int tid = threadIdx.x, lane = tid & 31;
   const int tr = (tid >> 5) * 2 + (lane >> 4), tc = lane & 15;
@@ -1134,19 +1263,28 @@ fb_dkdv_kernel(FbArgs a) {
     for (int h = 0; h < NH; ++h)
 #pragma unroll
       for (int e = 0; e < 4; ++e) accK[i][h][e] = accV[i][h][e] = 0.0f;
-  const float* lse_bh = a.lse + ((long long)b * a.H + kvh * G) * a.Sq;
+  const long long plane = (long long)a.B * a.H * a.Sq;
   const float* del_bh = a.delta + ((long long)b * a.H + kvh * G) * a.Sq;
+  const float* lse_bh = RP ? del_bh + plane
+                           : a.lse + ((long long)b * a.H + kvh * G) * a.Sq;
 
   for (int r0 = row_lo; r0 < row_hi; r0 += KM) {
     __syncthreads();                      // the last tile's readers are done
-    fb_fill_rows<T, DHP>(Qs, S::P, q, a.qss, a.qsh, G, r0, KM, nrows, dh, a.scale);
-    fb_fill_rows<T, DHP>(Gs, S::P, go, a.gss, a.gsh, G, r0, KM, nrows, dh, 1.0f);
     for (int r = tid; r < KM; r += FB_THREADS) {
       const int row = r0 + r, t = row / G, g = row - t * G;
       const bool live = row < nrows;
-      Ls[r] = live ? lse_bh[(long long)g * a.Sq + t] : FB_INF;
-      Dl[r] = live ? del_bh[(long long)g * a.Sq + t] : 0.0f;
+      const long long at = (long long)g * a.Sq + t;
+      Ls[r] = live ? lse_bh[at] : FB_INF;
+      Dl[r] = live ? del_bh[at] : 0.0f;
+      if (RP) {
+        Ll[r] = live ? del_bh[2 * plane + at] : 1.0f;
+        Sh[r] = live ? del_bh[3 * plane + at] : 0.0f;
+      }
     }
+    if (RP) __syncthreads();              // g / l reads the rows' l
+    fb_fill_rows<T, DHP>(Qs, S::P, q, a.qss, a.qsh, G, r0, KM, nrows, dh, a.scale);
+    fb_fill_rows<T, DHP>(Gs, S::P, go, a.gss, a.gsh, G, r0, KM, nrows, dh, 1.0f,
+                         RP ? Ll : nullptr);
     __syncthreads();
     float s[TK][TR], dp[TK][TR];
 #pragma unroll
@@ -1163,8 +1301,15 @@ fb_dkdv_kernel(FbArgs a) {
         const bool ok = tr + 16 * i < nk && row < nrows &&
                         fb_visible(a, j0 + tr + 16 * i, row / G);
         const float p = ok ? expf(s[i][j] - Ls[r]) : 0.0f;
-        Pt[(tr + 16 * i) * S::SP + r] = p;
-        St[(tr + 16 * i) * S::SP + r] = ok ? p * (dp[i][j] - Dl[r]) : 0.0f;
+        float ds = 0.0f;
+        if (ok && RP) {
+          ds = p * (att_round<__nv_bfloat16>(dp[i][j]) - Dl[r]);
+          if (s[i][j] == Ls[r]) ds += Sh[r];
+        } else if (ok) {
+          ds = p * (dp[i][j] - Dl[r]);
+        }
+        Pt[(tr + 16 * i) * S::SP + r] = RP ? att_round<__nv_bfloat16>(p) : p;
+        St[(tr + 16 * i) * S::SP + r] = ds;
       }
     __syncwarp();                         // a key's p and ds come from its half-warp
     fb_accum<TK, NH>(accV, Pt, S::SP, Gs, S::P, KM, tr, tc);
@@ -1190,41 +1335,42 @@ fb_dkdv_kernel(FbArgs a) {
   }
 }
 
-template <typename T, int DHP, int QM, int QN, int KN, int KM>
+template <typename T, int DHP, int QM, int QN, int KN, int KM, bool RP>
 static int fb_run(const FbArgs& a, cudaStream_t s) {
   static int granted_q[HP_MAX_DEVICES] = {0}, granted_k[HP_MAX_DEVICES] = {0};
   const int smq = FbQShape<DHP, QM, QN>::FLOATS * (int)sizeof(float);
   const int smk = FbKShape<DHP, KN, KM>::FLOATS * (int)sizeof(float);
-  int e = hp_grant_smem((const void*)fb_dq_kernel<T, DHP, QM, QN>, smq, granted_q);
+  int e = hp_grant_smem((const void*)fb_dq_kernel<T, DHP, QM, QN, RP>, smq, granted_q);
   if (e) return e;
-  e = hp_grant_smem((const void*)fb_dkdv_kernel<T, DHP, KN, KM>, smk, granted_k);
+  e = hp_grant_smem((const void*)fb_dkdv_kernel<T, DHP, KN, KM, RP>, smk, granted_k);
   if (e) return e;
   const long long nbkv = (long long)a.B * a.KV;
   const long long bq = ((long long)a.Sq * (a.H / a.KV) + QM - 1) / QM * nbkv;
   const long long bk = ((long long)a.Sk + KN - 1) / KN * nbkv;
   if (bq > 0x7fffffffLL || bk > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  fb_dq_kernel<T, DHP, QM, QN><<<(unsigned)bq, FB_THREADS, smq, s>>>(a);
+  fb_dq_kernel<T, DHP, QM, QN, RP><<<(unsigned)bq, FB_THREADS, smq, s>>>(a);
   e = (int)cudaGetLastError();
   if (e) return e;
-  fb_dkdv_kernel<T, DHP, KN, KM><<<(unsigned)bk, FB_THREADS, smk, s>>>(a);
+  fb_dkdv_kernel<T, DHP, KN, KM, RP><<<(unsigned)bk, FB_THREADS, smk, s>>>(a);
   return (int)cudaGetLastError();
 }
 
 // Tiles: dq blocks of QM rows over key tiles of QN, dkdv blocks of KN keys
 // over row tiles of KM; 32 keys a dkdv block (twice the blocks of 64, and
 // half the longest block's walk under the causal mask).
-template <typename T>
+template <typename T, bool RP>
 static int fb_dispatch(const FbArgs& a, cudaStream_t s) {
-  if (a.dh <= 64) return fb_run<T, 64, 64, 64, 32, 64>(a, s);
-  if (a.dh <= 128) return fb_run<T, 128, 64, 64, 32, 64>(a, s);
-  return fb_run<T, 256, 32, 32, 32, 32>(a, s);
+  if (a.dh <= 64) return fb_run<T, 64, 64, 64, 32, 64, RP>(a, s);
+  if (a.dh <= 128) return fb_run<T, 128, 64, 64, 32, 64, RP>(a, s);
+  return fb_run<T, 256, 32, 32, 32, 32, RP>(a, s);
 }
 
 // q (B, Sq, H, dh), k and v (B, Sk, KV, dh) and g (B, Sq, H, dh) with
 // element strides (last axis contiguous); dq, dk, dv contiguous in the
 // same dtype (0 float32, 1 bfloat16); lse and delta (B, H, Sq) float32
-// scratch, lse left holding the rows' log-sum-exp; dh <= 256; causal and
-// window as fa_launch's.  Launches fb_dq_kernel, then fb_dkdv_kernel.
+// scratch (delta four such planes with round_p), lse left holding the rows'
+// log-sum-exp; dh <= 256; causal and window as fa_launch's; round_p 1: p
+// rounded to bfloat16 in P.V.  Launches fb_dq_kernel, then fb_dkdv_kernel.
 // Returns the first cudaGetLastError() that is not 0, else 0.
 extern "C" int fb_launch(const void* q, const void* k, const void* v,
                          const void* g, void* dq, void* dk, void* dv,
@@ -1235,16 +1381,20 @@ extern "C" int fb_launch(const void* q, const void* k, const void* v,
                          long long vsb, long long vss, long long vsh,
                          long long gsb, long long gss, long long gsh,
                          float scale, int causal, int window, int dtype,
-                         void* stream) {
+                         int round_p, void* stream) {
   if (B == 0 || Sq == 0) return 0;
   if (Sk < 1 || KV < 1 || H % KV != 0 || dh < 1 || dh > 256 || window < 0 ||
-      (window > 0 && !causal) || dtype < 0 || dtype > 1)
+      (window > 0 && !causal) || dtype < 0 || dtype > 1 || round_p < 0 || round_p > 1)
     return (int)cudaErrorInvalidValue;
   FbArgs a{q, k, v, g, dq, dk, dv, lse, delta, B, Sq, Sk, H, KV, dh,
            qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, gsb, gss, gsh,
            scale, causal, window};
   cudaStream_t s = (cudaStream_t)stream;
-  return dtype == 0 ? fb_dispatch<float>(a, s) : fb_dispatch<__nv_bfloat16>(a, s);
+  if (round_p)
+    return dtype == 0 ? fb_dispatch<float, true>(a, s)
+                      : fb_dispatch<__nv_bfloat16, true>(a, s);
+  return dtype == 0 ? fb_dispatch<float, false>(a, s)
+                    : fb_dispatch<__nv_bfloat16, false>(a, s);
 }
 
 // ----------------------------------------- backward on the tensor cores

@@ -32,6 +32,18 @@ one never reads outside the cache; a length of 0 gives a zero row.
 ``round_p`` (default True, what the TPU kernel does) rounds the
 probabilities to v's dtype before P·V; False keeps them fp32, as the
 model's ``gqa_decode`` does.
+
+A sliding window on a full-length cache (the reference's ``gqa_decode``
+with ``window``: keys ``(pos − W, pos]``): ``cache_start`` (B,) gives each
+row's first valid key, so keys ``[cache_start[b], cache_len[b])`` are
+attended; it is taken as the lengths are (on the host: checked to lie in
+[0, S] and copied once; on the card: not read back, clamped into [0,
+len]).  ``window`` = W > 0 is a shape: the caller's promise that no row
+attends more than W keys (a start below ``len − W`` is raised to it), so
+the grid covers ``ceil(W / chunk) + 1`` splits from each row's first live
+chunk and the work follows W, not S (:func:`plan_decode`).  A row whose
+keys all lie below its start (a piece of a sequence split over ranks)
+gives zeros and, with ``return_lse``, -inf.
 """
 
 from __future__ import annotations
@@ -65,36 +77,50 @@ def _cdiv(a: int, b: int) -> int:
 class DecodePlan:
     """How ``csrc/decode_attention.cu`` runs one call: ``splits`` blocks
     per (b, KV head), block s taking keys ``[s * chunk, (s + 1) * chunk)``
-    below the sequence's length, ``warps`` warps of ``rows`` query rows
-    each, over ``groups`` blocks of at most 64 query rows of a KV head (more
-    than one only for G > 64); a second pass merges the splits when there
-    are more than one."""
+    below the sequence's length (``windowed``: chunk ``first + s``, first
+    the chunk of the row's start, so ``ceil(W / chunk) + 1`` blocks cover a
+    window of W keys), ``warps`` warps of ``rows`` query rows each, over
+    ``groups`` blocks of at most 64 query rows of a KV head (more than one
+    only for G > 64); a second pass merges the splits when there are more
+    than one."""
 
     chunk: int
     splits: int
     warps: int
     rows: int
     groups: int = 1
+    windowed: bool = False
 
     def group_rows(self, G: int) -> int:
         """Query rows of a KV head per block."""
         return _cdiv(G, self.groups)
 
-    def live_splits(self, length: int) -> int:
-        """The splits that hold keys of a sequence of ``length`` keys: the
-        ones the combine pass reads."""
-        return _cdiv(length, self.chunk)
+    def live(self, length: int, start: int = 0) -> range:
+        """The grid's splits that hold keys ``[start, length)``: the ones
+        the combine reads, in order."""
+        if start >= length:
+            return range(0)
+        first = start // self.chunk
+        base = first if self.windowed else 0
+        return range(first - base, min(self.splits, _cdiv(length, self.chunk) - base))
+
+    def live_splits(self, length: int, start: int = 0) -> int:
+        """How many splits hold keys of a row of ``length`` keys from
+        ``start`` on."""
+        return len(self.live(length, start))
 
 
 def plan_decode(B: int, KV: int, G: int, S: int, dh: int, dtype: torch.dtype,
-                sms: int = H100_SMS) -> DecodePlan:
+                sms: int = H100_SMS, window: int = 0) -> DecodePlan:
     """The plan for q (B, KV * G, dh) against caches of S positions: the
-    shapes alone decide it, never the lengths' values.
+    shapes alone decide it (the window W is one), never the lengths' values.
 
     The chunk starts at one tile (32 keys) and doubles while a cache filled
-    to a quarter of S would still give every SM about one block with keys
-    (B * KV * S / (4 * chunk) >= sms after doubling); so qwen2.5-3b's decode
-    (B 8, KV 2, S 2048) takes 32-key chunks, 64 splits.  Four warps share
+    to a quarter of S (of min(S, W) with a window) would still give every
+    SM about one block with keys (B * KV * S / (4 * chunk) >= sms after
+    doubling); so qwen2.5-3b's decode (B 8, KV 2, S 2048) takes 32-key
+    chunks, 64 splits, and with a window of 256 9 splits a row from its
+    start's chunk on (``windowed``).  Four warps share
     the query rows of a block, one, two or four each; beyond 16 rows, more
     warps of four.  G > 64 takes ``groups`` blocks of at most 64 rows each,
     balanced.  dh up to 512 is taken while two staged tiles of k and v fit
@@ -102,6 +128,8 @@ def plan_decode(B: int, KV: int, G: int, S: int, dh: int, dtype: torch.dtype,
     that it raises."""
     if dtype not in _DTYPE:
         raise TypeError(f"decode_attention: dtype {dtype} (float32 or bfloat16)")
+    if window < 0:
+        raise ValueError(f"decode_attention: window={window} (>= 0)")
     groups = _cdiv(G, DA_GROUP)
     gsz = _cdiv(G, groups)
     rows = next(r for r in (1, 2, 4) if r == 4 or 4 * r >= gsz)
@@ -113,40 +141,49 @@ def plan_decode(B: int, KV: int, G: int, S: int, dh: int, dtype: torch.dtype,
         raise ValueError(f"decode_attention: dh = {dh} not taken in {dtype} "
                          f"(dh <= {DA_WIDE_DH} and {smem} bytes of shared "
                          f"memory <= {SMEM_PER_BLOCK})")
+    span = min(S, window) if window else S
     chunk = DA_TILE
-    while chunk < S and B * KV * S >= 4 * sms * 2 * chunk:
+    while chunk < span and B * KV * span >= 4 * sms * 2 * chunk:
         chunk *= 2
-    return DecodePlan(chunk, _cdiv(S, chunk), warps, rows, groups)
+    splits = _cdiv(S, chunk)
+    if window and _cdiv(window, chunk) + 1 < splits:
+        return DecodePlan(chunk, _cdiv(window, chunk) + 1, warps, rows, groups,
+                          True)
+    return DecodePlan(chunk, splits, warps, rows, groups)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.da_launch.argtypes = ([vp] * 7 + [ci] * 5 + [cl] * 8 + [ctypes.c_float]
-                              + [ci] * 8 + [vp])
+    lib.da_launch.argtypes = ([vp] * 8 + [ci] * 5 + [cl] * 8 + [ctypes.c_float]
+                              + [ci] * 10 + [vp])
     lib.da_launch.restype = ci
 
 
-def _lengths(cache_len, B: int, S: int, least: int = 1) -> torch.Tensor:
-    """``cache_len`` as an int32 tensor of B lengths, on the device it was
-    given on (the host for a sequence).  Lengths on the host are checked to
-    lie in [least, S]; lengths on the card are not read back."""
+def _lengths(cache_len, B: int, S: int, least: int = 1,
+             name: str = "cache_len") -> torch.Tensor:
+    """``cache_len`` (or ``cache_start``) as an int32 tensor of B
+    positions, on the device it was given on (the host for a sequence).
+    Positions on the host are checked to lie in [least, S]; positions on
+    the card are not read back."""
     lens = (cache_len if torch.is_tensor(cache_len)
             else torch.as_tensor(np.asarray(cache_len)))
     if lens.shape != (B,):
-        raise ValueError(f"decode_attention: cache_len of shape "
+        raise ValueError(f"decode_attention: {name} of shape "
                          f"{tuple(lens.shape)}, expected ({B},)")
     lens = lens.to(torch.int32).contiguous()
     if lens.device.type == "cpu" and B and bool(((lens < least) | (lens > S)).any()):
-        raise ValueError(f"decode_attention: cache_len must lie in [{least}, {S}], "
+        raise ValueError(f"decode_attention: {name} must lie in [{least}, {S}], "
                          f"got {lens.tolist()}")
     return lens
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, cache_len, *,
-                     round_p: bool = True, return_lse: bool = False):
+                     v_cache: torch.Tensor, cache_len, *, cache_start=None,
+                     window: int = 0, round_p: bool = True,
+                     return_lse: bool = False):
     """One decode step of attention → (B, H, dh) in q's dtype, and with
-    ``return_lse`` (out float32, log-sum-exp (B, H) float32)."""
+    ``return_lse`` (out float32, log-sum-exp (B, H) float32); keys
+    ``[cache_start[b], cache_len[b])``, at most the last ``window``."""
     if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
         raise ValueError(f"decode_attention: q (B, H, dh) and caches (B, S, KV, "
                          f"dh) expected, got {tuple(q.shape)}, "
@@ -157,9 +194,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(f"decode_attention: caches {tuple(k_cache.shape)} do "
                          f"not match q {tuple(q.shape)}")
     lens = _lengths(cache_len, B, S, least=0 if return_lse else 1)
+    starts = (None if cache_start is None
+              else _lengths(cache_start, B, S, 0, "cache_start"))
+    if window < 0:
+        raise ValueError(f"decode_attention: window={window} (>= 0)")
     if q.device.type == "cpu":
-        return decode_attention_ref(q, k_cache, v_cache, lens, round_p=round_p,
-                                    return_lse=return_lse)
+        return decode_attention_ref(q, k_cache, v_cache, lens,
+                                    cache_start=starts, window=window,
+                                    round_p=round_p, return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on cuda or cpu, not {q.device}")
     if k_cache.device != q.device or v_cache.device != q.device:
@@ -171,9 +213,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError("decode_attention: the last axis of q and of the "
                          "caches must be contiguous")
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    plan = plan_decode(B, KV, H // KV, S, dh, q.dtype, sms)
+    plan = plan_decode(B, KV, H // KV, S, dh, q.dtype, sms, window=window)
     lib = load("decode_attention", _declare)
     lens = lens.to(q.device, non_blocking=True)
+    if starts is not None:
+        starts = starts.to(q.device, non_blocking=True)
     out = torch.empty((B, H, dh),
                       dtype=torch.float32 if return_lse else q.dtype,
                       device=q.device)
@@ -188,12 +232,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
               for t in (k_cache, v_cache)) and dh % words == 0
     err = lib.da_launch(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                         out.data_ptr(), lens.data_ptr(),
+                        None if starts is None else starts.data_ptr(),
                         None if ws is None else ws.data_ptr(),
                         None if lse is None else lse.data_ptr(), B, S, H, KV, dh,
                         q.stride(0), q.stride(1), *k_cache.stride()[:3],
                         *v_cache.stride()[:3], dh ** -0.5, int(round_p),
                         int(vec), _DTYPE[q.dtype], plan.chunk, plan.splits,
                         plan.warps, plan.rows, plan.group_rows(H // KV),
+                        window, int(plan.windowed),
                         torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("decode_attention", err)
     return (out, lse) if return_lse else out

@@ -36,6 +36,17 @@ each product hi.hi + hi.mid + mid.hi, the scores' hi.hi summed apart from
 the cross pairs; float32 at DHP 256 in row tiles of 16 slots); dh not a
 multiple of 8, unaligned views and the G the row tiles cannot hold on the
 CUDA cores (``fb_dq_kernel``, then ``fb_dkdv_kernel``).
+``round_p=torch.bfloat16`` gives the gradient of attention whose P·V
+takes p rounded to bfloat16 (the model's ``probs_bf16``): the rounding is
+relative to each row's max, so the max's gradient reaches the row's argmax
+key; that call always takes the CUDA-core pair, with the rounding as a
+template flag (a third pass over the keys in ``fb_dq_kernel``: the max
+must be known before any p is rounded).  The forward rounds p against the
+row's max too wherever it runs on ``fa_kernel`` at dh <= 256 (a first pass
+for the max), serving and training alike, so at float32 the loss is the
+function whose gradient the backward gives; the tensor-core forward
+streams the keys once and rounds against a key tile's running max (p's
+rounding moves the bfloat16 output by less than its own ulp there).
 ``LAUNCHES["flash_attention_bwd_wgmma"]`` and
 ``LAUNCHES["flash_attention_bwd"]`` count the two routes' calls, all the
 kernels of a call as one.  :class:`FlashAttentionFn` is the forward kernel
@@ -296,7 +307,7 @@ def _declare(lib: ctypes.CDLL) -> None:
                                  + [ctypes.c_float] + [ci] * 3 + [vp])
     lib.fa_tc_launch.restype = ci
     lib.fb_launch.argtypes = ([vp] * 9 + [ci] * 6 + [cl] * 12
-                              + [ctypes.c_float] + [ci] * 3 + [vp])
+                              + [ctypes.c_float] + [ci] * 4 + [vp])
     lib.fb_launch.restype = ci
     lib.fbt_launch.argtypes = ([vp] * 9 + [cl] + [ci] * 6 + [cl] * 12
                                + [ctypes.c_float] + [ci] * 4 + [vp] * 2)
@@ -326,16 +337,19 @@ def _aligned(t: torch.Tensor) -> bool:
                                           for s in t.stride()[:3])
 
 
-def flash_bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+def flash_bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    round_p: bool | torch.dtype = False) -> str:
     """``"wgmma"`` where the tensor-core backward (``fbt_dq_kernel``, then
-    ``fbt_dkdv_kernel`` or ``fbt_dkdv2_kernel``) takes the call — bfloat16
-    or float32, dh a multiple of 8 up to 256, G = H / KV whose tokens row
-    tiles can hold whole (up to 64) or halve (128: :func:`tile_rows`;
-    float32 above dh 128, row tiles of 16 slots: up to 16), and every base
-    and stride of q, k and v on 16 bytes — else ``"simt"``
-    (``fb_dq_kernel``, ``fb_dkdv_kernel``: dh not a multiple of 8,
-    unaligned views, the G the row tiles refuse).  Reads shapes, strides
-    and pointers only."""
+    ``fbt_dkdv_kernel`` or ``fbt_dkdv2_kernel``) takes the call — p in
+    fp32, bfloat16 or float32, dh a multiple of 8 up to 256, G = H / KV
+    whose tokens row tiles can hold whole (up to 64) or halve (128:
+    :func:`tile_rows`; float32 above dh 128, row tiles of 16 slots: up to
+    16), and every base and stride of q, k and v on 16 bytes — else
+    ``"simt"`` (``fb_dq_kernel``, ``fb_dkdv_kernel``: p rounded to
+    bfloat16, dh not a multiple of 8, unaligned views, the G the row tiles
+    refuse).  Reads shapes, strides and pointers only."""
+    if round_p is not False:
+        return "simt"
     H, dh, KV = q.shape[2], q.shape[3], k.shape[2]
     top = {torch.bfloat16: BWD_MAX_DH, torch.float32: BWD_F32_MAX_DH}.get(q.dtype, 0)
     if dh % 8 or dh > top or not tile_rows(H // KV, bwd_row_slots(dh, q.dtype)):
@@ -359,12 +373,14 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("flash_attention: no keys")
 
 
-def _round_mode(round_p: bool | torch.dtype) -> int:
-    """The kernels' ``round_p``: 0 fp32 p, 1 v's dtype, 2 bfloat16."""
+def _round_mode(round_p: bool | torch.dtype, row_max: bool) -> int:
+    """The kernels' ``round_p``: 0 fp32 p, 1 v's dtype, 2 bfloat16, each
+    against a key tile's running max; 3 bfloat16 against the row's max
+    (``torch.bfloat16`` where the kernel can find it first: ``row_max``)."""
     if round_p is True or round_p is False:
         return int(round_p)
     if round_p == torch.bfloat16:
-        return 2
+        return 3 if row_max else 2
     raise ValueError(f"flash_attention: round_p={round_p!r} (a bool or "
                      "torch.bfloat16)")
 
@@ -372,9 +388,14 @@ def _round_mode(round_p: bool | torch.dtype) -> int:
 def flash_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, window: int = 0,
                           round_p: bool | torch.dtype = True) -> torch.Tensor:
-    """Fused attention → (B, Sq, H, dh) in q's dtype."""
+    """Fused attention → (B, Sq, H, dh) in q's dtype.  With
+    ``round_p=torch.bfloat16`` ``fa_kernel`` at dh <= 256 rounds p against
+    each row's max, found in a first pass over the keys (the plain
+    version's function, and the one the rounded-p backward
+    differentiates); the tensor-core kernel, and ``fa_kernel``'s column
+    split above dh 256, against a key tile's running max."""
     _check(q, k, v)
-    mode = _round_mode(round_p)
+    _round_mode(round_p, False)          # round_p a bool or torch.bfloat16
     _check_window(causal, window)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
@@ -396,7 +417,9 @@ def flash_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     stream = torch.cuda.current_stream(q.device).cuda_stream
     lib = load("flash_attention", _declare)
-    if flash_route(q, k, v) == "wgmma":
+    route = flash_route(q, k, v)
+    mode = _round_mode(round_p, route == "simt" and dh <= SIMT_WIDE)
+    if route == "wgmma":
         err = lib.fa_tc_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                out.data_ptr(), B, Sq, Sk, H, KV, dh,
                                *q.stride()[:3], *k.stride()[:3],
@@ -422,16 +445,24 @@ def _check_window(causal: bool, window: int) -> None:
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         g: torch.Tensor, *, causal: bool = True,
-                        window: int = 0, route: str | None = None
+                        window: int = 0, route: str | None = None,
+                        round_p: bool | torch.dtype = False
                         ) -> tuple[torch.Tensor, ...]:
-    """The gradient of :func:`flash_attention_fused` with fp32 p against
-    the output gradient ``g`` (B, Sq, H, dh): (dq, dk, dv) in the inputs'
-    dtype, and lse (B, H, Sq) float32, each row's log-sum-exp of its
-    scaled, masked scores.  dh up to 256 on the card, on the kernels
-    :func:`flash_bwd_route` picks; ``route="simt"`` runs the CUDA-core
-    kernels on any call (to time them against the tensor cores)."""
+    """The gradient of :func:`flash_attention_fused` with fp32 p
+    (``round_p=False``) or p rounded to bfloat16 in P·V
+    (``round_p=torch.bfloat16``: the gradient of the plain version's
+    function, rounded against each row's max, as the reference's
+    ``probs_bf16`` under ``jax.grad`` with one KV chunk) against the output
+    gradient ``g`` (B, Sq, H, dh): (dq, dk, dv) in the inputs' dtype, and
+    lse (B, H, Sq) float32, each row's log-sum-exp of its scaled, masked
+    scores.  dh up to 256 on the card, on the kernels :func:`flash_bwd_route`
+    picks; ``route="simt"`` runs the CUDA-core kernels on any call (to time
+    them against the tensor cores)."""
     _check(q, k, v)
     _check_window(causal, window)
+    if round_p is not False and round_p != torch.bfloat16:
+        raise ValueError(f"flash_attention_bwd: round_p={round_p!r} (False "
+                         "or torch.bfloat16)")
     if g.shape != q.shape:
         raise ValueError(f"flash_attention_bwd: g {tuple(g.shape)} is not "
                          f"q's shape {tuple(q.shape)}")
@@ -439,7 +470,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention_bwd: route={route!r} (None or "
                          "'simt')")
     if q.device.type == "cpu":
-        return flash_attention_bwd_ref(q, k, v, g, causal=causal, window=window)
+        return flash_attention_bwd_ref(q, k, v, g, causal=causal, window=window,
+                                       round_p=round_p)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     if any(t.device != q.device for t in (k, v, g)):
@@ -457,7 +489,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention_bwd: the last axis of q, k and v "
                          "must be contiguous")
-    route = route or flash_bwd_route(q, k, v)
+    route = route or flash_bwd_route(q, k, v, round_p)
     dq = torch.empty((B, Sq, H, dh), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, Sk, KV, dh), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
@@ -484,45 +516,56 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              None if terms is None else terms.data_ptr(), stream)
         check_launch("flash_attention_bwd_wgmma", err)
         return dq, dk, dv, lse
-    delta = torch.empty_like(lse)
+    rp = round_p is not False
+    # each row's D (round_p: D / l, m, l and the argmax key's share)
+    delta = torch.empty((4 if rp else 1, B, H, Sq), dtype=torch.float32,
+                        device=q.device)
     err = lib.fb_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
                         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                         lse.data_ptr(), delta.data_ptr(), B, Sq, Sk, H, KV, dh,
                         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                         *g.stride()[:3], dh ** -0.5, int(causal), window,
-                        _DTYPE[q.dtype], stream)
+                        _DTYPE[q.dtype], int(rp), stream)
     check_launch("flash_attention_bwd", err)
     return dq, dk, dv, lse
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """Attention with fp32 p on the card's kernels, forward and backward:
-    the forward saves q, k and v (the backward recomputes the scores and
-    each row's statistics), the backward launches the backward kernels."""
+    """Attention with fp32 p (or p rounded to bfloat16, ``round_p``) on
+    the card's kernels, forward and backward: the forward saves q, k and v
+    (the backward recomputes the scores and each row's statistics), the
+    backward launches the backward kernels."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: int):
+    def forward(ctx, q, k, v, causal: bool, window: int,
+                round_p: bool | torch.dtype = False):
         ctx.save_for_backward(q, k, v)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.round_p = causal, window, round_p
         return flash_attention_fused(q, k, v, causal=causal, window=window,
-                                     round_p=False)
+                                     round_p=round_p)
 
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
         dq, dk, dv, _ = flash_attention_bwd(q, k, v, g, causal=ctx.causal,
-                                            window=ctx.window)
-        return dq, dk, dv, None, None
+                                            window=ctx.window,
+                                            round_p=ctx.round_p)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True, window: int = 0
+                          *, causal: bool = True, window: int = 0,
+                          round_p: bool | torch.dtype = False
                           ) -> torch.Tensor:
-    """Attention with fp32 p that autograd can differentiate: on CUDA
-    tensors :class:`FlashAttentionFn` (the kernels both ways), on CPU
-    tensors the plain version."""
+    """Attention with fp32 p (or ``round_p=torch.bfloat16``) that autograd
+    can differentiate: on CUDA tensors :class:`FlashAttentionFn` (the
+    kernels both ways), on CPU tensors the plain version."""
     _check(q, k, v)
     _check_window(causal, window)
+    if round_p is not False and round_p != torch.bfloat16:
+        raise ValueError(f"flash_attention_train: round_p={round_p!r} (False "
+                         "or torch.bfloat16)")
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window)
-    return FlashAttentionFn.apply(q, k, v, causal, window)
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   round_p=round_p)
+    return FlashAttentionFn.apply(q, k, v, causal, window, round_p)

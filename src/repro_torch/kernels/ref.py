@@ -63,9 +63,14 @@ _NEG = -1e30
 
 def _softmax_pv(s: torch.Tensor, v: torch.Tensor, eq: str,
                 round_p: bool | torch.dtype) -> torch.Tensor:
-    # the row max only shifts the exponent: held constant under autograd,
-    # as the gradient of a shift-invariant function allows
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True).detach())
+    # With p in fp32 the row max only shifts the exponent: held constant
+    # under autograd, as the gradient of a shift-invariant function allows.
+    # A rounded p is no longer shift-invariant (the rounding is relative to
+    # the max), so there the max stays attached and its gradient reaches
+    # each row's argmax key (ties split evenly), as jax.grad of the
+    # reference's ``flash_attention`` (one KV chunk) does.
+    mx = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - (mx.detach() if round_p is False else mx))
     l = p.sum(dim=-1, keepdim=True)
     if round_p is not False:
         p = p.to(v.dtype if round_p is True else round_p).float()
@@ -107,15 +112,17 @@ def _flash_scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
 
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             g: torch.Tensor, *, causal: bool = True,
-                            window: int = 0
+                            window: int = 0,
+                            round_p: bool | torch.dtype = False
                             ) -> tuple[torch.Tensor, ...]:
-    """The gradient of :func:`flash_attention_ref` (p in fp32) against the
-    output gradient ``g`` (B, Sq, H, dh), by autograd: (dq, dk, dv) in the
-    inputs' dtypes, and lse (B, H, Sq) float32, each row's log-sum-exp of
-    its scaled, masked scores."""
+    """The gradient of :func:`flash_attention_ref` (p in fp32, or rounded
+    as ``round_p`` says) against the output gradient ``g`` (B, Sq, H, dh),
+    by autograd: (dq, dk, dv) in the inputs' dtypes, and lse (B, H, Sq)
+    float32, each row's log-sum-exp of its scaled, masked scores."""
     with torch.enable_grad():
         qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
-        out = flash_attention_ref(qq, kk, vv, causal=causal, window=window)
+        out = flash_attention_ref(qq, kk, vv, causal=causal, window=window,
+                                  round_p=round_p)
         dq, dk, dv = torch.autograd.grad(out, (qq, kk, vv), g)
     with torch.no_grad():
         s = _flash_scores(q, k, causal, window)
@@ -124,27 +131,39 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         cache_len: torch.Tensor, *,
-                         round_p: bool = False, return_lse: bool = False):
+                         cache_len: torch.Tensor, *, cache_start=None,
+                         window: int = 0, round_p: bool = False,
+                         return_lse: bool = False):
     """One new token per sequence, q (B, H, dh), against the caches k and
-    v (B, S, KV, dh), of which the first ``cache_len[b]`` positions are
-    valid → (B, H, dh) in q's dtype.  With ``return_lse`` the output is
-    float32, not rounded, and each row's log-sum-exp (B, H) float32 of its
-    scaled valid scores comes beside it; a row of length 0 then gives
-    zeros and a log-sum-exp of -inf, as the kernel does."""
+    v (B, S, KV, dh), of which positions ``[cache_start[b], cache_len[b])``
+    are valid (``cache_start`` None: from 0) → (B, H, dh) in q's dtype.  A
+    ``window`` > 0 also masks the positions below ``cache_len[b] −
+    window`` (the caller's promise that no row holds more; the kernel's
+    grid covers that many keys).  A row with no valid position gives
+    zeros.  With ``return_lse`` the output is float32, not rounded, and
+    each row's log-sum-exp (B, H) float32 of its scaled valid scores comes
+    beside it (-inf for a row with no valid position), as the kernel
+    does."""
     B, H, dh = q.shape
     S, KV = k.shape[1], k.shape[2]
     G = H // KV
     qg = q.float().reshape(B, KV, G, dh) * dh ** -0.5
     s = torch.einsum("bkgd,bskd->bkgs", qg, k.float())
-    lens = torch.as_tensor(cache_len, device=q.device).reshape(B, 1)
-    valid = torch.arange(S, device=q.device)[None, :] < lens       # (B, S)
+    lens = torch.as_tensor(cache_len, device=q.device).reshape(B, 1).long()
+    lens = lens.clamp(0, S)
+    start = (torch.zeros_like(lens) if cache_start is None else
+             torch.as_tensor(cache_start, device=q.device).reshape(B, 1).long())
+    start = torch.minimum(start.clamp_min(0), lens)
+    if window:
+        start = torch.maximum(start, lens - window)
+    kpos = torch.arange(S, device=q.device)[None, :]
+    valid = (kpos < lens) & (kpos >= start)                          # (B, S)
     s = s.masked_fill(~valid[:, None, None, :], _NEG)
     out = _softmax_pv(s, v, "bkgs,bskd->bkgd", round_p)
+    some = (start[:, 0] < lens[:, 0])[:, None, None]
+    out = torch.where(some[..., None], out, torch.zeros_like(out))
     if not return_lse:
         return out.reshape(B, H, dh).to(q.dtype)
-    some = (lens[:, 0] > 0)[:, None, None]
-    out = torch.where(some[..., None], out, torch.zeros_like(out))
     lse = torch.where(some, torch.logsumexp(s, dim=-1),
                       torch.full_like(s[..., 0], -torch.inf))
     return out.reshape(B, H, dh).float(), lse.reshape(B, H)

@@ -119,7 +119,8 @@ def profile_decode(dev: torch.device) -> None:
         for name, lens in (("served", SERVED_LENS), ("full", [2048] * 8),
                            ("every length 1", [1] * 8)):
             for chunk in CHUNKS:
-                def plan(B, KV, G, S, dh, dtype, sms=132, chunk=chunk):
+                def plan(B, KV, G, S, dh, dtype, sms=132, window=0,
+                         chunk=chunk):
                     p = planned(B, KV, G, S, dh, dtype, sms)
                     return da.DecodePlan(chunk, -(-S // chunk), p.warps, p.rows)
                 with mock.patch.object(da, "plan_decode", plan):

@@ -24,8 +24,10 @@ Training: when autograd needs the attention's gradient (grad enabled and
 q, k or v requiring it), ``gqa_prefill`` and ``mla_prefill`` run
 :func:`repro_torch.kernels.flash_attention.flash_attention_train` instead
 (the same forward kernel with a hand-written backward on the card, the plain
-version on CPU tensors).  ``probs_bf16`` has no backward yet and raises there
-(ROADMAP.md, Queue A item 8.10; no config sets ``attn_probs_bf16``).
+version on CPU tensors).  With ``probs_bf16`` the backward is the gradient
+of the rounded p (the reference's ``jax.grad`` with one KV chunk: the row
+max attached, its argmax key taking the rounding's share), and dv reaches
+a float32 v through ``_bf16_v``'s rounding, as the reference's cast does.
 
 ``mla_prefill`` materialises per-head keys of width ``dn + dr`` (the
 latent's up-projection and the shared rope key) and values of width ``dn``,
@@ -44,8 +46,10 @@ ring-buffer cache of width W through ``write_pos = pos % W`` (the slot
 written) and ``valid_len = min(pos + 1, W)`` (the slots attended, the
 kernel's ``cache_len``): a ring fills from slot 0 and RoPE was applied at
 the absolute position, so slot order does not matter.  A window on a
-full-length decode cache raises: no config or cell reaches it (ROADMAP.md,
-Queue A item 8.9).
+full-length decode cache (a dense or MoE config with ``attn_window``, as
+the reference's ``init_cache`` makes it) attends keys ``[max(0, pos + 1 −
+W), pos + 1)``: the starts are made on the card from ``pos`` and the
+decode kernel's grid covers W keys a row, not the cache.
 """
 
 from __future__ import annotations
@@ -241,12 +245,8 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
         return flash_attention_ref(q, k, v, causal=True, window=window,
                                    round_p=_p_rounding(probs_bf16))
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        if probs_bf16:
-            raise NotImplementedError(
-                "attention with probs_bf16 has no backward in the port yet "
-                "(ROADMAP.md, Queue A item 8.10; no config sets "
-                "attn_probs_bf16)")
-        return flash_attention_train(q, k, v, causal=True, window=window)
+        return flash_attention_train(q, k, v, causal=True, window=window,
+                                     round_p=_p_rounding(probs_bf16))
     return flash_attention_fused(q, k, v, causal=True, window=window,
                                  round_p=_p_rounding(probs_bf16))
 
@@ -266,7 +266,7 @@ def gqa_decode(p: Mapping[str, torch.Tensor], x: torch.Tensor,
                cos: torch.Tensor, sin: torch.Tensor, *, window: int = 0,
                write_pos: torch.Tensor | None = None,
                valid_len: torch.Tensor | None = None, cache_len=None,
-               split=None, data=None
+               cache_start: torch.Tensor | None = None, split=None, data=None
                ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """Single-token decode against the cache; returns (out, caches).  The
     new K/V row of each sequence is written in place at ``write_pos`` (B,)
@@ -275,8 +275,9 @@ def gqa_decode(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     ring-buffer cache of width W (``write_pos = pos % W``, ``valid_len =
     min(pos + 1, W)``), else ``pos + 1``.  ``cache_len`` may be passed on
     the host, where the kernel's wrapper checks it without a
-    synchronisation.  A ``window`` against a full-length cache (no
-    ``valid_len``) raises.
+    synchronisation.  A ``window`` W against a full-length cache (no
+    ``valid_len``) attends from ``cache_start`` on (default ``max(0, pos +
+    1 − W)``, made on the card from ``pos``), the last W keys.
 
     Under a :class:`~repro_torch.sharding.tp.ModelSplit` the caches are
     this rank's: of the KV heads its query heads read, or, where the split
@@ -286,12 +287,8 @@ def gqa_decode(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     runs on the local piece with its local lengths (0 included) and gives
     each row's fp32 output and log-sum-exp, and the ranks' outputs are
     merged by it in fp32 (:func:`_merge_pieces`) and rounded once to the
-    activation dtype, as the unsplit decode rounds."""
-    if window and valid_len is None:
-        raise NotImplementedError(
-            f"gqa_decode: window={window} on a full-length cache is not "
-            "ported (ROADMAP.md, Queue A item 8.9): a windowed cache is a "
-            "ring (write_pos, valid_len)")
+    activation dtype, as the unsplit decode rounds; a window's starts are
+    local there too (``clamp(start − r·Sl, 0, Sl)``)."""
     B = x.shape[0]
     seq = split is not None and split.cache == "seq"
     q, k, v = _qkv(p, x, split, all_kv=seq)    # (B, 1, H/KV, dh)
@@ -304,11 +301,16 @@ def gqa_decode(p: Mapping[str, torch.Tensor], x: torch.Tensor,
         cache_len = valid_len
     elif cache_len is None:
         cache_len = pos.to(device=x.device, dtype=torch.long) + 1
+    W = window if valid_len is None else 0     # a ring holds the window
+    if W and cache_start is None:
+        cache_start = (pos.to(device=x.device, dtype=torch.long)
+                       + 1 - W).clamp_min(0)
     if not seq:
         k_cache[rows, idx] = k[:, 0]
         v_cache[rows, idx] = v[:, 0]
         ctx = decode_attention(q[:, 0], k_cache, v_cache, cache_len,
-                               round_p=False)
+                               cache_start=cache_start if W else None,
+                               window=W, round_p=False)
         return _out(p, ctx[:, None], x.dtype, split, data), (k_cache, v_cache)
     Sl = k_cache.shape[1]
     c0 = split.r * Sl
@@ -319,10 +321,16 @@ def gqa_decode(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     v_cache[rows, here] = torch.where(mine, v[:, 0], v_cache[rows, here])
     lens = torch.as_tensor(cache_len).to(device=x.device, dtype=torch.long)
     lens = (lens - c0).clamp(0, Sl)
+    starts = None
+    if W:
+        starts = torch.as_tensor(cache_start).to(device=x.device,
+                                                 dtype=torch.long)
+        starts = (starts - c0).clamp(0, Sl)
     qa = q[:, 0] if split.heads is None else gather_from_model(q[:, 0], 1,
                                                                split)
     ctx, lse = decode_attention(qa.contiguous(), k_cache, v_cache, lens,
-                                round_p=False, return_lse=True)
+                                cache_start=starts, window=W, round_p=False,
+                                return_lse=True)
     ctx = _merge_pieces(ctx, lse, split)
     if split.heads is not None:
         ctx = ctx[:, split.heads[0]:split.heads[1]]

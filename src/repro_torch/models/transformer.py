@@ -383,7 +383,7 @@ class Block(nn.Module):
 
     def decode(self, cfg: ModelConfig, x: torch.Tensor, c0: torch.Tensor,
                c1: torch.Tensor, pos: torch.Tensor, cache_len,
-               cos: torch.Tensor, sin: torch.Tensor):
+               cos: torch.Tensor, sin: torch.Tensor, cache_start=None):
         h = rms_norm(x, self.norm1, cfg.norm_eps)
         if cfg.use_mla:
             a, _ = mla_decode(self.attn, h, c0, c1, pos, cos, sin,
@@ -392,7 +392,8 @@ class Block(nn.Module):
         else:
             a, _ = gqa_decode(self.attn, h, c0, c1, pos, cos, sin,
                               window=cfg.attn_window, cache_len=cache_len,
-                              split=self.split, data=self.wo_data)
+                              cache_start=cache_start, split=self.split,
+                              data=self.wo_data)
         x = x + a
         f, _ = self._ffn(cfg, rms_norm(x, self.norm2, cfg.norm_eps))
         return x + f
@@ -861,9 +862,14 @@ class Transformer(nn.Module):
                                     rows[2].to(torch.int32), cos, sin)
         else:
             cache_len = p + 1
+            # a window on the full-length cache: each row's first key, on
+            # the card, once a step
+            start = ((cache_len - cfg.attn_window).clamp_min(0)
+                     if cfg.attn_window and not cfg.use_mla else None)
             for blk, c0, c1 in zip(self.blocks, caches[keys[0]], caches[keys[1]]):
                 with self._gathered(blk):
-                    x = blk.decode(cfg, x, c0, c1, p, cache_len, cos, sin)
+                    x = blk.decode(cfg, x, c0, c1, p, cache_len, cos, sin,
+                                   start)
         return self._logits(x)[:, 0], caches
 
     def _hybrid_decode(self, x, caches, p, write_pos, valid_len, cos, sin):

@@ -54,9 +54,12 @@ def _inputs(B, S, H, KV, dh, dtype, seed):
     return [torch.from_numpy(a).to(dtype) for a in (q, k, v)]
 
 
-def kernel_plan(q, k, v, lens, plan: DecodePlan, round_p: bool) -> torch.Tensor:
+def kernel_plan(q, k, v, lens, plan: DecodePlan, round_p: bool,
+                starts=None, window: int = 0) -> torch.Tensor:
     """The kernel's split and combine order in float32 → (B, H, dh) in q's
-    dtype."""
+    dtype.  With ``starts``/``window`` row b attends keys [st, n), st its
+    start raised to n − window; a windowed plan's split s takes chunk
+    st // chunk + s."""
     B, H, dh = q.shape
     S, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -64,15 +67,19 @@ def kernel_plan(q, k, v, lens, plan: DecodePlan, round_p: bool) -> torch.Tensor:
     kf, vf = k.float(), v.float()
     out = torch.empty(B, KV, G, dh)
     for b in range(B):
-        n = int(lens[b])
+        n = min(max(int(lens[b]), 0), S)
+        st = 0 if starts is None else min(max(int(starts[b]), 0), n)
+        if window:
+            st = max(st, n - window)
+        base = st // plan.chunk if plan.windowed else 0
         parts = []
         for s in range(plan.splits):
-            c0 = s * plan.chunk
-            if c0 >= n:                              # an empty partial
+            ck = (base + s) * plan.chunk
+            c0, c1 = max(ck, st), min(ck + plan.chunk, n)
+            if c0 >= c1:                             # an empty partial
                 parts.append((torch.full((KV, G), -math.inf),
                               torch.zeros(KV, G), None))
                 continue
-            c1 = min(c0 + plan.chunk, n)
             m = torch.full((KV, G), NEG)
             l = torch.zeros(KV, G)
             acc = torch.zeros(KV, G, dh)
@@ -94,10 +101,14 @@ def kernel_plan(q, k, v, lens, plan: DecodePlan, round_p: bool) -> torch.Tensor:
             parts.append((m, l, acc))
         if plan.splits == 1:
             m, l, acc = parts[0]
-            out[b] = acc / torch.clamp(l, min=1e-30)[..., None]
+            out[b] = (0.0 if acc is None
+                      else acc / torch.clamp(l, min=1e-30)[..., None])
             continue
-        live = parts[:math.ceil(n / plan.chunk)]     # the splits the combine reads
+        live = [parts[s] for s in plan.live(n, st)]  # the splits the combine reads
         assert all(a is not None for _, _, a in live)
+        if not live:                                 # no key: a zero row
+            out[b] = 0.0
+            continue
         mx = torch.stack([m for m, _, _ in live]).amax(0)
         l = torch.zeros(KV, G)
         acc = torch.zeros(KV, G, dh)
@@ -190,3 +201,63 @@ def test_empty_splits_are_never_combined():
     _close(got, decode_attention_ref(q, k, v, torch.tensor(lens)))
     w = torch.exp(torch.tensor(-math.inf) - torch.tensor(0.5))
     assert float(w) == 0.0 and math.isnan(float(w * torch.tensor(math.nan)))
+
+
+# (B, S, H, KV, dh, W, lengths, starts): qwen2.5-3b's heads at S 2,048 with
+# W 256 and 1,024 (a windowed grid of 9 and 33 splits) at lengths 1, W - 1,
+# W, W + 1 and S; SMOKE widths with W 8 and a start past the window's; a
+# piece of a sequence split over ranks (local starts, one wholly below its
+# start, one at 0)
+WINDOW_CASES = [
+    (8, 2048, 16, 2, 128, 256, [1, 255, 256, 257, 2048, 1000, 33, 2047], None),
+    (8, 2048, 16, 2, 128, 1024, [1, 1023, 1024, 1025, 2048, 1500, 33, 700], None),
+    (4, 64, 8, 2, 8, 8, [1, 9, 64, 40], [0, 3, 60, 36]),
+    (4, 512, 8, 2, 64, 100, [512, 0, 300, 512], [512, 0, 250, 450]),
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,KV,dh,W,lens,starts", WINDOW_CASES, ids=str)
+def test_window_plan_matches_the_plain_version(B, S, H, KV, dh, W, lens,
+                                               starts, dtype):
+    """A window on a full-length cache: the grid covers ceil(W / chunk) + 1
+    splits from each row's start, the combine reads the ones with keys,
+    and a row with none gives zeros (and lse -inf, in the plain version)."""
+    q, k, v = _inputs(B, S, H, KV, dh, dtype, seed=W + B)
+    plan = plan_decode(B, KV, H // KV, S, dh, dtype, SMS, window=W)
+    assert plan.splits == min(-(-S // plan.chunk), -(-W // plan.chunk) + 1)
+    want = decode_attention_ref(q, k, v, torch.tensor(lens),
+                                cache_start=None if starts is None
+                                else torch.tensor(starts), window=W,
+                                round_p=False)
+    _close(kernel_plan(q, k, v, lens, plan, False, starts, W), want)
+    # the window is the start raised to len - W: the same keys as an
+    # explicit start there, and a row with none gives zeros and lse -inf
+    n = torch.tensor(lens)
+    first = torch.maximum(torch.tensor(starts or [0] * B).clamp(min=0),
+                          n - W).clamp(min=0)
+    assert torch.equal(decode_attention_ref(q, k, v, n, cache_start=first,
+                                            round_p=False), want)
+    out, lse = decode_attention_ref(q, k, v, n, cache_start=first,
+                                    return_lse=True)
+    empty = first >= n
+    assert bool((lse[empty] == -math.inf).all()) and not bool(out[empty].any())
+    assert bool(torch.isfinite(lse[~empty]).all())
+
+
+def test_window_plan_follows_w_not_s():
+    """qwen2.5-3b's decode (B 8, S 2,048): 9 blocks a (b, KV head) with a
+    window of 256 against 64 without; decode_32k's shape (S 32,768, W
+    4,096): the grid spans 4,128 keys a row, not 32,768; a window as wide
+    as the cache keeps the plain grid."""
+    full = plan_decode(8, 2, 8, 2048, 128, torch.bfloat16, SMS)
+    win = plan_decode(8, 2, 8, 2048, 128, torch.bfloat16, SMS, window=256)
+    assert (full.splits, full.windowed) == (64, False)
+    assert (win.chunk, win.splits, win.windowed) == (32, 9, True)
+    assert [win.live_splits(n, max(0, n - 256)) for n in (1, 255, 256, 257, 2048)] \
+        == [1, 8, 8, 9, 8]
+    big = plan_decode(1, 8, 4, 32768, 128, torch.bfloat16, SMS)
+    wbig = plan_decode(1, 8, 4, 32768, 128, torch.bfloat16, SMS, window=4096)
+    assert big.splits * big.chunk == 32768 and wbig.splits * wbig.chunk == 4128
+    assert plan_decode(8, 2, 8, 64, 128, torch.float32, SMS, window=256) == \
+        plan_decode(8, 2, 8, 64, 128, torch.float32, SMS)

@@ -26,7 +26,12 @@ cut into pieces at S 300 and 1,024, G 6 in row tiles of whole tokens), and
 the CUDA-core route forced on the tensor-core cases; float32 at qwen2.5-3b's
 and internvl2-26b's heads up to S 4,096, with q and k 8 and 12 times larger
 against the exact gradient (float64), and at zamba2-7b's and the MLA's
-(DHP 256); the forward at G 3, 5 and 6 on the tensor cores.  JAX is
+(DHP 256); the forward at G 3, 5 and 6 on the tensor cores; the gradient
+with p rounded to bfloat16 (``round_p``, the model's ``probs_bf16``) on
+the CUDA-core pair at qwen2.5-3b's, MLA's and zamba2-7b's heads and with
+keys tied at the max, within 1e-3 of each gradient's largest of the plain
+version (float32, which the fp32-p backward fails) or two bf16 ulps of it
+(bfloat16), through ``FlashAttentionFn`` too.  JAX is
 imported inside the reference's helper only, so that the card case runs
 where JAX is not installed.
 """
@@ -40,7 +45,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.build import LAUNCHES
-from repro_torch.kernels.ref import flash_attention_bwd_ref
+from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_ref
 
 # (B, S, H, KV, dh, dhv, causal, window): dhv < dh is MLA's shape
 CASES = [
@@ -175,14 +180,14 @@ CARD_CASES = [(1, 300, 16, 2, 128, True, 0), (2, 130, 12, 2, 100, True, 0),
               (2, 150, 12, 2, 64, True, 40)]
 
 
-def _hold(got, want, again, dtype):
+def _hold(got, want, again, dtype, f32_rel=1e-4):
     for name, a, b, c in zip(("dq", "dk", "dv", "lse"), got, want, again):
         assert torch.equal(a, c), f"{name}: two calls differ"
         top = float(b.float().abs().max())
         if name == "lse":
             tol = 1e-5 * max(top, 1.0)
         elif dtype == torch.float32:
-            tol = 1e-4 * top
+            tol = f32_rel * top
         else:
             tol = 2 * _ulp(top)
         err = float((a.float() - b.float()).abs().max())
@@ -346,3 +351,76 @@ def test_forward_at_any_g_on_the_tensor_cores(card, S, H, KV, dh):
                                        round_p=rp)
             err = float((got.float() - want.float()).abs().max())
             assert err <= _ulp(float(want.float().abs().max())), (causal, window, rp)
+
+
+# The rounded-p backward's float32 limit, of each gradient's largest: the
+# kernels read up to about 2e-4 of it, the fp32-p gradient and a detached
+# row max (the faults it must catch) 1.3e-3 and more
+ROUNDED_F32_REL = 1e-3
+# (B, S, H, KV, dh, window): qwen2.5-3b's heads, with a window of 256;
+# deepseek-v2's MLA (v zero past 128); zamba2-7b's shared block; a ragged
+# G 4 at dh 16 with keys 3 and 5 tied at every row's max
+ROUND_CASES = [(1, 300, 16, 2, 128, 0), (1, 1024, 16, 2, 128, 256),
+               (1, 257, 128, 128, 192, 0), (1, 300, 32, 32, 224, 0),
+               (2, 77, 4, 1, 16, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ROUND_CASES,
+                         ids=["qwen", "qwen-window", "mla", "zamba2", "tie"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_rounded_backward_kernels_match_plain(card, case, dtype):
+    """``round_p=torch.bfloat16`` on ``fb_dq_kernel`` + ``fb_dkdv_kernel``
+    (counted as ``flash_attention_bwd``) against the plain version's
+    gradient of the rounded p, two calls bitwise equal, dq, dk and dv
+    within ``ROUNDED_F32_REL`` of each one's largest (float32; the fp32-p
+    backward, run as a control, must lie beyond it) or two bf16 ulps of it
+    (bfloat16: exp and the sums' order flip some roundings of p), lse
+    within 1e-5; the forward within float32's 1e-5 of the plain version
+    (``fa_kernel`` rounds p against the row's max, as the plain version
+    does) or one bf16 ulp (the tensor cores, against a key tile's running
+    max); ``FlashAttentionFn``'s output and gradients are the kernels'."""
+    B, S, H, KV, dh, window = case
+    q, k, v, g = _inputs(B, S, H, KV, dh, dh, seed=S + dh)
+    if dh == 16:            # dyadic scores (scale 1/4): the tie is exact
+        u = np.sign(np.random.default_rng(0).standard_normal(dh)).astype(np.float32)
+        k = np.round(4 * k) / 4
+        k[:, 3] = k[:, 5] = 2.0 * u
+        q = np.round(8 * q) / 8
+        q[:, 5:] += u
+    q, k, v, g = (torch.from_numpy(a).to(card, dtype) for a in (q, k, v, g))
+    if H == 128:
+        v[..., 128:] = 0
+        g[..., 128:] = 0
+    v = v.to(torch.bfloat16).to(dtype)          # as the model's _bf16_v
+    bf = torch.bfloat16
+    assert fa.flash_bwd_route(q, k, v, bf) == "simt"
+    before = dict(LAUNCHES)
+    got = fa.flash_attention_bwd(q, k, v, g, window=window, round_p=bf)
+    again = fa.flash_attention_bwd(q, k, v, g, window=window, round_p=bf)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 2
+    assert LAUNCHES["flash_attention_bwd_wgmma"] == before["flash_attention_bwd_wgmma"]
+    want = flash_attention_bwd_ref(q, k, v, g, window=window, round_p=bf)
+    _hold(got, want, again, dtype, f32_rel=ROUNDED_F32_REL)
+    if dtype == torch.float32:
+        # the control: the fp32-p backward fails the limit
+        fp32 = fa.flash_attention_bwd(q, k, v, g, window=window)[:3]
+        rel = max(float((a - b).abs().max() / b.abs().max())
+                  for a, b in zip(fp32, want))
+        assert rel > ROUNDED_F32_REL, rel
+    fwd = fa.flash_attention_fused(q, k, v, window=window, round_p=bf)
+    plain = flash_attention_ref(q, k, v, window=window, round_p=bf)
+    if dtype == torch.float32:
+        assert fa.flash_route(q, k, v) == "simt"
+        torch.testing.assert_close(fwd, plain, rtol=1e-5, atol=1e-5)
+    else:
+        top = float(plain.float().abs().max())
+        assert float((fwd.float() - plain.float()).abs().max()) <= _ulp(top)
+    qq, kk, vv = (t.clone().requires_grad_(True) for t in (q, k, v))
+    out = fa.flash_attention_train(qq, kk, vv, window=window, round_p=bf)
+    assert torch.equal(out, fwd)
+    out.backward(g)
+    for a, b in zip((qq.grad, kk.grad, vv.grad), got):
+        assert torch.equal(a, b)

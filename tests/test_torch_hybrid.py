@@ -7,7 +7,7 @@ bfloat16 probabilities at float32, against the JAX package, on the CPU.
   ``probs_bf16`` at float32 (p and v rounded to bfloat16, an fp32 product),
   against the JAX functions; ``gqa_decode`` on a ring cache (``write_pos =
   pos % W``, ``valid_len = min(pos + 1, W)``) past the ring's width; a
-  window on a full-length decode cache raises.
+  window on a full-length decode cache (once refused).
 * zamba2-7b's SMOKE config (7 layers, a shared block after every 2 Mamba2
   layers, a tail of 1) through ``params_from_reference``:
   ``forward_full``/``forward_decode`` in float32 with a window (without a
@@ -185,14 +185,22 @@ def test_gqa_decode_on_a_ring_cache_matches_reference():
 
 
 def test_gqa_decode_window_on_a_full_length_cache_raises():
-    """The one case left raising: no config or cell decodes a window
-    against a full-length cache (a windowed cache is a ring)."""
-    _, pt = _gqa_params(np.random.default_rng(43))
-    cos, sin = rope_table(1, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tatt.gqa_decode(pt, torch.zeros((1, 1, 32)), torch.zeros((1, 4, 2, 8)),
-                        torch.zeros((1, 4, 2, 8)), torch.zeros(1, dtype=torch.long),
-                        cos, sin, window=2)
+    """Formerly refused; since the decode kernel takes each row's start, a
+    window on a full-length cache is the reference's: keys (pos − W, pos]
+    (``tests/test_torch_window_decode.py`` holds the engines)."""
+    rng = np.random.default_rng(43)
+    pj, pt = _gqa_params(rng)
+    x = _normal(rng, 2, 1, 32)
+    kc, vc = _normal(rng, 2, 9, 2, 8), _normal(rng, 2, 9, 2, 8)
+    pos = np.array([1, 7], np.int32)
+    cos = np.ones((2, 1, 4), np.float32)
+    sin = np.zeros((2, 1, 4), np.float32)
+    yj, _ = jatt.gqa_decode(pj, jnp.asarray(x), jnp.asarray(kc), jnp.asarray(vc),
+                            jnp.asarray(pos), jnp.asarray(cos), jnp.asarray(sin),
+                            window=2)
+    yt, _ = tatt.gqa_decode(pt, *_t(x, kc, vc), torch.from_numpy(pos),
+                            *_t(cos, sin), window=2)
+    np.testing.assert_allclose(yt.numpy(), np.asarray(yj), **TOL)
 
 
 # ----------------------------------------------------------- the family

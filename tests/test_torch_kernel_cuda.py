@@ -476,10 +476,11 @@ def test_flash_attention_window_and_dh_224_match_plain(card, B, S, H, KV, dh,
 def test_flash_attention_rounds_p_to_bfloat16_at_float32(card, B, S, H, KV, dh,
                                                          window):
     """``round_p=torch.bfloat16`` on float32 (the model's ``probs_bf16``):
-    ``fa_kernel`` rounds each p to bfloat16, against its plain version
-    within one bf16 ulp of the output's largest magnitude (the kernel
-    rounds p against a tile's running maximum, the plain version against
-    the row's)."""
+    ``fa_kernel`` rounds each p to bfloat16 against the row's max, as its
+    plain version does, within float32's 1e-5 of it at dh <= 256; above,
+    where the kernel splits the output columns and rounds against a key
+    tile's running max, within one bf16 ulp of the output's largest
+    magnitude."""
     from repro_torch.kernels.flash_attention import flash_attention_fused
     from repro_torch.kernels.ref import flash_attention_ref
 
@@ -490,6 +491,8 @@ def test_flash_attention_rounds_p_to_bfloat16_at_float32(card, B, S, H, KV, dh,
     want = flash_attention_ref(q, k, v, window=window, round_p=torch.bfloat16)
     fp32 = flash_attention_ref(q, k, v, window=window)
     torch.cuda.synchronize()
+    if dh <= 256:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     mag = float(want.abs().max())
     assert float((got - want).abs().max()) <= 2.0 ** (np.floor(np.log2(mag)) - 7)
     assert not torch.equal(got, flash_attention_fused(q, k, v, window=window,
@@ -608,6 +611,70 @@ def test_decode_attention_on_a_ring_cache(card, dtype):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(captured, eager)
+
+
+WINDOW_LENS = [1, 255, 256, 257, 2048, 1000, 33, 2047]
+
+
+@pytest.mark.parametrize("window", [256, 1024])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,KV,dh", [(16, 2, 128), (32, 32, 224)],
+                         ids=["qwen", "zamba2"])
+def test_decode_attention_with_a_window(card, H, KV, dh, dtype, window):
+    """A window on a full-length cache (S 2,048): starts max(0, len - W)
+    on the card, lengths 1, W - 1, W, W + 1 and S; the windowed grid
+    (ceil(W / chunk) + 1 splits) within the attention limits of the plain
+    version, no synchronisation, two calls and a CUDA graph's replay
+    bitwise equal; and a piece of a sequence split over ranks (local
+    starts, one piece wholly below its start) with ``return_lse``."""
+    from repro_torch.kernels.decode_attention import decode_attention, plan_decode
+    from repro_torch.kernels.ref import decode_attention_ref
+
+    dt = getattr(torch, dtype)
+    B, S = 8, 2048
+    assert plan_decode(B, KV, H // KV, S, dh, dt, window=window).windowed
+    q = _randn(card, B, H, dh, dtype=dt, seed=61)
+    k = _randn(card, B, S, KV, dh, dtype=dt, seed=62)
+    v = _randn(card, B, S, KV, dh, dtype=dt, seed=63)
+    lens = torch.tensor(WINDOW_LENS, dtype=torch.int32, device=card)
+    starts = (lens - window).clamp(min=0)
+    kw = dict(cache_start=starts, window=window, round_p=False)
+    decode_attention(q, k, v, lens, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager = decode_attention(q, k, v, lens, **kw)
+        again = decode_attention(q, k, v, lens, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _attn_close(eager, decode_attention_ref(q, k, v, lens, **kw))
+    assert torch.equal(eager, again)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream(card)
+    side.wait_stream(torch.cuda.current_stream(card))
+    with torch.cuda.stream(side):
+        decode_attention(q, k, v, lens, **kw)
+    torch.cuda.current_stream(card).wait_stream(side)
+    with torch.cuda.graph(graph):
+        captured = decode_attention(q, k, v, lens, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+    Sl = S // 4                                   # rank 1 of 4 over the sequence
+    pl, ps = (lens - Sl).clamp(0, Sl), (starts - Sl).clamp(0, Sl)
+    out, lse = decode_attention(q, k[:, Sl:2 * Sl], v[:, Sl:2 * Sl], pl,
+                                cache_start=ps, window=window, round_p=False,
+                                return_lse=True)
+    wout, wlse = decode_attention_ref(q, k[:, Sl:2 * Sl], v[:, Sl:2 * Sl],
+                                      pl, cache_start=ps, window=window,
+                                      return_lse=True)
+    torch.cuda.synchronize()
+    empty = (ps >= pl).cpu()
+    assert bool(empty.any()) and not bool(empty.all())
+    assert bool((lse.cpu()[empty] == -torch.inf).all())
+    _attn_close(out, wout)
+    torch.testing.assert_close(lse[~empty.to(card)], wlse[~empty.to(card)],
+                               rtol=1e-5, atol=1e-5)
 
 
 def test_decode_attention_reads_a_layer_of_the_stacked_cache(card):
