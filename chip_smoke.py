@@ -241,16 +241,33 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               plain version, then 3 AdamW steps of each, losses within
               ``LM_TRAIN_LOSS_RTOL``.  The backward with p rounded to
               bfloat16 (``round_p``, the model's ``attn_probs_bf16``) on
-              the CUDA-core pair at qwen2.5-3b's, MLA's and zamba2's heads,
-              S 1,024, both dtypes (v rounded to bfloat16 as the model
-              rounds it), against the plain version's gradient (the row
-              max attached): float32 within ``FLASH_BWD_ROUNDED_REL`` of
-              each gradient's largest, which the fp32-p backward, run
-              beside it as a control, must fail; bfloat16 within
-              ``FLASH_BWD_BF16_ULPS`` bf16 ulps; two
-              calls bitwise equal, counted as ``flash_attention_bwd``, and
-              read against the reference's several-chunk function
-              (kv_chunk 256); then the float32 twin again with
+              the route it takes (bfloat16: the tensor cores, counted as
+              ``flash_attention_bwd_wgmma``, each case forced onto the
+              CUDA-core pair beside it, ``route="simt"``; float32: the
+              CUDA-core pair, counted as ``flash_attention_bwd``)
+              at qwen2.5-3b's, MLA's and zamba2's heads, S 1,024, both
+              dtypes, and at qwen2.5-3b's at S 4,096 in bfloat16 (the
+              36-layer run's shape; v rounded to bfloat16 as the model
+              rounds it), as the cases above (``bwd_case``), against the
+              plain version's gradient (the row max attached): float32
+              within ``FLASH_BWD_ROUNDED_REL`` of each gradient's largest,
+              bfloat16 within ``FLASH_BWD_BF16_ULPS`` bf16 ulps, and both,
+              over the whole tensor, nearer the rounded gradient than the
+              fp32-p or detached-max one (``FLASH_BWD_FAULT_SHARE``),
+              where the fp32-p backward, run beside each case as a
+              control, must fail them; two calls bitwise equal; the float32
+              call read against the reference's several-chunk function
+              (kv_chunk 256); the forward (both kernels round p against
+              the row's max) within phase 6's limits, and in bfloat16
+              bitwise on ``FLASH_ROW_MAX_BITWISE`` of its outputs, which
+              the key tile's running max must fail; at the same heads
+              on one-hot attention, where dq and dk are each row's argmax
+              share (so they show that the dkdv kernels' S^T equals the dq
+              kernel's max bitwise), within ``FLASH_BWD_ARGMAX_REL`` of the
+              shares' largest; the bfloat16 forward on scores that rise
+              along the keys at S 1,024 and 4,096, causal and full,
+              against the same bitwise limit and control; then the
+              float32 twin again with
               ``attn_probs_bf16`` (``flash_attention`` forward with p
               rounded against the row's max, ``flash_attention_bwd``
               backward): losses within ``LM_TRAIN_LOSS_RTOL``, first
@@ -287,7 +304,13 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               (reduced from 256 in 4): one warm-up step and 3 timed steps,
               each's loss (finite), grad norm, seconds, tokens/s, peak
               memory, launches; one more step in a profiler trace for the
-              flash backward's and forward's share of device time.  Resume:
+              flash backward's and forward's share of device time.  The
+              same run again with ``attn_probs_bf16`` (p rounded to
+              bfloat16 in P.V, ``LM_TRAIN_PROBS_STEPS``: one warm-up step
+              and 2 timed, one traced): finite losses, the rounded-p
+              backward on the tensor cores (``flash_attention_bwd_wgmma``
+              = layers x microbatches a step, ``flash_attention_bwd``
+              none), seconds a step and tokens/s beside the fp32-p run.  Resume:
               ``launch.train.run_training`` on the 4-layer float32 copy (B
               1, S 512), 4 steps straight against 2 steps, a checkpoint and
               2 resumed steps: every master and moment bitwise equal.  In
@@ -471,8 +494,9 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               the kernels issue, as ``fbt_query`` states them, and the
               plan's shared memory checked against the kernels'; the
               kernels line's ``flash_attention_bwd`` is zamba2's float32
-              at S 1,024 on ``route="simt"``; its model path is training with
-              ``attn_probs_bf16``, timed beside it as ``rounded``);
+              at S 1,024 on ``route="simt"``; its model path is float32
+              training with ``attn_probs_bf16``, timed beside it as
+              ``rounded``);
               internvl2's G 6 forward at S
               4,096 beside masked SDPA; decode attention at qwen2.5-3b's
               served shape with the log-sum-exp output, and in bfloat16
@@ -480,8 +504,17 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               and with a window of 256 on the full-length cache beside
               SDPA with the window's mask (the bound reads the window's
               keys); the backward with p rounded to bfloat16 at qwen's
-              heads, S 4,096 and 1,024, beside its plain version (no
-              PyTorch call rounds p: no library time);
+              heads, S 4,096 and 1,024 (bfloat16: on the tensor cores and
+              forced onto the CUDA cores) and 1,024 (float32: the CUDA
+              cores), beside the tensor cores' fp32-p call and its plain
+              version (no PyTorch call
+              rounds p: no library time), and the bfloat16 forward with p
+              rounded against the row's max beside the key tile's running
+              max at S 1,024, and alone at the 36-layer run's S; the
+              kernels line's ``flash_attention_bwd_wgmma_rounded`` and
+              ``flash_attention_wgmma_row_max`` (launches: the 36-layer
+              ``attn_probs_bf16`` run's; times and max abs errors at its
+              shape, S 4,096);
               the
               ``kernels`` JSON line (the forward flash kernels' launches
               are the served paths', their training launches beside them,
@@ -632,8 +665,31 @@ FLASH_BWD_BF16_ULPS = 2
 # largest) and the rounded gradient with the row max detached (2.3e-3 to
 # 8.5e-3; tests/test_torch_probs_bf16.py::test_rounded_limit_sees_both_faults).
 # The fp32-p backward runs beside each float32 case as a control that must
-# fail it.  bfloat16: FLASH_BWD_BF16_ULPS bf16 ulps.
+# fail it.  bfloat16: FLASH_BWD_BF16_ULPS bf16 ulps.  Float32 runs on fb_*
+# (whose sums follow the plain version's order): the tensor cores'
+# fp16-term arithmetic read 2.1e-3 at MLA's heads (PERF.md §6).
 FLASH_BWD_ROUNDED_REL = 1e-3
+# ... and in either dtype over the whole tensor, where a bfloat16 gradient's
+# FLASH_BWD_BF16_ULPS hide both faults: each gradient's share of the way
+# from the plain rounded gradient towards each fault (fp32 p, the detached
+# max; profile_kernels.fault_shares) at most FLASH_BWD_FAULT_SHARE, so nearer
+# the rounded gradient than the fault's.  A share is read where the output's
+# own rounding moves it by at most FLASH_BWD_FAULT_NOISE, and each case reads
+# every fault in one gradient at least; the fp32-p backward, run beside each
+# case as the control, must exceed it.
+FLASH_BWD_FAULT_SHARE, FLASH_BWD_FAULT_NOISE = 0.5, 0.1
+# One-hot attention (profile_kernels.argmax_inputs): the rounded-p gradient's
+# dq and dk are 0 up to fp32 rounding, and without a row's argmax share they
+# are its size; held within FLASH_BWD_ARGMAX_REL of the largest that the
+# detached max gives them (the shares alone)
+FLASH_BWD_ARGMAX_REL = 1e-3
+# The bfloat16 forward rounding p against the row's max: at least
+# FLASH_ROW_MAX_BITWISE of its outputs bitwise the plain version's, which the
+# key tile's running max (round_p=True on the same inputs, the kernel it
+# replaced) must fail.  Read on the card (PERF.md §6): the row's max
+# 0.9525 to 0.9969 (the least on scores rising along 4,096 keys, full), the
+# tile's 0.6008 to 0.8876 (the most on rising scores, 1,024 keys, full)
+FLASH_ROW_MAX_BITWISE = 0.92
 FLASH_BWD_LSE_REL = 1e-5
 FLASH_BWD_S = 1024
 # The float32 backward's peaked-score cases: q and k this many times larger
@@ -679,6 +735,10 @@ LM_TRAIN_MOE = ("olmoe-1b-7b", 2, 2)
 LM_TRAIN_FULL_S, LM_TRAIN_FULL_S_OOM = 4096, 2048
 LM_TRAIN_FULL_BATCH, LM_TRAIN_FULL_MB = 2, 2
 LM_TRAIN_FULL_STEPS, LM_TRAIN_FULL_WARM = 3, 1
+# ... and again with attn_probs_bf16 (p rounded to bfloat16 in P.V: the
+# row-max forward and the rounded-p backward on the tensor cores), one
+# warm-up step and two steps, beside the run with p in fp32
+LM_TRAIN_PROBS_STEPS, LM_TRAIN_PROBS_WARM = 2, 1
 # the bf16 families whose heads need the tensor-core backward's DHP 256
 # or whole-token row tiles, at every width: (arch, layers, S, S should S
 # not fit the card).
@@ -2191,6 +2251,23 @@ def bwd_cases() -> list[tuple[int, int, int, int, int, bool, bool, bool]]:
                for H, KV, dh in ((128, 128, 192), SHARED_HEADS, G6_HEADS)])
 
 
+# The heads of phase 10's rounded-p cases: qwen2.5-3b's, deepseek-v2's MLA
+# (v zero-padded from 128 to 192) and zamba2-7b's shared block
+ROUNDED_HEADS = ((16, 2, 128), (128, 128, 192), SHARED_HEADS)
+
+
+def rounded_cases() -> list[tuple]:
+    """(dtype, S, H, KV, dh) of phase 10's backward with p rounded to
+    bfloat16: ``ROUNDED_HEADS`` at ``FLASH_BWD_S`` in float32 and bfloat16,
+    and qwen2.5-3b's at ``LM_TRAIN_FULL_S`` in bfloat16, the shape of the
+    36-layer run with ``attn_probs_bf16``."""
+    import torch
+
+    return ([(dt, FLASH_BWD_S, *heads) for dt in (torch.float32, torch.bfloat16)
+             for heads in ROUNDED_HEADS]
+            + [(torch.bfloat16, LM_TRAIN_FULL_S, 16, 2, 128)])
+
+
 def train_phase(dev) -> tuple[dict, dict, dict]:
     """Phase lm-train (see the module docstring).  Returns (record, checks of
     the backward kernels by route, launches over the training runs by
@@ -2199,6 +2276,7 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
     import shutil
     import tempfile
 
+    import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2211,14 +2289,17 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
                                                      flash_route)
     from repro_torch.kernels.ref import (flash_attention_bwd_ref,
                                          flash_attention_ref)
-    from repro_torch.launch.profile_kernels import exact_flash_bwd
+    from repro_torch.launch.profile_kernels import (argmax_inputs, exact_flash_bwd,
+                                                    fault_shares,
+                                                    rounded_bwd_faults)
     from repro_torch.launch.train import run_training
+    from repro_torch.models.attention import flash_attention as streaming
     from repro_torch.models.layers import ProductF32
     from repro_torch.models.transformer import Transformer, _flatten, _leaves, lm_loss
     from repro_torch.train.optim import OptConfig
     from repro_torch.train.train_loop import init_state, make_train_step
 
-    rec: dict = {"bwd_cases": [], "bwd_peaked": []}
+    rec: dict = {"bwd_cases": [], "bwd_peaked": [], "fwd_row_max": []}
     counted = ("flash_attention", "flash_attention_wgmma", "flash_attention_bwd",
                "flash_attention_bwd_wgmma")
     launches = dict.fromkeys(counted, 0)
@@ -2255,8 +2336,9 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
                 else "flash_attention")
 
     def bwd_kernel(cfg) -> str:
+        rp = torch.bfloat16 if cfg.attn_probs_bf16 else False
         return ("flash_attention_bwd_wgmma"
-                if flash_bwd_route(*probe(cfg)) == "wgmma"
+                if flash_bwd_route(*probe(cfg), rp) == "wgmma"
                 else "flash_attention_bwd")
 
     def batches(cfg, batch, S, n):
@@ -2270,80 +2352,245 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
         return float(loss.detach()), torch.autograd.grad(loss, weights)
 
     # 1. the backward kernels against their plain version, and the training
-    # forward (p in fp32) against its own on the same inputs; each case on
-    # the route flash_bwd_route picks (every head shape on the tensor cores),
-    # counted, and a second call bitwise equal to the first; a float32 case
-    # also on route="simt"
-    def bwd_case(dt, S, H, KV, dh, w, mla, causal, peak=1.0):
+    # forward against its own on the same inputs; each case on the route
+    # flash_bwd_route picks, counted, and a second call bitwise equal to the
+    # first; a float32 case the tensor cores take, and every rounded-p case
+    # they take, also forced onto the CUDA cores (route="simt").  With
+    # round_p (p rounded to bfloat16, attn_probs_bf16; v rounded to bfloat16
+    # as the model rounds it) against the plain version's rounded gradient
+    # (the row max attached): float32 within FLASH_BWD_ROUNDED_REL of each
+    # gradient's largest, bfloat16 within FLASH_BWD_BF16_ULPS bf16 ulps, and
+    # both within FLASH_BWD_FAULT_SHARE of it towards each fault, with the
+    # fp32-p backward as the control that must fail both; the forward
+    # (rounding against the row's max on either kernel) at phase 6's limits,
+    # and bfloat16 also bitwise on FLASH_ROW_MAX_BITWISE of its outputs
+    def bwd_case(dt, S, H, KV, dh, w, mla, causal, peak=1.0, round_p=False):
+        bf = torch.bfloat16
+        rp = bf if round_p else False
         g = torch.Generator(device=dev).manual_seed(
-            H * 1000 + dh + w + S + (not causal))
+            H * 1000 + dh + (7 if round_p else w + S + (not causal)))
         q, go = (torch.randn((1, S, H, dh), generator=g, device=dev).to(dt)
                  for _ in range(2))
         k, v = (torch.randn((1, S, KV, dh), generator=g, device=dev).to(dt)
                 for _ in range(2))
+        if round_p:
+            v = v.to(bf).to(dt)
         if peak != 1.0:
             q, k = q * peak, k * peak
         if mla:                 # v and out's gradient past 128 are zeros
             v[..., 128:] = 0
             go[..., 128:] = 0
-        fwd_ok, fwd_err, fwd_lim = attn_compare(
-            flash_attention_fused(q, k, v, causal=causal, window=w,
-                                  round_p=False),
-            flash_attention_ref(q, k, v, causal=causal, window=w,
-                                round_p=False))
-        route = flash_bwd_route(q, k, v)
-        if route != "wgmma":            # every served head, both dtypes
-            raise AssertionError(f"H={H} KV={KV} dh={dh} S={S} {dt} "
-                                 f"takes the {route} backward")
-        want = flash_attention_bwd_ref(q, k, v, go, causal=causal,
-                                       window=w)
         label = (f"{str(dt)[6:]} B=1 S={S} H={H} KV={KV} dh={dh}"
                  + ("" if causal else " full")
                  + (f" window {w}" if w else "")
                  + (" mla v 128->192" if mla else "")
-                 + (f" q, k x{peak:g}" if peak != 1.0 else ""))
-        # the route flash_bwd_route picks; a float32 call it gives
-        # the tensor cores also forced onto the CUDA cores
-        for r in (route, "simt") if (dt == torch.float32 and route == "wgmma"
-                                     and peak == 1.0) else (route,):
+                 + (f" q, k x{peak:g}" if peak != 1.0 else "")
+                 + (" p rounded to bfloat16" if round_p else ""))
+        fwd = flash_attention_fused(q, k, v, causal=causal, window=w, round_p=rp)
+        plain = flash_attention_ref(q, k, v, causal=causal, window=w, round_p=rp)
+        fwd_ok, fwd_err, fwd_lim = attn_compare(fwd, plain)
+        if round_p and dt == bf:
+            # the control: the key tile's running max on the same inputs
+            tiles = flash_attention_fused(q, k, v, causal=causal, window=w,
+                                          round_p=True)
+            same, same_t = (float((x == plain).float().mean()) for x in (fwd, tiles))
+            fwd_ok = fwd_ok and same >= FLASH_ROW_MAX_BITWISE > same_t
+            rec["fwd_row_max"].append(dict(case=label, S=S, err=fwd_err,
+                                           limit=fwd_lim, bitwise=same,
+                                           tile_max_bitwise=same_t, ok=fwd_ok))
+            print(f"  flash_attention_fused {label} (the row's max): max abs err "
+                  f"{fwd_err:.3g} (limit {fwd_lim:.3g}), {same:.4f} of the "
+                  f"outputs bitwise the plain version's; the key tile's running "
+                  f"max {same_t:.4f} (at least {FLASH_ROW_MAX_BITWISE} and below "
+                  "it)", flush=True)
+            del tiles
+        del fwd, plain
+        route = flash_bwd_route(q, k, v, rp)
+        # every served head on the tensor cores, both dtypes, but float32
+        # with p rounded (fb_*, csrc/flash_attention.cu point 6)
+        if route != ("simt" if round_p and dt == torch.float32 else "wgmma"):
+            raise AssertionError(f"{label} takes the {route} backward")
+        want = flash_attention_bwd_ref(q, k, v, go, causal=causal, window=w,
+                                       round_p=rp)
+        control = None
+        if round_p:
+            rounded, faults = rounded_bwd_faults(q, k, v, go, causal, w)
+            # each fault read (the output's rounding moves its share by at
+            # most FLASH_BWD_FAULT_NOISE) in one gradient at least
+            unread = [f for f, s in fault_shares(want[:3], rounded, faults).items()
+                      if not any(x and x[1] <= FLASH_BWD_FAULT_NOISE
+                                 for x in s.values())]
+            if unread:
+                raise AssertionError(f"{label}: the faults {unread} are not read")
+            # the control: the fp32-p backward fails the limits
+            fp32 = flash_attention_bwd(q, k, v, go, causal=causal, window=w)[:3]
+            control = dict(shares=fault_shares(fp32, rounded, faults), rel={
+                n: float((a.float() - b.float()).abs().max() / b.float().abs().max())
+                for n, a, b in zip(("dq", "dk", "dv"), fp32, want)})
+            del fp32
+
+        def check(got, forced):
+            if not round_p:
+                return fwd_ok, {}, ""
+            shares = fault_shares(got[:3], rounded, faults)
+            ok = fwd_ok and not fault_seen(shares) and fault_seen(
+                control["shares"]) and (dt == bf or max(
+                    control["rel"].values()) > FLASH_BWD_ROUNDED_REL)
+            chunked = None
+            if (H, KV, dh, S) == (16, 2, 128, FLASH_BWD_S) and not forced \
+                    and dt == torch.float32:
+                # the reference's function at kv_chunk 256 < S: p rounded
+                # against each chunk's running max (a reading; its dv is
+                # rounded to bfloat16 by the cast of v, as the model's
+                # _bf16_v rounds the kernel's)
+                qq, kk, vv = (t.clone().requires_grad_(True) for t in (q, k, v))
+                out = streaming(qq, kk, vv, kv_chunk=256, probs_bf16=True)
+                chunk_g = torch.autograd.grad(out, (qq, kk, vv), go)
+                mine = (got[0], got[1], got[2].bfloat16().float())
+                chunked = {n: float((a - c).abs().max()) / float(c.abs().max())
+                           for n, a, c in zip(("dq", "dk", "dv"), mine, chunk_g)}
+                del qq, kk, vv, out, chunk_g
+            text = (f"; towards each fault (at most {FLASH_BWD_FAULT_SHARE}): "
+                    + shares_text(shares) + "; the fp32-p control: "
+                    + shares_text(control["shares"]) + ", " + ", ".join(
+                        f"{n} {x:.3g}" for n, x in control["rel"].items())
+                    + " of each largest")
+            if chunked is not None:
+                text += ("; against kv_chunk 256 (the reference's several-chunk "
+                         "function, read): " + ", ".join(
+                             f"{n} {x:.3g} of its largest" for n, x in chunked.items()))
+            return ok, dict(fault_shares=shares, fp32_p_control=control,
+                            kv_chunk_256=chunked), text
+
+        # the route flash_bwd_route picks; a float32 call or a rounded-p
+        # call it gives the tensor cores also forced onto the CUDA cores
+        held(label, route, (dt == torch.float32 or round_p) and route == "wgmma"
+             and peak == 1.0,
+             lambda forced: flash_attention_bwd(q, k, v, go, causal=causal, window=w,
+                                                round_p=rp, route=forced),
+             want, lambda name, top: (
+                 FLASH_BWD_LSE_REL * max(top, 1.0) if name == "lse"
+                 else FLASH_BWD_BF16_ULPS * ulp(top) if dt == bf
+                 else (FLASH_BWD_ROUNDED_REL if round_p else FLASH_BWD_F32_REL) * top),
+             check, dict(rounded=round_p), {"out": (fwd_err, fwd_lim)})
+        del q, k, v, go, want
+
+    def held(label, route, also_simt, call, want, limit, check=None, info=None,
+             first=None):
+        """The backward ``call(forced)`` on ``route`` (and with ``also_simt``
+        forced onto the CUDA cores, ``forced="simt"``): two calls, counted
+        and bitwise equal, dq, dk, dv and lse each within ``limit(name,
+        its largest)`` of ``want``, and ``check(got, forced)`` -> (ok,
+        record, text) where given; ``first``: readings {name: (err,
+        limit)} printed ahead.  Records each route in ``rec["bwd_cases"]``
+        with ``info``; raises on a failed one."""
+        for r in (route, "simt") if also_simt else (route,):
             kernel = ("flash_attention_bwd_wgmma" if r == "wgmma"
                       else "flash_attention_bwd")
             forced = "simt" if r != route else None
             reset()
-            got = flash_attention_bwd(q, k, v, go, causal=causal,
-                                      window=w, route=forced)
-            again = flash_attention_bwd(q, k, v, go, causal=causal,
-                                        window=w, route=forced)
-            take(f"backward {r} S={S} H={H} KV={KV} dh={dh}", {kernel: 2},
-                 quiet=True)
-            torch.cuda.synchronize()
-            errs, lims = {"out": fwd_err}, {"out": fwd_lim}
+            got, again = call(forced), call(forced)
+            take(f"backward {r} {label}", {kernel: 2}, quiet=True)
             same = all(torch.equal(a, c) for a, c in zip(got, again))
+            errs = {n: x[0] for n, x in (first or {}).items()}
+            lims = {n: x[1] for n, x in (first or {}).items()}
             for name, a, b in zip(("dq", "dk", "dv", "lse"), got, want):
-                top = float(b.float().abs().max())
-                lims[name] = (FLASH_BWD_LSE_REL * max(top, 1.0)
-                              if name == "lse"
-                              else FLASH_BWD_F32_REL * top
-                              if dt == torch.float32
-                              else FLASH_BWD_BF16_ULPS * ulp(top))
+                lims[name] = limit(name, float(b.float().abs().max()))
                 errs[name] = float((a.float() - b.float()).abs().max())
-            ok = fwd_ok and same and all(errs[n] <= lims[n]
-                                         for n in errs if n != "out")
-            rec["bwd_cases"].append(dict(case=label, route=r, errs=errs,
-                                         limits=lims, bitwise=same, ok=ok,
-                                         forced=forced is not None))
+            ok, more, text = check(got, forced) if check else (True, {}, "")
+            ok = ok and same and all(errs[n] <= lims[n] for n in errs
+                                     if n not in (first or {}))
+            rec["bwd_cases"].append(dict(case=label, route=r, errs=errs, limits=lims,
+                                         bitwise=same, ok=ok,
+                                         forced=forced is not None,
+                                         **(info or {}), **more))
             print(f"  flash_attention_bwd {label} ({r}"
                   + (", forced" if forced else "") + "): max abs err "
                   + ", ".join(f"{n} {errs[n]:.3g} (limit {lims[n]:.3g})"
                               for n in errs)
-                  + ("; two calls bitwise equal" if same
-                     else "; TWO CALLS DIFFER"), flush=True)
+                  + ("; two calls bitwise equal" if same else "; TWO CALLS DIFFER")
+                  + text, flush=True)
             if not ok:
-                raise AssertionError(f"flash_attention_bwd {label} ({r}): "
-                                     f"{errs} over the limits {lims}, or "
-                                     f"two calls differ ({not same})")
+                raise AssertionError(f"flash_attention_bwd {label} ({r}): {errs} "
+                                     f"over the limits {lims}, two calls differ "
+                                     f"({not same}), or its own check failed: "
+                                     f"{more}")
             del got, again
+
+    def fault_seen(shares) -> bool:
+        """A gradient read that lies nearer a fault than the rounded one."""
+        return any(x and x[1] <= FLASH_BWD_FAULT_NOISE and x[0] > FLASH_BWD_FAULT_SHARE
+                   for s in shares.values() for x in s.values())
+
+    def shares_text(shares) -> str:
+        return "; ".join(f"{f} " + ", ".join(
+            f"{n} {x[0]:.3f}" + (" (unread)" if x[1] > FLASH_BWD_FAULT_NOISE else "")
+            for n, x in s.items() if x) for f, s in shares.items())
+
+    # p rounded to bfloat16 on one-hot attention (argmax_inputs): where
+    # every row's share is the whole of dq and dk, so that they show that
+    # each kernel found the row's max where its scores equal it bitwise
+    # (S = q.k^T in the dq kernel's passes, S^T = k.q^T in the dkdv
+    # kernels); dq and dk within FLASH_BWD_ARGMAX_REL of the detached max's
+    # largest, dv and lse at bwd_case's limits; each route as bwd_case's
+    def argmax_case(dt, H, KV, dh):
+        S, bf = FLASH_BWD_S, torch.bfloat16
+        q, k, v, go = argmax_inputs(S, H, KV, dh, dt, dev, seed=H + dh,
+                                    dhv=128 if dh == 192 else None)
+        label = (f"{str(dt)[6:]} B=1 S={S} H={H} KV={KV} dh={dh} one-hot "
+                 "p rounded to bfloat16")
+        route = flash_bwd_route(q, k, v, bf)
+        if route != ("simt" if dt == torch.float32 else "wgmma"):
+            raise AssertionError(f"{label} takes the {route} backward")
+        want = flash_attention_bwd_ref(q, k, v, go, round_p=bf)
+        size = dict(zip(("dq", "dk"), (float(t.abs().max()) for t in rounded_bwd_faults(
+            q, k, v, go)[1]["detached max"][:2])))
+        held(label, route, route == "wgmma",
+             lambda forced: flash_attention_bwd(q, k, v, go, round_p=bf, route=forced),
+             want, lambda name, top: (
+                 FLASH_BWD_ARGMAX_REL * size[name] if name in size
+                 else FLASH_BWD_LSE_REL * max(top, 1.0) if name == "lse"
+                 else FLASH_BWD_BF16_ULPS * ulp(top) if dt == bf
+                 else FLASH_BWD_ROUNDED_REL * top),
+             lambda got, forced: (True, {}, "; without the shares " + ", ".join(
+                 f"{n} {x:.3g}" for n, x in size.items())),
+             dict(rounded=True, one_hot=True, share_size=size))
         del q, k, v, go, want
+
+    # the bfloat16 forward with p rounded against the row's max on scores
+    # that rise along the keys (a row's running max moves in every key
+    # tile), qwen2.5-3b's heads: within one bf16 ulp of the plain version
+    # and bitwise on FLASH_ROW_MAX_BITWISE of the outputs, which the key
+    # tile's running max (round_p=True on the same inputs) must fail
+    def row_max_case(S, causal):
+        rng = np.random.default_rng(5)
+        u = rng.standard_normal(128).astype(np.float32)
+        q = (u + 0.3 * rng.standard_normal((1, S, 16, 128))).astype(np.float32)
+        k = (np.linspace(0, 4, S, dtype=np.float32)[None, :, None, None] * u
+             + 0.3 * rng.standard_normal((1, S, 2, 128))).astype(np.float32)
+        v = rng.standard_normal((1, S, 2, 128)).astype(np.float32)
+        q, k, v = (torch.from_numpy(a).to(dev, torch.bfloat16) for a in (q, k, v))
+        label = (f"bfloat16 B=1 S={S} H=16 KV=2 dh=128" + ("" if causal else " full")
+                 + " scores rising along the keys")
+        plain = flash_attention_ref(q, k, v, causal=causal, round_p=torch.bfloat16)
+        reset()
+        rows_ = flash_attention_fused(q, k, v, causal=causal, round_p=torch.bfloat16)
+        tiles = flash_attention_fused(q, k, v, causal=causal, round_p=True)
+        take(f"forward {label}", {"flash_attention_wgmma": 2}, quiet=True)
+        ok, err, lim = attn_compare(rows_, plain)
+        same, same_t = (float((x == plain).float().mean()) for x in (rows_, tiles))
+        ok = ok and same >= FLASH_ROW_MAX_BITWISE > same_t
+        rec["fwd_row_max"].append(dict(case=label, S=S, err=err, limit=lim,
+                                       bitwise=same, tile_max_bitwise=same_t,
+                                       ok=ok))
+        print(f"  flash_attention_fused {label} (the row's max): max abs err "
+              f"{err:.3g} (limit {lim:.3g}), {same:.4f} of the outputs bitwise "
+              f"the plain version's; the key tile's running max {same_t:.4f} "
+              f"(must be below {FLASH_ROW_MAX_BITWISE})", flush=True)
+        if not ok:
+            raise AssertionError(f"flash_attention_fused {label}: max abs err "
+                                 f"{err} (limit {lim}), bitwise {same}, the "
+                                 f"tile max's {same_t}")
 
     # q and k FLASH_BWD_PEAKS times larger: held to the exact gradient
     # (float64), at x8 also to the plain version; FLASH_BWD_PEAK_READ read
@@ -2408,18 +2655,35 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
         for H, KV, dh in FLASH_BWD_PEAK_HEADS:
             for peak in FLASH_BWD_PEAKS + (FLASH_BWD_PEAK_READ,):
                 peak_case(H, KV, dh, peak)
+        # p rounded to bfloat16 (attn_probs_bf16) at qwen2.5-3b's, MLA's and
+        # zamba2's heads, S FLASH_BWD_S, both dtypes, and at qwen2.5-3b's
+        # at the 36-layer run's S in bfloat16; one-hot attention at the
+        # same heads; the forward on rising scores at both lengths
+        for dt, S, H, KV, dh in rounded_cases():
+            bwd_case(dt, S, H, KV, dh, 0, dh == 192, True, round_p=True)
+        for dt in (torch.float32, torch.bfloat16):
+            for H, KV, dh in ROUNDED_HEADS:
+                argmax_case(dt, H, KV, dh)
+        for S in (FLASH_BWD_S, LM_TRAIN_FULL_S):
+            for causal in (True, False):
+                row_max_case(S, causal)
         out = {}
         for route, kernel in (("simt", "flash_attention_bwd"),
                               ("wgmma", "flash_attention_bwd_wgmma")):
-            cases = [c for c in rec["bwd_cases"] if c["route"] == route]
+            cases = [c for c in rec["bwd_cases"] if c["route"] == route
+                     and not c["rounded"]]
             out[kernel] = {"cases": len(cases), "max_abs_err": max(
                 max(c["errs"][n] for n in ("dq", "dk", "dv")) for c in cases)}
+        rec["bwd_rounded_max_abs_err"] = {r: max(
+            max(c["errs"][n] for n in ("dq", "dk", "dv"))
+            for c in rec["bwd_cases"] if c["route"] == r and c["rounded"])
+            for r in ("simt", "wgmma")}
         return out
 
     # 2. the float32 twin: kernels against the attention's plain version;
     # with ``probs`` the config's attn_probs_bf16 on (p rounded to bfloat16
-    # in P.V: the CUDA-core backward with the rounding, against autograd
-    # through the plain version with the row max attached)
+    # in P.V: the CUDA-core backward with the rounding, float32's route,
+    # against autograd through the plain version with the row max attached)
     def twin(probs: bool = False):
         L = LM_TRAIN_LAYERS
         cfg = dataclasses.replace(spec.model, n_layers=L, act_dtype="float32",
@@ -2427,9 +2691,9 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
         data = batches(cfg, 2, LM_TRAIN_S, LM_TRAIN_STEPS)
         model, state = init_state(cfg, 0, device=dev)
         paths = [(p, len(ts)) for p, ts in _leaves(model).items()]
-        fk = fwd_kernel(cfg)
-        bk = "flash_attention_bwd" if probs else bwd_kernel(cfg)
-        if not probs and bk != "flash_attention_bwd_wgmma":
+        fk, bk = fwd_kernel(cfg), bwd_kernel(cfg)
+        # p rounded: float32 takes the CUDA-core pair (flash_bwd_route)
+        if bk != ("flash_attention_bwd" if probs else "flash_attention_bwd_wgmma"):
             raise AssertionError(f"the float32 twin takes the {bk} backward")
         reset()
         loss_k, gk = first_grads(model, data[0]["tokens"], False)
@@ -2487,113 +2751,8 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
             loss=loss_k, loss_plain=loss_p, losses=losses[False],
             losses_plain=losses[True], worst_grad=(worst, *grad_errs[worst]))
 
-    # 2b. p rounded to bfloat16 (attn_probs_bf16): the CUDA-core backward
-    # with the rounding against the plain version's gradient (the row max
-    # attached) at qwen2.5-3b's, MLA's and zamba2's heads, S FLASH_BWD_S,
-    # both dtypes, v rounded to bfloat16 as the model rounds it; float32
-    # within FLASH_BWD_ROUNDED_REL of each gradient's largest, with the
-    # fp32-p backward as a control that must fail it; bfloat16 within
-    # FLASH_BWD_BF16_ULPS bf16 ulps of it (exp and the sums' order flip
-    # some roundings of p); lse FLASH_BWD_LSE_REL, two calls bitwise equal;
-    # the forward within phase 6's limits (float32: fa_kernel rounds p
-    # against the row's max, the plain version's function, within 1e-5); a
-    # reading of the reference's several-chunk function (kv_chunk < S), not
-    # gated; then the twin with attn_probs_bf16 (LM_TRAIN_PROBS)
-    def rounded():
-        from repro_torch.models.attention import flash_attention as streaming
-
-        bf = torch.bfloat16
-        errs_all = []
-        for dt in (torch.float32, torch.bfloat16):
-            for H, KV, dh in ((16, 2, 128), (128, 128, 192), SHARED_HEADS):
-                S, mla = FLASH_BWD_S, dh == 192
-                g = torch.Generator(device=dev).manual_seed(H * 1000 + dh + 7)
-                q, go = (torch.randn((1, S, H, dh), generator=g, device=dev).to(dt)
-                         for _ in range(2))
-                k, v = (torch.randn((1, S, KV, dh), generator=g, device=dev).to(dt)
-                        for _ in range(2))
-                v = v.to(bf).to(dt)
-                if mla:
-                    v[..., 128:] = 0
-                    go[..., 128:] = 0
-                if flash_bwd_route(q, k, v, bf) != "simt":
-                    raise AssertionError("a rounded-p backward off the CUDA cores")
-                f32 = dt == torch.float32
-                # the forward: float32 on fa_kernel, p rounded against the
-                # row's max; bfloat16 on the tensor cores, a tile's
-                fwd_ok, fwd_err, fwd_lim = attn_compare(
-                    flash_attention_fused(q, k, v, round_p=bf),
-                    flash_attention_ref(q, k, v, round_p=bf))
-                reset()
-                got = flash_attention_bwd(q, k, v, go, round_p=bf)
-                again = flash_attention_bwd(q, k, v, go, round_p=bf)
-                take(f"rounded-p backward H={H} KV={KV} dh={dh}",
-                     {"flash_attention_bwd": 2}, quiet=True)
-                want = flash_attention_bwd_ref(q, k, v, go, round_p=bf)
-                same = all(torch.equal(a, c) for a, c in zip(got, again))
-                errs, lims = {"out": fwd_err}, {"out": fwd_lim}
-                for name, a, b in zip(("dq", "dk", "dv", "lse"), got, want):
-                    top = float(b.float().abs().max())
-                    lims[name] = (FLASH_BWD_LSE_REL * max(top, 1.0)
-                                  if name == "lse"
-                                  else FLASH_BWD_ROUNDED_REL * top if f32
-                                  else FLASH_BWD_BF16_ULPS * ulp(top))
-                    errs[name] = float((a.float() - b.float()).abs().max())
-                # the control (float32): the fp32-p backward against the
-                # same rounded gradient must fail the limit
-                control = None
-                if f32:
-                    control = {n: float((a - b).abs().max()) / float(b.abs().max())
-                               for n, a, b in zip(
-                                   ("dq", "dk", "dv"),
-                                   flash_attention_bwd(q, k, v, go)[:3], want)}
-                label = (f"{str(dt)[6:]} B=1 S={S} H={H} KV={KV} dh={dh}"
-                         + (" mla v 128->192" if mla else "")
-                         + " p rounded to bfloat16")
-                chunked = None
-                if (H, KV, dh) == (16, 2, 128) and dt == torch.float32:
-                    # the reference's function at kv_chunk 256 < S: p rounded
-                    # against each chunk's running max (a reading)
-                    qq, kk, vv = (t.clone().requires_grad_(True) for t in (q, k, v))
-                    out = streaming(qq, kk, vv, kv_chunk=256, probs_bf16=True)
-                    chunk_g = torch.autograd.grad(out, (qq, kk, vv), go)
-                    # (its dv is rounded to bfloat16 by the cast of v, as
-                    # the model's _bf16_v rounds the kernel's)
-                    mine = (got[0], got[1], got[2].bfloat16().float())
-                    chunked = {n: float((a - c).abs().max()) / float(c.abs().max())
-                               for n, a, c in zip(("dq", "dk", "dv"), mine, chunk_g)}
-                    del qq, kk, vv, out, chunk_g
-                seen = control is None or max(control.values()) > FLASH_BWD_ROUNDED_REL
-                ok = fwd_ok and same and seen and all(
-                    errs[n] <= lims[n] for n in errs if n != "out")
-                rec["bwd_cases"].append(dict(case=label, route="simt", errs=errs,
-                                             limits=lims, bitwise=same, ok=ok,
-                                             forced=False, kv_chunk_256=chunked,
-                                             fp32_p_control=control))
-                errs_all.append(max(errs[n] for n in ("dq", "dk", "dv")))
-                print(f"  flash_attention_bwd {label} (simt): max abs err "
-                      + ", ".join(f"{n} {errs[n]:.3g} (limit {lims[n]:.3g})"
-                                  for n in errs)
-                      + ("; two calls bitwise equal" if same
-                         else "; TWO CALLS DIFFER")
-                      + ("" if control is None else
-                         "; control, the fp32-p backward: " + ", ".join(
-                             f"{n} {x:.3g}" for n, x in control.items())
-                         + f" of each largest (must exceed {FLASH_BWD_ROUNDED_REL})")
-                      + ("" if chunked is None else
-                         "; against kv_chunk 256 (the reference's several-chunk "
-                         "function, read): " + ", ".join(
-                             f"{n} {x:.3g} of its largest"
-                             for n, x in chunked.items())), flush=True)
-                if not ok:
-                    raise AssertionError(f"flash_attention_bwd {label}: {errs} "
-                                         f"over the limits {lims}, or two calls "
-                                         f"differ ({not same}), or the fp32-p "
-                                         f"control {control} within the limit")
-                del q, k, v, go, got, again, want
-        rec["bwd_rounded_max_abs_err"] = max(errs_all)
-        gc.collect()
-        torch.cuda.empty_cache()
+    # 2b. the twin with attn_probs_bf16 (LM_TRAIN_PROBS)
+    def twin_probs():
         twin(probs=True)
 
     # 3. olmoe-1b-7b in bfloat16: the router and the expert bmm's backward
@@ -2751,11 +2910,17 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
                                              act_dtype="float32"),
              LM_TRAIN_F32_WARM, LM_TRAIN_F32_STEPS)
 
+    # 5b. the 36-layer bfloat16 run with attn_probs_bf16: the rounded-p
+    # backward on the tensor cores and the row-max forward on every layer
+    def full_probs():
+        full("full_probs", dataclasses.replace(spec.model, attn_probs_bf16=True),
+             LM_TRAIN_PROBS_WARM, LM_TRAIN_PROBS_STEPS)
+
     def full(key="full", cfg=None, warm=LM_TRAIN_FULL_WARM,
              steps=LM_TRAIN_FULL_STEPS):
         cfg = cfg or spec.model
         L = cfg.n_layers
-        dname = cfg.act_dtype
+        dname = cfg.act_dtype + (" attn_probs_bf16" if cfg.attn_probs_bf16 else "")
         fk, bk = fwd_kernel(cfg), bwd_kernel(cfg)
         if bk != "flash_attention_bwd_wgmma":
             raise AssertionError(f"{cfg.name} {dname} takes the {bk} backward")
@@ -2816,7 +2981,9 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
             state, m = step(state, data[-1])
             torch.cuda.synchronize()
         per = LM_TRAIN_FULL_MB * L
-        take(f"{cfg.name} traced step", {fk: 2 * per, bk: per})
+        got = take(f"{cfg.name} traced step", {fk: 2 * per, bk: per})
+        launched = {n: got[n] + sum(r["launches"][n] for r in full_steps)
+                    for n in got}
         by: dict[str, float] = {}
         for name, us in trace_acts(p)[0]:
             by[name] = by.get(name, 0.0) + us / 1e3
@@ -2838,7 +3005,7 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
             tokens_per_s=statistics.median(r["tokens_per_s"] for r in timed),
             peak_gib=max(r["peak_gib"] for r in full_steps),
             device_ms=total, flash_bwd_ms=bwd, flash_fwd_ms=fwd,
-            top=[(name, ms) for name, ms in top])
+            top=[(name, ms) for name, ms in top], launches=launched)
         r = rec[key]
         print(f"  {cfg.name} x{L} {dname} S={S}: a step {r['seconds']:.3f} s "
               f"(median of {len(timed)}), {r['tokens_per_s']:.0f} tokens/s, "
@@ -2895,8 +3062,8 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
 
     # each part in its own function: its tensors die when it returns
     checks = None
-    for part in (bwd_checks, twin, rounded, moe, families, full_f32, full,
-                 resume):
+    for part in (bwd_checks, twin, twin_probs, moe, families, full_f32, full,
+                 full_probs, resume):
         gc.collect()
         torch.cuda.empty_cache()
         print(f"  {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
@@ -4694,9 +4861,15 @@ def main() -> int:
                     raise AssertionError(f"{dname} {label}: flash_route {route}")
                 kname = ("flash_attention_wgmma" if route == "wgmma"
                          else "flash_attention")
-                for rp in (False, True):
+                # bfloat16 also with attn_probs_bf16's rounding: p against
+                # the row's max (a first pass over the keys)
+                for rp in ((False, True, torch.bfloat16) if dt == torch.bfloat16
+                           else (False, True)):
                     attn_case(kname,
-                              f"{dname} {label} p {'rounded' if rp else 'fp32'}",
+                              f"{dname} {label} p "
+                              + ("rounded against the row's max"
+                                 if rp is torch.bfloat16
+                                 else "rounded" if rp else "fp32"),
                               flash_attention_fused(q, k, v, causal=causal,
                                                     window=w, round_p=rp),
                               flash_attention_ref(q.contiguous(), k.contiguous(),
@@ -5700,7 +5873,7 @@ def main() -> int:
         checks.update(bwd_checks)
     except AssertionError as e:
         return fail("lm-train", str(e))
-    full, f32 = train_rec["full"], train_rec["full_f32"]
+    full, f32, probs = train_rec["full"], train_rec["full_f32"], train_rec["full_probs"]
     n_tc = sum(c["route"] == "wgmma" for c in train_rec["bwd_cases"])
     phase("lm-train", t, f"{len(train_rec['bwd_cases'])} forward and backward "
           f"cases ({n_tc} of them on the tensor-core backward) within "
@@ -5713,7 +5886,7 @@ def main() -> int:
           + "".join(f"{r['config']}: {r['seconds']:.3f} s a step, "
                     f"{r['tokens_per_s']:.0f} tokens/s, peak {r['peak_gib']:.2f} "
                     f"GiB, flash backward {r['flash_bwd_ms'] / r['device_ms']:.1%} "
-                    "of a traced step; " for r in (f32, full))
+                    "of a traced step; " for r in (f32, full, probs))
           + "resume bitwise; launches "
           f"{train_launches}")
 
@@ -5920,16 +6093,38 @@ def main() -> int:
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         kname = ("flash_attention_wgmma" if flash_route(q, k, v) == "wgmma"
                  else "flash_attention")
-        for rp in ((False, True) if dt == torch.bfloat16 else (False,)):
+        # bfloat16: p fp32, rounded against each key tile's running max
+        # (round_p=True) and against the row's max (attn_probs_bf16's
+        # torch.bfloat16: a first pass over the keys)
+        for rp in ((False, True, torch.bfloat16) if dt == torch.bfloat16
+                   else (False,)):
             rows[kname].append(row(
-                kname, f"{dname} B=1 Sq=Sk={S} H=16 KV=2 dh=128 causal "
-                f"p {'rounded' if rp else 'fp32'}",
+                kname, f"{dname} B=1 Sq=Sk={S} H=16 KV=2 dh=128 causal p "
+                + ("rounded to bfloat16 against the row's max"
+                   if rp is torch.bfloat16 else "rounded" if rp else "fp32"),
                 lambda: flash_attention_fused(q, k, v, round_p=rp),
                 lambda: flash_attention_ref(q, k, v, round_p=rp),
                 lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                        is_causal=True,
                                                        enable_gqa=True), 20,
                 flash_work(1, S, S, 16, 2, 128, q.element_size(), True), dname))
+        if dt == torch.bfloat16:
+            # the row's max at the length the 36-layer run trains with
+            # attn_probs_bf16 (the kernels line's row-max entry)
+            Sm = train_rec["full_probs"]["seq_len"]
+            qm = rnd((1, Sm, 16, 128), dt)
+            km, vm = rnd((1, Sm, 2, 128), dt), rnd((1, Sm, 2, 128), dt)
+            qmt, kmt, vmt = (x.transpose(1, 2) for x in (qm, km, vm))
+            rows[kname].append(row(
+                kname, f"{dname} B=1 Sq=Sk={Sm} H=16 KV=2 dh=128 causal p "
+                "rounded to bfloat16 against the row's max",
+                lambda: flash_attention_fused(qm, km, vm, round_p=torch.bfloat16),
+                lambda: flash_attention_ref(qm, km, vm, round_p=torch.bfloat16),
+                lambda: F.scaled_dot_product_attention(qmt, kmt, vmt,
+                                                       is_causal=True,
+                                                       enable_gqa=True), 10,
+                flash_work(1, Sm, Sm, 16, 2, 128, qm.element_size(), True), dname))
+            del qm, km, vm, qmt, kmt, vmt
         B, Sc = LM_MAX_BATCH, LM_MAX_LEN
         qd = rnd((B, 16, 128), dt)
         kc, vc = rnd((B, Sc, 2, 128), dt), rnd((B, Sc, 2, 128), dt)
@@ -6173,11 +6368,14 @@ def main() -> int:
 
     def rounded_row(S, dt):
         """The backward with p rounded to bfloat16 (attn_probs_bf16) at
-        qwen2.5-3b's heads on the CUDA-core pair, beside its plain version;
-        no PyTorch call rounds p, so no library time; the bound is the
-        function's five products (float32: as ``bwd_row`` states it, each
-        as FLASH_BWD_F32_MIN_PRODUCTS 16-bit products at the 16-bit peak,
-        the float32 peak's bound beside it)."""
+        qwen2.5-3b's heads on the route it takes (bfloat16: the tensor
+        cores, and forced onto the CUDA-core pair beside them; float32: the
+        CUDA-core pair), beside the tensor cores' fp32-p call on the same
+        inputs and the plain version; no PyTorch call
+        rounds p, so no library time; the bound is the function's five
+        products (float32: as ``bwd_row`` states it, each as
+        FLASH_BWD_F32_MIN_PRODUCTS 16-bit products at the 16-bit peak, the
+        float32 peak's bound beside it)."""
         gen = torch.Generator(device=dev).manual_seed(S + 3)
         q, go = (torch.randn((1, S, 16, 128), generator=gen, device=dev).to(dt)
                  for _ in range(2))
@@ -6185,7 +6383,13 @@ def main() -> int:
                 for _ in range(2))
         v = v.bfloat16().to(dt)
         bf = torch.bfloat16
-        k_ms = median_ms(lambda: flash_attention_bwd(q, k, v, go, round_p=bf), 5)
+        route = flash_bwd_route(q, k, v, bf)
+        if route != ("simt" if dt == torch.float32 else "wgmma"):
+            raise AssertionError(f"the rounded backward at S={S} {dt}: {route}")
+        k_ms = {r: median_ms(lambda r=r: flash_attention_bwd(
+            q, k, v, go, round_p=bf, route=r), 5)
+            for r in ((None, "simt") if route == "wgmma" else (None,))}
+        fp32_ms = median_ms(lambda: flash_attention_bwd(q, k, v, go), 5)
         p_ms = median_ms(lambda: flash_attention_bwd_ref(q, k, v, go, round_p=bf), 3)
         nbytes, ops = flash_bwd_work(1, S, 16, 2, 128, q.element_size())
         b_ms, b_by = work_bound(nbytes, ops, str(dt)[6:])
@@ -6196,18 +6400,22 @@ def main() -> int:
                                     "bfloat16")
         shape = (f"{str(dt)[6:]} B=1 S={S} H=16 KV=2 dh=128 causal p rounded "
                  "to bfloat16")
-        print(f"  flash_attention_bwd {shape}: simt kernels {k_ms:.5f} ms a call "
-              f"(events), plain {p_ms:.5f} ms, no library call, bound "
-              f"{b_ms:.7f} ms ({b_by})"
+        print(f"  flash_attention_bwd {shape}: {route} kernels {k_ms[None]:.5f} ms "
+              "a call" + (f", simt kernels {k_ms['simt']:.5f} ms" if "simt" in k_ms
+                          else "") + f" (events); p in fp32 on the tensor cores "
+              f"{fp32_ms:.5f} ms; plain {p_ms:.5f} ms, no "
+              f"library call, bound {b_ms:.7f} ms ({b_by})"
               + ("" if f32_ms is None else
                  f"; at the float32 peak {f32_ms:.7f} ms"), flush=True)
-        return dict(shape=shape, ms=k_ms, timer="events", call_ms=k_ms,
-                    plain_ms=p_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        return dict(shape=shape, route=route, ms=k_ms[None], timer="events",
+                    call_ms=k_ms[None], simt_ms=k_ms.get("simt", k_ms[None]),
+                    fp32_p_ms=fp32_ms, plain_ms=p_ms,
+                    library_ms=None, bound_ms=b_ms, bound_by=b_by,
                     fp32_bound_ms=f32_ms)
 
     try:
         rows["flash_attention_bwd_rounded"] = [
-            rounded_row(S, dt) for S, dt in ((full["seq_len"], torch.bfloat16),
+            rounded_row(S, dt) for S, dt in ((probs["seq_len"], torch.bfloat16),
                                              (FLASH_BWD_S, torch.bfloat16),
                                              (FLASH_BWD_S, torch.float32))]
         for S in (full["seq_len"], FLASH_BWD_S):
@@ -6319,17 +6527,52 @@ def main() -> int:
             "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
             "library_ms": h["library_ms"], "shape": h["shape"],
             "cases": rows[name]})
-    # the CUDA-core backward's model path is training with attn_probs_bf16
-    # (p rounded, timed as "rounded"); otherwise route="simt"
+    # the CUDA-core backward's model path is float32 training with
+    # attn_probs_bf16 (p rounded, timed as "rounded"); otherwise route="simt"
     # and the calls the tensor cores refuse (phase 10 holds it on every
-    # float32 case and the served bfloat16 heads)
+    # float32 case, the served bfloat16 heads and the rounded-p cases)
     bwd = next(k for k in kernels if k["name"] == "flash_attention_bwd")
-    bwd["main_path"] = ("training with attn_probs_bf16 (round_p=torch.bfloat16: "
-                        "phase 10's twin); else flash_attention_bwd(route="
-                        "'simt'), dh not a multiple of 8, views off 16 bytes, "
-                        "G the row tiles cannot hold")
+    bwd["main_path"] = ("float32 training with attn_probs_bf16 (round_p="
+                        "torch.bfloat16: phase 10's twin); else "
+                        "flash_attention_bwd(route='simt'), dh not a multiple "
+                        "of 8, views off 16 bytes, G the row tiles cannot hold")
     bwd["rounded"] = rows["flash_attention_bwd_rounded"]
-    bwd["rounded_max_abs_err"] = train_rec["bwd_rounded_max_abs_err"]
+    bwd["rounded_max_abs_err"] = train_rec["bwd_rounded_max_abs_err"]["simt"]
+    # training with attn_probs_bf16 on the tensor cores: the rounded-p
+    # backward (fbt_*'s RP instances, counted as flash_attention_bwd_wgmma)
+    # and the forward rounding p against the row's max (fa_tc_kernel's mode
+    # 3, counted as flash_attention_wgmma), launched by the 36-layer
+    # bfloat16 run with attn_probs_bf16; no PyTorch call rounds p, so no
+    # library time
+    # each held to its plain version at the main path's shape (phase 10's
+    # cases at qwen2.5-3b's heads, S LM_TRAIN_FULL_S, bfloat16)
+    probs = train_rec["full_probs"]
+    main = f"bfloat16 B=1 S={LM_TRAIN_FULL_S} H=16 KV=2 dh=128 p rounded"
+    bwd_main = next(c for c in train_rec["bwd_cases"] if c["case"].startswith(main)
+                    and c["route"] == "wgmma")
+    fwd_main = next(c for c in train_rec["fwd_row_max"] if c["case"].startswith(main))
+    for name, counter, kind_rows, pick, err in (
+            ("flash_attention_bwd_wgmma_rounded", "flash_attention_bwd_wgmma",
+             rows["flash_attention_bwd_rounded"],
+             lambda r: r["shape"].startswith(f"bfloat16 B=1 S={probs['seq_len']}"),
+             max(bwd_main["errs"][n] for n in ("dq", "dk", "dv"))),
+            ("flash_attention_wgmma_row_max", "flash_attention_wgmma",
+             rows["flash_attention_wgmma"],
+             lambda r: "row's max" in r["shape"]
+             and f"Sq=Sk={probs['seq_len']} " in r["shape"], fwd_main["err"])):
+        h = next(r for r in kind_rows if pick(r))
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": ("src/repro/models/attention.py:70" if "bwd" in name
+                         else "src/repro/kernels/flash_attention.py:39"),
+            "launches": probs["launches"][counter],
+            "max_abs_err": err, "ms": h["ms"], "call_ms": h["call_ms"],
+            "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
+            "bound_by": h["bound_by"], "library_ms": None,
+            "sdpa_ms": h.get("library_ms") if "bwd" not in name else None,
+            "shape": h["shape"], "main_path": probs["config"],
+            "cases": [r for r in kind_rows if pick(r) or "bwd" in name]})
     da = next(k for k in kernels if k["name"] == "decode_attention")
     da["window"] = next(r for r in rows["decode_attention"]
                         if r["shape"].startswith("bfloat16")

@@ -12,9 +12,10 @@
 // does, 2 rounds it to bfloat16 whatever v's dtype (the model's
 // `probs_bf16` at float32), 0 keeps it fp32, as the model's own attention
 // does.  1 and 2 round against the running max of each key tile, as the
-// TPU kernel does; 3 rounds to bfloat16 against each row's max (fa_kernel
-// only, dh <= 256: a first pass over the key tiles finds it), the function
-// the rounded-p backward differentiates (training with `probs_bf16`).  `window` > 0 (causal only) also masks the keys at or below
+// TPU kernel does; 3 rounds to bfloat16 against each row's max (dh <= 256,
+// either kernel: a first pass over the key tiles finds it), the function
+// the rounded-p backward differentiates (training with `probs_bf16`), and
+// the reference's with one KV chunk.  `window` > 0 (causal only) also masks the keys at or below
 // qpos - window, a sliding window: key tiles wholly below the window of a
 // block's first row are not loaded, the edge tiles are masked.  No fast
 // math: expf, or exp2f of pre-scaled scores in the tensor-core kernel.
@@ -50,6 +51,10 @@
 //     scores up to fp32 rounding): the four lanes that share a row of the
 //     accumulator fragment reduce its max and sum by shuffles.  Causal tiles
 //     above the diagonal are not loaded.
+//   * round_p 3: first a pass over the same key tiles that loads k alone
+//     and keeps each row's max of its masked scores; the main pass then
+//     starts from that max, so no tile raises it (alpha = 1, nothing is
+//     rescaled) and every p is rounded against it.
 //   * P.V by wgmma with P as the register operand, converted from the score
 //     fragment, and V read MN-major through the transpose bit.  round_p: one
 //     bf16 P.  Else the fp32 p is split into three bf16 terms, p_hi =
@@ -516,6 +521,7 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap mq,
   using S = FtShape<DHP>;
   constexpr int NSC = FT_BK / 2, NO = DHP / 2;      // fragment registers
   constexpr int NP = RP ? 1 : 3;                    // bf16 terms of p
+  constexpr int NPASS = RP == 3 ? 2 : 1;            // passes over the keys
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (hp_smem(smem_raw) & 1023)) & 1023);
   uint8_t* Qs = smem;
@@ -534,6 +540,7 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap mq,
   const int nt = (kend + FT_BK - 1) / FT_BK;
   // the first key tile inside the window of the block's first row
   const int j0 = a.window > 0 ? max(0, r0 / G - a.window + 1) / FT_BK : 0;
+  const int nj = max(0, nt - j0);                   // key tiles a pass
   if (tid == 0) {
     hp_bar_init(q_full, 1);
     for (int s = 0; s < FT_STAGES; ++s) {
@@ -571,17 +578,19 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap mq,
           hp_tma_4d(Qs + c * FT_BM * 128 + h * 64 * 128, &mq, q_full, c * 64,
                     kvh * G, (r0 + h * RT) / G, b);
     }
-    for (int j = j0; j < nt; ++j) {
-      const int s = (j - j0) % FT_STAGES;
-      if (j - j0 >= FT_STAGES)
-        hp_bar_wait(&empty[s], (((j - j0) / FT_STAGES) - 1) & 1);
+    // the key tiles once a pass; RP 3's first pass (the rows' max) takes k alone
+    for (int n = 0; n < NPASS * nj; ++n) {
+      const int j = j0 + n % nj, s = n % FT_STAGES;
+      const bool with_v = RP != 3 || n >= nj;
+      if (n >= FT_STAGES) hp_bar_wait(&empty[s], ((n / FT_STAGES) - 1) & 1);
       uint8_t* Kt = KVs + s * 2 * S::KV_BYTES;
       uint8_t* Vt = Kt + S::KV_BYTES;
-      hp_bar_expect_tx(&full[s], 2 * S::KV_BYTES);
+      hp_bar_expect_tx(&full[s], (with_v ? 2 : 1) * S::KV_BYTES);
 #pragma unroll
       for (int c = 0; c < DHP / 64; ++c) {
         hp_tma_4d(Kt + c * FT_BK * 128, &mk, &full[s], c * 64, kvh, j * FT_BK, b);
-        hp_tma_4d(Vt + c * FT_BK * 128, &mv, &full[s], c * 64, kvh, j * FT_BK, b);
+        if (with_v)
+          hp_tma_4d(Vt + c * FT_BK * 128, &mv, &full[s], c * 64, kvh, j * FT_BK, b);
       }
     }
   } else {
@@ -598,15 +607,10 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap mq,
 #pragma unroll
     for (int i = 0; i < NO; ++i) o[i] = 0.0f;
     float mrow[2] = {ATT_NEG, ATT_NEG}, lrow[2] = {0.0f, 0.0f};
-    hp_bar_wait(q_full, 0);
-    for (int j = j0; j < nt; ++j) {
-      const int s = (j - j0) % FT_STAGES;
-      hp_bar_wait(&full[s], ((j - j0) / FT_STAGES) & 1);
-      const uint8_t* Kt = KVs + s * 2 * S::KV_BYTES;
-      const uint8_t* Vt = Kt + S::KV_BYTES;
-
-      // S = Q . K^T over the padded depth, unscaled
-      float sc[NSC];
+    // S = Q . K^T of key tile j over the padded depth, unscaled, masked
+    // (only where the tile crosses the diagonal, the end of the keys or the
+    // window's lower edge); edge says whether it was
+    auto scores = [&](int j, const uint8_t* Kt, float (&sc)[NSC], bool& edge) {
 #pragma unroll
       for (int i = 0; i < NSC; ++i) sc[i] = 0.0f;
       hp_fence_regs(sc);
@@ -621,13 +625,9 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap mq,
       hp_wgmma_commit();
       hp_wgmma_wait<0>();
       hp_fence_regs(sc);
-
-      // mask (only where the tile crosses the diagonal, the end of the
-      // keys or the window's lower edge), then the online softmax in base 2
-      // of the scores scaled by scale * log2(e)
-      const bool edge = (j + 1) * FT_BK > a.Sk ||
-                        (a.causal && (j + 1) * FT_BK - 1 > tok_lo) ||
-                        (a.window > 0 && j * FT_BK <= tok_hi - a.window);
+      edge = (j + 1) * FT_BK > a.Sk ||
+             (a.causal && (j + 1) * FT_BK - 1 > tok_lo) ||
+             (a.window > 0 && j * FT_BK <= tok_hi - a.window);
       if (edge) {
 #pragma unroll
         for (int i = 0; i < NSC; ++i) {
@@ -638,6 +638,41 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap mq,
             sc[i] = ATT_NEG;
         }
       }
+    };
+    hp_bar_wait(q_full, 0);
+    if constexpr (RP == 3) {
+      // each row's max over its visible keys first (k alone), so that the
+      // pass below rounds every p against it: there no tile raises mrow
+      // (the same scores, and the product's rounding keeps their order), so
+      // alpha = 1 and nothing is rescaled
+      float mx[2] = {ATT_NEG, ATT_NEG};
+      for (int n = 0; n < nj; ++n) {
+        const int s = n % FT_STAGES;
+        hp_bar_wait(&full[s], (n / FT_STAGES) & 1);
+        float sc[NSC];
+        bool edge;
+        scores(j0 + n, KVs + s * 2 * S::KV_BYTES, sc, edge);
+        if (lane == 0) hp_bar_arrive(&empty[s]);
+#pragma unroll
+        for (int i = 0; i < NSC; ++i) mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], sc[i]);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        mrow[h] = fmaxf(mrow[h], mx[h] * sl2);
+      }
+    }
+    for (int n = (NPASS - 1) * nj; n < NPASS * nj; ++n) {
+      const int j = j0 + n % nj, s = n % FT_STAGES;
+      hp_bar_wait(&full[s], (n / FT_STAGES) & 1);
+      const uint8_t* Kt = KVs + s * 2 * S::KV_BYTES;
+      const uint8_t* Vt = Kt + S::KV_BYTES;
+      float sc[NSC];
+      bool edge;
+      scores(j, Kt, sc, edge);
+
+      // the online softmax in base 2 of the scores scaled by scale * log2(e)
       float mx[2] = {ATT_NEG, ATT_NEG};
 #pragma unroll
       for (int i = 0; i < NSC; ++i) mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], sc[i]);
@@ -736,6 +771,17 @@ static int fa_tc_run(const FtArgs& a, const CUtensorMap& mq,
   return (int)cudaGetLastError();
 }
 
+// round_p 0: fp32 p; 1 and 2 alike (v is bfloat16): a key tile's running
+// max; 3: the row's max
+template <int DHP>
+static int fa_tc_mode(int round_p, const FtArgs& a, const CUtensorMap& mq,
+                      const CUtensorMap& mk, const CUtensorMap& mv,
+                      cudaStream_t s) {
+  if (round_p == 3) return fa_tc_run<DHP, 3>(a, mq, mk, mv, s);
+  return round_p ? fa_tc_run<DHP, 1>(a, mq, mk, mv, s)
+                 : fa_tc_run<DHP, 0>(a, mq, mk, mv, s);
+}
+
 // The 4-D map (dh, head, token, batch) of a (B, S, heads, dh) bf16 view with
 // element strides sb, ss, sh, boxes of 64 x bh heads x bs tokens.
 static int fa_tc_map(CUtensorMap* m, const void* base, int B, int S, int heads,
@@ -752,7 +798,8 @@ static int fa_tc_map(CUtensorMap* m, const void* base, int B, int S, int heads,
 // bfloat16 q, k, v and out; strides in elements, every one a multiple of 8
 // and every base 16-byte aligned; dh a multiple of 8 up to 256; G up to 64,
 // or 128;
-// round_p 0 or not (1 and 2 alike: v is bfloat16); window as fa_launch's.
+// round_p 0 to 3 as fa_launch's (1 and 2 alike: v is bfloat16); window as
+// fa_launch's.
 // Returns cudaGetLastError() after the launch (0 = launched), or the error
 // of a refused grant or tensor-map encoding.
 extern "C" int fa_tc_launch(const void* q, const void* k, const void* v, void* o,
@@ -764,7 +811,7 @@ extern "C" int fa_tc_launch(const void* q, const void* k, const void* v, void* o
                             void* stream) {
   if (B == 0 || Sq == 0) return 0;
   if (Sk < 1 || KV < 1 || H % KV != 0 || dh < 8 || dh % 8 != 0 || dh > 256 ||
-      window < 0 || (window > 0 && !causal))
+      window < 0 || (window > 0 && !causal) || round_p < 0 || round_p > 3)
     return (int)cudaErrorInvalidValue;
   const int G = H / KV;
   // a row tile: the whole tokens of 64 slots, or at G 128 half a token
@@ -779,11 +826,9 @@ extern "C" int fa_tc_launch(const void* q, const void* k, const void* v, void* o
   if ((e = fa_tc_map(&mv, v, B, Sk, KV, dh, vsb, vss, vsh, 1, FT_BK))) return e;
   FtArgs a{(__nv_bfloat16*)o, B, Sq, Sk, H, KV, dh, rt, scale, causal, window};
   cudaStream_t s = (cudaStream_t)stream;
-  if (dh <= 64)
-    return round_p ? fa_tc_run<64, 1>(a, mq, mk, mv, s) : fa_tc_run<64, 0>(a, mq, mk, mv, s);
-  if (dh <= 128)
-    return round_p ? fa_tc_run<128, 1>(a, mq, mk, mv, s) : fa_tc_run<128, 0>(a, mq, mk, mv, s);
-  return round_p ? fa_tc_run<256, 1>(a, mq, mk, mv, s) : fa_tc_run<256, 0>(a, mq, mk, mv, s);
+  if (dh <= 64) return fa_tc_mode<64>(round_p, a, mq, mk, mv, s);
+  if (dh <= 128) return fa_tc_mode<128>(round_p, a, mq, mk, mv, s);
+  return fa_tc_mode<256>(round_p, a, mq, mk, mv, s);
 }
 
 // ------------------------------------------- backward, on the CUDA cores
@@ -804,7 +849,8 @@ extern "C" int fa_tc_launch(const void* q, const void* k, const void* v, void* o
 // cores do not take (repro_torch.kernels.flash_attention.flash_bwd_route):
 // dh not a multiple of 8, views off 16 bytes, G 65..127 or above 128 (and
 // float32 at DHP 256 above G 16), and any call forced onto it (`route=
-// "simt"`), and every call with p rounded to bfloat16 (`round_p`, below).
+// "simt"`), with p in fp32 or rounded to bfloat16 (`round_p`, below: the
+// tensor cores take it for bfloat16, their point 6; float32 stays here).
 // Two kernels, launched in this order:
 //
 // fb_dq_kernel: one block per (b * KV + kv head, tile of QM (token, g)
@@ -1401,7 +1447,8 @@ extern "C" int fb_launch(const void* q, const void* k, const void* v,
 //
 // fbt_dq_kernel, then fbt_dkdv_kernel (fbt_dkdv2_kernel where DHP x NI is
 // above 128): the same gradient as fb_dq_kernel and fb_dkdv_kernel (fp32 p,
-// the model's own attention) for bfloat16 q, k, v and g (NI = 1) or
+// the model's own attention; with the template flag RP, bfloat16 only, p
+// rounded to bfloat16, the model's `probs_bf16`: point 6) for bfloat16 q, k, v and g (NI = 1) or
 // float32 (NI = 2, point 2), dq, dk and dv in that dtype, lse (B, H, Sq)
 // fp32; causal, full or causal with a window, masked as fa_tc_kernel masks;
 // dh a multiple of 8 up to 256 (padded to DHP 64, 128 or 256), G = H / KV
@@ -1524,6 +1571,47 @@ extern "C" int fb_launch(const void* q, const void* k, const void* v,
 //      stages of one row tile of q and g (64 KB) and P^T of 64 x 16 (4 KB):
 //      197 KB.  Every wgmma of the scores and of dP is then 64 x 16 (N 16),
 //      the ones of dQ, dV and dK 64 x 256 over a single k-step.
+//   6. p rounded to bfloat16 (RP, training with `probs_bf16`), bfloat16
+//      inputs: the function fb_*'s RP computes (its comment gives the
+//      gradient: dp~ = r((g / l) . v), D = sum r(p) (g / l) . v, ds = p (dp~
+//      - D / l) plus the argmax share, dv = sum r(p) g / l), on the same
+//      geometry.
+//      * m must be final before any p is rounded, so fbt_dq_kernel streams
+//        the keys three times: S alone (k alone is loaded) for each row's
+//        max m, kept raw for the argmax test, and l online in base 2; then
+//        S and dP for D = sum r(p) x, x = dP (1 / l) (dP from the products,
+//        times the row's reciprocal after, not divided score by score: a
+//        few fp32 ulps off the reference's (g / l) . v before r(), which
+//        moves a rare r(x) by one bf16 ulp), the share's D - sum p r(x)
+//        from each key's rounding residuals, (r(p) - p) x + p (x - r(x))
+//        (as a difference of two sums it cancelled in fb_*), and the ties
+//        at m; then S, dP and dQ.  Saving m and l from the forward would
+//        keep two passes, but flash_attention_bwd called alone must
+//        recompute them all the same: one path, not two, for one product of
+//        the dq kernel's eight.
+//      * The scratch holds four statistics a row slot (m, l, D / l, the
+//        share; FbtArgs.stats), and each dkdv stage stages the four
+//        (FbtKShape::NST).  The dkdv kernels form p from m as the dq
+//        kernel does (m sl2, then exp2f(fmaf(s, sl2, -m sl2))), dS^T from
+//        r(dP^T / l), and add the share where S^T equals m: S^T = K.q^T and
+//        S = q.k^T take the same exact bf16 products in the same k-step
+//        order, and come out bitwise equal (chip_smoke.py's one-hot cases:
+//        there dq and dk are each row's share alone).  fbt_dkdv2_kernel's P^T crosses to warpgroup 1 with its
+//        sign flipped at the max.
+//      * r(p) is one bf16 term, exact in D's sums; dV's operand is r(p) / l
+//        in three terms (l runs along the contraction, so it can join
+//        neither r(p) nor the TMA-loaded g), and ds keeps its terms.
+//      Bound as fp32 p; the dq kernel issues one score product more (8).
+//      Float32 inputs stay on fb_*: this function's gradient moves by up to
+//      one bf16 ulp of p or of dp~ times its other factors wherever fp32
+//      rounding flips r(), and fb_* sums in the plain version's order
+//      (q scale, then the dot; g / l, then the dot), so it flips as the
+//      plain version does.  The fp16-term products here cannot: the RP
+//      instances at NI 2 read deepseek-v2's MLA heads at S 1,024 2.1e-3 of
+//      dq's largest from the plain version, against the float32 limit of
+//      1e-3 that fb_* holds at 1.1e-4, and the same products summed
+//      exactly read 1.4e-3 at zamba2-7b's heads
+//      (tools/rounded_f32_emulation.py; PERF.md §6).
 // G 65..127 and above 128 stay on the CUDA cores (a row tile holds neither
 // whole tokens nor a whole part of one), and so does float32 at DHP 256
 // with G above 16.
@@ -1537,7 +1625,8 @@ extern "C" int fb_launch(const void* q, const void* k, const void* v,
 struct FbtArgs {
   void* dq; void* dk; void* dv;    // bfloat16 (NI 1) or float32 (NI 2)
   float* lse;            // (B, H, Sq): natural log-sum-exp of each row
-  float* stats;          // [2][B * KV][rows_pad]: base-2 lse, then D, by slot
+  float* stats;          // [2][B * KV][rows_pad]: base-2 lse, then D, by slot;
+                         // RP [4]: m, l, D / l, the argmax share (point 6)
   float* part;           // [B * KV * key tiles * pieces][DHP * 128]: registers
                          // by consumer thread
   int* count;            // [key tiles * B * KV] pieces arrived
@@ -1577,16 +1666,17 @@ struct FbtQShape {
   static constexpr int SMEM = BARS + (1 + 2 * FBT_STAGES) * 8 + 1024;
 };
 
-template <int DHP, int NI = 1>
+template <int DHP, int NI = 1, bool RP = false>
 struct FbtKShape {
   static constexpr int RS = FbtGeo<DHP, NI>::RS;       // row slots a stage
   static constexpr int WG = DHP * NI > 128 ? 2 : 1;    // consumer warpgroups
   static constexpr int THREADS = 128 * (WG + 1);
   static constexpr int KV_BYTES = FBT_BK * DHP * 2;    // the block's k or v
   static constexpr int ROW_BYTES = RS * DHP * 2;       // a stage's q or g rows
+  static constexpr int NST = RP ? 4 : 2;               // statistics a row (point 6)
   static constexpr int PT = NI * (2 * KV_BYTES + FBT_STAGES * 2 * ROW_BYTES);
   static constexpr int STATS = PT + (WG - 1) * (RS / 2) * 128 * 4;   // WG 2: P^T
-  static constexpr int BARS = STATS + FBT_STAGES * 2 * RS * 4;
+  static constexpr int BARS = STATS + FBT_STAGES * NST * RS * 4;
   static constexpr int SMEM = BARS + (1 + 2 * FBT_STAGES) * 8 + 16 + 1024;
 };
 
@@ -1832,7 +1922,7 @@ __device__ __forceinline__ void fbt_pair(float (&x)[N / 2], float (&y)[N / 2],
   fbt_prod<DHP, N, NI, true, true>(x, y, a, b, c, d, ap, bp, at, bt, fx, fy);
 }
 
-// x = A . B^T alone (64 x N), scores (S^T) or not (dP^T).
+// x = A . B^T alone (64 x N), scores (S, S^T) or not (dP^T).
 template <int DHP, int N, int NI, bool SCORES>
 __device__ __forceinline__ void fbt_one(float (&x)[N / 2], const uint8_t* a,
                                         const uint8_t* b, int ap, int bp,
@@ -1879,7 +1969,7 @@ __device__ __forceinline__ void fbt_bar() {
   asm volatile("bar.sync %0, %1;\n" :: "n"(ID), "n"(N) : "memory");
 }
 
-template <int DHP, int NT, int NI>
+template <int DHP, int NT, int NI, bool RP>
 __global__ void __launch_bounds__(FbtQShape<DHP, NI>::THREADS, 1)
 fbt_dq_kernel(const __grid_constant__ CUtensorMap mq,
               const __grid_constant__ CUtensorMap mg,
@@ -1890,6 +1980,7 @@ fbt_dq_kernel(const __grid_constant__ CUtensorMap mq,
   constexpr int BK = S::BK, NSC = BK / 2, KS = BK / 16, RS = Geo::RS;
   constexpr int NO = DHP / 2;                       // dq fragment registers
   constexpr int TPW = FBT_RM / RS;                  // row tiles a warpgroup
+  constexpr int NPASS = RP ? 3 : 2;                 // passes over the keys
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (hp_smem(smem_raw) & 1023)) & 1023);
   uint8_t* Qs = smem;
@@ -1945,19 +2036,22 @@ fbt_dq_kernel(const __grid_constant__ CUtensorMap mq,
                     b + t * a.B);
         }
       }
-    for (int n = 0; n < 2 * nj; ++n) {    // the key tiles, once a pass
+    // the key tiles, once a pass; RP's first pass (m and l) takes k alone
+    for (int n = 0; n < NPASS * nj; ++n) {
       const int j = j0 + n % nj, s = n % FBT_STAGES;
+      const bool with_v = !RP || n >= nj;
       if (n >= FBT_STAGES) hp_bar_wait(&empty[s], ((n / FBT_STAGES) - 1) & 1);
       uint8_t* Kt = KVs + s * 2 * NI * S::KV_BYTES;
       uint8_t* Vt = Kt + NI * S::KV_BYTES;
-      hp_bar_expect_tx(&full[s], 2 * NI * S::KV_BYTES);
+      hp_bar_expect_tx(&full[s], (with_v ? 2 : 1) * NI * S::KV_BYTES);
 #pragma unroll
       for (int t = 0; t < NI; ++t)
 #pragma unroll
         for (int c = 0; c < DHP / 64; ++c) {
           const int at = t * S::KV_BYTES + c * BK * 128;
           hp_tma_4d(Kt + at, &mk, &full[s], c * 64, kvh, j * BK, b + t * a.B);
-          hp_tma_4d(Vt + at, &mv, &full[s], c * 64, kvh, j * BK, b + t * a.B);
+          if (with_v)
+            hp_tma_4d(Vt + at, &mv, &full[s], c * 64, kvh, j * BK, b + t * a.B);
         }
     }
     return;
@@ -1978,6 +2072,7 @@ fbt_dq_kernel(const __grid_constant__ CUtensorMap mq,
   const uint8_t* Qw = Qs + wg * FBT_RM * 128;
   const uint8_t* Gw = Gs + wg * FBT_RM * 128;
   const FbtInv f = fbt_inv<NI>(a);
+  const long long plane = (long long)nbkv * a.rows_pad;
   // a tile that crosses the diagonal, the end of the keys or the window's
   // lower edge, and the keys it hides from row half h
   auto edge_of = [&](int j) {
@@ -1990,19 +2085,36 @@ fbt_dq_kernel(const __grid_constant__ CUtensorMap mq,
     return key >= a.Sk || (a.causal && key > tok[h]) ||
            (a.window > 0 && key <= tok[h] - a.window);
   };
-  hp_bar_wait(q_full, 0);
-
-  // pass 1: the rows' statistics, online in base 2
-  float m2[2] = {ATT_NEG, ATT_NEG}, l[2] = {0.0f, 0.0f}, pd[2] = {0.0f, 0.0f};
-  for (int n = 0; n < nj; ++n) {
-    const int j = j0 + n, s = n % FBT_STAGES;
+  // the ring's stage n (passes in order), S = q.k^T and with V dP = g.v^T
+  auto stage = [&](int n, float (&sc)[NSC], float (&dp)[NSC], bool with_v) {
+    const int s = n % FBT_STAGES;
     hp_bar_wait(&full[s], (n / FBT_STAGES) & 1);
     const uint8_t* Kt = KVs + s * 2 * NI * S::KV_BYTES;
+    if (with_v)
+      fbt_pair<DHP, BK, NI>(sc, dp, Qw, Kt, Gw, Kt + NI * S::KV_BYTES,
+                            S::SLOTS * 128, BK * 128, S::ROW_BYTES, S::KV_BYTES,
+                            f.qk, f.gv);
+    else
+      fbt_one<DHP, BK, NI, true>(sc, Qw, Kt, S::SLOTS * 128, BK * 128,
+                                 S::ROW_BYTES, S::KV_BYTES, f.qk);
+    return Kt;
+  };
+  // statistic k of row half h, by slot
+  auto put = [&](int k, int h, float x) {
+    a.stats[k * plane + (long long)bkv * a.rows_pad + blk * S::SLOTS +
+            wg * FBT_RM + sl + 8 * h] = x;
+  };
+  hp_bar_wait(q_full, 0);
+
+  // pass 1: the rows' max m and l = sum exp(s - m), online in base 2 (and
+  // with p in fp32, sum exp(s - m) dp for D)
+  float mr[2] = {ATT_NEG, ATT_NEG}, m2[2] = {ATT_NEG, ATT_NEG};
+  float l[2] = {0.0f, 0.0f}, pd[2] = {0.0f, 0.0f};
+  for (int n = 0; n < nj; ++n) {
+    const int j = j0 + n;
     float sc[NSC], dp[NSC];
-    fbt_pair<DHP, BK, NI>(sc, dp, Qw, Kt, Gw, Kt + NI * S::KV_BYTES,
-                          S::SLOTS * 128, BK * 128, S::ROW_BYTES, S::KV_BYTES,
-                          f.qk, f.gv);
-    if (lane == 0) hp_bar_arrive(&empty[s]);        // the stage is read
+    stage(n, sc, dp, !RP);
+    if (lane == 0) hp_bar_arrive(&empty[n % FBT_STAGES]);   // the stage is read
     const bool edge = edge_of(j);
     if (edge) {
 #pragma unroll
@@ -2017,6 +2129,7 @@ fbt_dq_kernel(const __grid_constant__ CUtensorMap mq,
     for (int h = 0; h < 2; ++h) {
       mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
       mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      mr[h] = fmaxf(mr[h], mx[h]);
       const float m_new = fmaxf(m2[h], mx[h] * sl2);
       alpha[h] = exp2f(m2[h] - m_new);
       m2[h] = m_new;
@@ -2028,57 +2141,110 @@ fbt_dq_kernel(const __grid_constant__ CUtensorMap mq,
       float e = exp2f(fmaf(sc[i], sl2, -m2[h]));
       e = (edge && sc[i] == ATT_NEG) ? 0.0f : e;
       rs[h] += e;
-      rd[h] = fmaf(e, dp[i], rd[h]);
+      if constexpr (!RP) rd[h] = fmaf(e, dp[i], rd[h]);
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 1);
       rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 2);
-      rd[h] += __shfl_xor_sync(0xffffffffu, rd[h], 1);
-      rd[h] += __shfl_xor_sync(0xffffffffu, rd[h], 2);
       l[h] = l[h] * alpha[h] + rs[h];
-      pd[h] = pd[h] * alpha[h] + rd[h];
-    }
-  }
-  float lse2[2], D[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    // a row that sees no key (none of the model's), the rows past the last
-    // token and the empty slots get p = 0 everywhere
-    const bool real = filled[h] && row[h] < nrows;
-    const bool live = real && l[h] > 0.0f;
-    lse2[h] = live ? m2[h] + log2f(l[h]) : FB_INF;
-    D[h] = live ? pd[h] / l[h] : 0.0f;
-    if (lane % 4 == 0) {
-      float* st = a.stats + (long long)bkv * a.rows_pad + blk * S::SLOTS +
-                  wg * FBT_RM + sl + 8 * h;
-      st[0] = lse2[h];
-      st[(long long)nbkv * a.rows_pad] = D[h];
-      if (real) {
-        const int t = row[h] / G, g = row[h] % G;
-        a.lse[((long long)b * a.H + kvh * G + g) * a.Sq + t] = lse2[h] * FBT_LN2;
+      if constexpr (!RP) {
+        rd[h] += __shfl_xor_sync(0xffffffffu, rd[h], 1);
+        rd[h] += __shfl_xor_sync(0xffffffffu, rd[h], 2);
+        pd[h] = pd[h] * alpha[h] + rd[h];
       }
     }
   }
+  // a row that sees no key (none of the model's), the rows past the last
+  // token and the empty slots get p = 0 everywhere
+  bool live[2];
+  float lse2[2], D[2], share[2] = {0.0f, 0.0f}, il[2];   // RP: il = 1 / l
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool real = filled[h] && row[h] < nrows;
+    live[h] = real && l[h] > 0.0f;
+    lse2[h] = live[h] ? m2[h] + log2f(l[h]) : FB_INF;
+    D[h] = live[h] && !RP ? pd[h] / l[h] : 0.0f;
+    if (lane % 4 == 0 && real) {
+      const int t = row[h] / G, g = row[h] % G;
+      a.lse[((long long)b * a.H + kvh * G + g) * a.Sq + t] = lse2[h] * FBT_LN2;
+    }
+  }
+  if constexpr (RP) {
+    // pass 2 (point 6): with x = (g . v_j) / l, D = sum r(p) x, the argmax
+    // share's D - sum p r(x) from each key's rounding residuals and the
+    // ties at m
+    float e[2] = {0.0f, 0.0f}, ties[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m2[h] = mr[h] * sl2;                           // as the dkdv kernels form it
+      if (!live[h]) l[h] = 1.0f;
+      il[h] = 1.0f / l[h];
+    }
+    for (int n = nj; n < 2 * nj; ++n) {
+      const int j = j0 + n - nj;
+      float sc[NSC], dp[NSC];
+      stage(n, sc, dp, true);
+      if (lane == 0) hp_bar_arrive(&empty[n % FBT_STAGES]);
+      const bool edge = edge_of(j);
+#pragma unroll
+      for (int i = 0; i < NSC; ++i) {
+        const int h = (i / 2) % 2;
+        if (edge && hidden(j, i)) continue;
+        const float p = exp2f(fmaf(sc[i], sl2, -m2[h]));
+        const float rp = att_round<__nv_bfloat16>(p);
+        const float x = dp[i] * il[h], rx = att_round<__nv_bfloat16>(x);
+        D[h] = fmaf(rp, x, D[h]);
+        e[h] = fmaf(rp - p, x, fmaf(p, x - rx, e[h]));
+        ties[h] += sc[i] == mr[h] ? 1.0f : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int o = 1; o <= 2; o *= 2) {
+        D[h] += __shfl_xor_sync(0xffffffffu, D[h], o);
+        e[h] += __shfl_xor_sync(0xffffffffu, e[h], o);
+        ties[h] += __shfl_xor_sync(0xffffffffu, ties[h], o);
+      }
+      share[h] = live[h] && ties[h] > 0.0f ? e[h] / ties[h] : 0.0f;
+      D[h] = live[h] ? D[h] / l[h] : 0.0f;          // D / l from here on
+      if (lane % 4 == 0) {
+        put(0, h, live[h] ? mr[h] : FB_INF);
+        put(1, h, l[h]);
+        put(2, h, D[h]);
+        put(3, h, share[h]);
+      }
+    }
+  } else if (lane % 4 == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      put(0, h, lse2[h]);
+      put(1, h, D[h]);
+    }
+  }
 
-  // pass 2: dQ += dS . K
+  // the last pass: dQ += dS . K
   float dqa[NO];
 #pragma unroll
   for (int i = 0; i < NO; ++i) dqa[i] = 0.0f;
-  for (int n = nj; n < 2 * nj; ++n) {
-    const int j = j0 + n - nj, s = n % FBT_STAGES;
-    hp_bar_wait(&full[s], (n / FBT_STAGES) & 1);
-    const uint8_t* Kt = KVs + s * 2 * NI * S::KV_BYTES;
+  for (int n = (NPASS - 1) * nj; n < NPASS * nj; ++n) {
+    const int j = j0 + n % nj;
     float sc[NSC], dp[NSC];
-    fbt_pair<DHP, BK, NI>(sc, dp, Qw, Kt, Gw, Kt + NI * S::KV_BYTES,
-                          S::SLOTS * 128, BK * 128, S::ROW_BYTES, S::KV_BYTES,
-                          f.qk, f.gv);
+    const uint8_t* Kt = stage(n, sc, dp, true);
     const bool edge = edge_of(j);
 #pragma unroll
     for (int i = 0; i < NSC; ++i) {
       const int h = (i / 2) % 2;
-      const float p = exp2f(fmaf(sc[i], sl2, -lse2[h]));
-      sc[i] = (edge && hidden(j, i)) ? 0.0f : p * (dp[i] - D[h]);
+      float d;
+      if constexpr (RP) {
+        const float p = exp2f(fmaf(sc[i], sl2, -m2[h]));
+        d = p * (att_round<__nv_bfloat16>(dp[i] * il[h]) - D[h]);
+        if (sc[i] == mr[h]) d += share[h];
+      } else {
+        d = exp2f(fmaf(sc[i], sl2, -lse2[h])) * (dp[i] - D[h]);
+      }
+      sc[i] = (edge && hidden(j, i)) ? 0.0f : d;
     }
     uint32_t ds[NT][KS][4];
     if constexpr (NI == 2) {
@@ -2090,7 +2256,7 @@ fbt_dq_kernel(const __grid_constant__ CUtensorMap mq,
       fbt_terms<NT, KS>(ds, sc);
       fbt_accum<DHP, NT, KS, NI>(dqa, ds, Kt, BK * 128, S::KV_BYTES);
     }
-    if (lane == 0) hp_bar_arrive(&empty[s]);
+    if (lane == 0) hp_bar_arrive(&empty[n % FBT_STAGES]);
   }
 
   // ------------------------------------------------------ epilogue
@@ -2151,14 +2317,15 @@ __device__ __forceinline__ void fbt_kv_init(uint8_t* Rs, uint64_t* kv_full,
 
 // The dkdv kernels' producer (one thread): k and v of the block once, then
 // row tiles p_lo .. p_hi - 1 of q and g through the ring, each with its
-// slots' lse and D; each tile's NI terms (batch b + t B of the maps).
-template <int DHP, int NI>
+// slots' statistics (lse and D; RP: m, l, D / l and the share); each
+// tile's NI terms (batch b + t B of the maps).
+template <int DHP, int NI, bool RP>
 __device__ __forceinline__ void fbt_kv_load(
     const FbtArgs& a, const CUtensorMap* mq, const CUtensorMap* mg,
     const CUtensorMap* mk, const CUtensorMap* mv, uint8_t* Ks, uint8_t* Vs,
     uint8_t* Rs, float* stat, uint64_t* kv_full, uint64_t* full,
     uint64_t* empty, int bkv, int k0, int p_lo, int p_hi) {
-  using S = FbtKShape<DHP, NI>;
+  using S = FbtKShape<DHP, NI, RP>;
   const int G = a.H / a.KV, nbkv = a.B * a.KV, b = bkv / a.KV, kvh = bkv % a.KV;
   hp_bar_expect_tx(kv_full, 2 * NI * S::KV_BYTES);
 #pragma unroll
@@ -2175,7 +2342,7 @@ __device__ __forceinline__ void fbt_kv_load(
     if (n >= FBT_STAGES) hp_bar_wait(&empty[s], ((n / FBT_STAGES) - 1) & 1);
     uint8_t* Qt = Rs + s * 2 * NI * S::ROW_BYTES;
     uint8_t* Gt = Qt + NI * S::ROW_BYTES;
-    hp_bar_expect_tx(&full[s], 2 * NI * (DHP / 64) * a.rt * 128 + 2 * S::RS * 4);
+    hp_bar_expect_tx(&full[s], 2 * NI * (DHP / 64) * a.rt * 128 + S::NST * S::RS * 4);
 #pragma unroll
     for (int t = 0; t < NI; ++t)
 #pragma unroll
@@ -2186,22 +2353,23 @@ __device__ __forceinline__ void fbt_kv_load(
         hp_tma_4d(Gt + at, mg, &full[s], c * 64, kvh * G + r0 % G, r0 / G,
                   b + t * a.B);
       }
-    hp_bulk_load(stat + s * 2 * S::RS, st + r * S::RS, S::RS * 4, &full[s]);
-    hp_bulk_load(stat + s * 2 * S::RS + S::RS,
-                 st + (long long)nbkv * a.rows_pad + r * S::RS, S::RS * 4,
-                 &full[s]);
+#pragma unroll
+    for (int k = 0; k < S::NST; ++k)
+      hp_bulk_load(stat + (s * S::NST + k) * S::RS,
+                   st + k * (long long)nbkv * a.rows_pad + r * S::RS, S::RS * 4,
+                   &full[s]);
   }
 }
 
 // DHP 64 and 128 (float32: 64): one consumer warpgroup holds dK and dV; two
 // blocks an SM.
-template <int DHP, int NT, int NI>
+template <int DHP, int NT, int NI, bool RP>
 __global__ void __launch_bounds__(256, 2)
 fbt_dkdv_kernel(const __grid_constant__ CUtensorMap mq,
                 const __grid_constant__ CUtensorMap mg,
                 const __grid_constant__ CUtensorMap mk,
                 const __grid_constant__ CUtensorMap mv, FbtArgs a) {
-  using S = FbtKShape<DHP, NI>;
+  using S = FbtKShape<DHP, NI, RP>;
   static_assert(S::WG == 1 && S::RS == FBT_RM, "fbt_dkdv_kernel: DHP * NI up to 128");
   constexpr int NO = DHP / 2;                       // dk, dv fragment registers
   extern __shared__ uint8_t smem_raw[];
@@ -2209,7 +2377,7 @@ fbt_dkdv_kernel(const __grid_constant__ CUtensorMap mq,
   uint8_t* Ks = smem;                               // term t at t * KV_BYTES
   uint8_t* Vs = smem + NI * S::KV_BYTES;
   uint8_t* Rs = Vs + NI * S::KV_BYTES;              // stage s: q's terms, then g's
-  float* stat = reinterpret_cast<float*>(smem + S::STATS);   // stage s: lse2, D
+  float* stat = reinterpret_cast<float*>(smem + S::STATS);   // stage s: NST planes
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + S::BARS);
   uint64_t* full = kv_full + 1;
   uint64_t* empty = full + FBT_STAGES;
@@ -2231,8 +2399,8 @@ fbt_dkdv_kernel(const __grid_constant__ CUtensorMap mq,
     // ----------------------------------------------------- producer
     hp_regs_dec<24>();
     if (tid == 128)
-      fbt_kv_load<DHP, NI>(a, &mq, &mg, &mk, &mv, Ks, Vs, Rs, stat, kv_full, full,
-                       empty, bkv, k0, p_lo, p_hi);
+      fbt_kv_load<DHP, NI, RP>(a, &mq, &mg, &mk, &mv, Ks, Vs, Rs, stat, kv_full,
+                               full, empty, bkv, k0, p_lo, p_hi);
     return;
   }
   // ------------------------------------------------------- consumer
@@ -2250,7 +2418,8 @@ fbt_dkdv_kernel(const __grid_constant__ CUtensorMap mq,
     hp_bar_wait(&full[s], (n / FBT_STAGES) & 1);
     const uint8_t* Qt = Rs + s * 2 * NI * S::ROW_BYTES;
     const uint8_t* Gt = Qt + NI * S::ROW_BYTES;
-    const float* Ls = stat + s * 2 * FBT_RM;
+    // lse and D (RP: m, l, D / l and the share) of the stage's slots
+    const float* Ls = stat + s * S::NST * FBT_RM;
     const float* Ds = Ls + FBT_RM;
     float sc[32], dp[32];                           // S^T, dP^T: keys x slots
     fbt_pair<DHP, 64, NI>(sc, dp, Ks, Qt, Vs, Gt, FBT_BK * 128, FBT_RM * 128,
@@ -2267,7 +2436,7 @@ fbt_dkdv_kernel(const __grid_constant__ CUtensorMap mq,
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int col = 8 * n8 + 2 * (lane % 4) + e;    // slot col: row r0 + col
-        const float L = Ls[col], Dr = Ds[col];
+        const float L = Ls[col], Dr = Ds[col], il = RP ? 1.0f / Dr : 0.0f;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int i = 4 * n8 + 2 * h + e;
@@ -2277,9 +2446,20 @@ fbt_dkdv_kernel(const __grid_constant__ CUtensorMap mq,
             hide = col >= RT || row >= nrows || key >= a.Sk ||
                    (a.causal && key > t) || (a.window > 0 && key <= t - a.window);
           }
-          const float p = hide ? 0.0f : exp2f(fmaf(sc[i], sl2, -L));
-          dp[i] = hide ? 0.0f : p * (dp[i] - Dr);
-          sc[i] = p;
+          if constexpr (RP) {
+            // point 6 (L is m, Dr is l, il = 1 / l): P^T's operand r(p) / l,
+            // dS^T from r(dP^T / l), D / l and the share where S^T is m
+            const float p = hide ? 0.0f : exp2f(fmaf(sc[i], sl2, -L * sl2));
+            float d = p * (att_round<__nv_bfloat16>(dp[i] * il) -
+                           Ds[FBT_RM + col]);
+            if (sc[i] == L) d += Ds[2 * FBT_RM + col];
+            dp[i] = hide ? 0.0f : d;
+            sc[i] = att_round<__nv_bfloat16>(p) * il;
+          } else {
+            const float p = hide ? 0.0f : exp2f(fmaf(sc[i], sl2, -L));
+            dp[i] = hide ? 0.0f : p * (dp[i] - Dr);
+            sc[i] = p;
+          }
         }
       }
     if constexpr (NI == 2) {
@@ -2363,15 +2543,18 @@ fbt_dkdv_kernel(const __grid_constant__ CUtensorMap mq,
 // S^T and P^T, hands P^T to warpgroup 1 (once it has read the last row
 // tile's) and accumulates dV += P^T . g; warpgroup 1 computes dP^T, dS^T =
 // P^T (dP^T - D) (a hidden pair's p is 0) and accumulates dK += dS^T . q.
+// RP (point 6): P^T crosses with its sign flipped where the score is the
+// row's max (p is near 1 there, never 0), so that warpgroup 1 adds the
+// argmax share; warpgroup 0's dV takes r(p) / l.
 // acc: the warpgroup's dV or dK, all DHP columns.
-template <int DHP, int NT, int NI>
+template <int DHP, int NT, int NI, bool RP>
 __global__ void __launch_bounds__(384, 1)
 fbt_dkdv2_kernel(const __grid_constant__ CUtensorMap mq,
                  const __grid_constant__ CUtensorMap mg,
                  const __grid_constant__ CUtensorMap mk,
                  const __grid_constant__ CUtensorMap mv, FbtArgs a) {
   constexpr int NO = DHP / 2;
-  using S = FbtKShape<DHP, NI>;
+  using S = FbtKShape<DHP, NI, RP>;
   constexpr int RS = S::RS, NX = RS / 2, KS = RS / 16;   // a stage's slots
   static_assert(S::WG == 2, "fbt_dkdv2_kernel: DHP * NI above 128");
   extern __shared__ uint8_t smem_raw[];
@@ -2380,7 +2563,7 @@ fbt_dkdv2_kernel(const __grid_constant__ CUtensorMap mq,
   uint8_t* Vs = smem + NI * S::KV_BYTES;
   uint8_t* Rs = Vs + NI * S::KV_BYTES;              // stage s: q's terms, then g's
   float* Ps = reinterpret_cast<float*>(smem + S::PT);        // P^T, handed over
-  float* stat = reinterpret_cast<float*>(smem + S::STATS);   // stage s: lse2, D
+  float* stat = reinterpret_cast<float*>(smem + S::STATS);   // stage s: NST planes
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + S::BARS);
   uint64_t* full = kv_full + 1;
   uint64_t* empty = full + FBT_STAGES;
@@ -2402,8 +2585,8 @@ fbt_dkdv2_kernel(const __grid_constant__ CUtensorMap mq,
     // ----------------------------------------------------- producer
     hp_regs_dec<24>();
     if (tid == 256)
-      fbt_kv_load<DHP, NI>(a, &mq, &mg, &mk, &mv, Ks, Vs, Rs, stat, kv_full, full,
-                       empty, bkv, k0, p_lo, p_hi);
+      fbt_kv_load<DHP, NI, RP>(a, &mq, &mg, &mk, &mv, Ks, Vs, Rs, stat, kv_full,
+                               full, empty, bkv, k0, p_lo, p_hi);
     return;
   }
   // ------------------------------------------------------ consumers
@@ -2421,7 +2604,8 @@ fbt_dkdv2_kernel(const __grid_constant__ CUtensorMap mq,
     hp_bar_wait(&full[s], (n / FBT_STAGES) & 1);
     const uint8_t* Qt = Rs + s * 2 * NI * S::ROW_BYTES;
     const uint8_t* Gt = Qt + NI * S::ROW_BYTES;
-    const float* Ls = stat + s * 2 * RS;
+    // lse and D (RP: m, l, D / l and the share) of the stage's slots
+    const float* Ls = stat + s * S::NST * RS;
     const float* Ds = Ls + RS;
     float x[NX];                                    // S^T, or dP^T
     if (wg == 0) {
@@ -2447,13 +2631,31 @@ fbt_dkdv2_kernel(const __grid_constant__ CUtensorMap mq,
               hide = col >= RT || row >= nrows || key >= a.Sk ||
                      (a.causal && key > t) || (a.window > 0 && key <= t - a.window);
             }
-            x[i] = hide ? 0.0f : exp2f(fmaf(x[i], sl2, -L));
+            if constexpr (RP) {             // L is m: p, signed at the max
+              const float p = hide ? 0.0f : exp2f(fmaf(x[i], sl2, -L * sl2));
+              x[i] = !hide && x[i] == L ? -p : p;
+            } else {
+              x[i] = hide ? 0.0f : exp2f(fmaf(x[i], sl2, -L));
+            }
           }
         }
       if (n > 0) fbt_bar<2, 256>();
 #pragma unroll
       for (int i = 0; i < NX; ++i) Ps[i * 128 + ct] = x[i];
       fbt_bar<2, 256>();
+      if constexpr (RP) {                 // dV's operand r(p) / l
+#pragma unroll
+        for (int n8 = 0; n8 < RS / 8; ++n8)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float il = 1.0f / Ds[8 * n8 + 2 * (lane % 4) + e];
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int i = 4 * n8 + 2 * h + e;
+              x[i] = att_round<__nv_bfloat16>(fabsf(x[i])) * il;
+            }
+          }
+      }
       uint32_t pt[NT][KS][4];
       // dV += P^T . g
       if constexpr (NI == 2) {
@@ -2474,11 +2676,18 @@ fbt_dkdv2_kernel(const __grid_constant__ CUtensorMap mq,
       for (int n8 = 0; n8 < RS / 8; ++n8)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const float Dr = Ds[8 * n8 + 2 * (lane % 4) + e];
+          const int col = 8 * n8 + 2 * (lane % 4) + e;
+          const float Dr = Ds[col], il = RP ? 1.0f / Dr : 0.0f;   // RP: Dr is l
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int i = 4 * n8 + 2 * h + e;
-            x[i] = Ps[i * 128 + ct] * (x[i] - Dr);
+            const float p = Ps[i * 128 + ct];
+            if constexpr (RP) {
+              x[i] = fabsf(p) * (att_round<__nv_bfloat16>(x[i] * il) - Ds[RS + col]) +
+                     (p < 0.0f ? Ds[2 * RS + col] : 0.0f);
+            } else {
+              x[i] = p * (x[i] - Dr);
+            }
           }
         }
       uint32_t dst[NT][KS][4];
@@ -2617,16 +2826,17 @@ fbs_split_kernel(const __grid_constant__ FbsArgs a) {
 }
 
 // q, g (both kernels' row tiles), k, v (dq stages), k, v (dkdv blocks)
-template <int DHP, int NI>
+template <int DHP, int NI, bool RP>
 static int fbt_run(const FbtArgs& a, const CUtensorMap (&m)[6], cudaStream_t s) {
   using SQ = FbtQShape<DHP, NI>;
-  using SK = FbtKShape<DHP, NI>;
+  using SK = FbtKShape<DHP, NI, RP>;
   constexpr int NT = NI == 1 ? FBT_TERMS : FBT_F32_TERMS;
   static int granted_q[HP_MAX_DEVICES] = {0}, granted_k[HP_MAX_DEVICES] = {0};
   const void* kv;
-  if constexpr (SK::WG == 2) kv = (const void*)fbt_dkdv2_kernel<DHP, NT, NI>;
-  else kv = (const void*)fbt_dkdv_kernel<DHP, NT, NI>;
-  int e = hp_grant_smem((const void*)fbt_dq_kernel<DHP, NT, NI>, SQ::SMEM, granted_q);
+  if constexpr (SK::WG == 2) kv = (const void*)fbt_dkdv2_kernel<DHP, NT, NI, RP>;
+  else kv = (const void*)fbt_dkdv_kernel<DHP, NT, NI, RP>;
+  int e = hp_grant_smem((const void*)fbt_dq_kernel<DHP, NT, NI, RP>, SQ::SMEM,
+                        granted_q);
   if (e) return e;
   e = hp_grant_smem(kv, SK::SMEM, granted_k);
   if (e) return e;
@@ -2641,17 +2851,31 @@ static int fbt_run(const FbtArgs& a, const CUtensorMap (&m)[6], cudaStream_t s) 
     e = (int)cudaMemsetAsync(a.count, 0, nkt * nbkv * sizeof(int), s);
     if (e) return e;
   }
-  fbt_dq_kernel<DHP, NT, NI><<<(unsigned)bq, SQ::THREADS, SQ::SMEM, s>>>(
+  fbt_dq_kernel<DHP, NT, NI, RP><<<(unsigned)bq, SQ::THREADS, SQ::SMEM, s>>>(
       m[0], m[1], m[2], m[3], a);
   e = (int)cudaGetLastError();
   if (e) return e;
   if constexpr (SK::WG == 2)
-    fbt_dkdv2_kernel<DHP, NT, NI><<<(unsigned)bk, SK::THREADS, SK::SMEM, s>>>(
+    fbt_dkdv2_kernel<DHP, NT, NI, RP><<<(unsigned)bk, SK::THREADS, SK::SMEM, s>>>(
         m[0], m[1], m[4], m[5], a);
   else
-    fbt_dkdv_kernel<DHP, NT, NI><<<(unsigned)bk, SK::THREADS, SK::SMEM, s>>>(
+    fbt_dkdv_kernel<DHP, NT, NI, RP><<<(unsigned)bk, SK::THREADS, SK::SMEM, s>>>(
         m[0], m[1], m[4], m[5], a);
   return (int)cudaGetLastError();
+}
+
+// p rounded (RP): bfloat16 only (point 6)
+template <bool RP>
+static int fbt_dispatch(int dhp, int dtype, const FbtArgs& a,
+                        const CUtensorMap (&m)[6], cudaStream_t s) {
+  if constexpr (!RP) {
+    if (dtype == 0)
+      return dhp == 64 ? fbt_run<64, 2, false>(a, m, s)
+           : dhp == 128 ? fbt_run<128, 2, false>(a, m, s)
+           : fbt_run<256, 2, false>(a, m, s);
+  }
+  return dhp == 64 ? fbt_run<64, 1, RP>(a, m, s)
+       : dhp == 128 ? fbt_run<128, 1, RP>(a, m, s) : fbt_run<256, 1, RP>(a, m, s);
 }
 
 // Products of a 64-row tile over DHP a kernel issues: fbt_ss_terms keeps
@@ -2665,31 +2889,37 @@ constexpr int fbt_rs_pairs(int nt, int ni) {
   return n;
 }
 
-template <int DHP, int NI>
+template <int DHP, int NI, bool RP>
 static void fbt_facts(long long* out) {
   constexpr int NT = NI == 1 ? FBT_TERMS : FBT_F32_TERMS;
   out[0] = FbtQShape<DHP, NI>::SMEM;
-  out[1] = FbtKShape<DHP, NI>::SMEM;
-  // dq: S and dP in each of its two passes, then dQ; dkdv: S^T, dP^T, dV, dK
-  out[2] = 4 * fbt_ss_pairs(NI) + fbt_rs_pairs(NT, NI);
+  out[1] = FbtKShape<DHP, NI, RP>::SMEM;
+  // dq: S and dP in each of its two passes (RP: S alone first, then two
+  // passes of both), then dQ; dkdv: S^T, dP^T, dV, dK
+  out[2] = (RP ? 5 : 4) * fbt_ss_pairs(NI) + fbt_rs_pairs(NT, NI);
   out[3] = 2 * fbt_ss_pairs(NI) + 2 * fbt_rs_pairs(NT, NI);
 }
 
-// The tensor-core backward's figures at head width dh and dtype (as
-// fbt_launch's), for the plan and the report to read: out[0] and out[1]
-// the shared memory of a dq and of a dkdv block, out[2] and out[3] the
-// products the dq and the dkdv kernel issue for each product the gradient
-// needs.  Returns cudaErrorInvalidValue for a head the route does not take.
-extern "C" int fbt_query(int dh, int dtype, long long* out) {
-  if (dh < 8 || dh % 8 != 0 || dh > 256 || dtype < 0 || dtype > 1)
+// The tensor-core backward's figures at head width dh, dtype and round_p
+// (as fbt_launch's), for the plan and the report to read: out[0] and
+// out[1] the shared memory of a dq and of a dkdv block, out[2] and out[3]
+// the products the dq and the dkdv kernel issue for each product the
+// gradient needs.  Returns cudaErrorInvalidValue for a call the route does
+// not take.
+extern "C" int fbt_query(int dh, int dtype, int round_p, long long* out) {
+  if (dh < 8 || dh % 8 != 0 || dh > 256 || dtype < 0 || dtype > 1 ||
+      round_p < 0 || round_p > 1 || (round_p && dtype == 0))
     return (int)cudaErrorInvalidValue;
   const int dhp = dh <= 64 ? 64 : dh <= 128 ? 128 : 256;
-  if (dtype == 0 && dhp == 64) fbt_facts<64, 2>(out);
-  else if (dtype == 0 && dhp == 128) fbt_facts<128, 2>(out);
-  else if (dtype == 0) fbt_facts<256, 2>(out);
-  else if (dhp == 64) fbt_facts<64, 1>(out);
-  else if (dhp == 128) fbt_facts<128, 1>(out);
-  else fbt_facts<256, 1>(out);
+  if (round_p && dhp == 64) fbt_facts<64, 1, true>(out);
+  else if (round_p && dhp == 128) fbt_facts<128, 1, true>(out);
+  else if (round_p) fbt_facts<256, 1, true>(out);
+  else if (dtype == 0 && dhp == 64) fbt_facts<64, 2, false>(out);
+  else if (dtype == 0 && dhp == 128) fbt_facts<128, 2, false>(out);
+  else if (dtype == 0) fbt_facts<256, 2, false>(out);
+  else if (dhp == 64) fbt_facts<64, 1, false>(out);
+  else if (dhp == 128) fbt_facts<128, 1, false>(out);
+  else fbt_facts<256, 1, false>(out);
   return 0;
 }
 
@@ -2703,7 +2933,8 @@ extern "C" int fbt_query(int dh, int dtype, long long* out) {
 // counters, as plan_flash_bwd sizes it; float32: `terms`, 4 (B Sq H dh + B
 // Sk KV dh) fp16 elements (16-byte aligned) for the inputs' two terms
 // (fbs_split_kernel), then 16 bytes for their largest magnitudes, else
-// unused; causal and window as fa_launch's.  Launches (float32)
+// unused; causal and window as fa_launch's; round_p 1 (bfloat16 only): p
+// rounded to bfloat16 in P.V (point 6), else 0.  Launches (float32)
 // fbs_amax_kernel and fbs_split_kernel, then fbt_dq_kernel, then fbt_dkdv_kernel
 // (fbt_dkdv2_kernel at DHP 256, and at float32 DHP 128 and 256).
 // Returns the first error (a refused grant or tensor-map encoding,
@@ -2717,11 +2948,12 @@ extern "C" int fbt_launch(const void* q, const void* k, const void* v,
                           long long vsb, long long vss, long long vsh,
                           long long gsb, long long gss, long long gsh,
                           float scale, int causal, int window, int pieces,
-                          int dtype, void* terms, void* stream) {
+                          int dtype, int round_p, void* terms, void* stream) {
   if (B == 0 || Sq == 0) return 0;
   if (Sk < 1 || KV < 1 || H % KV != 0 || dh < 8 || dh % 8 != 0 || dh > 256 ||
       window < 0 || (window > 0 && !causal) || pieces < 1 || dtype < 0 ||
-      dtype > 1 || (dtype == 0 && terms == nullptr))
+      dtype > 1 || (dtype == 0 && terms == nullptr) || round_p < 0 || round_p > 1 ||
+      (round_p && dtype == 0))
     return (int)cudaErrorInvalidValue;
   const int G = H / KV;
   const int dhp = dh <= 64 ? 64 : dh <= 128 ? 128 : 256;
@@ -2735,7 +2967,7 @@ extern "C" int fbt_launch(const void* q, const void* k, const void* v,
   const long long nbkv = (long long)B * KV, nkt = (Sk + FBT_BK - 1) / FBT_BK;
   const long long ntile = ((long long)Sq * G + rt - 1) / rt;
   const long long rows_pad = (ntile + tiles - 1) / tiles * (tiles * rs);
-  const long long stats = 2 * nbkv * rows_pad * 4;
+  const long long stats = (round_p ? 4 : 2) * nbkv * rows_pad * 4;
   const long long parts = pieces > 1 ? nkt * nbkv * pieces * 2LL * FBT_BK * dhp * 4 : 0;
   const long long counts = pieces > 1 ? nkt * nbkv * 4 : 0;
   if (scratch_bytes < stats + parts + counts || rows_pad > 0x7fffffffLL)
@@ -2786,9 +3018,6 @@ extern "C" int fbt_launch(const void* q, const void* k, const void* v,
   if ((e = fa_tc_map(&m[3], v, Bm, Sk, KV, dh, vsb, vss, vsh, 1, bkq))) return e;
   if ((e = fa_tc_map(&m[4], k, Bm, Sk, KV, dh, ksb, kss, ksh, 1, FBT_BK))) return e;
   if ((e = fa_tc_map(&m[5], v, Bm, Sk, KV, dh, vsb, vss, vsh, 1, FBT_BK))) return e;
-  if (dtype == 0)
-    return dhp == 64 ? fbt_run<64, 2>(a, m, s)
-         : dhp == 128 ? fbt_run<128, 2>(a, m, s) : fbt_run<256, 2>(a, m, s);
-  return dhp == 64 ? fbt_run<64, 1>(a, m, s)
-       : dhp == 128 ? fbt_run<128, 1>(a, m, s) : fbt_run<256, 1>(a, m, s);
+  return round_p ? fbt_dispatch<true>(dhp, dtype, a, m, s)
+                 : fbt_dispatch<false>(dhp, dtype, a, m, s);
 }

@@ -39,14 +39,18 @@ CUDA cores (``fb_dq_kernel``, then ``fb_dkdv_kernel``).
 ``round_p=torch.bfloat16`` gives the gradient of attention whose P·V
 takes p rounded to bfloat16 (the model's ``probs_bf16``): the rounding is
 relative to each row's max, so the max's gradient reaches the row's argmax
-key; that call always takes the CUDA-core pair, with the rounding as a
-template flag (a third pass over the keys in ``fb_dq_kernel``: the max
-must be known before any p is rounded).  The forward rounds p against the
-row's max too wherever it runs on ``fa_kernel`` at dh <= 256 (a first pass
-for the max), serving and training alike, so at float32 the loss is the
-function whose gradient the backward gives; the tensor-core forward
-streams the keys once and rounds against a key tile's running max (p's
-rounding moves the bfloat16 output by less than its own ulp there).
+key.  Both pairs take it as a template flag: bfloat16 on the route the
+fp32-p call of the same shapes takes, float32 always on the CUDA cores
+(that gradient moves by a bf16 ulp wherever fp32 rounding flips r(), so
+it holds float32's limit only when summed in the plain version's order).
+The dq kernel streams the keys three times (the max must be known before
+any p is rounded: the scores alone for m and l, then D and the argmax
+share, then ds and dq) and hands each row's m, l, D / l and share to the
+dkdv kernel through the scratch.  Both forward kernels round p against
+the row's max too at dh <= 256 (a first pass over the keys for the max;
+``fa_kernel``'s column split above dh 256 keeps a key tile's running
+max), serving and training alike, so a model with ``probs_bf16`` trains
+the function whose gradient the backward gives.
 ``LAUNCHES["flash_attention_bwd_wgmma"]`` and
 ``LAUNCHES["flash_attention_bwd"]`` count the two routes' calls, all the
 kernels of a call as one.  :class:`FlashAttentionFn` is the forward kernel
@@ -180,8 +184,9 @@ class FlashBwdPlan:
     stage), cut into ``pieces`` runs (:meth:`piece`), ``per_sm`` blocks
     resident on an SM.
     ``scratch_bytes``: each slot's base-2 log-sum-exp and D (``rows_pad``
-    slots per (b, KV head)), and with ``pieces`` > 1 the pieces' fp32
-    partial dk and dv and one arrival counter per key tile."""
+    slots per (b, KV head); p rounded: its max, l, D / l and the argmax
+    share), and with ``pieces`` > 1 the pieces' fp32 partial dk and dv and
+    one arrival counter per key tile."""
 
     dhp: int
     tile_rows: int
@@ -211,7 +216,8 @@ class FlashBwdPlan:
 @functools.lru_cache(maxsize=256)
 def plan_flash_bwd(B: int, Sq: int, Sk: int, H: int, KV: int, dh: int,
                    causal: bool = True, window: int = 0,
-                   dtype: torch.dtype = torch.bfloat16) -> FlashBwdPlan:
+                   dtype: torch.dtype = torch.bfloat16,
+                   round_p: bool = False) -> FlashBwdPlan:
     """The tensor-core backward's plan, from the shapes, the mask and the
     dtype alone (the kernels take ``pieces`` from it and compute the rest
     alike).  ``dhp``: dh padded to 64, 128 or 256; float32 holds each
@@ -227,7 +233,10 @@ def plan_flash_bwd(B: int, Sq: int, Sk: int, H: int, KV: int, dh: int,
     so cut, is no longer than the resident blocks (``per_sm`` x ``BWD_SMS``)
     take for the whole work, but no piece shorter than ``BWD_MIN_TILES`` row
     tiles.  qwen2.5-3b's heads at S 4,096, causal: 64 key tiles a KV head
-    (128 in all), 5 pieces each."""
+    (128 in all), 5 pieces each.  ``round_p`` (p rounded to bfloat16,
+    bfloat16 only): the same kernels with four statistics a row slot (m,
+    l, D / l and the argmax share) in the scratch and in each dkdv stage,
+    in place of two (lse and D)."""
     ni = {torch.bfloat16: 1, torch.float32: 2}.get(dtype)
     widest = BWD_MAX_DH if ni == 1 else BWD_F32_MAX_DH
     if ni is None or dh < 1 or dh > widest or KV < 1 or H % KV or Sk < 1:
@@ -235,6 +244,9 @@ def plan_flash_bwd(B: int, Sq: int, Sk: int, H: int, KV: int, dh: int,
                          f"{dtype}")
     if window < 0 or (window and not causal):
         raise ValueError(f"flash_attention_bwd: window={window} (>= 0, causal only)")
+    if round_p and ni == 2:
+        raise ValueError("flash_attention_bwd: p rounded on the tensor cores is "
+                         "bfloat16 only")
     G = H // KV
     rs = bwd_row_slots(dh, dtype)
     rt = tile_rows(G, rs)
@@ -265,7 +277,8 @@ def plan_flash_bwd(B: int, Sq: int, Sk: int, H: int, KV: int, dh: int,
         pieces = max(1, min(_cdiv(top * per_sm * BWD_SMS, total),
                             top // BWD_MIN_TILES))
     nbkv = B * KV
-    scratch = 4 * 2 * nbkv * rows_pad
+    nst = 4 if round_p else 2             # statistics a row slot
+    scratch = 4 * nst * nbkv * rows_pad
     if pieces > 1:
         scratch += 4 * nkt * nbkv * (pieces * 2 * BWD_KEYS * dhp + 1)
     dq_keys = 16 if one else 32 if wide else 64
@@ -274,7 +287,7 @@ def plan_flash_bwd(B: int, Sq: int, Sk: int, H: int, KV: int, dh: int,
     # rows' statistics; then the mbarriers and 1 KB of alignment
     dq_smem = ni * 2 * dhp * 2 * (dq_slots + 2 * dq_keys) + 40 + 1024
     dkdv_smem = (ni * 2 * dhp * 2 * (BWD_KEYS + 2 * rs)
-                 + (rs // 2 * 128 * 4 if wide else 0) + 2 * 2 * rs * 4
+                 + (rs // 2 * 128 * 4 if wide else 0) + 2 * nst * rs * 4
                  + 56 + 1024)
     terms_bytes = (0 if ni == 1     # two fp16 terms of q, g, k, v; 4 maxima
                    else 2 * 2 * (2 * B * Sq * H * dh + 2 * B * Sk * KV * dh) + 16)
@@ -283,14 +296,17 @@ def plan_flash_bwd(B: int, Sq: int, Sk: int, H: int, KV: int, dh: int,
                         dq_smem, dkdv_smem, terms_bytes, rs, dq_slots)
 
 
-def bwd_kernel_facts(dh: int, dtype: torch.dtype = torch.bfloat16) -> dict:
+def bwd_kernel_facts(dh: int, dtype: torch.dtype = torch.bfloat16,
+                     round_p: bool = False) -> dict:
     """The tensor-core backward kernels' own figures at head width ``dh``
-    (``fbt_query``; builds the library, so on the card only): the shared
+    (``fbt_query``; builds the library, so on the card only), with p in
+    fp32 or rounded to bfloat16 (``round_p``, bfloat16 only): the shared
     memory of a dq and of a dkdv block (what :func:`plan_flash_bwd` states
     as ``dq_smem`` and ``dkdv_smem``), and the products each kernel issues
     for each of the five products the gradient needs."""
     out = (ctypes.c_longlong * 4)()
-    err = load("flash_attention", _declare).fbt_query(dh, _DTYPE[dtype], out)
+    err = load("flash_attention", _declare).fbt_query(dh, _DTYPE[dtype],
+                                                      int(round_p), out)
     if err:
         raise ValueError(f"fbt_query: dh {dh} {dtype} is not on the "
                          f"tensor-core route ({err})")
@@ -310,9 +326,9 @@ def _declare(lib: ctypes.CDLL) -> None:
                               + [ctypes.c_float] + [ci] * 4 + [vp])
     lib.fb_launch.restype = ci
     lib.fbt_launch.argtypes = ([vp] * 9 + [cl] + [ci] * 6 + [cl] * 12
-                               + [ctypes.c_float] + [ci] * 4 + [vp] * 2)
+                               + [ctypes.c_float] + [ci] * 5 + [vp] * 2)
     lib.fbt_launch.restype = ci
-    lib.fbt_query.argtypes = [ci, ci, ctypes.POINTER(cl)]
+    lib.fbt_query.argtypes = [ci, ci, ci, ctypes.POINTER(cl)]
     lib.fbt_query.restype = ci
 
 
@@ -340,15 +356,21 @@ def _aligned(t: torch.Tensor) -> bool:
 def flash_bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     round_p: bool | torch.dtype = False) -> str:
     """``"wgmma"`` where the tensor-core backward (``fbt_dq_kernel``, then
-    ``fbt_dkdv_kernel`` or ``fbt_dkdv2_kernel``) takes the call — p in
-    fp32, bfloat16 or float32, dh a multiple of 8 up to 256, G = H / KV
-    whose tokens row tiles can hold whole (up to 64) or halve (128:
-    :func:`tile_rows`; float32 above dh 128, row tiles of 16 slots: up to
-    16), and every base and stride of q, k and v on 16 bytes — else
-    ``"simt"`` (``fb_dq_kernel``, ``fb_dkdv_kernel``: p rounded to
-    bfloat16, dh not a multiple of 8, unaligned views, the G the row tiles
-    refuse).  Reads shapes, strides and pointers only."""
-    if round_p is not False:
+    ``fbt_dkdv_kernel`` or ``fbt_dkdv2_kernel``) takes the call — bfloat16
+    with p in fp32 or rounded to bfloat16 (``round_p``: the same shapes
+    either way), or float32 with p in fp32, dh a multiple of 8 up to 256,
+    G = H / KV whose tokens row tiles can hold whole (up to 64) or halve
+    (128: :func:`tile_rows`; float32 above dh 128, row tiles of 16 slots:
+    up to 16), and every base and stride of q, k and v on 16 bytes — else
+    ``"simt"`` (``fb_dq_kernel``, ``fb_dkdv_kernel``: dh not a multiple of
+    8, unaligned views, the G the row tiles refuse, and float32 with p
+    rounded, whose gradient holds float32's limit only when summed in the
+    plain version's order: ``csrc/flash_attention.cu``, point 6).  Reads
+    shapes, strides and pointers only."""
+    if round_p is not False and round_p != torch.bfloat16:
+        raise ValueError(f"flash_bwd_route: round_p={round_p!r} (False or "
+                         "torch.bfloat16)")
+    if round_p is not False and q.dtype == torch.float32:
         return "simt"
     H, dh, KV = q.shape[2], q.shape[3], k.shape[2]
     top = {torch.bfloat16: BWD_MAX_DH, torch.float32: BWD_F32_MAX_DH}.get(q.dtype, 0)
@@ -373,14 +395,16 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("flash_attention: no keys")
 
 
-def _round_mode(round_p: bool | torch.dtype, row_max: bool) -> int:
-    """The kernels' ``round_p``: 0 fp32 p, 1 v's dtype, 2 bfloat16, each
-    against a key tile's running max; 3 bfloat16 against the row's max
-    (``torch.bfloat16`` where the kernel can find it first: ``row_max``)."""
+def _round_mode(round_p: bool | torch.dtype, dh: int) -> int:
+    """The kernels' ``round_p`` at head width ``dh``: 0 fp32 p, 1 v's dtype,
+    2 bfloat16, each against a key tile's running max; 3 bfloat16 against
+    the row's max, found in a first pass over the keys
+    (``torch.bfloat16`` on either kernel up to dh 256; above it only
+    ``fa_kernel``'s column split takes the call, and keeps 2)."""
     if round_p is True or round_p is False:
         return int(round_p)
     if round_p == torch.bfloat16:
-        return 3 if row_max else 2
+        return 3 if dh <= SIMT_WIDE else 2
     raise ValueError(f"flash_attention: round_p={round_p!r} (a bool or "
                      "torch.bfloat16)")
 
@@ -389,13 +413,13 @@ def flash_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, window: int = 0,
                           round_p: bool | torch.dtype = True) -> torch.Tensor:
     """Fused attention → (B, Sq, H, dh) in q's dtype.  With
-    ``round_p=torch.bfloat16`` ``fa_kernel`` at dh <= 256 rounds p against
+    ``round_p=torch.bfloat16`` both kernels at dh <= 256 round p against
     each row's max, found in a first pass over the keys (the plain
     version's function, and the one the rounded-p backward
-    differentiates); the tensor-core kernel, and ``fa_kernel``'s column
-    split above dh 256, against a key tile's running max."""
+    differentiates); ``fa_kernel``'s column split above dh 256 against a
+    key tile's running max."""
     _check(q, k, v)
-    _round_mode(round_p, False)          # round_p a bool or torch.bfloat16
+    _round_mode(round_p, q.shape[3])     # round_p a bool or torch.bfloat16
     _check_window(causal, window)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
@@ -418,7 +442,7 @@ def flash_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     lib = load("flash_attention", _declare)
     route = flash_route(q, k, v)
-    mode = _round_mode(round_p, route == "simt" and dh <= SIMT_WIDE)
+    mode = _round_mode(round_p, dh)
     if route == "wgmma":
         err = lib.fa_tc_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                out.data_ptr(), B, Sq, Sk, H, KV, dh,
@@ -501,7 +525,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if route == "wgmma":
         if not _aligned(g):              # TMA reads g too
             g = torch.empty_like(g, memory_format=torch.contiguous_format).copy_(g)
-        plan = plan_flash_bwd(B, Sq, Sk, H, KV, dh, causal, window, q.dtype)
+        plan = plan_flash_bwd(B, Sq, Sk, H, KV, dh, causal, window, q.dtype,
+                              round_p is not False)
         scratch = torch.empty(_cdiv(plan.scratch_bytes, 16) * 4,
                               dtype=torch.float32, device=q.device)
         terms = (torch.empty(plan.terms_bytes // 2, dtype=torch.bfloat16,
@@ -512,7 +537,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              plan.scratch_bytes, B, Sq, Sk, H, KV, dh,
                              *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                              *g.stride()[:3], dh ** -0.5, int(causal), window,
-                             plan.pieces, _DTYPE[q.dtype],
+                             plan.pieces, _DTYPE[q.dtype], int(round_p is not False),
                              None if terms is None else terms.data_ptr(), stream)
         check_launch("flash_attention_bwd_wgmma", err)
         return dq, dk, dv, lse

@@ -26,7 +26,8 @@ buffers), and with a barrier before every instruction; and the float32
 flash kernel at qwen2.5-3b's 1,024-token prefill (B 1, H 16, KV 2, dh 128,
 causal) as it runs and with k and v staged by element loads instead of
 cp.async.  ``--flash-bwd`` runs only the flash backward: ``ptxas``'s
-registers and spills of its kernels; both routes (``flash_attention_bwd``
+registers and spills of its kernels (the instances with p rounded to
+bfloat16 marked); both routes (``flash_attention_bwd``
 as it routes the call, and with ``route="simt"``) against the plain version on
 qwen2.5-3b's heads (causal, a window of 256, full), G 1, G 128, dh 64, and
 the DHP 256 and whole-token shapes (deepseek-v2's MLA, zamba2's dh 224 with
@@ -56,8 +57,12 @@ older tree's kernels in the same call.  ``--bwd-ab`` does the same for
 the training attention: the backward at qwen2.5-3b's heads (bfloat16 and
 float32) and internvl2's (float32), S 4,096 and 1,024, zamba2's and the
 MLA's (float32, S 1,024: ``fb_*`` in trees before the float32 DHP-256
-route), and the forward at
-qwen2.5-3b's heads, bfloat16, S 4,096, p fp32 and rounded: time per call
+route), at qwen2.5-3b's heads also with p rounded to bfloat16 (bfloat16
+on the tensor cores in trees that have that route; else, and float32
+always, ``fb_*``), and the forward at
+qwen2.5-3b's heads, bfloat16, S 4,096, p fp32, rounded against a key
+tile's running max and rounded to bfloat16 (the row's max in trees that
+have it): time per call
 and device time, and a digest of each output (equal digests: bitwise equal
 outputs) — run it once per tree, parent, change, change, parent.  Then the megakernel's
 walk instruction by instruction: SM cycles from clock stamps in a build of
@@ -358,6 +363,89 @@ def exact_flash_bwd(q, k, v, g, causal: bool = True, window: int = 0):
     return dq.float(), dk.float(), dv.float(), lse.float()
 
 
+def rounded_bwd_faults(q, k, v, g, causal: bool = True, window: int = 0):
+    """The plain gradient of the attention with p rounded to bfloat16 (the
+    row max attached, ``flash_attention_bwd_ref(round_p=torch.bfloat16)``)
+    from the inputs upcast to float32, so not rounded to their dtype, and
+    beside it the two faults a rounded-p backward can make that stay within
+    its bfloat16 limit: ``fp32 p`` (the rounding ignored: the gradient of p
+    in fp32) and ``detached max`` (the row max held constant, so no argmax
+    share reaches dq or dk).  Returns (rounded, {fault: gradient}), each
+    (dq, dk, dv) in float32."""
+    from repro_torch.kernels.ref import _flash_scores, flash_attention_bwd_ref
+
+    up = [t.float() for t in (q, k, v, g)]
+    rounded = flash_attention_bwd_ref(*up, causal=causal, window=window,
+                                      round_p=torch.bfloat16)[:3]
+    fp32 = flash_attention_bwd_ref(*up, causal=causal, window=window)[:3]
+    B, Sq, H, dh = q.shape
+    with torch.enable_grad():
+        qq, kk, vv = (t.detach().requires_grad_(True) for t in up[:3])
+        s = _flash_scores(qq, kk, causal, window)
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True).detach())
+        out = torch.einsum("bkgqs,bskd->bkgqd", p.bfloat16().float(), vv)
+        out = (out / p.sum(dim=-1, keepdim=True)).permute(0, 3, 1, 2, 4)
+        detached = torch.autograd.grad(out.reshape(B, Sq, H, dh), (qq, kk, vv), up[3])
+    return rounded, {"fp32 p": fp32, "detached max": detached}
+
+
+def fault_shares(got, rounded, faults) -> dict[str, dict[str, tuple | None]]:
+    """How far a rounded-p gradient ``got`` (dq, dk, dv) has moved from
+    ``rounded`` towards each of ``faults`` (:func:`rounded_bwd_faults`),
+    over the whole tensor: with e = got - rounded and d = fault - rounded,
+    the share <e, d> / <d, d> in float64.  0 where ``got`` is the rounded
+    gradient plus noise that does not lean towards the fault (the output's
+    own rounding, flipped roundings of p), 1 where it makes the fault;
+    above 1/2 ``got`` lies nearer the fault than the rounded gradient.
+    Beside each share its noise, the spread the output's rounding alone
+    gives it: sqrt(sum n^2 d^2) / <d, d> with n = ``rounded`` rounded to
+    ``got``'s dtype, less itself (0 in float32).  Returns {fault: {name:
+    (share, noise)}}, None where the fault leaves the gradient as it is
+    (dv and the detached max)."""
+    out: dict[str, dict[str, tuple | None]] = {}
+    for fault, grads in faults.items():
+        out[fault] = {}
+        for name, a, r, f in zip(("dq", "dk", "dv"), got, rounded, grads):
+            r64 = r.double().flatten()
+            d = f.double().flatten() - r64
+            dd = float(d @ d)
+            if dd == 0.0:
+                out[fault][name] = None
+                continue
+            n = r.to(a.dtype).double().flatten() - r64
+            out[fault][name] = (float((a.double().flatten() - r64) @ d) / dd,
+                                float((n * d).norm()) / dd)
+    return out
+
+
+def argmax_inputs(S: int, H: int, KV: int, dh: int, dtype, device, seed: int,
+                  dhv: int | None = None):
+    """q, k, v, g (bfloat16 values) whose causal attention is one-hot: row
+    t's scores peak at one key, chosen among the keys j <= t with j = t
+    (mod dh) by a permutation of j // dh, at least 2,560 / sqrt(dh) above
+    every other score (2^-149 and less in exp2, fp32's least), and the scores
+    are inexact fp32 sums.  There p is 1 at the argmax and 0 elsewhere,
+    the rounded-p gradient's ds, dq and dk are 0 up to fp32 rounding, and
+    without the argmax share each is r(x) - x (x = g . v at the argmax
+    key): so dq and dk show whether each row's share reached the key where
+    its kernel found the row's max (``sc == m``, bitwise).  v and g zero
+    past ``dhv``."""
+    rng = np.random.default_rng(seed)
+    n = -(-S // dh)
+    level = rng.permutation(n) + 1                  # 20 x 1..n at j // dh
+    t = np.arange(S)
+    q = 0.25 * rng.standard_normal((1, S, H, dh))
+    q[0, t, :, t % dh] += 128.0
+    k = 0.25 * rng.standard_normal((1, S, KV, dh))
+    k[0, t, :, t % dh] += 20.0 * level[t // dh][:, None]
+    v, g = (rng.standard_normal((1, S, h, dh)) for h in (KV, H))
+    if dhv is not None:
+        v[..., dhv:] = 0
+        g[..., dhv:] = 0
+    return [torch.from_numpy(a.astype(np.float32)).to(device).to(torch.bfloat16).to(dtype)
+            for a in (q, k, v, g)]
+
+
 def profile_flash_bwd(dev: torch.device) -> None:
     import torch.nn.functional as F
 
@@ -374,7 +462,10 @@ def profile_flash_bwd(dev: torch.device) -> None:
     for i, line in enumerate(lines):
         if "Function properties for" in line and any(
                 x in line for x in ("fbt_", "fb_d", "fbs_")):
-            print("  ptxas:", line.split("for ")[-1], "|", lines[i + 1].strip(),
+            # the last template flag of fbt_* and fb_* is RP: p rounded
+            name = line.split("for ")[-1]
+            rp = " (p rounded)" if "Lb1EE" in name else ""
+            print("  ptxas:", name + rp, "|", lines[i + 1].strip(),
                   "|", lines[i + 2].strip(), flush=True)
 
     def ulp(x: float) -> float:
@@ -510,22 +601,31 @@ def profile_bwd_ab(dev: torch.device) -> None:
                      for _ in range(2))
             k, v = (torch.randn((1, S, KV, dh), generator=g, device=dev).to(dt)
                     for _ in range(2))
-            out = fa.flash_attention_bwd(q, k, v, go)
+            # p in fp32; at qwen2.5-3b's heads also p rounded to bfloat16
+            # (attn_probs_bf16: v rounded to bfloat16 as the model rounds it)
+            for rp in (False, torch.bfloat16) if H == 16 else (False,):
+                vv = v.bfloat16().to(dt) if rp else v
+                out = fa.flash_attention_bwd(q, k, vv, go, round_p=rp)
 
-            def call():
-                fa.flash_attention_bwd(q, k, v, go)
-            print(f"backward {str(dt)[6:]} S={S} H={H} KV={KV} dh={dh}: "
-                  f"{call_ms(call, 20):.5f} ms a call (events); "
-                  f"{_fmt(device_parts(call, 10))}; outputs {digest(out)}", flush=True)
+                def call(vv=vv, rp=rp):
+                    fa.flash_attention_bwd(q, k, vv, go, round_p=rp)
+                print(f"backward {str(dt)[6:]} S={S} H={H} KV={KV} dh={dh} p "
+                      f"{'rounded' if rp else 'fp32'}: "
+                      f"{call_ms(call, 20):.5f} ms a call (events); "
+                      f"{_fmt(device_parts(call, 10))}; outputs {digest(out)}",
+                      flush=True)
     g = torch.Generator(device=dev).manual_seed(7)
     q = torch.randn((1, 4096, 16, 128), generator=g, device=dev).bfloat16()
     k, v = (torch.randn((1, 4096, 2, 128), generator=g, device=dev).bfloat16()
             for _ in range(2))
-    for rp in (False, True):
+    # p rounded: to v's dtype (True, a key tile's running max) and to
+    # bfloat16 (attn_probs_bf16: the row's max where the tree has it)
+    for rp in (False, True, torch.bfloat16):
         def fwd(rp=rp):
             return fa.flash_attention_fused(q, k, v, round_p=rp)
         print(f"forward bfloat16 S=4096 H=16 KV=2 dh=128 p "
-              f"{'rounded' if rp else 'fp32'}: {call_ms(fwd, 50):.5f} ms a call "
+              f"{'fp32' if rp is False else 'rounded' if rp is True else 'bfloat16'}: "
+              f"{call_ms(fwd, 50):.5f} ms a call "
               f"(events); {_fmt(device_parts(fwd, 20))}; outputs {digest([fwd()])}",
               flush=True)
 

@@ -28,10 +28,17 @@ and internvl2-26b's heads up to S 4,096, with q and k 8 and 12 times larger
 against the exact gradient (float64), and at zamba2-7b's and the MLA's
 (DHP 256); the forward at G 3, 5 and 6 on the tensor cores; the gradient
 with p rounded to bfloat16 (``round_p``, the model's ``probs_bf16``) on
-the CUDA-core pair at qwen2.5-3b's, MLA's and zamba2-7b's heads and with
-keys tied at the max, within 1e-3 of each gradient's largest of the plain
-version (float32, which the fp32-p backward fails) or two bf16 ulps of it
-(bfloat16), through ``FlashAttentionFn`` too.  JAX is
+the tensor cores (bfloat16; forced onto the CUDA-core pair beside them)
+and on the CUDA-core pair (float32) at qwen2.5-3b's, MLA's
+and zamba2-7b's heads and with keys tied at the max, within 1e-3 of each
+gradient's largest of the plain version (float32) or two bf16 ulps of it
+(bfloat16), and in both nearer the rounded gradient than the fp32-p or
+detached-max one over the whole tensor, which the fp32-p backward fails,
+through ``FlashAttentionFn`` too; on one-hot attention, where dq and dk
+are the argmax shares alone; the plan's shared memory with p rounded; and
+``fa_tc_kernel`` rounding p against the row's max on scores that rise
+along the keys, within one bf16 ulp and bitwise the plain version's on
+0.92 of the outputs, which the key tile's running max fails.  JAX is
 imported inside the reference's helper only, so that the card case runs
 where JAX is not installed.
 """
@@ -312,17 +319,27 @@ def test_float32_backward_holds_scores_peaked_further(card, H, KV, peak):
                          ids=["f32", "bf16"])
 def test_plan_states_the_kernels_shared_memory(card, dtype):
     """``plan_flash_bwd``'s ``dq_smem`` and ``dkdv_smem`` are the kernels'
-    own (``fbt_query``) at every head width the route takes, and the
-    kernels issue 15 (bfloat16: p and ds in three terms) or 27 (float32:
-    three of every product) products for the gradient's five."""
+    own (``fbt_query``) at every head width the route takes, p in fp32 and
+    (bfloat16) rounded to bfloat16 (the rounded-p instances: four
+    statistics a slot), and the kernels issue 15 (bfloat16: p and ds in
+    three terms) or 27 (float32: three of every product) products for the
+    gradient's five, one score product more with p rounded (16: the dq
+    kernel's pass for the rows' max); float32 has no rounded-p instance."""
     top = fa.BWD_MAX_DH if dtype == torch.bfloat16 else fa.BWD_F32_MAX_DH
-    for dh in range(8, top + 1, 8):
-        plan = fa.plan_flash_bwd(1, 256, 256, 16, 2, dh, dtype=dtype)
-        facts = fa.bwd_kernel_facts(dh, dtype)
-        assert (plan.dq_smem, plan.dkdv_smem) == (facts["dq_smem"],
-                                                  facts["dkdv_smem"]), dh
-        assert facts["dq_products"] + facts["dkdv_products"] == (
-            27 if dtype == torch.float32 else 15)
+    f32 = dtype == torch.float32
+    for rp in (False, True):
+        for dh in range(8, top + 1, 8):
+            if rp and f32:
+                with pytest.raises(ValueError):
+                    fa.bwd_kernel_facts(dh, dtype, rp)
+                continue
+            plan = fa.plan_flash_bwd(1, 256, 256, 16, 2, dh, dtype=dtype,
+                                     round_p=rp)
+            facts = fa.bwd_kernel_facts(dh, dtype, rp)
+            assert (plan.dq_smem, plan.dkdv_smem) == (facts["dq_smem"],
+                                                      facts["dkdv_smem"]), (dh, rp)
+            assert facts["dq_products"] + facts["dkdv_products"] == (
+                16 if rp else 27 if f32 else 15)
 
 
 @pytest.mark.cuda
@@ -357,6 +374,20 @@ def test_forward_at_any_g_on_the_tensor_cores(card, S, H, KV, dh):
 # kernels read up to about 2e-4 of it, the fp32-p gradient and a detached
 # row max (the faults it must catch) 1.3e-3 and more
 ROUNDED_F32_REL = 1e-3
+# ... and in both dtypes over the whole tensor (chip_smoke's
+# FLASH_BWD_FAULT_SHARE, FLASH_BWD_FAULT_NOISE, FLASH_BWD_ARGMAX_REL and
+# FLASH_ROW_MAX_BITWISE): each gradient's share of the way towards each
+# fault at most 1/2, read where the output's rounding moves it by at most
+# 0.1; one-hot attention's dq and dk within 1e-3 of the argmax shares'
+# largest; the row-max forward bitwise the plain version's on 0.92 of its
+# outputs, which the key tile's running max fails
+ROUNDED_FAULT_SHARE, ROUNDED_FAULT_NOISE, ROUNDED_ARGMAX_REL = 0.5, 0.1, 1e-3
+ROW_MAX_BITWISE = 0.92
+
+
+def _nearer_a_fault(shares) -> bool:
+    return any(x and x[1] <= ROUNDED_FAULT_NOISE and x[0] > ROUNDED_FAULT_SHARE
+               for sh in shares.values() for x in sh.values())
 # (B, S, H, KV, dh, window): qwen2.5-3b's heads, with a window of 256;
 # deepseek-v2's MLA (v zero past 128); zamba2-7b's shared block; a ragged
 # G 4 at dh 16 with keys 3 and 5 tied at every row's max
@@ -371,16 +402,25 @@ ROUND_CASES = [(1, 300, 16, 2, 128, 0), (1, 1024, 16, 2, 128, 256),
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_rounded_backward_kernels_match_plain(card, case, dtype):
-    """``round_p=torch.bfloat16`` on ``fb_dq_kernel`` + ``fb_dkdv_kernel``
-    (counted as ``flash_attention_bwd``) against the plain version's
-    gradient of the rounded p, two calls bitwise equal, dq, dk and dv
-    within ``ROUNDED_F32_REL`` of each one's largest (float32; the fp32-p
-    backward, run as a control, must lie beyond it) or two bf16 ulps of it
-    (bfloat16: exp and the sums' order flip some roundings of p), lse
-    within 1e-5; the forward within float32's 1e-5 of the plain version
+    """``round_p=torch.bfloat16`` on the route it takes (bfloat16: the
+    tensor cores, ``fbt_dq_kernel`` + ``fbt_dkdv_kernel`` or
+    ``fbt_dkdv2_kernel``, counted as ``flash_attention_bwd_wgmma``;
+    float32: ``fb_dq_kernel`` + ``fb_dkdv_kernel``, counted as
+    ``flash_attention_bwd``) and, bfloat16, forced onto the CUDA cores
+    (``route="simt"``) against the plain version's gradient of the
+    rounded p, two calls bitwise equal, dq, dk and dv within
+    ``ROUNDED_F32_REL`` of each one's largest (float32) or two bf16 ulps of
+    it (bfloat16: exp and the sums' order flip some roundings of p), and
+    over the whole tensor nearer the rounded gradient than either fault's
+    (``profile_kernels.fault_shares``: p in fp32, a detached max), where
+    the fp32-p backward, run as a control, lies nearer its fault (and
+    float32's beyond ``ROUNDED_F32_REL``); lse within 1e-5; the forward
+    within float32's 1e-5 of the plain version
     (``fa_kernel`` rounds p against the row's max, as the plain version
-    does) or one bf16 ulp (the tensor cores, against a key tile's running
-    max); ``FlashAttentionFn``'s output and gradients are the kernels'."""
+    does) or one bf16 ulp (``fa_tc_kernel``, against the row's max too);
+    ``FlashAttentionFn``'s output and gradients are the kernels'."""
+    from repro_torch.launch.profile_kernels import fault_shares, rounded_bwd_faults
+
     B, S, H, KV, dh, window = case
     q, k, v, g = _inputs(B, S, H, KV, dh, dh, seed=S + dh)
     if dh == 16:            # dyadic scores (scale 1/4): the tie is exact
@@ -395,18 +435,34 @@ def test_rounded_backward_kernels_match_plain(card, case, dtype):
         g[..., 128:] = 0
     v = v.to(torch.bfloat16).to(dtype)          # as the model's _bf16_v
     bf = torch.bfloat16
-    assert fa.flash_bwd_route(q, k, v, bf) == "simt"
-    before = dict(LAUNCHES)
-    got = fa.flash_attention_bwd(q, k, v, g, window=window, round_p=bf)
-    again = fa.flash_attention_bwd(q, k, v, g, window=window, round_p=bf)
-    torch.cuda.synchronize()
-    assert LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 2
-    assert LAUNCHES["flash_attention_bwd_wgmma"] == before["flash_attention_bwd_wgmma"]
+    f32 = dtype == torch.float32
+    assert fa.flash_bwd_route(q, k, v, bf) == ("simt" if f32 else "wgmma")
     want = flash_attention_bwd_ref(q, k, v, g, window=window, round_p=bf)
-    _hold(got, want, again, dtype, f32_rel=ROUNDED_F32_REL)
+    rounded, faults = rounded_bwd_faults(q, k, v, g, window=window)
+    # every fault read in one gradient at least, where the output's own
+    # rounding moves its share by at most ROUNDED_FAULT_NOISE
+    assert all(any(x and x[1] <= ROUNDED_FAULT_NOISE for x in sh.values())
+               for sh in fault_shares(want[:3], rounded, faults).values())
+    routes = ((None, "flash_attention_bwd"),) if f32 else (
+        (None, "flash_attention_bwd_wgmma"), ("simt", "flash_attention_bwd"))
+    for route, key in routes:
+        before = dict(LAUNCHES)
+        got = fa.flash_attention_bwd(q, k, v, g, window=window, round_p=bf,
+                                     route=route)
+        again = fa.flash_attention_bwd(q, k, v, g, window=window, round_p=bf,
+                                       route=route)
+        torch.cuda.synchronize()
+        for name in ("flash_attention_bwd", "flash_attention_bwd_wgmma"):
+            assert LAUNCHES[name] == before[name] + (2 if name == key else 0)
+        _hold(got, want, again, dtype, f32_rel=ROUNDED_F32_REL)
+        assert not _nearer_a_fault(fault_shares(got[:3], rounded, faults))
+        if route is None:
+            kernels = got
+    # the control: the fp32-p backward lies nearer its fault, and float32's
+    # is beyond the limit
+    fp32 = fa.flash_attention_bwd(q, k, v, g, window=window)[:3]
+    assert _nearer_a_fault(fault_shares(fp32, rounded, faults))
     if dtype == torch.float32:
-        # the control: the fp32-p backward fails the limit
-        fp32 = fa.flash_attention_bwd(q, k, v, g, window=window)[:3]
         rel = max(float((a - b).abs().max() / b.abs().max())
                   for a, b in zip(fp32, want))
         assert rel > ROUNDED_F32_REL, rel
@@ -422,5 +478,75 @@ def test_rounded_backward_kernels_match_plain(card, case, dtype):
     out = fa.flash_attention_train(qq, kk, vv, window=window, round_p=bf)
     assert torch.equal(out, fwd)
     out.backward(g)
-    for a, b in zip((qq.grad, kk.grad, vv.grad), got):
+    for a, b in zip((qq.grad, kk.grad, vv.grad), kernels):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KV,dh", [(16, 2, 128), (128, 128, 192), (32, 32, 224)],
+                         ids=["qwen", "mla", "zamba2"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_rounded_backward_lands_the_argmax_share(card, H, KV, dh, dtype):
+    """One-hot attention (``profile_kernels.argmax_inputs``, S 1,024: every
+    row's p is 1 at one key, on inexact score sums), where the rounded-p
+    gradient's dq and dk are each row's argmax share and its residual
+    alone, 0 up to fp32 rounding: on either route (bfloat16: the tensor
+    cores, whose dq kernel finds m and the ties in one pass and adds the
+    share in another, and whose dkdv kernels add it where S^T equals m;
+    and forced onto ``fb_*``) dq and dk within 1e-3 of the largest the
+    detached max gives them, dv within the limits of the plain version."""
+    from repro_torch.launch.profile_kernels import argmax_inputs, rounded_bwd_faults
+
+    bf = torch.bfloat16
+    q, k, v, g = argmax_inputs(1024, H, KV, dh, dtype, card, seed=H + dh,
+                               dhv=128 if dh == 192 else None)
+    want = flash_attention_bwd_ref(q, k, v, g, round_p=bf)
+    size = [float(t.abs().max()) for t in
+            rounded_bwd_faults(q, k, v, g)[1]["detached max"][:2]]
+    assert min(size) > 0
+    for route in (None, "simt"):
+        got = fa.flash_attention_bwd(q, k, v, g, round_p=bf, route=route)
+        for a, z in zip(got[:2], size):
+            assert float(a.float().abs().max()) <= ROUNDED_ARGMAX_REL * z
+        top = float(want[2].float().abs().max())
+        tol = 2 * _ulp(top) if dtype == bf else ROUNDED_F32_REL * top
+        assert float((got[2].float() - want[2].float()).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1024, 4096])
+def test_forward_rounds_against_the_row_max_on_the_tensor_cores(card, S):
+    """Scores that rise along the keys (k_j = (j / S) 4 u, q = u + noise), so
+    that a row's running max changes in every key tile: ``fa_tc_kernel``
+    with ``round_p=torch.bfloat16`` (the row's max, a first pass over the
+    keys) within one bf16 ulp of the output's largest of the plain
+    version, causal and full, at qwen2.5-3b's heads, and bitwise equal to
+    it on at least ``ROW_MAX_BITWISE`` of the outputs, where
+    ``round_p=True`` on the same bfloat16 inputs, which rounds against
+    each key tile's running max (the tile-max kernel that served
+    ``torch.bfloat16`` before), falls below it."""
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    H, KV, dh = 16, 2, 128
+    rng = np.random.default_rng(5)
+    u = rng.standard_normal(dh).astype(np.float32)
+    q = (u + 0.3 * rng.standard_normal((1, S, H, dh))).astype(np.float32)
+    k = (np.linspace(0, 4, S, dtype=np.float32)[None, :, None, None] * u
+         + 0.3 * rng.standard_normal((1, S, KV, dh))).astype(np.float32)
+    v = rng.standard_normal((1, S, KV, dh)).astype(np.float32)
+    q, k, v = (torch.from_numpy(a).to(card, torch.bfloat16) for a in (q, k, v))
+    assert fa.flash_route(q, k, v) == "wgmma"
+    for causal in (True, False):
+        plain = flash_attention_ref(q, k, v, causal=causal, round_p=torch.bfloat16)
+        before = dict(LAUNCHES)
+        rows = fa.flash_attention_fused(q, k, v, causal=causal,
+                                        round_p=torch.bfloat16)
+        tiles = fa.flash_attention_fused(q, k, v, causal=causal, round_p=True)
+        torch.cuda.synchronize()
+        assert LAUNCHES["flash_attention_wgmma"] == before["flash_attention_wgmma"] + 2
+        top = float(plain.float().abs().max())
+        err = float((rows.float() - plain.float()).abs().max())
+        assert err <= _ulp(top), (causal, err)
+        same, same_t = (float((x == plain).float().mean()) for x in (rows, tiles))
+        assert same >= ROW_MAX_BITWISE > same_t, (causal, same, same_t)

@@ -260,13 +260,17 @@ def test_model_route_differentiates_probs_bf16():
                                rtol=0, atol=0)
     with pytest.raises(ValueError, match="round_p"):
         fa.flash_attention_train(q, k, v, round_p=torch.float16)
-    assert fa.flash_bwd_route(q, k, v, BF16) == "simt"
-    # float32 runs on fa_kernel, which rounds p against the row's max
-    # (mode 3) in serving as in training; a key tile's running max (mode 2)
-    # only where the kernel cannot find the row's max first
+    # the rounded-p backward: float32 on the CUDA cores, bfloat16 on the
+    # tensor cores where the fp32-p one is
+    assert (fa.flash_bwd_route(q, k, v, BF16), fa.flash_bwd_route(q, k, v)) == ("simt", "wgmma")
+    qb, kb, vb = (t.detach().bfloat16() for t in (q, k, v))
+    assert fa.flash_bwd_route(qb, kb, vb, BF16) == "wgmma"
+    # float32 runs on fa_kernel; both forward kernels round p against the
+    # row's max (mode 3) up to dh 256, in serving as in training; a key
+    # tile's running max (mode 2) only in fa_kernel's column split above it
     assert fa.flash_route(q, k, v) == "simt"
-    assert (fa._round_mode(BF16, True), fa._round_mode(BF16, False)) == (3, 2)
-    assert (fa._round_mode(False, True), fa._round_mode(True, True)) == (0, 1)
+    assert (fa._round_mode(BF16, 8), fa._round_mode(BF16, 320)) == (3, 2)
+    assert (fa._round_mode(False, 8), fa._round_mode(True, 8)) == (0, 1)
     torch.testing.assert_close(fa.flash_attention_fused(q, k, v, round_p=BF16),
                                out, rtol=0, atol=0)
     with pytest.raises(ValueError, match="round_p"):
