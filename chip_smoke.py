@@ -469,7 +469,24 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               its resident parameters its model shard's less, under FSDP,
               the other data rank's share of the FSDP leaves.  No new
               kernel;
-16. report  — the chain kernels' launch floor (an empty kernel with their
+16. count   — one whole step counted (``launch/op_analysis.py``, the
+              dry-run's count): qwen2.5-3b at every width,
+              ``COUNT_LAYERS`` layers, bfloat16 activations and float32
+              masters, one train step (the optimizer included) at S
+              ``COUNT_S``, batch ``COUNT_BATCH`` in ``COUNT_MB``
+              microbatches, counted twice: on meta tensors (nothing
+              allocated, as the dry-run counts) and run on the card under
+              ``analyze``.  Both must give equal flops and products, the
+              same kernel calls by name, equal to the card step's
+              ``LAUNCHES`` deltas (flash forward 2 x layers x microbatches
+              for the remat, the backward layers x microbatches), and
+              bytes within ``COUNT_BYTES_REL`` of each other (each op
+              whose count differs printed), the card's count after a warm
+              step; then the step timed alone (median of ``COUNT_REPS``,
+              synchronised): the counted TFLOP beside the step's seconds
+              and the share of the card's 989 TFLOP/s bf16 peak they
+              give.  No new kernel;
+17. report  — the chain kernels' launch floor (an empty kernel with their
               parameter block) beside each served chain call's device time
               and time per call, against ``CHAIN_DEVICE_MS`` /
               ``CHAIN_FLOOR_X`` / ``CHAIN_CALL_MS`` (printed, not checked);
@@ -795,6 +812,11 @@ DIST_TIMING = ("plain", "mesh", "mesh", "plain", "plain", "mesh")
 # its first update is lr·sign(g) wherever |g| >> eps, so a rounding-level
 # difference on a near-zero gradient moves a master by up to 2·lr.
 TP_LAYERS, TP_S, TP_BATCH, TP_MB, TP_STEPS, TP_FWD_S = 4, 1024, 2, 2, 2, 128
+# phase 16: the counted step (qwen2.5-3b, bf16 activations), and how far
+# apart the meta and card counts' bytes may lie (ops the two devices run
+# differently: none is known, so any difference is printed by op)
+COUNT_LAYERS, COUNT_S, COUNT_BATCH, COUNT_MB, COUNT_REPS = 4, 1024, 2, 2, 3
+COUNT_BYTES_REL = 0.01
 TP_LOGIT_REL, TP_FIRST_REL, TP_GNORM_RTOL, TP_LOSS_RTOL = 1e-5, 1e-5, 1e-5, 1e-4
 # serving: the bfloat16 engine on a plan, (arch, layers, model ranks), each
 # rank the same TP_REQUESTS requests of TP_PROMPT_LEN prompt tokens (seed 0),
@@ -3312,6 +3334,110 @@ def dist_phase(dev) -> tuple[dict, dict]:
           f"{rec['dryrun']['max_arg_gib']:.2f} GiB; "
           f"{rec['dryrun']['seconds']:.2f} s on the host", flush=True)
     return rec, launches
+
+
+def count_phase(dev) -> dict:
+    """Phase count (see the module docstring).  Returns its record; raises
+    AssertionError on a failed check."""
+    import torch
+
+    from repro_torch.configs.registry import ShapeCell, get_arch
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.launch.op_analysis import analyze
+    from repro_torch.launch.roofline import H100
+    from repro_torch.launch.steps import abstract_train_state
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.train import train_loop as tloop
+    from repro_torch.train.optim import OptConfig
+
+    spec = get_arch(LM_ARCH)
+    spec = dataclasses.replace(spec, model=dataclasses.replace(
+        spec.model, n_layers=COUNT_LAYERS))
+    cfg = spec.cell_config(ShapeCell("count", "train", COUNT_S, COUNT_BATCH))
+    oc = OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    L, mb = COUNT_LAYERS, COUNT_MB
+    saved = dict(LAUNCHES)
+
+    meta_step = tloop.make_train_step(Transformer(cfg, "meta"), oc,
+                                      n_microbatches=mb)
+    tokens = torch.empty((COUNT_BATCH, COUNT_S), dtype=torch.int32,
+                         device="meta")
+    t1 = time.perf_counter()
+    meta = analyze(meta_step, abstract_train_state(cfg), {"tokens": tokens})
+    meta_s = time.perf_counter() - t1
+
+    model, state = tloop.init_state(cfg, 0, device=dev)
+    step = tloop.make_train_step(model, oc, n_microbatches=mb)
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (COUNT_BATCH, COUNT_S),
+                                     generator=gen, dtype=torch.int32).to(dev)}
+    step(state, batch)        # warm: one-off work (a route's probe) first
+    before = dict(LAUNCHES)
+    torch.cuda.synchronize()
+    card = analyze(step, state, batch)
+    torch.cuda.synchronize()
+    delta = {k: LAUNCHES[k] - before[k] for k in LAUNCHES
+             if LAUNCHES[k] != before[k]}
+    secs = []
+    for _ in range(COUNT_REPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t1)
+    step_s = statistics.median(secs)
+    LAUNCHES.clear()
+    LAUNCHES.update(saved)
+    del model, state, step
+    torch.cuda.empty_cache()
+
+    calls = lambda c: {k: int(v["calls"]) for k, v in c.kernels.items()}
+    want = {"flash_attention_wgmma": 2 * L * mb,
+            "flash_attention_bwd_wgmma": L * mb}
+    row = lambda c, k: c.by_op.get(k, {"calls": 0, "flops": 0.0, "bytes": 0.0})
+    differ = {k: (row(meta, k), row(card, k))
+              for k in set(meta.by_op) | set(card.by_op)
+              if row(meta, k) != row(card, k)}
+    for k, (a, b) in sorted(differ.items()):
+        print(f"    count: {k}: {a['calls']} calls, {a['flops']:.12g} flops, "
+              f"{a['bytes']:.12g} bytes on meta; {b['calls']}, "
+              f"{b['flops']:.12g}, {b['bytes']:.12g} on the card")
+    bytes_rel = abs(meta.bytes - card.bytes) / card.bytes
+    share = card.flops / step_s / H100.peak_flops_bf16
+    rec = dict(config=f"{cfg.name} x{L} {cfg.act_dtype}", seq_len=COUNT_S,
+               batch=COUNT_BATCH, microbatches=mb, meta_s=meta_s,
+               meta=dict(flops=meta.flops, products=meta.products,
+                         bytes=meta.bytes, transcendentals=meta.transcendentals,
+                         kernels=meta.kernels),
+               card=dict(flops=card.flops, products=card.products,
+                         bytes=card.bytes,
+                         transcendentals=card.transcendentals,
+                         kernels=card.kernels),
+               launches=delta, bytes_rel=bytes_rel,
+               ops_differ={k: list(v) for k, v in differ.items()},
+               step_s=step_s, step_secs=secs, tflop=card.flops / 1e12,
+               peak_share=share)
+    if meta.flops != card.flops or meta.products != card.products:
+        raise AssertionError(
+            f"count: flops {meta.flops:.6g} (products {meta.products:.6g}) on "
+            f"meta, {card.flops:.6g} ({card.products:.6g}) on the card")
+    if not calls(meta) == calls(card) == delta == want:
+        raise AssertionError(
+            f"count: kernel calls {calls(meta)} on meta, {calls(card)} on the "
+            f"card; launches {delta}; expected {want}")
+    if bytes_rel > COUNT_BYTES_REL:
+        raise AssertionError(
+            f"count: bytes {meta.bytes:.6g} on meta, {card.bytes:.6g} on the "
+            f"card ({bytes_rel:.2%} apart; limit {COUNT_BYTES_REL:.0%})")
+    print(f"  count: {rec['config']} S={COUNT_S} B={COUNT_BATCH} in {mb} "
+          f"microbatches, one step: {card.flops / 1e12:.4f} TFLOP "
+          f"({card.products / 1e12:.4f} in products), {card.bytes / 1e9:.3f} "
+          f"GB, on meta in {meta_s:.2f} s and on the card alike (bytes "
+          f"{bytes_rel:.3%} apart); kernel calls {calls(card)} = launches; "
+          f"the step {step_s:.4f} s (median of {COUNT_REPS}): "
+          f"{card.flops / step_s / 1e12:.1f} TFLOP/s, {share:.1%} of "
+          f"{H100.peak_flops_bf16 / 1e12:.0f} TFLOP/s", flush=True)
+    return rec
 
 
 def _tp_serve_cfg(arch: str, layers: int):
@@ -5974,7 +6100,19 @@ def main() -> int:
            f"agreement {c['agreement']:.4f}") for c in tpd_rec["serve"])
           + f"; launches {_nonzero(tpd_launches)}")
 
-    # ----------------------------------------------------------- 16. report
+    # ------------------------------------------------------------ 16. count
+    t = time.perf_counter()
+    try:
+        count_rec = count_phase(dev)
+    except AssertionError as e:
+        return fail("count", str(e))
+    count_rec["seconds"] = time.perf_counter() - t
+    phase("count", t, f"{count_rec['config']}: one train step counted on "
+          f"meta and on the card alike, {count_rec['tflop']:.4f} TFLOP in "
+          f"{count_rec['step_s']:.4f} s ({count_rec['peak_share']:.1%} of the "
+          f"bf16 peak)")
+
+    # ----------------------------------------------------------- 17. report
     t = time.perf_counter()
     saved = dict(LAUNCHES)
     timed = []
@@ -6463,7 +6601,7 @@ def main() -> int:
     report.update(lm_train=train_rec, train_launches=train_launches,
                   dist=dist_rec, dist_launches=dist_launches, tp=tp_rec,
                   tp_moe=tpm_rec, tp_ssm=tps_rec, tp_dp=tpd_rec,
-                  tp_launches=tp_launches)
+                  tp_launches=tp_launches, count=count_rec)
     report.update(served=served, timed=timed, launches=launches, rows=rows,
                   chain_floor=chain_floor,
                   attention_cases=attn_cases, ssd_cases=ssd_cases,

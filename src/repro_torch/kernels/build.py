@@ -9,7 +9,11 @@ versions do.  Builds start only when a kernel is first launched on a card
 (or when :func:`build` is called); importing this module builds nothing.
 
 ``LAUNCHES`` counts each kernel's launches by name, where its wrapper
-launches it and nowhere else.
+launches it and nowhere else.  :func:`note_kernel` hands the work of a
+kernel call (:class:`Work`, a function of its shapes) to every analysis
+that listens (:mod:`repro_torch.launch.op_analysis`): a wrapper calls it
+where it launches its kernel, and on meta tensors where it returns the
+kernel's empty outputs.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import threading
 import time
 import weakref
 from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
 from pathlib import Path
 from typing import Any, Callable, Iterable
 
@@ -31,7 +36,8 @@ import torch
 
 __all__ = ["SOURCES", "LAUNCHES", "BUILD_LOG", "BUILD_SECONDS", "BUILD_DIR",
            "STAGE_CODES", "UNARY_CODES", "DTYPE_CODES", "build", "load",
-           "segment_cache", "check_launch"]
+           "segment_cache", "check_launch", "Work", "note_kernel",
+           "LISTENERS"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -121,6 +127,32 @@ def check_launch(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
+
+
+@dataclass(frozen=True)
+class Work:
+    """What one kernel call computes and moves: ``flops`` of its products,
+    ``bytes`` of its operands read and its results written once each,
+    ``transcendentals`` (its exponentials)."""
+
+    flops: float
+    bytes: float
+    transcendentals: float = 0.0
+
+
+# the analyses listening for kernel calls (op_analysis.analyze), innermost
+# last; empty outside an analysis, so a wrapper pays one test of a list
+LISTENERS: list[Callable[[str, Work], None]] = []
+
+
+def note_kernel(name: str, work: Callable[..., Work], *args: Any) -> None:
+    """Hand ``work(*args)``, one call of kernel ``name`` (its ``LAUNCHES``
+    key), to every listening analysis; nothing (not even the work) where
+    none listens."""
+    if LISTENERS:
+        w = work(*args)
+        for listen in LISTENERS:
+            listen(name, w)
 
 
 _CACHE: dict[tuple[str, int, Any], Any] = {}

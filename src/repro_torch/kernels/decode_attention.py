@@ -44,6 +44,11 @@ the grid covers ``ceil(W / chunk) + 1`` splits from each row's first live
 chunk and the work follows W, not S (:func:`plan_decode`).  A row whose
 keys all lie below its start (a piece of a sequence split over ranks)
 gives zeros and, with ``return_lse``, -inf.
+On meta tensors (shapes only: :mod:`repro_torch.launch.op_analysis`
+counting a step) the wrapper returns the kernel's outputs empty; there
+and wherever it launches it hands the call's work
+(:func:`decode_attention_work`) to :func:`repro_torch.kernels.build.
+note_kernel`.
 """
 
 from __future__ import annotations
@@ -54,10 +59,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from repro_torch.kernels.build import check_launch, load
+from repro_torch.kernels.build import Work, check_launch, load, note_kernel
 from repro_torch.kernels.ref import decode_attention_ref
 
-__all__ = ["decode_attention", "plan_decode", "DecodePlan"]
+__all__ = ["decode_attention", "plan_decode", "DecodePlan",
+           "decode_attention_work"]
 
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
 # csrc/decode_attention.cu: keys per staged tile, its largest block (64
@@ -152,6 +158,22 @@ def plan_decode(B: int, KV: int, G: int, S: int, dh: int, dtype: torch.dtype,
     return DecodePlan(chunk, splits, warps, rows, groups)
 
 
+def decode_attention_work(B: int, S: int, H: int, KV: int, dh: int, item: int,
+                          window: int = 0, return_lse: bool = False,
+                          starts: bool = False) -> Work:
+    """One call's work over the whole cache (the lengths are data; a
+    ``window`` bounds the keys a row reads to W): q·kᵀ and p·v (4·dh flops
+    a key and query head), an exponential a key, q, the caches' keys, the
+    lengths (and starts) read and the output (and log-sum-exp) written
+    once."""
+    keys = min(window, S) if window else S
+    out_item = 4 if return_lse else item
+    nbytes = (item * (B * H * dh + 2 * B * keys * KV * dh) + 4 * B * (1 + starts)
+              + B * H * dh * out_item + (4 * B * H if return_lse else 0))
+    return Work(flops=4.0 * B * H * dh * keys, bytes=float(nbytes),
+                transcendentals=float(B * H * keys))
+
+
 def _declare(lib: ctypes.CDLL) -> None:
     vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.da_launch.argtypes = ([vp] * 8 + [ci] * 5 + [cl] * 8 + [ctypes.c_float]
@@ -202,8 +224,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         return decode_attention_ref(q, k_cache, v_cache, lens,
                                     cache_start=starts, window=window,
                                     round_p=round_p, return_lse=return_lse)
-    if q.device.type != "cuda":
-        raise ValueError(f"decode_attention runs on cuda or cpu, not {q.device}")
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"decode_attention runs on cuda, cpu or meta, not "
+                         f"{q.device}")
     if k_cache.device != q.device or v_cache.device != q.device:
         raise ValueError("decode_attention: q and the caches must share a device")
     if q.dtype not in _DTYPE or k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
@@ -212,12 +235,6 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if any(t.stride(-1) != 1 for t in (q, k_cache, v_cache)):
         raise ValueError("decode_attention: the last axis of q and of the "
                          "caches must be contiguous")
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    plan = plan_decode(B, KV, H // KV, S, dh, q.dtype, sms, window=window)
-    lib = load("decode_attention", _declare)
-    lens = lens.to(q.device, non_blocking=True)
-    if starts is not None:
-        starts = starts.to(q.device, non_blocking=True)
     out = torch.empty((B, H, dh),
                       dtype=torch.float32 if return_lse else q.dtype,
                       device=q.device)
@@ -225,6 +242,16 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
            if return_lse else None)
     if out.numel() == 0:
         return (out, lse) if return_lse else out
+    note_kernel("decode_attention", decode_attention_work, B, S, H, KV, dh,
+                q.element_size(), window, return_lse, starts is not None)
+    if q.device.type == "meta":
+        return (out, lse) if return_lse else out
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    plan = plan_decode(B, KV, H // KV, S, dh, q.dtype, sms, window=window)
+    lib = load("decode_attention", _declare)
+    lens = lens.to(q.device, non_blocking=True)
+    if starts is not None:
+        starts = starts.to(q.device, non_blocking=True)
     ws = (torch.empty(plan.splits * B * H * (dh + 2), dtype=torch.float32,
                       device=q.device) if plan.splits > 1 else None)
     words = 16 // q.element_size()

@@ -59,6 +59,14 @@ what the model's attention calls when it needs a gradient (the plain
 version on the CPU, autograd through it).  There is no fallback on the
 card: a build or launch that fails raises.
 
+On meta tensors (shapes only: :mod:`repro_torch.launch.op_analysis`
+counting a step) each wrapper returns its kernel's outputs empty, with the
+shapes and dtypes of the plain version's; there and wherever it launches
+it hands the call's work (:func:`flash_attention_work`,
+:func:`flash_attention_bwd_work`: the products over the pairs the mask
+keeps, :func:`kept_pairs`) to :func:`repro_torch.kernels.build.
+note_kernel`, under its ``LAUNCHES`` key.
+
 ``round_p`` (default True, what the TPU kernel does) rounds the
 probabilities to v's dtype before P·V; ``torch.bfloat16`` rounds them to
 bfloat16 whatever v's dtype (the model's ``probs_bf16`` at float32); False
@@ -77,15 +85,17 @@ import ctypes
 import functools
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
-from repro_torch.kernels.build import check_launch, load
+from repro_torch.kernels.build import Work, check_launch, load, note_kernel
 from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_ref
 
 __all__ = ["flash_attention_fused", "flash_route", "plan_flash_simt",
            "FlashSimtPlan", "flash_attention_bwd", "flash_bwd_route",
            "plan_flash_bwd", "FlashBwdPlan", "tile_rows",
-           "FlashAttentionFn", "flash_attention_train"]
+           "FlashAttentionFn", "flash_attention_train", "kept_pairs",
+           "flash_attention_work", "flash_attention_bwd_work"]
 
 MAX_DH = 256          # the widest head the tensor-core kernel takes
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
@@ -424,8 +434,7 @@ def flash_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    round_p=round_p)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    _on_card_or_meta(q)
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: q, k and v must share a device")
     if q.dtype not in _DTYPE or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -439,9 +448,14 @@ def flash_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((B, Sq, H, dh), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    route = flash_route(q, k, v)
+    note_kernel("flash_attention_wgmma" if route == "wgmma" else "flash_attention",
+                flash_attention_work, B, Sq, Sk, H, KV, dh, q.element_size(),
+                causal, window)
+    if q.device.type == "meta":
+        return out
     stream = torch.cuda.current_stream(q.device).cuda_stream
     lib = load("flash_attention", _declare)
-    route = flash_route(q, k, v)
     mode = _round_mode(round_p, dh)
     if route == "wgmma":
         err = lib.fa_tc_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -460,6 +474,49 @@ def flash_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         int(vec), _DTYPE[q.dtype], window, stream)
     check_launch("flash_attention", err)
     return out
+
+
+def _on_card_or_meta(q: torch.Tensor) -> None:
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"flash_attention runs on cuda, cpu or meta, not "
+                         f"{q.device}")
+
+
+def kept_pairs(Sq: int, Sk: int, causal: bool = True, window: int = 0) -> int:
+    """The (query, key) pairs of one head that the mask keeps: every pair
+    unmasked, else keys ``[max(0, t − window + 1), min(t, Sk − 1)]`` of
+    query t (the top-left causal mask; S(S + 1)/2 for square causal)."""
+    if not causal:
+        return Sq * Sk
+    t = np.arange(Sq, dtype=np.int64)
+    lo = np.maximum(t - window + 1, 0) if window else 0
+    return int(np.maximum(np.minimum(t, Sk - 1) - lo + 1, 0).sum())
+
+
+def flash_attention_work(B: int, Sq: int, Sk: int, H: int, KV: int, dh: int,
+                         item: int, causal: bool = True,
+                         window: int = 0) -> Work:
+    """One forward call's work: q·kᵀ and p·v over the pairs the mask keeps
+    (4·dh flops a pair and query head), an exponential a pair, q, k and v
+    (``item`` bytes an element) read and the output written once."""
+    pairs = B * H * kept_pairs(Sq, Sk, causal, window)
+    return Work(flops=4.0 * dh * pairs,
+                bytes=float(item * (2 * B * Sq * H * dh + 2 * B * Sk * KV * dh)),
+                transcendentals=float(pairs))
+
+
+def flash_attention_bwd_work(B: int, Sq: int, Sk: int, H: int, KV: int,
+                             dh: int, item: int, causal: bool = True,
+                             window: int = 0) -> Work:
+    """One backward call's work: the five products (s, dp, dv, dk, dq; 10·dh
+    flops a kept pair and query head), p's exponential again, q, k, v and
+    the output's gradient read, dq, dk, dv and the rows' float32
+    log-sum-exp written once."""
+    pairs = B * H * kept_pairs(Sq, Sk, causal, window)
+    return Work(flops=10.0 * dh * pairs,
+                bytes=float(item * (3 * B * Sq * H * dh + 4 * B * Sk * KV * dh)
+                            + 4 * B * H * Sq),
+                transcendentals=float(pairs))
 
 
 def _check_window(causal: bool, window: int) -> None:
@@ -496,8 +553,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, g, causal=causal, window=window,
                                        round_p=round_p)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    _on_card_or_meta(q)
     if any(t.device != q.device for t in (k, v, g)):
         raise ValueError("flash_attention_bwd: q, k, v and g must share a device")
     if q.dtype not in _DTYPE or any(t.dtype != q.dtype for t in (k, v, g)):
@@ -520,11 +576,16 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     if dq.numel() == 0:
         return dq, dk.zero_(), dv.zero_(), lse
+    if route == "wgmma" and not _aligned(g):     # TMA reads g too
+        g = torch.empty_like(g, memory_format=torch.contiguous_format).copy_(g)
+    note_kernel("flash_attention_bwd_wgmma" if route == "wgmma"
+                else "flash_attention_bwd", flash_attention_bwd_work, B, Sq, Sk,
+                H, KV, dh, q.element_size(), causal, window)
+    if q.device.type == "meta":
+        return dq, dk, dv, lse
     stream = torch.cuda.current_stream(q.device).cuda_stream
     lib = load("flash_attention", _declare)
     if route == "wgmma":
-        if not _aligned(g):              # TMA reads g too
-            g = torch.empty_like(g, memory_format=torch.contiguous_format).copy_(g)
         plan = plan_flash_bwd(B, Sq, Sk, H, KV, dh, causal, window, q.dtype,
                               round_p is not False)
         scratch = torch.empty(_cdiv(plan.scratch_bytes, 16) * 4,
@@ -583,8 +644,8 @@ def flash_attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           round_p: bool | torch.dtype = False
                           ) -> torch.Tensor:
     """Attention with fp32 p (or ``round_p=torch.bfloat16``) that autograd
-    can differentiate: on CUDA tensors :class:`FlashAttentionFn` (the
-    kernels both ways), on CPU tensors the plain version."""
+    can differentiate: on CUDA (and meta) tensors :class:`FlashAttentionFn`
+    (the kernels both ways), on CPU tensors the plain version."""
     _check(q, k, v)
     _check_window(causal, window)
     if round_p is not False and round_p != torch.bfloat16:

@@ -4,19 +4,31 @@ production meshes, on the host, and count what a device would hold and do.
     PYTHONPATH=src python -m repro_torch.launch.dryrun \
         --arch all --shape all --mesh both --out experiments/dryrun_torch
 
-The port of the JAX package's ``launch/dryrun.py``.  The meshes are
-abstract (:func:`repro_torch.launch.mesh.abstract_mesh`: 256 or 512 ranks,
-no process group), and every argument is a meta tensor, so a cell
-allocates nothing.  Each cell writes ``<out>/<arch>__<shape>__<mesh>.json``
-with the planning seconds (``plan_s``), ``meta`` (the plan's notes, the
-microbatches), ``arg_bytes_per_device`` (the state and batch shards a rank
-holds: each dim of each argument divided by its axes, rounded up) and the
-roofline terms :mod:`repro_torch.launch.roofline` can count.  The
-reference's ``lower_s``, ``compile_s``, ``mem_*``, ``xla_cost_*``,
-``hlo_*`` and ``collectives`` read XLA's compiled program and its HLO
-(``launch/hlo_analysis.py``); PyTorch compiles no whole step ahead of
-running it, so they are absent, each named with the reason in the record's
-``absent``.
+The port of the JAX package's ``launch/dryrun.py``.  A cell plans on an
+abstract mesh (:func:`repro_torch.launch.mesh.abstract_mesh`: 256 or 512
+ranks, no process group) and, as the reference compiles every cell, the
+CLI counts it (:func:`count_cell`; ``--no-count`` skips it, and
+:func:`run_cell` counts with ``count=True``): a fake process
+group of the mesh's size with this process as rank 0, a ``DeviceMesh``
+over it, rank 0's model built on meta tensors through the cell's own
+split and data split (nothing allocated), and the cell's step run once
+under :func:`repro_torch.launch.op_analysis.analyze`: a whole train step
+(the optimizer included), a prefill or a decode step.  Each cell writes
+``<out>/<arch>__<shape>__<mesh>.json`` with the planning seconds
+(``plan_s``), ``meta`` (the plan's notes, the microbatches),
+``arg_bytes_per_device`` (the state and batch shards a rank holds: each
+dim of each argument divided by its axes, rounded up), the counted
+``flops``, ``bytes``, ``transcendentals`` and ``products`` of a device
+(``count_s`` the seconds it took, ``kernels`` the hand-written kernels'
+calls), the reference's ``collectives`` (``total_bytes``, ``by_kind``,
+``counts``; ``sent``: the ring bytes the device sends) and the roofline
+:mod:`repro_torch.launch.roofline` makes of them.  A cell whose count
+fails is an error naming the op; nothing falls back to the model's
+flops.  The reference's ``lower_s``, ``compile_s``, ``mem_*``,
+``xla_cost_*``, ``hlo_lines`` and ``unknown_trip_loops`` read XLA's
+compiled program and its HLO; PyTorch compiles no whole step ahead of
+running it, so they are absent, each named with the reason in the
+record's ``absent``.
 """
 
 from __future__ import annotations
@@ -29,16 +41,25 @@ import time
 import traceback
 from typing import Any
 
-from repro_torch.configs.registry import ARCH_IDS, SHAPES, get_arch
-from repro_torch.launch.mesh import PRODUCTION_SHAPES, abstract_mesh, mesh_axes
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs.registry import (ARCH_IDS, SHAPES, ArchSpec,
+                                          ShapeCell, get_arch)
+from repro_torch.launch.mesh import (PRODUCTION_SHAPES, abstract_mesh, make_mesh,
+                                     mesh_axes)
+from repro_torch.launch.op_analysis import OpCost, analyze, collective_report
 from repro_torch.launch.roofline import StepCost, model_flops, summarize
 from repro_torch.launch.steps import CellProgram, build_cell
-from repro_torch.models.transformer import _flatten
+from repro_torch.models.transformer import Transformer, _flatten, init_cache
+from repro_torch.sharding.placement import local_rows
 from repro_torch.sharding.spec import P, entry_axes, shard_shape
 from repro_torch.sharding.tp import plan_split
+from repro_torch.train.train_loop import shard_state
 
 __all__ = ["run_cell", "main", "args_bytes_per_device", "OPT_OVERRIDES",
-           "ABSENT", "split_collective_bytes", "routing_collective_bytes"]
+           "ABSENT", "count_cell", "split_collective_bytes",
+           "routing_collective_bytes"]
 
 # Beyond-paper optimized-variant config overrides per arch (the reference's
 # table): the per-arch knobs that change parameter layouts stay opt-in.
@@ -48,11 +69,15 @@ OPT_OVERRIDES: dict[str, dict] = {
 
 _NO_HLO = ("XLA's compiled program and HLO have no PyTorch counterpart: "
            "nothing compiles a whole step ahead of running it")
-ABSENT = {key: _NO_HLO for key in (
+ABSENT = {**{key: _NO_HLO for key in (
     "lower_s", "compile_s", "mem_argument_size_in_bytes",
     "mem_output_size_in_bytes", "mem_temp_size_in_bytes",
     "mem_generated_code_size_in_bytes", "mem_alias_size_in_bytes",
-    "xla_cost_flops", "xla_cost_bytes", "hlo_lines", "collectives")}
+    "xla_cost_flops", "xla_cost_bytes", "hlo_lines")},
+    "unknown_trip_loops": ("an eager step runs every layer: no loop body is "
+                           "counted once, so no trip count is unknown")}
+# what a cell planned without its count (count=False) lacks
+_NOT_COUNTED = "not counted (count=False): the model's flops, the arguments' bytes"
 
 
 def _pairs(args: Any, specs: Any) -> list[tuple[Any, Any]]:
@@ -92,6 +117,23 @@ def _rows(prog: CellProgram) -> int:
     return B // dp if B % dp == 0 else B
 
 
+def _fsdp_serving(prog: CellProgram, axes: dict[str, int]) -> bool:
+    """Whether a serving cell's plan shards a weight over ``data`` (more
+    than one rank): FSDP serving (:class:`~repro_torch.sharding.tp.
+    DataSplit`)."""
+    if prog.cell.kind == "train" or axes.get("data", 1) == 1:
+        return False
+    return any("data" in entry_axes(e)
+               for s in _flatten(prog.plan.param_specs).values()
+               for e in (s or ()))
+
+
+def _batch_over_data(prog: CellProgram) -> bool:
+    """Whether the plan splits the caches' batch over the data ranks."""
+    return any(len(s or ()) > 1 and bool(entry_axes(tuple(s)[1]))
+               for s in _flatten(prog.plan.cache_specs or {}).values())
+
+
 def split_collective_bytes(prog: CellProgram, axes: dict[str, int]) -> float:
     """Bytes a rank sends in the collectives of the split over ``model``
     (:mod:`repro_torch.sharding.tp`) in one step of the cell, ring
@@ -104,14 +146,18 @@ def split_collective_bytes(prog: CellProgram, axes: dict[str, int]) -> float:
       folded in, or the shared experts' alone where the experts stay
       whole), where each is split; the router's fp32 logits (T × E/m a
       rank) all-gathered where its columns are split; and the
-      vocab-parallel embedding's all-reduce of T × D × a;
-    * train: the forward again in the remat recompute (blocks only), the
+      vocab-parallel embedding's all-reduce of its tokens' rows (T less a
+      vision prefix's, which comes embedded) × D × a;
+    * train: the forward again in the remat recompute (blocks only), but
+      for the dense FFN's all-reduce: ``torch.utils.checkpoint`` stops a
+      block's recompute once the tensors the backward saved are made
+      again, and that all-reduce, the block's last op, feeds none; the
       backward's all-reduce of the split inputs' gradients (T × D × a per
       layer input read in part: the attention's, the FFN's; and the
       head's input), the router logits' gradient summed (T × E fp32) where
       both the router's columns and the experts are split, and the loss's
-      three reductions of T fp32 (the row max, the sum of exponentials,
-      the gold logit);
+      three reductions of the targets' fp32 statistics (the row max, the
+      sum of exponentials, the gold logit; a row's tokens less one);
     * decode on a cache split over the sequence: per layer q gathered over
       ``model`` (B × H/m × dh × a; MLA: the fp32 latent and rope queries,
       B × H/m × (r + dr) × 4) and each rank's output (B × H × dh × a; MLA:
@@ -123,14 +169,21 @@ def split_collective_bytes(prog: CellProgram, axes: dict[str, int]) -> float:
     fp32) and the gated norm's squares (T fp32); per application of
     zamba2's shared block one all-reduce of T × 2D fp32 for its heads and
     one for its FFN columns, where each is split; in training the
-    recompute again, and in the backward each Mamba2 layer's input
-    gradient (T × D × a) and its squares' (T fp32), and the shared block's
-    split inputs' (T × 2D × a each).
+    recompute again but for ``out_proj``'s all-reduce (a Mamba2 layer's
+    last op), and in the backward each Mamba2 layer's input gradient (T ×
+    D × a) and its squares' (T fp32), and the shared block's split inputs'
+    (T × 2D × a each).
 
     0 where nothing is split over ``model``; raises NotImplementedError for
-    a split the port cannot run."""
+    a split the port cannot run, and for a serving cell under the plan's
+    FSDP (weights sharded over ``data``: their gathers and the in-place
+    leaves' activations are counted by :func:`count_cell` alone)."""
     cfg = prog.cfg
     m = axes.get("model", 1)
+    if _fsdp_serving(prog, axes):
+        raise NotImplementedError(
+            "the closed form leaves out FSDP serving (weights sharded over "
+            "data); count the cell (count_cell)")
     sp = plan_split(cfg, prog.plan.param_specs, m, 0, prog.plan.cache_specs)
     if sp is None:
         return 0.0
@@ -144,8 +197,10 @@ def split_collective_bytes(prog: CellProgram, axes: dict[str, int]) -> float:
         G = cfg.hybrid_groups if b is not None else 0
         nb = (b.heads is not None) + (b.ffn is not None) if b is not None else 0
         blocks = _ring(m) * (M * T * (D + 1) * 4 + G * nb * T * 2 * D * 4)
+        last = _ring(m) * M * T * D * 4            # out_proj's, not replayed
         inputs = _ring(m) * (M * T * (D * a + 4) + G * nb * T * 2 * D * a)
     else:
+        last = 0.0
         if cfg.family == "moe":
             ep, sh = sp.experts is not None, sp.shared is not None
             reduces = heads + ep + (sh and not ep)
@@ -155,17 +210,23 @@ def split_collective_bytes(prog: CellProgram, axes: dict[str, int]) -> float:
         else:
             reduces = n_in = heads + (sp.ffn is not None)
             router = 0.0
+            if sp.ffn is not None:                   # not replayed
+                last = L * _ring(m) * T * D * 4
         blocks = L * reduces * _ring(m) * T * D * 4 + router
         inputs = L * n_in * _ring(m) * T * D * a
-    embed = _ring(m) * T * D * a if sp.vocab_in is not None else 0.0
+    # the tokens a rank embeds: a prefix's rows come embedded
+    prefix = (cfg.vision_prefix_len
+              if cfg.modality == "vision_prefix" and kind != "decode" else 0)
+    text = T - rows * prefix
+    embed = _ring(m) * text * D * a if sp.vocab_in is not None else 0.0
     sent = blocks + embed
     if kind == "train":
-        sent += blocks if cfg.remat else 0.0
+        sent += blocks - last if cfg.remat else 0.0
         sent += inputs
         if sp.router is not None and sp.experts is not None:
             sent += L * _ring(m) * T * cfg.n_experts * 4
         if sp.vocab_out is not None:
-            sent += _ring(m) * T * D * a + 3 * _ring(m) * T * 4
+            sent += _ring(m) * T * D * a + 3 * _ring(m) * (text - rows) * 4
     elif kind == "decode" and sp.cache == "seq":
         H = cfg.n_heads_eff
         if cfg.use_mla:
@@ -180,23 +241,33 @@ def split_collective_bytes(prog: CellProgram, axes: dict[str, int]) -> float:
 
 
 def routing_collective_bytes(prog: CellProgram, axes: dict[str, int],
-                             pod_reduce: str) -> float:
-    """Bytes a rank sends in one train step for the MoE layers' routing
-    over the whole microbatch (:mod:`repro_torch.models.moe`), over the n
-    ranks of the token group (pod × data, or data under the int8 cross-pod
-    reduce), per layer and microbatch: the all-gather of the (k, E) int64
-    counts ((n − 1) × k × E × 8) and the all-reduce of f's and p's sums (2
-    × E fp32) in the forward and again in the remat recompute, and that
-    all-reduce once more in the backward; with several microbatches, the
-    all-gather of the rank's token rows ((n − 1) × rows × S × 4).  0 for a
-    family without experts or at n = 1."""
+                             pod_reduce: str = "fp32") -> float:
+    """Bytes a rank sends for the MoE layers' routing over the n ranks of
+    the token group, per layer: the all-gather of the (k, E) int64 counts
+    ((n − 1) × k × E × 8) and the all-reduce of f's and p's sums (2 × E
+    fp32).  A train step (:mod:`repro_torch.models.moe`; the group pod ×
+    data, or data under the int8 cross-pod reduce) sends both per
+    microbatch, in the forward and again in the remat recompute, and the
+    sums' all-reduce once more in the backward; with several
+    microbatches, also the all-gather of the rank's token rows ((n − 1)
+    × rows × S × 4).  A decode step whose plan splits the caches' batch
+    over the data ranks (the group pod × data) sends both once.  0 for a
+    family without experts, at n = 1, and for a prefill."""
     cfg = prog.cfg
-    n = axes.get("data", 1) * (axes.get("pod", 1) if pod_reduce == "fp32" else 1)
-    if cfg.family != "moe" or n == 1 or prog.cell.kind != "train":
+    kind = prog.cell.kind
+    if kind == "decode":
+        n = (axes.get("pod", 1) * axes.get("data", 1)
+             if _batch_over_data(prog) else 1)
+    else:
+        n = axes.get("data", 1) * (axes.get("pod", 1)
+                                   if pod_reduce == "fp32" else 1)
+    if cfg.family != "moe" or n == 1 or kind == "prefill":
         return 0.0
     E, k, L = cfg.n_experts, cfg.experts_per_token, cfg.n_layers
-    micro = prog.meta.get("n_microbatches", 1)
     forward = (n - 1) * k * E * 8 + _ring(n) * 2 * E * 4
+    if kind == "decode":
+        return L * forward
+    micro = prog.meta.get("n_microbatches", 1)
     per = forward * (2 if cfg.remat else 1) + _ring(n) * 2 * E * 4
     regroup = ((n - 1) * _rows(prog) * prog.cell.seq_len * 4
                if micro > 1 else 0.0)
@@ -212,9 +283,11 @@ def _train_collective_bytes(prog: CellProgram, axes: dict[str, int],
     float32 — over (pod, data, model) for the replicated leaves a rank
     reads in part —, or over data in float32 and an int8 all-gather (+ a
     float32 scale a leaf, a ``model``-sharded leaf's reduced over
-    ``model``) over pod; the split's own collectives
-    (:func:`split_collective_bytes`) and the MoE routing's over the
-    microbatch (:func:`routing_collective_bytes`)."""
+    ``model``) over pod; the loss's float32 sum over the same ranks (and
+    its mean over pod under the int8 reduce); the clipping norm's squares
+    summed over ``model`` where the model is split; the split's own
+    collectives (:func:`split_collective_bytes`) and the MoE routing's
+    over the microbatch (:func:`routing_collective_bytes`)."""
     params = _flatten(prog.args[0].params)
     specs = _flatten(prog.in_shardings[0].params)
     m = axes.get("model", 1)
@@ -235,6 +308,11 @@ def _train_collective_bytes(prog: CellProgram, axes: dict[str, int],
             sent += (pods - 1) * (g / 4 + 4)      # int8 payload + a scale
             if any("model" in entry_axes(e) for e in (s or ())):
                 sent += _ring(m) * 4              # the scale's max over model
+    sent += _ring(over) * 4                       # the loss's sum
+    if pod_reduce == "int8_ef":
+        sent += _ring(pods) * 4                   # its mean over pod
+    if sp is not None:
+        sent += _ring(m) * 4                      # the norm's squares
     return (sent + split_collective_bytes(prog, axes)
             + routing_collective_bytes(prog, axes, pod_reduce))
 
@@ -245,9 +323,62 @@ def _model_only(spec) -> P:
                for e in (spec or ())))
 
 
+def count_cell(spec: ArchSpec, cell: ShapeCell, shape: tuple[int, ...],
+               names: tuple[str, ...], **build: Any
+               ) -> tuple[CellProgram, OpCost]:
+    """(the cell's program on the mesh, rank 0's step counted): a fake
+    process group of the mesh's size with this process as rank 0 and a
+    ``DeviceMesh`` over it; rank 0's model on meta tensors through the
+    cell's split and data split; the cell's ``fn`` run once under
+    :func:`~repro_torch.launch.op_analysis.analyze` on rank 0's state and
+    batch rows (a train step), batch rows (a prefill) or rows of tokens,
+    positions and caches (a decode step).  ``build`` goes to
+    :func:`~repro_torch.launch.steps.build_cell`.  Raises if a process
+    group is already running; destroys its own."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("count_cell starts a fake process group of the "
+                           "mesh's size; one is already running")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=math.prod(shape))
+    try:
+        mesh = make_mesh(shape, names, "cpu")
+        prog = build_cell(spec, cell, mesh, **build)
+        split, data = prog.split(mesh), prog.data(mesh)
+        if cell.kind == "train":
+            model = Transformer(prog.cfg, "meta", split)
+            prog = build_cell(spec, cell, mesh, model=model, **build)
+            state = shard_state(prog.args[0], prog.in_shardings[0], mesh)
+            args = (state, local_rows(prog.args[1],
+                                      prog.in_shardings[1]["tokens"], mesh))
+        else:
+            model = Transformer(prog.cfg, "meta", split, data)
+            if cell.kind == "prefill":
+                args = (model, local_rows(prog.args[1],
+                                          prog.in_shardings[1]["tokens"], mesh))
+            else:
+                B = cell.global_batch
+                a, b = data.rows(B) if data is not None else (0, B)
+                caches = init_cache(prog.cfg, B, cell.seq_len, device="meta",
+                                    split=split, data=data)
+                rows = torch.empty((b - a,), dtype=torch.int32, device="meta")
+                args = (model, rows, caches, rows)
+        return prog, analyze(prog.fn, *args)
+    finally:
+        dist.destroy_process_group()
+
+
 def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool,
              pod_reduce: str = "fp32", allow_uneven: bool = False,
-             cfg_overrides: dict | None = None) -> dict:
+             cfg_overrides: dict | None = None, count: bool = False) -> dict:
+    """The cell's record.  ``count`` counts rank 0's step
+    (:func:`count_cell`) for the roofline, as the reference compiles every
+    cell: the CLI's default, off here so that callers that only plan (the
+    planner's parity tests, a sweep of every cell in seconds) keep their
+    time; without it the roofline reads the model's flops, the arguments'
+    bytes and the closed-form collectives.  Raises if ``count`` and a
+    process group is already running."""
     spec = get_arch(arch_id)
     cell = SHAPES[shape_name]
     mesh_name = "pod2x16x16" if multi_pod else "pod16x16"
@@ -259,55 +390,80 @@ def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool,
         rec["status"] = "skipped"
         rec["reason"] = spec.skip_cells[shape_name]
         return rec
+    if count and dist.is_initialized():
+        raise RuntimeError("run_cell(count=True) starts a fake process group "
+                           "of the mesh's size; one is already running")
+    build = dict(pod_reduce=pod_reduce, allow_uneven=allow_uneven,
+                 cfg_overrides=cfg_overrides)
     try:
-        mesh = abstract_mesh(*PRODUCTION_SHAPES[multi_pod])
+        shape, names = PRODUCTION_SHAPES[multi_pod]
+        mesh = abstract_mesh(shape, names)
         axes = mesh_axes(mesh)
         n_chips = mesh.size
         t0 = time.perf_counter()
-        prog = build_cell(spec, cell, mesh, pod_reduce=pod_reduce,
-                          allow_uneven=allow_uneven, cfg_overrides=cfg_overrides)
+        prog = build_cell(spec, cell, mesh, **build)
         rec["plan_s"] = time.perf_counter() - t0
         rec["meta"] = prog.meta
         rec["arg_bytes_per_device"] = args_bytes_per_device(prog, axes)
-        sources = {
-            "flops": "model_flops / chips (6 or 2 x N_active x tokens)",
-            "bytes": "arg_bytes_per_device: every argument shard read once",
-        }
-        coll = None
-        try:
-            if cell.kind == "train":
-                coll = _train_collective_bytes(prog, axes, pod_reduce)
-                sources["collective_bytes"] = (
-                    "the port's train step: the masters' all-gather over the "
-                    "axes but model, the gradients' all-reduce, the split's "
-                    "all-reduces over model (2 a layer forward, again in the "
-                    "recompute and the backward, the embedding's, the loss's "
-                    "3; MoE: the router logits' gather; Mamba2: out_proj's "
-                    "and the gated norm's squares a layer, the shared "
-                    "block's 2 an application), the MoE routing's "
-                    "counts and aux sums over the data ranks, ring "
-                    "algorithms")
-            else:
-                coll = split_collective_bytes(prog, axes)
-                sources["collective_bytes"] = (
-                    "the split over model in one forward: 2 all-reduces a "
-                    "layer (MoE: the router logits' gather; Mamba2: "
-                    "out_proj's and the gated norm's squares a layer, the "
-                    "shared block's 2 an application), the "
-                    "embedding's; on a sequence-split cache q's, the "
-                    "outputs' and the log-sum-exps' all-gathers a layer")
-        except NotImplementedError as e:
-            sources["collective_bytes"] = f"not counted: {e}"
-        cost = StepCost(flops=model_flops(prog.cfg, cell) / n_chips,
-                        bytes=rec["arg_bytes_per_device"],
-                        collective_bytes=coll, sources=sources)
-        rec["roofline"] = summarize(prog.cfg, cell, cost, n_chips)
         rec["absent"] = dict(ABSENT)
+        if count:
+            t0 = time.perf_counter()
+            _, op = count_cell(spec, cell, shape, names, **build)
+            rec["count_s"] = time.perf_counter() - t0
+            rec.update(flops=op.flops, bytes=op.bytes,
+                       transcendentals=op.transcendentals,
+                       products=op.products, kernels=op.kernels,
+                       collectives=collective_report(op))
+            cost = StepCost(flops=op.flops, bytes=op.bytes,
+                            collective_bytes=op.coll_sent, sources={
+                "flops": "counted: rank 0's step on meta tensors "
+                         "(op_analysis: products, elementwise ops, the "
+                         "kernels' work over the pairs the mask keeps)",
+                "bytes": "counted: each op's inputs and outputs, views "
+                         "and allocations free (op_analysis)",
+                "collective_bytes": "counted: the bytes rank 0 sends in "
+                                    "the step's collectives, ring "
+                                    "algorithms over each group's size "
+                                    "(op_analysis)"})
+        else:
+            for key in ("flops", "bytes", "transcendentals", "collectives"):
+                rec["absent"][key] = _NOT_COUNTED
+            cost = _closed_form(prog, axes, pod_reduce, n_chips,
+                                rec["arg_bytes_per_device"])
+        rec["roofline"] = summarize(prog.cfg, cell, cost, n_chips)
     except Exception as e:          # noqa: BLE001 — a cell's failure is its record
         rec["status"] = "error"
         rec["error"] = f"{type(e).__name__}: {e}"
         rec["traceback"] = traceback.format_exc()[-4000:]
     return rec
+
+
+def _closed_form(prog: CellProgram, axes: dict[str, int], pod_reduce: str,
+                 n_chips: int, arg_bytes: float) -> StepCost:
+    """The roofline's inputs without a count: the model's flops, every
+    argument shard read once, the closed-form collectives."""
+    sources = {
+        "flops": "model_flops / chips (6 or 2 x N_active x tokens)",
+        "bytes": "arg_bytes_per_device: every argument shard read once",
+    }
+    coll = None
+    try:
+        if prog.cell.kind == "train":
+            coll = _train_collective_bytes(prog, axes, pod_reduce)
+            sources["collective_bytes"] = (
+                "closed form of the port's train step "
+                "(_train_collective_bytes), ring algorithms")
+        else:
+            coll = (split_collective_bytes(prog, axes)
+                    + routing_collective_bytes(prog, axes))
+            sources["collective_bytes"] = (
+                "closed form of the split over model in one forward "
+                "(split_collective_bytes) and a decode step's MoE routing "
+                "over the data ranks, ring algorithms")
+    except NotImplementedError as e:
+        sources["collective_bytes"] = f"not counted: {e}"
+    return StepCost(flops=model_flops(prog.cfg, prog.cell) / n_chips,
+                    bytes=arg_bytes, collective_bytes=coll, sources=sources)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -323,6 +479,9 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--list", action="store_true")
     ap.add_argument("--opt", action="store_true",
                     help="apply the beyond-paper per-arch overrides")
+    ap.add_argument("--no-count", action="store_true",
+                    help="plan only: the roofline from the model's flops, "
+                         "the arguments' bytes, the closed-form collectives")
     args = ap.parse_args(argv)
 
     archs = ARCH_IDS if args.arch == "all" else args.arch.split(",")
@@ -351,7 +510,7 @@ def main(argv: list[str] | None = None) -> int:
                 t0 = time.perf_counter()
                 rec = run_cell(a, s, multi_pod=mp, pod_reduce=args.pod_reduce,
                                cfg_overrides=OPT_OVERRIDES.get(a) if args.opt
-                               else None)
+                               else None, count=not args.no_count)
                 dt = time.perf_counter() - t0
                 with open(path, "w") as f:
                     json.dump(rec, f, indent=1, default=float)
@@ -363,6 +522,7 @@ def main(argv: list[str] | None = None) -> int:
                             else f"{r['collective_s']:.4f}s")
                     extra = (f"dom={r['dominant']} comp={r['compute_s']:.4f}s "
                              f"mem={r['memory_s']:.4f}s coll={coll} "
+                             f"useful={r['useful_flops_ratio']:.3f} "
                              f"args={rec['arg_bytes_per_device'] / 2**30:.2f}GiB")
                 elif rec["status"] == "error":
                     failures += 1

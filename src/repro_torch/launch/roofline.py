@@ -1,25 +1,24 @@
-"""§Roofline terms of a step on a mesh of H100s, from what the port can
-count without running it.
+"""§Roofline terms of a step on a mesh of H100s.
 
-The port of the JAX package's ``launch/roofline.py``.  ``MODEL_FLOPS`` is
-the reference's: 6·N_active·tokens for a train step, 2·N_active·tokens
-for a forward (decode: one token a sequence).  The reference's three terms
-read the compiled program's HLO (trip-count-aware flops and bytes, the
-collective schedule); PyTorch has no such artifact, so each term here is
-computed from a stated source, which the record names:
+The port of the JAX package's ``launch/roofline.py``.  The reference's
+three terms read the compiled program's HLO through ``hlo_analysis``; the
+port's read :mod:`repro_torch.launch.op_analysis`'s count of one rank's
+step (the dry-run's default, :func:`repro_torch.launch.dryrun.
+count_cell`), or without a count the model's flops, the arguments' bytes
+and the closed-form collectives.  Each term's source is named in the
+record:
 
-    compute_s    = model_flops / chips / 989e12 FLOP/s (the bf16 dense
+    compute_s    = flops a device / 989e12 FLOP/s (the bf16 dense
                    tensor-core peak of one H100 SXM, NVIDIA's data sheet)
-    memory_s     = the arguments' bytes a device holds (state and batch
-                   shards), each read once / 3.35e12 B/s (its HBM)
-    collective_s = the bytes a device sends in the step's collectives (the
-                   port's train step: the masters' all-gather over the
-                   axes but ``model``, the gradients' all-reduce over the
-                   data-parallel group, and the dense split's all-reduces
-                   over ``model``; a serving cell: the split's collectives
-                   of one forward; ring algorithms;
-                   ``dryrun.split_collective_bytes``) / 450e9 B/s (one
-                   direction of its NVLink)
+    memory_s     = bytes a device moves / 3.35e12 B/s (its HBM)
+    collective_s = the bytes a device sends in the step's collectives (ring
+                   algorithms) / 450e9 B/s (one direction of its NVLink)
+
+plus the reference's ``MODEL_FLOPS`` = 6·N_active·tokens for a train step,
+2·N_active·tokens for a forward (decode: one token a sequence), the
+counted flops over all devices (``flops_global``) and the usefulness
+ratio ``model_flops / flops_global`` (remat pushes it below 1 by design;
+values far below 0.3 flag waste).
 
 These are lower bounds on a step of the port's design, not a trace of one.
 """
@@ -114,13 +113,16 @@ def summarize(cfg: ModelConfig, cell: ShapeCell, cost: StepCost,
                            chip)
     known = [v for v in terms.values() if v is not None]
     bound, total = max(known), sum(known)
+    mf, flops_global = model_flops(cfg, cell), cost.flops * n_chips
     return {
         **terms,
         "dominant": dominant_term(terms),
         "flops_per_device": cost.flops,
+        "flops_global": flops_global,
         "bytes_per_device": cost.bytes,
         "collective_bytes_per_device": cost.collective_bytes,
-        "model_flops": model_flops(cfg, cell),
+        "model_flops": mf,
+        "useful_flops_ratio": mf / flops_global if flops_global else float("nan"),
         "n_chips": n_chips,
         "chip": chip.name,
         "sources": dict(cost.sources),

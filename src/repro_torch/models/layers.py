@@ -72,7 +72,8 @@ MM_F32_ROUTE: dict[str, str] = {}
 
 
 def _mm_bf16_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    route = MM_F32_ROUTE.get("bfloat16")
+    # meta tensors (a step counted, shapes only) take the out_dtype route
+    route = MM_F32_ROUTE.get("bfloat16") if a.device.type == "cuda" else "out_dtype"
     if route is None:                  # probe once, on two tiny operands
         one = torch.ones((1, 1), dtype=torch.bfloat16, device=a.device)
         try:
@@ -92,12 +93,13 @@ class ProductF32(torch.autograd.Function):
     route, on the CPU by upcast operands.  The backward is the reference's:
     ``da = (g @ bᵀ.float())`` and ``db = (aᵀ.float() @ g)``, fp32 products
     rounded once to the operands' dtype (what autograd gives the upcast
-    product)."""
+    product).  On meta tensors (a step counted) the card's ``out_dtype``
+    route."""
 
     @staticmethod
     def forward(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         ctx.save_for_backward(a, b)
-        if a.device.type != "cuda":
+        if a.device.type == "cpu":
             return a.float() @ b.float()
         if a.dim() == 3:
             return torch.bmm(a, b, out_dtype=torch.float32)

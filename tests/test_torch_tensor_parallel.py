@@ -641,9 +641,12 @@ def test_dryrun_counts_the_split_by_hand():
     T, D, L = 32, 64, 2
     fwd = L * 2 * T * D * 4            # heads and FFN columns: fp32 partials
     embed = T * D * 4                  # vocab-parallel embedding
-    recompute = fwd                    # remat
+    # remat: the recompute stops at the block's last saved tensor, before
+    # the FFN's all-reduce
+    recompute = L * T * D * 4
     bwd = L * 2 * T * D * 4            # the split inputs' gradients
-    head = T * D * 4 + 3 * T * 4       # the head's input gradient, the loss
+    # the head's input gradient; the loss over 2 rows x 15 targets
+    head = T * D * 4 + 3 * (T - 2) * 4
     assert dryrun.split_collective_bytes(prog, axes) == (
         fwd + embed + recompute + bwd + head)
     # the gradients' all-reduce over data (1 x the bytes of the rank's
@@ -659,5 +662,7 @@ def test_dryrun_counts_the_split_by_hand():
     # rank sends, its dims divided by data and model
     gathers = 4 * (2 * 128 * 32 + 2 * 4 * 8 * 32 * 2 + 2 * 2 * 32 * 2 * 8
                    + 3 * 2 * 32 * 64)
+    # the loss's sum over data, the clipping norm's squares over model
+    scalars = 4 + 4
     assert dryrun._train_collective_bytes(prog, axes, "fp32") == (
-        grads + gathers + fwd + embed + recompute + bwd + head)
+        grads + gathers + scalars + fwd + embed + recompute + bwd + head)

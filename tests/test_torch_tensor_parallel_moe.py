@@ -609,7 +609,7 @@ def test_dryrun_counts_a_moe_cell_by_hand():
     fwd = L * 2 * T * D * 4          # MLA's wo and the experts' combine
     embed = T * D * 4
     bwd = L * 2 * T * D * 4          # the attention's and the MoE's input
-    head = T * D * 4 + 3 * T * 4
+    head = T * D * 4 + 3 * (T - 2) * 4  # the loss: 2 rows x 15 targets
     assert dryrun.split_collective_bytes(prog, axes) == (
         fwd + embed + fwd + bwd + head)
     # over the 2 data ranks a layer: the (k, E) int64 counts gathered, f's
