@@ -486,7 +486,30 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               synchronised): the counted TFLOP beside the step's seconds
               and the share of the card's 989 TFLOP/s bf16 peak they
               give.  No new kernel;
-17. report  — the chain kernels' launch floor (an empty kernel with their
+17. tp-uneven — the planner's uneven splits over ``model``
+              (``allow_uneven``: GSPMD's pieces, ``ceil(n / m)`` a rank)
+              at (data 1, model 3), ranks as phase 12's: the kernels with
+              a head offset (a rank's query heads need not be whole KV
+              groups: ``fa_tc_kernel``, ``fa_kernel``, ``fbt_*`` and
+              ``fb_*`` in both dtypes, ``da_kernel``) against their plain
+              versions at granite-8b's and qwen2.5-3b's rank-1 shapes,
+              each timed beside the same call on whole groups; qwen2.5-3b
+              x4 and granite-8b x2 (K and V gathered) and olmoe-1b-7b x2
+              (experts 22, 22, 20) trained one float32 step and served in
+              bfloat16 on the uneven plans, held as phases 12 and 13 hold
+              theirs (the first moments at ``TPU_FIRST_REL``, measured
+              against a float64 step); a planted fault (``TPU_FAULT``:
+              granite-8b's step with K and V's gradient not summed over
+              model) must keep the logits' limit and fail the first
+              moments'; qwen2.5-3b's step counted on meta
+              (the dry-run's ``count_cell``) and on the card for rank 0
+              (the largest piece) and rank 2 (the shortest): flops,
+              products and kernel
+              calls equal, bytes within ``COUNT_BYTES_REL``; each rank's
+              resident parameter GiB beside its GSPMD piece; the main
+              path's attention calls on heads that are not whole groups
+              counted (``offset_calls``).  No new kernel;
+18. report  — the chain kernels' launch floor (an empty kernel with their
               parameter block) beside each served chain call's device time
               and time per call, against ``CHAIN_DEVICE_MS`` /
               ``CHAIN_FLOOR_X`` / ``CHAIN_CALL_MS`` (printed, not checked);
@@ -535,8 +558,11 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
               the
               ``kernels`` JSON line (the forward flash kernels' launches
               are the served paths', their training launches beside them,
-              and phases 12's to 15's summed over their ranks,
-              ``tp_launches``),
+              and phases 12's to 15's and 17's summed over their ranks,
+              ``tp_launches``; the ``*_offset`` entries: phase 17's
+              kernels with a head offset, their launches phase 17's and
+              ``offset_calls`` the calls on heads that are not whole
+              groups),
               the card line, and last ``{"ok": true, "device": {...}}``.
 
 Every path runs at its full depth, except deepseek-v2-236b (2 of 60
@@ -546,8 +572,9 @@ mesh runs (``DIST_LAYERS`` of qwen2.5-3b's 36 layers, every width kept),
 phase 12's (``TP_LAYERS`` of qwen2.5-3b's, 2 of granite-8b's 36),
 phase 13's (2 of olmoe-1b-7b's 16, 2 of deepseek-v2-236b's 60), phase
 14's (4 of mamba2-1.3b's 48 layers, 6 of zamba2-7b's 81 block
-applications) and phase 15's (phases 12-14's depths), each cut for the
-phase's time, every width kept.
+applications), phase 15's (phases 12-14's depths) and phase 17's (4 of
+qwen2.5-3b's 36, 2 of granite-8b's 36, 2 of olmoe-1b-7b's 16), each cut
+for the phase's time, every width kept.
 
 Needs only the repository (``src/`` on the path) and one card.  Writes the
 full per-case report to ``chiprun_out/chip_smoke.json``.
@@ -555,6 +582,7 @@ full per-case report to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -902,6 +930,52 @@ TPS_FIRST_REL = 2e-5
 # FSDP, all but its 1 / data share of the leaves the plan puts over data.
 TPD_SERVE = (("qwen2.5-3b", 4), ("deepseek-v2-236b", 2), ("zamba2-7b", 6))
 TPD_MESHES = ((2, 1), (2, 2))
+# phase tp-uneven: the planner's uneven splits over `model`
+# (allow_uneven: GSPMD's pieces, ceil(n / m) a rank, the last short) at
+# (data 1, model TPU_M), ranks as phase 12's.  Training (float32, phase
+# 12's cell, TPU_STEPS step): (arch, layers) of TPU_TRAIN (qwen2.5-3b: 16
+# heads over 3, 6, 6, 4, ranks 1 and 2 from KV head 0's and 1's middle;
+# granite-8b: 32 over 3, 11, 11, 10, its wk/wv 3, 3, 2, so K and V are
+# gathered) and the MoE's TPM_TRAIN (olmoe-1b-7b: experts 22, 22, 20,
+# heads 6, 6, 4, the vocabulary 16,811, 16,811, 16,810 of 50,432 padded),
+# under phase 12's limits but for the first moments' (TPU_FIRST_REL) and
+# phase 13's routing (one process routed on the ranks' choices);
+# qwen2.5-3b's step then counted on the card by ranks 0
+# (the largest piece) and 2 (the shortest) against the dry-run's meta count
+# of each (flops, products, kernel calls exact; bytes within
+# COUNT_BYTES_REL).  Serving: (arch, layers) of TPU_SERVE in bfloat16 on
+# decode_32k's plan at model TPU_M (caches over the sequence: 171, 171 and
+# 170 of 512 slots), phase 12's traffic and bf16 rule, olmoe on the no-drop
+# copy.  The kernels with a head offset (TPU_OFFSETS: a rank's heads as
+# model 3 cuts them, B 1, S TPU_S) against their plain versions at phase
+# 6's and 10's limits, each timed beside the same call on whole groups (the
+# KV heads' G heads each, offset 0).
+TPU_M, TPU_STEPS, TPU_S = 3, 1, 1024
+# The first moments at TPU_FIRST_REL (phase 14's measured TPS_FIRST_REL),
+# not phase 12's 1e-5: against a float64 step (tools/tp_ssm_first.py
+# --train qwen2.5-3b 4 --train granite-8b 2 --model 3 --uneven; NVIDIA H100
+# 80GB HBM3, 700.00 W) the float32 one-process step itself lies up to
+# 1.77e-5 (qwen2.5-3b x4) and 1.92e-5 (granite-8b x2, wk) from the exact
+# first update, and the ranks up to 1.73e-5, so two sound float32 runs
+# part by more than 1e-5 (qwen's rank 2 read 1.11e-5, w_gate).  The
+# logits keep TP_LOGIT_REL (1e-5; they read 2.2e-6): a dropped head offset
+# misses them by far more (tests/test_torch_uneven_split.py).
+TPU_FIRST_REL = TPS_FIRST_REL
+TPU_TRAIN = (("qwen2.5-3b", 4), ("granite-8b", 2))
+TPU_SERVE = (("qwen2.5-3b", 4), ("granite-8b", 2), ("olmoe-1b-7b", 2))
+TPU_COUNT = ("qwen2.5-3b", 4, (0, TPU_M - 1))     # the ranks counted
+# the first moments' control: (arch, layers) of TPU_TRAIN trained once more
+# with K and V gathered over model but their gradient not summed over the
+# ranks (granite-8b: KV heads 2 and 5 keep one rank's share), a fault in
+# the backward alone: its logits must hold TP_LOGIT_REL and some rank's
+# first moments must miss TPU_FIRST_REL
+TPU_FAULT = ("granite-8b", 2)
+# (label, dtype, H, KV, G, offset, dh): rank 1 of granite-8b and of
+# qwen2.5-3b at model 3, in each dtype
+TPU_OFFSETS = (("granite-8b rank 1", "bfloat16", 11, 4, 4, 3, 128),
+               ("granite-8b rank 1", "float32", 11, 4, 4, 3, 128),
+               ("qwen2.5-3b rank 1", "float32", 6, 2, 8, 6, 128),
+               ("qwen2.5-3b rank 1", "bfloat16", 6, 2, 8, 6, 128))
 # the two routes' kernels, as a trace names them (by substring)
 FLASH_BWD_KERNELS = ("fb_dq_kernel", "fb_dkdv_kernel", "fbt_dq_kernel",
                      "fbt_dkdv_kernel", "fbt_dkdv2_kernel", "fbs_split_kernel")
@@ -1569,7 +1643,7 @@ def route_log(enabled: bool = True, force: list | None = None):
         router, sp = p["router"], kw.get("split")
         with torch.no_grad():
             if sp is not None and sp.router is not None:     # its columns
-                router = gather_from_model(router.detach(), -1, sp)
+                router = gather_from_model(router.detach(), -1, sp, of="router")
             cap = moe.capacity(T, k, router.shape[-1], capacity_factor)
             gates, _, top_i, _, keep = moe.route(router, x.reshape(T, -1), k,
                                                  cap)
@@ -1603,6 +1677,38 @@ def route_log(enabled: bool = True, force: list | None = None):
     if force is not None and len(log) != len(force):
         raise AssertionError(f"route_log: {len(log)} MoE layers ran, "
                              f"{len(force)} forced")
+
+
+@contextlib.contextmanager
+def offset_calls():
+    """Count the model's attention calls whose query heads are not whole
+    KV groups (a rank's share of an uneven split: a head offset, or a short
+    last group), by the kernel wrapper the model calls (flash forward,
+    flash with its backward, decode): yields the dict, filled as the calls
+    run (spies on ``models.attention``'s names; the wrappers' own counts,
+    ``LAUNCHES``, are untouched)."""
+    from repro_torch.models import attention as att
+
+    counts: dict[str, int] = {}
+    names = ("flash_attention_fused", "flash_attention_train",
+             "decode_attention")
+    saved = {n: getattr(att, n) for n in names}
+
+    def spy(name, fn):
+        def call(q, k, *args, group=None, head_offset=0, **kw):
+            H, KV = q.shape[-2], k.shape[2]
+            if group is not None and H and (head_offset or H != KV * group):
+                counts[name] = counts.get(name, 0) + 1
+            return fn(q, k, *args, group=group, head_offset=head_offset, **kw)
+        return call
+
+    for n, fn in saved.items():
+        setattr(att, n, spy(n, fn))
+    try:
+        yield counts
+    finally:
+        for n, fn in saved.items():
+            setattr(att, n, fn)
 
 
 def route_flips(a: list[dict], b: list[dict], key: str = "top_i",
@@ -3494,6 +3600,29 @@ def _tp_bytes(model) -> float:
     return float(sum(p.numel() * p.element_size() for p in model.parameters()))
 
 
+def _tp_piece_gib(cfg, plan, mesh) -> float:
+    """The GiB of the parameters this rank of ``mesh`` holds under
+    ``plan``'s specs: each leaf's GSPMD piece (``placement.local_slices``:
+    ``ceil(n / m)`` from the first rank on, the last short or empty) in the
+    whole model's dtype."""
+    from repro_torch.models.transformer import Transformer, _flatten, _leaves
+    from repro_torch.sharding.placement import local_slices
+
+    specs = _flatten(plan.param_specs)
+    names = mesh.mesh_dim_names
+    axes = dict(zip(names, mesh.shape))
+    coord = dict(zip(names, mesh.get_coordinate()))
+    total = 0
+    for path, ts in _leaves(Transformer(cfg, "meta")).items():
+        spec = tuple(specs[path] or ())
+        if path.startswith("blocks/"):
+            spec = spec[1:]
+        for t in ts:
+            sl = local_slices(tuple(t.shape), spec, axes, coord)
+            total += math.prod(x.stop - x.start for x in sl) * t.element_size()
+    return total / 2**30
+
+
 def _tp_layout(split) -> str:
     """What a rank's split computes, as a phase prints it."""
     if split is None:
@@ -3562,7 +3691,9 @@ def tp_child(rank: int, world: int, tmp: str, jobs, device: str) -> None:
     from repro_torch.configs.registry import ShapeCell
     from repro_torch.kernels.build import LAUNCHES
     from repro_torch.launch.mesh import init_group, make_mesh
+    from repro_torch.launch.op_analysis import analyze
     from repro_torch.launch.steps import build_cell
+    from repro_torch.models import attention
     from repro_torch.models.transformer import (Transformer, _flatten,
                                                 _leaves, init_params)
     from repro_torch.serve.engine import ServeEngine
@@ -3589,15 +3720,16 @@ def tp_child(rank: int, world: int, tmp: str, jobs, device: str) -> None:
         torch.cuda.synchronize()
         return out, time.perf_counter() - t1
 
-    def train(shape, arch=LM_ARCH, layers=TP_LAYERS):
+    def train(shape, arch=LM_ARCH, layers=TP_LAYERS, uneven=False,
+              n_steps=TP_STEPS, count=False, fault=False):
         spec, cell, cfg = _tp_train_cfg(arch, layers)
         mesh = make_mesh(shape, ("data", "model"), dev)
         torch.cuda.reset_peak_memory_stats()
-        split = build_cell(spec, cell, mesh).split(mesh)
+        split = build_cell(spec, cell, mesh, allow_uneven=uneven).split(mesh)
         model, state = tloop.init_state(cfg, 0, device=dev, split=split)
         prog = build_cell(spec, cell, mesh, microbatch_override=TP_MB,
                           oc=OptConfig(lr=1e-3, warmup_steps=1, total_steps=10),
-                          model=model)
+                          model=model, allow_uneven=uneven)
         state = tloop.shard_state(state, prog.in_shardings[0], mesh)
         gc.collect()
         torch.cuda.empty_cache()
@@ -3607,40 +3739,65 @@ def tp_child(rank: int, world: int, tmp: str, jobs, device: str) -> None:
         for k in counted:
             LAUNCHES[k] = 0
         steps, first_err = [], {}
-        for i, b in enumerate(_tp_data(cfg.vocab_size)):
-            (state, m), sec = sync_time(
-                lambda: prog.fn(state, local_rows(b, rows, mesh)))
-            steps.append(dict(loss=float(m["loss"]),
-                              grad_norm=float(m["grad_norm"]), seconds=sec))
-            if i == 0:       # this rank's first moments against the reference's
-                got = _flatten(state.m)
-                for path, want in ref_first.items():
-                    w = want.to(dev)
-                    first_err[path] = (float((got[path].to_local() - w).abs().max())
-                                       / max(float(w.abs().max()), 1e-30))
-                    del w
+        real = attention.gather_from_model
+        if fault:            # phase tp-uneven's planted fault (TPU_FAULT)
+            attention.gather_from_model = (
+                lambda x, dim, split, grad_sum=False, of=None: real(
+                    x, dim, split, grad_sum=grad_sum and of != "kv", of=of))
+        try:
+            for i, b in enumerate(_tp_data(cfg.vocab_size)[:n_steps]):
+                (state, m), sec = sync_time(
+                    lambda: prog.fn(state, local_rows(b, rows, mesh)))
+                steps.append(dict(loss=float(m["loss"]),
+                                  grad_norm=float(m["grad_norm"]), seconds=sec))
+                if i == 0:   # this rank's first moments against the reference's
+                    got = _flatten(state.m)
+                    for path, want in ref_first.items():
+                        w = want.to(dev)
+                        first_err[path] = (
+                            float((got[path].to_local() - w).abs().max())
+                            / max(float(w.abs().max()), 1e-30))
+                        del w
+        finally:
+            attention.gather_from_model = real
         launches = {k: LAUNCHES[k] for k in counted}
         with torch.no_grad():
             logits, _, _ = model.forward_full(_tp_fwd_tokens(cfg.vocab_size))
-            logits = gather_from_model(logits, -1, split)
+            logits = gather_from_model(logits, -1, split, of="vocab_out")
         want = torch.load(os.path.join(tmp, f"tp_ref_logits_{arch}.pt")).to(dev)
         logit_err = float((logits - want).abs().max()) / float(want.abs().max())
         out = dict(steps=steps, first_err=first_err, launches=launches,
                    logit_err=logit_err, param_gib=_tp_bytes(model) / 2**30,
-                   whole_gib=whole / 2**30,
+                   whole_gib=whole / 2**30, piece_gib=_tp_piece_gib(
+                       cfg, prog.plan, mesh),
                    peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                    partial=sorted(split.partial), layout=_tp_layout(split))
+        if count:                     # one more step, counted on the card
+            b = local_rows(_tp_data(cfg.vocab_size)[0], rows, mesh)
+            for k in counted:
+                LAUNCHES[k] = 0
+            torch.cuda.synchronize()
+            op = analyze(prog.fn, state, b)
+            torch.cuda.synchronize()
+            out["count"] = dict(flops=op.flops, products=op.products,
+                                bytes=op.bytes, calls={
+                                    k: int(v["calls"]) for k, v in
+                                    op.kernels.items()},
+                                launches=_nonzero({k: LAUNCHES[k]
+                                                   for k in counted}),
+                                by_op=dict(op.by_op))
         del model, state, prog, logits, want, ref_first
         return out
 
-    def serve_model(arch, layers, shape):
+    def serve_model(arch, layers, shape, uneven=False):
         """(cfg, mesh, plan, the rank's model on the plan, its record)."""
         spec, cfg = _tp_serve_cfg(arch, layers)
         mesh = make_mesh(shape, ("data", "model"), dev)
         torch.cuda.reset_peak_memory_stats()
         plan = plan_for(spec, mesh, mode="decode",
                         cell=ShapeCell("tp", "decode", TP_MAX_LEN, TP_MAX_BATCH),
-                        cache_batch=TP_MAX_BATCH, cache_len=TP_MAX_LEN)
+                        cache_batch=TP_MAX_BATCH, cache_len=TP_MAX_LEN,
+                        allow_uneven=uneven)
         split = model_split(cfg, plan.param_specs, mesh, plan.cache_specs)
         data = data_split(cfg, plan, mesh)
         model = init_params(cfg, 0, dev, split, data)
@@ -3652,6 +3809,7 @@ def tp_child(rank: int, world: int, tmp: str, jobs, device: str) -> None:
                    layout=_tp_layout(split), fsdp=len(over),
                    data_ranks=1 if data is None else data.f,
                    param_gib=_tp_bytes(model) / 2**30,
+                   piece_gib=_tp_piece_gib(cfg, plan, mesh),
                    shard_gib=_tp_bytes(shard) / 2**30,
                    fsdp_gib=sum(t.numel() * t.element_size() for path, ts in
                                 _leaves(shard).items() if path in over
@@ -3676,8 +3834,8 @@ def tp_child(rank: int, world: int, tmp: str, jobs, device: str) -> None:
         del eng
         return out
 
-    def serve(arch, layers, shape):
-        cfg, mesh, plan, model, out = serve_model(arch, layers, shape)
+    def serve(arch, layers, shape, uneven=False):
+        cfg, mesh, plan, model, out = serve_model(arch, layers, shape, uneven)
         split = model.split
         out.update(run_engine(cfg, model, mesh, plan), kv=split and split.kv,
                    peak_gib=torch.cuda.max_memory_allocated() / 2**30,
@@ -3686,15 +3844,15 @@ def tp_child(rank: int, world: int, tmp: str, jobs, device: str) -> None:
         del model
         return out
 
-    def moe_train(shape):
+    def moe_train(shape, uneven=False, n_steps=TPM_STEPS):
         spec, cell, cfg = _tpm_train_cfg()
         mesh = make_mesh(shape, ("data", "model"), dev)
         torch.cuda.reset_peak_memory_stats()
-        split = build_cell(spec, cell, mesh).split(mesh)
+        split = build_cell(spec, cell, mesh, allow_uneven=uneven).split(mesh)
         model, state = tloop.init_state(cfg, 0, device=dev, split=split)
         prog = build_cell(spec, cell, mesh, microbatch_override=TPM_MB,
                           oc=OptConfig(lr=1e-3, warmup_steps=1, total_steps=10),
-                          model=model)
+                          model=model, allow_uneven=uneven)
         state = tloop.shard_state(state, prog.in_shardings[0], mesh)
         gc.collect()
         torch.cuda.empty_cache()
@@ -3702,14 +3860,14 @@ def tp_child(rank: int, world: int, tmp: str, jobs, device: str) -> None:
         rows = prog.in_shardings[1]["tokens"]
         for k in counted:
             LAUNCHES[k] = 0
-        steps, routes = [], []
-        for i, b in enumerate(_tpm_data(cfg.vocab_size)):
+        run, routes = [], []
+        for i, b in enumerate(_tpm_data(cfg.vocab_size)[:n_steps]):
             with route_log() as log:      # every step: the reference routes alike
                 (state, m), sec = sync_time(
                     lambda: prog.fn(state, local_rows(b, rows, mesh)))
             routes.append(_cpu_routes(log))
-            steps.append(dict(loss=float(m["loss"]),
-                              grad_norm=float(m["grad_norm"]), seconds=sec))
+            run.append(dict(loss=float(m["loss"]),
+                            grad_norm=float(m["grad_norm"]), seconds=sec))
             if i == 0:       # this rank's first moments, for the parent to hold
                 torch.save({path: t.to_local().cpu()
                             for path, t in _flatten(state.m).items()},
@@ -3719,19 +3877,20 @@ def tp_child(rank: int, world: int, tmp: str, jobs, device: str) -> None:
         with torch.no_grad(), route_log() as log:
             logits, _, _ = model.forward_full(_tpm_fwd_tokens(cfg.vocab_size))
             if split.vocab_out is not None:
-                logits = gather_from_model(logits, -1, split)
-        out = dict(steps=steps, launches=launches,
+                logits = gather_from_model(logits, -1, split, of="vocab_out")
+        out = dict(steps=run, launches=launches,
                    logits=logits.cpu(), routes=routes,
                    fwd_routes=_cpu_routes(log), param_gib=_tp_bytes(model) / 2**30,
-                   whole_gib=whole / 2**30,
+                   whole_gib=whole / 2**30, piece_gib=_tp_piece_gib(
+                       cfg, prog.plan, mesh),
                    peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                    partial=sorted(split.partial), experts=split.experts,
                    heads=split.heads)
         del model, state, prog, logits
         return out
 
-    def moe_serve(arch, layers, shape):
-        cfg, mesh, plan, model, out = serve_model(arch, layers, shape)
+    def moe_serve(arch, layers, shape, uneven=False):
+        cfg, mesh, plan, model, out = serve_model(arch, layers, shape, uneven)
         split = model.split
         out.update(experts=split and split.experts, shared=split and split.shared)
         for key, run_cfg in (("served", cfg), ("nodrop", nodrop(cfg))):
@@ -3752,8 +3911,10 @@ def tp_child(rank: int, world: int, tmp: str, jobs, device: str) -> None:
 
     try:
         for name, *args in jobs:
-            res = {"train": train, "serve": serve, "moe_train": moe_train,
-                   "moe_serve": moe_serve}[name](*args)
+            with offset_calls() as offsets:
+                res = {"train": train, "serve": serve, "moe_train": moe_train,
+                       "moe_serve": moe_serve}[name](*args)
+            res["offset_calls"] = dict(offsets)
             torch.save(res, os.path.join(tmp, f"tp_{name}_{'_'.join(map(str, args))}"
                                               f"_{rank}.pt"))
             gc.collect()
@@ -3763,13 +3924,15 @@ def tp_child(rank: int, world: int, tmp: str, jobs, device: str) -> None:
         dist.destroy_process_group()
 
 
-def tp_train_ref(dev, tmp: str, arch: str, layers: int) -> list[dict]:
+def tp_train_ref(dev, tmp: str, arch: str, layers: int, m: int = 2,
+                 uneven: bool = False, n_steps: int = TP_STEPS) -> list[dict]:
     """The one-process float32 train step of ``_tp_train_cfg(arch,
     layers)`` from seed 0: a ``TP_FWD_S``-token forward's logits
-    (``tp_ref_logits_<arch>.pt``), ``TP_STEPS`` steps and, for each rank of
-    (data 1, model 2), its slices of the first moments under the plan's
-    split (``tp_ref_first_<arch>_<rank>.pt``), all under ``tmp``.  Returns
-    the steps: loss, grad norm, seconds."""
+    (``tp_ref_logits_<arch>.pt``), ``n_steps`` steps and, for each rank of
+    (data 1, model ``m``), its slices of the first moments under the
+    plan's split (``allow_uneven`` with ``uneven``;
+    ``tp_ref_first_<arch>_<rank>.pt``), all under ``tmp``.  Returns the
+    steps: loss, grad norm, seconds."""
     import gc
 
     import torch
@@ -3788,37 +3951,42 @@ def tp_train_ref(dev, tmp: str, arch: str, layers: int) -> list[dict]:
     torch.save(logits.cpu(), os.path.join(tmp, f"tp_ref_logits_{arch}.pt"))
     del logits
     step = tloop.make_train_step(model, oc, n_microbatches=TP_MB)
-    prog = build_cell(spec, cell, MeshShape((1, 2), ("data", "model")))
+    prog = build_cell(spec, cell, MeshShape((1, m), ("data", "model")),
+                      allow_uneven=uneven)
     ref_steps = []
-    for i, b in enumerate(_tp_data(cfg.vocab_size)):
+    for i, b in enumerate(_tp_data(cfg.vocab_size)[:n_steps]):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        st, m = step(st, b)
+        st, mt = step(st, b)
         torch.cuda.synchronize()
-        ref_steps.append(dict(loss=float(m["loss"]),
-                              grad_norm=float(m["grad_norm"]),
+        ref_steps.append(dict(loss=float(mt["loss"]),
+                              grad_norm=float(mt["grad_norm"]),
                               seconds=time.perf_counter() - t1))
         if i == 0:           # each rank's slice of the first moments
-            tp_save_first(tmp, arch, cfg, prog.plan, _flatten(st.m))
+            tp_save_first(tmp, arch, cfg, prog.plan, _flatten(st.m), m)
     del model, st, step
     gc.collect()
     torch.cuda.empty_cache()
     return ref_steps
 
 
-def tp_save_first(tmp: str, arch: str, cfg, plan, m1: dict) -> None:
-    """Each (data 1, model 2) rank's slices under ``plan``'s split of the
-    whole first moments ``m1`` (leaf path → tensor, ``blocks/`` stacked),
-    as ``tp_ref_first_<arch>_<rank>.pt`` under ``tmp``: what the ranks'
-    ``train`` jobs hold their own against."""
+def tp_save_first(tmp: str, arch: str, cfg, plan, m1: dict,
+                  m: int = 2) -> None:
+    """Each (data 1, model ``m``) rank's slices under ``plan``'s split of
+    the whole first moments ``m1`` (leaf path → tensor, ``blocks/``
+    stacked), as ``tp_ref_first_<arch>_<rank>.pt`` under ``tmp``: what the
+    ranks' ``train`` jobs hold their own against."""
     import torch
 
     from repro_torch.sharding.tp import plan_split
 
-    for r in range(2):
-        sp = plan_split(cfg, plan.param_specs, 2, r)
+    for r in range(m):
+        sp = plan_split(cfg, plan.param_specs, m, r)
         part = {}
         for path, x in m1.items():
+            if sp is None:                  # nothing split: the whole leaf
+                part[path] = x.cpu()
+                continue
             if path.startswith("blocks/"):
                 sl = (slice(None),) + sp.local_slices(path, tuple(x.shape[1:]))
             else:
@@ -3858,7 +4026,8 @@ def tp_train_hold(label: str, ranks: list[dict], ref_steps: list[dict],
                 raise AssertionError(f"tp {label} rank {r}: steps "
                                      f"{got['steps']} against {ref_steps}")
         worst = tp_train_reading(got, ref_steps)["first"]
-        print(f"  {label} rank {r} (data 1, model 2; {got['layout']}): losses "
+        print(f"  {label} rank {r} (data 1, model {len(ranks)}; "
+              f"{got['layout']}): losses "
               f"{[s['loss'] for s in got['steps']]} against "
               f"{[s['loss'] for s in ref_steps]}, grad norms "
               f"{[s['grad_norm'] for s in got['steps']]} against "
@@ -3867,7 +4036,8 @@ def tp_train_hold(label: str, ranks: list[dict], ref_steps: list[dict],
               f"); forward logits {got['logit_err']:.3g} of the largest "
               f"(limit {TP_LOGIT_REL}); launches {_nonzero(got['launches'])} (expected "
               f"{want}); parameters {got['param_gib']:.3f} of "
-              f"{got['whole_gib']:.3f} GiB, peak {got['peak_gib']:.2f} GiB; "
+              f"{got['whole_gib']:.3f} GiB (its GSPMD piece "
+              f"{got['piece_gib']:.3f}), peak {got['peak_gib']:.2f} GiB; "
               f"step seconds {[round(s['seconds'], 4) for s in got['steps']]}"
               f"; partial leaves {got['partial']}", flush=True)
         if worst[1] > first_rel or got["logit_err"] > TP_LOGIT_REL:
@@ -4071,13 +4241,6 @@ def tpm_phase(dev, tmp: str) -> tuple[dict, dict]:
     import torch
     import torch.multiprocessing as mp
 
-    from repro_torch.launch.steps import build_cell
-    from repro_torch.models.transformer import _flatten
-    from repro_torch.sharding.spec import MeshShape
-    from repro_torch.sharding.tp import plan_split
-    from repro_torch.train import train_loop as tloop
-    from repro_torch.train.optim import OptConfig
-
     rec: dict = {}
 
     def free():
@@ -4100,15 +4263,60 @@ def tpm_phase(dev, tmp: str) -> tuple[dict, dict]:
         tmp, f"tp_{name}_{'_'.join(map(str, args))}_{r}.pt"), weights_only=False)
     launches: dict[str, int] = {}
 
-    # 2. the one-process training reference, routed on the ranks' choices:
+    # 2. the one-process training reference, routed on the ranks' choices,
+    # and every rank held to it
+    rec.update(tpm_train_hold(dev, tmp, [load("moe_train", [(1, 2)], r)
+                                         for r in range(2)], launches))
+    free()
+
+    # serving: the one-process model of each arch built after the ranks
+    # ran, its engine's tokens at the served capacity, then the no-drop
+    # copy's teacher forcing of the ranks' no-drop tokens
+    rec["serve"] = []
+    for arch in dict.fromkeys(a for a, _, _ in TPM_SERVE):
+        cases = [(a, n, m) for a, n, m in TPM_SERVE if a == arch]
+        rmodel, ref_done = tpm_serve_ref(dev, arch, cases[0][1])
+        for a, layers, m in cases:
+            rec["serve"].append(tpm_serve_hold(
+                [load("moe_serve", [a, layers, (1, m)], r) for r in range(m)],
+                a, layers, (1, m), rmodel, ref_done, launches))
+        del rmodel
+        free()
+    return rec, launches
+
+
+def tpm_train_hold(dev, tmp: str, got: list[dict], launches: dict,
+                   uneven: bool = False, n_steps: int = TPM_STEPS,
+                   first_rel: float = TP_FIRST_REL) -> dict:
+    """Hold the ranks' MoE train runs (``tp_child``'s ``moe_train``, one
+    record a rank, at (data 1, model ``len(got)``), the plan
+    ``allow_uneven`` with ``uneven``) to phase tp's limits (the first
+    moments to ``first_rel``) against the one-process step and forward run
+    after them on the ranks' routes; add
+    their launches to ``launches``; return the record (``train_ref``,
+    ``train``, ``step_s``, ``ref_step_s``).  Raises AssertionError on a
+    failed check."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models.transformer import _flatten
+    from repro_torch.sharding.spec import MeshShape
+    from repro_torch.sharding.tp import plan_split
+    from repro_torch.train import train_loop as tloop
+    from repro_torch.train.optim import OptConfig
+
+    rec: dict = {}
+    # the one-process training reference, routed on the ranks' choices:
     # a split reorders the attention's fp32 sums, so a router at a
     # near-tie may choose another expert; forced onto the ranks' choices
     # (each layer gated by its own router) the two runs compute one
     # function, held at the limits, and each choice the reference's router
     # would have made otherwise must be a near-tie (reported)
     spec, cell, cfg = _tpm_train_cfg()
-    got = [load("moe_train", [(1, 2)], r) for r in range(2)]
-    for r in range(1, 2):
+    m = len(got)
+    for r in range(1, m):
         for i, (a, b) in enumerate(zip(got[r]["routes"] + [got[r]["fwd_routes"]],
                                        got[0]["routes"] + [got[0]["fwd_routes"]])):
             f = route_flips(a, b, "used")
@@ -4123,23 +4331,24 @@ def tpm_phase(dev, tmp: str) -> tuple[dict, dict]:
     ref_logits, fwd_flips = logits.cpu(), route_flips(log, log, "top_i", "used")
     del logits, log
     step = tloop.make_train_step(model, oc, n_microbatches=TPM_MB)
-    prog = build_cell(spec, cell, MeshShape((1, 2), ("data", "model")))
-    ref_steps, flips, first_err = [], [], [{}, {}]
-    for i, b in enumerate(_tpm_data(cfg.vocab_size)):
+    prog = build_cell(spec, cell, MeshShape((1, m), ("data", "model")),
+                      allow_uneven=uneven)
+    ref_steps, flips, first_err = [], [], [{} for _ in range(m)]
+    for i, b in enumerate(_tpm_data(cfg.vocab_size)[:n_steps]):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         with route_log(force=[e["used"] for e in got[0]["routes"][i]]) as log:
-            st, m = step(st, b)
+            st, mt = step(st, b)
         torch.cuda.synchronize()
-        ref_steps.append(dict(loss=float(m["loss"]),
-                              grad_norm=float(m["grad_norm"]),
+        ref_steps.append(dict(loss=float(mt["loss"]),
+                              grad_norm=float(mt["grad_norm"]),
                               seconds=time.perf_counter() - t1))
         flips.append(route_flips(log, log, "top_i", "used"))
         del log
         if i == 0:       # each rank's first moments against its slices
             m1 = _flatten(st.m)
-            for r in range(2):
-                sp = plan_split(cfg, prog.plan.param_specs, 2, r)
+            for r in range(m):
+                sp = plan_split(cfg, prog.plan.param_specs, m, r)
                 part = torch.load(os.path.join(tmp, f"tpm_first_{r}.pt"))
                 for path, x in m1.items():
                     if path.startswith("blocks/"):
@@ -4159,14 +4368,15 @@ def tpm_phase(dev, tmp: str) -> tuple[dict, dict]:
             del m1
     rec["train_ref"] = ref_steps
     del model, st, step
-    free()
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # training: every rank within the limits, on every run
     L, mb = cfg.n_layers, TPM_MB
-    want_train = {"flash_attention": 2 * L * mb * TPM_STEPS,
-                  "flash_attention_bwd_wgmma": L * mb * TPM_STEPS}
+    want_train = {"flash_attention": 2 * L * mb * n_steps,
+                  "flash_attention_bwd_wgmma": L * mb * n_steps}
     rec["train"] = []
-    for r in range(2):
+    for r in range(m):
         g = got[r]
         err = float((g["logits"] - ref_logits).abs().max())
         logit_err = err / float(ref_logits.abs().max())
@@ -4176,7 +4386,7 @@ def tpm_phase(dev, tmp: str) -> tuple[dict, dict]:
                                                      "fwd_routes")},
             first_err=first_err[r], flips=flips, fwd_flips=fwd_flips,
             logit_err=logit_err))
-        print(f"  moe train rank {r} (data 1, model 2; experts {g['experts']}"
+        print(f"  moe train rank {r} (data 1, model {m}; experts {g['experts']}"
               f", heads {g['heads']}): losses "
               f"{[s['loss'] for s in g['steps']]} against "
               f"{[s['loss'] for s in ref_steps]}, grad norms "
@@ -4184,11 +4394,12 @@ def tpm_phase(dev, tmp: str) -> tuple[dict, dict]:
               f"{[s['grad_norm'] for s in ref_steps]} (one process routed on "
               f"the ranks' choices; its router's own choices differ at {flips} "
               f"by step, {fwd_flips} in the forward); first moments: largest "
-              f"relative error {worst[1]:.3g} ({worst[0]}; limit {TP_FIRST_REL}); "
+              f"relative error {worst[1]:.3g} ({worst[0]}; limit {first_rel}); "
               f"forward logits {logit_err:.3g} of the largest over "
               f"{TPM_FWD_S} positions (limit {TP_LOGIT_REL}); launches "
               f"{_nonzero(g['launches'])} (expected {want_train}); parameters "
-              f"{g['param_gib']:.3f} of {g['whole_gib']:.3f} GiB, peak "
+              f"{g['param_gib']:.3f} of {g['whole_gib']:.3f} GiB (its GSPMD "
+              f"piece {g['piece_gib']:.3f}), peak "
               f"{g['peak_gib']:.2f} GiB; partial leaves {g['partial']}",
               flush=True)
         for f in flips + [fwd_flips]:
@@ -4201,7 +4412,7 @@ def tpm_phase(dev, tmp: str) -> tuple[dict, dict]:
                                      rel_tol=TP_GNORM_RTOL)):
                 raise AssertionError(f"tpm train rank {r}: steps "
                                      f"{g['steps']} against {ref_steps}")
-        if worst[1] > TP_FIRST_REL:
+        if worst[1] > first_rel:
             raise AssertionError(f"tpm train rank {r}: first moments {worst}")
         if logit_err > TP_LOGIT_REL:
             raise AssertionError(f"tpm train rank {r}: logits {logit_err}")
@@ -4214,25 +4425,12 @@ def tpm_phase(dev, tmp: str) -> tuple[dict, dict]:
     del got
     rec["step_s"] = rec["train"][0]["steps"][-1]["seconds"]
     rec["ref_step_s"] = ref_steps[-1]["seconds"]
-    print(f"  moe train: step {TPM_STEPS} took {rec['step_s']:.4f} s on 2 ranks "
+    print(f"  moe train: step {n_steps} took {rec['step_s']:.4f} s on {m} ranks "
           f"sharing this card ({card_line()}; a rehearsal of correctness, not "
           f"a scaling figure; both runs log their routes), "
           f"{rec['ref_step_s']:.4f} s in one process", flush=True)
 
-    # serving: the one-process model of each arch built after the ranks
-    # ran, its engine's tokens at the served capacity, then the no-drop
-    # copy's teacher forcing of the ranks' no-drop tokens
-    rec["serve"] = []
-    for arch in dict.fromkeys(a for a, _, _ in TPM_SERVE):
-        cases = [(a, n, m) for a, n, m in TPM_SERVE if a == arch]
-        rmodel, ref_done = tpm_serve_ref(dev, arch, cases[0][1])
-        for a, layers, m in cases:
-            rec["serve"].append(tpm_serve_hold(
-                [load("moe_serve", [a, layers, (1, m)], r) for r in range(m)],
-                a, layers, (1, m), rmodel, ref_done, launches))
-        del rmodel
-        free()
-    return rec, launches
+    return rec
 
 
 def tp_serve_ref(dev, arch: str, layers: int):
@@ -4486,6 +4684,369 @@ def tpd_phase(dev, tmp: str) -> tuple[dict, dict]:
         del rmodel
         free()
     return rec, launches
+
+
+def tpu_kernels(dev) -> tuple[list[dict], dict[str, int]]:
+    """Phase tp-uneven's kernel cases: for each of ``TPU_OFFSETS`` the
+    forward (the route ``flash_route`` picks: ``fa_tc_kernel`` for
+    bfloat16), the backward on its route and forced onto the CUDA cores, and
+    the decode kernel (B 8 against 512 slots, ragged lengths), each with the
+    head offset against its plain version (forward and decode
+    ``attn_compare``; backward ``FLASH_BWD_F32_REL`` of each gradient's
+    largest in float32, ``FLASH_BWD_BF16_ULPS`` bf16 ulps in bfloat16, lse
+    ``FLASH_BWD_LSE_REL``), two calls bitwise equal, each timed (device
+    time from a trace, per call between events) beside the same call on
+    whole groups (KV · G heads, offset 0) and its plain version, with its
+    bound (the rank's heads' work; the float32 backward on the tensor
+    cores as phase 10 bounds it, each product as
+    ``FLASH_BWD_F32_MIN_PRODUCTS`` 16-bit products).  Returns (the rows,
+    the checks' launches); raises AssertionError on a failed check."""
+    import torch
+
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_fused,
+                                                     flash_bwd_route,
+                                                     flash_route)
+    from repro_torch.kernels.ref import (decode_attention_ref,
+                                         flash_attention_bwd_ref,
+                                         flash_attention_ref)
+
+    before = dict(LAUNCHES)
+    rows = []
+    for label, dts, H, KV, G, off, dh in TPU_OFFSETS:
+        dt = getattr(torch, dts)
+        item = 4 if dt == torch.float32 else 2
+        g = torch.Generator(device=dev).manual_seed(H * 100 + off)
+        rnd = lambda *shape: torch.randn(shape, generator=g,  # noqa: E731
+                                         device=dev).to(dt)
+        kw = dict(group=G, head_offset=off)
+        HA = KV * G                              # the same KV heads, whole
+        q, go = rnd(1, TPU_S, H, dh), rnd(1, TPU_S, H, dh)
+        k, v = rnd(1, TPU_S, KV, dh), rnd(1, TPU_S, KV, dh)
+        qa, ga = rnd(1, TPU_S, HA, dh), rnd(1, TPU_S, HA, dh)
+        shape = f"{dts} B=1 S={TPU_S} H={H} KV={KV} G={G} offset {off} dh={dh}"
+
+        def trace(fn):
+            # one trace of 10 calls: (device ms a call, each kernel's count)
+            acts, _ = device_trace(fn, reps=10)
+            names = collections.Counter(n.split("<")[0].split("(")[0]
+                                        for n, _ in acts or ())
+            return sum(us for _, us in acts or ()) / 1e3 / 10, names
+
+        def traced(fn, bound, call_ms):
+            # two traces that agree kernel by kernel, each kernel a whole
+            # number of the calls, between the work's bound and the time
+            # between events around one call (one stream's kernels cannot
+            # outlast it): a trace that lost some of the calls' kernels
+            # (Queue C item 8) or over-read is taken again; then the
+            # per-call events stand in.  Returns (ms, timer, traces taken,
+            # the last trace's kernels and their counts)
+            last = None
+            for i in range(1, TRACE_TRIES + 2):
+                ms, kn = trace(fn)
+                ok = (kn and all(c % 10 == 0 for c in kn.values())
+                      and bound <= ms <= call_ms)
+                if ok and kn == last:
+                    return ms, "profiler", i, dict(kn)
+                last = kn if ok else None
+            return call_ms, "events", TRACE_TRIES + 1, dict(kn)
+
+        def timed(name, fn, aligned, plain, work):
+            nbytes, ops = work
+            bound, by = work_bound(nbytes, ops, dts)
+            fp32_bound = None
+            if name == "flash_attention_bwd_wgmma" and dt == torch.float32:
+                # float32 on the tensor cores: each of the five products as
+                # FLASH_BWD_F32_MIN_PRODUCTS 16-bit products at the 16-bit
+                # peak (as phase 10's bwd_row), the float32 peak's beside it
+                fp32_bound = bound
+                bound, by = work_bound(nbytes, ops * FLASH_BWD_F32_MIN_PRODUCTS,
+                                       "bfloat16")
+            call_ms, a_call_ms = median_ms(fn, reps=10), median_ms(aligned, reps=10)
+            d_ms, timer, tries, kn = traced(fn, bound, call_ms)
+            a_ms, a_timer, a_tries, a_kn = traced(aligned, bound, a_call_ms)
+            return dict(name=name, case=label, shape=shape, ms=d_ms, timer=timer,
+                        traces=tries, trace_kernels=kn, call_ms=call_ms,
+                        aligned_ms=a_ms, aligned_timer=a_timer,
+                        aligned_traces=a_tries, aligned_trace_kernels=a_kn,
+                        aligned_call_ms=a_call_ms,
+                        plain_ms=median_ms(plain, reps=3, warm=1),
+                        bound_ms=bound, bound_by=by, fp32_bound_ms=fp32_bound,
+                        library_ms=None)
+
+        # forward
+        route = flash_route(q, k, v, G)
+        if route != ("wgmma" if dt == torch.bfloat16 else "simt"):
+            raise AssertionError(f"tp-uneven {shape}: the {route} forward")
+        fwd = lambda: flash_attention_fused(q, k, v, round_p=False, **kw)  # noqa: E731
+        got, again = fwd(), fwd()
+        want = flash_attention_ref(q, k, v, **kw)
+        ok, err, lim = attn_compare(got, want)
+        name = "flash_attention_wgmma" if route == "wgmma" else "flash_attention"
+        row = timed(name, fwd, lambda: flash_attention_fused(
+            qa, k, v, round_p=False), lambda: flash_attention_ref(q, k, v, **kw),
+            flash_work(1, TPU_S, TPU_S, H, KV, dh, item, True))
+        row.update(max_abs_err=err, limit=lim, route=route,
+                   bitwise_repeat=bool(torch.equal(got, again)))
+        rows.append(row)
+        if not (ok and row["bitwise_repeat"]):
+            raise AssertionError(f"tp-uneven forward {shape}: {row}")
+        del got, again, want
+        # backward, on its route and on the CUDA cores
+        want = flash_attention_bwd_ref(q, k, v, go, **kw)
+        broute = flash_bwd_route(q, k, v, False, G)
+        if broute != "wgmma":
+            raise AssertionError(f"tp-uneven {shape}: the {broute} backward")
+        for forced in (None, "simt"):
+            bwd = lambda f=forced: flash_attention_bwd(  # noqa: E731
+                q, k, v, go, route=f, **kw)
+            got, again = bwd(), bwd()
+            errs, lims = {}, {}
+            for n, a, b in zip(("dq", "dk", "dv", "lse"), got, want):
+                top = float(b.float().abs().max())
+                errs[n] = float((a.float() - b.float()).abs().max())
+                lims[n] = (FLASH_BWD_LSE_REL * max(top, 1.0) if n == "lse"
+                           else FLASH_BWD_F32_REL * top if dt == torch.float32
+                           else FLASH_BWD_BF16_ULPS
+                           * 2.0 ** (math.floor(math.log2(top)) - 7))
+            name = ("flash_attention_bwd" if forced
+                    else "flash_attention_bwd_wgmma")
+            row = timed(name, bwd, lambda f=forced: flash_attention_bwd(
+                qa, k, v, ga, route=f), lambda: flash_attention_bwd_ref(
+                    q, k, v, go, **kw), flash_bwd_work(1, TPU_S, H, KV, dh, item))
+            row.update(max_abs_err=max(errs[n] for n in ("dq", "dk", "dv")),
+                       errs=errs, limits=lims, route=forced or broute,
+                       bitwise_repeat=all(torch.equal(a, b)
+                                          for a, b in zip(got, again)))
+            rows.append(row)
+            if not (row["bitwise_repeat"]
+                    and all(errs[n] <= lims[n] for n in errs)):
+                raise AssertionError(f"tp-uneven backward {shape}: {row}")
+            del got, again
+        del want
+        # decode: B 8 against 512 slots, ragged lengths on the card
+        qd, qda = rnd(8, H, dh), rnd(8, HA, dh)
+        kd, vd = rnd(8, TP_MAX_LEN, KV, dh), rnd(8, TP_MAX_LEN, KV, dh)
+        S = TP_MAX_LEN
+        lens = [1, 17, S // 5, S // 2 - 1, S // 2, 4 * S // 5, S - 1, S]
+        ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+        dec = lambda: decode_attention(qd, kd, vd, ln, round_p=False, **kw)  # noqa: E731
+        got, again = dec(), dec()
+        ok, err, lim = attn_compare(got, decode_attention_ref(qd, kd, vd, ln, **kw))
+        row = timed("decode_attention", dec, lambda: decode_attention(
+            qda, kd, vd, ln, round_p=False), lambda: decode_attention_ref(
+                qd, kd, vd, ln, **kw), decode_work(lens, H, KV, dh, item))
+        row.update(shape=f"{dts} B=8 S={TP_MAX_LEN} H={H} KV={KV} G={G} offset "
+                   f"{off} dh={dh} lengths {lens}", max_abs_err=err, limit=lim,
+                   bitwise_repeat=bool(torch.equal(got, again)))
+        rows.append(row)
+        if not (ok and row["bitwise_repeat"]):
+            raise AssertionError(f"tp-uneven decode {shape}: {row}")
+        del q, go, k, v, qa, ga, qd, qda, kd, vd, got, again
+    for r in rows:
+        print(f"  {r['name']} {r['shape']} ({r['route'] if 'route' in r else 'da'}"
+              f"): max abs err {r['max_abs_err']:.3g}, two calls bitwise "
+              f"{r['bitwise_repeat']}; {r['ms']:.5f} ms on the device "
+              f"({r['timer']}; {r['traces']} traces), per call "
+              f"{r['call_ms']:.4f}; the same call on whole groups "
+              f"{r['aligned_ms']:.5f} ({r['aligned_timer']}; "
+              f"{r['aligned_traces']} traces), "
+              f"per call {r['aligned_call_ms']:.4f}; plain version "
+              f"{r['plain_ms']:.4f}; bound {r['bound_ms']:.5f} ({r['bound_by']}"
+              + ("" if r["fp32_bound_ms"] is None else
+                 f"; {FLASH_BWD_F32_MIN_PRODUCTS} 16-bit products a product; "
+                 f"at the float32 peak {r['fp32_bound_ms']:.5f}") + ")",
+              flush=True)
+    return rows, {k: LAUNCHES[k] - before.get(k, 0) for k in LAUNCHES
+                  if LAUNCHES[k] != before.get(k, 0)}
+
+
+def tpu_count_hold(dev, ranks: list[dict]) -> dict:
+    """Phase tp-uneven's count: ``TPU_COUNT``'s step counted on meta by the
+    dry-run (``dryrun.count_cell`` at (data 1, model TPU_M), the uneven
+    plan) for each of its ranks, against the same rank's count of its step
+    on the card (``tp_child``'s ``train``): flops, products and kernel calls
+    exactly, the kernel calls = the card step's launches, bytes within
+    ``COUNT_BYTES_REL``.  Returns the record; raises AssertionError."""
+    from repro_torch.launch import dryrun
+
+    arch, layers, counted = TPU_COUNT
+    spec, cell, cfg = _tp_train_cfg(arch, layers)
+    rec = {}
+    for r in counted:
+        t1 = time.perf_counter()
+        _, meta = dryrun.count_cell(spec, cell, (1, TPU_M), ("data", "model"),
+                                    rank=r, allow_uneven=True,
+                                    microbatch_override=TP_MB)
+        meta_s = time.perf_counter() - t1
+        card = ranks[r]["count"]
+        calls = {k: int(v["calls"]) for k, v in meta.kernels.items()}
+        rel = abs(meta.bytes - card["bytes"]) / card["bytes"]
+        differ = {k: (meta.by_op.get(k), card["by_op"].get(k))
+                  for k in set(meta.by_op) | set(card["by_op"])
+                  if meta.by_op.get(k) != card["by_op"].get(k)}
+        for k, (a, b) in sorted(differ.items()):
+            print(f"    count rank {r}: {k}: {a} on meta, {b} on the card")
+        rec[r] = dict(meta=dict(flops=meta.flops, products=meta.products,
+                                bytes=meta.bytes, calls=calls), meta_s=meta_s,
+                      card={k: v for k, v in card.items() if k != "by_op"},
+                      bytes_rel=rel, ops_differ={k: list(v) for k, v in
+                                                  differ.items()})
+        print(f"  count {arch} x{layers} float32 rank {r} of {TPU_M} "
+              f"({ranks[r]['layout']}): {meta.flops / 1e12:.4f} TFLOP "
+              f"({meta.products / 1e12:.4f} in products), {meta.bytes / 1e9:.3f}"
+              f" GB on meta in {meta_s:.2f} s; the card {card['flops'] / 1e12:.4f}"
+              f" TFLOP, {card['bytes'] / 1e9:.3f} GB ({rel:.3%} apart; limit "
+              f"{COUNT_BYTES_REL:.0%}); kernel calls {calls} on meta, "
+              f"{card['calls']} on the card, launches {card['launches']}",
+              flush=True)
+        if meta.flops != card["flops"] or meta.products != card["products"]:
+            raise AssertionError(f"tp-uneven count rank {r}: flops {meta.flops} "
+                                 f"/ {card['flops']}, products {meta.products} "
+                                 f"/ {card['products']}")
+        if not calls == card["calls"] == card["launches"]:
+            raise AssertionError(f"tp-uneven count rank {r}: calls {calls}, "
+                                 f"{card['calls']}, launches {card['launches']}")
+        if rel > COUNT_BYTES_REL:
+            raise AssertionError(f"tp-uneven count rank {r}: bytes {rel:.3%} "
+                                 "apart")
+    if not rec[counted[1]]["meta"]["flops"] < rec[counted[0]]["meta"]["flops"]:
+        raise AssertionError("tp-uneven count: the shortest rank counts no less "
+                             "than the largest")
+    return rec
+
+
+def tpu_fault_hold(ranks: list[dict], ref_steps: list[dict]) -> dict:
+    """Phase tp-uneven's planted fault (``TPU_FAULT``'s step with K and V's
+    gradient not summed over model, ``tp_child``'s ``train(fault=True)``)
+    against the one-process step: every rank's forward logits within
+    ``TP_LOGIT_REL`` (the fault is in the backward alone) and some rank's
+    first moments beyond ``TPU_FIRST_REL``, which shows that the first
+    moments' limit sees a fault the logits cannot.  Returns the readings;
+    raises AssertionError where the limits do not tell the fault."""
+    arch, layers = TPU_FAULT
+    reads = [tp_train_reading(y, ref_steps) for y in ranks]
+    for r, x in enumerate(reads):
+        print(f"  planted fault, {arch} x{layers} train with K and V's gradient "
+              f"not summed over model, rank {r}: first moments "
+              f"{x['first'][1]:.3g} of the largest ({x['first'][0]}; limit "
+              f"{TPU_FIRST_REL}), forward logits {x['logits']:.3g} (limit "
+              f"{TP_LOGIT_REL}), grad norm {x['grad_norm']:.3g} apart (rtol "
+              f"{TP_GNORM_RTOL}), loss {x['loss']:.3g} (rtol {TP_LOSS_RTOL})",
+              flush=True)
+    worst = max(x["first"][1] for x in reads)
+    if worst <= TPU_FIRST_REL or any(x["logits"] > TP_LOGIT_REL for x in reads):
+        raise AssertionError(f"tp-uneven planted fault: first moments at most "
+                             f"{worst} (limit {TPU_FIRST_REL}), logits "
+                             f"{[x['logits'] for x in reads]}")
+    return dict(ranks=reads, first_over_limit=worst / TPU_FIRST_REL)
+
+
+def tpu_phase(dev, tmp: str) -> tuple[dict, dict, dict]:
+    """Phase tp-uneven (see the module docstring): the offset kernels
+    against their plain versions (``tpu_kernels``), the one-process
+    references, the ranks (3 processes on this card), then every run held
+    as phases 12 and 13 hold theirs and the count (``tpu_count_hold``).
+    Returns (record, launches summed over the ranks' main-path runs, the
+    kernel checks' launches); raises AssertionError on a failed check."""
+    import gc
+
+    import torch
+    import torch.multiprocessing as mp
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    rec: dict = {}
+    rec["kernels"], kernel_launches = tpu_kernels(dev)
+    free()
+    rec["train_ref"] = {arch: tp_train_ref(dev, tmp, arch, layers, TPU_M, True,
+                                           TPU_STEPS)
+                        for arch, layers in TPU_TRAIN}
+    free()
+    dense = [(a, n) for a, n in TPU_SERVE if a != TPM_TRAIN[0]]
+    ref_models = {(a, n): tp_serve_ref(dev, a, n) for a, n in dense}
+    free()
+
+    shape = (1, TPU_M)
+    train_jobs = [("train", shape, a, n, True, TPU_STEPS, a == TPU_COUNT[0])
+                  for a, n in TPU_TRAIN]
+    fault_job = ("train", shape, *TPU_FAULT, True, TPU_STEPS, False, True)
+    moe_job = ("moe_train", shape, True, TPU_STEPS)
+    serve_jobs = [("serve", a, n, shape, True) for a, n in dense]
+    moe_serve_job = ("moe_serve", TPM_TRAIN[0], TPM_TRAIN[1], shape, True)
+    jobs = train_jobs + [fault_job, moe_job] + serve_jobs + [moe_serve_job]
+    t1 = time.perf_counter()
+    try:
+        mp.spawn(tp_child, args=(TPU_M, tmp, jobs, str(dev)), nprocs=TPU_M,
+                 join=True)
+    except Exception as e:            # a rank's traceback, as the check's failure
+        raise AssertionError(f"phase tp-uneven ranks: {e}") from None
+    rec["ranks_s"] = time.perf_counter() - t1
+    load = lambda job, r: torch.load(os.path.join(  # noqa: E731
+        tmp, f"tp_{job[0]}_{'_'.join(map(str, job[1:]))}_{r}.pt"),
+        weights_only=False)
+    launches: dict[str, int] = {}
+    offsets: dict[str, int] = {}
+
+    def add_offsets(ranks):
+        for y in ranks:
+            for k, n in y["offset_calls"].items():
+                offsets[k] = offsets.get(k, 0) + n
+
+    rec["train"] = {}
+    for job in train_jobs:
+        arch, layers = job[2], job[3]
+        _, _, cfg = _tp_train_cfg(arch, layers)
+        ranks = [load(job, r) for r in range(TPU_M)]
+        want = {"flash_attention": 2 * layers * TP_MB * TPU_STEPS,
+                "flash_attention_bwd_wgmma": layers * TP_MB * TPU_STEPS}
+        rec["train"][arch] = tp_train_hold(f"{arch} x{layers} train", ranks,
+                                           rec["train_ref"][arch], want, launches,
+                                           TPU_FIRST_REL)
+        add_offsets(ranks)
+        if arch == TPU_COUNT[0]:
+            rec["count"] = tpu_count_hold(dev, ranks)
+    rec["fault"] = tpu_fault_hold([load(fault_job, r) for r in range(TPU_M)],
+                                  rec["train_ref"][TPU_FAULT[0]])
+    moe = [load(moe_job, r) for r in range(TPU_M)]
+    add_offsets(moe)
+    rec["moe_train"] = tpm_train_hold(dev, tmp, moe, launches, uneven=True,
+                                      n_steps=TPU_STEPS,
+                                      first_rel=TPU_FIRST_REL)
+    del moe
+    free()
+    rec["serve"] = []
+    for (arch, layers), job in zip(dense, serve_jobs):
+        ranks = [load(job, r) for r in range(TPU_M)]
+        add_offsets(ranks)
+        rmodel, ref_done = ref_models.pop((arch, layers))
+        rec["serve"].append(tp_serve_hold(ranks, arch, layers, TPU_M, rmodel,
+                                          ref_done, launches))
+        del rmodel
+        free()
+    ranks = [load(moe_serve_job, r) for r in range(TPU_M)]
+    add_offsets(ranks)
+    rmodel, ref_done = tpm_serve_ref(dev, *TPM_TRAIN)
+    rec["serve"].append(tpm_serve_hold(ranks, *TPM_TRAIN, shape, rmodel,
+                                       ref_done, launches))
+    del rmodel, ranks
+    free()
+    # the main path's calls on heads that are not whole KV groups: the
+    # training forward and backward (flash_attention_train) and the served
+    # prefill (flash_attention_fused) of qwen2.5-3b's and granite-8b's ranks
+    # 1 and 2; none in decode (a cache over the sequence gathers every
+    # head's query, so each rank decodes whole groups)
+    rec["offset_calls"] = offsets
+    print(f"  attention calls with a head offset or a short group, all ranks: "
+          f"{offsets}", flush=True)
+    if not (offsets.get("flash_attention_train") and
+            offsets.get("flash_attention_fused")):
+        raise AssertionError(f"tp-uneven: the offset calls {offsets}")
+    return rec, launches, kernel_launches
 
 
 def main() -> int:
@@ -6112,7 +6673,29 @@ def main() -> int:
           f"{count_rec['step_s']:.4f} s ({count_rec['peak_share']:.1%} of the "
           f"bf16 peak)")
 
-    # ----------------------------------------------------------- 17. report
+    # -------------------------------------------------------- 17. tp-uneven
+    t = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory(prefix="mafia-tpu-") as tmp:
+            tpu_rec, tpu_launches, tpu_kernel_launches = tpu_phase(dev, tmp)
+    except AssertionError as e:
+        return fail("tp-uneven", str(e))
+    tpu_rec["seconds"] = time.perf_counter() - t
+    for k, n in tpu_launches.items():
+        tp_launches[k] = tp_launches.get(k, 0) + n
+    phase("tp-uneven", t, f"{len(tpu_rec['kernels'])} offset kernel cases "
+          "within their limits; " + "; ".join(
+              f"{a} x{n} float32 trained at (data 1, model {TPU_M})"
+              for a, n in TPU_TRAIN + (TPM_TRAIN,))
+          + " within the limits of the one-process step; " + "; ".join(
+              f"{c['arch']} x{c['layers']} served at model {TPU_M}: "
+              + (f"no-drop agreement {c['agreement_routed_alike']:.4f}"
+                 if "agreement_routed_alike" in c else
+                 f"agreement {c['agreement']:.4f}") for c in tpu_rec["serve"])
+          + f"; counted on meta = the card for ranks {TPU_COUNT[2]}; offset "
+          f"calls {tpu_rec['offset_calls']}; launches {_nonzero(tpu_launches)}")
+
+    # ----------------------------------------------------------- 18. report
     t = time.perf_counter()
     saved = dict(LAUNCHES)
     timed = []
@@ -6601,7 +7184,7 @@ def main() -> int:
     report.update(lm_train=train_rec, train_launches=train_launches,
                   dist=dist_rec, dist_launches=dist_launches, tp=tp_rec,
                   tp_moe=tpm_rec, tp_ssm=tps_rec, tp_dp=tpd_rec,
-                  tp_launches=tp_launches, count=count_rec)
+                  tp_uneven=tpu_rec, tp_launches=tp_launches, count=count_rec)
     report.update(served=served, timed=timed, launches=launches, rows=rows,
                   chain_floor=chain_floor,
                   attention_cases=attn_cases, ssd_cases=ssd_cases,
@@ -6715,6 +7298,45 @@ def main() -> int:
     da["window"] = next(r for r in rows["decode_attention"]
                         if r["shape"].startswith("bfloat16")
                         and f"window {PROBE_WINDOW}" in r["shape"])
+    # the kernels with a head offset (phase 17): each at granite-8b's rank 1
+    # at model 3 in the dtype its main path runs (the served prefill
+    # bfloat16; training float32), beside the same call on whole groups;
+    # launches: phase 17's ranks' main-path launches of the kernel, and of
+    # those the calls on heads that are not whole groups (decode: none,
+    # every rank decodes whole groups on a cache over the sequence)
+    offset_calls = tpu_rec["offset_calls"]
+    for name, dts, calls in (
+            ("flash_attention_wgmma", "bfloat16", "flash_attention_fused"),
+            ("flash_attention", "float32", "flash_attention_train"),
+            ("flash_attention_bwd_wgmma", "float32", "flash_attention_train"),
+            ("decode_attention", "bfloat16", "decode_attention")):
+        # the backward's cases with both routes' (fb_* forced: on no
+        # model's path here)
+        cases = [r for r in tpu_rec["kernels"] if r["name"] == name or (
+            "bwd" in name and r["name"] == "flash_attention_bwd")]
+        h = next(r for r in cases if r["name"] == name
+                 and r["case"] == TPU_OFFSETS[0][0] and r["shape"].startswith(dts))
+        kernels.append({
+            "name": f"{name}_offset", "route": "cuda",
+            "source": ("src/repro_torch/csrc/decode_attention.cu"
+                       if name == "decode_attention"
+                       else "src/repro_torch/csrc/flash_attention.cu"),
+            "replaces": ("src/repro/kernels/decode_attention.py:32"
+                         if name == "decode_attention" else
+                         "src/repro/models/attention.py:70" if "bwd" in name
+                         else "src/repro/kernels/flash_attention.py:39"),
+            "launches": tpu_launches.get(name, 0),
+            "offset_calls": offset_calls.get(calls, 0),
+            "check_launches": tpu_kernel_launches.get(name, 0),
+            "max_abs_err": max(r["max_abs_err"] for r in cases),
+            "ms": h["ms"], "timer": h["timer"], "call_ms": h["call_ms"],
+            "plain_ms": h["plain_ms"], "aligned_ms": h["aligned_ms"],
+            "aligned_timer": h["aligned_timer"], "bound_ms": h["bound_ms"],
+            "bound_by": h["bound_by"], "fp32_bound_ms": h["fp32_bound_ms"],
+            "library_ms": None, "shape": h["shape"],
+            "main_path": f"phase 17: qwen2.5-3b, granite-8b, olmoe-1b-7b at "
+                         f"(data 1, model {TPU_M}) under the uneven plan",
+            "cases": cases})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -4,8 +4,11 @@
 // Replaces the TPU kernel `_kernel` of src/repro/kernels/decode_attention.py
 // (:32), launched by `decode_attention` (:68, pallas_call at :96): q (B, H,
 // dh), caches k and v (B, S, KV, dh), cache_len (B,) int32 -> out (B, H, dh)
-// in q's dtype, float32 or bfloat16.  Query head h reads KV head h / G; key
-// positions >= cache_len[b] are masked.  q is scaled in fp32 first, scores,
+// in q's dtype, float32 or bfloat16.  Query head h reads KV head h / G (G =
+// H / KV; for a rank's share of an uneven split over `model`, (off + h) / G
+// with G and off given: a block keeps its KV head's G rows, those of heads
+// outside [0, H) zero and never written); key positions >= cache_len[b] are
+// masked.  q is scaled in fp32 first, scores,
 // statistics and the accumulator are fp32; `round_p` rounds p to v's dtype
 // before P.V, as the TPU kernel does, else p stays fp32, as the model's
 // `gqa_decode` does.  No fast math: expf, and fmaf.
@@ -99,6 +102,8 @@ struct DaArgs {
   float* lse;       // (B, H) row log-sum-exps, or null
   int B, S, H, KV, dh, chunk, splits, warps;
   int gsz;          // query rows of a KV head per block (blockIdx.y a group)
+  int G, off;       // query rows a KV head serves; head h is its KV head's
+                    // row off + h (a rank's share of an uneven split)
   long long qsb, qsh, ksb, kss, ksh, vsb, vss, vsh;
   float scale;
   int round_p, vec;
@@ -191,7 +196,7 @@ da_kernel(DaArgs a) {
   constexpr int KPW = 32 / R;                       // keys per warp at once
   constexpr int NB = R * RW > 32 ? 32 / RW : R;     // keys per reduce-scatter
   extern __shared__ __align__(16) uint8_t smem[];
-  const int G = a.H / a.KV, dh = a.dh, nw = a.warps;
+  const int G = a.G, dh = a.dh, nw = a.warps;
   const int dhp = da_pitch<T>(dh), nseg = dhp / V;
   T* Ks = reinterpret_cast<T*>(smem);               // [2][DA_TILE][dhp]
   T* Vs = Ks + 2 * DA_TILE * dhp;                   // [2][DA_TILE][dhp]
@@ -203,6 +208,7 @@ da_kernel(DaArgs a) {
   const int split = blockIdx.x / nbkv, bkv = blockIdx.x - split * nbkv;
   const int b = bkv / a.KV, kvh = bkv - b * a.KV;
   const int g0 = blockIdx.y * a.gsz, gn = min(a.gsz, G - g0);  // this group's rows
+  const int h0 = kvh * G - a.off;    // the head of row g is h0 + g, if in [0, H)
   const DaRow row = da_row(a, b);
   const int ck = (row.base + split) * a.chunk;      // this split's chunk
   const int c0 = max(ck, row.st), c1 = min(ck + a.chunk, row.len);
@@ -214,11 +220,15 @@ da_kernel(DaArgs a) {
         ws_ml[2 * g + 1] = 0.0f;
       }
     } else {                       // a length of 0: zero rows
-      const long long o = ((long long)b * a.H + kvh * G + g0) * dh;
-      for (int e = tid; e < gn * dh; e += blockDim.x) da_store<T>(a, o + e, 0.0f);
+      for (int e = tid; e < gn * dh; e += blockDim.x) {
+        const int h = h0 + g0 + e / dh;
+        if (h >= 0 && h < a.H)
+          da_store<T>(a, ((long long)b * a.H + h) * dh + e % dh, 0.0f);
+      }
       if (a.lse)
         for (int g = tid; g < gn; g += blockDim.x)
-          a.lse[(long long)b * a.H + kvh * G + g0 + g] = -INFINITY;
+          if (h0 + g0 + g >= 0 && h0 + g0 + g < a.H)
+            a.lse[(long long)b * a.H + h0 + g0 + g] = -INFINITY;
     }
     return;
   }
@@ -254,21 +264,23 @@ da_kernel(DaArgs a) {
   // lane (slot sg of its group) holds segments sg, sg + R, ... of each row.
   const int rows = max(0, min(RW, (gn - warp + nw - 1) / nw));
   const int sg = lane % R, key = lane / R;
-  const T* q = static_cast<const T*>(a.q) + b * a.qsb + (kvh * G + g0) * a.qsh;
+  // (rows of heads outside [0, H) are zeros: their output is not written)
+  const T* q = static_cast<const T*>(a.q) + b * a.qsb;
   float qr[RW][SPL][V], acc[RW][SPL][V];
   float m[RW], l[RW];
 #pragma unroll
   for (int r = 0; r < RW; ++r) {
     m[r] = ATT_NEG;
     l[r] = 0.0f;
-    const int g = warp + nw * r;
+    const int h = h0 + g0 + warp + nw * r;
+    const bool live = r < rows && h >= 0 && h < a.H;
 #pragma unroll
     for (int s = 0; s < SPL; ++s)
 #pragma unroll
       for (int e = 0; e < V; ++e) {
         const int d = (sg + R * s) * V + e;
-        qr[r][s][e] = (r < rows && sg + R * s < nseg && d < dh)
-                          ? att_in<T>(q[g * a.qsh + d]) * a.scale : 0.0f;
+        qr[r][s][e] = (live && sg + R * s < nseg && d < dh)
+                          ? att_in<T>(q[(long long)h * a.qsh + d]) * a.scale : 0.0f;
         acc[r][s][e] = 0.0f;
       }
   }
@@ -390,19 +402,19 @@ da_kernel(DaArgs a) {
   const bool split_out = a.splits > 1;
   float* ws_acc = a.ws + (long long)a.B * a.KV * a.splits * G * 2
                   + ((long long)bkv * a.splits + split) * G * dh;
-  const long long o = ((long long)b * a.H + kvh * G) * dh;
 #pragma unroll
   for (int r = 0; r < RW; ++r) {
     if (r >= rows) continue;
-    const int g = g0 + warp + nw * r;
+    const int g = g0 + warp + nw * r, h = h0 + g;
     const float den = fmaxf(l[r], 1e-30f);
     if (split_out && sg == 0) {
       ws_ml[2 * g] = m[r];
       ws_ml[2 * g + 1] = l[r];
     }
+    if (!split_out && (h < 0 || h >= a.H)) continue;
+    const long long o = ((long long)b * a.H + h) * dh;
     if (!split_out && a.lse && sg == 0)
-      a.lse[(long long)b * a.H + kvh * G + g] =
-          l[r] > 0.0f ? m[r] + logf(l[r]) : -INFINITY;
+      a.lse[(long long)b * a.H + h] = l[r] > 0.0f ? m[r] + logf(l[r]) : -INFINITY;
 #pragma unroll
     for (int s = 0; s < SPL; ++s)
 #pragma unroll
@@ -410,7 +422,7 @@ da_kernel(DaArgs a) {
         const int d = (sg + R * s) * V + e;
         if (sg + R * s >= nseg || d >= dh) continue;
         if (split_out) ws_acc[g * dh + d] = acc[r][s][e];
-        else da_store<T>(a, o + g * dh + d, acc[r][s][e] / den);
+        else da_store<T>(a, o + d, acc[r][s][e] / den);
       }
   }
 }
@@ -423,9 +435,9 @@ template <typename T>
 __global__ void da_combine(DaArgs a) {
   extern __shared__ float cw[];                     // [ns] weights, [ns] l
   __shared__ float red[32];
-  const int G = a.H / a.KV, tid = threadIdx.x;
-  const int b = blockIdx.x / a.H, h = blockIdx.x - b * a.H;
-  const int bkv = b * a.KV + h / G, g = h % G;
+  const int G = a.G, tid = threadIdx.x;
+  const int b = blockIdx.x / a.H, h = blockIdx.x - b * a.H + a.off;
+  const int bkv = b * a.KV + h / G, g = h % G;     // h: the head's row of its groups
   const DaRow row = da_row(a, b);
   const int lo = row.st / a.chunk - row.base;
   const int ns = row.st < row.len
@@ -473,7 +485,7 @@ static int da_run(const DaArgs& a, int smem, cudaStream_t s) {
   static int granted[HP_MAX_DEVICES] = {0};
   int e = hp_grant_smem((const void*)da_kernel<T, R, RW, SPL>, smem, granted);
   if (e) return e;
-  const dim3 grid(a.B * a.KV * a.splits, (a.H / a.KV + a.gsz - 1) / a.gsz);
+  const dim3 grid(a.B * a.KV * a.splits, (a.G + a.gsz - 1) / a.gsz);
   if (grid.y > 65535) return (int)cudaErrorInvalidValue;
   da_kernel<T, R, RW, SPL><<<grid, a.warps * 32, smem, s>>>(a);
   return (int)cudaGetLastError();
@@ -506,7 +518,9 @@ static int da_dispatch(const DaArgs& a, int rows, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-// q (B, H, dh) with strides qsb, qsh; k and v (B, S, KV, dh) with strides
+// q (B, H, dh) with strides qsb, qsh, head h reading KV head (off + h) / G
+// (off 0 and G = H / KV but for a rank's share of an uneven split; KV =
+// ceil((off + H) / G)); k and v (B, S, KV, dh) with strides
 // in elements, the last axis contiguous; lens (B,) int32 on the card (each
 // clamped into [0, S]); starts (B,) int32 on the card or null, window >= 0
 // and rel as DaArgs states; out (B, H, dh) contiguous.  The plan: `chunk`
@@ -521,14 +535,16 @@ static int da_dispatch(const DaArgs& a, int rows, cudaStream_t s) {
 extern "C" int da_launch(const void* q, const void* k, const void* v, void* o,
                          const void* lens, const void* starts, void* ws,
                          void* lse, int B, int S, int H,
-                         int KV, int dh, long long qsb, long long qsh,
+                         int KV, int dh, int G, int off, long long qsb,
+                         long long qsh,
                          long long ksb, long long kss, long long ksh,
                          long long vsb, long long vss, long long vsh,
                          float scale, int round_p, int vec, int dtype,
                          int chunk, int splits, int warps, int rows, int gsz,
                          int window, int rel, void* stream) {
-  if (B == 0) return 0;
-  if (S < 1 || KV < 1 || H % KV != 0 || dh < 1 || dh > DA_WIDE_DH || window < 0)
+  if (B == 0 || H == 0) return 0;
+  if (S < 1 || KV < 1 || G < 1 || off < 0 || off >= G ||
+      KV != (off + H + G - 1) / G || dh < 1 || dh > DA_WIDE_DH || window < 0)
     return (int)cudaErrorInvalidValue;
   if (warps < 1 || warps > DA_MAX_WARPS || (rows != 1 && rows != 2 && rows != 4) ||
       gsz < 1 || gsz > warps * rows || chunk < DA_TILE || chunk % DA_TILE != 0 ||
@@ -539,8 +555,8 @@ extern "C" int da_launch(const void* q, const void* k, const void* v, void* o,
           : splits != full)
     return (int)cudaErrorInvalidValue;
   DaArgs a{q, k, v, o, (const int*)lens, (const int*)starts, (float*)ws, (float*)lse,
-           B, S, H, KV, dh, chunk, splits, warps, gsz, qsb, qsh, ksb, kss, ksh,
-           vsb, vss, vsh, scale, round_p, vec, window, rel};
+           B, S, H, KV, dh, chunk, splits, warps, gsz, G, off, qsb, qsh, ksb,
+           kss, ksh, vsb, vss, vsh, scale, round_p, vec, window, rel};
   cudaStream_t s = (cudaStream_t)stream;
   return dtype == 0 ? da_dispatch<float>(a, rows, s)
                     : da_dispatch<__nv_bfloat16>(a, rows, s);

@@ -19,6 +19,13 @@
 // qpos - window, a sliding window: key tiles wholly below the window of a
 // block's first row are not loaded, the edge tiles are masked.  No fast
 // math: expf, or exp2f of pre-scaled scores in the tensor-core kernel.
+// A rank's share of a split over `model` that does not divide its heads
+// (GSPMD's uneven pieces) need not hold whole groups: then G and `off` are
+// given, head h reads KV head (off + h) / G, and every kernel below walks
+// each KV head's G rows as ever, row (t, g) being head kvh * G + g - off;
+// the rows of heads outside [0, H) read q (and g) as zeros (a masked load,
+// or TMA's fill of a box's coordinates outside the tensor) and write
+// nothing, so they add nothing to dk and dv.
 // Two kernels; repro_torch.kernels.flash_attention.flash_route picks one
 // from the dtype and the shapes:
 //
@@ -119,7 +126,7 @@
 
 struct FaArgs {
   const void* q; const void* k; const void* v; void* o;
-  int B, Sq, Sk, H, KV, dh;
+  int B, Sq, Sk, H, KV, dh, G, off;
   long long qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh;
   float scale;
   int causal, round_p, vec, window;
@@ -164,19 +171,21 @@ __device__ __forceinline__ void fa_copy(float* dst, int pitch,
   }
 }
 
-// Rows r0 .. r0 + FA_ROWS of the tile's (token, g) rows of q, columns
-// [dc, dc + w), scaled in fp32; zeros past the rows and in [w, w4).  A
-// warp takes a row at a time, its lanes along d.
+// Rows r0 .. r0 + FA_ROWS of the tile's (token, g) rows of q (head h0 + g),
+// columns [dc, dc + w), scaled in fp32; zeros past the rows, for heads
+// outside [0, H) and in [w, w4).  A warp takes a row at a time, its lanes
+// along d.
 template <typename T>
 __device__ __forceinline__ void fa_fill_q(float* Qs, int pitch, const T* q,
-                                          const FaArgs& a, int G, int r0,
-                                          int dc, int w) {
+                                          const FaArgs& a, int G, int h0,
+                                          int r0, int dc, int w) {
   const int w4 = (w + 3) & ~3, nrows = a.Sq * G, lane = threadIdx.x & 31;
   for (int r = threadIdx.x >> 5; r < FA_ROWS; r += FA_THREADS / 32) {
-    const int row = r0 + r, t = row / G, g = row - t * G;
-    const T* src = q + t * a.qss + g * a.qsh + dc;
+    const int row = r0 + r, t = row / G, h = h0 + row - t * G;
+    const bool live = row < nrows && h >= 0 && h < a.H;
+    const T* src = q + t * a.qss + (long long)(live ? h : 0) * a.qsh + dc;
     for (int d = lane; d < w4; d += 32)
-      Qs[r * pitch + d] = (row < nrows && d < w) ? att_in<T>(src[d]) * a.scale : 0.0f;
+      Qs[r * pitch + d] = (live && d < w) ? att_in<T>(src[d]) * a.scale : 0.0f;
   }
 }
 
@@ -225,7 +234,7 @@ fa_kernel(FaArgs a) {
 
   const int tid = threadIdx.x, lane = tid & 31;
   const int tr = (tid >> 5) * 2 + (lane >> 4), tc = lane & 15;
-  const int G = a.H / a.KV, nrows = a.Sq * G, dh = a.dh;
+  const int G = a.G, nrows = a.Sq * G, dh = a.dh;
   const int nt = (nrows + FA_ROWS - 1) / FA_ROWS;
   const int ncz = WIDE ? (dh + FA_WIDE - 1) / FA_WIDE : 1;
   const int nbkv = a.B * a.KV;
@@ -236,7 +245,8 @@ fa_kernel(FaArgs a) {
   const int c0 = cz * FA_WIDE, wc = WIDE ? min(FA_WIDE, dh - c0) : dh;
   const int dh4 = (dh + 3) & ~3;
   const bool cp = CP && a.vec && dh == DHP;
-  const T* q = static_cast<const T*>(a.q) + b * a.qsb + (long long)kvh * G * a.qsh;
+  const int h0 = kvh * G - a.off;                 // the head of row g: h0 + g
+  const T* q = static_cast<const T*>(a.q) + b * a.qsb;
   const T* k = static_cast<const T*>(a.k) + b * a.ksb + kvh * a.ksh;
   const T* v = static_cast<const T*>(a.v) + b * a.vsb + kvh * a.vsh + c0;
   T* o = static_cast<T*>(a.o);
@@ -280,7 +290,7 @@ fa_kernel(FaArgs a) {
       for (int e = 0; e < 4; ++e) acc[i][h][e] = 0.0f;
   }
   if (!WIDE) {
-    fa_fill_q<T>(Qs, S::QP, q, a, G, r0, 0, dh);
+    fa_fill_q<T>(Qs, S::QP, q, a, G, h0, r0, 0, dh);
     if (a.round_p == 3) {
       // each row's max over its visible keys first, so the main loop
       // rounds every p against it (there alpha = 1: no tile raises m)
@@ -328,7 +338,7 @@ fa_kernel(FaArgs a) {
       for (int dc = 0; dc < dh; dc += FA_WIDE) {
         const int w = min(FA_WIDE, dh - dc);
         __syncthreads();
-        fa_fill_q<T>(Qs, S::QP, q, a, G, r0, dc, w);
+        fa_fill_q<T>(Qs, S::QP, q, a, G, h0, r0, dc, w);
         fa_fill<T>(Ks, S::KP, k + j0 * a.kss + dc, a.kss, nk, BN, w);
         __syncthreads();
         fa_scores<TN>(s, Qs, S::QP, Ks, S::KP, (w + 3) & ~3, tr, tc);
@@ -433,9 +443,10 @@ fa_kernel(FaArgs a) {
   for (int i = 0; i < 4; ++i) {
     const int row = r0 + tr + 16 * i;
     if (row >= nrows) continue;
-    const int t = row / G, g = row - t * G;
+    const int t = row / G, h = h0 + row - t * G;
+    if (h < 0 || h >= a.H) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    T* dst = o + (((long long)b * a.Sq + t) * a.H + kvh * G + g) * dh + c0;
+    T* dst = o + (((long long)b * a.Sq + t) * a.H + h) * dh + c0;
 #pragma unroll
     for (int h = 0; h < NH; ++h)
 #pragma unroll
@@ -452,7 +463,7 @@ static int fa_run(const FaArgs& a, cudaStream_t s) {
   static int granted[HP_MAX_DEVICES] = {0};
   const int e = hp_grant_smem((const void*)fa_kernel<T, DHP, BN, WIDE>, smem, granted);
   if (e) return e;
-  const long long nt = ((long long)a.Sq * (a.H / a.KV) + FA_ROWS - 1) / FA_ROWS;
+  const long long nt = ((long long)a.Sq * a.G + FA_ROWS - 1) / FA_ROWS;
   const long long ncz = WIDE ? (a.dh + FA_WIDE - 1) / FA_WIDE : 1;
   const long long blocks = nt * a.B * a.KV * ncz;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
@@ -468,6 +479,12 @@ static int fa_dispatch(const FaArgs& a, cudaStream_t s) {
   return fa_run<T, 256, 32, true>(a, s);
 }
 
+// H query heads read KV heads through groups of G from `off` on (G = H /
+// KV and off 0 for whole groups): KV must be ceil((off + H) / G).
+static bool fa_groups(int H, int KV, int G, int off) {
+  return KV >= 1 && G >= 1 && off >= 0 && off < G && KV == (off + H + G - 1) / G;
+}
+
 // Strides in elements; the last axis of q, k and v is contiguous.  dtype 0 =
 // float32, 1 = bfloat16 (q, k, v and out alike); vec = 1 when every row of
 // k and v starts on a 16-byte boundary and dh fills whole 16-byte words
@@ -475,18 +492,18 @@ static int fa_dispatch(const FaArgs& a, cudaStream_t s) {
 // and window (0: none; else causal only) as above.
 // Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int fa_launch(const void* q, const void* k, const void* v, void* o,
-                         int B, int Sq, int Sk, int H, int KV, int dh,
-                         long long qsb, long long qss, long long qsh,
+                         int B, int Sq, int Sk, int H, int KV, int dh, int G,
+                         int off, long long qsb, long long qss, long long qsh,
                          long long ksb, long long kss, long long ksh,
                          long long vsb, long long vss, long long vsh,
                          float scale, int causal, int round_p, int vec,
                          int dtype, int window, void* stream) {
-  if (B == 0 || Sq == 0) return 0;
-  if (Sk < 1 || KV < 1 || H % KV != 0 || dh < 1 || round_p < 0 || round_p > 3 ||
+  if (B == 0 || Sq == 0 || H == 0) return 0;
+  if (Sk < 1 || !fa_groups(H, KV, G, off) || dh < 1 || round_p < 0 || round_p > 3 ||
       (round_p == 3 && dh > 256) || window < 0 || (window > 0 && !causal))
     return (int)cudaErrorInvalidValue;
-  FaArgs a{q, k, v, o, B, Sq, Sk, H, KV, dh, qsb, qss, qsh, ksb, kss, ksh,
-           vsb, vss, vsh, scale, causal, round_p, vec, window};
+  FaArgs a{q, k, v, o, B, Sq, Sk, H, KV, dh, G, off, qsb, qss, qsh, ksb, kss,
+           ksh, vsb, vss, vsh, scale, causal, round_p, vec, window};
   cudaStream_t s = (cudaStream_t)stream;
   return dtype == 0 ? fa_dispatch<float>(a, s) : fa_dispatch<__nv_bfloat16>(a, s);
 }
@@ -507,7 +524,7 @@ struct FtShape {
 
 struct FtArgs {
   __nv_bfloat16* o;
-  int B, Sq, Sk, H, KV, dh;
+  int B, Sq, Sk, H, KV, dh, G, off;
   int rt;                // rows of a row tile: whole tokens, or half of one
   float scale;
   int causal, window;
@@ -531,8 +548,9 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap mq,
   uint64_t* empty = full + FT_STAGES;
 
   const int tid = threadIdx.x, wg = tid / 128;
-  const int G = a.H / a.KV, RT = a.rt;
+  const int G = a.G, RT = a.rt;
   const int b = blockIdx.y / a.KV, kvh = blockIdx.y % a.KV;
+  const int h0 = kvh * G - a.off;         // the head of row g (TMA fills h < 0)
   const int r0 = (gridDim.x - 1 - blockIdx.x) * 2 * RT;   // the block's first row
   const int nrows = a.Sq * G;
   const int last_row = min(r0 + 2 * RT, nrows) - 1;
@@ -568,7 +586,7 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap mq,
       hp_bar_expect_tx(q_full, S::Q_BYTES);
 #pragma unroll
       for (int c = 0; c < DHP / 64; ++c)
-        hp_tma_4d(Qs + c * FT_BM * 128, &mq, q_full, c * 64, kvh * G, r0 / G, b);
+        hp_tma_4d(Qs + c * FT_BM * 128, &mq, q_full, c * 64, h0, r0 / G, b);
     } else {                              // a box of whole tokens a row tile
       hp_bar_expect_tx(q_full, 2 * (DHP / 64) * RT * 128);
 #pragma unroll
@@ -576,7 +594,7 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap mq,
 #pragma unroll
         for (int h = 0; h < 2; ++h)
           hp_tma_4d(Qs + c * FT_BM * 128 + h * 64 * 128, &mq, q_full, c * 64,
-                    kvh * G, (r0 + h * RT) / G, b);
+                    h0, (r0 + h * RT) / G, b);
     }
     // the key tiles once a pass; RP 3's first pass (the rows' max) takes k alone
     for (int n = 0; n < NPASS * nj; ++n) {
@@ -741,10 +759,10 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap mq,
     for (int h = 0; h < 2; ++h) {
       const int row = rw + sl + 8 * h;
       if (sl + 8 * h >= RT || row >= nrows) continue;
-      const int t = row / G, g = row % G;
+      const int t = row / G, hd = h0 + row % G;
+      if (hd < 0 || hd >= a.H) continue;
       const float l = fmaxf(lrow[h], 1e-30f);
-      __nv_bfloat16* dst =
-          a.o + (((long long)b * a.Sq + t) * a.H + kvh * G + g) * a.dh;
+      __nv_bfloat16* dst = a.o + (((long long)b * a.Sq + t) * a.H + hd) * a.dh;
 #pragma unroll
       for (int n8 = 0; n8 < DHP / 8; ++n8) {
         const int col = 8 * n8 + 2 * (lane % 4);
@@ -764,7 +782,7 @@ static int fa_tc_run(const FtArgs& a, const CUtensorMap& mq,
   const int smem = FtShape<DHP>::SMEM;
   const int e = hp_grant_smem((const void*)fa_tc_kernel<DHP, RP>, smem, granted);
   if (e) return e;
-  const long long ntile = ((long long)a.Sq * (a.H / a.KV) + a.rt - 1) / a.rt;
+  const long long ntile = ((long long)a.Sq * a.G + a.rt - 1) / a.rt;
   dim3 grid((unsigned)((ntile + 1) / 2), a.B * a.KV);
   if (grid.y > 65535) return (int)cudaErrorInvalidValue;
   fa_tc_kernel<DHP, RP><<<grid, FT_THREADS, smem, s>>>(mq, mk, mv, a);
@@ -797,23 +815,23 @@ static int fa_tc_map(CUtensorMap* m, const void* base, int B, int S, int heads,
 
 // bfloat16 q, k, v and out; strides in elements, every one a multiple of 8
 // and every base 16-byte aligned; dh a multiple of 8 up to 256; G up to 64,
-// or 128;
+// or 128, and off as fa_launch's (q's map holds the H heads: a box that
+// starts at kvh * G - off reads the heads outside them as zeros);
 // round_p 0 to 3 as fa_launch's (1 and 2 alike: v is bfloat16); window as
 // fa_launch's.
 // Returns cudaGetLastError() after the launch (0 = launched), or the error
 // of a refused grant or tensor-map encoding.
 extern "C" int fa_tc_launch(const void* q, const void* k, const void* v, void* o,
-                            int B, int Sq, int Sk, int H, int KV, int dh,
-                            long long qsb, long long qss, long long qsh,
+                            int B, int Sq, int Sk, int H, int KV, int dh, int G,
+                            int off, long long qsb, long long qss, long long qsh,
                             long long ksb, long long kss, long long ksh,
                             long long vsb, long long vss, long long vsh,
                             float scale, int causal, int round_p, int window,
                             void* stream) {
-  if (B == 0 || Sq == 0) return 0;
-  if (Sk < 1 || KV < 1 || H % KV != 0 || dh < 8 || dh % 8 != 0 || dh > 256 ||
+  if (B == 0 || Sq == 0 || H == 0) return 0;
+  if (Sk < 1 || !fa_groups(H, KV, G, off) || dh < 8 || dh % 8 != 0 || dh > 256 ||
       window < 0 || (window > 0 && !causal) || round_p < 0 || round_p > 3)
     return (int)cudaErrorInvalidValue;
-  const int G = H / KV;
   // a row tile: the whole tokens of 64 slots, or at G 128 half a token
   const int rt = G <= 64 ? G * (64 / G) : G == 128 ? 64 : 0;
   if (rt == 0) return (int)cudaErrorInvalidValue;
@@ -824,7 +842,8 @@ extern "C" int fa_tc_launch(const void* q, const void* k, const void* v, void* o
   if ((e = fa_tc_map(&mq, q, B, Sq, H, dh, qsb, qss, qsh, G, bq))) return e;
   if ((e = fa_tc_map(&mk, k, B, Sk, KV, dh, ksb, kss, ksh, 1, FT_BK))) return e;
   if ((e = fa_tc_map(&mv, v, B, Sk, KV, dh, vsb, vss, vsh, 1, FT_BK))) return e;
-  FtArgs a{(__nv_bfloat16*)o, B, Sq, Sk, H, KV, dh, rt, scale, causal, window};
+  FtArgs a{(__nv_bfloat16*)o, B, Sq, Sk, H, KV, dh, G, off, rt, scale, causal,
+           window};
   cudaStream_t s = (cudaStream_t)stream;
   if (dh <= 64) return fa_tc_mode<64>(round_p, a, mq, mk, mv, s);
   if (dh <= 128) return fa_tc_mode<128>(round_p, a, mq, mk, mv, s);
@@ -907,8 +926,8 @@ extern "C" int fa_tc_launch(const void* q, const void* k, const void* v, void* o
 struct FbArgs {
   const void* q; const void* k; const void* v; const void* g;
   void* dq; void* dk; void* dv; float* lse;
-  float* delta;     // (B, H, Sq) D; round_p: D / l, m, l, the argmax share
-  int B, Sq, Sk, H, KV, dh;
+  float* delta;     // (B, KV * G, Sq) D; round_p: D / l, m, l, the argmax share
+  int B, Sq, Sk, H, KV, dh, G, off;
   long long qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, gsb, gss, gsh;
   float scale;
   int causal, window;
@@ -978,23 +997,24 @@ __device__ __forceinline__ void fb_accum(float (&acc)[TI][NH][4],
 }
 
 // Rows r0 .. r0 + R of one KV head's (token, g) rows of a (B, S, H, dh)
-// tensor (base at the head group's first head; token and head strides ss,
+// tensor (base at batch b; row g is head h0 + g; token and head strides ss,
 // sh) as fp32 times mul into dst (pitch), columns [0, DHP): zeros past
-// nrows and past dh.  A warp takes a row at a time, its lanes along d.
+// nrows, for heads outside [0, H) and past dh.  A warp takes a row at a
+// time, its lanes along d.
 // With `div` (shared memory, one value a row) each row is divided by its
 // value: g / l for round_p.
 template <typename T, int DHP>
 __device__ __forceinline__ void fb_fill_rows(float* dst, int pitch,
                                              const T* base, long long ss,
-                                             long long sh, int G, int r0,
-                                             int R, int nrows, int dh,
-                                             float mul,
+                                             long long sh, int G, int h0,
+                                             int H, int r0, int R, int nrows,
+                                             int dh, float mul,
                                              const float* div = nullptr) {
   const int lane = threadIdx.x & 31;
   for (int r = threadIdx.x >> 5; r < R; r += FB_THREADS / 32) {
-    const int row = r0 + r, t = row / G, g = row - t * G;
-    const bool live = row < nrows;
-    const T* src = base + t * ss + g * sh;
+    const int row = r0 + r, t = row / G, h = h0 + row - t * G;
+    const bool live = row < nrows && h >= 0 && h < H;
+    const T* src = base + t * ss + (long long)(live ? h : 0) * sh;
     for (int d = lane; d < DHP; d += 32) {
       const float x = (live && d < dh) ? att_in<T>(src[d]) * mul : 0.0f;
       dst[r * pitch + d] = div ? x / div[r] : x;
@@ -1041,14 +1061,15 @@ fb_dq_kernel(FbArgs a) {
 
   const int tid = threadIdx.x, lane = tid & 31;
   const int tr = (tid >> 5) * 2 + (lane >> 4), tc = lane & 15;
-  const int G = a.H / a.KV, nrows = a.Sq * G, dh = a.dh;
+  const int G = a.G, nrows = a.Sq * G, dh = a.dh;
   const int dh4 = (dh + 3) & ~3;
   const int nt = (nrows + QM - 1) / QM, nbkv = a.B * a.KV;
   const int bkv = blockIdx.x % nbkv, rank = blockIdx.x / nbkv;   // heaviest first
   const int r0 = (nt - 1 - rank) * QM;
   const int b = bkv / a.KV, kvh = bkv - b * a.KV;
-  const T* q = static_cast<const T*>(a.q) + b * a.qsb + (long long)kvh * G * a.qsh;
-  const T* go = static_cast<const T*>(a.g) + b * a.gsb + (long long)kvh * G * a.gsh;
+  const int h0 = kvh * G - a.off;                 // the head of row g: h0 + g
+  const T* q = static_cast<const T*>(a.q) + b * a.qsb;
+  const T* go = static_cast<const T*>(a.g) + b * a.gsb;
   const T* k = static_cast<const T*>(a.k) + b * a.ksb + kvh * a.ksh;
   const T* v = static_cast<const T*>(a.v) + b * a.vsb + kvh * a.vsh;
 
@@ -1057,8 +1078,10 @@ fb_dq_kernel(FbArgs a) {
   const int nkt = (kend + QN - 1) / QN;
   const int jt0 = a.window > 0 ? max(0, r0 / G - a.window + 1) / QN : 0;
 
-  fb_fill_rows<T, DHP>(Qs, S::P, q, a.qss, a.qsh, G, r0, QM, nrows, dh, a.scale);
-  fb_fill_rows<T, DHP>(Gs, S::P, go, a.gss, a.gsh, G, r0, QM, nrows, dh, 1.0f);
+  fb_fill_rows<T, DHP>(Qs, S::P, q, a.qss, a.qsh, G, h0, a.H, r0, QM, nrows, dh,
+                       a.scale);
+  fb_fill_rows<T, DHP>(Gs, S::P, go, a.gss, a.gsh, G, h0, a.H, r0, QM, nrows, dh,
+                       1.0f);
 
   int tok[TI];
   bool live[TI];
@@ -1138,7 +1161,7 @@ fb_dq_kernel(FbArgs a) {
     }
   }
   float lse[TI], D[TI], share[TI];
-  const long long plane = (long long)a.B * a.H * a.Sq;
+  const long long plane = (long long)a.B * a.KV * G * a.Sq;   // rows of whole groups
 #pragma unroll
   for (int i = 0; i < TI; ++i) {
     // a row that sees no key (none of the model's) gets p = 0 everywhere
@@ -1198,7 +1221,7 @@ fb_dq_kernel(FbArgs a) {
     const int row = r0 + tr + 16 * i;
     if (tc == 0 && live[i]) {
       const int g = row - tok[i] * G;
-      const long long at = ((long long)b * a.H + kvh * G + g) * a.Sq + tok[i];
+      const long long at = ((long long)bkv * G + g) * a.Sq + tok[i];
       a.lse[at] = lse[i];
       a.delta[at] = D[i];
       if (RP) {
@@ -1243,9 +1266,9 @@ fb_dq_kernel(FbArgs a) {
   T* dq = static_cast<T*>(a.dq);
 #pragma unroll
   for (int i = 0; i < TI; ++i) {
-    if (!live[i]) continue;
-    const int g = r0 + tr + 16 * i - tok[i] * G;
-    T* dst = dq + (((long long)b * a.Sq + tok[i]) * a.H + kvh * G + g) * dh;
+    const int h = h0 + r0 + tr + 16 * i - tok[i] * G;
+    if (!live[i] || h < 0 || h >= a.H) continue;
+    T* dst = dq + (((long long)b * a.Sq + tok[i]) * a.H + h) * dh;
 #pragma unroll
     for (int h = 0; h < NH; ++h)
 #pragma unroll
@@ -1284,14 +1307,15 @@ fb_dkdv_kernel(FbArgs a) {
 
   const int tid = threadIdx.x, lane = tid & 31;
   const int tr = (tid >> 5) * 2 + (lane >> 4), tc = lane & 15;
-  const int G = a.H / a.KV, nrows = a.Sq * G, dh = a.dh;
+  const int G = a.G, nrows = a.Sq * G, dh = a.dh;
   const int dh4 = (dh + 3) & ~3;
   const int nbkv = a.B * a.KV;
   const int bkv = blockIdx.x % nbkv, kt = blockIdx.x / nbkv;
   const int b = bkv / a.KV, kvh = bkv - b * a.KV;
   const int j0 = kt * KN, nk = min(KN, a.Sk - j0);
-  const T* q = static_cast<const T*>(a.q) + b * a.qsb + (long long)kvh * G * a.qsh;
-  const T* go = static_cast<const T*>(a.g) + b * a.gsb + (long long)kvh * G * a.gsh;
+  const int h0 = kvh * G - a.off;                 // the head of row g: h0 + g
+  const T* q = static_cast<const T*>(a.q) + b * a.qsb;
+  const T* go = static_cast<const T*>(a.g) + b * a.gsb;
   fb_fill_keys<T, DHP>(Ks, S::P, static_cast<const T*>(a.k) + b * a.ksb +
                        kvh * a.ksh + j0 * a.kss, a.kss, nk, KN, dh);
   fb_fill_keys<T, DHP>(Vs, S::P, static_cast<const T*>(a.v) + b * a.vsb +
@@ -1309,10 +1333,9 @@ fb_dkdv_kernel(FbArgs a) {
     for (int h = 0; h < NH; ++h)
 #pragma unroll
       for (int e = 0; e < 4; ++e) accK[i][h][e] = accV[i][h][e] = 0.0f;
-  const long long plane = (long long)a.B * a.H * a.Sq;
-  const float* del_bh = a.delta + ((long long)b * a.H + kvh * G) * a.Sq;
-  const float* lse_bh = RP ? del_bh + plane
-                           : a.lse + ((long long)b * a.H + kvh * G) * a.Sq;
+  const long long plane = (long long)nbkv * G * a.Sq;     // rows of whole groups
+  const float* del_bh = a.delta + (long long)bkv * G * a.Sq;
+  const float* lse_bh = RP ? del_bh + plane : a.lse + (long long)bkv * G * a.Sq;
 
   for (int r0 = row_lo; r0 < row_hi; r0 += KM) {
     __syncthreads();                      // the last tile's readers are done
@@ -1328,9 +1351,10 @@ fb_dkdv_kernel(FbArgs a) {
       }
     }
     if (RP) __syncthreads();              // g / l reads the rows' l
-    fb_fill_rows<T, DHP>(Qs, S::P, q, a.qss, a.qsh, G, r0, KM, nrows, dh, a.scale);
-    fb_fill_rows<T, DHP>(Gs, S::P, go, a.gss, a.gsh, G, r0, KM, nrows, dh, 1.0f,
-                         RP ? Ll : nullptr);
+    fb_fill_rows<T, DHP>(Qs, S::P, q, a.qss, a.qsh, G, h0, a.H, r0, KM, nrows,
+                         dh, a.scale);
+    fb_fill_rows<T, DHP>(Gs, S::P, go, a.gss, a.gsh, G, h0, a.H, r0, KM, nrows,
+                         dh, 1.0f, RP ? Ll : nullptr);
     __syncthreads();
     float s[TK][TR], dp[TK][TR];
 #pragma unroll
@@ -1391,7 +1415,7 @@ static int fb_run(const FbArgs& a, cudaStream_t s) {
   e = hp_grant_smem((const void*)fb_dkdv_kernel<T, DHP, KN, KM, RP>, smk, granted_k);
   if (e) return e;
   const long long nbkv = (long long)a.B * a.KV;
-  const long long bq = ((long long)a.Sq * (a.H / a.KV) + QM - 1) / QM * nbkv;
+  const long long bq = ((long long)a.Sq * a.G + QM - 1) / QM * nbkv;
   const long long bk = ((long long)a.Sk + KN - 1) / KN * nbkv;
   if (bq > 0x7fffffffLL || bk > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   fb_dq_kernel<T, DHP, QM, QN, RP><<<(unsigned)bq, FB_THREADS, smq, s>>>(a);
@@ -1412,27 +1436,29 @@ static int fb_dispatch(const FbArgs& a, cudaStream_t s) {
 }
 
 // q (B, Sq, H, dh), k and v (B, Sk, KV, dh) and g (B, Sq, H, dh) with
-// element strides (last axis contiguous); dq, dk, dv contiguous in the
-// same dtype (0 float32, 1 bfloat16); lse and delta (B, H, Sq) float32
-// scratch (delta four such planes with round_p), lse left holding the rows'
-// log-sum-exp; dh <= 256; causal and window as fa_launch's; round_p 1: p
-// rounded to bfloat16 in P.V.  Launches fb_dq_kernel, then fb_dkdv_kernel.
+// element strides (last axis contiguous), head h reading KV head (off + h)
+// / G as fa_launch's; dq, dk, dv contiguous in the same dtype (0 float32,
+// 1 bfloat16); lse and delta (B, KV * G, Sq) float32 scratch, the rows of
+// whole groups (delta four such planes with round_p), lse left holding the
+// rows' log-sum-exp (head h at row off + h); dh <= 256; causal and window
+// as fa_launch's; round_p 1: p rounded to bfloat16 in P.V.  Launches
+// fb_dq_kernel, then fb_dkdv_kernel.
 // Returns the first cudaGetLastError() that is not 0, else 0.
 extern "C" int fb_launch(const void* q, const void* k, const void* v,
                          const void* g, void* dq, void* dk, void* dv,
                          float* lse, float* delta,
-                         int B, int Sq, int Sk, int H, int KV, int dh,
-                         long long qsb, long long qss, long long qsh,
+                         int B, int Sq, int Sk, int H, int KV, int dh, int G,
+                         int off, long long qsb, long long qss, long long qsh,
                          long long ksb, long long kss, long long ksh,
                          long long vsb, long long vss, long long vsh,
                          long long gsb, long long gss, long long gsh,
                          float scale, int causal, int window, int dtype,
                          int round_p, void* stream) {
-  if (B == 0 || Sq == 0) return 0;
-  if (Sk < 1 || KV < 1 || H % KV != 0 || dh < 1 || dh > 256 || window < 0 ||
+  if (B == 0 || Sq == 0 || H == 0) return 0;
+  if (Sk < 1 || !fa_groups(H, KV, G, off) || dh < 1 || dh > 256 || window < 0 ||
       (window > 0 && !causal) || dtype < 0 || dtype > 1 || round_p < 0 || round_p > 1)
     return (int)cudaErrorInvalidValue;
-  FbArgs a{q, k, v, g, dq, dk, dv, lse, delta, B, Sq, Sk, H, KV, dh,
+  FbArgs a{q, k, v, g, dq, dk, dv, lse, delta, B, Sq, Sk, H, KV, dh, G, off,
            qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, gsb, gss, gsh,
            scale, causal, window};
   cudaStream_t s = (cudaStream_t)stream;
@@ -1630,7 +1656,7 @@ struct FbtArgs {
   float* part;           // [B * KV * key tiles * pieces][DHP * 128]: registers
                          // by consumer thread
   int* count;            // [key tiles * B * KV] pieces arrived
-  int B, Sq, Sk, H, KV, dh, rows_pad, pieces;
+  int B, Sq, Sk, H, KV, dh, G, off, rows_pad, pieces;
   int rt;                // rows of a row tile: whole tokens, or half of one
   float scale;
   int causal, window;
@@ -1991,7 +2017,7 @@ fbt_dq_kernel(const __grid_constant__ CUtensorMap mq,
   uint64_t* empty = full + FBT_STAGES;
 
   const int tid = threadIdx.x, wg = tid / 128;
-  const int G = a.H / a.KV, nrows = a.Sq * G, nbkv = a.B * a.KV, RT = a.rt;
+  const int G = a.G, nrows = a.Sq * G, nbkv = a.B * a.KV, RT = a.rt;
   const int nblk = ((nrows + RT - 1) / RT + Geo::TILES - 1) / Geo::TILES;  // a head
   const int bkv = blockIdx.x % nbkv, rank = blockIdx.x / nbkv;   // heaviest first
   const int blk = nblk - 1 - rank;
@@ -2030,9 +2056,9 @@ fbt_dq_kernel(const __grid_constant__ CUtensorMap mq,
 #pragma unroll
         for (int c = 0; c < DHP / 64; ++c) {
           const int at = t * S::ROW_BYTES + c * S::SLOTS * 128 + h * RS * 128;
-          hp_tma_4d(Qs + at, &mq, q_full, c * 64, kvh * G + rr % G, rr / G,
+          hp_tma_4d(Qs + at, &mq, q_full, c * 64, kvh * G - a.off + rr % G, rr / G,
                     b + t * a.B);
-          hp_tma_4d(Gs + at, &mg, q_full, c * 64, kvh * G + rr % G, rr / G,
+          hp_tma_4d(Gs + at, &mg, q_full, c * 64, kvh * G - a.off + rr % G, rr / G,
                     b + t * a.B);
         }
       }
@@ -2165,10 +2191,9 @@ fbt_dq_kernel(const __grid_constant__ CUtensorMap mq,
     live[h] = real && l[h] > 0.0f;
     lse2[h] = live[h] ? m2[h] + log2f(l[h]) : FB_INF;
     D[h] = live[h] && !RP ? pd[h] / l[h] : 0.0f;
-    if (lane % 4 == 0 && real) {
-      const int t = row[h] / G, g = row[h] % G;
-      a.lse[((long long)b * a.H + kvh * G + g) * a.Sq + t] = lse2[h] * FBT_LN2;
-    }
+    const int hd = kvh * G - a.off + row[h] % G;  // the row's head
+    if (lane % 4 == 0 && real && hd >= 0 && hd < a.H)
+      a.lse[((long long)b * a.H + hd) * a.Sq + row[h] / G] = lse2[h] * FBT_LN2;
   }
   if constexpr (RP) {
     // pass 2 (point 6): with x = (g . v_j) / l, D = sum r(p) x, the argmax
@@ -2262,9 +2287,9 @@ fbt_dq_kernel(const __grid_constant__ CUtensorMap mq,
   // ------------------------------------------------------ epilogue
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    if (!filled[h] || row[h] >= nrows) continue;
-    const int t = row[h] / G, g = row[h] % G;
-    const long long at = (((long long)b * a.Sq + t) * a.H + kvh * G + g) * a.dh;
+    const int t = row[h] / G, hd = kvh * G - a.off + row[h] % G;
+    if (!filled[h] || row[h] >= nrows || hd < 0 || hd >= a.H) continue;
+    const long long at = (((long long)b * a.Sq + t) * a.H + hd) * a.dh;
 #pragma unroll
     for (int n8 = 0; n8 < DHP / 8; ++n8) {
       const int col = 8 * n8 + 2 * (lane % 4);
@@ -2279,7 +2304,7 @@ fbt_dq_kernel(const __grid_constant__ CUtensorMap mq,
 // from its first key on; window: tokens before its last key + window), as
 // plan_flash_bwd states them.
 __device__ __forceinline__ int2 fbt_row_tiles(const FbtArgs& a, int kt) {
-  const int G = a.H / a.KV, nrows = a.Sq * G;
+  const int G = a.G, nrows = a.Sq * G;
   const int k0 = kt * FBT_BK, nk = min(FBT_BK, a.Sk - k0);
   const long long lo = a.causal ? min((long long)nrows, (long long)k0 * G) : 0;
   const long long hi = a.window > 0
@@ -2326,7 +2351,7 @@ __device__ __forceinline__ void fbt_kv_load(
     uint8_t* Rs, float* stat, uint64_t* kv_full, uint64_t* full,
     uint64_t* empty, int bkv, int k0, int p_lo, int p_hi) {
   using S = FbtKShape<DHP, NI, RP>;
-  const int G = a.H / a.KV, nbkv = a.B * a.KV, b = bkv / a.KV, kvh = bkv % a.KV;
+  const int G = a.G, nbkv = a.B * a.KV, b = bkv / a.KV, kvh = bkv % a.KV;
   hp_bar_expect_tx(kv_full, 2 * NI * S::KV_BYTES);
 #pragma unroll
   for (int t = 0; t < NI; ++t)
@@ -2348,9 +2373,9 @@ __device__ __forceinline__ void fbt_kv_load(
 #pragma unroll
       for (int c = 0; c < DHP / 64; ++c) {
         const int at = t * S::ROW_BYTES + c * S::RS * 128;
-        hp_tma_4d(Qt + at, mq, &full[s], c * 64, kvh * G + r0 % G, r0 / G,
+        hp_tma_4d(Qt + at, mq, &full[s], c * 64, kvh * G - a.off + r0 % G, r0 / G,
                   b + t * a.B);
-        hp_tma_4d(Gt + at, mg, &full[s], c * 64, kvh * G + r0 % G, r0 / G,
+        hp_tma_4d(Gt + at, mg, &full[s], c * 64, kvh * G - a.off + r0 % G, r0 / G,
                   b + t * a.B);
       }
 #pragma unroll
@@ -2384,7 +2409,7 @@ fbt_dkdv_kernel(const __grid_constant__ CUtensorMap mq,
   int* last = reinterpret_cast<int*>(empty + FBT_STAGES);
 
   const int tid = threadIdx.x;
-  const int G = a.H / a.KV, nrows = a.Sq * G, nbkv = a.B * a.KV, RT = a.rt;
+  const int G = a.G, nrows = a.Sq * G, nbkv = a.B * a.KV, RT = a.rt;
   const int piece = blockIdx.x % a.pieces, tile = blockIdx.x / a.pieces;
   const int bkv = tile % nbkv, kt = tile / nbkv;    // key tile 0 (causal: the heaviest) first
   const int b = bkv / a.KV, kvh = bkv % a.KV;
@@ -2570,7 +2595,7 @@ fbt_dkdv2_kernel(const __grid_constant__ CUtensorMap mq,
   int* last = reinterpret_cast<int*>(empty + FBT_STAGES);
 
   const int tid = threadIdx.x, wg = tid / 128;
-  const int G = a.H / a.KV, nrows = a.Sq * G, nbkv = a.B * a.KV, RT = a.rt;
+  const int G = a.G, nrows = a.Sq * G, nbkv = a.B * a.KV, RT = a.rt;
   const int piece = blockIdx.x % a.pieces, tile = blockIdx.x / a.pieces;
   const int bkv = tile % nbkv, kt = tile / nbkv;
   const int b = bkv / a.KV, kvh = bkv % a.KV;
@@ -2841,7 +2866,7 @@ static int fbt_run(const FbtArgs& a, const CUtensorMap (&m)[6], cudaStream_t s) 
   e = hp_grant_smem(kv, SK::SMEM, granted_k);
   if (e) return e;
   const long long nbkv = (long long)a.B * a.KV;
-  const long long ntile = ((long long)a.Sq * (a.H / a.KV) + a.rt - 1) / a.rt;
+  const long long ntile = ((long long)a.Sq * a.G + a.rt - 1) / a.rt;
   constexpr int TILES = FbtGeo<DHP, NI>::TILES;
   const long long bq = (ntile + TILES - 1) / TILES * nbkv;
   const long long nkt = ((long long)a.Sk + FBT_BK - 1) / FBT_BK;
@@ -2925,8 +2950,10 @@ extern "C" int fbt_query(int dh, int dtype, int round_p, long long* out) {
 
 // q (B, Sq, H, dh), k and v (B, Sk, KV, dh), g (B, Sq, H, dh) with element
 // strides, every one on 16 bytes, every base 16-byte aligned; dtype 1
-// bfloat16 or 0 float32, dh a multiple of 8 up to 256; G = H / KV up to 64,
-// or 128 (float32 at dh above 128: up to 16); dq, dk, dv contiguous in that
+// bfloat16 or 0 float32, dh a multiple of 8 up to 256; G up to 64, or 128
+// (float32 at dh above 128: up to 16), and off as fa_launch's (the maps of q
+// and g hold the H heads: boxes from kvh * G - off read the heads outside
+// them as zeros); dq, dk, dv contiguous in that
 // dtype; lse (B, H, Sq)
 // float32; `scratch` of `scratch_bytes` (16-byte aligned) for the slots'
 // statistics, and with pieces > 1 the partial sums and the arrival
@@ -2942,20 +2969,19 @@ extern "C" int fbt_query(int dh, int dtype, int round_p, long long* out) {
 extern "C" int fbt_launch(const void* q, const void* k, const void* v,
                           const void* g, void* dq, void* dk, void* dv,
                           float* lse, void* scratch, long long scratch_bytes,
-                          int B, int Sq, int Sk, int H, int KV, int dh,
-                          long long qsb, long long qss, long long qsh,
+                          int B, int Sq, int Sk, int H, int KV, int dh, int G,
+                          int off, long long qsb, long long qss, long long qsh,
                           long long ksb, long long kss, long long ksh,
                           long long vsb, long long vss, long long vsh,
                           long long gsb, long long gss, long long gsh,
                           float scale, int causal, int window, int pieces,
                           int dtype, int round_p, void* terms, void* stream) {
-  if (B == 0 || Sq == 0) return 0;
-  if (Sk < 1 || KV < 1 || H % KV != 0 || dh < 8 || dh % 8 != 0 || dh > 256 ||
+  if (B == 0 || Sq == 0 || H == 0) return 0;
+  if (Sk < 1 || !fa_groups(H, KV, G, off) || dh < 8 || dh % 8 != 0 || dh > 256 ||
       window < 0 || (window > 0 && !causal) || pieces < 1 || dtype < 0 ||
       dtype > 1 || (dtype == 0 && terms == nullptr) || round_p < 0 || round_p > 1 ||
       (round_p && dtype == 0))
     return (int)cudaErrorInvalidValue;
-  const int G = H / KV;
   const int dhp = dh <= 64 ? 64 : dh <= 128 ? 128 : 256;
   // FbtGeo: float32 at DHP 256 cuts row tiles of 16 slots, four a dq block
   const bool one = dtype == 0 && dhp == 256;
@@ -2976,8 +3002,8 @@ extern "C" int fbt_launch(const void* q, const void* k, const void* v,
   FbtArgs a{dq, dk, dv, lse,
             reinterpret_cast<float*>(sp), reinterpret_cast<float*>(sp + stats),
             reinterpret_cast<int*>(sp + stats + parts),
-            B, Sq, Sk, H, KV, dh, (int)rows_pad, pieces, rt, scale, causal,
-            window, nullptr};
+            B, Sq, Sk, H, KV, dh, G, off, (int)rows_pad, pieces, rt, scale,
+            causal, window, nullptr};
   cudaStream_t s = (cudaStream_t)stream;
   int e;
   // float32: the maps read the inputs' terms, contiguous, as batches 0..2B-1

@@ -2,8 +2,9 @@
 
 :func:`decode_attention` computes, for q (B, H, dh) and the caches k and v
 (B, S, KV, dh) of which the first ``cache_len[b]`` positions are valid, the
-attention of each query head h over KV head h // (H / KV) → (B, H, dh) in
-q's dtype.  On CPU tensors it runs the plain version
+attention of each query head h over KV head h // (H / KV) (or, for a
+rank's share of an uneven split, ``(head_offset + h) // group``) → (B, H,
+dh) in q's dtype.  On CPU tensors it runs the plain version
 :func:`repro_torch.kernels.ref.decode_attention_ref`; on CUDA tensors the
 hand-written kernel ``csrc/decode_attention.cu`` or it raises.  The kernel
 reads the caches in this layout through their strides (a layer's slice of
@@ -60,7 +61,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.build import Work, check_launch, load, note_kernel
-from repro_torch.kernels.ref import decode_attention_ref
+from repro_torch.kernels.ref import decode_attention_ref, head_group
 
 __all__ = ["decode_attention", "plan_decode", "DecodePlan",
            "decode_attention_work"]
@@ -176,7 +177,7 @@ def decode_attention_work(B: int, S: int, H: int, KV: int, dh: int, item: int,
 
 def _declare(lib: ctypes.CDLL) -> None:
     vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.da_launch.argtypes = ([vp] * 8 + [ci] * 5 + [cl] * 8 + [ctypes.c_float]
+    lib.da_launch.argtypes = ([vp] * 8 + [ci] * 7 + [cl] * 8 + [ctypes.c_float]
                               + [ci] * 10 + [vp])
     lib.da_launch.restype = ci
 
@@ -202,19 +203,26 @@ def _lengths(cache_len, B: int, S: int, least: int = 1,
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len, *, cache_start=None,
                      window: int = 0, round_p: bool = True,
-                     return_lse: bool = False):
+                     return_lse: bool = False, group: int | None = None,
+                     head_offset: int = 0):
     """One decode step of attention → (B, H, dh) in q's dtype, and with
     ``return_lse`` (out float32, log-sum-exp (B, H) float32); keys
-    ``[cache_start[b], cache_len[b])``, at most the last ``window``."""
+    ``[cache_start[b], cache_len[b])``, at most the last ``window``.
+    ``group`` and ``head_offset``: a rank's share of an uneven split, head
+    h reading KV head ``(head_offset + h) // group``
+    (:func:`~repro_torch.kernels.ref.head_group`): a block keeps its KV
+    head's G query rows as ever, those outside ``[0, H)`` zero and never
+    written.  No heads: nothing is launched."""
     if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
         raise ValueError(f"decode_attention: q (B, H, dh) and caches (B, S, KV, "
                          f"dh) expected, got {tuple(q.shape)}, "
                          f"{tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
     B, H, dh = q.shape
     S, KV = k_cache.shape[1], k_cache.shape[2]
-    if k_cache.shape[0] != B or k_cache.shape[3] != dh or KV < 1 or H % KV:
+    if k_cache.shape[0] != B or k_cache.shape[3] != dh:
         raise ValueError(f"decode_attention: caches {tuple(k_cache.shape)} do "
                          f"not match q {tuple(q.shape)}")
+    G = head_group(H, KV, group, head_offset)
     lens = _lengths(cache_len, B, S, least=0 if return_lse else 1)
     starts = (None if cache_start is None
               else _lengths(cache_start, B, S, 0, "cache_start"))
@@ -223,7 +231,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, lens,
                                     cache_start=starts, window=window,
-                                    round_p=round_p, return_lse=return_lse)
+                                    round_p=round_p, return_lse=return_lse,
+                                    group=group, head_offset=head_offset)
     if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"decode_attention runs on cuda, cpu or meta, not "
                          f"{q.device}")
@@ -247,12 +256,12 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if q.device.type == "meta":
         return (out, lse) if return_lse else out
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    plan = plan_decode(B, KV, H // KV, S, dh, q.dtype, sms, window=window)
+    plan = plan_decode(B, KV, G, S, dh, q.dtype, sms, window=window)
     lib = load("decode_attention", _declare)
     lens = lens.to(q.device, non_blocking=True)
     if starts is not None:
         starts = starts.to(q.device, non_blocking=True)
-    ws = (torch.empty(plan.splits * B * H * (dh + 2), dtype=torch.float32,
+    ws = (torch.empty(plan.splits * B * KV * G * (dh + 2), dtype=torch.float32,
                       device=q.device) if plan.splits > 1 else None)
     words = 16 // q.element_size()
     vec = all(t.data_ptr() % 16 == 0 and all(s % words == 0 for s in t.stride()[:3])
@@ -262,10 +271,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                         None if starts is None else starts.data_ptr(),
                         None if ws is None else ws.data_ptr(),
                         None if lse is None else lse.data_ptr(), B, S, H, KV, dh,
-                        q.stride(0), q.stride(1), *k_cache.stride()[:3],
-                        *v_cache.stride()[:3], dh ** -0.5, int(round_p),
+                        G, head_offset, q.stride(0), q.stride(1),
+                        *k_cache.stride()[:3], *v_cache.stride()[:3],
+                        dh ** -0.5, int(round_p),
                         int(vec), _DTYPE[q.dtype], plan.chunk, plan.splits,
-                        plan.warps, plan.rows, plan.group_rows(H // KV),
+                        plan.warps, plan.rows, plan.group_rows(G),
                         window, int(plan.windowed),
                         torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("decode_attention", err)

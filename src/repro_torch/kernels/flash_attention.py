@@ -2,7 +2,13 @@
 
 :func:`flash_attention_fused` computes softmax(q kᵀ / sqrt(dh)) v with q
 (B, Sq, H, dh), k and v (B, Sk, KV, dh), query head h reading KV head
-h // (H / KV), the output (B, Sq, H, dh) in q's dtype.  On CPU tensors it
+h // (H / KV), the output (B, Sq, H, dh) in q's dtype.  A rank's share of
+a split over ``model`` that does not divide the heads (the planner's
+``allow_uneven``) passes ``group`` (G) and ``head_offset``: head h reads
+KV head ``(head_offset + h) // group``, and every wrapper here (forward,
+backward, :class:`FlashAttentionFn`) takes the pair; the kernels walk
+each KV head's G rows as ever, those of heads outside the call's read as
+zeros and never written (no repeat of K and V, no copy of q).  On CPU tensors it
 runs the plain version :func:`repro_torch.kernels.ref.flash_attention_ref`;
 on CUDA tensors a hand-written kernel of ``csrc/flash_attention.cu`` or it
 raises.  :func:`flash_route` picks the kernel: bfloat16 runs on the tensor
@@ -89,7 +95,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.build import Work, check_launch, load, note_kernel
-from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_ref
+from repro_torch.kernels.ref import (flash_attention_bwd_ref,
+                                     flash_attention_ref, head_group)
 
 __all__ = ["flash_attention_fused", "flash_route", "plan_flash_simt",
            "FlashSimtPlan", "flash_attention_bwd", "flash_bwd_route",
@@ -126,17 +133,20 @@ class FlashSimtPlan:
     smem: int
 
 
-def plan_flash_simt(B: int, Sq: int, H: int, KV: int, dh: int) -> FlashSimtPlan:
-    """``fa_kernel``'s tiling for q (B, Sq, H, dh) over KV heads, from the
-    shapes alone: qwen2.5-3b's 1,024-token prefill (H 16, KV 2) runs 256
-    blocks of 64 (token, g) rows, one an SM at a time."""
-    if dh < 1 or KV < 1 or H % KV:
+def plan_flash_simt(B: int, Sq: int, H: int, KV: int, dh: int,
+                    group: int | None = None) -> FlashSimtPlan:
+    """``fa_kernel``'s tiling for q (B, Sq, H, dh) over KV heads (``group``
+    query heads each, ``H / KV`` where None), from the shapes alone:
+    qwen2.5-3b's 1,024-token prefill (H 16, KV 2) runs 256 blocks of 64
+    (token, g) rows, one an SM at a time."""
+    if dh < 1 or KV < 1 or (group is None and H % KV):
         raise ValueError(f"flash_attention: H {H}, KV {KV}, dh {dh}")
+    G = group or H // KV
     dhp = 64 if dh <= 64 else 128 if dh <= 128 else 256
     keys = 64 if dhp <= 128 else 32
     wide = dh > SIMT_WIDE
     col_chunks = _cdiv(dh, SIMT_WIDE) if wide else 1
-    tiles = _cdiv(Sq * (H // KV), SIMT_ROWS)
+    tiles = _cdiv(Sq * G, SIMT_ROWS)
     floats = (SIMT_ROWS * (dhp + 4) + 2 * keys * (dhp + 4) + 2 * keys * dhp
               + SIMT_ROWS * (keys + 4))
     return FlashSimtPlan(dhp, keys, wide, col_chunks, tiles,
@@ -227,7 +237,8 @@ class FlashBwdPlan:
 def plan_flash_bwd(B: int, Sq: int, Sk: int, H: int, KV: int, dh: int,
                    causal: bool = True, window: int = 0,
                    dtype: torch.dtype = torch.bfloat16,
-                   round_p: bool = False) -> FlashBwdPlan:
+                   round_p: bool = False,
+                   group: int | None = None) -> FlashBwdPlan:
     """The tensor-core backward's plan, from the shapes, the mask and the
     dtype alone (the kernels take ``pieces`` from it and compute the rest
     alike).  ``dhp``: dh padded to 64, 128 or 256; float32 holds each
@@ -246,10 +257,14 @@ def plan_flash_bwd(B: int, Sq: int, Sk: int, H: int, KV: int, dh: int,
     (128 in all), 5 pieces each.  ``round_p`` (p rounded to bfloat16,
     bfloat16 only): the same kernels with four statistics a row slot (m,
     l, D / l and the argmax share) in the scratch and in each dkdv stage,
-    in place of two (lse and D)."""
+    in place of two (lse and D).  ``group``: the query heads a KV head
+    serves where the heads are a rank's share of an uneven split (None:
+    ``H / KV``); the rows are each KV head's G (token, g) pairs, those
+    outside the rank's heads zero (:func:`flash_attention_bwd`)."""
     ni = {torch.bfloat16: 1, torch.float32: 2}.get(dtype)
     widest = BWD_MAX_DH if ni == 1 else BWD_F32_MAX_DH
-    if ni is None or dh < 1 or dh > widest or KV < 1 or H % KV or Sk < 1:
+    if (ni is None or dh < 1 or dh > widest or KV < 1
+            or (group is None and H % KV) or Sk < 1):
         raise ValueError(f"flash_attention_bwd: H {H}, KV {KV}, dh {dh}, Sk {Sk}, "
                          f"{dtype}")
     if window < 0 or (window and not causal):
@@ -257,7 +272,7 @@ def plan_flash_bwd(B: int, Sq: int, Sk: int, H: int, KV: int, dh: int,
     if round_p and ni == 2:
         raise ValueError("flash_attention_bwd: p rounded on the tensor cores is "
                          "bfloat16 only")
-    G = H // KV
+    G = group or H // KV
     rs = bwd_row_slots(dh, dtype)
     rt = tile_rows(G, rs)
     if not rt:
@@ -326,31 +341,33 @@ def bwd_kernel_facts(dh: int, dtype: torch.dtype = torch.bfloat16,
 
 def _declare(lib: ctypes.CDLL) -> None:
     vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.fa_launch.argtypes = ([vp] * 4 + [ci] * 6 + [cl] * 9 + [ctypes.c_float]
+    lib.fa_launch.argtypes = ([vp] * 4 + [ci] * 8 + [cl] * 9 + [ctypes.c_float]
                               + [ci] * 5 + [vp])
     lib.fa_launch.restype = ci
-    lib.fa_tc_launch.argtypes = ([vp] * 4 + [ci] * 6 + [cl] * 9
+    lib.fa_tc_launch.argtypes = ([vp] * 4 + [ci] * 8 + [cl] * 9
                                  + [ctypes.c_float] + [ci] * 3 + [vp])
     lib.fa_tc_launch.restype = ci
-    lib.fb_launch.argtypes = ([vp] * 9 + [ci] * 6 + [cl] * 12
+    lib.fb_launch.argtypes = ([vp] * 9 + [ci] * 8 + [cl] * 12
                               + [ctypes.c_float] + [ci] * 4 + [vp])
     lib.fb_launch.restype = ci
-    lib.fbt_launch.argtypes = ([vp] * 9 + [cl] + [ci] * 6 + [cl] * 12
+    lib.fbt_launch.argtypes = ([vp] * 9 + [cl] + [ci] * 8 + [cl] * 12
                                + [ctypes.c_float] + [ci] * 5 + [vp] * 2)
     lib.fbt_launch.restype = ci
     lib.fbt_query.argtypes = [ci, ci, ci, ctypes.POINTER(cl)]
     lib.fbt_query.restype = ci
 
 
-def flash_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+def flash_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                group: int | None = None) -> str:
     """``"wgmma"`` where ``fa_tc_kernel`` takes the call — bfloat16, dh a
-    multiple of 8 up to 256, G = H / KV whose tokens a row tile can hold
-    whole (up to 64) or halve (128: :func:`tile_rows`), and every base and
-    every stride of q, k and v on 16 bytes (what TMA needs) — else
-    ``"simt"`` (``fa_kernel``).  Reads shapes, strides and pointers only."""
+    multiple of 8 up to 256, G (``group``, or H / KV) whose tokens a row
+    tile can hold whole (up to 64) or halve (128: :func:`tile_rows`), and
+    every base and every stride of q, k and v on 16 bytes (what TMA needs)
+    — else ``"simt"`` (``fa_kernel``).  Reads shapes, strides and pointers
+    only."""
     H, dh, KV = q.shape[2], q.shape[3], k.shape[2]
     if (q.dtype != torch.bfloat16 or dh % 8 or dh > MAX_DH
-            or not tile_rows(H // KV)):
+            or not tile_rows(group or H // KV)):
         return "simt"
     return "wgmma" if all(_aligned(t) for t in (q, k, v)) else "simt"
 
@@ -364,7 +381,8 @@ def _aligned(t: torch.Tensor) -> bool:
 
 
 def flash_bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    round_p: bool | torch.dtype = False) -> str:
+                    round_p: bool | torch.dtype = False,
+                    group: int | None = None) -> str:
     """``"wgmma"`` where the tensor-core backward (``fbt_dq_kernel``, then
     ``fbt_dkdv_kernel`` or ``fbt_dkdv2_kernel``) takes the call — bfloat16
     with p in fp32 or rounded to bfloat16 (``round_p``: the same shapes
@@ -384,12 +402,15 @@ def flash_bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return "simt"
     H, dh, KV = q.shape[2], q.shape[3], k.shape[2]
     top = {torch.bfloat16: BWD_MAX_DH, torch.float32: BWD_F32_MAX_DH}.get(q.dtype, 0)
-    if dh % 8 or dh > top or not tile_rows(H // KV, bwd_row_slots(dh, q.dtype)):
+    if dh % 8 or dh > top or not tile_rows(group or H // KV,
+                                           bwd_row_slots(dh, q.dtype)):
         return "simt"
     return "wgmma" if all(_aligned(t) for t in (q, k, v)) else "simt"
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           group: int | None = None, head_offset: int = 0) -> int:
+    """Check the shapes; return G, the query heads a KV head serves."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention: q (B, Sq, H, dh) and k, v (B, Sk, "
                          f"KV, dh) expected, got {tuple(q.shape)}, "
@@ -398,11 +419,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if k.shape[0] != B or k.shape[3] != dh:
         raise ValueError(f"flash_attention: k {tuple(k.shape)} does not match "
                          f"q {tuple(q.shape)}")
-    KV = k.shape[2]
-    if KV < 1 or H % KV:
-        raise ValueError(f"flash_attention: {H} query heads over {KV} KV heads")
+    G = head_group(H, k.shape[2], group, head_offset)
     if k.shape[1] < 1:
         raise ValueError("flash_attention: no keys")
+    return G
 
 
 def _round_mode(round_p: bool | torch.dtype, dh: int) -> int:
@@ -421,19 +441,27 @@ def _round_mode(round_p: bool | torch.dtype, dh: int) -> int:
 
 def flash_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, window: int = 0,
-                          round_p: bool | torch.dtype = True) -> torch.Tensor:
+                          round_p: bool | torch.dtype = True,
+                          group: int | None = None,
+                          head_offset: int = 0) -> torch.Tensor:
     """Fused attention → (B, Sq, H, dh) in q's dtype.  With
     ``round_p=torch.bfloat16`` both kernels at dh <= 256 round p against
     each row's max, found in a first pass over the keys (the plain
     version's function, and the one the rounded-p backward
     differentiates); ``fa_kernel``'s column split above dh 256 against a
-    key tile's running max."""
-    _check(q, k, v)
+    key tile's running max.  ``group`` and ``head_offset``: a rank's share
+    of an uneven split, head h reading KV head ``(head_offset + h) //
+    group`` (:func:`~repro_torch.kernels.ref.head_group`); the kernels
+    walk each KV head's G (token, g) rows as ever, read the rows of heads
+    outside ``[0, H)`` as zeros (TMA's fill, or a masked load) and write
+    none of them.  No heads: nothing is launched."""
+    G = _check(q, k, v, group, head_offset)
     _round_mode(round_p, q.shape[3])     # round_p a bool or torch.bfloat16
     _check_window(causal, window)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   round_p=round_p)
+                                   round_p=round_p, group=group,
+                                   head_offset=head_offset)
     _on_card_or_meta(q)
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: q, k and v must share a device")
@@ -448,7 +476,7 @@ def flash_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((B, Sq, H, dh), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    route = flash_route(q, k, v)
+    route = flash_route(q, k, v, G)
     note_kernel("flash_attention_wgmma" if route == "wgmma" else "flash_attention",
                 flash_attention_work, B, Sq, Sk, H, KV, dh, q.element_size(),
                 causal, window)
@@ -459,8 +487,8 @@ def flash_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mode = _round_mode(round_p, dh)
     if route == "wgmma":
         err = lib.fa_tc_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                               out.data_ptr(), B, Sq, Sk, H, KV, dh,
-                               *q.stride()[:3], *k.stride()[:3],
+                               out.data_ptr(), B, Sq, Sk, H, KV, dh, G,
+                               head_offset, *q.stride()[:3], *k.stride()[:3],
                                *v.stride()[:3], dh ** -0.5, int(causal),
                                mode, window, stream)
         check_launch("flash_attention_wgmma", err)
@@ -469,7 +497,8 @@ def flash_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     vec = all(t.data_ptr() % 16 == 0 and all(s % words == 0 for s in t.stride()[:3])
               for t in (k, v)) and dh % words == 0
     err = lib.fa_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                        B, Sq, Sk, H, KV, dh, *q.stride()[:3], *k.stride()[:3],
+                        B, Sq, Sk, H, KV, dh, G, head_offset, *q.stride()[:3],
+                        *k.stride()[:3],
                         *v.stride()[:3], dh ** -0.5, int(causal), mode,
                         int(vec), _DTYPE[q.dtype], window, stream)
     check_launch("flash_attention", err)
@@ -527,7 +556,8 @@ def _check_window(causal: bool, window: int) -> None:
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         g: torch.Tensor, *, causal: bool = True,
                         window: int = 0, route: str | None = None,
-                        round_p: bool | torch.dtype = False
+                        round_p: bool | torch.dtype = False,
+                        group: int | None = None, head_offset: int = 0
                         ) -> tuple[torch.Tensor, ...]:
     """The gradient of :func:`flash_attention_fused` with fp32 p
     (``round_p=False``) or p rounded to bfloat16 in P·V
@@ -538,8 +568,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse (B, H, Sq) float32, each row's log-sum-exp of its scaled, masked
     scores.  dh up to 256 on the card, on the kernels :func:`flash_bwd_route`
     picks; ``route="simt"`` runs the CUDA-core kernels on any call (to time
-    them against the tensor cores)."""
-    _check(q, k, v)
+    them against the tensor cores).  ``group`` and ``head_offset`` as
+    :func:`flash_attention_fused` takes them: the rows outside the heads
+    are zeros (q and g alike), so they add nothing to dk and dv, and a KV
+    head whose group other ranks share gets this rank's heads' part of its
+    gradient (the model sums the parts over ``model``)."""
+    G = _check(q, k, v, group, head_offset)
     _check_window(causal, window)
     if round_p is not False and round_p != torch.bfloat16:
         raise ValueError(f"flash_attention_bwd: round_p={round_p!r} (False "
@@ -552,7 +586,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "'simt')")
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, g, causal=causal, window=window,
-                                       round_p=round_p)
+                                       round_p=round_p, group=group,
+                                       head_offset=head_offset)
     _on_card_or_meta(q)
     if any(t.device != q.device for t in (k, v, g)):
         raise ValueError("flash_attention_bwd: q, k, v and g must share a device")
@@ -569,7 +604,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention_bwd: the last axis of q, k and v "
                          "must be contiguous")
-    route = route or flash_bwd_route(q, k, v, round_p)
+    route = route or flash_bwd_route(q, k, v, round_p, G)
     dq = torch.empty((B, Sq, H, dh), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, Sk, KV, dh), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
@@ -587,7 +622,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = load("flash_attention", _declare)
     if route == "wgmma":
         plan = plan_flash_bwd(B, Sq, Sk, H, KV, dh, causal, window, q.dtype,
-                              round_p is not False)
+                              round_p is not False, G)
         scratch = torch.empty(_cdiv(plan.scratch_bytes, 16) * 4,
                               dtype=torch.float32, device=q.device)
         terms = (torch.empty(plan.terms_bytes // 2, dtype=torch.bfloat16,
@@ -595,24 +630,31 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = lib.fbt_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                              g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                              dv.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
-                             plan.scratch_bytes, B, Sq, Sk, H, KV, dh,
-                             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                             *g.stride()[:3], dh ** -0.5, int(causal), window,
+                             plan.scratch_bytes, B, Sq, Sk, H, KV, dh, G,
+                             head_offset, *q.stride()[:3], *k.stride()[:3],
+                             *v.stride()[:3], *g.stride()[:3], dh ** -0.5,
+                             int(causal), window,
                              plan.pieces, _DTYPE[q.dtype], int(round_p is not False),
                              None if terms is None else terms.data_ptr(), stream)
         check_launch("flash_attention_bwd_wgmma", err)
         return dq, dk, dv, lse
     rp = round_p is not False
-    # each row's D (round_p: D / l, m, l and the argmax key's share)
-    delta = torch.empty((4 if rp else 1, B, H, Sq), dtype=torch.float32,
+    # each row's lse and D (round_p: D / l, m, l and the argmax key's
+    # share), by the rows of whole groups: KV · G heads
+    lse_g = lse if KV * G == H else torch.empty(
+        (B, KV * G, Sq), dtype=torch.float32, device=q.device)
+    delta = torch.empty((4 if rp else 1, B, KV * G, Sq), dtype=torch.float32,
                         device=q.device)
     err = lib.fb_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
                         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                        lse.data_ptr(), delta.data_ptr(), B, Sq, Sk, H, KV, dh,
-                        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                        *g.stride()[:3], dh ** -0.5, int(causal), window,
+                        lse_g.data_ptr(), delta.data_ptr(), B, Sq, Sk, H, KV,
+                        dh, G, head_offset, *q.stride()[:3], *k.stride()[:3],
+                        *v.stride()[:3], *g.stride()[:3], dh ** -0.5,
+                        int(causal), window,
                         _DTYPE[q.dtype], int(rp), stream)
     check_launch("flash_attention_bwd", err)
+    if lse_g is not lse:
+        lse.copy_(lse_g[:, head_offset:head_offset + H])
     return dq, dk, dv, lse
 
 
@@ -624,34 +666,43 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int,
-                round_p: bool | torch.dtype = False):
+                round_p: bool | torch.dtype = False, group: int | None = None,
+                head_offset: int = 0):
         ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.window, ctx.round_p = causal, window, round_p
+        ctx.group, ctx.head_offset = group, head_offset
         return flash_attention_fused(q, k, v, causal=causal, window=window,
-                                     round_p=round_p)
+                                     round_p=round_p, group=group,
+                                     head_offset=head_offset)
 
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
         dq, dk, dv, _ = flash_attention_bwd(q, k, v, g, causal=ctx.causal,
                                             window=ctx.window,
-                                            round_p=ctx.round_p)
-        return dq, dk, dv, None, None, None
+                                            round_p=ctx.round_p,
+                                            group=ctx.group,
+                                            head_offset=ctx.head_offset)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, window: int = 0,
-                          round_p: bool | torch.dtype = False
+                          round_p: bool | torch.dtype = False,
+                          group: int | None = None, head_offset: int = 0
                           ) -> torch.Tensor:
     """Attention with fp32 p (or ``round_p=torch.bfloat16``) that autograd
     can differentiate: on CUDA (and meta) tensors :class:`FlashAttentionFn`
-    (the kernels both ways), on CPU tensors the plain version."""
-    _check(q, k, v)
+    (the kernels both ways), on CPU tensors the plain version; ``group``
+    and ``head_offset`` as :func:`flash_attention_fused` takes them."""
+    _check(q, k, v, group, head_offset)
     _check_window(causal, window)
     if round_p is not False and round_p != torch.bfloat16:
         raise ValueError(f"flash_attention_train: round_p={round_p!r} (False "
                          "or torch.bfloat16)")
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   round_p=round_p)
-    return FlashAttentionFn.apply(q, k, v, causal, window, round_p)
+                                   round_p=round_p, group=group,
+                                   head_offset=head_offset)
+    return FlashAttentionFn.apply(q, k, v, causal, window, round_p, group,
+                                  head_offset)

@@ -29,9 +29,11 @@ from typing import Any, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 __all__ = ["spmv_ref", "gemv_ref", "matmul_ref", "flash_attention_ref",
-           "flash_attention_bwd_ref", "decode_attention_ref",
+           "flash_attention_bwd_ref", "decode_attention_ref", "head_group",
+           "pad_heads",
            "mamba2_ssd_ref", "apply_stage", "apply_stage_q",
            "linear_chain_ref", "linear_chain_q_ref", "run_segment_ref",
            "run_segment_grid_ref", "float_pe_outputs"]
@@ -77,26 +79,71 @@ def _softmax_pv(s: torch.Tensor, v: torch.Tensor, eq: str,
     return torch.einsum(eq, p, v.float()) / l
 
 
+def head_group(H: int, KV: int, group: int | None = None,
+               head_offset: int = 0) -> int:
+    """G, the query heads a KV head serves, for H query heads over KV KV
+    heads: ``H / KV`` where ``group`` is None; else ``group``, the heads
+    starting ``head_offset`` into their first KV head's group, so that
+    head h reads KV head ``(head_offset + h) // G`` and the KV heads are
+    exactly those the heads read (a rank's share of an uneven split:
+    :meth:`repro_torch.sharding.tp.ModelSplit.head_offset`).  Raises
+    ValueError for heads and KV heads that do not match so."""
+    if group is None:
+        if H == KV == 0 and not head_offset:     # no heads: nothing to read
+            return 1
+        if head_offset or KV < 1 or H % KV:
+            raise ValueError(f"attention: {H} query heads over {KV} KV heads "
+                             f"(offset {head_offset} needs a group)")
+        return H // KV
+    if group < 1 or not 0 <= head_offset < group or (
+            H and KV != -(-(head_offset + H) // group)) or (not H and KV):
+        raise ValueError(f"attention: {H} query heads from offset {head_offset} "
+                         f"in groups of {group} do not read {KV} KV heads")
+    return group
+
+
+def pad_heads(x: torch.Tensor, dim: int, KV: int, G: int,
+              head_offset: int) -> torch.Tensor:
+    """``x``'s H heads (on ``dim``) as the KV · G heads of whole groups:
+    ``head_offset`` zero heads before them and the rest after (autograd
+    drops the padding's gradient)."""
+    H = x.shape[dim]
+    tail = KV * G - head_offset - H
+    if head_offset == 0 and tail == 0:
+        return x
+    return F.pad(x, [0, 0] * (x.dim() - dim - 1) + [head_offset, tail])
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int = 0,
-                        round_p: bool | torch.dtype = False) -> torch.Tensor:
+                        round_p: bool | torch.dtype = False,
+                        group: int | None = None,
+                        head_offset: int = 0) -> torch.Tensor:
     """GQA attention, q (B, Sq, H, dh), k and v (B, Sk, KV, dh) → (B, Sq,
-    H, dh) in q's dtype; query head h reads KV head h // (H / KV); causal
+    H, dh) in q's dtype; query head h reads KV head h // (H / KV) (or, with
+    ``group``, ``(head_offset + h) // group``: :func:`head_group`); causal
     masks ``kpos > qpos`` from the top-left corner, and a ``window`` > 0
-    also ``kpos <= qpos - window``."""
+    also ``kpos <= qpos - window``.  Heads that are not whole groups run
+    padded to them with zero heads (:func:`pad_heads`), which the kernels'
+    rows outside ``[0, H)`` match."""
     B, Sq, H, dh = q.shape
-    s = _flash_scores(q, k, causal, window)
+    KV = k.shape[2]
+    G = head_group(H, KV, group, head_offset)
+    s = _flash_scores(pad_heads(q, 2, KV, G, head_offset), k, causal, window, G)
     out = _softmax_pv(s, v, "bkgqs,bskd->bkgqd", round_p)   # (B, KV, G, Sq, dh)
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, dh).to(q.dtype)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, KV * G, dh)
+    return out[:, :, head_offset:head_offset + H].to(q.dtype)
 
 
 def _flash_scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
-                  window: int) -> torch.Tensor:
+                  window: int, G: int | None = None) -> torch.Tensor:
     """The scaled, masked fp32 scores (B, KV, G, Sq, Sk) of
-    :func:`flash_attention_ref`."""
+    :func:`flash_attention_ref` (q of KV · G heads, G = H / KV where None;
+    no heads: an empty tensor, still in the graph)."""
     B, Sq, H, dh = q.shape
     Sk, KV = k.shape[1], k.shape[2]
-    qg = (q.float() * dh ** -0.5).reshape(B, Sq, KV, H // KV, dh)
+    G = H // KV if G is None else G
+    qg = (q.float() * dh ** -0.5).reshape(B, Sq, KV, G, dh)
     s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float())
     if causal or window:
         qpos = torch.arange(Sq, device=q.device)[:, None]
@@ -113,27 +160,38 @@ def _flash_scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             g: torch.Tensor, *, causal: bool = True,
                             window: int = 0,
-                            round_p: bool | torch.dtype = False
+                            round_p: bool | torch.dtype = False,
+                            group: int | None = None, head_offset: int = 0
                             ) -> tuple[torch.Tensor, ...]:
     """The gradient of :func:`flash_attention_ref` (p in fp32, or rounded
-    as ``round_p`` says) against the output gradient ``g`` (B, Sq, H, dh),
-    by autograd: (dq, dk, dv) in the inputs' dtypes, and lse (B, H, Sq)
-    float32, each row's log-sum-exp of its scaled, masked scores."""
+    as ``round_p`` says; heads from ``head_offset`` in groups of
+    ``group``) against the output gradient ``g`` (B, Sq, H, dh), by
+    autograd: (dq, dk, dv) in the inputs' dtypes, and lse (B, H, Sq)
+    float32, each row's log-sum-exp of its scaled, masked scores.  A KV
+    head shared with another rank's heads gets this rank's heads' part of
+    its dk and dv."""
+    B, Sq, H, _ = q.shape
+    KV = k.shape[2]
+    G = head_group(H, KV, group, head_offset)
     with torch.enable_grad():
         qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
         out = flash_attention_ref(qq, kk, vv, causal=causal, window=window,
-                                  round_p=round_p)
+                                  round_p=round_p, group=group,
+                                  head_offset=head_offset)
         dq, dk, dv = torch.autograd.grad(out, (qq, kk, vv), g)
     with torch.no_grad():
-        s = _flash_scores(q, k, causal, window)
+        s = _flash_scores(pad_heads(q, 2, KV, G, head_offset), k, causal,
+                          window, G)
         lse = torch.logsumexp(s, dim=-1)                      # (B, KV, G, Sq)
-    return dq, dk, dv, lse.reshape(q.shape[0], q.shape[2], q.shape[1])
+    lse = lse.reshape(B, KV * G, Sq)
+    return dq, dk, dv, lse[:, head_offset:head_offset + H]
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          cache_len: torch.Tensor, *, cache_start=None,
                          window: int = 0, round_p: bool = False,
-                         return_lse: bool = False):
+                         return_lse: bool = False, group: int | None = None,
+                         head_offset: int = 0):
     """One new token per sequence, q (B, H, dh), against the caches k and
     v (B, S, KV, dh), of which positions ``[cache_start[b], cache_len[b])``
     are valid (``cache_start`` None: from 0) → (B, H, dh) in q's dtype.  A
@@ -143,11 +201,12 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     zeros.  With ``return_lse`` the output is float32, not rounded, and
     each row's log-sum-exp (B, H) float32 of its scaled valid scores comes
     beside it (-inf for a row with no valid position), as the kernel
-    does."""
+    does.  ``group`` and ``head_offset``: :func:`head_group`."""
     B, H, dh = q.shape
     S, KV = k.shape[1], k.shape[2]
-    G = H // KV
-    qg = q.float().reshape(B, KV, G, dh) * dh ** -0.5
+    G = head_group(H, KV, group, head_offset)
+    qg = pad_heads(q.float(), 1, KV, G, head_offset).reshape(
+        B, KV, G, dh) * dh ** -0.5
     s = torch.einsum("bkgd,bskd->bkgs", qg, k.float())
     lens = torch.as_tensor(cache_len, device=q.device).reshape(B, 1).long()
     lens = lens.clamp(0, S)
@@ -162,11 +221,12 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = _softmax_pv(s, v, "bkgs,bskd->bkgd", round_p)
     some = (start[:, 0] < lens[:, 0])[:, None, None]
     out = torch.where(some[..., None], out, torch.zeros_like(out))
+    out = out.reshape(B, KV * G, dh)[:, head_offset:head_offset + H]
     if not return_lse:
-        return out.reshape(B, H, dh).to(q.dtype)
+        return out.to(q.dtype)
     lse = torch.where(some, torch.logsumexp(s, dim=-1),
                       torch.full_like(s[..., 0], -torch.inf))
-    return out.reshape(B, H, dh).float(), lse.reshape(B, H)
+    return out.float(), lse.reshape(B, KV * G)[:, head_offset:head_offset + H]
 
 
 # ----------------------------------------------------------------- mamba2 SSD

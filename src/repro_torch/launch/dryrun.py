@@ -24,7 +24,16 @@ calls), the reference's ``collectives`` (``total_bytes``, ``by_kind``,
 ``counts``; ``sent``: the ring bytes the device sends) and the roofline
 :mod:`repro_torch.launch.roofline` makes of them.  A cell whose count
 fails is an error naming the op; nothing falls back to the model's
-flops.  The reference's ``lower_s``, ``compile_s``, ``mem_*``,
+flops.  The record names the rank counted (``counted_rank``): rank 0,
+which holds the largest piece of every split dim, also under the
+planner's ``allow_uneven`` (GSPMD's pieces, ``ceil(n / m)`` from the first
+rank on), unless another rank does more all the same (a rank whose query
+heads cross KV groups reads more KV heads; the rank that masks the
+vocabulary's padding): those ranks are counted too, and the record is
+the one whose roofline step is longest, the rank that limits the step;
+:func:`count_cell` counts any rank (``rank=``).  Without the count the closed forms
+refuse a plan that splits a dim unevenly over ``model`` (its collectives
+"not counted: ...").  The reference's ``lower_s``, ``compile_s``, ``mem_*``,
 ``xla_cost_*``, ``hlo_lines`` and ``unknown_trip_loops`` read XLA's
 compiled program and its HLO; PyTorch compiles no whole step ahead of
 running it, so they are absent, each named with the reason in the
@@ -59,7 +68,7 @@ from repro_torch.train.train_loop import shard_state
 
 __all__ = ["run_cell", "main", "args_bytes_per_device", "OPT_OVERRIDES",
            "ABSENT", "count_cell", "split_collective_bytes",
-           "routing_collective_bytes"]
+           "routing_collective_bytes", "uneven_leaves", "counted_rank"]
 
 # Beyond-paper optimized-variant config overrides per arch (the reference's
 # table): the per-arch knobs that change parameter layouts stay opt-in.
@@ -78,6 +87,9 @@ ABSENT = {**{key: _NO_HLO for key in (
                            "counted once, so no trip count is unknown")}
 # what a cell planned without its count (count=False) lacks
 _NOT_COUNTED = "not counted (count=False): the model's flops, the arguments' bytes"
+# the ranges of a model split whose size sets a rank's work
+_RANGES = ("heads", "kv", "ffn", "vocab_in", "vocab_out", "experts", "router",
+           "shared")
 
 
 def _pairs(args: Any, specs: Any) -> list[tuple[Any, Any]]:
@@ -175,15 +187,23 @@ def split_collective_bytes(prog: CellProgram, axes: dict[str, int]) -> float:
     (T × 2D × a each).
 
     0 where nothing is split over ``model``; raises NotImplementedError for
-    a split the port cannot run, and for a serving cell under the plan's
-    FSDP (weights sharded over ``data``: their gathers and the in-place
-    leaves' activations are counted by :func:`count_cell` alone)."""
+    a split the port cannot run, for a serving cell under the plan's FSDP
+    (weights sharded over ``data``: their gathers and the in-place leaves'
+    activations are counted by :func:`count_cell` alone), and for a plan
+    that splits a dim unevenly over ``model`` (:func:`uneven_leaves`: the
+    padded gathers, K and V gathered where a rank's heads cross KV groups,
+    the empty pieces; :func:`count_cell` counts such cells)."""
     cfg = prog.cfg
     m = axes.get("model", 1)
     if _fsdp_serving(prog, axes):
         raise NotImplementedError(
             "the closed form leaves out FSDP serving (weights sharded over "
             "data); count the cell (count_cell)")
+    uneven = uneven_leaves(prog, m)
+    if uneven:
+        raise NotImplementedError(
+            f"the closed forms do not model uneven pieces over model = {m} "
+            f"({', '.join(uneven[:3])}); count the cell (count_cell)")
     sp = plan_split(cfg, prog.plan.param_specs, m, 0, prog.plan.cache_specs)
     if sp is None:
         return 0.0
@@ -317,6 +337,63 @@ def _train_collective_bytes(prog: CellProgram, axes: dict[str, int],
             + routing_collective_bytes(prog, axes, pod_reduce))
 
 
+def counted_rank(prog: CellProgram, axes: dict[str, int]) -> dict:
+    """Which ranks of ``model`` :func:`run_cell` counts: rank 0, which
+    holds the largest piece of every split dim (GSPMD's pieces,
+    ``ceil(n / m)`` from the first rank on), and each rank that does more
+    all the same: one whose query heads cross KV groups reads more KV heads
+    than its piece of the query heads gives rank 0 (an uneven split of
+    grouped heads), or one that masks the vocabulary's padding.
+    ``others_do_no_more``: no rank's range of :data:`_RANGES` is larger
+    than rank 0's; ``more``: why each of the others does more;
+    ``ranks``: rank 0 and the first of those ranks with each set of range
+    sizes, in order."""
+    m = axes.get("model", 1)
+    sps = [plan_split(prog.cfg, prog.plan.param_specs, m, r,
+                      prog.plan.cache_specs) for r in range(m)] if m > 1 else []
+    size = lambda x: None if x is None else x[1] - x[0]      # noqa: E731
+    more, ranks, seen = [], [0], set()
+    if sps and sps[0] is not None:
+        for r, sp in enumerate(sps[1:], 1):
+            n = len(more)
+            for name in _RANGES:
+                a, b = size(getattr(sps[0], name)), size(getattr(sp, name))
+                if a is not None and b is not None and b > a:
+                    more.append(f"rank {r}'s {name} {b} against rank 0's {a}")
+            v = sp.vocab_out
+            masks = v is not None and v[1] > prog.cfg.vocab_size >= sps[0].vocab_out[1]
+            if masks:
+                more.append(f"rank {r} masks the vocabulary's padding in the "
+                            "loss")
+            # one rank of each set of range sizes: the others repeat its work
+            sizes = (masks,) + tuple(size(getattr(sp, k)) for k in _RANGES)
+            if len(more) > n and sizes not in seen:
+                seen.add(sizes)
+                ranks.append(r)
+    why = ("rank 0 holds the largest piece of every range the split computes "
+           "(GSPMD's pieces: ceil(n / m) from the first rank on, the last "
+           "short or empty); every collective moves the same bytes on each "
+           "rank" + (": no other rank does more" if not more else
+                     "; but " + "; ".join(more[:4]) + ": those ranks are "
+                     "counted too, and the record is the one whose roofline "
+                     "step is longest"))
+    return dict(others_do_no_more=not more, more=more, ranks=ranks, why=why)
+
+
+def uneven_leaves(prog: CellProgram, m: int) -> list[str]:
+    """The leaves (``path (dim)``) whose plan splits a dim that does not
+    divide a ``model`` axis of ``m`` ranks (the planner's
+    ``allow_uneven``), in the parameter tree's order."""
+    out = []
+    for path, x in _flatten(prog.args[0].params if prog.cell.kind == "train"
+                            else prog.args[0]).items():
+        spec = _flatten(prog.plan.param_specs)[path]
+        for n, e in zip(tuple(x.shape), tuple(spec or ())):
+            if "model" in entry_axes(e) and n % m:
+                out.append(f"{path} ({n})")
+    return out
+
+
 def _model_only(spec) -> P:
     """``spec`` with every axis but ``model`` dropped."""
     return P(*("model" if "model" in entry_axes(e) else None
@@ -324,15 +401,17 @@ def _model_only(spec) -> P:
 
 
 def count_cell(spec: ArchSpec, cell: ShapeCell, shape: tuple[int, ...],
-               names: tuple[str, ...], **build: Any
+               names: tuple[str, ...], rank: int = 0, **build: Any
                ) -> tuple[CellProgram, OpCost]:
-    """(the cell's program on the mesh, rank 0's step counted): a fake
-    process group of the mesh's size with this process as rank 0 and a
-    ``DeviceMesh`` over it; rank 0's model on meta tensors through the
-    cell's split and data split; the cell's ``fn`` run once under
-    :func:`~repro_torch.launch.op_analysis.analyze` on rank 0's state and
+    """(the cell's program on the mesh, the step of ``rank`` counted): a
+    fake process group of the mesh's size with this process as that rank
+    and a ``DeviceMesh`` over it; the rank's model on meta tensors through
+    the cell's split and data split; the cell's ``fn`` run once under
+    :func:`~repro_torch.launch.op_analysis.analyze` on the rank's state and
     batch rows (a train step), batch rows (a prefill) or rows of tokens,
-    positions and caches (a decode step).  ``build`` goes to
+    positions and caches (a decode step).  Rank 0 (the default) holds the
+    largest piece of every split dim; :func:`counted_rank` names the ranks
+    that do more all the same.  ``build`` goes to
     :func:`~repro_torch.launch.steps.build_cell`.  Raises if a process
     group is already running; destroys its own."""
     from torch.testing._internal.distributed.fake_pg import FakeStore
@@ -340,7 +419,7 @@ def count_cell(spec: ArchSpec, cell: ShapeCell, shape: tuple[int, ...],
     if dist.is_initialized():
         raise RuntimeError("count_cell starts a fake process group of the "
                            "mesh's size; one is already running")
-    dist.init_process_group("fake", store=FakeStore(), rank=0,
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
                             world_size=math.prod(shape))
     try:
         mesh = make_mesh(shape, names, "cpu")
@@ -372,11 +451,12 @@ def count_cell(spec: ArchSpec, cell: ShapeCell, shape: tuple[int, ...],
 def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool,
              pod_reduce: str = "fp32", allow_uneven: bool = False,
              cfg_overrides: dict | None = None, count: bool = False) -> dict:
-    """The cell's record.  ``count`` counts rank 0's step
-    (:func:`count_cell`) for the roofline, as the reference compiles every
-    cell: the CLI's default, off here so that callers that only plan (the
-    planner's parity tests, a sweep of every cell in seconds) keep their
-    time; without it the roofline reads the model's flops, the arguments'
+    """The cell's record.  ``count`` counts the step of rank 0 and of each
+    rank :func:`counted_rank` finds doing more (:func:`count_cell`), and
+    keeps the one whose roofline step is longest (the rank that limits the
+    step), as the reference compiles every cell: the CLI's default, off
+    here so that callers that only plan (the planner's parity tests, a
+    sweep of every cell in seconds) keep their time; without it the roofline reads the model's flops, the arguments'
     bytes and the closed-form collectives.  Raises if ``count`` and a
     process group is already running."""
     spec = get_arch(arch_id)
@@ -408,29 +488,40 @@ def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool,
         rec["absent"] = dict(ABSENT)
         if count:
             t0 = time.perf_counter()
-            _, op = count_cell(spec, cell, shape, names, **build)
+            who = counted_rank(prog, axes)
+            counts = {}
+            for r in who["ranks"]:
+                _, op = count_cell(spec, cell, shape, names, rank=r, **build)
+                cost = StepCost(flops=op.flops, bytes=op.bytes,
+                                collective_bytes=op.coll_sent, sources={
+                    "flops": f"counted: rank {r}'s step on meta tensors "
+                             "(op_analysis: products, elementwise ops, the "
+                             "kernels' work over the pairs the mask keeps)",
+                    "bytes": "counted: each op's inputs and outputs, views "
+                             "and allocations free (op_analysis)",
+                    "collective_bytes": f"counted: the bytes rank {r} sends "
+                                        "in the step's collectives, ring "
+                                        "algorithms over each group's size "
+                                        "(op_analysis)"})
+                counts[r] = (op, cost, summarize(prog.cfg, cell, cost, n_chips))
+            # the rank that limits the step: the longest roofline step, the
+            # lowest rank of equals
+            r = max(counts, key=lambda r: (counts[r][2]["ideal_step_s"], -r))
+            op, cost, rec["roofline"] = counts[r]
             rec["count_s"] = time.perf_counter() - t0
+            rec["counted_rank"] = dict(
+                who, rank=r, steps_s={q: c[2]["ideal_step_s"]
+                                      for q, c in counts.items()})
             rec.update(flops=op.flops, bytes=op.bytes,
                        transcendentals=op.transcendentals,
                        products=op.products, kernels=op.kernels,
                        collectives=collective_report(op))
-            cost = StepCost(flops=op.flops, bytes=op.bytes,
-                            collective_bytes=op.coll_sent, sources={
-                "flops": "counted: rank 0's step on meta tensors "
-                         "(op_analysis: products, elementwise ops, the "
-                         "kernels' work over the pairs the mask keeps)",
-                "bytes": "counted: each op's inputs and outputs, views "
-                         "and allocations free (op_analysis)",
-                "collective_bytes": "counted: the bytes rank 0 sends in "
-                                    "the step's collectives, ring "
-                                    "algorithms over each group's size "
-                                    "(op_analysis)"})
         else:
             for key in ("flops", "bytes", "transcendentals", "collectives"):
                 rec["absent"][key] = _NOT_COUNTED
             cost = _closed_form(prog, axes, pod_reduce, n_chips,
                                 rec["arg_bytes_per_device"])
-        rec["roofline"] = summarize(prog.cfg, cell, cost, n_chips)
+            rec["roofline"] = summarize(prog.cfg, cell, cost, n_chips)
     except Exception as e:          # noqa: BLE001 — a cell's failure is its record
         rec["status"] = "error"
         rec["error"] = f"{type(e).__name__}: {e}"

@@ -294,9 +294,10 @@ def profile_flash(dev: torch.device) -> None:
 
     def launch(vec: bool):
         err = lib.fa_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                            out.data_ptr(), B, S, S, H, KV, dh, *q.stride()[:3],
-                            *k.stride()[:3], *v.stride()[:3], dh ** -0.5, 1, 0,
-                            int(vec), 0, torch.cuda.current_stream(dev).cuda_stream)
+                            out.data_ptr(), B, S, S, H, KV, dh, H // KV, 0,
+                            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                            dh ** -0.5, 1, 0, int(vec), 0, 0,
+                            torch.cuda.current_stream(dev).cuda_stream)
         if err:
             raise RuntimeError(f"fa_launch: CUDA error {err}")
 
@@ -712,8 +713,9 @@ def _fa_kernel(q, k, v, out, causal: bool = True, round_p: int = 0) -> None:
     vec = all(t.data_ptr() % 16 == 0 and all(s % words == 0 for s in t.stride()[:3])
               for t in (k, v)) and dh % words == 0
     err = lib.fa_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                        B, Sq, Sk, H, KV, dh, *q.stride()[:3], *k.stride()[:3],
-                        *v.stride()[:3], dh ** -0.5, int(causal), round_p,
+                        B, Sq, Sk, H, KV, dh, H // KV, 0, *q.stride()[:3],
+                        *k.stride()[:3], *v.stride()[:3], dh ** -0.5, int(causal),
+                        round_p,
                         int(vec), fa._DTYPE[q.dtype], 0,
                         torch.cuda.current_stream(q.device).cuda_stream)
     if err:

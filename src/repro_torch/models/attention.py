@@ -172,8 +172,14 @@ def _qkv(p: Mapping[str, torch.Tensor], x: torch.Tensor, split=None,
     heads (``wq``'s and ``bq``'s local columns), k and v of the KV heads
     those read (the local shards of ``wk``/``wv``/``bk``/``bv``, or their
     columns of the replicated leaves), or of every KV head with
-    ``all_kv`` (a cache split over the sequence needs every head's row)."""
+    ``all_kv`` (a cache split over the sequence needs every head's row).
+    Where the plan shards ``wk``/``wv`` and a rank's heads read KV heads
+    its shard does not hold (:attr:`~repro_torch.sharding.tp.ModelSplit.
+    kv_gather`), or every KV head is needed, k and v of the shard are
+    gathered over ``model`` (GSPMD's pieces) and the range taken; their
+    backward sums the ranks' partial gradients first."""
     dt = x.dtype
+    gather = False
     if split is None or split.heads is None:
         take = lambda name, dim, rng: p[name]                 # noqa: E731
         hr = kr = None
@@ -181,13 +187,25 @@ def _qkv(p: Mapping[str, torch.Tensor], x: torch.Tensor, split=None,
         x = copy_to_model(x, split)
         take = lambda name, dim, rng: split.take(p, name, "attn", dim, rng)  # noqa: E731
         hr = split.heads
-        kr = (0, p["wk"].shape[1]) if all_kv else split.kv
+        gather = split.sharded(split.prefix + "attn/wk") and (
+            all_kv or split.kv_gather)
+        if gather:                      # the KV heads of the rank's shard
+            held = split.local_slices(split.prefix + "attn/wk",
+                                      (1, split.sizes["kv"], 1))[1]
+            kr = (held.start, held.stop)
+        else:
+            kr = (0, p["wk"].shape[1]) if all_kv else split.kv
     q = _proj(x, take("wq", 1, hr))
     k, v = _proj(x, take("wk", 1, kr)), _proj(x, take("wv", 1, kr))
     if "bq" in p:
         q = q + take("bq", 0, hr).to(dt)
         k = k + take("bk", 0, kr).to(dt)
         v = v + take("bv", 0, kr).to(dt)
+    if gather:
+        k, v = (gather_from_model(t, 2, split, grad_sum=True, of="kv")
+                for t in (k, v))
+        if not all_kv:
+            k, v = (t[:, :, split.kv[0]:split.kv[1]] for t in (k, v))
     return q, k, v
 
 
@@ -233,22 +251,33 @@ def gqa_prefill(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     if seq and split.heads is not None:
         k0, k1 = split.kv
         ka, va = k[:, :, k0:k1].contiguous(), v[:, :, k0:k1].contiguous()
-    out = _attend(q, ka, _bf16_v(va, probs_bf16), window, probs_bf16, plain)
+    out = _attend(q, ka, _bf16_v(va, probs_bf16), window, probs_bf16, plain,
+                  _groups(split))
     return _out(p, out, x.dtype, split, data), (k, v)
 
 
+def _groups(split) -> dict:
+    """The attention kernels' ``group`` and ``head_offset`` for a rank's
+    query heads under ``split`` (a share of an uneven split need not hold
+    whole KV groups); none without a split of the heads."""
+    if split is None or split.heads is None:
+        return {}
+    return dict(group=split.kv_group, head_offset=split.head_offset())
+
+
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
-            probs_bf16: bool, plain: bool) -> torch.Tensor:
+            probs_bf16: bool, plain: bool, groups: dict | None = None
+            ) -> torch.Tensor:
     """Causal flash attention: the plain version (``plain``), the kernel
-    with its backward (autograd needs a gradient), or the kernel."""
+    with its backward (autograd needs a gradient), or the kernel;
+    ``groups``: :func:`_groups`."""
+    kw = dict(causal=True, window=window, round_p=_p_rounding(probs_bf16),
+              **(groups or {}))
     if plain:
-        return flash_attention_ref(q, k, v, causal=True, window=window,
-                                   round_p=_p_rounding(probs_bf16))
+        return flash_attention_ref(q, k, v, **kw)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return flash_attention_train(q, k, v, causal=True, window=window,
-                                     round_p=_p_rounding(probs_bf16))
-    return flash_attention_fused(q, k, v, causal=True, window=window,
-                                 round_p=_p_rounding(probs_bf16))
+        return flash_attention_train(q, k, v, **kw)
+    return flash_attention_fused(q, k, v, **kw)
 
 
 def _bf16_v(v: torch.Tensor, probs_bf16: bool) -> torch.Tensor:
@@ -310,7 +339,7 @@ def gqa_decode(p: Mapping[str, torch.Tensor], x: torch.Tensor,
         v_cache[rows, idx] = v[:, 0]
         ctx = decode_attention(q[:, 0], k_cache, v_cache, cache_len,
                                cache_start=cache_start if W else None,
-                               window=W, round_p=False)
+                               window=W, round_p=False, **_groups(split))
         return _out(p, ctx[:, None], x.dtype, split, data), (k_cache, v_cache)
     Sl = k_cache.shape[1]
     c0 = split.r * Sl
@@ -326,8 +355,8 @@ def gqa_decode(p: Mapping[str, torch.Tensor], x: torch.Tensor,
         starts = torch.as_tensor(cache_start).to(device=x.device,
                                                  dtype=torch.long)
         starts = (starts - c0).clamp(0, Sl)
-    qa = q[:, 0] if split.heads is None else gather_from_model(q[:, 0], 1,
-                                                               split)
+    qa = q[:, 0] if split.heads is None else gather_from_model(
+        q[:, 0], 1, split, of="heads")
     ctx, lse = decode_attention(qa.contiguous(), k_cache, v_cache, lens,
                                 cache_start=starts, window=W, round_p=False,
                                 return_lse=True)
@@ -441,7 +470,7 @@ def mla_prefill(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, dr)], dim=-1)
     # zeros in v's columns dn.., outside the kernel: autograd drops their dv
     v = torch.nn.functional.pad(_bf16_v(v, probs_bf16), (0, dr))
-    out = _attend(q, k, v, 0, probs_bf16, plain)[..., :dn]
+    out = _attend(q, k, v, 0, probs_bf16, plain, _groups(split))[..., :dn]
     return _out(p, out, dt, split, data), (c_kv, k_rope)
 
 
@@ -537,8 +566,8 @@ def mla_decode(p: Mapping[str, torch.Tensor], x: torch.Tensor,
                       .permute(1, 2, 0))
     qr = q_rope[:, 0].float()
     if seq and heads:           # every head attends this rank's positions
-        q_lat = gather_from_model(q_lat, 1, split)
-        qr = gather_from_model(qr, 1, split)
+        q_lat = gather_from_model(q_lat, 1, split, of="heads")
+        qr = gather_from_model(qr, 1, split, of="heads")
     if not seq:
         s, valid = _latent_scores(q_lat, qr, ckv, krope_cache, lens,
                                   (dn + dr) ** -0.5)

@@ -99,6 +99,8 @@ class ProductF32(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         ctx.save_for_backward(a, b)
+        if a.numel() == 0 or b.numel() == 0:    # an empty piece of a split
+            return a.new_zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32)
         if a.device.type == "cpu":
             return a.float() @ b.float()
         if a.dim() == 3:
@@ -124,7 +126,7 @@ def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     products are exact in float32); on the card it keeps its operands and
     accumulates in fp32."""
     lead = x.shape[:-1]
-    a = x.reshape(-1, x.shape[-1])
+    a = x.reshape(math.prod(lead), x.shape[-1])     # K may be 0: an empty piece
     if x.dtype == torch.float32:
         out = a @ w
     elif x.dtype == torch.bfloat16:
@@ -248,13 +250,18 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor, *,
     else:
         from repro_torch.sharding.tp import max_over_model, reduce_from_model
 
-        mx = max_over_model(lf.amax(dim=-1), split)
+        # an empty piece (an uneven split's trailing rank): a row max of
+        # -inf, no exponentials, no gold logit (lf's empty sums keep it in
+        # the graph)
+        mx = max_over_model(lf.amax(dim=-1) if vp else
+                            lf.new_full(lf.shape[:-1], -torch.inf), split)
         sumexp = reduce_from_model(torch.exp(lf - mx[..., None]).sum(dim=-1),
                                    split)
         logz = torch.log(sumexp) + mx
         t = targets.long() - v0
         mine = (t >= 0) & (t < vp)
-        local = torch.gather(lf, -1, t.clamp(0, vp - 1)[..., None])[..., 0]
+        local = (torch.gather(lf, -1, t.clamp(0, vp - 1)[..., None])[..., 0]
+                 if vp else lf.sum(dim=-1))
         gold = reduce_from_model(torch.where(mine, local, torch.zeros_like(local)),
                                  split)
     nll = logz - gold

@@ -208,10 +208,8 @@ def moe_ffn(p: dict, x: torch.Tensor, *, k: int,
     ep = split is not None and split.experts is not None
     rs = split is not None and split.router is not None
     sh = split is not None and split.shared is not None and "shared" in p
-    E = p["router"].shape[-1] * (split.m if rs else 1)
     T = B * S
     tokens = token_group()
-    cap = capacity(T * (tokens[1] if tokens else 1), k, E, capacity_factor)
     dt = x.dtype
 
     xt = x.reshape(T, D)
@@ -219,7 +217,9 @@ def moe_ffn(p: dict, x: torch.Tensor, *, k: int,
     xs = copy_to_model(xt, split) if (ep or rs or sh) else xt
     logits = (xs if (ep or rs) else xt).float() @ p["router"].float()
     if rs:          # beside split experts the logits' gradient is partial
-        logits = gather_from_model(logits, -1, split, grad_sum=ep)
+        logits = gather_from_model(logits, -1, split, grad_sum=ep, of="router")
+    E = logits.shape[-1]
+    cap = capacity(T * (tokens[1] if tokens else 1), k, E, capacity_factor)
     gates, top_g, top_i, slot, keep = _route(logits, k, cap, tokens)
     flat = slot.reshape(-1)
     e0, e1 = split.experts if ep else (0, E)
@@ -234,7 +234,8 @@ def moe_ffn(p: dict, x: torch.Tensor, *, k: int,
     xe = xs if ep else xt
     contrib = (xe[:, None, :] * keep[..., None].to(dt)).reshape(T * k, D)
     buf = torch.zeros(((e1 - e0) * cap, D), dtype=dt, device=x.device)
-    buf.index_add_(0, flat, contrib)
+    if e1 > e0:
+        buf.index_add_(0, flat, contrib)
     if data is not None and tokens is not None:   # every rank's copies
         whole = buf.float()
         dist.all_reduce(whole, group=tokens[0])
@@ -259,11 +260,16 @@ def moe_ffn(p: dict, x: torch.Tensor, *, k: int,
 
     # combine: one gather of every choice's slot output, weighted in fp32
     # over exact products of the activation-dtype operands, rounded once
-    # (split: the fp32 partial sums all-reduced over `model` first)
-    gathered = torch.index_select(eo.reshape((e1 - e0) * cap, D), 0,
-                                  flat).reshape(T, k, D)
-    w = (top_g * keep.float()).to(dt)
-    out = torch.einsum("tkd,tk->td", gathered.float(), w.float())
+    # (split: the fp32 partial sums all-reduced over `model` first; a rank
+    # with no experts, an uneven split's trailing one, adds zeros: its
+    # empty outputs' sum keeps them in the graph)
+    if e1 > e0:
+        gathered = torch.index_select(eo.reshape((e1 - e0) * cap, D), 0,
+                                      flat).reshape(T, k, D)
+        w = (top_g * keep.float()).to(dt)
+        out = torch.einsum("tkd,tk->td", gathered.float(), w.float())
+    else:
+        out = eo.float().sum(dim=(0, 1)).expand(T, D)
 
     if sh:          # the shared experts' column partials ride along
         out = out + swiglu_partial(p["shared"], xs, split, split.shared,

@@ -652,7 +652,10 @@ class Transformer(nn.Module):
                 return self.embed[tok]
             v0, v1 = sp.vocab_in
             t = tok - v0
-            rows = self.embed[t.clamp(0, v1 - v0 - 1)]
+            # an empty piece: zero rows (the empty table's sum keeps it in
+            # the graph)
+            rows = (self.embed[t.clamp(0, v1 - v0 - 1)] if v1 > v0 else
+                    self.embed.sum(0).expand(*tok.shape, self.embed.shape[1]))
             mine = ((t >= 0) & (t < v1 - v0))[..., None]
             return reduce_from_model(
                 torch.where(mine, rows, torch.zeros_like(rows)), sp)

@@ -210,7 +210,7 @@ class ServeEngine:
         columns, gathered over ``model`` first), the vocabulary padding
         masked: the argmax, or a draw from the softmax."""
         if self.split is not None and self.split.vocab_out is not None:
-            logits = gather_from_model(logits, -1, self.split)
+            logits = gather_from_model(logits, -1, self.split, of="vocab_out")
         lf = logits.float().clone()
         lf[:, self.cfg.vocab_size:] = -torch.inf
         if self.greedy:

@@ -58,6 +58,21 @@ use).
 At ``model = 1`` no split is made (:func:`model_split` returns None) and
 no collective is issued.
 
+A dim that does not divide the axis (the planner's ``allow_uneven``: a
+model axis of 3, 5, 6 or 7 ranks, musicgen-medium's 24 heads over 16) is
+split in GSPMD's pieces for the dense and MoE families: ``ceil(n / m)`` a
+rank, the last short, trailing ranks' empty (4 heads over 3: 2, 2, 0).
+A rank's query heads then need not be whole KV groups: the attention
+kernels take the heads' offset into their first KV head's group
+(:meth:`ModelSplit.head_offset`), and where ``wk``/``wv`` are split over
+``model`` and a rank's query heads read KV heads its shard does not hold,
+K and V are gathered over ``model`` (:attr:`ModelSplit.kv_gather`).  Every
+gather of a split range pads each piece to ``ceil(n / m)`` and trims after
+(:func:`gather_from_model`'s ``of``); a rank with an empty piece computes
+zeros (an empty product, a −inf row max) and joins every collective.
+The ``ssm`` and ``hybrid`` families refuse uneven pieces
+(:data:`UNEVEN_SSM`).
+
 Serving on a mesh whose ``pod`` × ``data`` exceeds one rank adds a
 :class:`DataSplit` (:func:`data_split`) beside the ``model`` split: the
 rank's rows of the caches' batch where the plan splits it over the
@@ -114,6 +129,10 @@ HELD = {"embed": 1, "lm_head": 0, "blocks/moe/w_gate": 1,
 _EXPERTS = ("blocks/moe/w_gate", "blocks/moe/w_up", "blocks/moe/w_down")
 SSM = "blocks/ssm/"
 SHARED = "shared_attn/"
+# why the ssm and hybrid families refuse pieces that are not whole SSM heads
+UNEVEN_SSM = ("uneven pieces of the ssm and hybrid families are not ported "
+              "(ROADMAP.md, Queue A item 12: the channels regrouped into "
+              "whole SSM heads before the scan, zamba2's shared block)")
 
 
 def _names_model(spec: tuple | None) -> list[int]:
@@ -160,27 +179,42 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
-def _gather(x: torch.Tensor, dim: int, group, m: int) -> torch.Tensor:
-    x = x.movedim(dim, 0).contiguous()
+def _gather(x: torch.Tensor, dim: int, group, m: int,
+            total: int | None = None) -> torch.Tensor:
+    """Every rank's piece of ``x`` along ``dim``, in rank order.  Pieces of
+    one size where ``total`` is None; else GSPMD's pieces of a dim of
+    ``total`` (``ceil(total / m)`` each, the last short or empty): each is
+    padded to ``ceil(total / m)`` with zeros, gathered, and the padding
+    trimmed (the pieces before the last nonempty one are full, so the
+    first ``total`` rows are the dim in order)."""
+    x = x.movedim(dim, 0)
+    c = x.shape[0] if total is None else -(-total // m)
+    if c != x.shape[0]:
+        x = torch.cat([x, x.new_zeros((c - x.shape[0],) + tuple(x.shape[1:]))])
+    x = x.contiguous()
     out = x.new_empty((m * x.numel(),))
     all_gather_flat(out, x, group)
-    out = out.view((m * x.shape[0],) + tuple(x.shape[1:]))
+    out = out.view((m * c,) + tuple(x.shape[1:]))
+    if total is not None:
+        out = out[:total]
     return out.movedim(0, dim)
 
 
 class _GatherFromModel(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, dim, group, m, r, grad_sum):
-        ctx.dim, ctx.n, ctx.r = dim, x.shape[dim], r
-        ctx.group, ctx.grad_sum = group, grad_sum
-        return _gather(x, dim, group, m)
+    def forward(ctx, x, dim, group, m, r, grad_sum, total):
+        n = x.shape[dim]
+        ctx.dim, ctx.n, ctx.group, ctx.grad_sum = dim, n, group, grad_sum
+        # this rank's first index: r pieces of one size before it
+        ctx.start = r * n if total is None else min(r * -(-total // m), total)
+        return _gather(x, dim, group, m, total)
 
     @staticmethod
     def backward(ctx, g):
         if ctx.grad_sum:
             g = g.contiguous().clone()
             dist.all_reduce(g, group=ctx.group)
-        return (g.narrow(ctx.dim, ctx.r * ctx.n, ctx.n), None, None, None,
+        return (g.narrow(ctx.dim, ctx.start, ctx.n), None, None, None, None,
                 None, None)
 
 
@@ -227,17 +261,22 @@ def sum_over_model(x: torch.Tensor, split: "ModelSplit | None") -> torch.Tensor:
 
 
 def gather_from_model(x: torch.Tensor, dim: int,
-                      split: "ModelSplit | None", grad_sum: bool = False
-                      ) -> torch.Tensor:
-    """Every rank's equal piece of ``x`` along ``dim``, in rank order:
-    forward an all-gather over ``model``, backward the local slice (of the
-    gradient summed over ``model`` first with ``grad_sum``: where what
-    reads the gathered tensor is itself split, each rank's gradient is
-    partial)."""
+                      split: "ModelSplit | None", grad_sum: bool = False,
+                      of: str | None = None) -> torch.Tensor:
+    """Every rank's piece of ``x`` along ``dim``, in rank order: forward an
+    all-gather over ``model``, backward the local slice (of the gradient
+    summed over ``model`` first with ``grad_sum``: where what reads the
+    gathered tensor is itself split, each rank's gradient is partial).
+    ``of`` names the split's range that ``dim`` holds (``"heads"``,
+    ``"kv"``, ``"vocab_out"`` or ``"router"``): the pieces are then
+    GSPMD's of :attr:`ModelSplit.sizes` ``[of]``, padded for the gather
+    and trimmed after it (an uneven split's short and empty pieces); None:
+    every rank's piece has ``x``'s size."""
     if split is None:
         return x
+    total = None if of is None else split.sizes[of]
     return _GatherFromModel.apply(x, dim % x.dim(), split.group, split.m,
-                                  split.r, grad_sum)
+                                  split.r, grad_sum, total)
 
 
 def max_over_model(x: torch.Tensor, split: "ModelSplit | None"
@@ -268,7 +307,23 @@ class ModelSplit:
     not divide the axis, and MLA's latents always) or None.  ``prefix``
     is the leaf paths' (``blocks/``; ``shared_attn/`` in ``block``, the
     split zamba2's shared block runs under, or None where it runs
-    whole)."""
+    whole).
+
+    The ranges are GSPMD's pieces (:func:`local_range`): a dim of n over
+    m ranks in pieces of ``ceil(n / m)``, the last short, trailing ranks'
+    empty where n does not divide (the planner's ``allow_uneven``).
+    ``sizes`` holds the whole dim of each range a rank gathers
+    (``heads``, ``kv``, ``vocab_out``, ``router``), by the range's name
+    (:func:`gather_from_model`'s ``of``).  ``kv_group``: the query
+    heads a KV head serves (G); the local query heads need not be whole
+    groups (:meth:`head_offset`).  ``kv_gather``: the plan shards
+    ``wk``/``wv`` over ``model`` and some rank's query heads read KV heads
+    its shard does not hold (granite-8b at model 3: query heads 11, 11,
+    10 read KV heads [0, 3), [2, 6), [5, 8), the shards hold [0, 3), [3,
+    6), [6, 8)), so every rank gathers K and V (the projections' outputs,
+    in padded pieces, as GSPMD does) and takes ``kv`` from them; the same
+    gather gives every KV head where the cache is split over the
+    sequence."""
 
     m: int
     r: int
@@ -288,6 +343,18 @@ class ModelSplit:
     inner: tuple[int, int] | None = None
     block: "ModelSplit | None" = None
     prefix: str = "blocks/"
+    sizes: dict[str, int] = dataclasses.field(default_factory=dict)
+    kv_group: int = 1
+    kv_gather: bool = False
+
+    def head_offset(self) -> int:
+        """Where the local query heads start in the group of their first
+        KV head: local head h reads local KV head ``(off + h) //
+        kv_group`` (0 where the rank holds whole groups, or heads of one
+        KV head each)."""
+        if self.heads is None or self.kv is None:
+            return 0
+        return self.heads[0] - self.kv[0] * self.kv_group
 
     def sharded(self, path: str) -> bool:
         """Whether the plan shards the leaf at ``path`` over ``model``."""
@@ -445,10 +512,13 @@ def plan_split(cfg, param_specs: Any, m: int, r: int = 0,
     """The split of ``cfg`` over a ``model`` axis of ``m`` ranks that the
     plan's specs ask for, for the rank at ``r`` (no process group: the
     dry-run counts from it); None at ``m = 1`` or where the plan shards
-    nothing over ``model``.  Raises ``NotImplementedError`` for what the
-    split cannot run: a dim that does not divide the axis, SSM channels
-    that are not whole heads a rank, and combinations (a KV-head range the
-    local query heads do not read, a head-split cache without split heads,
+    nothing over ``model``.  A dim that does not divide the axis is split
+    in GSPMD's pieces (the planner's ``allow_uneven``) for the dense and
+    MoE families.  Raises ``NotImplementedError`` for what the split
+    cannot run: an uneven piece of the ``ssm`` and ``hybrid`` families
+    (:data:`UNEVEN_SSM`), SSM channels that are not whole heads a rank,
+    and combinations (``wk``/``wv``/``bk``/``bv`` split over other ranges
+    than their KV heads' pieces, a head-split cache without split heads,
     MLA head leaves, expert leaves or a Mamba2 layer's ``w_x``/``w_z``/
     ``conv_x_*`` split over different ranges or one whole beside
     another split, a state cache whose range is not the weights')."""
@@ -469,13 +539,12 @@ def plan_split(cfg, param_specs: Any, m: int, r: int = 0,
                 f"{p}: the {cfg.family} split takes `model` alone on dim "
                 f"{axis.get(p)}, the plan's spec is {flat[p]}")
         n = whole[p][axis[p]]
-        if n % m:
+        if n % m and cfg.family in ("ssm", "hybrid"):
             raise NotImplementedError(
-                f"{p}: dim {n} split unevenly over model = {m} is not ported "
-                "(the planner's allow_uneven)")
+                f"{p}: dim {n} split unevenly over model = {m}: {UNEVEN_SSM}")
 
-    def rng(p: str) -> tuple[int, int] | None:
-        return (local_range(whole[p][axis[p]], flat[p], m, r, axis[p])
+    def rng(p: str, at: int = r) -> tuple[int, int] | None:
+        return (local_range(whole[p][axis[p]], flat[p], m, at, axis[p])
                 if p in on_model else None)
 
     partial: set[str] = set()
@@ -507,24 +576,31 @@ def plan_split(cfg, param_specs: Any, m: int, r: int = 0,
         return got
 
     def gqa(prefix: str, H: int, KV: int):
-        """(query heads, KV heads) of the GQA leaves under ``prefix``."""
+        """(query heads, KV heads they read, the KV heads of the rank's
+        ``wk``/``wv`` shard or None where they are whole, whether K and V
+        are gathered over ``model``) of the GQA leaves under ``prefix``."""
+        G = H // KV
+        reads = lambda h: (h[0] // G,                             # noqa: E731
+                           max(h[0], h[1] - 1) // G + (h[1] > h[0]))
         heads, kv = rng(prefix + "wq"), None
+        held, gather = rng(prefix + "wk"), False
         if heads is not None:
-            G, hl = H // KV, heads[1] - heads[0]
-            if hl % G and G % hl:
-                raise NotImplementedError(
-                    f"{hl} query heads a rank against G = {G}: the local heads "
-                    "do not read whole KV heads")
-            kv = (heads[0] // G, (heads[1] - 1) // G + 1)
+            kv = reads(heads)
+            # a collective: every rank gathers where any rank must
+            gather = held is not None and any(
+                reads(rng(prefix + "wq", at)) != rng(prefix + "wk", at)
+                for at in range(m))
         follow(prefix + "wq", tuple(prefix + n for n in (
             "wk", "wv", "wo", "bq", "bk", "bv")), "attention",
-            want=lambda p: heads if p.endswith(("/wo", "/bq")) else kv)
-        return heads, kv
+            want=lambda p: (heads if p.endswith(("/wo", "/bq"))
+                            else held if held is not None else kv))
+        return heads, kv, held, gather
 
     if cfg.family in ("ssm", "hybrid"):
         return _ssm_split(cfg, flat, flat_cache if cache_on else None, m, r,
                           rng, follow, gqa, partial)
-    kv = None
+    kv = held = None
+    gather = False
     if cfg.use_mla:
         heads = follow("blocks/attn/w_uq", ("blocks/attn/w_qr",
                        "blocks/attn/w_uk", "blocks/attn/w_uv", "blocks/attn/wo"),
@@ -532,7 +608,17 @@ def plan_split(cfg, param_specs: Any, m: int, r: int = 0,
         if heads is not None:
             partial.update(p for p in _MLA_SHARED if p in flat)
     else:
-        heads, kv = gqa("blocks/attn/", cfg.n_heads_eff, cfg.n_kv_heads_eff)
+        heads, kv, held, gather = gqa("blocks/attn/", cfg.n_heads_eff,
+                                      cfg.n_kv_heads_eff)
+        if heads is None and cache_on and 3 in _names_model(
+                flat_cache.get("k")):
+            # the cache over KV heads, the attention's weights whole: it
+            # runs on the cache's heads, its leaves sliced at use (as
+            # zamba2's shared block does)
+            G = cfg.n_heads_eff // cfg.n_kv_heads_eff
+            kv = local_range(cfg.n_kv_heads_eff, flat_cache["k"], m, r, 3)
+            heads = (kv[0] * G, kv[1] * G)
+            partial.update(p for p in flat if p.startswith("blocks/attn/"))
     ffn = experts = router = shared = None
     if cfg.family == "moe":
         experts = follow("blocks/moe/w_gate", ("blocks/moe/w_up",
@@ -554,11 +640,23 @@ def plan_split(cfg, param_specs: Any, m: int, r: int = 0,
                      "blocks/mlp/w_down"), "dense FFN")
     cache = None
     if cache_on:
-        cache = _cache_split(cfg, flat_cache, flat, on_model, heads, kv, m, r)
+        cache = _cache_split(cfg, flat_cache, heads, kv, m, r)
     return ModelSplit(m=m, r=r, group=None, specs=flat, heads=heads, kv=kv,
                       ffn=ffn, vocab_in=rng("embed"), vocab_out=rng("lm_head"),
                       cache=cache, partial=frozenset(partial), experts=experts,
-                      router=router, shared=shared)
+                      router=router, shared=shared, sizes=_sizes(cfg),
+                      kv_group=cfg.n_heads_eff // cfg.n_kv_heads_eff,
+                      kv_gather=gather)
+
+
+def _sizes(cfg) -> dict[str, int]:
+    """The whole dim of each of :class:`ModelSplit`'s ranges of ``cfg``
+    that a rank gathers (:func:`gather_from_model`'s ``of``)."""
+    out = {"heads": cfg.n_heads_eff, "kv": cfg.n_kv_heads_eff,
+           "vocab_out": cfg.padded_vocab}
+    if cfg.family == "moe":
+        out["router"] = cfg.n_experts
+    return out
 
 
 def _ssm_split(cfg, flat: dict, flat_cache: dict | None, m: int, r: int,
@@ -570,7 +668,7 @@ def _ssm_split(cfg, flat: dict, flat_cache: dict | None, m: int, r: int,
     if rng(SSM + "w_x") is not None and Hs % m:
         raise NotImplementedError(
             f"{SSM}w_x: dim 1 ({cfg.d_inner} channels, {Hs} SSM heads of {P}) "
-            f"over model = {m} is not whole heads a rank")
+            f"over model = {m} is not whole heads a rank: {UNEVEN_SSM}")
     inner = follow(SSM + "w_x", (SSM + "w_z", SSM + "conv_x_w",
                                  SSM + "conv_x_b"), "Mamba2 layer",
                    whole_ok=False)
@@ -583,7 +681,7 @@ def _ssm_split(cfg, flat: dict, flat_cache: dict | None, m: int, r: int,
     if cfg.family == "hybrid":
         A = SHARED + "attn/"
         H, KV = cfg.n_heads, cfg.n_kv_heads
-        heads, kv = gqa(A, H, KV)
+        heads, kv, _, _ = gqa(A, H, KV)
         ffn = follow(SHARED + "mlp/w_gate", (SHARED + "mlp/w_up",
                                              SHARED + "mlp/w_down"),
                      "shared block's FFN")
@@ -608,7 +706,7 @@ def _ssm_split(cfg, flat: dict, flat_cache: dict | None, m: int, r: int,
         if heads is not None or ffn is not None:
             block = ModelSplit(m=m, r=r, group=None, specs=flat, heads=heads,
                                kv=kv, ffn=ffn, vocab_in=None, vocab_out=None,
-                               cache=cache, prefix=SHARED)
+                               cache=cache, prefix=SHARED, kv_group=H // KV)
     cache = None
     if flat_cache is not None:
         _same_range("h", _cache_range(flat_cache, "h", Hs, 2, m, r), ssm)
@@ -621,7 +719,7 @@ def _ssm_split(cfg, flat: dict, flat_cache: dict | None, m: int, r: int,
     return ModelSplit(m=m, r=r, group=None, specs=flat, heads=None, kv=None,
                       ffn=None, vocab_in=rng("embed"), vocab_out=rng("lm_head"),
                       cache=cache, partial=frozenset(partial), ssm=ssm,
-                      inner=inner, block=block)
+                      inner=inner, block=block, sizes=_sizes(cfg))
 
 
 def _cache_range(flat_cache: dict, key: str, n: int, dim: int, m: int,
@@ -650,8 +748,7 @@ def _same_range(key: str, got, want) -> None:
             "weights compute (None: whole)")
 
 
-def _cache_split(cfg, flat_cache: dict, flat: dict, on_model: list,
-                 heads, kv, m: int, r: int) -> str:
+def _cache_split(cfg, flat_cache: dict, heads, kv, m: int, r: int) -> str:
     """How the plan's cache specs split the serving caches: ``"heads"`` or
     ``"seq"``; raises for what the split cannot serve."""
     if cfg.use_mla:
@@ -672,10 +769,6 @@ def _cache_split(cfg, flat_cache: dict, flat: dict, on_model: list,
             cfg.n_kv_heads_eff, flat_cache["k"], m, r, 3) != kv):
         raise NotImplementedError(
             "a cache split over KV heads needs the query heads split alike")
-    if cache == "seq" and "blocks/attn/wk" in on_model:
-        raise NotImplementedError(
-            "a cache split over the sequence needs wk/wv whole on every rank "
-            "(each rank writes the new row of every KV head)")
     return cache
 
 

@@ -1223,3 +1223,51 @@ def test_profiling_launches_the_chain_and_segment_kernels(card, tmp_path):
     want = pa.batch(64)(**{name: X})
     for k, v in pm.batch(64)(**{name: X}).items():
         assert torch.equal(v, want[k]), k
+
+
+# a rank's query heads under an uneven split over `model` (the planner's
+# allow_uneven): (H, KV, G, offset, dh), head h reading KV head (offset + h)
+# // G -- granite-8b's and qwen2.5-3b's ranks at model 3, and small shapes
+OFFSET_CASES = ((11, 4, 4, 3, 128), (6, 2, 8, 6, 128), (4, 1, 8, 4, 128),
+                (3, 2, 2, 1, 64), (5, 2, 6, 4, 96))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("H,KV,G,off,dh", OFFSET_CASES)
+def test_attention_kernels_with_a_head_offset_match_plain(card, H, KV, G, off,
+                                                          dh, dtype):
+    """The forward (``fa_tc_kernel`` for bfloat16 where it routes,
+    ``fa_kernel``), the backward on both routes and the decode kernel, with
+    a head offset, against their plain versions: float32 1e-5 of the
+    largest (the backward 1e-4, ``chip_smoke.FLASH_BWD_F32_REL``: its sums
+    run in another order), bfloat16 2 bf16 ulps of the largest."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_fused)
+    from repro_torch.kernels.ref import (decode_attention_ref,
+                                         flash_attention_bwd_ref,
+                                         flash_attention_ref)
+
+    gen = torch.Generator(device=card).manual_seed(H + off)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=card).to(dtype)  # noqa: E731
+    kw = dict(group=G, head_offset=off)
+
+    def close(a, b, rel=1e-5):
+        a, b = a.float(), b.float()
+        lim = rel if dtype == torch.float32 else 2 ** -7
+        return float((a - b).abs().max()) <= lim * float(b.abs().max())
+
+    Sq = 300
+    q, k, v, g = rnd(2, Sq, H, dh), rnd(2, Sq, KV, dh), rnd(2, Sq, KV, dh), \
+        rnd(2, Sq, H, dh)
+    assert close(flash_attention_fused(q, k, v, round_p=False, **kw),
+                 flash_attention_ref(q, k, v, **kw))
+    want = flash_attention_bwd_ref(q, k, v, g, **kw)
+    for route in (None, "simt"):
+        got = flash_attention_bwd(q, k, v, g, route=route, **kw)
+        assert all(close(a, b, 1e-4) for a, b in zip(got, want)), route
+    qd, kd, vd = rnd(3, H, dh), rnd(3, 512, KV, dh), rnd(3, 512, KV, dh)
+    lens = torch.tensor([1, 200, 512], dtype=torch.int32, device=card)
+    assert close(decode_attention(qd, kd, vd, lens, round_p=False, **kw),
+                 decode_attention_ref(qd, kd, vd, lens, **kw))

@@ -543,7 +543,7 @@ class _Mesh:
 def test_plan_split_takes_the_moe_family(arch, m):
     """``plan_split`` and ``Transformer(split=)`` run the MoE family at
     model 2 and 4 under both spec sets; a dim that does not divide the axis
-    raises as the dense split does."""
+    is split in GSPMD's pieces, as the dense split's."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.models.transformer import Transformer
     from repro_torch.sharding.spec import P
@@ -563,10 +563,10 @@ def test_plan_split_takes_the_moe_family(arch, m):
                 model = Transformer(cfg, "meta", sp)
                 assert tuple(model.blocks[0].moe["router"].shape) == (
                     64, 8 // m if which == "smoke" else 8)
-    # 8 experts over 3 ranks
+    # 8 experts over 3 ranks: pieces of 3, 3 and 2
     specs = {"blocks": {"moe": {"w_gate": P(None, "model", None, None)}}}
-    with pytest.raises(NotImplementedError, match="unevenly"):
-        plan_split(cfg, specs, 3, 0)
+    assert [plan_split(cfg, specs, 3, r).experts for r in range(3)] == [
+        (0, 3), (3, 6), (6, 8)]
 
 
 def test_plan_split_refuses_shared_experts_split_alone():

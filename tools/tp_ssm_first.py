@@ -3,6 +3,13 @@ one-process float32 step and the split's ranks each lie from the exact
 first update, on one card.
 
     python3 tools/tp_ssm_first.py
+    python3 tools/tp_ssm_first.py --train qwen2.5-3b 4 --train granite-8b 2 \
+        --model 3 --uneven           # phase tp-uneven's train runs
+
+The options run other train runs of ``chip_smoke``'s train job the same
+way: ``--train ARCH LAYERS`` (repeated; default ``TPS_TRAIN``), ``--model``
+ranks (default 2), ``--uneven`` for the planner's ``allow_uneven`` plan
+(phase tp-uneven's, one step).
 
 For each model of ``chip_smoke.TPS_TRAIN`` (mamba2-1.3b x4, zamba2-7b x6 at
 every width, phase tp-ssm's cell: S ``TP_S``, batch ``TP_BATCH`` in
@@ -114,14 +121,15 @@ def distance(got: dict, want: dict) -> dict:
             / max(float(w.abs().max()), 1e-300) for p, w in want.items()}
 
 
-def child(rank: int, world: int, tmp: str, device: str) -> None:
-    """One rank: phase tp-ssm's train jobs."""
+def child(rank: int, world: int, tmp: str, device: str, jobs) -> None:
+    """One rank: the train jobs."""
     sys.path.insert(0, os.path.join(ROOT, "src"))
-    cs.tp_child(rank, world, tmp, [("train", (1, 2), a, n)
-                                   for a, n in cs.TPS_TRAIN], device)
+    cs.tp_child(rank, world, tmp, jobs, device)
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
+    import argparse
+
     import torch
     import torch.multiprocessing as mp
 
@@ -129,6 +137,18 @@ def main() -> int:
     from repro_torch.launch.steps import build_cell
     from repro_torch.sharding.spec import MeshShape
 
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--train", nargs=2, action="append",
+                    metavar=("ARCH", "LAYERS"))
+    ap.add_argument("--model", type=int, default=2)
+    ap.add_argument("--uneven", action="store_true")
+    args = ap.parse_args(argv)
+    runs = ([(a, int(n)) for a, n in args.train] if args.train
+            else list(cs.TPS_TRAIN))
+    m, uneven = args.model, args.uneven
+    steps = cs.TPU_STEPS if uneven else cs.TP_STEPS
+    jobs = [("train", (1, m), a, n) + ((True, steps) if uneven else ())
+            for a, n in runs]
     if not torch.cuda.is_available():
         print("CUDA is not available; this run needs a GPU", flush=True)
         return 1
@@ -139,31 +159,34 @@ def main() -> int:
     print(card, flush=True)
     build.build(("flash_attention", "decode_attention", "gemv"))
     dev = torch.device("cuda", 0)
-    out = {"card": card, "limit": cs.TPS_FIRST_REL, "models": {}}
+    out = {"card": card, "limit": cs.TPS_FIRST_REL, "model": m,
+           "uneven": uneven, "models": {}}
     with tempfile.TemporaryDirectory(prefix="mafia-tps-first-") as tmp:
-        for arch, layers in cs.TPS_TRAIN:
-            cs.tp_train_ref(dev, tmp, arch, layers)
+        for arch, layers in runs:
+            cs.tp_train_ref(dev, tmp, arch, layers, m, uneven, steps)
             f32 = [torch.load(os.path.join(tmp, f"tp_ref_first_{arch}_{r}.pt"))
-                   for r in range(2)]
+                   for r in range(m)]
             m64 = first_float64(dev, arch, layers)
             spec, cell, cfg = cs._tp_train_cfg(arch, layers)
-            plan = build_cell(spec, cell, MeshShape((1, 2), ("data", "model"))).plan
-            cs.tp_save_first(tmp, arch, cfg, plan, m64)   # the ranks' reference
+            plan = build_cell(spec, cell, MeshShape((1, m), ("data", "model")),
+                              allow_uneven=uneven).plan
+            cs.tp_save_first(tmp, arch, cfg, plan, m64, m)  # the ranks' reference
             f64 = [torch.load(os.path.join(tmp, f"tp_ref_first_{arch}_{r}.pt"))
-                   for r in range(2)]
+                   for r in range(m)]
             out["models"][arch] = {"layers": layers, "f32_one_process":
-                                   [distance(f32[r], f64[r]) for r in range(2)]}
+                                   [distance(f32[r], f64[r]) for r in range(m)]}
             del m64
             torch.cuda.empty_cache()
-        mp.spawn(child, args=(2, tmp, str(dev)), nprocs=2, join=True)
-        for arch, layers in cs.TPS_TRAIN:
+        mp.spawn(child, args=(m, tmp, str(dev), jobs), nprocs=m, join=True)
+        for job in jobs:
+            arch, layers = job[2], job[3]
             rec = out["models"][arch]
             rec["ranks"] = [torch.load(os.path.join(
-                tmp, f"tp_train_{(1, 2)}_{arch}_{layers}_{r}.pt"),
-                weights_only=False)["first_err"] for r in range(2)]
+                tmp, f"tp_{job[0]}_{'_'.join(map(str, job[1:]))}_{r}.pt"),
+                weights_only=False)["first_err"] for r in range(m)]
             print(f"{arch} x{layers}: first moments against the float64 step "
                   "(of each leaf's largest), furthest leaves first", flush=True)
-            for r in range(2):
+            for r in range(m):
                 one, rank = rec["f32_one_process"][r], rec["ranks"][r]
                 worst = sorted(one, key=lambda p: -max(one[p], rank[p]))[:6]
                 for p in worst:
